@@ -4,26 +4,48 @@
 
 Run from the root of a checkout on a machine with a CUDA card.  It
 builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
-``nvcc`` (into the git-ignored ``paddle_tpu_torch/_build/``) and then:
+``nvcc`` (one process per source, all at once, into the git-ignored
+``paddle_tpu_torch/_build/``) and then:
 
 1. prints the card (``nvidia-smi`` name and power limit), the CUDA
    version and the kernel build time; turns TF32 off for the fp32
    phases;
-2. holds the paged-attention kernel against its plain PyTorch version
-   at GPT-2-small decode shapes with ragged lengths and scattered page
-   tables: fp32 within 1e-5 max abs error, bf16 within 2e-2 of the
-   plain version computed in fp32 on the same bf16 values; the empty
-   row must be exactly 0.  Times the kernel, the plain version and,
-   as a yardstick only, ``scaled_dot_product_attention`` on
+2. ``[kernel]`` holds the paged-attention kernel against its plain
+   PyTorch version at GPT-2-small decode shapes with ragged lengths and
+   scattered page tables: fp32 within 1e-5 max abs error, bf16 within
+   2e-2 of the plain version computed in fp32 on the same bf16 values;
+   the empty row must be exactly 0.  Times the kernel, the plain
+   version and, as a yardstick only, ``scaled_dot_product_attention`` on
    pre-gathered K/V (CUDA events, median per launch, L2 flushed
    between launches);
-3. serves GPT-2-small (12 layers, hidden 768, 12 heads, vocab 50304,
+3. ``[flash]`` holds the three flash-attention kernels (forward, dq,
+   dk/dv) against their plain versions: at the training path's shapes
+   (B=8, S=1024, H=12, D=64, causal) as strided ``[B, S, H, D]`` views
+   of a fused qkv tensor and in the ``[B*H, S, D]`` layout, in bf16
+   (within 2e-2 x max(|ref|, 1)) and fp32 (within 1e-4 x max(|ref|, 1));
+   then at awkward shapes in fp32: S=1000 (ragged tiles), non-causal
+   Sq=384 != Sk=640, D=128, segment ids with fully-masked rows (output
+   exactly 0), and GQA through the public ``flash_attention`` with
+   gradients through autograd.  Times each kernel, its plain version
+   and, as a yardstick only, ``scaled_dot_product_attention`` forward
+   and forward+backward at the main shape in bf16;
+4. serves GPT-2-small (12 layers, hidden 768, 12 heads, vocab 50304,
    random weights from ``--seed``) through ``LLMServer`` in fp32:
    12 greedy requests over 8 slots; checks every token count, that
    the kernel launched exactly 12 times per decode dispatch, and that
    two requests' tokens equal the sequential ``reference_decode``;
-4. serves the same model in bf16 and checks counts and launches;
-5. prints the kernels' JSON line, the card line, and last the line
+5. serves the same model in bf16 and checks counts and launches;
+6. ``[train]`` trains GPT-2-small at full width through
+   ``Model.fit``: B=8, S=1024, dropout 0, ``amp.decorate(level="O2",
+   dtype="bfloat16")``, ``AdamW(1e-4, multi_precision=True)``, random
+   weights and tokens from ``--seed``, labels = tokens rolled by one,
+   TRAIN_STEPS steps on one repeated batch.  Checks finite losses, the
+   last below the first, each flash kernel launched 12 times per step
+   and no plain flash call; prints step ms, tokens/s and peak memory;
+7. ``[train fp32 parity]`` trains a small GPT (2 layers, hidden 128,
+   head dim 64, S=256) for three steps on the card and on the CPU's
+   plain path from the same weights and compares the losses;
+8. prints the kernels' JSON line, the card line, and last the line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero; without a card,
@@ -44,8 +66,13 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside tensor cores
+BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 FP32_TOL = 1e-5
 BF16_TOL = 2e-2
+FLASH_FP32_TOL = 1e-4            # x max(|ref|, 1); fp32 sums reordered
+FLASH_BF16_TOL = 2e-2            # x max(|ref|, 1); bf16 inputs/outputs
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 1024, 8
+PARITY_TOL = 1e-4                # relative, per loss; cuBLAS vs CPU sums
 
 
 def card_line() -> str:
@@ -240,6 +267,373 @@ def serving_phase(torch, seed, dtype, tag, check_oracle):
             "tokens_per_s": n_tok / wall}
 
 
+# ---------------------------------------------------------------------------
+# flash attention: the three kernels against their plain versions
+# ---------------------------------------------------------------------------
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+FLASH_REPLACES = {
+    "flash_fwd": "paddle_tpu/ops/pallas_ops.py:795",
+    "flash_bwd_dq": "paddle_tpu/ops/pallas_ops.py:883",
+    "flash_bwd_dkv": "paddle_tpu/ops/pallas_ops.py:959",
+}
+
+
+def _err(got, ref):
+    """(max abs error, error / max(|ref|, 1))."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs().max().item()
+    return err, err / max(ref.abs().max().item(), 1.0)
+
+
+def flash_run(fk, q, k, v, g, causal, qseg=None, kseg=None):
+    """The three kernels in the order the backward runs them."""
+    out, lse = fk.flash_fwd(q, k, v, causal, qseg, kseg)
+    dq, delta = fk.flash_bwd_dq(q, k, v, out, lse, g, causal, qseg, kseg)
+    dk, dv = fk.flash_bwd_dkv(q, k, v, g, lse, delta, causal, qseg, kseg)
+    return {"out": out, "lse": lse, "delta": delta, "dq": dq, "dk": dk,
+            "dv": dv}
+
+
+def flash_plain(torch, fk, q, k, v, g, causal, qseg=None, kseg=None):
+    """The plain forward in fp32 on the same values, and dq/dk/dv of it
+    through autograd."""
+    leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    out, lse = fk.flash_attention_reference(*leaves, causal, qseg, kseg)
+    dq, dk, dv = torch.autograd.grad(out, leaves, g.float())
+    delta = (g.float() * out.detach()).sum(-1).permute(0, 2, 1)
+    return {"out": out.detach(), "lse": lse.detach(), "delta": delta,
+            "dq": dq, "dk": dk, "dv": dv}
+
+
+def flash_compare(torch, fk, tag, tol, q, k, v, g, causal, qseg=None,
+                  kseg=None):
+    got = flash_run(fk, q, k, v, g, causal, qseg, kseg)
+    ref = flash_plain(torch, fk, q, k, v, g, causal, qseg, kseg)
+    torch.cuda.synchronize()
+    errs = {}
+    for name in ("out", "lse", "delta", "dq", "dk", "dv"):
+        check(bool(torch.isfinite(got[name].float()).all()),
+              f"[flash] {tag}: {name} not finite")
+        err, rel = _err(got[name], ref[name])
+        check(rel <= tol, f"[flash] {tag}: {name} error {err:.3e} "
+                          f"(relative {rel:.3e}) > {tol}")
+        errs[name] = err
+    print(f"[flash] {tag}: max_abs_err " + " ".join(
+        f"{n}={e:.3e}" for n, e in errs.items()) + f" (tol {tol} x "
+          "max(|ref|, 1))", flush=True)
+    return got, errs
+
+
+def flash_phase(torch, seed):
+    from paddle_tpu_torch.nn.functional import flash_attention
+    from paddle_tpu_torch.ops import flash_attention_kernel as fk
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    B, S, H, D = TRAIN_B, TRAIN_S, 12, 64
+    res = {}
+    for dtype, tol in ((torch.bfloat16, FLASH_BF16_TOL),
+                       (torch.float32, FLASH_FP32_TOL)):
+        name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        qkv = rnd(B, S, 3, H, D, dtype=dtype)          # GPT's layout
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        g = rnd(B, S, H, D, dtype=dtype)
+        _, errs = flash_compare(torch, fk, f"{name} [B,S,H,D] views "
+                                f"B={B} S={S} H={H} D={D} causal", tol,
+                                q, k, v, g, True)
+        res[name] = errs
+
+        def bh(t):
+            return t.permute(0, 2, 1, 3).reshape(B * H, S, 1, D)
+        flash_compare(torch, fk, f"{name} [B*H,S,D] layout", tol,
+                      bh(q), bh(k), bh(v), bh(g), True)
+        if dtype == torch.bfloat16:
+            main = (q, k, v, g)
+
+    tol = FLASH_FP32_TOL
+    flash_compare(torch, fk, "S=1000 causal (ragged)", tol,
+                  *[rnd(2, 1000, 4, 64) for _ in range(4)], True)
+    q, g = rnd(2, 384, 4, 64), rnd(2, 384, 4, 64)
+    flash_compare(torch, fk, "non-causal Sq=384 Sk=640", tol, q,
+                  rnd(2, 640, 4, 64), rnd(2, 640, 4, 64), g, False)
+    flash_compare(torch, fk, "D=128 causal S=512", tol,
+                  *[rnd(2, 512, 4, 128) for _ in range(4)], True)
+    qseg = torch.zeros((2, 300), dtype=torch.int32, device=dev)
+    qseg[:, 150:] = 1
+    qseg[:, 7] = 9                                   # sees no key
+    kseg = torch.zeros((2, 300), dtype=torch.int32, device=dev)
+    kseg[:, 150:] = 1
+    got, _ = flash_compare(torch, fk, "segment ids + fully-masked row",
+                           tol, *[rnd(2, 300, 4, 64) for _ in range(4)],
+                           False, qseg, kseg)
+    check(bool((got["out"][:, 7] == 0).all()), "[flash] masked row not 0")
+    check(bool((got["lse"][:, :, 7] == fk.LSE_FLOOR).all()),
+          "[flash] masked row lse not the floor")
+    # GQA through the public function, gradients through autograd
+    q = rnd(2, 256, 8, 64).requires_grad_()
+    kv = [rnd(2, 256, 2, 64).requires_grad_() for _ in range(2)]
+    g = rnd(2, 256, 8, 64)
+    out, _ = flash_attention(q, *kv, causal=True)
+    grads = torch.autograd.grad(out, [q, *kv], g)
+    ref, _ = fk.flash_attention_reference(
+        q, *[torch.repeat_interleave(t, 4, dim=2) for t in kv], True)
+    rgrads = torch.autograd.grad(ref, [q, *kv], g)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), (out, *grads),
+                          (ref, *rgrads)):
+        err, rel = _err(a, b)
+        check(rel <= tol, f"[flash] GQA {name} error {err:.3e}")
+    print(f"[flash] GQA Hq=8 Hkv=2 through flash_attention: out and "
+          f"grads within {tol}", flush=True)
+
+    # times at the main shape, bf16, the GPT layout
+    q, k, v, g = main
+    fwd = fk.flash_fwd(q, k, v, True)
+    dq_res = fk.flash_bwd_dq(q, k, v, fwd[0], fwd[1], g, True)
+    flush_buf = torch.empty(128 * 1024 * 1024 // 4, device=dev)
+    flush = flush_buf.zero_
+    calls = {
+        "flash_fwd": (lambda: fk.flash_fwd(q, k, v, True),
+                      lambda: fk.flash_attention_reference(q, k, v, True)),
+        "flash_bwd_dq": (
+            lambda: fk.flash_bwd_dq(q, k, v, fwd[0], fwd[1], g, True),
+            lambda: fk.flash_bwd_dq_reference(q, k, v, fwd[0], fwd[1], g,
+                                              True)),
+        "flash_bwd_dkv": (
+            lambda: fk.flash_bwd_dkv(q, k, v, g, fwd[1], dq_res[1], True),
+            lambda: fk.flash_bwd_dkv_reference(q, k, v, g, fwd[1],
+                                               dq_res[1], True)),
+    }
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt, gt = [t.transpose(1, 2) for t in (q, k, v, g)]
+    leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+
+    def sdpa_fwd_bwd():
+        o = sdpa(*leaves, is_causal=True)
+        torch.autograd.grad(o, leaves, gt)
+
+    with torch.no_grad():
+        sdpa_ms = time_cuda(torch, lambda: sdpa(qt, kt, vt, is_causal=True),
+                            20, flush=flush)
+    sdpa_fb_ms = time_cuda(torch, sdpa_fwd_bwd, 20, flush=flush)
+    for name, (kern, plain) in calls.items():
+        with torch.no_grad():
+            ms = time_cuda(torch, kern, 20, flush=flush)
+            plain_ms = time_cuda(torch, plain, 5, warmup=2, flush=flush)
+        flops, nbytes = fk.kernel_work(name, B, H, S, S, D, True, 2)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS_PER_S * 1e3
+        err_key = {"flash_fwd": "out", "flash_bwd_dq": "dq",
+                   "flash_bwd_dkv": "dk"}[name]
+        max_err = (max(res["bf16"]["dk"], res["bf16"]["dv"])
+                   if name == "flash_bwd_dkv" else res["bf16"][err_key])
+        res[name] = {
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": sdpa_ms if name == "flash_fwd" else None,
+            "max_abs_err": max_err, "flops": flops, "bytes": nbytes,
+            "tflops": flops / (ms * 1e-3) / 1e12,
+        }
+        r = res[name]
+        print(f"[flash] {name} bf16 B={B} S={S} H={H} D={D} causal: "
+              f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} bound_ms="
+              f"{r['bound_ms']:.5f} ({r['bound_by']}: {flops} flop, "
+              f"{nbytes} bytes) achieved {r['tflops']:.2f} TFLOP/s",
+              flush=True)
+    res["sdpa_fwd_ms"], res["sdpa_fwd_bwd_ms"] = sdpa_ms, sdpa_fb_ms
+    print(f"[flash] library yardstick (not used by the port): sdpa "
+          f"forward {sdpa_ms:.5f} ms, forward+backward {sdpa_fb_ms:.5f} "
+          f"ms; flash kernels forward+dq+dkv "
+          f"{sum(res[n]['ms'] for n in FLASH_KERNELS):.5f} ms", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# training: GPT-2-small through Model.fit
+# ---------------------------------------------------------------------------
+def _train_model(torch, cfg, device, seed, o2):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import GPTForCausalLM
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    net = GPTForCausalLM(cfg, device=device, generator=gen)
+    opt = paddle.optimizer.AdamW(learning_rate=1e-4,
+                                 parameters=net.parameters(),
+                                 multi_precision=True)
+    if o2:
+        paddle.amp.decorate(net, opt, level="O2", dtype="bfloat16")
+    return net, opt
+
+
+def train_phase(torch, seed):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import GPTPretrainingCriterion, gpt2_small
+    from paddle_tpu_torch.ops import flash_attention_kernel as fk
+    cfg = gpt2_small(hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0)
+    net, opt = _train_model(torch, cfg, "cuda", seed, o2=True)
+    model = paddle.Model(net, device="cuda")
+    model.prepare(opt, GPTPretrainingCriterion())
+    rng = np.random.default_rng(seed + 2)
+    x = rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S)).astype(np.int64)
+    batch = (torch.from_numpy(x).pin_memory(),
+             torch.from_numpy(np.roll(x, -1, axis=1)).pin_memory())
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class StepClock(Callback):
+        """Waits for the device at each step end and stamps it (the
+        measurement's sync, not the library's); keeps the losses."""
+
+        def __init__(self):
+            super().__init__()
+            self.stamps, self.losses = [], []
+
+        def on_train_begin(self, logs=None):
+            torch.cuda.synchronize()
+            self.stamps.append(time.monotonic())
+
+        def on_train_batch_end(self, step, logs=None):
+            torch.cuda.synchronize()
+            self.stamps.append(time.monotonic())
+            self.losses.append(float(logs["loss"][0]))
+
+    clock = StepClock()
+    torch.cuda.reset_peak_memory_stats()
+    fk.reset_counts()
+    model.fit([batch] * TRAIN_STEPS, epochs=1, num_iters=TRAIN_STEPS,
+              verbose=0, callbacks=[clock])
+    launches = {f.__name__: f.launches for f in fk.WRAPPERS}
+    plain = {f.__name__: f.plain_calls for f in fk.WRAPPERS}
+    peak = torch.cuda.max_memory_allocated()
+    losses = clock.losses
+    L = cfg.num_hidden_layers
+    check(len(losses) == TRAIN_STEPS, f"[train] {len(losses)} steps")
+    check(all(np.isfinite(losses)), f"[train] loss not finite: {losses}")
+    check(losses[-1] < losses[0], f"[train] loss did not fall: {losses}")
+    for name, n in launches.items():
+        check(n == TRAIN_STEPS * L, f"[train] {name} launched {n} times, "
+              f"expected {TRAIN_STEPS} steps x {L} layers")
+    check(not any(plain.values()), f"[train] plain flash calls {plain}")
+    dtypes = {p.dtype for p in net.parameters()}
+    check(dtypes == {torch.bfloat16, torch.float32},
+          f"[train] O2 parameter dtypes {dtypes}")
+    steps_ms = np.diff(clock.stamps) * 1e3
+    steady = steps_ms[2:]
+    step_ms = float(np.median(steady))
+    tok_s = TRAIN_B * TRAIN_S / (step_ms * 1e-3)
+    print(f"[train] GPT-2-small L=12 D=768 H=12 V=50304 B={TRAIN_B} "
+          f"S={TRAIN_S} bf16 O2 AdamW: {TRAIN_STEPS} steps, losses "
+          f"{[round(v, 6) for v in losses]}; step_ms first="
+          f"{steps_ms[0]:.3f} median(steps 3+)={step_ms:.3f} -> "
+          f"{tok_s:.1f} tokens/s; peak_mem_gib="
+          f"{peak / 2**30:.3f}; launches {launches}; plain calls {plain}",
+          flush=True)
+    profile_steps(torch, model, batch, 2)
+    return {"launches": launches}
+
+
+def _kernel_group(name):
+    if any(k in name for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                                "flash_bwd_dkv_kernel")):
+        return "flash kernels"
+    low = name.lower()
+    if any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet", "cublas")):
+        return "matmul (cuBLAS)"
+    if "foreach" in low or "multi_tensor" in low:
+        return "optimizer (foreach)"
+    return "other (elementwise, norms, loss, copies)"
+
+
+def profile_steps(torch, model, batch, steps):
+    """``torch.profiler`` over ``steps`` more train steps: device time
+    by kernel group, the busiest kernels, and the share of the wall
+    time the device sat idle (1 - kernel time / wall; one stream, so
+    kernels do not overlap)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(steps):
+            model.train_batch([batch[0]], [batch[1]])
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        kernels[e.key] = kernels.get(e.key, 0.0) + us
+    busy = sum(kernels.values())
+    groups = {}
+    for name, us in kernels.items():
+        g = _kernel_group(name)
+        groups[g] = groups.get(g, 0.0) + us
+    if busy <= 0:
+        print("[train profile] torch.profiler recorded no device time",
+              flush=True)
+        return
+    print(f"[train profile] {steps} steps: wall {wall_us / steps / 1e3:.3f}"
+          f" ms/step, device busy {busy / steps / 1e3:.3f} ms/step, idle "
+          f"share {1 - busy / wall_us:.4f}", flush=True)
+    for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"[train profile]   {g}: {us / steps / 1e3:.3f} ms/step "
+              f"({us / busy:.4f} of device time)", flush=True)
+    for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"[train profile]   top: {us / steps / 1e3:.3f} ms/step "
+              f"{name[:110]}", flush=True)
+
+
+def train_parity_phase(torch, seed):
+    """Three fp32 steps of a small GPT on the card (kernels) and on the
+    CPU (plain versions) from the same weights; losses within
+    PARITY_TOL relative (cuBLAS and the CPU sum in other orders; TF32
+    is off)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import GPTPretrainingCriterion, gpt_tiny
+    cfg = gpt_tiny(hidden_size=128, num_attention_heads=2,
+                   intermediate_size=256, max_position_embeddings=256)
+    rng = np.random.default_rng(seed + 3)
+    batches = []
+    for _ in range(3):
+        x = rng.integers(0, cfg.vocab_size, (2, 256)).astype(np.int64)
+        batches.append((torch.from_numpy(x),
+                        torch.from_numpy(np.roll(x, -1, axis=1))))
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class Keep(Callback):
+        def __init__(self):
+            super().__init__()
+            self.losses = []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(float(logs["loss"][0]))
+
+    cpu_net, _ = _train_model(torch, cfg, "cpu", seed, o2=False)
+    losses = {}
+    for device in ("cpu", "cuda"):
+        net, opt = _train_model(torch, cfg, device, seed, o2=False)
+        net.load_state_dict(cpu_net.state_dict())
+        model = paddle.Model(net, device=device)
+        model.prepare(opt, GPTPretrainingCriterion())
+        keep = Keep()
+        model.fit(batches, epochs=1, verbose=0, callbacks=[keep])
+        losses[device] = keep.losses
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                losses["cpu"])]
+    check(len(rel) == 3 and max(rel) <= PARITY_TOL,
+          f"[train fp32 parity] losses cuda {losses['cuda']} vs cpu "
+          f"{losses['cpu']}")
+    print(f"[train fp32 parity] GPT L=2 D=128 H=2 Dh=64 S=256: losses "
+          f"cuda {losses['cuda']} cpu {losses['cpu']} (max relative "
+          f"diff {max(rel):.3e}, tol {PARITY_TOL})", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -274,8 +668,11 @@ def main(argv=None) -> int:
                 print(f"[ptxas {name}] {line.strip()}", flush=True)
 
     kres = kernel_phase(torch, args.seed)
+    fres = flash_phase(torch, args.seed)
     s32 = serving_phase(torch, args.seed, torch.float32, "fp32", True)
     s16 = serving_phase(torch, args.seed, torch.bfloat16, "bf16", False)
+    tres = train_phase(torch, args.seed)
+    train_parity_phase(torch, args.seed)
 
     kernels = [{
         "name": "paged_ragged_attention", "route": "cuda",
@@ -290,6 +687,18 @@ def main(argv=None) -> int:
         "bf16_max_abs_err": kres["bf16_max_abs_err"],
         "bf16_launches": s16["launches"],
     }]
+    for name in FLASH_KERNELS:
+        r = fres[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+            "replaces": FLASH_REPLACES[name],
+            "launches": tres["launches"][name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "fp32_max_abs_err": max(fres["fp32"].values()),
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

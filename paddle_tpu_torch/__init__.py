@@ -9,13 +9,26 @@ git-ignored ``_build/`` directory (``_build.py``).
 
 Device rule: entry points run on the card unless the caller asks for
 the CPU.  :func:`resolve_device` is the one place that rule lives.
+
+Training (``hapi.Model.fit``)::
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion, gpt_tiny)
+    paddle.seed(0)
+    net = GPTForCausalLM(gpt_tiny(), device="cuda")
+    opt = paddle.optimizer.AdamW(1e-4, parameters=net.parameters())
+    model = paddle.Model(net, device="cuda")
+    model.prepare(opt, GPTPretrainingCriterion())
+    model.fit(batches, epochs=1, verbose=1)   # batches: [(ids, labels)]
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "Model", "seed", "amp", "optimizer", "nn",
+           "io"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -32,3 +45,9 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+# submodules import resolve_device, so they load after it is defined
+from . import amp, io, nn, optimizer  # noqa: E402
+from .framework.random import seed  # noqa: E402
+from .hapi import Model  # noqa: E402

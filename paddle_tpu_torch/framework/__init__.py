@@ -1,5 +1,6 @@
-"""Framework helpers of the port (lazy host views only so far)."""
+"""Framework helpers of the port: lazy host views and random state."""
 
 from .lazy import LazyScalar, LazyStack
+from .random import default_generator, seed
 
-__all__ = ["LazyScalar", "LazyStack"]
+__all__ = ["LazyScalar", "LazyStack", "seed", "default_generator"]

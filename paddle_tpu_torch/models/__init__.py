@@ -1,7 +1,11 @@
-"""Model configurations of the port (data only in the serving slice)."""
+"""Model zoo of the port: GPT (training model and configurations)."""
 
-from .gpt import (GPTConfig, gpt2_small, gpt3_1p3b, gpt_tiny,
-                  init_decode_weights_numpy)
+from .gpt import (GPTAttention, GPTConfig, GPTDecoderLayer, GPTEmbeddings,
+                  GPTForCausalLM, GPTMLP, GPTModel, GPTPretrainingCriterion,
+                  gpt2_small, gpt3_1p3b, gpt_tiny, init_decode_weights_numpy,
+                  state_dict_from_jax)
 
 __all__ = ["GPTConfig", "gpt_tiny", "gpt2_small", "gpt3_1p3b",
-           "init_decode_weights_numpy"]
+           "init_decode_weights_numpy", "GPTEmbeddings", "GPTAttention",
+           "GPTMLP", "GPTDecoderLayer", "GPTModel", "GPTForCausalLM",
+           "GPTPretrainingCriterion", "state_dict_from_jax"]

@@ -1,8 +1,13 @@
-"""GPT configurations (counterpart of ``paddle_tpu/models/gpt.py``).
+"""GPT family (counterpart of ``paddle_tpu/models/gpt.py``).
 
-Only the configuration data and the initializer are ported here; the
-training ``GPTForCausalLM`` comes with the training slice.  The serving
-path consumes weights as a plain numpy tree (the layout of
+The training model: ``GPTForCausalLM`` (embeddings, pre-norm decoder
+layers whose attention is the flash kernel, final norm, and an lm head
+tied to the word embedding) and ``GPTPretrainingCriterion``.  Weights
+keep Paddle's layout (``Linear`` weights ``[in, out]``) and Paddle's
+parameter names, so :func:`state_dict_from_jax` carries a JAX
+``GPTForCausalLM.state_dict()`` over key for key.
+
+The serving path consumes weights as a plain numpy tree (the layout of
 ``paddle_tpu``'s ``extract_decode_params``), loaded through
 ``inference.serving.decode_model.params_from_numpy``.
 """
@@ -10,8 +15,17 @@ path consumes weights as a plain numpy tree (the layout of
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
+import torch
+from torch import nn as tnn
+
+from .. import resolve_device
+from .. import nn
+from ..framework import random as _random
+from ..nn.functional import cross_entropy, flash_attention
+from ..ops.flash_attention_kernel import flash_attention_reference
 
 
 @dataclass
@@ -85,3 +99,212 @@ def init_decode_weights_numpy(cfg: GPTConfig, seed: int = 0,
             "w2": normal(F, D), "b2": const(0.0, D),
         })
     return tree
+
+
+# ---------------------------------------------------------------------------
+# training model
+# ---------------------------------------------------------------------------
+def _layer_kw(config, device, generator):
+    return dict(init_std=config.initializer_range, device=device,
+                generator=generator)
+
+
+class GPTEmbeddings(tnn.Module):
+    def __init__(self, config: GPTConfig, device=None, generator=None):
+        super().__init__()
+        device = resolve_device(device)
+        kw = _layer_kw(config, device, generator)
+        self.word_embeddings = nn.Embedding(config.vocab_size,
+                                            config.hidden_size, **kw)
+        self.position_embeddings = nn.Embedding(
+            config.max_position_embeddings, config.hidden_size, **kw)
+        self.dropout = nn.Dropout(config.hidden_dropout_prob)
+
+    def forward(self, input_ids, position_ids=None):
+        if position_ids is None:
+            b, s = input_ids.shape
+            position_ids = torch.arange(
+                s, device=input_ids.device).unsqueeze(0).expand(b, s)
+        emb = self.word_embeddings(input_ids) + \
+            self.position_embeddings(position_ids)
+        return self.dropout(emb)
+
+
+class GPTAttention(tnn.Module):
+    """Causal self-attention.  q, k and v are strided ``[B, S, H, D]``
+    views of the fused qkv projection (no transpose copy); the flash
+    kernels read them in place."""
+
+    def __init__(self, config: GPTConfig, device=None, generator=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.num_heads = config.num_attention_heads
+        self.head_dim = config.hidden_size // config.num_attention_heads
+        self.hidden_size = config.hidden_size
+        self.use_flash = config.use_flash_attention
+        self.attn_drop = config.attention_probs_dropout_prob
+        kw = _layer_kw(config, device, generator)
+        self.qkv_proj = nn.Linear(config.hidden_size,
+                                  3 * config.hidden_size, **kw)
+        self.out_proj = nn.Linear(config.hidden_size, config.hidden_size,
+                                  **kw)
+
+    def forward(self, x):
+        b, s, h = x.shape
+        qkv = self.qkv_proj(x).view(b, s, 3, self.num_heads, self.head_dim)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if self.use_flash:
+            out, _ = flash_attention(q, k, v, causal=True,
+                                     dropout=self.attn_drop,
+                                     training=self.training)
+        else:
+            drop = self.attn_drop if self.training else 0.0
+            out, _ = flash_attention_reference(
+                q, k, v, True, dropout_p=drop,
+                generator=_random.default_generator(x.device))
+        return self.out_proj(out.reshape(b, s, h))
+
+
+class GPTMLP(tnn.Module):
+    def __init__(self, config: GPTConfig, device=None, generator=None):
+        super().__init__()
+        device = resolve_device(device)
+        kw = _layer_kw(config, device, generator)
+        self.fc1 = nn.Linear(config.hidden_size, config.intermediate_size,
+                             **kw)
+        self.fc2 = nn.Linear(config.intermediate_size, config.hidden_size,
+                             **kw)
+
+    def forward(self, x):
+        return self.fc2(torch.nn.functional.gelu(self.fc1(x),
+                                                 approximate="tanh"))
+
+
+class GPTDecoderLayer(tnn.Module):
+    def __init__(self, config: GPTConfig, device=None, generator=None):
+        super().__init__()
+        device = resolve_device(device)
+        if config.recompute:
+            raise NotImplementedError(
+                "GPTConfig(recompute=True) needs fleet recompute, not "
+                "ported yet (ROADMAP queue A, item 8)")
+        eps = config.layer_norm_epsilon
+        self.ln1 = nn.LayerNorm(config.hidden_size, epsilon=eps,
+                                device=device)
+        self.attn = GPTAttention(config, device, generator)
+        self.ln2 = nn.LayerNorm(config.hidden_size, epsilon=eps,
+                                device=device)
+        self.mlp = GPTMLP(config, device, generator)
+        self.dropout1 = nn.Dropout(config.hidden_dropout_prob)
+        self.dropout2 = nn.Dropout(config.hidden_dropout_prob)
+
+    def forward(self, x):
+        x = x + self.dropout1(self.attn(self.ln1(x)))
+        x = x + self.dropout2(self.mlp(self.ln2(x)))
+        return x
+
+
+class GPTModel(tnn.Module):
+    """``device=None`` means the card, as for :class:`GPTForCausalLM`."""
+
+    def __init__(self, config: GPTConfig, device=None, generator=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.config = config
+        self.embeddings = GPTEmbeddings(config, device, generator)
+        self.layers = tnn.ModuleList(
+            [GPTDecoderLayer(config, device, generator)
+             for _ in range(config.num_hidden_layers)])
+        self.final_norm = nn.LayerNorm(config.hidden_size,
+                                       epsilon=config.layer_norm_epsilon,
+                                       device=device)
+
+    def forward(self, input_ids, position_ids=None):
+        x = self.embeddings(input_ids, position_ids)
+        for layer in self.layers:
+            x = layer(x)
+        return self.final_norm(x)
+
+
+class GPTForCausalLM(tnn.Module):
+    """GPT with the lm head tied to the word embedding: the logits are
+    ``hidden @ word_embeddings.weight^T``, one ``Parameter`` whose
+    gradient sums both uses.  ``device=None`` means the card and raises
+    without one; pass ``device="cpu"`` for the CPU.  Weights are drawn
+    from ``generator`` (default: the port's generator of the device) in
+    construction order."""
+
+    def __init__(self, config: GPTConfig, device=None, generator=None):
+        super().__init__()
+        self.config = config
+        self.gpt = GPTModel(config, device, generator)
+
+    def lm_weight(self):
+        return self.gpt.embeddings.word_embeddings.weight
+
+    def forward(self, input_ids, position_ids=None):
+        hidden = self.gpt(input_ids, position_ids)
+        return torch.matmul(hidden, self.lm_weight().t())
+
+
+class GPTPretrainingCriterion(tnn.Module):
+    """Causal LM loss: per-token cross-entropy (fp32, ``ignore_index``
+    -100) averaged over all tokens, or over ``loss_mask`` when given.
+    Labels come already shifted by one."""
+
+    def __init__(self, config: Optional[GPTConfig] = None):
+        super().__init__()
+
+    def forward(self, logits, labels, loss_mask=None):
+        loss = cross_entropy(logits, labels, ignore_index=-100,
+                             reduction="none")
+        if loss_mask is not None:
+            loss_mask = loss_mask.to(loss.dtype)
+            return (loss * loss_mask).sum() / loss_mask.sum().clamp_min(1e-9)
+        return loss.mean()
+
+
+def state_dict_from_jax(numpy_state, cfg: GPTConfig) -> dict:
+    """The port's ``GPTForCausalLM`` state dict from the JAX package's
+    ``GPTForCausalLM.state_dict()`` with each value as a numpy array.
+    Names and layouts are the same in both packages: ``Linear`` weights
+    stay ``[in, out]``, embeddings ``[num, dim]``, norms and biases
+    ``[dim]``.  The lm head is the word embedding in both, so there is
+    no separate head entry and the tie survives ``load_state_dict``.
+    Raises on a missing, extra or misshapen entry; ``load_state_dict``
+    then copies each value to the model's device."""
+    expected = _expected_shapes(cfg)
+    got = set(numpy_state)
+    if got != set(expected):
+        raise KeyError(f"state mismatch: missing "
+                       f"{sorted(set(expected) - got)}, unexpected "
+                       f"{sorted(got - set(expected))}")
+    out = {}
+    for name, shape in expected.items():
+        arr = np.asarray(numpy_state[name])
+        if tuple(arr.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(arr.shape)} != {shape}")
+        out[name] = torch.as_tensor(arr)
+    return out
+
+
+def _expected_shapes(cfg: GPTConfig) -> dict:
+    D, F = cfg.hidden_size, cfg.intermediate_size
+    shapes = {
+        "gpt.embeddings.word_embeddings.weight": (cfg.vocab_size, D),
+        "gpt.embeddings.position_embeddings.weight":
+            (cfg.max_position_embeddings, D),
+        "gpt.final_norm.weight": (D,), "gpt.final_norm.bias": (D,),
+    }
+    for i in range(cfg.num_hidden_layers):
+        p = f"gpt.layers.{i}."
+        shapes.update({
+            p + "ln1.weight": (D,), p + "ln1.bias": (D,),
+            p + "attn.qkv_proj.weight": (D, 3 * D),
+            p + "attn.qkv_proj.bias": (3 * D,),
+            p + "attn.out_proj.weight": (D, D), p + "attn.out_proj.bias": (D,),
+            p + "ln2.weight": (D,), p + "ln2.bias": (D,),
+            p + "mlp.fc1.weight": (D, F), p + "mlp.fc1.bias": (F,),
+            p + "mlp.fc2.weight": (F, D), p + "mlp.fc2.bias": (D,),
+        })
+    return shapes

@@ -1,0 +1,179 @@
+"""The port's CUDA kernels, run on the CPU under an emulation of their
+threads, against their plain versions.
+
+There is no card and no nvcc here, so ``tests/cuda_emu`` rewrites each
+``csrc/*.cu`` lightly (kernel launches, shared memory) and ``g++``
+compiles it as C++ against headers that emulate the CUDA runtime: a
+launch runs its blocks in turn, each block's threads as OS threads that
+meet at ``__syncthreads`` and at warp shuffles, with shared memory
+filled with NaN first.  The port's own ctypes launch helpers drive the
+library with CPU pointers, so strides, layouts and argument packing are
+the ones the card sees.  This checks the kernels' indexing, masking,
+tiling and arithmetic at small shapes; speed, the GPU compiler and the
+memory model are the card's to check (``chip_smoke.py``).
+
+Tolerances: fp32 within 1e-5 x max(|ref|, 1) (the kernels sum in tiles,
+the plain version whole rows); bf16 within 2e-2 x max(|ref|, 1) of the
+plain version computed in fp32 on the same bf16 values (outputs round
+to 8 mantissa bits).  The module skips where no ``g++`` exists.
+"""
+
+import ctypes
+import math
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch import _build
+from paddle_tpu_torch.inference.serving import paged_attention_kernel as pak
+from paddle_tpu_torch.ops import flash_attention_kernel as fk
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "cuda_emu"))
+import emulate  # noqa: E402
+
+FP32_TOL = 1e-5
+BF16_TOL = 2e-2
+
+
+@pytest.fixture(scope="module")
+def emu_libs(tmp_path_factory):
+    if emulate.compiler() is None:
+        pytest.skip("no g++ to build the CUDA emulation")
+    out = tmp_path_factory.mktemp("cuda_emu")
+    libs = {n: ctypes.CDLL(str(emulate.build(_build.CSRC_DIR / f"{n}.cu",
+                                             out)))
+            for n in ("flash_attention", "paged_attention")}
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fl = libs["flash_attention"]
+    fl.flash_fwd.argtypes = [i, i] + [p] * 7 + [i] * 5 + [ctypes.c_float,
+                                                          p, p]
+    for fn in (fl.flash_bwd_dq, fl.flash_bwd_dkv):
+        fn.argtypes = [i, i] + [p] * 10 + [i] * 5 + [ctypes.c_float, p, p]
+    for fn in (fl.flash_fwd, fl.flash_bwd_dq, fl.flash_bwd_dkv):
+        fn.restype = ctypes.c_int
+    pa = libs["paged_attention"].paddle_paged_attention
+    pa.argtypes = [i] + [p] * 6 + [i] * 6 + [ctypes.c_float, p]
+    pa.restype = ctypes.c_int
+    return libs
+
+
+def _close(got, ref, tol, what):
+    got, ref = got.float(), ref.float()
+    assert not torch.isnan(got).any(), f"{what}: NaN"
+    err = (got - ref).abs().max().item()
+    assert err <= tol * max(1.0, ref.abs().max().item()), (what, err)
+
+
+FLASH_CASES = {
+    "causal ragged S=130": dict(B=1, Sq=130, Sk=130, H=2, D=64, causal=True),
+    "non-causal Sq=70 Sk=150": dict(B=2, Sq=70, Sk=150, H=1, D=64,
+                                    causal=False),
+    "D=128 causal": dict(B=1, Sq=80, Sk=80, H=1, D=128, causal=True),
+    "segments + masked row": dict(B=1, Sq=100, Sk=96, H=2, D=64,
+                                  causal=False, seg=True),
+    "qkv views": dict(B=1, Sq=128, Sk=128, H=2, D=64, causal=True,
+                      packed=True),
+    "[B*H,S,D] layout": dict(B=2, Sq=65, Sk=65, H=2, D=64, causal=True,
+                             bh=True),
+    "bf16 causal": dict(B=1, Sq=96, Sk=96, H=1, D=64, causal=True,
+                        dtype=torch.bfloat16),
+    "bf16 D=128 non-causal": dict(B=1, Sq=33, Sk=70, H=1, D=128,
+                                  causal=False, dtype=torch.bfloat16),
+}
+
+
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_kernels_match_plain(emu_libs, case):
+    c = dict(FLASH_CASES[case])
+    B, Sq, Sk, H, D, causal = (c.pop(k) for k in
+                               ("B", "Sq", "Sk", "H", "D", "causal"))
+    dtype = c.get("dtype", torch.float32)
+    gen = torch.Generator().manual_seed(sum(map(ord, case)))
+    if c.get("packed"):
+        qkv = torch.randn(B, Sq, 3, H, D, generator=gen).to(dtype)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    else:
+        q = torch.randn(B, Sq, H, D, generator=gen).to(dtype)
+        k = torch.randn(B, Sk, H, D, generator=gen).to(dtype)
+        v = torch.randn(B, Sk, H, D, generator=gen).to(dtype)
+    g = torch.randn(B, Sq, H, D, generator=gen).to(dtype)
+    qs = ks = None
+    if c.get("seg"):
+        qs = torch.zeros(B, Sq, dtype=torch.int32)
+        qs[:, Sq // 2:] = 1
+        qs[:, 3] = 7                                   # sees no key
+        ks = torch.zeros(B, Sk, dtype=torch.int32)
+        ks[:, Sk // 3:] = 1
+    if c.get("bh"):
+        q, k, v, g = [t.permute(0, 2, 1, 3).reshape(B * H, -1, 1, D)
+                      for t in (q, k, v, g)]
+    lib, scale = emu_libs["flash_attention"], 1.0 / math.sqrt(D)
+    out, lse = fk._launch_fwd(lib, None, q, k, v, causal, qs, ks, scale)
+    dq, delta = fk._launch_bwd_dq(lib, None, q, k, v, out, lse, g, causal,
+                                  qs, ks, scale)
+    dk, dv = fk._launch_bwd_dkv(lib, None, q, k, v, g, lse, delta, causal,
+                                qs, ks, scale)
+    f32 = [t.float() for t in (q, k, v, g)]
+    rout, rlse = fk.flash_attention_reference(*f32[:3], causal, qs, ks)
+    rdq, rdelta = fk.flash_bwd_dq_reference(*f32[:3], out.float(), lse,
+                                            f32[3], causal, qs, ks)
+    rdk, rdv = fk.flash_bwd_dkv_reference(*f32[:3], f32[3], lse, delta,
+                                          causal, qs, ks)
+    tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+    for what, got, ref in (("out", out, rout), ("lse", lse, rlse),
+                           ("delta", delta, rdelta), ("dq", dq, rdq),
+                           ("dk", dk, rdk), ("dv", dv, rdv)):
+        _close(got, ref, tol, what)
+    assert out.dtype == dtype and dq.dtype == dtype and lse.dtype == \
+        torch.float32
+    if qs is not None:
+        assert (out[:, 3] == 0).all() and (lse[:, :, 3] == fk.LSE_FLOOR).all()
+
+
+def test_flash_kernels_are_deterministic(emu_libs):
+    gen = torch.Generator().manual_seed(11)
+    q, k, v, g = [torch.randn(1, 70, 2, 64, generator=gen)
+                  for _ in range(4)]
+    lib = emu_libs["flash_attention"]
+
+    def run():
+        out, lse = fk._launch_fwd(lib, None, q, k, v, True, None, None,
+                                  0.125)
+        dq, delta = fk._launch_bwd_dq(lib, None, q, k, v, out, lse, g, True,
+                                      None, None, 0.125)
+        return (out, lse, dq) + fk._launch_bwd_dkv(
+            lib, None, q, k, v, g, lse, delta, True, None, None, 0.125)
+
+    for a, b in zip(run(), run()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, FP32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+def test_paged_attention_kernel_matches_plain(emu_libs, dtype, tol):
+    B, H, Dh, BS, NB, MAXNB = 4, 2, 64, 16, 16, 4
+    lengths_l = [0, 1, 17, 64]
+    rng = np.random.default_rng(3)
+    table = np.zeros((B, MAXNB), dtype=np.int32)
+    free = rng.permutation(np.arange(1, NB)).tolist()
+    for b, n in enumerate(lengths_l):
+        table[b, :-(-n // BS)] = [free.pop() for _ in range(-(-n // BS))]
+    gen = torch.Generator().manual_seed(4)
+    pool_k, pool_v = [torch.randn(NB, BS, H, Dh, generator=gen).to(dtype)
+                      for _ in range(2)]
+    q = torch.randn(B, H, Dh, generator=gen).to(dtype)
+    table_t = torch.from_numpy(table)
+    lengths = torch.tensor(lengths_l, dtype=torch.int32)
+    out = torch.empty_like(q)
+    err = emu_libs["paged_attention"].paddle_paged_attention(
+        pak._DTYPE_CODES[dtype], q.data_ptr(), pool_k.data_ptr(),
+        pool_v.data_ptr(), table_t.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), B, H, Dh, NB, BS, MAXNB, 1.0 / math.sqrt(Dh), None)
+    assert err == 0
+    ref = pak.paged_ragged_attention_reference(
+        pool_k.float(), pool_v.float(), table_t, lengths, q.float())
+    _close(out, ref, tol, "out")
+    assert (out[0] == 0).all()

@@ -19,6 +19,10 @@ def test_import_pulls_in_no_jax():
         "import paddle_tpu_torch\n"
         "import paddle_tpu_torch.inference.serving\n"
         "import paddle_tpu_torch.models, paddle_tpu_torch.io\n"
+        "import paddle_tpu_torch.hapi, paddle_tpu_torch.optimizer\n"
+        "import paddle_tpu_torch.amp, paddle_tpu_torch.nn\n"
+        "import paddle_tpu_torch.ops, paddle_tpu_torch.framework\n"
+        "import paddle_tpu_torch.nn.functional\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "'jax.') or m == 'paddle_tpu' or m.startswith('paddle_tpu.')]\n"
         "assert not bad, bad\n")
