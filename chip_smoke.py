@@ -29,24 +29,39 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
    gradients through autograd.  Times each kernel, its plain version
    and, as a yardstick only, ``scaled_dot_product_attention`` forward
    and forward+backward at the main shape in bf16;
-4. serves GPT-2-small (12 layers, hidden 768, 12 heads, vocab 50304,
+4. ``[lmce]`` holds the three fused lm-head cross-entropy kernels
+   (forward, dh, dW) against their plain versions computed in fp32 on
+   the same values: at the training path's shape (N=8192, V=50304,
+   D=768) in bf16 (within 2e-2 x max(|ref|, 1)) and fp32 (within
+   1e-4 x max(|ref|, 1)), then in fp32 at N=1000 (ragged rows) with
+   V=1000 and V=786 (ragged vocab), every fourth label -100 (loss and
+   dh rows exactly 0), D=64, 200 and 2048.  Times each kernel, its
+   plain version and, as a yardstick only, ``h @ W.T`` with fp32
+   ``F.cross_entropy``, forward and forward+backward, in bf16;
+5. serves GPT-2-small (12 layers, hidden 768, 12 heads, vocab 50304,
    random weights from ``--seed``) through ``LLMServer`` in fp32:
    12 greedy requests over 8 slots; checks every token count, that
    the kernel launched exactly 12 times per decode dispatch, and that
    two requests' tokens equal the sequential ``reference_decode``;
-5. serves the same model in bf16 and checks counts and launches;
-6. ``[train]`` trains GPT-2-small at full width through
+6. serves the same model in bf16 and checks counts and launches;
+7. ``[train]`` trains GPT-2-small at full width through
    ``Model.fit``: B=8, S=1024, dropout 0, ``amp.decorate(level="O2",
    dtype="bfloat16")``, ``AdamW(1e-4, multi_precision=True)``, random
    weights and tokens from ``--seed``, labels = tokens rolled by one,
    TRAIN_STEPS steps on one repeated batch.  Checks finite losses, the
    last below the first, each flash kernel launched 12 times per step
-   and no plain flash call; prints step ms, tokens/s and peak memory;
-7. ``[train fp32 parity]`` trains a small GPT (2 layers, hidden 128,
+   and no plain call; prints step ms, tokens/s and peak memory, and a
+   ``torch.profiler`` breakdown of two more steps;
+8. ``[train fused lmce]`` repeats 7 with ``enable_fused_lmce`` (the
+   lm head and the loss in the three lmce kernels, the logits never in
+   device memory): also checks each lmce kernel launched once per
+   step, the first loss within 1e-2 relative of 7's and a lower peak;
+9. ``[train fp32 parity]`` trains a small GPT (2 layers, hidden 128,
    head dim 64, S=256) for three steps on the card and on the CPU's
-   plain path from the same weights and compares the losses;
-8. prints the kernels' JSON line, the card line, and last the line
-   ``{"ok": true, "device": {...}}``.
+   plain path from the same weights and compares the losses, unfused
+   and fused;
+10. prints the kernels' JSON line, the card line, and last the line
+    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero; without a card,
 or without the repository beside it, it exits non-zero before any
@@ -73,6 +88,8 @@ FLASH_FP32_TOL = 1e-4            # x max(|ref|, 1); fp32 sums reordered
 FLASH_BF16_TOL = 2e-2            # x max(|ref|, 1); bf16 inputs/outputs
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 1024, 8
 PARITY_TOL = 1e-4                # relative, per loss; cuBLAS vs CPU sums
+FUSED_FIRST_LOSS_TOL = 1e-2      # relative; the unfused path rounds the
+                                 # logits to bf16, the fused one does not
 
 
 def card_line() -> str:
@@ -453,6 +470,152 @@ def flash_phase(torch, seed):
 
 
 # ---------------------------------------------------------------------------
+# fused lm-head cross-entropy: the three kernels against their plain versions
+# ---------------------------------------------------------------------------
+LMCE_KERNELS = ("lmce_fwd", "lmce_bwd_dh", "lmce_bwd_dw")
+LMCE_REPLACES = {
+    "lmce_fwd": "paddle_tpu/ops/pallas_lmce.py:58",
+    "lmce_bwd_dh": "paddle_tpu/ops/pallas_lmce.py:108",
+    "lmce_bwd_dw": "paddle_tpu/ops/pallas_lmce.py:138",
+}
+LMCE_V, LMCE_D = 50304, 768      # GPT-2-small's vocabulary and width
+
+
+def lmce_compare(torch, lk, tag, tol, h, w, labels, g):
+    """The three kernels against the plain versions computed in fp32 on
+    the same values (the backward from the plain forward's lse);
+    ignored rows must give exactly 0 loss and 0 dh."""
+    loss, lse = lk.lmce_fwd(h, w, labels)
+    got = {"loss": loss, "lse": lse,
+           "dh": lk.lmce_bwd_dh(h, w, labels, lse, g),
+           "dw": lk.lmce_bwd_dw(h, w, labels, lse, g)}
+    hf, wf = h.float(), w.float()
+    rloss, rlse = lk.lmce_reference(hf, wf, labels)
+    ref = {"loss": rloss, "lse": rlse,
+           "dh": lk.lmce_bwd_dh_reference(hf, wf, labels, rlse, g),
+           "dw": lk.lmce_bwd_dw_reference(hf, wf, labels, rlse, g)}
+    torch.cuda.synchronize()
+    check(got["dh"].dtype == got["dw"].dtype == h.dtype,
+          f"[lmce] {tag}: gradient dtypes {got['dh'].dtype}")
+    errs, rels = {}, {}
+    for name in ("loss", "lse", "dh", "dw"):
+        check(bool(torch.isfinite(got[name].float()).all()),
+              f"[lmce] {tag}: {name} not finite")
+        err, rel = _err(got[name], ref[name])
+        check(rel <= tol, f"[lmce] {tag}: {name} error {err:.3e} "
+                          f"(relative {rel:.3e}) > {tol}")
+        errs[name], rels[name] = err, rel
+    ignored = labels < 0
+    n_ignored = int(ignored.sum().item())
+    if n_ignored:
+        check(bool((got["loss"][ignored] == 0).all())
+              and bool((got["dh"][ignored] == 0).all()),
+              f"[lmce] {tag}: ignored rows not exactly 0")
+    print(f"[lmce] {tag}: max_abs_err " + " ".join(
+        f"{n}={e:.3e}" for n, e in errs.items()) + "; / max(|ref|, 1) "
+          + " ".join(f"{n}={r:.3e}" for n, r in rels.items())
+          + f" (tol {tol}); {n_ignored} ignored rows exactly 0",
+          flush=True)
+    return errs
+
+
+def lmce_phase(torch, seed):
+    from paddle_tpu_torch.ops import lmce_kernel as lk
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def inputs(N, V, D, dtype, ignore=False):
+        h = torch.randn((N, D), generator=gen, device=dev)
+        w = torch.randn((V, D), generator=gen, device=dev) * 0.05
+        labels = torch.randint(0, V, (N,), generator=gen, device=dev)
+        if ignore:
+            labels[::4] = -100
+        g = torch.rand((N,), generator=gen, device=dev)
+        return h.to(dtype), w.to(dtype), labels, g
+
+    N, V, D = TRAIN_B * TRAIN_S, LMCE_V, LMCE_D
+    res = {}
+    for dtype, tol in ((torch.bfloat16, FLASH_BF16_TOL),
+                       (torch.float32, FLASH_FP32_TOL)):
+        name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        args = inputs(N, V, D, dtype)
+        res[name] = lmce_compare(torch, lk, f"{name} N={N} V={V} D={D}",
+                                 tol, *args)
+        if dtype == torch.bfloat16:
+            main = args
+        del args
+    tol = FLASH_FP32_TOL
+    lmce_compare(torch, lk, "N=1000 V=1000 D=64, every 4th label -100",
+                 tol, *inputs(1000, 1000, 64, torch.float32, True))
+    lmce_compare(torch, lk, "N=1000 V=786 D=2048, every 4th label -100",
+                 tol, *inputs(1000, 786, 2048, torch.float32, True))
+    lmce_compare(torch, lk, "N=333 V=786 D=200", tol,
+                 *inputs(333, 786, 200, torch.float32))
+
+    # times at the main shape, bf16
+    h, w, labels, g = main
+    _, lse = lk.lmce_fwd(h, w, labels)
+    flush_buf = torch.empty(128 * 1024 * 1024 // 4, device=dev)
+    flush = flush_buf.zero_
+    calls = {
+        "lmce_fwd": (lambda: lk.lmce_fwd(h, w, labels),
+                     lambda: lk.lmce_reference(h, w, labels)),
+        "lmce_bwd_dh": (
+            lambda: lk.lmce_bwd_dh(h, w, labels, lse, g),
+            lambda: lk.lmce_bwd_dh_reference(h, w, labels, lse, g)),
+        "lmce_bwd_dw": (
+            lambda: lk.lmce_bwd_dw(h, w, labels, lse, g),
+            lambda: lk.lmce_bwd_dw_reference(h, w, labels, lse, g)),
+    }
+    # yardstick only, never called by the port: the unfused lm head
+    ce = torch.nn.functional.cross_entropy
+    leaves = [t.detach().requires_grad_() for t in (h, w)]
+
+    def library_fwd():
+        return ce(torch.matmul(h, w.t()).float(), labels, reduction="none")
+
+    def library_fwd_bwd():
+        loss = ce(torch.matmul(leaves[0], leaves[1].t()).float(), labels,
+                  reduction="none")
+        torch.autograd.grad(loss, leaves, g)
+
+    with torch.no_grad():
+        lib_ms = time_cuda(torch, library_fwd, 10, warmup=2, flush=flush)
+    lib_fb_ms = time_cuda(torch, library_fwd_bwd, 10, warmup=2, flush=flush)
+    for name, (kern, plain) in calls.items():
+        with torch.no_grad():
+            ms = time_cuda(torch, kern, 5, warmup=2, flush=flush)
+            plain_ms = time_cuda(torch, plain, 5, warmup=2, flush=flush)
+        flops, nbytes = lk.kernel_work(name, N, V, D, 2)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS_PER_S * 1e3
+        err_keys = ("loss", "lse") if name == "lmce_fwd" else \
+            (("dh",) if name == "lmce_bwd_dh" else ("dw",))
+        res[name] = {
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms if name == "lmce_fwd" else None,
+            "library_fwd_bwd_ms": lib_fb_ms,
+            "max_abs_err": max(res["bf16"][k] for k in err_keys),
+            "fp32_max_abs_err": max(res["fp32"][k] for k in err_keys),
+            "flops": flops, "bytes": nbytes,
+            "tflops": flops / (ms * 1e-3) / 1e12,
+        }
+        r = res[name]
+        print(f"[lmce] {name} bf16 N={N} V={V} D={D}: kernel_ms={ms:.5f} "
+              f"plain_ms={plain_ms:.5f} bound_ms={r['bound_ms']:.5f} "
+              f"({r['bound_by']}: {flops} flop, {nbytes} bytes) achieved "
+              f"{r['tflops']:.2f} TFLOP/s", flush=True)
+    print(f"[lmce] library yardstick (not used by the port): matmul + fp32 "
+          f"cross_entropy forward {lib_ms:.5f} ms, forward+backward "
+          f"{lib_fb_ms:.5f} ms; lmce kernels forward+dh+dW "
+          f"{sum(res[n]['ms'] for n in LMCE_KERNELS):.5f} ms", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # training: GPT-2-small through Model.fit
 # ---------------------------------------------------------------------------
 def _train_model(torch, cfg, device, seed, o2):
@@ -469,15 +632,26 @@ def _train_model(torch, cfg, device, seed, o2):
     return net, opt
 
 
-def train_phase(torch, seed):
+def train_phase(torch, seed, fused=False):
+    """``[train]``, or with ``fused`` the same run with
+    ``enable_fused_lmce`` (``[train fused lmce]``)."""
+    import gc
+
     import paddle_tpu_torch as paddle
-    from paddle_tpu_torch.models import GPTPretrainingCriterion, gpt2_small
+    from paddle_tpu_torch.models import (GPTPretrainingCriterion,
+                                         enable_fused_lmce, gpt2_small)
     from paddle_tpu_torch.ops import flash_attention_kernel as fk
+    from paddle_tpu_torch.ops import lmce_kernel as lk
+    tag = "train fused lmce" if fused else "train"
+    gc.collect()                # the previous phase's model, if any
     cfg = gpt2_small(hidden_dropout_prob=0.0,
                      attention_probs_dropout_prob=0.0)
     net, opt = _train_model(torch, cfg, "cuda", seed, o2=True)
+    crit = GPTPretrainingCriterion()
+    if fused:
+        enable_fused_lmce(net, crit)
     model = paddle.Model(net, device="cuda")
-    model.prepare(opt, GPTPretrainingCriterion())
+    model.prepare(opt, crit)
     rng = np.random.default_rng(seed + 2)
     x = rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S)).astype(np.int64)
     batch = (torch.from_numpy(x).pin_memory(),
@@ -502,44 +676,79 @@ def train_phase(torch, seed):
             self.losses.append(float(logs["loss"][0]))
 
     clock = StepClock()
+    resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     fk.reset_counts()
+    lk.reset_counts()
     model.fit([batch] * TRAIN_STEPS, epochs=1, num_iters=TRAIN_STEPS,
               verbose=0, callbacks=[clock])
-    launches = {f.__name__: f.launches for f in fk.WRAPPERS}
-    plain = {f.__name__: f.plain_calls for f in fk.WRAPPERS}
+    launches = {f.__name__: f.launches for f in fk.WRAPPERS + lk.WRAPPERS}
+    plain = {f.__name__: f.plain_calls for f in fk.WRAPPERS + lk.WRAPPERS}
     peak = torch.cuda.max_memory_allocated()
     losses = clock.losses
     L = cfg.num_hidden_layers
-    check(len(losses) == TRAIN_STEPS, f"[train] {len(losses)} steps")
-    check(all(np.isfinite(losses)), f"[train] loss not finite: {losses}")
-    check(losses[-1] < losses[0], f"[train] loss did not fall: {losses}")
-    for name, n in launches.items():
-        check(n == TRAIN_STEPS * L, f"[train] {name} launched {n} times, "
-              f"expected {TRAIN_STEPS} steps x {L} layers")
-    check(not any(plain.values()), f"[train] plain flash calls {plain}")
+    check(len(losses) == TRAIN_STEPS, f"[{tag}] {len(losses)} steps")
+    check(all(np.isfinite(losses)), f"[{tag}] loss not finite: {losses}")
+    check(losses[-1] < losses[0], f"[{tag}] loss did not fall: {losses}")
+    for f in fk.WRAPPERS:
+        n = launches[f.__name__]
+        check(n == TRAIN_STEPS * L, f"[{tag}] {f.__name__} launched {n} "
+              f"times, expected {TRAIN_STEPS} steps x {L} layers")
+    for f in lk.WRAPPERS:
+        n = launches[f.__name__]
+        want = TRAIN_STEPS if fused else 0
+        check(n == want, f"[{tag}] {f.__name__} launched {n} times, "
+              f"expected {want}")
+    check(not any(plain.values()), f"[{tag}] plain calls {plain}")
     dtypes = {p.dtype for p in net.parameters()}
     check(dtypes == {torch.bfloat16, torch.float32},
-          f"[train] O2 parameter dtypes {dtypes}")
+          f"[{tag}] O2 parameter dtypes {dtypes}")
     steps_ms = np.diff(clock.stamps) * 1e3
     steady = steps_ms[2:]
     step_ms = float(np.median(steady))
     tok_s = TRAIN_B * TRAIN_S / (step_ms * 1e-3)
-    print(f"[train] GPT-2-small L=12 D=768 H=12 V=50304 B={TRAIN_B} "
+    print(f"[{tag}] GPT-2-small L=12 D=768 H=12 V=50304 B={TRAIN_B} "
           f"S={TRAIN_S} bf16 O2 AdamW: {TRAIN_STEPS} steps, losses "
           f"{[round(v, 6) for v in losses]}; step_ms first="
           f"{steps_ms[0]:.3f} median(steps 3+)={step_ms:.3f} -> "
           f"{tok_s:.1f} tokens/s; peak_mem_gib="
-          f"{peak / 2**30:.3f}; launches {launches}; plain calls {plain}",
-          flush=True)
-    profile_steps(torch, model, batch, 2)
-    return {"launches": launches}
+          f"{peak / 2**30:.3f} (resident before fit "
+          f"{resident / 2**30:.3f}); launches {launches}; plain calls "
+          f"{plain}", flush=True)
+    profile_steps(torch, model, batch, 2, tag)
+    return {"launches": launches, "losses": losses, "peak": peak,
+            "step_ms": step_ms}
+
+
+def fused_train_phase(torch, seed, base):
+    """``[train fused lmce]``: the ``[train]`` run with the fused lm-head
+    cross-entropy, held against ``base`` (``train_phase``'s result):
+    first loss within 1e-2 relative (same weights and batch; the
+    unfused path rounds the logits to bf16) and a lower peak."""
+    res = train_phase(torch, seed, fused=True)
+    first, base_first = res["losses"][0], base["losses"][0]
+    rel = abs(first - base_first) / abs(base_first)
+    check(rel <= FUSED_FIRST_LOSS_TOL,
+          f"[train fused lmce] first loss {first} vs [train] {base_first}"
+          f" (relative {rel:.3e} > {FUSED_FIRST_LOSS_TOL})")
+    check(res["peak"] < base["peak"],
+          f"[train fused lmce] peak {res['peak']} bytes not below "
+          f"[train]'s {base['peak']}")
+    print("[train fused lmce] step losses fused vs unfused: " + ", ".join(
+        f"{a:.6f}/{b:.6f}" for a, b in zip(res["losses"], base["losses"]))
+        + f"; first-loss relative diff {rel:.3e} (tol "
+        f"{FUSED_FIRST_LOSS_TOL}); step_ms {res['step_ms']:.3f} vs "
+        f"{base['step_ms']:.3f}; peak_mem_gib {res['peak'] / 2**30:.3f} "
+        f"vs {base['peak'] / 2**30:.3f}", flush=True)
+    return res
 
 
 def _kernel_group(name):
     if any(k in name for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                                 "flash_bwd_dkv_kernel")):
         return "flash kernels"
+    if "lmce_fwd_kernel" in name or "lmce_bwd_kernel" in name:
+        return "lmce kernels"
     low = name.lower()
     if any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet", "cublas")):
         return "matmul (cuBLAS)"
@@ -548,7 +757,7 @@ def _kernel_group(name):
     return "other (elementwise, norms, loss, copies)"
 
 
-def profile_steps(torch, model, batch, steps):
+def profile_steps(torch, model, batch, steps, tag="train"):
     """``torch.profiler`` over ``steps`` more train steps: device time
     by kernel group, the busiest kernels, and the share of the wall
     time the device sat idle (1 - kernel time / wall; one stream, so
@@ -575,27 +784,29 @@ def profile_steps(torch, model, batch, steps):
         g = _kernel_group(name)
         groups[g] = groups.get(g, 0.0) + us
     if busy <= 0:
-        print("[train profile] torch.profiler recorded no device time",
+        print(f"[{tag} profile] torch.profiler recorded no device time",
               flush=True)
         return
-    print(f"[train profile] {steps} steps: wall {wall_us / steps / 1e3:.3f}"
+    print(f"[{tag} profile] {steps} steps: wall {wall_us / steps / 1e3:.3f}"
           f" ms/step, device busy {busy / steps / 1e3:.3f} ms/step, idle "
           f"share {1 - busy / wall_us:.4f}", flush=True)
     for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"[train profile]   {g}: {us / steps / 1e3:.3f} ms/step "
+        print(f"[{tag} profile]   {g}: {us / steps / 1e3:.3f} ms/step "
               f"({us / busy:.4f} of device time)", flush=True)
     for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"[train profile]   top: {us / steps / 1e3:.3f} ms/step "
+        print(f"[{tag} profile]   top: {us / steps / 1e3:.3f} ms/step "
               f"{name[:110]}", flush=True)
 
 
 def train_parity_phase(torch, seed):
     """Three fp32 steps of a small GPT on the card (kernels) and on the
-    CPU (plain versions) from the same weights; losses within
-    PARITY_TOL relative (cuBLAS and the CPU sum in other orders; TF32
-    is off)."""
+    CPU (plain versions) from the same weights, unfused and with
+    ``enable_fused_lmce``; losses within PARITY_TOL relative (cuBLAS,
+    the kernels and the CPU sum in other orders; TF32 is off)."""
     import paddle_tpu_torch as paddle
-    from paddle_tpu_torch.models import GPTPretrainingCriterion, gpt_tiny
+    from paddle_tpu_torch.models import (GPTPretrainingCriterion,
+                                         enable_fused_lmce, gpt_tiny)
+    from paddle_tpu_torch.ops import lmce_kernel as lk
     cfg = gpt_tiny(hidden_size=128, num_attention_heads=2,
                    intermediate_size=256, max_position_embeddings=256)
     rng = np.random.default_rng(seed + 3)
@@ -615,23 +826,34 @@ def train_parity_phase(torch, seed):
             self.losses.append(float(logs["loss"][0]))
 
     cpu_net, _ = _train_model(torch, cfg, "cpu", seed, o2=False)
-    losses = {}
-    for device in ("cpu", "cuda"):
-        net, opt = _train_model(torch, cfg, device, seed, o2=False)
-        net.load_state_dict(cpu_net.state_dict())
-        model = paddle.Model(net, device=device)
-        model.prepare(opt, GPTPretrainingCriterion())
-        keep = Keep()
-        model.fit(batches, epochs=1, verbose=0, callbacks=[keep])
-        losses[device] = keep.losses
-    rel = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
-                                                losses["cpu"])]
-    check(len(rel) == 3 and max(rel) <= PARITY_TOL,
-          f"[train fp32 parity] losses cuda {losses['cuda']} vs cpu "
-          f"{losses['cpu']}")
-    print(f"[train fp32 parity] GPT L=2 D=128 H=2 Dh=64 S=256: losses "
-          f"cuda {losses['cuda']} cpu {losses['cpu']} (max relative "
-          f"diff {max(rel):.3e}, tol {PARITY_TOL})", flush=True)
+    for fused in (False, True):
+        tag = "train fp32 parity" + (" fused lmce" if fused else "")
+        losses = {}
+        lk.reset_counts()
+        for device in ("cpu", "cuda"):
+            net, opt = _train_model(torch, cfg, device, seed, o2=False)
+            net.load_state_dict(cpu_net.state_dict())
+            crit = GPTPretrainingCriterion()
+            if fused:
+                enable_fused_lmce(net, crit)
+            model = paddle.Model(net, device=device)
+            model.prepare(opt, crit)
+            keep = Keep()
+            model.fit(batches, epochs=1, verbose=0, callbacks=[keep])
+            losses[device] = keep.losses
+        counts = [(f.launches, f.plain_calls) for f in lk.WRAPPERS]
+        want = [(3, 3)] * 3 if fused else [(0, 0)] * 3
+        check(counts == want, f"[{tag}] lmce (launches, plain calls) "
+              f"{counts}, expected {want}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                    losses["cpu"])]
+        check(len(rel) == 3 and max(rel) <= PARITY_TOL,
+              f"[{tag}] losses cuda {losses['cuda']} vs cpu "
+              f"{losses['cpu']}")
+        print(f"[{tag}] GPT L=2 D=128 H=2 Dh=64 S=256: losses cuda "
+              f"{losses['cuda']} cpu {losses['cpu']} (max relative diff "
+              f"{max(rel):.3e}, tol {PARITY_TOL}); lmce (launches, plain "
+              f"calls) {counts}", flush=True)
 
 
 def main(argv=None) -> int:
@@ -669,9 +891,11 @@ def main(argv=None) -> int:
 
     kres = kernel_phase(torch, args.seed)
     fres = flash_phase(torch, args.seed)
+    lres = lmce_phase(torch, args.seed)
     s32 = serving_phase(torch, args.seed, torch.float32, "fp32", True)
     s16 = serving_phase(torch, args.seed, torch.bfloat16, "bf16", False)
     tres = train_phase(torch, args.seed)
+    lmce_train = fused_train_phase(torch, args.seed, tres)
     train_parity_phase(torch, args.seed)
 
     kernels = [{
@@ -698,6 +922,19 @@ def main(argv=None) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "fp32_max_abs_err": max(fres["fp32"].values()),
+        })
+    for name in LMCE_KERNELS:
+        r = lres[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/lmce.cu",
+            "replaces": LMCE_REPLACES[name],
+            "launches": lmce_train["launches"][name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "library_fwd_bwd_ms": r["library_fwd_bwd_ms"],
+            "fp32_max_abs_err": r["fp32_max_abs_err"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

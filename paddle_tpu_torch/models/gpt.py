@@ -26,6 +26,7 @@ from .. import nn
 from ..framework import random as _random
 from ..nn.functional import cross_entropy, flash_attention
 from ..ops.flash_attention_kernel import flash_attention_reference
+from ..ops.lmce_kernel import fused_linear_cross_entropy
 
 
 @dataclass
@@ -232,36 +233,75 @@ class GPTForCausalLM(tnn.Module):
     gradient sums both uses.  ``device=None`` means the card and raises
     without one; pass ``device="cpu"`` for the CPU.  Weights are drawn
     from ``generator`` (default: the port's generator of the device) in
-    construction order."""
+    construction order.
+
+    ``skip_lm_head=True`` (set by :func:`enable_fused_lmce`) returns the
+    final hidden states instead of the logits; the criterion then folds
+    the vocabulary product into the fused lm-head cross-entropy kernels,
+    so the ``[B, S, V]`` logits never reach device memory."""
 
     def __init__(self, config: GPTConfig, device=None, generator=None):
         super().__init__()
         self.config = config
         self.gpt = GPTModel(config, device, generator)
+        self.skip_lm_head = False
 
     def lm_weight(self):
         return self.gpt.embeddings.word_embeddings.weight
 
     def forward(self, input_ids, position_ids=None):
         hidden = self.gpt(input_ids, position_ids)
+        if self.skip_lm_head:
+            return hidden
         return torch.matmul(hidden, self.lm_weight().t())
 
 
 class GPTPretrainingCriterion(tnn.Module):
     """Causal LM loss: per-token cross-entropy (fp32, ``ignore_index``
     -100) averaged over all tokens, or over ``loss_mask`` when given.
-    Labels come already shifted by one."""
+    Labels come already shifted by one.
 
-    def __init__(self, config: Optional[GPTConfig] = None):
+    ``lm_weight_fn`` turns on the fused lm-head path: ``forward`` then
+    takes the final hidden states ``[B, S, D]`` (the model must set
+    ``skip_lm_head``) and computes the loss with
+    :func:`~paddle_tpu_torch.ops.fused_linear_cross_entropy` against
+    ``lm_weight_fn()``, which ignores every negative label (the JAX
+    package's fused path does the same).  :func:`enable_fused_lmce`
+    sets both sides."""
+
+    def __init__(self, config: Optional[GPTConfig] = None,
+                 lm_weight_fn=None):
         super().__init__()
+        self._lm_weight_fn = lm_weight_fn
 
     def forward(self, logits, labels, loss_mask=None):
-        loss = cross_entropy(logits, labels, ignore_index=-100,
-                             reduction="none")
+        if self._lm_weight_fn is not None:
+            loss = self._fused_loss(logits, labels)
+        else:
+            loss = cross_entropy(logits, labels, ignore_index=-100,
+                                 reduction="none")
         if loss_mask is not None:
             loss_mask = loss_mask.to(loss.dtype)
             return (loss * loss_mask).sum() / loss_mask.sum().clamp_min(1e-9)
         return loss.mean()
+
+    def _fused_loss(self, hidden, labels):
+        b, s, d = hidden.shape
+        per_tok = fused_linear_cross_entropy(
+            hidden.reshape(b * s, d), self._lm_weight_fn(),
+            labels.reshape(b * s))
+        return per_tok.reshape(b, s)
+
+
+def enable_fused_lmce(model: GPTForCausalLM,
+                      criterion: GPTPretrainingCriterion):
+    """Switch the (model, criterion) pair to the fused lm-head
+    cross-entropy path (the JAX package's ``PADDLE_TPU_FUSED_LMCE``
+    configuration).  The kernel's ``dw`` reaches the tied embedding
+    ``Parameter`` through autograd, beside the lookup's gradient."""
+    model.skip_lm_head = True
+    criterion._lm_weight_fn = model.lm_weight
+    return model, criterion
 
 
 def state_dict_from_jax(numpy_state, cfg: GPTConfig) -> dict:

@@ -2,6 +2,10 @@
 
 from .flash_attention_kernel import (FlashAttnFunc, flash_attention_reference,
                                      flash_bwd_dkv, flash_bwd_dq, flash_fwd)
+from .lmce_kernel import (FusedLinearCrossEntropy, fused_linear_cross_entropy,
+                          lmce_bwd_dh, lmce_bwd_dw, lmce_fwd, lmce_reference)
 
 __all__ = ["FlashAttnFunc", "flash_attention_reference", "flash_fwd",
-           "flash_bwd_dq", "flash_bwd_dkv"]
+           "flash_bwd_dq", "flash_bwd_dkv", "FusedLinearCrossEntropy",
+           "fused_linear_cross_entropy", "lmce_reference", "lmce_fwd",
+           "lmce_bwd_dh", "lmce_bwd_dw"]

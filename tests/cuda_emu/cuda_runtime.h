@@ -23,7 +23,7 @@
 #define __host__
 #define __forceinline__ inline
 #define __restrict__ __restrict
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 using std::max;
 using std::min;
 

@@ -30,6 +30,7 @@ import torch
 from paddle_tpu_torch import _build
 from paddle_tpu_torch.inference.serving import paged_attention_kernel as pak
 from paddle_tpu_torch.ops import flash_attention_kernel as fk
+from paddle_tpu_torch.ops import lmce_kernel as lk
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "cuda_emu"))
 import emulate  # noqa: E402
@@ -58,6 +59,15 @@ def emu_libs(tmp_path_factory):
     pa.argtypes = [i] + [p] * 6 + [i] * 6 + [ctypes.c_float, p]
     pa.restype = ctypes.c_int
     return libs
+
+
+@pytest.fixture(scope="module")
+def lmce_lib(tmp_path_factory):
+    if emulate.compiler() is None:
+        pytest.skip("no g++ to build the CUDA emulation")
+    out = tmp_path_factory.mktemp("cuda_emu_lmce")
+    return lk.bind(ctypes.CDLL(str(emulate.build(_build.CSRC_DIR / "lmce.cu",
+                                                 out))))
 
 
 def _close(got, ref, tol, what):
@@ -177,3 +187,70 @@ def test_paged_attention_kernel_matches_plain(emu_libs, dtype, tol):
         pool_k.float(), pool_v.float(), table_t, lengths, q.float())
     _close(out, ref, tol, "out")
     assert (out[0] == 0).all()
+
+
+LMCE_CASES = {
+    "fp32 D=64 ragged rows+vocab, ignored labels": dict(
+        N=70, V=300, D=64, ignore=True),
+    "fp32 D=200": dict(N=45, V=257, D=200),
+    "fp32 D=768": dict(N=33, V=130, D=768),
+    "fp32 D=1032 (two gradient slices)": dict(N=36, V=131, D=1032,
+                                             ignore=True),
+    "bf16 D=64 ignored labels": dict(N=64, V=200, D=64, ignore=True,
+                                     dtype=torch.bfloat16),
+    "bf16 D=200": dict(N=33, V=129, D=200, dtype=torch.bfloat16),
+    "bf16 D=768 ignored labels": dict(N=40, V=260, D=768, ignore=True,
+                                      dtype=torch.bfloat16),
+}
+
+
+def _lmce_inputs(N, V, D, dtype, ignore, seed):
+    rng = np.random.default_rng(seed)
+    h = torch.from_numpy(rng.standard_normal((N, D), dtype=np.float32))
+    w = torch.from_numpy(rng.standard_normal((V, D), dtype=np.float32)
+                         * np.float32(0.05))
+    labels = torch.from_numpy(rng.integers(0, V, N).astype(np.int32))
+    if ignore:
+        labels[::4] = -100
+        labels[1] = -1
+    g = torch.from_numpy(rng.random(N, dtype=np.float32))
+    return h.to(dtype), w.to(dtype), labels, g
+
+
+@pytest.mark.parametrize("case", list(LMCE_CASES))
+def test_lmce_kernels_match_plain(lmce_lib, case):
+    c = dict(LMCE_CASES[case])
+    dtype = c.get("dtype", torch.float32)
+    h, w, labels, g = _lmce_inputs(c["N"], c["V"], c["D"], dtype,
+                                   c.get("ignore", False),
+                                   sum(map(ord, case)))
+    loss, lse = lk._launch_fwd(lmce_lib, None, h, w, labels)
+    dh = lk._launch_bwd_dh(lmce_lib, None, h, w, labels, lse, g)
+    dw = lk._launch_bwd_dw(lmce_lib, None, h, w, labels, lse, g)
+    rloss, rlse = lk.lmce_reference(h, w, labels)
+    rdh = lk.lmce_bwd_dh_reference(h, w, labels, lse, g)
+    rdw = lk.lmce_bwd_dw_reference(h, w, labels, lse, g)
+    tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+    for what, got, ref in (("loss", loss, rloss), ("lse", lse, rlse),
+                           ("dh", dh, rdh), ("dw", dw, rdw)):
+        _close(got, ref, tol, what)
+    assert loss.dtype == lse.dtype == torch.float32
+    assert dh.dtype == dw.dtype == dtype
+    assert dh.shape == h.shape and dw.shape == w.shape
+    if c.get("ignore"):
+        ignored = labels < 0
+        assert (loss[ignored] == 0).all() and (dh[ignored] == 0).all()
+        assert (loss[~ignored] > 0).all()
+
+
+def test_lmce_kernels_are_deterministic(lmce_lib):
+    h, w, labels, g = _lmce_inputs(40, 140, 64, torch.float32, True, 5)
+
+    def run():
+        loss, lse = lk._launch_fwd(lmce_lib, None, h, w, labels)
+        return (loss, lse,
+                lk._launch_bwd_dh(lmce_lib, None, h, w, labels, lse, g),
+                lk._launch_bwd_dw(lmce_lib, None, h, w, labels, lse, g))
+
+    for a, b in zip(run(), run()):
+        assert torch.equal(a, b)

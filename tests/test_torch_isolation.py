@@ -23,6 +23,7 @@ def test_import_pulls_in_no_jax():
         "import paddle_tpu_torch.amp, paddle_tpu_torch.nn\n"
         "import paddle_tpu_torch.ops, paddle_tpu_torch.framework\n"
         "import paddle_tpu_torch.nn.functional\n"
+        "import paddle_tpu_torch.ops.lmce_kernel\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "'jax.') or m == 'paddle_tpu' or m.startswith('paddle_tpu.')]\n"
         "assert not bad, bad\n")
@@ -71,3 +72,25 @@ def test_engine_without_device_refuses_cpu_fallback(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     eng = DecodeEngine(params=params, gpt_config=cfg, device="cpu")
     assert eng.device == torch.device("cpu")
+
+
+def test_fused_model_without_device_refuses_cpu_fallback(monkeypatch):
+    """The fused lm-head path changes no device rule: the model refuses
+    to build without a card unless ``device="cpu"`` is given, and then
+    runs the kernels' plain versions."""
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion,
+                                         enable_fused_lmce, gpt_tiny)
+    from paddle_tpu_torch.ops import lmce_kernel as lk
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        GPTForCausalLM(gpt_tiny())
+    net, crit = enable_fused_lmce(GPTForCausalLM(gpt_tiny(), device="cpu"),
+                                  GPTPretrainingCriterion())
+    assert net.skip_lm_head and next(net.parameters()).device.type == "cpu"
+    x = torch.randint(0, 256, (2, 16), generator=torch.Generator()
+                      .manual_seed(0))
+    lk.reset_counts()
+    loss = crit(net(x), x.roll(-1, 1))
+    assert torch.isfinite(loss)
+    assert lk.lmce_fwd.plain_calls == 1 and lk.lmce_fwd.launches == 0
