@@ -60,7 +60,36 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
    head dim 64, S=256) for three steps on the card and on the CPU's
    plain path from the same weights and compares the losses, unfused
    and fused;
-10. prints the kernels' JSON line, the card line, and last the line
+10. ``[flash bh]`` holds the ``[B*H, S, D]`` configuration's kernels,
+    ``flash_fwd_hpack`` (head-packed forward) and ``flash_bwd_fused``
+    (single-sweep backward), against their plain versions at GPT's
+    ``[96, 1024, 64]`` causal and ERNIE's ``[192, 512, 64]`` non-causal
+    shapes, in bf16 (within 2e-2 x max(|ref|, 1)) and fp32 (within
+    1e-4 x max(|ref|, 1)), and in fp32 against ``flash_fwd`` and the
+    split ``flash_bwd_dq`` + ``flash_bwd_dkv`` (within 1e-5 x
+    max(|ref|, 1)); then in fp32 at S=1000, odd H with hp=2 (heads
+    straddling batches), hp=4, segment ids with fully-masked rows
+    (exactly 0) and, through the public ``flash_attention`` under the
+    knobs, D=128, whose launches must show ``flash_fwd``, not the
+    head-packed kernel.  Times each kernel, its plain version and, as
+    a yardstick only, ``scaled_dot_product_attention`` forward (and
+    forward+backward for the fused backward), and the ``[B*H, S, D]``
+    layout copies;
+11. ``[train bh]`` repeats 7 with ``PADDLE_TORCH_FLASH_NO_PACKED=1``,
+    ``HEADPACK=2`` and ``FUSED_BWD=1``: the two kernels launched 12
+    times per step (the fused backward's pre-pass and bf16 epilogue as
+    often), the default path's three flash kernels never, no plain
+    call, the first loss within 1e-2 relative of 7's;
+12. ``[train ernie bh]`` trains ERNIE-3.0-base MLM (12 layers, hidden
+    768, 12 heads, vocab 40000, random weights from ``--seed``) at
+    B=16, S=512, bf16 O2, AdamW, dropout 0, under the same knobs,
+    labels = the tokens on 15% of positions and -100 elsewhere, with
+    the checks of 11 (the first loss against the default path's loss
+    on the same weights and batch) and a profile;
+13. ``[train fp32 parity bh]`` trains a small GPT and a small BERT
+    (2 layers, hidden 128, head dim 64, S=256) for three fp32 steps on
+    the card and on the CPU under the knobs and compares the losses;
+14. prints the kernels' JSON line, the card line, and last the line
     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero; without a card,
@@ -90,6 +119,14 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 1024, 8
 PARITY_TOL = 1e-4                # relative, per loss; cuBLAS vs CPU sums
 FUSED_FIRST_LOSS_TOL = 1e-2      # relative; the unfused path rounds the
                                  # logits to bf16, the fused one does not
+BH_FIRST_LOSS_TOL = 1e-2         # relative; the [B*H, S, D] path rounds
+                                 # p and dS to bf16 in the fused backward
+FLASH_PAIR_TOL = 1e-5            # x max(|ref|, 1); kernel against kernel,
+                                 # fp32, sums in other orders or atomics
+ERNIE_B, ERNIE_S = 16, 512
+BH_KNOBS = {"PADDLE_TORCH_FLASH_NO_PACKED": "1",
+            "PADDLE_TORCH_FLASH_HEADPACK": "2",
+            "PADDLE_TORCH_FLASH_FUSED_BWD": "1"}
 
 
 def card_line() -> str:
@@ -288,10 +325,13 @@ def serving_phase(torch, seed, dtype, tag, check_oracle):
 # flash attention: the three kernels against their plain versions
 # ---------------------------------------------------------------------------
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+BH_KERNELS = ("flash_fwd_hpack", "flash_bwd_fused")    # [flash bh] phase
 FLASH_REPLACES = {
     "flash_fwd": "paddle_tpu/ops/pallas_ops.py:795",
     "flash_bwd_dq": "paddle_tpu/ops/pallas_ops.py:883",
     "flash_bwd_dkv": "paddle_tpu/ops/pallas_ops.py:959",
+    "flash_fwd_hpack": "paddle_tpu/ops/pallas_ops.py:192",
+    "flash_bwd_fused": "paddle_tpu/ops/pallas_ops.py:397",
 }
 
 
@@ -470,6 +510,207 @@ def flash_phase(torch, seed):
 
 
 # ---------------------------------------------------------------------------
+# [B*H, S, D] flash configuration: head-packed forward, fused backward
+# ---------------------------------------------------------------------------
+class knobs_set:
+    """Set environment knobs for a ``with`` block, restoring them after."""
+
+    def __init__(self, values):
+        self.values = values
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        os.environ.update(self.values)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def bh_compare(torch, fk, tag, tol, q, k, v, g, causal, hp=2, qseg=None,
+               kseg=None):
+    """The head-packed forward (or, with segment ids, ``flash_fwd``)
+    and the fused backward against their plain versions; in fp32 also
+    against ``flash_fwd`` and the split pair on the same inputs."""
+    if qseg is None:
+        out, lse = fk.flash_fwd_hpack(q, k, v, hp, causal)
+    else:
+        out, lse = fk.flash_fwd(q, k, v, causal, qseg, kseg)
+    dq, dk, dv = fk.flash_bwd_fused(q, k, v, out, lse, g, causal, qseg, kseg)
+    got = {"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+    rout, rlse = fk.flash_attention_reference(
+        *[t.float() for t in (q, k, v)], causal, qseg, kseg)
+    rdq, rdk, rdv = fk.flash_bwd_fused_reference(q, k, v, out, lse, g, causal,
+                                                 qseg, kseg)
+    ref = {"out": rout, "lse": rlse, "dq": rdq, "dk": rdk, "dv": rdv}
+    pair = {}
+    if q.dtype == torch.float32:
+        fout, flse = fk.flash_fwd(q, k, v, causal, qseg, kseg)
+        sdq, delta = fk.flash_bwd_dq(q, k, v, out, lse, g, causal, qseg, kseg)
+        sdk, sdv = fk.flash_bwd_dkv(q, k, v, g, lse, delta, causal, qseg,
+                                    kseg)
+        pair = {"out": fout, "lse": flse, "dq": sdq, "dk": sdk, "dv": sdv}
+    torch.cuda.synchronize()
+    errs, pair_errs = {}, {}
+    for name in got:
+        check(got[name].dtype == (torch.float32 if name == "lse" else q.dtype),
+              f"[flash bh] {tag}: {name} dtype {got[name].dtype}")
+        check(bool(torch.isfinite(got[name].float()).all()),
+              f"[flash bh] {tag}: {name} not finite")
+        err, rel = _err(got[name], ref[name])
+        check(rel <= tol, f"[flash bh] {tag}: {name} error {err:.3e} "
+                          f"(relative {rel:.3e}) > {tol}")
+        errs[name] = err
+        if pair:
+            err, rel = _err(got[name], pair[name])
+            check(rel <= FLASH_PAIR_TOL, f"[flash bh] {tag}: {name} vs "
+                  f"flash_fwd / split pair {err:.3e} > {FLASH_PAIR_TOL}")
+            pair_errs[name] = err
+    line = (f"[flash bh] {tag}: vs plain max_abs_err " + " ".join(
+        f"{n}={e:.3e}" for n, e in errs.items()) + f" (tol {tol} x "
+        "max(|ref|, 1))")
+    if pair:
+        same = torch.equal(out, pair["out"]) and torch.equal(lse, pair["lse"])
+        line += ("; vs flash_fwd + split pair " + " ".join(
+            f"{n}={e:.3e}" for n, e in pair_errs.items())
+            + f" (tol {FLASH_PAIR_TOL}; forward bitwise equal: {same})")
+    print(line, flush=True)
+    return got, errs
+
+
+def flash_bh_phase(torch, seed):
+    from paddle_tpu_torch.nn.functional import flash_attention
+    from paddle_tpu_torch.ops import flash_attention_kernel as fk
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 10)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # the main path's shapes, as the public function hands them over:
+    # contiguous [B*H, S, 1, D]
+    shapes = {"gpt": (TRAIN_B * 12, TRAIN_S, True),
+              "ernie": (ERNIE_B * 12, ERNIE_S, False)}
+    res, main = {"bf16": {}, "fp32": {}}, {}
+    for dtype, tol in ((torch.bfloat16, FLASH_BF16_TOL),
+                       (torch.float32, FLASH_FP32_TOL)):
+        name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        for model, (BH, S, causal) in shapes.items():
+            args = [rnd(BH, S, 1, 64, dtype=dtype) for _ in range(4)]
+            _, errs = bh_compare(
+                torch, fk, f"{name} {model} [{BH}, {S}, 64] "
+                f"{'causal' if causal else 'non-causal'} hp=2", tol, *args,
+                causal)
+            for n, e in errs.items():
+                res[name][n] = max(res[name].get(n, 0.0), e)
+            if dtype == torch.bfloat16:
+                main[model] = args
+
+    tol = FLASH_FP32_TOL
+    bh_compare(torch, fk, "S=1000 causal (ragged) hp=2", tol,
+               *[rnd(8, 1000, 1, 64) for _ in range(4)], True)
+    q = rnd(2, 300, 3, 64)
+    bh_compare(torch, fk, "[2, 300, 3, 64] odd H, hp=2 pairs straddle "
+               "batches", tol, q, *[rnd(2, 300, 3, 64) for _ in range(3)],
+               False)
+    bh_compare(torch, fk, "hp=4 non-causal [8, 256, 64]", tol,
+               *[rnd(8, 256, 1, 64) for _ in range(4)], False, hp=4)
+    qseg = torch.zeros((2, 300), dtype=torch.int32, device=dev)
+    qseg[:, 150:] = 1
+    qseg[:, 7] = 9                                   # sees no key
+    kseg = torch.zeros((2, 300), dtype=torch.int32, device=dev)
+    kseg[:, 150:] = 1
+    got, _ = bh_compare(torch, fk, "segment ids + fully-masked row through "
+                        "the fused backward", tol,
+                        *[rnd(2, 300, 4, 64) for _ in range(4)], False,
+                        qseg=qseg, kseg=kseg)
+    check(bool((got["out"][:, 7] == 0).all())
+          and bool((got["dq"][:, 7] == 0).all()),
+          "[flash bh] masked row: out or dq not exactly 0")
+    # D=128 under HEADPACK=2: the rule sends it to flash_fwd
+    q, k, v = [rnd(2, 256, 4, 128).requires_grad_() for _ in range(3)]
+    g = rnd(2, 256, 4, 128)
+    fk.reset_counts()
+    with knobs_set(BH_KNOBS):
+        out, _ = flash_attention(q, k, v, causal=True)
+        grads = torch.autograd.grad(out, [q, k, v], g)
+    counts = {f.__name__: f.launches for f in fk.ALL_WRAPPERS}
+    check(counts == {"flash_fwd": 1, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                     "flash_fwd_hpack": 0, "flash_bwd_fused": 1},
+          f"[flash bh] D=128 under HEADPACK=2 launched {counts}")
+    ref, _ = fk.flash_attention_reference(q, k, v, True)
+    rgrads = torch.autograd.grad(ref, [q, k, v], g)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), (out, *grads),
+                          (ref, *rgrads)):
+        err, rel = _err(a, b)
+        check(rel <= tol, f"[flash bh] D=128 {name} error {err:.3e}")
+    print(f"[flash bh] D=128 through flash_attention under the knobs: "
+          f"launches {counts}; out and grads within {tol}", flush=True)
+
+    # times at both main shapes, bf16; the GPT shape's go in the JSON
+    flush_buf = torch.empty(128 * 1024 * 1024 // 4, device=dev)
+    flush = flush_buf.zero_
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for model, (BH, S, causal) in shapes.items():
+        q, k, v, g = main[model]
+        out, lse = fk.flash_fwd_hpack(q, k, v, 2, causal)
+        qt, kt, vt, gt = [t.transpose(1, 2) for t in (q, k, v, g)]
+        leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+
+        def sdpa_fwd_bwd():
+            o = sdpa(*leaves, is_causal=causal)
+            torch.autograd.grad(o, leaves, gt)
+
+        calls = {
+            "flash_fwd_hpack": (
+                lambda: fk.flash_fwd_hpack(q, k, v, 2, causal),
+                lambda: fk.flash_attention_reference(q, k, v, causal),
+                lambda: sdpa(qt, kt, vt, is_causal=causal)),
+            "flash_bwd_fused": (
+                lambda: fk.flash_bwd_fused(q, k, v, out, lse, g, causal),
+                lambda: fk.flash_bwd_fused_reference(q, k, v, out, lse, g,
+                                                     causal),
+                sdpa_fwd_bwd),
+        }
+        for name, (kern, plain, lib) in calls.items():
+            with torch.no_grad():
+                ms = time_cuda(torch, kern, 20, flush=flush)
+                plain_ms = time_cuda(torch, plain, 5, warmup=2, flush=flush)
+            lib_ms = time_cuda(torch, lib, 20, flush=flush)
+            flops, nbytes = fk.kernel_work(name, BH, 1, S, S, 64, causal, 2)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / BF16_FLOPS_PER_S * 1e3
+            r = {"ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": max(t_bytes, t_ops),
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                 "library_ms": lib_ms, "flops": flops, "bytes": nbytes,
+                 "tflops": flops / (ms * 1e-3) / 1e12}
+            res.setdefault(name, {})[model] = r
+            print(f"[flash bh] {name} bf16 {model} [{BH}, {S}, 64] "
+                  f"{'causal' if causal else 'non-causal'}: kernel_ms="
+                  f"{ms:.5f} plain_ms={plain_ms:.5f} bound_ms="
+                  f"{r['bound_ms']:.5f} ({r['bound_by']}: {flops} flop, "
+                  f"{nbytes} bytes) achieved {r['tflops']:.2f} TFLOP/s; "
+                  f"library_ms (sdpa "
+                  f"{'forward' if name == 'flash_fwd_hpack' else 'forward+backward'}"
+                  f", not used by the port)={lib_ms:.5f}", flush=True)
+    # the layout's cost: one [B, S, H, D] <-> [B*H, S, D] copy at GPT's
+    # training shape; a layer makes eight (q, k, v, out; dO, dq, dk, dv)
+    qkv = rnd(TRAIN_B, TRAIN_S, 3, 12, 64, dtype=torch.bfloat16)
+    copy_ms = time_cuda(torch, lambda: qkv[:, :, 0].transpose(1, 2)
+                        .contiguous(), 50, flush=flush)
+    res["layout_copy_ms"] = copy_ms
+    print(f"[flash bh] layout copy [8, 1024, 12, 64] bf16 view -> contiguous "
+          f"[96, 1024, 64]: {copy_ms:.5f} ms; x 8 per layer x 12 layers = "
+          f"{copy_ms * 96:.3f} ms per GPT-2-small step", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # fused lm-head cross-entropy: the three kernels against their plain versions
 # ---------------------------------------------------------------------------
 LMCE_KERNELS = ("lmce_fwd", "lmce_bwd_dh", "lmce_bwd_dw")
@@ -618,12 +859,15 @@ def lmce_phase(torch, seed):
 # ---------------------------------------------------------------------------
 # training: GPT-2-small through Model.fit
 # ---------------------------------------------------------------------------
-def _train_model(torch, cfg, device, seed, o2):
+def _train_model(torch, cfg, device, seed, o2, bert=False):
+    """GPT (or, with ``bert``, BertForPretraining) from ``seed`` and its
+    AdamW(1e-4, multi_precision), cast to bf16 O2 if ``o2``."""
     import paddle_tpu_torch as paddle
-    from paddle_tpu_torch.models import GPTForCausalLM
+    from paddle_tpu_torch.models import BertForPretraining, GPTForCausalLM
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    net = GPTForCausalLM(cfg, device=device, generator=gen)
+    net = (BertForPretraining if bert else GPTForCausalLM)(
+        cfg, device=device, generator=gen)
     opt = paddle.optimizer.AdamW(learning_rate=1e-4,
                                  parameters=net.parameters(),
                                  multi_precision=True)
@@ -632,31 +876,25 @@ def _train_model(torch, cfg, device, seed, o2):
     return net, opt
 
 
-def train_phase(torch, seed, fused=False):
-    """``[train]``, or with ``fused`` the same run with
-    ``enable_fused_lmce`` (``[train fused lmce]``)."""
-    import gc
+def _mlm_batch(torch, vocab, b, s, seed):
+    """Tokens and MLM labels: the token on 15% of positions, -100
+    elsewhere (bench.py's ERNIE batch), from ``seed``."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, vocab, (b, s)).astype(np.int64)
+    labels = np.where(rng.random((b, s)) < 0.15, x, -100).astype(np.int64)
+    return torch.from_numpy(x), torch.from_numpy(labels)
 
-    import paddle_tpu_torch as paddle
-    from paddle_tpu_torch.models import (GPTPretrainingCriterion,
-                                         enable_fused_lmce, gpt2_small)
+
+def fit_and_check(torch, tag, desc, model, net, batch, want, tokens):
+    """``Model.fit`` for TRAIN_STEPS steps on one repeated batch, every
+    launch count set to 0 just before and read just after; checks
+    finite, falling losses, the launch counts against ``want`` (every
+    flash and lmce kernel and the fused backward's helpers), no plain
+    call and the O2 dtypes; prints step ms, tokens/s, peak memory and a
+    profile of two more steps."""
+    from paddle_tpu_torch.hapi.callbacks import Callback
     from paddle_tpu_torch.ops import flash_attention_kernel as fk
     from paddle_tpu_torch.ops import lmce_kernel as lk
-    tag = "train fused lmce" if fused else "train"
-    gc.collect()                # the previous phase's model, if any
-    cfg = gpt2_small(hidden_dropout_prob=0.0,
-                     attention_probs_dropout_prob=0.0)
-    net, opt = _train_model(torch, cfg, "cuda", seed, o2=True)
-    crit = GPTPretrainingCriterion()
-    if fused:
-        enable_fused_lmce(net, crit)
-    model = paddle.Model(net, device="cuda")
-    model.prepare(opt, crit)
-    rng = np.random.default_rng(seed + 2)
-    x = rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S)).astype(np.int64)
-    batch = (torch.from_numpy(x).pin_memory(),
-             torch.from_numpy(np.roll(x, -1, axis=1)).pin_memory())
-    from paddle_tpu_torch.hapi.callbacks import Callback
 
     class StepClock(Callback):
         """Waits for the device at each step end and stamps it (the
@@ -682,33 +920,24 @@ def train_phase(torch, seed, fused=False):
     lk.reset_counts()
     model.fit([batch] * TRAIN_STEPS, epochs=1, num_iters=TRAIN_STEPS,
               verbose=0, callbacks=[clock])
-    launches = {f.__name__: f.launches for f in fk.WRAPPERS + lk.WRAPPERS}
-    plain = {f.__name__: f.plain_calls for f in fk.WRAPPERS + lk.WRAPPERS}
+    wrappers = fk.ALL_WRAPPERS + lk.WRAPPERS
+    launches = {f.__name__: f.launches for f in wrappers}
+    launches.update(fk.flash_bwd_fused.helper_launches)
+    plain = {f.__name__: f.plain_calls for f in wrappers}
     peak = torch.cuda.max_memory_allocated()
     losses = clock.losses
-    L = cfg.num_hidden_layers
     check(len(losses) == TRAIN_STEPS, f"[{tag}] {len(losses)} steps")
     check(all(np.isfinite(losses)), f"[{tag}] loss not finite: {losses}")
     check(losses[-1] < losses[0], f"[{tag}] loss did not fall: {losses}")
-    for f in fk.WRAPPERS:
-        n = launches[f.__name__]
-        check(n == TRAIN_STEPS * L, f"[{tag}] {f.__name__} launched {n} "
-              f"times, expected {TRAIN_STEPS} steps x {L} layers")
-    for f in lk.WRAPPERS:
-        n = launches[f.__name__]
-        want = TRAIN_STEPS if fused else 0
-        check(n == want, f"[{tag}] {f.__name__} launched {n} times, "
-              f"expected {want}")
+    check(launches == want, f"[{tag}] launches {launches}, expected {want}")
     check(not any(plain.values()), f"[{tag}] plain calls {plain}")
     dtypes = {p.dtype for p in net.parameters()}
     check(dtypes == {torch.bfloat16, torch.float32},
           f"[{tag}] O2 parameter dtypes {dtypes}")
     steps_ms = np.diff(clock.stamps) * 1e3
-    steady = steps_ms[2:]
-    step_ms = float(np.median(steady))
-    tok_s = TRAIN_B * TRAIN_S / (step_ms * 1e-3)
-    print(f"[{tag}] GPT-2-small L=12 D=768 H=12 V=50304 B={TRAIN_B} "
-          f"S={TRAIN_S} bf16 O2 AdamW: {TRAIN_STEPS} steps, losses "
+    step_ms = float(np.median(steps_ms[2:]))
+    tok_s = tokens / (step_ms * 1e-3)
+    print(f"[{tag}] {desc}: {TRAIN_STEPS} steps, losses "
           f"{[round(v, 6) for v in losses]}; step_ms first="
           f"{steps_ms[0]:.3f} median(steps 3+)={step_ms:.3f} -> "
           f"{tok_s:.1f} tokens/s; peak_mem_gib="
@@ -717,7 +946,111 @@ def train_phase(torch, seed, fused=False):
           f"{plain}", flush=True)
     profile_steps(torch, model, batch, 2, tag)
     return {"launches": launches, "losses": losses, "peak": peak,
-            "step_ms": step_ms}
+            "step_ms": step_ms, "tokens_per_s": tok_s}
+
+
+def _want_launches(layer_calls, bh=False, fused_lmce_steps=0):
+    """Expected launch counts: the default path's three flash kernels,
+    or under the [B*H, S, D] knobs the head-packed forward, the fused
+    backward and its helpers (bf16: the dq epilogue runs too),
+    ``layer_calls`` times each."""
+    from paddle_tpu_torch.ops import flash_attention_kernel as fk
+    from paddle_tpu_torch.ops import lmce_kernel as lk
+    want = {f.__name__: 0 if bh else layer_calls for f in fk.WRAPPERS}
+    want.update({f.__name__: layer_calls if bh else 0
+                 for f in fk.BH_WRAPPERS})
+    want["flash_bwd_fused_prep"] = layer_calls if bh else 0
+    want["flash_bwd_fused_dq_cast"] = layer_calls if bh else 0
+    want.update({f.__name__: fused_lmce_steps for f in lk.WRAPPERS})
+    return want
+
+
+def train_phase(torch, seed, fused=False, bh=False):
+    """``[train]``, with ``fused`` the same run with ``enable_fused_lmce``
+    (``[train fused lmce]``), with ``bh`` under the [B*H, S, D] knobs
+    (``[train bh]``)."""
+    import gc
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import (GPTPretrainingCriterion,
+                                         enable_fused_lmce, gpt2_small)
+    tag = "train fused lmce" if fused else ("train bh" if bh else "train")
+    gc.collect()                # the previous phase's model, if any
+    cfg = gpt2_small(hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0)
+    net, opt = _train_model(torch, cfg, "cuda", seed, o2=True)
+    crit = GPTPretrainingCriterion()
+    if fused:
+        enable_fused_lmce(net, crit)
+    model = paddle.Model(net, device="cuda")
+    model.prepare(opt, crit)
+    rng = np.random.default_rng(seed + 2)
+    x = rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S)).astype(np.int64)
+    batch = (torch.from_numpy(x).pin_memory(),
+             torch.from_numpy(np.roll(x, -1, axis=1)).pin_memory())
+    L = cfg.num_hidden_layers
+    want = _want_launches(TRAIN_STEPS * L, bh=bh,
+                          fused_lmce_steps=TRAIN_STEPS if fused else 0)
+    with knobs_set(BH_KNOBS if bh else {}):
+        return fit_and_check(
+            torch, tag, f"GPT-2-small L=12 D=768 H=12 V=50304 B={TRAIN_B} "
+            f"S={TRAIN_S} bf16 O2 AdamW", model, net, batch, want,
+            TRAIN_B * TRAIN_S)
+
+
+def bh_train_phase(torch, seed, base):
+    """``[train bh]``: the ``[train]`` run under the [B*H, S, D] knobs,
+    first loss within BH_FIRST_LOSS_TOL relative of ``base``'s (same
+    weights and batch)."""
+    res = train_phase(torch, seed, bh=True)
+    first, base_first = res["losses"][0], base["losses"][0]
+    rel = abs(first - base_first) / abs(base_first)
+    check(rel <= BH_FIRST_LOSS_TOL,
+          f"[train bh] first loss {first} vs [train] {base_first} "
+          f"(relative {rel:.3e} > {BH_FIRST_LOSS_TOL})")
+    print("[train bh] step losses bh vs default: " + ", ".join(
+        f"{a:.6f}/{b:.6f}" for a, b in zip(res["losses"], base["losses"]))
+        + f"; first-loss relative diff {rel:.3e} (tol {BH_FIRST_LOSS_TOL}); "
+        f"step_ms {res['step_ms']:.3f} vs {base['step_ms']:.3f}; "
+        f"peak_mem_gib {res['peak'] / 2**30:.3f} vs "
+        f"{base['peak'] / 2**30:.3f}", flush=True)
+    return res
+
+
+def ernie_train_phase(torch, seed):
+    """``[train ernie bh]``: ERNIE-3.0-base MLM pretraining at B=16,
+    S=512, bf16 O2, AdamW, under the [B*H, S, D] knobs.  The first
+    loss is held against the default path's loss on the same weights
+    and batch, taken before the fit by a step that updates nothing."""
+    import gc
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import BertPretrainingCriterion, ernie_3_base
+    tag = "train ernie bh"
+    gc.collect()
+    cfg = ernie_3_base(hidden_dropout_prob=0.0,
+                       attention_probs_dropout_prob=0.0)
+    net, opt = _train_model(torch, cfg, "cuda", seed, o2=True, bert=True)
+    model = paddle.Model(net, device="cuda")
+    model.prepare(opt, BertPretrainingCriterion(cfg.vocab_size))
+    x, labels = _mlm_batch(torch, cfg.vocab_size, ERNIE_B, ERNIE_S, seed + 4)
+    batch = (x.pin_memory(), labels.pin_memory())
+    base_first = float(model.train_batch([batch[0]], [batch[1]],
+                                         update=False)[0][0])
+    want = _want_launches(TRAIN_STEPS * cfg.num_hidden_layers, bh=True)
+    with knobs_set(BH_KNOBS):
+        res = fit_and_check(
+            torch, tag, f"ERNIE-3.0-base L=12 D=768 H=12 V=40000 "
+            f"B={ERNIE_B} S={ERNIE_S} bf16 O2 AdamW, MLM 15%", model, net,
+            batch, want, ERNIE_B * ERNIE_S)
+    rel = abs(res["losses"][0] - base_first) / abs(base_first)
+    check(rel <= BH_FIRST_LOSS_TOL,
+          f"[{tag}] first loss {res['losses'][0]} vs default path "
+          f"{base_first} (relative {rel:.3e} > {BH_FIRST_LOSS_TOL})")
+    print(f"[{tag}] first loss {res['losses'][0]:.6f} vs the default "
+          f"path's {base_first:.6f} on the same weights and batch: relative "
+          f"diff {rel:.3e} (tol {BH_FIRST_LOSS_TOL})", flush=True)
+    return res
 
 
 def fused_train_phase(torch, seed, base):
@@ -745,7 +1078,9 @@ def fused_train_phase(torch, seed, base):
 
 def _kernel_group(name):
     if any(k in name for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                                "flash_bwd_dkv_kernel")):
+                                "flash_bwd_dkv_kernel",
+                                "flash_fwd_hpack_kernel",
+                                "flash_bwd_fused")):
         return "flash kernels"
     if "lmce_fwd_kernel" in name or "lmce_bwd_kernel" in name:
         return "lmce kernels"
@@ -798,23 +1133,8 @@ def profile_steps(torch, model, batch, steps, tag="train"):
               f"{name[:110]}", flush=True)
 
 
-def train_parity_phase(torch, seed):
-    """Three fp32 steps of a small GPT on the card (kernels) and on the
-    CPU (plain versions) from the same weights, unfused and with
-    ``enable_fused_lmce``; losses within PARITY_TOL relative (cuBLAS,
-    the kernels and the CPU sum in other orders; TF32 is off)."""
-    import paddle_tpu_torch as paddle
-    from paddle_tpu_torch.models import (GPTPretrainingCriterion,
-                                         enable_fused_lmce, gpt_tiny)
-    from paddle_tpu_torch.ops import lmce_kernel as lk
-    cfg = gpt_tiny(hidden_size=128, num_attention_heads=2,
-                   intermediate_size=256, max_position_embeddings=256)
-    rng = np.random.default_rng(seed + 3)
-    batches = []
-    for _ in range(3):
-        x = rng.integers(0, cfg.vocab_size, (2, 256)).astype(np.int64)
-        batches.append((torch.from_numpy(x),
-                        torch.from_numpy(np.roll(x, -1, axis=1))))
+def _loss_keeper():
+    """A callback that keeps each step's loss."""
     from paddle_tpu_torch.hapi.callbacks import Callback
 
     class Keep(Callback):
@@ -825,6 +1145,36 @@ def train_parity_phase(torch, seed):
         def on_train_batch_end(self, step, logs=None):
             self.losses.append(float(logs["loss"][0]))
 
+    return Keep()
+
+
+def _gpt_batches(torch, cfg, seed):
+    rng = np.random.default_rng(seed)
+    batches = []
+    for _ in range(3):
+        x = rng.integers(0, cfg.vocab_size, (2, 256)).astype(np.int64)
+        batches.append((torch.from_numpy(x),
+                        torch.from_numpy(np.roll(x, -1, axis=1))))
+    return batches
+
+
+def _small_gpt():
+    from paddle_tpu_torch.models import gpt_tiny
+    return gpt_tiny(hidden_size=128, num_attention_heads=2,
+                    intermediate_size=256, max_position_embeddings=256)
+
+
+def train_parity_phase(torch, seed):
+    """Three fp32 steps of a small GPT on the card (kernels) and on the
+    CPU (plain versions) from the same weights, unfused and with
+    ``enable_fused_lmce``; losses within PARITY_TOL relative (cuBLAS,
+    the kernels and the CPU sum in other orders; TF32 is off)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import (GPTPretrainingCriterion,
+                                         enable_fused_lmce)
+    from paddle_tpu_torch.ops import lmce_kernel as lk
+    cfg = _small_gpt()
+    batches = _gpt_batches(torch, cfg, seed + 3)
     cpu_net, _ = _train_model(torch, cfg, "cpu", seed, o2=False)
     for fused in (False, True):
         tag = "train fp32 parity" + (" fused lmce" if fused else "")
@@ -838,7 +1188,7 @@ def train_parity_phase(torch, seed):
                 enable_fused_lmce(net, crit)
             model = paddle.Model(net, device=device)
             model.prepare(opt, crit)
-            keep = Keep()
+            keep = _loss_keeper()
             model.fit(batches, epochs=1, verbose=0, callbacks=[keep])
             losses[device] = keep.losses
         counts = [(f.launches, f.plain_calls) for f in lk.WRAPPERS]
@@ -854,6 +1204,62 @@ def train_parity_phase(torch, seed):
               f"{losses['cuda']} cpu {losses['cpu']} (max relative diff "
               f"{max(rel):.3e}, tol {PARITY_TOL}); lmce (launches, plain "
               f"calls) {counts}", flush=True)
+
+
+def bh_parity_phase(torch, seed):
+    """``[train fp32 parity bh]``: three fp32 steps of a small GPT
+    (causal) and a small BERT (non-causal MLM) under the [B*H, S, D]
+    knobs on the card (the head-packed forward and the fused backward)
+    and on the CPU (their plain versions) from the same weights; losses
+    within PARITY_TOL relative."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import (BertConfig, BertPretrainingCriterion,
+                                         GPTPretrainingCriterion)
+    from paddle_tpu_torch.ops import flash_attention_kernel as fk
+    bcfg = BertConfig(vocab_size=256, hidden_size=128, num_hidden_layers=2,
+                      num_attention_heads=2, intermediate_size=256,
+                      max_position_embeddings=256, hidden_dropout_prob=0.0,
+                      attention_probs_dropout_prob=0.0)
+    runs = {
+        "GPT L=2 D=128 H=2 Dh=64 S=256 causal": (
+            _small_gpt(), False, _gpt_batches(torch, _small_gpt(), seed + 5),
+            GPTPretrainingCriterion),
+        "BERT L=2 D=128 H=2 Dh=64 S=256 non-causal MLM": (
+            bcfg, True, [_mlm_batch(torch, 256, 2, 256, seed + 6 + i)
+                         for i in range(3)],
+            lambda: BertPretrainingCriterion(bcfg.vocab_size)),
+    }
+    layer_calls = 3 * 2                     # three steps x two layers
+    want = {"cpu": [(0, 0)] * 3 + [(0, layer_calls)] * 2,
+            "cuda": [(0, 0)] * 3 + [(layer_calls, 0)] * 2}
+    for desc, (cfg, bert, batches, crit) in runs.items():
+        cpu_net, _ = _train_model(torch, cfg, "cpu", seed, o2=False,
+                                  bert=bert)
+        losses, counts = {}, {}
+        with knobs_set(BH_KNOBS):
+            for device in ("cpu", "cuda"):
+                net, opt = _train_model(torch, cfg, device, seed, o2=False,
+                                        bert=bert)
+                net.load_state_dict(cpu_net.state_dict())
+                model = paddle.Model(net, device=device)
+                model.prepare(opt, crit())
+                keep = _loss_keeper()
+                fk.reset_counts()
+                model.fit(batches, epochs=1, verbose=0, callbacks=[keep])
+                losses[device] = keep.losses
+                counts[device] = [(f.launches, f.plain_calls)
+                                  for f in fk.ALL_WRAPPERS]
+        check(counts == want, f"[train fp32 parity bh] {desc}: flash "
+              f"(launches, plain calls) {counts}, expected {want}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                    losses["cpu"])]
+        check(len(rel) == 3 and max(rel) <= PARITY_TOL,
+              f"[train fp32 parity bh] {desc}: losses cuda "
+              f"{losses['cuda']} vs cpu {losses['cpu']}")
+        print(f"[train fp32 parity bh] {desc}: losses cuda {losses['cuda']}"
+              f" cpu {losses['cpu']} (max relative diff {max(rel):.3e}, tol "
+              f"{PARITY_TOL}); flash (launches, plain calls) cuda "
+              f"{counts['cuda']}", flush=True)
 
 
 def main(argv=None) -> int:
@@ -897,6 +1303,10 @@ def main(argv=None) -> int:
     tres = train_phase(torch, args.seed)
     lmce_train = fused_train_phase(torch, args.seed, tres)
     train_parity_phase(torch, args.seed)
+    bhres = flash_bh_phase(torch, args.seed)
+    bh_train = bh_train_phase(torch, args.seed, tres)
+    ernie_train = ernie_train_phase(torch, args.seed)
+    bh_parity_phase(torch, args.seed)
 
     kernels = [{
         "name": "paged_ragged_attention", "route": "cuda",
@@ -923,6 +1333,33 @@ def main(argv=None) -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "fp32_max_abs_err": max(fres["fp32"].values()),
         })
+    for name in BH_KERNELS:
+        r, e = bhres[name]["gpt"], bhres[name]["ernie"]
+        errs = ("out", "lse") if name == "flash_fwd_hpack" else \
+            ("dq", "dk", "dv")
+        fwd = name == "flash_fwd_hpack"
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+            "replaces": FLASH_REPLACES[name],
+            "launches": (bh_train["launches"][name]
+                         + ernie_train["launches"][name]),
+            "gpt_launches": bh_train["launches"][name],
+            "ernie_launches": ernie_train["launches"][name],
+            "max_abs_err": max(bhres["bf16"][k] for k in errs),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"] if fwd else None,
+            "library_fwd_bwd_ms": None if fwd else r["library_ms"],
+            "fp32_max_abs_err": max(bhres["fp32"][k] for k in errs),
+            "ernie_ms": e["ms"], "ernie_plain_ms": e["plain_ms"],
+            "ernie_bound_ms": e["bound_ms"],
+            "ernie_library_ms": e["library_ms"],
+        })
+        if not fwd:
+            kernels[-1]["helper_launches"] = {
+                k: bh_train["launches"][k] + ernie_train["launches"][k]
+                for k in ("flash_bwd_fused_prep", "flash_bwd_fused_dq_cast")}
     for name in LMCE_KERNELS:
         r = lres[name]
         kernels.append({

@@ -7,6 +7,10 @@
 //                    (the split branch of _pallas_flash_bwd and
 //                    _pallas_flash_packed_bwd)
 //   flash_bwd_dkv <- _flash_bwd_dkv_kernel and _flash_packed_bwd_dkv_kernel
+//   flash_fwd_hpack <- _flash_kernel_hpack (launched by
+//                    _pallas_flash_bh_hpack), hp heads per program
+//   flash_bwd_fused <- _flash_bwd_fused_kernel (the fused branch of
+//                    _pallas_flash_bwd): dq, dk, dv in one sweep
 // The TPU has one kernel per memory layout ([B*H, S, D], and heads packed
 // in 128-lane groups of [B, S, H*D]).  Here every entry point takes the
 // batch, sequence and head strides of each tensor (the head dim is
@@ -24,8 +28,9 @@
 //             with dP = dO V^T, dq = dS K.
 //   dk, dv:   dv = P^T dO, dk = dS^T Q, reading delta from that buffer,
 //             so it launches after flash_bwd_dq on the same stream.
-// Every sum is an fp32 sum in a fixed order; there are no atomics, so the
-// results are the same from run to run.
+// Every sum is an fp32 sum in a fixed order, so the results are the same
+// from run to run, except flash_bwd_fused's dq, whose per-k-tile partial
+// sums meet in an fp32 workspace through atomics (notes at the kernel).
 //
 // What bounds them: at GPT-2-small training shapes (B=8, S=1024, H=12,
 // D=64, causal, bf16) the forward does ~1.3e10 flop on ~50 MB, ~260 flop
@@ -144,18 +149,27 @@ constexpr size_t dkv_smem_floats() {
 // ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
+// The causal tiles at the bottom walk the most K/V tiles: start them first.
+__device__ __forceinline__ int q_tile(int Sq, int causal) {
+  const int n_qt = (Sq + kBM - 1) / kBM;
+  return causal ? n_qt - 1 - static_cast<int>(blockIdx.x)
+                : static_cast<int>(blockIdx.x);
+}
+
+// One 64-row q tile of one (batch, head) slice: walks the K/V tiles with
+// the online softmax and writes its rows of out and lse.  Shared by
+// flash_fwd_kernel (one head per CTA) and flash_fwd_hpack_kernel (HP
+// heads per CTA), so the two compute each head in the same order.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, const int32_t* __restrict__ qseg,
-                 const int32_t* __restrict__ kseg, int H, int Sq, int Sk,
-                 Layout lq, Layout lk, Layout lv, Layout lo, int causal,
-                 float scale) {
+__device__ __forceinline__ void fwd_head(
+    float* smem, const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+    const int32_t* __restrict__ qseg, const int32_t* __restrict__ kseg,
+    int b, int h, int H, int Sq, int Sk, int qt, Layout lq, Layout lk,
+    Layout lv, Layout lo, int causal, float scale) {
   constexpr int kLdQ = D + 1;
   constexpr int kLdK = kBN + 1;
   constexpr int kCols = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
   float* Qs = smem;                       // [kBM][kLdQ]
   float* Kt = Qs + kBM * kLdQ;            // [D][kLdK]  (transposed)
   float* Vs = Kt + D * kLdK;              // [kBN][D]
@@ -163,12 +177,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int* qsg = reinterpret_cast<int*>(Ps + kBM * kLdP);  // [kBM]
   int* ksg = qsg + kBM;                                // [kBN]
 
-  const int n_qt = (Sq + kBM - 1) / kBM;
-  // the causal tiles at the bottom walk the most K/V tiles: start them first
-  const int qt = causal ? n_qt - 1 - static_cast<int>(blockIdx.x)
-                        : static_cast<int>(blockIdx.x);
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
   const int q0 = qt * kBM;
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
@@ -274,6 +282,53 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (tx == 0)
       lse[(static_cast<int64_t>(b) * H + h) * Sq + r] =
           fmaxf(m[i], kLseFloor) + logf(denom);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, const int32_t* __restrict__ qseg,
+                 const int32_t* __restrict__ kseg, int H, int Sq, int Sk,
+                 Layout lq, Layout lk, Layout lv, Layout lo, int causal,
+                 float scale) {
+  extern __shared__ float smem[];
+  fwd_head<T, D>(smem, q, k, v, o, lse, qseg, kseg, blockIdx.z, blockIdx.y,
+                 H, Sq, Sk, q_tile(Sq, causal), lq, lk, lv, lo, causal, scale);
+}
+
+// ---------------------------------------------------------------------------
+// forward, HP heads per CTA (flash_fwd_hpack)
+// ---------------------------------------------------------------------------
+// Replaces _flash_kernel_hpack of pallas_ops.py (launched by
+// _pallas_flash_bh_hpack under PADDLE_TPU_FLASH_HEADPACK): each program
+// owns hp consecutive rows of [B*H, S, D], which on the TPU turns two
+// 64-wide contractions into one full 128-lane MXU pass.  Here the CUDA
+// cores have no lane width to fill, so the CTA walks its HP heads one
+// after another, each with fwd_head, and the outputs equal flash_fwd's
+// bit for bit.  Heads are consecutive along B*H (head h of batch b is
+// row b*H + h), so a CTA's heads may straddle two batches when H is odd,
+// as in the JAX grid.  What changes is the grid: BH/HP x q tiles CTAs,
+// each HP times longer, the Q/K/V tiles and the score tile reused from
+// one head to the next in the same shared memory.  It is bound as
+// flash_fwd is (fp32 FMAs on the CUDA cores, far above the fp32 ridge);
+// on tensor cores the HP heads would become one wider wgmma N tile.
+template <typename T, int D, int HP>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_hpack_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int H, int Sq, int Sk,
+                       Layout lq, Layout lk, Layout lv, Layout lo,
+                       int causal, float scale) {
+  extern __shared__ float smem[];
+  const int qt = q_tile(Sq, causal);
+#pragma unroll 1
+  for (int j = 0; j < HP; ++j) {
+    const int bh = static_cast<int>(blockIdx.y) * HP + j;
+    if (j > 0) __syncthreads();  // the previous head's tile readers are done
+    fwd_head<T, D>(smem, q, k, v, o, lse, nullptr, nullptr, bh / H, bh % H,
+                   H, Sq, Sk, qt, lq, lk, lv, lo, causal, scale);
   }
 }
 
@@ -430,22 +485,31 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// backward: dk, dv
+// backward: dk, dv (and, fused, dq)
 // ---------------------------------------------------------------------------
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, const int32_t* __restrict__ qseg,
-                     const int32_t* __restrict__ kseg, int H, int Sq, int Sk,
-                     Layout lq, Layout lk, Layout lv, Layout ldo, Layout ldk,
-                     Layout ldv, int causal, float scale) {
+// p and dS as the fused sweep rounds them before their products: to the
+// input dtype, as _flash_bwd_fused_kernel casts them (a no-op in fp32).
+__device__ __forceinline__ float round_as(float x, const float*) { return x; }
+__device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// One 64-row k tile of one (batch, head) slice walking the q tiles that
+// can see it.  kFused = false is flash_bwd_dkv; kFused = true is the
+// sweep of flash_bwd_fused, which also adds each q tile's dS K into the
+// fp32 dq workspace dq_ws (contiguous [B, Sq, H, D]).
+template <typename T, int D, bool kFused>
+__device__ __forceinline__ void dkv_sweep(
+    float* smem, const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dq_ws,
+    const int32_t* __restrict__ qseg, const int32_t* __restrict__ kseg,
+    int H, int Sq, int Sk, Layout lq, Layout lk, Layout lv, Layout ldo,
+    Layout ldk, Layout ldv, int causal, float scale) {
   constexpr int kLdK = D + 1;
   constexpr int kLdQ = kBM + 1;
   constexpr int kCols = D / 16;
-  extern __shared__ float smem[];
   float* Ks = smem;                  // [kBN][kLdK]
   float* Vs = Ks + kBN * kLdK;       // [kBN][kLdK]
   float* Qt = Vs + kBN * kLdK;       // [D][kLdQ]   (transposed)
@@ -530,8 +594,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const bool ok = visible(q0 + r, k0 + c, Sq, Sk, causal, has_seg,
                                 qsg[r], ksg[c]);
         const float p = ok ? expf(st[i][j] * scale - lse_s[r]) : 0.f;
-        Ps[c * kLdP + r] = p;
-        dSs[c * kLdP + r] = p * (dpt[i][j] - delta_s[r]) * scale;
+        const float ds = p * (dpt[i][j] - delta_s[r]) * scale;
+        if constexpr (kFused) {
+          Ps[c * kLdP + r] = round_as(p, q);
+          dSs[c * kLdP + r] = round_as(ds, q);
+        } else {
+          Ps[c * kLdP + r] = p;
+          dSs[c * kLdP + r] = ds;
+        }
       }
     }
     __syncthreads();
@@ -558,6 +628,38 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           ak[i][cc] = fmaf(ds[i], qq[cc], ak[i][cc]);
         }
     }
+
+    if constexpr (kFused) {
+      // this k tile's share of dq rows q0 + ty + 16 i: dS K, read from
+      // dS^T and the row-major K tile, then added into the workspace
+      float aq[kTR][kCols];
+#pragma unroll
+      for (int i = 0; i < kTR; ++i)
+#pragma unroll
+        for (int cc = 0; cc < kCols; ++cc) aq[i][cc] = 0.f;
+#pragma unroll 4
+      for (int c = 0; c < kBN; ++c) {
+        float ds[kTR], kk[kCols];
+#pragma unroll
+        for (int i = 0; i < kTR; ++i) ds[i] = dSs[c * kLdP + ty + 16 * i];
+#pragma unroll
+        for (int cc = 0; cc < kCols; ++cc) kk[cc] = Ks[c * kLdK + tx + 16 * cc];
+#pragma unroll
+        for (int i = 0; i < kTR; ++i)
+#pragma unroll
+          for (int cc = 0; cc < kCols; ++cc)
+            aq[i][cc] = fmaf(ds[i], kk[cc], aq[i][cc]);
+      }
+#pragma unroll
+      for (int i = 0; i < kTR; ++i) {
+        const int r = q0 + ty + 16 * i;
+        if (r >= Sq) continue;
+        float* row = dq_ws + ((static_cast<int64_t>(b) * Sq + r) * H + h) * D;
+#pragma unroll
+        for (int cc = 0; cc < kCols; ++cc)
+          atomicAdd(row + tx + 16 * cc, aq[i][cc]);
+      }
+    }
   }
 
   T* dkb = dk + b * ldk.b + h * ldk.h;
@@ -572,6 +674,108 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       store(dvb + static_cast<int64_t>(c) * ldv.s + tx + 16 * cc, av[i][cc]);
     }
   }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, const int32_t* __restrict__ qseg,
+                     const int32_t* __restrict__ kseg, int H, int Sq, int Sk,
+                     Layout lq, Layout lk, Layout lv, Layout ldo, Layout ldk,
+                     Layout ldv, int causal, float scale) {
+  extern __shared__ float smem[];
+  dkv_sweep<T, D, false>(smem, q, k, v, dout, lse, delta, dk, dv, nullptr,
+                         qseg, kseg, H, Sq, Sk, lq, lk, lv, ldo, ldk, ldv,
+                         causal, scale);
+}
+
+// ---------------------------------------------------------------------------
+// backward in one sweep (flash_bwd_fused)
+// ---------------------------------------------------------------------------
+// Replaces _flash_bwd_fused_kernel of pallas_ops.py (the fused branch of
+// _pallas_flash_bwd, PADDLE_TPU_FLASH_FUSED_BWD).  The TPU kernel walks
+// (kv, q) block pairs in order on one core and keeps a whole-sequence dq
+// in VMEM across the kv loop; on Hopper the kv tiles run in parallel
+// CTAs, so three launches on one stream:
+//   1. flash_bwd_fused_prep_kernel: delta = rowsum(dO * O), one warp per
+//      row (the dq kernel's sum, same order), and zeroes the row's fp32
+//      dq workspace.  delta comes from this pre-pass rather than from a
+//      recompute on every visit of a q tile (as _flash_bwd_dkv_kernel
+//      does): the workspace needs zeroing anyway, the pre-pass reads O
+//      once instead of once per visiting k tile, and the sweep then
+//      never reads O.
+//   2. flash_bwd_fused_kernel: one CTA per (64-row k tile, head, batch)
+//      walks the q tiles from the first the causal mask lets reach it;
+//      the five products (S, dP, P^T dO, dS^T Q, dS K) of each pair are
+//      computed once, dK and dV accumulate in registers and are written
+//      once, and each q tile's dS K is added into the workspace with
+//      atomicAdd.  p is rounded to the input dtype before P^T dO and dS
+//      before dS^T Q and dS K, where the TPU kernel rounds them.
+//   3. flash_bwd_fused_dq_cast_kernel (bf16 only): rounds the workspace
+//      into dq.  For fp32 the workspace is dq itself.
+// dk and dv have one summation order, the same bits on every run; the
+// atomics make the order of dq's per-k-tile partial sums vary from run
+// to run, which moves dq by a few fp32 ulps of its magnitude (|dq| x
+// 2^-24 per k tile at most), far inside the checks' 1e-4 x max(|ref|, 1).
+// Bound: ~3.2e10 flop on ~101 MB at GPT-2-small's [96, 1024, 64] causal
+// shape, operations on bf16 tensor cores; here fp32 FMAs on the CUDA
+// cores, so operations bound it, as in the split pair, which it replaces
+// with one sweep that computes S and dP once instead of twice.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_fused_prep_kernel(const T* __restrict__ o,
+                            const T* __restrict__ dout,
+                            float* __restrict__ delta,
+                            float* __restrict__ dq_ws, int B, int H, int Sq,
+                            Layout lo, Layout ldo) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * (kThreads / 32) +
+                      warp;  // (b, h, s) in delta's order
+  if (row >= static_cast<int64_t>(B) * H * Sq) return;  // whole warps
+  const int s = static_cast<int>(row % Sq);
+  const int h = static_cast<int>((row / Sq) % H);
+  const int b = static_cast<int>(row / (static_cast<int64_t>(Sq) * H));
+  const T* orow = o + b * lo.b + h * lo.h + static_cast<int64_t>(s) * lo.s;
+  const T* grow =
+      dout + b * ldo.b + h * ldo.h + static_cast<int64_t>(s) * ldo.s;
+  float part = 0.f;
+  for (int d = lane; d < D; d += 32)
+    part = fmaf(to_f(grow[d]), to_f(orow[d]), part);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    part += __shfl_xor_sync(0xffffffffu, part, off);
+  if (lane == 0) delta[row] = part;
+  float* ws = dq_ws + ((static_cast<int64_t>(b) * Sq + s) * H + h) * D;
+  for (int d = lane; d < D; d += 32) ws[d] = 0.f;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const T* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, T* __restrict__ dk,
+                       T* __restrict__ dv, float* __restrict__ dq_ws,
+                       const int32_t* __restrict__ qseg,
+                       const int32_t* __restrict__ kseg, int H, int Sq,
+                       int Sk, Layout lq, Layout lk, Layout lv, Layout ldo,
+                       Layout ldk, Layout ldv, int causal, float scale) {
+  extern __shared__ float smem[];
+  dkv_sweep<T, D, true>(smem, q, k, v, dout, lse, delta, dk, dv, dq_ws,
+                        qseg, kseg, H, Sq, Sk, lq, lk, lv, ldo, ldk, ldv,
+                        causal, scale);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_fused_dq_cast_kernel(const float* __restrict__ dq_ws,
+                               T* __restrict__ dq, int64_t n) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i < n) store(dq + i, dq_ws[i]);
 }
 
 // ---------------------------------------------------------------------------
@@ -644,6 +848,59 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <typename T, int D, int HP>
+cudaError_t fwd_hpack(const void* q, const void* k, const void* v, void* o,
+                      float* lse, int B, int H, int Sq, int Sk, int causal,
+                      float scale, const int64_t* st, cudaStream_t stream) {
+  const size_t smem = fwd_smem_floats<D>() * sizeof(float);
+  cudaError_t err = prepare(flash_fwd_hpack_kernel<T, D, HP>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + kBM - 1) / kBM, B * H / HP, 1);
+  flash_fwd_hpack_kernel<T, D, HP><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, H, Sq, Sk,
+      layout_at(st, 0), layout_at(st, 1), layout_at(st, 2), layout_at(st, 3),
+      causal, scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t bwd_fused(const void* q, const void* k, const void* v,
+                      const void* o, const void* dout, const float* lse,
+                      float* delta, float* dq_ws, void* dq, void* dk,
+                      void* dv, const int32_t* qseg, const int32_t* kseg,
+                      int B, int H, int Sq, int Sk, int causal, float scale,
+                      const int64_t* st, cudaStream_t stream) {
+  const int64_t rows = static_cast<int64_t>(B) * H * Sq;
+  const int rows_per_cta = kThreads / 32;
+  flash_bwd_fused_prep_kernel<T, D><<<
+      static_cast<unsigned>((rows + rows_per_cta - 1) / rows_per_cta),
+      kThreads, 0, stream>>>(static_cast<const T*>(o),
+                             static_cast<const T*>(dout), delta, dq_ws, B, H,
+                             Sq, layout_at(st, 3), layout_at(st, 4));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const size_t smem = dkv_smem_floats<D>() * sizeof(float);
+  err = prepare(flash_bwd_fused_kernel<T, D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sk + kBN - 1) / kBN, H, B);
+  flash_bwd_fused_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dk), static_cast<T*>(dv), dq_ws, qseg, kseg, H, Sq, Sk,
+      layout_at(st, 0), layout_at(st, 1), layout_at(st, 2), layout_at(st, 4),
+      layout_at(st, 5), layout_at(st, 6), causal, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || static_cast<void*>(dq_ws) == dq) return err;
+
+  const int64_t n = rows * D;
+  flash_bwd_fused_dq_cast_kernel<T><<<
+      static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0,
+      stream>>>(dq_ws, static_cast<T*>(dq), n);
+  return cudaGetLastError();
+}
+
 bool bad_shape(int B, int H, int Sq, int Sk) {
   return B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || B > 65535 || H > 65535;
 }
@@ -708,6 +965,58 @@ extern "C" int flash_bwd_dkv(int dtype, int head_dim, const void* q,
   PADDLE_FLASH_DISPATCH(bwd_dkv, q, k, v, dout,
                         static_cast<const float*>(lse),
                         static_cast<const float*>(delta), dk, dv,
+                        static_cast<const int32_t*>(qseg),
+                        static_cast<const int32_t*>(kseg), B, H, Sq, Sk,
+                        causal, scale, static_cast<const int64_t*>(strides),
+                        static_cast<cudaStream_t>(stream))
+}
+
+// hp heads per CTA: hp 2 or 4, head_dim 64 only, B * H divisible by hp;
+// anything else returns cudaErrorInvalidValue.  strides: q, k, v, o.
+extern "C" int flash_fwd_hpack(int dtype, int head_dim, int hp,
+                               const void* q, const void* k, const void* v,
+                               void* o, void* lse, int B, int H, int Sq,
+                               int Sk, int causal, float scale,
+                               const void* strides, void* stream) {
+  const int64_t bh = static_cast<int64_t>(B) * H;
+  if (bad_shape(B, H, Sq, Sk) || head_dim != 64 || (hp != 2 && hp != 4) ||
+      bh % hp != 0 || bh / hp > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* st = static_cast<const int64_t*>(strides);
+  auto* l = static_cast<float*>(lse);
+  auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0 && hp == 2)
+    err = fwd_hpack<float, 64, 2>(q, k, v, o, l, B, H, Sq, Sk, causal, scale,
+                                  st, s);
+  else if (dtype == 0 && hp == 4)
+    err = fwd_hpack<float, 64, 4>(q, k, v, o, l, B, H, Sq, Sk, causal, scale,
+                                  st, s);
+  else if (dtype == 1 && hp == 2)
+    err = fwd_hpack<__nv_bfloat16, 64, 2>(q, k, v, o, l, B, H, Sq, Sk, causal,
+                                          scale, st, s);
+  else if (dtype == 1 && hp == 4)
+    err = fwd_hpack<__nv_bfloat16, 64, 4>(q, k, v, o, l, B, H, Sq, Sk, causal,
+                                          scale, st, s);
+  return static_cast<int>(err);
+}
+
+// The fused backward's three launches.  dq_ws is an fp32 workspace and dq
+// the output, both contiguous [B, Sq, H, D]; for fp32 pass the same
+// pointer for both (no cast launch).  delta is fp32 [B, H, Sq] scratch.
+// strides: q, k, v, o, dout, dk, dv.
+extern "C" int flash_bwd_fused(int dtype, int head_dim, const void* q,
+                               const void* k, const void* v, const void* o,
+                               const void* dout, const void* lse, void* delta,
+                               void* dq_ws, void* dq, void* dk, void* dv,
+                               const void* qseg, const void* kseg, int B,
+                               int H, int Sq, int Sk, int causal, float scale,
+                               const void* strides, void* stream) {
+  if (bad_shape(B, H, Sq, Sk)) return static_cast<int>(cudaErrorInvalidValue);
+  PADDLE_FLASH_DISPATCH(bwd_fused, q, k, v, o, dout,
+                        static_cast<const float*>(lse),
+                        static_cast<float*>(delta),
+                        static_cast<float*>(dq_ws), dq, dk, dv,
                         static_cast<const int32_t*>(qseg),
                         static_cast<const int32_t*>(kseg), B, H, Sq, Sk,
                         causal, scale, static_cast<const int64_t*>(strides),

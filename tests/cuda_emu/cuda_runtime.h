@@ -7,6 +7,7 @@
 // wrote shows up in the result.  Only what the kernels call is here.
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstdint>
@@ -53,6 +54,11 @@ inline unsigned char* emu_dyn_smem = nullptr;
 inline int emu_smem_limit = 48 * 1024;
 
 inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
+
+// A block's threads really run at once, so the add must be atomic.
+inline float atomicAdd(float* address, float val) {
+  return std::atomic_ref<float>(*address).fetch_add(val);
+}
 
 inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
   const int t = threadIdx.x, w = t / 32, lane = t % 32;

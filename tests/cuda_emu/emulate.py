@@ -11,8 +11,11 @@ C++20 against ``cuda_runtime.h`` / ``cuda_bf16.h`` here:
   block, smem, [&] { kernel(args); });``.
 
 The library keeps the source's ``extern "C"`` entry points, so the
-port's ctypes wrappers can drive it with CPU pointers.  Inline PTX,
-tensor-core instructions and atomics are not emulated.
+port's ctypes wrappers can drive it with CPU pointers.
+``atomicAdd(float*, float)`` is a ``std::atomic_ref`` add (a block's
+threads run at once; blocks run in turn, so the order across blocks is
+fixed here, unlike on the card).  Inline PTX and tensor-core
+instructions are not emulated.
 """
 
 from __future__ import annotations

@@ -48,13 +48,7 @@ def emu_libs(tmp_path_factory):
                                              out)))
             for n in ("flash_attention", "paged_attention")}
     p, i = ctypes.c_void_p, ctypes.c_int
-    fl = libs["flash_attention"]
-    fl.flash_fwd.argtypes = [i, i] + [p] * 7 + [i] * 5 + [ctypes.c_float,
-                                                          p, p]
-    for fn in (fl.flash_bwd_dq, fl.flash_bwd_dkv):
-        fn.argtypes = [i, i] + [p] * 10 + [i] * 5 + [ctypes.c_float, p, p]
-    for fn in (fl.flash_fwd, fl.flash_bwd_dq, fl.flash_bwd_dkv):
-        fn.restype = ctypes.c_int
+    fk.bind(libs["flash_attention"])
     pa = libs["paged_attention"].paddle_paged_attention
     pa.argtypes = [i] + [p] * 6 + [i] * 6 + [ctypes.c_float, p]
     pa.restype = ctypes.c_int
@@ -159,6 +153,113 @@ def test_flash_kernels_are_deterministic(emu_libs):
 
     for a, b in zip(run(), run()):
         assert torch.equal(a, b)
+
+
+# the [B*H, S, D] configuration's kernels: flash_fwd_hpack (K3) and
+# flash_bwd_fused (K4a).  "bh" cases run the [B*H, S, 1, D] layout the
+# public function hands them; otherwise heads are consecutive along B*H
+# of a [B, S, H, D] tensor, so with an odd H a CTA's heads straddle two
+# batches.
+BH_CASES = {
+    "fp32 causal ragged S=130 hp=2": dict(B=1, Sq=130, Sk=130, H=2,
+                                          causal=True, hp=2, bh=True),
+    "fp32 non-causal Sq=70 Sk=150 hp=4": dict(B=2, Sq=70, Sk=150, H=2,
+                                              causal=False, hp=4),
+    "fp32 odd H=3 hp=2 straddles batches": dict(B=2, Sq=65, Sk=65, H=3,
+                                                causal=True, hp=2),
+    "fp32 segments + masked row": dict(B=1, Sq=100, Sk=96, H=2,
+                                       causal=False, seg=True),
+    "fp32 D=128 causal": dict(B=1, Sq=80, Sk=80, H=1, D=128, causal=True),
+    "bf16 causal S=96 hp=2": dict(B=1, Sq=96, Sk=96, H=2, causal=True, hp=2,
+                                  bh=True, dtype=torch.bfloat16),
+    "bf16 non-causal Sq=33 Sk=70 hp=4": dict(B=1, Sq=33, Sk=70, H=4,
+                                             causal=False, hp=4,
+                                             dtype=torch.bfloat16),
+}
+
+
+def _bh_inputs(case):
+    c = dict(BH_CASES[case])
+    B, Sq, Sk, H = c["B"], c["Sq"], c["Sk"], c["H"]
+    D, dtype = c.get("D", 64), c.get("dtype", torch.float32)
+    gen = torch.Generator().manual_seed(sum(map(ord, case)))
+    q, g = [torch.randn(B, Sq, H, D, generator=gen).to(dtype)
+            for _ in range(2)]
+    k, v = [torch.randn(B, Sk, H, D, generator=gen).to(dtype)
+            for _ in range(2)]
+    qs = ks = None
+    if c.get("seg"):
+        qs = torch.zeros(B, Sq, dtype=torch.int32)
+        qs[:, Sq // 2:] = 1
+        qs[:, 3] = 7                                   # sees no key
+        ks = torch.zeros(B, Sk, dtype=torch.int32)
+        ks[:, Sk // 3:] = 1
+    if c.get("bh"):
+        q, k, v, g = [t.permute(0, 2, 1, 3).reshape(B * H, -1, 1, D)
+                      .contiguous() for t in (q, k, v, g)]
+    return c, q, k, v, g, qs, ks
+
+
+@pytest.mark.parametrize("case", list(BH_CASES))
+def test_bh_kernels_match_plain(emu_libs, case):
+    c, q, k, v, g, qs, ks = _bh_inputs(case)
+    lib, scale = emu_libs["flash_attention"], 1.0 / math.sqrt(q.shape[-1])
+    causal, dtype = c["causal"], q.dtype
+    tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+    out, lse = fk._launch_fwd(lib, None, q, k, v, causal, qs, ks, scale)
+    if "hp" in c:
+        hout, hlse = fk._launch_fwd_hpack(lib, None, q, k, v, c["hp"],
+                                          causal, scale)
+        # each head in flash_fwd's order: the same bits
+        assert torch.equal(hout, out) and torch.equal(hlse, lse)
+        rout, rlse = fk.flash_attention_reference(
+            *[t.float() for t in (q, k, v)], causal, scale=scale)
+        _close(hout, rout, tol, "hpack out")
+        _close(hlse, rlse, tol, "hpack lse")
+    dq, dk, dv = fk._launch_bwd_fused(lib, None, q, k, v, out, lse, g, causal,
+                                      qs, ks, scale)
+    ref = fk.flash_bwd_fused_reference(q, k, v, out, lse, g, causal, qs, ks,
+                                       scale)
+    for what, got, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        assert got.dtype == dtype and got.shape == r.shape
+        _close(got, r, tol, what)
+    if dtype == torch.float32:
+        # the fused sweep against the split pair on the same inputs
+        sdq, delta = fk._launch_bwd_dq(lib, None, q, k, v, out, lse, g,
+                                       causal, qs, ks, scale)
+        sdk, sdv = fk._launch_bwd_dkv(lib, None, q, k, v, g, lse, delta,
+                                      causal, qs, ks, scale)
+        for what, got, r in (("dq", dq, sdq), ("dk", dk, sdk),
+                             ("dv", dv, sdv)):
+            _close(got, r, FP32_TOL, f"fused vs split {what}")
+    if qs is not None:
+        assert (dq[:, 3] == 0).all()
+
+
+def test_fused_backward_dk_dv_same_bits_every_run(emu_libs):
+    """dk and dv have one summation order; dq's partial sums meet
+    through atomics (fixed order here, where blocks run in turn)."""
+    _, q, k, v, g, _, _ = _bh_inputs("bf16 causal S=96 hp=2")
+    lib = emu_libs["flash_attention"]
+    out, lse = fk._launch_fwd(lib, None, q, k, v, True, None, None, 0.125)
+
+    def run():
+        return fk._launch_bwd_fused(lib, None, q, k, v, out, lse, g, True,
+                                    None, None, 0.125)
+
+    (dq1, dk1, dv1), (dq2, dk2, dv2) = run(), run()
+    assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+    _close(dq1, dq2, FP32_TOL, "dq run to run")
+
+
+def test_bh_entries_refuse_what_they_are_not_built_for(emu_libs):
+    lib = emu_libs["flash_attention"]
+    q = torch.zeros(1, 8, 3, 64)
+    with pytest.raises(RuntimeError, match="flash_fwd_hpack"):
+        fk._launch_fwd_hpack(lib, None, q, q, q, 2, True, 0.125)  # BH = 3
+    q = torch.zeros(1, 8, 2, 128)
+    with pytest.raises(RuntimeError, match="flash_fwd_hpack"):
+        fk._launch_fwd_hpack(lib, None, q, q, q, 2, True, 0.125)  # D = 128
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, FP32_TOL),

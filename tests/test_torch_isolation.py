@@ -24,6 +24,8 @@ def test_import_pulls_in_no_jax():
         "import paddle_tpu_torch.ops, paddle_tpu_torch.framework\n"
         "import paddle_tpu_torch.nn.functional\n"
         "import paddle_tpu_torch.ops.lmce_kernel\n"
+        "import paddle_tpu_torch.framework.env_knobs\n"
+        "import paddle_tpu_torch.models.bert, paddle_tpu_torch.ops.nn_ops\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "'jax.') or m == 'paddle_tpu' or m.startswith('paddle_tpu.')]\n"
         "assert not bad, bad\n")
@@ -49,6 +51,8 @@ def test_no_source_names_jax_or_the_jax_package():
                          re.MULTILINE)
     sources = list(_port_sources())
     assert len(sources) > 10
+    for mod in ("framework/env_knobs.py", "models/bert.py", "ops/nn_ops.py"):
+        assert os.path.join(PORT, mod) in sources, mod
     for path in sources:
         with open(path, encoding="utf-8") as fh:
             text = fh.read()
@@ -94,3 +98,20 @@ def test_fused_model_without_device_refuses_cpu_fallback(monkeypatch):
     loss = crit(net(x), x.roll(-1, 1))
     assert torch.isfinite(loss)
     assert lk.lmce_fwd.plain_calls == 1 and lk.lmce_fwd.launches == 0
+
+
+def test_env_knobs_registry_is_the_ports_own():
+    """The port's registry holds only ``PADDLE_TORCH_*`` names, each read
+    by the port, and reads no ``PADDLE_TPU_*`` variable."""
+    from paddle_tpu_torch.framework import env_knobs
+    assert env_knobs.KNOBS and all(n.startswith("PADDLE_TORCH_")
+                                   for n in env_knobs.KNOBS)
+    users = []
+    for path in _port_sources():
+        if path.endswith(".py") and "env_knobs.py" not in path:
+            with open(path, encoding="utf-8") as fh:
+                users.append(fh.read())
+    text = "\n".join(users)
+    for name in env_knobs.KNOBS:
+        assert f'"{name}"' in text, f"{name} is registered but never read"
+    assert not re.search(r"get_(raw|bool|int)\(\s*\"PADDLE_TPU_", text)
