@@ -75,22 +75,42 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
     a yardstick only, ``scaled_dot_product_attention`` forward (and
     forward+backward for the fused backward), and the ``[B*H, S, D]``
     layout copies;
-11. ``[train bh]`` repeats 7 with ``PADDLE_TORCH_FLASH_NO_PACKED=1``,
+11. ``[flash tc]`` holds the tensor-core forward of bf16
+    ``flash_fwd`` and ``flash_fwd_hpack`` (``csrc/flash_fwd_sm90.cu``,
+    ``wgmma`` fed by TMA) against ``flash_fwd_tc_reference`` (p rounded
+    to bf16 as the kernel rounds it; within 1e-2 x max(|ref|, 1)) at
+    GPT's ``[8, 1024, 12, 64]`` views and ``[96, 1024, 64]`` causal,
+    ERNIE's ``[192, 512, 64]`` non-causal, S=1000, Sq != Sk, D=128,
+    odd H with hp=2 (packs straddling batches), hp=4 and segment ids
+    with a fully-masked row (out exactly 0, lse the floor); the
+    head-packed kernel bitwise against ``flash_fwd``; counts the
+    ``HGMMA`` instructions in the library's SASS and prints ptxas's
+    registers and spills; times the kernels at the three main shapes
+    beside the CUDA-core forward they replaced for bf16, the plain
+    version and, as a yardstick only, SDPA, with the bound and
+    TFLOP/s;
+12. ``[train bh]`` repeats 7 with ``PADDLE_TORCH_FLASH_NO_PACKED=1``,
     ``HEADPACK=2`` and ``FUSED_BWD=1``: the two kernels launched 12
     times per step (the fused backward's pre-pass and bf16 epilogue as
     often), the default path's three flash kernels never, no plain
     call, the first loss within 1e-2 relative of 7's;
-12. ``[train ernie bh]`` trains ERNIE-3.0-base MLM (12 layers, hidden
+13. ``[train ernie bh]`` trains ERNIE-3.0-base MLM (12 layers, hidden
     768, 12 heads, vocab 40000, random weights from ``--seed``) at
     B=16, S=512, bf16 O2, AdamW, dropout 0, under the same knobs,
     labels = the tokens on 15% of positions and -100 elsewhere, with
-    the checks of 11 (the first loss against the default path's loss
+    the checks of 12 (the first loss against the default path's loss
     on the same weights and batch) and a profile;
-13. ``[train fp32 parity bh]`` trains a small GPT and a small BERT
+14. ``[train fp32 parity bh]`` trains a small GPT and a small BERT
     (2 layers, hidden 128, head dim 64, S=256) for three fp32 steps on
-    the card and on the CPU under the knobs and compares the losses;
-14. prints the kernels' JSON line, the card line, and last the line
+    the card and on the CPU under the knobs and compares the losses
+    (fp32 never launches the tensor-core forward);
+15. prints the kernels' JSON line, the card line, and last the line
     ``{"ok": true, "device": {...}}``.
+
+In every training phase each bf16 forward launch must be the
+tensor-core kernel's (``<wrapper>.tc_launches`` equal to ``launches``:
+12 per step) and the CUDA-core forward, which the ``[flash tc]`` timings
+call through ``_cuda_core_fwd``, must not launch.
 
 Any failed check raises, so the script exits non-zero; without a card,
 or without the repository beside it, it exits non-zero before any
@@ -510,6 +530,194 @@ def flash_phase(torch, seed):
 
 
 # ---------------------------------------------------------------------------
+# the tensor-core forward (csrc/flash_fwd_sm90.cu): bf16 flash_fwd and
+# flash_fwd_hpack
+# ---------------------------------------------------------------------------
+TC_SOURCE = "paddle_tpu_torch/csrc/flash_fwd_sm90.cu"
+CORE_SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
+TC_TOL = 1e-2                    # x max(|ref|, 1); the kernel against its
+                                 # plain version, both rounding p to bf16
+
+
+def sass_summary(lib_path, nvcc_log):
+    """``HGMMA`` instructions in the library's SASS (``cuobjdump``) and
+    ptxas's registers and spill bytes per kernel from the build log."""
+    from paddle_tpu_torch import _build
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    regs, spills = [], []
+    for line in nvcc_log.splitlines():
+        if "Used" in line and "registers" in line:
+            regs.append(int(line.split("Used")[1].split("registers")[0]))
+        if "spill stores" in line:
+            spills.append(int(line.split("bytes spill stores")[0]
+                              .split(",")[-1]))
+    return hgmma, regs, spills
+
+
+def tc_compare(torch, fk, tag, q, k, v, causal, hp=1, qseg=None,
+               kseg=None):
+    """A tensor-core forward (``flash_fwd``, or ``flash_fwd_hpack`` when
+    ``hp > 1``, which must also equal ``flash_fwd`` bit for bit) against
+    ``flash_fwd_tc_reference`` on the same bf16 values."""
+    before = fk.flash_fwd.tc_launches + fk.flash_fwd_hpack.tc_launches
+    if hp > 1:
+        out, lse = fk.flash_fwd_hpack(q, k, v, hp, causal)
+        fout, flse = fk.flash_fwd(q, k, v, causal)
+    else:
+        out, lse = fk.flash_fwd(q, k, v, causal, qseg, kseg)
+    ref, ref_lse = fk.flash_fwd_tc_reference(q, k, v, causal, qseg, kseg)
+    torch.cuda.synchronize()
+    check(fk.flash_fwd.tc_launches + fk.flash_fwd_hpack.tc_launches
+          == before + (2 if hp > 1 else 1),
+          f"[flash tc] {tag}: the tensor-core kernels did not launch")
+    check(out.dtype == torch.bfloat16 and lse.dtype == torch.float32,
+          f"[flash tc] {tag}: dtypes {out.dtype}, {lse.dtype}")
+    errs = {}
+    for name, got, want in (("out", out, ref), ("lse", lse, ref_lse)):
+        check(bool(torch.isfinite(got.float()).all()),
+              f"[flash tc] {tag}: {name} not finite")
+        err, rel = _err(got, want)
+        check(rel <= TC_TOL, f"[flash tc] {tag}: {name} error {err:.3e} "
+                             f"(relative {rel:.3e}) > {TC_TOL}")
+        errs[name] = err
+    line = (f"[flash tc] {tag}: vs flash_fwd_tc_reference max_abs_err "
+            f"out={errs['out']:.3e} lse={errs['lse']:.3e} (tol {TC_TOL} x "
+            "max(|ref|, 1))")
+    if hp > 1:
+        same = torch.equal(out, fout) and torch.equal(lse, flse)
+        check(same, f"[flash tc] {tag}: flash_fwd_hpack hp={hp} differs "
+                    "from flash_fwd")
+        line += f"; hp={hp} bitwise equal to flash_fwd: {same}"
+    print(line, flush=True)
+    return out, lse, errs
+
+
+def flash_tc_phase(torch, seed, nvcc_log):
+    """``[flash tc]``: the tensor-core forward against its plain version
+    at the main path's shapes and awkward ones, the head-packed entry
+    bitwise against ``flash_fwd``, the SASS's ``HGMMA`` count, and times
+    beside the CUDA-core forward it replaced for bf16 and SDPA."""
+    from paddle_tpu_torch import _build
+    from paddle_tpu_torch.ops import flash_attention_kernel as fk
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 20)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    hgmma, regs, spills = sass_summary(_build.library_path("flash_fwd_sm90"),
+                                       nvcc_log)
+    print(f"[flash tc] {TC_SOURCE}: {hgmma} HGMMA instructions in the SASS;"
+          f" ptxas registers per kernel {regs}, spill store bytes {spills}",
+          flush=True)
+    check(hgmma > 0, "[flash tc] no HGMMA instruction in the SASS")
+    res = {"hgmma": hgmma, "registers": regs, "spill_bytes": spills}
+
+    qkv = rnd(TRAIN_B, TRAIN_S, 3, 12, 64)              # GPT's layout
+    gpt = (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+    bh = {"gpt": ([rnd(TRAIN_B * 12, TRAIN_S, 1, 64) for _ in range(3)],
+                  True),
+          "ernie": ([rnd(ERNIE_B * 12, ERNIE_S, 1, 64) for _ in range(3)],
+                    False)}
+    errs = {}
+    _, _, errs["views"] = tc_compare(
+        torch, fk, f"GPT [B,S,H,D] views B={TRAIN_B} S={TRAIN_S} H=12 D=64 "
+        "causal", *gpt, True)
+    for model, (args, causal) in bh.items():
+        _, _, errs[model] = tc_compare(
+            torch, fk, f"{model} {list(args[0].shape)} "
+            f"{'causal' if causal else 'non-causal'}", *args, causal, hp=2)
+    tc_compare(torch, fk, "S=1000 causal (ragged) [2, 1000, 4, 64]",
+               *[rnd(2, 1000, 4, 64) for _ in range(3)], True)
+    tc_compare(torch, fk, "S=1000 causal hp=2 [8, 1000, 1, 64]",
+               *[rnd(8, 1000, 1, 64) for _ in range(3)], True, hp=2)
+    tc_compare(torch, fk, "non-causal Sq=384 Sk=640", rnd(2, 384, 4, 64),
+               rnd(2, 640, 4, 64), rnd(2, 640, 4, 64), False)
+    tc_compare(torch, fk, "D=128 causal S=512",
+               *[rnd(2, 512, 4, 128) for _ in range(3)], True)
+    tc_compare(torch, fk, "D=128 non-causal Sq=200 Sk=333",
+               rnd(2, 200, 3, 128), rnd(2, 333, 3, 128), rnd(2, 333, 3, 128),
+               False)
+    tc_compare(torch, fk, "odd H [2, 300, 3, 64] hp=2, packs straddle "
+               "batches", *[rnd(2, 300, 3, 64) for _ in range(3)], False,
+               hp=2)
+    tc_compare(torch, fk, "hp=4 [8, 256, 1, 64] causal",
+               *[rnd(8, 256, 1, 64) for _ in range(3)], True, hp=4)
+    qseg = torch.zeros((2, 300), dtype=torch.int32, device=dev)
+    qseg[:, 150:] = 1
+    qseg[:, 7] = 9                                   # sees no key
+    kseg = torch.zeros((2, 300), dtype=torch.int32, device=dev)
+    kseg[:, 150:] = 1
+    out, lse, _ = tc_compare(torch, fk, "segment ids + fully-masked row",
+                             *[rnd(2, 300, 4, 64) for _ in range(3)], False,
+                             qseg=qseg, kseg=kseg)
+    check(bool((out[:, 7] == 0).all())
+          and bool((lse[:, :, 7] == fk.LSE_FLOOR).all()),
+          "[flash tc] masked row: out not 0 or lse not the floor")
+    print("[flash tc] fully-masked row: out exactly 0, lse exactly "
+          f"{fk.LSE_FLOOR}", flush=True)
+
+    # times: the tensor-core kernel, the CUDA-core kernel it replaced for
+    # bf16, the plain version and SDPA (a yardstick, not used by the port)
+    flush_buf = torch.empty(128 * 1024 * 1024 // 4, device=dev)
+    flush = flush_buf.zero_
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cells = {"flash_fwd": (gpt, True, 1, "views", TRAIN_B, 12, TRAIN_S),
+             "flash_fwd_hpack": (bh["gpt"][0], True, 2, "gpt",
+                                 TRAIN_B * 12, 1, TRAIN_S),
+             "flash_fwd_hpack ernie": (bh["ernie"][0], False, 2, "ernie",
+                                       ERNIE_B * 12, 1, ERNIE_S)}
+    for cell, (args, causal, hp, model, B, H, S) in cells.items():
+        q, k, v = args
+        qt, kt, vt = [t.transpose(1, 2) for t in args]
+        if hp > 1:
+            def kern():
+                return fk.flash_fwd_hpack(q, k, v, hp, causal)
+        else:
+            def kern():
+                return fk.flash_fwd(q, k, v, causal)
+        with torch.no_grad():
+            ms = time_cuda(torch, kern, 20, flush=flush)
+            core_ms = time_cuda(
+                torch, lambda: fk._cuda_core_fwd(q, k, v, causal, hp=hp), 20,
+                flush=flush)
+            plain_ms = time_cuda(
+                torch, lambda: fk.flash_fwd_tc_reference(q, k, v, causal), 5,
+                warmup=2, flush=flush)
+            lib_ms = time_cuda(torch, lambda: sdpa(qt, kt, vt,
+                                                   is_causal=causal), 20,
+                               flush=flush)
+        name = cell.split()[0]
+        flops, nbytes = fk.kernel_work(name, B, H, S, S, 64, causal, 2)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS_PER_S * 1e3
+        r = {"ms": ms, "cuda_core_ms": core_ms, "plain_ms": plain_ms,
+             "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "flops": flops, "bytes": nbytes,
+             "tflops": flops / (ms * 1e-3) / 1e12,
+             "cuda_core_tflops": flops / (core_ms * 1e-3) / 1e12,
+             "max_abs_err": max(errs[model].values())}
+        res[cell] = r
+        print(f"[flash tc] {cell} bf16 {list(q.shape)} "
+              f"{'causal' if causal else 'non-causal'}"
+              f"{f' hp={hp}' if hp > 1 else ''}: kernel_ms={ms:.5f} "
+              f"({r['tflops']:.1f} TFLOP/s) cuda_core_ms={core_ms:.5f} "
+              f"({r['cuda_core_tflops']:.1f} TFLOP/s, "
+              f"{core_ms / ms:.2f}x the tensor-core time) plain_ms="
+              f"{plain_ms:.5f} bound_ms={r['bound_ms']:.5f} ({r['bound_by']}"
+              f": {flops} flop, {nbytes} bytes) library_ms (sdpa forward, "
+              f"not used by the port)={lib_ms:.5f}", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # [B*H, S, D] flash configuration: head-packed forward, fused backward
 # ---------------------------------------------------------------------------
 class knobs_set:
@@ -922,6 +1130,9 @@ def fit_and_check(torch, tag, desc, model, net, batch, want, tokens):
               verbose=0, callbacks=[clock])
     wrappers = fk.ALL_WRAPPERS + lk.WRAPPERS
     launches = {f.__name__: f.launches for f in wrappers}
+    launches.update({f"{f.__name__}.tc": f.tc_launches
+                     for f in fk.TC_WRAPPERS})
+    launches["_cuda_core_fwd"] = fk._cuda_core_fwd.launches
     launches.update(fk.flash_bwd_fused.helper_launches)
     plain = {f.__name__: f.plain_calls for f in wrappers}
     peak = torch.cuda.max_memory_allocated()
@@ -953,12 +1164,16 @@ def _want_launches(layer_calls, bh=False, fused_lmce_steps=0):
     """Expected launch counts: the default path's three flash kernels,
     or under the [B*H, S, D] knobs the head-packed forward, the fused
     backward and its helpers (bf16: the dq epilogue runs too),
-    ``layer_calls`` times each."""
+    ``layer_calls`` times each; every bf16 forward launch the
+    tensor-core body's (``.tc``), none the CUDA-core forward's."""
     from paddle_tpu_torch.ops import flash_attention_kernel as fk
     from paddle_tpu_torch.ops import lmce_kernel as lk
     want = {f.__name__: 0 if bh else layer_calls for f in fk.WRAPPERS}
     want.update({f.__name__: layer_calls if bh else 0
                  for f in fk.BH_WRAPPERS})
+    want.update({f"{f.__name__}.tc": want[f.__name__]
+                 for f in fk.TC_WRAPPERS})
+    want["_cuda_core_fwd"] = 0
     want["flash_bwd_fused_prep"] = layer_calls if bh else 0
     want["flash_bwd_fused_dq_cast"] = layer_calls if bh else 0
     want.update({f.__name__: fused_lmce_steps for f in lk.WRAPPERS})
@@ -1077,7 +1292,8 @@ def fused_train_phase(torch, seed, base):
 
 
 def _kernel_group(name):
-    if any(k in name for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+    if any(k in name for k in ("flash_fwd_kernel", "flash_fwd_tc_kernel",
+                                "flash_bwd_dq_kernel",
                                 "flash_bwd_dkv_kernel",
                                 "flash_fwd_hpack_kernel",
                                 "flash_bwd_fused")):
@@ -1249,6 +1465,9 @@ def bh_parity_phase(torch, seed):
                 losses[device] = keep.losses
                 counts[device] = [(f.launches, f.plain_calls)
                                   for f in fk.ALL_WRAPPERS]
+                check(not any(f.tc_launches for f in fk.TC_WRAPPERS),
+                      f"[train fp32 parity bh] {desc}: fp32 launched the "
+                      "tensor-core forward")
         check(counts == want, f"[train fp32 parity bh] {desc}: flash "
               f"(launches, plain calls) {counts}, expected {want}")
         rel = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
@@ -1304,6 +1523,8 @@ def main(argv=None) -> int:
     lmce_train = fused_train_phase(torch, args.seed, tres)
     train_parity_phase(torch, args.seed)
     bhres = flash_bh_phase(torch, args.seed)
+    tcres = flash_tc_phase(torch, args.seed,
+                           built.get("flash_fwd_sm90", {}).get("log", ""))
     bh_train = bh_train_phase(torch, args.seed, tres)
     ernie_train = ernie_train_phase(torch, args.seed)
     bh_parity_phase(torch, args.seed)
@@ -1324,8 +1545,7 @@ def main(argv=None) -> int:
     for name in FLASH_KERNELS:
         r = fres[name]
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+            "name": name, "route": "cuda", "source": CORE_SOURCE,
             "replaces": FLASH_REPLACES[name],
             "launches": tres["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -1339,8 +1559,7 @@ def main(argv=None) -> int:
             ("dq", "dk", "dv")
         fwd = name == "flash_fwd_hpack"
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+            "name": name, "route": "cuda", "source": CORE_SOURCE,
             "replaces": FLASH_REPLACES[name],
             "launches": (bh_train["launches"][name]
                          + ernie_train["launches"][name]),
@@ -1360,6 +1579,32 @@ def main(argv=None) -> int:
             kernels[-1]["helper_launches"] = {
                 k: bh_train["launches"][k] + ernie_train["launches"][k]
                 for k in ("flash_bwd_fused_prep", "flash_bwd_fused_dq_cast")}
+    # the bf16 forwards run the tensor-core kernel: its numbers, with the
+    # CUDA-core kernel's (the fp32 body) beside them
+    for entry in kernels:
+        cell = {"flash_fwd": "flash_fwd",
+                "flash_fwd_hpack": "flash_fwd_hpack"}.get(entry["name"])
+        if cell is None:
+            continue
+        r = tcres[cell]
+        entry.update({
+            "source": TC_SOURCE, "fp32_source": CORE_SOURCE,
+            "tc_launches": (tres["launches"][f"{cell}.tc"]
+                            if cell == "flash_fwd" else
+                            bh_train["launches"][f"{cell}.tc"]
+                            + ernie_train["launches"][f"{cell}.tc"]),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "tflops": r["tflops"], "cuda_core_ms": r["cuda_core_ms"],
+            "hgmma": tcres["hgmma"]})
+        if cell == "flash_fwd_hpack":
+            e = tcres["flash_fwd_hpack ernie"]
+            entry.update({"ernie_ms": e["ms"],
+                          "ernie_plain_ms": e["plain_ms"],
+                          "ernie_bound_ms": e["bound_ms"],
+                          "ernie_library_ms": e["library_ms"],
+                          "ernie_cuda_core_ms": e["cuda_core_ms"]})
     for name in LMCE_KERNELS:
         r = lres[name]
         kernels.append({

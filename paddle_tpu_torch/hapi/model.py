@@ -4,7 +4,10 @@ The JAX package compiles forward, loss, gradients and the optimizer
 update into one XLA program per step.  The port runs the same step
 eagerly on PyTorch: forward through the network (whose attention is the
 flash kernel on the card), ``loss.backward()``, ``optimizer.step()``,
-``optimizer.clear_grad()``.  Every launch is asynchronous; the step's
+``optimizer.clear_grad()``.  Before the update, every trainable
+parameter of the optimizer that got no gradient is given a zero one,
+since the JAX step differentiates all of them and AdamW then decays
+each.  Every launch is asynchronous; the step's
 loss rides the callbacks as a :class:`~paddle_tpu_torch.framework.
 LazyScalar` of the device tensor, so the loop itself never waits for
 the device: only a callback that formats a loss does.
@@ -52,6 +55,7 @@ class Model:
         self._labels = labels
         self._optimizer = None
         self._loss = None
+        self._zero_grads: Dict[int, torch.Tensor] = {}
         self.stop_training = False
 
     def prepare(self, optimizer=None, loss=None, metrics=None,
@@ -64,6 +68,7 @@ class Model:
                 "amp.decorate(model, optimizer, level='O2') instead,", 6)
         self._optimizer = optimizer
         self._loss = loss
+        self._zero_grads = {}
 
     def parameters(self, *args, **kwargs) -> List[torch.nn.Parameter]:
         return list(self.network.parameters(*args, **kwargs))
@@ -90,9 +95,23 @@ class Model:
             else outs[0]
         if update:
             loss.backward()
+            self._zero_missing_grads()
             self._optimizer.step()
             self._optimizer.clear_grad()
         return [LazyScalar(loss.detach().float())], []
+
+    def _zero_missing_grads(self):
+        """Give each trainable parameter of the optimizer that got no
+        gradient a zero one, as the JAX step (``jax.value_and_grad``
+        over every parameter) does, so AdamW's decoupled decay still
+        applies to it.  Each zero tensor is allocated once and reused;
+        no update writes into a gradient."""
+        for i, p in enumerate(self._optimizer.parameters()):
+            if p.requires_grad and p.grad is None:
+                zero = self._zero_grads.get(i)
+                if zero is None:
+                    zero = self._zero_grads[i] = torch.zeros_like(p)
+                p.grad = zero
 
     def fit(self, train_data=None, eval_data=None, batch_size=1, epochs=1,
             eval_freq=1, log_freq=10, save_dir=None, save_freq=1,

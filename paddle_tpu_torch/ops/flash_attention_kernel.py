@@ -3,7 +3,9 @@ plain versions, their launch counts and the autograd function around
 them (counterpart of the flash-attention part of
 ``paddle_tpu/ops/pallas_ops.py``).
 
-Five kernels in ``csrc/flash_attention.cu``:
+Five kernels in ``csrc/flash_attention.cu`` (fp32 FMAs on the CUDA
+cores), the two forwards also in ``csrc/flash_fwd_sm90.cu`` (bf16 on the
+tensor cores, ``wgmma`` fed by TMA):
 
 - :func:`flash_fwd` -> ``(out, lse)``, the online-softmax forward;
 - :func:`flash_bwd_dq` -> ``(dq, delta)``, ``delta = rowsum(dO * O)``;
@@ -28,11 +30,19 @@ sees no key gives ``out = 0`` and ``lse = LSE_FLOOR``, never NaN.
 On a CUDA tensor a wrapper launches its kernel or raises (a build
 failure raises :class:`~paddle_tpu_torch._build.KernelBuildError`);
 the kernels take fp32 or bf16 with ``D`` 64 or 128, and any other head
-dim raises ``NotImplementedError``.  On a CPU tensor it runs its plain
-version, which repeats the kernel's arithmetic with whole-tensor ops.
-Each launch adds one to ``<wrapper>.launches``; each plain run adds
-one to ``<wrapper>.plain_calls``.  The fused backward's helper launches
-are counted in ``flash_bwd_fused.helper_launches`` under their kernel
+dim raises ``NotImplementedError``.  The two forwards route by dtype:
+bf16 launches the tensor-core kernel (``flash_fwd_tc`` /
+``flash_fwd_hpack_tc``), fp32 the CUDA-core one; TMA reads q, k and v,
+so a bf16 call whose base address or batch, sequence or head stride is
+not a multiple of 16 bytes raises ``NotImplementedError``.  Neither
+body falls back to the other.  On a CPU tensor a wrapper runs its plain
+version, which repeats the kernel's arithmetic with whole-tensor ops
+(:func:`flash_fwd_tc_reference` is the tensor-core forward's, with p
+rounded to bf16 before ``P V``).  Each launch adds one to
+``<wrapper>.launches`` and, for the tensor-core body, to
+``<wrapper>.tc_launches``; each plain run adds one to
+``<wrapper>.plain_calls``.  The fused backward's helper launches are
+counted in ``flash_bwd_fused.helper_launches`` under their kernel
 names.
 """
 
@@ -46,6 +56,7 @@ import torch
 from .. import _build
 
 KERNEL_NAME = "flash_attention"
+TC_KERNEL_NAME = "flash_fwd_sm90"
 #: clamp of the saved log-sum-exp (``_LSE_FLOOR`` of the JAX package)
 LSE_FLOOR = -1e30
 #: denominator guard: inert for a row with any visible key
@@ -57,7 +68,13 @@ HPACK_HEAD_DIM = 64
 #: the fused backward's helper kernels (pre-pass, bf16 dq epilogue)
 FUSED_HELPERS = ("flash_bwd_fused_prep", "flash_bwd_fused_dq_cast")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: TMA's rule for the tensor-core forward's q, k and v: base address and
+#: batch, sequence and head strides in multiples of this many bytes
+TMA_ALIGN = 16
+_TC_ERRORS = {-1: "the driver has no cuTensorMapEncodeTiled",
+              -2: "the driver refused a tensor map"}
 _lib = None
+_tc_lib = None
 
 
 def bind(lib):
@@ -75,11 +92,29 @@ def bind(lib):
     return lib
 
 
+def bind_tc(lib):
+    """The same for the tensor-core forward's library
+    (``csrc/flash_fwd_sm90.cu``, bf16 only)."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_fwd_tc.argtypes = [i] + [p] * 7 + [i] * 5 + [f, p, p]
+    lib.flash_fwd_hpack_tc.argtypes = [i, i] + [p] * 5 + [i] * 5 + [f, p, p]
+    for fn in (lib.flash_fwd_tc, lib.flash_fwd_hpack_tc):
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def _kernel():
     global _lib
     if _lib is None:
         _lib = bind(_build.load(KERNEL_NAME))
     return _lib
+
+
+def _tc_kernel():
+    global _tc_lib
+    if _tc_lib is None:
+        _tc_lib = bind_tc(_build.load(TC_KERNEL_NAME))
+    return _tc_lib
 
 
 # ---------------------------------------------------------------------------
@@ -125,6 +160,26 @@ def flash_attention_reference(q, k, v, causal, q_seg=None, k_seg=None,
         p = torch.where(keep, p / (1.0 - dropout_p), torch.zeros_like(p))
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
     return out, lse
+
+
+def flash_fwd_tc_reference(q, k, v, causal, q_seg=None, k_seg=None,
+                           scale=None):
+    """Plain version of the tensor-core forward: the arithmetic of
+    :func:`flash_attention_reference` with ``p`` rounded to the input
+    dtype before ``P V`` while the denominator sums the unrounded fp32
+    ``p``, as the JAX ``_flash_kernel`` rounds (``pallas_ops.py``
+    :159-166).  Returns ``(out, lse)`` as that function does."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    s = _scores(q, k, scale).masked_fill(
+        ~_visible(q, k, causal, q_seg, k_seg), float("-inf"))
+    m = s.amax(dim=-1, keepdim=True).clamp_min(LSE_FLOOR)
+    e = torch.exp(s - m)
+    denom = e.sum(dim=-1, keepdim=True).clamp_min(DENOM_TINY)
+    acc = torch.einsum("bhqk,bkhd->bqhd", e.to(q.dtype).float(), v.float())
+    out = acc / denom.permute(0, 2, 1, 3)
+    lse = (m + torch.log(denom)).squeeze(-1).clamp_min(LSE_FLOOR)
+    return out.to(q.dtype), lse
 
 
 def _probs(q, k, lse, causal, q_seg, k_seg, scale):
@@ -224,6 +279,37 @@ def _kernel_ready(q):
             f"{q.shape[-1]}")
 
 
+def _tc_ready(q, k, v):
+    """TMA's rule for the tensor-core forward, checked before a launch."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        size = t.element_size()
+        strides = [st * size for st, n in zip(t.stride()[:3], t.shape[:3])
+                   if n > 1]
+        if t.data_ptr() % TMA_ALIGN or any(b % TMA_ALIGN for b in strides):
+            raise NotImplementedError(
+                f"the tensor-core flash forward reads {name} through TMA, "
+                f"which needs a {TMA_ALIGN}-byte-aligned base address and "
+                f"batch, sequence and head strides that are multiples of "
+                f"{TMA_ALIGN} bytes; got address {t.data_ptr()} and "
+                f"strides {tuple(st * size for st in t.stride()[:3])} "
+                f"bytes")
+
+
+def _tma_strides(*tensors):
+    """``_strides`` with the stride of each size-1 dim replaced by the
+    one a contiguous tensor would have there: TMA never steps along it,
+    but its tensor map still needs a multiple of 16 bytes."""
+    vals = []
+    for t in tensors:
+        b, s, h, d = t.shape
+        sb, ss, sh = t.stride()[:3]
+        sh = sh if h > 1 else d
+        ss = ss if s > 1 else sh * h
+        sb = sb if b > 1 else ss * s
+        vals.extend((sb, ss, sh))
+    return (ctypes.c_int64 * len(vals))(*vals)
+
+
 def _rows(t):
     """``t`` with a unit stride on the head dim (a copy only if not)."""
     return t if t.stride(-1) == 1 else t.contiguous()
@@ -252,6 +338,8 @@ def _stream(t):
 
 
 def _raise_on(err, name):
+    if err in _TC_ERRORS:
+        raise RuntimeError(f"{name} kernel launch failed: {_TC_ERRORS[err]}")
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
@@ -266,6 +354,18 @@ def _launch_fwd(lib, stream, q, k, v, causal, q_seg, k_seg, scale):
         _ptr(lse), _ptr(q_seg), _ptr(k_seg), B, H, Sq, k.shape[1],
         int(causal), float(scale), ctypes.cast(strides, ctypes.c_void_p),
         stream), "flash_fwd")
+    return out, lse
+
+
+def _launch_fwd_tc(lib, stream, q, k, v, causal, q_seg, k_seg, scale):
+    B, Sq, H, D = q.shape
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    strides = _tma_strides(q, k, v, out)
+    _raise_on(lib.flash_fwd_tc(
+        D, _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), _ptr(q_seg),
+        _ptr(k_seg), B, H, Sq, k.shape[1], int(causal), float(scale),
+        ctypes.cast(strides, ctypes.c_void_p), stream), "flash_fwd_tc")
     return out, lse
 
 
@@ -309,6 +409,18 @@ def _launch_fwd_hpack(lib, stream, q, k, v, hp, causal, scale):
     return out, lse
 
 
+def _launch_fwd_hpack_tc(lib, stream, q, k, v, hp, causal, scale):
+    B, Sq, H, D = q.shape
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    strides = _tma_strides(q, k, v, out)
+    _raise_on(lib.flash_fwd_hpack_tc(
+        D, hp, _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), B, H, Sq,
+        k.shape[1], int(causal), float(scale),
+        ctypes.cast(strides, ctypes.c_void_p), stream), "flash_fwd_hpack_tc")
+    return out, lse
+
+
 def _launch_bwd_fused(lib, stream, q, k, v, out, lse, dout, causal, q_seg,
                       k_seg, scale):
     """The pre-pass, the sweep and (bf16) the dq epilogue; returns
@@ -342,7 +454,8 @@ def flash_fwd(q, k, v, causal, q_seg=None, k_seg=None, scale=None):
     """Attention forward: ``(out [B, Sq, H, D], lse [B, H, Sq] fp32)``.
     ``causal`` masks key positions after the query position (row-aligned
     at 0, so it needs ``Sq == Sk``); ``q_seg``/``k_seg`` int32 ``[B, Sq]``
-    / ``[B, Sk]`` let a query see only keys of its own segment."""
+    / ``[B, Sk]`` let a query see only keys of its own segment.  On the
+    card bf16 runs the tensor-core kernel, fp32 the CUDA-core one."""
     _check(q, k, v, q_seg, k_seg)
     scale = _scale(q, scale)
     if q.device.type == "cpu":
@@ -357,11 +470,15 @@ def flash_fwd(q, k, v, causal, q_seg=None, k_seg=None, scale=None):
         return (torch.zeros(q.shape, dtype=q.dtype, device=q.device),
                 torch.full((q.shape[0], q.shape[2], q.shape[1]), LSE_FLOOR,
                            device=q.device))
-    lib = _kernel()
+    tc = q.dtype == torch.bfloat16
+    if tc:
+        _tc_ready(q, k, v)
+    lib = _tc_kernel() if tc else _kernel()
     with torch.cuda.device(q.device):
-        res = _launch_fwd(lib, _stream(q), q, k, v, causal, q_seg, k_seg,
-                          scale)
+        launch = _launch_fwd_tc if tc else _launch_fwd
+        res = launch(lib, _stream(q), q, k, v, causal, q_seg, k_seg, scale)
     flash_fwd.launches += 1
+    flash_fwd.tc_launches += tc
     return res
 
 
@@ -447,10 +564,38 @@ def flash_fwd_hpack(q, k, v, hp, causal, scale=None):
         return (torch.zeros(q.shape, dtype=q.dtype, device=q.device),
                 torch.full((q.shape[0], q.shape[2], q.shape[1]), LSE_FLOOR,
                            device=q.device))
-    lib = _kernel()
+    tc = q.dtype == torch.bfloat16
+    if tc:
+        _tc_ready(q, k, v)
+    lib = _tc_kernel() if tc else _kernel()
     with torch.cuda.device(q.device):
-        res = _launch_fwd_hpack(lib, _stream(q), q, k, v, hp, causal, scale)
+        launch = _launch_fwd_hpack_tc if tc else _launch_fwd_hpack
+        res = launch(lib, _stream(q), q, k, v, hp, causal, scale)
     flash_fwd_hpack.launches += 1
+    flash_fwd_hpack.tc_launches += tc
+    return res
+
+
+def _cuda_core_fwd(q, k, v, causal, q_seg=None, k_seg=None, scale=None,
+                   hp=1):
+    """The CUDA-core forward of ``csrc/flash_attention.cu`` in any dtype
+    it takes (``flash_fwd_hpack``'s kernel when ``hp > 1``): the design
+    the tensor-core kernel replaced for bf16, kept for comparison on the
+    card.  No wrapper calls it; its launches count in
+    ``_cuda_core_fwd.launches``, not in the wrappers'."""
+    _check(q, k, v, q_seg, k_seg)
+    _kernel_ready(q)
+    q, k, v = _rows(q), _rows(k), _rows(v)
+    q_seg, k_seg = _segs(q_seg, k_seg)
+    scale, lib = _scale(q, scale), _kernel()
+    with torch.cuda.device(q.device):
+        if hp > 1:
+            res = _launch_fwd_hpack(lib, _stream(q), q, k, v, hp, causal,
+                                    scale)
+        else:
+            res = _launch_fwd(lib, _stream(q), q, k, v, causal, q_seg,
+                              k_seg, scale)
+    _cuda_core_fwd.launches += 1
     return res
 
 
@@ -493,15 +638,21 @@ def flash_bwd_fused(q, k, v, out, lse, dout, causal, q_seg=None, k_seg=None,
 WRAPPERS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
 BH_WRAPPERS = (flash_fwd_hpack, flash_bwd_fused)
 ALL_WRAPPERS = WRAPPERS + BH_WRAPPERS
+#: the wrappers with a tensor-core body (``tc_launches``)
+TC_WRAPPERS = (flash_fwd, flash_fwd_hpack)
 
 
 def reset_counts():
-    """Set every wrapper's ``launches`` and ``plain_calls`` (and the
-    fused backward's helper launches) to 0."""
+    """Set every wrapper's ``launches``, ``tc_launches`` and
+    ``plain_calls`` (and the fused backward's helper launches and the
+    CUDA-core comparison forward's launches) to 0."""
     for fn in ALL_WRAPPERS:
         fn.launches = 0
         fn.plain_calls = 0
+    for fn in TC_WRAPPERS:
+        fn.tc_launches = 0
     flash_bwd_fused.helper_launches = dict.fromkeys(FUSED_HELPERS, 0)
+    _cuda_core_fwd.launches = 0
 
 
 reset_counts()

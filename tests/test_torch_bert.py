@@ -17,7 +17,8 @@ Tolerances (fp32): as ``tests/test_torch_training.py`` states them for
 GPT: 2e-5 on logits, loss and gradients (the same sums in another
 order); after three AdamW ``Model.fit`` steps 2e-6 on 99.5% of the
 parameters and 1e-3 on all (Adam moves parameters whose gradient is
-rounding noise, such as the key bias, by up to ~lr per step).
+rounding noise, such as the key bias, by up to ~lr per step), and 2e-6
+on every element of the pooler and the NSP head.
 """
 
 import numpy as np
@@ -187,7 +188,8 @@ class _TLosses(TCallback):
         self.losses.append(float(logs["loss"][0]))
 
 
-def test_three_adamw_fit_steps_match_jax(knobs):
+@pytest.mark.parametrize("nsp", ["with NSP labels", "without"])
+def test_three_adamw_fit_steps_match_jax(knobs, nsp):
     jnet, net = _models()
     lr = 1e-3
     jopt = joptimizer.AdamW(learning_rate=lr, parameters=jnet.parameters(),
@@ -195,10 +197,14 @@ def test_three_adamw_fit_steps_match_jax(knobs):
     topt = tpaddle.optimizer.AdamW(learning_rate=lr,
                                    parameters=net.parameters(),
                                    weight_decay=0.01)
-    # one batch three times, with MLM and NSP labels, so every
-    # parameter has a gradient in both and the loss must fall
-    data = [_batch(3)] * 3
+    # one batch three times, so the loss must fall.  With NSP labels
+    # every parameter has a gradient; without, the pooler and the NSP
+    # head are outside the loss and only AdamW's decay moves them, in
+    # the JAX step (zero gradients) and in the port's alike
     labels = ["masked_labels", "next_sentence_labels"]
+    data = [_batch(3)] * 3
+    if nsp == "without":
+        labels, data = labels[:1], [b[:2] for b in data]
     jmodel = jpaddle.Model(jnet, labels=labels)
     jmodel.prepare(jopt, jbert.BertPretrainingCriterion(V))
     jcb = _JLosses()
@@ -217,6 +223,12 @@ def test_three_adamw_fit_steps_match_jax(knobs):
                             for k, v in net.state_dict().items()])
     assert (diffs <= PARAM_TOL).mean() >= PARAM_BULK
     assert diffs.max() <= ADAM_NOISE_TOL
+    # the parameters outside the MLM loss, every element
+    outside = {k: np.abs(v.numpy() - jstate[k]).max()
+               for k, v in net.state_dict().items()
+               if k.startswith(("bert.pooler.", "nsp."))}
+    assert len(outside) == 4
+    assert max(outside.values()) <= PARAM_TOL, outside
     # three steps x two layers, each through the plain versions
     bh = knobs == "bh knobs"
     assert [f.plain_calls for f in fk.ALL_WRAPPERS] == \
