@@ -1,16 +1,27 @@
-"""Training step times of two checkouts of the port on one card, in turns.
+"""Training step times, serving throughput and the paged kernel's device
+time of two checkouts of the port on one card, in turns.
 
     python3 chip_ab.py PARENT_DIR [CHANGE_DIR] [--seed 0]
+        [--phases train,serve fp32,...] [--rounds 1]
 
-Runs the four training phases of the ``chip_smoke.py`` found in each
-checkout (``[train]``, ``[train fused lmce]``, ``[train bh]``,
-``[train ernie bh]``: GPT-2-small B=8 S=1024 default, with the fused
-lm-head cross-entropy and under the ``[B*H, S, D]`` knobs, and
-ERNIE-3.0-base B=16 S=512 under the knobs, bf16 O2 ``Model.fit``) in
-the order parent, change, change, parent, each run in a fresh process
-started in its checkout, which builds that checkout's kernels first.
-Each phase keeps its own gates (launch counts, losses).  Prints every
-run's median step ms per phase, the mean per checkout and the change's
+Runs phases of the ``chip_smoke.py`` found in each checkout: the four
+training phases (``train``, ``train fused lmce``, ``train bh``, ``train
+ernie bh``: GPT-2-small B=8 S=1024 default, with the fused lm-head
+cross-entropy and under the ``[B*H, S, D]`` knobs, and ERNIE-3.0-base
+B=16 S=512 under the knobs, bf16 O2 ``Model.fit``), the two serving
+phases (``serve fp32``, ``serve bf16``: GPT-2-small through
+``LLMServer``, 12 requests) and ``k1``: the paged-attention kernel's
+device time per launch from ``torch.profiler`` (200 launches at
+``[kernel]``'s shapes, fp32 and bf16, the mean over the launches the
+profiler kept; host work not counted).
+``--phases`` picks a comma-separated subset (default: the training and
+serving phases); ``--profile`` runs the serving phases under
+``torch.profiler`` and adds their device-busy ms and top kernels (the
+profiler's cost then counts in tokens/s).  Each round runs parent, change, change, parent, each
+run in a fresh process started in its checkout, which builds that
+checkout's kernels first.  Each phase keeps its own gates (launch
+counts, losses, tokens).  Prints every run's readings (median step ms,
+tokens/s, device us), the mean per checkout and the change's
 difference, and last a JSON line of the same.  ``CHANGE_DIR`` defaults
 to the directory of this script.  Needs one CUDA card; exits non-zero
 when a run fails.
@@ -25,6 +36,11 @@ import subprocess
 import sys
 
 PHASES = ("train", "train fused lmce", "train bh", "train ernie bh")
+SERVING = ("serve fp32", "serve bf16")
+K1 = ("k1 fp32", "k1 bf16")
+UNITS = {**{p: "step_ms" for p in PHASES},
+         **{p: "tokens_per_s" for p in SERVING},
+         **{p: "device_us" for p in K1}}
 RUN = """
 import json, sys, torch
 sys.path.insert(0, {dir!r})
@@ -33,21 +49,86 @@ from paddle_tpu_torch import _build
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 _build.build_all()
-t = c.train_phase(torch, {seed})
-res = {{"train": t,
-        "train fused lmce": c.fused_train_phase(torch, {seed}, t),
-        "train bh": c.bh_train_phase(torch, {seed}, t),
-        "train ernie bh": c.ernie_train_phase(torch, {seed})}}
-print("AB " + json.dumps({{k: {{"step_ms": r["step_ms"],
-                               "first_loss": r["losses"][0],
-                               "peak_gib": r["peak"] / 2**30}}
-                          for k, r in res.items()}}), flush=True)
+want, seed, out = {want!r}, {seed}, {{}}
+
+
+def k1_device_us(dtype):
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.inference.serving import paged_attention_kernel as pak
+    B, H, Dh, BS, NB, MAXNB = 8, 12, 64, 16, 512, 64
+    lengths_l = [0, 1, 16, 17, 500, 1024, 333, 64]
+    rng = np.random.default_rng(seed)
+    table = np.zeros((B, MAXNB), dtype=np.int32)
+    free = rng.permutation(np.arange(1, NB)).tolist()
+    for b, n in enumerate(lengths_l):
+        table[b, :-(-n // BS)] = [free.pop() for _ in range(-(-n // BS))]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    pk, pv = [torch.randn((NB, BS, H, Dh), generator=gen, device=dev)
+              .to(dtype) for _ in range(2)]
+    q = torch.randn((B, H, Dh), generator=gen, device=dev).to(dtype)
+    args = (pk, pv, torch.as_tensor(table, device=dev),
+            torch.as_tensor(np.array(lengths_l, np.int32), device=dev), q)
+    for _ in range(10):
+        pak.paged_ragged_attention(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(200):
+            pak.paged_ragged_attention(*args)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if "paged_attn" in e.key]
+    total = sum(getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0)) for e in ev)
+    count = sum(e.count for e in ev)
+    # the profiler may drop some of the 200 kernel records; the mean
+    # of those it kept is the reading
+    assert count >= 100, f"torch.profiler kept {{count}} of 200 launches"
+    return total / count
+
+
+def serve(dtype, dn):
+    if not {profile}:
+        return c.serving_phase(torch, seed, dtype, dn, False), {{}}
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        r = c.serving_phase(torch, seed, dtype, dn, False)
+        torch.cuda.synchronize()
+    ev = sorted(((getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0)), e.count,
+                  e.key) for e in prof.key_averages()), reverse=True)
+    ev = [x for x in ev if x[0] > 0]
+    return r, {{"device_ms": sum(x[0] for x in ev) / 1e3,
+               "top": [(k[:80], us / 1e3, n) for us, n, k in ev[:6]]}}
+
+
+for dn, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+    if "k1 " + dn in want:
+        out["k1 " + dn] = {{"device_us": k1_device_us(dtype)}}
+    if "serve " + dn in want:
+        r, prof = serve(dtype, dn)
+        out["serve " + dn] = {{"tokens_per_s": r["tokens_per_s"], **prof}}
+res = {{}}
+if set(want) & {{"train", "train fused lmce", "train bh"}}:
+    t = res["train"] = c.train_phase(torch, seed)
+    if "train fused lmce" in want:
+        res["train fused lmce"] = c.fused_train_phase(torch, seed, t)
+    if "train bh" in want:
+        res["train bh"] = c.bh_train_phase(torch, seed, t)
+if "train ernie bh" in want:
+    res["train ernie bh"] = c.ernie_train_phase(torch, seed)
+out.update({{k: {{"step_ms": r["step_ms"], "first_loss": r["losses"][0],
+                 "peak_gib": r["peak"] / 2**30}}
+            for k, r in res.items() if k in want}})
+print("AB " + json.dumps(out), flush=True)
 """
 
 
-def run(checkout, seed):
+def run(checkout, seed, want, profile=False):
     proc = subprocess.run([sys.executable, "-c",
-                           RUN.format(dir=checkout, seed=seed)],
+                           RUN.format(dir=checkout, seed=seed, want=want,
+                                      profile=profile)],
                           cwd=checkout, capture_output=True, text=True,
                           timeout=1200)
     sys.stdout.write(proc.stdout)
@@ -65,7 +146,18 @@ def main(argv=None) -> int:
     ap.add_argument("change", nargs="?",
                     default=os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", default=",".join(PHASES + SERVING),
+                    help=f"comma-separated, of {', '.join(UNITS)}")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="times to run parent, change, change, parent")
+    ap.add_argument("--profile", action="store_true",
+                    help="run the serving phases under torch.profiler and "
+                    "report their device-busy ms and top kernels")
     args = ap.parse_args(argv)
+    want = [p.strip() for p in args.phases.split(",") if p.strip()]
+    unknown = [p for p in want if p not in UNITS]
+    if unknown or not want:
+        ap.error(f"unknown phases {unknown}; choose from {list(UNITS)}")
     import torch
     if not torch.cuda.is_available():
         print("chip_ab: no CUDA device", file=sys.stderr)
@@ -77,24 +169,37 @@ def main(argv=None) -> int:
     dirs = {"parent": os.path.abspath(args.parent),
             "change": os.path.abspath(args.change)}
     runs = []
-    for side in ("parent", "change", "change", "parent"):
-        runs.append((side, run(dirs[side], args.seed)))
+    for side in ("parent", "change", "change", "parent") * args.rounds:
+        runs.append((side, run(dirs[side], args.seed, want, args.profile)))
         print(f"[ab] {side} run {len(runs)}: " + ", ".join(
-            f"{p} {runs[-1][1][p]['step_ms']:.3f} ms" for p in PHASES),
+            f"{p} {runs[-1][1][p][UNITS[p]]:.3f} {UNITS[p]}" for p in want),
             flush=True)
+        for p in want:
+            r = runs[-1][1][p]
+            if "device_ms" in r:
+                print(f"[ab profile] {side} {p}: device busy "
+                      f"{r['device_ms']:.3f} ms; top kernels (ms, calls) "
+                      + "; ".join(f"{k} {ms:.3f} {n}" for k, ms, n in
+                                  r["top"]), flush=True)
     summary = {}
-    for p in PHASES:
-        mean = {side: sum(r[p]["step_ms"] for s, r in runs if s == side) / 2
-                for side in dirs}
-        summary[p] = {"parent_ms": mean["parent"], "change_ms": mean["change"],
-                      "runs": [(s, r[p]["step_ms"]) for s, r in runs],
-                      "first_loss": [(s, r[p]["first_loss"]) for s, r in runs],
-                      "peak_gib": [(s, r[p]["peak_gib"]) for s, r in runs]}
-        print(f"[ab] {p}: parent {mean['parent']:.3f} ms, change "
-              f"{mean['change']:.3f} ms ({mean['change'] - mean['parent']:+.3f}"
-              f" ms, {mean['change'] / mean['parent'] - 1:+.2%})", flush=True)
-    print(json.dumps({"card": card,
-                      "phases": summary}), flush=True)
+    for p in want:
+        unit = UNITS[p]
+        mean = {side: sum(r[p][unit] for s, r in runs if s == side)
+                / (2 * args.rounds) for side in dirs}
+        summary[p] = {f"parent_{unit}": mean["parent"],
+                      f"change_{unit}": mean["change"],
+                      "runs": [(s, r[p][unit]) for s, r in runs]}
+        if all("device_ms" in r[p] for _, r in runs):
+            summary[p]["device_ms"] = [(s, r[p]["device_ms"])
+                                       for s, r in runs]
+        if unit == "step_ms":
+            summary[p]["first_loss"] = [(s, r[p]["first_loss"])
+                                        for s, r in runs]
+            summary[p]["peak_gib"] = [(s, r[p]["peak_gib"]) for s, r in runs]
+        print(f"[ab] {p}: parent {mean['parent']:.3f}, change "
+              f"{mean['change']:.3f} {unit} "
+              f"({mean['change'] / mean['parent'] - 1:+.2%})", flush=True)
+    print(json.dumps({"card": card, "phases": summary}), flush=True)
     return 0
 
 

@@ -30,14 +30,16 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
    and, as a yardstick only, ``scaled_dot_product_attention`` forward
    and forward+backward at the main shape in bf16;
 4. ``[lmce]`` holds the three fused lm-head cross-entropy kernels
-   (forward, dh, dW) against their plain versions computed in fp32 on
-   the same values: at the training path's shape (N=8192, V=50304,
-   D=768) in bf16 (within 2e-2 x max(|ref|, 1)) and fp32 (within
-   1e-4 x max(|ref|, 1)), then in fp32 at N=1000 (ragged rows) with
-   V=1000 and V=786 (ragged vocab), every fourth label -100 (loss and
-   dh rows exactly 0), D=64, 200 and 2048.  Times each kernel, its
-   plain version and, as a yardstick only, ``h @ W.T`` with fp32
-   ``F.cross_entropy``, forward and forward+backward, in bf16;
+   (forward, dh, dW; the backward of bf16 operands is the tensor-core
+   kernel, of fp32 the CUDA-core one) against their plain versions
+   computed in fp32 on the same values: at the training path's shape
+   (N=8192, V=50304, D=768) in bf16 (within 2e-2 x max(|ref|, 1)) and
+   fp32 (within 1e-4 x max(|ref|, 1)), then in fp32 at N=1000 (ragged
+   rows) with V=1000 and V=786 (ragged vocab), every fourth label -100
+   (loss and dh rows exactly 0), D=64, 200 and 2048.  Times the
+   forward, its plain version and, as a yardstick only, ``h @ W.T``
+   with fp32 ``F.cross_entropy``, forward and forward+backward, in
+   bf16 (the backward's times are ``[lmce tc]``'s);
 5. serves GPT-2-small (12 layers, hidden 768, 12 heads, vocab 50304,
    random weights from ``--seed``) through ``LLMServer`` in fp32:
    12 greedy requests over 8 slots; checks every token count, that
@@ -55,7 +57,12 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
 8. ``[train fused lmce]`` repeats 7 with ``enable_fused_lmce`` (the
    lm head and the loss in the three lmce kernels, the logits never in
    device memory): also checks each lmce kernel launched once per
-   step, the first loss within 1e-2 relative of 7's and a lower peak;
+   step, the backward's as the tensor-core kernels (``.tc``) and the
+   CUDA-core backward never, the first loss within 1e-2 relative of
+   7's and a lower peak; ``[train fp16]`` repeats 7 after
+   ``amp.decorate(level="O2")`` with its default dtype, float16, and
+   no GradScaler: finite losses, the launch checks of 7 and the first
+   loss within 1e-2 relative of 7's;
 9. ``[train fp32 parity]`` trains a small GPT (2 layers, hidden 128,
    head dim 64, S=256) for three steps on the card and on the CPU's
    plain path from the same weights and compares the losses, unfused
@@ -104,13 +111,39 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
     (2 layers, hidden 128, head dim 64, S=256) for three fp32 steps on
     the card and on the CPU under the knobs and compares the losses
     (fp32 never launches the tensor-core forward);
-15. prints the kernels' JSON line, the card line, and last the line
+15. ``[lmce tc]`` holds the tensor-core LMCE backward
+    (``csrc/lmce_sm90.cu``, ``wgmma`` fed by TMA) against its plain
+    versions (dL rounded to the operand dtype; each element within
+    rtol |ref| + (u |dL| + eta) @ |B|: rtol one ulp of the value, 1e-2
+    bf16 and 2e-3 fp16, then the bound of rounding each dL once) at
+    the main shape in bf16 and fp16 and at N=333 V=786 D=200, N=1000
+    V=1000 D=64 and N=1000 V=786 D=2048 (every fourth label -100) in
+    both: ignored rows of dh exactly 0, two runs bitwise equal, and at
+    the main shape the gradient of a backward without the S product
+    fails the same gate; counts the ``HGMMA`` instructions in its SASS and
+    prints ptxas's registers and spills; times both kernels at the main
+    shape beside the CUDA-core backward they replaced for 16-bit
+    operands and the plain versions, with the bound and TFLOP/s;
+16. ``[fp16]`` holds every kernel against its plain version in fp16
+    (within 1e-2 x max(|ref|, 1)): K1, the flash forward (tensor-core
+    and CUDA-core), dq/dkv, the fused backward, the head-packed forward
+    (both bodies) at ``[train fp16]``'s views (B=8, S=1024, H=12,
+    D=64), and the three LMCE kernels (the backward's both bodies held
+    element by element, as in 15);
+17. ``[headdim]`` holds the flash kernels (forward, split and fused
+    backward, head-packed forward at hp 2 and 4) at head dims 16 and 32
+    in fp32, bf16 and fp16, causal and not (no tensor-core launch: below
+    64 the CUDA-core forward runs), and K1 at Dh=16 (half a warp per
+    row), each against its plain version;
+18. prints the kernels' JSON line, the card line, and last the line
     ``{"ok": true, "device": {...}}``.
 
-In every training phase each bf16 forward launch must be the
+In every training phase each 16-bit forward launch must be the
 tensor-core kernel's (``<wrapper>.tc_launches`` equal to ``launches``:
 12 per step) and the CUDA-core forward, which the ``[flash tc]`` timings
-call through ``_cuda_core_fwd``, must not launch.
+call through ``_cuda_core_fwd``, must not launch; likewise every 16-bit
+lmce backward launch is the tensor-core kernel's and
+``lmce_kernel._cuda_core_bwd`` never launches.
 
 Any failed check raises, so the script exits non-zero; without a card,
 or without the repository beside it, it exits non-zero before any
@@ -139,6 +172,7 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 1024, 8
 PARITY_TOL = 1e-4                # relative, per loss; cuBLAS vs CPU sums
 FUSED_FIRST_LOSS_TOL = 1e-2      # relative; the unfused path rounds the
                                  # logits to bf16, the fused one does not
+FP16_FIRST_LOSS_TOL = 1e-2       # relative; fp16 against bf16 rounding
 BH_FIRST_LOSS_TOL = 1e-2         # relative; the [B*H, S, D] path rounds
                                  # p and dS to bf16 in the fused backward
 FLASH_PAIR_TOL = 1e-5            # x max(|ref|, 1); kernel against kernel,
@@ -536,7 +570,7 @@ def flash_phase(torch, seed):
 TC_SOURCE = "paddle_tpu_torch/csrc/flash_fwd_sm90.cu"
 CORE_SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
 TC_TOL = 1e-2                    # x max(|ref|, 1); the kernel against its
-                                 # plain version, both rounding p to bf16
+                                 # plain version, both rounding p to 16 bits
 
 
 def sass_summary(lib_path, nvcc_log):
@@ -1007,15 +1041,10 @@ def lmce_phase(torch, seed):
     _, lse = lk.lmce_fwd(h, w, labels)
     flush_buf = torch.empty(128 * 1024 * 1024 // 4, device=dev)
     flush = flush_buf.zero_
+    # the backward's times are [lmce tc]'s (both bodies)
     calls = {
         "lmce_fwd": (lambda: lk.lmce_fwd(h, w, labels),
                      lambda: lk.lmce_reference(h, w, labels)),
-        "lmce_bwd_dh": (
-            lambda: lk.lmce_bwd_dh(h, w, labels, lse, g),
-            lambda: lk.lmce_bwd_dh_reference(h, w, labels, lse, g)),
-        "lmce_bwd_dw": (
-            lambda: lk.lmce_bwd_dw(h, w, labels, lse, g),
-            lambda: lk.lmce_bwd_dw_reference(h, w, labels, lse, g)),
     }
     # yardstick only, never called by the port: the unfused lm head
     ce = torch.nn.functional.cross_entropy
@@ -1039,8 +1068,7 @@ def lmce_phase(torch, seed):
         flops, nbytes = lk.kernel_work(name, N, V, D, 2)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / BF16_FLOPS_PER_S * 1e3
-        err_keys = ("loss", "lse") if name == "lmce_fwd" else \
-            (("dh",) if name == "lmce_bwd_dh" else ("dw",))
+        err_keys = ("loss", "lse")
         res[name] = {
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
@@ -1059,17 +1087,419 @@ def lmce_phase(torch, seed):
               f"{r['tflops']:.2f} TFLOP/s", flush=True)
     print(f"[lmce] library yardstick (not used by the port): matmul + fp32 "
           f"cross_entropy forward {lib_ms:.5f} ms, forward+backward "
-          f"{lib_fb_ms:.5f} ms; lmce kernels forward+dh+dW "
-          f"{sum(res[n]['ms'] for n in LMCE_KERNELS):.5f} ms", flush=True)
+          f"{lib_fb_ms:.5f} ms", flush=True)
+    return res
+
+
+LMCE_SOURCE = "paddle_tpu_torch/csrc/lmce.cu"
+LMCE_TC_SOURCE = "paddle_tpu_torch/csrc/lmce_sm90.cu"
+LMCE_TC_KERNELS = ("lmce_bwd_dh_tc", "lmce_bwd_dw_tc")
+LMCE_RAGGED = (("N=333 V=786 D=200", 333, 786, 200, False),
+               ("N=1000 V=1000 D=64, every 4th label -100", 1000, 1000, 64,
+                True),
+               ("N=1000 V=786 D=2048 (three D windows), every 4th label "
+                "-100", 1000, 786, 2048, True))
+# The 16-bit LMCE gradients are held element by element:
+#   |got - ref| <= rtol |ref| + (u |dL| + eta) @ |B|
+# where B is the other factor (W for dh, h for dW).  The kernel and the
+# plain version round the same fp32 sums, so the outputs may part by one
+# ulp of the value: rtol is 2^-7 of it in bf16, 2^-10 in fp16, plus
+# margin.  Before that, each side rounds dL to the operand dtype from
+# fp32 values that differ slightly (S summed in another order by the
+# tensor cores): where they straddle a rounding boundary a term moves
+# by one ulp of dL, and an element whose terms cancel can move by much
+# more than an ulp of its own value.  (u |dL| + eta) @ |B| is the
+# forward bound of rounding every dL once (u = eps / 2, half an ulp;
+# eta = half the subnormal spacing, which fp16's dL of ~1e-5 reaches).
+# A gate scaled by max|ref| alone could not see the softmax part of the
+# gradient, ~1% of the one-hot part at GPT-2-small's shape.
+LMCE_GRAD_RTOL = {"bfloat16": 1e-2, "float16": 2e-3}
+
+
+def lmce_grad_gate(torch, lk, which, got, ref, h, w, labels, lse, g):
+    """``(max abs error, ratio)`` of a 16-bit LMCE gradient (``which``
+    ``"dh"`` or ``"dw"``) against its plain version ``ref`` on the same
+    inputs: ``ratio`` is the largest ``|got - ref| / (rtol |ref| + (u |dL|
+    + eta) @ |B|)`` over the elements, and the gate passes at ``ratio
+    <= 1``."""
+    fi = torch.finfo(got.dtype)
+    rtol = LMCE_GRAD_RTOL[str(got.dtype).rsplit(".", 1)[-1]]
+    dl = lk._dlogits(h, w, labels, lse, g, h.dtype).abs_()
+    dl.mul_(fi.eps / 2).add_(fi.tiny * fi.eps / 2)
+    spread = (dl @ w.float().abs() if which == "dh"
+              else dl.t() @ h.float().abs())
+    del dl
+    got, ref = got.float(), ref.float()
+    diff = (got - ref).abs()
+    bound = rtol * ref.abs()
+    ratio = torch.where(diff == 0, torch.zeros_like(diff),
+                        diff / (bound + spread)).max().item()
+    return diff.max().item(), ratio
+
+
+def lmce_s_free(torch, which, h, w, labels, lse, g):
+    """The plain gradient of a backward that drops the S product (S = 0,
+    p = exp(-lse)): the gate's negative control, which must fail it."""
+    lab = labels.long()
+    cols = torch.arange(w.shape[0], device=h.device)
+    gv = torch.where(lab >= 0, g.float(), torch.zeros_like(g.float()))
+    dl = ((torch.exp(-lse.float())[:, None]
+           - (cols[None, :] == lab[:, None]).float()) * gv[:, None])
+    dl = dl.to(h.dtype).float()
+    if which == "dh":
+        return (dl @ w.float()).to(h.dtype)
+    return (dl.t() @ h.float()).to(w.dtype)
+
+
+def lmce_tc_compare(torch, lk, tag, h, w, labels, g, control=False):
+    """The tensor-core backward (``lmce_bwd_dh`` / ``lmce_bwd_dw`` on
+    16-bit operands) against the plain versions on the same values (dL
+    rounded to the operand dtype, products summed in fp32) from the
+    plain lse, element by element (:func:`lmce_grad_gate`); rows with an
+    ignored label exactly 0 in dh; a second run bitwise equal.
+    ``control``: the S-free gradient (:func:`lmce_s_free`) must fail
+    the same gate.  Returns the max abs errors and the gate's ratios."""
+    _, lse = lk.lmce_reference(h, w, labels)
+    before = [f.tc_launches for f in lk.TC_WRAPPERS]
+    got = {"dh": lk.lmce_bwd_dh(h, w, labels, lse, g),
+           "dw": lk.lmce_bwd_dw(h, w, labels, lse, g)}
+    again = {"dh": lk.lmce_bwd_dh(h, w, labels, lse, g),
+             "dw": lk.lmce_bwd_dw(h, w, labels, lse, g)}
+    torch.cuda.synchronize()
+    check([f.tc_launches for f in lk.TC_WRAPPERS] == [b + 2 for b in before],
+          f"[lmce tc] {tag}: the tensor-core kernels did not launch")
+    errs, ratios, controls = {}, {}, {}
+    for name, plain in (("dh", lk.lmce_bwd_dh_reference),
+                        ("dw", lk.lmce_bwd_dw_reference)):
+        ref = plain(h, w, labels, lse, g)
+        check(got[name].dtype == h.dtype,
+              f"[lmce tc] {tag}: {name} dtype {got[name].dtype}")
+        check(bool(torch.isfinite(got[name].float()).all()),
+              f"[lmce tc] {tag}: {name} not finite")
+        err, ratio = lmce_grad_gate(torch, lk, name, got[name], ref, h, w,
+                                    labels, lse, g)
+        check(ratio <= 1.0, f"[lmce tc] {tag}: {name} error {err:.3e}, "
+              f"gate ratio {ratio:.3e} > 1")
+        errs[name], ratios[name] = err, ratio
+        if control:
+            controls[name] = lmce_grad_gate(
+                torch, lk, name, lmce_s_free(torch, name, h, w, labels, lse,
+                                             g), ref, h, w, labels, lse, g)[1]
+            check(controls[name] > 1.0, f"[lmce tc] {tag}: the gate passes "
+                  f"the S-free {name} (ratio {controls[name]:.3e})")
+        del ref
+    same = all(torch.equal(got[k], again[k]) for k in got)
+    check(same, f"[lmce tc] {tag}: two runs differ")
+    ignored = labels < 0
+    n_ignored = int(ignored.sum().item())
+    if n_ignored:
+        check(bool((got["dh"][ignored] == 0).all()),
+              f"[lmce tc] {tag}: ignored rows of dh not exactly 0")
+    dn = str(h.dtype).rsplit(".", 1)[-1]
+    print(f"[lmce tc] {tag}: max_abs_err dh={errs['dh']:.3e} "
+          f"dw={errs['dw']:.3e}; gate ratio dh={ratios['dh']:.3e} "
+          f"dw={ratios['dw']:.3e} (per element |err| <= "
+          f"{LMCE_GRAD_RTOL[dn]} |ref| + (u |dL| + eta) @ |B|, passes <= 1)"
+          + (f"; the S-free control's ratio dh={controls['dh']:.3e} "
+             f"dw={controls['dw']:.3e} (fails, as it must)"
+             if control else "")
+          + f"; two runs bitwise equal: {same}; {n_ignored} ignored rows "
+          "of dh exactly 0", flush=True)
+    return errs, ratios
+
+
+def lmce_tc_phase(torch, seed, nvcc_log):
+    """``[lmce tc]``: the tensor-core backward (``csrc/lmce_sm90.cu``)
+    against its plain versions at the main shape in bf16 and fp16 and at
+    the ragged shapes in both, the SASS's ``HGMMA`` count, and times at
+    the main shape beside the CUDA-core backward it replaced for 16-bit
+    operands and the plain versions."""
+    from paddle_tpu_torch import _build
+    from paddle_tpu_torch.ops import lmce_kernel as lk
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 30)
+
+    def inputs(N, V, D, dtype, ignore=False):
+        h = torch.randn((N, D), generator=gen, device=dev)
+        w = torch.randn((V, D), generator=gen, device=dev) * 0.05
+        labels = torch.randint(0, V, (N,), generator=gen, device=dev)
+        if ignore:
+            labels[::4] = -100
+        g = torch.rand((N,), generator=gen, device=dev)
+        return h.to(dtype), w.to(dtype), labels, g
+
+    hgmma, regs, spills = sass_summary(_build.library_path("lmce_sm90"),
+                                       nvcc_log)
+    print(f"[lmce tc] {LMCE_TC_SOURCE}: {hgmma} HGMMA instructions in the "
+          f"SASS; ptxas registers per kernel {regs}, spill store bytes "
+          f"{spills}", flush=True)
+    check(hgmma > 0, "[lmce tc] no HGMMA instruction in the SASS")
+    res = {"hgmma": hgmma, "registers": regs, "spill_bytes": spills}
+
+    N, V, D = TRAIN_B * TRAIN_S, LMCE_V, LMCE_D
+    flush_buf = torch.empty(128 * 1024 * 1024 // 4, device=dev)
+    flush = flush_buf.zero_
+    for dtype in (torch.bfloat16, torch.float16):
+        dn = "bf16" if dtype == torch.bfloat16 else "fp16"
+        h, w, labels, g = inputs(N, V, D, dtype)
+        errs, ratios = lmce_tc_compare(torch, lk, f"{dn} N={N} V={V} D={D}",
+                                       h, w, labels, g, control=True)
+        for tag, n, v, d, ignore in LMCE_RAGGED:
+            e, r = lmce_tc_compare(torch, lk, f"{dn} {tag}",
+                                   *inputs(n, v, d, dtype, ignore))
+            errs = {k: max(x, e[k]) for k, x in errs.items()}
+            ratios = {k: max(x, r[k]) for k, x in ratios.items()}
+        _, lse = lk.lmce_fwd(h, w, labels)
+        for which, name in (("dh", "lmce_bwd_dh"), ("dw", "lmce_bwd_dw")):
+            fn = getattr(lk, name)
+            plain = getattr(lk, f"{name}_reference")
+            with torch.no_grad():
+                ms = time_cuda(torch, lambda: fn(h, w, labels, lse, g), 10,
+                               warmup=2, flush=flush)
+                core_ms = time_cuda(
+                    torch, lambda: lk._cuda_core_bwd(which, h, w, labels, lse,
+                                                     g), 3, warmup=1,
+                    flush=flush)
+                plain_ms = time_cuda(
+                    torch, lambda: plain(h, w, labels, lse, g), 3, warmup=1,
+                    flush=flush)
+            flops, nbytes = lk.kernel_work(name, N, V, D, 2)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / BF16_FLOPS_PER_S * 1e3
+            r = {"ms": ms, "cuda_core_ms": core_ms, "plain_ms": plain_ms,
+                 "bound_ms": max(t_bytes, t_ops),
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                 "flops": flops, "bytes": nbytes,
+                 "tflops": flops / (ms * 1e-3) / 1e12,
+                 "cuda_core_tflops": flops / (core_ms * 1e-3) / 1e12,
+                 "max_abs_err": errs[which], "gate_ratio": ratios[which]}
+            res[f"{name}_tc {dn}"] = r
+            print(f"[lmce tc] {name}_tc {dn} N={N} V={V} D={D}: kernel_ms="
+                  f"{ms:.5f} ({r['tflops']:.1f} TFLOP/s) cuda_core_ms="
+                  f"{core_ms:.5f} ({r['cuda_core_tflops']:.1f} TFLOP/s, "
+                  f"{core_ms / ms:.2f}x the tensor-core time) plain_ms="
+                  f"{plain_ms:.5f} bound_ms={r['bound_ms']:.5f} "
+                  f"({r['bound_by']}: {flops} flop, {nbytes} bytes)",
+                  flush=True)
+        del h, w, labels, g, lse
+    return res
+
+
+# ---------------------------------------------------------------------------
+# fp16 and head dims 16 / 32 on the card
+# ---------------------------------------------------------------------------
+FP16_TOL = 1e-2                  # x max(|ref|, 1); fp16 inputs and outputs
+                                 # (11 bits), at most the bf16 gate
+DTYPE_TOLS = {"fp32": FLASH_FP32_TOL, "bf16": FLASH_BF16_TOL,
+              "fp16": FP16_TOL}
+
+
+def hold(torch, phase, tag, tol, pairs):
+    """Each ``(name, got, ref)``: finite and within ``tol`` x max(|ref|,
+    1) of the plain version; prints and returns the max abs errors."""
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got, ref in pairs:
+        check(bool(torch.isfinite(got.float()).all()),
+              f"[{phase}] {tag}: {name} not finite")
+        err, rel = _err(got, ref)
+        check(rel <= tol, f"[{phase}] {tag}: {name} error {err:.3e} "
+                          f"(relative {rel:.3e}) > {tol}")
+        errs[name] = err
+    print(f"[{phase}] {tag}: max_abs_err " + " ".join(
+        f"{n}={e:.3e}" for n, e in errs.items()) + f" (tol {tol} x "
+          "max(|ref|, 1))", flush=True)
+    return errs
+
+
+def flash_hold(torch, fk, phase, tag, tol, q, k, v, g, causal, hps=(2,)):
+    """Every flash kernel on these inputs against its plain version on
+    the same values: the routed forward and the CUDA-core forward
+    (p rounded to the input dtype, ``flash_fwd_tc_reference``), the
+    split and the fused backward, and the head-packed forward for each
+    ``hp`` in the ``[B*H, S, D]`` layout (its routed body and its
+    CUDA-core body).  Returns the max abs error per kernel."""
+    B, S, H, D = q.shape
+    out, lse = fk.flash_fwd(q, k, v, causal)
+    ref = fk.flash_fwd_tc_reference(q, k, v, causal)
+    core = fk._cuda_core_fwd(q, k, v, causal)
+    e = hold(torch, phase, f"{tag} flash_fwd (tensor-core: "
+             f"{fk._is_tc(q)}) and the CUDA-core forward", tol,
+             [("out", out, ref[0]), ("lse", lse, ref[1]),
+              ("core out", core[0], ref[0]), ("core lse", core[1], ref[1])])
+    errs = {"flash_fwd": max(e["out"], e["lse"]),
+            "flash_fwd cuda_core": max(e["core out"], e["core lse"])}
+    dq, delta = fk.flash_bwd_dq(q, k, v, out, lse, g, causal)
+    dk, dv = fk.flash_bwd_dkv(q, k, v, g, lse, delta, causal)
+    rdq, rdelta = fk.flash_bwd_dq_reference(q, k, v, out, lse, g, causal)
+    rdk, rdv = fk.flash_bwd_dkv_reference(q, k, v, g, lse, delta, causal)
+    e = hold(torch, phase, f"{tag} flash_bwd_dq + flash_bwd_dkv", tol,
+             [("dq", dq, rdq), ("delta", delta, rdelta), ("dk", dk, rdk),
+              ("dv", dv, rdv)])
+    errs["flash_bwd_dq"] = max(e["dq"], e["delta"])
+    errs["flash_bwd_dkv"] = max(e["dk"], e["dv"])
+    got = fk.flash_bwd_fused(q, k, v, out, lse, g, causal)
+    rf = fk.flash_bwd_fused_reference(q, k, v, out, lse, g, causal)
+    e = hold(torch, phase, f"{tag} flash_bwd_fused", tol,
+             list(zip(("dq", "dk", "dv"), got, rf)))
+    errs["flash_bwd_fused"] = max(e.values())
+
+    def bh(t):
+        return t.permute(0, 2, 1, 3).reshape(B * H, S, 1, D).contiguous()
+    qb, kb, vb = bh(q), bh(k), bh(v)
+    rb = fk.flash_fwd_tc_reference(qb, kb, vb, causal)
+    errs["flash_fwd_hpack"] = errs["flash_fwd_hpack cuda_core"] = 0.0
+    for hp in hps:
+        o, l = fk.flash_fwd_hpack(qb, kb, vb, hp, causal)
+        co, cl = fk._cuda_core_fwd(qb, kb, vb, causal, hp=hp)
+        e = hold(torch, phase, f"{tag} flash_fwd_hpack hp={hp} "
+                 f"(tensor-core: {fk._is_tc(qb, (64,))}) and its CUDA-core "
+                 "body", tol, [("out", o, rb[0]), ("lse", l, rb[1]),
+                               ("core out", co, rb[0]),
+                               ("core lse", cl, rb[1])])
+        errs["flash_fwd_hpack"] = max(errs["flash_fwd_hpack"], e["out"],
+                                      e["lse"])
+        errs["flash_fwd_hpack cuda_core"] = max(
+            errs["flash_fwd_hpack cuda_core"], e["core out"], e["core lse"])
+    return errs
+
+
+def paged_hold(torch, pak, phase, tag, tol, dtype, Dh, seed):
+    """The paged kernel against its plain version (fp32 on the same
+    values) at decode shapes with ragged lengths, scattered pages and an
+    empty row (exactly 0)."""
+    B, H, BS, NB, MAXNB = 8, 12, 16, 512, 64
+    lengths_l = [0, 1, 16, 17, 500, 1024, 333, 64]
+    rng = np.random.default_rng(seed)
+    table = np.zeros((B, MAXNB), dtype=np.int32)
+    free = rng.permutation(np.arange(1, NB)).tolist()
+    for b, n in enumerate(lengths_l):
+        table[b, :-(-n // BS)] = [free.pop() for _ in range(-(-n // BS))]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    pk, pv = [torch.randn((NB, BS, H, Dh), generator=gen, device=dev)
+              .to(dtype) for _ in range(2)]
+    q = torch.randn((B, H, Dh), generator=gen, device=dev).to(dtype)
+    table_t = torch.as_tensor(table, device=dev)
+    lengths = torch.as_tensor(np.array(lengths_l, np.int32), device=dev)
+    before = pak.paged_ragged_attention.launches
+    out = pak.paged_ragged_attention(pk, pv, table_t, lengths, q)
+    ref = pak.paged_ragged_attention_reference(pk.float(), pv.float(),
+                                               table_t, lengths, q.float())
+    check(pak.paged_ragged_attention.launches == before + 1,
+          f"[{phase}] {tag}: the paged kernel did not launch")
+    check(out.dtype == dtype and bool((out[0] == 0).all()),
+          f"[{phase}] {tag}: dtype {out.dtype} or the empty row not 0")
+    return hold(torch, phase, f"{tag} paged_ragged_attention B={B} H={H} "
+                f"Dh={Dh} lengths={lengths_l}", tol, [("out", out, ref)])
+
+
+def fp16_phase(torch, seed):
+    """``[fp16]``: every kernel against its plain version in fp16 (fault
+    C1): K1, the flash forwards (tensor-core and CUDA-core), dq/dkv, the
+    fused backward and the head-packed forward at ``[train fp16]``'s
+    shapes, and the three LMCE kernels (the backward's tensor-core and
+    CUDA-core bodies, held by :func:`lmce_grad_gate`)."""
+    from paddle_tpu_torch.inference.serving import paged_attention_kernel as pak
+    from paddle_tpu_torch.ops import flash_attention_kernel as fk
+    from paddle_tpu_torch.ops import lmce_kernel as lk
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 40)
+    f16 = torch.float16
+    res = {"paged_ragged_attention": paged_hold(
+        torch, pak, "fp16", "fp16", FP16_TOL, f16, 64, seed)["out"]}
+    B, S, H, D = TRAIN_B, TRAIN_S, 12, 64     # [train fp16]'s shapes
+    qkv = torch.randn((B, S, 3, H, D), generator=gen, device=dev).to(f16)
+    g = torch.randn((B, S, H, D), generator=gen, device=dev).to(f16)
+    res.update(flash_hold(torch, fk, "fp16", f"fp16 [B,S,H,D] views B={B} "
+                          f"S={S} H={H} D={D} causal", FP16_TOL,
+                          qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], g, True))
+    N, V = 1024, LMCE_V
+    h = torch.randn((N, LMCE_D), generator=gen, device=dev).to(f16)
+    w = (torch.randn((V, LMCE_D), generator=gen, device=dev) * 0.05).to(f16)
+    labels = torch.randint(0, V, (N,), generator=gen, device=dev)
+    labels[::4] = -100
+    gg = torch.rand((N,), generator=gen, device=dev)
+    loss, lse = lk.lmce_fwd(h, w, labels)
+    rloss, rlse = lk.lmce_reference(h, w, labels)
+    got = [lk.lmce_bwd_dh(h, w, labels, lse, gg),
+           lk.lmce_bwd_dw(h, w, labels, lse, gg),
+           lk._cuda_core_bwd("dh", h, w, labels, lse, gg),
+           lk._cuda_core_bwd("dw", h, w, labels, lse, gg)]
+    tag = f"fp16 lmce N={N} V={V} D={LMCE_D}, every 4th label -100"
+    e = hold(torch, "fp16", f"{tag}: lmce_fwd", FP16_TOL,
+             [("loss", loss, rloss), ("lse", lse, rlse)])
+    refs = {"dh": lk.lmce_bwd_dh_reference(h, w, labels, lse, gg),
+            "dw": lk.lmce_bwd_dw_reference(h, w, labels, lse, gg)}
+    torch.cuda.synchronize()
+    ratios = {}
+    for name, t in zip(("dh_tc", "dw_tc", "dh", "dw"), got):
+        e[name], ratios[name] = lmce_grad_gate(
+            torch, lk, name[:2], t, refs[name[:2]], h, w, labels, lse, gg)
+        check(bool(torch.isfinite(t.float()).all()) and ratios[name] <= 1.0,
+              f"[fp16] {tag}: {name} error {e[name]:.3e}, gate ratio "
+              f"{ratios[name]:.3e} > 1 (or not finite)")
+    print(f"[fp16] {tag}: the tensor-core and the CUDA-core backward: "
+          "max_abs_err " + " ".join(f"{n}={e[n]:.3e}" for n in ratios)
+          + "; gate ratio " + " ".join(f"{n}={r:.3e}" for n, r in
+                                       ratios.items())
+          + f" (per element |err| <= {LMCE_GRAD_RTOL['float16']} |ref| + "
+          "(u |dL| + eta) @ |B|, passes <= 1)", flush=True)
+    check(all(t.dtype == f16 for t in got), "[fp16] lmce gradient dtypes")
+    check(bool((got[0][labels < 0] == 0).all()),
+          "[fp16] lmce ignored rows of dh not exactly 0")
+    res.update({"lmce_fwd": max(e["loss"], e["lse"]),
+                "lmce_bwd_dh_tc": e["dh_tc"], "lmce_bwd_dw_tc": e["dw_tc"],
+                "lmce_bwd_dh": e["dh"], "lmce_bwd_dw": e["dw"]})
+    return res
+
+
+def headdim_phase(torch, seed):
+    """``[headdim]``: the flash kernels (forward, split and fused
+    backward, head-packed forward at hp 2 and 4) at head dims 16 and 32
+    in fp32, bf16 and fp16, and the paged kernel at Dh = 16 (gpt_tiny's
+    head dim; half a warp per row), each against its plain version
+    (fault C2).  Below 64 every forward is the CUDA-core kernel."""
+    from paddle_tpu_torch.inference.serving import paged_attention_kernel as pak
+    from paddle_tpu_torch.ops import flash_attention_kernel as fk
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 50)
+    res = {}
+    for D in (16, 32):
+        for dn, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16),
+                          ("fp16", torch.float16)):
+            args = [torch.randn((2, 300, 4, D), generator=gen,
+                                device=dev).to(dtype) for _ in range(4)]
+            before = fk.flash_fwd.tc_launches + fk.flash_fwd_hpack.tc_launches
+            for causal in (True, False):
+                res[f"D={D} {dn} {'causal' if causal else 'non-causal'}"] = \
+                    flash_hold(torch, fk, "headdim", f"{dn} D={D} "
+                               f"[2, 300, 4, {D}] "
+                               f"{'causal' if causal else 'non-causal'}",
+                               DTYPE_TOLS[dn], *args, causal, hps=(2, 4))
+            check(fk.flash_fwd.tc_launches + fk.flash_fwd_hpack.tc_launches
+                  == before, f"[headdim] D={D} {dn} launched the "
+                  "tensor-core forward")
+    for dn, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16),
+                      ("fp16", torch.float16)):
+        res[f"paged Dh=16 {dn}"] = paged_hold(
+            torch, pak, "headdim", dn, DTYPE_TOLS[dn] if dn != "fp32" else
+            FP32_TOL, dtype, 16, seed)["out"]
     return res
 
 
 # ---------------------------------------------------------------------------
 # training: GPT-2-small through Model.fit
 # ---------------------------------------------------------------------------
-def _train_model(torch, cfg, device, seed, o2, bert=False):
+def _train_model(torch, cfg, device, seed, o2, bert=False,
+                 amp_dtype="bfloat16"):
     """GPT (or, with ``bert``, BertForPretraining) from ``seed`` and its
-    AdamW(1e-4, multi_precision), cast to bf16 O2 if ``o2``."""
+    AdamW(1e-4, multi_precision), cast to ``amp_dtype`` O2 if ``o2``
+    (``amp_dtype`` None: ``amp.decorate``'s default, float16)."""
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch.models import BertForPretraining, GPTForCausalLM
     gen = torch.Generator(device=device)
@@ -1079,8 +1509,10 @@ def _train_model(torch, cfg, device, seed, o2, bert=False):
     opt = paddle.optimizer.AdamW(learning_rate=1e-4,
                                  parameters=net.parameters(),
                                  multi_precision=True)
-    if o2:
-        paddle.amp.decorate(net, opt, level="O2", dtype="bfloat16")
+    if o2 and amp_dtype is None:
+        paddle.amp.decorate(net, opt, level="O2")
+    elif o2:
+        paddle.amp.decorate(net, opt, level="O2", dtype=amp_dtype)
     return net, opt
 
 
@@ -1093,13 +1525,15 @@ def _mlm_batch(torch, vocab, b, s, seed):
     return torch.from_numpy(x), torch.from_numpy(labels)
 
 
-def fit_and_check(torch, tag, desc, model, net, batch, want, tokens):
+def fit_and_check(torch, tag, desc, model, net, batch, want, tokens,
+                  low=None):
     """``Model.fit`` for TRAIN_STEPS steps on one repeated batch, every
     launch count set to 0 just before and read just after; checks
     finite, falling losses, the launch counts against ``want`` (every
     flash and lmce kernel and the fused backward's helpers), no plain
-    call and the O2 dtypes; prints step ms, tokens/s, peak memory and a
-    profile of two more steps."""
+    call and the O2 dtypes (``low``: the 16-bit one, bf16 by default);
+    prints step ms, tokens/s, peak memory and a profile of two more
+    steps."""
     from paddle_tpu_torch.hapi.callbacks import Callback
     from paddle_tpu_torch.ops import flash_attention_kernel as fk
     from paddle_tpu_torch.ops import lmce_kernel as lk
@@ -1131,8 +1565,9 @@ def fit_and_check(torch, tag, desc, model, net, batch, want, tokens):
     wrappers = fk.ALL_WRAPPERS + lk.WRAPPERS
     launches = {f.__name__: f.launches for f in wrappers}
     launches.update({f"{f.__name__}.tc": f.tc_launches
-                     for f in fk.TC_WRAPPERS})
+                     for f in fk.TC_WRAPPERS + lk.TC_WRAPPERS})
     launches["_cuda_core_fwd"] = fk._cuda_core_fwd.launches
+    launches["_cuda_core_bwd"] = lk._cuda_core_bwd.launches
     launches.update(fk.flash_bwd_fused.helper_launches)
     plain = {f.__name__: f.plain_calls for f in wrappers}
     peak = torch.cuda.max_memory_allocated()
@@ -1143,7 +1578,7 @@ def fit_and_check(torch, tag, desc, model, net, batch, want, tokens):
     check(launches == want, f"[{tag}] launches {launches}, expected {want}")
     check(not any(plain.values()), f"[{tag}] plain calls {plain}")
     dtypes = {p.dtype for p in net.parameters()}
-    check(dtypes == {torch.bfloat16, torch.float32},
+    check(dtypes == {low or torch.bfloat16, torch.float32},
           f"[{tag}] O2 parameter dtypes {dtypes}")
     steps_ms = np.diff(clock.stamps) * 1e3
     step_ms = float(np.median(steps_ms[2:]))
@@ -1165,7 +1600,9 @@ def _want_launches(layer_calls, bh=False, fused_lmce_steps=0):
     or under the [B*H, S, D] knobs the head-packed forward, the fused
     backward and its helpers (bf16: the dq epilogue runs too),
     ``layer_calls`` times each; every bf16 forward launch the
-    tensor-core body's (``.tc``), none the CUDA-core forward's."""
+    tensor-core body's (``.tc``), none the CUDA-core forward's; each
+    16-bit lmce backward launch the tensor-core body's, none the
+    CUDA-core backward's."""
     from paddle_tpu_torch.ops import flash_attention_kernel as fk
     from paddle_tpu_torch.ops import lmce_kernel as lk
     want = {f.__name__: 0 if bh else layer_calls for f in fk.WRAPPERS}
@@ -1177,23 +1614,29 @@ def _want_launches(layer_calls, bh=False, fused_lmce_steps=0):
     want["flash_bwd_fused_prep"] = layer_calls if bh else 0
     want["flash_bwd_fused_dq_cast"] = layer_calls if bh else 0
     want.update({f.__name__: fused_lmce_steps for f in lk.WRAPPERS})
+    want.update({f"{f.__name__}.tc": fused_lmce_steps
+                 for f in lk.TC_WRAPPERS})
+    want["_cuda_core_bwd"] = 0
     return want
 
 
-def train_phase(torch, seed, fused=False, bh=False):
+def train_phase(torch, seed, fused=False, bh=False, fp16=False):
     """``[train]``, with ``fused`` the same run with ``enable_fused_lmce``
     (``[train fused lmce]``), with ``bh`` under the [B*H, S, D] knobs
-    (``[train bh]``)."""
+    (``[train bh]``), with ``fp16`` after ``amp.decorate(level="O2")``
+    with its default dtype, float16 (``[train fp16]``)."""
     import gc
 
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch.models import (GPTPretrainingCriterion,
                                          enable_fused_lmce, gpt2_small)
-    tag = "train fused lmce" if fused else ("train bh" if bh else "train")
+    tag = ("train fused lmce" if fused else "train bh" if bh else
+           "train fp16" if fp16 else "train")
     gc.collect()                # the previous phase's model, if any
     cfg = gpt2_small(hidden_dropout_prob=0.0,
                      attention_probs_dropout_prob=0.0)
-    net, opt = _train_model(torch, cfg, "cuda", seed, o2=True)
+    net, opt = _train_model(torch, cfg, "cuda", seed, o2=True,
+                            amp_dtype=None if fp16 else "bfloat16")
     crit = GPTPretrainingCriterion()
     if fused:
         enable_fused_lmce(net, crit)
@@ -1209,8 +1652,9 @@ def train_phase(torch, seed, fused=False, bh=False):
     with knobs_set(BH_KNOBS if bh else {}):
         return fit_and_check(
             torch, tag, f"GPT-2-small L=12 D=768 H=12 V=50304 B={TRAIN_B} "
-            f"S={TRAIN_S} bf16 O2 AdamW", model, net, batch, want,
-            TRAIN_B * TRAIN_S)
+            f"S={TRAIN_S} {'fp16 (the default)' if fp16 else 'bf16'} O2 "
+            "AdamW", model, net, batch, want, TRAIN_B * TRAIN_S,
+            low=torch.float16 if fp16 else torch.bfloat16)
 
 
 def bh_train_phase(torch, seed, base):
@@ -1268,6 +1712,27 @@ def ernie_train_phase(torch, seed):
     return res
 
 
+def fp16_train_phase(torch, seed, base):
+    """``[train fp16]``: the ``[train]`` run after ``amp.decorate(level=
+    "O2")`` with its default dtype, float16, and no GradScaler (as the
+    JAX reference trains): finite losses, each flash kernel 12 times a
+    step with the tensor-core forward, no plain call, the first loss
+    within 1e-2 relative of ``base``'s (bf16, same weights and batch)."""
+    res = train_phase(torch, seed, fp16=True)
+    first, base_first = res["losses"][0], base["losses"][0]
+    rel = abs(first - base_first) / abs(base_first)
+    check(rel <= FP16_FIRST_LOSS_TOL,
+          f"[train fp16] first loss {first} vs [train] {base_first} "
+          f"(relative {rel:.3e} > {FP16_FIRST_LOSS_TOL})")
+    print("[train fp16] step losses fp16 vs bf16: " + ", ".join(
+        f"{a:.6f}/{b:.6f}" for a, b in zip(res["losses"], base["losses"]))
+        + f"; first-loss relative diff {rel:.3e} (tol "
+        f"{FP16_FIRST_LOSS_TOL}); step_ms {res['step_ms']:.3f} vs "
+        f"{base['step_ms']:.3f}; peak_mem_gib {res['peak'] / 2**30:.3f} "
+        f"vs {base['peak'] / 2**30:.3f}", flush=True)
+    return res
+
+
 def fused_train_phase(torch, seed, base):
     """``[train fused lmce]``: the ``[train]`` run with the fused lm-head
     cross-entropy, held against ``base`` (``train_phase``'s result):
@@ -1298,7 +1763,8 @@ def _kernel_group(name):
                                 "flash_fwd_hpack_kernel",
                                 "flash_bwd_fused")):
         return "flash kernels"
-    if "lmce_fwd_kernel" in name or "lmce_bwd_kernel" in name:
+    if any(k in name for k in ("lmce_fwd_kernel", "lmce_bwd_kernel",
+                                "lmce_bwd_tc_kernel")):
         return "lmce kernels"
     low = name.lower()
     if any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet", "cublas")):
@@ -1384,7 +1850,9 @@ def train_parity_phase(torch, seed):
     """Three fp32 steps of a small GPT on the card (kernels) and on the
     CPU (plain versions) from the same weights, unfused and with
     ``enable_fused_lmce``; losses within PARITY_TOL relative (cuBLAS,
-    the kernels and the CPU sum in other orders; TF32 is off)."""
+    the kernels and the CPU sum in other orders; TF32 is off).  fp32
+    runs the CUDA-core lmce kernels; returns their launches in the fused
+    run."""
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch.models import (GPTPretrainingCriterion,
                                          enable_fused_lmce)
@@ -1411,6 +1879,10 @@ def train_parity_phase(torch, seed):
         want = [(3, 3)] * 3 if fused else [(0, 0)] * 3
         check(counts == want, f"[{tag}] lmce (launches, plain calls) "
               f"{counts}, expected {want}")
+        check(not any(f.tc_launches for f in lk.TC_WRAPPERS),
+              f"[{tag}] fp32 launched the tensor-core lmce backward")
+        if fused:
+            res = {f.__name__: f.launches for f in lk.WRAPPERS}
         rel = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
                                                     losses["cpu"])]
         check(len(rel) == 3 and max(rel) <= PARITY_TOL,
@@ -1420,6 +1892,7 @@ def train_parity_phase(torch, seed):
               f"{losses['cuda']} cpu {losses['cpu']} (max relative diff "
               f"{max(rel):.3e}, tol {PARITY_TOL}); lmce (launches, plain "
               f"calls) {counts}", flush=True)
+    return res
 
 
 def bh_parity_phase(torch, seed):
@@ -1521,13 +1994,18 @@ def main(argv=None) -> int:
     s16 = serving_phase(torch, args.seed, torch.bfloat16, "bf16", False)
     tres = train_phase(torch, args.seed)
     lmce_train = fused_train_phase(torch, args.seed, tres)
-    train_parity_phase(torch, args.seed)
+    fp16_train = fp16_train_phase(torch, args.seed, tres)
+    fp32_lmce = train_parity_phase(torch, args.seed)
     bhres = flash_bh_phase(torch, args.seed)
     tcres = flash_tc_phase(torch, args.seed,
                            built.get("flash_fwd_sm90", {}).get("log", ""))
     bh_train = bh_train_phase(torch, args.seed, tres)
     ernie_train = ernie_train_phase(torch, args.seed)
     bh_parity_phase(torch, args.seed)
+    ltc = lmce_tc_phase(torch, args.seed,
+                        built.get("lmce_sm90", {}).get("log", ""))
+    f16 = fp16_phase(torch, args.seed)
+    hd = headdim_phase(torch, args.seed)
 
     kernels = [{
         "name": "paged_ragged_attention", "route": "cuda",
@@ -1541,6 +2019,9 @@ def main(argv=None) -> int:
         "bf16_ms": kres["bf16_ms"], "bf16_bound_ms": kres["bf16_bound_ms"],
         "bf16_max_abs_err": kres["bf16_max_abs_err"],
         "bf16_launches": s16["launches"],
+        "fp16_max_abs_err": f16["paged_ragged_attention"],
+        "dh16_max_abs_err": max(v for k, v in hd.items()
+                                if k.startswith("paged")),
     }]
     for name in FLASH_KERNELS:
         r = fres[name]
@@ -1605,19 +2086,58 @@ def main(argv=None) -> int:
                           "ernie_bound_ms": e["bound_ms"],
                           "ernie_library_ms": e["library_ms"],
                           "ernie_cuda_core_ms": e["cuda_core_ms"]})
-    for name in LMCE_KERNELS:
-        r = lres[name]
+    r = lres["lmce_fwd"]
+    kernels.append({
+        "name": "lmce_fwd", "route": "cuda", "source": LMCE_SOURCE,
+        "replaces": LMCE_REPLACES["lmce_fwd"],
+        "launches": lmce_train["launches"]["lmce_fwd"],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "library_fwd_bwd_ms": r["library_fwd_bwd_ms"],
+        "fp32_max_abs_err": r["fp32_max_abs_err"],
+    })
+    # the backward: the tensor-core kernels (bf16 and fp16, the main
+    # path), and the CUDA-core ones (fp32: the [train fp32 parity] fused
+    # run's launches; timed in bf16 beside the tensor-core kernels)
+    for name in ("lmce_bwd_dh", "lmce_bwd_dw"):
+        which = name[-2:]
+        tc, tc16 = ltc[f"{name}_tc bf16"], ltc[f"{name}_tc fp16"]
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/lmce.cu",
+            "name": f"{name}_tc", "route": "cuda", "source": LMCE_TC_SOURCE,
             "replaces": LMCE_REPLACES[name],
-            "launches": lmce_train["launches"][name],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "library_fwd_bwd_ms": r["library_fwd_bwd_ms"],
-            "fp32_max_abs_err": r["fp32_max_abs_err"],
+            "launches": lmce_train["launches"][f"{name}.tc"],
+            "max_abs_err": tc["max_abs_err"], "ms": tc["ms"],
+            "plain_ms": tc["plain_ms"], "bound_ms": tc["bound_ms"],
+            "bound_by": tc["bound_by"], "library_ms": None,
+            "library_fwd_bwd_ms": lres["lmce_fwd"]["library_fwd_bwd_ms"],
+            "tflops": tc["tflops"], "cuda_core_ms": tc["cuda_core_ms"],
+            "hgmma": ltc["hgmma"], "fp16_ms": tc16["ms"],
+            "fp16_max_abs_err": max(tc16["max_abs_err"], f16[f"{name}_tc"]),
         })
+        kernels.append({
+            "name": name, "route": "cuda", "source": LMCE_SOURCE,
+            "replaces": LMCE_REPLACES[name],
+            "launches": fp32_lmce[name],
+            "max_abs_err": lres["fp32"][which], "ms": tc["cuda_core_ms"],
+            "plain_ms": tc["plain_ms"], "bound_ms": tc["bound_ms"],
+            "bound_by": tc["bound_by"], "library_ms": None,
+            "library_fwd_bwd_ms": lres["lmce_fwd"]["library_fwd_bwd_ms"],
+            "fp16_max_abs_err": f16[name],
+        })
+    # fp16 ([fp16]) and head dims 16 / 32 ([headdim]) errors on every
+    # flash and lmce entry
+    hd_flash = [v for k, v in hd.items() if k.startswith("D=")]
+    for entry in kernels:
+        name = entry["name"]
+        if name in f16 and "fp16_max_abs_err" not in entry:
+            entry["fp16_max_abs_err"] = f16[name]
+        if f"{name} cuda_core" in f16:
+            entry["cuda_core_fp16_max_abs_err"] = f16[f"{name} cuda_core"]
+        if name in FLASH_KERNELS + BH_KERNELS:
+            entry["d16_d32_max_abs_err"] = max(e[name] for e in hd_flash)
+        if name in FLASH_KERNELS:
+            entry["fp16_launches"] = fp16_train["launches"][name]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

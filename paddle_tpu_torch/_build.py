@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library under the git-ignored
 ``_build/`` directory beside this file, at first use, then loaded with
-``ctypes``.  The library's file name carries a hash of its source and
-flags, so an edited source builds anew and a stale one is never
-loaded.  :func:`build_all` starts one ``nvcc`` per missing library, all
-at once, and waits for them together.
+``ctypes``.  The library's file name carries a hash of its source, the
+``csrc/*.cuh`` headers and the flags, so an edited source or header
+builds anew and a stale library is never loaded.  :func:`build_all`
+starts one ``nvcc`` per missing library, all at once, and waits for
+them together.
 """
 
 from __future__ import annotations
@@ -52,10 +53,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library's path, named by a hash of its source, of every
+    header in ``csrc/`` (a source may include any of them) and of the
+    flags."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:

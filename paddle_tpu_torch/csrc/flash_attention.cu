@@ -21,13 +21,21 @@
 // edge k < Sk, and q_seg[q] == k_seg[k] when segment ids are given):
 //   forward:  S = scale*Q K^T masked to -inf; online softmax in fp32 with
 //             the running max clamped at kLseFloor, so a fully-masked row
-//             gives out = 0 and lse = kLseFloor, never NaN; out in the
-//             input dtype, lse fp32 [B, H, Sq].
+//             gives out = 0 and lse = kLseFloor, never NaN; p rounded to
+//             the input dtype before P V while l sums the fp32 p, as the
+//             TPU kernel rounds (pallas_ops.py:159-166; a no-op in fp32);
+//             out in the input dtype, lse fp32 [B, H, Sq].
 //   dq:       delta = rowsum(dO * O) (written to an fp32 [B, H, Sq]
 //             buffer), P = exp(S - lse), dS = P * (dP - delta) * scale
 //             with dP = dO V^T, dq = dS K.
 //   dk, dv:   dv = P^T dO, dk = dS^T Q, reading delta from that buffer,
 //             so it launches after flash_bwd_dq on the same stream.
+// Inputs are fp32, bf16 or fp16 (all alike) with head dim D in {16, 32,
+// 64, 128}: a thread owns D/16 output columns (tx + 16c), so every D the
+// kernels take fills the 16 x 16 thread grid.  flash_fwd_sm90.cu runs the
+// bf16 and fp16 forward at D 64 and 128 on the tensor cores; these
+// CUDA-core bodies run fp32, D < 64 in every dtype, and the comparison on
+// the card.
 // Every sum is an fp32 sum in a fixed order, so the results are the same
 // from run to run, except flash_bwd_fused's dq, whose per-k-tile partial
 // sums meet in an fp32 workspace through atomics (notes at the kernel).
@@ -54,6 +62,7 @@
 // zero and are masked.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -80,9 +89,22 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);  // round to nearest even, as torch does
+}
+__device__ __forceinline__ void store(__half* p, float v) {
+  *p = __float2half_rn(v);
+}
+// p and dS rounded to the input dtype before a product, where the TPU
+// kernels round them (a no-op in fp32)
+__device__ __forceinline__ float round_as(float x, const float*) { return x; }
+__device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+__device__ __forceinline__ float round_as(float x, const __half*) {
+  return __half2float(__float2half_rn(x));
 }
 
 // max / sum over the 16 lanes that share a row (one half warp)
@@ -245,7 +267,7 @@ __device__ __forceinline__ void fwd_head(
 #pragma unroll
       for (int j = 0; j < kTC; ++j) {
         const float p = expf(s[i][j] - m_safe);
-        Ps[r * kLdP + tx + 16 * j] = p;
+        Ps[r * kLdP + tx + 16 * j] = round_as(p, v);
         ps += p;
       }
       ps = half_warp_sum(ps);
@@ -487,13 +509,6 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 // backward: dk, dv (and, fused, dq)
 // ---------------------------------------------------------------------------
-// p and dS as the fused sweep rounds them before their products: to the
-// input dtype, as _flash_bwd_fused_kernel casts them (a no-op in fp32).
-__device__ __forceinline__ float round_as(float x, const float*) { return x; }
-__device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
 // One 64-row k tile of one (batch, head) slice walking the q tiles that
 // can see it.  kFused = false is flash_bwd_dkv; kFused = true is the
 // sweep of flash_bwd_fused, which also adds each q tile's dS K into the
@@ -714,8 +729,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 //      once, and each q tile's dS K is added into the workspace with
 //      atomicAdd.  p is rounded to the input dtype before P^T dO and dS
 //      before dS^T Q and dS K, where the TPU kernel rounds them.
-//   3. flash_bwd_fused_dq_cast_kernel (bf16 only): rounds the workspace
-//      into dq.  For fp32 the workspace is dq itself.
+//   3. flash_bwd_fused_dq_cast_kernel (bf16 and fp16): rounds the
+//      workspace into dq.  For fp32 the workspace is dq itself.
 // dk and dv have one summation order, the same bits on every run; the
 // atomics make the order of dq's per-k-tile partial sums vary from run
 // to run, which moves dq by a few fp32 ulps of its magnitude (|dq| x
@@ -901,29 +916,58 @@ cudaError_t bwd_fused(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// flash_fwd_hpack's instantiation for (head_dim, hp): D 16, 32, 64.
+template <typename T>
+cudaError_t fwd_hpack_as(int head_dim, int hp, const void* q, const void* k,
+                         const void* v, void* o, float* lse, int B, int H,
+                         int Sq, int Sk, int causal, float scale,
+                         const int64_t* st, cudaStream_t stream) {
+#define PADDLE_FLASH_HPACK(D)                                              \
+  if (head_dim == D && hp == 2)                                            \
+    return fwd_hpack<T, D, 2>(q, k, v, o, lse, B, H, Sq, Sk, causal, scale, \
+                              st, stream);                                 \
+  if (head_dim == D && hp == 4)                                            \
+    return fwd_hpack<T, D, 4>(q, k, v, o, lse, B, H, Sq, Sk, causal, scale, \
+                              st, stream);
+  PADDLE_FLASH_HPACK(16)
+  PADDLE_FLASH_HPACK(32)
+  PADDLE_FLASH_HPACK(64)
+#undef PADDLE_FLASH_HPACK
+  return cudaErrorInvalidValue;
+}
+
 bool bad_shape(int B, int H, int Sq, int Sk) {
   return B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || B > 65535 || H > 65535;
 }
 
 }  // namespace
 
-// C entries for ctypes.  dtype: 0 = float32, 1 = bfloat16; head_dim 64
-// or 128.  Pointers are device pointers; qseg/kseg are int32 [B, Sq] /
-// [B, Sk] or null; lse and delta are fp32 [B, H, Sq] contiguous.
-// `strides` is a host array of (batch, seq, head) element strides, three
-// per tensor, in the order the tensors appear in the signature (q, k, v,
-// then the rest without lse/delta/seg).  The launch goes on `stream` and
-// does not synchronise.  Returns a cudaError_t (0 = ok).
+// C entries for ctypes.  dtype: 0 = float32, 1 = bfloat16, 2 = float16;
+// head_dim 16, 32, 64 or 128.  Pointers are device pointers; qseg/kseg
+// are int32 [B, Sq] / [B, Sk] or null; lse and delta are fp32 [B, H, Sq]
+// contiguous.  `strides` is a host array of (batch, seq, head) element
+// strides, three per tensor, in the order the tensors appear in the
+// signature (q, k, v, then the rest without lse/delta/seg).  The launch
+// goes on `stream` and does not synchronise.  Returns a cudaError_t
+// (0 = ok).
+#define PADDLE_FLASH_DISPATCH_D(FN, T, ...)                                \
+  if (head_dim == 16)                                                      \
+    err = FN<T, 16>(__VA_ARGS__);                                          \
+  else if (head_dim == 32)                                                 \
+    err = FN<T, 32>(__VA_ARGS__);                                          \
+  else if (head_dim == 64)                                                 \
+    err = FN<T, 64>(__VA_ARGS__);                                          \
+  else if (head_dim == 128)                                                \
+    err = FN<T, 128>(__VA_ARGS__);
 #define PADDLE_FLASH_DISPATCH(FN, ...)                                     \
   cudaError_t err = cudaErrorInvalidValue;                                 \
-  if (dtype == 0 && head_dim == 64)                                        \
-    err = FN<float, 64>(__VA_ARGS__);                                      \
-  else if (dtype == 0 && head_dim == 128)                                  \
-    err = FN<float, 128>(__VA_ARGS__);                                     \
-  else if (dtype == 1 && head_dim == 64)                                   \
-    err = FN<__nv_bfloat16, 64>(__VA_ARGS__);                              \
-  else if (dtype == 1 && head_dim == 128)                                  \
-    err = FN<__nv_bfloat16, 128>(__VA_ARGS__);                             \
+  if (dtype == 0) {                                                        \
+    PADDLE_FLASH_DISPATCH_D(FN, float, __VA_ARGS__)                        \
+  } else if (dtype == 1) {                                                 \
+    PADDLE_FLASH_DISPATCH_D(FN, __nv_bfloat16, __VA_ARGS__)                \
+  } else if (dtype == 2) {                                                 \
+    PADDLE_FLASH_DISPATCH_D(FN, __half, __VA_ARGS__)                       \
+  }                                                                        \
   return static_cast<int>(err);
 
 extern "C" int flash_fwd(int dtype, int head_dim, const void* q,
@@ -971,33 +1015,31 @@ extern "C" int flash_bwd_dkv(int dtype, int head_dim, const void* q,
                         static_cast<cudaStream_t>(stream))
 }
 
-// hp heads per CTA: hp 2 or 4, head_dim 64 only, B * H divisible by hp;
-// anything else returns cudaErrorInvalidValue.  strides: q, k, v, o.
+// hp heads per CTA: hp 2 or 4, head_dim 16, 32 or 64, B * H divisible
+// by hp; anything else returns cudaErrorInvalidValue.  strides: q, k,
+// v, o.
 extern "C" int flash_fwd_hpack(int dtype, int head_dim, int hp,
                                const void* q, const void* k, const void* v,
                                void* o, void* lse, int B, int H, int Sq,
                                int Sk, int causal, float scale,
                                const void* strides, void* stream) {
   const int64_t bh = static_cast<int64_t>(B) * H;
-  if (bad_shape(B, H, Sq, Sk) || head_dim != 64 || (hp != 2 && hp != 4) ||
+  if (bad_shape(B, H, Sq, Sk) || head_dim > 64 || (hp != 2 && hp != 4) ||
       bh % hp != 0 || bh / hp > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* st = static_cast<const int64_t*>(strides);
   auto* l = static_cast<float*>(lse);
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0 && hp == 2)
-    err = fwd_hpack<float, 64, 2>(q, k, v, o, l, B, H, Sq, Sk, causal, scale,
-                                  st, s);
-  else if (dtype == 0 && hp == 4)
-    err = fwd_hpack<float, 64, 4>(q, k, v, o, l, B, H, Sq, Sk, causal, scale,
-                                  st, s);
-  else if (dtype == 1 && hp == 2)
-    err = fwd_hpack<__nv_bfloat16, 64, 2>(q, k, v, o, l, B, H, Sq, Sk, causal,
-                                          scale, st, s);
-  else if (dtype == 1 && hp == 4)
-    err = fwd_hpack<__nv_bfloat16, 64, 4>(q, k, v, o, l, B, H, Sq, Sk, causal,
-                                          scale, st, s);
+  if (dtype == 0)
+    err = fwd_hpack_as<float>(head_dim, hp, q, k, v, o, l, B, H, Sq, Sk,
+                              causal, scale, st, s);
+  else if (dtype == 1)
+    err = fwd_hpack_as<__nv_bfloat16>(head_dim, hp, q, k, v, o, l, B, H, Sq,
+                                      Sk, causal, scale, st, s);
+  else if (dtype == 2)
+    err = fwd_hpack_as<__half>(head_dim, hp, q, k, v, o, l, B, H, Sq, Sk,
+                               causal, scale, st, s);
   return static_cast<int>(err);
 }
 
@@ -1024,3 +1066,4 @@ extern "C" int flash_bwd_fused(int dtype, int head_dim, const void* q,
 }
 
 #undef PADDLE_FLASH_DISPATCH
+#undef PADDLE_FLASH_DISPATCH_D

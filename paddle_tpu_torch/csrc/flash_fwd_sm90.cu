@@ -1,21 +1,25 @@
 // Flash attention forward on Hopper's tensor cores (sm_90a): wgmma + TMA.
 //
-// Replaces, for bf16 inputs, the Pallas forward kernels of
+// Replaces, for bf16 and fp16 inputs, the Pallas forward kernels of
 // paddle_tpu/ops/pallas_ops.py:
 //   flash_fwd_tc       <- _flash_kernel (launched by _pallas_flash_bh) and
 //                         _flash_packed_fwd_kernel (_pallas_flash_packed)
 //   flash_fwd_hpack_tc <- _flash_kernel_hpack (_pallas_flash_bh_hpack),
 //                         hp consecutive rows of B*H per CTA
 // flash_attention.cu keeps the CUDA-core forward (fp32 FMAs) for fp32
-// inputs.  Semantics are that kernel's: scale, causal (k <= q), the
-// ragged Sq/Sk edge masked here, segment ids; the running max clamped at
-// kLseFloor, so a fully-masked row gives out = 0 and lse = kLseFloor,
-// never NaN; the max(l, 1e-30) denominator; out bf16 [B, Sq, H, D] and
-// lse fp32 [B, H, Sq]; D 64 or 128; q, k, v any strided [B, S, H, D]
-// view with a contiguous head dim (the [B*H, S, 1, D] layout included).
+// inputs and for head dims below 64.  Semantics are that kernel's:
+// scale, causal (k <= q), the ragged Sq/Sk edge masked here, segment
+// ids; the running max clamped at kLseFloor, so a fully-masked row gives
+// out = 0 and lse = kLseFloor, never NaN; the max(l, 1e-30) denominator;
+// out in the input dtype [B, Sq, H, D] and lse fp32 [B, H, Sq]; D 64 or
+// 128; q, k, v any strided [B, S, H, D] view with a contiguous head dim
+// (the [B*H, S, 1, D] layout included).
 // Rounding follows the TPU kernel (pallas_ops.py:136-166): S = Q K^T is
-// a bf16 product summed in fp32, p = exp(S - m) is rounded to bf16 for
-// the P V product while l sums the unrounded fp32 p.
+// a 16-bit product summed in fp32, p = exp(S - m) is rounded to the
+// input dtype for the P V product while l sums the unrounded fp32 p.
+// bf16 and fp16 share one body (the element type is a template
+// parameter: the .bf16 or .f16 wgmma form, the tensor-map data type, the
+// pair packing); the PTX helpers live in sm90.cuh.
 //
 // What bounds it: at GPT-2-small's training shape (B=8, S=1024, H=12,
 // D=64, causal) the forward does ~1.29e10 flop on ~50 MB, ~260 flop per
@@ -37,8 +41,9 @@
 //   the online softmax on the accumulator fragments in registers (a row
 //               lives on the 4 lanes of a quad: two shuffles);
 //   O += P V    wgmma m64n64k16 per 64 output columns, P rounded to bf16
-//               in registers as the A operand (the fp32 accumulator
-//               layout of S is the A-operand layout after packing pairs),
+//               (or fp16) in registers as the A operand (the fp32
+//               accumulator layout of S is the A-operand layout after
+//               packing pairs),
 //               V from shared memory MN-major (transpose flag).
 // After both warpgroups are done with a stage, thread 0 refills it with
 // the tile two ahead, so one tile loads while the next computes; in the
@@ -50,15 +55,12 @@
 //
 // Host side: the tensor maps are encoded per call with
 // cuTensorMapEncodeTiled, taken from the driver library already loaded in
-// the process (dlopen of libcuda.so.1), so the library links no -lcuda.
+// the process (sm90::encode_tiled), so the library links no -lcuda.
 // A [B, S, H, D] view is a 4-D map (D, H, S, B) with byte strides; TMA
 // needs a 16-byte-aligned base and strides that are multiples of 16
 // bytes, which the Python wrapper checks before it calls.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <dlfcn.h>
+#include "sm90.cuh"
 
 #include <cmath>
 #include <cstdint>
@@ -72,11 +74,7 @@ constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kBM = 128;              // q rows per CTA
 constexpr int kThreads = 256;         // two warpgroups of 64 rows
 constexpr int kStages = 2;            // K/V ring depth
-constexpr int kAtom = 64;             // bf16 columns per 128-byte swizzle row
-constexpr int kRowBytes = 128;
-// An mbarrier wait that outlives this many cycles (~10 s) traps instead
-// of hanging the card on a lost TMA completion.
-constexpr long long kWaitCycles = 20000000000LL;
+using namespace sm90;
 
 struct Layout {  // element strides; the head dim has stride 1
   int64_t b, s, h;
@@ -97,199 +95,18 @@ struct Plan {
 };
 
 // ---------------------------------------------------------------------------
-// PTX: mbarriers, TMA, wgmma
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - t0 > kWaitCycles) __trap();
-}
-
-// One box of a 4-D tensor map (coordinates innermost first) into shared
-// memory, completing on `bar`.
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, uint64_t map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(map), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start
-// address, leading and stride byte offsets (16-byte units), layout 1.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
-         static_cast<uint64_t>(1) << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Pin registers that an asynchronous wgmma reads or writes to this point
-// of the program, so the compiler moves no use across the wait.
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// D[64 x 64] (+)= A[64 x 16] B[64 x 16]^T, A and B K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D[64 x 128] (+)= A[64 x 16] B[128 x 16]^T, both K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
-      "%46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <int BN>
-__device__ __forceinline__ void wgmma_ss(float (&d)[BN / 2], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  if constexpr (BN == 64)
-    wgmma_ss_n64(d, da, db, scale_d);
-  else
-    wgmma_ss_n128(d, da, db, scale_d);
-}
-
-// D[64 x 64] += A[64 x 16] B[16 x 64], A bf16 pairs in registers (the
-// m64k16 A fragment), B MN-major in shared memory (transpose flag set).
-__device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32], uint32_t a0,
-                                                uint32_t a1, uint32_t a2,
-                                                uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// ---------------------------------------------------------------------------
 // the kernel
 // ---------------------------------------------------------------------------
 // Accumulator fragments (m64nN, fp32): thread t of a warpgroup holds, for
 // each 8-column block j, elements 4j..4j+3 at rows r = 16*(t/32) +
 // (t%32)/4 and r + 8, columns 8j + 2*(t%4) and +1:
 //   e -> row r + 8*((e >> 1) & 1), column 8*(e >> 2) + 2*(t%4) + (e & 1).
-template <int D, int BN, int HP>
+template <typename T, int D, int BN, int HP>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv,
-                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                    T* __restrict__ o, float* __restrict__ lse,
                     const int32_t* __restrict__ qseg,
                     const int32_t* __restrict__ kseg, int H, int Sq, int Sk,
                     Layout lo, int causal, float scale) {
@@ -411,7 +228,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t koff = (kk % 4) * 32;   // 16 columns = 32 bytes
-        wgmma_ss<BN>(s,
+        wgmma_ss<T, BN>(s,
                      sw128_desc(qa + (kk / 4) * kBM * kRowBytes + koff, 16,
                                 1024),
                      sw128_desc(ka + (kk / 4) * BN * kRowBytes + koff, 16,
@@ -451,7 +268,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
         alpha[i] = ex2(fmaxf(m[i], kLseFloor) - m_safe[i]);
         m[i] = m_new;
       }
-      // p in fp32 for the sums, rounded to bf16 pairs for P V
+      // p in fp32 for the sums, rounded to 16-bit pairs for P V
       uint32_t p[BN / 4];
       float ps[2] = {0.f, 0.f};
 #pragma unroll
@@ -460,7 +277,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
         const float p0 = ex2(s[e] - m_safe[i]);
         const float p1 = ex2(s[e + 1] - m_safe[i]);
         ps[i] += p0 + p1;
-        p[e / 2] = pack_bf16(p0, p1);
+        p[e / 2] = Elem<T>::pack(p0, p1);
       }
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
@@ -480,7 +297,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
       for (int kk = 0; kk < BN / 16; ++kk)
 #pragma unroll
         for (int hf = 0; hf < kHalves; ++hf)
-          wgmma_rs_n64_tb(acc[hf], p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+          wgmma_rs_n64_tb<T>(acc[hf], p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                           p[4 * kk + 3],
                           sw128_desc(va + hf * BN * kRowBytes +
                                          kk * 16 * kRowBytes,
@@ -496,21 +313,21 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
     if (tid == 0 && item + kStages < n_items) issue(item + kStages);
 
     if (kt == nkt - 1) {   // the head's last tile: normalise and store
-      __nv_bfloat16* ob = o + b * lo.b + h * lo.h;
+      T* ob = o + b * lo.b + h * lo.h;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int r = i ? r_hi : r_lo;
         if (r >= Sq) continue;
         const float denom = fmaxf(l[i], kDenomTiny);
         const float inv = 1.f / denom;
-        __nv_bfloat16* orow = ob + static_cast<int64_t>(r) * lo.s + cq;
+        T* orow = ob + static_cast<int64_t>(r) * lo.s + cq;
 #pragma unroll
         for (int hf = 0; hf < kHalves; ++hf)
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
-            const __nv_bfloat162 v = __floats2bfloat162_rn(
-                acc[hf][4 * j + 2 * i] * inv, acc[hf][4 * j + 2 * i + 1] * inv);
-            *reinterpret_cast<__nv_bfloat162*>(orow + hf * kAtom + 8 * j) = v;
+            *reinterpret_cast<uint32_t*>(orow + hf * kAtom + 8 * j) =
+                Elem<T>::pack(acc[hf][4 * j + 2 * i] * inv,
+                              acc[hf][4 * j + 2 * i + 1] * inv);
           }
         if (lane % 4 == 0)
           lse[(static_cast<int64_t>(b) * H + h) * Sq + r] =
@@ -523,32 +340,12 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
 
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib == nullptr ? nullptr
-                          : reinterpret_cast<EncodeTiled>(
-                                dlsym(lib, "cuTensorMapEncodeTiled"));
-  }();
-  return fn;
-}
-
-// Return codes beyond cudaError_t's: the driver entry point is missing,
-// or the driver refused a tensor map (the wrapper checks the rules first).
-constexpr int kErrNoEncode = -1;
-constexpr int kErrTensorMap = -2;
-
-// bf16 [B, S, H, D] at `ptr` with element strides st = (b, s, h) as a
-// 4-D map (D, H, S, B) whose box is 64 columns of `rows` rows of one
-// (b, h), 128-byte swizzled; rows past S read as zero.
+// A 16-bit [B, S, H, D] tensor of element type T at `ptr` with element
+// strides st = (b, s, h) as a 4-D map (D, H, S, B) whose box is 64
+// columns of `rows` rows of one (b, h), 128-byte swizzled; rows past S
+// read as zero.
+template <typename T>
 int make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
              const int64_t* st, int rows) {
   const EncodeTiled encode = encode_tiled();
@@ -563,7 +360,7 @@ int make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
   const cuuint32_t box[4] = {kAtom, 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      map, Elem<T>::kMap, 4, const_cast<void*>(ptr), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -577,7 +374,7 @@ int make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
 template <int D>
 constexpr int kBN = D == 64 ? 64 : 128;
 
-template <int D, int HP>
+template <typename T, int D, int HP>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const int32_t* qseg, const int32_t* kseg, int B, int H, int Sq,
            int Sk, int causal, float scale, const int64_t* st,
@@ -585,11 +382,11 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   constexpr int BN = kBN<D>;
   using P = Plan<D, BN, HP>;
   CUtensorMap mq, mk, mv;
-  int err = make_map(&mq, q, B, Sq, H, D, st, kBM);
-  if (err == 0) err = make_map(&mk, k, B, Sk, H, D, st + 3, BN);
-  if (err == 0) err = make_map(&mv, v, B, Sk, H, D, st + 6, BN);
+  int err = make_map<T>(&mq, q, B, Sq, H, D, st, kBM);
+  if (err == 0) err = make_map<T>(&mk, k, B, Sk, H, D, st + 3, BN);
+  if (err == 0) err = make_map<T>(&mv, v, B, Sk, H, D, st + 6, BN);
   if (err != 0) return err;
-  auto kernel = flash_fwd_tc_kernel<D, BN, HP>;
+  auto kernel = flash_fwd_tc_kernel<T, D, BN, HP>;
   cudaError_t cerr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(P::kAlloc));
@@ -598,9 +395,24 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
                   static_cast<unsigned>((Sq + kBM - 1) / kBM));
   const Layout lo{st[9], st[10], st[11]};
   kernel<<<grid, kThreads, P::kAlloc, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, qseg, kseg, H, Sq, Sk,
-      lo, causal, scale);
+      mq, mk, mv, static_cast<T*>(o), lse, qseg, kseg, H, Sq, Sk, lo, causal,
+      scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The instantiation for (dtype, head_dim, hp): dtype 1 = bf16, 2 = fp16.
+template <int D, int HP>
+int launch_as(int dtype, const void* q, const void* k, const void* v,
+              void* o, float* lse, const int32_t* qseg, const int32_t* kseg,
+              int B, int H, int Sq, int Sk, int causal, float scale,
+              const int64_t* st, cudaStream_t stream) {
+  if (dtype == 1)
+    return launch<__nv_bfloat16, D, HP>(q, k, v, o, lse, qseg, kseg, B, H,
+                                        Sq, Sk, causal, scale, st, stream);
+  if (dtype == 2)
+    return launch<__half, D, HP>(q, k, v, o, lse, qseg, kseg, B, H, Sq, Sk,
+                                 causal, scale, st, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 bool bad_shape(int B, int H, int Sq, int Sk) {
@@ -610,16 +422,17 @@ bool bad_shape(int B, int H, int Sq, int Sk) {
 
 }  // namespace
 
-// C entries for ctypes, bf16 only.  head_dim 64 or 128; pointers are
-// device pointers; qseg/kseg are int32 [B, Sq] / [B, Sk] or null; lse is
-// fp32 [B, H, Sq] contiguous.  `strides` is a host array of (batch, seq,
-// head) element strides of q, k, v and out, in that order; every base
-// address and every stride of q, k and v must be a multiple of 16 bytes
-// (TMA's rule).  The launch goes on `stream` and does not synchronise.
-// Returns 0, a cudaError_t, -1 (no cuTensorMapEncodeTiled in the driver)
-// or -2 (the driver refused a tensor map).
-extern "C" int flash_fwd_tc(int head_dim, const void* q, const void* k,
-                            const void* v, void* o, void* lse,
+// C entries for ctypes.  dtype 1 = bfloat16, 2 = float16; head_dim 64
+// or 128; pointers are device pointers; qseg/kseg are int32 [B, Sq] /
+// [B, Sk] or null; lse is fp32 [B, H, Sq] contiguous.  `strides` is a
+// host array of (batch, seq, head) element strides of q, k, v and out,
+// in that order; every base address and every stride of q, k and v must
+// be a multiple of 16 bytes (TMA's rule).  The launch goes on `stream`
+// and does not synchronise.  Returns 0, a cudaError_t, -1 (no
+// cuTensorMapEncodeTiled in the driver) or -2 (the driver refused a
+// tensor map).
+extern "C" int flash_fwd_tc(int dtype, int head_dim, const void* q,
+                            const void* k, const void* v, void* o, void* lse,
                             const void* qseg, const void* kseg, int B, int H,
                             int Sq, int Sk, int causal, float scale,
                             const void* strides, void* stream) {
@@ -631,19 +444,20 @@ extern "C" int flash_fwd_tc(int head_dim, const void* q, const void* k,
   const auto* ks = static_cast<const int32_t*>(kseg);
   auto s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64)
-    return launch<64, 1>(q, k, v, o, l, qs, ks, B, H, Sq, Sk, causal, scale,
-                         st, s);
-  return launch<128, 1>(q, k, v, o, l, qs, ks, B, H, Sq, Sk, causal, scale,
-                        st, s);
+    return launch_as<64, 1>(dtype, q, k, v, o, l, qs, ks, B, H, Sq, Sk,
+                            causal, scale, st, s);
+  return launch_as<128, 1>(dtype, q, k, v, o, l, qs, ks, B, H, Sq, Sk, causal,
+                           scale, st, s);
 }
 
 // hp consecutive rows of B*H per CTA: hp 2 or 4, head_dim 64, B * H
 // divisible by hp, no segment ids; anything else returns
-// cudaErrorInvalidValue.  Same strides and return codes as flash_fwd_tc.
-extern "C" int flash_fwd_hpack_tc(int head_dim, int hp, const void* q,
-                                  const void* k, const void* v, void* o,
-                                  void* lse, int B, int H, int Sq, int Sk,
-                                  int causal, float scale,
+// cudaErrorInvalidValue.  Same dtypes, strides and return codes as
+// flash_fwd_tc.
+extern "C" int flash_fwd_hpack_tc(int dtype, int head_dim, int hp,
+                                  const void* q, const void* k, const void* v,
+                                  void* o, void* lse, int B, int H, int Sq,
+                                  int Sk, int causal, float scale,
                                   const void* strides, void* stream) {
   const int64_t bh = static_cast<int64_t>(B) * H;
   if (bad_shape(B, H, Sq, Sk) || head_dim != 64 || (hp != 2 && hp != 4) ||
@@ -653,8 +467,8 @@ extern "C" int flash_fwd_hpack_tc(int head_dim, int hp, const void* q,
   auto* l = static_cast<float*>(lse);
   auto s = static_cast<cudaStream_t>(stream);
   if (hp == 2)
-    return launch<64, 2>(q, k, v, o, l, nullptr, nullptr, B, H, Sq, Sk,
-                         causal, scale, st, s);
-  return launch<64, 4>(q, k, v, o, l, nullptr, nullptr, B, H, Sq, Sk, causal,
-                       scale, st, s);
+    return launch_as<64, 2>(dtype, q, k, v, o, l, nullptr, nullptr, B, H, Sq,
+                            Sk, causal, scale, st, s);
+  return launch_as<64, 4>(dtype, q, k, v, o, l, nullptr, nullptr, B, H, Sq,
+                          Sk, causal, scale, st, s);
 }

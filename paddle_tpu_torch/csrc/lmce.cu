@@ -17,6 +17,9 @@
 // [0, V) picks -1e30, and rows >= N are neither read nor written: the
 // kernels mask both ragged edges themselves, so no padding is needed.
 // dh comes out in h's dtype and dW in W's, both summed in fp32.
+// Operands are fp32, bf16 or fp16 (both alike).  For bf16 and fp16 the
+// backward's main path is lmce_sm90.cu (tensor cores); these CUDA-core
+// bodies serve fp32 and the comparison on the card.
 //
 // What bounds them: at GPT-2-small training shapes (N = 8192, V = 50304,
 // D = 768, bf16) the forward does 6.3e11 flop and the two backward
@@ -47,6 +50,7 @@
 // order, so the results are the same from run to run.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -82,6 +86,10 @@ template <>
 struct Vec8<__nv_bfloat16> {
   uint4 raw;
 };
+template <>
+struct Vec8<__half> {
+  uint4 raw;
+};
 
 __device__ __forceinline__ void fetch8(Vec8<float>& v, const float* p,
                                        bool ok) {
@@ -95,6 +103,10 @@ __device__ __forceinline__ void fetch8(Vec8<float>& v, const float* p,
 }
 __device__ __forceinline__ void fetch8(Vec8<__nv_bfloat16>& v,
                                        const __nv_bfloat16* p, bool ok) {
+  v.raw = ok ? *reinterpret_cast<const uint4*>(p) : uint4{0u, 0u, 0u, 0u};
+}
+__device__ __forceinline__ void fetch8(Vec8<__half>& v, const __half* p,
+                                       bool ok) {
   v.raw = ok ? *reinterpret_cast<const uint4*>(p) : uint4{0u, 0u, 0u, 0u};
 }
 __device__ __forceinline__ void unpack8(const Vec8<float>& v, float f[8]) {
@@ -112,15 +124,31 @@ __device__ __forceinline__ void unpack8(const Vec8<__nv_bfloat16>& v,
   }
 }
 
+__device__ __forceinline__ void unpack8(const Vec8<__half>& v, float f[8]) {
+  const __half2* h2 = reinterpret_cast<const __half2*>(&v.raw);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 t = __half22float2(h2[k]);
+    f[2 * k] = t.x;
+    f[2 * k + 1] = t.y;
+  }
+}
+
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);  // round to nearest even, as torch does
+}
+__device__ __forceinline__ void store(__half* p, float v) {
+  *p = __float2half_rn(v);
 }
 // dL rounded to the operand dtype before its product (pallas_lmce.py
 // .astype(w.dtype) / .astype(h.dtype))
 __device__ __forceinline__ float round_to(float v, const float*) { return v; }
 __device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(v));
+}
+__device__ __forceinline__ float round_to(float v, const __half*) {
+  return __half2float(__float2half_rn(v));
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -462,17 +490,20 @@ bool bad_shape(int N, int V, int D) {
 
 }  // namespace
 
-// C entries for ctypes.  dtype: 0 = float32, 1 = bfloat16.  Pointers are
-// device pointers: h [N, D] and w [V, D] contiguous and 16-byte aligned,
-// D a positive multiple of 8; labels int32 [N]; loss, lse and g fp32 [N];
-// dh [N, D] and dw [V, D] in the operand dtype.  The launch goes on
-// `stream` and does not synchronise.  Returns a cudaError_t (0 = ok).
+// C entries for ctypes.  dtype: 0 = float32, 1 = bfloat16, 2 = float16.
+// Pointers are device pointers: h [N, D] and w [V, D] contiguous and
+// 16-byte aligned, D a positive multiple of 8; labels int32 [N]; loss,
+// lse and g fp32 [N]; dh [N, D] and dw [V, D] in the operand dtype.
+// The launch goes on `stream` and does not synchronise.  Returns a
+// cudaError_t (0 = ok).
 #define PADDLE_LMCE_DISPATCH(FN, ...)                                      \
   cudaError_t err = cudaErrorInvalidValue;                                 \
   if (dtype == 0)                                                          \
     err = FN<float>(__VA_ARGS__);                                          \
   else if (dtype == 1)                                                     \
     err = FN<__nv_bfloat16>(__VA_ARGS__);                                  \
+  else if (dtype == 2)                                                     \
+    err = FN<__half>(__VA_ARGS__);                                         \
   return static_cast<int>(err);
 
 extern "C" int lmce_fwd(int dtype, const void* h, const void* w,
@@ -498,6 +529,8 @@ extern "C" int lmce_fwd(int dtype, const void* h, const void* w,
       err = bwd<float, DW>(h, w, lab, z, gg, grad, N, V, D, st);           \
     else if (dtype == 1)                                                   \
       err = bwd<__nv_bfloat16, DW>(h, w, lab, z, gg, grad, N, V, D, st);   \
+    else if (dtype == 2)                                                   \
+      err = bwd<__half, DW>(h, w, lab, z, gg, grad, N, V, D, st);          \
     return static_cast<int>(err);                                          \
   }
 

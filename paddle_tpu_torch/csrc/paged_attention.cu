@@ -9,7 +9,7 @@
 // Online softmax with f32 statistics; positions >= len_b contribute
 // exactly nothing; the result is divided by max(l, DENOM_TINY), so a
 // row with len_b == 0 returns exact 0.0, never NaN.  Output in the
-// input dtype (fp32 or bf16).
+// input dtype (fp32, bf16 or fp16).
 //
 // What bounds it: device-memory bytes.  Each (b, h) reads its len_b
 // K and V rows once -- at most sum_b ceil(len_b/BS)*BS*H*Dh*2*itemsize
@@ -20,20 +20,26 @@
 // page table, never the [B, MAXNB*BS, H, Dh] gather the plain version
 // materialises, and keeps every intermediate in registers.
 //
-// Design: one CTA per (h, b), kWarps warps.  Warp w walks tokens
-// w*kUnroll, w*kUnroll + kWarps*kUnroll, ... in tiles of kUnroll
+// Design: one CTA per (h, b), kWarps warps cut into groups of LANES
+// lanes: a whole warp per row when Dh is a multiple of 32, half a warp
+// otherwise (Dh = 16, gpt_tiny's head dim, and the other multiples of
+// 16), so a warp then walks two token tiles at once.  Group g walks
+// tokens g*kUnroll, g*kUnroll + groups*kUnroll, ... in tiles of kUnroll
 // consecutive tokens, issuing the tile's K/V loads together and the
 // next tile's page-table reads before this tile's arithmetic; each lane
-// owns Dh/32 consecutive features (a coalesced row read per warp), the
-// q.k dot is a butterfly reduction over the warp, and each warp keeps
-// its own (m, l, acc).  The warps' partial states are merged once
-// through shared memory at the end.  The CTA reads the page table and
-// the length itself, so the launch shape depends on (B, H) only.
+// owns Dh/LANES consecutive features (a coalesced row read per group),
+// the q.k dot is a butterfly reduction over the group (the warp's loop
+// runs while its first group has tokens, so every shuffle has all 32
+// lanes), and each group keeps its own (m, l, acc).  The groups'
+// partial states are merged once through shared memory at the end.  The
+// CTA reads the page table and the length itself, so the launch shape
+// depends on (B, H) only.
 // Lengths clamp to [0, MAXNB*BS] and page ids to [0, NB-1], so a stale
 // or inactive row stays memory-safe.  cp.async double buffering of
 // pages, split-K over long contexts and wgmma are later work.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -94,6 +100,33 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* __restrict__ p,
   }
 }
 
+template <int EPL>
+__device__ __forceinline__ void load_row(const __half* __restrict__ p,
+                                         float (&o)[EPL]) {
+  if constexpr (EPL % 8 == 0) {
+#pragma unroll
+    for (int i = 0; i < EPL; i += 8) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(p + i);
+      const __half2* h2 = reinterpret_cast<const __half2*>(&raw);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 f = __half22float2(h2[j]);
+        o[i + 2 * j] = f.x; o[i + 2 * j + 1] = f.y;
+      }
+    }
+  } else if constexpr (EPL % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < EPL; i += 2) {
+      const float2 f =
+          __half22float2(*reinterpret_cast<const __half2*>(p + i));
+      o[i] = f.x; o[i + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < EPL; ++i) o[i] = __half2float(p[i]);
+  }
+}
+
 // Page ids of tokens t0 .. t0+kUnroll-1 (0 past the length), clamped
 // to the pool so a stale table entry stays memory-safe.
 __device__ __forceinline__ void fetch_pages(const int32_t* __restrict__ trow,
@@ -110,25 +143,31 @@ __device__ __forceinline__ void store_elem(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_elem(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);  // round to nearest even, as torch does
 }
+__device__ __forceinline__ void store_elem(__half* p, float v) {
+  *p = __float2half_rn(v);
+}
 
-template <typename T, int EPL>
+template <typename T, int EPL, int LANES>
 __global__ void __launch_bounds__(kWarps * 32)
 paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
                   const T* __restrict__ pool_v,
                   const int32_t* __restrict__ table,
                   const int32_t* __restrict__ lengths, T* __restrict__ out,
                   int H, int NB, int BS, int MAXNB, float scale) {
-  constexpr int Dh = EPL * 32;
+  constexpr int Dh = EPL * LANES;
+  constexpr int kPerWarp = 32 / LANES;          // groups in a warp
+  constexpr int kGroups = kWarps * kPerWarp;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+  const int grp = threadIdx.x / LANES;
+  const int gl = threadIdx.x % LANES;
 
   const int len = max(0, min(lengths[b], MAXNB * BS));
   const int32_t* trow = table + static_cast<size_t>(b) * MAXNB;
 
   float qv[EPL];
-  load_row<EPL>(q + (static_cast<size_t>(b) * H + h) * Dh + lane * EPL, qv);
+  load_row<EPL>(q + (static_cast<size_t>(b) * H + h) * Dh + gl * EPL, qv);
 
   float m = kMaskValue;
   float l = 0.f;
@@ -136,10 +175,12 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
 #pragma unroll
   for (int i = 0; i < EPL; ++i) acc[i] = 0.f;
 
-  constexpr int kStride = kWarps * kUnroll;
+  constexpr int kStride = kGroups * kUnroll;
+  const int lead = (grp % kPerWarp) * kUnroll;  // this group's offset
   int pages[kUnroll];
-  fetch_pages(trow, warp * kUnroll, len, BS, NB, pages);
-  for (int t0 = warp * kUnroll; t0 < len; t0 += kStride) {
+  fetch_pages(trow, warp * kPerWarp * kUnroll + lead, len, BS, NB, pages);
+  for (int tw0 = warp * kPerWarp * kUnroll; tw0 < len; tw0 += kStride) {
+    const int t0 = tw0 + lead;
     float kr[kUnroll][EPL];
     float vr[kUnroll][EPL];
 #pragma unroll
@@ -148,7 +189,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
       if (t < len) {
         const size_t off =
             ((static_cast<size_t>(pages[u]) * BS + (t % BS)) * H + h) * Dh +
-            lane * EPL;
+            gl * EPL;
         load_row<EPL>(pool_k + off, kr[u]);
         load_row<EPL>(pool_v + off, vr[u]);
       } else {
@@ -168,7 +209,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
       s[u] = d;
     }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
+    for (int off = LANES / 2; off > 0; off >>= 1) {
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
         s[u] += __shfl_xor_sync(0xffffffffu, s[u], off);
@@ -195,25 +236,25 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
     m = m_new;
   }
 
-  // merge the warps' partial softmax states
-  __shared__ float sm_m[kWarps];
-  __shared__ float sm_l[kWarps];
-  __shared__ float sm_acc[kWarps][Dh];
-  if (lane == 0) {
-    sm_m[warp] = m;
-    sm_l[warp] = l;
+  // merge the groups' partial softmax states
+  __shared__ float sm_m[kGroups];
+  __shared__ float sm_l[kGroups];
+  __shared__ float sm_acc[kGroups][Dh];
+  if (gl == 0) {
+    sm_m[grp] = m;
+    sm_l[grp] = l;
   }
 #pragma unroll
-  for (int i = 0; i < EPL; ++i) sm_acc[warp][lane * EPL + i] = acc[i];
+  for (int i = 0; i < EPL; ++i) sm_acc[grp][gl * EPL + i] = acc[i];
   __syncthreads();
 
   float m_all = kMaskValue;
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) m_all = fmaxf(m_all, sm_m[w]);
-  float wscale[kWarps];
+  for (int w = 0; w < kGroups; ++w) m_all = fmaxf(m_all, sm_m[w]);
+  float wscale[kGroups];
   float l_all = 0.f;
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
+  for (int w = 0; w < kGroups; ++w) {
     wscale[w] = expf(sm_m[w] - m_all);
     l_all += sm_l[w] * wscale[w];
   }
@@ -222,7 +263,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
   for (int d = threadIdx.x; d < Dh; d += blockDim.x) {
     float o = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) o = fmaf(sm_acc[w][d], wscale[w], o);
+    for (int w = 0; w < kGroups; ++w) o = fmaf(sm_acc[w][d], wscale[w], o);
     store_elem(orow + d, o / denom);
   }
 }
@@ -240,22 +281,37 @@ cudaError_t launch(const void* q, const void* pool_k, const void* pool_v,
   const int32_t* tp = static_cast<const int32_t*>(table);
   const int32_t* lp = static_cast<const int32_t*>(lengths);
   T* op = static_cast<T*>(out);
-#define PADDLE_PAGED_CASE(EPL)                                            \
+#define PADDLE_PAGED_CASE(EPL, LANES)                                     \
   case EPL:                                                               \
-    paged_attn_kernel<T, EPL><<<grid, block, 0, stream>>>(                \
+    paged_attn_kernel<T, EPL, LANES><<<grid, block, 0, stream>>>(         \
         qp, kp, vp, tp, lp, op, H, NB, BS, MAXNB, scale);                 \
     break;
-  switch (Dh / 32) {
-    PADDLE_PAGED_CASE(1)
-    PADDLE_PAGED_CASE(2)
-    PADDLE_PAGED_CASE(3)
-    PADDLE_PAGED_CASE(4)
-    PADDLE_PAGED_CASE(5)
-    PADDLE_PAGED_CASE(6)
-    PADDLE_PAGED_CASE(7)
-    PADDLE_PAGED_CASE(8)
-    default:
-      return cudaErrorInvalidValue;
+  if (Dh % 32 == 0) {   // a warp per row
+    switch (Dh / 32) {
+      PADDLE_PAGED_CASE(1, 32)
+      PADDLE_PAGED_CASE(2, 32)
+      PADDLE_PAGED_CASE(3, 32)
+      PADDLE_PAGED_CASE(4, 32)
+      PADDLE_PAGED_CASE(5, 32)
+      PADDLE_PAGED_CASE(6, 32)
+      PADDLE_PAGED_CASE(7, 32)
+      PADDLE_PAGED_CASE(8, 32)
+      default:
+        return cudaErrorInvalidValue;
+    }
+  } else {              // half a warp per row: Dh / 16 is odd
+    switch (Dh / 16) {
+      PADDLE_PAGED_CASE(1, 16)
+      PADDLE_PAGED_CASE(3, 16)
+      PADDLE_PAGED_CASE(5, 16)
+      PADDLE_PAGED_CASE(7, 16)
+      PADDLE_PAGED_CASE(9, 16)
+      PADDLE_PAGED_CASE(11, 16)
+      PADDLE_PAGED_CASE(13, 16)
+      PADDLE_PAGED_CASE(15, 16)
+      default:
+        return cudaErrorInvalidValue;
+    }
   }
 #undef PADDLE_PAGED_CASE
   return cudaGetLastError();
@@ -263,7 +319,8 @@ cudaError_t launch(const void* q, const void* pool_k, const void* pool_v,
 
 }  // namespace
 
-// C entry for ctypes.  dtype: 0 = float32, 1 = bfloat16.  All pointers
+// C entry for ctypes.  dtype: 0 = float32, 1 = bfloat16, 2 = float16;
+// Dh a multiple of 16 up to 256.  All pointers
 // are device pointers of contiguous tensors; the launch goes on
 // `stream` and does not synchronise.  Returns a cudaError_t (0 = ok).
 extern "C" int paddle_paged_attention(int dtype, const void* q,
@@ -272,7 +329,7 @@ extern "C" int paddle_paged_attention(int dtype, const void* q,
                                       void* out, int B, int H, int Dh, int NB,
                                       int BS, int MAXNB, float scale,
                                       void* stream) {
-  if (Dh <= 0 || Dh % 32 != 0 || Dh > 256 || B <= 0 || H <= 0 || NB <= 0 ||
+  if (Dh <= 0 || Dh % 16 != 0 || Dh > 256 || B <= 0 || H <= 0 || NB <= 0 ||
       BS <= 0 || MAXNB <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -283,6 +340,9 @@ extern "C" int paddle_paged_attention(int dtype, const void* q,
   else if (dtype == 1)
     err = launch<__nv_bfloat16>(q, pool_k, pool_v, table, lengths, out, B, H,
                                 Dh, NB, BS, MAXNB, scale, s);
+  else if (dtype == 2)
+    err = launch<__half>(q, pool_k, pool_v, table, lengths, out, B, H, Dh, NB,
+                         BS, MAXNB, scale, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -25,7 +25,7 @@ from .kv_cache import gather_pages
 from .ragged_attention import ragged_decode_attention
 
 KERNEL_NAME = "paged_attention"
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _lib = None
 
 
@@ -82,10 +82,11 @@ def paged_ragged_attention(pool_k, pool_v, page_table, lengths, q,
     ``[B, MAXNB]`` int32; ``lengths`` ``[B]`` int32; ``q`` ``[B, H,
     Dh]``.  Returns ``[B, H, Dh]`` in ``q``'s dtype.  CPU tensors run
     the plain version.  CUDA tensors launch the kernel on the current
-    stream without synchronising; the kernel takes fp32 or bf16 with
-    ``q`` in the pool's dtype, contiguous inputs and ``Dh`` a multiple
-    of 32 up to 256, and anything else raises.  Each launch adds one to
-    ``paged_ragged_attention.launches``.
+    stream without synchronising; the kernel takes fp32, bf16 or fp16
+    with ``q`` in the pool's dtype, contiguous inputs and ``Dh`` a
+    multiple of 16 up to 256 (a warp per row when Dh is a multiple of
+    32, half a warp otherwise), and anything else raises.  Each launch
+    adds one to ``paged_ragged_attention.launches``.
     """
     _check(pool_k, pool_v, page_table, lengths, q)
     NB, BS, H, Dh = pool_k.shape
@@ -100,10 +101,11 @@ def paged_ragged_attention(pool_k, pool_v, page_table, lengths, q,
     if q.dtype not in _DTYPE_CODES or pool_k.dtype != q.dtype or \
             pool_v.dtype != q.dtype:
         raise TypeError(
-            f"kernel takes float32 or bfloat16 with q in the pool's dtype;"
-            f" got q {q.dtype}, pool {pool_k.dtype}/{pool_v.dtype}")
-    if Dh % 32 or not 0 < Dh <= 256:
-        raise ValueError(f"kernel takes Dh a multiple of 32 up to 256, "
+            f"kernel takes float32, bfloat16 or float16 with q in the "
+            f"pool's dtype; got q {q.dtype}, pool {pool_k.dtype}/"
+            f"{pool_v.dtype}")
+    if Dh % 16 or not 0 < Dh <= 256:
+        raise ValueError(f"kernel takes Dh a multiple of 16 up to 256, "
                          f"got {Dh}")
     tensors = (pool_k, pool_v, page_table, lengths, q)
     if not all(t.is_contiguous() for t in tensors):

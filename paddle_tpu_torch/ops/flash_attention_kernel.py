@@ -4,8 +4,8 @@ them (counterpart of the flash-attention part of
 ``paddle_tpu/ops/pallas_ops.py``).
 
 Five kernels in ``csrc/flash_attention.cu`` (fp32 FMAs on the CUDA
-cores), the two forwards also in ``csrc/flash_fwd_sm90.cu`` (bf16 on the
-tensor cores, ``wgmma`` fed by TMA):
+cores), the two forwards also in ``csrc/flash_fwd_sm90.cu`` (bf16 and
+fp16 on the tensor cores, ``wgmma`` fed by TMA):
 
 - :func:`flash_fwd` -> ``(out, lse)``, the online-softmax forward;
 - :func:`flash_bwd_dq` -> ``(dq, delta)``, ``delta = rowsum(dO * O)``;
@@ -16,7 +16,7 @@ tensor cores, ``wgmma`` fed by TMA):
 - :func:`flash_bwd_fused` -> ``(dq, dk, dv)`` in one sweep over the k
   tiles, dq summed through atomics (``PADDLE_TORCH_FLASH_FUSED_BWD``);
   a pre-pass computes delta and zeroes the fp32 dq workspace, and for
-  bf16 an epilogue rounds it into dq.
+  bf16 and fp16 an epilogue rounds it into dq.
 
 Each wrapper takes ``q`` ``[B, Sq, H, D]`` and ``k``/``v``/``dout``
 ``[B, S, H, D]`` as strided views (the head dim must have stride 1), so
@@ -29,16 +29,21 @@ sees no key gives ``out = 0`` and ``lse = LSE_FLOOR``, never NaN.
 
 On a CUDA tensor a wrapper launches its kernel or raises (a build
 failure raises :class:`~paddle_tpu_torch._build.KernelBuildError`);
-the kernels take fp32 or bf16 with ``D`` 64 or 128, and any other head
-dim raises ``NotImplementedError``.  The two forwards route by dtype:
-bf16 launches the tensor-core kernel (``flash_fwd_tc`` /
-``flash_fwd_hpack_tc``), fp32 the CUDA-core one; TMA reads q, k and v,
-so a bf16 call whose base address or batch, sequence or head stride is
-not a multiple of 16 bytes raises ``NotImplementedError``.  Neither
-body falls back to the other.  On a CPU tensor a wrapper runs its plain
-version, which repeats the kernel's arithmetic with whole-tensor ops
-(:func:`flash_fwd_tc_reference` is the tensor-core forward's, with p
-rounded to bf16 before ``P V``).  Each launch adds one to
+the kernels take fp32, bf16 or fp16 with ``D`` in :data:`HEAD_DIMS`
+(16, 32, 64, 128), and any other head dim raises
+``NotImplementedError``.  The two forwards route by dtype and head dim,
+before any launch: bf16 and fp16 at ``D`` in :data:`TC_HEAD_DIMS` (64,
+128; 64 for the head-packed entry) launch the tensor-core kernel
+(``flash_fwd_tc`` / ``flash_fwd_hpack_tc``), everything else (fp32, and
+``D`` 16 or 32 in every dtype) the CUDA-core one.  TMA reads q, k and
+v, so a tensor-core call whose base address or batch, sequence or head
+stride is not a multiple of 16 bytes raises ``NotImplementedError``.
+Neither body falls back to the other.  Every forward rounds p to the
+input dtype before ``P V`` (as the TPU kernels do; a no-op in fp32).
+On a CPU tensor a wrapper runs its plain version, which repeats the
+kernel's arithmetic with whole-tensor ops
+(:func:`flash_fwd_tc_reference` holds the 16-bit forwards' rounding of
+p).  Each launch adds one to
 ``<wrapper>.launches`` and, for the tensor-core body, to
 ``<wrapper>.tc_launches``; each plain run adds one to
 ``<wrapper>.plain_calls``.  The fused backward's helper launches are
@@ -61,13 +66,19 @@ TC_KERNEL_NAME = "flash_fwd_sm90"
 LSE_FLOOR = -1e30
 #: denominator guard: inert for a row with any visible key
 DENOM_TINY = 1e-30
-HEAD_DIMS = (64, 128)
-#: heads per CTA and head dim that ``flash_fwd_hpack``'s kernel is built for
+HEAD_DIMS = (16, 32, 64, 128)
+#: head dims of the tensor-core forward (bf16 and fp16); below 64 the
+#: CUDA-core forward runs in those dtypes
+TC_HEAD_DIMS = (64, 128)
+#: heads per CTA and head dims that ``flash_fwd_hpack``'s kernels are
+#: built for (the JAX rule packs every head dim up to 64); the
+#: tensor-core body takes 64
 HPACK_HEADS = (2, 4)
-HPACK_HEAD_DIM = 64
-#: the fused backward's helper kernels (pre-pass, bf16 dq epilogue)
+HPACK_HEAD_DIMS = (16, 32, 64)
+#: the fused backward's helper kernels (pre-pass, 16-bit dq epilogue)
 FUSED_HELPERS = ("flash_bwd_fused_prep", "flash_bwd_fused_dq_cast")
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_TC_DTYPES = (torch.bfloat16, torch.float16)
 #: TMA's rule for the tensor-core forward's q, k and v: base address and
 #: batch, sequence and head strides in multiples of this many bytes
 TMA_ALIGN = 16
@@ -94,10 +105,11 @@ def bind(lib):
 
 def bind_tc(lib):
     """The same for the tensor-core forward's library
-    (``csrc/flash_fwd_sm90.cu``, bf16 only)."""
+    (``csrc/flash_fwd_sm90.cu``, bf16 and fp16)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_fwd_tc.argtypes = [i] + [p] * 7 + [i] * 5 + [f, p, p]
-    lib.flash_fwd_hpack_tc.argtypes = [i, i] + [p] * 5 + [i] * 5 + [f, p, p]
+    lib.flash_fwd_tc.argtypes = [i, i] + [p] * 7 + [i] * 5 + [f, p, p]
+    lib.flash_fwd_hpack_tc.argtypes = ([i, i, i] + [p] * 5 + [i] * 5
+                                       + [f, p, p])
     for fn in (lib.flash_fwd_tc, lib.flash_fwd_hpack_tc):
         fn.restype = ctypes.c_int
     return lib
@@ -271,12 +283,18 @@ def _check(q, k, v, q_seg, k_seg, extra=()):
 def _kernel_ready(q):
     """The CUDA path's own limits (the plain version takes anything)."""
     if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"the flash kernels take float32 or bfloat16, got "
-                        f"{q.dtype}")
+        raise TypeError(f"the flash kernels take float32, bfloat16 or "
+                        f"float16, got {q.dtype}")
     if q.shape[-1] not in HEAD_DIMS:
         raise NotImplementedError(
             f"the flash kernels are built for head dim {HEAD_DIMS}, got "
             f"{q.shape[-1]}")
+
+
+def _is_tc(q, head_dims=TC_HEAD_DIMS):
+    """Whether a forward runs the tensor-core body: 16-bit inputs at a
+    head dim it is built for (decided before any launch)."""
+    return q.dtype in _TC_DTYPES and q.shape[-1] in head_dims
 
 
 def _tc_ready(q, k, v):
@@ -363,8 +381,9 @@ def _launch_fwd_tc(lib, stream, q, k, v, causal, q_seg, k_seg, scale):
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     strides = _tma_strides(q, k, v, out)
     _raise_on(lib.flash_fwd_tc(
-        D, _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), _ptr(q_seg),
-        _ptr(k_seg), B, H, Sq, k.shape[1], int(causal), float(scale),
+        _DTYPE_CODES[q.dtype], D, _ptr(q), _ptr(k), _ptr(v), _ptr(out),
+        _ptr(lse), _ptr(q_seg), _ptr(k_seg), B, H, Sq, k.shape[1],
+        int(causal), float(scale),
         ctypes.cast(strides, ctypes.c_void_p), stream), "flash_fwd_tc")
     return out, lse
 
@@ -415,15 +434,16 @@ def _launch_fwd_hpack_tc(lib, stream, q, k, v, hp, causal, scale):
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     strides = _tma_strides(q, k, v, out)
     _raise_on(lib.flash_fwd_hpack_tc(
-        D, hp, _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), B, H, Sq,
-        k.shape[1], int(causal), float(scale),
+        _DTYPE_CODES[q.dtype], D, hp, _ptr(q), _ptr(k), _ptr(v),
+        _ptr(out), _ptr(lse), B, H, Sq, k.shape[1], int(causal),
+        float(scale),
         ctypes.cast(strides, ctypes.c_void_p), stream), "flash_fwd_hpack_tc")
     return out, lse
 
 
 def _launch_bwd_fused(lib, stream, q, k, v, out, lse, dout, causal, q_seg,
                       k_seg, scale):
-    """The pre-pass, the sweep and (bf16) the dq epilogue; returns
+    """The pre-pass, the sweep and (bf16, fp16) the dq epilogue; returns
     ``(dq, dk, dv)``.  For fp32 the workspace is dq itself."""
     B, Sq, H, D = q.shape
     dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
@@ -455,7 +475,8 @@ def flash_fwd(q, k, v, causal, q_seg=None, k_seg=None, scale=None):
     ``causal`` masks key positions after the query position (row-aligned
     at 0, so it needs ``Sq == Sk``); ``q_seg``/``k_seg`` int32 ``[B, Sq]``
     / ``[B, Sk]`` let a query see only keys of its own segment.  On the
-    card bf16 runs the tensor-core kernel, fp32 the CUDA-core one."""
+    card bf16 and fp16 at head dim 64 or 128 run the tensor-core kernel;
+    fp32, and head dims 16 and 32 in every dtype, the CUDA-core one."""
     _check(q, k, v, q_seg, k_seg)
     scale = _scale(q, scale)
     if q.device.type == "cpu":
@@ -470,7 +491,7 @@ def flash_fwd(q, k, v, causal, q_seg=None, k_seg=None, scale=None):
         return (torch.zeros(q.shape, dtype=q.dtype, device=q.device),
                 torch.full((q.shape[0], q.shape[2], q.shape[1]), LSE_FLOOR,
                            device=q.device))
-    tc = q.dtype == torch.bfloat16
+    tc = _is_tc(q)
     if tc:
         _tc_ready(q, k, v)
     lib = _tc_kernel() if tc else _kernel()
@@ -540,9 +561,10 @@ def flash_fwd_hpack(q, k, v, hp, causal, scale=None):
     flattened ``B*H`` per CTA (the JAX package's head-packed forward; no
     segment ids).  ``B*H`` must divide by ``hp``; heads are consecutive
     along ``B*H``, so with an odd ``H`` a CTA's heads straddle two
-    batches.  The kernel is built for ``hp`` in :data:`HPACK_HEADS` at
-    head dim 64; other values raise ``NotImplementedError`` on the card.
-    The plain version is :func:`flash_attention_reference`."""
+    batches.  The kernels are built for ``hp`` in :data:`HPACK_HEADS` at
+    head dims :data:`HPACK_HEAD_DIMS` (the tensor-core body at 64, in
+    bf16 and fp16); other values raise ``NotImplementedError`` on the
+    card.  The plain version is :func:`flash_attention_reference`."""
     _check(q, k, v, None, None)
     hp = int(hp)
     if hp < 1 or (q.shape[0] * q.shape[2]) % hp:
@@ -554,17 +576,17 @@ def flash_fwd_hpack(q, k, v, hp, causal, scale=None):
         with torch.no_grad():
             return flash_attention_reference(q, k, v, causal, scale=scale)
     _kernel_ready(q)
-    if hp not in HPACK_HEADS or q.shape[-1] != HPACK_HEAD_DIM:
+    if hp not in HPACK_HEADS or q.shape[-1] not in HPACK_HEAD_DIMS:
         raise NotImplementedError(
-            f"flash_fwd_hpack's kernel is built for hp in {HPACK_HEADS} at "
-            f"head dim {HPACK_HEAD_DIM}, got hp={hp}, head dim "
+            f"flash_fwd_hpack's kernels are built for hp in {HPACK_HEADS} "
+            f"at head dims {HPACK_HEAD_DIMS}, got hp={hp}, head dim "
             f"{q.shape[-1]}")
     q, k, v = _rows(q), _rows(k), _rows(v)
     if _empty(q, k):
         return (torch.zeros(q.shape, dtype=q.dtype, device=q.device),
                 torch.full((q.shape[0], q.shape[2], q.shape[1]), LSE_FLOOR,
                            device=q.device))
-    tc = q.dtype == torch.bfloat16
+    tc = _is_tc(q, (64,))
     if tc:
         _tc_ready(q, k, v)
     lib = _tc_kernel() if tc else _kernel()
@@ -580,9 +602,10 @@ def _cuda_core_fwd(q, k, v, causal, q_seg=None, k_seg=None, scale=None,
                    hp=1):
     """The CUDA-core forward of ``csrc/flash_attention.cu`` in any dtype
     it takes (``flash_fwd_hpack``'s kernel when ``hp > 1``): the design
-    the tensor-core kernel replaced for bf16, kept for comparison on the
-    card.  No wrapper calls it; its launches count in
-    ``_cuda_core_fwd.launches``, not in the wrappers'."""
+    the tensor-core kernel replaced for bf16 and fp16 at head dims 64
+    and 128, kept for comparison on the card.  No wrapper calls it; its
+    launches count in ``_cuda_core_fwd.launches``, not in the
+    wrappers'."""
     _check(q, k, v, q_seg, k_seg)
     _kernel_ready(q)
     q, k, v = _rows(q), _rows(k), _rows(v)
@@ -603,8 +626,9 @@ def flash_bwd_fused(q, k, v, out, lse, dout, causal, q_seg=None, k_seg=None,
                     scale=None):
     """Gradients of q, k and v in one sweep: ``(dq, dk, dv)``.  Three
     launches: the pre-pass (delta, zeroed dq workspace), the sweep (one
-    CTA per k tile; dq through fp32 atomics) and, for bf16, the dq
-    epilogue; the helpers count in ``flash_bwd_fused.helper_launches``.
+    CTA per k tile; dq through fp32 atomics) and, for bf16 and fp16, the
+    dq epilogue; the helpers count in
+    ``flash_bwd_fused.helper_launches``.
     dk and dv are the same bits on every run; dq's atomic sums may
     differ by a few fp32 ulps of its magnitude from run to run."""
     _check(q, k, v, q_seg, k_seg, extra=(out, dout))

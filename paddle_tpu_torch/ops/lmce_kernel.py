@@ -2,9 +2,11 @@
 wrappers, their plain versions, their launch counts and the autograd
 function around them (counterpart of ``paddle_tpu/ops/pallas_lmce.py``).
 
-Three kernels in ``csrc/lmce.cu`` compute the per-token cross-entropy
-of ``softmax(h @ w.T)`` against ``labels`` without writing the
-``[N, V]`` logits to memory:
+Three kernels in ``csrc/lmce.cu`` (fp32 FMAs on the CUDA cores), the two
+backward ones also in ``csrc/lmce_sm90.cu`` (bf16 and fp16 on the tensor
+cores, ``wgmma`` fed by TMA), compute the per-token cross-entropy of
+``softmax(h @ w.T)`` against ``labels`` without writing the ``[N, V]``
+logits to memory:
 
 - :func:`lmce_fwd` -> ``(loss, lse)``, both fp32 ``[N]``;
 - :func:`lmce_bwd_dh` -> ``dh`` ``[N, D]`` in ``h``'s dtype;
@@ -20,12 +22,19 @@ product, with every sum in fp32.
 
 On a CUDA tensor a wrapper launches its kernel or raises (a build
 failure raises :class:`~paddle_tpu_torch._build.KernelBuildError`); the
-kernels take fp32 or bf16 (both operands alike) with ``D`` a positive
-multiple of 8 up to :data:`MAX_D`, and any other ``D`` raises
-``NotImplementedError``.  On a CPU tensor it runs its plain version,
-which repeats the kernel's arithmetic with whole-tensor ops (and so
-materialises the logits).  Each launch adds one to
-``<wrapper>.launches``; each plain run adds one to
+kernels take fp32, bf16 or fp16 (both operands alike) with ``D`` a
+positive multiple of 8 up to :data:`MAX_D`, and any other ``D`` raises
+``NotImplementedError``.  The backward routes by dtype before any
+launch: bf16 and fp16 launch the tensor-core entries
+(``lmce_bwd_dh_tc`` / ``lmce_bwd_dw_tc``), fp32 the CUDA-core ones
+(TF32 would break the fp32 parity gates).  TMA reads h and w from the
+wrapper's contiguous, 16-byte-aligned copies (D a multiple of 8 is
+TMA's 16-byte row stride at 2 bytes an element).  Neither body falls
+back to the other.  On a CPU tensor a wrapper runs
+its plain version, which repeats the kernel's arithmetic with
+whole-tensor ops (and so materialises the logits).  Each launch adds
+one to ``<wrapper>.launches`` and, for the tensor-core body, to
+``<wrapper>.tc_launches``; each plain run adds one to
 ``<wrapper>.plain_calls``.
 """
 
@@ -38,13 +47,18 @@ import torch
 from .. import _build
 
 KERNEL_NAME = "lmce"
+TC_KERNEL_NAME = "lmce_sm90"
 #: start of the running max, and the picked logit of an unmatched label
 NEG = -1e30
 #: denominator guard of the log-sum-exp
 TINY = 1e-30
 MAX_D = 65536
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_TC_DTYPES = (torch.bfloat16, torch.float16)
+_TC_ERRORS = {-1: "the driver has no cuTensorMapEncodeTiled",
+              -2: "the driver refused a tensor map"}
 _lib = None
+_tc_lib = None
 
 
 def bind(lib):
@@ -59,11 +73,28 @@ def bind(lib):
     return lib
 
 
+def bind_tc(lib):
+    """The same for the tensor-core backward's library
+    (``csrc/lmce_sm90.cu``, bf16 and fp16)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.lmce_bwd_dh_tc, lib.lmce_bwd_dw_tc):
+        fn.argtypes = [i] + [p] * 6 + [i] * 3 + [p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def _kernel():
     global _lib
     if _lib is None:
         _lib = bind(_build.load(KERNEL_NAME))
     return _lib
+
+
+def _tc_kernel():
+    global _tc_lib
+    if _tc_lib is None:
+        _tc_lib = bind_tc(_build.load(TC_KERNEL_NAME))
+    return _tc_lib
 
 
 # ---------------------------------------------------------------------------
@@ -141,18 +172,21 @@ def _check(h, w, labels, rows=()):
 def _kernel_ready(h):
     """The CUDA path's own limits (the plain version takes anything)."""
     if h.dtype not in _DTYPE_CODES:
-        raise TypeError(f"the lmce kernels take float32 or bfloat16, got "
-                        f"{h.dtype}")
+        raise TypeError(f"the lmce kernels take float32, bfloat16 or "
+                        f"float16, got {h.dtype}")
     d = h.shape[1]
-    if d <= 0 or d % 8 or d > MAX_D:
+    if d <= 0 or d > MAX_D:
         raise NotImplementedError(
-            f"the lmce kernels take D a positive multiple of 8 up to "
-            f"{MAX_D}, got {d}")
+            f"the lmce kernels take D from 1 to {MAX_D}, got {d}")
+    if d % 8:
+        raise NotImplementedError(
+            f"the lmce kernels take D a positive multiple of 8 (8-element "
+            f"loads; for 16-bit operands TMA's 16-byte row stride), got {d}")
 
 
 def _aligned(t):
-    """``t`` contiguous with a 16-byte-aligned start (the kernels load
-    8 elements at a time)."""
+    """``t`` contiguous with a 16-byte-aligned start (the CUDA-core
+    kernels load 8 elements at a time; TMA needs the aligned base)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -166,6 +200,8 @@ def _stream(t):
 
 
 def _raise_on(err, name):
+    if err in _TC_ERRORS:
+        raise RuntimeError(f"{name} kernel launch failed: {_TC_ERRORS[err]}")
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
@@ -182,7 +218,7 @@ def _launch_fwd(lib, stream, h, w, labels):
 
 def _launch_bwd(lib, stream, which, h, w, labels, lse, g):
     N, D = h.shape
-    like = h if which == "lmce_bwd_dh" else w
+    like = h if which.startswith("lmce_bwd_dh") else w
     grad = torch.empty(like.shape, dtype=like.dtype, device=like.device)
     _raise_on(getattr(lib, which)(
         _DTYPE_CODES[h.dtype], _ptr(h), _ptr(w), _ptr(labels), _ptr(lse),
@@ -196,6 +232,14 @@ def _launch_bwd_dh(lib, stream, h, w, labels, lse, g):
 
 def _launch_bwd_dw(lib, stream, h, w, labels, lse, g):
     return _launch_bwd(lib, stream, "lmce_bwd_dw", h, w, labels, lse, g)
+
+
+def _launch_bwd_dh_tc(lib, stream, h, w, labels, lse, g):
+    return _launch_bwd(lib, stream, "lmce_bwd_dh_tc", h, w, labels, lse, g)
+
+
+def _launch_bwd_dw_tc(lib, stream, h, w, labels, lse, g):
+    return _launch_bwd(lib, stream, "lmce_bwd_dw_tc", h, w, labels, lse, g)
 
 
 def lmce_fwd(h, w, labels):
@@ -219,54 +263,84 @@ def lmce_fwd(h, w, labels):
     return res
 
 
-def _backward(wrapper, launch, plain, h, w, labels, lse, g):
+def _backward(wrapper, plain, h, w, labels, lse, g, tc=None):
+    """``tc`` None routes by dtype (the wrappers); True or False forces
+    a body (:func:`_cuda_core_bwd`)."""
     _check(h, w, labels, rows=(("lse", lse), ("g", g)))
     if h.device.type == "cpu":
         wrapper.plain_calls += 1
         with torch.no_grad():
             return plain(h, w, labels, lse, g)
+    if tc is None:
+        tc = h.dtype in _TC_DTYPES
     _kernel_ready(h)
-    out_like = h if launch is _launch_bwd_dh else w
+    dh = plain is lmce_bwd_dh_reference
+    out_like = h if dh else w
     if h.shape[0] == 0:
         return torch.zeros(out_like.shape, dtype=out_like.dtype,
                            device=out_like.device)
     h, w = _aligned(h), _aligned(w)
+    if tc:
+        launch = _launch_bwd_dh_tc if dh else _launch_bwd_dw_tc
+    else:
+        launch = _launch_bwd_dh if dh else _launch_bwd_dw
     labels = labels.to(torch.int32).contiguous()
     lse = lse.to(torch.float32).contiguous()
     g = g.to(torch.float32).contiguous()
-    lib = _kernel()
+    lib = _tc_kernel() if tc else _kernel()
     with torch.cuda.device(h.device):
         res = launch(lib, _stream(h), h, w, labels, lse, g)
     wrapper.launches += 1
+    if wrapper in TC_WRAPPERS:
+        wrapper.tc_launches += tc
     return res
 
 
 def lmce_bwd_dh(h, w, labels, lse, g):
     """Gradient of ``sum(g * loss)`` in ``h``: ``[N, D]`` in ``h``'s
-    dtype, from the forward's ``lse`` and the cotangent ``g`` ``[N]``."""
-    return _backward(lmce_bwd_dh, _launch_bwd_dh, lmce_bwd_dh_reference, h,
-                     w, labels, lse, g)
+    dtype, from the forward's ``lse`` and the cotangent ``g`` ``[N]``.
+    On the card bf16 and fp16 run the tensor-core kernel, fp32 the
+    CUDA-core one."""
+    return _backward(lmce_bwd_dh, lmce_bwd_dh_reference, h, w, labels, lse,
+                     g)
 
 
 def lmce_bwd_dw(h, w, labels, lse, g):
     """Gradient of ``sum(g * loss)`` in ``w``: ``[V, D]`` in ``w``'s
-    dtype."""
-    return _backward(lmce_bwd_dw, _launch_bwd_dw, lmce_bwd_dw_reference, h,
-                     w, labels, lse, g)
+    dtype; routed as :func:`lmce_bwd_dh`."""
+    return _backward(lmce_bwd_dw, lmce_bwd_dw_reference, h, w, labels, lse,
+                     g)
+
+
+def _cuda_core_bwd(which, h, w, labels, lse, g):
+    """The CUDA-core backward of ``csrc/lmce.cu`` (``which`` is
+    ``"dh"`` or ``"dw"``) in any dtype it takes: the design the
+    tensor-core kernels replaced for bf16 and fp16, kept for comparison
+    on the card.  No wrapper calls it; its launches count in
+    ``_cuda_core_bwd.launches``, not in the wrappers'."""
+    plain = lmce_bwd_dh_reference if which == "dh" else lmce_bwd_dw_reference
+    return _backward(_cuda_core_bwd, plain, h, w, labels, lse, g, tc=False)
 
 
 WRAPPERS = (lmce_fwd, lmce_bwd_dh, lmce_bwd_dw)
-for _fn in WRAPPERS:
-    _fn.launches = 0
-    _fn.plain_calls = 0
-del _fn
+#: the wrappers with a tensor-core body (``tc_launches``)
+TC_WRAPPERS = (lmce_bwd_dh, lmce_bwd_dw)
 
 
 def reset_counts():
-    """Set every wrapper's ``launches`` and ``plain_calls`` to 0."""
+    """Set every wrapper's ``launches``, ``tc_launches`` and
+    ``plain_calls`` (and the CUDA-core comparison backward's launches)
+    to 0."""
     for fn in WRAPPERS:
         fn.launches = 0
         fn.plain_calls = 0
+    for fn in TC_WRAPPERS:
+        fn.tc_launches = 0
+    _cuda_core_bwd.launches = 0
+    _cuda_core_bwd.plain_calls = 0
+
+
+reset_counts()
 
 
 class FusedLinearCrossEntropy(torch.autograd.Function):

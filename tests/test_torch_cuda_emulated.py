@@ -15,7 +15,10 @@ memory model are the card's to check (``chip_smoke.py``).
 Tolerances: fp32 within 1e-5 x max(|ref|, 1) (the kernels sum in tiles,
 the plain version whole rows); bf16 within 2e-2 x max(|ref|, 1) of the
 plain version computed in fp32 on the same bf16 values (outputs round
-to 8 mantissa bits).  The module skips where no ``g++`` exists.
+to 8 mantissa bits); fp16 within 5e-3 x max(|ref|, 1) the same way
+(outputs, p and dS round to 11 bits).  The fp16 and head-dim 16 / 32
+cases hold those instantiations (``cuda_emu/cuda_fp16.h`` emulates the
+fp16 type).  The module skips where no ``g++`` exists.
 """
 
 import ctypes
@@ -37,6 +40,9 @@ import emulate  # noqa: E402
 
 FP32_TOL = 1e-5
 BF16_TOL = 2e-2
+FP16_TOL = 5e-3
+TOLS = {torch.float32: FP32_TOL, torch.bfloat16: BF16_TOL,
+        torch.float16: FP16_TOL}
 
 
 @pytest.fixture(scope="module")
@@ -86,6 +92,19 @@ FLASH_CASES = {
                         dtype=torch.bfloat16),
     "bf16 D=128 non-causal": dict(B=1, Sq=33, Sk=70, H=1, D=128,
                                   causal=False, dtype=torch.bfloat16),
+    "fp16 causal qkv views": dict(B=1, Sq=96, Sk=96, H=2, D=64,
+                                  causal=True, packed=True,
+                                  dtype=torch.float16),
+    "fp32 D=16 segments + masked row": dict(B=1, Sq=100, Sk=96, H=2, D=16,
+                                            causal=False, seg=True),
+    "fp16 D=16 causal ragged S=130": dict(B=1, Sq=130, Sk=130, H=2, D=16,
+                                          causal=True, dtype=torch.float16),
+    "bf16 D=32 non-causal Sq=70 Sk=150": dict(B=2, Sq=70, Sk=150, H=1,
+                                              D=32, causal=False,
+                                              dtype=torch.bfloat16),
+    "fp16 D=32 [B*H,S,D] layout": dict(B=2, Sq=65, Sk=65, H=2, D=32,
+                                       causal=True, bh=True,
+                                       dtype=torch.float16),
 }
 
 
@@ -126,7 +145,7 @@ def test_flash_kernels_match_plain(emu_libs, case):
                                             f32[3], causal, qs, ks)
     rdk, rdv = fk.flash_bwd_dkv_reference(*f32[:3], f32[3], lse, delta,
                                           causal, qs, ks)
-    tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+    tol = TOLS[dtype]
     for what, got, ref in (("out", out, rout), ("lse", lse, rlse),
                            ("delta", delta, rdelta), ("dq", dq, rdq),
                            ("dk", dk, rdk), ("dv", dv, rdv)):
@@ -175,6 +194,16 @@ BH_CASES = {
     "bf16 non-causal Sq=33 Sk=70 hp=4": dict(B=1, Sq=33, Sk=70, H=4,
                                              causal=False, hp=4,
                                              dtype=torch.bfloat16),
+    "fp16 causal S=96 hp=2": dict(B=1, Sq=96, Sk=96, H=2, causal=True,
+                                  hp=2, bh=True, dtype=torch.float16),
+    "fp32 D=16 odd H=3 hp=2": dict(B=2, Sq=65, Sk=65, H=3, D=16,
+                                   causal=True, hp=2),
+    "fp16 D=16 causal S=130 hp=2": dict(B=1, Sq=130, Sk=130, H=2, D=16,
+                                        causal=True, hp=2, bh=True,
+                                        dtype=torch.float16),
+    "bf16 D=32 non-causal Sq=33 Sk=70 hp=4": dict(B=1, Sq=33, Sk=70, H=4,
+                                                  D=32, causal=False, hp=4,
+                                                  dtype=torch.bfloat16),
 }
 
 
@@ -205,7 +234,7 @@ def test_bh_kernels_match_plain(emu_libs, case):
     c, q, k, v, g, qs, ks = _bh_inputs(case)
     lib, scale = emu_libs["flash_attention"], 1.0 / math.sqrt(q.shape[-1])
     causal, dtype = c["causal"], q.dtype
-    tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+    tol = TOLS[dtype]
     out, lse = fk._launch_fwd(lib, None, q, k, v, causal, qs, ks, scale)
     if "hp" in c:
         hout, hlse = fk._launch_fwd_hpack(lib, None, q, k, v, c["hp"],
@@ -260,12 +289,30 @@ def test_bh_entries_refuse_what_they_are_not_built_for(emu_libs):
     q = torch.zeros(1, 8, 2, 128)
     with pytest.raises(RuntimeError, match="flash_fwd_hpack"):
         fk._launch_fwd_hpack(lib, None, q, q, q, 2, True, 0.125)  # D = 128
+    q = torch.zeros(1, 8, 2, 48)
+    with pytest.raises(RuntimeError, match="flash_fwd"):
+        fk._launch_fwd(lib, None, q, q, q, True, None, None, 0.125)  # D = 48
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, FP32_TOL),
                                        (torch.bfloat16, BF16_TOL)])
 def test_paged_attention_kernel_matches_plain(emu_libs, dtype, tol):
-    B, H, Dh, BS, NB, MAXNB = 4, 2, 64, 16, 16, 4
+    _paged_matches_plain(emu_libs, dtype, tol, 64)
+
+
+@pytest.mark.parametrize("dtype,Dh", [
+    (torch.float16, 64), (torch.float32, 16), (torch.bfloat16, 16),
+    (torch.float16, 48),
+])
+def test_paged_attention_kernel_fp16_and_small_head_dims(emu_libs, dtype,
+                                                         Dh):
+    """Dh a multiple of 32 runs a warp per row; Dh = 16 (gpt_tiny's) and
+    48 half a warp, two token tiles per warp."""
+    _paged_matches_plain(emu_libs, dtype, TOLS[dtype], Dh)
+
+
+def _paged_matches_plain(emu_libs, dtype, tol, Dh):
+    B, H, BS, NB, MAXNB = 4, 2, 16, 16, 4
     lengths_l = [0, 1, 17, 64]
     rng = np.random.default_rng(3)
     table = np.zeros((B, MAXNB), dtype=np.int32)
@@ -302,6 +349,9 @@ LMCE_CASES = {
     "bf16 D=200": dict(N=33, V=129, D=200, dtype=torch.bfloat16),
     "bf16 D=768 ignored labels": dict(N=40, V=260, D=768, ignore=True,
                                       dtype=torch.bfloat16),
+    "fp16 D=64 ignored labels": dict(N=64, V=200, D=64, ignore=True,
+                                     dtype=torch.float16),
+    "fp16 D=200": dict(N=33, V=129, D=200, dtype=torch.float16),
 }
 
 
@@ -331,7 +381,7 @@ def test_lmce_kernels_match_plain(lmce_lib, case):
     rloss, rlse = lk.lmce_reference(h, w, labels)
     rdh = lk.lmce_bwd_dh_reference(h, w, labels, lse, g)
     rdw = lk.lmce_bwd_dw_reference(h, w, labels, lse, g)
-    tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+    tol = TOLS[dtype]
     for what, got, ref in (("loss", loss, rloss), ("lse", lse, rlse),
                            ("dh", dh, rdh), ("dw", dw, rdw)):
         _close(got, ref, tol, what)

@@ -195,7 +195,7 @@ def test_cuda_wrapper_propagates_a_build_failure(monkeypatch):
 def test_cuda_wrapper_rejects_other_head_dims(monkeypatch):
     monkeypatch.setattr(torch.Tensor, "device",
                         property(lambda self: torch.device("cuda", 0)))
-    q = torch.empty((1, 8, 1, 32))
+    q = torch.empty((1, 8, 1, 48))
     with pytest.raises(NotImplementedError, match="head dim"):
         fk.flash_fwd(q, q, q, True)
 

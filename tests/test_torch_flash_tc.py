@@ -17,7 +17,8 @@ differ by one bf16 ulp (measured: at most 3.9e-3, on average 2e-5 to
 ``chip_smoke.py``'s bf16 checks and averages 1.7e-4 on the causal case.
 
 The routing tests run on the CPU with the launch helpers replaced: a
-bf16 tensor on the card goes to the tensor-core entries, fp32 to the
+bf16 or fp16 tensor on the card at head dim 64 or 128 goes to the
+tensor-core entries, fp32 and head dims 16 and 32 (every dtype) to the
 CUDA-core ones, a call that breaks TMA's 16-byte rule raises before any
 launch, and nothing falls back.  The ``cuda``-marked tests need a card
 (the kernel is inline PTX with ``wgmma`` and TMA, which the CPU
@@ -201,6 +202,44 @@ def test_bf16_runs_the_tensor_core_body_and_fp32_the_cuda_cores(fake_card):
     assert fk._cuda_core_fwd.launches == 0
 
 
+def test_fp16_runs_the_tensor_core_body(fake_card):
+    """fp16 takes the tensor-core forward at head dims 64 and 128 (the
+    ``.f16`` wgmma form), as bf16 does."""
+    fk.flash_fwd(*_qkv(torch.float16), True)
+    fk.flash_fwd(*_qkv(torch.float16, (1, 8, 2, 128)), False)
+    fk.flash_fwd_hpack(*_qkv(torch.float16, (2, 8, 1, 64)), 2, False)
+    assert fake_card == [("_launch_fwd_tc", "flash_fwd_sm90")] * 2 + [
+        ("_launch_fwd_hpack_tc", "flash_fwd_sm90")]
+    assert (fk.flash_fwd.launches, fk.flash_fwd.tc_launches) == (2, 2)
+    assert (fk.flash_fwd_hpack.launches,
+            fk.flash_fwd_hpack.tc_launches) == (1, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("d", [16, 32])
+def test_small_head_dims_count_on_the_cuda_core_forward(fake_card, dtype, d):
+    """Below head dim 64 every dtype runs the CUDA-core forward (and its
+    head-packed form), chosen by head dim before any launch: the
+    launches count, the tensor-core counts stay 0, and nothing reaches
+    the tensor-core library."""
+    fk.flash_fwd(*_qkv(dtype, (1, 8, 2, d)), True)
+    fk.flash_fwd_hpack(*_qkv(dtype, (4, 8, 1, d)), 4, True)
+    assert fake_card == [("_launch_fwd", "flash_attention"),
+                         ("_launch_fwd_hpack", "flash_attention")]
+    for fn in fk.TC_WRAPPERS:
+        assert (fn.launches, fn.tc_launches, fn.plain_calls) == (1, 0, 0)
+
+
+def test_other_head_dims_still_raise_before_any_launch(fake_card):
+    for d in (8, 48, 96, 256):
+        with pytest.raises(NotImplementedError, match="head dim"):
+            fk.flash_fwd(*_qkv(torch.bfloat16, (1, 8, 2, d)), True)
+    with pytest.raises(NotImplementedError, match="flash_fwd_hpack"):
+        fk.flash_fwd_hpack(*_qkv(torch.float16, (2, 8, 1, 128)), 2, True)
+    assert fake_card == []
+
+
 def _strided(dtype, seq_stride):
     """``[1, 8, 2, 64]`` whose sequence stride is ``seq_stride``."""
     base = torch.zeros(8 * seq_stride, dtype=dtype)
@@ -278,12 +317,22 @@ CARD_SHAPES = {
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(CARD_SHAPES))
 def test_cuda_tc_kernel_matches_plain(cuda_device, name):
+    _tc_matches_plain(cuda_device, name, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CARD_SHAPES))
+def test_cuda_tc_kernel_matches_plain_fp16(cuda_device, name):
+    """The ``.f16`` form of the same kernel body."""
+    _tc_matches_plain(cuda_device, name, torch.float16)
+
+
+def _tc_matches_plain(cuda_device, name, dtype):
     (B, Sq, H, D, Sk), causal, kind = CARD_SHAPES[name]
     gen = torch.Generator(device=cuda_device).manual_seed(0)
 
     def rnd(*s):
-        return torch.randn(s, generator=gen,
-                           device=cuda_device).to(torch.bfloat16)
+        return torch.randn(s, generator=gen, device=cuda_device).to(dtype)
 
     if kind == "qkv":
         qkv = rnd(B, Sq, 3, H, D)

@@ -43,7 +43,8 @@ def _port_sources():
         for f in files:
             if f.endswith((".py", ".cu", ".cuh")):
                 yield os.path.join(root, f)
-    yield os.path.join(REPO, "chip_smoke.py")
+    for script in ("chip_smoke.py", "chip_ab.py", "chip_lmce_ablation.py"):
+        yield os.path.join(REPO, script)
 
 
 def test_no_source_names_jax_or_the_jax_package():

@@ -228,7 +228,7 @@ def test_cuda_wrapper_propagates_a_build_failure(monkeypatch):
 
 @pytest.mark.parametrize("d,dtype,exc", [
     (60, torch.float32, NotImplementedError),
-    (64, torch.float16, TypeError),
+    (64, torch.float64, TypeError),
 ])
 def test_cuda_wrapper_rejects_what_the_kernel_cannot_take(monkeypatch, d,
                                                           dtype, exc):
