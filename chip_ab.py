@@ -4,16 +4,21 @@ time of two checkouts of the port on one card, in turns.
     python3 chip_ab.py PARENT_DIR [CHANGE_DIR] [--seed 0]
         [--phases train,serve fp32,...] [--rounds 1]
 
-Runs phases of the ``chip_smoke.py`` found in each checkout: the four
-training phases (``train``, ``train fused lmce``, ``train bh``, ``train
-ernie bh``: GPT-2-small B=8 S=1024 default, with the fused lm-head
-cross-entropy and under the ``[B*H, S, D]`` knobs, and ERNIE-3.0-base
-B=16 S=512 under the knobs, bf16 O2 ``Model.fit``), the two serving
-phases (``serve fp32``, ``serve bf16``: GPT-2-small through
-``LLMServer``, 12 requests) and ``k1``: the paged-attention kernel's
-device time per launch from ``torch.profiler`` (200 launches at
-``[kernel]``'s shapes, fp32 and bf16, the mean over the launches the
-profiler kept; host work not counted).
+Runs phases of the ``chip_smoke.py`` found in each checkout: the five
+training phases (``train``, ``train fp16``, ``train fused lmce``,
+``train bh``, ``train ernie bh``: GPT-2-small B=8 S=1024 default, in
+fp16, with the fused lm-head cross-entropy and under the ``[B*H, S, D]``
+knobs, and ERNIE-3.0-base B=16 S=512 under the knobs, bf16 O2 unless
+named, ``Model.fit``), the two serving phases (``serve fp32``, ``serve
+bf16``: GPT-2-small through ``LLMServer``, 12 requests), ``k1``: the
+paged-attention kernel's device time per launch from ``torch.profiler``
+(200 launches at ``[kernel]``'s shapes, fp32 and bf16, the mean over the
+launches the profiler kept; host work not counted), and ``bwd``: the
+split flash backward's device time per ``flash_bwd_dq`` +
+``flash_bwd_dkv`` pair from ``torch.profiler`` (every kernel the two
+wrappers launch, 20 pairs at the training shape B=8 S=1024 H=12 D=64
+causal on ``[B, S, H, D]`` views, bf16 and fp16; host work not
+counted).
 ``--phases`` picks a comma-separated subset (default: the training and
 serving phases); ``--profile`` runs the serving phases under
 ``torch.profiler`` and adds their device-busy ms and top kernels (the
@@ -35,12 +40,15 @@ import os
 import subprocess
 import sys
 
-PHASES = ("train", "train fused lmce", "train bh", "train ernie bh")
+PHASES = ("train", "train fp16", "train fused lmce", "train bh",
+          "train ernie bh")
 SERVING = ("serve fp32", "serve bf16")
 K1 = ("k1 fp32", "k1 bf16")
+BWD = ("bwd bf16", "bwd fp16")
 UNITS = {**{p: "step_ms" for p in PHASES},
          **{p: "tokens_per_s" for p in SERVING},
-         **{p: "device_us" for p in K1}}
+         **{p: "device_us" for p in K1},
+         **{p: "device_ms" for p in BWD}}
 RUN = """
 import json, sys, torch
 sys.path.insert(0, {dir!r})
@@ -88,6 +96,35 @@ def k1_device_us(dtype):
     return total / count
 
 
+def bwd_device_ms(dtype):
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.ops import flash_attention_kernel as fk
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    qkv = torch.randn((8, 1024, 3, 12, 64), generator=gen,
+                      device=dev).to(dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    g = torch.randn((8, 1024, 12, 64), generator=gen, device=dev).to(dtype)
+    out, lse = fk.flash_fwd(q, k, v, True)
+
+    def pair():
+        _, delta = fk.flash_bwd_dq(q, k, v, out, lse, g, True)
+        fk.flash_bwd_dkv(q, k, v, g, lse, delta, True)
+
+    for _ in range(5):
+        pair()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            pair()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0))
+                for e in prof.key_averages())
+    return total / 20 / 1e3
+
+
 def serve(dtype, dn):
     if not {profile}:
         return c.serving_phase(torch, seed, dtype, dn, False), {{}}
@@ -103,6 +140,9 @@ def serve(dtype, dn):
                "top": [(k[:80], us / 1e3, n) for us, n, k in ev[:6]]}}
 
 
+for dn, dtype in (("bf16", torch.bfloat16), ("fp16", torch.float16)):
+    if "bwd " + dn in want:
+        out["bwd " + dn] = {{"device_ms": bwd_device_ms(dtype)}}
 for dn, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
     if "k1 " + dn in want:
         out["k1 " + dn] = {{"device_us": k1_device_us(dtype)}}
@@ -110,8 +150,10 @@ for dn, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         r, prof = serve(dtype, dn)
         out["serve " + dn] = {{"tokens_per_s": r["tokens_per_s"], **prof}}
 res = {{}}
-if set(want) & {{"train", "train fused lmce", "train bh"}}:
+if set(want) & {{"train", "train fp16", "train fused lmce", "train bh"}}:
     t = res["train"] = c.train_phase(torch, seed)
+    if "train fp16" in want:
+        res["train fp16"] = c.fp16_train_phase(torch, seed, t)
     if "train fused lmce" in want:
         res["train fused lmce"] = c.fused_train_phase(torch, seed, t)
     if "train bh" in want:
@@ -176,7 +218,7 @@ def main(argv=None) -> int:
             flush=True)
         for p in want:
             r = runs[-1][1][p]
-            if "device_ms" in r:
+            if "top" in r:
                 print(f"[ab profile] {side} {p}: device busy "
                       f"{r['device_ms']:.3f} ms; top kernels (ms, calls) "
                       + "; ".join(f"{k} {ms:.3f} {n}" for k, ms, n in
@@ -189,7 +231,7 @@ def main(argv=None) -> int:
         summary[p] = {f"parent_{unit}": mean["parent"],
                       f"change_{unit}": mean["change"],
                       "runs": [(s, r[p][unit]) for s, r in runs]}
-        if all("device_ms" in r[p] for _, r in runs):
+        if all("top" in r[p] for _, r in runs):
             summary[p]["device_ms"] = [(s, r[p]["device_ms"])
                                        for s, r in runs]
         if unit == "step_ms":

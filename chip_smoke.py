@@ -96,22 +96,39 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
     beside the CUDA-core forward they replaced for bf16, the plain
     version and, as a yardstick only, SDPA, with the bound and
     TFLOP/s;
-12. ``[train bh]`` repeats 7 with ``PADDLE_TORCH_FLASH_NO_PACKED=1``,
+12. ``[flash tc bwd]`` holds the tensor-core split backward of bf16
+    and fp16 ``flash_bwd_dq`` and ``flash_bwd_dkv``
+    (``csrc/flash_bwd_sm90.cu``) against the plain versions (dS and p
+    rounded to the input dtype, as the TPU kernels round them) at GPT's
+    ``[8, 1024, 12, 64]`` views causal, ``[B*H, S, D]`` with segment ids
+    and a fully-masked row (dq exactly 0), S=1000, non-causal Sq=384
+    Sk=640 and D=128, element by element (:func:`flash_bwd_gate`: each
+    element within rtol |ref| plus the bound of rounding each term once
+    and of the fp32 sums' order, and at least ``TC_BWD_SAME_MIN`` of the
+    elements equal to the plain version's in the 16-bit dtype), delta
+    within its fp32 bound, two runs bitwise equal; at the main shape a
+    backward with delta = 0 and one with dS and p unrounded must fail
+    the same gate; counts the ``HGMMA`` instructions, prints ptxas's
+    registers and spills (none allowed); times the pair at the main
+    shape by CUDA events and by device time (``torch.profiler``) beside
+    the CUDA-core pair it replaced for 16-bit inputs, the plain
+    versions and, as a yardstick only, SDPA's backward alone;
+13. ``[train bh]`` repeats 7 with ``PADDLE_TORCH_FLASH_NO_PACKED=1``,
     ``HEADPACK=2`` and ``FUSED_BWD=1``: the two kernels launched 12
     times per step (the fused backward's pre-pass and bf16 epilogue as
     often), the default path's three flash kernels never, no plain
     call, the first loss within 1e-2 relative of 7's;
-13. ``[train ernie bh]`` trains ERNIE-3.0-base MLM (12 layers, hidden
+14. ``[train ernie bh]`` trains ERNIE-3.0-base MLM (12 layers, hidden
     768, 12 heads, vocab 40000, random weights from ``--seed``) at
     B=16, S=512, bf16 O2, AdamW, dropout 0, under the same knobs,
     labels = the tokens on 15% of positions and -100 elsewhere, with
-    the checks of 12 (the first loss against the default path's loss
+    the checks of 13 (the first loss against the default path's loss
     on the same weights and batch) and a profile;
-14. ``[train fp32 parity bh]`` trains a small GPT and a small BERT
+15. ``[train fp32 parity bh]`` trains a small GPT and a small BERT
     (2 layers, hidden 128, head dim 64, S=256) for three fp32 steps on
     the card and on the CPU under the knobs and compares the losses
     (fp32 never launches the tensor-core forward);
-15. ``[lmce tc]`` holds the tensor-core LMCE backward
+16. ``[lmce tc]`` holds the tensor-core LMCE backward
     (``csrc/lmce_sm90.cu``, ``wgmma`` fed by TMA) against its plain
     versions (dL rounded to the operand dtype; each element within
     rtol |ref| + (u |dL| + eta) @ |B|: rtol one ulp of the value, 1e-2
@@ -124,26 +141,27 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
     prints ptxas's registers and spills; times both kernels at the main
     shape beside the CUDA-core backward they replaced for 16-bit
     operands and the plain versions, with the bound and TFLOP/s;
-16. ``[fp16]`` holds every kernel against its plain version in fp16
+17. ``[fp16]`` holds every kernel against its plain version in fp16
     (within 1e-2 x max(|ref|, 1)): K1, the flash forward (tensor-core
     and CUDA-core), dq/dkv, the fused backward, the head-packed forward
     (both bodies) at ``[train fp16]``'s views (B=8, S=1024, H=12,
     D=64), and the three LMCE kernels (the backward's both bodies held
-    element by element, as in 15);
-17. ``[headdim]`` holds the flash kernels (forward, split and fused
+    element by element, as in 16);
+18. ``[headdim]`` holds the flash kernels (forward, split and fused
     backward, head-packed forward at hp 2 and 4) at head dims 16 and 32
     in fp32, bf16 and fp16, causal and not (no tensor-core launch: below
     64 the CUDA-core forward runs), and K1 at Dh=16 (half a warp per
     row), each against its plain version;
-18. prints the kernels' JSON line, the card line, and last the line
+19. prints the kernels' JSON line, the card line, and last the line
     ``{"ok": true, "device": {...}}``.
 
-In every training phase each 16-bit forward launch must be the
-tensor-core kernel's (``<wrapper>.tc_launches`` equal to ``launches``:
-12 per step) and the CUDA-core forward, which the ``[flash tc]`` timings
-call through ``_cuda_core_fwd``, must not launch; likewise every 16-bit
-lmce backward launch is the tensor-core kernel's and
-``lmce_kernel._cuda_core_bwd`` never launches.
+In every training phase each 16-bit forward and split-backward launch
+must be the tensor-core kernel's (``<wrapper>.tc_launches`` equal to
+``launches``: 12 per step each) and the CUDA-core comparison entries,
+which the ``[flash tc]`` and ``[flash tc bwd]`` timings call through
+``_cuda_core_fwd`` and ``_cuda_core_flash_bwd``, must not launch;
+likewise every 16-bit lmce backward launch is the tensor-core kernel's
+and ``lmce_kernel._cuda_core_bwd`` never launches.
 
 Any failed check raises, so the script exits non-zero; without a card,
 or without the repository beside it, it exits non-zero before any
@@ -752,6 +770,363 @@ def flash_tc_phase(torch, seed, nvcc_log):
 
 
 # ---------------------------------------------------------------------------
+# the tensor-core split backward (csrc/flash_bwd_sm90.cu): 16-bit
+# flash_bwd_dq and flash_bwd_dkv
+# ---------------------------------------------------------------------------
+TC_BWD_SOURCE = "paddle_tpu_torch/csrc/flash_bwd_sm90.cu"
+# The 16-bit gradients are held element by element, in two parts.
+# (1) |got - ref| <= rtol |ref| + (u |X| + e_X + eta) @ |B|, where X is
+# the rounded factor of the product (dS for dq and dk, p for dv) and B
+# the other (K, Q, dO): the kernel and the plain version round the same
+# fp32 values to the output dtype (rtol: one ulp and margin, the LMCE
+# gate's LMCE_GRAD_RTOL), after rounding dS and p from fp32 values that differ slightly,
+# so a term may move by an ulp of X; u |X| bounds rounding every term
+# once (u half an ulp, eta half the subnormal spacing), and e_X the fp32
+# difference itself: S, dP and delta are sums of D products taken in
+# other orders (each within g = D eps32 of the sum of their |terms| for
+# the two sides together), and ex2 and exp differ by a few eps32, so
+#   e_p  = p (scale g |Q||K|^T + 4 eps32)
+#   e_dS = p scale (g (|dO||V|^T + sum|dO O|) + |dP - delta| (scale g
+#          |Q||K|^T + 4 eps32)),
+# which matters where dP - delta cancels (a row whose only key is
+# itself: dS = 0 up to those sums).
+# (2) That bound cannot tell a kernel that rounds dS from one that does
+# not: leaving the rounding out moves each sum by less than it.  What
+# tells them apart is how many elements come out the same: rounding the
+# same values, the two sides part only where a sum or a term straddles a
+# rounding boundary, so most elements are equal in the 16-bit dtype,
+# while a missing rounding moves a sum by a fraction of an ulp of its
+# own, and about half the elements change.  So at least
+# TC_BWD_SAME_MIN of the elements must be equal.  delta (fp32 sums of D
+# products in another order) is held within 2 D eps32 sum|dO O|.
+TC_BWD_SAME_MIN = {"bfloat16": 0.95, "float16": 0.9}
+
+
+def flash_bwd_terms(torch, fk, q, k, v, g, out, lse, delta, causal,
+                    qseg=None, kseg=None):
+    """The gate's spread ``(u |X| + e_X + eta) @ |B|`` of dq, dk and dv
+    (the comment above), from the plain versions' p and dS."""
+    scale = 1.0 / float(q.shape[-1]) ** 0.5
+    p, ds = fk._dsoftmax(q, k, v, g, lse, delta, causal, qseg, kseg, scale)
+    fi, eps32 = torch.finfo(q.dtype), torch.finfo(torch.float32).eps
+    u, eta, gam = fi.eps / 2, fi.tiny * fi.eps / 2, q.shape[-1] * eps32
+    qk = torch.einsum("bqhd,bkhd->bhqk", q.float().abs(), k.float().abs())
+    e_p = p * (qk.mul_(scale * gam).add_(4 * eps32))
+    del qk
+    dpv = torch.einsum("bqhd,bkhd->bhqk", g.float(), v.float())
+    dpd = (dpv - delta[..., None]).abs_()
+    gv = torch.einsum("bqhd,bkhd->bhqk", g.float().abs(), v.float().abs())
+    go = (g.float() * out.float()).abs().sum(-1).permute(0, 2, 1)
+    gv.add_(go[..., None])
+    e_ds = (gv.mul_(gam).mul_(p).add_(dpd.mul_(e_p))).mul_(scale)
+    del dpv, dpd, gv
+    x_ds = ds.abs_().mul_(u).add_(e_ds).add_(eta)
+    x_p = e_p.add_(p.abs().mul_(u)).add_(eta)
+    del ds, p, e_ds
+    return {
+        "dq": torch.einsum("bhqk,bkhd->bqhd", x_ds, k.float().abs()),
+        "dk": torch.einsum("bhqk,bqhd->bkhd", x_ds, q.float().abs()),
+        "dv": torch.einsum("bhqk,bqhd->bkhd", x_p, g.float().abs()),
+    }
+
+
+def flash_bwd_gate(torch, got, ref, spread):
+    """``(max abs error, ratio, share equal)`` of a 16-bit gradient:
+    ``ratio`` the largest ``|got - ref| / (rtol |ref| + spread)`` (part 1
+    passes at <= 1) and the share of elements equal in the dtype (part 2
+    passes at >= TC_BWD_SAME_MIN)."""
+    rtol = LMCE_GRAD_RTOL[str(ref.dtype).rsplit(".", 1)[-1]]
+    same = (got == ref).float().mean().item()
+    got, ref = got.float(), ref.float()
+    diff = (got - ref).abs()
+    ratio = torch.where(diff == 0, torch.zeros_like(diff),
+                        diff / (rtol * ref.abs() + spread)).max().item()
+    return diff.max().item(), ratio, same
+
+
+def flash_bwd_passes(dtype, ratio, same):
+    return ratio <= 1.0 and same >= TC_BWD_SAME_MIN[
+        str(dtype).rsplit(".", 1)[-1]]
+
+
+def tc_bwd_compare(torch, fk, tag, q, k, v, g, causal, qseg=None, kseg=None,
+                   controls=False):
+    """The tensor-core ``flash_bwd_dq`` + ``flash_bwd_dkv`` against their
+    plain versions on the same 16-bit values (the tensor-core forward's
+    out and lse), through :func:`flash_bwd_gate`; delta within 2 D eps32
+    sum|dO O|; a second run bitwise equal.  ``controls``: a backward
+    with delta = 0 and one with dS and p left unrounded must fail the
+    gate (their old-gate errors are printed beside).  Returns the max abs
+    errors, ratios and shares."""
+    before = (fk.flash_bwd_dq.tc_launches, fk.flash_bwd_dkv.tc_launches)
+    out, lse = fk.flash_fwd(q, k, v, causal, qseg, kseg)
+    dq, delta = fk.flash_bwd_dq(q, k, v, out, lse, g, causal, qseg, kseg)
+    dk, dv = fk.flash_bwd_dkv(q, k, v, g, lse, delta, causal, qseg, kseg)
+    again = (*fk.flash_bwd_dq(q, k, v, out, lse, g, causal, qseg, kseg),
+             *fk.flash_bwd_dkv(q, k, v, g, lse, delta, causal, qseg, kseg))
+    torch.cuda.synchronize()
+    check((fk.flash_bwd_dq.tc_launches, fk.flash_bwd_dkv.tc_launches)
+          == (before[0] + 2, before[1] + 2),
+          f"[flash tc bwd] {tag}: the tensor-core kernels did not launch")
+    got = {"dq": dq, "dk": dk, "dv": dv}
+    rdq, rdelta = fk.flash_bwd_dq_reference(q, k, v, out, lse, g, causal,
+                                            qseg, kseg)
+    rdk, rdv = fk.flash_bwd_dkv_reference(q, k, v, g, lse, delta, causal,
+                                          qseg, kseg)
+    ref = {"dq": rdq, "dk": rdk, "dv": rdv}
+    spread = flash_bwd_terms(torch, fk, q, k, v, g, out, lse, delta,
+                             causal, qseg, kseg)
+    errs, ratios, shares = {}, {}, {}
+    for name in ("dq", "dk", "dv"):
+        check(got[name].dtype == q.dtype
+              and bool(torch.isfinite(got[name].float()).all()),
+              f"[flash tc bwd] {tag}: {name} dtype {got[name].dtype} or not "
+              "finite")
+        errs[name], ratios[name], shares[name] = flash_bwd_gate(
+            torch, got[name], ref[name], spread[name])
+    d_bound = (2 * q.shape[-1] * torch.finfo(torch.float32).eps
+               * (g.float() * out.float()).abs().sum(-1).permute(0, 2, 1))
+    d_err = (delta - rdelta).abs()
+    errs["delta"] = d_err.max().item()
+    d_ratio = (d_err / d_bound.clamp_min(1e-30)).max().item()
+    same = all(torch.equal(a, b) for a, b in zip((dq, delta, dk, dv), again))
+    line = (f"[flash tc bwd] {tag}: max_abs_err " + " ".join(
+        f"{n}={e:.3e}" for n, e in errs.items()) + "; gate ratio " + " ".join(
+        f"{n}={r:.3e}" for n, r in ratios.items()) + " (<= 1); equal " +
+        " ".join(f"{n}={s:.5f}" for n, s in shares.items()) +
+        f" (>= {TC_BWD_SAME_MIN[str(q.dtype).rsplit('.', 1)[-1]]}); delta "
+        f"ratio {d_ratio:.3e} (<= 1); two runs bitwise equal: {same}")
+    res = {"errs": errs, "ratios": ratios, "shares": shares}
+    if controls:
+        # the same gate on two broken backwards: delta = 0, and dS and p
+        # left unrounded (fp32 into the products)
+        scale = 1.0 / float(q.shape[-1]) ** 0.5
+        _, ds0 = fk._dsoftmax(q, k, v, g, lse, torch.zeros_like(delta),
+                              causal, qseg, kseg, scale)
+        p32 = fk._probs(q, k, lse, causal, qseg, kseg, scale)
+        dp = torch.einsum("bqhd,bkhd->bhqk", g.float(), v.float())
+        ds32 = p32 * (dp - delta[..., None]) * scale
+        del dp
+        bad = {
+            "delta=0": {
+                "dq": torch.einsum("bhqk,bkhd->bqhd", ds0, k.float()),
+                "dk": torch.einsum("bhqk,bqhd->bkhd", ds0, q.float())},
+            "unrounded": {
+                "dq": torch.einsum("bhqk,bkhd->bqhd", ds32, k.float()),
+                "dk": torch.einsum("bhqk,bqhd->bkhd", ds32, q.float()),
+                "dv": torch.einsum("bhqk,bqhd->bkhd", p32, g.float())},
+        }
+        del ds0, ds32, p32
+        res["controls"] = {}
+        for cname, grads in bad.items():
+            for name, t in grads.items():
+                t = t.to(q.dtype)
+                _, ratio, share = flash_bwd_gate(torch, t, ref[name],
+                                                 spread[name])
+                old = _err(t, ref[name])[1]
+                res["controls"][f"{cname} {name}"] = (ratio, share, old)
+        line += "; controls (fail, as they must): " + "; ".join(
+            f"{n} ratio {r:.3e} equal {sh:.5f} old-gate {o:.3e} "
+            f"({'passes' if o <= FLASH_BF16_TOL else 'fails'} 2e-2 x "
+            "max(|ref|, 1))" for n, (r, sh, o) in res["controls"].items())
+    print(line, flush=True)
+    for cname, (ratio, share, _) in res.get("controls", {}).items():
+        check(not flash_bwd_passes(q.dtype, ratio, share),
+              f"[flash tc bwd] {tag}: the gate passes the {cname} control "
+              f"(ratio {ratio:.3e}, equal {share:.5f})")
+    for name in ("dq", "dk", "dv"):
+        check(flash_bwd_passes(q.dtype, ratios[name], shares[name]),
+              f"[flash tc bwd] {tag}: {name} fails the gate (ratio "
+              f"{ratios[name]:.3e}, equal {shares[name]:.5f})")
+    check(d_ratio <= 1.0, f"[flash tc bwd] {tag}: delta error "
+          f"{errs['delta']:.3e}, ratio {d_ratio:.3e}")
+    check(same, f"[flash tc bwd] {tag}: two runs differ")
+    return res, dq
+
+
+def device_ms(torch, fn, iters, groups):
+    """Device milliseconds per call of ``fn`` by ``torch.profiler``:
+    ``{group: ms}`` summed over the kernels whose name holds any of the
+    group's substrings (``groups``: ``{name: (substrings,)}``; an empty
+    tuple takes every kernel), host work not counted."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(groups, 0.0)
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        for g, subs in groups.items():
+            if not subs or any(x in e.key for x in subs):
+                out[g] += us
+    return {g: us / iters / 1e3 for g, us in out.items()}
+
+
+def flash_tc_bwd_phase(torch, seed, nvcc_log):
+    """``[flash tc bwd]``: the tensor-core split backward against its
+    plain versions at the main path's shapes and awkward ones, in bf16
+    and fp16, through :func:`flash_bwd_gate` and its controls; the SASS's
+    ``HGMMA`` count, registers and spills; times at the main shape by
+    events and by device time beside the CUDA-core pair it replaced for
+    16-bit inputs and SDPA's backward alone."""
+    from paddle_tpu_torch import _build
+    from paddle_tpu_torch.ops import flash_attention_kernel as fk
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 60)
+
+    hgmma, regs, spills = sass_summary(_build.library_path("flash_bwd_sm90"),
+                                       nvcc_log)
+    print(f"[flash tc bwd] {TC_BWD_SOURCE}: {hgmma} HGMMA instructions in "
+          f"the SASS; ptxas registers per kernel {regs}, spill store bytes "
+          f"{spills}", flush=True)
+    check(hgmma > 0, "[flash tc bwd] no HGMMA instruction in the SASS")
+    check(not any(spills), f"[flash tc bwd] ptxas spills {spills}")
+    res = {"hgmma": hgmma, "registers": regs, "spill_bytes": spills}
+
+    B, S, H, D = TRAIN_B, TRAIN_S, 12, 64
+    for dtype in (torch.bfloat16, torch.float16):
+        dn = "bf16" if dtype == torch.bfloat16 else "fp16"
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+        qkv = rnd(B, S, 3, H, D)                       # GPT's layout
+        main = (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], rnd(B, S, H, D))
+        r, _ = tc_bwd_compare(torch, fk, f"{dn} GPT [B,S,H,D] views B={B} "
+                              f"S={S} H={H} D={D} causal", *main, True,
+                              controls=True)
+        res[dn] = {"main": r, "args": main}
+        seg_rows = 2 * 4
+        qseg = torch.zeros((seg_rows, 300), dtype=torch.int32, device=dev)
+        qseg[:, 150:] = 1
+        qseg[:, 7] = 9                                 # sees no key
+        kseg = torch.zeros((seg_rows, 300), dtype=torch.int32, device=dev)
+        kseg[:, 150:] = 1
+        _, dq = tc_bwd_compare(
+            torch, fk, f"{dn} [B*H,S,D] [8, 300, 64] segment ids + a "
+            "fully-masked row", *[rnd(seg_rows, 300, 1, 64) for _ in
+                                  range(4)], False, qseg, kseg)
+        check(bool((dq[:, 7] == 0).all()),
+              f"[flash tc bwd] {dn} masked row: dq not exactly 0")
+        tc_bwd_compare(torch, fk, f"{dn} S=1000 causal (ragged) "
+                       "[2, 1000, 4, 64]",
+                       *[rnd(2, 1000, 4, 64) for _ in range(4)], True)
+        tc_bwd_compare(torch, fk, f"{dn} non-causal Sq=384 Sk=640",
+                       rnd(2, 384, 4, 64), rnd(2, 640, 4, 64),
+                       rnd(2, 640, 4, 64), rnd(2, 384, 4, 64), False)
+        tc_bwd_compare(torch, fk, f"{dn} D=128 causal S=512",
+                       *[rnd(2, 512, 4, 128) for _ in range(4)], True)
+        tc_bwd_compare(torch, fk, f"{dn} D=128 non-causal Sq=200 Sk=333",
+                       rnd(2, 200, 3, 128), rnd(2, 333, 3, 128),
+                       rnd(2, 333, 3, 128), rnd(2, 200, 3, 128), False)
+    print("[flash tc bwd] fully-masked row: dq exactly 0", flush=True)
+
+    # times at the main shape: the tensor-core pair, the CUDA-core pair it
+    # replaced for 16-bit inputs, the plain versions and SDPA's backward
+    # alone (a yardstick, not used by the port)
+    flush_buf = torch.empty(128 * 1024 * 1024 // 4, device=dev)
+    flush = flush_buf.zero_
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for dn in ("bf16", "fp16"):
+        q, k, v, g = res[dn].pop("args")
+        out, lse = fk.flash_fwd(q, k, v, True)
+        _, delta = fk.flash_bwd_dq(q, k, v, out, lse, g, True)
+        qt, kt, vt, gt = [t.transpose(1, 2) for t in (q, k, v, g)]
+        leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+        o = sdpa(*leaves, is_causal=True)
+
+        def sdpa_bwd():
+            torch.autograd.grad(o, leaves, gt, retain_graph=True)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa(*leaves, is_causal=True), leaves, gt)
+
+        def pair():
+            fk.flash_bwd_dq(q, k, v, out, lse, g, True)
+            fk.flash_bwd_dkv(q, k, v, g, lse, delta, True)
+
+        def core_pair():
+            fk._cuda_core_flash_bwd("dq", q, k, v, out, lse, g, True)
+            fk._cuda_core_flash_bwd("dkv", q, k, v, g, lse, delta, True)
+
+        calls = {
+            "flash_bwd_dq": (
+                lambda: fk.flash_bwd_dq(q, k, v, out, lse, g, True),
+                lambda: fk._cuda_core_flash_bwd("dq", q, k, v, out, lse, g,
+                                                True),
+                lambda: fk.flash_bwd_dq_reference(q, k, v, out, lse, g,
+                                                  True)),
+            "flash_bwd_dkv": (
+                lambda: fk.flash_bwd_dkv(q, k, v, g, lse, delta, True),
+                lambda: fk._cuda_core_flash_bwd("dkv", q, k, v, g, lse,
+                                                delta, True),
+                lambda: fk.flash_bwd_dkv_reference(q, k, v, g, lse, delta,
+                                                   True)),
+        }
+        with torch.no_grad():
+            dev_ms = device_ms(torch, pair, 20, {
+                "flash_bwd_dq": ("false>", "Lb0E"),
+                "flash_bwd_dkv": ("true>", "Lb1E"),
+                "all": ()})
+            core_dev = device_ms(torch, core_pair, 5, {
+                "flash_bwd_dq": ("flash_bwd_dq_kernel",),
+                "flash_bwd_dkv": ("flash_bwd_dkv_kernel",)})
+        lib_bwd_dev = device_ms(torch, sdpa_bwd, 20, {"all": ()})["all"]
+        lib_bwd_ms = time_cuda(torch, sdpa_bwd, 20, flush=flush)
+        lib_fb_ms = time_cuda(torch, sdpa_fwd_bwd, 20, flush=flush)
+        with torch.no_grad():
+            pair_ms = time_cuda(torch, pair, 20, flush=flush)
+        for name, (kern, core, plain) in calls.items():
+            with torch.no_grad():
+                ms = time_cuda(torch, kern, 20, flush=flush)
+                core_ms = time_cuda(torch, core, 5, warmup=2, flush=flush)
+                plain_ms = time_cuda(torch, plain, 5, warmup=2, flush=flush)
+            flops, nbytes = fk.kernel_work(name, B, H, S, S, D, True, 2)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / BF16_FLOPS_PER_S * 1e3
+            main = res[dn]["main"]
+            errs = ([main["errs"]["dq"], main["errs"]["delta"]]
+                    if name == "flash_bwd_dq" else
+                    [main["errs"]["dk"], main["errs"]["dv"]])
+            r = {"ms": ms, "device_ms": dev_ms[name],
+                 "cuda_core_ms": core_ms,
+                 "cuda_core_device_ms": core_dev[name],
+                 "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                 "flops": flops, "bytes": nbytes,
+                 "tflops": flops / (ms * 1e-3) / 1e12,
+                 "device_tflops": flops / (dev_ms[name] * 1e-3) / 1e12,
+                 "max_abs_err": max(errs)}
+            res[dn][name] = r
+            print(f"[flash tc bwd] {name}_tc {dn} B={B} S={S} H={H} D={D} "
+                  f"causal: kernel_ms={ms:.5f} ({r['tflops']:.1f} TFLOP/s) "
+                  f"device_ms={dev_ms[name]:.5f} "
+                  f"({r['device_tflops']:.1f} TFLOP/s) cuda_core_ms="
+                  f"{core_ms:.5f} (device {core_dev[name]:.5f}; "
+                  f"{core_ms / ms:.2f}x the tensor-core time) plain_ms="
+                  f"{plain_ms:.5f} bound_ms={r['bound_ms']:.5f} "
+                  f"({r['bound_by']}: {flops} flop, {nbytes} bytes)",
+                  flush=True)
+        res[dn].update({"pair_ms": pair_ms, "pair_device_ms": dev_ms["all"],
+                        "library_bwd_ms": lib_bwd_ms,
+                        "library_bwd_device_ms": lib_bwd_dev,
+                        "library_fwd_bwd_ms": lib_fb_ms})
+        print(f"[flash tc bwd] {dn} pair dq+dkv: {pair_ms:.5f} ms by events, "
+              f"{dev_ms['all']:.5f} ms device; library yardstick (not used "
+              f"by the port): sdpa backward alone {lib_bwd_ms:.5f} ms by "
+              f"events, {lib_bwd_dev:.5f} ms device; sdpa forward+backward "
+              f"{lib_fb_ms:.5f} ms", flush=True)
+        del o, leaves
+    return res
+
+
+# ---------------------------------------------------------------------------
 # [B*H, S, D] flash configuration: head-packed forward, fused backward
 # ---------------------------------------------------------------------------
 class knobs_set:
@@ -907,6 +1282,15 @@ def flash_bh_phase(torch, seed):
             o = sdpa(*leaves, is_causal=causal)
             torch.autograd.grad(o, leaves, gt)
 
+        o_lib = sdpa(*leaves, is_causal=causal)
+        # device times of the fused backward (its three launches) and of
+        # SDPA's backward alone, host work not counted
+        with torch.no_grad():
+            fused_dev = device_ms(torch, lambda: fk.flash_bwd_fused(
+                q, k, v, out, lse, g, causal), 20, {"all": ()})["all"]
+        lib_bwd_dev = device_ms(torch, lambda: torch.autograd.grad(
+            o_lib, leaves, gt, retain_graph=True), 20, {"all": ()})["all"]
+        del o_lib
         calls = {
             "flash_fwd_hpack": (
                 lambda: fk.flash_fwd_hpack(q, k, v, 2, causal),
@@ -931,6 +1315,9 @@ def flash_bh_phase(torch, seed):
                  "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                  "library_ms": lib_ms, "flops": flops, "bytes": nbytes,
                  "tflops": flops / (ms * 1e-3) / 1e12}
+            if name == "flash_bwd_fused":
+                r.update({"device_ms": fused_dev,
+                          "library_bwd_device_ms": lib_bwd_dev})
             res.setdefault(name, {})[model] = r
             print(f"[flash bh] {name} bf16 {model} [{BH}, {S}, 64] "
                   f"{'causal' if causal else 'non-causal'}: kernel_ms="
@@ -939,7 +1326,10 @@ def flash_bh_phase(torch, seed):
                   f"{nbytes} bytes) achieved {r['tflops']:.2f} TFLOP/s; "
                   f"library_ms (sdpa "
                   f"{'forward' if name == 'flash_fwd_hpack' else 'forward+backward'}"
-                  f", not used by the port)={lib_ms:.5f}", flush=True)
+                  f", not used by the port)={lib_ms:.5f}"
+                  + (f"; device_ms={fused_dev:.5f}, sdpa backward alone "
+                     f"device_ms={lib_bwd_dev:.5f}"
+                     if name == "flash_bwd_fused" else ""), flush=True)
     # the layout's cost: one [B, S, H, D] <-> [B*H, S, D] copy at GPT's
     # training shape; a layer makes eight (q, k, v, out; dO, dq, dk, dv)
     qkv = rnd(TRAIN_B, TRAIN_S, 3, 12, 64, dtype=torch.bfloat16)
@@ -1317,7 +1707,9 @@ def flash_hold(torch, fk, phase, tag, tol, q, k, v, g, causal, hps=(2,)):
     """Every flash kernel on these inputs against its plain version on
     the same values: the routed forward and the CUDA-core forward
     (p rounded to the input dtype, ``flash_fwd_tc_reference``), the
-    split and the fused backward, and the head-packed forward for each
+    routed and the CUDA-core split backward (dS and p rounded as the
+    plain versions round them), the fused backward, and the head-packed
+    forward for each
     ``hp`` in the ``[B*H, S, D]`` layout (its routed body and its
     CUDA-core body).  Returns the max abs error per kernel."""
     B, S, H, D = q.shape
@@ -1332,13 +1724,20 @@ def flash_hold(torch, fk, phase, tag, tol, q, k, v, g, causal, hps=(2,)):
             "flash_fwd cuda_core": max(e["core out"], e["core lse"])}
     dq, delta = fk.flash_bwd_dq(q, k, v, out, lse, g, causal)
     dk, dv = fk.flash_bwd_dkv(q, k, v, g, lse, delta, causal)
+    cdq, cdelta = fk._cuda_core_flash_bwd("dq", q, k, v, out, lse, g, causal)
+    cdk, cdv = fk._cuda_core_flash_bwd("dkv", q, k, v, g, lse, delta, causal)
     rdq, rdelta = fk.flash_bwd_dq_reference(q, k, v, out, lse, g, causal)
     rdk, rdv = fk.flash_bwd_dkv_reference(q, k, v, g, lse, delta, causal)
-    e = hold(torch, phase, f"{tag} flash_bwd_dq + flash_bwd_dkv", tol,
+    e = hold(torch, phase, f"{tag} flash_bwd_dq + flash_bwd_dkv "
+             f"(tensor-core: {fk._is_tc(q)}) and the CUDA-core pair", tol,
              [("dq", dq, rdq), ("delta", delta, rdelta), ("dk", dk, rdk),
-              ("dv", dv, rdv)])
+              ("dv", dv, rdv), ("core dq", cdq, rdq),
+              ("core delta", cdelta, rdelta), ("core dk", cdk, rdk),
+              ("core dv", cdv, rdv)])
     errs["flash_bwd_dq"] = max(e["dq"], e["delta"])
     errs["flash_bwd_dkv"] = max(e["dk"], e["dv"])
+    errs["flash_bwd_dq cuda_core"] = max(e["core dq"], e["core delta"])
+    errs["flash_bwd_dkv cuda_core"] = max(e["core dk"], e["core dv"])
     got = fk.flash_bwd_fused(q, k, v, out, lse, g, causal)
     rf = fk.flash_bwd_fused_reference(q, k, v, out, lse, g, causal)
     e = hold(torch, phase, f"{tag} flash_bwd_fused", tol,
@@ -1474,16 +1873,15 @@ def headdim_phase(torch, seed):
                           ("fp16", torch.float16)):
             args = [torch.randn((2, 300, 4, D), generator=gen,
                                 device=dev).to(dtype) for _ in range(4)]
-            before = fk.flash_fwd.tc_launches + fk.flash_fwd_hpack.tc_launches
+            before = sum(f.tc_launches for f in fk.TC_WRAPPERS)
             for causal in (True, False):
                 res[f"D={D} {dn} {'causal' if causal else 'non-causal'}"] = \
                     flash_hold(torch, fk, "headdim", f"{dn} D={D} "
                                f"[2, 300, 4, {D}] "
                                f"{'causal' if causal else 'non-causal'}",
                                DTYPE_TOLS[dn], *args, causal, hps=(2, 4))
-            check(fk.flash_fwd.tc_launches + fk.flash_fwd_hpack.tc_launches
-                  == before, f"[headdim] D={D} {dn} launched the "
-                  "tensor-core forward")
+            check(sum(f.tc_launches for f in fk.TC_WRAPPERS) == before,
+                  f"[headdim] D={D} {dn} launched a tensor-core kernel")
     for dn, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16),
                       ("fp16", torch.float16)):
         res[f"paged Dh=16 {dn}"] = paged_hold(
@@ -1567,6 +1965,7 @@ def fit_and_check(torch, tag, desc, model, net, batch, want, tokens,
     launches.update({f"{f.__name__}.tc": f.tc_launches
                      for f in fk.TC_WRAPPERS + lk.TC_WRAPPERS})
     launches["_cuda_core_fwd"] = fk._cuda_core_fwd.launches
+    launches["_cuda_core_flash_bwd"] = fk._cuda_core_flash_bwd.launches
     launches["_cuda_core_bwd"] = lk._cuda_core_bwd.launches
     launches.update(fk.flash_bwd_fused.helper_launches)
     plain = {f.__name__: f.plain_calls for f in wrappers}
@@ -1599,8 +1998,9 @@ def _want_launches(layer_calls, bh=False, fused_lmce_steps=0):
     """Expected launch counts: the default path's three flash kernels,
     or under the [B*H, S, D] knobs the head-packed forward, the fused
     backward and its helpers (bf16: the dq epilogue runs too),
-    ``layer_calls`` times each; every bf16 forward launch the
-    tensor-core body's (``.tc``), none the CUDA-core forward's; each
+    ``layer_calls`` times each; every 16-bit forward and split backward
+    launch the tensor-core body's (``.tc``), none the CUDA-core
+    comparison entries'; each
     16-bit lmce backward launch the tensor-core body's, none the
     CUDA-core backward's."""
     from paddle_tpu_torch.ops import flash_attention_kernel as fk
@@ -1611,6 +2011,7 @@ def _want_launches(layer_calls, bh=False, fused_lmce_steps=0):
     want.update({f"{f.__name__}.tc": want[f.__name__]
                  for f in fk.TC_WRAPPERS})
     want["_cuda_core_fwd"] = 0
+    want["_cuda_core_flash_bwd"] = 0
     want["flash_bwd_fused_prep"] = layer_calls if bh else 0
     want["flash_bwd_fused_dq_cast"] = layer_calls if bh else 0
     want.update({f.__name__: fused_lmce_steps for f in lk.WRAPPERS})
@@ -1758,7 +2159,7 @@ def fused_train_phase(torch, seed, base):
 
 def _kernel_group(name):
     if any(k in name for k in ("flash_fwd_kernel", "flash_fwd_tc_kernel",
-                                "flash_bwd_dq_kernel",
+                                "flash_bwd_tc_kernel", "flash_bwd_dq_kernel",
                                 "flash_bwd_dkv_kernel",
                                 "flash_fwd_hpack_kernel",
                                 "flash_bwd_fused")):
@@ -1999,6 +2400,8 @@ def main(argv=None) -> int:
     bhres = flash_bh_phase(torch, args.seed)
     tcres = flash_tc_phase(torch, args.seed,
                            built.get("flash_fwd_sm90", {}).get("log", ""))
+    tcb = flash_tc_bwd_phase(torch, args.seed,
+                             built.get("flash_bwd_sm90", {}).get("log", ""))
     bh_train = bh_train_phase(torch, args.seed, tres)
     ernie_train = ernie_train_phase(torch, args.seed)
     bh_parity_phase(torch, args.seed)
@@ -2057,6 +2460,11 @@ def main(argv=None) -> int:
             "ernie_library_ms": e["library_ms"],
         })
         if not fwd:
+            kernels[-1].update({
+                "device_ms": r["device_ms"],
+                "library_bwd_device_ms": r["library_bwd_device_ms"],
+                "ernie_device_ms": e["device_ms"],
+                "ernie_library_bwd_device_ms": e["library_bwd_device_ms"]})
             kernels[-1]["helper_launches"] = {
                 k: bh_train["launches"][k] + ernie_train["launches"][k]
                 for k in ("flash_bwd_fused_prep", "flash_bwd_fused_dq_cast")}
@@ -2086,6 +2494,36 @@ def main(argv=None) -> int:
                           "ernie_bound_ms": e["bound_ms"],
                           "ernie_library_ms": e["library_ms"],
                           "ernie_cuda_core_ms": e["cuda_core_ms"]})
+    # the 16-bit split backward runs the tensor-core pair: its numbers,
+    # with the CUDA-core pair's (the fp32 body) beside them
+    for entry in kernels:
+        if entry["name"] not in ("flash_bwd_dq", "flash_bwd_dkv"):
+            continue
+        r, r16 = tcb["bf16"][entry["name"]], tcb["fp16"][entry["name"]]
+        pair = tcb["bf16"]
+        entry.update({
+            "source": TC_BWD_SOURCE, "fp32_source": CORE_SOURCE,
+            "tc_launches": tres["launches"][f"{entry['name']}.tc"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None,
+            "library_bwd_pair_ms": pair["library_bwd_ms"],
+            "library_bwd_pair_device_ms": pair["library_bwd_device_ms"],
+            "library_fwd_bwd_ms": pair["library_fwd_bwd_ms"],
+            "pair_ms": pair["pair_ms"],
+            "pair_device_ms": pair["pair_device_ms"],
+            "tflops": r["tflops"], "device_tflops": r["device_tflops"],
+            "cuda_core_ms": r["cuda_core_ms"],
+            "cuda_core_device_ms": r["cuda_core_device_ms"],
+            "hgmma": tcb["hgmma"], "fp16_ms": r16["ms"],
+            "fp16_device_ms": r16["device_ms"],
+            "gate_ratio": max(tcb["bf16"]["main"]["ratios"][n] for n in (
+                ("dq",) if entry["name"] == "flash_bwd_dq" else
+                ("dk", "dv"))),
+            "equal_share": min(tcb["bf16"]["main"]["shares"][n] for n in (
+                ("dq",) if entry["name"] == "flash_bwd_dq" else
+                ("dk", "dv")))})
     r = lres["lmce_fwd"]
     kernels.append({
         "name": "lmce_fwd", "route": "cuda", "source": LMCE_SOURCE,
@@ -2138,6 +2576,8 @@ def main(argv=None) -> int:
             entry["d16_d32_max_abs_err"] = max(e[name] for e in hd_flash)
         if name in FLASH_KERNELS:
             entry["fp16_launches"] = fp16_train["launches"][name]
+            entry["fp16_tc_launches"] = fp16_train["launches"][f"{name}.tc"]
+            entry["fused_lmce_launches"] = lmce_train["launches"][name]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

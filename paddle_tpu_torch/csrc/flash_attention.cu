@@ -30,12 +30,15 @@
 //             with dP = dO V^T, dq = dS K.
 //   dk, dv:   dv = P^T dO, dk = dS^T Q, reading delta from that buffer,
 //             so it launches after flash_bwd_dq on the same stream.
+//   Every backward rounds dS, and P before P^T dO, to the input dtype
+//   before its products, as the TPU kernels do (pallas_ops.py:542, 607,
+//   614; a no-op in fp32).
 // Inputs are fp32, bf16 or fp16 (all alike) with head dim D in {16, 32,
 // 64, 128}: a thread owns D/16 output columns (tx + 16c), so every D the
-// kernels take fills the 16 x 16 thread grid.  flash_fwd_sm90.cu runs the
-// bf16 and fp16 forward at D 64 and 128 on the tensor cores; these
-// CUDA-core bodies run fp32, D < 64 in every dtype, and the comparison on
-// the card.
+// kernels take fills the 16 x 16 thread grid.  flash_fwd_sm90.cu and
+// flash_bwd_sm90.cu run the bf16 and fp16 forward and split backward at
+// D 64 and 128 on the tensor cores; these CUDA-core bodies run fp32,
+// D < 64 in every dtype, and the comparison on the card.
 // Every sum is an fp32 sum in a fixed order, so the results are the same
 // from run to run, except flash_bwd_fused's dq, whose per-k-tile partial
 // sums meet in an fp32 workspace through atomics (notes at the kernel).
@@ -474,7 +477,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const bool ok = visible(q0 + r, k0 + c, Sq, Sk, causal, has_seg,
                                 qsg[r], ksg[c]);
         const float p = ok ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
-        dSs[r * kLdP + c] = p * (dp[i][j] - delta_s[r]) * scale;
+        dSs[r * kLdP + c] = round_as(p * (dp[i][j] - delta_s[r]) * scale, q);
       }
     }
     __syncthreads();
@@ -610,13 +613,8 @@ __device__ __forceinline__ void dkv_sweep(
                                 qsg[r], ksg[c]);
         const float p = ok ? expf(st[i][j] * scale - lse_s[r]) : 0.f;
         const float ds = p * (dpt[i][j] - delta_s[r]) * scale;
-        if constexpr (kFused) {
-          Ps[c * kLdP + r] = round_as(p, q);
-          dSs[c * kLdP + r] = round_as(ds, q);
-        } else {
-          Ps[c * kLdP + r] = p;
-          dSs[c * kLdP + r] = ds;
-        }
+        Ps[c * kLdP + r] = round_as(p, q);
+        dSs[c * kLdP + r] = round_as(ds, q);
       }
     }
     __syncthreads();

@@ -3,8 +3,9 @@
 // wgmma forms the kernels use, for bf16 and fp16 operands with fp32
 // accumulators, and the host-side tensor-map encoder.
 //
-// Used by flash_fwd_sm90.cu and lmce_sm90.cu.  _build.py hashes this
-// header into every library's name, so an edit rebuilds both.
+// Used by flash_fwd_sm90.cu, flash_bwd_sm90.cu and lmce_sm90.cu.
+// _build.py hashes this header into every library's name, so an edit
+// rebuilds them all.
 
 #pragma once
 
@@ -69,6 +70,15 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
                    bar),
                "r"(bytes)
                : "memory");
+}
+
+// One arrival (release: this thread's earlier shared-memory writes are
+// seen by a thread whose wait observes the phase completing).
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile(
+      "{\n.reg .b64 state;\n"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(bar)
+      : "memory");
 }
 
 __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {

@@ -5,7 +5,9 @@
 and computes ``x @ W + b``, so a weight carries over from the JAX
 package as it is.  Weights start in fp32 (``amp.decorate`` casts them
 later) and are drawn from an explicit ``torch.Generator``, by default
-the port's generator of the device.
+the port's generator of the device.  ``device=None`` means the card
+(:func:`~paddle_tpu_torch.resolve_device`); pass ``device="cpu"`` for
+the CPU.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .. import resolve_device
 from ..framework import random as _random
 
 
@@ -28,9 +31,10 @@ class Linear(nn.Module):
     """``y = x @ weight + bias`` with ``weight`` ``[in, out]`` drawn from
     Normal(0, ``init_std``) and the bias starting at 0."""
 
-    def __init__(self, in_features, out_features, init_std, device="cpu",
+    def __init__(self, in_features, out_features, init_std, device=None,
                  generator=None):
         super().__init__()
+        device = resolve_device(device)
         self.weight = _normal((in_features, out_features), init_std, device,
                               generator)
         self.bias = nn.Parameter(torch.zeros(out_features, device=device))
@@ -43,8 +47,9 @@ class Embedding(nn.Module):
     """Table lookup; the table starts as Normal(0, ``init_std``)."""
 
     def __init__(self, num_embeddings, embedding_dim, init_std,
-                 device="cpu", generator=None):
+                 device=None, generator=None):
         super().__init__()
+        device = resolve_device(device)
         self.weight = _normal((num_embeddings, embedding_dim), init_std,
                               device, generator)
 

@@ -4,8 +4,9 @@ them (counterpart of the flash-attention part of
 ``paddle_tpu/ops/pallas_ops.py``).
 
 Five kernels in ``csrc/flash_attention.cu`` (fp32 FMAs on the CUDA
-cores), the two forwards also in ``csrc/flash_fwd_sm90.cu`` (bf16 and
-fp16 on the tensor cores, ``wgmma`` fed by TMA):
+cores), the two forwards also in ``csrc/flash_fwd_sm90.cu`` and the split
+backward in ``csrc/flash_bwd_sm90.cu`` (bf16 and fp16 on the tensor
+cores, ``wgmma`` fed by TMA):
 
 - :func:`flash_fwd` -> ``(out, lse)``, the online-softmax forward;
 - :func:`flash_bwd_dq` -> ``(dq, delta)``, ``delta = rowsum(dO * O)``;
@@ -31,19 +32,23 @@ On a CUDA tensor a wrapper launches its kernel or raises (a build
 failure raises :class:`~paddle_tpu_torch._build.KernelBuildError`);
 the kernels take fp32, bf16 or fp16 with ``D`` in :data:`HEAD_DIMS`
 (16, 32, 64, 128), and any other head dim raises
-``NotImplementedError``.  The two forwards route by dtype and head dim,
-before any launch: bf16 and fp16 at ``D`` in :data:`TC_HEAD_DIMS` (64,
-128; 64 for the head-packed entry) launch the tensor-core kernel
-(``flash_fwd_tc`` / ``flash_fwd_hpack_tc``), everything else (fp32, and
-``D`` 16 or 32 in every dtype) the CUDA-core one.  TMA reads q, k and
-v, so a tensor-core call whose base address or batch, sequence or head
-stride is not a multiple of 16 bytes raises ``NotImplementedError``.
-Neither body falls back to the other.  Every forward rounds p to the
-input dtype before ``P V`` (as the TPU kernels do; a no-op in fp32).
-On a CPU tensor a wrapper runs its plain version, which repeats the
-kernel's arithmetic with whole-tensor ops
-(:func:`flash_fwd_tc_reference` holds the 16-bit forwards' rounding of
-p).  Each launch adds one to
+``NotImplementedError``.  The two forwards and the split backward route
+by dtype and head dim, before any launch: bf16 and fp16 at ``D`` in
+:data:`TC_HEAD_DIMS` (64, 128; 64 for the head-packed entry) launch the
+tensor-core kernel (``flash_fwd_tc`` / ``flash_fwd_hpack_tc``,
+``flash_bwd_dq_tc`` / ``flash_bwd_dkv_tc``), everything else (fp32, and
+``D`` 16 or 32 in every dtype) the CUDA-core one.  TMA reads q, k, v
+and dout (and the tensor-core dq reads out with 16-byte loads), so a
+tensor-core call whose base address or batch, sequence or head stride
+of one of them is not a multiple of 16 bytes raises
+``NotImplementedError``.  Neither body falls back to the other.  Every
+forward rounds p to the input dtype before ``P V``, and every backward
+rounds dS to it before ``dS K`` and ``dS^T Q`` and p before ``P^T dO``
+(as the TPU kernels do; no-ops in fp32).  On a CPU tensor a wrapper
+runs its plain version, which repeats the kernel's arithmetic with
+whole-tensor ops (:func:`flash_fwd_tc_reference` holds the 16-bit
+forwards' rounding of p, :func:`_dsoftmax` the backward's).  Each
+launch adds one to
 ``<wrapper>.launches`` and, for the tensor-core body, to
 ``<wrapper>.tc_launches``; each plain run adds one to
 ``<wrapper>.plain_calls``.  The fused backward's helper launches are
@@ -62,13 +67,14 @@ from .. import _build
 
 KERNEL_NAME = "flash_attention"
 TC_KERNEL_NAME = "flash_fwd_sm90"
+TC_BWD_KERNEL_NAME = "flash_bwd_sm90"
 #: clamp of the saved log-sum-exp (``_LSE_FLOOR`` of the JAX package)
 LSE_FLOOR = -1e30
 #: denominator guard: inert for a row with any visible key
 DENOM_TINY = 1e-30
 HEAD_DIMS = (16, 32, 64, 128)
-#: head dims of the tensor-core forward (bf16 and fp16); below 64 the
-#: CUDA-core forward runs in those dtypes
+#: head dims of the tensor-core forward and split backward (bf16 and
+#: fp16); below 64 the CUDA-core kernels run in those dtypes
 TC_HEAD_DIMS = (64, 128)
 #: heads per CTA and head dims that ``flash_fwd_hpack``'s kernels are
 #: built for (the JAX rule packs every head dim up to 64); the
@@ -79,13 +85,15 @@ HPACK_HEAD_DIMS = (16, 32, 64)
 FUSED_HELPERS = ("flash_bwd_fused_prep", "flash_bwd_fused_dq_cast")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _TC_DTYPES = (torch.bfloat16, torch.float16)
-#: TMA's rule for the tensor-core forward's q, k and v: base address and
-#: batch, sequence and head strides in multiples of this many bytes
+#: TMA's rule for the tensor-core kernels' q, k, v, out and dout: base
+#: address and batch, sequence and head strides in multiples of this many
+#: bytes
 TMA_ALIGN = 16
 _TC_ERRORS = {-1: "the driver has no cuTensorMapEncodeTiled",
               -2: "the driver refused a tensor map"}
 _lib = None
 _tc_lib = None
+_bwd_tc_lib = None
 
 
 def bind(lib):
@@ -115,6 +123,17 @@ def bind_tc(lib):
     return lib
 
 
+def bind_bwd_tc(lib):
+    """The same for the tensor-core split backward's library
+    (``csrc/flash_bwd_sm90.cu``, bf16 and fp16); the C signatures are
+    those of ``flash_bwd_dq`` and ``flash_bwd_dkv``."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for fn in (lib.flash_bwd_dq_tc, lib.flash_bwd_dkv_tc):
+        fn.argtypes = [i, i] + [p] * 10 + [i] * 5 + [f, p, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def _kernel():
     global _lib
     if _lib is None:
@@ -127,6 +146,13 @@ def _tc_kernel():
     if _tc_lib is None:
         _tc_lib = bind_tc(_build.load(TC_KERNEL_NAME))
     return _tc_lib
+
+
+def _bwd_tc_kernel():
+    global _bwd_tc_lib
+    if _bwd_tc_lib is None:
+        _bwd_tc_lib = bind_bwd_tc(_build.load(TC_BWD_KERNEL_NAME))
+    return _bwd_tc_lib
 
 
 # ---------------------------------------------------------------------------
@@ -202,27 +228,43 @@ def _probs(q, k, lse, causal, q_seg, k_seg, scale):
                        torch.zeros_like(p))
 
 
-def flash_bwd_dq_reference(q, k, v, out, lse, dout, causal, q_seg=None,
-                           k_seg=None, scale=None):
-    """Plain version of :func:`flash_bwd_dq`: ``(dq, delta)``."""
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
+def _delta(out, dout):
+    """``delta = rowsum(dO * O)`` in fp32, ``[B, H, Sq]``."""
+    return (dout.float() * out.float()).sum(-1).permute(0, 2, 1)
+
+
+def _dsoftmax(q, k, v, dout, lse, delta, causal, q_seg, k_seg, scale):
+    """``(p, dS)`` of every backward, ``[B, H, Sq, Sk]`` fp32: P = exp(S -
+    lse) on the visible pairs and dS = P (dP - delta) scale with dP = dO
+    V^T, both rounded to the input dtype as the TPU kernels round them
+    before their products (p to dO's dtype before ``P^T dO``, dS to q's
+    before ``dS K`` and ``dS^T Q``: ``pallas_ops.py:542, 607, 614`` and
+    the packed :940, :1009, :1014; no-ops in fp32)."""
     p = _probs(q, k, lse, causal, q_seg, k_seg, scale)
     dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float())
-    delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1)
-    ds = p * (dp - delta[..., None]) * scale
+    ds = (p * (dp - delta[..., None]) * scale).to(q.dtype).float()
+    return p.to(dout.dtype).float(), ds
+
+
+def flash_bwd_dq_reference(q, k, v, out, lse, dout, causal, q_seg=None,
+                           k_seg=None, scale=None):
+    """Plain version of :func:`flash_bwd_dq`: ``(dq, delta)``, dS rounded
+    as :func:`_dsoftmax` says."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    delta = _delta(out, dout)
+    _, ds = _dsoftmax(q, k, v, dout, lse, delta, causal, q_seg, k_seg, scale)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
     return dq.to(q.dtype), delta.contiguous()
 
 
 def flash_bwd_dkv_reference(q, k, v, dout, lse, delta, causal, q_seg=None,
                             k_seg=None, scale=None):
-    """Plain version of :func:`flash_bwd_dkv`: ``(dk, dv)``."""
+    """Plain version of :func:`flash_bwd_dkv`: ``(dk, dv)``, p and dS
+    rounded as :func:`_dsoftmax` says."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    p = _probs(q, k, lse, causal, q_seg, k_seg, scale)
-    dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float())
-    ds = p * (dp - delta[..., None]) * scale
+    p, ds = _dsoftmax(q, k, v, dout, lse, delta, causal, q_seg, k_seg, scale)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dout.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -230,19 +272,15 @@ def flash_bwd_dkv_reference(q, k, v, dout, lse, delta, causal, q_seg=None,
 
 def flash_bwd_fused_reference(q, k, v, out, lse, dout, causal, q_seg=None,
                               k_seg=None, scale=None):
-    """Plain version of :func:`flash_bwd_fused`: ``(dq, dk, dv)``.
-    ``delta = rowsum(dO * O)``, then the products of
-    :func:`flash_bwd_dq_reference` and :func:`flash_bwd_dkv_reference`,
-    with ``p`` rounded to dO's dtype before ``P^T dO`` and ``dS`` to q's
-    dtype before ``dS^T Q`` and ``dS K``, where the JAX fused kernel
-    rounds them (no-ops in fp32)."""
+    """Plain version of :func:`flash_bwd_fused`: ``(dq, dk, dv)``, the
+    products of :func:`flash_bwd_dq_reference` and
+    :func:`flash_bwd_dkv_reference` from one ``delta = rowsum(dO * O)``,
+    with the same rounding (the JAX fused kernel rounds where the split
+    ones do)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    p = _probs(q, k, lse, causal, q_seg, k_seg, scale)
-    dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float())
-    delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1)
-    ds = (p * (dp - delta[..., None]) * scale).to(q.dtype).float()
-    p = p.to(dout.dtype).float()
+    p, ds = _dsoftmax(q, k, v, dout, lse, _delta(out, dout), causal, q_seg,
+                      k_seg, scale)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dout.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
@@ -297,16 +335,18 @@ def _is_tc(q, head_dims=TC_HEAD_DIMS):
     return q.dtype in _TC_DTYPES and q.shape[-1] in head_dims
 
 
-def _tc_ready(q, k, v):
-    """TMA's rule for the tensor-core forward, checked before a launch."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _tc_ready(**tensors):
+    """TMA's rule for a tensor-core kernel's inputs (by name), checked
+    before a launch."""
+    for name, t in tensors.items():
         size = t.element_size()
         strides = [st * size for st, n in zip(t.stride()[:3], t.shape[:3])
                    if n > 1]
         if t.data_ptr() % TMA_ALIGN or any(b % TMA_ALIGN for b in strides):
             raise NotImplementedError(
-                f"the tensor-core flash forward reads {name} through TMA, "
-                f"which needs a {TMA_ALIGN}-byte-aligned base address and "
+                f"the tensor-core flash kernels read {name} through TMA or "
+                f"16-byte loads, which need a {TMA_ALIGN}-byte-aligned base "
+                f"address and "
                 f"batch, sequence and head strides that are multiples of "
                 f"{TMA_ALIGN} bytes; got address {t.data_ptr()} and "
                 f"strides {tuple(st * size for st in t.stride()[:3])} "
@@ -402,6 +442,20 @@ def _launch_bwd_dq(lib, stream, q, k, v, out, lse, dout, causal, q_seg,
     return dq, delta
 
 
+def _launch_bwd_dq_tc(lib, stream, q, k, v, out, lse, dout, causal, q_seg,
+                      k_seg, scale):
+    B, Sq, H, D = q.shape
+    dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    strides = _tma_strides(q, k, v, out, dout, dq)
+    _raise_on(lib.flash_bwd_dq_tc(
+        _DTYPE_CODES[q.dtype], D, _ptr(q), _ptr(k), _ptr(v), _ptr(out),
+        _ptr(dout), _ptr(lse), _ptr(delta), _ptr(dq), _ptr(q_seg),
+        _ptr(k_seg), B, H, Sq, k.shape[1], int(causal), float(scale),
+        ctypes.cast(strides, ctypes.c_void_p), stream), "flash_bwd_dq_tc")
+    return dq, delta
+
+
 def _launch_bwd_dkv(lib, stream, q, k, v, dout, lse, delta, causal, q_seg,
                     k_seg, scale):
     B, Sq, H, D = q.shape
@@ -413,6 +467,20 @@ def _launch_bwd_dkv(lib, stream, q, k, v, dout, lse, delta, causal, q_seg,
         _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv), _ptr(q_seg),
         _ptr(k_seg), B, H, Sq, k.shape[1], int(causal), float(scale),
         ctypes.cast(strides, ctypes.c_void_p), stream), "flash_bwd_dkv")
+    return dk, dv
+
+
+def _launch_bwd_dkv_tc(lib, stream, q, k, v, dout, lse, delta, causal, q_seg,
+                       k_seg, scale):
+    B, Sq, H, D = q.shape
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    strides = _tma_strides(q, k, v, dout, dk, dv)
+    _raise_on(lib.flash_bwd_dkv_tc(
+        _DTYPE_CODES[q.dtype], D, _ptr(q), _ptr(k), _ptr(v), _ptr(dout),
+        _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv), _ptr(q_seg),
+        _ptr(k_seg), B, H, Sq, k.shape[1], int(causal), float(scale),
+        ctypes.cast(strides, ctypes.c_void_p), stream), "flash_bwd_dkv_tc")
     return dk, dv
 
 
@@ -493,7 +561,7 @@ def flash_fwd(q, k, v, causal, q_seg=None, k_seg=None, scale=None):
                            device=q.device))
     tc = _is_tc(q)
     if tc:
-        _tc_ready(q, k, v)
+        _tc_ready(q=q, k=k, v=v)
     lib = _tc_kernel() if tc else _kernel()
     with torch.cuda.device(q.device):
         launch = _launch_fwd_tc if tc else _launch_fwd
@@ -507,7 +575,9 @@ def flash_bwd_dq(q, k, v, out, lse, dout, causal, q_seg=None, k_seg=None,
                  scale=None):
     """Gradient of the attention input ``q``: ``(dq, delta)`` with
     ``delta = rowsum(dout * out)`` fp32 ``[B, H, Sq]``, which
-    :func:`flash_bwd_dkv` reads."""
+    :func:`flash_bwd_dkv` reads.  On the card bf16 and fp16 at head dim
+    64 or 128 run the tensor-core kernel; fp32, and head dims 16 and 32
+    in every dtype, the CUDA-core one."""
     _check(q, k, v, q_seg, k_seg, extra=(out, dout))
     scale = _scale(q, scale)
     if q.device.type == "cpu":
@@ -515,25 +585,39 @@ def flash_bwd_dq(q, k, v, out, lse, dout, causal, q_seg=None, k_seg=None,
         with torch.no_grad():
             return flash_bwd_dq_reference(q, k, v, out, lse, dout, causal,
                                           q_seg, k_seg, scale)
+    return _bwd_dq(flash_bwd_dq, _is_tc(q), q, k, v, out, lse, dout, causal,
+                   q_seg, k_seg, scale)
+
+
+def _bwd_dq(counter, tc, q, k, v, out, lse, dout, causal, q_seg, k_seg,
+            scale):
+    """Launch dq on the card: the tensor-core body when ``tc`` (TMA's
+    rule checked first), else the CUDA-core one; counts in ``counter``."""
     _kernel_ready(q)
     q, k, v, out, dout = _rows(q), _rows(k), _rows(v), _rows(out), _rows(dout)
     q_seg, k_seg = _segs(q_seg, k_seg)
     if _empty(q, k):
         return (torch.zeros(q.shape, dtype=q.dtype, device=q.device),
                 torch.zeros(lse.shape, device=q.device))
+    if tc:
+        _tc_ready(q=q, k=k, v=v, out=out, dout=dout)
     lse = lse.contiguous()
-    lib = _kernel()
+    lib = _bwd_tc_kernel() if tc else _kernel()
     with torch.cuda.device(q.device):
-        res = _launch_bwd_dq(lib, _stream(q), q, k, v, out, lse, dout,
-                             causal, q_seg, k_seg, scale)
-    flash_bwd_dq.launches += 1
+        launch = _launch_bwd_dq_tc if tc else _launch_bwd_dq
+        res = launch(lib, _stream(q), q, k, v, out, lse, dout, causal, q_seg,
+                     k_seg, scale)
+    counter.launches += 1
+    if counter is flash_bwd_dq:
+        counter.tc_launches += tc
     return res
 
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, causal, q_seg=None, k_seg=None,
                   scale=None):
     """Gradients of the attention inputs ``k`` and ``v``: ``(dk, dv)``.
-    Runs after :func:`flash_bwd_dq`, whose ``delta`` it reads."""
+    Runs after :func:`flash_bwd_dq`, whose ``delta`` it reads; routed as
+    :func:`flash_bwd_dq` is."""
     _check(q, k, v, q_seg, k_seg, extra=(dout,))
     scale = _scale(q, scale)
     if q.device.type == "cpu":
@@ -541,18 +625,30 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal, q_seg=None, k_seg=None,
         with torch.no_grad():
             return flash_bwd_dkv_reference(q, k, v, dout, lse, delta,
                                            causal, q_seg, k_seg, scale)
+    return _bwd_dkv(flash_bwd_dkv, _is_tc(q), q, k, v, dout, lse, delta,
+                    causal, q_seg, k_seg, scale)
+
+
+def _bwd_dkv(counter, tc, q, k, v, dout, lse, delta, causal, q_seg, k_seg,
+             scale):
+    """Launch dk/dv on the card, as :func:`_bwd_dq` launches dq."""
     _kernel_ready(q)
     q, k, v, dout = _rows(q), _rows(k), _rows(v), _rows(dout)
     q_seg, k_seg = _segs(q_seg, k_seg)
     if _empty(q, k):
         return (torch.zeros(k.shape, dtype=k.dtype, device=k.device),
                 torch.zeros(v.shape, dtype=v.dtype, device=v.device))
+    if tc:
+        _tc_ready(q=q, k=k, v=v, dout=dout)
     lse, delta = lse.contiguous(), delta.contiguous()
-    lib = _kernel()
+    lib = _bwd_tc_kernel() if tc else _kernel()
     with torch.cuda.device(q.device):
-        res = _launch_bwd_dkv(lib, _stream(q), q, k, v, dout, lse, delta,
-                              causal, q_seg, k_seg, scale)
-    flash_bwd_dkv.launches += 1
+        launch = _launch_bwd_dkv_tc if tc else _launch_bwd_dkv
+        res = launch(lib, _stream(q), q, k, v, dout, lse, delta, causal,
+                     q_seg, k_seg, scale)
+    counter.launches += 1
+    if counter is flash_bwd_dkv:
+        counter.tc_launches += tc
     return res
 
 
@@ -588,7 +684,7 @@ def flash_fwd_hpack(q, k, v, hp, causal, scale=None):
                            device=q.device))
     tc = _is_tc(q, (64,))
     if tc:
-        _tc_ready(q, k, v)
+        _tc_ready(q=q, k=k, v=v)
     lib = _tc_kernel() if tc else _kernel()
     with torch.cuda.device(q.device):
         launch = _launch_fwd_hpack_tc if tc else _launch_fwd_hpack
@@ -620,6 +716,24 @@ def _cuda_core_fwd(q, k, v, causal, q_seg=None, k_seg=None, scale=None,
                               k_seg, scale)
     _cuda_core_fwd.launches += 1
     return res
+
+
+def _cuda_core_flash_bwd(which, q, k, v, t, lse, u, causal, q_seg=None,
+                         k_seg=None, scale=None):
+    """The CUDA-core split backward of ``csrc/flash_attention.cu`` in any
+    dtype it takes: ``which`` ``"dq"`` (``t, u = out, dout``; returns
+    ``(dq, delta)``) or ``"dkv"`` (``t, u = dout, delta``; returns ``(dk,
+    dv)``).  The design the tensor-core pair replaced for bf16 and fp16
+    at head dims 64 and 128, kept for comparison on the card.  No
+    wrapper calls it; its launches count in
+    ``_cuda_core_flash_bwd.launches``, not in the wrappers'."""
+    _check(q, k, v, q_seg, k_seg, extra=(t, u) if which == "dq" else (t,))
+    scale = _scale(q, scale)
+    if which == "dq":
+        return _bwd_dq(_cuda_core_flash_bwd, False, q, k, v, t, lse, u,
+                       causal, q_seg, k_seg, scale)
+    return _bwd_dkv(_cuda_core_flash_bwd, False, q, k, v, t, lse, u, causal,
+                    q_seg, k_seg, scale)
 
 
 def flash_bwd_fused(q, k, v, out, lse, dout, causal, q_seg=None, k_seg=None,
@@ -663,13 +777,13 @@ WRAPPERS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
 BH_WRAPPERS = (flash_fwd_hpack, flash_bwd_fused)
 ALL_WRAPPERS = WRAPPERS + BH_WRAPPERS
 #: the wrappers with a tensor-core body (``tc_launches``)
-TC_WRAPPERS = (flash_fwd, flash_fwd_hpack)
+TC_WRAPPERS = (flash_fwd, flash_fwd_hpack, flash_bwd_dq, flash_bwd_dkv)
 
 
 def reset_counts():
     """Set every wrapper's ``launches``, ``tc_launches`` and
     ``plain_calls`` (and the fused backward's helper launches and the
-    CUDA-core comparison forward's launches) to 0."""
+    CUDA-core comparison forward's and backward's launches) to 0."""
     for fn in ALL_WRAPPERS:
         fn.launches = 0
         fn.plain_calls = 0
@@ -677,6 +791,7 @@ def reset_counts():
         fn.tc_launches = 0
     flash_bwd_fused.helper_launches = dict.fromkeys(FUSED_HELPERS, 0)
     _cuda_core_fwd.launches = 0
+    _cuda_core_flash_bwd.launches = 0
 
 
 reset_counts()

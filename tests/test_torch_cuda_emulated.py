@@ -174,6 +174,69 @@ def test_flash_kernels_are_deterministic(emu_libs):
         assert torch.equal(a, b)
 
 
+# fault C3: the CUDA-core split backward rounds dS (and, for dv, p) to
+# the input dtype before its products, as the TPU kernels do.  A
+# tolerance cannot see a missing rounding (it moves each sum by less than
+# the terms' rounding bound), so the count of elements equal in the
+# 16-bit dtype decides: the same rounded values part only where an fp32
+# sum taken in another order straddles a rounding boundary, while the
+# unrounded kernel left about 58% equal.  Every element must also lie
+# within one ulp plus half an ulp of the largest |reference|.
+SPLIT_SAME_MIN = 0.98
+
+
+def _rounded_split(q, k, v, g, lse, delta, causal, scale):
+    """dq, dk, dv of the TPU kernels' arithmetic, written out: dS and p
+    rounded to the input dtype before their products, fp32 sums."""
+    dt = q.dtype
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        s = s.masked_fill(~torch.ones(s.shape[-2:], dtype=torch.bool).tril(),
+                          float("-inf"))
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", g.float(), v.float())
+    ds = (p * (dp - delta[..., None]) * scale).to(dt).float()
+    p = p.to(dt).float()
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, k.float()).to(dt),
+            torch.einsum("bhqk,bqhd->bkhd", ds, q.float()).to(dt),
+            torch.einsum("bhqk,bqhd->bkhd", p, g.float()).to(dt))
+
+
+def _same_share(got, ref, what):
+    got, ref = got.float(), ref.float()
+    eps = torch.finfo(torch.bfloat16 if what.endswith("bf16") else
+                      torch.float16).eps
+    diff = (got - ref).abs()
+    bound = eps * ref.abs() + eps / 2 * ref.abs().max()
+    assert bool((diff <= bound).all()), (what, diff.max().item())
+    return (got == ref).float().mean().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_core_split_backward_rounds_as_the_tpu_kernels(emu_libs, dtype,
+                                                            causal):
+    gen = torch.Generator().manual_seed(12 + causal)
+    q, k, v, g = [torch.randn(1, 128, 2, 64, generator=gen).to(dtype)
+                  for _ in range(4)]
+    lib, scale = emu_libs["flash_attention"], 0.125
+    out, lse = fk._launch_fwd(lib, None, q, k, v, causal, None, None, scale)
+    dq, delta = fk._launch_bwd_dq(lib, None, q, k, v, out, lse, g, causal,
+                                  None, None, scale)
+    dk, dv = fk._launch_bwd_dkv(lib, None, q, k, v, g, lse, delta, causal,
+                                None, None, scale)
+    want = _rounded_split(q, k, v, g, lse, delta, causal, scale)
+    plain = (fk.flash_bwd_dq_reference(q, k, v, out, lse, g, causal)[0],
+             *fk.flash_bwd_dkv_reference(q, k, v, g, lse, delta, causal))
+    tag = "bf16" if dtype == torch.bfloat16 else "fp16"
+    for name, got, w, pl in zip(("dq", "dk", "dv"), (dq, dk, dv), want,
+                                plain):
+        assert got.dtype == dtype
+        share = _same_share(got, w, f"{name} {tag}")
+        assert share >= SPLIT_SAME_MIN, (name, share)
+        assert _same_share(pl, w, f"{name} plain {tag}") >= SPLIT_SAME_MIN
+
+
 # the [B*H, S, D] configuration's kernels: flash_fwd_hpack (K3) and
 # flash_bwd_fused (K4a).  "bh" cases run the [B*H, S, 1, D] layout the
 # public function hands them; otherwise heads are consecutive along B*H

@@ -248,8 +248,8 @@ def test_fused_plain_version_equals_the_split_pair_in_fp32():
 
 def test_fused_plain_version_rounds_where_the_jax_kernel_rounds():
     """In bf16, p is rounded before P^T dO and dS before dS^T Q and dS K
-    (pallas_ops.py:454-466), so dv differs from the split pair's
-    unrounded form by bf16 rounding, not more."""
+    (pallas_ops.py:454-466), as the split pair's plain versions round
+    them (``_dsoftmax``): dv is exactly the product of the rounded p."""
     q, k, v, g = [torch.from_numpy(a).bfloat16() for a in _inputs(8, s=64)]
     out, lse = fk.flash_fwd(q, k, v, False)
     dq, dk, dv = fk.flash_bwd_fused(q, k, v, out, lse, g, False)
