@@ -18,7 +18,12 @@ split flash backward's device time per ``flash_bwd_dq`` +
 ``flash_bwd_dkv`` pair from ``torch.profiler`` (every kernel the two
 wrappers launch, 20 pairs at the training shape B=8 S=1024 H=12 D=64
 causal on ``[B, S, H, D]`` views, bf16 and fp16; host work not
-counted).
+counted); ``bwd fused bf16`` and ``bwd fused ernie bf16``: the fused
+flash backward's device time per ``flash_bwd_fused`` call (its pre-pass,
+sweep and dq cast; 20 calls at GPT-2-small's ``[96, 1024, 64]`` causal
+and ERNIE-3.0-base's ``[192, 512, 64]`` non-causal ``[B*H, S, D]``
+shapes); ``lmce fwd bf16``: the fused lm-head cross-entropy forward's
+device time per ``lmce_fwd`` call (10 calls at N=8192 V=50304 D=768).
 ``--phases`` picks a comma-separated subset (default: the training and
 serving phases); ``--profile`` runs the serving phases under
 ``torch.profiler`` and adds their device-busy ms and top kernels (the
@@ -44,7 +49,8 @@ PHASES = ("train", "train fp16", "train fused lmce", "train bh",
           "train ernie bh")
 SERVING = ("serve fp32", "serve bf16")
 K1 = ("k1 fp32", "k1 bf16")
-BWD = ("bwd bf16", "bwd fp16")
+BWD = ("bwd bf16", "bwd fp16", "bwd fused bf16", "bwd fused ernie bf16",
+       "lmce fwd bf16")
 UNITS = {**{p: "step_ms" for p in PHASES},
          **{p: "tokens_per_s" for p in SERVING},
          **{p: "device_us" for p in K1},
@@ -125,6 +131,45 @@ def bwd_device_ms(dtype):
     return total / 20 / 1e3
 
 
+def device_ms_per(fn, iters):
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0))
+                for e in prof.key_averages())
+    return total / iters / 1e3
+
+
+def fused_device_ms(bh, s, causal):
+    from paddle_tpu_torch.ops import flash_attention_kernel as fk
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q, k, v, g = [torch.randn((bh, s, 1, 64), generator=gen,
+                              device=dev).bfloat16() for _ in range(4)]
+    out, lse = fk.flash_fwd(q, k, v, causal)
+    return device_ms_per(
+        lambda: fk.flash_bwd_fused(q, k, v, out, lse, g, causal), 20)
+
+
+def lmce_fwd_device_ms():
+    from paddle_tpu_torch.ops import lmce_kernel as lk
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    h = torch.randn((8192, 768), generator=gen, device=dev).bfloat16()
+    w = (torch.randn((50304, 768), generator=gen, device=dev)
+         * 0.05).bfloat16()
+    labels = torch.randint(0, 50304, (8192,), generator=gen, device=dev)
+    return device_ms_per(lambda: lk.lmce_fwd(h, w, labels), 10)
+
+
 def serve(dtype, dn):
     if not {profile}:
         return c.serving_phase(torch, seed, dtype, dn, False), {{}}
@@ -143,6 +188,13 @@ def serve(dtype, dn):
 for dn, dtype in (("bf16", torch.bfloat16), ("fp16", torch.float16)):
     if "bwd " + dn in want:
         out["bwd " + dn] = {{"device_ms": bwd_device_ms(dtype)}}
+if "bwd fused bf16" in want:
+    out["bwd fused bf16"] = {{"device_ms": fused_device_ms(96, 1024, True)}}
+if "bwd fused ernie bf16" in want:
+    out["bwd fused ernie bf16"] = {{
+        "device_ms": fused_device_ms(192, 512, False)}}
+if "lmce fwd bf16" in want:
+    out["lmce fwd bf16"] = {{"device_ms": lmce_fwd_device_ms()}}
 for dn, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
     if "k1 " + dn in want:
         out["k1 " + dn] = {{"device_us": k1_device_us(dtype)}}

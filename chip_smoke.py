@@ -30,8 +30,8 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
    and, as a yardstick only, ``scaled_dot_product_attention`` forward
    and forward+backward at the main shape in bf16;
 4. ``[lmce]`` holds the three fused lm-head cross-entropy kernels
-   (forward, dh, dW; the backward of bf16 operands is the tensor-core
-   kernel, of fp32 the CUDA-core one) against their plain versions
+   (forward, dh, dW; for bf16 operands the tensor-core kernels, for
+   fp32 the CUDA-core ones) against their plain versions
    computed in fp32 on the same values: at the training path's shape
    (N=8192, V=50304, D=768) in bf16 (within 2e-2 x max(|ref|, 1)) and
    fp32 (within 1e-4 x max(|ref|, 1)), then in fp32 at N=1000 (ragged
@@ -57,8 +57,9 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
 8. ``[train fused lmce]`` repeats 7 with ``enable_fused_lmce`` (the
    lm head and the loss in the three lmce kernels, the logits never in
    device memory): also checks each lmce kernel launched once per
-   step, the backward's as the tensor-core kernels (``.tc``) and the
-   CUDA-core backward never, the first loss within 1e-2 relative of
+   step, all three as the tensor-core kernels (``.tc``) and the
+   CUDA-core forward and backward never, the first loss within 1e-2
+   relative of
    7's and a lower peak; ``[train fp16]`` repeats 7 after
    ``amp.decorate(level="O2")`` with its default dtype, float16, and
    no GradScaler: finite losses, the launch checks of 7 and the first
@@ -113,11 +114,24 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
     shape by CUDA events and by device time (``torch.profiler``) beside
     the CUDA-core pair it replaced for 16-bit inputs, the plain
     versions and, as a yardstick only, SDPA's backward alone;
+12b. ``[flash tc fused]`` holds the tensor-core fused backward
+    (``flash_bwd_fused`` on bf16 and fp16 at D 64/128, the fused sweep of
+    ``csrc/flash_bwd_sm90.cu``) against ``flash_bwd_fused_reference``
+    element by element with the same gate at GPT's ``[96, 1024, 64]``
+    causal and ERNIE's ``[192, 512, 64]`` non-causal, segment ids with a
+    fully-masked row (dq exactly 0), S=1000, Sq=384 != Sk=640 and D=128,
+    with the delta = 0 and unrounded controls at GPT's shape (which must
+    fail), two runs' dk and dv bitwise equal (dq's atomic reduce-adds may
+    reorder); prints registers and spills (none allowed); times it at
+    both main shapes by device time beside the CUDA-core sweep it
+    replaced for 16-bit inputs, the tensor-core split pair and, as a
+    yardstick only, SDPA's backward alone;
 13. ``[train bh]`` repeats 7 with ``PADDLE_TORCH_FLASH_NO_PACKED=1``,
     ``HEADPACK=2`` and ``FUSED_BWD=1``: the two kernels launched 12
-    times per step (the fused backward's pre-pass and bf16 epilogue as
-    often), the default path's three flash kernels never, no plain
-    call, the first loss within 1e-2 relative of 7's;
+    times per step, both as the tensor-core kernels (the fused
+    backward's pre-pass and bf16 epilogue as often), the default path's
+    three flash kernels never, no plain call, the first loss within
+    1e-2 relative of 7's;
 14. ``[train ernie bh]`` trains ERNIE-3.0-base MLM (12 layers, hidden
     768, 12 heads, vocab 40000, random weights from ``--seed``) at
     B=16, S=512, bf16 O2, AdamW, dropout 0, under the same knobs,
@@ -141,6 +155,20 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
     prints ptxas's registers and spills; times both kernels at the main
     shape beside the CUDA-core backward they replaced for 16-bit
     operands and the plain versions, with the bound and TFLOP/s;
+16b. ``[lmce tc fwd]`` holds the tensor-core forward
+    (``csrc/lmce_fwd_sm90.cu``: 128 h rows a CTA, W streamed through a
+    TMA ring, the vocabulary split into slices merged by a second pass)
+    against ``lmce_reference`` per row (:func:`lmce_fwd_gate`: fp32 sums
+    of D products and of V exps in other orders) at the main shape and
+    N=333 V=786 D=200, N=1000 V=1000 D=64 and N=1000 V=786 D=2048 (h
+    streamed), bf16 and fp16: ignored rows exactly 0, two runs bitwise
+    equal, and at V=786 D=200 three broken forwards (the ragged
+    vocabulary edge dropped, the label column off by one, one slice left
+    out of the combine) fail the gate; counts ``HGMMA``, prints
+    registers and spills (none allowed); times it at the main shape by
+    device time and events beside the CUDA-core forward it replaced for
+    16-bit operands, the plain version and, as a yardstick only,
+    ``h @ W.T`` with fp32 ``F.cross_entropy``;
 17. ``[fp16]`` holds every kernel against its plain version in fp16
     (within 1e-2 x max(|ref|, 1)): K1, the flash forward (tensor-core
     and CUDA-core), dq/dkv, the fused backward, the head-packed forward
@@ -155,13 +183,14 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
 19. prints the kernels' JSON line, the card line, and last the line
     ``{"ok": true, "device": {...}}``.
 
-In every training phase each 16-bit forward and split-backward launch
-must be the tensor-core kernel's (``<wrapper>.tc_launches`` equal to
-``launches``: 12 per step each) and the CUDA-core comparison entries,
-which the ``[flash tc]`` and ``[flash tc bwd]`` timings call through
+In every training phase each 16-bit flash launch (forward, split and
+fused backward) must be the tensor-core kernel's
+(``<wrapper>.tc_launches`` equal to ``launches``: 12 per step each) and
+the CUDA-core comparison entries, which the timings call through
 ``_cuda_core_fwd`` and ``_cuda_core_flash_bwd``, must not launch;
-likewise every 16-bit lmce backward launch is the tensor-core kernel's
-and ``lmce_kernel._cuda_core_bwd`` never launches.
+likewise every 16-bit lmce launch (forward, dh, dW) is the tensor-core
+kernel's and ``lmce_kernel._cuda_core_fwd`` / ``_cuda_core_bwd`` never
+launch.
 
 Any failed check raises, so the script exits non-zero; without a card,
 or without the repository beside it, it exits non-zero before any
@@ -898,37 +927,9 @@ def tc_bwd_compare(torch, fk, tag, q, k, v, g, causal, qseg=None, kseg=None,
         f"ratio {d_ratio:.3e} (<= 1); two runs bitwise equal: {same}")
     res = {"errs": errs, "ratios": ratios, "shares": shares}
     if controls:
-        # the same gate on two broken backwards: delta = 0, and dS and p
-        # left unrounded (fp32 into the products)
-        scale = 1.0 / float(q.shape[-1]) ** 0.5
-        _, ds0 = fk._dsoftmax(q, k, v, g, lse, torch.zeros_like(delta),
-                              causal, qseg, kseg, scale)
-        p32 = fk._probs(q, k, lse, causal, qseg, kseg, scale)
-        dp = torch.einsum("bqhd,bkhd->bhqk", g.float(), v.float())
-        ds32 = p32 * (dp - delta[..., None]) * scale
-        del dp
-        bad = {
-            "delta=0": {
-                "dq": torch.einsum("bhqk,bkhd->bqhd", ds0, k.float()),
-                "dk": torch.einsum("bhqk,bqhd->bkhd", ds0, q.float())},
-            "unrounded": {
-                "dq": torch.einsum("bhqk,bkhd->bqhd", ds32, k.float()),
-                "dk": torch.einsum("bhqk,bqhd->bkhd", ds32, q.float()),
-                "dv": torch.einsum("bhqk,bqhd->bkhd", p32, g.float())},
-        }
-        del ds0, ds32, p32
-        res["controls"] = {}
-        for cname, grads in bad.items():
-            for name, t in grads.items():
-                t = t.to(q.dtype)
-                _, ratio, share = flash_bwd_gate(torch, t, ref[name],
-                                                 spread[name])
-                old = _err(t, ref[name])[1]
-                res["controls"][f"{cname} {name}"] = (ratio, share, old)
-        line += "; controls (fail, as they must): " + "; ".join(
-            f"{n} ratio {r:.3e} equal {sh:.5f} old-gate {o:.3e} "
-            f"({'passes' if o <= FLASH_BF16_TOL else 'fails'} 2e-2 x "
-            "max(|ref|, 1))" for n, (r, sh, o) in res["controls"].items())
+        res["controls"] = bwd_controls(torch, fk, q, k, v, g, lse, delta,
+                                       causal, qseg, kseg, ref, spread)
+        line += controls_line(res["controls"])
     print(line, flush=True)
     for cname, (ratio, share, _) in res.get("controls", {}).items():
         check(not flash_bwd_passes(q.dtype, ratio, share),
@@ -942,6 +943,45 @@ def tc_bwd_compare(torch, fk, tag, q, k, v, g, causal, qseg=None, kseg=None,
           f"{errs['delta']:.3e}, ratio {d_ratio:.3e}")
     check(same, f"[flash tc bwd] {tag}: two runs differ")
     return res, dq
+
+
+def bwd_controls(torch, fk, q, k, v, g, lse, delta, causal, qseg, kseg, ref,
+                 spread):
+    """The gate on two broken backwards: delta = 0, and dS and p left
+    unrounded (fp32 into the products).  Returns ``{"<control> <grad>":
+    (ratio, share equal, old-gate relative error)}``."""
+    scale = 1.0 / float(q.shape[-1]) ** 0.5
+    _, ds0 = fk._dsoftmax(q, k, v, g, lse, torch.zeros_like(delta),
+                          causal, qseg, kseg, scale)
+    p32 = fk._probs(q, k, lse, causal, qseg, kseg, scale)
+    dp = torch.einsum("bqhd,bkhd->bhqk", g.float(), v.float())
+    ds32 = p32 * (dp - delta[..., None]) * scale
+    del dp
+    bad = {
+        "delta=0": {
+            "dq": torch.einsum("bhqk,bkhd->bqhd", ds0, k.float()),
+            "dk": torch.einsum("bhqk,bqhd->bkhd", ds0, q.float())},
+        "unrounded": {
+            "dq": torch.einsum("bhqk,bkhd->bqhd", ds32, k.float()),
+            "dk": torch.einsum("bhqk,bqhd->bkhd", ds32, q.float()),
+            "dv": torch.einsum("bhqk,bqhd->bkhd", p32, g.float())},
+    }
+    del ds0, ds32, p32
+    out = {}
+    for cname, grads in bad.items():
+        for name, t in grads.items():
+            t = t.to(q.dtype)
+            _, ratio, share = flash_bwd_gate(torch, t, ref[name],
+                                             spread[name])
+            out[f"{cname} {name}"] = (ratio, share, _err(t, ref[name])[1])
+    return out
+
+
+def controls_line(controls):
+    return "; controls (fail, as they must): " + "; ".join(
+        f"{n} ratio {r:.3e} equal {sh:.5f} old-gate {o:.3e} "
+        f"({'passes' if o <= FLASH_BF16_TOL else 'fails'} 2e-2 x "
+        "max(|ref|, 1))" for n, (r, sh, o) in controls.items())
 
 
 def device_ms(torch, fn, iters, groups):
@@ -1070,9 +1110,10 @@ def flash_tc_bwd_phase(torch, seed, nvcc_log):
                                                    True)),
         }
         with torch.no_grad():
+            # flash_bwd_tc_kernel<T, D, mode>: mode 0 is dq, 1 dkv
             dev_ms = device_ms(torch, pair, 20, {
-                "flash_bwd_dq": ("false>", "Lb0E"),
-                "flash_bwd_dkv": ("true>", "Lb1E"),
+                "flash_bwd_dq": ("64, 0>", "128, 0>", "Li0EEEv"),
+                "flash_bwd_dkv": ("64, 1>", "128, 1>", "Li1EEEv"),
                 "all": ()})
             core_dev = device_ms(torch, core_pair, 5, {
                 "flash_bwd_dq": ("flash_bwd_dq_kernel",),
@@ -1123,6 +1164,201 @@ def flash_tc_bwd_phase(torch, seed, nvcc_log):
               f"events, {lib_bwd_dev:.5f} ms device; sdpa forward+backward "
               f"{lib_fb_ms:.5f} ms", flush=True)
         del o, leaves
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core fused backward (K4a)
+# ---------------------------------------------------------------------------
+# flash_bwd_fused_tc is held by flash_bwd_gate as the split pair is: dk
+# and dv come from the same fp32 sums in one fixed order, so the same
+# thresholds hold.  dq's partials (one per kv warpgroup of 64 rows) are
+# added through fp32 atomics in an order that changes from run to run;
+# that moves dq's fp32 sum by a few ulps of fp32, far inside the bound's
+# e_dS term, and its 16-bit rounding only where the sum straddles a
+# boundary, so dq is held to the same share of equal elements too.
+
+
+def tc_fused_compare(torch, fk, tag, q, k, v, g, causal, qseg=None,
+                     kseg=None, controls=False):
+    """The tensor-core ``flash_bwd_fused`` against
+    ``flash_bwd_fused_reference`` on the same 16-bit values (the
+    tensor-core forward's out and lse), through :func:`flash_bwd_gate`;
+    a second run's dk and dv bitwise equal (dq's atomics may reorder);
+    ``controls``: the delta = 0 and unrounded backwards must fail the
+    gate.  Returns the readings and the gradients."""
+    before = fk.flash_bwd_fused.tc_launches
+    out, lse = fk.flash_fwd(q, k, v, causal, qseg, kseg)
+    got = fk.flash_bwd_fused(q, k, v, out, lse, g, causal, qseg, kseg)
+    again = fk.flash_bwd_fused(q, k, v, out, lse, g, causal, qseg, kseg)
+    torch.cuda.synchronize()
+    check(fk.flash_bwd_fused.tc_launches == before + 2,
+          f"[flash tc fused] {tag}: the tensor-core sweep did not launch")
+    ref = dict(zip(("dq", "dk", "dv"), fk.flash_bwd_fused_reference(
+        q, k, v, out, lse, g, causal, qseg, kseg)))
+    delta = fk._delta(out, g).contiguous()
+    spread = flash_bwd_terms(torch, fk, q, k, v, g, out, lse, delta, causal,
+                             qseg, kseg)
+    errs, ratios, shares = {}, {}, {}
+    for name, t in zip(("dq", "dk", "dv"), got):
+        check(t.dtype == q.dtype and bool(torch.isfinite(t.float()).all()),
+              f"[flash tc fused] {tag}: {name} dtype {t.dtype} or not "
+              "finite")
+        errs[name], ratios[name], shares[name] = flash_bwd_gate(
+            torch, t, ref[name], spread[name])
+    dkv_same = torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    dq_rerun = (got[0].float() - again[0].float()).abs().max().item()
+    dq_rerun_equal = (got[0] == again[0]).float().mean().item()
+    sm = TC_BWD_SAME_MIN[str(q.dtype).rsplit(".", 1)[-1]]
+    line = (f"[flash tc fused] {tag}: max_abs_err " + " ".join(
+        f"{n}={e:.3e}" for n, e in errs.items()) + "; gate ratio " + " ".join(
+        f"{n}={r:.3e}" for n, r in ratios.items()) + " (<= 1); equal " +
+        " ".join(f"{n}={x:.5f}" for n, x in shares.items()) +
+        f" (>= {sm}); two runs: dk, dv bitwise equal {dkv_same}, dq "
+        f"max diff {dq_rerun:.3e} ({dq_rerun_equal:.5f} equal)")
+    res = {"errs": errs, "ratios": ratios, "shares": shares,
+           "dq_rerun_equal": dq_rerun_equal}
+    if controls:
+        res["controls"] = bwd_controls(torch, fk, q, k, v, g, lse, delta,
+                                       causal, qseg, kseg, ref, spread)
+        line += controls_line(res["controls"])
+    print(line, flush=True)
+    for cname, (ratio, share, _) in res.get("controls", {}).items():
+        check(not flash_bwd_passes(q.dtype, ratio, share),
+              f"[flash tc fused] {tag}: the gate passes the {cname} "
+              f"control (ratio {ratio:.3e}, equal {share:.5f})")
+    for name in ("dq", "dk", "dv"):
+        check(flash_bwd_passes(q.dtype, ratios[name], shares[name]),
+              f"[flash tc fused] {tag}: {name} fails the gate (ratio "
+              f"{ratios[name]:.3e}, equal {shares[name]:.5f})")
+    check(dkv_same, f"[flash tc fused] {tag}: two runs' dk or dv differ")
+    return res, got
+
+
+def flash_tc_fused_phase(torch, seed, nvcc_log):
+    """``[flash tc fused]``: the tensor-core fused backward against its
+    plain version at GPT's and ERNIE's ``[B*H, S, D]`` shapes and awkward
+    ones, in bf16 and fp16, with the two controls; times at both main
+    shapes by device time beside the CUDA-core sweep it replaced for
+    16-bit inputs, SDPA's backward alone and the tensor-core split
+    pair."""
+    from paddle_tpu_torch import _build
+    from paddle_tpu_torch.ops import flash_attention_kernel as fk
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 70)
+    hgmma, regs, spills = sass_summary(_build.library_path("flash_bwd_sm90"),
+                                       nvcc_log)
+    print(f"[flash tc fused] {TC_BWD_SOURCE} (dq, dkv and the fused sweep): "
+          f"{hgmma} HGMMA instructions in the SASS; ptxas registers per "
+          f"kernel {regs}, spill store bytes {spills}", flush=True)
+    check(not any(spills), f"[flash tc fused] ptxas spills {spills}")
+    res = {"hgmma": hgmma, "registers": regs, "spill_bytes": spills}
+    shapes = {"gpt": (TRAIN_B * 12, TRAIN_S, True),
+              "ernie": (ERNIE_B * 12, ERNIE_S, False)}
+    main = {}
+    for dtype in (torch.bfloat16, torch.float16):
+        dn = "bf16" if dtype == torch.bfloat16 else "fp16"
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+        for model, (BH, S, causal) in shapes.items():
+            args = [rnd(BH, S, 1, 64) for _ in range(4)]
+            r, _ = tc_fused_compare(
+                torch, fk, f"{dn} {model} [{BH}, {S}, 64] "
+                f"{'causal' if causal else 'non-causal'}", *args, causal,
+                controls=model == "gpt")
+            res[f"{dn} {model}"] = r
+            main[(dn, model)] = args
+        qseg = torch.zeros((8, 300), dtype=torch.int32, device=dev)
+        qseg[:, 150:] = 1
+        qseg[:, 7] = 9                                 # sees no key
+        kseg = torch.zeros((8, 300), dtype=torch.int32, device=dev)
+        kseg[:, 150:] = 1
+        _, got = tc_fused_compare(
+            torch, fk, f"{dn} [8, 300, 64] segment ids + a fully-masked "
+            "row", *[rnd(8, 300, 1, 64) for _ in range(4)], False, qseg,
+            kseg)
+        check(bool((got[0][:, 7] == 0).all()),
+              f"[flash tc fused] {dn} masked row: dq not exactly 0")
+        tc_fused_compare(torch, fk, f"{dn} S=1000 causal (ragged) "
+                         "[8, 1000, 64]",
+                         *[rnd(8, 1000, 1, 64) for _ in range(4)], True)
+        tc_fused_compare(torch, fk, f"{dn} non-causal Sq=384 Sk=640 H=4",
+                         rnd(2, 384, 4, 64), rnd(2, 640, 4, 64),
+                         rnd(2, 640, 4, 64), rnd(2, 384, 4, 64), False)
+        tc_fused_compare(torch, fk, f"{dn} D=128 causal S=512 H=4",
+                         *[rnd(2, 512, 4, 128) for _ in range(4)], True)
+        tc_fused_compare(torch, fk, f"{dn} D=128 non-causal Sq=200 Sk=333",
+                         rnd(2, 200, 3, 128), rnd(2, 333, 3, 128),
+                         rnd(2, 333, 3, 128), rnd(2, 200, 3, 128), False)
+    print("[flash tc fused] fully-masked row: dq exactly 0", flush=True)
+
+    # device times at both main shapes (bf16; fp16 at GPT's)
+    flush_buf = torch.empty(128 * 1024 * 1024 // 4, device=dev)
+    flush = flush_buf.zero_
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for (dn, model), (q, k, v, g) in main.items():
+        if dn == "fp16" and model == "ernie":
+            continue
+        BH, S, causal = shapes[model]
+        out, lse = fk.flash_fwd(q, k, v, causal)
+        _, delta = fk.flash_bwd_dq(q, k, v, out, lse, g, causal)
+        leaves = [t.detach().transpose(1, 2).requires_grad_()
+                  for t in (q, k, v)]
+        o_lib = sdpa(*leaves, is_causal=causal)
+        gt = g.transpose(1, 2)
+
+        def fused():
+            fk.flash_bwd_fused(q, k, v, out, lse, g, causal)
+
+        def core():
+            fk._cuda_core_flash_bwd("fused", q, k, v, out, lse, g, causal)
+
+        def pair():
+            fk.flash_bwd_dq(q, k, v, out, lse, g, causal)
+            fk.flash_bwd_dkv(q, k, v, g, lse, delta, causal)
+
+        with torch.no_grad():
+            dev_ms = device_ms(torch, fused, 20, {
+                "sweep": ("flash_bwd_tc_kernel",), "all": ()})
+            core_dev = device_ms(torch, core, 5, {
+                "sweep": ("flash_bwd_fused_kernel",), "all": ()})
+            pair_dev = device_ms(torch, pair, 20, {"all": ()})["all"]
+            ms = time_cuda(torch, fused, 20, flush=flush)
+            core_ms = time_cuda(torch, core, 5, warmup=2, flush=flush)
+            plain_ms = time_cuda(torch, lambda: fk.flash_bwd_fused_reference(
+                q, k, v, out, lse, g, causal), 5, warmup=2, flush=flush)
+        lib_bwd_dev = device_ms(torch, lambda: torch.autograd.grad(
+            o_lib, leaves, gt, retain_graph=True), 20, {"all": ()})["all"]
+        del o_lib
+        flops, nbytes = fk.kernel_work("flash_bwd_fused", BH, 1, S, S, 64,
+                                       causal, 2)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS_PER_S * 1e3
+        r = {"ms": ms, "device_ms": dev_ms["all"],
+             "sweep_device_ms": dev_ms["sweep"], "cuda_core_ms": core_ms,
+             "cuda_core_device_ms": core_dev["all"],
+             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "library_bwd_device_ms": lib_bwd_dev,
+             "pair_device_ms": pair_dev, "flops": flops, "bytes": nbytes,
+             "device_tflops": flops / (dev_ms["all"] * 1e-3) / 1e12,
+             "max_abs_err": max(res[f"{dn} {model}"]["errs"].values())}
+        res[f"{dn} {model}"].update(r)
+        print(f"[flash tc fused] flash_bwd_fused_tc {dn} {model} [{BH}, {S}, "
+              f"64] {'causal' if causal else 'non-causal'}: device_ms="
+              f"{r['device_ms']:.5f} (sweep {r['sweep_device_ms']:.5f}; "
+              f"{r['device_tflops']:.1f} TFLOP/s) kernel_ms={ms:.5f} "
+              f"cuda_core device_ms={r['cuda_core_device_ms']:.5f} "
+              f"({r['cuda_core_device_ms'] / r['device_ms']:.2f}x; events "
+              f"{core_ms:.5f}) plain_ms={plain_ms:.5f} bound_ms="
+              f"{r['bound_ms']:.5f} ({r['bound_by']}: {flops} flop, {nbytes} "
+              f"bytes); tensor-core split pair device_ms={pair_dev:.5f}; "
+              f"library yardstick (not used by the port): sdpa backward "
+              f"alone device_ms={lib_bwd_dev:.5f} "
+              f"({r['device_ms'] / lib_bwd_dev:.2f}x)", flush=True)
     return res
 
 
@@ -1550,13 +1786,14 @@ def lmce_tc_compare(torch, lk, tag, h, w, labels, g, control=False):
     ``control``: the S-free gradient (:func:`lmce_s_free`) must fail
     the same gate.  Returns the max abs errors and the gate's ratios."""
     _, lse = lk.lmce_reference(h, w, labels)
-    before = [f.tc_launches for f in lk.TC_WRAPPERS]
+    bwd = (lk.lmce_bwd_dh, lk.lmce_bwd_dw)
+    before = [f.tc_launches for f in bwd]
     got = {"dh": lk.lmce_bwd_dh(h, w, labels, lse, g),
            "dw": lk.lmce_bwd_dw(h, w, labels, lse, g)}
     again = {"dh": lk.lmce_bwd_dh(h, w, labels, lse, g),
              "dw": lk.lmce_bwd_dw(h, w, labels, lse, g)}
     torch.cuda.synchronize()
-    check([f.tc_launches for f in lk.TC_WRAPPERS] == [b + 2 for b in before],
+    check([f.tc_launches for f in bwd] == [b + 2 for b in before],
           f"[lmce tc] {tag}: the tensor-core kernels did not launch")
     errs, ratios, controls = {}, {}, {}
     for name, plain in (("dh", lk.lmce_bwd_dh_reference),
@@ -1676,6 +1913,201 @@ def lmce_tc_phase(torch, seed, nvcc_log):
     return res
 
 
+LMCE_FWD_TC_SOURCE = "paddle_tpu_torch/csrc/lmce_fwd_sm90.cu"
+# The tensor-core forward's loss and lse are held per row against the
+# plain version on the same 16-bit values:
+#   |lse - ref| <= D eps32 A + V eps32 + 4 eps32 |ref|
+#   |loss - ref| <= 2 D eps32 A + V eps32 + 4 eps32 |ref|
+# with A = max_v sum_d |h_d| |w_vd|: both sides sum each logit's D
+# products in fp32 in other orders (each within (D - 1) eps32 / 2 of
+# sum|terms|, and lse moves by at most the largest logit's error, the
+# loss by that and the picked logit's), the sum-exp over V terms in
+# another order and with ex2.approx (a relative error of at most V eps32
+# between the two), and the final log and subtraction round once or
+# twice.  Ignored rows must be exactly 0.
+LMCE_FWD_RAGGED = (("N=333 V=786 D=200", 333, 786, 200, False),
+                   ("N=1000 V=1000 D=64, every 4th label -100", 1000, 1000,
+                    64, True),
+                   ("N=1000 V=786 D=2048 (h streamed), every 4th label "
+                    "-100", 1000, 786, 2048, True))
+
+
+def lmce_fwd_gate(torch, got, ref, h, w, labels):
+    """The largest ``|err| / bound`` of a forward's ``(loss, lse)``
+    against the plain ``ref`` over the rows (the bound above); passes at
+    ``<= 1``.  Rows whose plain loss is the unmatched-label ``-NEG`` are
+    held to the same relative bound."""
+    eps = torch.finfo(torch.float32).eps
+    D, V = h.shape[1], w.shape[0]
+    a = (h.float().abs() @ w.float().abs().t()).amax(dim=-1)
+    base = D * eps * a + V * eps
+    ratio = 0.0
+    for t, r, extra in ((got[1], ref[1], 0.0), (got[0], ref[0], D * eps * a)):
+        diff = (t.float() - r.float()).abs()
+        bound = base + extra + 4 * eps * r.float().abs()
+        ratio = max(ratio, torch.where(diff == 0, torch.zeros_like(diff),
+                                       diff / bound).max().item())
+    return ratio
+
+
+def lmce_fwd_controls(torch, lk, slices, h, w, labels):
+    """Three broken forwards the gate must fail: the ragged vocabulary
+    edge left out, the label column off by one, and the split forward's
+    combine without one slice's partial."""
+    V = w.shape[0]
+    lab = labels.long()
+    part = lk.lmce_fwd_partials(h, w, labels, slices)
+    keep = [k for k in range(slices) if k != slices // 2]
+    return {
+        "ragged edge dropped": lk.lmce_reference(
+            h, w[:V - V % lk.FWD_VOCAB_TILE], labels),
+        "label column + 1": lk.lmce_reference(
+            h, w, torch.where(lab >= 0, lab + 1, lab)),
+        "one slice not combined": lk.lmce_fwd_combine(part[:, keep], labels),
+    }
+
+
+def lmce_tc_fwd_compare(torch, lk, tag, h, w, labels, controls=False):
+    """The tensor-core ``lmce_fwd`` against ``lmce_reference`` on the same
+    16-bit values through :func:`lmce_fwd_gate`; ignored rows exactly 0;
+    a second run bitwise equal; ``controls`` (a ragged V): the three
+    broken forwards of :func:`lmce_fwd_controls` fail the gate."""
+    before = lk.lmce_fwd.tc_launches
+    got = lk.lmce_fwd(h, w, labels)
+    again = lk.lmce_fwd(h, w, labels)
+    torch.cuda.synchronize()
+    check(lk.lmce_fwd.tc_launches == before + 2,
+          f"[lmce tc fwd] {tag}: the tensor-core forward did not launch")
+    ref = lk.lmce_reference(h, w, labels)
+    for name, t in zip(("loss", "lse"), got):
+        check(t.dtype == torch.float32 and bool(torch.isfinite(t).all()),
+              f"[lmce tc fwd] {tag}: {name} dtype {t.dtype} or not finite")
+    ratio = lmce_fwd_gate(torch, got, ref, h, w, labels)
+    errs = {n: (a - b).abs().max().item()
+            for n, a, b in zip(("loss", "lse"), got, ref)}
+    same = torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    ignored = labels < 0
+    n_ignored = int(ignored.sum().item())
+    line = (f"[lmce tc fwd] {tag}: max_abs_err loss={errs['loss']:.3e} "
+            f"lse={errs['lse']:.3e}; gate ratio {ratio:.3e} (<= 1); two runs "
+            f"bitwise equal: {same}; {n_ignored} ignored rows exactly 0")
+    ctl = {}
+    if controls:
+        sms = torch.cuda.get_device_properties(h.device).multi_processor_count
+        slices = lk.vocab_slices(h.shape[0], w.shape[0], sms)
+        check(slices > 1 and w.shape[0] % lk.FWD_VOCAB_TILE,
+              f"[lmce tc fwd] {tag}: the controls need a ragged V and "
+              "several slices")
+        for name, bad in lmce_fwd_controls(torch, lk, slices, h, w,
+                                           labels).items():
+            ctl[name] = lmce_fwd_gate(torch, bad, ref, h, w, labels)
+        line += "; controls (fail, as they must): " + "; ".join(
+            f"{n} ratio {r:.3e}" for n, r in ctl.items())
+    print(line, flush=True)
+    for name, r in ctl.items():
+        check(r > 1.0, f"[lmce tc fwd] {tag}: the gate passes the {name} "
+              f"control (ratio {r:.3e})")
+    check(ratio <= 1.0, f"[lmce tc fwd] {tag}: gate ratio {ratio:.3e} > 1")
+    check(same, f"[lmce tc fwd] {tag}: two runs differ")
+    if n_ignored:
+        check(bool((got[0][ignored] == 0).all()),
+              f"[lmce tc fwd] {tag}: ignored rows not exactly 0")
+    return errs, ratio
+
+
+def lmce_tc_fwd_phase(torch, seed, nvcc_log):
+    """``[lmce tc fwd]``: the tensor-core forward (``csrc/lmce_fwd_sm90.cu``)
+    against its plain version at the main shape and the ragged shapes, in
+    bf16 and fp16, with the controls; the SASS's ``HGMMA`` count; times
+    at the main shape (device time and events) beside the CUDA-core
+    forward it replaced for 16-bit operands, the bound and the library
+    call."""
+    from paddle_tpu_torch import _build
+    from paddle_tpu_torch.ops import lmce_kernel as lk
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 80)
+
+    def inputs(N, V, D, dtype, ignore=False):
+        h = torch.randn((N, D), generator=gen, device=dev)
+        w = torch.randn((V, D), generator=gen, device=dev) * 0.05
+        labels = torch.randint(0, V, (N,), generator=gen, device=dev)
+        if ignore:
+            labels[::4] = -100
+        return h.to(dtype), w.to(dtype), labels
+
+    hgmma, regs, spills = sass_summary(_build.library_path("lmce_fwd_sm90"),
+                                       nvcc_log)
+    print(f"[lmce tc fwd] {LMCE_FWD_TC_SOURCE}: {hgmma} HGMMA instructions "
+          f"in the SASS; ptxas registers per kernel {regs}, spill store "
+          f"bytes {spills}", flush=True)
+    check(hgmma > 0, "[lmce tc fwd] no HGMMA instruction in the SASS")
+    check(not any(spills), f"[lmce tc fwd] ptxas spills {spills}")
+    res = {"hgmma": hgmma, "registers": regs, "spill_bytes": spills}
+    N, V, D = TRAIN_B * TRAIN_S, LMCE_V, LMCE_D
+    flush_buf = torch.empty(128 * 1024 * 1024 // 4, device=dev)
+    flush = flush_buf.zero_
+    ce = torch.nn.functional.cross_entropy
+    for dtype in (torch.bfloat16, torch.float16):
+        dn = "bf16" if dtype == torch.bfloat16 else "fp16"
+        h, w, labels = inputs(N, V, D, dtype)
+        errs, ratio = lmce_tc_fwd_compare(torch, lk, f"{dn} N={N} V={V} "
+                                          f"D={D}", h, w, labels)
+        err_main = max(errs.values())
+        for tag, n, v, d, ignore in LMCE_FWD_RAGGED:
+            e, r = lmce_tc_fwd_compare(torch, lk, f"{dn} {tag}",
+                                       *inputs(n, v, d, dtype, ignore),
+                                       controls=d == 200)
+            errs = {k: max(x, e[k]) for k, x in errs.items()}
+            ratio = max(ratio, r)
+        with torch.no_grad():
+            dev_ms = device_ms(torch, lambda: lk.lmce_fwd(h, w, labels), 10, {
+                "sweep": ("lmce_fwd_tc_kernel",),
+                "combine": ("lmce_fwd_combine",), "all": ()})
+            core_dev = device_ms(torch, lambda: lk._cuda_core_fwd(
+                h, w, labels), 3, {"all": ()})["all"]
+            ms = time_cuda(torch, lambda: lk.lmce_fwd(h, w, labels), 10,
+                           warmup=2, flush=flush)
+            core_ms = time_cuda(torch, lambda: lk._cuda_core_fwd(
+                h, w, labels), 3, warmup=1, flush=flush)
+            plain_ms = time_cuda(torch, lambda: lk.lmce_reference(
+                h, w, labels), 3, warmup=1, flush=flush)
+            lib_ms = time_cuda(torch, lambda: ce(
+                torch.matmul(h, w.t()).float(), labels, reduction="none"),
+                10, warmup=2, flush=flush)
+            lib_dev = device_ms(torch, lambda: ce(
+                torch.matmul(h, w.t()).float(), labels, reduction="none"),
+                10, {"all": ()})["all"]
+        flops, nbytes = lk.kernel_work("lmce_fwd", N, V, D, 2)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS_PER_S * 1e3
+        r = {"ms": ms, "device_ms": dev_ms["all"],
+             "sweep_device_ms": dev_ms["sweep"],
+             "combine_device_ms": dev_ms["combine"],
+             "cuda_core_ms": core_ms, "cuda_core_device_ms": core_dev,
+             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "library_ms": lib_ms, "library_device_ms": lib_dev,
+             "flops": flops, "bytes": nbytes,
+             "tflops": flops / (ms * 1e-3) / 1e12,
+             "device_tflops": flops / (dev_ms["all"] * 1e-3) / 1e12,
+             "max_abs_err": err_main, "ragged_max_abs_err":
+                 max(errs.values()), "gate_ratio": ratio}
+        res[dn] = r
+        print(f"[lmce tc fwd] lmce_fwd_tc {dn} N={N} V={V} D={D}: device_ms="
+              f"{r['device_ms']:.5f} (sweep {r['sweep_device_ms']:.5f}, "
+              f"combine {r['combine_device_ms']:.5f}; "
+              f"{r['device_tflops']:.1f} TFLOP/s) kernel_ms={ms:.5f} "
+              f"cuda_core_ms={core_ms:.5f} (device {core_dev:.5f}; "
+              f"{core_dev / r['device_ms']:.2f}x) plain_ms={plain_ms:.5f} "
+              f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}: {flops} "
+              f"flop, {nbytes} bytes); library yardstick (not used by the "
+              f"port): matmul + fp32 cross_entropy {lib_ms:.5f} ms "
+              f"(device {lib_dev:.5f})", flush=True)
+        del h, w, labels
+    return res
+
+
 # ---------------------------------------------------------------------------
 # fp16 and head dims 16 / 32 on the card
 # ---------------------------------------------------------------------------
@@ -1739,10 +2171,15 @@ def flash_hold(torch, fk, phase, tag, tol, q, k, v, g, causal, hps=(2,)):
     errs["flash_bwd_dq cuda_core"] = max(e["core dq"], e["core delta"])
     errs["flash_bwd_dkv cuda_core"] = max(e["core dk"], e["core dv"])
     got = fk.flash_bwd_fused(q, k, v, out, lse, g, causal)
+    core = fk._cuda_core_flash_bwd("fused", q, k, v, out, lse, g, causal)
     rf = fk.flash_bwd_fused_reference(q, k, v, out, lse, g, causal)
-    e = hold(torch, phase, f"{tag} flash_bwd_fused", tol,
-             list(zip(("dq", "dk", "dv"), got, rf)))
-    errs["flash_bwd_fused"] = max(e.values())
+    e = hold(torch, phase, f"{tag} flash_bwd_fused (tensor-core: "
+             f"{fk._is_tc(q)}) and the CUDA-core sweep", tol,
+             list(zip(("dq", "dk", "dv"), got, rf))
+             + list(zip(("core dq", "core dk", "core dv"), core, rf)))
+    errs["flash_bwd_fused"] = max(e["dq"], e["dk"], e["dv"])
+    errs["flash_bwd_fused cuda_core"] = max(e["core dq"], e["core dk"],
+                                            e["core dv"])
 
     def bh(t):
         return t.permute(0, 2, 1, 3).reshape(B * H, S, 1, D).contiguous()
@@ -1823,14 +2260,20 @@ def fp16_phase(torch, seed):
     labels[::4] = -100
     gg = torch.rand((N,), generator=gen, device=dev)
     loss, lse = lk.lmce_fwd(h, w, labels)
+    closs, clse = lk._cuda_core_fwd(h, w, labels)
     rloss, rlse = lk.lmce_reference(h, w, labels)
     got = [lk.lmce_bwd_dh(h, w, labels, lse, gg),
            lk.lmce_bwd_dw(h, w, labels, lse, gg),
            lk._cuda_core_bwd("dh", h, w, labels, lse, gg),
            lk._cuda_core_bwd("dw", h, w, labels, lse, gg)]
     tag = f"fp16 lmce N={N} V={V} D={LMCE_D}, every 4th label -100"
-    e = hold(torch, "fp16", f"{tag}: lmce_fwd", FP16_TOL,
-             [("loss", loss, rloss), ("lse", lse, rlse)])
+    e = hold(torch, "fp16", f"{tag}: lmce_fwd (tensor-core) and the "
+             "CUDA-core forward", FP16_TOL,
+             [("loss", loss, rloss), ("lse", lse, rlse),
+              ("core loss", closs, rloss), ("core lse", clse, rlse)])
+    fwd_ratio = lmce_fwd_gate(torch, (loss, lse), (rloss, rlse), h, w, labels)
+    check(fwd_ratio <= 1.0, f"[fp16] {tag}: lmce_fwd gate ratio "
+          f"{fwd_ratio:.3e} > 1")
     refs = {"dh": lk.lmce_bwd_dh_reference(h, w, labels, lse, gg),
             "dw": lk.lmce_bwd_dw_reference(h, w, labels, lse, gg)}
     torch.cuda.synchronize()
@@ -1851,6 +2294,7 @@ def fp16_phase(torch, seed):
     check(bool((got[0][labels < 0] == 0).all()),
           "[fp16] lmce ignored rows of dh not exactly 0")
     res.update({"lmce_fwd": max(e["loss"], e["lse"]),
+                "lmce_fwd cuda_core": max(e["core loss"], e["core lse"]),
                 "lmce_bwd_dh_tc": e["dh_tc"], "lmce_bwd_dw_tc": e["dw_tc"],
                 "lmce_bwd_dh": e["dh"], "lmce_bwd_dw": e["dw"]})
     return res
@@ -1967,6 +2411,7 @@ def fit_and_check(torch, tag, desc, model, net, batch, want, tokens,
     launches["_cuda_core_fwd"] = fk._cuda_core_fwd.launches
     launches["_cuda_core_flash_bwd"] = fk._cuda_core_flash_bwd.launches
     launches["_cuda_core_bwd"] = lk._cuda_core_bwd.launches
+    launches["_cuda_core_lmce_fwd"] = lk._cuda_core_fwd.launches
     launches.update(fk.flash_bwd_fused.helper_launches)
     plain = {f.__name__: f.plain_calls for f in wrappers}
     peak = torch.cuda.max_memory_allocated()
@@ -1998,11 +2443,10 @@ def _want_launches(layer_calls, bh=False, fused_lmce_steps=0):
     """Expected launch counts: the default path's three flash kernels,
     or under the [B*H, S, D] knobs the head-packed forward, the fused
     backward and its helpers (bf16: the dq epilogue runs too),
-    ``layer_calls`` times each; every 16-bit forward and split backward
-    launch the tensor-core body's (``.tc``), none the CUDA-core
-    comparison entries'; each
-    16-bit lmce backward launch the tensor-core body's, none the
-    CUDA-core backward's."""
+    ``layer_calls`` times each; every 16-bit forward, split and fused
+    backward launch the tensor-core body's (``.tc``), none the CUDA-core
+    comparison entries'; each 16-bit lmce launch (forward, dh, dW) the
+    tensor-core body's, none the CUDA-core forward's or backward's."""
     from paddle_tpu_torch.ops import flash_attention_kernel as fk
     from paddle_tpu_torch.ops import lmce_kernel as lk
     want = {f.__name__: 0 if bh else layer_calls for f in fk.WRAPPERS}
@@ -2018,6 +2462,7 @@ def _want_launches(layer_calls, bh=False, fused_lmce_steps=0):
     want.update({f"{f.__name__}.tc": fused_lmce_steps
                  for f in lk.TC_WRAPPERS})
     want["_cuda_core_bwd"] = 0
+    want["_cuda_core_lmce_fwd"] = 0
     return want
 
 
@@ -2162,10 +2607,12 @@ def _kernel_group(name):
                                 "flash_bwd_tc_kernel", "flash_bwd_dq_kernel",
                                 "flash_bwd_dkv_kernel",
                                 "flash_fwd_hpack_kernel",
-                                "flash_bwd_fused")):
+                                "flash_bwd_fused", "fused_prep_kernel",
+                                "fused_dq_cast_kernel")):
         return "flash kernels"
     if any(k in name for k in ("lmce_fwd_kernel", "lmce_bwd_kernel",
-                                "lmce_bwd_tc_kernel")):
+                                "lmce_bwd_tc_kernel", "lmce_fwd_tc_kernel",
+                                "lmce_fwd_combine_kernel")):
         return "lmce kernels"
     low = name.lower()
     if any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet", "cublas")):
@@ -2402,11 +2849,15 @@ def main(argv=None) -> int:
                            built.get("flash_fwd_sm90", {}).get("log", ""))
     tcb = flash_tc_bwd_phase(torch, args.seed,
                              built.get("flash_bwd_sm90", {}).get("log", ""))
+    tcf = flash_tc_fused_phase(torch, args.seed,
+                               built.get("flash_bwd_sm90", {}).get("log", ""))
     bh_train = bh_train_phase(torch, args.seed, tres)
     ernie_train = ernie_train_phase(torch, args.seed)
     bh_parity_phase(torch, args.seed)
     ltc = lmce_tc_phase(torch, args.seed,
                         built.get("lmce_sm90", {}).get("log", ""))
+    ltf = lmce_tc_fwd_phase(torch, args.seed,
+                            built.get("lmce_fwd_sm90", {}).get("log", ""))
     f16 = fp16_phase(torch, args.seed)
     hd = headdim_phase(torch, args.seed)
 
@@ -2524,16 +2975,57 @@ def main(argv=None) -> int:
             "equal_share": min(tcb["bf16"]["main"]["shares"][n] for n in (
                 ("dq",) if entry["name"] == "flash_bwd_dq" else
                 ("dk", "dv")))})
-    r = lres["lmce_fwd"]
+    # the 16-bit fused backward runs the tensor-core sweep: its numbers
+    # (GPT's shape; ERNIE's beside), with the CUDA-core sweep's (the fp32
+    # body) beside them
+    for entry in kernels:
+        if entry["name"] != "flash_bwd_fused":
+            continue
+        r, e, r16 = tcf["bf16 gpt"], tcf["bf16 ernie"], tcf["fp16 gpt"]
+        entry.update({
+            "source": TC_BWD_SOURCE, "fp32_source": CORE_SOURCE,
+            "tc_launches": (bh_train["launches"]["flash_bwd_fused.tc"]
+                            + ernie_train["launches"]["flash_bwd_fused.tc"]),
+            "max_abs_err": max(r["max_abs_err"], e["max_abs_err"]),
+            "ms": r["ms"], "device_ms": r["device_ms"],
+            "sweep_device_ms": r["sweep_device_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "library_bwd_device_ms": r["library_bwd_device_ms"],
+            "pair_device_ms": r["pair_device_ms"],
+            "device_tflops": r["device_tflops"],
+            "cuda_core_ms": r["cuda_core_ms"],
+            "cuda_core_device_ms": r["cuda_core_device_ms"],
+            "hgmma": tcf["hgmma"], "fp16_device_ms": r16["device_ms"],
+            "gate_ratio": max(r["ratios"].values()),
+            "equal_share": min(r["shares"].values()),
+            "ernie_ms": e["ms"], "ernie_device_ms": e["device_ms"],
+            "ernie_plain_ms": e["plain_ms"], "ernie_bound_ms": e["bound_ms"],
+            "ernie_library_bwd_device_ms": e["library_bwd_device_ms"],
+            "ernie_pair_device_ms": e["pair_device_ms"],
+            "ernie_cuda_core_device_ms": e["cuda_core_device_ms"]})
+    # the 16-bit forward runs the tensor-core kernel: its numbers, with the
+    # CUDA-core forward's (the fp32 body) beside them
+    r, r16, lf = ltf["bf16"], ltf["fp16"], lres["lmce_fwd"]
     kernels.append({
-        "name": "lmce_fwd", "route": "cuda", "source": LMCE_SOURCE,
-        "replaces": LMCE_REPLACES["lmce_fwd"],
+        "name": "lmce_fwd", "route": "cuda", "source": LMCE_FWD_TC_SOURCE,
+        "fp32_source": LMCE_SOURCE, "replaces": LMCE_REPLACES["lmce_fwd"],
         "launches": lmce_train["launches"]["lmce_fwd"],
+        "tc_launches": lmce_train["launches"]["lmce_fwd.tc"],
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        "library_fwd_bwd_ms": r["library_fwd_bwd_ms"],
-        "fp32_max_abs_err": r["fp32_max_abs_err"],
+        "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"],
+        "library_device_ms": r["library_device_ms"],
+        "library_fwd_bwd_ms": lf["library_fwd_bwd_ms"],
+        "tflops": r["tflops"], "device_tflops": r["device_tflops"],
+        "cuda_core_ms": r["cuda_core_ms"],
+        "cuda_core_device_ms": r["cuda_core_device_ms"],
+        "hgmma": ltf["hgmma"], "gate_ratio": max(r["gate_ratio"],
+                                                 r16["gate_ratio"]),
+        "fp16_ms": r16["ms"], "fp16_device_ms": r16["device_ms"],
+        "fp16_max_abs_err": r16["max_abs_err"],
+        "fp32_max_abs_err": lf["fp32_max_abs_err"],
     })
     # the backward: the tensor-core kernels (bf16 and fp16, the main
     # path), and the CUDA-core ones (fp32: the [train fp32 parity] fused

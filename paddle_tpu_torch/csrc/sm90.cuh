@@ -3,7 +3,8 @@
 // wgmma forms the kernels use, for bf16 and fp16 operands with fp32
 // accumulators, and the host-side tensor-map encoder.
 //
-// Used by flash_fwd_sm90.cu, flash_bwd_sm90.cu and lmce_sm90.cu.
+// Used by flash_fwd_sm90.cu, flash_bwd_sm90.cu, lmce_sm90.cu and
+// lmce_fwd_sm90.cu.
 // _build.py hashes this header into every library's name, so an edit
 // rebuilds them all.
 
@@ -122,6 +123,29 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, uint64_t map,
       : "memory");
 }
 
+// Add a shared-memory box into a 4-D tensor map's box in global memory
+// (cp.reduce.async.bulk.tensor .add; the map's type, e.g. fp32), as a
+// bulk async group of the issuing thread.  Out-of-range rows are clipped.
+__device__ __forceinline__ void tma_reduce_add_4d(uint64_t map, uint32_t src,
+                                                  int c0, int c1, int c2,
+                                                  int c3) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];" ::"l"(map),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Wait until this thread's bulk async groups have read their shared
+// memory, or have completed.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
 // ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
@@ -143,6 +167,21 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// Wait until at most one committed group is still in flight.
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+}
+
+// Make this thread's generic-proxy shared-memory writes visible to the
+// async proxy (a later wgmma or TMA reading them).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Named barrier `id` (1..15; 0 is __syncthreads) over `count` threads.
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
 
 // Pin registers that an asynchronous wgmma reads or writes to this point
@@ -243,6 +282,53 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
     wgmma_ss_n64<T>(d, da, db, scale_d);
   else
     wgmma_ss_n128<T>(d, da, db, scale_d);
+}
+
+// D[64 x N] (+)= A[64 x 16] B[N x 16]^T with A MN-major in shared memory
+// (transpose flag set: the tile is 16 rows of K, each 64 M values in a
+// 128-byte swizzled row) and B K-major; scale_d = 0 overwrites D.
+template <typename T>
+__device__ __forceinline__ void wgmma_ss_ta_n32(float (&d)[16], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  if constexpr (Elem<T>::kMap == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16)
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n32k16" SM90_TYPES_BF16
+                 SM90_R16 ", %16, %17, p, 1, 1, 1, 0;\n}\n"
+                 : SM90_F16(d, 0)
+                 : "l"(da), "l"(db), "r"(scale_d));
+  else
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n32k16" SM90_TYPES_F16
+                 SM90_R16 ", %16, %17, p, 1, 1, 1, 0;\n}\n"
+                 : SM90_F16(d, 0)
+                 : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <typename T>
+__device__ __forceinline__ void wgmma_ss_ta_n64(float (&d)[32], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  if constexpr (Elem<T>::kMap == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16)
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16" SM90_TYPES_BF16
+                 SM90_R32 ", %32, %33, p, 1, 1, 1, 0;\n}\n"
+                 : SM90_F32(d, 0)
+                 : "l"(da), "l"(db), "r"(scale_d));
+  else
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16" SM90_TYPES_F16
+                 SM90_R32 ", %32, %33, p, 1, 1, 1, 0;\n}\n"
+                 : SM90_F32(d, 0)
+                 : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_ss_ta(float (&d)[N / 2], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  static_assert(N == 32 || N == 64, "wgmma_ss_ta: N 32, 64");
+  if constexpr (N == 32)
+    wgmma_ss_ta_n32<T>(d, da, db, scale_d);
+  else
+    wgmma_ss_ta_n64<T>(d, da, db, scale_d);
 }
 
 // D[64 x 64] += A[64 x 16] B[16 x 64]: A 16-bit pairs in registers (the

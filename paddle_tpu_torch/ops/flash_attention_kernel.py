@@ -5,8 +5,8 @@ them (counterpart of the flash-attention part of
 
 Five kernels in ``csrc/flash_attention.cu`` (fp32 FMAs on the CUDA
 cores), the two forwards also in ``csrc/flash_fwd_sm90.cu`` and the split
-backward in ``csrc/flash_bwd_sm90.cu`` (bf16 and fp16 on the tensor
-cores, ``wgmma`` fed by TMA):
+and fused backward in ``csrc/flash_bwd_sm90.cu`` (bf16 and fp16 on the
+tensor cores, ``wgmma`` fed by TMA):
 
 - :func:`flash_fwd` -> ``(out, lse)``, the online-softmax forward;
 - :func:`flash_bwd_dq` -> ``(dq, delta)``, ``delta = rowsum(dO * O)``;
@@ -15,9 +15,11 @@ cores, ``wgmma`` fed by TMA):
   ``hp`` consecutive heads of ``B*H`` per CTA (``PADDLE_TORCH_FLASH_
   HEADPACK``);
 - :func:`flash_bwd_fused` -> ``(dq, dk, dv)`` in one sweep over the k
-  tiles, dq summed through atomics (``PADDLE_TORCH_FLASH_FUSED_BWD``);
-  a pre-pass computes delta and zeroes the fp32 dq workspace, and for
-  bf16 and fp16 an epilogue rounds it into dq.
+  tiles, dq's per-tile partials added into an fp32 workspace
+  (``PADDLE_TORCH_FLASH_FUSED_BWD``; the CUDA-core sweep with
+  ``atomicAdd``, the tensor-core one with a TMA reduce-add); a pre-pass
+  computes delta and zeroes the workspace, and for bf16 and fp16 an
+  epilogue rounds it into dq.
 
 Each wrapper takes ``q`` ``[B, Sq, H, D]`` and ``k``/``v``/``dout``
 ``[B, S, H, D]`` as strided views (the head dim must have stride 1), so
@@ -32,15 +34,16 @@ On a CUDA tensor a wrapper launches its kernel or raises (a build
 failure raises :class:`~paddle_tpu_torch._build.KernelBuildError`);
 the kernels take fp32, bf16 or fp16 with ``D`` in :data:`HEAD_DIMS`
 (16, 32, 64, 128), and any other head dim raises
-``NotImplementedError``.  The two forwards and the split backward route
-by dtype and head dim, before any launch: bf16 and fp16 at ``D`` in
-:data:`TC_HEAD_DIMS` (64, 128; 64 for the head-packed entry) launch the
-tensor-core kernel (``flash_fwd_tc`` / ``flash_fwd_hpack_tc``,
-``flash_bwd_dq_tc`` / ``flash_bwd_dkv_tc``), everything else (fp32, and
-``D`` 16 or 32 in every dtype) the CUDA-core one.  TMA reads q, k, v
-and dout (and the tensor-core dq reads out with 16-byte loads), so a
-tensor-core call whose base address or batch, sequence or head stride
-of one of them is not a multiple of 16 bytes raises
+``NotImplementedError``.  Every wrapper routes by dtype and head dim,
+before any launch: bf16 and fp16 at ``D`` in :data:`TC_HEAD_DIMS` (64,
+128; 64 for the head-packed entry) launch the tensor-core kernel
+(``flash_fwd_tc`` / ``flash_fwd_hpack_tc``, ``flash_bwd_dq_tc`` /
+``flash_bwd_dkv_tc``, ``flash_bwd_fused_tc``), everything else (fp32,
+and ``D`` 16 or 32 in every dtype) the CUDA-core one.  TMA reads q, k, v
+and dout (and the tensor-core dq and fused pre-pass read out with
+16-byte loads), so a tensor-core call whose base address or batch,
+sequence or head stride of one of them is not a multiple of 16 bytes
+raises
 ``NotImplementedError``.  Neither body falls back to the other.  Every
 forward rounds p to the input dtype before ``P V``, and every backward
 rounds dS to it before ``dS K`` and ``dS^T Q`` and p before ``P^T dO``
@@ -124,12 +127,15 @@ def bind_tc(lib):
 
 
 def bind_bwd_tc(lib):
-    """The same for the tensor-core split backward's library
+    """The same for the tensor-core backward's library
     (``csrc/flash_bwd_sm90.cu``, bf16 and fp16); the C signatures are
-    those of ``flash_bwd_dq`` and ``flash_bwd_dkv``."""
+    those of ``flash_bwd_dq``, ``flash_bwd_dkv`` and ``flash_bwd_fused``."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn in (lib.flash_bwd_dq_tc, lib.flash_bwd_dkv_tc):
         fn.argtypes = [i, i] + [p] * 10 + [i] * 5 + [f, p, p]
+    lib.flash_bwd_fused_tc.argtypes = [i, i] + [p] * 13 + [i] * 5 + [f, p, p]
+    for fn in (lib.flash_bwd_dq_tc, lib.flash_bwd_dkv_tc,
+               lib.flash_bwd_fused_tc):
         fn.restype = ctypes.c_int
     return lib
 
@@ -509,10 +515,11 @@ def _launch_fwd_hpack_tc(lib, stream, q, k, v, hp, causal, scale):
     return out, lse
 
 
-def _launch_bwd_fused(lib, stream, q, k, v, out, lse, dout, causal, q_seg,
-                      k_seg, scale):
-    """The pre-pass, the sweep and (bf16, fp16) the dq epilogue; returns
-    ``(dq, dk, dv)``.  For fp32 the workspace is dq itself."""
+def _fused_call(entry, strides_of, lib, stream, q, k, v, out, lse, dout,
+                causal, q_seg, k_seg, scale):
+    """One call of a fused-backward entry: the pre-pass, the sweep and
+    (bf16, fp16) the dq epilogue; returns ``(dq, dk, dv)``.  For fp32 the
+    workspace is dq itself."""
     B, Sq, H, D = q.shape
     dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     ws = dq if q.dtype == torch.float32 else torch.empty(
@@ -520,14 +527,23 @@ def _launch_bwd_fused(lib, stream, q, k, v, out, lse, dout, causal, q_seg,
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    strides = _strides(q, k, v, out, dout, dk, dv)
-    _raise_on(lib.flash_bwd_fused(
+    strides = strides_of(q, k, v, out, dout, dk, dv)
+    _raise_on(getattr(lib, entry)(
         _DTYPE_CODES[q.dtype], D, _ptr(q), _ptr(k), _ptr(v), _ptr(out),
         _ptr(dout), _ptr(lse), _ptr(delta), _ptr(ws), _ptr(dq), _ptr(dk),
         _ptr(dv), _ptr(q_seg), _ptr(k_seg), B, H, Sq, k.shape[1],
         int(causal), float(scale), ctypes.cast(strides, ctypes.c_void_p),
-        stream), "flash_bwd_fused")
+        stream), entry)
     return dq, dk, dv
+
+
+def _launch_bwd_fused(lib, stream, *args):
+    return _fused_call("flash_bwd_fused", _strides, lib, stream, *args)
+
+
+def _launch_bwd_fused_tc(lib, stream, *args):
+    return _fused_call("flash_bwd_fused_tc", _tma_strides, lib, stream,
+                       *args)
 
 
 def _scale(q, scale):
@@ -720,18 +736,23 @@ def _cuda_core_fwd(q, k, v, causal, q_seg=None, k_seg=None, scale=None,
 
 def _cuda_core_flash_bwd(which, q, k, v, t, lse, u, causal, q_seg=None,
                          k_seg=None, scale=None):
-    """The CUDA-core split backward of ``csrc/flash_attention.cu`` in any
-    dtype it takes: ``which`` ``"dq"`` (``t, u = out, dout``; returns
-    ``(dq, delta)``) or ``"dkv"`` (``t, u = dout, delta``; returns ``(dk,
-    dv)``).  The design the tensor-core pair replaced for bf16 and fp16
-    at head dims 64 and 128, kept for comparison on the card.  No
-    wrapper calls it; its launches count in
-    ``_cuda_core_flash_bwd.launches``, not in the wrappers'."""
-    _check(q, k, v, q_seg, k_seg, extra=(t, u) if which == "dq" else (t,))
+    """The CUDA-core backward of ``csrc/flash_attention.cu`` in any dtype
+    it takes: ``which`` ``"dq"`` (``t, u = out, dout``; returns ``(dq,
+    delta)``), ``"dkv"`` (``t, u = dout, delta``; returns ``(dk, dv)``) or
+    ``"fused"`` (``t, u = out, dout``; returns ``(dq, dk, dv)``, the
+    single sweep).  The designs the tensor-core kernels replaced for bf16
+    and fp16 at head dims 64 and 128, kept for comparison on the card.
+    No wrapper calls it; its launches count in
+    ``_cuda_core_flash_bwd.launches``, not in the wrappers' (the fused
+    sweep's helpers included)."""
+    _check(q, k, v, q_seg, k_seg, extra=(t,) if which == "dkv" else (t, u))
     scale = _scale(q, scale)
     if which == "dq":
         return _bwd_dq(_cuda_core_flash_bwd, False, q, k, v, t, lse, u,
                        causal, q_seg, k_seg, scale)
+    if which == "fused":
+        return _bwd_fused(_cuda_core_flash_bwd, False, q, k, v, t, lse, u,
+                          causal, q_seg, k_seg, scale)
     return _bwd_dkv(_cuda_core_flash_bwd, False, q, k, v, t, lse, u, causal,
                     q_seg, k_seg, scale)
 
@@ -739,11 +760,13 @@ def _cuda_core_flash_bwd(which, q, k, v, t, lse, u, causal, q_seg=None,
 def flash_bwd_fused(q, k, v, out, lse, dout, causal, q_seg=None, k_seg=None,
                     scale=None):
     """Gradients of q, k and v in one sweep: ``(dq, dk, dv)``.  Three
-    launches: the pre-pass (delta, zeroed dq workspace), the sweep (one
-    CTA per k tile; dq through fp32 atomics) and, for bf16 and fp16, the
-    dq epilogue; the helpers count in
-    ``flash_bwd_fused.helper_launches``.
-    dk and dv are the same bits on every run; dq's atomic sums may
+    launches: the pre-pass (delta, zeroed fp32 dq workspace), the sweep
+    (one CTA per kv tile, dq's partials added through fp32 atomics) and,
+    for bf16 and fp16, the dq epilogue; the helpers count in
+    ``flash_bwd_fused.helper_launches``.  On the card bf16 and fp16 at
+    head dim 64 or 128 run the tensor-core sweep
+    (``flash_bwd_fused_tc``), fp32 and head dims 16 and 32 the CUDA-core
+    one.  dk and dv are the same bits on every run; dq's atomic sums may
     differ by a few fp32 ulps of its magnitude from run to run."""
     _check(q, k, v, q_seg, k_seg, extra=(out, dout))
     scale = _scale(q, scale)
@@ -752,6 +775,15 @@ def flash_bwd_fused(q, k, v, out, lse, dout, causal, q_seg=None, k_seg=None,
         with torch.no_grad():
             return flash_bwd_fused_reference(q, k, v, out, lse, dout, causal,
                                              q_seg, k_seg, scale)
+    return _bwd_fused(flash_bwd_fused, _is_tc(q), q, k, v, out, lse, dout,
+                      causal, q_seg, k_seg, scale)
+
+
+def _bwd_fused(counter, tc, q, k, v, out, lse, dout, causal, q_seg, k_seg,
+               scale):
+    """Launch the fused backward on the card, as :func:`_bwd_dq` launches
+    dq; the helpers count in ``flash_bwd_fused.helper_launches`` only for
+    the wrapper's own launches."""
     _kernel_ready(q)
     q, k, v, out, dout = _rows(q), _rows(k), _rows(v), _rows(out), _rows(dout)
     q_seg, k_seg = _segs(q_seg, k_seg)
@@ -759,16 +791,21 @@ def flash_bwd_fused(q, k, v, out, lse, dout, causal, q_seg=None, k_seg=None,
         return (torch.zeros(q.shape, dtype=q.dtype, device=q.device),
                 torch.zeros(k.shape, dtype=k.dtype, device=k.device),
                 torch.zeros(v.shape, dtype=v.dtype, device=v.device))
+    if tc:
+        _tc_ready(q=q, k=k, v=v, out=out, dout=dout)
     lse = lse.contiguous()
-    lib = _kernel()
+    lib = _bwd_tc_kernel() if tc else _kernel()
     with torch.cuda.device(q.device):
-        res = _launch_bwd_fused(lib, _stream(q), q, k, v, out, lse, dout,
-                                causal, q_seg, k_seg, scale)
-    flash_bwd_fused.launches += 1
-    helpers = flash_bwd_fused.helper_launches
-    helpers["flash_bwd_fused_prep"] += 1
-    if q.dtype != torch.float32:
-        helpers["flash_bwd_fused_dq_cast"] += 1
+        launch = _launch_bwd_fused_tc if tc else _launch_bwd_fused
+        res = launch(lib, _stream(q), q, k, v, out, lse, dout, causal, q_seg,
+                     k_seg, scale)
+    counter.launches += 1
+    if counter is flash_bwd_fused:
+        counter.tc_launches += tc
+        helpers = counter.helper_launches
+        helpers["flash_bwd_fused_prep"] += 1
+        if q.dtype != torch.float32:
+            helpers["flash_bwd_fused_dq_cast"] += 1
     return res
 
 
@@ -777,7 +814,8 @@ WRAPPERS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
 BH_WRAPPERS = (flash_fwd_hpack, flash_bwd_fused)
 ALL_WRAPPERS = WRAPPERS + BH_WRAPPERS
 #: the wrappers with a tensor-core body (``tc_launches``)
-TC_WRAPPERS = (flash_fwd, flash_fwd_hpack, flash_bwd_dq, flash_bwd_dkv)
+TC_WRAPPERS = (flash_fwd, flash_fwd_hpack, flash_bwd_dq, flash_bwd_dkv,
+               flash_bwd_fused)
 
 
 def reset_counts():

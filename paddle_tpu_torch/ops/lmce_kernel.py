@@ -2,9 +2,10 @@
 wrappers, their plain versions, their launch counts and the autograd
 function around them (counterpart of ``paddle_tpu/ops/pallas_lmce.py``).
 
-Three kernels in ``csrc/lmce.cu`` (fp32 FMAs on the CUDA cores), the two
-backward ones also in ``csrc/lmce_sm90.cu`` (bf16 and fp16 on the tensor
-cores, ``wgmma`` fed by TMA), compute the per-token cross-entropy of
+Three kernels in ``csrc/lmce.cu`` (fp32 FMAs on the CUDA cores), the
+forward also in ``csrc/lmce_fwd_sm90.cu`` and the two backward ones in
+``csrc/lmce_sm90.cu`` (bf16 and fp16 on the tensor cores, ``wgmma`` fed by
+TMA), compute the per-token cross-entropy of
 ``softmax(h @ w.T)`` against ``labels`` without writing the ``[N, V]``
 logits to memory:
 
@@ -24,10 +25,14 @@ On a CUDA tensor a wrapper launches its kernel or raises (a build
 failure raises :class:`~paddle_tpu_torch._build.KernelBuildError`); the
 kernels take fp32, bf16 or fp16 (both operands alike) with ``D`` a
 positive multiple of 8 up to :data:`MAX_D`, and any other ``D`` raises
-``NotImplementedError``.  The backward routes by dtype before any
-launch: bf16 and fp16 launch the tensor-core entries
-(``lmce_bwd_dh_tc`` / ``lmce_bwd_dw_tc``), fp32 the CUDA-core ones
-(TF32 would break the fp32 parity gates).  TMA reads h and w from the
+``NotImplementedError``.  Every wrapper routes by dtype before any
+launch: bf16 and fp16 launch the tensor-core entries (``lmce_fwd_tc``,
+``lmce_bwd_dh_tc`` / ``lmce_bwd_dw_tc``), fp32 the CUDA-core ones
+(TF32 would break the fp32 parity gates).  The tensor-core forward
+splits the vocabulary into :func:`vocab_slices` runs so its grid fills
+the card, writes a partial (max, sum-exp, pick) per row and slice, and
+merges them in slice order (:func:`lmce_fwd_split_reference` is its
+plain mirror).  TMA reads h and w from the
 wrapper's contiguous, 16-byte-aligned copies (D a multiple of 8 is
 TMA's 16-byte row stride at 2 bytes an element).  Neither body falls
 back to the other.  On a CPU tensor a wrapper runs
@@ -48,6 +53,10 @@ from .. import _build
 
 KERNEL_NAME = "lmce"
 TC_KERNEL_NAME = "lmce_sm90"
+TC_FWD_KERNEL_NAME = "lmce_fwd_sm90"
+#: the tensor-core forward's h rows per CTA and vocabulary rows per tile
+FWD_ROW_BLOCK = 128
+FWD_VOCAB_TILE = 64
 #: start of the running max, and the picked logit of an unmatched label
 NEG = -1e30
 #: denominator guard of the log-sum-exp
@@ -59,6 +68,7 @@ _TC_ERRORS = {-1: "the driver has no cuTensorMapEncodeTiled",
               -2: "the driver refused a tensor map"}
 _lib = None
 _tc_lib = None
+_fwd_tc_lib = None
 
 
 def bind(lib):
@@ -83,6 +93,16 @@ def bind_tc(lib):
     return lib
 
 
+def bind_fwd_tc(lib):
+    """The same for the tensor-core forward's library
+    (``csrc/lmce_fwd_sm90.cu``, bf16 and fp16): ``lmce_fwd``'s signature
+    with the partials' workspace and the slice count after lse."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.lmce_fwd_tc.argtypes = [i] + [p] * 6 + [i] * 4 + [p]
+    lib.lmce_fwd_tc.restype = ctypes.c_int
+    return lib
+
+
 def _kernel():
     global _lib
     if _lib is None:
@@ -95,6 +115,13 @@ def _tc_kernel():
     if _tc_lib is None:
         _tc_lib = bind_tc(_build.load(TC_KERNEL_NAME))
     return _tc_lib
+
+
+def _fwd_tc_kernel():
+    global _fwd_tc_lib
+    if _fwd_tc_lib is None:
+        _fwd_tc_lib = bind_fwd_tc(_build.load(TC_FWD_KERNEL_NAME))
+    return _fwd_tc_lib
 
 
 # ---------------------------------------------------------------------------
@@ -118,6 +145,63 @@ def lmce_reference(h, w, labels):
     picked = torch.where(inside, picked, torch.full_like(picked, NEG))
     loss = torch.where(lab >= 0, lse - picked, torch.zeros_like(lse))
     return loss, lse
+
+
+def vocab_slices(n, v, sms):
+    """How many vocabulary slices the tensor-core forward splits ``v``
+    into for ``n`` rows on a card of ``sms`` SMs: enough CTAs (row
+    blocks x slices) for one CTA an SM, each slice a run of whole
+    64-row tiles and none empty."""
+    row_blocks = -(-n // FWD_ROW_BLOCK)
+    n_vt = -(-v // FWD_VOCAB_TILE)
+    slices = min(max(1, sms // row_blocks), n_vt, 65535)
+    per = -(-n_vt // slices)
+    return -(-n_vt // per)
+
+
+def lmce_fwd_partials(h, w, labels, slices):
+    """The tensor-core forward's partials on whole tensors: fp32 ``[3,
+    slices, N]`` of each row's max (from :data:`NEG`), sum of ``exp(S -
+    max)`` and picked logit (:data:`NEG` where the label is not in the
+    slice) over each slice's vocabulary columns."""
+    s = _logits(h, w)
+    lab = labels.to(device=s.device, dtype=torch.int64)
+    n_vt = -(-w.shape[0] // FWD_VOCAB_TILE)
+    per = -(-n_vt // slices) * FWD_VOCAB_TILE
+    part = torch.empty((3, slices, h.shape[0]), dtype=torch.float32,
+                       device=s.device)
+    for k in range(slices):
+        lo, hi = k * per, min((k + 1) * per, w.shape[0])
+        sk = s[:, lo:hi]
+        m = (sk.amax(dim=-1) if hi > lo else
+             torch.full_like(s[:, 0], NEG)).clamp_min(NEG)
+        part[0, k] = m
+        part[1, k] = torch.exp(sk - m[:, None]).sum(-1)
+        inside = (lab >= lo) & (lab < hi)
+        picked = torch.gather(s, 1, lab.clamp(0, w.shape[0] - 1)[:, None])
+        part[2, k] = torch.where(inside, picked[:, 0],
+                                 torch.full_like(m, NEG))
+    return part
+
+
+def lmce_fwd_combine(part, labels):
+    """``(loss, lse)`` from :func:`lmce_fwd_partials`' layout, the slices
+    merged in order as the kernel's combine merges them."""
+    lab = labels.to(device=part.device, dtype=torch.int64)
+    m = part[0].amax(dim=0)
+    l = torch.zeros_like(m)
+    for k in range(part.shape[1]):
+        l = l + part[1, k] * torch.exp(part[0, k] - m)
+    pick = part[2].amax(dim=0)
+    lse = m + torch.log(l.clamp_min(TINY))
+    return torch.where(lab >= 0, lse - pick, torch.zeros_like(lse)), lse
+
+
+def lmce_fwd_split_reference(h, w, labels, slices):
+    """Plain mirror of the tensor-core forward: the vocabulary cut into
+    ``slices`` runs of 64-row tiles, a partial per row and slice, merged
+    in slice order; equals :func:`lmce_reference` up to fp32 rounding."""
+    return lmce_fwd_combine(lmce_fwd_partials(h, w, labels, slices), labels)
 
 
 def _dlogits(h, w, labels, lse, g, dtype):
@@ -216,6 +300,20 @@ def _launch_fwd(lib, stream, h, w, labels):
     return loss, lse
 
 
+def _launch_fwd_tc(lib, stream, h, w, labels):
+    N, D = h.shape
+    V = w.shape[0]
+    sms = torch.cuda.get_device_properties(h.device).multi_processor_count
+    slices = vocab_slices(N, V, sms)
+    loss = torch.empty(N, dtype=torch.float32, device=h.device)
+    lse = torch.empty(N, dtype=torch.float32, device=h.device)
+    part = torch.empty((3, slices, N), dtype=torch.float32, device=h.device)
+    _raise_on(lib.lmce_fwd_tc(
+        _DTYPE_CODES[h.dtype], _ptr(h), _ptr(w), _ptr(labels), _ptr(loss),
+        _ptr(lse), _ptr(part), slices, N, V, D, stream), "lmce_fwd_tc")
+    return loss, lse
+
+
 def _launch_bwd(lib, stream, which, h, w, labels, lse, g):
     N, D = h.shape
     like = h if which.startswith("lmce_bwd_dh") else w
@@ -244,23 +342,42 @@ def _launch_bwd_dw_tc(lib, stream, h, w, labels, lse, g):
 
 def lmce_fwd(h, w, labels):
     """Per-token cross-entropy of ``softmax(h @ w.T)``: ``(loss [N],
-    lse [N])``, both fp32."""
+    lse [N])``, both fp32.  On the card bf16 and fp16 run the
+    tensor-core kernel, fp32 the CUDA-core one."""
     _check(h, w, labels)
     if h.device.type == "cpu":
         lmce_fwd.plain_calls += 1
         with torch.no_grad():
             return lmce_reference(h, w, labels)
+    return _forward(lmce_fwd, h.dtype in _TC_DTYPES, h, w, labels)
+
+
+def _forward(counter, tc, h, w, labels):
+    """Launch the forward on the card: the tensor-core body when ``tc``,
+    else the CUDA-core one; counts in ``counter``."""
     _kernel_ready(h)
     if h.shape[0] == 0:
         empty = torch.empty(0, dtype=torch.float32, device=h.device)
         return empty, empty.clone()
     h, w = _aligned(h), _aligned(w)
     labels = labels.to(torch.int32).contiguous()
-    lib = _kernel()
+    lib = _fwd_tc_kernel() if tc else _kernel()
     with torch.cuda.device(h.device):
-        res = _launch_fwd(lib, _stream(h), h, w, labels)
-    lmce_fwd.launches += 1
+        launch = _launch_fwd_tc if tc else _launch_fwd
+        res = launch(lib, _stream(h), h, w, labels)
+    counter.launches += 1
+    if counter is lmce_fwd:
+        counter.tc_launches += tc
     return res
+
+
+def _cuda_core_fwd(h, w, labels):
+    """The CUDA-core forward of ``csrc/lmce.cu`` in any dtype it takes:
+    the design the tensor-core kernel replaced for bf16 and fp16, kept
+    for comparison on the card.  No wrapper calls it; its launches count
+    in ``_cuda_core_fwd.launches``, not in the wrappers'."""
+    _check(h, w, labels)
+    return _forward(_cuda_core_fwd, False, h, w, labels)
 
 
 def _backward(wrapper, plain, h, w, labels, lse, g, tc=None):
@@ -324,13 +441,13 @@ def _cuda_core_bwd(which, h, w, labels, lse, g):
 
 WRAPPERS = (lmce_fwd, lmce_bwd_dh, lmce_bwd_dw)
 #: the wrappers with a tensor-core body (``tc_launches``)
-TC_WRAPPERS = (lmce_bwd_dh, lmce_bwd_dw)
+TC_WRAPPERS = (lmce_fwd, lmce_bwd_dh, lmce_bwd_dw)
 
 
 def reset_counts():
     """Set every wrapper's ``launches``, ``tc_launches`` and
-    ``plain_calls`` (and the CUDA-core comparison backward's launches)
-    to 0."""
+    ``plain_calls`` (and the CUDA-core comparison forward's and
+    backward's launches) to 0."""
     for fn in WRAPPERS:
         fn.launches = 0
         fn.plain_calls = 0
@@ -338,6 +455,7 @@ def reset_counts():
         fn.tc_launches = 0
     _cuda_core_bwd.launches = 0
     _cuda_core_bwd.plain_calls = 0
+    _cuda_core_fwd.launches = 0
 
 
 reset_counts()

@@ -43,7 +43,8 @@ def _port_sources():
         for f in files:
             if f.endswith((".py", ".cu", ".cuh")):
                 yield os.path.join(root, f)
-    for script in ("chip_smoke.py", "chip_ab.py", "chip_lmce_ablation.py"):
+    for script in ("chip_smoke.py", "chip_ab.py", "chip_lmce_ablation.py",
+                   "chip_fused_variants.py"):
         yield os.path.join(REPO, script)
 
 
