@@ -12,8 +12,15 @@ knobs, and ERNIE-3.0-base B=16 S=512 under the knobs, bf16 O2 unless
 named, ``Model.fit``), the two serving phases (``serve fp32``, ``serve
 bf16``: GPT-2-small through ``LLMServer``, 12 requests), ``k1``: the
 paged-attention kernel's device time per launch from ``torch.profiler``
-(200 launches at ``[kernel]``'s shapes, fp32 and bf16, the mean over the
-launches the profiler kept; host work not counted), and ``bwd``: the
+(200 calls at ``[kernel]``'s shapes, fp32 and bf16, the mean over the
+launches the profiler kept, the split and the combine summed where a
+call runs both; host work not counted; the 12 MB of K/V stay in L2
+between calls), ``k1 long``: the same at the long-context shape (B=8,
+H=12, Dh=64, every request 32768 tokens in pages of 16; 20 calls, K/V
+far above L2), ``k1 host``: the host microseconds a call of the
+paged-attention wrapper takes at ``[kernel]``'s shapes, fp32 and bf16
+(the median of 7 loops of 200 calls with nothing waited on; the device
+keeps up), and ``bwd``: the
 split flash backward's device time per ``flash_bwd_dq`` +
 ``flash_bwd_dkv`` pair from ``torch.profiler`` (every kernel the two
 wrappers launch, 20 pairs at the training shape B=8 S=1024 H=12 D=64
@@ -48,12 +55,14 @@ import sys
 PHASES = ("train", "train fp16", "train fused lmce", "train bh",
           "train ernie bh")
 SERVING = ("serve fp32", "serve bf16")
-K1 = ("k1 fp32", "k1 bf16")
+K1 = ("k1 fp32", "k1 bf16", "k1 long fp32", "k1 long bf16")
+K1_HOST = ("k1 host fp32", "k1 host bf16")
 BWD = ("bwd bf16", "bwd fp16", "bwd fused bf16", "bwd fused ernie bf16",
        "lmce fwd bf16")
 UNITS = {**{p: "step_ms" for p in PHASES},
          **{p: "tokens_per_s" for p in SERVING},
          **{p: "device_us" for p in K1},
+         **{p: "host_us" for p in K1_HOST},
          **{p: "device_ms" for p in BWD}}
 RUN = """
 import json, sys, torch
@@ -66,12 +75,14 @@ _build.build_all()
 want, seed, out = {want!r}, {seed}, {{}}
 
 
-def k1_device_us(dtype):
+def k1_args(dtype, long=False):
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
-    from paddle_tpu_torch.inference.serving import paged_attention_kernel as pak
-    B, H, Dh, BS, NB, MAXNB = 8, 12, 64, 16, 512, 64
-    lengths_l = [0, 1, 16, 17, 500, 1024, 333, 64]
+    B, H, Dh, BS = 8, 12, 64, 16
+    if long:
+        MAXNB, lengths_l, calls = 2048, [32768] * 8, 20
+    else:
+        MAXNB, lengths_l, calls = 64, [0, 1, 16, 17, 500, 1024, 333, 64], 200
+    NB = 512 if not long else B * MAXNB + 1
     rng = np.random.default_rng(seed)
     table = np.zeros((B, MAXNB), dtype=np.int32)
     free = rng.permutation(np.arange(1, NB)).tolist()
@@ -83,23 +94,49 @@ def k1_device_us(dtype):
     pk, pv = [torch.randn((NB, BS, H, Dh), generator=gen, device=dev)
               .to(dtype) for _ in range(2)]
     q = torch.randn((B, H, Dh), generator=gen, device=dev).to(dtype)
-    args = (pk, pv, torch.as_tensor(table, device=dev),
-            torch.as_tensor(np.array(lengths_l, np.int32), device=dev), q)
+    return calls, (pk, pv, torch.as_tensor(table, device=dev),
+                   torch.as_tensor(np.array(lengths_l, np.int32),
+                                   device=dev), q)
+
+
+def k1_host_us(dtype):
+    import time
+    from paddle_tpu_torch.inference.serving import paged_attention_kernel as pak
+    _, args = k1_args(dtype)
+    reads = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            pak.paged_ragged_attention(*args)
+        reads.append((time.perf_counter() - t0) / 200 * 1e6)
+    torch.cuda.synchronize()
+    return sorted(reads)[3]
+
+
+def k1_device_us(dtype, long=False):
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.inference.serving import paged_attention_kernel as pak
+    calls, args = k1_args(dtype, long)
     for _ in range(10):
         pak.paged_ragged_attention(*args)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(200):
+        for _ in range(calls):
             pak.paged_ragged_attention(*args)
         torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if "paged_attn" in e.key]
-    total = sum(getattr(e, "self_device_time_total",
-                        getattr(e, "self_cuda_time_total", 0)) for e in ev)
-    count = sum(e.count for e in ev)
-    # the profiler may drop some of the 200 kernel records; the mean
-    # of those it kept is the reading
-    assert count >= 100, f"torch.profiler kept {{count}} of 200 launches"
-    return total / count
+    # one kernel a call (the parent's paged_attn_kernel) or two (the
+    # split and the combine); the profiler may drop some records, so a
+    # call's time is the sum over the kernels of the mean of each
+    ev = [e for e in prof.key_averages()
+          if any(n in e.key for n in ("paged_attn", "paged_split",
+                                      "paged_combine"))]
+    for e in ev:
+        assert e.count >= calls // 2, (
+            f"torch.profiler kept {{e.count}} of {{calls}} launches")
+    return sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0)) / e.count
+               for e in ev)
 
 
 def bwd_device_ms(dtype):
@@ -198,6 +235,10 @@ if "lmce fwd bf16" in want:
 for dn, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
     if "k1 " + dn in want:
         out["k1 " + dn] = {{"device_us": k1_device_us(dtype)}}
+    if "k1 long " + dn in want:
+        out["k1 long " + dn] = {{"device_us": k1_device_us(dtype, True)}}
+    if "k1 host " + dn in want:
+        out["k1 host " + dn] = {{"host_us": k1_host_us(dtype)}}
     if "serve " + dn in want:
         r, prof = serve(dtype, dn)
         out["serve " + dn] = {{"tokens_per_s": r["tokens_per_s"], **prof}}

@@ -10,14 +10,25 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
 1. prints the card (``nvidia-smi`` name and power limit), the CUDA
    version and the kernel build time; turns TF32 off for the fp32
    phases;
-2. ``[kernel]`` holds the paged-attention kernel against its plain
-   PyTorch version at GPT-2-small decode shapes with ragged lengths and
-   scattered page tables: fp32 within 1e-5 max abs error, bf16 within
-   2e-2 of the plain version computed in fp32 on the same bf16 values;
-   the empty row must be exactly 0.  Times the kernel, the plain
-   version and, as a yardstick only, ``scaled_dot_product_attention`` on
-   pre-gathered K/V (CUDA events, median per launch, L2 flushed
-   between launches);
+2. ``[kernel]`` holds the split-K paged-attention kernel
+   (``csrc/paged_attention_sm90.cu``) against its plain PyTorch version
+   at GPT-2-small decode shapes with ragged lengths and scattered page
+   tables in fp32 (within 1e-5 max abs error), bf16 and fp16, each
+   element within half an ulp of the output dtype plus the fp32
+   reorder bound and, in 16 bits, at least ``K1_SAME_MIN`` of the
+   elements equal to the rounded plain output (:func:`paged_gate`);
+   three broken outputs (one split left out of the combine, the tail
+   mask off by one, a page id replaced by its neighbour) must fail that
+   gate; empty rows exactly 0, two runs bitwise equal and equal to a
+   third into a NaN-filled output, no ptxas spill; then at B=256 in fp32
+   and bf16, a plan of one split (no combine launch) with every fourth
+   row empty.  Times the kernel (``torch.profiler`` device time and CUDA events,
+   L2 flushed before each call) beside the kernel it replaced
+   (``_cuda_core_paged``), the plain version, the bound and, as a
+   yardstick only, ``scaled_dot_product_attention`` on pre-gathered
+   K/V; ``[kernel long]`` does the same at the long-context tier's
+   shape, every request 32768 tokens, with pages of 16 and 256 tokens
+   (and ragged lengths up to 32768 in bf16, with the controls);
 3. ``[flash]`` holds the three flash-attention kernels (forward, dq,
    dk/dv) against their plain versions: at the training path's shapes
    (B=8, S=1024, H=12, D=64, causal) as strided ``[B, S, H, D]`` views
@@ -43,7 +54,8 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
 5. serves GPT-2-small (12 layers, hidden 768, 12 heads, vocab 50304,
    random weights from ``--seed``) through ``LLMServer`` in fp32:
    12 greedy requests over 8 slots; checks every token count, that
-   the kernel launched exactly 12 times per decode dispatch, and that
+   the kernel launched exactly 12 times per decode dispatch (and the
+   comparison entry ``_cuda_core_paged`` never), and that
    two requests' tokens equal the sequential ``reference_decode``;
 6. serves the same model in bf16 and checks counts and launches;
 7. ``[train]`` trains GPT-2-small at full width through
@@ -262,13 +274,30 @@ def time_cuda(torch, fn, iters, warmup=5, flush=None):
     return float(np.median(times))
 
 
-def kernel_phase(torch, seed):
-    from paddle_tpu_torch.inference.serving import paged_attention_kernel as pak
-    B, H, Dh, BS, NB, MAXNB = 8, 12, 64, 16, 512, 64
-    lengths_l = [0, 1, 16, 17, 500, 1024, 333, 64]
+# ---------------------------------------------------------------------------
+# paged decode attention (K1): csrc/paged_attention_sm90.cu
+# ---------------------------------------------------------------------------
+K1_SOURCE = "paddle_tpu_torch/csrc/paged_attention_sm90.cu"
+K1_CORE_SOURCE = "paddle_tpu_torch/csrc/paged_attention.cu"
+K1_REPLACES = "paddle_tpu/inference/serving/paged_attention_kernel.py:62"
+K1_SAME_MIN = 0.99               # share of 16-bit outputs equal to the
+                                 # plain output rounded to the dtype
+K1_LONG = 32768                  # tokens a request holds in [kernel long]
+K1_NAMES = {"split": ("paged_split_kernel",),
+            "combine": ("paged_combine_kernel",)}
+K1_CORE_NAMES = {"core": ("paged_attn_kernel",)}
+F32_EPS = 2.0 ** -23
+HALF_ULP = {"bfloat16": (7, -126), "float16": (10, -14)}  # (mantissa
+                                 # bits, least normal exponent)
+
+
+def paged_inputs(torch, seed, B, H, Dh, BS, MAXNB, lengths_l):
+    """fp32 pools of ``B*MAXNB + 1`` pages (page 0 the scratch page), each
+    request's pages scattered over the pool, q; on the card."""
+    NB = B * MAXNB + 1
     rng = np.random.default_rng(seed)
-    table = np.zeros((B, MAXNB), dtype=np.int32)      # 0 = scratch
-    free = rng.permutation(np.arange(1, NB)).tolist()  # scattered pages
+    table = np.zeros((B, MAXNB), dtype=np.int32)
+    free = rng.permutation(np.arange(1, NB)).tolist()
     for b, n in enumerate(lengths_l):
         nb = -(-n // BS)
         table[b, :nb] = [free.pop() for _ in range(nb)]
@@ -278,75 +307,382 @@ def kernel_phase(torch, seed):
     pool_k = torch.randn((NB, BS, H, Dh), generator=gen, device=dev)
     pool_v = torch.randn((NB, BS, H, Dh), generator=gen, device=dev)
     q = torch.randn((B, H, Dh), generator=gen, device=dev)
-    table_t = torch.as_tensor(table, device=dev)
-    lengths = torch.as_tensor(np.array(lengths_l, np.int32), device=dev)
-    empty_row = lengths_l.index(0)
+    return (pool_k, pool_v, torch.as_tensor(table, device=dev),
+            torch.as_tensor(np.array(lengths_l, np.int32), device=dev), q)
 
-    def kern(pk, pv, qq):
-        return pak.paged_ragged_attention(pk, pv, table_t, lengths, qq)
 
-    def plain(pk, pv, qq):
-        return pak.paged_ragged_attention_reference(pk, pv, table_t,
-                                                    lengths, qq)
+def paged_exact(torch, inputs, v_abs=False):
+    """The plain version's arithmetic in fp64 on the same values (its
+    rounding far under fp32's): ``[B, H, Dh]``; with ``v_abs``, of |v|
+    (``a = sum_t p_t |v_t| / l``)."""
+    pk, pv, table, lengths, q = inputs
+    NB, BS, H, Dh = pk.shape
+    idx = table.long().clamp(0, NB - 1)
+    k = pk.double()[idx].flatten(1, 2)                 # [B, T, H, Dh]
+    v = pv.double()[idx].flatten(1, 2)
+    if v_abs:
+        v = v.abs()
+    logits = torch.einsum("bhd,bthd->bht", q.double(), k) / np.sqrt(Dh)
+    valid = (torch.arange(k.shape[1], device=q.device)[None, :]
+             < lengths.long()[:, None])[:, None, :]
+    logits = torch.where(valid, logits, -1e30)
+    w = torch.where(valid, torch.exp(logits - logits.amax(-1, keepdim=True)),
+                    0.0)
+    den = w.sum(-1, keepdim=True).clamp_min(1e-30)
+    return torch.einsum("bht,bthd->bhd", w / den, v)
 
-    res = {}
-    out_k = kern(pool_k, pool_v, q)
-    out_p = plain(pool_k, pool_v, q)
+
+def paged_gate(torch, got, ref, inputs, plan, exact):
+    """Per element against ``exact``, the fp64 output and ``a`` of
+    :func:`paged_exact`:
+    ``|got - exact| <= half an ulp of |exact| + eta`` in the output dtype
+    (no rounding term for fp32), eta the bound of the kernel's fp32
+    arithmetic: ``((2n + 8) eps + ds) (a + |exact|)`` with ``n = 2
+    ceil(ST/TS) + TS + NS`` the longest chain of fp32 sums and rescalings
+    a token's term meets (a lane group's, then the merges of the token
+    groups and of the splits), ``ds = Dh eps scale max_t sum_i |q_i
+    k_ti|`` a score's own error, ``8 eps`` for the exps and the division
+    and ``a = sum_t p_t |v_t| / l``.  Returns ``(largest |err| / bound,
+    share of elements equal to the fp32 plain output ``ref`` rounded to
+    the dtype)``; passes at ratio <= 1 and, in 16 bits, share >=
+    ``K1_SAME_MIN``."""
+    pk, pv, table, lengths, q = inputs
+    NB, BS, H, Dh = pk.shape
+    T = table.shape[1] * BS
+    ex, a = exact
+    kg = pk.float().abs()[table.long().clamp(0, NB - 1)].reshape(
+        -1, T, H, Dh)
+    dots = torch.einsum("bhd,bthd->bht", q.float().abs(), kg)
+    valid = (torch.arange(T, device=q.device)[None, :]
+             < lengths.long()[:, None])[:, None, :]
+    ds = Dh * F32_EPS / np.sqrt(Dh) * torch.where(valid, dots, 0.0).amax(-1)
+    del kg, dots
+    n = 2 * -(-plan.split_tokens // plan.token_groups) + \
+        plan.token_groups + plan.splits
+    eta = ((2 * n + 8) * F32_EPS + ds.double())[..., None] * (a + ex.abs())
+    bound = eta
+    name = str(got.dtype).split(".")[-1]
+    if name in HALF_ULP:
+        bits, emin = HALF_ULP[name]
+        e = torch.floor(torch.log2((ex.abs() + eta).clamp_min(2.0 ** emin)))
+        bound = bound + 0.5 * torch.exp2(e - bits)
+    diff = (got.double() - ex).abs()
+    ratio = torch.where(diff == 0, torch.zeros_like(diff),
+                        diff / bound).max().item()
+    share = (got == ref.to(got.dtype)).float().mean().item()
+    return ratio, share
+
+
+def paged_controls(torch, pak, inputs, plan, dtype):
+    """Three broken outputs the gate must fail: one split left out of the
+    combine, the tail mask off by one, a page id replaced by its
+    neighbour in the pool (each from the plain version, rounded to
+    ``dtype``)."""
+    pk, pv, table, lengths, q = [t.float() if t.is_floating_point() else t
+                                 for t in inputs]
+    NB, BS = pk.shape[:2]
+    T = table.shape[1] * BS
+    m, l, acc = pak.paged_split_partials(pk, pv, table, lengths, q,
+                                         plan.split_tokens)
+    m[:, 1], l[:, 1], acc[:, 1] = -1e30, 0.0, 0.0
+    longest = int(lengths.argmax().item())
+    moved = table.clone()
+    moved[longest, 1] = moved[longest, 1] % (NB - 1) + 1
+    return {
+        "split 1 not combined": pak.paged_split_combine(
+            m, l, acc, lengths, plan.split_tokens, T, dtype),
+        "tail mask + 1": pak.paged_ragged_attention_reference(
+            pk, pv, table, torch.where(lengths > 0, lengths + 1,
+                                       lengths).clamp(max=T), q).to(dtype),
+        "page id + 1": pak.paged_ragged_attention_reference(
+            pk, pv, moved, lengths, q).to(dtype),
+    }
+
+
+def paged_check(torch, pak, phase, tag, inputs, controls=False):
+    """The kernel on ``inputs`` against the plain version on the same
+    values in fp32 and against the plain mirror of its split
+    (:func:`paged_gate`), two runs bitwise equal, empty rows exactly 0;
+    ``controls``: the three broken outputs of :func:`paged_controls` fail
+    the gate.  Returns ``{max_abs_err, split_max_abs_err, gate_ratio,
+    equal_share, plan}``."""
+    pk, pv, table, lengths, q = inputs
+    B, MAXNB = table.shape
+    NB, BS, H, Dh = pk.shape
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan = pak.split_plan(B, H, Dh, BS, MAXNB, q.element_size(), sms)
+    before = pak.paged_ragged_attention.launches
+    core_before = pak._cuda_core_paged.launches
+    got = pak.paged_ragged_attention(*inputs)
+    again = pak.paged_ragged_attention(*inputs)
     torch.cuda.synchronize()
-    err32 = (out_k - out_p).abs().max().item()
-    check(err32 <= FP32_TOL, f"fp32 kernel vs plain {err32} > {FP32_TOL}")
-    check(bool((out_k[empty_row] == 0).all()), "fp32 empty row not 0")
-    check(bool(torch.isfinite(out_k).all()), "fp32 kernel not finite")
-
-    kb, vb, qb = pool_k.bfloat16(), pool_v.bfloat16(), q.bfloat16()
-    out_kb = kern(kb, vb, qb)
-    out_pb = plain(kb.float(), vb.float(), qb.float())
+    check(pak.paged_ragged_attention.launches == before + 2
+          and pak._cuda_core_paged.launches == core_before,
+          f"[{phase}] {tag}: the split kernel did not launch (or the "
+          "comparison entry did)")
+    # once more into a NaN-filled output (not counted): an element the
+    # kernels leave unwritten shows
+    poisoned = pak._launch_sm90(
+        pak._lib(pak.KERNEL_NAME), torch.cuda.current_stream().cuda_stream,
+        *inputs, 1.0 / np.sqrt(Dh), sms, out=torch.full_like(q, np.nan))
     torch.cuda.synchronize()
-    check(out_kb.dtype == torch.bfloat16, "bf16 kernel output dtype")
-    err16 = (out_kb.float() - out_pb).abs().max().item()
-    check(err16 <= BF16_TOL, f"bf16 kernel vs plain {err16} > {BF16_TOL}")
-    check(bool((out_kb[empty_row] == 0).all()), "bf16 empty row not 0")
+    check(torch.equal(poisoned, got),
+          f"[{phase}] {tag}: into a NaN-filled output the kernel leaves "
+          "elements unwritten or differs")
+    f32 = [t.float() if t.is_floating_point() else t for t in inputs]
+    ref = pak.paged_ragged_attention_reference(*f32)
+    sref = pak.paged_split_reference(*f32, plan.split_tokens)
+    check(got.dtype == q.dtype and bool(torch.isfinite(got.float()).all()),
+          f"[{phase}] {tag}: dtype {got.dtype} or not finite")
+    empty = lengths == 0
+    check(bool((got[empty] == 0).all()),
+          f"[{phase}] {tag}: an empty row is not exactly 0")
+    same = torch.equal(got, again)
+    err = (got.float() - ref).abs().max().item()
+    serr = (sref - ref).abs().max().item()
+    exact = (paged_exact(torch, inputs),
+             paged_exact(torch, inputs, v_abs=True))
+    ratio, share = paged_gate(torch, got, ref, inputs, plan, exact)
+    line = (f"[{phase}] {tag} {plan}: max_abs_err={err:.3e} (plain split "
+            f"mirror {serr:.3e}); gate ratio {ratio:.3e} (<= 1)"
+            + (f", {share:.5f} of the elements equal to the rounded plain "
+               f"output" if q.dtype != torch.float32 else "")
+            + f"; two runs bitwise equal: {same}, and a third into a "
+            f"NaN-filled output; {int(empty.sum().item())} empty rows "
+            f"exactly 0")
+    ctl = {}
+    if controls:
+        for name, bad in paged_controls(torch, pak, inputs, plan,
+                                        q.dtype).items():
+            ctl[name] = paged_gate(torch, bad, ref, inputs, plan, exact)
+        line += "; controls (fail, as they must): " + "; ".join(
+            f"{n} ratio {r:.3e} equal {sh:.5f}" for n, (r, sh) in
+            ctl.items())
+    print(line, flush=True)
+    sixteen = q.dtype != torch.float32
+    for name, (r, sh) in ctl.items():
+        check(r > 1.0 or (sixteen and sh < K1_SAME_MIN),
+              f"[{phase}] {tag}: the gate passes the {name} control")
+    check(ratio <= 1.0, f"[{phase}] {tag}: gate ratio {ratio:.3e} > 1")
+    check(not sixteen or share >= K1_SAME_MIN,
+          f"[{phase}] {tag}: {share:.5f} equal < {K1_SAME_MIN}")
+    check(q.dtype != torch.float32 or err <= FP32_TOL,
+          f"[{phase}] {tag}: fp32 kernel vs plain {err} > {FP32_TOL}")
+    check(same, f"[{phase}] {tag}: two runs differ")
+    return {"max_abs_err": err, "split_max_abs_err": serr,
+            "gate_ratio": ratio, "equal_share": share, "plan": plan,
+            "controls": ctl}
 
-    flush_buf = torch.empty(128 * 1024 * 1024 // 4, device=dev)
-    flush = flush_buf.zero_
-    res["ms"] = time_cuda(torch, lambda: kern(pool_k, pool_v, q), 100,
-                          flush=flush)
-    res["bf16_ms"] = time_cuda(torch, lambda: kern(kb, vb, qb), 100,
-                               flush=flush)
-    res["plain_ms"] = time_cuda(torch, lambda: plain(pool_k, pool_v, q),
-                                50, flush=flush)
-    # yardstick only: SDPA over K/V gathered beforehand (the gather is
-    # NOT timed: no PyTorch call attends through a page table)
-    kg, vg = pak.gather_pages(torch.stack([pool_k, pool_v])[None], 0,
-                              table_t)
+
+def l2_flush(torch):
+    """A call that reads 128 MB, so the 50 MB L2 then holds none of a
+    kernel's inputs and no dirty line (a write-based flush leaves ~50 MB
+    for the next kernel to write back)."""
+    buf = torch.zeros(128 * 1024 * 1024 // 4, device="cuda")
+    return buf.sum
+
+
+def k1_device_ms(torch, fn, iters, groups, flush):
+    """Device milliseconds per call of ``fn`` by ``torch.profiler``, the L2
+    flush run before each call and not counted: ``{group: ms}`` over the
+    kernels whose name holds one of the group's substrings (an empty
+    tuple: every kernel but the flush's)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flush()
+        torch.cuda.synchronize()
+    flush_keys = {e.key for e in prof.key_averages()}
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush()
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(groups, 0.0)
+    for e in prof.key_averages():
+        if not e.count:
+            continue
+        # the profiler may drop some kernel records: a kernel's time a
+        # call is its mean per launch times its launches a call
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0)) / e.count * \
+            max(1, round(e.count / iters))
+        for g, subs in groups.items():
+            if any(x in e.key for x in subs) if subs else \
+                    e.key not in flush_keys:
+                out[g] += us
+    return {g: us / 1e3 for g, us in out.items()}
+
+
+def host_us(torch, fn, calls=200):
+    """Host microseconds per call of ``fn``: the Python loop's time with
+    nothing waited on (``calls`` calls stay inside the card's launch
+    queue), the device drained before and after."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def paged_times(torch, pak, inputs, flush, iters, plain_iters):
+    """The kernel (device time per launch pair and events), the kernel it
+    replaced (``_cuda_core_paged``), the plain version and, as a
+    yardstick only, SDPA over K/V gathered beforehand (the gather not
+    timed: no PyTorch call attends through a page table)."""
+    pk, pv, table, lengths, q = inputs
+    B, MAXNB = table.shape
+    NB, BS, H, Dh = pk.shape
+    dev = k1_device_ms(torch, lambda: pak.paged_ragged_attention(*inputs),
+                       iters, {**K1_NAMES, "all": K1_NAMES["split"]
+                               + K1_NAMES["combine"]}, flush)
+    core_dev = k1_device_ms(torch, lambda: pak._cuda_core_paged(*inputs),
+                            iters, K1_CORE_NAMES, flush)["core"]
+    host = host_us(torch, lambda: pak.paged_ragged_attention(*inputs))
+    core_host = host_us(torch, lambda: pak._cuda_core_paged(*inputs))
+    ms = time_cuda(torch, lambda: pak.paged_ragged_attention(*inputs),
+                   iters, flush=flush)
+    core_ms = time_cuda(torch, lambda: pak._cuda_core_paged(*inputs), iters,
+                        flush=flush)
+    plain_ms = time_cuda(torch, lambda: pak.paged_ragged_attention_reference(
+        *inputs), plain_iters, warmup=1, flush=flush)
+    kg, vg = pak.gather_pages(torch.stack([pk, pv])[None], 0, table)
     kg = kg.permute(0, 2, 1, 3).contiguous()              # [B, H, T, Dh]
     vg = vg.permute(0, 2, 1, 3).contiguous()
     T = kg.shape[2]
-    mask = (torch.arange(T, device=dev)[None, :]
+    mask = (torch.arange(T, device=q.device)[None, :]
             < lengths[:, None].long())[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    res["library_ms"] = time_cuda(
-        torch, lambda: sdpa(q[:, :, None], kg, vg, attn_mask=mask), 50,
-        flush=flush)
-    nbytes = pak.attention_bytes(lengths_l, BS, H, Dh, 4)
-    flops = 4 * sum(lengths_l) * H * Dh
+
+    def lib():
+        return sdpa(q[:, :, None], kg, vg, attn_mask=mask)
+    lib_ms = time_cuda(torch, lib, iters, flush=flush)
+    lib_dev = k1_device_ms(torch, lib, iters, {"all": ()}, flush)["all"]
+    del kg, vg
+    lens = lengths.tolist()
+    nbytes = pak.attention_bytes(lens, BS, H, Dh, q.element_size())
+    flops = 4 * sum(lens) * H * Dh
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS_PER_S * 1e3
-    res["bound_ms"] = max(t_bytes, t_ops)
-    res["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    res["bf16_bound_ms"] = pak.attention_bytes(
-        lengths_l, BS, H, Dh, 2) / HBM_BYTES_PER_S * 1e3
-    res["max_abs_err"] = err32
-    res["bf16_max_abs_err"] = err16
-    print(f"[kernel] paged_attention B={B} H={H} Dh={Dh} BS={BS} NB={NB} "
-          f"MAXNB={MAXNB} lengths={lengths_l}: fp32 max_abs_err={err32:.3e}"
-          f" (tol {FP32_TOL}), bf16 max_abs_err={err16:.3e} (tol "
-          f"{BF16_TOL}), empty row exact 0; kernel_ms={res['ms']:.5f} "
-          f"bf16_kernel_ms={res['bf16_ms']:.5f} plain_ms="
-          f"{res['plain_ms']:.5f} bound_ms={res['bound_ms']:.5f} "
-          f"({res['bound_by']}, {nbytes} bytes) bf16_bound_ms="
-          f"{res['bf16_bound_ms']:.5f} library_ms(sdpa, gather "
-          f"excluded)={res['library_ms']:.5f}", flush=True)
+    return {"device_ms": dev["all"], "split_device_ms": dev["split"],
+            "combine_device_ms": dev["combine"], "ms": ms,
+            "host_us": host, "cuda_core_host_us": core_host,
+            "cuda_core_device_ms": core_dev, "cuda_core_ms": core_ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_device_ms": lib_dev, "bytes": nbytes,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "tb_per_s": nbytes / (dev["all"] * 1e-3) / 1e12}
+
+
+def times_line(r):
+    return (f"device_ms={r['device_ms']:.5f} (split "
+            f"{r['split_device_ms']:.5f}, combine "
+            f"{r['combine_device_ms']:.5f}; {r['tb_per_s']:.3f} TB/s) "
+            f"kernel_ms={r['ms']:.5f} by events, host {r['host_us']:.2f} "
+            f"us a call; the kernel it replaced (_cuda_core_paged) "
+            f"device_ms={r['cuda_core_device_ms']:.5f} events "
+            f"{r['cuda_core_ms']:.5f} host {r['cuda_core_host_us']:.2f} us; "
+            f"plain_ms={r['plain_ms']:.5f}; "
+            f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}, {r['bytes']} "
+            f"bytes); library yardstick (not used by the port): sdpa on "
+            f"K/V gathered beforehand {r['library_ms']:.5f} ms, device "
+            f"{r['library_device_ms']:.5f}")
+
+
+def kernel_phase(torch, seed, nvcc_log=""):
+    """``[kernel]``: the split-K kernel at GPT-2-small's decode shape
+    with ragged lengths and scattered pages, fp32, bf16 and fp16, held
+    by :func:`paged_check` (the three controls in bf16 and fp16), and
+    timed beside the kernel it replaced, the plain version, the bound
+    and SDPA (:func:`l2_flush` before each call)."""
+    from paddle_tpu_torch.inference.serving import paged_attention_kernel as pak
+    B, H, Dh, BS, MAXNB = 8, 12, 64, 16, 64
+    lengths_l = [0, 1, 16, 17, 500, 1024, 333, 64]
+    if nvcc_log:
+        from paddle_tpu_torch import _build
+        _, regs, spills = sass_summary(
+            _build.library_path("paged_attention_sm90"), nvcc_log)
+        print(f"[kernel] {K1_SOURCE}: ptxas registers per kernel {regs}, "
+              f"spill store bytes {spills}", flush=True)
+        check(not any(spills), f"[kernel] ptxas spills {spills}")
+    inputs = paged_inputs(torch, seed, B, H, Dh, BS, MAXNB, lengths_l)
+    flush = l2_flush(torch)
+    res = {}
+    for dn, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16),
+                      ("fp16", torch.float16)):
+        x = [t.to(dtype) if t.is_floating_point() else t for t in inputs]
+        r = paged_check(torch, pak, "kernel", f"{dn} B={B} H={H} Dh={Dh} "
+                        f"BS={BS} MAXNB={MAXNB} lengths={lengths_l}", x,
+                        controls=dn != "fp32")
+        if dn != "fp16":
+            r.update(paged_times(torch, pak, x, flush, 100, 20))
+            print(f"[kernel] {dn}: " + times_line(r), flush=True)
+        res[dn] = r
+    # serving at max_batch 256: 256 (request, head group) pairs fill the
+    # card, so one split and no combine; an inactive slot has length 0
+    B1 = 256
+    lengths_1 = [0 if b % 4 == 0 else (37 * b) % 1024 + 1
+                 for b in range(B1)]
+    one = paged_inputs(torch, seed + 1, B1, H, Dh, BS, MAXNB, lengths_1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dn, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        x = [t.to(dtype) if t.is_floating_point() else t for t in one]
+        check(pak.split_plan(B1, H, Dh, BS, MAXNB, x[4].element_size(),
+                             sms).splits == 1,
+              f"[kernel] B={B1}: the plan has more than one split")
+        res[f"{dn} one split"] = paged_check(
+            torch, pak, "kernel", f"{dn} B={B1} H={H} Dh={Dh} BS={BS} "
+            f"MAXNB={MAXNB} one split, every 4th row empty", x)
+        del x
+    del one
+    return res
+
+
+def kernel_long_phase(torch, seed):
+    """``[kernel long]``: the kernel at the long-context tier's decode
+    shape (B=8, H=12, Dh=64, every request 32768 tokens) with pages of 16
+    and of 256 tokens, fp32, bf16 and fp16 (and ragged lengths up to
+    32768 in bf16), held by :func:`paged_check` and timed as ``[kernel]``
+    is (fp32 and bf16)."""
+    from paddle_tpu_torch.inference.serving import paged_attention_kernel as pak
+    B, H, Dh = 8, 12, 64
+    flush = l2_flush(torch)
+    res = {}
+    for BS in (16, 256):
+        MAXNB = K1_LONG // BS
+        inputs = paged_inputs(torch, seed + BS, B, H, Dh, BS, MAXNB,
+                              [K1_LONG] * B)
+        for dn, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16),
+                          ("fp16", torch.float16)):
+            x = [t.to(dtype) if t.is_floating_point() else t
+                 for t in inputs]
+            r = paged_check(torch, pak, "kernel long", f"{dn} B={B} H={H} "
+                            f"Dh={Dh} BS={BS} MAXNB={MAXNB} lengths "
+                            f"{K1_LONG} each", x)
+            if dn != "fp16":
+                r.update(paged_times(torch, pak, x, flush, 10, 3))
+                print(f"[kernel long] {dn} BS={BS}: " + times_line(r),
+                      flush=True)
+            res[f"{dn} bs{BS}"] = r
+            del x
+        if BS == 256:
+            ragged = [K1_LONG, K1_LONG - 1, 1, 0, 256, 257, 20000, 12345]
+            x = list(inputs)
+            x[3] = torch.as_tensor(np.array(ragged, np.int32),
+                                   device=x[4].device)
+            x = [t.to(torch.bfloat16) if t.is_floating_point() else t
+                 for t in x]
+            res["bf16 ragged"] = paged_check(
+                torch, pak, "kernel long", f"bf16 B={B} H={H} Dh={Dh} "
+                f"BS={BS} MAXNB={MAXNB} lengths={ragged}", x, controls=True)
+            del x
+        del inputs
     return res
 
 
@@ -375,6 +711,7 @@ def serving_phase(torch, seed, dtype, tag, check_oracle):
         warm = server.warmup(REQ_LENS)
         d0 = server.engine.stats()["dispatches"]
         pak.paged_ragged_attention.launches = 0
+        pak._cuda_core_paged.launches = 0
         server.start()
         t0 = time.monotonic()
         futs = [server.submit(p, max_tokens=m)
@@ -382,6 +719,7 @@ def serving_phase(torch, seed, dtype, tag, check_oracle):
         results = [f.result(timeout=600) for f in futs]
         wall = time.monotonic() - t0
         launches = pak.paged_ragged_attention.launches
+        core_launches = pak._cuda_core_paged.launches
         st = server.stats()
     finally:
         server.close()
@@ -393,11 +731,14 @@ def serving_phase(torch, seed, dtype, tag, check_oracle):
     check(launches == dispatches * cfg.num_hidden_layers,
           f"{tag}: kernel launches {launches} != dispatches {dispatches}"
           f" x {cfg.num_hidden_layers}")
+    check(core_launches == 0, f"{tag}: the comparison entry "
+          f"_cuda_core_paged launched {core_launches} times")
     n_tok = sum(len(r.tokens) for r in results)
     print(f"[serve {tag}] GPT-2-small L=12 D=768 H=12 V=50304: "
           f"{len(results)} requests, {n_tok} tokens in {wall:.4f} s = "
           f"{n_tok / wall:.2f} tokens/s; dispatches={dispatches} "
-          f"kernel_launches={launches}; ttft_p50_s={st['ttft_p50_s']:.6f}"
+          f"kernel_launches={launches} (_cuda_core_paged "
+          f"{core_launches}); ttft_p50_s={st['ttft_p50_s']:.6f}"
           f" intertoken_p50_s={st['intertoken_p50_s']:.6f} "
           f"intertoken_p99_s={st['intertoken_p99_s']:.6f}; warmup_s="
           f"{warm['warmup_s']:.3f}", flush=True)
@@ -419,7 +760,7 @@ def serving_phase(torch, seed, dtype, tag, check_oracle):
         print(f"[serve {tag}] greedy tokens of requests {ORACLE_REQS} equal"
               " the sequential reference_decode", flush=True)
     return {"launches": launches, "dispatches": dispatches,
-            "tokens_per_s": n_tok / wall}
+            "core_launches": core_launches, "tokens_per_s": n_tok / wall}
 
 
 # ---------------------------------------------------------------------------
@@ -2835,7 +3176,9 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"[ptxas {name}] {line.strip()}", flush=True)
 
-    kres = kernel_phase(torch, args.seed)
+    kres = kernel_phase(torch, args.seed,
+                        built.get("paged_attention_sm90", {}).get("log", ""))
+    klong = kernel_long_phase(torch, args.seed)
     fres = flash_phase(torch, args.seed)
     lres = lmce_phase(torch, args.seed)
     s32 = serving_phase(torch, args.seed, torch.float32, "fp32", True)
@@ -2861,21 +3204,45 @@ def main(argv=None) -> int:
     f16 = fp16_phase(torch, args.seed)
     hd = headdim_phase(torch, args.seed)
 
+    k32, k16 = kres["fp32"], kres["bf16"]
     kernels = [{
         "name": "paged_ragged_attention", "route": "cuda",
-        "source": "paddle_tpu_torch/csrc/paged_attention.cu",
-        "replaces": "paddle_tpu/inference/serving/"
-                    "paged_attention_kernel.py:62",
-        "launches": s32["launches"], "max_abs_err": kres["max_abs_err"],
-        "ms": kres["ms"], "plain_ms": kres["plain_ms"],
-        "bound_ms": kres["bound_ms"], "bound_by": kres["bound_by"],
-        "library_ms": kres["library_ms"],
-        "bf16_ms": kres["bf16_ms"], "bf16_bound_ms": kres["bf16_bound_ms"],
-        "bf16_max_abs_err": kres["bf16_max_abs_err"],
+        "source": K1_SOURCE, "cuda_core_source": K1_CORE_SOURCE,
+        "replaces": K1_REPLACES,
+        "launches": s32["launches"], "max_abs_err": k32["max_abs_err"],
+        "ms": k32["ms"], "device_ms": k32["device_ms"],
+        "plain_ms": k32["plain_ms"], "bound_ms": k32["bound_ms"],
+        "bound_by": k32["bound_by"], "library_ms": k32["library_ms"],
+        "library_device_ms": k32["library_device_ms"],
+        "cuda_core_ms": k32["cuda_core_ms"],
+        "cuda_core_device_ms": k32["cuda_core_device_ms"],
+        "host_us": k32["host_us"],
+        "cuda_core_host_us": k32["cuda_core_host_us"],
+        "plan": list(k32["plan"]), "bf16_plan": list(k16["plan"]),
+        "bf16_ms": k16["ms"], "bf16_device_ms": k16["device_ms"],
+        "bf16_bound_ms": k16["bound_ms"],
+        "bf16_cuda_core_device_ms": k16["cuda_core_device_ms"],
+        "bf16_library_device_ms": k16["library_device_ms"],
+        "bf16_max_abs_err": k16["max_abs_err"],
         "bf16_launches": s16["launches"],
-        "fp16_max_abs_err": f16["paged_ragged_attention"],
+        "cuda_core_serving_launches": s32["core_launches"]
+        + s16["core_launches"],
+        "gate_ratio": max(r["gate_ratio"] for r in
+                          list(kres.values()) + list(klong.values())),
+        "equal_share": min(r["equal_share"] for k, r in
+                           list(kres.items()) + list(klong.items())
+                           if not k.startswith("fp32")),
+        "fp16_max_abs_err": max(kres["fp16"]["max_abs_err"],
+                                f16["paged_ragged_attention"]),
         "dh16_max_abs_err": max(v for k, v in hd.items()
                                 if k.startswith("paged")),
+        "long": {k: {x: (list(r[x]) if x == "plan" else r[x])
+                     for x in ("device_ms", "ms", "cuda_core_device_ms",
+                               "cuda_core_ms", "plain_ms", "bound_ms",
+                               "library_ms", "library_device_ms",
+                               "tb_per_s", "max_abs_err", "plan")
+                     if x in r}
+                 for k, r in klong.items()},
     }]
     for name in FLASH_KERNELS:
         r = fres[name]

@@ -1,10 +1,12 @@
-// PTX helpers shared by the port's Hopper tensor-core kernels (sm_90a):
-// mbarriers, TMA tile loads, wgmma shared-memory descriptors and the
-// wgmma forms the kernels use, for bf16 and fp16 operands with fp32
-// accumulators, and the host-side tensor-map encoder.
+// PTX helpers shared by the port's Hopper kernels (sm_90a): mbarriers,
+// TMA tile loads through tensor maps and 1-D bulk copies without one,
+// wgmma shared-memory descriptors and the wgmma forms the kernels use,
+// for bf16 and fp16 operands with fp32 accumulators, and the host-side
+// tensor-map encoder.
 //
-// Used by flash_fwd_sm90.cu, flash_bwd_sm90.cu, lmce_sm90.cu and
-// lmce_fwd_sm90.cu.
+// Used by flash_fwd_sm90.cu, flash_bwd_sm90.cu, lmce_sm90.cu,
+// lmce_fwd_sm90.cu (tensor cores, TMA) and paged_attention_sm90.cu
+// (mbarriers and bulk_load_1d only).
 // _build.py hashes this header into every library's name, so an edit
 // rebuilds them all.
 
@@ -120,6 +122,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, uint64_t map,
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
       "l"(map), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` contiguous bytes from global memory into shared memory,
+// completing on `bar` (cp.async.bulk, no tensor map): both addresses
+// 16-byte aligned, `bytes` a multiple of 16.
+__device__ __forceinline__ void bulk_load_1d(uint32_t dst, const void* src,
+                                             uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 

@@ -15,6 +15,7 @@
 #include <cstdlib>
 #include <cstring>
 #include <functional>
+#include <map>
 #include <memory>
 #include <thread>
 #include <vector>
@@ -51,7 +52,8 @@ inline std::barrier<>* emu_block_barrier = nullptr;
 inline std::vector<std::unique_ptr<std::barrier<>>> emu_warp_barriers;
 inline float emu_shuffle[1024];
 inline unsigned char* emu_dyn_smem = nullptr;
-inline int emu_smem_limit = 48 * 1024;
+// each kernel's dynamic shared-memory limit, as cudaFuncSetAttribute set it
+inline std::map<const void*, int> emu_smem_limits;
 
 inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
 
@@ -68,20 +70,40 @@ inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
   return emu_shuffle[w * 32 + (lane ^ lane_mask)];
 }
 
+inline int emu_shuffle_int[1024];
+inline int __shfl_sync(unsigned, int v, int src_lane) {
+  const int t = threadIdx.x, w = t / 32;
+  emu_warp_barriers[w]->arrive_and_wait();
+  emu_shuffle_int[t] = v;
+  emu_warp_barriers[w]->arrive_and_wait();
+  return emu_shuffle_int[w * 32 + (src_lane & 31)];
+}
+
+// Every lane of the warp must call it, as on the card with a full mask.
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  emu_warp_barriers[threadIdx.x / 32]->arrive_and_wait();
+}
+
 template <class T>
-cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int value) {
-  emu_smem_limit = value;
+cudaError_t cudaFuncSetAttribute(T* fn, cudaFuncAttribute, int value) {
+  emu_smem_limits[reinterpret_cast<const void*>(fn)] = value;
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
 
 // kernel<<<grid, block, smem, stream>>>(args) is rewritten to
-// emu_launch(grid, block, smem, [&] { kernel(args); }).
-inline void emu_launch(dim3 grid, dim3 block, size_t smem,
+// emu_launch(&kernel, grid, block, smem, [&] { kernel(args); }).
+inline void emu_launch(const void* kernel, dim3 grid, dim3 block, size_t smem,
                        const std::function<void()>& body) {
-  if (smem > static_cast<size_t>(emu_smem_limit) || smem > 232448) {
+  const auto it = emu_smem_limits.find(kernel);
+  const int limit = it == emu_smem_limits.end() ? 48 * 1024 : it->second;
+  if (smem > static_cast<size_t>(limit) || smem > 232448) {
     std::fprintf(stderr, "launch asks %zu bytes of shared memory (limit "
-                 "%d, card 232448)\n", smem, emu_smem_limit);
+                 "%d, card 232448)\n", smem, limit);
     std::abort();
   }
   gridDim = grid;

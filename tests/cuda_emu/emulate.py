@@ -7,15 +7,18 @@ C++20 against ``cuda_runtime.h`` / ``cuda_bf16.h`` here:
   dynamic shared memory;
 - ``__shared__`` -> ``static`` (blocks run one at a time, so a static
   array is the block's own);
-- ``kernel<<<grid, block, smem, stream>>>(args);`` -> ``emu_launch(grid,
-  block, smem, [&] { kernel(args); });``.
+- ``kernel<<<grid, block, smem, stream>>>(args);`` -> ``emu_launch(&kernel,
+  grid, block, smem, [&] { kernel(args); });`` (the launch is held to the
+  shared-memory limit that ``cudaFuncSetAttribute`` set for that kernel).
 
 The library keeps the source's ``extern "C"`` entry points, so the
 port's ctypes wrappers can drive it with CPU pointers.
 ``atomicAdd(float*, float)`` is a ``std::atomic_ref`` add (a block's
 threads run at once; blocks run in turn, so the order across blocks is
 fixed here, unlike on the card).  Inline PTX and tensor-core
-instructions are not emulated.
+instructions are not emulated; the mbarrier and 1-D bulk-copy helpers
+of ``csrc/sm90.cuh`` have plain twins in ``sm90.cuh`` here, which the
+build finds first.
 """
 
 from __future__ import annotations
@@ -40,7 +43,8 @@ def translate(source: str) -> str:
 
     def launch(m):
         cfg = [c.strip() for c in m.group(2).split(",")] + ["0", "0"]
-        return (f"emu_launch({cfg[0]}, {cfg[1]}, {cfg[2]}, [&] "
+        return (f"emu_launch(reinterpret_cast<const void*>(&{m.group(1)}), "
+                f"{cfg[0]}, {cfg[1]}, {cfg[2]}, [&] "
                 f"{{ {m.group(1)}({m.group(3)}); }});")
 
     return _LAUNCH.sub(launch, text)

@@ -400,6 +400,93 @@ def _paged_matches_plain(emu_libs, dtype, tol, Dh):
     assert (out[0] == 0).all()
 
 
+# the split-K kernel (csrc/paged_attention_sm90.cu): its mbarriers and
+# bulk copies run on the plain twins of tests/cuda_emu/sm90.cuh (a copy
+# is a memcpy counted off its barrier, after the card's alignment
+# checks); the SM count sets the plan's split count
+PAGED_SPLIT_CASES = {
+    "fp32 Dh=64 BS=16, 2 splits": dict(
+        dtype=torch.float32, H=2, Dh=64, BS=16, MAXNB=4,
+        lengths=[0, 1, 17, 64], sms=4),
+    "bf16 Dh=64 BS=16, 2 splits": dict(
+        dtype=torch.bfloat16, H=2, Dh=64, BS=16, MAXNB=4,
+        lengths=[0, 1, 17, 64], sms=4),
+    "fp16 Dh=48 BS=8, 4 splits, half-empty lane groups": dict(
+        dtype=torch.float16, H=3, Dh=48, BS=8, MAXNB=8,
+        lengths=[5, 0, 64, 33], sms=8),
+    "fp32 Dh=256 head groups of 2, one split": dict(
+        dtype=torch.float32, H=8, Dh=256, BS=4, MAXNB=8,
+        lengths=[32, 7, 13], sms=4),
+    "bf16 Dh=256 head groups of 4, 4 splits": dict(
+        dtype=torch.bfloat16, H=8, Dh=256, BS=16, MAXNB=4,
+        lengths=[64, 20], sms=8),
+    "bf16 Dh=16 BS=24, 16-token tiles, 3 token groups, 2 stages": dict(
+        dtype=torch.bfloat16, H=4, Dh=16, BS=24, MAXNB=3,
+        lengths=[72, 49], sms=4, plan=pak.SplitPlan(4, 16, 3, 2, 40, 2)),
+    "fp32 Dh=32 stale row: length past MAXNB*BS, page id past the pool": dict(
+        dtype=torch.float32, H=2, Dh=32, BS=4, MAXNB=6,
+        lengths=[24, 24, 0], sms=6, stale=True),
+    "bf16 Dh=64 one split, empty rows (no combine launch)": dict(
+        dtype=torch.bfloat16, H=2, Dh=64, BS=16, MAXNB=4,
+        lengths=[0, 64, 0, 5], sms=1, splits=1),
+    "fp32 Dh=256 head groups, one split, empty rows": dict(
+        dtype=torch.float32, H=8, Dh=256, BS=4, MAXNB=8,
+        lengths=[0, 32, 0], sms=1, splits=1),
+}
+
+
+@pytest.fixture(scope="module")
+def paged_sm90_lib(tmp_path_factory):
+    if emulate.compiler() is None:
+        pytest.skip("no g++ to build the CUDA emulation")
+    out = tmp_path_factory.mktemp("cuda_emu_paged_sm90")
+    return pak.bind(ctypes.CDLL(str(emulate.build(
+        _build.CSRC_DIR / "paged_attention_sm90.cu", out))))
+
+
+@pytest.mark.parametrize("case", list(PAGED_SPLIT_CASES))
+def test_paged_split_kernel_matches_plain(paged_sm90_lib, case):
+    c = PAGED_SPLIT_CASES[case]
+    dtype, H, Dh, BS, MAXNB = (c["dtype"], c["H"], c["Dh"], c["BS"],
+                               c["MAXNB"])
+    lengths_l = c["lengths"]
+    B, NB = len(lengths_l), len(lengths_l) * MAXNB + 1
+    rng = np.random.default_rng(5)
+    table = np.zeros((B, MAXNB), dtype=np.int32)
+    free = rng.permutation(np.arange(1, NB)).tolist()
+    for b, n in enumerate(lengths_l):
+        table[b, :-(-n // BS)] = [free.pop() for _ in range(-(-n // BS))]
+    gen = torch.Generator().manual_seed(6)
+    pool_k, pool_v = [torch.randn(NB, BS, H, Dh, generator=gen).to(dtype)
+                      for _ in range(2)]
+    q = torch.randn(B, H, Dh, generator=gen).to(dtype)
+    table_t = torch.from_numpy(table)
+    lengths = torch.tensor(lengths_l, dtype=torch.int32)
+    ref_lengths = lengths
+    if c.get("stale"):
+        table_t[0, -1] = NB + 5                # clamps to the last page
+        lengths = lengths.clone()
+        lengths[1] = MAXNB * BS + 9            # clamps to MAXNB*BS
+        ref_lengths = lengths.clamp(max=MAXNB * BS)
+    plan = c.get("plan") or pak.split_plan(B, H, Dh, BS, MAXNB,
+                                           q.element_size(), c["sms"])
+    assert plan.splits == c.get("splits", plan.splits)
+    args = (pool_k, pool_v, table_t, lengths, q, 1.0 / math.sqrt(Dh),
+            c["sms"])
+    # NaN-filled outputs: an element the kernels leave unwritten fails
+    out, again = [pak._launch_sm90(paged_sm90_lib, None, *args, plan=plan,
+                                   out=torch.full_like(q, float("nan")))
+                  for _ in range(2)]
+    f32 = (pool_k.float(), pool_v.float(), table_t.clamp(0, NB - 1),
+           ref_lengths, q.float())
+    ref = pak.paged_ragged_attention_reference(*f32)
+    _close(out, ref, TOLS[dtype], "out vs plain")
+    _close(out, pak.paged_split_reference(*f32, plan.split_tokens),
+           TOLS[dtype], "out vs the plain mirror of the split")
+    assert out.dtype == dtype and torch.equal(out, again)
+    assert bool((out[lengths == 0] == 0).all())
+
+
 LMCE_CASES = {
     "fp32 D=64 ragged rows+vocab, ignored labels": dict(
         N=70, V=300, D=64, ignore=True),

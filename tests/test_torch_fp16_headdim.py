@@ -196,16 +196,16 @@ def test_paged_head_dim_16_matches_jax_kernel(dtype, jdtype, tol):
 
 
 def test_paged_wrapper_takes_multiples_of_16(monkeypatch):
-    """On the card Dh = 16 and 48 reach the kernel (half a warp per row);
-    Dh = 40 and 272 still raise before any launch."""
+    """On the card Dh = 16 and 48 reach the kernel (lane groups of 2 and
+    8 in fp16); Dh = 40 and 272 still raise before any launch."""
     calls = []
 
-    def fake_kernel():
-        def fn(*args):
-            calls.append(args[9])                 # Dh
+    class FakeLib:
+        def paddle_paged_attention_sm90(self, *args):
+            calls.append(pak.Launch.from_address(args[0]).Dh)
             return 0
-        return fn
-    monkeypatch.setattr(pak, "_kernel", fake_kernel)
+    monkeypatch.setattr(pak, "_lib", lambda name: FakeLib())
+    monkeypatch.setattr(pak, "_sm_count", lambda device: 132)
     monkeypatch.setattr(torch.cuda, "device", lambda d: _Null())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d: type("S", (), {"cuda_stream": 0})())
