@@ -62,10 +62,27 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
    ``Model.fit``: B=8, S=1024, dropout 0, ``amp.decorate(level="O2",
    dtype="bfloat16")``, ``AdamW(1e-4, multi_precision=True)``, random
    weights and tokens from ``--seed``, labels = tokens rolled by one,
-   TRAIN_STEPS steps on one repeated batch.  Checks finite losses, the
-   last below the first, each flash kernel launched 12 times per step
-   and no plain call; prints step ms, tokens/s and peak memory, and a
-   ``torch.profiler`` breakdown of two more steps;
+   TRAIN_STEPS steps on one repeated batch.  Its per-step clock is a
+   batch hook, so the fit resolves ``steps_per_dispatch`` to 1: one
+   eager warm-up step, then the step captured into a CUDA graph and
+   replayed once per step (one graph, one capture).  Checks finite
+   losses, the last below the first, each flash kernel launched 12
+   times per step (counted per replay) and no plain call; prints step
+   ms, tokens/s and peak memory, a ``torch.profiler`` breakdown of one
+   group of two more replays (the ten busiest "other" kernels by name
+   beside the groups) and the memory left reserved once the model's
+   graphs are freed (as every training phase does);
+7b. ``[train eager]`` repeats 7 through the eager route
+   (``steps_per_dispatch=0``): the same checks, every loss within 1e-2
+   relative of 7's, and its step ms, tokens/s, peak memory and idle
+   share beside 7's; ``[train fold]`` trains the same model with no
+   per-step hook: a two-step fit that warms up and captures, then
+   FOLD_STEPS steps at ``steps_per_dispatch=FOLD_K`` and FOLD_STEPS
+   under auto-K, each synchronised only at its start and end (launches
+   by replay, one graph, finite falling loss); prints the capture time,
+   the graph pool's reserved memory, step ms and tokens/s of both, the
+   tuner's decision, peak memory and a profile of one group of FOLD_K
+   replays;
 8. ``[train fused lmce]`` repeats 7 with ``enable_fused_lmce`` (the
    lm head and the loss in the three lmce kernels, the logits never in
    device memory): also checks each lmce kernel launched once per
@@ -154,6 +171,21 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
     (2 layers, hidden 128, head dim 64, S=256) for three fp32 steps on
     the card and on the CPU under the knobs and compares the losses
     (fp32 never launches the tensor-core forward);
+15b. ``[train fold bh]`` repeats 7b's ``[train fold]`` under the
+    ``[B*H, S, D]`` knobs; ``[train fold parity]`` fits the small GPT in
+    fp32 and bf16 O2 and the small BERT under the knobs over
+    FOLD_BATCHES distinct batches at K = 1, 4 and auto and through the
+    eager route: end states (parameters, moments, beta powers, masters,
+    step counts) bit-identical for every K, within 1e-4 x max(|ref|, 1)
+    of the eager route in fp32, each K=4 group's losses distinct and
+    equal to K=1's (the BERT run's fused backward adds dq with atomics
+    in an order that changes from run to run, so its K's are held
+    within that 1e-4, not bit for bit); with dropout 0.1, K=1 and K=4
+    bit-identical with
+    the generator's offset equal to the eager route's; two controls
+    patched in by the phase (the optimizer's scalars as host floats,
+    which the capture freezes; every loss slot of a group from the
+    graph's one static loss) must fail those gates;
 16. ``[lmce tc]`` holds the tensor-core LMCE backward
     (``csrc/lmce_sm90.cu``, ``wgmma`` fed by TMA) against its plain
     versions (dL rounded to the operand dtype; each element within
@@ -195,7 +227,9 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
 19. prints the kernels' JSON line, the card line, and last the line
     ``{"ok": true, "device": {...}}``.
 
-In every training phase each 16-bit flash launch (forward, split and
+Every training phase but ``[train eager]`` runs through the fold
+engine, whose launch counts add each replay's launches.  In every
+training phase each 16-bit flash launch (forward, split and
 fused backward) must be the tensor-core kernel's
 (``<wrapper>.tc_launches`` equal to ``launches``: 12 per step each) and
 the CUDA-core comparison entries, which the timings call through
@@ -212,6 +246,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -237,6 +272,11 @@ BH_FIRST_LOSS_TOL = 1e-2         # relative; the [B*H, S, D] path rounds
 FLASH_PAIR_TOL = 1e-5            # x max(|ref|, 1); kernel against kernel,
                                  # fp32, sums in other orders or atomics
 ERNIE_B, ERNIE_S = 16, 512
+FOLD_K, FOLD_STEPS = 8, 32       # [train fold]: K and the timed fits' steps
+FOLD_BATCHES = 11                # [train fold parity]: groups 4 + 4 + 3
+FOLD_LR = 1e-3                   # [train fold parity]: AdamW's rate
+FOLD_EAGER_TOL = 1e-4            # x max(|ref|, 1), fp32; folded vs eager
+FOLD_EAGER_LOSS_TOL = 1e-2       # relative; [train eager] vs [train]
 BH_KNOBS = {"PADDLE_TORCH_FLASH_NO_PACKED": "1",
             "PADDLE_TORCH_FLASH_HEADPACK": "2",
             "PADDLE_TORCH_FLASH_FUSED_BWD": "1"}
@@ -2679,9 +2719,9 @@ def headdim_phase(torch, seed):
 # training: GPT-2-small through Model.fit
 # ---------------------------------------------------------------------------
 def _train_model(torch, cfg, device, seed, o2, bert=False,
-                 amp_dtype="bfloat16"):
+                 amp_dtype="bfloat16", lr=1e-4):
     """GPT (or, with ``bert``, BertForPretraining) from ``seed`` and its
-    AdamW(1e-4, multi_precision), cast to ``amp_dtype`` O2 if ``o2``
+    AdamW(``lr``, multi_precision), cast to ``amp_dtype`` O2 if ``o2``
     (``amp_dtype`` None: ``amp.decorate``'s default, float16)."""
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch.models import BertForPretraining, GPTForCausalLM
@@ -2689,7 +2729,7 @@ def _train_model(torch, cfg, device, seed, o2, bert=False,
     gen.manual_seed(seed)
     net = (BertForPretraining if bert else GPTForCausalLM)(
         cfg, device=device, generator=gen)
-    opt = paddle.optimizer.AdamW(learning_rate=1e-4,
+    opt = paddle.optimizer.AdamW(learning_rate=lr,
                                  parameters=net.parameters(),
                                  multi_precision=True)
     if o2 and amp_dtype is None:
@@ -2709,14 +2749,18 @@ def _mlm_batch(torch, vocab, b, s, seed):
 
 
 def fit_and_check(torch, tag, desc, model, net, batch, want, tokens,
-                  low=None):
+                  low=None, fold=None):
     """``Model.fit`` for TRAIN_STEPS steps on one repeated batch, every
     launch count set to 0 just before and read just after; checks
     finite, falling losses, the launch counts against ``want`` (every
-    flash and lmce kernel and the fused backward's helpers), no plain
-    call and the O2 dtypes (``low``: the 16-bit one, bf16 by default);
-    prints step ms, tokens/s, peak memory and a profile of two more
-    steps."""
+    flash and lmce kernel and the fused backward's helpers; under the
+    fold engine counted per replay), no plain call and the O2 dtypes
+    (``low``: the 16-bit one, bf16 by default); prints step ms,
+    tokens/s, peak memory and a profile of two more steps.  ``fold`` is
+    ``steps_per_dispatch``: None resolves to 1 (the per-step clock is a
+    batch hook), so the fit warms up one eager step, captures the step
+    and replays it; 0 is the eager route.  Frees the model's graphs at
+    the end and prints the memory still reserved."""
     from paddle_tpu_torch.hapi.callbacks import Callback
     from paddle_tpu_torch.ops import flash_attention_kernel as fk
     from paddle_tpu_torch.ops import lmce_kernel as lk
@@ -2744,17 +2788,9 @@ def fit_and_check(torch, tag, desc, model, net, batch, want, tokens,
     fk.reset_counts()
     lk.reset_counts()
     model.fit([batch] * TRAIN_STEPS, epochs=1, num_iters=TRAIN_STEPS,
-              verbose=0, callbacks=[clock])
-    wrappers = fk.ALL_WRAPPERS + lk.WRAPPERS
-    launches = {f.__name__: f.launches for f in wrappers}
-    launches.update({f"{f.__name__}.tc": f.tc_launches
-                     for f in fk.TC_WRAPPERS + lk.TC_WRAPPERS})
-    launches["_cuda_core_fwd"] = fk._cuda_core_fwd.launches
-    launches["_cuda_core_flash_bwd"] = fk._cuda_core_flash_bwd.launches
-    launches["_cuda_core_bwd"] = lk._cuda_core_bwd.launches
-    launches["_cuda_core_lmce_fwd"] = lk._cuda_core_fwd.launches
-    launches.update(fk.flash_bwd_fused.helper_launches)
-    plain = {f.__name__: f.plain_calls for f in wrappers}
+              verbose=0, callbacks=[clock], steps_per_dispatch=fold)
+    launches = launch_table(fk, lk)
+    plain = {f.__name__: f.plain_calls for f in fk.ALL_WRAPPERS + lk.WRAPPERS}
     peak = torch.cuda.max_memory_allocated()
     losses = clock.losses
     check(len(losses) == TRAIN_STEPS, f"[{tag}] {len(losses)} steps")
@@ -2762,22 +2798,57 @@ def fit_and_check(torch, tag, desc, model, net, batch, want, tokens,
     check(losses[-1] < losses[0], f"[{tag}] loss did not fall: {losses}")
     check(launches == want, f"[{tag}] launches {launches}, expected {want}")
     check(not any(plain.values()), f"[{tag}] plain calls {plain}")
+    graphs = model.compile_stats()
+    want_graphs = ({"graphs": 0, "captures": 0} if fold == 0 else
+                   {"graphs": 1, "captures": 1})
+    check(graphs == want_graphs, f"[{tag}] graphs {graphs}, expected "
+          f"{want_graphs}")
+    check(model._fold == (1 if fold is None else fold),
+          f"[{tag}] steps_per_dispatch resolved to {model._fold}")
     dtypes = {p.dtype for p in net.parameters()}
     check(dtypes == {low or torch.bfloat16, torch.float32},
           f"[{tag}] O2 parameter dtypes {dtypes}")
     steps_ms = np.diff(clock.stamps) * 1e3
     step_ms = float(np.median(steps_ms[2:]))
     tok_s = tokens / (step_ms * 1e-3)
-    print(f"[{tag}] {desc}: {TRAIN_STEPS} steps, losses "
+    print(f"[{tag}] {desc}: {TRAIN_STEPS} steps "
+          f"(steps_per_dispatch={model._fold}, {graphs}), losses "
           f"{[round(v, 6) for v in losses]}; step_ms first="
           f"{steps_ms[0]:.3f} median(steps 3+)={step_ms:.3f} -> "
           f"{tok_s:.1f} tokens/s; peak_mem_gib="
           f"{peak / 2**30:.3f} (resident before fit "
           f"{resident / 2**30:.3f}); launches {launches}; plain calls "
           f"{plain}", flush=True)
-    profile_steps(torch, model, batch, 2, tag)
+    prof = profile_steps(torch, model, batch, 2, tag, folded=fold != 0)
+    free_model(torch, tag, model)
     return {"launches": launches, "losses": losses, "peak": peak,
-            "step_ms": step_ms, "tokens_per_s": tok_s}
+            "step_ms": step_ms, "tokens_per_s": tok_s, "profile": prof}
+
+
+def launch_table(fk, lk):
+    """Every launch count of the training path's kernels, by name."""
+    launches = {f.__name__: f.launches for f in fk.ALL_WRAPPERS + lk.WRAPPERS}
+    launches.update({f"{f.__name__}.tc": f.tc_launches
+                     for f in fk.TC_WRAPPERS + lk.TC_WRAPPERS})
+    launches["_cuda_core_fwd"] = fk._cuda_core_fwd.launches
+    launches["_cuda_core_flash_bwd"] = fk._cuda_core_flash_bwd.launches
+    launches["_cuda_core_bwd"] = lk._cuda_core_bwd.launches
+    launches["_cuda_core_lmce_fwd"] = lk._cuda_core_fwd.launches
+    launches.update(fk.flash_bwd_fused.helper_launches)
+    return launches
+
+
+def free_model(torch, tag, model):
+    """Free ``model``'s CUDA graphs and their pool, and print the memory
+    the card still holds reserved, so that a pool left behind by one
+    phase shows before it runs a later one out of memory."""
+    import gc
+    model.release_graphs()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[{tag}] after freeing the model's graphs: reserved "
+          f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB, allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB", flush=True)
 
 
 def _want_launches(layer_calls, bh=False, fused_lmce_steps=0):
@@ -2807,18 +2878,21 @@ def _want_launches(layer_calls, bh=False, fused_lmce_steps=0):
     return want
 
 
-def train_phase(torch, seed, fused=False, bh=False, fp16=False):
+def train_phase(torch, seed, fused=False, bh=False, fp16=False,
+                eager=False):
     """``[train]``, with ``fused`` the same run with ``enable_fused_lmce``
     (``[train fused lmce]``), with ``bh`` under the [B*H, S, D] knobs
     (``[train bh]``), with ``fp16`` after ``amp.decorate(level="O2")``
-    with its default dtype, float16 (``[train fp16]``)."""
+    with its default dtype, float16 (``[train fp16]``), with ``eager``
+    through the eager route, ``steps_per_dispatch=0`` (``[train
+    eager]``)."""
     import gc
 
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch.models import (GPTPretrainingCriterion,
                                          enable_fused_lmce, gpt2_small)
     tag = ("train fused lmce" if fused else "train bh" if bh else
-           "train fp16" if fp16 else "train")
+           "train fp16" if fp16 else "train eager" if eager else "train")
     gc.collect()                # the previous phase's model, if any
     cfg = gpt2_small(hidden_dropout_prob=0.0,
                      attention_probs_dropout_prob=0.0)
@@ -2841,7 +2915,8 @@ def train_phase(torch, seed, fused=False, bh=False, fp16=False):
             torch, tag, f"GPT-2-small L=12 D=768 H=12 V=50304 B={TRAIN_B} "
             f"S={TRAIN_S} {'fp16 (the default)' if fp16 else 'bf16'} O2 "
             "AdamW", model, net, batch, want, TRAIN_B * TRAIN_S,
-            low=torch.float16 if fp16 else torch.bfloat16)
+            low=torch.float16 if fp16 else torch.bfloat16,
+            fold=0 if eager else None)
 
 
 def bh_train_phase(torch, seed, base):
@@ -2943,6 +3018,363 @@ def fused_train_phase(torch, seed, base):
     return res
 
 
+def train_eager_phase(torch, seed, base):
+    """``[train eager]``: the ``[train]`` run through the eager route
+    (``steps_per_dispatch=0``, one ``train_batch`` a step), the same
+    call's comparison for step ms, tokens/s, peak memory and idle share;
+    every loss within FOLD_EAGER_LOSS_TOL relative of ``base``'s (same
+    weights and batch, the same kernels)."""
+    res = train_phase(torch, seed, eager=True)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(res["losses"],
+                                                  base["losses"]))
+    check(rel <= FOLD_EAGER_LOSS_TOL,
+          f"[train eager] losses {res['losses']} vs [train] "
+          f"{base['losses']} (relative {rel:.3e})")
+    idle = {k: (r["profile"] or {}).get("idle") for k, r in
+            (("eager", res), ("replayed", base))}
+    print(f"[train eager] vs [train] (K=1 replays): step_ms "
+          f"{res['step_ms']:.3f} vs {base['step_ms']:.3f}; tokens/s "
+          f"{res['tokens_per_s']:.1f} vs {base['tokens_per_s']:.1f}; "
+          f"peak_mem_gib {res['peak'] / 2**30:.3f} vs "
+          f"{base['peak'] / 2**30:.3f}; profiled idle share {idle}; "
+          f"losses max relative diff {rel:.3e}"
+          + (" (bit-identical)" if rel == 0 else ""), flush=True)
+    return res
+
+
+def pool_reserved(torch, pool):
+    """Bytes of the segments the caching allocator holds for the graph
+    pool ``pool`` (``torch.cuda.memory_snapshot()``), or None where the
+    snapshot does not name pools."""
+    segments = torch.cuda.memory_snapshot()
+    if not segments or "segment_pool_id" not in segments[0]:
+        return None
+    return sum(seg["total_size"] for seg in segments
+               if tuple(seg["segment_pool_id"]) == tuple(pool))
+
+
+def train_fold_phase(torch, seed, bh=False):
+    """``[train fold]`` (``[train fold bh]`` under the [B*H, S, D]
+    knobs): GPT-2-small as ``[train]`` with no per-step hook.  A fit of
+    two steps at ``steps_per_dispatch=2`` warms up and captures; then a
+    fit of FOLD_STEPS steps at K=FOLD_K and one under auto-K, each
+    synchronised only at its start and end.  Checks one graph, launch
+    counts by replay, a finite last loss; prints the capture time, the
+    graph pool's reserved memory, step ms and tokens/s of both timed
+    fits, the tuner's decision, peak memory and a profile of one group
+    of FOLD_K replays."""
+    import gc
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.models import GPTPretrainingCriterion, gpt2_small
+    from paddle_tpu_torch.ops import flash_attention_kernel as fk
+    from paddle_tpu_torch.ops import lmce_kernel as lk
+
+    class LastLoss(Callback):
+        """Keeps the epoch's last loss (no per-step hook)."""
+
+        def on_epoch_end(self, epoch, logs=None):
+            self.loss = float(logs["loss"][0])
+
+    tag = "train fold bh" if bh else "train fold"
+    gc.collect()
+    cfg = gpt2_small(hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0)
+    net, opt = _train_model(torch, cfg, "cuda", seed, o2=True)
+    model = paddle.Model(net, device="cuda")
+    model.prepare(opt, GPTPretrainingCriterion())
+    rng = np.random.default_rng(seed + 2)
+    x = rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S)).astype(np.int64)
+    batch = (torch.from_numpy(x).pin_memory(),
+             torch.from_numpy(np.roll(x, -1, axis=1)).pin_memory())
+    tokens = TRAIN_B * TRAIN_S
+    L = cfg.num_hidden_layers
+    last = LastLoss()
+    with knobs_set(BH_KNOBS if bh else {}):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        model.fit([batch] * 2, epochs=1, verbose=0, steps_per_dispatch=2)
+        torch.cuda.synchronize()
+        first_s = time.monotonic() - t0
+        runner = next(iter(model._graphs.values()))
+        pool = pool_reserved(torch, model._graph_pool)
+        fk.reset_counts()
+        lk.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        model.fit([batch] * FOLD_STEPS, epochs=1, verbose=0,
+                  callbacks=[last], steps_per_dispatch=FOLD_K)
+        torch.cuda.synchronize()
+        k_ms = (time.monotonic() - t0) * 1e3 / FOLD_STEPS
+        launches = launch_table(fk, lk)
+        peak = torch.cuda.max_memory_allocated()
+        want = _want_launches(FOLD_STEPS * L, bh=bh)
+        check(launches == want,
+              f"[{tag}] launches {launches}, expected {want}")
+        check(np.isfinite(last.loss), f"[{tag}] last loss {last.loss}")
+        k_loss = last.loss
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        model.fit([batch] * FOLD_STEPS, epochs=1, verbose=0,
+                  callbacks=[last])
+        torch.cuda.synchronize()
+        auto_ms = (time.monotonic() - t0) * 1e3 / FOLD_STEPS
+        tuner = model._fold_tuner
+        check(tuner is not None and tuner.decided,
+              f"[{tag}] the auto-K fit decided no K")
+        check(np.isfinite(last.loss) and last.loss < k_loss,
+              f"[{tag}] last loss {last.loss} after {k_loss}")
+        graphs = model.compile_stats()
+        check(graphs == {"graphs": 1, "captures": 1}, f"[{tag}] {graphs}")
+        prof = profile_steps(torch, model, batch, FOLD_K, tag)
+    print(f"[{tag}] GPT-2-small B={TRAIN_B} S={TRAIN_S} bf16 O2 AdamW, no "
+          f"per-step hook: first fit (1 eager warm-up step, capture, 1 "
+          f"replay) {first_s:.3f} s, capture {runner.capture_s:.3f} s; "
+          f"graphs {graphs}; graph pool reserved "
+          + (f"{pool / 2**30:.3f} GiB" if pool is not None else
+             "not measured")
+          + f"; K={FOLD_K} over {FOLD_STEPS} steps: step_ms {k_ms:.3f} -> "
+          f"{tokens / (k_ms * 1e-3):.1f} tokens/s, peak_mem_gib "
+          f"{peak / 2**30:.3f}, last loss {k_loss:.6f}; auto-K over "
+          f"{FOLD_STEPS} steps: step_ms {auto_ms:.3f} -> "
+          f"{tokens / (auto_ms * 1e-3):.1f} tokens/s, decision "
+          f"{tuner.decision}; launches {launches}", flush=True)
+    free_model(torch, tag, model)
+    return {"k_ms": k_ms, "auto_ms": auto_ms, "decision": tuner.decision,
+            "capture_s": runner.capture_s, "pool": pool, "peak": peak,
+            "profile": prof, "launches": launches}
+
+
+def _fold_batches(torch, vocab, seed, bert):
+    """FOLD_BATCHES distinct batches of [2, 256] tokens (MLM labels for
+    BERT, the tokens rolled by one for GPT)."""
+    if bert:
+        return [_mlm_batch(torch, vocab, 2, 256, seed + i)
+                for i in range(FOLD_BATCHES)]
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(FOLD_BATCHES):
+        x = rng.integers(0, vocab, (2, 256)).astype(np.int64)
+        out.append((torch.from_numpy(x),
+                    torch.from_numpy(np.roll(x, -1, axis=1))))
+    return out
+
+
+def _fold_state(model):
+    """Parameters, moments, beta powers, masters and step counts."""
+    out = {f"param {n}": p.detach().clone()
+           for n, p in model.network.named_parameters()}
+    for i, st in model._optimizer._state.items():
+        for k in ("moment1", "moment2", "beta1_pow", "beta2_pow",
+                  "master_weight"):
+            if k in st:
+                out[f"{i} {k}"] = st[k].detach().clone()
+        out[f"{i} steps"] = st["steps"]
+    return out
+
+
+def _fold_run(torch, run, seed, fold, dropout=0.0):
+    """One fit of ``run``'s model over its batches at
+    ``steps_per_dispatch=fold`` (with a loss keeper unless auto-K);
+    returns its end state, per-step losses, the generator's offset and
+    the resolved K, and frees the model."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import random as prandom
+    cfg, bert, o2, batches, crit = run
+    if dropout:
+        cfg = dataclasses.replace(cfg, hidden_dropout_prob=dropout,
+                                  attention_probs_dropout_prob=dropout)
+    prandom.seed(seed)
+    net, opt = _train_model(torch, cfg, "cuda", seed, o2=o2, bert=bert,
+                            lr=FOLD_LR)
+    model = paddle.Model(net, device="cuda")
+    model.prepare(opt, crit())
+    keep = _loss_keeper() if fold is not None else None
+    model.fit(batches, epochs=1, verbose=0, steps_per_dispatch=fold,
+              callbacks=[keep] if keep else None)
+    torch.cuda.synchronize()
+    res = {"state": _fold_state(model), "losses": keep and keep.losses,
+           "offset": prandom.default_generator("cuda").get_offset(),
+           "fold": model._fold, "graphs": model.compile_stats()}
+    model.release_graphs()
+    return res
+
+
+def _state_diff(torch, a, b):
+    """Largest |a - b| / max(|a|, 1) over the tensors of two end states
+    (a step count that differs counts as inf)."""
+    worst = 0.0
+    for k, va in a.items():
+        vb = b[k]
+        if not isinstance(va, torch.Tensor):
+            worst = max(worst, 0.0 if va == vb else float("inf"))
+            continue
+        ref = va.float()
+        d = (vb.float() - ref).abs().max().item()
+        worst = max(worst, d / max(ref.abs().max().item(), 1.0))
+    return worst
+
+
+def _states_equal(torch, a, b):
+    return set(a) == set(b) and all(
+        torch.equal(v, b[k]) if isinstance(v, torch.Tensor) else v == b[k]
+        for k, v in a.items())
+
+
+def fold_gates(torch, runs, fp32, exact=True):
+    """The fold parity gates over ``runs`` (by ``steps_per_dispatch``:
+    1, 4, None for auto-K, 0 the eager route); returns the failures and
+    the largest relative difference from the eager route.  ``exact``:
+    K=4's and auto-K's end states and K=4's losses equal K=1's bit for
+    bit; else (a step whose kernels add in an order that changes from
+    run to run) within FOLD_EAGER_TOL x max(|ref|, 1)."""
+    fails = []
+    for k in (4, None):
+        if exact and not _states_equal(torch, runs[k]["state"],
+                                       runs[1]["state"]):
+            fails.append(f"K={k} end state differs from K=1's")
+        diff = _state_diff(torch, runs[1]["state"], runs[k]["state"])
+        if not exact and diff > FOLD_EAGER_TOL:
+            fails.append(f"K={k} vs K=1: {diff:.3e} > {FOLD_EAGER_TOL}")
+    eager = _state_diff(torch, runs[0]["state"], runs[4]["state"])
+    if fp32 and eager > FOLD_EAGER_TOL:
+        fails.append(f"K=4 vs steps_per_dispatch=0: {eager:.3e} > "
+                     f"{FOLD_EAGER_TOL}")
+    l1, l4 = runs[1]["losses"], runs[4]["losses"]
+    groups = [l4[i:i + 4] for i in range(0, len(l4), 4)]
+    if any(len(set(g)) != len(g) for g in groups):
+        fails.append(f"a K=4 group repeats a loss: {groups}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l4, l1))
+    if (l4 != l1) if exact else not (len(l4) == len(l1) and
+                                     rel <= FOLD_EAGER_TOL):
+        fails.append(f"K=4 losses {l4} vs K=1 losses {l1}")
+    return fails, eager
+
+
+def fold_parity_phase(torch, seed):
+    """``[train fold parity]``: a small GPT (2 layers, hidden 128, head
+    dim 64, S=256) in fp32 (TF32 off) and in bf16 O2, and a small BERT
+    in fp32 under the [B*H, S, D] knobs, each fit over FOLD_BATCHES
+    distinct batches at K = 1, 4 (groups of 4, 4, 3), auto-K and the
+    eager route.  Gates (:func:`fold_gates`): end states bit-identical
+    for every K; within FOLD_EAGER_TOL x max(|ref|, 1) of the eager
+    route in fp32; a K=4 group's losses distinct and equal to K=1's.
+    The BERT run's fused backward adds dq through atomics, whose order
+    changes from run to run, so its K's agree within FOLD_EAGER_TOL
+    (two K=1 runs' difference is printed beside).
+    With dropout 0.1 (GPT fp32) K=1 and K=4 end bit-identical with the
+    generator's offset equal to the eager route's.  Two controls,
+    patched in here, must fail the gates: the optimizer's scalars as
+    host floats (frozen by the capture), and every slot of a group's
+    losses read from the graph's one static loss."""
+    from paddle_tpu_torch.framework import dispatch
+    from paddle_tpu_torch.models import (BertConfig, BertPretrainingCriterion,
+                                         GPTPretrainingCriterion)
+    from paddle_tpu_torch.optimizer import optimizer as popt
+    tag = "train fold parity"
+    bcfg = BertConfig(vocab_size=256, hidden_size=128, num_hidden_layers=2,
+                      num_attention_heads=2, intermediate_size=256,
+                      max_position_embeddings=256, hidden_dropout_prob=0.0,
+                      attention_probs_dropout_prob=0.0)
+    gpt = _small_gpt()
+    gpt_batches = _fold_batches(torch, gpt.vocab_size, seed + 7, False)
+    configs = {
+        "GPT L=2 D=128 fp32": ((gpt, False, False, gpt_batches,
+                                GPTPretrainingCriterion), {}),
+        "GPT L=2 D=128 bf16 O2": ((gpt, False, True, gpt_batches,
+                                   GPTPretrainingCriterion), {}),
+        "BERT L=2 D=128 fp32 [B*H,S,D]": (
+            (bcfg, True, False, _fold_batches(torch, 256, seed + 8, True),
+             lambda: BertPretrainingCriterion(bcfg.vocab_size)), BH_KNOBS),
+    }
+    out = {}
+    for desc, (run, knobs) in configs.items():
+        # the fused backward adds dq's partials with atomics, in an order
+        # that changes from run to run: no two runs of it, at any K, end
+        # bit-identical, so its K's are held to the eager tolerance
+        exact = knobs is not BH_KNOBS
+        with knobs_set(knobs):
+            runs = {k: _fold_run(torch, run, seed, k) for k in (1, 4, None, 0)}
+            if not exact:
+                again = _fold_run(torch, run, seed, 1)
+        fails, eager = fold_gates(torch, runs, fp32=not run[2], exact=exact)
+        check(not fails, f"[{tag}] {desc}: {fails}")
+        check(runs[4]["graphs"] == {"graphs": 1, "captures": 1} and
+              runs[0]["graphs"] == {"graphs": 0, "captures": 0},
+              f"[{tag}] {desc}: graphs {runs[4]['graphs']} / "
+              f"{runs[0]['graphs']}")
+        out[desc] = eager
+        same = ("end bit-identical; K=4 losses per step equal K=1's" if exact
+                else "end within the tolerance of K=1 (largest |diff|/"
+                f"max(|ref|,1) {_state_diff(torch, runs[1]['state'], runs[4]['state']):.3e};"
+                " two K=1 runs differ by "
+                f"{_state_diff(torch, runs[1]['state'], again['state']):.3e}"
+                " with the fused backward's atomics); K=4 losses per step "
+                "within it of K=1's")
+        print(f"[{tag}] {desc}: K=1, K=4 (groups 4+4+3) and auto-K "
+              f"(decided K={runs[None]['fold']}) {same} and distinct in each "
+              f"group; vs steps_per_dispatch=0 largest |diff|/max(|ref|,1) "
+              f"{eager:.3e}" + (" (bit-identical)" if eager == 0 else "")
+              + f" (tol {FOLD_EAGER_TOL}"
+              + (", fp32)" if not run[2] else ", not gated in bf16)"),
+              flush=True)
+    run = configs["GPT L=2 D=128 fp32"][0]
+    try:
+        drop = {k: _fold_run(torch, run, seed, k, dropout=0.1)
+                for k in (1, 4, 0)}
+    except NotImplementedError as exc:
+        print(f"[{tag}] dropout 0.1: the engine refuses it on this "
+              f"PyTorch: {exc}", flush=True)
+    else:
+        offsets = [drop[k]["offset"] for k in (1, 4, 0)]
+        check(_states_equal(torch, drop[1]["state"], drop[4]["state"]),
+              f"[{tag}] dropout 0.1: K=1 and K=4 end states differ")
+        check(len(set(offsets)) == 1,
+              f"[{tag}] dropout 0.1: generator offsets K=1, K=4, eager "
+              f"{offsets}")
+        print(f"[{tag}] dropout 0.1 (GPT fp32): K=1 and K=4 end "
+              f"bit-identical; generator offset {offsets[0]} after K=1, "
+              f"K=4 and the eager route; vs eager largest diff "
+              f"{_state_diff(torch, drop[0]['state'], drop[4]['state']):.3e}",
+              flush=True)
+
+    def host_scalars(self, states, lr):
+        """Control 1: the scalars as host floats of the host step count
+        (the optimizer before device scalars); a capture freezes them."""
+        f = np.float32
+        t = states[0]["steps"] + 1
+        b1p, b2p = f(f(self._beta1) ** t), f(f(self._beta2) ** t)
+        lr32 = f(self.get_lr())
+        root = np.sqrt(f(1) - b2p, dtype=f)
+        vals = (f(lr32 * root / (f(1) - b1p)), f(f(self._epsilon) * root),
+                f(lr32 * f(self._weight_decay)))
+        return tuple(torch.full((), float(v), dtype=torch.float32,
+                                device=lr.device) for v in vals)
+
+    def one_static_loss(self, losses, i):
+        """Control 2: every slot of the group from the one static loss."""
+        losses.copy_(self.loss.expand_as(losses))
+
+    controls = {"optimizer scalars as host floats": (popt.Adam, "_scalars",
+                                                     host_scalars),
+                "every slot from the one static loss": (
+                    dispatch.CapturedStep, "_take_loss", one_static_loss)}
+    for name, (cls, attr, fn) in controls.items():
+        saved = getattr(cls, attr)
+        setattr(cls, attr, fn)
+        try:
+            runs = {k: _fold_run(torch, run, seed, k) for k in (1, 4, None, 0)}
+        finally:
+            setattr(cls, attr, saved)
+        fails, _ = fold_gates(torch, runs, fp32=True)
+        check(fails, f"[{tag}] control '{name}' passed the gates")
+        print(f"[{tag}] control '{name}' fails the gates: {fails}",
+              flush=True)
+    return out
+
+
 def _kernel_group(name):
     if any(k in name for k in ("flash_fwd_kernel", "flash_fwd_tc_kernel",
                                 "flash_bwd_tc_kernel", "flash_bwd_dq_kernel",
@@ -2963,18 +3395,25 @@ def _kernel_group(name):
     return "other (elementwise, norms, loss, copies)"
 
 
-def profile_steps(torch, model, batch, steps, tag="train"):
+def profile_steps(torch, model, batch, steps, tag="train", folded=True):
     """``torch.profiler`` over ``steps`` more train steps: device time
-    by kernel group, the busiest kernels, and the share of the wall
-    time the device sat idle (1 - kernel time / wall; one stream, so
-    kernels do not overlap)."""
+    by kernel group, the busiest kernels, the ten busiest of the "other"
+    group by kernel name, and the share of the wall time the device sat
+    idle (1 - kernel time / wall; one stream, so kernels do not
+    overlap).  ``folded``: the steps are one fold group of graph
+    replays (``fit(steps_per_dispatch=steps)``, the graph captured by
+    the fit before), else ``steps`` eager ``train_batch`` calls."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        for _ in range(steps):
-            model.train_batch([batch[0]], [batch[1]])
+        if folded:
+            model.fit([batch] * steps, epochs=1, verbose=0,
+                      steps_per_dispatch=steps)
+        else:
+            for _ in range(steps):
+                model.train_batch([batch[0]], [batch[1]])
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
     kernels = {}
@@ -2992,16 +3431,26 @@ def profile_steps(torch, model, batch, steps, tag="train"):
     if busy <= 0:
         print(f"[{tag} profile] torch.profiler recorded no device time",
               flush=True)
-        return
-    print(f"[{tag} profile] {steps} steps: wall {wall_us / steps / 1e3:.3f}"
-          f" ms/step, device busy {busy / steps / 1e3:.3f} ms/step, idle "
-          f"share {1 - busy / wall_us:.4f}", flush=True)
+        return None
+    idle = 1 - busy / wall_us
+    print(f"[{tag} profile] {steps} {'replayed' if folded else 'eager'} "
+          f"steps: wall {wall_us / steps / 1e3:.3f} ms/step, device busy "
+          f"{busy / steps / 1e3:.3f} ms/step, idle share {idle:.4f}",
+          flush=True)
     for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"[{tag} profile]   {g}: {us / steps / 1e3:.3f} ms/step "
               f"({us / busy:.4f} of device time)", flush=True)
     for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
         print(f"[{tag} profile]   top: {us / steps / 1e3:.3f} ms/step "
               f"{name[:110]}", flush=True)
+    other = sorted(((us, name) for name, us in kernels.items()
+                    if _kernel_group(name).startswith("other")),
+                   reverse=True)[:10]
+    for us, name in other:
+        print(f"[{tag} profile]   other top: {us / steps / 1e3:.3f} "
+              f"ms/step {name[:200]}", flush=True)
+    return {"wall_ms": wall_us / steps / 1e3, "busy_ms": busy / steps / 1e3,
+            "idle": idle}
 
 
 def _loss_keeper():
@@ -3184,6 +3633,8 @@ def main(argv=None) -> int:
     s32 = serving_phase(torch, args.seed, torch.float32, "fp32", True)
     s16 = serving_phase(torch, args.seed, torch.bfloat16, "bf16", False)
     tres = train_phase(torch, args.seed)
+    train_eager_phase(torch, args.seed, tres)
+    train_fold_phase(torch, args.seed)
     lmce_train = fused_train_phase(torch, args.seed, tres)
     fp16_train = fp16_train_phase(torch, args.seed, tres)
     fp32_lmce = train_parity_phase(torch, args.seed)
@@ -3197,6 +3648,8 @@ def main(argv=None) -> int:
     bh_train = bh_train_phase(torch, args.seed, tres)
     ernie_train = ernie_train_phase(torch, args.seed)
     bh_parity_phase(torch, args.seed)
+    train_fold_phase(torch, args.seed, bh=True)
+    fold_parity_phase(torch, args.seed)
     ltc = lmce_tc_phase(torch, args.seed,
                         built.get("lmce_sm90", {}).get("log", ""))
     ltf = lmce_tc_fwd_phase(torch, args.seed,

@@ -68,6 +68,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include "smem_limit.cuh"
+
 #include <cmath>
 #include <cstdint>
 
@@ -798,11 +800,12 @@ Layout layout_at(const int64_t* strides, int i) {
   return Layout{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
 }
 
+// The shared-memory limit of `kernel`, raised once per device (the
+// caller's `set`, a static of its own, records it).
 template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem_bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem_bytes));
+cudaError_t prepare(Kernel kernel, size_t smem_bytes,
+                    int (&set)[smem_limit::kMaxDevices]) {
+  return smem_limit::raise(kernel, smem_bytes, set);
 }
 
 template <typename T, int D>
@@ -811,7 +814,8 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
                 int H, int Sq, int Sk, int causal, float scale,
                 const int64_t* st, cudaStream_t stream) {
   const size_t smem = fwd_smem_floats<D>() * sizeof(float);
-  cudaError_t err = prepare(flash_fwd_kernel<T, D>, smem);
+  static int set[smem_limit::kMaxDevices] = {};
+  cudaError_t err = prepare(flash_fwd_kernel<T, D>, smem, set);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kBM - 1) / kBM, H, B);
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
@@ -829,7 +833,8 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* o,
                    int Sq, int Sk, int causal, float scale, const int64_t* st,
                    cudaStream_t stream) {
   const size_t smem = dq_smem_floats<D>() * sizeof(float);
-  cudaError_t err = prepare(flash_bwd_dq_kernel<T, D>, smem);
+  static int set[smem_limit::kMaxDevices] = {};
+  cudaError_t err = prepare(flash_bwd_dq_kernel<T, D>, smem, set);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kBM - 1) / kBM, H, B);
   flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
@@ -849,7 +854,8 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
                     int causal, float scale, const int64_t* st,
                     cudaStream_t stream) {
   const size_t smem = dkv_smem_floats<D>() * sizeof(float);
-  cudaError_t err = prepare(flash_bwd_dkv_kernel<T, D>, smem);
+  static int set[smem_limit::kMaxDevices] = {};
+  cudaError_t err = prepare(flash_bwd_dkv_kernel<T, D>, smem, set);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sk + kBN - 1) / kBN, H, B);
   flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
@@ -866,7 +872,8 @@ cudaError_t fwd_hpack(const void* q, const void* k, const void* v, void* o,
                       float* lse, int B, int H, int Sq, int Sk, int causal,
                       float scale, const int64_t* st, cudaStream_t stream) {
   const size_t smem = fwd_smem_floats<D>() * sizeof(float);
-  cudaError_t err = prepare(flash_fwd_hpack_kernel<T, D, HP>, smem);
+  static int set[smem_limit::kMaxDevices] = {};
+  cudaError_t err = prepare(flash_fwd_hpack_kernel<T, D, HP>, smem, set);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kBM - 1) / kBM, B * H / HP, 1);
   flash_fwd_hpack_kernel<T, D, HP><<<grid, kThreads, smem, stream>>>(
@@ -895,7 +902,8 @@ cudaError_t bwd_fused(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
 
   const size_t smem = dkv_smem_floats<D>() * sizeof(float);
-  err = prepare(flash_bwd_fused_kernel<T, D>, smem);
+  static int set[smem_limit::kMaxDevices] = {};
+  err = prepare(flash_bwd_fused_kernel<T, D>, smem, set);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sk + kBN - 1) / kBN, H, B);
   flash_bwd_fused_kernel<T, D><<<grid, kThreads, smem, stream>>>(

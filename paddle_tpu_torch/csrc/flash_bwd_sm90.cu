@@ -99,6 +99,7 @@
 // with 16-byte loads for delta, which the Python wrappers check first.
 
 #include "sm90.cuh"
+#include "smem_limit.cuh"
 
 #include <cstdint>
 
@@ -709,9 +710,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   }
   if (err != 0) return err;
   auto kernel = flash_bwd_tc_kernel<T, D, kMode>;
-  const cudaError_t cerr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(P::kAlloc));
+  static int set[smem_limit::kMaxDevices] = {};
+  const cudaError_t cerr = smem_limit::raise(kernel, P::kAlloc, set);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
   const int n_own = ((kDKV ? Sk : Sq) + kBM - 1) / kBM;
   const dim3 grid(static_cast<unsigned>(static_cast<int64_t>(B) * H),

@@ -61,6 +61,7 @@
 // bytes, which the Python wrapper checks before it calls.
 
 #include "sm90.cuh"
+#include "smem_limit.cuh"
 
 #include <cmath>
 #include <cstdint>
@@ -387,9 +388,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   if (err == 0) err = make_map<T>(&mv, v, B, Sk, H, D, st + 6, BN);
   if (err != 0) return err;
   auto kernel = flash_fwd_tc_kernel<T, D, BN, HP>;
-  cudaError_t cerr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(P::kAlloc));
+  static int set[smem_limit::kMaxDevices] = {};
+  const cudaError_t cerr = smem_limit::raise(kernel, P::kAlloc, set);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
   const dim3 grid(static_cast<unsigned>(static_cast<int64_t>(B) * H / HP),
                   static_cast<unsigned>((Sq + kBM - 1) / kBM));

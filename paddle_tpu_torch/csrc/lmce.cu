@@ -53,6 +53,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include "smem_limit.cuh"
+
 #include <cmath>
 #include <cstdint>
 
@@ -441,11 +443,12 @@ lmce_bwd_kernel(const T* __restrict__ h, const T* __restrict__ w,
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
+// The shared-memory limit of `kernel`, raised once per device (the
+// caller's `set`, a static of its own, records it).
 template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem_bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem_bytes));
+cudaError_t prepare(Kernel kernel, size_t smem_bytes,
+                    int (&set)[smem_limit::kMaxDevices]) {
+  return smem_limit::raise(kernel, smem_bytes, set);
 }
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -455,7 +458,8 @@ cudaError_t fwd(const void* h, const void* w, const int32_t* labels,
                 float* loss, float* lse, int N, int V, int D,
                 cudaStream_t stream) {
   const size_t smem = kScoreFloats * sizeof(float);
-  cudaError_t err = prepare(lmce_fwd_kernel<T>, smem);
+  static int set[smem_limit::kMaxDevices] = {};
+  cudaError_t err = prepare(lmce_fwd_kernel<T>, smem, set);
   if (err != cudaSuccess) return err;
   const int grid = cdiv(N, kTA);
   lmce_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
@@ -475,7 +479,8 @@ cudaError_t bwd(const void* h, const void* w, const int32_t* labels,
   const size_t smem =
       (static_cast<size_t>(kTA) * slice + kTB * kLdA + kStageFloats) *
       sizeof(float);
-  cudaError_t err = prepare(lmce_bwd_kernel<T, kDW>, smem);
+  static int set[smem_limit::kMaxDevices] = {};
+  cudaError_t err = prepare(lmce_bwd_kernel<T, kDW>, smem, set);
   if (err != cudaSuccess) return err;
   const dim3 grid(cdiv(kDW ? V : N, kTA), n_slices);
   lmce_bwd_kernel<T, kDW><<<grid, kThreads, smem, stream>>>(

@@ -53,6 +53,7 @@
 // and the pick, rows >= N are never stored.
 
 #include "sm90.cuh"
+#include "smem_limit.cuh"
 
 #include <cmath>
 #include <cstdint>
@@ -326,9 +327,8 @@ int launch(const void* h, const void* w, const int32_t* labels, float* loss,
   sh.tps = (sh.n_vt + slices - 1) / slices;
   sh.resident = sh.nb <= kMaxResident;
   auto kernel = lmce_fwd_tc_kernel<T>;
-  const cudaError_t cerr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kAlloc));
+  static int set[smem_limit::kMaxDevices] = {};
+  const cudaError_t cerr = smem_limit::raise(kernel, kAlloc, set);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
   const dim3 grid(static_cast<unsigned>((N + kBM - 1) / kBM),
                   static_cast<unsigned>(slices));

@@ -58,6 +58,7 @@
 // windows' sums run in different orders, each fixed).
 
 #include "sm90.cuh"
+#include "smem_limit.cuh"
 
 #include <cmath>
 #include <cstdint>
@@ -385,9 +386,8 @@ int launch(const void* h, const void* w, const int32_t* labels,
   win.nw = (win.nb + kMaxBlocks - 1) / kMaxBlocks;
   win.wb = (win.nb + win.nw - 1) / win.nw;
   auto kernel = lmce_bwd_tc_kernel<T, kDW>;
-  cudaError_t cerr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(Plan::kAlloc));
+  static int set[smem_limit::kMaxDevices] = {};
+  const cudaError_t cerr = smem_limit::raise(kernel, Plan::kAlloc, set);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
   const dim3 grid(static_cast<unsigned>((nA + kBM - 1) / kBM),
                   static_cast<unsigned>(win.nw));

@@ -66,6 +66,7 @@
 #include <cstdint>
 
 #include "sm90.cuh"
+#include "smem_limit.cuh"
 
 namespace {
 
@@ -76,7 +77,6 @@ constexpr int kMaxThreads = 416;      // 384 consumers + the producer warp
 constexpr int kMaxStages = 8;
 constexpr int kBarBytes = 128;        // 2 * kMaxStages mbarriers
 constexpr int kCombineThreads = 256;  // at most; Dh threads a CTA
-constexpr int kMaxDevices = 64;
 
 // 16 bytes of T as floats.
 template <typename T>
@@ -454,18 +454,10 @@ cudaError_t launch_split(const Args& a, const Geometry& g, int threads,
                          size_t smem, cudaStream_t stream) {
   // the shared-memory limit set so far for this kernel, per device
   // (cudaFuncSetAttribute would cost host time on every decode step)
-  static int limit[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static int set[smem_limit::kMaxDevices] = {};
+  const cudaError_t err =
+      smem_limit::raise(paged_split_kernel<T, G, CPL>, smem, set);
   if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidValue;
-  if (static_cast<int>(smem) > limit[dev]) {
-    err = cudaFuncSetAttribute(paged_split_kernel<T, G, CPL>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    limit[dev] = static_cast<int>(smem);
-  }
   const dim3 grid(g.NS, a.B, g.H / g.HG);
   paged_split_kernel<T, G, CPL><<<grid, threads, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.pool_k),

@@ -24,7 +24,7 @@ PREFIX = "PADDLE_TORCH_"
 class Knob(NamedTuple):
     name: str      # full variable name, PADDLE_TORCH_ prefix included
     default: str   # documented default
-    kind: str      # bool | int — how consumers parse it
+    kind: str      # bool | int | float — how consumers parse it
     doc: str       # one line
 
 
@@ -47,6 +47,18 @@ _k("PADDLE_TORCH_FLASH_HEADPACK", "1", "int",
 _k("PADDLE_TORCH_FLASH_FUSED_BWD", "off", "bool",
    "Under NO_PACKED: the single-sweep backward (flash_bwd_fused) instead "
    "of the split dq and dk/dv kernels.")
+
+# -- step folding (framework/dispatch.py) ------------------------------------
+_k("PADDLE_TORCH_FOLD_MAX", "32", "int",
+   "Upper bound on the fold factor K that fit's auto-tuner picks "
+   "(PADDLE_TPU_FOLD_MAX).")
+_k("PADDLE_TORCH_FOLD_OVERHEAD_TARGET", "0.05", "float",
+   "Host time a step may take, as a share of its device time, before "
+   "the auto-tuner folds more steps a group (PADDLE_TPU_FOLD_OVERHEAD_"
+   "TARGET).")
+_k("PADDLE_TORCH_FOLD_CALIB_GROUPS", "3", "int",
+   "Groups the auto-tuner measures at K=1, after the first, before it "
+   "decides (PADDLE_TPU_FOLD_CALIB_GROUPS).")
 
 _TRUTHY = ("1", "true", "yes", "on")
 
@@ -76,6 +88,14 @@ def get_int(name: str, default: int = 0, env=None) -> int:
     """Integer value; unset, blank or malformed gives ``default``."""
     try:
         return int(get_raw(name, env=env) or default)
+    except ValueError:
+        return default
+
+
+def get_float(name: str, default: float = 0.0, env=None) -> float:
+    """Float value; unset, blank or malformed gives ``default``."""
+    try:
+        return float(get_raw(name, env=env) or default)
     except ValueError:
         return default
 

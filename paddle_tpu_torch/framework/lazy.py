@@ -1,11 +1,13 @@
 """Deferred device→host materialization (counterpart of
 ``paddle_tpu/framework/lazy.py``).
 
-A decode dispatch emits one ``[B]`` token tensor on the device.  The
-engine hands every request a :class:`LazyScalar` view of that tensor
-through one shared :class:`LazyStack`, so reading any number of the
-views costs ONE device→host copy per dispatch, and a dispatch whose
-tokens nobody reads costs none.  The copy (``Tensor.cpu()``) waits for
+A decode dispatch emits one ``[B]`` token tensor on the device, and a
+fold group of ``Model.fit(steps_per_dispatch=K)`` one ``[K]`` fp32
+loss buffer.  The engine hands every request (every logical step) a
+:class:`LazyScalar` view of that tensor through one shared
+:class:`LazyStack` (:meth:`LazyStack.view`), so reading any number of
+the views costs ONE device→host copy per dispatch, and a dispatch whose
+values nobody reads costs none.  The copy (``Tensor.cpu()``) waits for
 the device, so it is the consumer's sync, never the engine loop's.
 The tensor a stack holds must not be written in place afterwards.
 """
@@ -36,6 +38,20 @@ class LazyStack:
             self._host = _to_host(self._dev)
             self._dev = None
         return self._host
+
+    def view(self, i: int) -> "LazyScalar":
+        """The scalar in slot ``i``, fetched with the whole stack."""
+        return LazyScalar(self, post=lambda a: a[i])
+
+    def block(self) -> None:
+        """Wait for the stack's device value without fetching it: the
+        fold engine's auto-K calibration (``framework/dispatch.py``)
+        splits host time from device time this way during the first
+        groups of a fit.  Not a hot-loop entry point."""
+        dev = self._dev
+        if dev is not None and getattr(dev, "is_cuda", False):
+            import torch
+            torch.cuda.current_stream(dev.device).synchronize()
 
 
 class LazyScalar:

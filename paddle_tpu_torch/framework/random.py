@@ -8,6 +8,12 @@ generator explicitly and default to the registry's.  The JAX package
 derives its keys with threefry and torch draws with Philox, so the two
 packages give different numbers from one seed: tests that compare them
 make their inputs with numpy.
+
+Under a CUDA graph (``Model.fit(steps_per_dispatch=K)``) the step draws
+from the device's generator only if the graph was told of it:
+:func:`register_with_graph` does that before the capture, and each
+replay then advances the generator's Philox offset by what one eager
+step takes (the JAX engine's ``gen._counter += fold``).
 """
 
 from __future__ import annotations
@@ -57,3 +63,21 @@ def seed(value: int) -> None:
 def default_generator(device="cpu") -> torch.Generator:
     """The default generator of ``device``."""
     return _registry.get(device)
+
+
+def register_with_graph(graph, device) -> torch.Generator:
+    """Register the default generator of ``device`` with ``graph`` (a
+    ``torch.cuda.CUDAGraph`` not captured yet) and return it.  Raises
+    ``NotImplementedError`` where the installed PyTorch has no
+    ``CUDAGraph.register_generator_state``: a capture would then freeze
+    the step's random draws."""
+    register = getattr(graph, "register_generator_state", None)
+    if register is None:
+        raise NotImplementedError(
+            f"torch {torch.__version__} cannot register a generator with "
+            "a CUDA graph (CUDAGraph.register_generator_state), so a "
+            "captured step would repeat one dropout mask: train with "
+            "dropout 0 or fit(steps_per_dispatch=0) on this PyTorch")
+    gen = default_generator(device)
+    register(gen)
+    return gen

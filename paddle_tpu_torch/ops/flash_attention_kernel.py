@@ -816,6 +816,8 @@ ALL_WRAPPERS = WRAPPERS + BH_WRAPPERS
 #: the wrappers with a tensor-core body (``tc_launches``)
 TC_WRAPPERS = (flash_fwd, flash_fwd_hpack, flash_bwd_dq, flash_bwd_dkv,
                flash_bwd_fused)
+#: every function that keeps launch counts (``ops/counts.py`` reads them)
+COUNTED = ALL_WRAPPERS + (_cuda_core_fwd, _cuda_core_flash_bwd)
 
 
 def reset_counts():

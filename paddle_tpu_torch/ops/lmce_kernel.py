@@ -442,6 +442,8 @@ def _cuda_core_bwd(which, h, w, labels, lse, g):
 WRAPPERS = (lmce_fwd, lmce_bwd_dh, lmce_bwd_dw)
 #: the wrappers with a tensor-core body (``tc_launches``)
 TC_WRAPPERS = (lmce_fwd, lmce_bwd_dh, lmce_bwd_dw)
+#: every function that keeps launch counts (``ops/counts.py`` reads them)
+COUNTED = WRAPPERS + (_cuda_core_fwd, _cuda_core_bwd)
 
 
 def reset_counts():

@@ -9,10 +9,19 @@ Paddle's Adam step, as the JAX package writes it::
     w = w - lr_t * m1 / (sqrt(m2) + eps*sqrt(1 - b2^t))
     w = w - lr*decay*w_old                       (AdamW, decoupled)
 
-The per-step scalars (``b1^t``, ``b2^t``, ``lr_t``, the epsilon term,
-``lr*decay``) are computed in float32 as the JAX package computes them;
-the tensor updates run as ``torch._foreach_*`` ops over every parameter
-that shares a device, a step count and a working dtype, in place.
+The per-step scalars live on the parameters' device, so that a CUDA
+graph of the training step (``Model.fit(steps_per_dispatch=K)``,
+``framework/dispatch.py``) replays them as an eager step computes them:
+the beta powers ``b1^t``, ``b2^t`` are 0-d fp32 tensors in each state,
+advanced in place, and ``lr_t``, the epsilon term and ``lr*decay`` are
+formed from them by tensor ops in float32, in the JAX package's order.
+The learning rate is a 0-d fp32 tensor per device too
+(:meth:`Optimizer.refresh_lr` writes ``get_lr()`` into it: ``step``
+does so, the fold engine once a group, as the JAX engine passes ``lr``
+per dispatch).  The tensor updates run as ``torch._foreach_*`` ops over
+every parameter that shares a device, a step count and a working
+dtype, in place.  ``steps`` in each state and ``_global_step`` are host
+bookkeeping, which the fold engine advances by the number of replays.
 With ``multi_precision``, a bf16/fp16 parameter keeps an fp32 master
 copy in its state: the update runs on the master and the parameter
 receives its rounding.
@@ -22,10 +31,10 @@ from __future__ import annotations
 
 from typing import Dict, List
 
-import numpy as np
 import torch
 
 _LOW = (torch.bfloat16, torch.float16)
+_aten = torch.ops.aten
 
 
 class Optimizer:
@@ -58,9 +67,44 @@ class Optimizer:
         self._multi_precision = bool(multi_precision)
         self._state: Dict[int, dict] = {}   # by position in the list
         self._global_step = 0
+        self._lr_dev: Dict[torch.device, torch.Tensor] = {}
+        self._lr_held: Dict[torch.device, float] = {}
 
     def get_lr(self) -> float:
         return self._learning_rate
+
+    def _lr_scalar(self, device) -> torch.Tensor:
+        """The learning rate the update reads: a 0-d fp32 tensor on
+        ``device``, made on first use with ``get_lr()``."""
+        t = self._lr_dev.get(device)
+        if t is None:
+            lr = self.get_lr()
+            t = torch.full((), lr, dtype=torch.float32, device=device)
+            self._lr_dev[device], self._lr_held[device] = t, lr
+        return t
+
+    def refresh_lr(self) -> None:
+        """Write ``get_lr()`` into each device's learning-rate scalar
+        that holds another value (one fill per device, no sync)."""
+        lr = self.get_lr()
+        for device, t in self._lr_dev.items():
+            if self._lr_held[device] != lr:
+                t.fill_(lr)
+                self._lr_held[device] = lr
+
+    def _bookkeeping(self) -> Dict[object, int]:
+        """The host step counts: ``_global_step`` under ``None`` and each
+        state's ``steps`` under its position."""
+        books = {i: st["steps"] for i, st in self._state.items()}
+        books[None] = self._global_step
+        return books
+
+    def _set_bookkeeping(self, books: Dict[object, int]) -> None:
+        for i, n in books.items():
+            if i is None:
+                self._global_step = n
+            else:
+                self._state[i]["steps"] = n
 
     def parameters(self) -> List[torch.nn.Parameter]:
         return list(self._parameter_list)
@@ -80,10 +124,16 @@ class Optimizer:
             self._state[i] = st
         return st
 
-    @torch.no_grad()
     def step(self) -> None:
         """Apply one update to every parameter that has a gradient."""
-        lr = self.get_lr()
+        self.refresh_lr()
+        self._step()
+
+    @torch.no_grad()
+    def _step(self) -> None:
+        """:meth:`step` without the learning-rate refresh: the body the
+        fold engine captures, whose learning rate it refreshes per
+        group."""
         self._global_step += 1
         groups: Dict[tuple, list] = {}
         for i, p in enumerate(self._parameter_list):
@@ -96,6 +146,7 @@ class Optimizer:
         for (_, _, steps), items in groups.items():
             works = [st.get("master_weight", p) for p, st in items]
             grads = [p.grad.to(w.dtype) for (p, _), w in zip(items, works)]
+            lr = self._lr_scalar(works[0].device)
             self._update_group(works, grads, [st for _, st in items], lr)
             for p, st in items:
                 st["steps"] = steps + 1
@@ -125,24 +176,23 @@ class Adam(Optimizer):
         self._decoupled = False
 
     def _init_state(self, value):
+        one = torch.ones((), dtype=torch.float32, device=value.device)
         return {"moment1": torch.zeros_like(value),
                 "moment2": torch.zeros_like(value),
-                "beta1_pow": np.float32(1.0), "beta2_pow": np.float32(1.0)}
+                "beta1_pow": one, "beta2_pow": one.clone()}
 
     def _scalars(self, states, lr):
-        """Advance the beta powers and form this step's scalars in
-        float32, as the JAX package does: ``(lr_t, eps_t, lr*decay)``.
-        Every state of a group has taken the same number of steps, so
-        they share their powers."""
-        f = np.float32
-        b1p = f(states[0]["beta1_pow"] * f(self._beta1))
-        b2p = f(states[0]["beta2_pow"] * f(self._beta2))
-        for st in states:
-            st["beta1_pow"], st["beta2_pow"] = b1p, b2p
-        lr32 = f(lr)
-        lr_t = f(lr32 * np.sqrt(f(1) - b2p, dtype=f) / (f(1) - b1p))
-        eps_t = f(f(self._epsilon) * np.sqrt(f(1) - b2p, dtype=f))
-        return float(lr_t), float(eps_t), float(f(lr32 * f(self._weight_decay)))
+        """Advance the beta powers in place and form this step's scalars
+        as 0-d fp32 tensors, in the JAX package's order: ``(lr_t, eps_t,
+        lr*decay)``.  Every state of a group has taken the same number
+        of steps, so the first state's powers serve them all."""
+        torch._foreach_mul_([st["beta1_pow"] for st in states], self._beta1)
+        torch._foreach_mul_([st["beta2_pow"] for st in states], self._beta2)
+        b1p, b2p = states[0]["beta1_pow"], states[0]["beta2_pow"]
+        root = torch.sqrt(1 - b2p)
+        lr_t = lr * root / (1 - b1p)
+        eps_t = self._epsilon * root
+        return lr_t, eps_t, lr * self._weight_decay
 
     def _update_group(self, works, grads, states, lr):
         b1, b2 = self._beta1, self._beta2
@@ -156,11 +206,18 @@ class Adam(Optimizer):
         torch._foreach_add_(m1, grads, alpha=1 - b1)
         torch._foreach_mul_(m2, b2)
         torch._foreach_addcmul_(m2, grads, grads, value=1 - b2)
-        decayed = (torch._foreach_mul(works, lr_decay)
+        # the 0-d tensor scalars go through the foreach ops' Tensor
+        # overloads by name: bound to a Scalar overload (which Python
+        # picks for ``_foreach_add_(tensors, t)``), a 0-d tensor is read
+        # with ``.item()``, a host sync that a CUDA graph refuses
+        decayed = (_aten._foreach_mul.Tensor(works, lr_decay)
                    if self._weight_decay and self._decoupled else None)
         denom = torch._foreach_sqrt(m2)
-        torch._foreach_add_(denom, eps_t)
-        torch._foreach_addcdiv_(works, m1, denom, value=-lr_t)
+        _aten._foreach_add_.Tensor(denom, eps_t)
+        upd = torch._foreach_div(m1, denom)
+        del denom
+        _aten._foreach_mul_.Tensor(upd, lr_t)
+        torch._foreach_sub_(works, upd)
         if decayed is not None:
             torch._foreach_sub_(works, decayed)
 

@@ -18,7 +18,8 @@ threads run at once; blocks run in turn, so the order across blocks is
 fixed here, unlike on the card).  Inline PTX and tensor-core
 instructions are not emulated; the mbarrier and 1-D bulk-copy helpers
 of ``csrc/sm90.cuh`` have plain twins in ``sm90.cuh`` here, which the
-build finds first.
+build finds first; the other headers of ``csrc/`` (``smem_limit.cuh``)
+it takes from there.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import subprocess
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
+CSRC = HERE.parents[1] / "paddle_tpu_torch" / "csrc"
 _LAUNCH = re.compile(r"([\w:]+(?:<[^;{}]*?>)?)<<<(.*?)>>>\((.*?)\);", re.S)
 
 
@@ -59,7 +61,7 @@ def build(cu_path, out_dir) -> Path:
     lib = out_dir / ("lib" + cu_path.stem + "_emu.so")
     cpp.write_text(translate(cu_path.read_text()))
     cmd = [compiler(), "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread",
-           f"-I{HERE}", "-w", "-o", str(lib), str(cpp)]
+           f"-I{HERE}", f"-I{CSRC}", "-w", "-o", str(lib), str(cpp)]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         raise RuntimeError(f"g++ refused {cu_path.name}:\n{proc.stderr}")

@@ -302,7 +302,13 @@ def test_registry_refuses_unknown_names_and_parses_strictly():
     assert env_knobs.get_int(hp, 1, env={}) == 1
     assert set(env_knobs.KNOBS) == {"PADDLE_TORCH_FLASH_NO_PACKED",
                                     "PADDLE_TORCH_FLASH_HEADPACK",
-                                    "PADDLE_TORCH_FLASH_FUSED_BWD"}
+                                    "PADDLE_TORCH_FLASH_FUSED_BWD",
+                                    "PADDLE_TORCH_FOLD_MAX",
+                                    "PADDLE_TORCH_FOLD_OVERHEAD_TARGET",
+                                    "PADDLE_TORCH_FOLD_CALIB_GROUPS"}
+    target = "PADDLE_TORCH_FOLD_OVERHEAD_TARGET"
+    assert env_knobs.get_float(target, 0.05, env={target: "0.2"}) == 0.2
+    assert env_knobs.get_float(target, 0.05, env={target: "x"}) == 0.05
     table = env_knobs.render_table().splitlines()
     assert table[0] == "| Variable | Default | Description |"
     assert len(table) == 2 + len(env_knobs.KNOBS)

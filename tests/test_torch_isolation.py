@@ -116,4 +116,5 @@ def test_env_knobs_registry_is_the_ports_own():
     text = "\n".join(users)
     for name in env_knobs.KNOBS:
         assert f'"{name}"' in text, f"{name} is registered but never read"
-    assert not re.search(r"get_(raw|bool|int)\(\s*\"PADDLE_TPU_", text)
+    assert not re.search(r"get_(raw|bool|int|float)\(\s*\"PADDLE_TPU_",
+                         text)

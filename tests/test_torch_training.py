@@ -242,9 +242,6 @@ def test_fit_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model.prepare(opt, GPTPretrainingCriterion(),
                       amp_configs={"level": "O1"})
-    model.prepare(opt, GPTPretrainingCriterion())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.fit(_batches(1), steps_per_dispatch=4, verbose=0)
 
 
 def test_model_and_gpt_without_a_card_raise(monkeypatch):
