@@ -31,10 +31,19 @@ sweep and dq cast; 20 calls at GPT-2-small's ``[96, 1024, 64]`` causal
 and ERNIE-3.0-base's ``[192, 512, 64]`` non-causal ``[B*H, S, D]``
 shapes); ``lmce fwd bf16``: the fused lm-head cross-entropy forward's
 device time per ``lmce_fwd`` call (10 calls at N=8192 V=50304 D=768).
+``serve long`` (``[serve long]``: a 32512-token prompt through chunked
+prefill in bf16, its TTFT, then decode at a 32k context;
+``[serve long fp32]``'s checks run too) and ``serve prefix`` (``[serve
+prefix]``: 12 requests sharing a 512-token system prompt, the
+synchronised TTFT p50 of the 11 that hit the prefix cache).
 ``--phases`` picks a comma-separated subset (default: the training and
-serving phases); ``--profile`` runs the serving phases under
-``torch.profiler`` and adds their device-busy ms and top kernels (the
-profiler's cost then counts in tokens/s).  Each round runs parent, change, change, parent, each
+serving phases); ``--profile`` runs the timed window of the two
+serving phases (``serve fp32``, ``serve bf16``; from the server's start
+to the last result, every decode dispatch a replay of the captured
+step) under ``torch.profiler`` and adds their device-busy ms, device-
+busy ms a dispatch (prefill kernels included), the device-idle share
+(1 - busy / wall) and the top kernels (the profiler's cost then counts
+in tokens/s).  Each round runs parent, change, change, parent, each
 run in a fresh process started in its checkout, which builds that
 checkout's kernels first.  Each phase keeps its own gates (launch
 counts, losses, tokens).  Prints every run's readings (median step ms,
@@ -61,6 +70,7 @@ BWD = ("bwd bf16", "bwd fp16", "bwd fused bf16", "bwd fused ernie bf16",
        "lmce fwd bf16")
 UNITS = {**{p: "step_ms" for p in PHASES},
          **{p: "tokens_per_s" for p in SERVING},
+         "serve long": "ttft_s", "serve prefix": "ttft_hit_p50_s",
          **{p: "device_us" for p in K1},
          **{p: "host_us" for p in K1_HOST},
          **{p: "device_ms" for p in BWD}}
@@ -210,15 +220,40 @@ def lmce_fwd_device_ms():
 def serve(dtype, dn):
     if not {profile}:
         return c.serving_phase(torch, seed, dtype, dn, False), {{}}
+    # the profiled window: from the server's start to its stats() read
+    # after the last result (both checkouts' serving_phase do the same)
+    import time
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    from paddle_tpu_torch.inference.serving import api
+    box = {{}}
+    start, stats = api.LLMServer.start, api.LLMServer.stats
+
+    def hooked_start(self):
+        box["prof"] = profile(activities=[ProfilerActivity.CUDA])
+        box["prof"].__enter__()
+        box["t0"] = time.perf_counter()
+        return start(self)
+
+    def hooked_stats(self):
+        if "t0" in box and "wall" not in box:
+            torch.cuda.synchronize()
+            box["wall"] = time.perf_counter() - box["t0"]
+            box["prof"].__exit__(None, None, None)
+        return stats(self)
+
+    api.LLMServer.start, api.LLMServer.stats = hooked_start, hooked_stats
+    try:
         r = c.serving_phase(torch, seed, dtype, dn, False)
-        torch.cuda.synchronize()
+    finally:
+        api.LLMServer.start, api.LLMServer.stats = start, stats
     ev = sorted(((getattr(e, "self_device_time_total",
                           getattr(e, "self_cuda_time_total", 0)), e.count,
-                  e.key) for e in prof.key_averages()), reverse=True)
+                  e.key) for e in box["prof"].key_averages()), reverse=True)
     ev = [x for x in ev if x[0] > 0]
-    return r, {{"device_ms": sum(x[0] for x in ev) / 1e3,
+    busy = sum(x[0] for x in ev) / 1e3
+    return r, {{"device_ms": busy,
+               "device_ms_per_dispatch": busy / r["dispatches"],
+               "idle_share": 1 - busy / (box["wall"] * 1e3),
                "top": [(k[:80], us / 1e3, n) for us, n, k in ev[:6]]}}
 
 
@@ -242,6 +277,10 @@ for dn, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
     if "serve " + dn in want:
         r, prof = serve(dtype, dn)
         out["serve " + dn] = {{"tokens_per_s": r["tokens_per_s"], **prof}}
+if "serve long" in want:
+    out["serve long"] = c.serve_long_phase(torch, seed)
+if "serve prefix" in want:
+    out["serve prefix"] = c.serve_prefix_phase(torch, seed)
 res = {{}}
 if set(want) & {{"train", "train fp16", "train fused lmce", "train bh"}}:
     t = res["train"] = c.train_phase(torch, seed)
@@ -313,7 +352,10 @@ def main(argv=None) -> int:
             r = runs[-1][1][p]
             if "top" in r:
                 print(f"[ab profile] {side} {p}: device busy "
-                      f"{r['device_ms']:.3f} ms; top kernels (ms, calls) "
+                      f"{r['device_ms']:.3f} ms, "
+                      f"{r['device_ms_per_dispatch']:.4f} ms a dispatch, "
+                      f"idle share {r['idle_share']:.4f}; top kernels "
+                      "(ms, calls) "
                       + "; ".join(f"{k} {ms:.3f} {n}" for k, ms, n in
                                   r["top"]), flush=True)
     summary = {}
@@ -325,8 +367,8 @@ def main(argv=None) -> int:
                       f"change_{unit}": mean["change"],
                       "runs": [(s, r[p][unit]) for s, r in runs]}
         if all("top" in r[p] for _, r in runs):
-            summary[p]["device_ms"] = [(s, r[p]["device_ms"])
-                                       for s, r in runs]
+            for k in ("device_ms", "device_ms_per_dispatch", "idle_share"):
+                summary[p][k] = [(s, r[p][k]) for s, r in runs]
         if unit == "step_ms":
             summary[p]["first_loss"] = [(s, r[p]["first_loss"])
                                         for s, r in runs]

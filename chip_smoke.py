@@ -53,11 +53,43 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
    bf16 (the backward's times are ``[lmce tc]``'s);
 5. serves GPT-2-small (12 layers, hidden 768, 12 heads, vocab 50304,
    random weights from ``--seed``) through ``LLMServer`` in fp32:
-   12 greedy requests over 8 slots; checks every token count, that
-   the kernel launched exactly 12 times per decode dispatch (and the
-   comparison entry ``_cuda_core_paged`` never), and that
-   two requests' tokens equal the sequential ``reference_decode``;
-6. serves the same model in bf16 and checks counts and launches;
+   12 greedy requests over 8 slots, every decode dispatch a replay of
+   the captured decode step (``warmup`` captures its greedy and mixed
+   variants); checks every token count, two captures, that the kernel
+   launched exactly 12 times per decode dispatch, counted per replay
+   (and the comparison entry ``_cuda_core_paged`` never), that two
+   requests' tokens equal the sequential ``reference_decode``, and that
+   a seeded sampled request (temperature 0.9, top-k 20, top-p 0.9) run
+   after them equals ``reference_decode`` with the same settings;
+   prints the capture seconds, the graph pool's size and the host
+   microseconds a dispatch;
+6. serves the same model in bf16 and checks counts, captures and
+   launches;
+6b. ``[serve noise]``: the sampler's hashed Gumbel noise of a
+   ``[8, 50304]`` batch of (seed, position), bit for bit on the card
+   and on the CPU;
+6c. ``[serve long]``: GPT-2-small at full width with 33280 positions in
+   bf16, ``max_batch=2``, pages of 256, ``prefill_chunk=1024``,
+   ``prefix_cache=True`` (the JAX long-context tier's round (a),
+   ``bench.py:1262-1400``, at full width): one 32512-token prompt
+   (max_tokens 4, temperature 0.8, seed 1) admitted in 32 chunks, its
+   TTFT and seconds per chunk (each step synchronised); the same prompt
+   again (126 blocks from the prefix cache, one chunk) decoding 64
+   tokens at a 32k context through K1: decode tokens/s, K1's launches
+   per dispatch and, profiled, its device ms per launch; then
+   ``[serve long fp32]``: a 4032-token prompt through
+   ``prefill_chunk=512`` gives the same greedy tokens as the engine
+   without chunking and as ``reference_decode``;
+6d. ``[serve prefix]`` (round (b)): ``max_batch=4``, pages of 16,
+   ``prefill_chunk=128``, ``prefix_cache=True``, bf16: 12 requests of a
+   shared 512-token system prompt and 16 own tokens, one after the
+   other; checks the hit and miss counts and prints the hit rate, the
+   prompt tokens skipped and the synchronised TTFT of a miss and of
+   the hits;
+6e. ``[serve chunk gap]`` (round (c)): the inter-token gaps (p50, p99,
+   max) of a 48-token stream, each token read as it comes, while a
+   4032-token prompt is admitted with ``prefill_chunk=512`` and with
+   the whole prompt at once (bf16, pages of 16), each run warmed once;
 7. ``[train]`` trains GPT-2-small at full width through
    ``Model.fit``: B=8, S=1024, dropout 0, ``amp.decorate(level="O2",
    dtype="bfloat16")``, ``AdamW(1e-4, multi_precision=True)``, random
@@ -731,16 +763,40 @@ REQ_MAX = [64, 48, 32, 64, 40, 56, 64, 32, 64, 48, 64, 60]
 ORACLE_REQS = (0, 2)
 
 
+SAMPLED_REQ = 1                  # [serve fp32]: the seeded sampled request's
+SAMPLED_KW = dict(temperature=0.9, top_k=20, top_p=0.9, seed=1234)
+SAMPLED_MAX = 32                 # prompt (REQ_LENS[1]) and its settings
+
+
+def _oracle_check(torch, tag, params, scfg, prompt, got, n, **kw):
+    """Hold ``got`` against the sequential ``reference_decode``."""
+    from paddle_tpu_torch.inference.serving import reference_decode
+    with torch.no_grad():
+        ref, lg = reference_decode(params, scfg, prompt, n, **kw)
+    ref = ref.tolist()
+    if got != ref:
+        j = next(k for k in range(len(ref)) if got[k] != ref[k])
+        top = torch.topk(lg[j].float(), 2).values.tolist()
+        raise AssertionError(
+            f"{tag}: tokens differ from reference_decode({kw}) at token {j}"
+            f" ({got[j]} vs {ref[j]}; oracle top-2 logits {top})")
+
+
 def serving_phase(torch, seed, dtype, tag, check_oracle):
+    """``[serve fp32]`` / ``[serve bf16]``: GPT-2-small through
+    ``LLMServer``, 12 greedy requests over 8 slots, every decode dispatch
+    a replay of the captured step (``warmup`` captures the greedy and the
+    mixed variant)."""
     from paddle_tpu_torch.inference.serving import (LLMServer,
                                                     ServingModelConfig,
-                                                    params_from_numpy,
-                                                    reference_decode)
+                                                    params_from_numpy)
     from paddle_tpu_torch.inference.serving import paged_attention_kernel as pak
     from paddle_tpu_torch.models import gpt2_small, init_decode_weights_numpy
     cfg = gpt2_small()
     params = params_from_numpy(init_decode_weights_numpy(cfg, seed),
                                device="cuda", dtype=dtype)
+    scfg = ServingModelConfig.from_gpt_config(cfg)
+    L = cfg.num_hidden_layers
     rng = np.random.default_rng(seed + 1)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
                for n in REQ_LENS]
@@ -749,6 +805,7 @@ def serving_phase(torch, seed, dtype, tag, check_oracle):
                        auto_start=False, device="cuda")
     try:
         warm = server.warmup(REQ_LENS)
+        pool = pool_reserved(torch, server.engine._graph_pool)
         d0 = server.engine.stats()["dispatches"]
         pak.paged_ragged_attention.launches = 0
         pak._cuda_core_paged.launches = 0
@@ -761,6 +818,18 @@ def serving_phase(torch, seed, dtype, tag, check_oracle):
         launches = pak.paged_ragged_attention.launches
         core_launches = pak._cuda_core_paged.launches
         st = server.stats()
+        sampled = None
+        if check_oracle:
+            # one seeded sampled request alone: the mixed variant's replays
+            d1, l1 = server.engine.stats()["dispatches"], launches
+            sampled = server.submit(prompts[SAMPLED_REQ],
+                                    max_tokens=SAMPLED_MAX,
+                                    **SAMPLED_KW).result(timeout=600)
+            d_s = server.engine.stats()["dispatches"] - d1
+            l_s = pak.paged_ragged_attention.launches - l1
+            check(l_s == d_s * L, f"{tag}: sampled run's kernel launches "
+                  f"{l_s} != dispatches {d_s} x {L}")
+        captures = server.engine.compile_stats()["decode_captures"]
     finally:
         server.close()
     dispatches = st["dispatches"] - d0
@@ -768,39 +837,365 @@ def serving_phase(torch, seed, dtype, tag, check_oracle):
         check(len(r.tokens) == m, f"{tag}: {len(r.tokens)} tokens != {m}")
         check(all(0 <= t < cfg.vocab_size for t in r.tokens),
               f"{tag}: token out of vocab")
-    check(launches == dispatches * cfg.num_hidden_layers,
+    check(captures == 2, f"{tag}: {captures} decode captures, want 2 (the "
+          "greedy and the mixed variant, each once)")
+    check(launches == dispatches * L,
           f"{tag}: kernel launches {launches} != dispatches {dispatches}"
-          f" x {cfg.num_hidden_layers}")
+          f" x {L} (counted per replay)")
     check(core_launches == 0, f"{tag}: the comparison entry "
           f"_cuda_core_paged launched {core_launches} times")
     n_tok = sum(len(r.tokens) for r in results)
+    cap = st["decode_capture_s"]
     print(f"[serve {tag}] GPT-2-small L=12 D=768 H=12 V=50304: "
           f"{len(results)} requests, {n_tok} tokens in {wall:.4f} s = "
           f"{n_tok / wall:.2f} tokens/s; dispatches={dispatches} "
-          f"kernel_launches={launches} (_cuda_core_paged "
+          f"kernel_launches={launches} (per replay; _cuda_core_paged "
           f"{core_launches}); ttft_p50_s={st['ttft_p50_s']:.6f}"
           f" intertoken_p50_s={st['intertoken_p50_s']:.6f} "
-          f"intertoken_p99_s={st['intertoken_p99_s']:.6f}; warmup_s="
-          f"{warm['warmup_s']:.3f}", flush=True)
+          f"intertoken_p99_s={st['intertoken_p99_s']:.6f}; dispatch host "
+          f"us p50 {st['dispatch_host_us_p50']:.1f}; decode captures "
+          f"{captures}, capture s greedy {cap['greedy']:.4f} mixed "
+          f"{cap['mixed']:.4f}, graph pool "
+          f"{'n/a' if pool is None else f'{pool / 2**20:.1f} MiB'}; "
+          f"warmup_s={warm['warmup_s']:.3f}", flush=True)
     if check_oracle:
-        scfg = ServingModelConfig.from_gpt_config(cfg)
-        with torch.no_grad():
-            for i in ORACLE_REQS:
-                ref, lg = reference_decode(params, scfg, prompts[i],
-                                           REQ_MAX[i])
-                ref = ref.tolist()
-                got = results[i].tokens
-                if got != ref:
-                    j = next(k for k in range(len(ref)) if got[k] != ref[k])
-                    top = torch.topk(lg[j].float(), 2).values.tolist()
-                    raise AssertionError(
-                        f"{tag}: request {i} differs from reference_decode"
-                        f" at token {j} ({got[j]} vs {ref[j]}; oracle top-2"
-                        f" logits {top})")
+        for i in ORACLE_REQS:
+            _oracle_check(torch, f"{tag} request {i}", params, scfg,
+                          prompts[i], results[i].tokens, REQ_MAX[i])
         print(f"[serve {tag}] greedy tokens of requests {ORACLE_REQS} equal"
               " the sequential reference_decode", flush=True)
+        _oracle_check(torch, f"{tag} sampled request", params, scfg,
+                      prompts[SAMPLED_REQ], sampled.tokens, SAMPLED_MAX,
+                      **SAMPLED_KW)
+        print(f"[serve {tag}] the seeded sampled request ({SAMPLED_KW}, "
+              f"{SAMPLED_MAX} tokens) equals reference_decode with the "
+              "same settings", flush=True)
     return {"launches": launches, "dispatches": dispatches,
-            "core_launches": core_launches, "tokens_per_s": n_tok / wall}
+            "core_launches": core_launches, "tokens_per_s": n_tok / wall,
+            "wall_s": wall, "captures": captures,
+            "capture_s": cap, "pool": pool,
+            "dispatch_host_us": st["dispatch_host_us_p50"],
+            "ttft_p50_s": st["ttft_p50_s"],
+            "intertoken_p50_s": st["intertoken_p50_s"]}
+
+
+def serve_noise_phase(torch, seed):
+    """``[serve noise]``: the sampler's hashed Gumbel noise of a
+    ``[8, 50304]`` batch of (seed, position) on the card, bit for bit
+    against the CPU."""
+    from paddle_tpu_torch.inference.serving.sampling import (gumbel_noise,
+                                                             noise_bits)
+    s = torch.arange(8, dtype=torch.int64) * 2654435761 % 2 ** 32 + seed
+    p = torch.arange(8, dtype=torch.int64) * 4099 + 17
+    dev = torch.device("cuda")
+    bits = noise_bits(s.to(dev), p.to(dev), 50304).cpu()
+    card = gumbel_noise(s.to(dev), p.to(dev), 50304).cpu()
+    check(torch.equal(bits, noise_bits(s, p, 50304)),
+          "[serve noise] hash bits differ between the card and the CPU")
+    cpu = gumbel_noise(s, p, 50304)
+    diff = int((card.view(torch.int32) != cpu.view(torch.int32)).sum())
+    check(diff == 0, f"[serve noise] {diff} of {cpu.numel()} noise values "
+          "differ between the card and the CPU")
+    print(f"[serve noise] [8, 50304] Gumbel noise bit-identical on the card "
+          f"and the CPU (hash bits and float32 values; min {cpu.min():.4f} "
+          f"max {cpu.max():.4f})", flush=True)
+
+
+LONG_CTX = 32768                 # the long-context tier (bench.py:1262-1400)
+LONG_BS, LONG_CHUNK = 256, 1024
+LONG_PROMPT = LONG_CTX - LONG_BS
+LONG_POSITIONS = LONG_CTX + 512
+
+
+def _long_cfg():
+    from paddle_tpu_torch.models import gpt2_small
+    return gpt2_small(max_position_embeddings=LONG_POSITIONS)
+
+
+def _long_params(torch, seed, dtype):
+    from paddle_tpu_torch.inference.serving import params_from_numpy
+    from paddle_tpu_torch.models import init_decode_weights_numpy
+    return params_from_numpy(init_decode_weights_numpy(_long_cfg(), seed),
+                             device="cuda", dtype=dtype)
+
+
+def _drive(torch, eng, req):
+    """Step ``eng`` until ``req`` has its first token, synchronising
+    after each step; returns each step's seconds."""
+    steps = []
+    while not req.lazy_tokens:
+        t = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t)
+    return steps
+
+
+def serve_long_phase(torch, seed):
+    """``[serve long]``: GPT-2-small at full width with 33280 positions,
+    bf16, ``max_batch=2``, pages of 256, ``prefill_chunk=1024``,
+    ``prefix_cache=True``: one prompt of 32512 tokens (max_tokens 4,
+    temperature 0.8, seed 1) chunk by chunk, then the same prompt again
+    (a prefix-cache hit of 126 blocks) decoding 64 tokens at a 32k
+    context through K1, timed, and once more profiled for K1's device
+    time per launch.  Then ``[serve long fp32]``: a 4032-token prompt
+    through ``prefill_chunk=512`` against the same engine unchunked and
+    ``reference_decode`` (greedy tokens equal)."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.inference.serving import DecodeEngine
+    from paddle_tpu_torch.inference.serving import paged_attention_kernel as pak
+    cfg = _long_cfg()
+    L = cfg.num_hidden_layers
+    params = _long_params(torch, seed, torch.bfloat16)
+    rng = np.random.default_rng(seed + 7)
+    prompt = rng.integers(0, cfg.vocab_size, LONG_PROMPT).tolist()
+    eng = DecodeEngine(params=params, gpt_config=cfg, max_batch=2,
+                       block_size=LONG_BS, num_blocks=136,
+                       prefill_chunk=LONG_CHUNK, prefix_cache=True,
+                       device="cuda")
+    res = {}
+    with torch.no_grad():
+        eng.warmup([LONG_CHUNK])
+        # warm the chunk path (two chunks of another prompt)
+        w = eng.submit(rng.integers(0, cfg.vocab_size, 2048).tolist(),
+                       max_tokens=2)
+        eng.run_until_idle()
+        check(len(w.future.result(timeout=0).tokens) == 2,
+              "[serve long] warm-up request")
+        torch.cuda.synchronize()
+        c0 = eng.stats()["prefill_chunks"]
+        t0 = time.perf_counter()
+        req = eng.submit(prompt, max_tokens=4, temperature=0.8, seed=1)
+        steps = _drive(torch, eng, req)
+        ttft = time.perf_counter() - t0
+        chunks = eng.stats()["prefill_chunks"] - c0
+        eng.run_until_idle()
+        toks = req.future.result(timeout=0).tokens
+        check(len(toks) == 4 and all(0 <= t < cfg.vocab_size for t in toks),
+              f"[serve long] tokens {toks}")
+        check(chunks == -(-LONG_PROMPT // LONG_CHUNK),
+              f"[serve long] {chunks} chunks")
+        hits0 = eng.stats()["prefix_cache"]["hits"]
+        # the same prompt again: 126 blocks from the cache, one chunk,
+        # then 63 decode dispatches at a 32k context
+        pak.paged_ragged_attention.launches = 0
+        d0 = eng.stats()["dispatches"]
+        req = eng.submit(prompt, max_tokens=64)
+        _drive(torch, eng, req)
+        t1 = time.perf_counter()
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t1
+        dispatches = eng.stats()["dispatches"] - d0
+        launches = pak.paged_ragged_attention.launches
+        check(len(req.future.result(timeout=0).tokens) == 64,
+              "[serve long] second request's tokens")
+        check(launches == dispatches * L, f"[serve long] K1 launches "
+              f"{launches} != dispatches {dispatches} x {L}")
+        hits = eng.stats()["prefix_cache"]["hits"] - hits0
+        check(hits == (LONG_PROMPT - 1) // LONG_BS,
+              f"[serve long] prefix hits {hits}")
+        req = eng.submit(prompt, max_tokens=17)
+        _drive(torch, eng, req)
+        d1 = eng.stats()["dispatches"]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            eng.run_until_idle()
+            torch.cuda.synchronize()
+        n_prof = eng.stats()["dispatches"] - d1
+        allev = sorted(((getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0)),
+                         e.key) for e in prof.key_averages()),
+                       reverse=True)
+        busy_us = sum(us for us, _ in allev)
+        print(f"[serve long] profiled decode: {n_prof} dispatches, device "
+              f"busy {busy_us / 1e3 / n_prof:.4f} ms a dispatch; top "
+              "kernels (ms a dispatch): " + "; ".join(
+                  f"{k[:60]} {us / 1e3 / n_prof:.4f}"
+                  for us, k in allev[:6]), flush=True)
+        ev = [e for e in prof.key_averages()
+              if any(n in e.key for n in ("paged_split", "paged_combine",
+                                          "paged_attn"))]
+        k1_us = sum(getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0)) / e.count
+                    for e in ev)
+        kept = min((e.count for e in ev), default=0)
+        check(kept >= 8 * L, f"[serve long] the profiler kept {kept} K1 "
+              "launches")
+        captures = eng.compile_stats()["decode_captures"]
+        eng.release_graphs()
+    check(len(steps) == chunks, f"[serve long] {len(steps)} steps for "
+          f"{chunks} chunks")
+    res.update({"ttft_s": ttft, "chunks": chunks,
+                "chunk_p50_s": float(np.percentile(steps, 50)),
+                "chunk_p99_s": float(np.percentile(steps, 99)),
+                "decode_tokens_per_s": (dispatches - 1) / dec_s,
+                "decode_busy_ms": busy_us / 1e3 / n_prof,
+                "k1_device_ms": k1_us / 1e3, "launches_per_dispatch":
+                launches / dispatches, "prefix_hits": hits,
+                "captures": captures})
+    print(f"[serve long] GPT-2-small L=12 D=768 positions {LONG_POSITIONS} "
+          f"bf16, max_batch=2 BS={LONG_BS} prefill_chunk={LONG_CHUNK} "
+          f"prefix_cache: a {LONG_PROMPT}-token prompt: TTFT {ttft:.4f} s "
+          f"in {chunks} chunks (s per chunk p50 {res['chunk_p50_s']:.4f}, "
+          f"p99 {res['chunk_p99_s']:.4f}); tokens {toks}; again from the "
+          f"cache ({hits} block hits): {dispatches - 1} decode tokens at "
+          f"{res['decode_tokens_per_s']:.2f} tokens/s, K1 launches "
+          f"{launches} = {launches / dispatches:.1f} per dispatch, K1 "
+          f"device {k1_us / 1e3:.5f} ms per launch at B=2 with one "
+          f"{LONG_PROMPT}-{LONG_PROMPT + 17}-token context (profiled "
+          f"replays); decode captures {captures}",
+          flush=True)
+    del eng, params
+    torch.cuda.empty_cache()
+    res.update(serve_long_fp32(torch, seed))
+    return res
+
+
+def serve_long_fp32(torch, seed):
+    """``[serve long fp32]``: the chunked engine against the unchunked
+    one and the sequential oracle at 4032 tokens, greedy, fp32."""
+    from paddle_tpu_torch.inference.serving import (DecodeEngine,
+                                                    ServingModelConfig)
+    cfg = _long_cfg()
+    params = _long_params(torch, seed, torch.float32)
+    prompt = np.random.default_rng(seed + 8).integers(
+        0, cfg.vocab_size, 4032).tolist()
+    out = {}
+    with torch.no_grad():
+        for chunk in (512, None):
+            eng = DecodeEngine(params=params, gpt_config=cfg, max_batch=2,
+                               block_size=LONG_BS, num_blocks=40,
+                               prefill_chunk=chunk, device="cuda")
+            f = eng.submit(prompt, max_tokens=8).future
+            eng.run_until_idle()
+            out[chunk] = f.result(timeout=0).tokens
+            check(eng.stats()["prefill_chunks"] == (8 if chunk else 0),
+                  f"[serve long fp32] chunks {eng.stats()['prefill_chunks']}")
+            eng.release_graphs()
+    check(out[512] == out[None], f"[serve long fp32] chunked {out[512]} != "
+          f"unchunked {out[None]}")
+    _oracle_check(torch, "[serve long fp32]", params,
+                  ServingModelConfig.from_gpt_config(cfg), prompt, out[512],
+                  8)
+    print(f"[serve long fp32] a 4032-token prompt in 8 chunks of 512: greedy"
+          f" tokens {out[512]} equal the unchunked engine's and "
+          "reference_decode's", flush=True)
+    return {"fp32_tokens": out[512]}
+
+
+PREFIX_SYSTEM, PREFIX_OWN, PREFIX_REQS = 512, 16, 12
+
+
+def serve_prefix_phase(torch, seed):
+    """``[serve prefix]``: GPT-2-small, bf16, ``max_batch=4``, pages of
+    16, ``prefill_chunk=128``, ``prefix_cache=True``: 12 requests, each a
+    shared 512-token system prompt and 16 tokens of its own, each run
+    to completion before the next."""
+    from paddle_tpu_torch.inference.serving import (DecodeEngine,
+                                                    params_from_numpy)
+    from paddle_tpu_torch.models import gpt2_small, init_decode_weights_numpy
+    cfg = gpt2_small()
+    params = params_from_numpy(init_decode_weights_numpy(cfg, seed),
+                               device="cuda", dtype=torch.bfloat16)
+    rng = np.random.default_rng(seed + 9)
+    system = rng.integers(0, cfg.vocab_size, PREFIX_SYSTEM).tolist()
+    eng = DecodeEngine(params=params, gpt_config=cfg, max_batch=4,
+                       block_size=16, num_blocks=512, prefill_chunk=128,
+                       prefix_cache=True, device="cuda")
+    ttft = []
+    with torch.no_grad():
+        eng.warmup([PREFIX_SYSTEM + PREFIX_OWN])
+        for _ in range(PREFIX_REQS):
+            p = system + rng.integers(0, cfg.vocab_size,
+                                      PREFIX_OWN).tolist()
+            t0 = time.perf_counter()
+            req = eng.submit(p, max_tokens=16)
+            _drive(torch, eng, req)
+            ttft.append(time.perf_counter() - t0)
+            eng.run_until_idle()
+            check(len(req.future.result(timeout=0).tokens) == 16,
+                  "[serve prefix] tokens")
+        pc = eng.stats()["prefix_cache"]
+        eng.release_graphs()
+    shareable = (PREFIX_SYSTEM + PREFIX_OWN - 1) // 16
+    check(pc["misses"] == shareable and
+          pc["hits"] == shareable * (PREFIX_REQS - 1),
+          f"[serve prefix] hits {pc['hits']} misses {pc['misses']}")
+    res = {"hit_rate": pc["hit_rate"], "skipped_tokens": pc["hits"] * 16,
+           "ttft_miss_s": ttft[0],
+           "ttft_hit_p50_s": float(np.percentile(ttft[1:], 50))}
+    print(f"[serve prefix] GPT-2-small bf16, {PREFIX_REQS} requests of a "
+          f"shared {PREFIX_SYSTEM}-token system prompt + {PREFIX_OWN} own: "
+          f"hit rate {pc['hit_rate']:.4f} ({pc['hits']} block hits, "
+          f"{pc['misses']} misses), {res['skipped_tokens']} prompt tokens "
+          f"skipped; TTFT (synchronised) first {ttft[0]:.5f} s, hits p50 "
+          f"{res['ttft_hit_p50_s']:.5f} s", flush=True)
+    return res
+
+
+def chunk_gap_phase(torch, seed):
+    """``[serve chunk gap]``: the inter-token gaps a streaming request
+    sees (each token read as it comes) while a 4032-token prompt is
+    admitted, with ``prefill_chunk=512`` and with the whole prompt at
+    once; bf16, full width, 33280 positions, ``max_batch=2``, pages of
+    16.  Each configuration runs twice; the second run is read.  A third
+    run, profiled, reads the device-busy ms of the steps that admit the
+    prompt against their wall time (how far the admission is the
+    host's)."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.inference.serving import DecodeEngine
+    cfg = _long_cfg()
+    params = _long_params(torch, seed, torch.bfloat16)
+    rng = np.random.default_rng(seed + 10)
+    stream_prompt = rng.integers(0, cfg.vocab_size, 8).tolist()
+    long_prompt = rng.integers(0, cfg.vocab_size, 4032).tolist()
+    res = {}
+    with torch.no_grad():
+        for chunk in (512, None):
+            eng = DecodeEngine(params=params, gpt_config=cfg, max_batch=2,
+                               block_size=16, num_blocks=300,
+                               prefill_chunk=chunk, device="cuda")
+            eng.warmup([8, 4032])
+            for _ in range(2):
+                seen = []
+                eng.submit(stream_prompt, max_tokens=48,
+                           stream_cb=lambda rid, i, tok: seen.append(
+                               (int(tok), time.perf_counter())))
+                for _ in range(4):
+                    eng.step()
+                eng.submit(long_prompt, max_tokens=2)
+                eng.run_until_idle()
+                gaps = np.diff([t for _, t in seen])
+            check(len(seen) == 48, f"[serve chunk gap] {len(seen)} tokens")
+            key = f"chunk {chunk}" if chunk else "whole"
+            res[key] = {"p50_s": float(np.percentile(gaps, 50)),
+                        "p99_s": float(np.percentile(gaps, 99)),
+                        "max_s": float(gaps.max())}
+            # the profiled run: the steps from the prompt's submit to its
+            # first token, each synchronised
+            eng.submit(stream_prompt, max_tokens=48)
+            for _ in range(4):
+                eng.step()
+            torch.cuda.synchronize()
+            req = eng.submit(long_prompt, max_tokens=2)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                steps = _drive(torch, eng, req)
+            eng.run_until_idle()
+            busy = sum(getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0))
+                       for e in prof.key_averages()) / 1e3
+            res[key].update({"admit_steps": len(steps),
+                             "admit_wall_ms": sum(steps) * 1e3,
+                             "admit_busy_ms": busy})
+            eng.release_graphs()
+    print("[serve chunk gap] a 48-token stream while a 4032-token prompt is "
+          "admitted (bf16, full width): inter-token s " + "; ".join(
+              f"{k}: p50 {r['p50_s']:.5f} p99 {r['p99_s']:.5f} max "
+              f"{r['max_s']:.5f}, admission (profiled) {r['admit_steps']} "
+              f"steps, wall {r['admit_wall_ms']:.3f} ms, device busy "
+              f"{r['admit_busy_ms']:.3f} ms" for k, r in res.items()),
+          flush=True)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -3632,6 +4027,10 @@ def main(argv=None) -> int:
     lres = lmce_phase(torch, args.seed)
     s32 = serving_phase(torch, args.seed, torch.float32, "fp32", True)
     s16 = serving_phase(torch, args.seed, torch.bfloat16, "bf16", False)
+    serve_noise_phase(torch, args.seed)
+    slong = serve_long_phase(torch, args.seed)
+    serve_prefix_phase(torch, args.seed)
+    chunk_gap_phase(torch, args.seed)
     tres = train_phase(torch, args.seed)
     train_eager_phase(torch, args.seed, tres)
     train_fold_phase(torch, args.seed)
@@ -3678,6 +4077,15 @@ def main(argv=None) -> int:
         "bf16_library_device_ms": k16["library_device_ms"],
         "bf16_max_abs_err": k16["max_abs_err"],
         "bf16_launches": s16["launches"],
+        "launches_counted": "per replay of the captured decode step",
+        "serving_dispatches": s32["dispatches"],
+        "bf16_serving_dispatches": s16["dispatches"],
+        "long_engine": {"device_ms": slong["k1_device_ms"],
+                        "launches_per_dispatch":
+                        slong["launches_per_dispatch"],
+                        "shape": f"B=2, BS={LONG_BS}, one request at "
+                                 f"{LONG_PROMPT}-{LONG_PROMPT + 17} "
+                                 "tokens, bf16, in the engine's graph"},
         "cuda_core_serving_launches": s32["core_launches"]
         + s16["core_launches"],
         "gate_ratio": max(r["gate_ratio"] for r in

@@ -17,6 +17,9 @@ step, replayed once per logical step of a group:
   callbacks with lazy views of the group's ``[K]`` loss buffer.
 - :class:`AutoFoldTuner` picks K from the host and device time it
   measures over the first groups, as the JAX tuner does.
+- :class:`CapturedCall` is what a captured step is made of (warm-up,
+  capture with ledgers, replay); the serving engine's decode step
+  (``inference/serving/engine.py``) is built on it too.
 
 The contract of a captured step:
 
@@ -103,25 +106,24 @@ class EagerStep:
         pass
 
 
-class CapturedStep:
-    """One CUDA graph of one training step of one batch signature (see
-    the module docstring): the first :meth:`run` warms up on its first
-    slot and captures, every later slot replays."""
+class CapturedCall:
+    """One CUDA graph of one callable, the pieces every captured engine
+    shares (the fold engine's :class:`CapturedStep`, the serving
+    engine's decode step): :meth:`warm_up` runs the callable eagerly on
+    the graph's own stream, :meth:`capture` records it there into a
+    graph in ``pool`` with the ``ledgers`` put back, and :meth:`replay`
+    launches the graph on the current stream and moves the ledgers by
+    the capture's change.  A capture that fails raises with its CUDA
+    error."""
 
-    def __init__(self, per_step: Callable, device: torch.device, pool,
-                 ledgers: Sequence[Ledger] = ()):
-        self._step = per_step
+    def __init__(self, device: torch.device, pool,
+                 ledgers: Sequence[Ledger] = (),
+                 capture_error_mode: str = "global"):
         self.device = device
         self._pool = pool
         self._ledgers = list(ledgers)
+        self._mode = capture_error_mode
         self._stream = torch.cuda.Stream(device)
-        # the graph's static inputs and output: their addresses are baked
-        # into the graph (with the tensor maps the tensor-core kernels
-        # encoded from them while it was captured, and the parameters'
-        # and optimizer state's), so they are written in place and never
-        # replaced while the graph lives
-        self._inputs: Optional[List[torch.Tensor]] = None
-        self.loss: Optional[torch.Tensor] = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.generator: Optional[torch.Generator] = None
         self.captures = 0
@@ -129,49 +131,31 @@ class CapturedStep:
         self._draws = False
         self._deltas: List[Dict[Any, int]] = []
 
-    def run(self, batches: Sequence[torch.Tensor],
-            losses: torch.Tensor) -> None:
-        """As :meth:`EagerStep.run`; everything is enqueued on the
-        current stream and nothing waits for the device."""
-        first = 0
-        if self.graph is None:
-            self._stage(batches, 0)
-            self._warm_up(losses[0])
-            self._capture()
-            first = 1
-        for i in range(first, losses.shape[0]):
-            self._stage(batches, i)
-            self.graph.replay()
-            self._take_loss(losses, i)
-            self._advance()
-
-    def _stage(self, batches, i):
-        if self._inputs is None:
-            self._inputs = [torch.empty_like(b[0]) for b in batches]
-        for dst, b in zip(self._inputs, batches):
-            dst.copy_(b[i], non_blocking=True)
-
-    def _take_loss(self, losses, i):
-        losses[i].copy_(self.loss)
-
-    def _warm_up(self, out):
+    def warm_up(self, fn: Callable[[], Any]) -> None:
+        """``fn()`` once, eagerly, on the graph's stream after the
+        current stream's work (the current stream then waits for it);
+        notes whether it drew from the device's generator.  ``fn``
+        leaves its results in tensors that outlive it."""
         current = torch.cuda.current_stream(self.device)
         gen = _random.default_generator(self.device)
         offset = gen.get_offset()
         self._stream.wait_stream(current)
         with torch.cuda.stream(self._stream):
-            out.copy_(self._step(self._inputs))
+            fn()
         current.wait_stream(self._stream)
         self._draws = gen.get_offset() != offset
 
-    def _capture(self):
+    def capture(self, fn: Callable[[], Any]) -> Any:
+        """Record ``fn()`` into the graph (nothing runs on the device);
+        returns what ``fn`` returned, whose storage the graph owns."""
         graph = torch.cuda.CUDAGraph()
         if self._draws:
             self.generator = _random.register_with_graph(graph, self.device)
         before = [read() for read, _ in self._ledgers]
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
-            self.loss = self._step(self._inputs)
+        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
+                              capture_error_mode=self._mode):
+            out = fn()
         self.capture_s = time.perf_counter() - t0
         for (read, write), old in zip(self._ledgers, before):
             new = read()
@@ -180,8 +164,10 @@ class CapturedStep:
             write(old)
         self.graph = graph
         self.captures += 1
+        return out
 
-    def _advance(self):
+    def replay(self) -> None:
+        self.graph.replay()
         for (read, write), delta in zip(self._ledgers, self._deltas):
             if delta:
                 now = read()
@@ -193,6 +179,51 @@ class CapturedStep:
         if self.graph is not None:
             self.graph.reset()
             self.graph = None
+
+
+class CapturedStep(CapturedCall):
+    """One CUDA graph of one training step of one batch signature (see
+    the module docstring): the first :meth:`run` warms up on its first
+    slot and captures, every later slot replays."""
+
+    def __init__(self, per_step: Callable, device: torch.device, pool,
+                 ledgers: Sequence[Ledger] = ()):
+        super().__init__(device, pool, ledgers)
+        self._step = per_step
+        # the graph's static inputs and output: their addresses are baked
+        # into the graph (with the tensor maps the tensor-core kernels
+        # encoded from them while it was captured, and the parameters'
+        # and optimizer state's), so they are written in place and never
+        # replaced while the graph lives
+        self._inputs: Optional[List[torch.Tensor]] = None
+        self.loss: Optional[torch.Tensor] = None
+
+    def run(self, batches: Sequence[torch.Tensor],
+            losses: torch.Tensor) -> None:
+        """As :meth:`EagerStep.run`; everything is enqueued on the
+        current stream and nothing waits for the device."""
+        first = 0
+        if self.graph is None:
+            self._stage(batches, 0)
+            self.warm_up(lambda: losses[0].copy_(self._step(self._inputs)))
+            self.loss = self.capture(lambda: self._step(self._inputs))
+            first = 1
+        for i in range(first, losses.shape[0]):
+            self._stage(batches, i)
+            self.replay()
+            self._take_loss(losses, i)
+
+    def _stage(self, batches, i):
+        if self._inputs is None:
+            self._inputs = [torch.empty_like(b[0]) for b in batches]
+        for dst, b in zip(self._inputs, batches):
+            dst.copy_(b[i], non_blocking=True)
+
+    def _take_loss(self, losses, i):
+        losses[i].copy_(self.loss)
+
+    def close(self) -> None:
+        super().close()
         self._inputs = self.loss = None
 
 

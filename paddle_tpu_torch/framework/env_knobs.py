@@ -60,6 +60,15 @@ _k("PADDLE_TORCH_FOLD_CALIB_GROUPS", "3", "int",
    "Groups the auto-tuner measures at K=1, after the first, before it "
    "decides (PADDLE_TPU_FOLD_CALIB_GROUPS).")
 
+# -- serving (inference/serving/engine.py) -----------------------------------
+_k("PADDLE_TORCH_PREFILL_CHUNK", "unset", "int",
+   "DecodeEngine's default prefill_chunk: admit prompts longer than this "
+   "many tokens (a block multiple) one chunk per engine step; unset, "
+   "blank or <= 0 is off (PADDLE_TPU_PREFILL_CHUNK).")
+_k("PADDLE_TORCH_PREFIX_CACHE", "off", "bool",
+   "DecodeEngine's default prefix_cache: share the K/V of full prompt "
+   "blocks between requests (PADDLE_TPU_PREFIX_CACHE).")
+
 _TRUTHY = ("1", "true", "yes", "on")
 
 

@@ -4,8 +4,9 @@
     weights = params_from_numpy(tree, device="cuda")
     server = LLMServer(params=weights, gpt_config=gpt2_small(),
                        max_batch=8, block_size=16, num_blocks=512,
+                       prefill_chunk=512, prefix_cache=True,
                        auto_start=False)
-    server.warmup([16, 64])          # build kernels, warm the device
+    server.warmup([16, 64])          # build kernels, capture the step
     server.start()
     fut = server.submit(prompt_ids, max_tokens=64)
     result = fut.result()            # GenerationResult
@@ -13,7 +14,11 @@
 One daemon pump thread owns the engine and issues all of its device
 work on the current stream; ``submit`` only touches the (locked)
 admission queue and wakes the pump, so it is safe from any thread and
-never waits on the device.  Streaming callbacks receive ``LazyScalar``
+never touches the device.  ``warmup`` captures the decode step's graphs
+before the pump starts; an engine that was not warmed captures on its
+first dispatches, in the pump thread, in "thread_local" capture mode,
+so other threads' CUDA calls (a consumer reading a token) do not
+invalidate it.  Streaming callbacks receive ``LazyScalar``
 token views; reading one is the consumer's device sync.
 """
 
@@ -28,7 +33,9 @@ from .scheduler import QueueFull  # noqa: F401  (re-export: caller API)
 
 class LLMServer:
     """Continuous-batching generation server.  Keyword arguments other
-    than ``auto_start``/``idle_wait_s`` go to :class:`DecodeEngine`."""
+    than ``auto_start``/``idle_wait_s`` go to :class:`DecodeEngine`
+    (``prefill_chunk=``, ``prefix_cache=``, ``prefix_reserve_discount=``
+    among them)."""
 
     def __init__(self, network=None, *, auto_start: bool = True,
                  idle_wait_s: float = 0.005, **engine_kwargs):
@@ -67,6 +74,7 @@ class LLMServer:
             self._thread = None
         self.engine.release_all(
             RuntimeError("server closed before completion"))
+        self.engine.release_graphs()
 
     def __enter__(self) -> "LLMServer":
         return self

@@ -5,6 +5,9 @@
   ``extract_decode_params`` → :class:`GPTDecodeWeights` on a device.
 - :func:`prefill_group_forward` — one same-bucket prefill group:
   per-layer K/V for the page writes plus the first token.
+- :func:`chunk_prefill_forward` — one prefill chunk against the context
+  already in the pool (chunked prefill, prefix-cache hits); writes its
+  pages in place.
 - :func:`decode_forward` — ONE token per request across the batch
   against the paged pool; the pool is appended in place and attention
   runs through the paged-attention seam (the CUDA kernel on the card).
@@ -28,11 +31,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .kv_cache import SCRATCH_BLOCK, paged_append
+from .kv_cache import (SCRATCH_BLOCK, gather_pages, paged_append,
+                       write_prompt_pages)
 from .ragged_attention import (causal_prefill_attention,
+                               chunked_prefill_attention,
                                paged_decode_attention,
                                ragged_decode_attention)
-from .sampling import sample_tokens
+from .sampling import sample_tokens_host
 
 
 @dataclass(frozen=True)
@@ -154,8 +159,8 @@ def prefill_group_forward(params, cfg: ServingModelConfig, ids, lengths,
     last_ix = torch.as_tensor(np.maximum(lengths - 1, 0), device=dev)
     last = x[torch.arange(G, device=dev), last_ix]  # [G, D]
     logits = last @ params.wte.T                   # [G, V]
-    first = sample_tokens(logits, temperature, top_k, top_p, seed,
-                          lengths)
+    first = sample_tokens_host(logits, temperature, top_k, top_p, seed,
+                               lengths)
     return torch.stack(kvs), first, logits
 
 
@@ -166,6 +171,49 @@ def prefill_forward(params, cfg: ServingModelConfig, ids, length):
     kv, toks, logits = prefill_group_forward(
         params, cfg, ids, [int(length)], [0.0], [0], [1.0], [0])
     return kv[:, :, 0], toks[0], logits[0]
+
+
+def chunk_prefill_forward(params, cfg: ServingModelConfig, pool, ctx_table,
+                          ctx_len, ids, chunk_len, chunk_blocks,
+                          temperature, top_k, top_p, seed):
+    """One prefill *chunk* against the paged pool: the chunk's K/V,
+    attending to the context already cached (prefix-cache hits and
+    earlier chunks), are written into the chunk's pages IN PLACE, and
+    the chunk's last real position gives the next token.
+
+    ``ctx_table`` ``[1, NBctx]`` int32 tensor: the page-table slice
+    covering the context; ``ctx_len`` (int): cached tokens; ``ids``
+    ``[1, Cb]`` int tensor: the chunk's tokens right-padded to ``Cb``
+    (a block multiple); ``chunk_len`` (int): its real tokens;
+    ``chunk_blocks`` ``[Cb // BS]`` int tensor: its pages (tail entries
+    SCRATCH_BLOCK); the sampling values are host scalars, and the token
+    is sampled at position ``ctx_len + chunk_len`` (only a prompt's
+    last chunk's token is used).  Returns ``(token, last_logits [V])``.
+    """
+    B, Cb = ids.shape
+    dev = ids.device
+    ctx_len, chunk_len = int(ctx_len), int(chunk_len)
+    pos = (ctx_len + torch.arange(Cb, device=dev)).clamp(
+        max=cfg.max_position - 1)
+    x = params.wte[ids.long()] + params.wpe[pos][None]
+    kvs = []
+    for li, lp in enumerate(params.layers):
+        h = _ln(x, lp.ln1_w, lp.ln1_b, cfg.ln_epsilon)
+        q, k, v = _split_qkv(h @ lp.wqkv + lp.bqkv, cfg.num_heads,
+                             cfg.head_dim)
+        kvs.append(torch.stack([k[0], v[0]]))      # [2, Cb, H, Dh]
+        k_ctx, v_ctx = gather_pages(pool, li, ctx_table)
+        attn = chunked_prefill_attention(q, k_ctx, v_ctx, ctx_len, k, v)
+        del k_ctx, v_ctx
+        x = x + attn.reshape(B, Cb, cfg.hidden_size) @ lp.wo + lp.bo
+        x = x + _mlp(x, lp, cfg.ln_epsilon)
+    write_prompt_pages(pool, torch.stack(kvs), chunk_blocks)
+    x = _ln(x, params.lnf_w, params.lnf_b, cfg.ln_epsilon)
+    last = x[0, max(chunk_len - 1, 0)]             # [D]
+    logits = last @ params.wte.T                   # [V]
+    tok = sample_tokens_host(logits[None], [temperature], [top_k],
+                             [top_p], [seed], [ctx_len + chunk_len])[0]
+    return tok, logits
 
 
 # ---------------------------------------------------------------------------
@@ -225,8 +273,8 @@ def reference_decode(params, cfg: ServingModelConfig, prompt_ids,
     dev = params.wte.device
 
     def _pick(lg, position):
-        return sample_tokens(lg[None], [temperature], [top_k], [top_p],
-                             [seed], [position])[0]
+        return sample_tokens_host(lg[None], [temperature], [top_k],
+                                  [top_p], [seed], [position])[0]
 
     ids = torch.as_tensor(list(prompt_ids), dtype=torch.int32,
                           device=dev)[None]

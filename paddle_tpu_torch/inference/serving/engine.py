@@ -1,47 +1,97 @@
 """Continuous-batching decode engine (counterpart of
 ``paddle_tpu/inference/serving/engine.py``, role ``"both"``).
 
-One engine step admits waiting requests, prefills them in same-bucket
-groups, grows pages, and runs ONE batched decode dispatch over the
-paged KV pool.  Requests joining and leaving the batch change only page
-table and length *data*; the decode dispatch always has the shapes
+One engine step admits waiting requests, prefills them (same-bucket
+groups, or chunk by chunk), advances at most ONE prefill chunk, grows
+pages, and runs ONE batched decode dispatch over the paged KV pool.
+Requests joining and leaving the batch change only page table, length
+and sampling *data*; the decode dispatch always has the shapes
 ``[max_batch]`` and ``[max_batch, max_blocks_per_seq]``.
 
-Device state rides the loop: the emitted tokens feed back as the next
-dispatch's input on the device, EOS is detected on the device (``done``
+**The decode step is one captured CUDA graph** (the torch counterpart
+of the JAX engine's single-trace decode program).  Its inputs and
+outputs are static device buffers, written in place: the page table and
+lengths (staged from the host before every dispatch), the per-slot
+sampling vectors (re-staged only when a seat or a finalize changed
+them) and the loop state, the tokens that feed back and the device
+``done`` mask.  On a CUDA device the first dispatch of each variant
+runs eagerly on the graph's stream (building kernels, the K1 split's
+workspace and cuBLAS's), the step is then captured
+(``framework/dispatch.py::CapturedCall``) and every later dispatch
+replays it; the kernel wrappers' launch counts advance per replay
+through a ledger.  Two variants exist: greedy-only, and mixed (the
+top-k/top-p filters and the hashed Gumbel noise of ``sampling.py``);
+the host picks one per dispatch from the temperatures it holds, as the
+JAX program's ``lax.cond`` on ``any(temperature > 0)`` does on the
+device, so an all-greedy batch never pays for two ``[B, V]`` sorts.  A
+capture that fails raises with its CUDA error; nothing carries on
+eagerly on the card.  On the CPU the same body runs eagerly.  Prefill
+(grouped and chunked) stays eager, between replays.
+
+Device state rides the loop: EOS is detected on the device (``done``
 mask), and the host learns of it only at ``done_poll_interval``
-dispatch boundaries (``_poll_done``).  Every dispatch's tokens reach
-the requests as :class:`~paddle_tpu_torch.framework.lazy.LazyScalar`
-views of one shared ``LazyStack``: one device→host copy per dispatch,
-and only if somebody reads it.  The host loop itself never waits for
-the device outside the poll, a request's finalize, and ``warmup``.
+dispatch boundaries (``_poll_done``).  Every dispatch copies the
+emitted tokens out of the static buffer into a fresh ``[B]`` tensor,
+which the requests see as
+:class:`~paddle_tpu_torch.framework.lazy.LazyScalar` views of one
+shared ``LazyStack``: one device→host copy per dispatch, and only if
+somebody reads it.  The host loop itself never waits for the device
+outside the poll, a request's finalize, and ``warmup``.
+
+Chunked prefill (``prefill_chunk=``) admits a long prompt one chunk
+per engine step against the context already in its pages; the
+shared-prefix cache (``prefix_cache=``, ``prefix_cache.py``) maps full
+prompt blocks to pool blocks that already hold their K/V, so a request
+that hits runs only its suffix through the chunk path.
 
 Kept for later slices (each refused with ``NotImplementedError`` where
-the JAX engine has an argument for it): chunked prefill, the prefix
-cache, speculative decoding, the prefill/decode roles with page
-migration, the auto-tuned poll cadence, observability metrics, and the
-CUDA-graph capture of the decode step.
+the JAX engine has an argument for it; ROADMAP.md queue A, item A3):
+speculative decoding, the prefill/decode roles with page migration,
+the auto-tuned poll cadence with the observability metrics, and
+``network=`` with ``refresh_weights``.
 """
 
 from __future__ import annotations
 
 import time
+from collections import deque
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ... import resolve_device
+from ...framework import env_knobs
+from ...framework.dispatch import CapturedCall
 from ...framework.lazy import LazyScalar, LazyStack
 from ...io.bucketing import shape_bucket
+from . import paged_attention_kernel as _pak
 from .decode_model import (GPTDecodeWeights, ServingModelConfig,
-                           decode_forward, prefill_group_forward)
+                           chunk_prefill_forward, decode_forward,
+                           prefill_group_forward)
 from .kv_cache import SCRATCH_BLOCK, PagedKVCache, write_prompt_pages_group
+from .prefix_cache import PrefixCache
 from .sampling import sample_tokens
 from .scheduler import Request, Scheduler
 
 #: the only phase role this slice serves
 ENGINE_ROLES = ("both",)
+
+#: the kernel wrappers the decode step launches through; their host
+#: counts advance once per replay by what the capture recorded
+_COUNTED = (_pak.paged_ragged_attention, _pak._cuda_core_paged)
+
+
+def _read_counts() -> Dict[object, int]:
+    return {fn: fn.launches for fn in _COUNTED}
+
+
+def _write_counts(counts: Dict[object, int]) -> None:
+    for fn, n in counts.items():
+        fn.launches = n
+
+
+_LEDGER = (_read_counts, _write_counts)
 
 
 class GenerationResult:
@@ -57,6 +107,24 @@ class GenerationResult:
     def __repr__(self):
         return (f"GenerationResult(id={self.request_id}, "
                 f"tokens={self.tokens})")
+
+
+class _PrefillJob:
+    """Host bookkeeping for one chunk-prefilling request: how much of
+    the prompt is in cache (prefix hits + completed chunks), the chain
+    hash where prefix-cache insertion resumes, and the pool blocks
+    this request computed itself (candidate cache entries)."""
+
+    __slots__ = ("req", "slot", "chain", "done_tokens", "insert_from",
+                 "computed_blocks")
+
+    def __init__(self, req, slot, chain, done_tokens, insert_from):
+        self.req = req
+        self.slot = slot
+        self.chain = chain
+        self.done_tokens = int(done_tokens)
+        self.insert_from = int(insert_from)
+        self.computed_blocks: List[int] = []
 
 
 def _pow2_buckets(max_n: int) -> List[int]:
@@ -86,10 +154,10 @@ def _percentile(values, q):
     return float(np.percentile(values, q)) if values else None
 
 
-def _deferred(feature: str, slice_name: str):
+def _deferred(feature: str, bullet: str):
     return NotImplementedError(
-        f"{feature} is not ported yet; it comes with the {slice_name} "
-        "slice of the PyTorch port (ROADMAP.md queue A)")
+        f"{feature} is not ported yet; it is queued in ROADMAP.md "
+        f"queue A, item A3 (\"{bullet}\")")
 
 
 class DecodeEngine:
@@ -98,11 +166,19 @@ class DecodeEngine:
     Drive it directly (``submit`` + ``step`` / ``run_until_idle``) or
     through :class:`~paddle_tpu_torch.inference.serving.api.LLMServer`'s
     pump thread.  All methods except ``submit`` must be called from ONE
-    thread; ``submit`` is safe from anywhere.
+    thread; ``submit`` is safe from anywhere and never touches the
+    device.
 
     ``params`` is a :class:`GPTDecodeWeights` on ``device`` (see
     ``decode_model.params_from_numpy``); the pool takes its dtype.
     ``device`` defaults to ``"cuda"`` and raises without a card.
+    ``prefill_chunk`` (a block multiple; default
+    ``PADDLE_TORCH_PREFILL_CHUNK``, unset = off) admits prompts longer
+    than it chunk by chunk, one chunk per engine step, and lifts the
+    largest prefill bucket's cap on prompt length.  ``prefix_cache``
+    (default ``PADDLE_TORCH_PREFIX_CACHE``) shares full prompt blocks
+    between requests; ``prefix_reserve_discount`` (needs it) reserves
+    each admission's worst case less its live cache hits.
     """
 
     def __init__(self, network=None, *, gpt_config=None,
@@ -123,22 +199,17 @@ class DecodeEngine:
                  spec_k: Optional[int] = None):
         if network is not None:
             raise _deferred("network= (a training GPTForCausalLM)",
-                            "training")
+                            "network= and refresh_weights")
         if role != "both":
             raise _deferred(f"role={role!r} with page migration",
-                            "disaggregated serving")
+                            "Roles prefill and decode with migration.py")
         if draft is not None or draft_params is not None or \
                 spec_k is not None:
             raise _deferred("speculative decoding (draft=/spec_k=)",
-                            "speculative decoding")
-        if prefill_chunk is not None:
-            raise _deferred("chunked prefill (prefill_chunk=)",
-                            "long-context")
-        if prefix_cache or prefix_reserve_discount:
-            raise _deferred("the shared-prefix cache", "long-context")
+                            "Speculative decoding")
         if done_poll_interval is None:
             raise _deferred("the auto-tuned done-poll cadence",
-                            "observability")
+                            "The auto-tuned poll cadence")
         self._device = resolve_device(device)
         if params is None or gpt_config is None:
             raise ValueError("need params= and gpt_config=")
@@ -180,26 +251,75 @@ class DecodeEngine:
                     f"block_size {block_size}")
         self._buckets = sorted(int(b) for b in prefill_buckets)
         self._group_buckets = _pow2_buckets(self.max_batch)
-        # host-side batch state (authoritative; staged per dispatch)
+        # -- chunked prefill and the shared-prefix cache --
+        if prefill_chunk is None:
+            env_chunk = env_knobs.get_raw("PADDLE_TORCH_PREFILL_CHUNK", "")
+            prefill_chunk = int(env_chunk) if env_chunk.strip() else None
+        if prefill_chunk is not None and prefill_chunk <= 0:
+            prefill_chunk = None
+        if prefill_chunk is not None:
+            if prefill_chunk % block_size:
+                raise ValueError(
+                    f"prefill_chunk {prefill_chunk} is not a multiple "
+                    f"of block_size {block_size}")
+            prefill_chunk = min(int(prefill_chunk), self._buckets[-1])
+        self.prefill_chunk = prefill_chunk
+        if prefix_cache is None:
+            prefix_cache = env_knobs.get_bool("PADDLE_TORCH_PREFIX_CACHE")
+        if prefix_reserve_discount and not prefix_cache:
+            raise ValueError(
+                "prefix_reserve_discount=True requires "
+                "prefix_cache=True: there is nothing to discount "
+                "against without the shared-prefix cache")
+        self._reserve_discount = bool(prefix_reserve_discount)
+        self._prefix = (PrefixCache(self._kv.allocator, block_size,
+                                    pin_referenced=self._reserve_discount)
+                        if prefix_cache else None)
+        self._prefill_jobs: deque = deque()
+        self._chunks = 0
         self._slots: List[Optional[Request]] = [None] * self.max_batch
-        self._tables = np.full((self.max_batch, self.max_blocks_per_seq),
-                               SCRATCH_BLOCK, dtype=np.int32)
-        self._lengths = np.zeros(self.max_batch, dtype=np.int32)
-        self._temps = np.zeros(self.max_batch, dtype=np.float32)
-        self._topks = np.zeros(self.max_batch, dtype=np.int32)
-        self._topps = np.ones(self.max_batch, dtype=np.float32)
-        self._seeds = np.zeros(self.max_batch, dtype=np.uint32)
-        # device-resident loop state; replaced, never written in place,
-        # because a dispatch's LazyStack may still hold the old tensor
-        self._tokens = torch.zeros(self.max_batch, dtype=torch.int32,
-                                   device=self._device)
-        self._done = torch.zeros(self.max_batch, dtype=torch.bool,
-                                 device=self._device)
+        # host-side batch state (authoritative), held in the two int32
+        # buffers it is staged from: the layout (page table, lengths),
+        # copied before every dispatch, and the sampling vectors
+        # (temperature and top-p as float32 bits, seeds as uint32 bits),
+        # copied only when a seat or finalize changed them
+        B, M = self.max_batch, self.max_blocks_per_seq
+        self._layout_host = np.zeros(B * M + B, dtype=np.int32)
+        self._tables = self._layout_host[:B * M].reshape(B, M)
+        self._tables[:] = SCRATCH_BLOCK
+        self._lengths = self._layout_host[B * M:]
+        self._samp_host = np.zeros(4 * B, dtype=np.int32)
+        self._temps = self._samp_host[:B].view(np.float32)
+        self._topks = self._samp_host[B:2 * B]
+        self._topps = self._samp_host[2 * B:3 * B].view(np.float32)
+        self._topps[:] = 1.0
+        self._seeds = self._samp_host[3 * B:].view(np.uint32)
+        self._samp_stale = True
+        # the decode step's static device buffers: the graph bakes in
+        # their addresses, so they are written in place, never replaced
+        dev = self._device
+        self._layout_dev = torch.zeros(B * M + B, dtype=torch.int32,
+                                       device=dev)
+        self._table_dev = self._layout_dev[:B * M].view(B, M)
+        self._lengths_dev = self._layout_dev[B * M:]
+        self._samp_dev = torch.zeros(4 * B, dtype=torch.int32, device=dev)
+        self._temps_dev = self._samp_dev[:B].view(torch.float32)
+        self._topks_dev = self._samp_dev[B:2 * B]
+        self._topps_dev = self._samp_dev[2 * B:3 * B].view(torch.float32)
+        self._seeds_dev = self._samp_dev[3 * B:]
+        self._tokens = torch.zeros(B, dtype=torch.int32, device=dev)
+        self._done = torch.zeros(B, dtype=torch.bool, device=dev)
+        # one captured step per variant (False: greedy-only, True:
+        # mixed), sharing one graph pool; CUDA only
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if dev.type == "cuda" else None)
+        self._steps: Dict[bool, CapturedCall] = {}
         self._dispatches = 0
         self._total_tokens = 0
         self._latency: List[float] = []
         self._ttft: List[float] = []
         self._intertoken: List[float] = []
+        self._dispatch_host: List[float] = []
         self._last_dispatch_t: Optional[float] = None
 
     @property
@@ -209,45 +329,49 @@ class DecodeEngine:
     def _stage(self, arr: np.ndarray) -> torch.Tensor:
         """Host array → device tensor without waiting for the device
         (a private copy, so later host edits cannot reach it)."""
-        return torch.from_numpy(arr.copy()).to(self._device,
-                                               non_blocking=True)
+        return torch.from_numpy(np.array(arr)).to(self._device,
+                                                  non_blocking=True)
 
     # -- front door ----------------------------------------------------------
     def submit(self, prompt_ids, max_tokens: int, stream_cb=None,
                temperature: float = 0.0, top_k: int = 0,
                top_p: float = 1.0, seed: Optional[int] = None) -> Request:
-        """Enqueue a generation request (thread-safe).  Returns the
-        :class:`Request`; its ``future`` resolves to a
+        """Enqueue a generation request (thread-safe, host only).
+        Returns the :class:`Request`; its ``future`` resolves to a
         :class:`GenerationResult`.  Raises
         :class:`~.scheduler.QueueFull` at queue capacity and
         ``ValueError`` for requests the pool geometry can never run."""
         req = Request(prompt_ids, max_tokens, stream_cb=stream_cb,
                       temperature=temperature, top_k=top_k, top_p=top_p,
                       seed=seed)
-        if len(req.prompt) > self._buckets[-1]:
+        if self.prefill_chunk is None and \
+                len(req.prompt) > self._buckets[-1]:
             raise ValueError(
                 f"prompt length {len(req.prompt)} exceeds the largest "
-                f"prefill bucket {self._buckets[-1]} (chunked prefill "
-                "is not ported yet)")
+                f"prefill bucket {self._buckets[-1]}; enable chunked "
+                "prefill (prefill_chunk=) for longer prompts")
         return self.scheduler.submit(req)
 
     # -- engine loop ---------------------------------------------------------
     def step(self) -> bool:
-        """Admit and prefill waiting requests, then run ONE batched
-        decode dispatch.  Returns True while there is (or may be)
-        work."""
+        """Admit waiting requests, advance at most ONE prefill chunk,
+        then run ONE batched decode dispatch.  Returns True while there
+        is (or may be) work."""
         with torch.no_grad():
             return self._step()
 
     def _step(self) -> bool:
         self._admit()
-        active = [s for s, r in enumerate(self._slots) if r is not None]
+        self._advance_prefill()
+        active = [s for s, r in enumerate(self._slots)
+                  if r is not None and not r.prefilling]
         if not active:
             self._last_dispatch_t = None
-            return self.scheduler.queue_depth > 0
+            return (self.scheduler.queue_depth > 0
+                    or bool(self._prefill_jobs))
+        t0 = time.perf_counter()
         self._grow_pages(active)
-        emit, self._done = self._decode_dispatch()
-        self._tokens = emit            # feeds back next dispatch (D2D)
+        emit = self._decode_dispatch()
         self._dispatches += 1
         stack = LazyStack(emit)        # ONE shared fetch, if read
         now = time.monotonic()
@@ -263,6 +387,7 @@ class DecodeEngine:
                 self._lengths[s] += 1
             if len(req.lazy_tokens) >= req.max_tokens:
                 to_finish.append(s)
+        self._dispatch_host.append(time.perf_counter() - t0)
         for s in to_finish:
             self._finalize(s)
         if self.eos_id is not None and \
@@ -270,23 +395,65 @@ class DecodeEngine:
             self._poll_done()
         return True
 
-    def _decode_dispatch(self):
-        """THE decode dispatch: returns ``(emit [B], done [B])`` on the
-        device, enqueued without waiting for it."""
-        table = self._stage(self._tables)
-        lengths = self._stage(self._lengths)
+    def _decode_dispatch(self, mixed: Optional[bool] = None
+                         ) -> torch.Tensor:
+        """THE decode dispatch: stage the host state into the static
+        buffers, run the step (a replay on the card) and return a copy
+        of the emitted ``[B]`` tokens, all enqueued without waiting for
+        the device.  ``mixed`` picks the variant (default: whether any
+        slot samples)."""
+        self._layout_dev.copy_(torch.from_numpy(self._layout_host),
+                               non_blocking=True)
+        if mixed is None:
+            mixed = bool((self._temps > 0.0).any())
+        if mixed and self._samp_stale:
+            self._samp_dev.copy_(torch.from_numpy(self._samp_host),
+                                 non_blocking=True)
+            self._samp_stale = False
+        self._run_step(mixed)
+        # the next replay overwrites the static tokens: the LazyStack
+        # takes a copy
+        return self._tokens.clone()
+
+    def _run_step(self, mixed: bool):
+        if self._device.type != "cuda":
+            self._decode_body(mixed)
+            return
+        step = self._steps.get(mixed)
+        if step is not None:
+            step.replay()
+            return
+        # first dispatch of this variant: it runs eagerly on the
+        # graph's stream, then the step is captured for the next ones
+        step = CapturedCall(self._device, self._graph_pool,
+                            ledgers=[_LEDGER],
+                            capture_error_mode="thread_local")
+        step.warm_up(lambda: self._decode_body(mixed))
+        step.capture(lambda: self._decode_body(mixed))
+        self._steps[mixed] = step
+
+    def _decode_body(self, mixed: bool) -> None:
+        """The decode step on the static buffers: reads the staged
+        layout and sampling vectors and the loop state, appends one
+        token's K/V per active slot to the pool, and writes the emitted
+        tokens and the done mask in place.  The graph's body on the
+        card."""
+        lengths = self._lengths_dev
         active = (lengths > 0) & torch.logical_not(self._done)
         logits = decode_forward(self._params, self._cfg, self._kv.pool,
-                                table, lengths, self._tokens, active)
-        # the sampled token's sequence index is lengths + 1: a pure
-        # function of the request, never of slot or batch
-        nxt = sample_tokens(logits, self._temps, self._topks,
-                            self._topps, self._seeds, self._lengths + 1)
-        emit = torch.where(active, nxt, torch.full_like(nxt, self.pad_id))
-        done = self._done
+                                self._table_dev, lengths, self._tokens,
+                                active)
+        if mixed:
+            # the sampled token's sequence index is lengths + 1: a pure
+            # function of the request, never of slot or batch
+            nxt = sample_tokens(logits, self._temps_dev, self._topks_dev,
+                                self._topps_dev, self._seeds_dev,
+                                lengths + 1)
+        else:
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         if self.eos_id is not None:
-            done = done | (active & (nxt == int(self.eos_id)))
-        return emit, done
+            self._done.logical_or_(active & (nxt == int(self.eos_id)))
+        self._tokens.copy_(torch.where(active, nxt, self.pad_id))
 
     def run_until_idle(self, max_dispatches: int = 100_000):
         """Pump :meth:`step` until queue and batch drain."""
@@ -299,17 +466,93 @@ class DecodeEngine:
         return n
 
     # -- admission / prefill -------------------------------------------------
+    def _alloc_blocks(self, n: int) -> List[int]:
+        """Pool draw with prefix-cache pressure relief: idle cached
+        entries are the only occupancy beyond the reservation envelope,
+        so evicting them (LRU, leaf-first) keeps reservation-gated
+        admission's no-OOM guarantee."""
+        if self._prefix is not None:
+            self._prefix.ensure_free(n)
+        return self._kv.allocator.allocate(n)
+
+    def _set_sampling(self, slot: int, req: Request):
+        self._temps[slot] = req.temperature
+        self._topks[slot] = req.top_k
+        self._topps[slot] = req.top_p
+        self._seeds[slot] = np.uint32(req.seed & 0xFFFFFFFF)
+        self._samp_stale = True
+
+    def _cache_insert(self, req: Request, start: int, chain: bytes,
+                      blocks: List[int]):
+        """Register a prefilled prompt's share-eligible blocks with the
+        prefix cache (ownership moves to the cache; the request keeps a
+        reference on each new entry and keeps hash-collision duplicates
+        as its own)."""
+        n_share = self._prefix.shareable_blocks(req.prompt)
+        n_insert = max(0, n_share - start)
+        if not n_insert:
+            return
+        entries, _ = self._prefix.insert(req.prompt, start, chain,
+                                         blocks[:n_insert])
+        req.prefix_entries = req.prefix_entries + entries
+        inserted = {e.block for e in entries}
+        req.blocks = [b for b in req.blocks if b not in inserted]
+        if self._reserve_discount and entries:
+            # cache-owned and pinned now: keeping them reserved too
+            # would count them twice in the envelope
+            self.scheduler.release_partial(req, len(entries))
+
+    def _admission_need(self, req: Request) -> int:
+        """Blocks to reserve for one admission: the worst case, less the
+        live prefix-cache hit depth under discounted admission (the
+        match is taken HERE, references and pins included, so the
+        discount is against entries that can no longer be evicted)."""
+        base = req.worst_case_blocks(self.block_size)
+        if not self._reserve_discount:
+            return base
+        entries, chain = self._prefix.match(req.prompt, count=False)
+        req.pre_matched = (entries, chain)
+        return max(0, base - len(entries))
+
+    def _admission_cancel(self, req: Request):
+        """A refused discounted admission: the request stays queued, so
+        the match's references (and pins) drop until the next try."""
+        if req.pre_matched is not None:
+            self._prefix.release(req.pre_matched[0])
+            req.pre_matched = None
+
     def _admit(self):
+        """Admit waiting requests.  The prefix-cache lookup picks each
+        one's prefill path: a request continuing from cached context,
+        or longer than ``prefill_chunk``, goes through the chunk path;
+        the rest prefill in same-bucket groups."""
         free = [s for s, r in enumerate(self._slots) if r is None]
         if not free:
             return
-        seated = []
-        for req in self.scheduler.pop_admissible(len(free)):
+        grouped = []
+        for req in self.scheduler.pop_admissible(
+                len(free), need_fn=self._admission_need,
+                cancel_fn=self._admission_cancel):
             slot = free.pop(0)
             req.slot = slot
             self._slots[slot] = req
-            seated.append((slot, req))
-        self._prefill_grouped(seated)
+            entries, chain = [], b""
+            if self._prefix is not None:
+                if req.pre_matched is not None:
+                    entries, chain = req.pre_matched
+                    req.pre_matched = None
+                    n_share = self._prefix.shareable_blocks(req.prompt)
+                    self._prefix.count_match(len(entries),
+                                             n_share - len(entries))
+                else:
+                    entries, chain = self._prefix.match(req.prompt)
+            long_prompt = (self.prefill_chunk is not None
+                           and len(req.prompt) > self.prefill_chunk)
+            if entries or long_prompt:
+                self._start_chunked(slot, req, entries, chain)
+            else:
+                grouped.append((slot, req))
+        self._prefill_grouped(grouped)
 
     def _prefill_grouped(self, seated: List):
         """Batched same-bucket prefill: ONE prefill per bucket group
@@ -343,7 +586,7 @@ class DecodeEngine:
             per_req_blocks = []
             for g, (slot, req) in enumerate(members):
                 nb = self._kv.blocks_for_tokens(len(req.prompt))
-                blocks = self._kv.allocator.allocate(nb)
+                blocks = self._alloc_blocks(nb)
                 blocks_arr[g, :nb] = blocks
                 per_req_blocks.append(blocks)
             write_prompt_pages_group(self._kv.pool, kv,
@@ -356,28 +599,93 @@ class DecodeEngine:
                            now)
 
     def _join(self, slot: int, tok_dev):
-        """Join a seated request into the device loop state (token and
-        done flag), out of place."""
-        tokens = self._tokens.clone()
-        tokens[slot] = tok_dev
-        done = self._done.clone()
-        done[slot] = False
-        self._tokens, self._done = tokens, done
+        """Join a seated request into the device loop state (its first
+        token and a cleared done flag), in place on the current stream:
+        earlier dispatches' LazyStacks hold copies."""
+        self._tokens[slot] = tok_dev
+        self._done[slot] = False
 
     def _seat(self, slot: int, req: Request, blocks: List[int], tok_dev,
               first_tok, now: float):
-        """Seat a prefilled request in the decode batch: page table,
-        sampling parameters, and the prefill-emitted first token."""
+        """Seat a fully prefilled request in the decode batch: page
+        table, sampling vectors, prefix-cache insertion of its full
+        prompt blocks, and the prefill-emitted first token."""
+        nb = len(blocks)
         req.blocks = list(blocks)
-        self._tables[slot, :] = SCRATCH_BLOCK
-        self._tables[slot, :len(blocks)] = blocks
+        start = req.n_prefix_blocks
+        self._tables[slot, start + nb:] = SCRATCH_BLOCK
+        self._tables[slot, start:start + nb] = blocks
         self._lengths[slot] = len(req.prompt)
-        self._temps[slot] = req.temperature
-        self._topks[slot] = req.top_k
-        self._topps[slot] = req.top_p
-        self._seeds[slot] = np.uint32(req.seed & 0xFFFFFFFF)
+        if self._prefix is not None:
+            self._cache_insert(req, start, req.prefix_chain,
+                               list(req.blocks))
+        req.prefilling = False
+        self._set_sampling(slot, req)
         self._join(slot, tok_dev)
         req.push_token(first_tok, now)
+        if req.max_tokens == 1:
+            self._finalize(slot)
+
+    def _start_chunked(self, slot: int, req: Request, entries, chain):
+        """Enter the chunk path: seat the prefix-cache hits in the page
+        table now (their K/V are in the pool already) and queue the rest
+        of the prompt for chunkwise prefill between decode dispatches."""
+        req.prefilling = True
+        req.prefix_entries = list(entries)
+        req.prefix_chain = chain
+        self._tables[slot, :] = SCRATCH_BLOCK
+        self._tables[slot, :len(entries)] = [e.block for e in entries]
+        self._lengths[slot] = 0            # joins decode at completion
+        self._prefill_jobs.append(
+            _PrefillJob(req, slot, chain, len(entries) * self.block_size,
+                        len(entries)))
+
+    def _advance_prefill(self):
+        """Run at most ONE chunk of the head prefill job: the fixed unit
+        of prefill work an engine step may spend, so a 32k prompt admits
+        over many steps while the decode batch keeps dispatching between
+        chunks."""
+        if not self._prefill_jobs:
+            return
+        job = self._prefill_jobs[0]
+        req, slot = job.req, job.slot
+        Lp = len(req.prompt)
+        remaining = Lp - job.done_tokens
+        take = min(remaining, self.prefill_chunk or remaining)
+        bs = self.block_size
+        # chunk starts are block-aligned (prefix hits and full chunks
+        # are block multiples), so the new-block count is exact
+        nb_new = -(-take // bs)
+        new_blocks = self._alloc_blocks(nb_new)
+        job.computed_blocks.extend(new_blocks)
+        req.blocks.extend(new_blocks)
+        have = req.n_prefix_blocks + len(req.blocks)
+        self._tables[slot, have - nb_new:have] = new_blocks
+        nb_ctx = max(1, job.done_tokens // bs)
+        ids = np.zeros((1, nb_new * bs), dtype=np.int32)
+        ids[0, :take] = req.prompt[job.done_tokens:job.done_tokens + take]
+        tok, _ = chunk_prefill_forward(
+            self._params, self._cfg, self._kv.pool,
+            self._stage(self._tables[slot:slot + 1, :nb_ctx]),
+            job.done_tokens, self._stage(ids), take,
+            self._stage(np.asarray(new_blocks, dtype=np.int32)),
+            req.temperature, req.top_k, req.top_p,
+            req.seed & 0xFFFFFFFF)
+        self._chunks += 1
+        job.done_tokens += take
+        if job.done_tokens < Lp:
+            return
+        # prompt complete: cache-insert its freshly computed full
+        # blocks, seat the slot in the decode batch, emit token 0
+        self._prefill_jobs.popleft()
+        if self._prefix is not None:
+            self._cache_insert(req, job.insert_from, job.chain,
+                               job.computed_blocks)
+        self._lengths[slot] = Lp
+        req.prefilling = False
+        self._set_sampling(slot, req)
+        self._join(slot, tok)
+        req.push_token(LazyScalar(tok), time.monotonic())
         if req.max_tokens == 1:
             self._finalize(slot)
 
@@ -390,14 +698,14 @@ class DecodeEngine:
             req = self._slots[s]
             if req.capped:
                 continue
-            have = len(req.blocks)
+            have = req.n_prefix_blocks + len(req.blocks)
             need = self._kv.blocks_for_tokens(int(self._lengths[s]) + 1)
             while have < need:
                 if have >= req.block_budget or \
                         have >= self.max_blocks_per_seq:
                     req.capped = True
                     break
-                blk = self._kv.allocator.allocate(1)[0]
+                blk = self._alloc_blocks(1)[0]
                 req.blocks.append(blk)
                 self._tables[s, have] = blk
                 have += 1
@@ -405,11 +713,34 @@ class DecodeEngine:
     # -- completion ----------------------------------------------------------
     def _poll_done(self):
         """THE periodic sync: fetch the ``[B]`` device done mask so
-        EOS'd requests free their slot and pages."""
+        EOS'd requests free their slot and pages.  A chunk-prefilling
+        slot has not joined the loop yet: its flag is its
+        predecessor's."""
         done = self._done.cpu().numpy()
         for s, req in enumerate(self._slots):
-            if req is not None and bool(done[s]):
+            if req is not None and bool(done[s]) and not req.prefilling:
                 self._finalize(s)
+
+    def _release_slot(self, slot: int, req: Request):
+        """Give back a leaving request's reservation, blocks, prefix
+        references and slot state."""
+        self.scheduler.finish(req)
+        if req.blocks:
+            self._kv.allocator.free(req.blocks)
+            req.blocks = []
+        if req.prefix_entries:
+            # shared blocks stay cached (idle, warm for the next hit);
+            # only the live reference drops
+            self._prefix.release(req.prefix_entries)
+            req.prefix_entries = []
+        self._slots[slot] = None
+        self._lengths[slot] = 0
+        self._tables[slot, :] = SCRATCH_BLOCK
+        self._temps[slot] = 0.0
+        self._topks[slot] = 0
+        self._topps[slot] = 1.0
+        self._seeds[slot] = 0
+        self._samp_stale = True
 
     def _finalize(self, slot: int):
         """Resolve a leaving request: reading its lazy tokens is the
@@ -420,17 +751,7 @@ class DecodeEngine:
             toks = toks[:toks.index(self.eos_id) + 1]
         req.stats.finished = time.monotonic()
         req.stats.generated = len(toks)
-        self.scheduler.finish(req)
-        if req.blocks:
-            self._kv.allocator.free(req.blocks)
-            req.blocks = []
-        self._slots[slot] = None
-        self._lengths[slot] = 0
-        self._tables[slot, :] = SCRATCH_BLOCK
-        self._temps[slot] = 0.0
-        self._topks[slot] = 0
-        self._topps[slot] = 1.0
-        self._seeds[slot] = 0
+        self._release_slot(slot, req)
         self._total_tokens += len(toks)
         self._latency.append(req.stats.latency)
         if req.stats.ttft is not None:
@@ -440,37 +761,47 @@ class DecodeEngine:
     def release_all(self, exc: Exception):
         """Fail every in-flight and queued request with ``exc`` and
         release its pool state (server teardown path)."""
+        self._prefill_jobs.clear()
         for s, req in enumerate(self._slots):
             if req is None:
                 continue
-            self.scheduler.finish(req)
-            if req.blocks:
-                self._kv.allocator.free(req.blocks)
-                req.blocks = []
-            self._lengths[s] = 0
-            self._tables[s, :] = SCRATCH_BLOCK
-            self._slots[s] = None
+            self._release_slot(s, req)
             if not req.future.done():
                 req.future.set_exception(exc)
         for req in self.scheduler.drain_waiting():
             if not req.future.done():
                 req.future.set_exception(exc)
 
+    def release_graphs(self):
+        """Free the captured decode steps (the next dispatch of each
+        variant captures it again)."""
+        for step in self._steps.values():
+            step.close()
+        self._steps.clear()
+
     # -- warmup / stats ------------------------------------------------------
     def warmup(self, prompt_lengths: Optional[Sequence[int]] = None
                ) -> Dict[str, object]:
-        """Run every prefill bucket the given prompt lengths touch
-        (default: all) and one all-inactive decode dispatch before
-        traffic: loads the kernels (building them on first use), the
-        BLAS handles and the allocator's pools.  Writes land in the
-        scratch block.  The one engine method that waits for the
-        device; returns wall times."""
+        """Before traffic: run both decode variants on an all-inactive
+        batch, which on the card captures them, then every prefill
+        bucket the given prompt lengths touch (default: all), so the
+        caching allocator is warm again after the captures emptied it.
+        Loads the kernels (building them on first use) and the BLAS
+        handles; writes land in the scratch block.  The one engine
+        method that waits for the device; returns wall times."""
+        if self.active_count or self._prefill_jobs:
+            raise RuntimeError("warmup() runs before traffic: requests "
+                               "are in flight")
         t0 = time.monotonic()
         buckets = (sorted({shape_bucket(int(n), self._buckets)
                            for n in prompt_lengths})
                    if prompt_lengths else list(self._buckets))
         per_bucket = {}
         with torch.no_grad():
+            for mixed in (False, True):
+                self._decode_dispatch(mixed)
+            self._sync()
+            decode_s = time.monotonic() - t0
             for b in buckets:
                 tb = time.monotonic()
                 kv, tok, _ = prefill_group_forward(
@@ -483,14 +814,9 @@ class DecodeEngine:
                                         SCRATCH_BLOCK, dtype=np.int32)))
                 self._sync()
                 per_bucket[b] = time.monotonic() - tb
-            td = time.monotonic()
-            self._join(0, torch.zeros((), dtype=torch.int32,
-                                      device=self._device))
-            self._tokens, self._done = self._decode_dispatch()
-            self._sync()
-        return {"warmup_s": time.monotonic() - t0,
-                "decode_s": time.monotonic() - td,
-                "prefill_bucket_s": per_bucket, "buckets": buckets}
+        return {"warmup_s": time.monotonic() - t0, "decode_s": decode_s,
+                "prefill_bucket_s": per_bucket, "buckets": buckets,
+                **self.compile_stats()}
 
     def _sync(self):
         if self._device.type == "cuda":
@@ -500,22 +826,42 @@ class DecodeEngine:
     def active_count(self) -> int:
         return sum(1 for r in self._slots if r is not None)
 
+    def compile_stats(self) -> Dict[str, int]:
+        """Capture pin (the JAX engine's ``decode_traces``): at most one
+        capture per decode variant, whatever the join/leave pattern; 0
+        on the CPU, where the body runs eagerly."""
+        return {"decode_captures": sum(s.captures
+                                       for s in self._steps.values())}
+
     def stats(self) -> Dict[str, object]:
         """Host-clock serving stats.  ``intertoken`` is the host gap
         between consecutive decode dispatches of a non-empty batch;
         dispatch is asynchronous, so it reads the device's pace only
-        once the launch queue is full."""
-        return {"active": self.active_count,
-                "role": self.role,
-                "queue_depth": self.scheduler.queue_depth,
-                "dispatches": self._dispatches,
-                "total_tokens": self._total_tokens,
-                "completed": len(self._latency),
-                "done_poll_interval": self.done_poll_interval,
-                "latency_p50_s": _percentile(self._latency, 50),
-                "latency_p99_s": _percentile(self._latency, 99),
-                "ttft_p50_s": _percentile(self._ttft, 50),
-                "ttft_p99_s": _percentile(self._ttft, 99),
-                "intertoken_p50_s": _percentile(self._intertoken, 50),
-                "intertoken_p99_s": _percentile(self._intertoken, 99),
-                "kv": self._kv.allocator.stats()}
+        once the launch queue is full.  ``dispatch_host_us`` is the host
+        time of a dispatch (page growth, staging, the replay's launch,
+        the per-slot bookkeeping; finalizes and polls apart)."""
+        st = {"active": self.active_count,
+              "role": self.role,
+              "queue_depth": self.scheduler.queue_depth,
+              "dispatches": self._dispatches,
+              "total_tokens": self._total_tokens,
+              "completed": len(self._latency),
+              "done_poll_interval": self.done_poll_interval,
+              "prefill_chunk": self.prefill_chunk,
+              "prefill_chunks": self._chunks,
+              "latency_p50_s": _percentile(self._latency, 50),
+              "latency_p99_s": _percentile(self._latency, 99),
+              "ttft_p50_s": _percentile(self._ttft, 50),
+              "ttft_p99_s": _percentile(self._ttft, 99),
+              "intertoken_p50_s": _percentile(self._intertoken, 50),
+              "intertoken_p99_s": _percentile(self._intertoken, 99),
+              "dispatch_host_us_p50": (
+                  None if not self._dispatch_host else
+                  _percentile(self._dispatch_host, 50) * 1e6),
+              "decode_capture_s": {("mixed" if m else "greedy"): s.capture_s
+                                   for m, s in self._steps.items()},
+              "kv": self._kv.allocator.stats()}
+        if self._prefix is not None:
+            st["prefix_cache"] = self._prefix.stats()
+        st.update(self.compile_stats())
+        return st

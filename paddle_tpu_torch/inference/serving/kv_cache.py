@@ -9,7 +9,8 @@ requests joining and leaving the batch never change a shape.
 - ``BlockAllocator`` (host): free list, best-fit contiguous
   allocation, and the worst-case *reservation* accounting that
   admission control uses so an admitted request can never run the
-  pool dry mid-decode.
+  pool dry mid-decode, with the *pins* of prefix-cache blocks that no
+  reservation covers (``prefix_cache.py``).
 - ``PagedKVCache``: owns the pool tensor on the engine's device.
 - pool ops (``write_prompt_pages(_group)``, ``paged_append``,
   ``gather_pages``).  Unlike the JAX package, which donates the pool
@@ -45,7 +46,11 @@ class BlockAllocator:
     (best fit), else scattered lowest-index-first blocks.
     ``reserve``/``release`` account every admitted request's worst-case
     need without allocating; ``allocate`` then draws lazily and cannot
-    fail for a request that holds a reservation.
+    fail for a request that holds a reservation.  ``pin``/``unpin``
+    count blocks that are occupied, un-evictable and covered by no
+    reservation (prefix-cache blocks live requests reference under
+    reservation-discounted admission); admission keeps ``reserved +
+    pinned <= capacity``.
     """
 
     def __init__(self, num_blocks: int):
@@ -55,13 +60,18 @@ class BlockAllocator:
         self._allocated: set = set()
         self.capacity = num_blocks - 1
         self._reserved = 0
+        self._pinned = 0
 
     @property
     def reserved(self) -> int:
         return self._reserved
 
+    @property
+    def pinned(self) -> int:
+        return self._pinned
+
     def can_reserve(self, n: int) -> bool:
-        return self._reserved + int(n) <= self.capacity
+        return self._reserved + self._pinned + int(n) <= self.capacity
 
     def reserve(self, n: int) -> bool:
         if not self.can_reserve(n):
@@ -73,6 +83,16 @@ class BlockAllocator:
         if int(n) > self._reserved:
             raise ValueError("release() without matching reserve()")
         self._reserved -= int(n)
+
+    def pin(self, n: int = 1):
+        """Count ``n`` occupied blocks that no reservation covers into
+        the admission envelope."""
+        self._pinned += int(n)
+
+    def unpin(self, n: int = 1):
+        if int(n) > self._pinned:
+            raise ValueError("unpin() without matching pin()")
+        self._pinned -= int(n)
 
     @property
     def num_free(self) -> int:
@@ -130,6 +150,7 @@ class BlockAllocator:
             "free": free,
             "allocated": len(self._allocated),
             "reserved": self._reserved,
+            "pinned": self._pinned,
             "free_runs": len(runs),
             "largest_run": largest,
             # 0.0 = one contiguous run (or empty), -> 1.0 = scattered

@@ -67,6 +67,46 @@ def ragged_decode_attention(q, k, v, lengths, scale=None):
     return out.to(orig)
 
 
+def chunked_prefill_attention(q, k_ctx, v_ctx, ctx_len, k_chunk, v_chunk,
+                              scale=None):
+    """Attention of one prefill *chunk* against the cached context plus
+    itself.
+
+    ``q``/``k_chunk``/``v_chunk`` ``[B, C, H, Dh]``: the chunk's
+    projections; ``k_ctx``/``v_ctx`` ``[B, T, H, Dh]``: the page gather
+    of what the cache holds already (prefix-cache hits, earlier
+    chunks), padded to ``T``; ``ctx_len`` (int): the real context
+    extent.  Chunk row ``i`` (position ``ctx_len + i``) attends every
+    valid context position and chunk positions ``j <= i``: the rows a
+    whole-prompt causal prefill computes for those positions, in the
+    same masked-softmax arithmetic (exact zeros, f32 statistics), so a
+    chunk boundary changes only the order of the sums.  Returns ``[B,
+    C, H, Dh]`` in ``q``'s dtype.  No TPU kernel computes this: it is
+    composed in both packages.
+    """
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    orig = q.dtype
+    C, T = q.shape[1], k_ctx.shape[1]
+    dev = q.device
+    kf = torch.cat([k_ctx, k_chunk], dim=1).float()
+    # [B, H, C, T + C], worked on in place: at a 32k context in 1k
+    # chunks it is the largest tensor of the prefill
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * scale
+    del kf
+    cols = torch.arange(T + C, device=dev)[None, :]
+    rows = torch.arange(C, device=dev)[:, None]
+    invalid = torch.where(cols < T, cols >= int(ctx_len),
+                          cols - T > rows)                # [C, T + C]
+    logits.masked_fill_(invalid, MASK_VALUE)
+    m = logits.amax(dim=-1, keepdim=True)
+    w = logits.sub_(m).exp_().masked_fill_(invalid, 0.0)
+    denom = w.sum(dim=-1, keepdim=True).clamp_min(DENOM_TINY)
+    vf = torch.cat([v_ctx, v_chunk], dim=1).float()
+    out = torch.einsum("bhqk,bkhd->bqhd", w.div_(denom), vf)
+    return out.to(orig)
+
+
 def causal_prefill_attention(q, k, v, scale=None):
     """Dense causal attention for the prefill pass.
 

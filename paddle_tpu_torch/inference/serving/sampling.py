@@ -5,17 +5,25 @@
 package, so greedy tokens compare across the two packages.  Sampled
 rows are Gumbel-max over the same top-k / top-p filter: ``argmax(
 logits/T + G)`` is a categorical draw from ``softmax(logits/T)``
-restricted to the kept support.  The noise comes from a
-``torch.Generator`` (Philox on the card) seeded as a pure function of
-the request's ``(seed, position)``, where ``position`` is the sequence
-index of the token being sampled, never of its batch slot or its
-neighbours.  So the same seed gives the same tokens, alone or inside a
-churning batch.  The JAX package's noise (threefry ``fold_in``) cannot
-be reproduced in torch: sampled tokens compare only within the port.
+restricted to the kept support.
 
-The per-row sampling parameters arrive as host arrays: the engine
-holds them on the host already, so choosing the all-greedy fast path
-and seeding the generators costs no device sync.
+The noise is a counter-based hash of ``(seed, position, vocab index)``
+in torch integer ops (:func:`gumbel_noise`), where ``position`` is the
+sequence index of the token being sampled, never its batch slot or its
+neighbours: the counterpart of the JAX package's ``fold_in(PRNGKey(
+seed), position)``.  So the same seed gives the same tokens, alone or
+inside a churning batch, and the draw is a function of device tensors
+that a captured decode step holds in its graph.  The hash's bits are
+the same on every device (each product stays below 2**49 in int64); its
+Gumbel transform runs in float64 and rounds to float32 once.  The JAX
+package's noise (threefry) is not reproduced: sampled tokens compare
+only within the port.
+
+:func:`sample_tokens` takes ``[B]`` tensors on the logits' device and
+has no host branch.  :func:`sample_tokens_host` takes host sequences
+(the eager prefill paths) and skips the filters and the noise when no
+row samples, as the JAX package's ``lax.cond`` on ``any(temperature >
+0)`` does.
 """
 
 from __future__ import annotations
@@ -29,52 +37,63 @@ from .ragged_attention import MASK_VALUE
 #: divides by zero and top_p==0 degenerates to the top token
 _EPS = 1e-6
 
-
-_MASK64 = (1 << 64) - 1
-
-
-def _mix(seed: int, position: int) -> int:
-    """splitmix64 of ``(seed, position)``: every bit of the generator
-    seed depends on both (the CPU generator keeps only 32 of them)."""
-    z = (((int(seed) & 0xFFFFFFFF) << 32 | (int(position) & 0xFFFFFFFF))
-         + 0x9E3779B97F4A7C15) & _MASK64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return z ^ (z >> 31)
+_M32 = 0xFFFFFFFF
 
 
-def _gumbel(seed: int, position: int, vocab: int, device) -> torch.Tensor:
-    gen = torch.Generator(device=device)
-    gen.manual_seed(_mix(seed, position))
-    u = torch.rand(vocab, generator=gen, device=device,
-                   dtype=torch.float32)
-    return -torch.log(-torch.log(u.clamp_min(1e-20)))
+def _mul32(x, c: int):
+    """``(x * c) mod 2**32`` for int64 ``x`` in ``[0, 2**32)`` and a
+    32-bit constant ``c``, through the 16-bit halves of ``c``: no
+    intermediate reaches 2**49, so int64 never overflows."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
 
 
-def sample_tokens(logits, temperature, top_k, top_p, seed, position):
-    """``[B, V]`` logits → ``[B]`` int32 token ids on ``logits``'s
-    device.
+def _fmix32(x):
+    """murmur3's 32-bit finaliser on int64 values in ``[0, 2**32)``."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
 
-    ``temperature``, ``top_k``, ``top_p``, ``seed``, ``position``:
-    host sequences of length ``B`` (0 temperature = greedy; top_k <= 0
-    and top_p >= 1 switch their filter off).
+
+def noise_bits(seed, position, vocab: int):
+    """``[B]`` seeds (uint32 values) and ``[B]`` positions → ``[B,
+    vocab]`` int64 hashes in ``[0, 2**32)``: a row key from ``(seed,
+    position)``, then each vocabulary index mixed into it."""
+    s = seed.to(torch.int64) & _M32
+    p = position.to(torch.int64) & _M32
+    row = _fmix32(_fmix32(s ^ 0x9E3779B9) ^ p)
+    col = torch.arange(vocab, dtype=torch.int64, device=seed.device)
+    return _fmix32(row[:, None] ^ _mul32(col, 0x27D4EB2F)[None])
+
+
+def gumbel_noise(seed, position, vocab: int) -> torch.Tensor:
+    """``[B, vocab]`` float32 Gumbel noise of :func:`noise_bits`: the
+    uniform ``((h >> 8) + 0.5) * 2**-24`` (never 0 or 1), then
+    ``-log(-log(u))`` in float64, rounded once."""
+    h = noise_bits(seed, position, vocab)
+    u = ((h >> 8).to(torch.float64) + 0.5) * 2.0 ** -24
+    return (-torch.log(-torch.log(u))).to(torch.float32)
+
+
+def sample_tokens(logits, temperature, top_k, top_p, seed, position,
+                  noise=None):
+    """``[B, V]`` logits → ``[B]`` int32 token ids.
+
+    ``temperature`` (0 = greedy), ``top_k`` (<= 0 off), ``top_p`` (>= 1
+    off), ``seed`` (uint32 values) and ``position`` (the sampled token's
+    sequence index): ``[B]`` tensors on the logits' device.  ``noise``
+    (``[B, V]`` float32) replaces :func:`gumbel_noise` (the tests inject
+    the JAX package's).  Every row runs the filters; greedy rows then
+    take the argmax.
     """
-    temperature = np.asarray(temperature, dtype=np.float32)
-    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
-    if not (temperature > 0.0).any():
-        return greedy
-    dev = logits.device
     B, V = logits.shape
-    temp_t = torch.as_tensor(temperature, device=dev)
-    topk = torch.as_tensor(np.asarray(top_k, dtype=np.int64), device=dev)
-    topp_np = np.asarray(top_p, dtype=np.float32)
-    topp = torch.as_tensor(topp_np, device=dev)
-
-    scaled = logits.float() / temp_t.clamp_min(_EPS)[:, None]
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    scaled = logits.float() / temperature.float().clamp_min(_EPS)[:, None]
     # top-k: kth-largest threshold per row; k <= 0 disables
     sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
-    k = topk.clamp(1, V)
-    kth = torch.gather(sorted_desc, 1, (k - 1)[:, None])
+    topk = top_k.to(torch.int64)
+    kth = torch.gather(sorted_desc, 1, (topk.clamp(1, V) - 1)[:, None])
     keep = (topk <= 0)[:, None] | (scaled >= kth)
     filtered = torch.where(keep, scaled, MASK_VALUE)
     # top-p over the post-top-k distribution: keep a token when the
@@ -82,15 +101,33 @@ def sample_tokens(logits, temperature, top_k, top_p, seed, position):
     probs = torch.softmax(filtered, dim=-1)
     p_desc = torch.sort(probs, dim=-1, descending=True).values
     csum = torch.cumsum(p_desc, dim=-1)
-    p = topp.clamp(_EPS, 1.0)[:, None]
+    p = top_p.float().clamp(_EPS, 1.0)[:, None]
     in_nucleus = (csum - p_desc) < p
     cutoff = torch.where(in_nucleus, p_desc, torch.inf).amin(
         dim=-1, keepdim=True)
-    keep_p = (topp >= 1.0)[:, None] | (probs >= cutoff)
+    keep_p = (top_p >= 1.0)[:, None] | (probs >= cutoff)
     filtered = torch.where(keep_p, filtered, MASK_VALUE)
+    if noise is None:
+        noise = gumbel_noise(seed, position, V)
+    sampled = torch.argmax(filtered + noise, dim=-1).to(torch.int32)
+    return torch.where(temperature > 0.0, sampled, greedy)
 
-    g = torch.zeros((B, V), dtype=torch.float32, device=dev)
-    for b in np.nonzero(temperature > 0.0)[0]:
-        g[b] = _gumbel(np.asarray(seed)[b], np.asarray(position)[b], V, dev)
-    sampled = torch.argmax(filtered + g, dim=-1).to(torch.int32)
-    return torch.where(temp_t > 0.0, sampled, greedy)
+
+def sample_tokens_host(logits, temperature, top_k, top_p, seed,
+                       position):
+    """:func:`sample_tokens` with host sequences of length ``B``: an
+    all-greedy batch takes the argmax alone; otherwise the vectors are
+    staged to the logits' device (from private copies, without waiting
+    for the device)."""
+    temperature = np.asarray(temperature, dtype=np.float32)
+    if not (temperature > 0.0).any():
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+
+    def stage(x, dtype):
+        return torch.from_numpy(np.array(x, dtype=dtype)).to(
+            logits.device, non_blocking=True)
+
+    return sample_tokens(logits, stage(temperature, np.float32),
+                         stage(top_k, np.int64), stage(top_p, np.float32),
+                         stage(np.asarray(seed, np.int64) & _M32, np.int64),
+                         stage(position, np.int64))

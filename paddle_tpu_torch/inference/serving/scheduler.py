@@ -1,6 +1,6 @@
 """Continuous-batching scheduler: request queue + admission control
 (counterpart of ``paddle_tpu/inference/serving/scheduler.py``; host
-code, copied without the prefix-cache and phase-role hooks).
+code, copied without the phase-role and speculative hooks).
 
 - ``submit`` enqueues up to ``max_queue`` waiting requests and beyond
   that REJECTS (:class:`QueueFull`), so callers see backpressure.
@@ -10,6 +10,9 @@ code, copied without the prefix-cache and phase-role hooks).
   request can never fail a mid-decode block allocation.
 - FCFS order is strict: a large request at the head blocks smaller
   ones behind it.
+- The engine may override the reservation (``need_fn``: the worst case
+  less the live prefix-cache hits under discounted admission) and
+  release side state when it is refused (``cancel_fn``).
 
 ``submit`` may be called from any thread; ``pop_admissible`` runs only
 on the engine thread.  One lock guards the deque.
@@ -105,11 +108,24 @@ class Request:
         self.stats.submitted = time.monotonic()
         # engine-side state
         self.slot: Optional[int] = None
-        self.blocks: List[int] = []     # pool blocks owned
-        self.reserved_blocks = 0        # admission accounting
-        self.block_budget = 0           # page-table growth cap
+        self.blocks: List[int] = []     # exclusively-owned pool blocks
+        self.prefix_entries: list = []  # PrefixCache refs (shared)
+        self.prefilling = False         # chunk prefill still running
+        self.prefix_chain = b""         # chain hash at the cache match
+        self.pre_matched = None         # discounted admission's match
+        # reserved_blocks is admission ACCOUNTING (released at finish,
+        # shrunk by discounted-mode cache inserts); block_budget is the
+        # page-table growth CAP (always the worst case)
+        self.reserved_blocks = 0
+        self.block_budget = 0
         self.lazy_tokens: list = []     # per-step lazy device views
         self.capped = False             # page growth stopped (done-lag)
+
+    @property
+    def n_prefix_blocks(self) -> int:
+        """Table entries borrowed from the prefix cache (shared,
+        cache-owned; the request holds one reference each)."""
+        return len(self.prefix_entries)
 
     def worst_case_blocks(self, block_size: int) -> int:
         # prompt positions + one cache write per decode dispatch (the
@@ -164,24 +180,46 @@ class Scheduler:
         with self._lock:
             return len(self._waiting)
 
-    def pop_admissible(self, free_slots: int) -> List[Request]:
+    def pop_admissible(self, free_slots: int,
+                       need_fn: Optional[Callable] = None,
+                       cancel_fn: Optional[Callable] = None
+                       ) -> List[Request]:
         """Admit FCFS-head requests while slots and block reservations
-        allow; reservations are taken here, released at finish."""
+        allow; reservations are taken here, released at finish.
+
+        ``need_fn(req) -> int`` overrides the worst-case reservation
+        (reservation-discounted admission: the worst case less the live
+        prefix-cache hits); it may take side state (prefix references),
+        which ``cancel_fn(req)`` releases when the reservation is
+        refused and the request stays queued.  ``block_budget`` is
+        always the undiscounted worst case."""
         admitted: List[Request] = []
         now = time.monotonic()
         with self._lock:
             while free_slots > 0 and self._waiting:
                 req = self._waiting[0]
-                need = req.worst_case_blocks(self.block_size)
+                need = (need_fn(req) if need_fn is not None
+                        else req.worst_case_blocks(self.block_size))
                 if not self.allocator.reserve(need):
+                    if cancel_fn is not None:
+                        cancel_fn(req)
                     break           # strict FCFS: no head-of-line skip
                 self._waiting.popleft()
                 req.reserved_blocks = need
-                req.block_budget = need
+                req.block_budget = req.worst_case_blocks(self.block_size)
                 req.stats.admitted = now
                 admitted.append(req)
                 free_slots -= 1
         return admitted
+
+    def release_partial(self, req: Request, n: int):
+        """Shrink a live request's reservation by ``n`` blocks (blocks
+        whose ownership moved to the prefix cache are counted by the
+        allocator's pin from then on)."""
+        n = min(int(n), req.reserved_blocks)
+        if n > 0:
+            self.allocator.release(n)
+            req.reserved_blocks -= n
 
     def drain_waiting(self) -> List[Request]:
         """Remove and return every waiting request (teardown path)."""

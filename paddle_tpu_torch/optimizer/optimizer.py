@@ -24,7 +24,10 @@ dtype, in place.  ``steps`` in each state and ``_global_step`` are host
 bookkeeping, which the fold engine advances by the number of replays.
 With ``multi_precision``, a bf16/fp16 parameter keeps an fp32 master
 copy in its state: the update runs on the master and the parameter
-receives its rounding.
+receives its rounding.  Without one, ``Adam``/``AdamW`` still keep its
+moments in fp32, as the JAX package does: the update (decoupled decay
+included) runs on an fp32 copy of the value, which is rounded back
+into the parameter once (``Adam._moments_low``).
 """
 
 from __future__ import annotations
@@ -51,16 +54,16 @@ class Optimizer:
         if not isinstance(learning_rate, (int, float)):
             raise NotImplementedError(
                 "learning-rate schedulers are not ported yet (ROADMAP "
-                "queue A, item 6: optimizer/lr.py); pass a float")
+                "queue A, item 8: optimizer/lr.py); pass a float")
         if grad_clip is not None:
             raise NotImplementedError(
-                "grad_clip is not ported yet (ROADMAP queue A, item 6: "
+                "grad_clip is not ported yet (ROADMAP queue A, item 8: "
                 "nn/clip_grad.py)")
         if weight_decay is not None and not isinstance(weight_decay,
                                                        (int, float)):
             raise NotImplementedError(
                 "regularizer objects (L1Decay/L2Decay) are not ported yet "
-                "(ROADMAP queue A, item 6); pass a float")
+                "(ROADMAP queue A, item 8); pass a float")
         self._parameter_list = list(parameters)
         self._learning_rate = float(learning_rate)
         self._weight_decay = float(weight_decay or 0.0)
@@ -171,14 +174,15 @@ class Adam(Optimizer):
         if lazy_mode or amsgrad:
             raise NotImplementedError(
                 "Adam lazy_mode/amsgrad are not ported yet (ROADMAP queue "
-                "A, item 6)")
+                "A, item 8)")
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
         self._decoupled = False
 
     def _init_state(self, value):
         one = torch.ones((), dtype=torch.float32, device=value.device)
-        return {"moment1": torch.zeros_like(value),
-                "moment2": torch.zeros_like(value),
+        acc = torch.float32 if value.dtype in _LOW else value.dtype
+        return {"moment1": torch.zeros_like(value, dtype=acc),
+                "moment2": torch.zeros_like(value, dtype=acc),
                 "beta1_pow": one, "beta2_pow": one.clone()}
 
     def _scalars(self, states, lr):
@@ -199,27 +203,61 @@ class Adam(Optimizer):
         lr_t, eps_t, lr_decay = self._scalars(states, lr)
         m1 = [st["moment1"] for st in states]
         m2 = [st["moment2"] for st in states]
-        if self._weight_decay and not self._decoupled:
-            grads = torch._foreach_add(grads, works,
-                                       alpha=self._weight_decay)
-        torch._foreach_mul_(m1, b1)
-        torch._foreach_add_(m1, grads, alpha=1 - b1)
-        torch._foreach_mul_(m2, b2)
-        torch._foreach_addcmul_(m2, grads, grads, value=1 - b2)
+        low = works[0].dtype in _LOW
+        if low:
+            self._moments_low(works, grads, m1, m2)
+            wide = [w.float() for w in works]
+        else:
+            if self._weight_decay and not self._decoupled:
+                grads = torch._foreach_add(grads, works,
+                                           alpha=self._weight_decay)
+            torch._foreach_mul_(m1, b1)
+            torch._foreach_add_(m1, grads, alpha=1 - b1)
+            torch._foreach_mul_(m2, b2)
+            torch._foreach_addcmul_(m2, grads, grads, value=1 - b2)
+            wide = works
         # the 0-d tensor scalars go through the foreach ops' Tensor
         # overloads by name: bound to a Scalar overload (which Python
         # picks for ``_foreach_add_(tensors, t)``), a 0-d tensor is read
         # with ``.item()``, a host sync that a CUDA graph refuses
-        decayed = (_aten._foreach_mul.Tensor(works, lr_decay)
-                   if self._weight_decay and self._decoupled else None)
+        decayed = None
+        if self._weight_decay and self._decoupled:
+            # a 16-bit value's decay product is rounded in its dtype, as
+            # the reference's weakly typed ``lr * decay * value`` is
+            scale = lr_decay.to(works[0].dtype) if low else lr_decay
+            decayed = _aten._foreach_mul.Tensor(works, scale)
         denom = torch._foreach_sqrt(m2)
         _aten._foreach_add_.Tensor(denom, eps_t)
         upd = torch._foreach_div(m1, denom)
         del denom
         _aten._foreach_mul_.Tensor(upd, lr_t)
-        torch._foreach_sub_(works, upd)
+        torch._foreach_sub_(wide, upd)
         if decayed is not None:
-            torch._foreach_sub_(works, decayed)
+            torch._foreach_sub_(wide, decayed)
+        if low:
+            torch._foreach_copy_(works, wide)
+
+    def _moments_low(self, works, grads, m1, m2):
+        """The fp32 moments of a 16-bit value that has no fp32 master,
+        in the JAX package's dtypes: its Python-float factors multiply
+        the 16-bit gradient in that dtype (each product rounded there),
+        and the moments add it in fp32.  The value's step then runs on
+        an fp32 copy, which the caller rounds into the value once."""
+        dt = works[0].dtype
+
+        def rounded(x):
+            return float(torch.tensor(x, dtype=dt))
+
+        if self._weight_decay and not self._decoupled:
+            grads = torch._foreach_add(
+                grads, torch._foreach_mul(works, rounded(self._weight_decay)))
+        g1 = torch._foreach_mul(grads, rounded(1 - self._beta1))
+        g2 = torch._foreach_mul(torch._foreach_mul(grads, grads),
+                                rounded(1 - self._beta2))
+        torch._foreach_mul_(m1, self._beta1)
+        torch._foreach_add_(m1, [g.float() for g in g1])
+        torch._foreach_mul_(m2, self._beta2)
+        torch._foreach_add_(m2, [g.float() for g in g2])
 
 
 class AdamW(Adam):
@@ -234,7 +272,7 @@ class AdamW(Adam):
         if lr_ratio is not None or apply_decay_param_fun is not None:
             raise NotImplementedError(
                 "AdamW lr_ratio/apply_decay_param_fun are not ported yet "
-                "(ROADMAP queue A, item 6)")
+                "(ROADMAP queue A, item 8)")
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          float(weight_decay) if weight_decay else 0.0,
                          grad_clip, lazy_mode, multi_precision, name,

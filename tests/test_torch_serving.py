@@ -6,8 +6,9 @@ the CPU.  Tolerances: 2e-6 for the attention functions (the reference's
 own bound between its paths), 1e-5 on logits of the whole forward
 (float32 matmuls reassociated by two libraries over a 2-layer model),
 exact equality for greedy tokens, page contents and allocator state.
-Sampled tokens cannot compare across packages (threefry vs Philox), so
-the seeded-sampling contract is pinned within the port.
+Sampled tokens cannot compare across packages (threefry against the
+port's hashed noise), so the seeded-sampling contract is pinned within
+the port.
 """
 
 import numpy as np
@@ -327,6 +328,16 @@ def test_seeded_sampling_deterministic_within_the_port(tiny):
     assert ref.tolist() == a[1]
     greedy = run(2, [0, 0, 0, 0])
     assert greedy != a                   # sampling actually sampled
+    # the stream itself: request 1's first draw (seed 2, position 13)
+    # takes this noise, a hash of (seed, position, index) in int64 ops
+    from paddle_tpu_torch.inference.serving.sampling import (gumbel_noise,
+                                                             noise_bits)
+    seed, pos = torch.tensor([2]), torch.tensor([len(prompts[1])])
+    assert noise_bits(seed, pos, 4).tolist() == [
+        [1376548126, 1082662308, 3387374688, 778335234]]
+    assert [float(x).hex() for x in gumbel_noise(seed, pos, 4)[0]] == [
+        "-0x1.0881ac0000000p-3", "-0x1.4858080000000p-2",
+        "0x1.7024740000000p+0", "-0x1.1219120000000p-1"]
 
 
 def test_llm_server_pump_thread_and_streaming(tiny):
@@ -359,8 +370,7 @@ def test_llm_server_pump_thread_and_streaming(tiny):
 
 def test_deferred_features_raise(tiny):
     net, cfg, jparams, tparams, scfg = tiny
-    for kw in (dict(prefill_chunk=16), dict(prefix_cache=True),
-               dict(role="decode"), dict(spec_k=2),
+    for kw in (dict(role="decode"), dict(spec_k=2),
                dict(draft_params=tparams), dict(done_poll_interval=None)):
         with pytest.raises(NotImplementedError):
             _engine(tparams, cfg, **kw)

@@ -369,6 +369,41 @@ def test_beta_powers_are_device_scalars_matching_jax(opt_name, kw):
     np.testing.assert_allclose(tw.detach().numpy(),
                                np.asarray(jlin.weight.numpy()),
                                rtol=1e-6, atol=1e-6)
+    _bf16_without_master_matches_jax(opt_name, kw)
+
+
+def _bf16_without_master_matches_jax(opt_name, kw):
+    """A bf16 64x64 weight with no fp32 master, 20 steps on identical bf16
+    gradients: the moments are fp32, as the JAX package keeps them, and
+    the update rounds into the weight once.  Judged by the share of
+    weights equal to the reference's: a tolerance cannot see a rounding
+    fault, which moves a weight by one bf16 ulp."""
+    from paddle_tpu.tensor import Parameter as JParameter
+    rng = np.random.default_rng(5)
+    w0 = rng.standard_normal((64, 64)).astype(np.float32)
+    jw = JParameter(w0.copy())
+    jw._value = jw._value.astype("bfloat16")
+    jopt = getattr(joptimizer, opt_name)(learning_rate=1e-3,
+                                         parameters=[jw], **kw)
+    tw = torch.nn.Parameter(torch.from_numpy(w0).to(torch.bfloat16))
+    topt = getattr(tpaddle.optimizer, opt_name)(learning_rate=1e-3,
+                                                parameters=[tw], **kw)
+    for _ in range(20):
+        g = rng.standard_normal((64, 64)).astype(np.float32)
+        jw.grad = jpaddle.to_tensor(g).astype("bfloat16")
+        jopt.step()
+        tw.grad = torch.from_numpy(g).to(torch.bfloat16)
+        topt.step()
+    st = topt._state[0]
+    assert "master_weight" not in st and tw.dtype == torch.bfloat16
+    assert st["moment1"].dtype == st["moment2"].dtype == torch.float32
+    jst = next(iter(jopt._state.values()))
+    assert str(jst["moment1"].dtype) == "float32"
+    ref = np.asarray(jw._value.astype("float32"))
+    same = float((tw.detach().float().numpy() == ref).mean())
+    assert same >= 0.99, same
+    np.testing.assert_allclose(st["moment2"].numpy(),
+                               np.asarray(jst["moment2"]), rtol=1e-6)
 
 
 def test_learning_rate_is_a_device_scalar_refreshed_once_it_changes():
