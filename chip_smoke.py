@@ -22,7 +22,10 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
    gate; empty rows exactly 0, two runs bitwise equal and equal to a
    third into a NaN-filled output, no ptxas spill; then at B=256 in fp32
    and bf16, a plan of one split (no combine launch) with every fourth
-   row empty.  Times the kernel (``torch.profiler`` device time and CUDA events,
+   row empty, and at the speculative verify's 40 rows (8 page tables
+   each repeated 5 times, row (b, i) of length n_b + i + 1, one window
+   past the table's reach) in fp32, bf16 and fp16 with the three
+   controls.  Times the kernel (``torch.profiler`` device time and CUDA events,
    L2 flushed before each call) beside the kernel it replaced
    (``_cuda_core_paged``), the plain version, the bound and, as a
    yardstick only, ``scaled_dot_product_attention`` on pre-gathered
@@ -64,7 +67,28 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
    prints the capture seconds, the graph pool's size and the host
    microseconds a dispatch;
 6. serves the same model in bf16 and checks counts, captures and
-   launches;
+   launches; both serving phases end with a profiled window (8 requests
+   of 41 tokens drained with the pump stopped): device-busy ms a
+   dispatch and K1's device ms a call in the graph;
+6a. ``[serve spec fp32]`` / ``[serve spec bf16]``: the same 12 requests
+   through ``LLMServer(draft_params=..., spec_k=4)``, with a self-draft
+   and with an adversarial draft (weights from ``--seed`` + 1): two
+   captures (the speculative greedy and mixed variants), K1 launched
+   exactly 12 x 5 times a dispatch (per replay) and
+   ``_cuda_core_paged`` never, every token count, the allocator empty
+   after the drain; fp32: all 12 requests equal the plain fp32
+   engine's tokens, two of them and a seeded sampled request equal
+   ``reference_decode``; bf16: equal to the plain bf16 engine's tokens,
+   or departing only where the two tokens' logits lie within
+   ``BF16_GAP_ULPS`` bf16 ulps (printed), and every token, past any
+   departure too, within ``BF16_GAP_ULPS`` of the argmax of its own
+   prefix's teacher-forced logits.  Prints tokens/s beside the
+   plain engine's, tokens per dispatch, the accept rate, capture
+   seconds, the graph pool and the profiled window (K1's device ms a
+   call at [B] and at [B*(k+1)] rows); ``[serve refresh]``:
+   ``LLMServer(network)`` on the port's ``GPTForCausalLM``, then
+   ``refresh_weights`` from a second network: a fresh server's tokens,
+   no new capture;
 6b. ``[serve noise]``: the sampler's hashed Gumbel noise of a
    ``[8, 50304]`` batch of (seed, position), bit for bit on the card
    and on the CPU;
@@ -672,7 +696,9 @@ def kernel_phase(torch, seed, nvcc_log=""):
     with ragged lengths and scattered pages, fp32, bf16 and fp16, held
     by :func:`paged_check` (the three controls in bf16 and fp16), and
     timed beside the kernel it replaced, the plain version, the bound
-    and SDPA (:func:`l2_flush` before each call)."""
+    and SDPA (:func:`l2_flush` before each call); then at B=256 (one
+    split) and at the speculative verify's 40 rows
+    (:func:`verify_inputs`, with the controls in every dtype)."""
     from paddle_tpu_torch.inference.serving import paged_attention_kernel as pak
     B, H, Dh, BS, MAXNB = 8, 12, 64, 16, 64
     lengths_l = [0, 1, 16, 17, 500, 1024, 333, 64]
@@ -713,7 +739,46 @@ def kernel_phase(torch, seed, nvcc_log=""):
             f"MAXNB={MAXNB} one split, every 4th row empty", x)
         del x
     del one
+    # the speculative verify's shape: [serve spec]'s 8 page tables each
+    # repeated k+1 times, row (b, i) attending n_b + i + 1 tokens
+    S = SPEC_K + 1
+    ver = verify_inputs(torch, seed + 2, VERIFY_LENS, S, H, Dh, BS, MAXNB)
+    for dn, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16),
+                      ("fp16", torch.float16)):
+        x = [t.to(dtype) if t.is_floating_point() else t for t in ver]
+        res[f"{dn} verify"] = paged_check(
+            torch, pak, "kernel", f"{dn} verify B={B * S} (8 tables x "
+            f"{S}) H={H} Dh={Dh} BS={BS} MAXNB={MAXNB} windows from "
+            f"n={VERIFY_LENS}", x, controls=True)
+        del x
+    del ver
     return res
+
+
+VERIFY_LENS = [0, 21, 56, 80, 116, 216, 349, 1021]   # [kernel] verify: each
+                                 # slot's cache tokens before the window (an
+                                 # idle slot, seven of REQ_LENS's prompts 16
+                                 # tokens into their answers, and one whose
+                                 # window runs past the table's 1024 tokens)
+
+
+def verify_inputs(torch, seed, lens, S, H, Dh, BS, MAXNB):
+    """K1's inputs as the speculative verify builds them
+    (``spec_score_forward``): the pools and ``len(lens)`` page tables of
+    :func:`paged_inputs` (an idle slot's all scratch), each table
+    repeated ``S`` times, row ``(b, i)`` of length ``lens[b] + i + 1``
+    (the verify's write included; the kernel clamps it to the table's
+    reach), and q for the ``len(lens) * S`` rows."""
+    T = MAXNB * BS
+    pk, pv, table, _, _ = paged_inputs(
+        torch, seed, len(lens), H, Dh, BS, MAXNB,
+        [min(n + S, T) if n else 0 for n in lens])
+    rows = np.array([n + i + 1 for n in lens for i in range(S)], np.int32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 1)
+    q = torch.randn((len(rows), H, Dh), generator=gen, device="cuda")
+    return (pk, pv, table.repeat_interleave(S, dim=0),
+            torch.as_tensor(rows, device=q.device), q)
 
 
 def kernel_long_phase(torch, seed):
@@ -830,6 +895,8 @@ def serving_phase(torch, seed, dtype, tag, check_oracle):
             check(l_s == d_s * L, f"{tag}: sampled run's kernel launches "
                   f"{l_s} != dispatches {d_s} x {L}")
         captures = server.engine.compile_stats()["decode_captures"]
+        server.stop()
+        prof = profile_dispatches(torch, server.engine, prompts, L)
     finally:
         server.close()
     dispatches = st["dispatches"] - d0
@@ -870,13 +937,419 @@ def serving_phase(torch, seed, dtype, tag, check_oracle):
         print(f"[serve {tag}] the seeded sampled request ({SAMPLED_KW}, "
               f"{SAMPLED_MAX} tokens) equals reference_decode with the "
               "same settings", flush=True)
+    print(f"[serve {tag}] {profile_line(prof)}", flush=True)
     return {"launches": launches, "dispatches": dispatches,
             "core_launches": core_launches, "tokens_per_s": n_tok / wall,
             "wall_s": wall, "captures": captures,
             "capture_s": cap, "pool": pool,
             "dispatch_host_us": st["dispatch_host_us_p50"],
             "ttft_p50_s": st["ttft_p50_s"],
-            "intertoken_p50_s": st["intertoken_p50_s"]}
+            "intertoken_p50_s": st["intertoken_p50_s"],
+            "tokens": [r.tokens for r in results], "profile": prof}
+
+
+REPLAY_CALLS = 20                # replays timed alone on the host
+PROFILE_REQS = 8                 # the profiled window: the first 8 prompts
+PROFILE_MAX = 41                 # of REQ_LENS, 41 tokens each (8 windows of
+                                 # k+1 = 5 after the prefill's token)
+
+
+def kernel_calls(prof, calls_per_dispatch):
+    """K1's device microseconds per call in a profiled window of graph
+    replays, by the call's place in its dispatch: the split and (with
+    several splits) the combine that follows it are one call.  Returns
+    ``[us]`` of length ``calls_per_dispatch`` (each place's mean), or
+    None where the trace does not hold whole dispatches."""
+    from torch.autograd import DeviceType
+    evs = sorted((e.time_range.start, e.time_range.elapsed_us(), e.name)
+                 for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and ("paged_split" in e.name or "paged_combine" in e.name))
+    calls = []
+    for _, us, name in evs:
+        if "paged_split" in name:
+            calls.append(us)
+        elif calls:
+            calls[-1] += us
+    if not calls or len(calls) % calls_per_dispatch:
+        return None
+    per = np.asarray(calls).reshape(-1, calls_per_dispatch)
+    return per.mean(axis=0).tolist()
+
+
+def profile_dispatches(torch, eng, prompts, L):
+    """Seat ``PROFILE_REQS`` greedy requests of ``PROFILE_MAX`` tokens on
+    ``eng`` (pump stopped, steps captured), then profile the dispatches
+    that drain them: device-busy ms a dispatch (every kernel's device
+    time over the dispatches) and K1's device ms a call, split by rows
+    (speculative: the draft's ``[B]`` calls and the verify's
+    ``[B*(k+1)]``)."""
+    from torch.profiler import ProfilerActivity, profile
+    k = eng.spec_k
+    reqs = [eng.submit(p, max_tokens=PROFILE_MAX)
+            for p in prompts[:PROFILE_REQS]]
+    eng.step()                         # admits and prefills them all
+    check(all(r.lazy_tokens for r in reqs),
+          "profiled window: every request seated in one step")
+    torch.cuda.synchronize()
+    d0 = eng.stats()["dispatches"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+    n = eng.stats()["dispatches"] - d0
+    busy_us = sum(getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0.0))
+                  for e in prof.key_averages())
+    per = kernel_calls(prof, L * (k + 1))
+    # the host's cost of one replay alone (cudaGraphLaunch), each on an
+    # idle device and an all-inactive batch (one dispatch stages the
+    # drained engine's layout first): what a dispatch's host time owes
+    # to the graph's size
+    eng._decode_dispatch(False)
+    step = eng._steps[False]
+    host = []
+    for _ in range(REPLAY_CALLS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step.replay()
+        host.append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    out = {"dispatches": n, "busy_ms": busy_us / 1e3 / n,
+           "k1_ms": None, "k1_verify_ms": None,
+           "replay_host_us": float(np.median(host)) * 1e6,
+           "tokens": sum(len(r.future.result(timeout=0).tokens)
+                         for r in reqs)}
+    if per is not None:
+        out["k1_ms"] = float(np.mean(per[:L * k] if k else per)) / 1e3
+        if k:
+            out["k1_verify_ms"] = float(np.mean(per[L * k:])) / 1e3
+    return out
+
+
+def profile_line(p):
+    """The profiled window of :func:`profile_dispatches`, in words."""
+    k1 = ("not measured (the trace did not hold whole dispatches)"
+          if p["k1_ms"] is None else f"{p['k1_ms']:.5f} ms a call at [B]")
+    if p["k1_verify_ms"] is not None:
+        k1 += f", {p['k1_verify_ms']:.5f} ms a call at [B*(k+1)]"
+    return (f"profiled window ({PROFILE_REQS} requests x {PROFILE_MAX} "
+            f"tokens, {p['tokens']} tokens, {p['dispatches']} dispatches "
+            f"profiled): device busy {p['busy_ms']:.4f} ms a dispatch; K1 "
+            f"device {k1}; a greedy replay alone costs the host "
+            f"{p['replay_host_us']:.1f} us (median of {REPLAY_CALLS})")
+
+
+SPEC_K = 4                       # [serve spec]: proposals a window
+BF16_GAP_ULPS = 4                # [serve spec bf16]: a token may differ from
+                                 # the plain engine's, or from the argmax of
+                                 # its own prefix's logits (teacher-forced
+                                 # prefill, bf16), only where the two
+                                 # tokens' logits lie within this many bf16
+                                 # ulps of each other: the verify's matmuls
+                                 # run at 40 rows where the plain step runs
+                                 # 8, and round their sums in another order
+TF_ROWS = 16                     # prefixes a teacher-forced prefill group holds
+
+
+def teacher_forced_gaps(torch, params, scfg, prompt, got):
+    """Every token of ``got`` on its own prefix: prefill groups whose row
+    ``j`` holds ``prompt + got[:j]`` (each row the one causal sequence,
+    read at its own length) give each prefix's next-token logits.
+    Returns ``[(gap, ulp)]`` per token: how far ``got[j]``'s logit lies
+    below the row's largest (0 where it is the argmax), and one bf16 ulp
+    at their magnitude."""
+    from paddle_tpu_torch.inference.serving.decode_model import (
+        prefill_group_forward)
+    seq = list(prompt) + list(got[:-1])
+    out = []
+    for j0 in range(0, len(got), TF_ROWS):
+        js = list(range(j0, min(len(got), j0 + TF_ROWS)))
+        G, n = len(js), len(prompt) + js[-1]
+        ids = torch.tensor([seq[:n]] * G, dtype=torch.int32,
+                           device=params.wte.device)
+        with torch.no_grad():
+            _, _, lg = prefill_group_forward(
+                params, scfg, ids, [len(prompt) + j for j in js], [0.0] * G,
+                [0] * G, [1.0] * G, [0] * G)
+        lg = lg.float()
+        top = lg.max(dim=1).values.cpu().numpy()
+        mine = lg[torch.arange(G, device=lg.device),
+                  torch.tensor([got[j] for j in js],
+                               device=lg.device)].cpu().numpy()
+        for t, m in zip(top, mine):
+            mag = max(abs(float(t)), abs(float(m)), 1e-30)
+            out.append((float(t - m), 2.0 ** (np.floor(np.log2(mag)) - 7)))
+        del ids, lg
+    return out
+
+
+def _departure(torch, params, scfg, prompt, got, want):
+    """Where ``got`` first departs from ``want``: ``(index, gap, ulp,
+    top2)`` with the logits of the shared prefix's next token by a
+    teacher-forced prefill (both runs saw the same tokens up to there),
+    the gap between the two tokens' logits, one bf16 ulp at their
+    magnitude and the top two logits; None where they agree."""
+    from paddle_tpu_torch.inference.serving import prefill_forward
+    j = next((i for i in range(min(len(got), len(want)))
+              if got[i] != want[i]), None)
+    if j is None:
+        return None
+    ids = list(prompt) + list(want[:j])
+    with torch.no_grad():
+        _, _, lg = prefill_forward(
+            params, scfg, torch.tensor([ids], dtype=torch.int32,
+                                       device=params.wte.device), len(ids))
+    row = lg.float()
+    a, b = float(row[got[j]]), float(row[want[j]])
+    top2 = torch.topk(row, 2).values.tolist()
+    ulp = 2.0 ** (np.floor(np.log2(max(abs(a), abs(b), 1e-30))) - 7)
+    return j, abs(a - b), ulp, top2
+
+
+def serve_spec_phase(torch, seed, dtype, tag, plain):
+    """``[serve spec fp32]`` / ``[serve spec bf16]``: GPT-2-small through
+    ``LLMServer(draft_params=..., spec_k=SPEC_K)``, the 12 requests of
+    ``[serve fp32/bf16]`` over 8 slots, every decode dispatch a replay of
+    one of the two captured speculative variants, with a self-draft and
+    with an adversarial draft (weights from ``seed + 1``).  ``plain`` is
+    the plain engine's result in the same dtype (its tokens and
+    tokens/s)."""
+    from paddle_tpu_torch.inference.serving import (LLMServer,
+                                                    ServingModelConfig,
+                                                    params_from_numpy)
+    from paddle_tpu_torch.inference.serving import paged_attention_kernel as pak
+    from paddle_tpu_torch.models import gpt2_small, init_decode_weights_numpy
+    cfg = gpt2_small()
+    scfg = ServingModelConfig.from_gpt_config(cfg)
+    L, k = cfg.num_hidden_layers, SPEC_K
+    params = params_from_numpy(init_decode_weights_numpy(cfg, seed),
+                               device="cuda", dtype=dtype)
+    rng = np.random.default_rng(seed + 1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in REQ_LENS]
+    out = {}
+    for draft_tag in ("self", "adversarial"):
+        name = f"[serve spec {tag} {draft_tag}]"
+        draft = params if draft_tag == "self" else params_from_numpy(
+            init_decode_weights_numpy(cfg, seed + 1), device="cuda",
+            dtype=dtype)
+        server = LLMServer(params=params, gpt_config=cfg, draft_params=draft,
+                           spec_k=k, max_batch=8, block_size=16,
+                           num_blocks=512, eos_id=None, auto_start=False,
+                           device="cuda")
+        eng = server.engine
+        try:
+            warm = server.warmup(REQ_LENS)
+            pool = pool_reserved(torch, eng._graph_pool)
+            d0 = eng.stats()["dispatches"]
+            pak.paged_ragged_attention.launches = 0
+            pak._cuda_core_paged.launches = 0
+            server.start()
+            t0 = time.monotonic()
+            futs = [server.submit(p, max_tokens=m)
+                    for p, m in zip(prompts, REQ_MAX)]
+            results = [f.result(timeout=600) for f in futs]
+            wall = time.monotonic() - t0
+            launches = pak.paged_ragged_attention.launches
+            core_launches = pak._cuda_core_paged.launches
+            st = server.stats()
+            sampled = None
+            if dtype == torch.float32:
+                d1, l1 = eng.stats()["dispatches"], launches
+                sampled = server.submit(prompts[SAMPLED_REQ],
+                                        max_tokens=SAMPLED_MAX,
+                                        **SAMPLED_KW).result(timeout=600)
+                d_s = eng.stats()["dispatches"] - d1
+                l_s = pak.paged_ragged_attention.launches - l1
+                check(l_s == d_s * L * (k + 1), f"{name} sampled run's "
+                      f"kernel launches {l_s} != dispatches {d_s} x {L} x "
+                      f"{k + 1}")
+            captures = eng.compile_stats()["decode_captures"]
+            server.stop()
+            kv = eng._kv.allocator.stats()
+            prof = profile_dispatches(torch, eng, prompts, L)
+            kv_after = eng._kv.allocator.stats()
+        finally:
+            server.close()
+        dispatches = st["dispatches"] - d0
+        spec = st["spec"]
+        for r, m in zip(results, REQ_MAX):
+            check(len(r.tokens) == m, f"{name} {len(r.tokens)} tokens != {m}")
+            check(all(0 <= t < cfg.vocab_size for t in r.tokens),
+                  f"{name} token out of vocab")
+        check(captures == 2, f"{name} {captures} decode captures, want 2 "
+              "(the greedy and the mixed speculative variant, each once)")
+        check(launches == dispatches * L * (k + 1),
+              f"{name} kernel launches {launches} != dispatches "
+              f"{dispatches} x {L} x {k + 1} (counted per replay)")
+        check(core_launches == 0, f"{name} the comparison entry "
+              f"_cuda_core_paged launched {core_launches} times")
+        for when, a in (("after the drain", kv),
+                        ("after the profiled window", kv_after)):
+            check(a["allocated"] == 0 and a["reserved"] == 0,
+                  f"{name} allocator not empty {when}: {a}")
+        # the plain engine's tokens: equal, or (bf16) a departure where the
+        # two candidates were tied within the bf16 rounding bound
+        departures = []
+        for i, (r, want) in enumerate(zip(results, plain["tokens"])):
+            d = _departure(torch, params, scfg, prompts[i], r.tokens, want)
+            if d is None:
+                continue
+            j, gap, ulp, top2 = d
+            departures.append((i, j))
+            print(f"{name} request {i} departs from the plain engine at "
+                  f"token {j} ({r.tokens[j]} vs {want[j]}): their logits "
+                  f"differ by {gap:.6g} = {gap / ulp:.3f} bf16 ulps; "
+                  f"top-2 logits {top2}", flush=True)
+            check(dtype != torch.float32, f"{name} request {i}: fp32 "
+                  "tokens differ from the plain fp32 engine's")
+            check(gap <= BF16_GAP_ULPS * ulp, f"{name} request {i}: the "
+                  f"departure's logit gap {gap:.6g} exceeds "
+                  f"{BF16_GAP_ULPS} bf16 ulps ({BF16_GAP_ULPS * ulp:.6g})")
+        # bf16: every token against the argmax of its own prefix's logits,
+        # past any departure too
+        not_top, worst = 0, 0.0
+        if dtype != torch.float32:
+            for i, r in enumerate(results):
+                for j, (gap, ulp) in enumerate(teacher_forced_gaps(
+                        torch, params, scfg, prompts[i], r.tokens)):
+                    not_top += gap > 0
+                    worst = max(worst, gap / ulp)
+                    check(gap <= BF16_GAP_ULPS * ulp, f"{name} request {i} "
+                          f"token {j} ({r.tokens[j]}): its logit lies "
+                          f"{gap:.6g} = {gap / ulp:.3f} bf16 ulps below its "
+                          f"prefix's largest, over {BF16_GAP_ULPS}")
+        n_tok = sum(len(r.tokens) for r in results)
+        cap = st["decode_capture_s"]
+        res = {"tokens_per_s": n_tok / wall, "wall_s": wall,
+               "dispatches": dispatches, "launches": launches,
+               "launches_per_dispatch": launches / dispatches,
+               "tokens_per_dispatch": spec["tokens_per_dispatch"],
+               "accept_rate": spec["accept_rate"], "captures": captures,
+               "capture_s": cap, "pool": pool, "profile": prof,
+               "departures": departures, "not_argmax": not_top,
+               "worst_gap_ulps": worst,
+               "dispatch_host_us": st["dispatch_host_us_p50"]}
+        out[draft_tag] = res
+        print(f"{name} GPT-2-small L=12 D=768 H=12 V=50304, k={k}: "
+              f"{len(results)} requests, {n_tok} tokens in {wall:.4f} s = "
+              f"{n_tok / wall:.2f} tokens/s (plain {tag} engine, this run: "
+              f"{plain['tokens_per_s']:.2f}); dispatches={dispatches} "
+              f"({plain['dispatches']} plain), tokens per lane-dispatch "
+              f"{spec['tokens_per_dispatch']:.4f}, accept rate "
+              f"{spec['accept_rate']:.4f}; K1 launches {launches} = "
+              f"{launches / dispatches:.1f} a dispatch (per replay; "
+              f"_cuda_core_paged {core_launches}); dispatch host us p50 "
+              f"{st['dispatch_host_us_p50']:.1f}; ttft_p50_s="
+              f"{st['ttft_p50_s']:.6f}; decode captures {captures}, "
+              f"capture s greedy {cap['greedy']:.4f} mixed "
+              f"{cap['mixed']:.4f}, graph pool "
+              f"{'n/a' if pool is None else f'{pool / 2**20:.1f} MiB'}; "
+              f"warmup_s={warm['warmup_s']:.3f}; allocator empty after the "
+              f"drain", flush=True)
+        print(f"{name} {profile_line(prof)}", flush=True)
+        if dtype == torch.float32:
+            for i in ORACLE_REQS:
+                _oracle_check(torch, f"{name} request {i}", params, scfg,
+                              prompts[i], results[i].tokens, REQ_MAX[i])
+            _oracle_check(torch, f"{name} sampled request", params, scfg,
+                          prompts[SAMPLED_REQ], sampled.tokens, SAMPLED_MAX,
+                          **SAMPLED_KW)
+            print(f"{name} all 12 requests' tokens equal the plain fp32 "
+                  f"engine's; requests {ORACLE_REQS} and the seeded sampled "
+                  f"request ({SAMPLED_KW}) equal reference_decode",
+                  flush=True)
+        else:
+            print(f"{name} {12 - len(departures)} of 12 requests' tokens "
+                  "equal the plain bf16 engine's; departures (request, "
+                  f"token) {departures}, each within {BF16_GAP_ULPS} bf16 "
+                  f"ulps; teacher-forced on its own prefix, {not_top} of "
+                  f"{n_tok} tokens are not that prefix's argmax, the "
+                  f"farthest {worst:.3f} bf16 ulps below it (<= "
+                  f"{BF16_GAP_ULPS})", flush=True)
+        del server, eng, draft
+        torch.cuda.empty_cache()
+    return out
+
+
+REFRESH_REQS = (0, 2, 5, 11)     # [serve refresh]: four of the 12 prompts,
+REFRESH_MAX = 24                 # 24 tokens each
+
+
+def serve_refresh_phase(torch, seed):
+    """``[serve refresh]``: ``LLMServer(network)`` on the port's training
+    ``GPTForCausalLM`` at GPT-2-small (fp32, random weights from
+    ``seed``), four greedy requests, the pump stopped, then
+    ``refresh_weights`` from a second network (``seed + 1``): the same
+    requests give a fresh server's tokens on the second network, the
+    captured steps are the same objects and ``decode_captures`` does not
+    move."""
+    from paddle_tpu_torch.inference.serving import LLMServer
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt2_small
+    cfg = gpt2_small(hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0)
+
+    def network(s):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(s)
+        net = GPTForCausalLM(cfg, device="cuda", generator=gen)
+        net.eval()
+        return net
+
+    rng = np.random.default_rng(seed + 1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in REQ_LENS]
+    prompts = [prompts[i] for i in REFRESH_REQS]
+    kw = dict(max_batch=8, block_size=16, num_blocks=512, eos_id=None,
+              auto_start=False, device="cuda")
+
+    def run(server):
+        server.start()
+        try:
+            return [f.result(timeout=600).tokens for f in
+                    [server.submit(p, max_tokens=REFRESH_MAX)
+                     for p in prompts]]
+        finally:
+            server.stop()
+
+    net_a, net_b = network(seed), network(seed + 1)
+    server = LLMServer(net_a, **kw)
+    try:
+        server.warmup([len(p) for p in prompts])
+        steps = dict(server.engine._steps)
+        before = run(server)
+        captures = server.engine.compile_stats()["decode_captures"]
+        t0 = time.monotonic()
+        server.refresh_weights(net_b)
+        torch.cuda.synchronize()
+        refresh_s = time.monotonic() - t0
+        after = run(server)
+        same = server.engine._steps == steps
+        captures_after = server.engine.compile_stats()["decode_captures"]
+    finally:
+        server.close()
+    del net_a
+    fresh = LLMServer(net_b, **kw)
+    try:
+        fresh.warmup([len(p) for p in prompts])
+        want = run(fresh)
+    finally:
+        fresh.close()
+    del net_b, server, fresh
+    torch.cuda.empty_cache()
+    check(captures == 2 and captures_after == 2 and same,
+          f"[serve refresh] decode captures {captures} -> {captures_after}"
+          f" (same graphs: {same}); a refresh must not capture again")
+    check(after == want, "[serve refresh] tokens after refresh_weights "
+          "differ from a fresh server's on the new network")
+    check(after != before, "[serve refresh] the refreshed server still "
+          "gives the old network's tokens")
+    print(f"[serve refresh] LLMServer(GPTForCausalLM GPT-2-small fp32): "
+          f"{len(prompts)} requests x {REFRESH_MAX} tokens, then "
+          f"refresh_weights(a second network) in {refresh_s:.4f} s: tokens "
+          f"equal a fresh server's on it, decode captures {captures} -> "
+          f"{captures_after}, the same captured graphs", flush=True)
+    return {"refresh_s": refresh_s}
 
 
 def serve_noise_phase(torch, seed):
@@ -4027,6 +4500,9 @@ def main(argv=None) -> int:
     lres = lmce_phase(torch, args.seed)
     s32 = serving_phase(torch, args.seed, torch.float32, "fp32", True)
     s16 = serving_phase(torch, args.seed, torch.bfloat16, "bf16", False)
+    sp32 = serve_spec_phase(torch, args.seed, torch.float32, "fp32", s32)
+    sp16 = serve_spec_phase(torch, args.seed, torch.bfloat16, "bf16", s16)
+    serve_refresh_phase(torch, args.seed)
     serve_noise_phase(torch, args.seed)
     slong = serve_long_phase(torch, args.seed)
     serve_prefix_phase(torch, args.seed)
@@ -4071,6 +4547,10 @@ def main(argv=None) -> int:
         "host_us": k32["host_us"],
         "cuda_core_host_us": k32["cuda_core_host_us"],
         "plan": list(k32["plan"]), "bf16_plan": list(k16["plan"]),
+        "verify_plans": {dn: list(kres[f"{dn} verify"]["plan"])
+                         for dn in ("fp32", "bf16")},
+        "verify_max_abs_err": {dn: kres[f"{dn} verify"]["max_abs_err"]
+                               for dn in ("fp32", "bf16", "fp16")},
         "bf16_ms": k16["ms"], "bf16_device_ms": k16["device_ms"],
         "bf16_bound_ms": k16["bound_ms"],
         "bf16_cuda_core_device_ms": k16["cuda_core_device_ms"],
@@ -4088,6 +4568,22 @@ def main(argv=None) -> int:
                                  "tokens, bf16, in the engine's graph"},
         "cuda_core_serving_launches": s32["core_launches"]
         + s16["core_launches"],
+        "spec_launches": sum(r["launches"] for r in
+                             list(sp32.values()) + list(sp16.values())),
+        "spec_launches_per_dispatch": sp32["self"]["launches_per_dispatch"],
+        "spec": {f"{t} {d}": {
+            "launches": r["launches"], "dispatches": r["dispatches"],
+            "tokens_per_s": r["tokens_per_s"],
+            "tokens_per_dispatch": r["tokens_per_dispatch"],
+            "accept_rate": r["accept_rate"],
+            "busy_ms_a_dispatch": r["profile"]["busy_ms"],
+            "k1_draft_device_ms": r["profile"]["k1_ms"],
+            "k1_verify_device_ms": r["profile"]["k1_verify_ms"],
+            "capture_s": r["capture_s"], "graph_pool_bytes": r["pool"]}
+            for t, res in (("fp32", sp32), ("bf16", sp16))
+            for d, r in res.items()},
+        "plain_busy_ms_a_dispatch": {"fp32": s32["profile"]["busy_ms"],
+                                     "bf16": s16["profile"]["busy_ms"]},
         "gate_ratio": max(r["gate_ratio"] for r in
                           list(kres.values()) + list(klong.values())),
         "equal_share": min(r["equal_share"] for k, r in

@@ -68,6 +68,10 @@ _k("PADDLE_TORCH_PREFILL_CHUNK", "unset", "int",
 _k("PADDLE_TORCH_PREFIX_CACHE", "off", "bool",
    "DecodeEngine's default prefix_cache: share the K/V of full prompt "
    "blocks between requests (PADDLE_TPU_PREFIX_CACHE).")
+_k("PADDLE_TORCH_SPEC_K", "4", "int",
+   "DecodeEngine's default spec_k: draft tokens proposed per speculative "
+   "decode dispatch, used only when the engine is given a draft "
+   "(PADDLE_TPU_SPEC_K).")
 
 _TRUTHY = ("1", "true", "yes", "on")
 

@@ -1,7 +1,8 @@
 """paddle_tpu_torch.inference.serving — continuous-batching decode
 server over a paged KV cache, with ragged paged decode attention as a
 hand-written CUDA kernel on the card, the decode step as one captured
-CUDA graph, chunked prefill and a shared-prefix cache.
+CUDA graph, chunked prefill, a shared-prefix cache and speculative
+decoding (draft, verify and accept in one captured step).
 
     from paddle_tpu_torch.inference.serving import (LLMServer,
                                                     params_from_numpy)
@@ -22,15 +23,18 @@ from .ragged_attention import (DENOM_TINY, MASK_VALUE,
                                ragged_decode_attention)
 from .paged_attention_kernel import (paged_ragged_attention,
                                      paged_ragged_attention_reference)
-from .sampling import gumbel_noise, sample_tokens, sample_tokens_host
+from .sampling import (gumbel_noise, sample_tokens, sample_tokens_grid,
+                       sample_tokens_host)
 from .decode_model import (GPTDecodeWeights, ServingModelConfig,
                            chunk_prefill_forward, decode_forward,
-                           params_from_numpy, prefill_forward,
-                           prefill_group_forward, reference_decode)
+                           extract_decode_params, params_from_numpy,
+                           prefill_forward, prefill_group_forward,
+                           reference_decode, spec_score_forward)
+from .spec_decode import SPEC_SENTINEL, spec_decode_step
 from .prefix_cache import PrefixCache, PrefixEntry
 from .scheduler import QueueFull, Request, RequestStats, Scheduler
 from .engine import DecodeEngine, ENGINE_ROLES, GenerationResult
-from .api import LLMServer
+from .api import LLMServer, filter_spec_stream
 
 __all__ = [
     "BlockAllocator", "OutOfBlocks", "PagedKVCache", "PageTable",
@@ -40,11 +44,14 @@ __all__ = [
     "chunked_prefill_attention", "paged_decode_attention",
     "ragged_decode_attention",
     "paged_ragged_attention", "paged_ragged_attention_reference",
-    "gumbel_noise", "sample_tokens", "sample_tokens_host",
+    "gumbel_noise", "sample_tokens", "sample_tokens_grid",
+    "sample_tokens_host",
     "GPTDecodeWeights", "ServingModelConfig", "chunk_prefill_forward",
-    "decode_forward", "params_from_numpy", "prefill_forward",
-    "prefill_group_forward", "reference_decode",
+    "decode_forward", "extract_decode_params", "params_from_numpy",
+    "prefill_forward", "prefill_group_forward", "reference_decode",
+    "spec_score_forward", "SPEC_SENTINEL", "spec_decode_step",
     "PrefixCache", "PrefixEntry",
     "QueueFull", "Request", "RequestStats", "Scheduler",
     "DecodeEngine", "ENGINE_ROLES", "GenerationResult", "LLMServer",
+    "filter_spec_stream",
 ]

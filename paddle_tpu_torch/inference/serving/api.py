@@ -20,6 +20,17 @@ first dispatches, in the pump thread, in "thread_local" capture mode,
 so other threads' CUDA calls (a consumer reading a token) do not
 invalidate it.  Streaming callbacks receive ``LazyScalar``
 token views; reading one is the consumer's device sync.
+
+    server = LLMServer(net, draft=net, spec_k=4, max_batch=8)
+
+A speculative server (``draft=`` or ``draft_params=``) streams a fixed
+``k+1`` views a lane per decode dispatch: the host does not know the
+accepted count without a sync, so positions past it read as the
+negative :data:`SPEC_SENTINEL`, and up to ``k`` tokens past
+``max_tokens`` may stream before the device's stop is polled (the
+resolved result is always sentinel-free and cut).
+:func:`filter_spec_stream` turns such a stream into plain in-order
+tokens.
 """
 
 from __future__ import annotations
@@ -27,15 +38,43 @@ from __future__ import annotations
 import threading
 from typing import Dict, Optional, Sequence
 
+from .decode_model import extract_decode_params
 from .engine import DecodeEngine
 from .scheduler import QueueFull  # noqa: F401  (re-export: caller API)
+from .spec_decode import SPEC_SENTINEL  # noqa: F401  (re-export)
+
+
+def filter_spec_stream(cb, max_tokens: Optional[int] = None):
+    """Adapt a plain ``cb(request_id, index, int_token)`` callback to a
+    speculative engine's stream: drops :data:`SPEC_SENTINEL`
+    placeholders, numbers the surviving tokens densely, and (given
+    ``max_tokens``) drops the last window's tokens past the cap.
+    Reading each lazy view to decide is a device sync, the consumer's;
+    a consumer that needs the sync-free stream keeps the raw callback
+    and skips negative values where it reads them."""
+    counts: Dict[object, int] = {}
+
+    def wrapped(request_id, index, lazy_tok):
+        tok = int(lazy_tok)
+        if tok == SPEC_SENTINEL:
+            return
+        n = counts.get(request_id, 0)
+        if max_tokens is not None and n >= max_tokens:
+            return
+        counts[request_id] = n + 1
+        cb(request_id, n, tok)
+
+    return wrapped
 
 
 class LLMServer:
-    """Continuous-batching generation server.  Keyword arguments other
-    than ``auto_start``/``idle_wait_s`` go to :class:`DecodeEngine`
-    (``prefill_chunk=``, ``prefix_cache=``, ``prefix_reserve_discount=``
-    among them)."""
+    """Continuous-batching generation server.  ``network`` is the
+    port's ``GPTForCausalLM`` (its weights copied at construction; see
+    :meth:`refresh_weights`), or pass ``params=``/``gpt_config=``.
+    Keyword arguments other than ``auto_start``/``idle_wait_s`` go to
+    :class:`DecodeEngine` (``prefill_chunk=``, ``prefix_cache=``,
+    ``prefix_reserve_discount=``, ``draft=``, ``spec_k=`` among
+    them)."""
 
     def __init__(self, network=None, *, auto_start: bool = True,
                  idle_wait_s: float = 0.005, **engine_kwargs):
@@ -63,15 +102,29 @@ class LLMServer:
         self._thread.start()
         return self
 
-    def close(self):
-        """Stop the pump.  In-flight and queued requests get their
-        futures failed with RuntimeError."""
+    def stop(self, timeout: float = 30.0):
+        """Stop the pump and keep the rest: queued requests stay queued,
+        seated ones seated, the captured decode steps captured;
+        :meth:`start` resumes.  Raises ``RuntimeError`` if the pump is
+        still inside a step after ``timeout`` seconds; the server then
+        stays :attr:`running`, so :meth:`warmup` and
+        :meth:`refresh_weights` keep refusing."""
         with self._cond:
             self._closed = True
             self._cond.notify_all()
         if self._thread is not None:
-            self._thread.join(timeout=30.0)
+            self._thread.join(timeout=timeout)
+            if self._thread.is_alive():
+                raise RuntimeError(
+                    f"the serving pump did not stop within {timeout} s: "
+                    "a step is still in flight")
             self._thread = None
+
+    def close(self):
+        """Stop the pump.  In-flight and queued requests get their
+        futures failed with RuntimeError, and the captured steps are
+        freed."""
+        self.stop()
         self.engine.release_all(
             RuntimeError("server closed before completion"))
         self.engine.release_graphs()
@@ -125,6 +178,25 @@ class LLMServer:
                 "LLMServer(auto_start=False), warmup(), then start()")
         self._warmup_record = self.engine.warmup(prompt_lengths)
         return self._warmup_record
+
+    def refresh_weights(self, network, draft=None):
+        """Take new weights from a (re)trained network, with the pump
+        stopped (:meth:`stop`, as for :meth:`warmup`).  A speculative
+        server takes the draft's too; refreshing the target alone is
+        allowed (a stale draft lowers the accept rate, never a
+        token).  The values are
+        copied IN PLACE into the served weights, whose addresses the
+        captured decode steps hold: the next replay reads them and
+        nothing is captured again.  Shapes and dtypes must match the
+        served ones (``ValueError``)."""
+        if self.running:
+            raise RuntimeError("stop the server before refreshing "
+                               "weights")
+        dev = self.engine.device
+        self.engine.load_params(
+            extract_decode_params(network, device=dev),
+            None if draft is None else extract_decode_params(draft,
+                                                             device=dev))
 
     def stats(self) -> Dict[str, object]:
         st = dict(self.engine.stats())

@@ -3,6 +3,9 @@
 
 - :func:`params_from_numpy` — the numpy tree of ``paddle_tpu``'s
   ``extract_decode_params`` → :class:`GPTDecodeWeights` on a device.
+- :func:`extract_decode_params` — the port's training
+  ``GPTForCausalLM`` → :class:`GPTDecodeWeights` (same layout);
+  :func:`copy_decode_params_` refreshes weights in place.
 - :func:`prefill_group_forward` — one same-bucket prefill group:
   per-layer K/V for the page writes plus the first token.
 - :func:`chunk_prefill_forward` — one prefill chunk against the context
@@ -11,6 +14,9 @@
 - :func:`decode_forward` — ONE token per request across the batch
   against the paged pool; the pool is appended in place and attention
   runs through the paged-attention seam (the CUDA kernel on the card).
+- :func:`spec_score_forward` — a speculative window's ``k+1`` positions
+  per request in ONE :func:`decode_forward`, the window flattened into
+  the batch axis.
 - :func:`reference_decode` — slow per-request sequential decode with a
   dense cache; the exactness oracle, not a serving path.
 
@@ -89,9 +95,12 @@ class GPTDecodeWeights(nn.Module):
 
 
 def _param(array, device, dtype):
-    t = torch.tensor(np.asarray(array, dtype=np.float32))
-    return nn.Parameter(t.to(device=device, dtype=dtype),
-                        requires_grad=False)
+    if isinstance(array, torch.Tensor):
+        t = array.detach().to(device=device, dtype=dtype, copy=True)
+    else:
+        t = torch.tensor(np.asarray(array, dtype=np.float32)).to(
+            device=device, dtype=dtype)
+    return nn.Parameter(t, requires_grad=False)
 
 
 def params_from_numpy(tree: dict, *, device,
@@ -101,6 +110,59 @@ def params_from_numpy(tree: dict, *, device,
     is kept as given (``[in, out]``); the fused qkv keeps its
     ``[3, H, Dh]`` feature-major column order."""
     return GPTDecodeWeights(tree, device=torch.device(device), dtype=dtype)
+
+
+def extract_decode_params(network, device=None) -> GPTDecodeWeights:
+    """The port's ``GPTForCausalLM`` → :class:`GPTDecodeWeights` on
+    ``device`` (default: where the network's weights are), in the dtype
+    of its word embedding: a copy of the live values, in the layout of
+    the JAX package's ``extract_decode_params`` (``gpt.embeddings``,
+    ``gpt.layers[i].ln1`` / ``attn.qkv_proj`` / ``attn.out_proj`` /
+    ``ln2`` / ``mlp.fc1`` / ``mlp.fc2``, ``gpt.final_norm``; ``Linear``
+    weights ``[in, out]`` in both).  Raises ``TypeError`` for a network
+    of another shape."""
+    gpt = getattr(network, "gpt", None)
+    if gpt is None:
+        raise TypeError(
+            f"serving decode expects a GPTForCausalLM-shaped network "
+            f"(got {type(network).__name__}); wrap custom models in the "
+            "same .gpt/.embeddings/.layers layout")
+    emb = gpt.embeddings
+    wte = emb.word_embeddings.weight
+    tree = {"wte": wte, "wpe": emb.position_embeddings.weight,
+            "lnf_w": gpt.final_norm.weight, "lnf_b": gpt.final_norm.bias,
+            "layers": [{
+                "ln1_w": layer.ln1.weight, "ln1_b": layer.ln1.bias,
+                "wqkv": layer.attn.qkv_proj.weight,
+                "bqkv": layer.attn.qkv_proj.bias,
+                "wo": layer.attn.out_proj.weight,
+                "bo": layer.attn.out_proj.bias,
+                "ln2_w": layer.ln2.weight, "ln2_b": layer.ln2.bias,
+                "w1": layer.mlp.fc1.weight, "b1": layer.mlp.fc1.bias,
+                "w2": layer.mlp.fc2.weight, "b2": layer.mlp.fc2.bias,
+            } for layer in gpt.layers]}
+    device = wte.device if device is None else torch.device(device)
+    return GPTDecodeWeights(tree, device=device, dtype=wte.dtype)
+
+
+def copy_decode_params_(dst: GPTDecodeWeights,
+                        src: GPTDecodeWeights) -> None:
+    """Copy ``src``'s values into ``dst`` IN PLACE (a captured decode
+    step holds ``dst``'s addresses, so its next replay reads the new
+    values).  Raises ``ValueError`` unless every tensor's name, shape
+    and dtype agree."""
+    want = {n: (tuple(p.shape), p.dtype) for n, p in dst.named_parameters()}
+    got = {n: (tuple(p.shape), p.dtype) for n, p in src.named_parameters()}
+    if want != got:
+        bad = sorted(n for n in set(want) | set(got)
+                     if want.get(n) != got.get(n))
+        raise ValueError(
+            f"new weights do not match the served ones (shape or dtype) "
+            f"at {bad[:4]}: refresh keeps the geometry and dtype")
+    with torch.no_grad():
+        srcs = dict(src.named_parameters())
+        for n, p in dst.named_parameters():
+            p.copy_(srcs[n])
 
 
 def _ln(x, w, b, eps):
@@ -256,6 +318,37 @@ def decode_forward(params, cfg: ServingModelConfig, pool, page_table,
         x = x + _mlp(x, lp, cfg.ln_epsilon)
     x = _ln(x, params.lnf_w, params.lnf_b, cfg.ln_epsilon)
     return x @ params.wte.T                                  # [B, V]
+
+
+def spec_score_forward(params, cfg: ServingModelConfig, pool, page_table,
+                       lengths, tokens, write_ok):
+    """Score all ``S = k+1`` positions of a speculative window in ONE
+    :func:`decode_forward`.
+
+    ``tokens`` ``[B, S]`` int32: the incoming token and the draft's
+    ``k`` proposals per request; ``lengths`` ``[B]``: cache tokens
+    before the window.  Window slot ``(b, i)`` becomes row ``b*S + i``
+    with the page table of ``b`` and length ``n_b + i``; since
+    :func:`decode_forward` appends a layer's K/V for every row before
+    that layer's attention reads, row ``(b, i)`` attends positions
+    ``0..n_b+i``, its own window's rows included: causal over the
+    proposals, and the verify's K/V overwrite the draft's.  A row whose
+    position lies past the table's reach (``n_b + i >= MAXNB*BS``)
+    writes to the scratch block; clamped, it would overwrite the last
+    real slot.  Returns ``logits [B, S, V]``.
+    """
+    BS = pool.shape[3]
+    B, MAXNB = page_table.shape
+    S = tokens.shape[1]
+    offs = torch.arange(S, dtype=torch.int32, device=lengths.device)
+    flat_len = (lengths.to(torch.int32)[:, None] + offs[None]).reshape(-1)
+    flat_ok = (write_ok[:, None].expand(B, S).reshape(-1)
+               & (flat_len < MAXNB * BS))
+    flat_table = page_table[:, None, :].expand(B, S, MAXNB).reshape(
+        B * S, MAXNB)
+    logits = decode_forward(params, cfg, pool, flat_table, flat_len,
+                            tokens.reshape(-1), flat_ok)
+    return logits.reshape(B, S, -1)
 
 
 # ---------------------------------------------------------------------------

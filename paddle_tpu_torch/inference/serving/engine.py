@@ -44,11 +44,36 @@ shared-prefix cache (``prefix_cache=``, ``prefix_cache.py``) maps full
 prompt blocks to pool blocks that already hold their K/V, so a request
 that hits runs only its suffix through the chunk path.
 
+**Speculative decoding** (``draft=`` / ``draft_params=``, ``spec_k=``;
+``spec_decode.py``): the captured step becomes one speculative window,
+``k`` draft forwards at ``[B]`` rows and one verify at ``[B*(k+1)]``,
+committing up to ``k+1`` tokens a lane; its two variants (greedy,
+mixed) take the plain ones' place.  A window commits a count the host
+does not know, so the lengths, the tokens committed (``gen``) and
+``max_tokens`` live on the device and the step updates them in place;
+the host stages only the page table, pushes ``k+1`` lazy views a lane
+(:data:`~.spec_decode.SPEC_SENTINEL` past the accepted prefix) and
+holds an upper bound of each length for page growth, brought back to
+the truth at the poll.  Completion (EOS and ``max_tokens``) is detected
+on the device.  ``network=`` takes the port's ``GPTForCausalLM``
+through :func:`~.decode_model.extract_decode_params`.
+
+The plain step is not a window of ``k = 0``, as in the JAX engine, whose
+plain program stands beside ``_build_spec_step``.  It is the reference
+the speculative engine's tokens are held against (``[serve spec]`` of
+``chip_smoke.py``, ``tests/test_torch_serving_spec.py``).  Its host
+knows every length and count exactly: it stages them with the page
+table in one copy and ends a request at ``max_tokens`` itself, so a
+greedy dispatch stages no sampling vectors
+(``test_sampling_vectors_restage_only_when_they_change`` in
+``tests/test_torch_serving_capture.py``) and its graph holds none of
+the window's loop-state kernels (``gen``, the ``max_tokens`` stop, the
+accept rule).
+
 Kept for later slices (each refused with ``NotImplementedError`` where
 the JAX engine has an argument for it; ROADMAP.md queue A, item A3):
-speculative decoding, the prefill/decode roles with page migration,
-the auto-tuned poll cadence with the observability metrics, and
-``network=`` with ``refresh_weights``.
+the prefill/decode roles with page migration, and the auto-tuned poll
+cadence with the observability metrics.
 """
 
 from __future__ import annotations
@@ -67,12 +92,14 @@ from ...framework.lazy import LazyScalar, LazyStack
 from ...io.bucketing import shape_bucket
 from . import paged_attention_kernel as _pak
 from .decode_model import (GPTDecodeWeights, ServingModelConfig,
-                           chunk_prefill_forward, decode_forward,
+                           chunk_prefill_forward, copy_decode_params_,
+                           decode_forward, extract_decode_params,
                            prefill_group_forward)
 from .kv_cache import SCRATCH_BLOCK, PagedKVCache, write_prompt_pages_group
 from .prefix_cache import PrefixCache
 from .sampling import sample_tokens
 from .scheduler import Request, Scheduler
+from .spec_decode import SPEC_SENTINEL, spec_decode_step
 
 #: the only phase role this slice serves
 ENGINE_ROLES = ("both",)
@@ -154,6 +181,10 @@ def _percentile(values, q):
     return float(np.percentile(values, q)) if values else None
 
 
+def _shapes(params: GPTDecodeWeights):
+    return [(n, tuple(p.shape)) for n, p in params.named_parameters()]
+
+
 def _deferred(feature: str, bullet: str):
     return NotImplementedError(
         f"{feature} is not ported yet; it is queued in ROADMAP.md "
@@ -169,9 +200,13 @@ class DecodeEngine:
     thread; ``submit`` is safe from anywhere and never touches the
     device.
 
-    ``params`` is a :class:`GPTDecodeWeights` on ``device`` (see
-    ``decode_model.params_from_numpy``); the pool takes its dtype.
-    ``device`` defaults to ``"cuda"`` and raises without a card.
+    ``network`` (the port's ``GPTForCausalLM``) or ``params`` (a
+    :class:`GPTDecodeWeights` on ``device``, see
+    ``decode_model.params_from_numpy``) with ``gpt_config``; the pool
+    takes the weights' dtype.  ``device`` defaults to ``"cuda"`` and
+    raises without a card.  ``draft`` (a network of the target's
+    geometry) or ``draft_params`` turns on speculative decoding with
+    ``spec_k`` proposals a window (default ``PADDLE_TORCH_SPEC_K``).
     ``prefill_chunk`` (a block multiple; default
     ``PADDLE_TORCH_PREFILL_CHUNK``, unset = off) admits prompts longer
     than it chunk by chunk, one chunk per engine step, and lifts the
@@ -197,22 +232,18 @@ class DecodeEngine:
                  device=None,
                  draft=None, draft_params=None,
                  spec_k: Optional[int] = None):
-        if network is not None:
-            raise _deferred("network= (a training GPTForCausalLM)",
-                            "network= and refresh_weights")
         if role != "both":
             raise _deferred(f"role={role!r} with page migration",
                             "Roles prefill and decode with migration.py")
-        if draft is not None or draft_params is not None or \
-                spec_k is not None:
-            raise _deferred("speculative decoding (draft=/spec_k=)",
-                            "Speculative decoding")
         if done_poll_interval is None:
             raise _deferred("the auto-tuned done-poll cadence",
                             "The auto-tuned poll cadence")
         self._device = resolve_device(device)
+        if network is not None:
+            params = extract_decode_params(network, device=self._device)
+            gpt_config = network.config
         if params is None or gpt_config is None:
-            raise ValueError("need params= and gpt_config=")
+            raise ValueError("need network= or (params=, gpt_config=)")
         if params.wte.device != self._device:
             raise ValueError(
                 f"params live on {params.wte.device}, engine device is "
@@ -223,6 +254,41 @@ class DecodeEngine:
                      else ServingModelConfig.from_gpt_config(gpt_config))
         cfg = self._cfg
         self._params = params
+        # -- speculative decoding: the draft shares the target's pool,
+        # so it must have the target's serving geometry (a draft of
+        # another geometry needs a weight pool of its own)
+        if draft is not None and draft_params is None:
+            dcfg = ServingModelConfig.from_gpt_config(draft.config)
+            if dcfg != cfg:
+                raise ValueError(
+                    f"draft model geometry {dcfg} != target {cfg}: "
+                    "speculative decoding shares the target's paged "
+                    "pool, so the draft must match its serving geometry")
+            draft_params = extract_decode_params(draft, device=self._device)
+        if draft_params is not None:
+            if _shapes(draft_params) != _shapes(params):
+                raise ValueError(
+                    "draft_params shapes do not match the target's "
+                    "serving params: speculative decoding requires the "
+                    "same pool/model geometry")
+            if draft_params.wte.dtype != params.wte.dtype or \
+                    draft_params.wte.device != self._device:
+                raise ValueError(
+                    f"draft_params are {draft_params.wte.dtype} on "
+                    f"{draft_params.wte.device}; the target's are "
+                    f"{params.wte.dtype} on {self._device}")
+            if spec_k is None:
+                spec_k = env_knobs.get_int("PADDLE_TORCH_SPEC_K", 4)
+            if int(spec_k) < 1:
+                raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+            self.spec_k = int(spec_k)
+        else:
+            if spec_k is not None:
+                raise ValueError(
+                    "spec_k= without draft=/draft_params=: speculation "
+                    "needs a proposal model")
+            self.spec_k = 0
+        self._draft_params = draft_params
         self.role = role
         self.max_batch = int(max_batch)
         self.block_size = int(block_size)
@@ -240,7 +306,8 @@ class DecodeEngine:
                                 device=self._device)
         self.scheduler = Scheduler(self._kv.allocator, block_size,
                                    max_queue=max_queue,
-                                   max_context=self.max_context)
+                                   max_context=self.max_context,
+                                   lookahead=self.spec_k)
         if prefill_buckets is None:
             prefill_buckets = _default_buckets(block_size,
                                                self.max_context)
@@ -281,19 +348,23 @@ class DecodeEngine:
         # host-side batch state (authoritative), held in the two int32
         # buffers it is staged from: the layout (page table, lengths),
         # copied before every dispatch, and the sampling vectors
-        # (temperature and top-p as float32 bits, seeds as uint32 bits),
-        # copied only when a seat or finalize changed them
+        # (temperature and top-p as float32 bits, seeds as uint32 bits,
+        # max_tokens, which only the speculative step reads), copied
+        # only when a seat or finalize changed them
         B, M = self.max_batch, self.max_blocks_per_seq
         self._layout_host = np.zeros(B * M + B, dtype=np.int32)
         self._tables = self._layout_host[:B * M].reshape(B, M)
         self._tables[:] = SCRATCH_BLOCK
+        # speculative: an upper bound of the device lengths (page growth
+        # only), brought back to the truth at each poll
         self._lengths = self._layout_host[B * M:]
-        self._samp_host = np.zeros(4 * B, dtype=np.int32)
+        self._samp_host = np.zeros(5 * B, dtype=np.int32)
         self._temps = self._samp_host[:B].view(np.float32)
         self._topks = self._samp_host[B:2 * B]
         self._topps = self._samp_host[2 * B:3 * B].view(np.float32)
         self._topps[:] = 1.0
-        self._seeds = self._samp_host[3 * B:].view(np.uint32)
+        self._seeds = self._samp_host[3 * B:4 * B].view(np.uint32)
+        self._maxt = self._samp_host[4 * B:]
         self._samp_stale = True
         # the decode step's static device buffers: the graph bakes in
         # their addresses, so they are written in place, never replaced
@@ -302,13 +373,32 @@ class DecodeEngine:
                                        device=dev)
         self._table_dev = self._layout_dev[:B * M].view(B, M)
         self._lengths_dev = self._layout_dev[B * M:]
-        self._samp_dev = torch.zeros(4 * B, dtype=torch.int32, device=dev)
+        self._samp_dev = torch.zeros(5 * B, dtype=torch.int32,
+                                     device=dev)
         self._temps_dev = self._samp_dev[:B].view(torch.float32)
         self._topks_dev = self._samp_dev[B:2 * B]
         self._topps_dev = self._samp_dev[2 * B:3 * B].view(torch.float32)
-        self._seeds_dev = self._samp_dev[3 * B:]
+        self._seeds_dev = self._samp_dev[3 * B:4 * B]
+        self._maxt_dev = self._samp_dev[4 * B:]
         self._tokens = torch.zeros(B, dtype=torch.int32, device=dev)
         self._done = torch.zeros(B, dtype=torch.bool, device=dev)
+        if self.spec_k:
+            # a window commits a count the host does not know: lengths
+            # and tokens committed (gen) ride the loop on the device,
+            # next to the [B, k+1] window the step emits into
+            self._spec_state = torch.zeros(2 * B, dtype=torch.int32,
+                                           device=dev)
+            self._lengths_dev = self._spec_state[:B]
+            self._gen = self._spec_state[B:]
+            self._emit = torch.zeros(B, self.spec_k + 1, dtype=torch.int32,
+                                     device=dev)
+        # host view of gen: an upper bound (+k+1 a dispatch) gating the
+        # poll without an EOS id, and the count credited at the last poll
+        self._gen_ub = np.zeros(B, dtype=np.int64)
+        self._gen_seen = np.zeros(B, dtype=np.int64)
+        self._spec_dispatches = 0
+        self._spec_lanes = 0               # active lanes summed over them
+        self._spec_emitted = 0             # tokens they committed (polled)
         # one captured step per variant (False: greedy-only, True:
         # mixed), sharing one graph pool; CUDA only
         self._graph_pool = (torch.cuda.graph_pool_handle()
@@ -378,6 +468,19 @@ class DecodeEngine:
         if self._last_dispatch_t is not None:
             self._intertoken.append(now - self._last_dispatch_t)
         self._last_dispatch_t = now
+        if self.spec_k:
+            self._push_window(active, stack, now)
+            self._dispatch_host.append(time.perf_counter() - t0)
+            # without an EOS id, max_tokens is the only way a lane ends,
+            # and the upper bound of gen says when one may have: the
+            # poll (a sync) fires then, never earlier
+            if self.eos_id is None:
+                if any(self._gen_ub[s] >= self._slots[s].max_tokens
+                       for s in active):
+                    self._poll_done()
+            elif self._dispatches % self.done_poll_interval == 0:
+                self._poll_done()
+            return True
         to_finish = []
         for s in active:
             req = self._slots[s]
@@ -395,25 +498,50 @@ class DecodeEngine:
             self._poll_done()
         return True
 
+    def _push_window(self, active: List[int], stack: LazyStack, now: float):
+        """A speculative dispatch's host side: ``k+1`` lazy views a lane
+        (sentinels past the accepted prefix, stripped at finalize), and
+        the length and gen upper bounds advanced by the window's most.
+        Completion is the device's to detect, so nothing finishes
+        here."""
+        w = self.spec_k + 1
+        self._spec_dispatches += 1
+        self._spec_lanes += len(active)
+        for s in active:
+            req = self._slots[s]
+            for j in range(w):
+                req.push_token(LazyScalar(
+                    stack, post=(lambda a, i=s, jj=j: a[i, jj])), now)
+            self._gen_ub[s] += w
+            if not req.capped:
+                self._lengths[s] += w
+
     def _decode_dispatch(self, mixed: Optional[bool] = None
                          ) -> torch.Tensor:
         """THE decode dispatch: stage the host state into the static
         buffers, run the step (a replay on the card) and return a copy
-        of the emitted ``[B]`` tokens, all enqueued without waiting for
-        the device.  ``mixed`` picks the variant (default: whether any
-        slot samples)."""
-        self._layout_dev.copy_(torch.from_numpy(self._layout_host),
-                               non_blocking=True)
+        of the emitted tokens (``[B]``; speculative ``[B, k+1]``), all
+        enqueued without waiting for the device.  ``mixed`` picks the
+        variant (default: whether any slot samples).  Speculative: the
+        lengths live on the device, so only the page table is staged,
+        and the sampling vectors carry ``max_tokens`` for both
+        variants."""
+        if self.spec_k:
+            self._table_dev.copy_(torch.from_numpy(self._tables),
+                                  non_blocking=True)
+        else:
+            self._layout_dev.copy_(torch.from_numpy(self._layout_host),
+                                   non_blocking=True)
         if mixed is None:
             mixed = bool((self._temps > 0.0).any())
-        if mixed and self._samp_stale:
+        if (mixed or self.spec_k) and self._samp_stale:
             self._samp_dev.copy_(torch.from_numpy(self._samp_host),
                                  non_blocking=True)
             self._samp_stale = False
         self._run_step(mixed)
-        # the next replay overwrites the static tokens: the LazyStack
+        # the next replay overwrites the static output: the LazyStack
         # takes a copy
-        return self._tokens.clone()
+        return (self._emit if self.spec_k else self._tokens).clone()
 
     def _run_step(self, mixed: bool):
         if self._device.type != "cuda":
@@ -428,6 +556,8 @@ class DecodeEngine:
         step = CapturedCall(self._device, self._graph_pool,
                             ledgers=[_LEDGER],
                             capture_error_mode="thread_local")
+        # the warm-up also makes K1's split workspaces on the graph's
+        # stream: one for [B] rows, and for the verify's [B*(k+1)]
         step.warm_up(lambda: self._decode_body(mixed))
         step.capture(lambda: self._decode_body(mixed))
         self._steps[mixed] = step
@@ -438,6 +568,9 @@ class DecodeEngine:
         token's K/V per active slot to the pool, and writes the emitted
         tokens and the done mask in place.  The graph's body on the
         card."""
+        if self.spec_k:
+            self._spec_body(mixed)
+            return
         lengths = self._lengths_dev
         active = (lengths > 0) & torch.logical_not(self._done)
         logits = decode_forward(self._params, self._cfg, self._kv.pool,
@@ -454,6 +587,32 @@ class DecodeEngine:
         if self.eos_id is not None:
             self._done.logical_or_(active & (nxt == int(self.eos_id)))
         self._tokens.copy_(torch.where(active, nxt, self.pad_id))
+
+    def _spec_body(self, mixed: bool) -> None:
+        """The speculative step on the static buffers: one window
+        (:func:`~.spec_decode.spec_decode_step`), then the device-resident
+        loop state updated in place: lengths and gen advance by the
+        tokens committed, a lane is done at an EOS among them or at
+        ``gen >= max_tokens``, the last token feeds back, and the window
+        lands in the static ``[B, k+1]`` emit buffer."""
+        k = self.spec_k
+        lengths, gen, done = self._lengths_dev, self._gen, self._done
+        active = (lengths > 0) & torch.logical_not(done)
+        emit, last, n_emit = spec_decode_step(
+            self._params, self._draft_params, self._cfg, k, self._kv.pool,
+            self._table_dev, lengths, self._tokens, active,
+            self._temps_dev, self._topks_dev, self._topps_dev,
+            self._seeds_dev, greedy=not mixed)
+        lengths.add_(n_emit)               # n_emit is 0 on inactive rows
+        gen.add_(n_emit)
+        if self.eos_id is not None:
+            offs = torch.arange(k + 1, dtype=torch.int32,
+                                device=lengths.device)
+            hit = (offs[None] < n_emit[:, None]) & (emit == int(self.eos_id))
+            done.logical_or_(active & hit.any(dim=1))
+        done.logical_or_(active & (gen >= self._maxt_dev))
+        self._tokens.copy_(last)
+        self._emit.copy_(emit)
 
     def run_until_idle(self, max_dispatches: int = 100_000):
         """Pump :meth:`step` until queue and batch drain."""
@@ -480,6 +639,7 @@ class DecodeEngine:
         self._topks[slot] = req.top_k
         self._topps[slot] = req.top_p
         self._seeds[slot] = np.uint32(req.seed & 0xFFFFFFFF)
+        self._maxt[slot] = req.max_tokens
         self._samp_stale = True
 
     def _cache_insert(self, req: Request, start: int, chain: bytes,
@@ -507,7 +667,7 @@ class DecodeEngine:
         live prefix-cache hit depth under discounted admission (the
         match is taken HERE, references and pins included, so the
         discount is against entries that can no longer be evicted)."""
-        base = req.worst_case_blocks(self.block_size)
+        base = req.worst_case_blocks(self.block_size, self.spec_k)
         if not self._reserve_discount:
             return base
         entries, chain = self._prefix.match(req.prompt, count=False)
@@ -598,12 +758,28 @@ class DecodeEngine:
                            LazyScalar(stack, post=(lambda a, i=g: a[i])),
                            now)
 
-    def _join(self, slot: int, tok_dev):
+    def _join(self, slot: int, tok_dev, length: int):
         """Join a seated request into the device loop state (its first
-        token and a cleared done flag), in place on the current stream:
-        earlier dispatches' LazyStacks hold copies."""
+        token and a cleared done flag; speculative: its length and one
+        token committed), in place on the current stream: earlier
+        dispatches' LazyStacks hold copies."""
         self._tokens[slot] = tok_dev
         self._done[slot] = False
+        if self.spec_k:
+            self._lengths_dev[slot] = length
+            self._gen[slot] = 1
+            self._gen_ub[slot] = self._gen_seen[slot] = 1
+
+    def _spec_clear(self, slots: Sequence[int]):
+        """Take slots out of the speculative loop on the device (done,
+        length 0): the lengths live there, and a stale positive one
+        would run a dead lane."""
+        for slot in slots:
+            self._tokens[slot] = 0
+            self._done[slot] = True
+            self._lengths_dev[slot] = 0
+            self._gen[slot] = 0
+            self._gen_ub[slot] = self._gen_seen[slot] = 0
 
     def _seat(self, slot: int, req: Request, blocks: List[int], tok_dev,
               first_tok, now: float):
@@ -621,7 +797,7 @@ class DecodeEngine:
                                list(req.blocks))
         req.prefilling = False
         self._set_sampling(slot, req)
-        self._join(slot, tok_dev)
+        self._join(slot, tok_dev, len(req.prompt))
         req.push_token(first_tok, now)
         if req.max_tokens == 1:
             self._finalize(slot)
@@ -684,7 +860,7 @@ class DecodeEngine:
         self._lengths[slot] = Lp
         req.prefilling = False
         self._set_sampling(slot, req)
-        self._join(slot, tok)
+        self._join(slot, tok, Lp)
         req.push_token(LazyScalar(tok), time.monotonic())
         if req.max_tokens == 1:
             self._finalize(slot)
@@ -693,13 +869,18 @@ class DecodeEngine:
         """Append-allocate blocks for requests whose next write crosses
         a block boundary.  A slot at its budget is a device-done request
         the host has not polled yet: growth and length advance stop and
-        its masked writes land in scratch."""
+        its masked writes land in scratch.  Speculative: the next window
+        writes up to ``k`` positions past the length, and the host
+        length is an upper bound of the device's, so covering it covers
+        every real write; the budget includes the look-ahead, so
+        rejection churn never runs the pool dry."""
         for s in active:
             req = self._slots[s]
             if req.capped:
                 continue
             have = req.n_prefix_blocks + len(req.blocks)
-            need = self._kv.blocks_for_tokens(int(self._lengths[s]) + 1)
+            need = self._kv.blocks_for_tokens(int(self._lengths[s]) + 1,
+                                              lookahead=self.spec_k)
             while have < need:
                 if have >= req.block_budget or \
                         have >= self.max_blocks_per_seq:
@@ -715,11 +896,34 @@ class DecodeEngine:
         """THE periodic sync: fetch the ``[B]`` device done mask so
         EOS'd requests free their slot and pages.  A chunk-prefilling
         slot has not joined the loop yet: its flag is its
-        predecessor's."""
-        done = self._done.cpu().numpy()
+        predecessor's.  Speculative: the same one fetch brings the
+        lengths and gen too (:meth:`_reconcile_spec`)."""
+        if self.spec_k:
+            B = self.max_batch
+            state = torch.cat([self._done.to(torch.int32),
+                               self._spec_state]).cpu().numpy()
+            done = state[:B].astype(bool)
+            self._reconcile_spec(state[B:2 * B], state[2 * B:])
+        else:
+            done = self._done.cpu().numpy()
         for s, req in enumerate(self._slots):
             if req is not None and bool(done[s]) and not req.prefilling:
                 self._finalize(s)
+
+    def _reconcile_spec(self, lens: np.ndarray, gen: np.ndarray):
+        """Fold one poll's device truth into the host: the length upper
+        bounds drop to the lengths, the gen bounds to gen, and the
+        tokens committed since the last poll are credited (tokens per
+        lane-dispatch; the accept rate is ``(that - 1) / k``)."""
+        for s, req in enumerate(self._slots):
+            if req is None or req.prefilling:
+                continue
+            self._lengths[s] = lens[s]
+            self._gen_ub[s] = int(gen[s])
+            d = int(gen[s]) - int(self._gen_seen[s])
+            if d > 0:
+                self._spec_emitted += d
+                self._gen_seen[s] = int(gen[s])
 
     def _release_slot(self, slot: int, req: Request):
         """Give back a leaving request's reservation, blocks, prefix
@@ -740,18 +944,25 @@ class DecodeEngine:
         self._topks[slot] = 0
         self._topps[slot] = 1.0
         self._seeds[slot] = 0
+        self._maxt[slot] = 0
         self._samp_stale = True
 
     def _finalize(self, slot: int):
         """Resolve a leaving request: reading its lazy tokens is the
-        sanctioned device→host copy."""
+        sanctioned device→host copy.  The sentinels go, then the last
+        window's tokens past ``max_tokens`` (the device stops after the
+        window that crosses it), then the EOS cut; a plain engine emits
+        no sentinel and no token past ``max_tokens``."""
         req = self._slots[slot]
-        toks = [int(t) for t in req.lazy_tokens]
+        toks = [t for t in map(int, req.lazy_tokens)
+                if t != SPEC_SENTINEL][:req.max_tokens]
         if self.eos_id is not None and self.eos_id in toks:
             toks = toks[:toks.index(self.eos_id) + 1]
         req.stats.finished = time.monotonic()
         req.stats.generated = len(toks)
         self._release_slot(slot, req)
+        if self.spec_k:
+            self._spec_clear([slot])
         self._total_tokens += len(toks)
         self._latency.append(req.stats.latency)
         if req.stats.ttft is not None:
@@ -762,15 +973,39 @@ class DecodeEngine:
         """Fail every in-flight and queued request with ``exc`` and
         release its pool state (server teardown path)."""
         self._prefill_jobs.clear()
+        released = []
         for s, req in enumerate(self._slots):
             if req is None:
                 continue
             self._release_slot(s, req)
+            released.append(s)
             if not req.future.done():
                 req.future.set_exception(exc)
         for req in self.scheduler.drain_waiting():
             if not req.future.done():
                 req.future.set_exception(exc)
+        if self.spec_k:
+            # after every future is failed: a device fault raises here
+            self._spec_clear(released)
+
+    def load_params(self, params: GPTDecodeWeights,
+                    draft_params: Optional[GPTDecodeWeights] = None):
+        """Copy new weights into the served ones IN PLACE (and into the
+        draft's, given ``draft_params``): the captured steps hold the
+        weight tensors' addresses, so their next replays read the new
+        values and nothing is captured again.  Shapes and dtypes must
+        match (``ValueError``).  Call it with no dispatch running (the
+        pump stopped)."""
+        if draft_params is not None and not self.spec_k:
+            raise ValueError("draft weights on a non-speculative engine: "
+                             "construct it with draft= first")
+        if draft_params is not None and self._draft_params is self._params:
+            raise ValueError("the draft is the target's own weights "
+                             "(draft_params=params): refresh the target "
+                             "alone")
+        copy_decode_params_(self._params, params)
+        if draft_params is not None:
+            copy_decode_params_(self._draft_params, draft_params)
 
     def release_graphs(self):
         """Free the captured decode steps (the next dispatch of each
@@ -861,6 +1096,16 @@ class DecodeEngine:
               "decode_capture_s": {("mixed" if m else "greedy"): s.capture_s
                                    for m, s in self._steps.items()},
               "kv": self._kv.allocator.stats()}
+        if self.spec_k:
+            # per active lane and dispatch, over the polls so far: a
+            # live lane commits 1 + accept*k tokens a window
+            tpd = (self._spec_emitted / self._spec_lanes
+                   if self._spec_lanes else None)
+            st["spec"] = {
+                "k": self.spec_k, "dispatches": self._spec_dispatches,
+                "tokens_per_dispatch": tpd,
+                "accept_rate": (None if tpd is None else
+                                max(0.0, min(1.0, (tpd - 1.0) / self.spec_k)))}
         if self._prefix is not None:
             st["prefix_cache"] = self._prefix.stats()
         st.update(self.compile_stats())

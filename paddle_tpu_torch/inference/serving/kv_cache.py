@@ -189,9 +189,11 @@ class PagedKVCache:
             dtype=dtype, device=device)
         self.allocator = BlockAllocator(num_blocks)
 
-    def blocks_for_tokens(self, n_tokens: int) -> int:
-        """Pages covering ``n_tokens`` positions."""
-        return -(-int(n_tokens) // self.block_size)
+    def blocks_for_tokens(self, n_tokens: int, lookahead: int = 0) -> int:
+        """Pages covering ``n_tokens`` committed positions plus
+        ``lookahead`` uncommitted write positions past them (a
+        speculative window's draft and verify appends)."""
+        return -(-(int(n_tokens) + int(lookahead)) // self.block_size)
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,8 @@ only within the port.
 has no host branch.  :func:`sample_tokens_host` takes host sequences
 (the eager prefill paths) and skips the filters and the noise when no
 row samples, as the JAX package's ``lax.cond`` on ``any(temperature >
-0)`` does.
+0)`` does.  :func:`sample_tokens_grid` is the ``[B, S]`` window form
+that the speculative verify samples with.
 """
 
 from __future__ import annotations
@@ -131,3 +132,30 @@ def sample_tokens_host(logits, temperature, top_k, top_p, seed,
                          stage(top_k, np.int64), stage(top_p, np.float32),
                          stage(np.asarray(seed, np.int64) & _M32, np.int64),
                          stage(position, np.int64))
+
+
+def sample_tokens_grid(logits, temperature, top_k, top_p, seed, positions,
+                       greedy: bool = False):
+    """``[B, S, V]`` logits → ``[B, S]`` int32 tokens: the window form
+    for the speculative verify.
+
+    The per-request vectors stay ``[B]``; ``positions`` ``[B, S]`` is
+    each window slot's sequence index.  The window is flattened into the
+    batch axis and handed to :func:`sample_tokens` with the vectors
+    repeated ``S`` times, so slot ``(b, i)`` draws the noise of ``(seed_b,
+    positions[b, i])`` that the one-token path draws at that index: the
+    speculative accept rule's exactness rests on it.  ``greedy`` (a host
+    flag: the all-greedy variant of the captured step) takes the argmax
+    over the grid alone.
+    """
+    B, S, V = logits.shape
+    if greedy:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+
+    def rep(x):
+        return x[:, None].expand(B, S).reshape(B * S)
+
+    flat = sample_tokens(logits.reshape(B * S, V), rep(temperature),
+                         rep(top_k), rep(top_p), rep(seed),
+                         positions.reshape(B * S))
+    return flat.reshape(B, S)

@@ -127,10 +127,13 @@ class Request:
         cache-owned; the request holds one reference each)."""
         return len(self.prefix_entries)
 
-    def worst_case_blocks(self, block_size: int) -> int:
+    def worst_case_blocks(self, block_size: int,
+                          lookahead: int = 0) -> int:
         # prompt positions + one cache write per decode dispatch (the
-        # last generated token is emitted, never written)
-        need = len(self.prompt) + self.max_tokens - 1
+        # last generated token is emitted, never written); `lookahead`
+        # covers the writes a speculative window makes past the
+        # committed length before it knows how many commit
+        need = len(self.prompt) + self.max_tokens - 1 + int(lookahead)
         return -(-need // block_size)
 
     def push_token(self, lazy_tok, t_now: float):
@@ -147,16 +150,20 @@ class Scheduler:
     """FCFS waiting queue with block-budget admission control."""
 
     def __init__(self, allocator, block_size: int, max_queue: int = 64,
-                 max_context: Optional[int] = None):
+                 max_context: Optional[int] = None, lookahead: int = 0):
         self.allocator = allocator
         self.block_size = int(block_size)
         self.max_queue = int(max_queue)
         self.max_context = max_context
+        # per-dispatch write look-ahead folded into every worst case
+        # (admission reservation and growth budget): a speculative
+        # engine's k uncommitted writes never outrun the allocation
+        self.lookahead = int(lookahead)
         self._waiting: deque = deque()
         self._lock = threading.Lock()
 
     def submit(self, req: Request) -> Request:
-        need = req.worst_case_blocks(self.block_size)
+        need = req.worst_case_blocks(self.block_size, self.lookahead)
         if need > self.allocator.capacity:
             raise ValueError(
                 f"request needs {need} blocks worst-case but the pool "
@@ -199,14 +206,16 @@ class Scheduler:
             while free_slots > 0 and self._waiting:
                 req = self._waiting[0]
                 need = (need_fn(req) if need_fn is not None
-                        else req.worst_case_blocks(self.block_size))
+                        else req.worst_case_blocks(self.block_size,
+                                                   self.lookahead))
                 if not self.allocator.reserve(need):
                     if cancel_fn is not None:
                         cancel_fn(req)
                     break           # strict FCFS: no head-of-line skip
                 self._waiting.popleft()
                 req.reserved_blocks = need
-                req.block_budget = req.worst_case_blocks(self.block_size)
+                req.block_budget = req.worst_case_blocks(
+                    self.block_size, self.lookahead)
                 req.stats.admitted = now
                 admitted.append(req)
                 free_slots -= 1

@@ -49,7 +49,7 @@ class DataLoader:
         if num_workers:
             raise NotImplementedError(
                 "DataLoader worker processes are not ported yet (ROADMAP "
-                "queue A, item 7: io worker processes); use "
+                "queue A, item 9: io worker processes); use "
                 "num_workers=0")
         if batch_size is None or int(batch_size) < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")

@@ -188,7 +188,7 @@ class GPTDecoderLayer(tnn.Module):
         if config.recompute:
             raise NotImplementedError(
                 "GPTConfig(recompute=True) needs fleet recompute, not "
-                "ported yet (ROADMAP queue A, item 8)")
+                "ported yet (ROADMAP queue A, item 10)")
         eps = config.layer_norm_epsilon
         self.ln1 = nn.LayerNorm(config.hidden_size, epsilon=eps,
                                 device=device)
