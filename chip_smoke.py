@@ -114,6 +114,31 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
    max) of a 48-token stream, each token read as it comes, while a
    4032-token prompt is admitted with ``prefill_chunk=512`` and with
    the whole prompt at once (bf16, pages of 16), each run warmed once;
+6f. ``[serve disagg fp32]`` / ``[serve disagg bf16]``: the 12 requests
+   of 5/6 through a ``DisaggRouter`` over a prefill-role and a
+   decode-role ``LLMServer`` (each warmed, each engine on its own CUDA
+   stream), every request a page migration: fp32 tokens equal the
+   role-both engine's of this run and ``reference_decode`` for two
+   requests, bf16 tokens equal or departing within ``BF16_GAP_ULPS``
+   (teacher-forced, as 6a); 12 migrations imported,
+   ``exported_blocks == imported_blocks``, both allocators empty, K1
+   launched 12 times per decode dispatch (per replay) and the prefill
+   engine no dispatch and no capture, the decode engine at most 2
+   captures, ``_cuda_core_paged`` never; prints tokens/s beside the
+   role-both engine's, TTFT and inter-token p50/p99,
+   ``serving_migration_s`` p50/p99 and the blocks migrated, and the
+   export's and the import's device ms a migration (profiled window);
+6g. ``[serve disagg gap]``: 6e's scenario through a ``DisaggRouter``
+   (the stream hands off to the decode-role replica, the long prompt
+   goes to the same prefill-role replica), the stream's inter-token
+   p50/p99/max beside 6e's of this run;
+6h. ``[serve router]``: a ``ServingRouter`` over two role-both
+   ``LLMServer`` replicas sharing the fp32 weights (``metrics_port=0``):
+   tokens equal 5's, each replica serves some; ``control_round`` with
+   the pumps idle under ``torch.cuda.set_sync_debug_mode("error")``;
+   ``/metrics`` names both replicas' ``serving_tokens_total``,
+   ``/events`` is a list, ``scrape(materialize=True)`` equals each
+   engine's token count; prints the round's host microseconds;
 7. ``[train]`` trains GPT-2-small at full width through
    ``Model.fit``: B=8, S=1024, dropout 0, ``amp.decorate(level="O2",
    dtype="bfloat16")``, ``AdamW(1e-4, multi_precision=True)``, random
@@ -875,11 +900,12 @@ def serving_phase(torch, seed, dtype, tag, check_oracle):
         pak.paged_ragged_attention.launches = 0
         pak._cuda_core_paged.launches = 0
         server.start()
-        t0 = time.monotonic()
-        futs = [server.submit(p, max_tokens=m)
-                for p, m in zip(prompts, REQ_MAX)]
-        results = [f.result(timeout=600) for f in futs]
-        wall = time.monotonic() - t0
+        with traced() as spans:
+            t0 = time.monotonic()
+            futs = [server.submit(p, max_tokens=m)
+                    for p, m in zip(prompts, REQ_MAX)]
+            results = [f.result(timeout=600) for f in futs]
+            wall = time.monotonic() - t0
         launches = pak.paged_ragged_attention.launches
         core_launches = pak._cuda_core_paged.launches
         st = server.stats()
@@ -924,7 +950,8 @@ def serving_phase(torch, seed, dtype, tag, check_oracle):
           f"{captures}, capture s greedy {cap['greedy']:.4f} mixed "
           f"{cap['mixed']:.4f}, graph pool "
           f"{'n/a' if pool is None else f'{pool / 2**20:.1f} MiB'}; "
-          f"warmup_s={warm['warmup_s']:.3f}", flush=True)
+          f"warmup_s={warm['warmup_s']:.3f}; {spans_line(spans)}",
+          flush=True)
     if check_oracle:
         for i in ORACLE_REQS:
             _oracle_check(torch, f"{tag} request {i}", params, scfg,
@@ -945,7 +972,36 @@ def serving_phase(torch, seed, dtype, tag, check_oracle):
             "dispatch_host_us": st["dispatch_host_us_p50"],
             "ttft_p50_s": st["ttft_p50_s"],
             "intertoken_p50_s": st["intertoken_p50_s"],
-            "tokens": [r.tokens for r in results], "profile": prof}
+            "tokens": [r.tokens for r in results], "profile": prof,
+            "spans": spans}
+
+
+def traced():
+    """A context that arms ``observability.trace`` around a timed run
+    and yields the dict its span summary fills at exit (host ms per
+    span name: prefill forwards, decode dispatches, migrations)."""
+    import contextlib
+    from paddle_tpu_torch.observability import trace
+
+    @contextlib.contextmanager
+    def run():
+        out = {}
+        trace.clear()
+        trace.enable()
+        try:
+            yield out
+        finally:
+            trace.disable()
+            out.update(trace.summary())
+            trace.clear()
+    return run()
+
+
+def spans_line(spans):
+    """The host time of the traced run's engine spans, in words."""
+    return "host ms in spans (count, total, max): " + ", ".join(
+        f"{k} {v['count']} {v['total']:.3f} {v['max']:.3f}"
+        for k, v in sorted(spans.items()) if k.startswith("serving."))
 
 
 REPLAY_CALLS = 20                # replays timed alone on the host
@@ -1669,6 +1725,394 @@ def chunk_gap_phase(torch, seed):
               f"{r['admit_busy_ms']:.3f} ms" for k, r in res.items()),
           flush=True)
     return res
+
+
+DISAGG_RETRY_S = 0.005           # DisaggRouter's retry loop for parked
+                                 # tickets
+DISAGG_PROFILE_MAX = 4           # the profiled window: the first
+                                 # PROFILE_REQS prompts, 4 tokens each
+
+
+def _bf16_departures(torch, name, params, scfg, prompts, results, want):
+    """bf16 tokens against another engine's (``want``): equal, or
+    departing where the two tokens' logits lie within ``BF16_GAP_ULPS``
+    bf16 ulps; then every token against the argmax of its own prefix's
+    teacher-forced logits.  Returns (departures, not argmax, worst gap
+    in ulps)."""
+    departures = []
+    for i, (r, w) in enumerate(zip(results, want)):
+        d = _departure(torch, params, scfg, prompts[i], r.tokens, w)
+        if d is None:
+            continue
+        j, gap, ulp, top2 = d
+        departures.append((i, j))
+        print(f"{name} request {i} departs at token {j} ({r.tokens[j]} vs "
+              f"{w[j]}): their logits differ by {gap:.6g} = "
+              f"{gap / ulp:.3f} bf16 ulps; top-2 logits {top2}", flush=True)
+        check(gap <= BF16_GAP_ULPS * ulp, f"{name} request {i}: the "
+              f"departure's logit gap {gap:.6g} exceeds {BF16_GAP_ULPS} "
+              f"bf16 ulps ({BF16_GAP_ULPS * ulp:.6g})")
+    not_top, worst = 0, 0.0
+    for i, r in enumerate(results):
+        for j, (gap, ulp) in enumerate(teacher_forced_gaps(
+                torch, params, scfg, prompts[i], r.tokens)):
+            not_top += gap > 0
+            worst = max(worst, gap / ulp)
+            check(gap <= BF16_GAP_ULPS * ulp, f"{name} request {i} token "
+                  f"{j} ({r.tokens[j]}): its logit lies {gap:.6g} = "
+                  f"{gap / ulp:.3f} bf16 ulps below its prefix's largest")
+    return departures, not_top, worst
+
+
+def _disagg_router(torch, kw_pre, kw_dec, warm):
+    """A ``DisaggRouter`` over one prefill-role and one decode-role
+    ``LLMServer``, each warmed (``warm``: prompt lengths) before its pump
+    starts; no control loop, the retry loop every ``DISAGG_RETRY_S``.
+    Returns the router and the two servers."""
+    from paddle_tpu_torch.inference.serving import DisaggRouter, LLMServer
+    made = {}
+
+    def factory(role, kw):
+        def make():
+            server = LLMServer(role=role, auto_start=False, **kw)
+            server.warmup(warm)
+            made[role] = server
+            return server.start()
+        return make
+
+    router = DisaggRouter(factory("prefill", kw_pre),
+                          factory("decode", kw_dec),
+                          prefill_pool={"decision_interval_s": 0},
+                          decode_pool={"decision_interval_s": 0},
+                          retry_interval_s=DISAGG_RETRY_S)
+    return router, made["prefill"], made["decode"]
+
+
+def _role_gates(name, pre, dec, migrations):
+    """The tier's invariants after a run: the prefill engine never
+    decoded or captured, the decode engine captured at most its two
+    variants, ``migrations`` tickets were imported, export and import
+    accounting agree and both allocators are empty."""
+    pst, dst = pre.engine.stats(), dec.engine.stats()
+    check(pst["decode_captures"] == 0 and pst["dispatches"] == 0,
+          f"{name} the prefill engine ran {pst['dispatches']} decode "
+          f"dispatches, {pst['decode_captures']} captures")
+    check(dst["decode_captures"] <= 2, f"{name} the decode engine captured "
+          f"{dst['decode_captures']} times (imports must not capture again)")
+    got = int(dec.engine._c_migrations.collect(materialize=False))
+    check(got == migrations, f"{name} {got} migrations imported, want "
+          f"{migrations}")
+    a, b = pst["kv"], dst["kv"]
+    check(a["exported_blocks"] == b["imported_blocks"],
+          f"{name} exported {a['exported_blocks']} blocks, imported "
+          f"{b['imported_blocks']}")
+    for who, kv in (("prefill", a), ("decode", b)):
+        check(kv["free"] == kv["capacity"] and kv["reserved"] == 0
+              and kv["pinned"] == 0, f"{name} the {who} allocator is not "
+              f"empty after the run: {kv}")
+    return dst
+
+
+def migration_device_ms(torch, router, prompts):
+    """Profile ``router`` serving ``prompts`` (``DISAGG_PROFILE_MAX``
+    tokens each): device ms a migration of the export's gather
+    (``index_select`` kernels) and of the import's scatter
+    (``index_copy`` kernels), None where the trace holds no such
+    kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for f in [router.submit(p, max_tokens=DISAGG_PROFILE_MAX)
+                  for p in prompts]:
+            f.result(timeout=600)
+        torch.cuda.synchronize()
+    us = {"export": 0.0, "import": 0.0}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        key = e.name.lower().replace("_", "")
+        if "indexselect" in key:
+            us["export"] += e.time_range.elapsed_us()
+        elif "indexcopy" in key:
+            us["import"] += e.time_range.elapsed_us()
+    return {k: (v / 1e3 / len(prompts) if v else None)
+            for k, v in us.items()}
+
+
+def serve_disagg_phase(torch, seed, dtype, tag, plain):
+    """``[serve disagg fp32]`` / ``[serve disagg bf16]``: the 12 requests
+    of ``[serve fp32/bf16]`` through a ``DisaggRouter`` over a
+    prefill-role and a decode-role ``LLMServer`` (GPT-2-small, both on
+    the card, each engine on its own stream), every request handed off
+    as a page migration.  ``plain`` is the role-"both" engine's result
+    in the same dtype and run."""
+    from paddle_tpu_torch.inference.serving import (ServingModelConfig,
+                                                    params_from_numpy)
+    from paddle_tpu_torch.inference.serving import paged_attention_kernel as pak
+    from paddle_tpu_torch.models import gpt2_small, init_decode_weights_numpy
+    name = f"[serve disagg {tag}]"
+    cfg = gpt2_small()
+    scfg = ServingModelConfig.from_gpt_config(cfg)
+    L = cfg.num_hidden_layers
+    params = params_from_numpy(init_decode_weights_numpy(cfg, seed),
+                               device="cuda", dtype=dtype)
+    rng = np.random.default_rng(seed + 1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in REQ_LENS]
+    kw = dict(params=params, gpt_config=cfg, max_batch=8, block_size=16,
+              num_blocks=512, eos_id=None, device="cuda")
+    router, pre, dec = _disagg_router(torch, kw, kw, REQ_LENS)
+    try:
+        d0 = dec.engine.stats()["dispatches"]
+        pak.paged_ragged_attention.launches = 0
+        pak._cuda_core_paged.launches = 0
+        with traced() as spans:
+            t0 = time.monotonic()
+            futs = [router.submit(p, max_tokens=m)
+                    for p, m in zip(prompts, REQ_MAX)]
+            results = [f.result(timeout=600) for f in futs]
+            wall = time.monotonic() - t0
+        launches = pak.paged_ragged_attention.launches
+        core_launches = pak._cuda_core_paged.launches
+        check(router.pending_handoffs == 0,
+              f"{name} {router.pending_handoffs} tickets still parked")
+        dst = _role_gates(name, pre, dec, len(prompts))
+        de = dec.engine
+        mig = {"p50_s": de._h_migration.quantile(0.5),
+               "p99_s": de._h_migration.quantile(0.99),
+               "blocks": int(de._c_migrated_blocks.collect())}
+        dev_ms = migration_device_ms(torch, router,
+                                     prompts[:PROFILE_REQS])
+        # the same requests twice more, every kernel loaded by now
+        again = []
+        for _ in range(2):
+            with traced() as sp:
+                t0 = time.monotonic()
+                res = [f.result(timeout=600) for f in
+                       [router.submit(p, max_tokens=m)
+                        for p, m in zip(prompts, REQ_MAX)]]
+                w = time.monotonic() - t0
+            check([r.tokens for r in res] == [r.tokens for r in results],
+                  f"{name} a later run's tokens differ from the first's")
+            again.append((w, [r.stats.ttft for r in res], sp))
+    finally:
+        router.close()
+    dispatches = dst["dispatches"] - d0
+    for r, m in zip(results, REQ_MAX):
+        check(len(r.tokens) == m, f"{name} {len(r.tokens)} tokens != {m}")
+        check(all(0 <= t < cfg.vocab_size for t in r.tokens),
+              f"{name} token out of vocab")
+    check(launches == dispatches * L, f"{name} K1 launches {launches} != "
+          f"the decode engine's dispatches {dispatches} x {L} (per replay;"
+          " the prefill engine launches none)")
+    check(core_launches == 0, f"{name} the comparison entry "
+          f"_cuda_core_paged launched {core_launches} times")
+    if dtype == torch.float32:
+        for i, (r, want) in enumerate(zip(results, plain["tokens"])):
+            check(r.tokens == want, f"{name} request {i}: tokens differ from"
+                  " the role-both fp32 engine's")
+        for i in ORACLE_REQS:
+            _oracle_check(torch, f"{name} request {i}", params, scfg,
+                          prompts[i], results[i].tokens, REQ_MAX[i])
+        tok_line = ("all 12 requests' tokens equal the role-both fp32 "
+                    f"engine's; requests {ORACLE_REQS} equal "
+                    "reference_decode")
+    else:
+        deps, not_top, worst = _bf16_departures(
+            torch, name, params, scfg, prompts, results, plain["tokens"])
+        tok_line = (f"{12 - len(deps)} of 12 requests' tokens equal the "
+                    f"role-both bf16 engine's; departures (request, token) "
+                    f"{deps}, each within {BF16_GAP_ULPS} bf16 ulps; "
+                    f"teacher-forced, {not_top} tokens are not their "
+                    f"prefix's argmax, the farthest {worst:.3f} ulps below")
+    n_tok = sum(len(r.tokens) for r in results)
+
+    def ms(v):
+        return "not measured" if v is None else f"{v:.5f} ms"
+    print(f"{name} GPT-2-small, DisaggRouter over a prefill-role and a "
+          f"decode-role LLMServer on one card: {len(results)} requests, "
+          f"{n_tok} tokens in {wall:.4f} s = {n_tok / wall:.2f} tokens/s "
+          f"(role-both engine, this run: {plain['tokens_per_s']:.2f}); "
+          f"ttft p50 {dst['ttft_p50_s']:.6f} p99 {dst['ttft_p99_s']:.6f} s; "
+          f"inter-token p50 {dst['intertoken_p50_s']:.6f} p99 "
+          f"{dst['intertoken_p99_s']:.6f} s (host gaps of the decode "
+          f"engine); serving_migration_s p50 {mig['p50_s']:.6f} p99 "
+          f"{mig['p99_s']:.6f} s (histogram estimates); "
+          f"{len(results)} migrations, {mig['blocks']} blocks; decode "
+          f"dispatches {dispatches}, K1 launches {launches} (per replay; "
+          f"_cuda_core_paged {core_launches}), decode captures "
+          f"{dst['decode_captures']}, the prefill engine 0 dispatches and "
+          f"0 captures; device ms a migration (profiled, "
+          f"{PROFILE_REQS} requests): export {ms(dev_ms['export'])}, "
+          f"import {ms(dev_ms['import'])}; {spans_line(spans)} (role both,"
+          f" this run: {spans_line(plain['spans'])})", flush=True)
+    print(f"{name} {tok_line}", flush=True)
+    print(f"{name} the same requests twice more: " + "; ".join(
+        f"{n_tok / w:.2f} tokens/s, ttft p50 {np.percentile(tt, 50):.6f} "
+        f"p99 {np.percentile(tt, 99):.6f} s, {spans_line(sp)}"
+        for w, tt, sp in again), flush=True)
+    del router, pre, dec, params
+    torch.cuda.empty_cache()
+    return {"launches": launches, "dispatches": dispatches,
+            "tokens_per_s": n_tok / wall, "wall_s": wall,
+            "ttft_p50_s": dst["ttft_p50_s"], "ttft_p99_s": dst["ttft_p99_s"],
+            "intertoken_p50_s": dst["intertoken_p50_s"],
+            "intertoken_p99_s": dst["intertoken_p99_s"],
+            "migration": mig, "migration_device_ms": dev_ms,
+            "spans": spans,
+            "again_tokens_per_s": [n_tok / w for w, _, _ in again]}
+
+
+def disagg_gap_phase(torch, seed, role_both):
+    """``[serve disagg gap]``: ``[serve chunk gap]``'s scenario (bf16,
+    full width, 33280 positions, pages of 16, a 48-token stream read
+    token by token while a 4032-token prompt is admitted, in chunks of
+    512 and whole) through a ``DisaggRouter``: the stream is admitted
+    first and hands off to the decode-role replica, then the long prompt
+    goes to the same prefill-role replica.  Each configuration runs
+    twice; the second run is read.  ``role_both`` is ``[serve chunk
+    gap]``'s result from the same run."""
+    import threading
+    cfg = _long_cfg()
+    params = _long_params(torch, seed, torch.bfloat16)
+    rng = np.random.default_rng(seed + 10)
+    stream_prompt = rng.integers(0, cfg.vocab_size, 8).tolist()
+    long_prompt = rng.integers(0, cfg.vocab_size, 4032).tolist()
+    kw = dict(params=params, gpt_config=cfg, max_batch=2, block_size=16,
+              num_blocks=300, device="cuda")
+    res = {}
+    for chunk in (512, None):
+        name = f"[serve disagg gap] chunk {chunk}"
+        router, pre, dec = _disagg_router(
+            torch, dict(kw, prefill_chunk=chunk), kw, [8, 4032])
+        try:
+            for _ in range(2):
+                seen, started = [], threading.Event()
+
+                def cb(rid, i, tok, seen=seen, started=started):
+                    seen.append((int(tok), time.perf_counter()))
+                    if len(seen) >= 4:
+                        started.set()
+
+                fs = router.submit(stream_prompt, max_tokens=48,
+                                   stream_cb=cb)
+                check(started.wait(600), f"{name}: the stream did not start")
+                fl = router.submit(long_prompt, max_tokens=2)
+                fs.result(timeout=600)
+                fl.result(timeout=600)
+                gaps = np.diff([t for _, t in seen])
+            check(len(seen) == 48, f"{name}: {len(seen)} tokens streamed")
+            _role_gates(name, pre, dec, 4)
+        finally:
+            router.close()
+        res["whole" if chunk is None else f"chunk {chunk}"] = {
+            "p50_s": float(np.percentile(gaps, 50)),
+            "p99_s": float(np.percentile(gaps, 99)),
+            "max_s": float(gaps.max())}
+        del router, pre, dec
+        torch.cuda.empty_cache()
+    print("[serve disagg gap] a 48-token stream on the decode-role replica "
+          "while the prefill-role replica admits a 4032-token prompt (bf16, "
+          "full width, one card): inter-token s " + "; ".join(
+              f"{k}: p50 {r['p50_s']:.5f} p99 {r['p99_s']:.5f} max "
+              f"{r['max_s']:.5f} (role both, this run: p50 "
+              f"{role_both[k]['p50_s']:.5f} p99 {role_both[k]['p99_s']:.5f}"
+              f" max {role_both[k]['max_s']:.5f})" for k, r in res.items()),
+          flush=True)
+    return res
+
+
+def serve_router_phase(torch, seed, plain):
+    """``[serve router]``: a ``ServingRouter`` over two role-"both"
+    ``LLMServer`` replicas sharing one set of GPT-2-small fp32 weights
+    (``min_replicas=2``, no control loop, ``metrics_port=0``), the 12
+    requests of ``[serve fp32]``: tokens equal the plain engine's, each
+    replica serves some; then, with the pumps idle, ``control_round``
+    under ``torch.cuda.set_sync_debug_mode("error")`` (the control loop
+    never syncs), ``/metrics`` and ``/events`` over 127.0.0.1 and
+    ``scrape(materialize=True)`` against each engine's own count."""
+    import urllib.request
+    from paddle_tpu_torch import observability
+    from paddle_tpu_torch.inference.serving import (LLMServer, ServingRouter,
+                                                    params_from_numpy)
+    from paddle_tpu_torch.models import gpt2_small, init_decode_weights_numpy
+    cfg = gpt2_small()
+    params = params_from_numpy(init_decode_weights_numpy(cfg, seed),
+                               device="cuda", dtype=torch.float32)
+    rng = np.random.default_rng(seed + 1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in REQ_LENS]
+    made = []
+
+    def factory():
+        server = LLMServer(params=params, gpt_config=cfg, max_batch=8,
+                           block_size=16, num_blocks=512, eos_id=None,
+                           auto_start=False, device="cuda")
+        server.warmup(REQ_LENS)
+        made.append(server)
+        return server.start()
+
+    router = ServingRouter(factory, min_replicas=2, max_replicas=2,
+                           decision_interval_s=0, metrics_port=0)
+    try:
+        t0 = time.monotonic()
+        futs = [router.submit(p, max_tokens=m)
+                for p, m in zip(prompts, REQ_MAX)]
+        results = [f.result(timeout=600) for f in futs]
+        wall = time.monotonic() - t0
+        deadline = time.monotonic() + 60
+        while any(s.engine.active_count or s.engine.scheduler.queue_depth
+                  for s in made) and time.monotonic() < deadline:
+            time.sleep(0.01)
+        time.sleep(0.05)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t = time.perf_counter()
+            sig = router.control_round()
+            round_us = (time.perf_counter() - t) * 1e6
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        base = f"http://127.0.0.1:{router.metrics_port}"
+        text = urllib.request.urlopen(base + "/metrics",
+                                      timeout=30).read().decode()
+        events = json.load(urllib.request.urlopen(base + "/events",
+                                                  timeout=30))
+        snap = observability.scrape(materialize=True)
+        per = []
+        for s in made:
+            key = (f'serving_tokens_total{{engine="{s.engine._obs_id}",'
+                   'phase="both"}')
+            check(key + " " in text, f"[serve router] /metrics lacks {key}")
+            st = s.stats()
+            check(snap[key]["value"] == st["total_tokens"],
+                  f"[serve router] scrape {snap[key]['value']} != "
+                  f"stats {st['total_tokens']} for {key}")
+            per.append((st["completed"], st["total_tokens"]))
+        check(isinstance(events.get("events"), list),
+              f"[serve router] /events gave {events!r}")
+    finally:
+        router.close()
+    for i, (r, want) in enumerate(zip(results, plain["tokens"])):
+        check(r.tokens == want, f"[serve router] request {i}: tokens differ "
+              "from the plain fp32 engine's")
+    check(all(n >= 1 for n, _ in per), f"[serve router] a replica served no "
+          f"request: {per}")
+    n_tok = sum(len(r.tokens) for r in results)
+    print(f"[serve router] ServingRouter over two role-both LLMServers "
+          f"(GPT-2-small fp32, shared weights): {len(results)} requests, "
+          f"{n_tok} tokens in {wall:.4f} s = {n_tok / wall:.2f} tokens/s "
+          f"(one plain engine, this run: {plain['tokens_per_s']:.2f}); "
+          f"(requests, tokens) per replica {per}; tokens equal the plain "
+          f"engine's; control_round {round_us:.1f} host us under "
+          f"set_sync_debug_mode('error') (decision {sig['decision']}); "
+          f"/metrics names both replicas, /events a list of "
+          f"{len(events['events'])}, scrape(materialize=True) equals each "
+          f"engine's token count", flush=True)
+    del router, made, params
+    torch.cuda.empty_cache()
+    return {"round_us": round_us, "tokens_per_s": n_tok / wall}
 
 
 # ---------------------------------------------------------------------------
@@ -4506,7 +4950,11 @@ def main(argv=None) -> int:
     serve_noise_phase(torch, args.seed)
     slong = serve_long_phase(torch, args.seed)
     serve_prefix_phase(torch, args.seed)
-    chunk_gap_phase(torch, args.seed)
+    cgap = chunk_gap_phase(torch, args.seed)
+    sd32 = serve_disagg_phase(torch, args.seed, torch.float32, "fp32", s32)
+    sd16 = serve_disagg_phase(torch, args.seed, torch.bfloat16, "bf16", s16)
+    disagg_gap_phase(torch, args.seed, cgap)
+    serve_router_phase(torch, args.seed, s32)
     tres = train_phase(torch, args.seed)
     train_eager_phase(torch, args.seed, tres)
     train_fold_phase(torch, args.seed)
@@ -4568,6 +5016,8 @@ def main(argv=None) -> int:
                                  "tokens, bf16, in the engine's graph"},
         "cuda_core_serving_launches": s32["core_launches"]
         + s16["core_launches"],
+        "disagg_launches": sd32["launches"] + sd16["launches"],
+        "disagg_dispatches": sd32["dispatches"] + sd16["dispatches"],
         "spec_launches": sum(r["launches"] for r in
                              list(sp32.values()) + list(sp16.values())),
         "spec_launches_per_dispatch": sp32["self"]["launches_per_dispatch"],

@@ -24,7 +24,7 @@ PREFIX = "PADDLE_TORCH_"
 class Knob(NamedTuple):
     name: str      # full variable name, PADDLE_TORCH_ prefix included
     default: str   # documented default
-    kind: str      # bool | int | float — how consumers parse it
+    kind: str      # bool | int | float | str — how consumers parse it
     doc: str       # one line
 
 
@@ -72,6 +72,22 @@ _k("PADDLE_TORCH_SPEC_K", "4", "int",
    "DecodeEngine's default spec_k: draft tokens proposed per speculative "
    "decode dispatch, used only when the engine is given a draft "
    "(PADDLE_TPU_SPEC_K).")
+
+# -- observability (observability/) ------------------------------------------
+_k("PADDLE_TORCH_TRACE", "off", "bool",
+   "Arm the span recorder when paddle_tpu_torch.observability is imported "
+   "(PADDLE_TPU_TRACE).")
+_k("PADDLE_TORCH_TRACE_CAPACITY", "65536", "int",
+   "Events the span recorder's ring keeps when PADDLE_TORCH_TRACE arms "
+   "it; <= 0 keeps the default (PADDLE_TPU_TRACE_CAPACITY).")
+_k("PADDLE_TORCH_EVENTS_CAPACITY", "256", "int",
+   "Control-loop decisions the event ring keeps; <= 0 keeps the default "
+   "(PADDLE_TPU_EVENTS_CAPACITY).")
+
+# -- fault injection (distributed/resilience/faults.py) ----------------------
+_k("PADDLE_TORCH_FAULT_PLAN", "unset", "str",
+   "A fault plan as JSON, or @path to a JSON file, installed the first "
+   "time a fault site is consulted (PADDLE_FAULT_PLAN).")
 
 _TRUTHY = ("1", "true", "yes", "on")
 

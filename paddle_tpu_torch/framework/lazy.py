@@ -10,6 +10,13 @@ the views costs ONE device→host copy per dispatch, and a dispatch whose
 values nobody reads costs none.  The copy (``Tensor.cpu()``) waits for
 the device, so it is the consumer's sync, never the engine loop's.
 The tensor a stack holds must not be written in place afterwards.
+
+A serving engine on the card issues its work on a stream of its own,
+which the stream another thread reads on does not wait for; such a
+stack carries ``ready``, a CUDA event recorded after the tensor was
+written, and a read waits for that event before it copies (not for the
+whole stream, which may hold later dispatches or another engine's
+prefill).
 """
 
 from __future__ import annotations
@@ -26,17 +33,20 @@ def _to_host(value) -> np.ndarray:
 class LazyStack:
     """One device tensor shared by many :class:`LazyScalar` views."""
 
-    __slots__ = ("_dev", "_host")
+    __slots__ = ("_dev", "_host", "_ready")
 
-    def __init__(self, dev):
+    def __init__(self, dev, ready=None):
         self._dev = dev
         self._host = None
+        self._ready = ready             # CUDA event after dev's writes
 
     def _materialize(self) -> np.ndarray:
         """THE device→host copy for every view of this stack."""
         if self._host is None:
+            if self._ready is not None:
+                self._ready.synchronize()
             self._host = _to_host(self._dev)
-            self._dev = None
+            self._dev = self._ready = None
         return self._host
 
     def view(self, i: int) -> "LazyScalar":

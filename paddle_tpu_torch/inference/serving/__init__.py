@@ -1,8 +1,10 @@
 """paddle_tpu_torch.inference.serving — continuous-batching decode
 server over a paged KV cache, with ragged paged decode attention as a
 hand-written CUDA kernel on the card, the decode step as one captured
-CUDA graph, chunked prefill, a shared-prefix cache and speculative
-decoding (draft, verify and accept in one captured step).
+CUDA graph, chunked prefill, a shared-prefix cache, speculative
+decoding (draft, verify and accept in one captured step), and the
+disaggregated tier: prefill and decode roles joined by page migration,
+with the SLO router (``ServingRouter``) and ``DisaggRouter``.
 
     from paddle_tpu_torch.inference.serving import (LLMServer,
                                                     params_from_numpy)
@@ -33,8 +35,12 @@ from .decode_model import (GPTDecodeWeights, ServingModelConfig,
 from .spec_decode import SPEC_SENTINEL, spec_decode_step
 from .prefix_cache import PrefixCache, PrefixEntry
 from .scheduler import QueueFull, Request, RequestStats, Scheduler
+from .migration import (MigrationError, PageMigration,
+                        gather_request_pages, scatter_request_pages)
 from .engine import DecodeEngine, ENGINE_ROLES, GenerationResult
 from .api import LLMServer, filter_spec_stream
+from .router import Overloaded, ROUTER_PHASES, ServingRouter
+from .disagg import DisaggRouter
 
 __all__ = [
     "BlockAllocator", "OutOfBlocks", "PagedKVCache", "PageTable",
@@ -52,6 +58,9 @@ __all__ = [
     "spec_score_forward", "SPEC_SENTINEL", "spec_decode_step",
     "PrefixCache", "PrefixEntry",
     "QueueFull", "Request", "RequestStats", "Scheduler",
+    "MigrationError", "PageMigration", "gather_request_pages",
+    "scatter_request_pages",
     "DecodeEngine", "ENGINE_ROLES", "GenerationResult", "LLMServer",
     "filter_spec_stream",
+    "Overloaded", "ROUTER_PHASES", "ServingRouter", "DisaggRouter",
 ]

@@ -11,10 +11,10 @@
     fut = server.submit(prompt_ids, max_tokens=64)
     result = fut.result()            # GenerationResult
 
-One daemon pump thread owns the engine and issues all of its device
-work on the current stream; ``submit`` only touches the (locked)
-admission queue and wakes the pump, so it is safe from any thread and
-never touches the device.  ``warmup`` captures the decode step's graphs
+One daemon pump thread owns the engine, which issues all of its device
+work on its own stream (``engine.stream``); ``submit`` only touches the
+(locked) admission queue and wakes the pump, so it is safe from any
+thread and never touches the device.  ``warmup`` captures the decode step's graphs
 before the pump starts; an engine that was not warmed captures on its
 first dispatches, in the pump thread, in "thread_local" capture mode,
 so other threads' CUDA calls (a consumer reading a token) do not
@@ -31,6 +31,21 @@ negative :data:`SPEC_SENTINEL`, and up to ``k`` tokens past
 resolved result is always sentinel-free and cut).
 :func:`filter_spec_stream` turns such a stream into plain in-order
 tokens.
+
+    dec = LLMServer(params=w, gpt_config=cfg, role="decode")
+    pre = LLMServer(params=w, gpt_config=cfg, role="prefill",
+                    on_handoff=dec.submit_migration)
+
+A prefill-role server's pump hands every ticket its engine staged out
+(:class:`~.migration.PageMigration`) to ``on_handoff`` (the
+``DisaggRouter`` installs its own with :meth:`LLMServer.
+set_handoff_handler`), or parks it for :meth:`LLMServer.pop_handoffs`;
+a handler that raises fails that request's future, not the pump.  A
+decode-role server takes tickets through :meth:`LLMServer.
+submit_migration`.  ``metrics_port=`` (0: an ephemeral port, read back
+from :attr:`LLMServer.metrics_port`) serves the process-wide registry,
+the trace and the decision ring over HTTP on 127.0.0.1
+(``observability/http.py``) until :meth:`LLMServer.close`.
 """
 
 from __future__ import annotations
@@ -71,21 +86,47 @@ class LLMServer:
     """Continuous-batching generation server.  ``network`` is the
     port's ``GPTForCausalLM`` (its weights copied at construction; see
     :meth:`refresh_weights`), or pass ``params=``/``gpt_config=``.
-    Keyword arguments other than ``auto_start``/``idle_wait_s`` go to
-    :class:`DecodeEngine` (``prefill_chunk=``, ``prefix_cache=``,
+    Keyword arguments other than ``auto_start``, ``idle_wait_s``,
+    ``metrics_port`` and ``on_handoff`` go to :class:`DecodeEngine`
+    (``role=``, ``prefill_chunk=``, ``prefix_cache=``,
     ``prefix_reserve_discount=``, ``draft=``, ``spec_k=`` among
     them)."""
 
     def __init__(self, network=None, *, auto_start: bool = True,
-                 idle_wait_s: float = 0.005, **engine_kwargs):
+                 idle_wait_s: float = 0.005,
+                 metrics_port: Optional[int] = None,
+                 on_handoff=None, **engine_kwargs):
         self.engine = DecodeEngine(network, **engine_kwargs)
+        self._on_handoff = on_handoff
+        self._handoffs: list = []
         self._idle_wait_s = float(idle_wait_s)
         self._cond = threading.Condition()
         self._closed = False
         self._thread: Optional[threading.Thread] = None
         self._warmup_record: Optional[Dict] = None
+        self._metrics_server = None
+        if metrics_port is not None:
+            from ...observability import http as _obs_http
+            self._metrics_server = _obs_http.serve(int(metrics_port))
         if auto_start:
             self.start()
+
+    @property
+    def metrics_port(self) -> Optional[int]:
+        """The bound scrape port (None when not serving one)."""
+        return (None if self._metrics_server is None
+                else self._metrics_server.port)
+
+    @property
+    def role(self) -> str:
+        """The engine's phase role ("both", "prefill" or "decode")."""
+        return self.engine.role
+
+    def set_handoff_handler(self, fn) -> "LLMServer":
+        """Install or replace the handoff hook; the pump reads it each
+        round, so a running server may take it."""
+        self._on_handoff = fn
+        return self
 
     # -- lifecycle -----------------------------------------------------------
     @property
@@ -120,14 +161,28 @@ class LLMServer:
                     "a step is still in flight")
             self._thread = None
 
-    def close(self):
-        """Stop the pump.  In-flight and queued requests get their
-        futures failed with RuntimeError, and the captured steps are
-        freed."""
+    def close(self, unregister_metrics: bool = False):
+        """Stop the pump.  In-flight, queued and migrating requests get
+        their futures failed with RuntimeError, the captured steps are
+        freed and the scrape endpoint closes.  The engine's registry
+        children stay (a later scrape still answers) unless
+        ``unregister_metrics``."""
         self.stop()
-        self.engine.release_all(
-            RuntimeError("server closed before completion"))
+        self._fail_all(RuntimeError("server closed before completion"))
         self.engine.release_graphs()
+        if self._metrics_server is not None:
+            self._metrics_server.close()
+            self._metrics_server = None
+        if unregister_metrics:
+            self.engine.unregister_metrics()
+
+    def _fail_all(self, exc: Exception):
+        """Fail every request this server holds, tickets included, and
+        release its pool state."""
+        for mig in self.engine.drain_all_migrations() + self.pop_handoffs():
+            if not mig.request.future.done():
+                mig.request.future.set_exception(exc)
+        self.engine.release_all(exc)
 
     def __enter__(self) -> "LLMServer":
         return self
@@ -143,9 +198,10 @@ class LLMServer:
                     return
             try:
                 busy = self.engine.step()
+                busy = self._dispatch_handoffs() or busy
             except Exception as e:  # noqa: BLE001 — a dead pump must
                 # not strand callers on futures that never resolve
-                self.engine.release_all(RuntimeError(
+                self._fail_all(RuntimeError(
                     f"serving engine failed: {type(e).__name__}: {e}"))
                 raise
             if not busy:
@@ -153,6 +209,29 @@ class LLMServer:
                     if self._closed:
                         return
                     self._cond.wait(self._idle_wait_s)
+
+    def _dispatch_handoffs(self) -> bool:
+        """Hand the tickets the engine staged out to the hook (pump
+        thread), or park them for :meth:`pop_handoffs`."""
+        migs = self.engine.pop_ready_migrations()
+        for mig in migs:
+            if self._on_handoff is None:
+                self._handoffs.append(mig)
+                continue
+            try:
+                self._on_handoff(mig)
+            except Exception as e:  # noqa: BLE001 — one bad handoff
+                # fails its request, not the pump and every other one
+                if not mig.request.future.done():
+                    mig.request.future.set_exception(RuntimeError(
+                        "prefill→decode handoff failed: "
+                        f"{type(e).__name__}: {e}"))
+        return bool(migs)
+
+    def pop_handoffs(self) -> list:
+        """Take the tickets parked for want of a handoff hook."""
+        out, self._handoffs = self._handoffs, []
+        return out
 
     # -- traffic -------------------------------------------------------------
     def submit(self, prompt_ids, max_tokens: int, stream_cb=None,
@@ -168,6 +247,14 @@ class LLMServer:
         with self._cond:
             self._cond.notify_all()
         return req.future
+
+    def submit_migration(self, mig) -> None:
+        """Give a migrated request to this (decode-role) server's engine
+        and wake the pump; the engine's refusals propagate
+        (:class:`QueueFull`: try another replica)."""
+        self.engine.submit_migration(mig)
+        with self._cond:
+            self._cond.notify_all()
 
     def warmup(self, prompt_lengths: Optional[Sequence[int]] = None):
         """Warm the serving path BEFORE traffic, with the pump stopped

@@ -1,5 +1,5 @@
 """Continuous-batching decode engine (counterpart of
-``paddle_tpu/inference/serving/engine.py``, role ``"both"``).
+``paddle_tpu/inference/serving/engine.py``).
 
 One engine step admits waiting requests, prefills them (same-bucket
 groups, or chunk by chunk), advances at most ONE prefill chunk, grows
@@ -70,15 +70,43 @@ greedy dispatch stages no sampling vectors
 the window's loop-state kernels (``gen``, the ``max_tokens`` stop, the
 accept rule).
 
-Kept for later slices (each refused with ``NotImplementedError`` where
-the JAX engine has an argument for it; ROADMAP.md queue A, item A3):
-the prefill/decode roles with page migration, and the auto-tuned poll
-cadence with the observability metrics.
+**Roles** (``role=``, :data:`ENGINE_ROLES`): ``"both"`` is the engine
+above.  A ``"prefill"`` engine admits and prefills (grouped or
+chunked), streams each request's first token and hands the rest of the
+request out as a :class:`~.migration.PageMigration` (its pages gathered
+in table order, its blocks exported): it never runs or captures the
+decode step.  A ``"decode"`` engine takes requests only through
+:meth:`DecodeEngine.submit_migration`: a locked inbox, drained FIFO on
+its own thread into fresh blocks of its pool (written in place, so the
+captured step reads them) and the static buffers, and never prefills.
+``disagg.py`` routes between the two.
+
+**Streams.**  On the card every engine issues its work on a CUDA stream
+of its own (``stream``), whichever thread calls it, so two engines in
+one process (a prefill and a decode replica) can overlap on the device;
+the lazy tokens it hands out carry an event recorded after them
+(``framework/lazy.py``), so any thread may read them.
+
+**Observability.**  Each engine records into the process-wide registry
+(``observability/metrics.py``) under the labels ``engine`` and
+``phase`` (the role), with the JAX engine's metric names; every value
+observed is a host number (no instrument reads the device), and the
+decode dispatch, prefill, the poll and a migration's export and import
+open spans of ``observability/trace.py``.  ``serving_intertoken_s``
+observes the host's gap between dispatches, which is the host's enqueue
+pace while the launch queue is not full, not the device's.
+
+Kept for a later slice (``NotImplementedError``; ROADMAP.md queue A,
+item A3): the auto-tuned poll cadence (``done_poll_interval=None``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import itertools
+import threading
 import time
+import weakref
 from collections import deque
 from typing import Dict, List, Optional, Sequence
 
@@ -90,19 +118,30 @@ from ...framework import env_knobs
 from ...framework.dispatch import CapturedCall
 from ...framework.lazy import LazyScalar, LazyStack
 from ...io.bucketing import shape_bucket
+from ...observability import metrics as _obs_metrics
+from ...observability import trace as _obs_trace
 from . import paged_attention_kernel as _pak
 from .decode_model import (GPTDecodeWeights, ServingModelConfig,
                            chunk_prefill_forward, copy_decode_params_,
                            decode_forward, extract_decode_params,
                            prefill_group_forward)
 from .kv_cache import SCRATCH_BLOCK, PagedKVCache, write_prompt_pages_group
+from .migration import (MigrationError, PageMigration,
+                        gather_request_pages, scatter_request_pages)
 from .prefix_cache import PrefixCache
 from .sampling import sample_tokens
-from .scheduler import Request, Scheduler
+from .scheduler import QueueFull, Request, Scheduler
 from .spec_decode import SPEC_SENTINEL, spec_decode_step
 
-#: the only phase role this slice serves
-ENGINE_ROLES = ("both",)
+#: phase roles: "both" prefills and decodes; "prefill" prefills and
+#: hands each request out as a page migration; "decode" imports
+#: migrations and decodes, and never prefills
+ENGINE_ROLES = ("both", "prefill", "decode")
+
+# synthetic Chrome-trace tracks for the request lifecycle spans: one
+# lane per (engine, batch slot)
+_REQ_LANE_BASE = 1 << 40
+_engine_ids = itertools.count()
 
 #: the kernel wrappers the decode step launches through; their host
 #: counts advance once per replay by what the capture recorded
@@ -213,7 +252,9 @@ class DecodeEngine:
     largest prefill bucket's cap on prompt length.  ``prefix_cache``
     (default ``PADDLE_TORCH_PREFIX_CACHE``) shares full prompt blocks
     between requests; ``prefix_reserve_discount`` (needs it) reserves
-    each admission's worst case less its live cache hits.
+    each admission's worst case less its live cache hits.  ``role``
+    (module docstring) is ``"both"``, ``"prefill"`` or ``"decode"``;
+    ``submit_migration`` is thread-safe and host-only too.
     """
 
     def __init__(self, network=None, *, gpt_config=None,
@@ -232,9 +273,8 @@ class DecodeEngine:
                  device=None,
                  draft=None, draft_params=None,
                  spec_k: Optional[int] = None):
-        if role != "both":
-            raise _deferred(f"role={role!r} with page migration",
-                            "Roles prefill and decode with migration.py")
+        if role not in ENGINE_ROLES:
+            raise ValueError(f"role {role!r} is not one of {ENGINE_ROLES}")
         if done_poll_interval is None:
             raise _deferred("the auto-tuned done-poll cadence",
                             "The auto-tuned poll cadence")
@@ -266,6 +306,11 @@ class DecodeEngine:
                     "pool, so the draft must match its serving geometry")
             draft_params = extract_decode_params(draft, device=self._device)
         if draft_params is not None:
+            if role == "prefill":
+                raise ValueError(
+                    "draft= on a prefill-role engine: it never decodes, "
+                    "so speculation cannot act; give the draft to the "
+                    "decode replica")
             if _shapes(draft_params) != _shapes(params):
                 raise ValueError(
                     "draft_params shapes do not match the target's "
@@ -304,9 +349,14 @@ class DecodeEngine:
                                 cfg.num_heads, cfg.head_dim,
                                 dtype=params.wte.dtype,
                                 device=self._device)
+        # a prefill-role engine holds prompt blocks only: the decode
+        # growth is the importing engine's to reserve
+        door_need = ((lambda req: -(-len(req.prompt) // block_size))
+                     if role == "prefill" else None)
         self.scheduler = Scheduler(self._kv.allocator, block_size,
                                    max_queue=max_queue,
                                    max_context=self.max_context,
+                                   door_need_fn=door_need,
                                    lookahead=self.spec_k)
         if prefill_buckets is None:
             prefill_buckets = _default_buckets(block_size,
@@ -344,6 +394,14 @@ class DecodeEngine:
                         if prefix_cache else None)
         self._prefill_jobs: deque = deque()
         self._chunks = 0
+        # page migration: tickets staged out (prefill role; the server's
+        # pump hands them on) and the locked inbox of tickets to import
+        # (drained on this engine's thread as slots and reservations
+        # free up), with the inbox's reservation estimate
+        self._ready_migrations: deque = deque()
+        self._migration_inbox: deque = deque()
+        self._mig_lock = threading.Lock()
+        self._inbox_need = 0
         self._slots: List[Optional[Request]] = [None] * self.max_batch
         # host-side batch state (authoritative), held in the two int32
         # buffers it is staged from: the layout (page table, lengths),
@@ -399,22 +457,185 @@ class DecodeEngine:
         self._spec_dispatches = 0
         self._spec_lanes = 0               # active lanes summed over them
         self._spec_emitted = 0             # tokens they committed (polled)
+        self._spec_last_poll_lanes = 0
+        self._spec_accept: Optional[float] = None
         # one captured step per variant (False: greedy-only, True:
         # mixed), sharing one graph pool; CUDA only
         self._graph_pool = (torch.cuda.graph_pool_handle()
                             if dev.type == "cuda" else None)
+        # the engine's own stream; it starts after the buffers above
+        self.stream = None
+        if dev.type == "cuda":
+            self.stream = torch.cuda.Stream(dev)
+            self.stream.wait_stream(torch.cuda.current_stream(dev))
         self._steps: Dict[bool, CapturedCall] = {}
-        self._dispatches = 0
         self._total_tokens = 0
         self._latency: List[float] = []
         self._ttft: List[float] = []
         self._intertoken: List[float] = []
         self._dispatch_host: List[float] = []
         self._last_dispatch_t: Optional[float] = None
+        self._init_observability()
 
     @property
     def device(self) -> torch.device:
         return self._device
+
+    @property
+    def _dispatches(self) -> int:
+        """Decode dispatches so far: the registry counter, added to
+        with host ints only, so this read is exact and host-only."""
+        return int(self._c_dispatches.collect(materialize=False))
+
+    def _on_stream(self):
+        """The engine's stream as the current one (CUDA), whatever
+        thread calls."""
+        return (torch.cuda.stream(self.stream) if self.stream is not None
+                else contextlib.nullcontext())
+
+    def _record(self):
+        """An event recorded on this engine's stream now (None on the
+        CPU)."""
+        if self.stream is None:
+            return None
+        ready = torch.cuda.Event()
+        ready.record(self.stream)
+        return ready
+
+    def _lazy(self, dev: torch.Tensor) -> LazyStack:
+        """A lazy stack of a tensor just written on this engine's
+        stream; on the card with an event after the write, so a read
+        from any thread waits for that and no more."""
+        return LazyStack(dev, ready=self._record())
+
+    def _init_observability(self):
+        """This engine's children of the process-wide registry, named
+        and labelled as the JAX engine's (``engine``, ``phase``): host
+        counters and fixed-bucket histograms on the hot path, gauges
+        computed at scrape time through a weak reference (a dead engine
+        scrapes as absent).  Children outlive the engine, as in any
+        Prometheus client; :meth:`unregister_metrics` reclaims them."""
+        ordinal = next(_engine_ids)
+        self._obs_id = f"e{ordinal}"
+        self._obs_lane_base = _REQ_LANE_BASE + (ordinal << 16)
+        self._obs_labels = {"engine": self._obs_id, "phase": self.role}
+        labels = self._obs_labels
+        reg = _obs_metrics.registry()
+        self._c_dispatches = reg.counter(
+            "serving_dispatches_total", "batched decode dispatches",
+            labels=labels)
+        self._c_tokens = reg.counter(
+            "serving_tokens_total", "generated tokens (eos-truncated)",
+            labels=labels)
+        self._c_requests = reg.counter(
+            "serving_requests_completed_total", "finalized requests",
+            labels=labels)
+        self._h_latency = reg.histogram(
+            "serving_latency_s", "request submit→finish latency",
+            labels=labels)
+        self._h_ttft = reg.histogram(
+            "serving_ttft_s", "request submit→first-token latency",
+            labels=labels)
+        self._h_queue_time = reg.histogram(
+            "serving_queue_time_s", "request submit→admission wait",
+            labels=labels)
+        self._c_prefix_hits = reg.counter(
+            "serving_prefix_cache_hits_total",
+            "prompt blocks reused from the shared-prefix cache",
+            labels=labels)
+        self._c_prefix_misses = reg.counter(
+            "serving_prefix_cache_misses_total",
+            "share-eligible prompt blocks prefilled fresh", labels=labels)
+        self._c_prefix_evictions = reg.counter(
+            "serving_prefix_cache_evictions_total",
+            "idle prefix entries reclaimed under pool pressure",
+            labels=labels)
+        self._h_chunk = reg.histogram(
+            "serving_prefill_chunk_s",
+            "per-chunk prefill dispatch wall time", labels=labels)
+        # migrations count on the IMPORTING engine, when seated
+        self._c_migrations = reg.counter(
+            "serving_page_migrations_total",
+            "migrated requests imported into this engine's batch",
+            labels=labels)
+        self._c_migrated_blocks = reg.counter(
+            "serving_migrated_blocks_total",
+            "KV pool blocks imported via page migration", labels=labels)
+        self._h_migration = reg.histogram(
+            "serving_migration_s",
+            "prefill-complete to decode-seated handoff wall time",
+            labels=labels)
+        # the decode pool's scaling signal: the host's gap between
+        # dispatches of a non-empty batch (the enqueue pace, module
+        # docstring)
+        self._h_intertoken = reg.histogram(
+            "serving_intertoken_s",
+            "gap between consecutive decode dispatches of a non-empty "
+            "batch", labels=labels)
+        self._c_spec_dispatches = reg.counter(
+            "serving_spec_dispatches_total",
+            "speculative decode dispatches (k+1-token windows)",
+            labels=labels)
+        self._h_spec_tpd = reg.histogram(
+            "serving_spec_tokens_per_dispatch",
+            "committed tokens per active lane per speculative dispatch "
+            "(poll-window mean)", labels=labels,
+            edges=(0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0))
+        wr = weakref.ref(self)
+
+        def _gauge_fn(getter):
+            def fn():
+                eng = wr()
+                return None if eng is None else getter(eng)
+            return fn
+
+        for name, help_, getter in (
+                ("serving_queue_depth", "waiting requests",
+                 lambda e: e.scheduler.queue_depth),
+                ("serving_active", "requests in the running batch",
+                 lambda e: e.active_count),
+                ("serving_kv_fragmentation",
+                 "KV block-pool fragmentation [0,1]",
+                 lambda e: e._kv.allocator.stats()["fragmentation"]),
+                ("serving_done_poll_interval",
+                 "dispatches between EOS polls",
+                 lambda e: e.done_poll_interval),
+                # absent (None) while the cache or speculation is off
+                ("serving_prefix_blocks",
+                 "pool blocks owned by the shared-prefix cache",
+                 lambda e: None if e._prefix is None
+                 else e._prefix.cached_blocks),
+                ("serving_prefix_refs",
+                 "live request references onto shared prefix blocks",
+                 lambda e: None if e._prefix is None
+                 else e._prefix.live_refs),
+                ("serving_spec_accept_rate",
+                 "draft-token acceptance rate [0,1] implied by the "
+                 "cumulative committed tokens per lane-dispatch",
+                 lambda e: e._spec_accept if e.spec_k else None)):
+            reg.gauge(name, help_, labels=labels).set_function(
+                _gauge_fn(getter))
+        self._obs_metric_names = (
+            "serving_dispatches_total", "serving_tokens_total",
+            "serving_requests_completed_total", "serving_latency_s",
+            "serving_ttft_s", "serving_queue_time_s",
+            "serving_prefix_cache_hits_total",
+            "serving_prefix_cache_misses_total",
+            "serving_prefix_cache_evictions_total",
+            "serving_prefill_chunk_s", "serving_page_migrations_total",
+            "serving_migrated_blocks_total", "serving_migration_s",
+            "serving_intertoken_s", "serving_spec_dispatches_total",
+            "serving_spec_tokens_per_dispatch", "serving_queue_depth",
+            "serving_active", "serving_kv_fragmentation",
+            "serving_done_poll_interval", "serving_prefix_blocks",
+            "serving_prefix_refs", "serving_spec_accept_rate")
+
+    def unregister_metrics(self):
+        """Reclaim this engine's children from the process-wide
+        registry (for callers that build many short-lived engines)."""
+        reg = _obs_metrics.registry()
+        for name in self._obs_metric_names:
+            reg.unregister(name, labels=self._obs_labels)
 
     def _stage(self, arr: np.ndarray) -> torch.Tensor:
         """Host array → device tensor without waiting for the device
@@ -431,6 +652,10 @@ class DecodeEngine:
         :class:`GenerationResult`.  Raises
         :class:`~.scheduler.QueueFull` at queue capacity and
         ``ValueError`` for requests the pool geometry can never run."""
+        if self.role == "decode":
+            raise ValueError(
+                "decode-role engine admits only migrated requests "
+                "(submit_migration); route prompts to a prefill replica")
         req = Request(prompt_ids, max_tokens, stream_cb=stream_cb,
                       temperature=temperature, top_k=top_k, top_p=top_p,
                       seed=seed)
@@ -442,31 +667,112 @@ class DecodeEngine:
                 "prefill (prefill_chunk=) for longer prompts")
         return self.scheduler.submit(req)
 
+    def submit_migration(self, mig: PageMigration) -> None:
+        """Enqueue a migrated request for import (thread-safe, host
+        only; roles "decode" and "both").  Refuses what this engine can
+        never or cannot now honour: :class:`MigrationError` for a
+        consumed ticket or another pool geometry, ``ValueError`` for a
+        request whose worst case exceeds this pool or context,
+        :class:`QueueFull` when slots or reservations are taken (the
+        router's signal to try the next replica).  The estimates here
+        race with this engine's thread by design: an accepted ticket
+        waits in the inbox until a reservation is taken, so it cannot
+        run the pool dry."""
+        if self.role == "prefill":
+            raise MigrationError("prefill-role engine cannot import "
+                                 "migrations: it never decodes")
+        if mig.consumed:
+            raise MigrationError(
+                f"migration of request {mig.request.id} already "
+                "imported; tickets are single-use")
+        mig.check_geometry(self)
+        req = mig.request
+        need = req.worst_case_blocks(self.block_size, self.spec_k)
+        if need > self._kv.allocator.capacity:
+            raise ValueError(
+                f"migrated request needs {need} blocks worst-case but "
+                f"this pool only has {self._kv.allocator.capacity}")
+        if len(req.prompt) + req.max_tokens - 1 > self.max_context:
+            raise ValueError("migrated prompt+max_tokens exceeds max "
+                             f"context {self.max_context}")
+        with self._mig_lock:
+            if (self.active_count + len(self._migration_inbox)
+                    >= self.max_batch):
+                raise QueueFull("decode replica batch full (active + "
+                                "pending migrations at max_batch)")
+            if not self._kv.allocator.can_reserve(need + self._inbox_need):
+                raise QueueFull("decode replica cannot reserve the "
+                                "migrated request's worst-case blocks")
+            self._migration_inbox.append(mig)
+            self._inbox_need += need
+
+    @property
+    def pending_migrations(self) -> int:
+        """Migrations accepted but not imported yet."""
+        with self._mig_lock:
+            return len(self._migration_inbox)
+
+    def pop_ready_migrations(self) -> List[PageMigration]:
+        """Take the tickets a prefill-role step staged out (this
+        engine's thread; the server hands them to its handoff hook)."""
+        out = list(self._ready_migrations)
+        self._ready_migrations.clear()
+        return out
+
+    def drain_all_migrations(self) -> List[PageMigration]:
+        """Remove every migration in flight, inbound and staged out
+        (teardown: their futures must not be stranded)."""
+        with self._mig_lock:
+            out = list(self._migration_inbox)
+            self._migration_inbox.clear()
+            self._inbox_need = 0
+        out.extend(self._ready_migrations)
+        self._ready_migrations.clear()
+        return out
+
     # -- engine loop ---------------------------------------------------------
     def step(self) -> bool:
-        """Admit waiting requests, advance at most ONE prefill chunk,
-        then run ONE batched decode dispatch.  Returns True while there
-        is (or may be) work."""
-        with torch.no_grad():
+        """One engine step, by role.  "both": admit waiting requests,
+        advance at most ONE prefill chunk, import waiting migrations,
+        then run ONE batched decode dispatch.  "prefill": admission and
+        prefill only; finished prompts stage out as migrations.
+        "decode": import waiting migrations, then the decode dispatch.
+        Returns True while there is (or may be) work."""
+        with torch.no_grad(), self._on_stream():
             return self._step()
 
     def _step(self) -> bool:
-        self._admit()
-        self._advance_prefill()
+        if self.role == "decode":
+            self._drain_migration_inbox()
+        else:
+            self._admit()
+            self._advance_prefill()
+            if self.role == "both":
+                self._drain_migration_inbox()
+        if self.role == "prefill":
+            return (self.scheduler.queue_depth > 0
+                    or bool(self._prefill_jobs))
         active = [s for s, r in enumerate(self._slots)
                   if r is not None and not r.prefilling]
         if not active:
             self._last_dispatch_t = None
             return (self.scheduler.queue_depth > 0
-                    or bool(self._prefill_jobs))
+                    or bool(self._prefill_jobs)
+                    or self.pending_migrations > 0)
         t0 = time.perf_counter()
         self._grow_pages(active)
-        emit = self._decode_dispatch()
-        self._dispatches += 1
-        stack = LazyStack(emit)        # ONE shared fetch, if read
+        with _obs_trace.span(
+                "serving.dispatch",
+                args=({"active": len(active)} if _obs_trace.enabled()
+                      else None)):
+            emit = self._decode_dispatch()
+        self._c_dispatches.inc()
+        stack = self._lazy(emit)       # ONE shared fetch, if read
         now = time.monotonic()
         if self._last_dispatch_t is not None:
-            self._intertoken.append(now - self._last_dispatch_t)
+            gap = now - self._last_dispatch_t
+            self._intertoken.append(gap)
+            self._h_intertoken.observe(gap)
         self._last_dispatch_t = now
         if self.spec_k:
             self._push_window(active, stack, now)
@@ -506,6 +812,7 @@ class DecodeEngine:
         here."""
         w = self.spec_k + 1
         self._spec_dispatches += 1
+        self._c_spec_dispatches.inc()
         self._spec_lanes += len(active)
         for s in active:
             req = self._slots[s]
@@ -630,9 +937,17 @@ class DecodeEngine:
         entries are the only occupancy beyond the reservation envelope,
         so evicting them (LRU, leaf-first) keeps reservation-gated
         admission's no-OOM guarantee."""
-        if self._prefix is not None:
-            self._prefix.ensure_free(n)
+        self._evict_for(n)
         return self._kv.allocator.allocate(n)
+
+    def _evict_for(self, n: int):
+        """Evict idle prefix-cache entries until ``n`` blocks are free,
+        counting the evictions."""
+        if self._prefix is not None:
+            ev0 = self._prefix.evictions
+            self._prefix.ensure_free(n)
+            if self._prefix.evictions - ev0:
+                self._c_prefix_evictions.inc(self._prefix.evictions - ev0)
 
     def _set_sampling(self, slot: int, req: Request):
         self._temps[slot] = req.temperature
@@ -663,11 +978,15 @@ class DecodeEngine:
             self.scheduler.release_partial(req, len(entries))
 
     def _admission_need(self, req: Request) -> int:
-        """Blocks to reserve for one admission: the worst case, less the
-        live prefix-cache hit depth under discounted admission (the
-        match is taken HERE, references and pins included, so the
-        discount is against entries that can no longer be evicted)."""
-        base = req.worst_case_blocks(self.block_size, self.spec_k)
+        """Blocks to reserve for one admission: the worst case (a
+        prefill-role engine: the prompt's blocks only, the decode growth
+        is the importer's), less the live prefix-cache hit depth under
+        discounted admission (the match is taken HERE, references and
+        pins included, so the discount is against entries that can no
+        longer be evicted)."""
+        base = (-(-len(req.prompt) // self.block_size)
+                if self.role == "prefill"
+                else req.worst_case_blocks(self.block_size, self.spec_k))
         if not self._reserve_discount:
             return base
         entries, chain = self._prefix.match(req.prompt, count=False)
@@ -698,14 +1017,18 @@ class DecodeEngine:
             self._slots[slot] = req
             entries, chain = [], b""
             if self._prefix is not None:
+                n_share = self._prefix.shareable_blocks(req.prompt)
                 if req.pre_matched is not None:
                     entries, chain = req.pre_matched
                     req.pre_matched = None
-                    n_share = self._prefix.shareable_blocks(req.prompt)
                     self._prefix.count_match(len(entries),
                                              n_share - len(entries))
                 else:
                     entries, chain = self._prefix.match(req.prompt)
+                if entries:
+                    self._c_prefix_hits.inc(len(entries))
+                if n_share - len(entries):
+                    self._c_prefix_misses.inc(n_share - len(entries))
             long_prompt = (self.prefill_chunk is not None
                            and len(req.prompt) > self.prefill_chunk)
             if entries or long_prompt:
@@ -738,9 +1061,13 @@ class DecodeEngine:
                 topks[g] = req.top_k
                 topps[g] = req.top_p
                 seeds[g] = np.uint32(req.seed & 0xFFFFFFFF)
-            kv, toks, _ = prefill_group_forward(
-                self._params, self._cfg, self._stage(ids), lengths,
-                temps, topks, topps, seeds)
+            with _obs_trace.span(
+                    "serving.prefill",
+                    args=({"bucket": bucket, "group": len(members)}
+                          if _obs_trace.enabled() else None)):
+                kv, toks, _ = prefill_group_forward(
+                    self._params, self._cfg, self._stage(ids), lengths,
+                    temps, topks, topps, seeds)
             blocks_arr = np.full((Gb, bucket // self.block_size),
                                  SCRATCH_BLOCK, dtype=np.int32)
             per_req_blocks = []
@@ -751,7 +1078,7 @@ class DecodeEngine:
                 per_req_blocks.append(blocks)
             write_prompt_pages_group(self._kv.pool, kv,
                                      self._stage(blocks_arr))
-            stack = LazyStack(toks)
+            stack = self._lazy(toks)
             now = time.monotonic()
             for g, (slot, req) in enumerate(members):
                 self._seat(slot, req, per_req_blocks[g], toks[g],
@@ -761,7 +1088,7 @@ class DecodeEngine:
     def _join(self, slot: int, tok_dev, length: int):
         """Join a seated request into the device loop state (its first
         token and a cleared done flag; speculative: its length and one
-        token committed), in place on the current stream: earlier
+        token committed), in place on the engine's stream: earlier
         dispatches' LazyStacks hold copies."""
         self._tokens[slot] = tok_dev
         self._done[slot] = False
@@ -796,6 +1123,21 @@ class DecodeEngine:
             self._cache_insert(req, start, req.prefix_chain,
                                list(req.blocks))
         req.prefilling = False
+        self._enter_decode(slot, req, tok_dev, first_tok, now)
+
+    def _enter_decode(self, slot: int, req: Request, tok_dev, first_tok,
+                      now: float):
+        """A prefilled request's first token streams from here; then it
+        joins this engine's decode loop, or (prefill role) leaves as a
+        migration carrying the device token for the importer's next
+        dispatch."""
+        if self.role == "prefill":
+            req.push_token(first_tok, now)
+            if req.max_tokens == 1:
+                self._finalize(slot)
+            else:
+                self._stage_handoff(slot, req, tok_dev, now)
+            return
         self._set_sampling(slot, req)
         self._join(slot, tok_dev, len(req.prompt))
         req.push_token(first_tok, now)
@@ -840,13 +1182,19 @@ class DecodeEngine:
         nb_ctx = max(1, job.done_tokens // bs)
         ids = np.zeros((1, nb_new * bs), dtype=np.int32)
         ids[0, :take] = req.prompt[job.done_tokens:job.done_tokens + take]
-        tok, _ = chunk_prefill_forward(
-            self._params, self._cfg, self._kv.pool,
-            self._stage(self._tables[slot:slot + 1, :nb_ctx]),
-            job.done_tokens, self._stage(ids), take,
-            self._stage(np.asarray(new_blocks, dtype=np.int32)),
-            req.temperature, req.top_k, req.top_p,
-            req.seed & 0xFFFFFFFF)
+        t0 = time.monotonic()
+        with _obs_trace.span(
+                "serving.prefill_chunk",
+                args=({"chunk": take, "ctx": job.done_tokens}
+                      if _obs_trace.enabled() else None)):
+            tok, _ = chunk_prefill_forward(
+                self._params, self._cfg, self._kv.pool,
+                self._stage(self._tables[slot:slot + 1, :nb_ctx]),
+                job.done_tokens, self._stage(ids), take,
+                self._stage(np.asarray(new_blocks, dtype=np.int32)),
+                req.temperature, req.top_k, req.top_p,
+                req.seed & 0xFFFFFFFF)
+        self._h_chunk.observe(time.monotonic() - t0)
         self._chunks += 1
         job.done_tokens += take
         if job.done_tokens < Lp:
@@ -859,11 +1207,8 @@ class DecodeEngine:
                                job.computed_blocks)
         self._lengths[slot] = Lp
         req.prefilling = False
-        self._set_sampling(slot, req)
-        self._join(slot, tok, Lp)
-        req.push_token(LazyScalar(tok), time.monotonic())
-        if req.max_tokens == 1:
-            self._finalize(slot)
+        self._enter_decode(slot, req, tok, LazyScalar(self._lazy(tok)),
+                           time.monotonic())
 
     def _grow_pages(self, active: List[int]):
         """Append-allocate blocks for requests whose next write crosses
@@ -891,6 +1236,118 @@ class DecodeEngine:
                 self._tables[s, have] = blk
                 have += 1
 
+    # -- page migration ------------------------------------------------------
+    def _stage_handoff(self, slot: int, req: Request, tok_dev, now: float):
+        """Cut the ticket of a prompt this prefill-role engine just
+        finished: gather its pages in TABLE order (prefix-cache hits
+        first, then its own blocks: the order the decode attention reads
+        them), record the gather's event, export (free) its own blocks
+        and drop its prefix references (the shared blocks stay cached
+        here, warm for the next prompt).  Token 0 streamed already; the
+        device token rides the ticket."""
+        nb = req.n_prefix_blocks + len(req.blocks)
+        ids = self._stage(np.ascontiguousarray(self._tables[slot, :nb]))
+        with _obs_trace.span(
+                "serving.export",
+                args=({"blocks": nb} if _obs_trace.enabled() else None)):
+            kv = gather_request_pages(self._kv.pool, ids)
+        ready = self._record()
+        kvc = self._kv
+        mig = PageMigration(
+            req, kv, nb, tok_dev, now,
+            geometry={"num_layers": kvc.num_layers,
+                      "block_size": kvc.block_size,
+                      "num_heads": kvc.num_heads,
+                      "head_dim": kvc.head_dim,
+                      "dtype": str(kvc.pool.dtype)},
+            source=self._obs_id, ready=ready)
+        self.scheduler.finish(req)
+        if req.blocks:
+            kvc.allocator.export_blocks(req.blocks)
+            req.blocks = []
+        if req.prefix_entries:
+            self._prefix.release(req.prefix_entries)
+            req.prefix_entries = []
+        self._slots[slot] = None
+        self._lengths[slot] = 0
+        self._tables[slot, :] = SCRATCH_BLOCK
+        self._ready_migrations.append(mig)
+
+    def _drain_migration_inbox(self):
+        """Seat accepted migrations as slots and reservations free up
+        (this engine's thread): strict FIFO, the head waits for room
+        and is never overtaken."""
+        while True:
+            with self._mig_lock:
+                if not self._migration_inbox:
+                    return
+                mig = self._migration_inbox[0]
+            slot = next((s for s, r in enumerate(self._slots) if r is None),
+                        None)
+            if slot is None:
+                return
+            need = mig.request.worst_case_blocks(self.block_size,
+                                                 self.spec_k)
+            if not self._kv.allocator.reserve(need):
+                return
+            with self._mig_lock:
+                self._migration_inbox.popleft()
+                self._inbox_need -= need
+            try:
+                self._import_migration(slot, mig, need)
+            except MigrationError:
+                # a consumed ticket (a double submit): whoever imported
+                # it first owns the request
+                self._kv.allocator.release(need)
+
+    def _import_migration(self, slot: int, mig: PageMigration, need: int):
+        """Land one migrated request in this batch: fresh blocks of this
+        pool, the ticket's pages scattered into them IN PLACE (the
+        captured step holds the pool's address), the page table
+        remapped to them in the staged host layout, the sampling
+        vectors, and the device token joined as the next dispatch's
+        input.  On the card this stream first waits for the ticket's
+        event, and the ticket's tensors are marked in use on it until
+        the scatter and the join have run."""
+        req = mig.consume()
+        nb = mig.nb
+        kv, tok = mig.kv, mig.token
+        if mig.ready is not None:
+            torch.cuda.current_stream(self._device).wait_event(mig.ready)
+        if kv.device != self._device:
+            kv, tok = kv.to(self._device), tok.to(self._device)
+        self._evict_for(nb)
+        blocks = self._kv.allocator.import_blocks(nb)
+        with _obs_trace.span(
+                "serving.import",
+                args=({"blocks": nb} if _obs_trace.enabled() else None)):
+            scatter_request_pages(
+                self._kv.pool, kv,
+                self._stage(np.asarray(blocks, dtype=np.int32)))
+        req.slot = slot
+        self._slots[slot] = req
+        req.blocks = list(blocks)
+        req.prefix_entries = []
+        req.reserved_blocks = need
+        req.block_budget = need
+        Lp = len(req.prompt)
+        self._tables[slot, :] = SCRATCH_BLOCK
+        self._tables[slot, :nb] = blocks
+        self._lengths[slot] = Lp
+        self._set_sampling(slot, req)
+        if self._prefix is not None:
+            # full prompt blocks of THIS pool now: later local prompts
+            # may share them
+            self._cache_insert(req, 0, b"", list(req.blocks))
+        req.prefilling = False
+        self._join(slot, tok, Lp)
+        if self.stream is not None:
+            kv.record_stream(self.stream)
+            tok.record_stream(self.stream)
+        self._c_migrations.inc()
+        self._c_migrated_blocks.inc(nb)
+        self._h_migration.observe(time.monotonic() - mig.t_start)
+
     # -- completion ----------------------------------------------------------
     def _poll_done(self):
         """THE periodic sync: fetch the ``[B]`` device done mask so
@@ -898,14 +1355,15 @@ class DecodeEngine:
         slot has not joined the loop yet: its flag is its
         predecessor's.  Speculative: the same one fetch brings the
         lengths and gen too (:meth:`_reconcile_spec`)."""
-        if self.spec_k:
-            B = self.max_batch
-            state = torch.cat([self._done.to(torch.int32),
-                               self._spec_state]).cpu().numpy()
-            done = state[:B].astype(bool)
-            self._reconcile_spec(state[B:2 * B], state[2 * B:])
-        else:
-            done = self._done.cpu().numpy()
+        with _obs_trace.span("serving.poll"):
+            if self.spec_k:
+                B = self.max_batch
+                state = torch.cat([self._done.to(torch.int32),
+                                   self._spec_state]).cpu().numpy()
+                done = state[:B].astype(bool)
+                self._reconcile_spec(state[B:2 * B], state[2 * B:])
+            else:
+                done = self._done.cpu().numpy()
         for s, req in enumerate(self._slots):
             if req is not None and bool(done[s]) and not req.prefilling:
                 self._finalize(s)
@@ -914,7 +1372,10 @@ class DecodeEngine:
         """Fold one poll's device truth into the host: the length upper
         bounds drop to the lengths, the gen bounds to gen, and the
         tokens committed since the last poll are credited (tokens per
-        lane-dispatch; the accept rate is ``(that - 1) / k``)."""
+        lane-dispatch; the accept rate is ``(that - 1) / k``): the
+        window's mean into ``serving_spec_tokens_per_dispatch``, the
+        cumulative rate into the accept-rate gauge."""
+        emitted = 0
         for s, req in enumerate(self._slots):
             if req is None or req.prefilling:
                 continue
@@ -922,8 +1383,16 @@ class DecodeEngine:
             self._gen_ub[s] = int(gen[s])
             d = int(gen[s]) - int(self._gen_seen[s])
             if d > 0:
-                self._spec_emitted += d
+                emitted += d
                 self._gen_seen[s] = int(gen[s])
+        self._spec_emitted += emitted
+        lanes = self._spec_lanes - self._spec_last_poll_lanes
+        if lanes > 0:
+            self._h_spec_tpd.observe(emitted / lanes)
+        if self._spec_lanes:
+            self._spec_accept = max(0.0, min(1.0, (
+                self._spec_emitted / self._spec_lanes - 1.0) / self.spec_k))
+        self._spec_last_poll_lanes = self._spec_lanes
 
     def _release_slot(self, slot: int, req: Request):
         """Give back a leaving request's reservation, blocks, prefix
@@ -967,11 +1436,46 @@ class DecodeEngine:
         self._latency.append(req.stats.latency)
         if req.stats.ttft is not None:
             self._ttft.append(req.stats.ttft)
+        self._observe_finalize(slot, req, len(toks))
         req.future.set_result(GenerationResult(req.id, toks, req.stats))
+
+    def _observe_finalize(self, slot: int, req: Request, n_toks: int):
+        """The registry's record of a finished request and, while
+        tracing, its lifecycle spans (queued, prefill, decode) rebuilt
+        from its milestones on a track of its own per slot."""
+        st = req.stats
+        self._c_requests.inc()
+        self._c_tokens.inc(n_toks)
+        self._h_latency.observe(st.latency)
+        if st.ttft is not None:
+            self._h_ttft.observe(st.ttft)
+        if st.queue_time is not None:
+            self._h_queue_time.observe(st.queue_time)
+        if not _obs_trace.enabled():
+            return
+        lane = self._obs_lane_base + slot
+        _obs_trace.set_track_name(lane, f"serving-{self._obs_id}-slot{slot}")
+        _obs_trace.add_span("request", st.submitted, st.finished, tid=lane,
+                            args={"request_id": req.id,
+                                  "prompt_len": st.prompt_len,
+                                  "generated": st.generated})
+        if st.admitted is not None:
+            _obs_trace.add_span("request.queued", st.submitted, st.admitted,
+                                tid=lane)
+            if st.first_token is not None:
+                _obs_trace.add_span("request.prefill", st.admitted,
+                                    st.first_token, tid=lane)
+                _obs_trace.add_span("request.decode", st.first_token,
+                                    st.finished, tid=lane)
 
     def release_all(self, exc: Exception):
         """Fail every in-flight and queued request with ``exc`` and
-        release its pool state (server teardown path)."""
+        release its pool state (server teardown path); the migrations in
+        flight are the caller's (:meth:`drain_all_migrations`)."""
+        with self._on_stream():
+            self._release_all(exc)
+
+    def _release_all(self, exc: Exception):
         self._prefill_jobs.clear()
         released = []
         for s, req in enumerate(self._slots):
@@ -1003,13 +1507,16 @@ class DecodeEngine:
             raise ValueError("the draft is the target's own weights "
                              "(draft_params=params): refresh the target "
                              "alone")
-        copy_decode_params_(self._params, params)
-        if draft_params is not None:
-            copy_decode_params_(self._draft_params, draft_params)
+        with self._on_stream():
+            copy_decode_params_(self._params, params)
+            if draft_params is not None:
+                copy_decode_params_(self._draft_params, draft_params)
 
     def release_graphs(self):
-        """Free the captured decode steps (the next dispatch of each
-        variant captures it again)."""
+        """Wait for this engine's stream, then free the captured decode
+        steps (the next dispatch of each variant captures it again)."""
+        if self.stream is not None:
+            self.stream.synchronize()
         for step in self._steps.values():
             step.close()
         self._steps.clear()
@@ -1021,7 +1528,13 @@ class DecodeEngine:
         batch, which on the card captures them, then every prefill
         bucket the given prompt lengths touch (default: all), so the
         caching allocator is warm again after the captures emptied it.
-        Loads the kernels (building them on first use) and the BLAS
+        By role: a prefill-role engine runs no decode variant (it never
+        captures one) and gathers scratch pages as an export does, at
+        one block and at the largest bucket's count (the gather's two
+        kernels); a decode-role engine runs no prefill bucket and
+        scatters a page as an import does.  Loads the kernels (building
+        them on first use; a kernel's first launch loads its module,
+        which waits for the device; ``PERF.md`` §6) and the BLAS
         handles; writes land in the scratch block.  The one engine
         method that waits for the device; returns wall times."""
         if self.active_count or self._prefill_jobs:
@@ -1031,10 +1544,13 @@ class DecodeEngine:
         buckets = (sorted({shape_bucket(int(n), self._buckets)
                            for n in prompt_lengths})
                    if prompt_lengths else list(self._buckets))
+        if self.role == "decode":
+            buckets = []
         per_bucket = {}
-        with torch.no_grad():
-            for mixed in (False, True):
-                self._decode_dispatch(mixed)
+        with torch.no_grad(), self._on_stream():
+            if self.role != "prefill":
+                for mixed in (False, True):
+                    self._decode_dispatch(mixed)
             self._sync()
             decode_s = time.monotonic() - t0
             for b in buckets:
@@ -1049,9 +1565,27 @@ class DecodeEngine:
                                         SCRATCH_BLOCK, dtype=np.int32)))
                 self._sync()
                 per_bucket[b] = time.monotonic() - tb
+            self._warm_migration()
+            self._sync()
         return {"warmup_s": time.monotonic() - t0, "decode_s": decode_s,
                 "prefill_bucket_s": per_bucket, "buckets": buckets,
                 **self.compile_stats()}
+
+    def _warm_migration(self):
+        """The migration ops of this engine's role on the scratch block:
+        a prefill-role engine's gathers (one block, and the largest
+        bucket's count, which takes the gather's other kernel), an
+        importing engine's scatter."""
+        scratch = np.full(self._buckets[-1] // self.block_size,
+                          SCRATCH_BLOCK, dtype=np.int32)
+        if self.role == "prefill":
+            for n in (1, len(scratch)):
+                gather_request_pages(self._kv.pool, self._stage(scratch[:n]))
+        else:
+            ids = self._stage(scratch[:1])
+            scatter_request_pages(self._kv.pool,
+                                  gather_request_pages(self._kv.pool, ids),
+                                  ids)
 
     def _sync(self):
         if self._device.type == "cuda":
@@ -1078,6 +1612,7 @@ class DecodeEngine:
         st = {"active": self.active_count,
               "role": self.role,
               "queue_depth": self.scheduler.queue_depth,
+              "pending_migrations": self.pending_migrations,
               "dispatches": self._dispatches,
               "total_tokens": self._total_tokens,
               "completed": len(self._latency),

@@ -50,7 +50,9 @@ class BlockAllocator:
     count blocks that are occupied, un-evictable and covered by no
     reservation (prefix-cache blocks live requests reference under
     reservation-discounted admission); admission keeps ``reserved +
-    pinned <= capacity``.
+    pinned <= capacity``.  ``export_blocks``/``import_blocks`` are a
+    page migration's allocator half (``migration.py``): a free and an
+    allocate with lifetime counters.
     """
 
     def __init__(self, num_blocks: int):
@@ -61,6 +63,8 @@ class BlockAllocator:
         self.capacity = num_blocks - 1
         self._reserved = 0
         self._pinned = 0
+        self.exported_blocks = 0       # lifetime migration counters
+        self.imported_blocks = 0
 
     @property
     def reserved(self) -> int:
@@ -93,6 +97,23 @@ class BlockAllocator:
         if int(n) > self._pinned:
             raise ValueError("unpin() without matching pin()")
         self._pinned -= int(n)
+
+    def export_blocks(self, blocks: Sequence[int]) -> int:
+        """Give a migrating request's pages back to this pool (their K/V
+        was copied out): a free, refused on a double export as ``free``
+        refuses, counted.  Returns the number of blocks."""
+        blocks = [int(b) for b in blocks]
+        self.free(blocks)
+        self.exported_blocks += len(blocks)
+        return len(blocks)
+
+    def import_blocks(self, n: int) -> List[int]:
+        """Draw ``n`` fresh pages for K/V migrating into this pool: an
+        ``allocate`` (the importer holds a reservation), counted.  The
+        page table is remapped to these ids by the caller."""
+        got = self.allocate(n)
+        self.imported_blocks += len(got)
+        return got
 
     @property
     def num_free(self) -> int:
@@ -151,6 +172,8 @@ class BlockAllocator:
             "allocated": len(self._allocated),
             "reserved": self._reserved,
             "pinned": self._pinned,
+            "exported_blocks": self.exported_blocks,
+            "imported_blocks": self.imported_blocks,
             "free_runs": len(runs),
             "largest_run": largest,
             # 0.0 = one contiguous run (or empty), -> 1.0 = scattered

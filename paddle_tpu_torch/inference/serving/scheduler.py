@@ -1,6 +1,6 @@
 """Continuous-batching scheduler: request queue + admission control
 (counterpart of ``paddle_tpu/inference/serving/scheduler.py``; host
-code, copied without the phase-role and speculative hooks).
+code, of which the port keeps its own copy).
 
 - ``submit`` enqueues up to ``max_queue`` waiting requests and beyond
   that REJECTS (:class:`QueueFull`), so callers see backpressure.
@@ -10,9 +10,11 @@ code, copied without the phase-role and speculative hooks).
   request can never fail a mid-decode block allocation.
 - FCFS order is strict: a large request at the head blocks smaller
   ones behind it.
-- The engine may override the reservation (``need_fn``: the worst case
-  less the live prefix-cache hits under discounted admission) and
-  release side state when it is refused (``cancel_fn``).
+- The engine may override the reservation (``need_fn``: prompt blocks
+  only on a prefill-role engine, the worst case less the live
+  prefix-cache hits under discounted admission) and release side state
+  when it is refused (``cancel_fn``); ``door_need_fn`` replaces the
+  worst case in ``submit``'s capacity check the same way.
 
 ``submit`` may be called from any thread; ``pop_admissible`` runs only
 on the engine thread.  One lock guards the deque.
@@ -150,7 +152,9 @@ class Scheduler:
     """FCFS waiting queue with block-budget admission control."""
 
     def __init__(self, allocator, block_size: int, max_queue: int = 64,
-                 max_context: Optional[int] = None, lookahead: int = 0):
+                 max_context: Optional[int] = None,
+                 door_need_fn: Optional[Callable] = None,
+                 lookahead: int = 0):
         self.allocator = allocator
         self.block_size = int(block_size)
         self.max_queue = int(max_queue)
@@ -159,11 +163,16 @@ class Scheduler:
         # (admission reservation and growth budget): a speculative
         # engine's k uncommitted writes never outrun the allocation
         self.lookahead = int(lookahead)
+        # the blocks THIS engine will ever hold for a request (default
+        # its worst case; a prefill-role engine holds its prompt only,
+        # the decode growth is the importing engine's)
+        self._door_need_fn = door_need_fn
         self._waiting: deque = deque()
         self._lock = threading.Lock()
 
     def submit(self, req: Request) -> Request:
-        need = req.worst_case_blocks(self.block_size, self.lookahead)
+        need = (self._door_need_fn(req) if self._door_need_fn is not None
+                else req.worst_case_blocks(self.block_size, self.lookahead))
         if need > self.allocator.capacity:
             raise ValueError(
                 f"request needs {need} blocks worst-case but the pool "
@@ -195,8 +204,9 @@ class Scheduler:
         allow; reservations are taken here, released at finish.
 
         ``need_fn(req) -> int`` overrides the worst-case reservation
-        (reservation-discounted admission: the worst case less the live
-        prefix-cache hits); it may take side state (prefix references),
+        (a prefill-role engine's prompt blocks; reservation-discounted
+        admission: the worst case less the live prefix-cache hits); it
+        may take side state (prefix references),
         which ``cancel_fn(req)`` releases when the reservation is
         refused and the request stays queued.  ``block_budget`` is
         always the undiscounted worst case."""

@@ -308,7 +308,11 @@ def test_registry_refuses_unknown_names_and_parses_strictly():
                                     "PADDLE_TORCH_FOLD_CALIB_GROUPS",
                                     "PADDLE_TORCH_PREFILL_CHUNK",
                                     "PADDLE_TORCH_PREFIX_CACHE",
-                                    "PADDLE_TORCH_SPEC_K"}
+                                    "PADDLE_TORCH_SPEC_K",
+                                    "PADDLE_TORCH_TRACE",
+                                    "PADDLE_TORCH_TRACE_CAPACITY",
+                                    "PADDLE_TORCH_EVENTS_CAPACITY",
+                                    "PADDLE_TORCH_FAULT_PLAN"}
     target = "PADDLE_TORCH_FOLD_OVERHEAD_TARGET"
     assert env_knobs.get_float(target, 0.05, env={target: "0.2"}) == 0.2
     assert env_knobs.get_float(target, 0.05, env={target: "x"}) == 0.05

@@ -26,6 +26,10 @@ def test_import_pulls_in_no_jax():
         "import paddle_tpu_torch.ops.lmce_kernel\n"
         "import paddle_tpu_torch.framework.env_knobs\n"
         "import paddle_tpu_torch.models.bert, paddle_tpu_torch.ops.nn_ops\n"
+        "import paddle_tpu_torch.observability\n"
+        "import paddle_tpu_torch.distributed\n"
+        "import paddle_tpu_torch.inference.serving.router\n"
+        "import paddle_tpu_torch.inference.serving.disagg\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "'jax.') or m == 'paddle_tpu' or m.startswith('paddle_tpu.')]\n"
         "assert not bad, bad\n")

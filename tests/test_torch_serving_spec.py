@@ -499,9 +499,12 @@ def test_spec_refusals(nets):
     with pytest.raises(ValueError, match="bfloat16"):
         _engine(n, draft_params=params_from_numpy(
             _tree(n["jt"]), device="cpu", dtype=torch.bfloat16))
-    for kw in (dict(role="decode"), dict(done_poll_interval=None)):
-        with pytest.raises(NotImplementedError):
-            _engine(n, **kw)
+    with pytest.raises(NotImplementedError):
+        _engine(n, done_poll_interval=None)
+    # a speculative engine may be a decode replica, never a prefill one
+    assert _engine(n, role="decode").spec_k == K
+    with pytest.raises(ValueError, match="prefill-role"):
+        _engine(n, role="prefill")
 
 
 def test_spec_k_env_knob(nets, monkeypatch):
