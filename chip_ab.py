@@ -33,9 +33,19 @@ shapes); ``lmce fwd bf16``: the fused lm-head cross-entropy forward's
 device time per ``lmce_fwd`` call (10 calls at N=8192 V=50304 D=768).
 ``serve long`` (``[serve long]``: a 32512-token prompt through chunked
 prefill in bf16, its TTFT, then decode at a 32k context;
-``[serve long fp32]``'s checks run too) and ``serve prefix`` (``[serve
+``[serve long fp32]``'s checks run too), ``serve prefix`` (``[serve
 prefix]``: 12 requests sharing a 512-token system prompt, the
-synchronised TTFT p50 of the 11 that hit the prefix cache).
+synchronised TTFT p50 of the 11 that hit the prefix cache), ``serve
+chunk gap`` (``[serve chunk gap]``: the profiled admission's wall ms of a
+4032-token prompt in chunks of 512, with a stream's inter-token p99),
+``serve disagg fp32`` / ``serve disagg bf16`` (``[serve disagg *]``'s
+tokens/s, the role-both phase of the same dtype run first) and ``serve
+disagg gap`` (``[serve disagg gap]``'s stream p99 with chunks of 512).
+The serving phases also report the host ms in the timed window's
+prefill spans and the device ms between CUDA events recorded on the
+engine's stream around each engine step's prefill work
+(``DecodeEngine._prefill_grouped`` / ``_advance_prefill``, patched in
+each checkout alike).
 ``--phases`` picks a comma-separated subset (default: the training and
 serving phases); ``--profile`` runs the timed window of the two
 serving phases (``serve fp32``, ``serve bf16``; from the server's start
@@ -71,6 +81,9 @@ BWD = ("bwd bf16", "bwd fp16", "bwd fused bf16", "bwd fused ernie bf16",
 UNITS = {**{p: "step_ms" for p in PHASES},
          **{p: "tokens_per_s" for p in SERVING},
          "serve long": "ttft_s", "serve prefix": "ttft_hit_p50_s",
+         "serve chunk gap": "admit_wall_ms",
+         "serve disagg fp32": "tokens_per_s",
+         "serve disagg bf16": "tokens_per_s", "serve disagg gap": "p99_s",
          **{p: "device_us" for p in K1},
          **{p: "host_us" for p in K1_HOST},
          **{p: "device_ms" for p in BWD}}
@@ -217,28 +230,63 @@ def lmce_fwd_device_ms():
     return device_ms_per(lambda: lk.lmce_fwd(h, w, labels), 10)
 
 
+def prefill_events():
+    # CUDA events on the engine's stream around every engine step's
+    # prefill work while box["armed"]: this checkout's
+    # DecodeEngine._prefill_grouped (given a group) and _advance_prefill
+    # (given a job), patched until restore()
+    from paddle_tpu_torch.inference.serving.engine import DecodeEngine
+    box = {{"armed": False, "marks": []}}
+    orig = (DecodeEngine._prefill_grouped, DecodeEngine._advance_prefill)
+
+    def timed(fn, busy):
+        def wrapped(self, *a):
+            if not (box["armed"] and busy(self, *a)):
+                return fn(self, *a)
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(self, *a)
+            e.record()
+            box["marks"].append((s, e))
+            return out
+        return wrapped
+    DecodeEngine._prefill_grouped = timed(orig[0], lambda eng, g: bool(g))
+    DecodeEngine._advance_prefill = timed(orig[1],
+                                          lambda eng: bool(eng._prefill_jobs))
+
+    def restore():
+        DecodeEngine._prefill_grouped, DecodeEngine._advance_prefill = orig
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in box["marks"])
+    return box, restore
+
+
 def serve(dtype, dn):
-    if not {profile}:
-        return c.serving_phase(torch, seed, dtype, dn, False), {{}}
-    # the profiled window: from the server's start to its stats() read
+    # the timed window: from the server's start to its stats() read
     # after the last result (both checkouts' serving_phase do the same)
     import time
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.inference.serving import api
     box = {{}}
+    events, restore = prefill_events()
     start, stats = api.LLMServer.start, api.LLMServer.stats
 
     def hooked_start(self):
-        box["prof"] = profile(activities=[ProfilerActivity.CUDA])
-        box["prof"].__enter__()
+        if {profile}:
+            box["prof"] = profile(activities=[ProfilerActivity.CUDA])
+            box["prof"].__enter__()
         box["t0"] = time.perf_counter()
+        events["armed"] = True
         return start(self)
 
     def hooked_stats(self):
         if "t0" in box and "wall" not in box:
+            events["armed"] = False
             torch.cuda.synchronize()
             box["wall"] = time.perf_counter() - box["t0"]
-            box["prof"].__exit__(None, None, None)
+            if {profile}:
+                box["prof"].__exit__(None, None, None)
         return stats(self)
 
     api.LLMServer.start, api.LLMServer.stats = hooked_start, hooked_stats
@@ -246,12 +294,19 @@ def serve(dtype, dn):
         r = c.serving_phase(torch, seed, dtype, dn, False)
     finally:
         api.LLMServer.start, api.LLMServer.stats = start, stats
+        device_ms = restore()
+    spans = r["spans"]
+    extra = {{"ttft_p50_s": r["ttft_p50_s"], "prefill_device_ms": device_ms,
+             "prefill_host_ms": sum(spans[k]["total"] for k in (
+                 "serving.prefill", "serving.prefill_chunk") if k in spans)}}
+    if not {profile}:
+        return r, extra
     ev = sorted(((getattr(e, "self_device_time_total",
                           getattr(e, "self_cuda_time_total", 0)), e.count,
                   e.key) for e in box["prof"].key_averages()), reverse=True)
     ev = [x for x in ev if x[0] > 0]
     busy = sum(x[0] for x in ev) / 1e3
-    return r, {{"device_ms": busy,
+    return r, {{**extra, "device_ms": busy,
                "device_ms_per_dispatch": busy / r["dispatches"],
                "idle_share": 1 - busy / (box["wall"] * 1e3),
                "top": [(k[:80], us / 1e3, n) for us, n, k in ev[:6]]}}
@@ -274,13 +329,48 @@ for dn, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         out["k1 long " + dn] = {{"device_us": k1_device_us(dtype, True)}}
     if "k1 host " + dn in want:
         out["k1 host " + dn] = {{"host_us": k1_host_us(dtype)}}
-    if "serve " + dn in want:
-        r, prof = serve(dtype, dn)
-        out["serve " + dn] = {{"tokens_per_s": r["tokens_per_s"], **prof}}
+plain = {{}}
+for dn, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+    if "serve " + dn in want or "serve disagg " + dn in want:
+        plain[dn], prof = serve(dtype, dn)
+        out["serve " + dn] = {{"tokens_per_s": plain[dn]["tokens_per_s"],
+                              **prof}}
 if "serve long" in want:
-    out["serve long"] = c.serve_long_phase(torch, seed)
+    r = c.serve_long_phase(torch, seed)
+    out["serve long"] = {{k: v for k, v in r.items()
+                         if isinstance(v, (int, float))}}
 if "serve prefix" in want:
     out["serve prefix"] = c.serve_prefix_phase(torch, seed)
+gap = None
+if "serve chunk gap" in want or "serve disagg gap" in want:
+    gap = c.chunk_gap_phase(torch, seed)
+    out["serve chunk gap"] = {{
+        "admit_wall_ms": gap["chunk 512"]["admit_wall_ms"],
+        "admit_busy_ms": gap["chunk 512"]["admit_busy_ms"],
+        "p99_s": gap["chunk 512"]["p99_s"],
+        "whole_admit_wall_ms": gap["whole"]["admit_wall_ms"],
+        "whole_p99_s": gap["whole"]["p99_s"]}}
+for dn, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+    if "serve disagg " + dn in want:
+        events, restore = prefill_events()
+        events["armed"] = True
+        try:
+            r = c.serve_disagg_phase(torch, seed, dtype, dn, plain[dn])
+        finally:
+            device_ms = restore()
+        out["serve disagg " + dn] = {{
+            "tokens_per_s": r["tokens_per_s"], "ttft_p50_s": r["ttft_p50_s"],
+            "again_tokens_per_s": r["again_tokens_per_s"],
+            "role_both_tokens_per_s": plain[dn]["tokens_per_s"],
+            "prefill_host_ms": sum(r["spans"][k]["total"] for k in (
+                "serving.prefill", "serving.prefill_chunk")
+                if k in r["spans"]),
+            "prefill_device_ms_all_passes": device_ms}}
+if "serve disagg gap" in want:
+    r = c.disagg_gap_phase(torch, seed, gap)
+    out["serve disagg gap"] = {{"p99_s": r["chunk 512"]["p99_s"],
+                               "whole_p99_s": r["whole"]["p99_s"],
+                               "max_s": r["chunk 512"]["max_s"]}}
 res = {{}}
 if set(want) & {{"train", "train fp16", "train fused lmce", "train bh"}}:
     t = res["train"] = c.train_phase(torch, seed)
@@ -369,6 +459,8 @@ def main(argv=None) -> int:
         if all("top" in r[p] for _, r in runs):
             for k in ("device_ms", "device_ms_per_dispatch", "idle_share"):
                 summary[p][k] = [(s, r[p][k]) for s, r in runs]
+        summary[p]["all"] = [(s, {k: v for k, v in r[p].items()
+                                   if k != "top"}) for s, r in runs]
         if unit == "step_ms":
             summary[p]["first_loss"] = [(s, r[p]["first_loss"])
                                         for s, r in runs]

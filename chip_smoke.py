@@ -57,19 +57,40 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
 5. serves GPT-2-small (12 layers, hidden 768, 12 heads, vocab 50304,
    random weights from ``--seed``) through ``LLMServer`` in fp32:
    12 greedy requests over 8 slots, every decode dispatch a replay of
-   the captured decode step (``warmup`` captures its greedy and mixed
-   variants); checks every token count, two captures, that the kernel
+   the captured decode step and every prefill a replay of its (group
+   bucket, prompt bucket) program (``warmup`` captures the decode
+   step's greedy and mixed variants and the 28 prefill programs the 12
+   prompt lengths reach; none may capture in the timed window);
+   checks every token count, two captures, that the kernel
    launched exactly 12 times per decode dispatch, counted per replay
    (and the comparison entry ``_cuda_core_paged`` never), that two
    requests' tokens equal the sequential ``reference_decode``, and that
    a seeded sampled request (temperature 0.9, top-k 20, top-p 0.9) run
    after them equals ``reference_decode`` with the same settings;
-   prints the capture seconds, the graph pool's size and the host
-   microseconds a dispatch;
+   prints the capture seconds, the graph pool's size, the host
+   microseconds a dispatch, and the timed window's prefill: host ms in
+   its spans and device ms between CUDA events around each engine
+   step's prefill work (:func:`prefill_timer`);
 6. serves the same model in bf16 and checks counts, captures and
    launches; both serving phases end with a profiled window (8 requests
    of 41 tokens drained with the pump stopped): device-busy ms a
    dispatch and K1's device ms a call in the graph;
+6'. ``[serve prefill capture fp32/bf16]``: GPT-2-small at full width
+   (33280 positions), ``max_batch=8``, pages of 16, its pool filled with
+   noise: the grouped programs at G = 1 and 8 and prompt buckets 16 and
+   1024 (random lengths in the bucket, every other row sampled) and a
+   chunk of 512 at contexts 4096 and 4112 (one block past a power of
+   two, so its gather runs at twice its extent), each captured once and
+   its replay held bit for bit against its eager body on the card (the
+   tokens, and the pool outside the scratch block, where padding pages
+   land), the request's pages and the scratch block the only blocks
+   written, K1 never launched; prints capture seconds, the graph pool
+   and each program's host ms (median) and device ms (profiled) a call
+   beside its eager body's; ``[serve poll]``: the 12 requests in fp32
+   with an EOS id (the fifth token of request 0's stream in 5) at the
+   auto-tuned poll cadence and at a fixed interval of 8: the decision
+   (interval, poll cost, ms a dispatch), both runs' tokens equal 5's
+   cut at their first EOS;
 6a. ``[serve spec fp32]`` / ``[serve spec bf16]``: the same 12 requests
    through ``LLMServer(draft_params=..., spec_k=4)``, with a self-draft
    and with an adversarial draft (weights from ``--seed`` + 1): two
@@ -87,8 +108,9 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
    seconds, the graph pool and the profiled window (K1's device ms a
    call at [B] and at [B*(k+1)] rows); ``[serve refresh]``:
    ``LLMServer(network)`` on the port's ``GPTForCausalLM``, then
-   ``refresh_weights`` from a second network: a fresh server's tokens,
-   no new capture;
+   ``refresh_weights`` from a second network: a fresh server's tokens
+   (the first from the captured prefill programs, which read the
+   weights in place), no new capture;
 6b. ``[serve noise]``: the sampler's hashed Gumbel noise of a
    ``[8, 50304]`` batch of (seed, position), bit for bit on the card
    and on the CPU;
@@ -97,7 +119,10 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
    ``prefix_cache=True`` (the JAX long-context tier's round (a),
    ``bench.py:1262-1400``, at full width): one 32512-token prompt
    (max_tokens 4, temperature 0.8, seed 1) admitted in 32 chunks, its
-   TTFT and seconds per chunk (each step synchronised); the same prompt
+   TTFT and seconds per chunk (each step synchronised) and the chunks'
+   host and device ms (the warm-up captured every (chunk, context)
+   program of the phase's prompts, their repeats included, and none
+   captures after it); the same prompt
    again (126 blocks from the prefix cache, one chunk) decoding 64
    tokens at a 32k context through K1: decode tokens/s, K1's launches
    per dispatch and, profiled, its device ms per launch; then
@@ -113,7 +138,9 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
 6e. ``[serve chunk gap]`` (round (c)): the inter-token gaps (p50, p99,
    max) of a 48-token stream, each token read as it comes, while a
    4032-token prompt is admitted with ``prefill_chunk=512`` and with
-   the whole prompt at once (bf16, pages of 16), each run warmed once;
+   the whole prompt at once (bf16, pages of 16), each run warmed once,
+   with the admission's wall, device-busy ms and seconds a step, and the
+   read run's prefill host and device ms; no capture after warm-up;
 6f. ``[serve disagg fp32]`` / ``[serve disagg bf16]``: the 12 requests
    of 5/6 through a ``DisaggRouter`` over a prefill-role and a
    decode-role ``LLMServer`` (each warmed, each engine on its own CUDA
@@ -123,15 +150,18 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
    (teacher-forced, as 6a); 12 migrations imported,
    ``exported_blocks == imported_blocks``, both allocators empty, K1
    launched 12 times per decode dispatch (per replay) and the prefill
-   engine no dispatch and no capture, the decode engine at most 2
-   captures, ``_cuda_core_paged`` never; prints tokens/s beside the
+   engine no dispatch and no decode capture, the decode engine at most
+   2 captures, no prefill program captured after the warm-ups,
+   ``_cuda_core_paged`` never; prints the prefill replica's prefill host
+   and device ms beside role both's, tokens/s beside the
    role-both engine's, TTFT and inter-token p50/p99,
    ``serving_migration_s`` p50/p99 and the blocks migrated, and the
    export's and the import's device ms a migration (profiled window);
 6g. ``[serve disagg gap]``: 6e's scenario through a ``DisaggRouter``
    (the stream hands off to the decode-role replica, the long prompt
    goes to the same prefill-role replica), the stream's inter-token
-   p50/p99/max beside 6e's of this run;
+   p50/p99/max beside 6e's of this run and the prefill replica's
+   prefill host and device ms, no capture after the warm-ups;
 6h. ``[serve router]``: a ``ServingRouter`` over two role-both
    ``LLMServer`` replicas sharing the fp32 weights (``metrics_port=0``):
    tokens equal 5's, each replica serves some; ``control_round`` with
@@ -896,11 +926,12 @@ def serving_phase(torch, seed, dtype, tag, check_oracle):
     try:
         warm = server.warmup(REQ_LENS)
         pool = pool_reserved(torch, server.engine._graph_pool)
+        compiled = server.engine.compile_stats()
         d0 = server.engine.stats()["dispatches"]
         pak.paged_ragged_attention.launches = 0
         pak._cuda_core_paged.launches = 0
         server.start()
-        with traced() as spans:
+        with traced() as spans, prefill_timer(torch) as ptime:
             t0 = time.monotonic()
             futs = [server.submit(p, max_tokens=m)
                     for p, m in zip(prompts, REQ_MAX)]
@@ -921,6 +952,7 @@ def serving_phase(torch, seed, dtype, tag, check_oracle):
             check(l_s == d_s * L, f"{tag}: sampled run's kernel launches "
                   f"{l_s} != dispatches {d_s} x {L}")
         captures = server.engine.compile_stats()["decode_captures"]
+        capture_gate(f"[serve {tag}]", [server.engine], [compiled])
         server.stop()
         prof = profile_dispatches(torch, server.engine, prompts, L)
     finally:
@@ -950,7 +982,9 @@ def serving_phase(torch, seed, dtype, tag, check_oracle):
           f"{captures}, capture s greedy {cap['greedy']:.4f} mixed "
           f"{cap['mixed']:.4f}, graph pool "
           f"{'n/a' if pool is None else f'{pool / 2**20:.1f} MiB'}; "
-          f"warmup_s={warm['warmup_s']:.3f}; {spans_line(spans)}",
+          f"warmup_s={warm['warmup_s']:.3f} ({warm['prefill_captures']} "
+          f"prefill programs captured, none in the timed window); "
+          f"{prefill_line(spans, ptime)}; {spans_line(spans)}",
           flush=True)
     if check_oracle:
         for i in ORACLE_REQS:
@@ -973,7 +1007,9 @@ def serving_phase(torch, seed, dtype, tag, check_oracle):
             "ttft_p50_s": st["ttft_p50_s"],
             "intertoken_p50_s": st["intertoken_p50_s"],
             "tokens": [r.tokens for r in results], "profile": prof,
-            "spans": spans}
+            "spans": spans, "prefill": ptime,
+            "prefill_captures": warm["prefill_captures"],
+            "warmup_s": warm["warmup_s"]}
 
 
 def traced():
@@ -1002,6 +1038,74 @@ def spans_line(spans):
     return "host ms in spans (count, total, max): " + ", ".join(
         f"{k} {v['count']} {v['total']:.3f} {v['max']:.3f}"
         for k, v in sorted(spans.items()) if k.startswith("serving."))
+
+
+PREFILL_SPANS = ("serving.prefill", "serving.prefill_chunk")
+
+
+def prefill_timer(torch):
+    """A context that records CUDA events on the engine's stream around
+    every grouped prefill and every prefill chunk any engine runs while
+    it is open (``DecodeEngine._prefill_grouped`` given a group,
+    ``_advance_prefill`` given a job), and yields the dict it fills at
+    exit: ``calls`` and ``device_ms``, the stream's time from each
+    call's first device work to its last (idle gaps where the host had
+    not yet enqueued the next kernel count too)."""
+    import contextlib
+    from paddle_tpu_torch.inference.serving.engine import DecodeEngine
+
+    def timed(orig, busy, marks):
+        def fn(self, *args):
+            if not busy(self, *args):
+                return orig(self, *args)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig(self, *args)
+            end.record()
+            marks.append((start, end))
+            return out
+        return fn
+
+    @contextlib.contextmanager
+    def run():
+        out, marks = {}, []
+        grouped = DecodeEngine._prefill_grouped
+        advance = DecodeEngine._advance_prefill
+        DecodeEngine._prefill_grouped = timed(
+            grouped, lambda eng, seated: bool(seated), marks)
+        DecodeEngine._advance_prefill = timed(
+            advance, lambda eng: bool(eng._prefill_jobs), marks)
+        try:
+            yield out
+        finally:
+            DecodeEngine._prefill_grouped = grouped
+            DecodeEngine._advance_prefill = advance
+            for _, end in marks:
+                end.synchronize()
+            out.update(calls=len(marks), device_ms=sum(
+                s.elapsed_time(e) for s, e in marks))
+    return run()
+
+
+def prefill_line(spans, timer):
+    """Host ms in the prefill spans and device ms of the same calls."""
+    host = sum(spans[k]["total"] for k in PREFILL_SPANS if k in spans)
+    n = sum(spans[k]["count"] for k in PREFILL_SPANS if k in spans)
+    return (f"prefill: {n} calls, host {host:.3f} ms in spans, device "
+            f"{timer['device_ms']:.3f} ms (stream time over the "
+            f"{timer['calls']} engine steps that prefilled)")
+
+
+def capture_gate(name, engines, before):
+    """No prefill program captured in a timed window: ``before`` is each
+    engine's ``compile_stats()`` after its warm-up."""
+    for eng, st in zip(engines, before):
+        now = eng.compile_stats()
+        for key in ("prefill_captures", "chunk_captures"):
+            check(now[key] == st[key], f"{name}: {key} moved from "
+                  f"{st[key]} to {now[key]} in the timed window (a shape "
+                  "key the warm-up did not reach)")
 
 
 REPLAY_CALLS = 20                # replays timed alone on the host
@@ -1375,6 +1479,7 @@ def serve_refresh_phase(torch, seed):
         steps = dict(server.engine._steps)
         before = run(server)
         captures = server.engine.compile_stats()["decode_captures"]
+        prefill = server.engine.compile_stats()["prefill_captures"]
         t0 = time.monotonic()
         server.refresh_weights(net_b)
         torch.cuda.synchronize()
@@ -1382,6 +1487,7 @@ def serve_refresh_phase(torch, seed):
         after = run(server)
         same = server.engine._steps == steps
         captures_after = server.engine.compile_stats()["decode_captures"]
+        prefill_after = server.engine.compile_stats()["prefill_captures"]
     finally:
         server.close()
     del net_a
@@ -1393,9 +1499,11 @@ def serve_refresh_phase(torch, seed):
         fresh.close()
     del net_b, server, fresh
     torch.cuda.empty_cache()
-    check(captures == 2 and captures_after == 2 and same,
+    check(captures == 2 and captures_after == 2 and same
+          and prefill == prefill_after,
           f"[serve refresh] decode captures {captures} -> {captures_after}"
-          f" (same graphs: {same}); a refresh must not capture again")
+          f" (same graphs: {same}), prefill captures {prefill} -> "
+          f"{prefill_after}; a refresh must not capture again")
     check(after == want, "[serve refresh] tokens after refresh_weights "
           "differ from a fresh server's on the new network")
     check(after != before, "[serve refresh] the refreshed server still "
@@ -1403,8 +1511,10 @@ def serve_refresh_phase(torch, seed):
     print(f"[serve refresh] LLMServer(GPTForCausalLM GPT-2-small fp32): "
           f"{len(prompts)} requests x {REFRESH_MAX} tokens, then "
           f"refresh_weights(a second network) in {refresh_s:.4f} s: tokens "
-          f"equal a fresh server's on it, decode captures {captures} -> "
-          f"{captures_after}, the same captured graphs", flush=True)
+          f"equal a fresh server's on it (each first token from a captured "
+          f"prefill program), decode captures {captures} -> "
+          f"{captures_after}, prefill captures {prefill} -> "
+          f"{prefill_after}, the same captured graphs", flush=True)
     return {"refresh_s": refresh_s}
 
 
@@ -1484,8 +1594,9 @@ def serve_long_phase(torch, seed):
                        device="cuda")
     res = {}
     with torch.no_grad():
-        eng.warmup([LONG_CHUNK])
-        # warm the chunk path (two chunks of another prompt)
+        warm = eng.warmup([2048, LONG_PROMPT])
+        compiled = eng.compile_stats()
+        # a warm-up request (two chunks of another prompt)
         w = eng.submit(rng.integers(0, cfg.vocab_size, 2048).tolist(),
                        max_tokens=2)
         eng.run_until_idle()
@@ -1493,10 +1604,11 @@ def serve_long_phase(torch, seed):
               "[serve long] warm-up request")
         torch.cuda.synchronize()
         c0 = eng.stats()["prefill_chunks"]
-        t0 = time.perf_counter()
-        req = eng.submit(prompt, max_tokens=4, temperature=0.8, seed=1)
-        steps = _drive(torch, eng, req)
-        ttft = time.perf_counter() - t0
+        with traced() as spans, prefill_timer(torch) as ptime:
+            t0 = time.perf_counter()
+            req = eng.submit(prompt, max_tokens=4, temperature=0.8, seed=1)
+            steps = _drive(torch, eng, req)
+            ttft = time.perf_counter() - t0
         chunks = eng.stats()["prefill_chunks"] - c0
         eng.run_until_idle()
         toks = req.future.result(timeout=0).tokens
@@ -1551,6 +1663,7 @@ def serve_long_phase(torch, seed):
         check(kept >= 8 * L, f"[serve long] the profiler kept {kept} K1 "
               "launches")
         captures = eng.compile_stats()["decode_captures"]
+        capture_gate("[serve long]", [eng], [compiled])
         eng.release_graphs()
     check(len(steps) == chunks, f"[serve long] {len(steps)} steps for "
           f"{chunks} chunks")
@@ -1561,7 +1674,8 @@ def serve_long_phase(torch, seed):
                 "decode_busy_ms": busy_us / 1e3 / n_prof,
                 "k1_device_ms": k1_us / 1e3, "launches_per_dispatch":
                 launches / dispatches, "prefix_hits": hits,
-                "captures": captures})
+                "captures": captures, "prefill": ptime,
+                "chunk_captures": warm["chunk_captures"]})
     print(f"[serve long] GPT-2-small L=12 D=768 positions {LONG_POSITIONS} "
           f"bf16, max_batch=2 BS={LONG_BS} prefill_chunk={LONG_CHUNK} "
           f"prefix_cache: a {LONG_PROMPT}-token prompt: TTFT {ttft:.4f} s "
@@ -1572,8 +1686,10 @@ def serve_long_phase(torch, seed):
           f"{launches} = {launches / dispatches:.1f} per dispatch, K1 "
           f"device {k1_us / 1e3:.5f} ms per launch at B=2 with one "
           f"{LONG_PROMPT}-{LONG_PROMPT + 17}-token context (profiled "
-          f"replays); decode captures {captures}",
-          flush=True)
+          f"replays); decode captures {captures}; warm-up "
+          f"{warm['warmup_s']:.3f} s captured {warm['chunk_captures']} chunk "
+          f"programs {warm['chunk_keys']}, none after it; the TTFT window's "
+          f"{prefill_line(spans, ptime)}", flush=True)
     del eng, params
     torch.cuda.empty_cache()
     res.update(serve_long_fp32(torch, seed))
@@ -1685,21 +1801,24 @@ def chunk_gap_phase(torch, seed):
                                block_size=16, num_blocks=300,
                                prefill_chunk=chunk, device="cuda")
             eng.warmup([8, 4032])
+            compiled = eng.compile_stats()
             for _ in range(2):
                 seen = []
-                eng.submit(stream_prompt, max_tokens=48,
-                           stream_cb=lambda rid, i, tok: seen.append(
-                               (int(tok), time.perf_counter())))
-                for _ in range(4):
-                    eng.step()
-                eng.submit(long_prompt, max_tokens=2)
-                eng.run_until_idle()
+                with traced() as spans, prefill_timer(torch) as ptime:
+                    eng.submit(stream_prompt, max_tokens=48,
+                               stream_cb=lambda rid, i, tok: seen.append(
+                                   (int(tok), time.perf_counter())))
+                    for _ in range(4):
+                        eng.step()
+                    eng.submit(long_prompt, max_tokens=2)
+                    eng.run_until_idle()
                 gaps = np.diff([t for _, t in seen])
             check(len(seen) == 48, f"[serve chunk gap] {len(seen)} tokens")
             key = f"chunk {chunk}" if chunk else "whole"
             res[key] = {"p50_s": float(np.percentile(gaps, 50)),
                         "p99_s": float(np.percentile(gaps, 99)),
-                        "max_s": float(gaps.max())}
+                        "max_s": float(gaps.max()),
+                        "prefill": prefill_line(spans, ptime)}
             # the profiled run: the steps from the prompt's submit to its
             # first token, each synchronised
             eng.submit(stream_prompt, max_tokens=48)
@@ -1715,16 +1834,250 @@ def chunk_gap_phase(torch, seed):
                        for e in prof.key_averages()) / 1e3
             res[key].update({"admit_steps": len(steps),
                              "admit_wall_ms": sum(steps) * 1e3,
+                             "admit_step_p50_s": float(np.median(steps)),
                              "admit_busy_ms": busy})
+            capture_gate(f"[serve chunk gap] {key}", [eng], [compiled])
             eng.release_graphs()
     print("[serve chunk gap] a 48-token stream while a 4032-token prompt is "
           "admitted (bf16, full width): inter-token s " + "; ".join(
               f"{k}: p50 {r['p50_s']:.5f} p99 {r['p99_s']:.5f} max "
               f"{r['max_s']:.5f}, admission (profiled) {r['admit_steps']} "
-              f"steps, wall {r['admit_wall_ms']:.3f} ms, device busy "
-              f"{r['admit_busy_ms']:.3f} ms" for k, r in res.items()),
+              f"steps, wall {r['admit_wall_ms']:.3f} ms (s a step p50 "
+              f"{r['admit_step_p50_s']:.5f}), device busy "
+              f"{r['admit_busy_ms']:.3f} ms; the read run's {r['prefill']}"
+              for k, r in res.items()) + "; no capture after warm-up",
           flush=True)
     return res
+
+
+PREFILL_GROUP_KEYS = ((1, 16), (8, 16), (1, 1024), (8, 1024))
+PREFILL_CHUNK = 512              # [serve prefill capture]: the chunk, and
+PREFILL_CTX = (4096, 4112)       # its contexts: a power of two and one
+                                 # block past it (gathered at 2x its extent)
+PREFILL_TIMED = 5                # runs timed a program, replay and eager
+
+
+def _program_times(torch, eng, fn):
+    """Host ms (median enqueue) and device-busy ms (``torch.profiler``)
+    a call of ``fn`` on ``eng``'s stream, over ``PREFILL_TIMED`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    host = []
+    with torch.no_grad(), eng._on_stream():
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(PREFILL_TIMED):
+            t = time.perf_counter()
+            fn()
+            host.append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PREFILL_TIMED):
+                fn()
+            torch.cuda.synchronize()
+    busy_us = sum(getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0.0))
+                  for e in prof.key_averages())
+    return float(np.median(host)) * 1e3, busy_us / 1e3 / PREFILL_TIMED
+
+
+def _hold_program(torch, eng, name, prog, host, body, pages):
+    """``prog``'s first run (warm-up and capture), then a replay and its
+    eager body on the same pool: tokens and pool equal bit for bit, every
+    page of ``pages`` written and no block outside them but the scratch
+    block; then host and device ms a call of each."""
+    from paddle_tpu_torch.inference.serving import SCRATCH_BLOCK
+    pool = eng._kv.pool
+
+    def eager():
+        prog.inputs.copy_(host, non_blocking=True)
+        body()
+        return prog.out.clone()
+
+    with torch.no_grad(), eng._on_stream():
+        pool0 = pool.clone()
+        prog.run(host, body)
+        pool.copy_(pool0)
+        got = prog.run(host, body)
+        replayed = pool.clone()
+        pool.copy_(pool0)
+        want = eager()
+    torch.cuda.synchronize()
+    check(prog.captures == 1, f"{name}: {prog.captures} captures")
+    check(torch.equal(got, want), f"{name}: the replay's tokens "
+          f"{got.tolist()} differ from the eager body's {want.tolist()}")
+    # every block but the scratch block, where a group's padding pages
+    # all land (an index_put_ with repeated indices keeps any one write)
+    keep = [b for b in range(pool.shape[2]) if b != SCRATCH_BLOCK]
+    check(torch.equal(replayed[:, :, keep], pool[:, :, keep]),
+          f"{name}: the replay's pool differs from the eager body's")
+    written = (replayed != pool0).flatten(3).any(-1).any(0).any(
+        0).nonzero().flatten().tolist()
+    stray = sorted(set(written) - set(pages) - {SCRATCH_BLOCK})
+    check(not stray, f"{name}: blocks {stray[:8]} written outside the "
+          "request's pages and the scratch block")
+    check(set(pages) <= set(written), f"{name}: pages "
+          f"{sorted(set(pages) - set(written))[:8]} not written")
+    del pool0, replayed
+    r_host, r_dev = _program_times(torch, eng, lambda: prog.run(host, body))
+    e_host, e_dev = _program_times(torch, eng, eager)
+    return {"capture_s": prog.call.capture_s, "replay_host_ms": r_host,
+            "replay_device_ms": r_dev, "eager_host_ms": e_host,
+            "eager_device_ms": e_dev, "written": len(written),
+            "scratch": SCRATCH_BLOCK in written}
+
+
+def serve_prefill_capture_phase(torch, seed, dtype, tag):
+    """``[serve prefill capture fp32/bf16]``: GPT-2-small at full width
+    (33280 positions, random weights from ``seed``), ``max_batch=8``,
+    pages of 16, ``prefill_chunk=512``, its pool filled with noise; each
+    grouped program of ``PREFILL_GROUP_KEYS`` (prompts of random lengths
+    in the bucket, every other row sampled) and each chunk of 512 at the
+    contexts ``PREFILL_CTX`` (one gathered at 2x its extent), captured,
+    held bit for bit against its eager body on the card (tokens and the
+    pool: the request's pages and the scratch block written, no other
+    block), then timed beside it; no K1 launch."""
+    from paddle_tpu_torch.inference.serving import DecodeEngine
+    from paddle_tpu_torch.inference.serving import paged_attention_kernel as pak
+    from paddle_tpu_torch.io.bucketing import shape_bucket
+    name = f"[serve prefill capture {tag}]"
+    cfg = _long_cfg()
+    params = _long_params(torch, seed, dtype)
+    rng = np.random.default_rng(seed + 11)
+    eng = DecodeEngine(params=params, gpt_config=cfg, max_batch=8,
+                       block_size=16, num_blocks=600,
+                       prefill_chunk=PREFILL_CHUNK, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    with torch.no_grad():
+        eng._kv.pool.normal_(generator=gen)
+    pak.paged_ragged_attention.launches = 0
+    out = {}
+    for Gb, b in PREFILL_GROUP_KEYS:
+        prog = eng._group_program(Gb, b)
+        host, image = eng._host_image(prog)
+        ids, lengths, temps, topks, topps, seeds, blocks = \
+            prog.views(image)
+        pages, nxt = [], 1
+        for g in range(Gb):
+            n = int(rng.integers(b // 2 + 1, b + 1))
+            ids[g, :n] = rng.integers(0, cfg.vocab_size, n)
+            lengths[g] = n
+            if g % 2:
+                temps[g], topks[g], topps[g] = 0.8, 40, 0.9
+                seeds[g] = int(rng.integers(0, 2 ** 32))
+            nb = -(-n // 16)
+            blocks[g, :nb] = np.arange(nxt, nxt + nb)
+            pages += list(range(nxt, nxt + nb))
+            nxt += nb
+        out[f"group {Gb}x{b}"] = _hold_program(
+            torch, eng, f"{name} group {Gb}x{b}", prog, host,
+            lambda prog=prog: eng._group_body(prog), pages)
+    for ctx in PREFILL_CTX:
+        take = PREFILL_CHUNK if ctx == PREFILL_CTX[0] else PREFILL_CHUNK - 7
+        nbc = shape_bucket(ctx // 16, eng._ctx_buckets)
+        prog = eng._chunk_program(PREFILL_CHUNK, nbc)
+        host, image = eng._host_image(prog)
+        table, ctx_len, ids, chunk_len, blocks, temp, topk, topp, seed_ = \
+            prog.views(image)
+        # the request's page-table row as the engine holds it (context
+        # pages, then the chunk's, then scratch), cut at the extent
+        ctx_pages = np.arange(1, ctx // 16 + 1)
+        pages = np.arange(ctx // 16 + 1, ctx // 16 + 1 + -(-take // 16))
+        row = np.zeros(eng.max_blocks_per_seq, np.int32)
+        row[:len(ctx_pages) + len(pages)] = np.concatenate([ctx_pages, pages])
+        table[0] = row[:nbc]
+        ctx_len[0], chunk_len[0] = ctx, take
+        ids[0, :take] = rng.integers(0, cfg.vocab_size, take)
+        blocks[:len(pages)] = pages
+        temp[0], topk[0], topp[0] = 0.8, 40, 0.9
+        seed_[0] = int(rng.integers(0, 2 ** 32))
+        key = f"chunk {PREFILL_CHUNK} at context {ctx} (extent {nbc} blocks)"
+        out[key] = _hold_program(
+            torch, eng, f"{name} {key}", prog, host,
+            lambda prog=prog: eng._chunk_body(prog), pages.tolist())
+    st = eng.stats()
+    launches = pak.paged_ragged_attention.launches
+    eng.release_graphs()
+    check(st["prefill_captures"] == len(PREFILL_GROUP_KEYS) and
+          st["chunk_captures"] == len(PREFILL_CTX),
+          f"{name}: captures {st['prefill_captures']} / "
+          f"{st['chunk_captures']}")
+    check(launches == 0, f"{name}: K1 launched {launches} times in prefill")
+    pool = st["graph_pool_bytes"]
+    print(f"{name} GPT-2-small L=12 D=768 (33280 positions), max_batch=8, "
+          f"BS=16: {st['prefill_captures']} grouped and "
+          f"{st['chunk_captures']} chunk programs captured in "
+          f"{st['prefill_capture_s']:.4f} s, graph pool "
+          f"{'n/a' if pool is None else f'{pool / 2**20:.1f} MiB'}; each "
+          "replay's tokens and pool equal its eager body's bit for bit, the "
+          "request's pages and the scratch block the only blocks written, "
+          "K1 0 launches; a call (median host ms, profiled device ms), "
+          "replay vs eager body: " + "; ".join(
+              f"{k}: capture {r['capture_s']:.4f} s, host "
+              f"{r['replay_host_ms']:.4f} vs {r['eager_host_ms']:.4f}, "
+              f"device {r['replay_device_ms']:.4f} vs "
+              f"{r['eager_device_ms']:.4f}" for k, r in out.items()),
+          flush=True)
+    del eng, params
+    torch.cuda.empty_cache()
+    return {"keys": out, "graph_pool_bytes": pool,
+            "capture_s": st["prefill_capture_s"]}
+
+
+def serve_poll_phase(torch, seed, plain):
+    """``[serve poll]``: the 12 requests of ``[serve fp32]`` with an EOS
+    id (the fifth token of request 0's stream there) through an
+    ``LLMServer`` with the auto-tuned poll cadence (the default) and
+    with a fixed interval of 8: the auto decision (interval, poll cost,
+    ms a dispatch) on the card; both runs' tokens equal ``[serve
+    fp32]``'s cut after their first EOS."""
+    from paddle_tpu_torch.inference.serving import LLMServer, params_from_numpy
+    from paddle_tpu_torch.models import gpt2_small, init_decode_weights_numpy
+    cfg = gpt2_small()
+    params = params_from_numpy(init_decode_weights_numpy(cfg, seed),
+                               device="cuda", dtype=torch.float32)
+    rng = np.random.default_rng(seed + 1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in REQ_LENS]
+    eos = plain["tokens"][0][4]
+    want = [t[:t.index(eos) + 1] if eos in t else t for t in plain["tokens"]]
+    runs = {}
+    for interval in (None, 8):
+        server = LLMServer(params=params, gpt_config=cfg, max_batch=8,
+                           block_size=16, num_blocks=512, eos_id=eos,
+                           done_poll_interval=interval, auto_start=False,
+                           device="cuda")
+        try:
+            server.warmup(REQ_LENS)
+            server.start()
+            t0 = time.monotonic()
+            results = [f.result(timeout=600) for f in
+                       [server.submit(p, max_tokens=m)
+                        for p, m in zip(prompts, REQ_MAX)]]
+            wall = time.monotonic() - t0
+            st = server.stats()
+        finally:
+            server.close()
+        got = [r.tokens for r in results]
+        check(got == want, f"[serve poll] interval {interval}: tokens differ"
+              " from [serve fp32]'s cut at the EOS")
+        runs[interval] = {"tokens_per_s": sum(map(len, got)) / wall,
+                          "decision": st.get("done_poll_decision"),
+                          "interval": st["done_poll_interval"],
+                          "dispatches": st["dispatches"]}
+    d = runs[None]["decision"]
+    check(d is not None and 1 <= d["done_poll_interval"] <= d["max"],
+          f"[serve poll] the auto cadence did not decide: {d}")
+    cut = sum(1 for t in plain["tokens"] if eos in t)
+    print(f"[serve poll] GPT-2-small fp32, eos_id {eos} ({cut} of 12 streams"
+          f" hold it): auto decision {d}; {runs[None]['tokens_per_s']:.2f} "
+          f"tokens/s in {runs[None]['dispatches']} dispatches, at a fixed "
+          f"interval 8 {runs[8]['tokens_per_s']:.2f} in "
+          f"{runs[8]['dispatches']}; tokens equal [serve fp32]'s cut at the "
+          "EOS in both", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return runs
 
 
 DISAGG_RETRY_S = 0.005           # DisaggRouter's retry loop for parked
@@ -1863,11 +2216,12 @@ def serve_disagg_phase(torch, seed, dtype, tag, plain):
     kw = dict(params=params, gpt_config=cfg, max_batch=8, block_size=16,
               num_blocks=512, eos_id=None, device="cuda")
     router, pre, dec = _disagg_router(torch, kw, kw, REQ_LENS)
+    compiled = [pre.engine.compile_stats(), dec.engine.compile_stats()]
     try:
         d0 = dec.engine.stats()["dispatches"]
         pak.paged_ragged_attention.launches = 0
         pak._cuda_core_paged.launches = 0
-        with traced() as spans:
+        with traced() as spans, prefill_timer(torch) as ptime:
             t0 = time.monotonic()
             futs = [router.submit(p, max_tokens=m)
                     for p, m in zip(prompts, REQ_MAX)]
@@ -1896,6 +2250,7 @@ def serve_disagg_phase(torch, seed, dtype, tag, plain):
             check([r.tokens for r in res] == [r.tokens for r in results],
                   f"{name} a later run's tokens differ from the first's")
             again.append((w, [r.stats.ttft for r in res], sp))
+        capture_gate(name, [pre.engine, dec.engine], compiled)
     finally:
         router.close()
     dispatches = dst["dispatches"] - d0
@@ -1945,7 +2300,11 @@ def serve_disagg_phase(torch, seed, dtype, tag, plain):
           f"{dst['decode_captures']}, the prefill engine 0 dispatches and "
           f"0 captures; device ms a migration (profiled, "
           f"{PROFILE_REQS} requests): export {ms(dev_ms['export'])}, "
-          f"import {ms(dev_ms['import'])}; {spans_line(spans)} (role both,"
+          f"import {ms(dev_ms['import'])}; the prefill replica's "
+          f"{prefill_line(spans, ptime)} (role both, this run: "
+          f"{prefill_line(plain['spans'], plain['prefill'])}), "
+          f"{compiled[0]['prefill_captures']} prefill programs captured "
+          f"in its warm-up, none after; {spans_line(spans)} (role both,"
           f" this run: {spans_line(plain['spans'])})", flush=True)
     print(f"{name} {tok_line}", flush=True)
     print(f"{name} the same requests twice more: " + "; ".join(
@@ -1960,7 +2319,7 @@ def serve_disagg_phase(torch, seed, dtype, tag, plain):
             "intertoken_p50_s": dst["intertoken_p50_s"],
             "intertoken_p99_s": dst["intertoken_p99_s"],
             "migration": mig, "migration_device_ms": dev_ms,
-            "spans": spans,
+            "spans": spans, "prefill": ptime,
             "again_tokens_per_s": [n_tok / w for w, _, _ in again]}
 
 
@@ -1986,6 +2345,7 @@ def disagg_gap_phase(torch, seed, role_both):
         name = f"[serve disagg gap] chunk {chunk}"
         router, pre, dec = _disagg_router(
             torch, dict(kw, prefill_chunk=chunk), kw, [8, 4032])
+        compiled = [pre.engine.compile_stats(), dec.engine.compile_stats()]
         try:
             for _ in range(2):
                 seen, started = [], threading.Event()
@@ -1995,21 +2355,25 @@ def disagg_gap_phase(torch, seed, role_both):
                     if len(seen) >= 4:
                         started.set()
 
-                fs = router.submit(stream_prompt, max_tokens=48,
-                                   stream_cb=cb)
-                check(started.wait(600), f"{name}: the stream did not start")
-                fl = router.submit(long_prompt, max_tokens=2)
-                fs.result(timeout=600)
-                fl.result(timeout=600)
+                with traced() as spans, prefill_timer(torch) as ptime:
+                    fs = router.submit(stream_prompt, max_tokens=48,
+                                       stream_cb=cb)
+                    check(started.wait(600),
+                          f"{name}: the stream did not start")
+                    fl = router.submit(long_prompt, max_tokens=2)
+                    fs.result(timeout=600)
+                    fl.result(timeout=600)
                 gaps = np.diff([t for _, t in seen])
             check(len(seen) == 48, f"{name}: {len(seen)} tokens streamed")
             _role_gates(name, pre, dec, 4)
+            capture_gate(name, [pre.engine, dec.engine], compiled)
         finally:
             router.close()
         res["whole" if chunk is None else f"chunk {chunk}"] = {
             "p50_s": float(np.percentile(gaps, 50)),
             "p99_s": float(np.percentile(gaps, 99)),
-            "max_s": float(gaps.max())}
+            "max_s": float(gaps.max()),
+            "prefill": prefill_line(spans, ptime)}
         del router, pre, dec
         torch.cuda.empty_cache()
     print("[serve disagg gap] a 48-token stream on the decode-role replica "
@@ -2018,8 +2382,9 @@ def disagg_gap_phase(torch, seed, role_both):
               f"{k}: p50 {r['p50_s']:.5f} p99 {r['p99_s']:.5f} max "
               f"{r['max_s']:.5f} (role both, this run: p50 "
               f"{role_both[k]['p50_s']:.5f} p99 {role_both[k]['p99_s']:.5f}"
-              f" max {role_both[k]['max_s']:.5f})" for k, r in res.items()),
-          flush=True)
+              f" max {role_both[k]['max_s']:.5f}), the read run's prefill "
+              f"replica's {r['prefill']}" for k, r in res.items())
+          + "; no capture after warm-up", flush=True)
     return res
 
 
@@ -4944,6 +5309,9 @@ def main(argv=None) -> int:
     lres = lmce_phase(torch, args.seed)
     s32 = serving_phase(torch, args.seed, torch.float32, "fp32", True)
     s16 = serving_phase(torch, args.seed, torch.bfloat16, "bf16", False)
+    serve_prefill_capture_phase(torch, args.seed, torch.float32, "fp32")
+    serve_prefill_capture_phase(torch, args.seed, torch.bfloat16, "bf16")
+    serve_poll_phase(torch, args.seed, s32)
     sp32 = serve_spec_phase(torch, args.seed, torch.float32, "fp32", s32)
     sp16 = serve_spec_phase(torch, args.seed, torch.bfloat16, "bf16", s16)
     serve_refresh_phase(torch, args.seed)

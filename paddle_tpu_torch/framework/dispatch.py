@@ -114,16 +114,21 @@ class CapturedCall:
     graph in ``pool`` with the ``ledgers`` put back, and :meth:`replay`
     launches the graph on the current stream and moves the ledgers by
     the capture's change.  A capture that fails raises with its CUDA
-    error."""
+    error.  ``stream`` (default: a new one) is the graph's stream:
+    graphs captured into one pool reuse each other's freed blocks only
+    when they were captured on the same stream (the caching allocator
+    keys its free blocks by stream)."""
 
     def __init__(self, device: torch.device, pool,
                  ledgers: Sequence[Ledger] = (),
-                 capture_error_mode: str = "global"):
+                 capture_error_mode: str = "global",
+                 stream: Optional[torch.cuda.Stream] = None):
         self.device = device
         self._pool = pool
         self._ledgers = list(ledgers)
         self._mode = capture_error_mode
-        self._stream = torch.cuda.Stream(device)
+        self._stream = (stream if stream is not None
+                        else torch.cuda.Stream(device))
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.generator: Optional[torch.Generator] = None
         self.captures = 0

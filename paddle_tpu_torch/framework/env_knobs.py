@@ -68,6 +68,15 @@ _k("PADDLE_TORCH_PREFILL_CHUNK", "unset", "int",
 _k("PADDLE_TORCH_PREFIX_CACHE", "off", "bool",
    "DecodeEngine's default prefix_cache: share the K/V of full prompt "
    "blocks between requests (PADDLE_TPU_PREFIX_CACHE).")
+_k("PADDLE_TORCH_SERVING_POLL_TARGET", "0.05", "float",
+   "The auto-tuned done-poll cadence's bound on a poll's cost as a share "
+   "of the dispatches it spans (PADDLE_TPU_SERVING_POLL_TARGET).")
+_k("PADDLE_TORCH_SERVING_POLL_MAX", "64", "int",
+   "Largest done-poll interval, in decode dispatches, the auto-tuner "
+   "picks (PADDLE_TPU_SERVING_POLL_MAX).")
+_k("PADDLE_TORCH_SERVING_POLL_CALIB", "3", "int",
+   "Polls the done-poll auto-tuner measures, after the first, before it "
+   "decides (PADDLE_TPU_SERVING_POLL_CALIB).")
 _k("PADDLE_TORCH_SPEC_K", "4", "int",
    "DecodeEngine's default spec_k: draft tokens proposed per speculative "
    "decode dispatch, used only when the engine is given a draft "

@@ -19,7 +19,8 @@ training step, captured once per batch signature after one eager
 warm-up step; on the CPU the same step body runs eagerly.  Every K
 gives the same end state.  ``steps_per_dispatch=0`` runs each step
 through :meth:`Model.train_batch`, eagerly, which stays the public
-single-step entry.
+single-step entry.  :meth:`Model.prepare_serving` hands the network to
+a warmed continuous-batching ``LLMServer``.
 
 Not ported yet, and refused with ``NotImplementedError``: metrics,
 ``amp_configs`` (``auto_cast``; use ``amp.decorate(level="O2")``),
@@ -222,6 +223,29 @@ class Model:
             runner.close()
         self._graphs = {}
         self._graph_pool = None
+
+    # -- serving export -----------------------------------------------------
+    def prepare_serving(self, prompt_lengths=None, warmup=True, start=True,
+                        **server_kwargs):
+        """The trained network as a continuous-batching generation server
+        (``paddle_tpu_torch.inference.serving.LLMServer``) on this
+        model's device, in one call: the server serves a copy of the
+        live parameters in the decode layout (``extract_decode_params``),
+        so no training graph of this model aliases them; ``warmup``
+        captures the decode step and the prefill programs that
+        ``prompt_lengths`` reach before any traffic (the record stays in
+        ``server.stats()["warmup"]``), and ``start`` starts its pump.
+        ``server_kwargs`` go to the engine (``max_batch``,
+        ``block_size``, ``num_blocks``, ``eos_id``, ...).  Returns the
+        server."""
+        from ..inference.serving import LLMServer
+        server = LLMServer(self.network, auto_start=False,
+                           device=self.device, **server_kwargs)
+        if warmup:
+            server.warmup(prompt_lengths)
+        if start:
+            server.start()
+        return server
 
     # -- loops --------------------------------------------------------------
     def fit(self, train_data=None, eval_data=None, batch_size=1, epochs=1,

@@ -43,7 +43,7 @@ from .ragged_attention import (causal_prefill_attention,
                                chunked_prefill_attention,
                                paged_decode_attention,
                                ragged_decode_attention)
-from .sampling import sample_tokens_host
+from .sampling import sample_tokens, sample_tokens_host
 
 
 @dataclass(frozen=True)
@@ -191,20 +191,44 @@ def _mlp(x, lp, eps):
 # ---------------------------------------------------------------------------
 # prefill
 # ---------------------------------------------------------------------------
+def _on_device(x, dtype, device) -> torch.Tensor:
+    """A prefill input as a tensor: a tensor passes as it is (a captured
+    prefill's static buffer), a host value or sequence is staged to
+    ``device`` from a private copy, without waiting for the device."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.from_numpy(np.array(x, dtype=dtype).reshape(-1)).to(
+        device, non_blocking=True)
+
+
+def _seeds_on_device(seed, device) -> torch.Tensor:
+    """Seeds as :func:`_on_device` gives them, host values reduced to
+    their uint32 bits first."""
+    if isinstance(seed, torch.Tensor):
+        return seed
+    return _on_device(np.asarray(seed, dtype=np.int64) & 0xFFFFFFFF,
+                      np.int64, device)
+
+
 def prefill_group_forward(params, cfg: ServingModelConfig, ids, lengths,
                           temperature, top_k, top_p, seed):
     """Batched same-bucket prefill.
 
     ``ids`` ``[G, Lb]`` int tensor (prompts right-padded to the shared
     bucket) on the weights' device; ``lengths``, ``temperature``,
-    ``top_k``, ``top_p``, ``seed``: host arrays ``[G]`` (the first
-    token's sampling position is the prompt length).  Returns
-    ``(kv [L, 2, G, Lb, H, Dh], first_tokens [G] int32, last_logits
-    [G, V])``.  Padded group rows (length 0) emit garbage the engine
-    ignores.
+    ``top_k``, ``top_p``, ``seed``: ``[G]`` tensors on that device (the
+    seeds as uint32 bits in any integer dtype), or host sequences,
+    which are staged first.  Every device input is read on the device,
+    so the engine's captured prefill holds this body whole: the last
+    position is a gather at ``lengths - 1``, and the first token is
+    sampled by :func:`~.sampling.sample_tokens` at the prompt length.
+    Returns ``(kv [L, 2, G, Lb, H, Dh], first_tokens [G] int32,
+    last_logits [G, V])``.  Padded group rows (length 0) emit garbage
+    the engine ignores.
     """
     G, Lb = ids.shape
     dev = ids.device
+    lengths = _on_device(lengths, np.int32, dev)
     pos = torch.arange(Lb, device=dev)
     x = params.wte[ids.long()] + params.wpe[pos][None]
     kvs = []
@@ -217,12 +241,13 @@ def prefill_group_forward(params, cfg: ServingModelConfig, ids, lengths,
         x = x + attn.reshape(G, Lb, cfg.hidden_size) @ lp.wo + lp.bo
         x = x + _mlp(x, lp, cfg.ln_epsilon)
     x = _ln(x, params.lnf_w, params.lnf_b, cfg.ln_epsilon)
-    lengths = np.asarray(lengths, dtype=np.int64)
-    last_ix = torch.as_tensor(np.maximum(lengths - 1, 0), device=dev)
-    last = x[torch.arange(G, device=dev), last_ix]  # [G, D]
+    last_ix = (lengths.long() - 1).clamp(min=0)
+    last = torch.take_along_dim(x, last_ix[:, None, None], dim=1)[:, 0]
     logits = last @ params.wte.T                   # [G, V]
-    first = sample_tokens_host(logits, temperature, top_k, top_p, seed,
-                               lengths)
+    first = sample_tokens(logits, _on_device(temperature, np.float32, dev),
+                          _on_device(top_k, np.int32, dev),
+                          _on_device(top_p, np.float32, dev),
+                          _seeds_on_device(seed, dev), lengths)
     return torch.stack(kvs), first, logits
 
 
@@ -244,17 +269,22 @@ def chunk_prefill_forward(params, cfg: ServingModelConfig, pool, ctx_table,
     the chunk's last real position gives the next token.
 
     ``ctx_table`` ``[1, NBctx]`` int32 tensor: the page-table slice
-    covering the context; ``ctx_len`` (int): cached tokens; ``ids``
-    ``[1, Cb]`` int tensor: the chunk's tokens right-padded to ``Cb``
-    (a block multiple); ``chunk_len`` (int): its real tokens;
-    ``chunk_blocks`` ``[Cb // BS]`` int tensor: its pages (tail entries
-    SCRATCH_BLOCK); the sampling values are host scalars, and the token
-    is sampled at position ``ctx_len + chunk_len`` (only a prompt's
-    last chunk's token is used).  Returns ``(token, last_logits [V])``.
+    covering the context (the engine pads it to a context-extent
+    bucket; columns past ``ctx_len`` are masked); ``ctx_len``: cached
+    tokens; ``ids`` ``[1, Cb]`` int tensor: the chunk's tokens
+    right-padded to ``Cb`` (a block multiple); ``chunk_len``: its real
+    tokens; ``chunk_blocks`` ``[Cb // BS]`` int tensor: its pages (tail
+    entries SCRATCH_BLOCK).  ``ctx_len``, ``chunk_len`` and the four
+    sampling values are ``[1]`` tensors on the pool's device (as the
+    engine's captured chunk holds them) or host scalars, which are
+    staged first.  The token is sampled at position ``ctx_len +
+    chunk_len`` (only a prompt's last chunk's token is used).  Returns
+    ``(token, last_logits [V])``.
     """
     B, Cb = ids.shape
     dev = ids.device
-    ctx_len, chunk_len = int(ctx_len), int(chunk_len)
+    ctx_len = _on_device(ctx_len, np.int32, dev)
+    chunk_len = _on_device(chunk_len, np.int32, dev)
     pos = (ctx_len + torch.arange(Cb, device=dev)).clamp(
         max=cfg.max_position - 1)
     x = params.wte[ids.long()] + params.wpe[pos][None]
@@ -271,11 +301,13 @@ def chunk_prefill_forward(params, cfg: ServingModelConfig, pool, ctx_table,
         x = x + _mlp(x, lp, cfg.ln_epsilon)
     write_prompt_pages(pool, torch.stack(kvs), chunk_blocks)
     x = _ln(x, params.lnf_w, params.lnf_b, cfg.ln_epsilon)
-    last = x[0, max(chunk_len - 1, 0)]             # [D]
-    logits = last @ params.wte.T                   # [V]
-    tok = sample_tokens_host(logits[None], [temperature], [top_k],
-                             [top_p], [seed], [ctx_len + chunk_len])[0]
-    return tok, logits
+    last = x[0].index_select(0, (chunk_len.long() - 1).clamp(min=0))
+    logits = last @ params.wte.T                   # [1, V]
+    tok = sample_tokens(logits, _on_device(temperature, np.float32, dev),
+                        _on_device(top_k, np.int32, dev),
+                        _on_device(top_p, np.float32, dev),
+                        _seeds_on_device(seed, dev), ctx_len + chunk_len)
+    return tok[0], logits[0]
 
 
 # ---------------------------------------------------------------------------

@@ -25,12 +25,35 @@ the host picks one per dispatch from the temperatures it holds, as the
 JAX program's ``lax.cond`` on ``any(temperature > 0)`` does on the
 device, so an all-greedy batch never pays for two ``[B, V]`` sorts.  A
 capture that fails raises with its CUDA error; nothing carries on
-eagerly on the card.  On the CPU the same body runs eagerly.  Prefill
-(grouped and chunked) stays eager, between replays.
+eagerly on the card.  On the CPU the same body runs eagerly.
+
+**Prefill is captured too, one graph per shape key**, as the JAX engine
+compiles one program per shape: a same-bucket group per (group bucket,
+prompt bucket), a chunk per (chunk bucket, context-extent bucket).
+Each key owns static input buffers (one int32 buffer, staged in one
+copy from pinned memory) and a token buffer; its body is
+:func:`~.decode_model.prefill_group_forward` with the grouped page
+write, or :func:`~.decode_model.chunk_prefill_forward` (context gather,
+attention, page write), every input read on the device.  The first run
+of a key warms up and captures (``prefill_captures`` /
+``chunk_captures``), later runs replay, and the tokens are copied out
+before the key can run again.  ``torch.cuda.graph`` synchronises the
+device and empties the allocator's cache when it is entered, so a
+capture under traffic stalls every engine on the card: :meth:`warmup`
+captures every key the given prompt lengths reach.  On the CPU the
+same bodies run eagerly on the same buffers.
 
 Device state rides the loop: EOS is detected on the device (``done``
 mask), and the host learns of it only at ``done_poll_interval``
-dispatch boundaries (``_poll_done``).  Every dispatch copies the
+dispatch boundaries (``_poll_done``).  The interval is auto-tuned by
+default (``done_poll_interval=None``), as in the JAX engine: the first
+polls measure the pure cost of a poll (a second, empty-chain one) and
+the wall a dispatch, and the shared
+:class:`~paddle_tpu_torch.framework.dispatch.AutoFoldTuner` freezes the
+smallest interval whose poll cost is at most
+``PADDLE_TORCH_SERVING_POLL_TARGET`` of the dispatches it spans,
+bounded by ``PADDLE_TORCH_SERVING_POLL_MAX``; an explicit interval
+stays fixed.  Every dispatch copies the
 emitted tokens out of the static buffer into a fresh ``[B]`` tensor,
 which the requests see as
 :class:`~paddle_tpu_torch.framework.lazy.LazyScalar` views of one
@@ -95,9 +118,6 @@ decode dispatch, prefill, the poll and a migration's export and import
 open spans of ``observability/trace.py``.  ``serving_intertoken_s``
 observes the host's gap between dispatches, which is the host's enqueue
 pace while the launch queue is not full, not the device's.
-
-Kept for a later slice (``NotImplementedError``; ROADMAP.md queue A,
-item A3): the auto-tuned poll cadence (``done_poll_interval=None``).
 """
 
 from __future__ import annotations
@@ -115,7 +135,7 @@ import torch
 
 from ... import resolve_device
 from ...framework import env_knobs
-from ...framework.dispatch import CapturedCall
+from ...framework.dispatch import AutoFoldTuner, CapturedCall
 from ...framework.lazy import LazyScalar, LazyStack
 from ...io.bucketing import shape_bucket
 from ...observability import metrics as _obs_metrics
@@ -224,10 +244,78 @@ def _shapes(params: GPTDecodeWeights):
     return [(n, tuple(p.shape)) for n, p in params.named_parameters()]
 
 
-def _deferred(feature: str, bullet: str):
-    return NotImplementedError(
-        f"{feature} is not ported yet; it is queued in ROADMAP.md "
-        f"queue A, item A3 (\"{bullet}\")")
+class _PrefillProgram:
+    """One prefill shape key of an engine (an entry of the JAX engine's
+    per-shape trace cache): the static device buffers of its inputs, one
+    int32 buffer cut into ``fields`` (each ``(shape, kind, fill)``: kind
+    ``"i"`` int32, ``"f"`` float32 bits, ``"u"`` uint32 bits; ``fill``
+    the value a host image starts with), and of its ``n_out`` tokens.
+    :meth:`run` stages an image in one copy and runs a body on the
+    buffers: on the card the key's first run warms up on the graph's
+    stream and captures, every later run replays; on the CPU the body
+    runs eagerly.  Only the copy of the tokens it returns and the pool's
+    pages outlive a run: replays of the engine's graphs share one
+    pool."""
+
+    def __init__(self, device: torch.device, graph_pool, capture_stream,
+                 fields, n_out: int):
+        self._fields = fields
+        self._bounds = np.cumsum(
+            [0] + [int(np.prod(shape)) for shape, _, _ in fields]).tolist()
+        self._device = device
+        self._graph_pool = graph_pool
+        self._capture_stream = capture_stream
+        self.inputs = torch.zeros(self._bounds[-1], dtype=torch.int32,
+                                  device=device)
+        self.out = torch.zeros(n_out, dtype=torch.int32, device=device)
+        self.call: Optional[CapturedCall] = None
+
+    def views(self, flat):
+        """``flat`` (the device buffer, or a host image as numpy) cut
+        into the key's inputs, each a view in its shape and dtype; a
+        host image's are set to their fills."""
+        on_device = isinstance(flat, torch.Tensor)
+        out = []
+        for i, (shape, kind, fill) in enumerate(self._fields):
+            part = flat[self._bounds[i]:self._bounds[i + 1]]
+            if kind == "f":
+                part = part.view(torch.float32 if on_device else np.float32)
+            elif kind == "u" and not on_device:
+                part = part.view(np.uint32)
+            part = part.reshape(shape)
+            if not on_device:
+                part[...] = fill
+            out.append(part)
+        return out
+
+    def run(self, host: torch.Tensor, body) -> torch.Tensor:
+        """Stage ``host`` (the int32 image of every input) and run
+        ``body`` on the buffers, on the current stream; returns a copy
+        of the tokens.  A capture that fails raises with its CUDA error,
+        and the next run of the key captures again."""
+        self.inputs.copy_(host, non_blocking=True)
+        if self._device.type != "cuda":
+            body()
+        elif self.call is None:
+            call = CapturedCall(self._device, self._graph_pool,
+                                ledgers=[_LEDGER],
+                                capture_error_mode="thread_local",
+                                stream=self._capture_stream)
+            call.warm_up(body)
+            call.capture(body)
+            self.call = call
+        else:
+            self.call.replay()
+        return self.out.clone()
+
+    @property
+    def captures(self) -> int:
+        return 0 if self.call is None else self.call.captures
+
+    def close(self) -> None:
+        if self.call is not None:
+            self.call.close()
+            self.call = None
 
 
 class DecodeEngine:
@@ -264,7 +352,7 @@ class DecodeEngine:
                  max_blocks_per_seq: Optional[int] = None,
                  prefill_buckets: Optional[Sequence[int]] = None,
                  eos_id: Optional[int] = None, pad_id: int = 0,
-                 done_poll_interval: Optional[int] = 8,
+                 done_poll_interval: Optional[int] = None,
                  max_queue: int = 64,
                  prefill_chunk: Optional[int] = None,
                  prefix_cache: Optional[bool] = None,
@@ -275,9 +363,6 @@ class DecodeEngine:
                  spec_k: Optional[int] = None):
         if role not in ENGINE_ROLES:
             raise ValueError(f"role {role!r} is not one of {ENGINE_ROLES}")
-        if done_poll_interval is None:
-            raise _deferred("the auto-tuned done-poll cadence",
-                            "The auto-tuned poll cadence")
         self._device = resolve_device(device)
         if network is not None:
             params = extract_decode_params(network, device=self._device)
@@ -339,7 +424,20 @@ class DecodeEngine:
         self.block_size = int(block_size)
         self.eos_id = eos_id
         self.pad_id = int(pad_id)
-        self.done_poll_interval = max(1, int(done_poll_interval))
+        # None: the poll cadence is auto-tuned (``_timed_poll``), from 8
+        self._poll_auto = done_poll_interval is None
+        self.done_poll_interval = (8 if self._poll_auto
+                                   else max(1, int(done_poll_interval)))
+        self._poll_tuner = (AutoFoldTuner(
+            target=env_knobs.get_float("PADDLE_TORCH_SERVING_POLL_TARGET",
+                                       0.05),
+            max_fold=env_knobs.get_int("PADDLE_TORCH_SERVING_POLL_MAX", 64),
+            calib_groups=env_knobs.get_int("PADDLE_TORCH_SERVING_POLL_CALIB",
+                                           3))
+            if self._poll_auto else None)
+        self._poll_decision: Optional[Dict[str, object]] = None
+        self._last_poll_end: Optional[float] = None
+        self._last_poll_dispatches = 0
         if max_blocks_per_seq is None:
             max_blocks_per_seq = -(-cfg.max_position // block_size)
         self.max_blocks_per_seq = int(max_blocks_per_seq)
@@ -381,6 +479,13 @@ class DecodeEngine:
                     f"of block_size {block_size}")
             prefill_chunk = min(int(prefill_chunk), self._buckets[-1])
         self.prefill_chunk = prefill_chunk
+        # the chunk path's shape buckets, as the JAX engine's: the chunk
+        # (any residue length; the prefix-hit suffix uses them with
+        # chunking off too) and the context extent it gathers (powers of
+        # two in blocks)
+        self._chunk_buckets = _default_buckets(
+            block_size, self.prefill_chunk or self._buckets[-1])
+        self._ctx_buckets = _pow2_buckets(self.max_blocks_per_seq)
         if prefix_cache is None:
             prefix_cache = env_knobs.get_bool("PADDLE_TORCH_PREFIX_CACHE")
         if prefix_reserve_discount and not prefix_cache:
@@ -460,15 +565,23 @@ class DecodeEngine:
         self._spec_last_poll_lanes = 0
         self._spec_accept: Optional[float] = None
         # one captured step per variant (False: greedy-only, True:
-        # mixed), sharing one graph pool; CUDA only
+        # mixed) and the prefill programs, sharing one graph pool and one
+        # capture stream (so each graph reuses the blocks the others
+        # freed); CUDA only
         self._graph_pool = (torch.cuda.graph_pool_handle()
                             if dev.type == "cuda" else None)
+        self._capture_stream = (torch.cuda.Stream(dev)
+                                if dev.type == "cuda" else None)
         # the engine's own stream; it starts after the buffers above
         self.stream = None
         if dev.type == "cuda":
             self.stream = torch.cuda.Stream(dev)
             self.stream.wait_stream(torch.cuda.current_stream(dev))
         self._steps: Dict[bool, CapturedCall] = {}
+        # prefill programs: (group bucket, prompt bucket) and (chunk
+        # bucket, context-extent bucket) keys
+        self._prefill_progs: Dict[tuple, _PrefillProgram] = {}
+        self._chunk_progs: Dict[tuple, _PrefillProgram] = {}
         self._total_tokens = 0
         self._latency: List[float] = []
         self._ttft: List[float] = []
@@ -783,9 +896,9 @@ class DecodeEngine:
             if self.eos_id is None:
                 if any(self._gen_ub[s] >= self._slots[s].max_tokens
                        for s in active):
-                    self._poll_done()
+                    self._timed_poll()
             elif self._dispatches % self.done_poll_interval == 0:
-                self._poll_done()
+                self._timed_poll()
             return True
         to_finish = []
         for s in active:
@@ -801,7 +914,7 @@ class DecodeEngine:
             self._finalize(s)
         if self.eos_id is not None and \
                 self._dispatches % self.done_poll_interval == 0:
-            self._poll_done()
+            self._timed_poll()
         return True
 
     def _push_window(self, active: List[int], stack: LazyStack, now: float):
@@ -862,7 +975,8 @@ class DecodeEngine:
         # graph's stream, then the step is captured for the next ones
         step = CapturedCall(self._device, self._graph_pool,
                             ledgers=[_LEDGER],
-                            capture_error_mode="thread_local")
+                            capture_error_mode="thread_local",
+                            stream=self._capture_stream)
         # the warm-up also makes K1's split workspaces on the graph's
         # stream: one for [B] rows, and for the verify's [B*(k+1)]
         step.warm_up(lambda: self._decode_body(mixed))
@@ -1038,8 +1152,9 @@ class DecodeEngine:
         self._prefill_grouped(grouped)
 
     def _prefill_grouped(self, seated: List):
-        """Batched same-bucket prefill: ONE prefill per bucket group
-        (group size padded to a power of two), one grouped page write,
+        """Batched same-bucket prefill: ONE run of the (group bucket,
+        prompt bucket) program per group (group size padded to a power
+        of two), the forward and the grouped page write in one graph,
         then per-request seating."""
         by_bucket: Dict[int, List] = {}
         for slot, req in seated:
@@ -1047,12 +1162,11 @@ class DecodeEngine:
             by_bucket.setdefault(b, []).append((slot, req))
         for bucket, members in sorted(by_bucket.items()):
             Gb = shape_bucket(len(members), self._group_buckets)
-            ids = np.zeros((Gb, bucket), dtype=np.int32)
-            lengths = np.zeros(Gb, dtype=np.int32)
-            temps = np.zeros(Gb, dtype=np.float32)
-            topks = np.zeros(Gb, dtype=np.int32)
-            topps = np.ones(Gb, dtype=np.float32)
-            seeds = np.zeros(Gb, dtype=np.uint32)
+            prog = self._group_program(Gb, bucket)
+            host, image = self._host_image(prog)
+            ids, lengths, temps, topks, topps, seeds, blocks = \
+                prog.views(image)
+            per_req_blocks = []
             for g, (slot, req) in enumerate(members):
                 Lp = len(req.prompt)
                 ids[g, :Lp] = req.prompt
@@ -1061,29 +1175,97 @@ class DecodeEngine:
                 topks[g] = req.top_k
                 topps[g] = req.top_p
                 seeds[g] = np.uint32(req.seed & 0xFFFFFFFF)
+                nb = self._kv.blocks_for_tokens(Lp)
+                per_req_blocks.append(self._alloc_blocks(nb))
+                blocks[g, :nb] = per_req_blocks[-1]
             with _obs_trace.span(
                     "serving.prefill",
                     args=({"bucket": bucket, "group": len(members)}
                           if _obs_trace.enabled() else None)):
-                kv, toks, _ = prefill_group_forward(
-                    self._params, self._cfg, self._stage(ids), lengths,
-                    temps, topks, topps, seeds)
-            blocks_arr = np.full((Gb, bucket // self.block_size),
-                                 SCRATCH_BLOCK, dtype=np.int32)
-            per_req_blocks = []
-            for g, (slot, req) in enumerate(members):
-                nb = self._kv.blocks_for_tokens(len(req.prompt))
-                blocks = self._alloc_blocks(nb)
-                blocks_arr[g, :nb] = blocks
-                per_req_blocks.append(blocks)
-            write_prompt_pages_group(self._kv.pool, kv,
-                                     self._stage(blocks_arr))
+                toks = prog.run(host, lambda: self._group_body(prog))
+            # the pages are written (on this stream, before anything the
+            # host stages next): only now may the page table name them
             stack = self._lazy(toks)
             now = time.monotonic()
             for g, (slot, req) in enumerate(members):
                 self._seat(slot, req, per_req_blocks[g], toks[g],
                            LazyScalar(stack, post=(lambda a, i=g: a[i])),
                            now)
+
+    # -- prefill programs ----------------------------------------------------
+    def _host_image(self, prog: _PrefillProgram):
+        """A zeroed int32 host image of ``prog``'s inputs and its numpy
+        view: pinned on the card (PyTorch's caching host allocator
+        keeps the block until the copy from it has run), plain on the
+        CPU."""
+        host = torch.zeros(prog.inputs.numel(), dtype=torch.int32,
+                           pin_memory=self._device.type == "cuda")
+        return host, host.numpy()
+
+    def _group_program(self, Gb: int, b: int) -> _PrefillProgram:
+        """The (group bucket, prompt bucket) program: ids ``[Gb, b]``,
+        lengths, temperatures, top-k, top-p and seeds ``[Gb]``, the
+        pages ``[Gb, b / block_size]``; the first tokens ``[Gb]``."""
+        prog = self._prefill_progs.get((Gb, b))
+        if prog is None:
+            g = (Gb,)
+            prog = _PrefillProgram(
+                self._device, self._graph_pool, self._capture_stream,
+                (((Gb, b), "i", 0), (g, "i", 0), (g, "f", 0.0), (g, "i", 0),
+                 (g, "f", 1.0), (g, "u", 0),
+                 ((Gb, b // self.block_size), "i", SCRATCH_BLOCK)), Gb)
+            self._prefill_progs[(Gb, b)] = prog
+        return prog
+
+    def _group_body(self, prog: _PrefillProgram) -> None:
+        """A group program's body on its static buffers: the grouped
+        forward, its pages written into the pool in place, the first
+        tokens into ``prog.out``."""
+        ids, lengths, temps, topks, topps, seeds, blocks = \
+            prog.views(prog.inputs)
+        kv, first, _ = prefill_group_forward(
+            self._params, self._cfg, ids, lengths, temps, topks, topps,
+            seeds)
+        write_prompt_pages_group(self._kv.pool, kv, blocks)
+        prog.out.copy_(first)
+
+    def _chunk_program(self, Cb: int, nbc: int) -> _PrefillProgram:
+        """The (chunk bucket, context-extent bucket) program: the
+        context's page-table row ``[1, nbc]``, its length, the chunk's
+        ids ``[1, Cb]``, its length and pages ``[Cb / block_size]``, the
+        four sampling values; the token."""
+        prog = self._chunk_progs.get((Cb, nbc))
+        if prog is None:
+            one = (1,)
+            prog = _PrefillProgram(
+                self._device, self._graph_pool, self._capture_stream,
+                (((1, nbc), "i", SCRATCH_BLOCK), (one, "i", 0),
+                 ((1, Cb), "i", 0), (one, "i", 0),
+                 ((Cb // self.block_size,), "i", SCRATCH_BLOCK),
+                 (one, "f", 0.0), (one, "i", 0), (one, "f", 1.0),
+                 (one, "u", 0)), 1)
+            self._chunk_progs[(Cb, nbc)] = prog
+        return prog
+
+    def _chunk_body(self, prog: _PrefillProgram) -> None:
+        """A chunk program's body on its static buffers: the context
+        gather, the attention, the chunk's pages written in place, the
+        token into ``prog.out``."""
+        tok, _ = chunk_prefill_forward(self._params, self._cfg,
+                                       self._kv.pool,
+                                       *prog.views(prog.inputs))
+        prog.out.copy_(tok.reshape(1))
+
+    def _chunk_keys(self, n: int, start: int) -> List[tuple]:
+        """The chunk programs a prompt of ``n`` tokens runs from
+        ``start`` cached tokens on (:meth:`_advance_prefill`'s rule)."""
+        keys, done, bs = [], start, self.block_size
+        while done < n:
+            take = min(n - done, self.prefill_chunk or n - done)
+            keys.append((shape_bucket(take, self._chunk_buckets),
+                         shape_bucket(max(1, done // bs), self._ctx_buckets)))
+            done += take
+        return keys
 
     def _join(self, slot: int, tok_dev, length: int):
         """Join a seated request into the device loop state (its first
@@ -1179,21 +1361,29 @@ class DecodeEngine:
         req.blocks.extend(new_blocks)
         have = req.n_prefix_blocks + len(req.blocks)
         self._tables[slot, have - nb_new:have] = new_blocks
-        nb_ctx = max(1, job.done_tokens // bs)
-        ids = np.zeros((1, nb_new * bs), dtype=np.int32)
+        # the chunk padded to its bucket (pages past it: scratch), the
+        # context table to its extent bucket (masked by ctx_len)
+        Cb = shape_bucket(take, self._chunk_buckets)
+        nbc = shape_bucket(max(1, job.done_tokens // bs), self._ctx_buckets)
+        prog = self._chunk_program(Cb, nbc)
+        host, image = self._host_image(prog)
+        (table, ctx_len, ids, chunk_len, blocks, temp, topk, topp,
+         seed) = prog.views(image)
+        table[0] = self._tables[slot, :nbc]
+        ctx_len[0] = job.done_tokens
         ids[0, :take] = req.prompt[job.done_tokens:job.done_tokens + take]
+        chunk_len[0] = take
+        blocks[:nb_new] = new_blocks
+        temp[0] = req.temperature
+        topk[0] = req.top_k
+        topp[0] = req.top_p
+        seed[0] = np.uint32(req.seed & 0xFFFFFFFF)
         t0 = time.monotonic()
         with _obs_trace.span(
                 "serving.prefill_chunk",
-                args=({"chunk": take, "ctx": job.done_tokens}
+                args=({"chunk": take, "ctx": job.done_tokens, "bucket": Cb}
                       if _obs_trace.enabled() else None)):
-            tok, _ = chunk_prefill_forward(
-                self._params, self._cfg, self._kv.pool,
-                self._stage(self._tables[slot:slot + 1, :nb_ctx]),
-                job.done_tokens, self._stage(ids), take,
-                self._stage(np.asarray(new_blocks, dtype=np.int32)),
-                req.temperature, req.top_k, req.top_p,
-                req.seed & 0xFFFFFFFF)
+            toks = prog.run(host, lambda: self._chunk_body(prog))
         self._h_chunk.observe(time.monotonic() - t0)
         self._chunks += 1
         job.done_tokens += take
@@ -1207,7 +1397,9 @@ class DecodeEngine:
                                job.computed_blocks)
         self._lengths[slot] = Lp
         req.prefilling = False
-        self._enter_decode(slot, req, tok, LazyScalar(self._lazy(tok)),
+        self._enter_decode(slot, req, toks[0],
+                           LazyScalar(self._lazy(toks),
+                                      post=(lambda a: a[0])),
                            time.monotonic())
 
     def _grow_pages(self, active: List[int]):
@@ -1276,7 +1468,12 @@ class DecodeEngine:
     def _drain_migration_inbox(self):
         """Seat accepted migrations as slots and reservations free up
         (this engine's thread): strict FIFO, the head waits for room
-        and is never overtaken."""
+        and is never overtaken.  While this engine decodes, the head
+        also waits until its pages' gather has run on the exporter's
+        stream (the ticket's event, polled without waiting): the
+        exporter's host runs ahead of its device by whole captured
+        prefills, and an import enqueued earlier would hold every later
+        dispatch of this stream behind them."""
         while True:
             with self._mig_lock:
                 if not self._migration_inbox:
@@ -1285,6 +1482,9 @@ class DecodeEngine:
             slot = next((s for s, r in enumerate(self._slots) if r is None),
                         None)
             if slot is None:
+                return
+            if mig.ready is not None and not mig.ready.query() and any(
+                    r is not None and not r.prefilling for r in self._slots):
                 return
             need = mig.request.worst_case_blocks(self.block_size,
                                                  self.spec_k)
@@ -1349,6 +1549,46 @@ class DecodeEngine:
         self._h_migration.observe(time.monotonic() - mig.t_start)
 
     # -- completion ----------------------------------------------------------
+    def _timed_poll(self):
+        """The poll site: the auto-tuner's calibration around
+        :meth:`_poll_done` (``paddle_tpu/inference/serving/engine.py::
+        _timed_poll``).  A fixed or decided interval, and a speculative
+        engine without an EOS id (whose cadence is the ``max_tokens``
+        gate, never the interval), poll once.  While calibrating it
+        polls twice: the first drains the dispatches in flight (device
+        work the loop pays either way), the second, on an empty chain,
+        is the pure poll cost the tuner is fed, with the wall a dispatch
+        since the last poll (the drain included) as the unit.  The tuner
+        freezes ``done_poll_interval`` at the smallest interval whose
+        poll cost is at most ``target`` of the dispatches it spans."""
+        tuner = self._poll_tuner
+        if (self.spec_k and self.eos_id is None) or tuner is None \
+                or tuner.decided:
+            self._poll_done()
+            return
+        t0 = time.monotonic()
+        self._poll_done()                  # drains the chain in flight
+        t1 = time.monotonic()
+        self._poll_done()                  # an empty chain: the pure cost
+        t2 = time.monotonic()
+        n = self._dispatches - self._last_poll_dispatches
+        if self._last_poll_end is not None and n > 0:
+            tuner.observe(1, t2 - t1, (t1 - self._last_poll_end) / n)
+        else:
+            # the first poll (captures, warm-up): the tuner discards it
+            tuner.observe(1, t2 - t1, t1 - t0)
+        self._last_poll_end = t2
+        self._last_poll_dispatches = self._dispatches
+        if tuner.decided:
+            self.done_poll_interval = tuner.fold
+            d = tuner.decision
+            self._poll_decision = {
+                "done_poll_interval": self.done_poll_interval,
+                "poll_cost_ms": d["host_ms_per_step"],
+                "dispatch_ms": d["device_ms_per_step"],
+                "target": d["overhead_target"],
+                "max": d["max_fold"]}
+
     def _poll_done(self):
         """THE periodic sync: fetch the ``[B]`` device done mask so
         EOS'd requests free their slot and pages.  A chunk-prefilling
@@ -1514,62 +1754,91 @@ class DecodeEngine:
 
     def release_graphs(self):
         """Wait for this engine's stream, then free the captured decode
-        steps (the next dispatch of each variant captures it again)."""
+        steps and prefill programs (the next run of each captures it
+        again)."""
         if self.stream is not None:
             self.stream.synchronize()
         for step in self._steps.values():
             step.close()
         self._steps.clear()
+        for progs in (self._prefill_progs, self._chunk_progs):
+            for prog in progs.values():
+                prog.close()
+            progs.clear()
 
     # -- warmup / stats ------------------------------------------------------
     def warmup(self, prompt_lengths: Optional[Sequence[int]] = None
                ) -> Dict[str, object]:
         """Before traffic: run both decode variants on an all-inactive
         batch, which on the card captures them, then every prefill
-        bucket the given prompt lengths touch (default: all), so the
-        caching allocator is warm again after the captures emptied it.
-        By role: a prefill-role engine runs no decode variant (it never
+        program the given prompt lengths reach (default: every prefill
+        bucket's length), which captures each: a length within the
+        grouped path (at most ``prefill_chunk``) reaches its prompt
+        bucket at every group bucket; a longer one the (chunk, context)
+        keys of its chunks; with the prefix cache, a length also reaches
+        the keys of its own repeat (every shareable block a hit).  By
+        role: a prefill-role engine runs no decode variant (it never
         captures one) and gathers scratch pages as an export does, at
         one block and at the largest bucket's count (the gather's two
-        kernels); a decode-role engine runs no prefill bucket and
-        scatters a page as an import does.  Loads the kernels (building
-        them on first use; a kernel's first launch loads its module,
-        which waits for the device; ``PERF.md`` §6) and the BLAS
-        handles; writes land in the scratch block.  The one engine
-        method that waits for the device; returns wall times."""
+        kernels); a decode-role engine runs no prefill program and
+        scatters a page as an import does.  The captures come first:
+        each empties the caching allocator, which the eager migration
+        ops then warm.  Loads the kernels (building them on first use; a
+        kernel's first launch loads its module, which waits for the
+        device; ``PERF.md`` §6) and the BLAS handles; writes land in the
+        scratch block.  The one engine method that waits for the device;
+        returns wall times and the keys."""
         if self.active_count or self._prefill_jobs:
             raise RuntimeError("warmup() runs before traffic: requests "
                                "are in flight")
         t0 = time.monotonic()
-        buckets = (sorted({shape_bucket(int(n), self._buckets)
-                           for n in prompt_lengths})
-                   if prompt_lengths else list(self._buckets))
+        lengths = ([int(n) for n in prompt_lengths] if prompt_lengths
+                   else list(self._buckets))
+        buckets = sorted({shape_bucket(n, self._buckets) for n in lengths})
+        group_keys, chunk_keys = set(), set()
+        for n in lengths:
+            if self.prefill_chunk is not None and n > self.prefill_chunk:
+                chunk_keys.update(self._chunk_keys(n, 0))
+            else:
+                b = shape_bucket(n, self._buckets)
+                group_keys.update((Gb, b) for Gb in self._group_buckets)
+            if self._prefix is not None and (n - 1) // self.block_size:
+                chunk_keys.update(self._chunk_keys(
+                    n, (n - 1) // self.block_size * self.block_size))
         if self.role == "decode":
-            buckets = []
-        per_bucket = {}
+            buckets, group_keys, chunk_keys = [], set(), set()
+        per_key = {}
         with torch.no_grad(), self._on_stream():
             if self.role != "prefill":
                 for mixed in (False, True):
                     self._decode_dispatch(mixed)
             self._sync()
             decode_s = time.monotonic() - t0
-            for b in buckets:
-                tb = time.monotonic()
-                kv, tok, _ = prefill_group_forward(
-                    self._params, self._cfg,
-                    self._stage(np.zeros((1, b), dtype=np.int32)),
-                    [1], [0.0], [0], [1.0], [0])
-                write_prompt_pages_group(
-                    self._kv.pool, kv,
-                    self._stage(np.full((1, b // self.block_size),
-                                        SCRATCH_BLOCK, dtype=np.int32)))
-                self._sync()
-                per_bucket[b] = time.monotonic() - tb
+            for kind, keys in (("prefill", group_keys),
+                               ("chunk", chunk_keys)):
+                for key in sorted(keys):
+                    tk = time.monotonic()
+                    self._warm_program(kind, key)
+                    self._sync()
+                    per_key[f"{kind} {key[0]}x{key[1]}"] = \
+                        time.monotonic() - tk
             self._warm_migration()
             self._sync()
         return {"warmup_s": time.monotonic() - t0, "decode_s": decode_s,
-                "prefill_bucket_s": per_bucket, "buckets": buckets,
-                **self.compile_stats()}
+                "program_s": per_key, "buckets": buckets,
+                "prefill_keys": sorted(group_keys),
+                "chunk_keys": sorted(chunk_keys), **self.compile_stats()}
+
+    def _warm_program(self, kind: str, key: tuple) -> None:
+        """One run of a prefill program on a one-token input whose pages
+        are the scratch block (its capture, on the card)."""
+        if kind == "prefill":
+            prog, body = self._group_program(*key), self._group_body
+        else:
+            prog, body = self._chunk_program(*key), self._chunk_body
+        host, image = self._host_image(prog)
+        prog.views(image)[1 if kind == "prefill" else 3][:] = 1
+        prog.run(host, lambda: body(prog))
 
     def _warm_migration(self):
         """The migration ops of this engine's role on the scratch block:
@@ -1596,11 +1865,20 @@ class DecodeEngine:
         return sum(1 for r in self._slots if r is not None)
 
     def compile_stats(self) -> Dict[str, int]:
-        """Capture pin (the JAX engine's ``decode_traces``): at most one
-        capture per decode variant, whatever the join/leave pattern; 0
-        on the CPU, where the body runs eagerly."""
+        """Capture pins (the JAX engine's ``decode_traces``,
+        ``prefill_traces`` and ``chunk_traces``): at most one capture per
+        decode variant, whatever the join/leave pattern, and one per
+        prefill program; 0 on the CPU, where the bodies run eagerly.
+        ``prefill_programs`` and ``chunk_programs`` count the keys seen,
+        on every device."""
         return {"decode_captures": sum(s.captures
-                                       for s in self._steps.values())}
+                                       for s in self._steps.values()),
+                "prefill_captures": sum(p.captures for p in
+                                        self._prefill_progs.values()),
+                "chunk_captures": sum(p.captures for p in
+                                      self._chunk_progs.values()),
+                "prefill_programs": len(self._prefill_progs),
+                "chunk_programs": len(self._chunk_progs)}
 
     def stats(self) -> Dict[str, object]:
         """Host-clock serving stats.  ``intertoken`` is the host gap
@@ -1630,6 +1908,11 @@ class DecodeEngine:
                   _percentile(self._dispatch_host, 50) * 1e6),
               "decode_capture_s": {("mixed" if m else "greedy"): s.capture_s
                                    for m, s in self._steps.items()},
+              "prefill_capture_s": sum(
+                  p.call.capture_s for p in itertools.chain(
+                      self._prefill_progs.values(),
+                      self._chunk_progs.values()) if p.call is not None),
+              "graph_pool_bytes": self._graph_pool_bytes(),
               "kv": self._kv.allocator.stats()}
         if self.spec_k:
             # per active lane and dispatch, over the polls so far: a
@@ -1643,5 +1926,18 @@ class DecodeEngine:
                                 max(0.0, min(1.0, (tpd - 1.0) / self.spec_k)))}
         if self._prefix is not None:
             st["prefix_cache"] = self._prefix.stats()
+        if self._poll_decision is not None:
+            st["done_poll_decision"] = dict(self._poll_decision)
         st.update(self.compile_stats())
         return st
+
+    def _graph_pool_bytes(self) -> Optional[int]:
+        """Bytes the caching allocator holds for this engine's graph
+        pool (its segments' sizes); None on the CPU."""
+        if self._graph_pool is None:
+            return None
+        segments = torch.cuda.memory_snapshot()
+        if segments and "segment_pool_id" not in segments[0]:
+            return None
+        return sum(seg["total_size"] for seg in segments
+                   if tuple(seg["segment_pool_id"]) == tuple(self._graph_pool))

@@ -75,7 +75,8 @@ def chunked_prefill_attention(q, k_ctx, v_ctx, ctx_len, k_chunk, v_chunk,
     ``q``/``k_chunk``/``v_chunk`` ``[B, C, H, Dh]``: the chunk's
     projections; ``k_ctx``/``v_ctx`` ``[B, T, H, Dh]``: the page gather
     of what the cache holds already (prefix-cache hits, earlier
-    chunks), padded to ``T``; ``ctx_len`` (int): the real context
+    chunks), padded to ``T``; ``ctx_len`` (an int, or a ``[1]`` tensor
+    on ``q``'s device, as a captured chunk holds it): the real context
     extent.  Chunk row ``i`` (position ``ctx_len + i``) attends every
     valid context position and chunk positions ``j <= i``: the rows a
     whole-prompt causal prefill computes for those positions, in the
@@ -96,7 +97,9 @@ def chunked_prefill_attention(q, k_ctx, v_ctx, ctx_len, k_chunk, v_chunk,
     del kf
     cols = torch.arange(T + C, device=dev)[None, :]
     rows = torch.arange(C, device=dev)[:, None]
-    invalid = torch.where(cols < T, cols >= int(ctx_len),
+    if not isinstance(ctx_len, torch.Tensor):
+        ctx_len = int(ctx_len)
+    invalid = torch.where(cols < T, cols >= ctx_len,
                           cols - T > rows)                # [C, T + C]
     logits.masked_fill_(invalid, MASK_VALUE)
     m = logits.amax(dim=-1, keepdim=True)

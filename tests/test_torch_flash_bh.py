@@ -308,6 +308,9 @@ def test_registry_refuses_unknown_names_and_parses_strictly():
                                     "PADDLE_TORCH_FOLD_CALIB_GROUPS",
                                     "PADDLE_TORCH_PREFILL_CHUNK",
                                     "PADDLE_TORCH_PREFIX_CACHE",
+                                    "PADDLE_TORCH_SERVING_POLL_TARGET",
+                                    "PADDLE_TORCH_SERVING_POLL_MAX",
+                                    "PADDLE_TORCH_SERVING_POLL_CALIB",
                                     "PADDLE_TORCH_SPEC_K",
                                     "PADDLE_TORCH_TRACE",
                                     "PADDLE_TORCH_TRACE_CAPACITY",

@@ -368,12 +368,6 @@ def test_llm_server_pump_thread_and_streaming(tiny):
     assert not server.running
 
 
-def test_deferred_features_raise(tiny):
-    net, cfg, jparams, tparams, scfg = tiny
-    with pytest.raises(NotImplementedError, match="A3"):
-        _engine(tparams, cfg, done_poll_interval=None)
-
-
 def test_lazy_stack_fetches_once():
     calls = []
 

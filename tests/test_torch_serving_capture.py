@@ -258,7 +258,10 @@ def test_sampling_vectors_restage_only_when_they_change(tiny):
     assert not eng._samp_stale and torch.equal(eng._samp_dev, before)
     eng.run_until_idle()
     assert eng._samp_stale                  # finalize cleared a slot
-    assert eng.compile_stats() == {"decode_captures": 0}
+    # nothing captures on the CPU; the two prompts ran two group keys
+    assert eng.compile_stats() == {
+        "decode_captures": 0, "prefill_captures": 0, "chunk_captures": 0,
+        "prefill_programs": 2, "chunk_programs": 0}
 
 
 def test_warmup_runs_both_variants_before_traffic(tiny):

@@ -499,8 +499,10 @@ def test_spec_refusals(nets):
     with pytest.raises(ValueError, match="bfloat16"):
         _engine(n, draft_params=params_from_numpy(
             _tree(n["jt"]), device="cpu", dtype=torch.bfloat16))
-    with pytest.raises(NotImplementedError):
-        _engine(n, done_poll_interval=None)
+    # the auto-tuned poll cadence is the default on a speculative engine
+    # too (its calibration runs only with an EOS id)
+    auto = _engine(n, done_poll_interval=None)
+    assert auto._poll_auto and auto.done_poll_interval == 8
     # a speculative engine may be a decode replica, never a prefill one
     assert _engine(n, role="decode").spec_k == K
     with pytest.raises(ValueError, match="prefill-role"):
