@@ -297,6 +297,58 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
     patched in by the phase (the optimizer's scalars as host floats,
     which the capture freezes; every loss slot of a group from the
     graph's one static loss) must fail those gates;
+15c. ``[train resnet50]`` trains ResNet-50 ImageNet as ``bench.py:274-306``
+    runs it, at full size: B=64 3x224x224 fp32 images and 1000 labels
+    from ``--seed``, ``Momentum(0.1, 0.9, multi_precision=True)``,
+    ``amp.decorate`` O2 bf16, ``CrossEntropyLoss`` and
+    ``prepare(amp_configs=O2 bf16)``, through ``Model.fit``: RESNET_STEPS
+    steps with a per-step clock (K=1: one eager warm-up step, the
+    capture, replays), then RESNET_FOLD_STEPS at K=8 and under auto-K
+    (synchronised at their ends only), then RESNET_STEPS through the
+    eager route (``steps_per_dispatch=0``) from the same weights, then
+    two witnesses eagerly from the same weights on the same batch: fp32
+    without AMP at lr 0.1, and O2 at RESNET_SLOW_LR.  Checks finite
+    losses that fall over the first three steps on the fixed batch (lr
+    0.1 without warm-up overshoots after that, in fp32 as in O2), O2's
+    first three within RESNET_FP32_LOSS_TOL of fp32's, O2 at the lower
+    rate falling over each of its first RESNET_SLOW_FALL steps, the
+    eager route's first three losses within FOLD_EAGER_LOSS_TOL of the
+    replays', the
+    BN running statistics moved off 0 / 1, one graph and one capture
+    for all the replayed fits and none eagerly; prints images/s and
+    step ms (median, steps 3+), peak ``max_memory_allocated``, the
+    capture seconds and the graph pool, and ``torch.profiler``'s device
+    idle share and busy ms by group (cuDNN convolution forward, dgrad,
+    wgrad, BatchNorm, other elementwise, the optimizer, the loss) over
+    RESNET_PROFILE replays and over eager steps;
+15d. ``[train resnet parity]``: ResNet-18 at 64x64, B=4, fp32 (TF32
+    off), ``Momentum(RESNET_PARITY_LR, 0.9)`` on three batches.  One step
+    with cuDNN's convolutions: the logits and every gradient within 1e-4
+    x max(|ref|, 1) of the CPU's.  Then the main path's route, cuDNN's
+    convolutions and BatchNorm with ``cudnn.deterministic`` (no
+    algorithm that adds with atomics), at K=1, at K=4 and eagerly.  A
+    ReLU input within fp32 rounding of 0 may take another sign on the
+    card than on the CPU, and send one element's gradient the other
+    way (one such flip moves a velocity by 1.65e-3 after three steps),
+    so the eager run's ReLU inputs are kept and the reference is the
+    CPU run whose ReLUs follow the card's signs: the eager run after
+    each step against it, K=1 after each step and K=4 at its end
+    against the eager run, every parameter, velocity and BN buffer
+    within 1e-4 x max(|ref|, 1); whether the replays are bit-equal is
+    printed.  The eager run against the plain CPU run is printed beside
+    the ReLU inputs that took another sign, and a departure over the
+    bound with no such flip fails;
+15e. ``[vision zoo]``: one constructor of every ported CNN family
+    (ResNet's basic and bottleneck blocks, ResNeXt, wide ResNet, VGG,
+    MobileNet v1-v3, ShuffleNetV2 relu and swish, DenseNet, SqueezeNet
+    1.0 / 1.1, GoogLeNet, InceptionV3, AlexNet, LeNet): one fp32 eval
+    forward on the card against the same model on the CPU within 1e-4 x
+    max(|ref|, 1) at 64x64 (96 for SqueezeNet, GoogLeNet and
+    InceptionV3, 224 for AlexNet, 28x28x1 for LeNet), then four bf16
+    O2 ``Momentum(ZOO_LR, 0.9)`` training steps at the published input
+    size (224; 299 for InceptionV3) and B=8, the first of whose loss and
+    every gradient are finite; prints the ms a step (median of the last
+    three) per family;
 16. ``[lmce tc]`` holds the tensor-core LMCE backward
     (``csrc/lmce_sm90.cu``, ``wgmma`` fed by TMA) against its plain
     versions (dL rounded to the operand dtype; each element within
@@ -633,24 +685,52 @@ def l2_flush(torch):
     return buf.sum
 
 
+PROFILE_TRIES = 3                # windows tried before "no device time" fails
+
+
+def profiled(torch, body, cpu=False):
+    """``torch.profiler`` (CUDA activity, and the CPU's if ``cpu``) over
+    ``body()`` and a synchronize: the profile.  The profiler now and then
+    records no device time at all for a window in which kernels ran (on
+    the H100 one to four windows in a whole run of this script, each the
+    first profiled window of its phase and each recorded at the second
+    try); such a window is run again, up to ``PROFILE_TRIES`` times, and
+    fails if none records a kernel.  ``body`` must be repeatable."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    for attempt in range(1, PROFILE_TRIES + 1):
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            body()
+            torch.cuda.synchronize()
+        if any(e.device_type == DeviceType.CUDA and
+               getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0)) > 0
+               for e in prof.key_averages()):
+            return prof
+        print(f"[profile] window {attempt} of {PROFILE_TRIES}: "
+              "torch.profiler recorded no device time", flush=True)
+    raise RuntimeError(f"torch.profiler recorded no device time in "
+                       f"{PROFILE_TRIES} windows")
+
+
 def k1_device_ms(torch, fn, iters, groups, flush):
     """Device milliseconds per call of ``fn`` by ``torch.profiler``, the L2
     flush run before each call and not counted: ``{group: ms}`` over the
     kernels whose name holds one of the group's substrings (an empty
     tuple: every kernel but the flush's)."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        flush()
-        torch.cuda.synchronize()
-    flush_keys = {e.key for e in prof.key_averages()}
+    flush_keys = {e.key for e in profiled(torch, flush).key_averages()}
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def window():
         for _ in range(iters):
             flush()
             fn()
-        torch.cuda.synchronize()
+
+    prof = profiled(torch, window)
     out = dict.fromkeys(groups, 0.0)
     for e in prof.key_averages():
         if not e.count:
@@ -3047,14 +3127,14 @@ def device_ms(torch, fn, iters, groups):
     ``{group: ms}`` summed over the kernels whose name holds any of the
     group's substrings (``groups``: ``{name: (substrings,)}``; an empty
     tuple takes every kernel), host work not counted."""
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def window():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
+
+    prof = profiled(torch, window)
     out = dict.fromkeys(groups, 0.0)
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total",
@@ -4438,28 +4518,10 @@ def fit_and_check(torch, tag, desc, model, net, batch, want, tokens,
     batch hook), so the fit warms up one eager step, captures the step
     and replays it; 0 is the eager route.  Frees the model's graphs at
     the end and prints the memory still reserved."""
-    from paddle_tpu_torch.hapi.callbacks import Callback
     from paddle_tpu_torch.ops import flash_attention_kernel as fk
     from paddle_tpu_torch.ops import lmce_kernel as lk
 
-    class StepClock(Callback):
-        """Waits for the device at each step end and stamps it (the
-        measurement's sync, not the library's); keeps the losses."""
-
-        def __init__(self):
-            super().__init__()
-            self.stamps, self.losses = [], []
-
-        def on_train_begin(self, logs=None):
-            torch.cuda.synchronize()
-            self.stamps.append(time.monotonic())
-
-        def on_train_batch_end(self, step, logs=None):
-            torch.cuda.synchronize()
-            self.stamps.append(time.monotonic())
-            self.losses.append(float(logs["loss"][0]))
-
-    clock = StepClock()
+    clock = _step_clock(torch)
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     fk.reset_counts()
@@ -4707,7 +4769,7 @@ def train_eager_phase(torch, seed, base):
     check(rel <= FOLD_EAGER_LOSS_TOL,
           f"[train eager] losses {res['losses']} vs [train] "
           f"{base['losses']} (relative {rel:.3e})")
-    idle = {k: (r["profile"] or {}).get("idle") for k, r in
+    idle = {k: r["profile"]["idle"] for k, r in
             (("eager", res), ("replayed", base))}
     print(f"[train eager] vs [train] (K=1 replays): step_ms "
           f"{res['step_ms']:.3f} vs {base['step_ms']:.3f}; tokens/s "
@@ -5072,27 +5134,23 @@ def _kernel_group(name):
     return "other (elementwise, norms, loss, copies)"
 
 
-def profile_steps(torch, model, batch, steps, tag="train", folded=True):
-    """``torch.profiler`` over ``steps`` more train steps: device time
-    by kernel group, the busiest kernels, the ten busiest of the "other"
-    group by kernel name, and the share of the wall time the device sat
-    idle (1 - kernel time / wall; one stream, so kernels do not
-    overlap).  ``folded``: the steps are one fold group of graph
-    replays (``fit(steps_per_dispatch=steps)``, the graph captured by
-    the fit before), else ``steps`` eager ``train_batch`` calls."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+def profile_run(torch, tag, label, run, steps, group=_kernel_group):
+    """``torch.profiler`` over ``run()``, ``steps`` train steps: device
+    time by kernel ``group``, the busiest kernels, the ten busiest of
+    the "other" group by kernel name, and the share of the wall time the
+    device sat idle (1 - kernel time / wall; one stream, so kernels do
+    not overlap); ``run`` runs again if the profiler recorded no device
+    time (:func:`profiled`)."""
+    wall = []
+
+    def window():
         t0 = time.monotonic()
-        if folded:
-            model.fit([batch] * steps, epochs=1, verbose=0,
-                      steps_per_dispatch=steps)
-        else:
-            for _ in range(steps):
-                model.train_batch([batch[0]], [batch[1]])
+        run()
         torch.cuda.synchronize()
-        wall_us = (time.monotonic() - t0) * 1e6
+        wall.append((time.monotonic() - t0) * 1e6)
+
+    prof = profiled(torch, window, cpu=True)
+    wall_us = wall[-1]
     kernels = {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -5103,15 +5161,11 @@ def profile_steps(torch, model, batch, steps, tag="train", folded=True):
     busy = sum(kernels.values())
     groups = {}
     for name, us in kernels.items():
-        g = _kernel_group(name)
+        g = group(name)
         groups[g] = groups.get(g, 0.0) + us
-    if busy <= 0:
-        print(f"[{tag} profile] torch.profiler recorded no device time",
-              flush=True)
-        return None
     idle = 1 - busy / wall_us
-    print(f"[{tag} profile] {steps} {'replayed' if folded else 'eager'} "
-          f"steps: wall {wall_us / steps / 1e3:.3f} ms/step, device busy "
+    print(f"[{tag} profile] {steps} {label} steps: wall "
+          f"{wall_us / steps / 1e3:.3f} ms/step, device busy "
           f"{busy / steps / 1e3:.3f} ms/step, idle share {idle:.4f}",
           flush=True)
     for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
@@ -5121,13 +5175,31 @@ def profile_steps(torch, model, batch, steps, tag="train", folded=True):
         print(f"[{tag} profile]   top: {us / steps / 1e3:.3f} ms/step "
               f"{name[:110]}", flush=True)
     other = sorted(((us, name) for name, us in kernels.items()
-                    if _kernel_group(name).startswith("other")),
+                    if group(name).startswith("other")),
                    reverse=True)[:10]
     for us, name in other:
         print(f"[{tag} profile]   other top: {us / steps / 1e3:.3f} "
               f"ms/step {name[:200]}", flush=True)
     return {"wall_ms": wall_us / steps / 1e3, "busy_ms": busy / steps / 1e3,
-            "idle": idle}
+            "idle": idle, "groups_ms": {g: us / steps / 1e3
+                                        for g, us in groups.items()}}
+
+
+def profile_steps(torch, model, batch, steps, tag="train", folded=True):
+    """:func:`profile_run` over ``steps`` more train steps: one fold group
+    of graph replays (``fit(steps_per_dispatch=steps)``, the graph
+    captured by the fit before) if ``folded``, else ``steps`` eager
+    ``train_batch`` calls."""
+    def run():
+        if folded:
+            model.fit([batch] * steps, epochs=1, verbose=0,
+                      steps_per_dispatch=steps)
+        else:
+            for _ in range(steps):
+                model.train_batch([batch[0]], [batch[1]])
+
+    return profile_run(torch, tag, "replayed" if folded else "eager", run,
+                       steps)
 
 
 def _loss_keeper():
@@ -5269,6 +5341,537 @@ def bh_parity_phase(torch, seed):
               f"{counts['cuda']}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The vision zoo: ResNet-50 training, ResNet parity, every CNN family.
+# No TPU kernel lies on this path: the convolutions are cuDNN's.
+# ---------------------------------------------------------------------------
+RESNET_B, RESNET_SIZE, RESNET_CLASSES = 64, 224, 1000   # bench.py:280
+RESNET_STEPS = 10                # [train resnet50]: K=1 and eager fits
+RESNET_FOLD_STEPS = 32           # [train resnet50]: the K=8 and auto-K fits
+RESNET_PROFILE = 8               # replays in the profiled window
+RESNET_FP32_LOSS_TOL = 5e-2      # relative: O2's first three losses vs fp32's
+RESNET_SLOW_LR = 0.01            # [train resnet50]'s witness at a lower rate,
+RESNET_SLOW_FALL = 6             # whose loss falls over the first 6 steps
+RESNET_FLOPS_IMG = 3 * 4.1e9     # bench.py:300-301: ~4.1 GFLOP forward an
+                                 # image at 224x224, training ~3x
+RESNET_PARITY_LR = 0.003         # [train resnet parity]: at lr 0.1 three
+                                 # steps at B=4 turn fp32 differences of
+                                 # 1e-8 into 1e-3 (the CPU test's finding)
+ZOO_TOL = 1e-4                   # x max(|ref|, 1), fp32, card vs CPU
+ZOO_B = 8
+ZOO_LR = 0.01                    # [vision zoo]: Momentum's rate; at 0.1
+                                 # VGG, GoogLeNet and AlexNet reach NaN by
+                                 # the fourth step at B=8
+ZOO_FAMILIES = (                 # (constructor, forward size, train size,
+    ("resnet18", 64, 224, 3),    #  channels)
+    ("resnext50_32x4d", 64, 224, 3),
+    ("wide_resnet50_2", 64, 224, 3),
+    ("vgg16", 64, 224, 3),
+    ("mobilenet_v1", 64, 224, 3),
+    ("mobilenet_v2", 64, 224, 3),
+    ("mobilenet_v3_small", 64, 224, 3),
+    ("mobilenet_v3_large", 64, 224, 3),
+    ("shufflenet_v2_x1_0", 64, 224, 3),
+    ("shufflenet_v2_swish", 64, 224, 3),
+    ("densenet121", 64, 224, 3),
+    ("squeezenet1_0", 96, 224, 3),
+    ("squeezenet1_1", 96, 224, 3),
+    ("googlenet", 96, 224, 3),
+    ("inception_v3", 96, 299, 3),
+    ("alexnet", 224, 224, 3),
+    ("LeNet", 28, 28, 1),
+)
+
+
+def _vision_group(name):
+    """The ``[train resnet50]`` profile's kernel groups, by kernel name."""
+    low = name.lower()
+    if "fprop" in low:
+        return "conv forward (cuDNN)"
+    if "dgrad" in low:
+        return "conv dgrad (cuDNN)"
+    if "wgrad" in low:
+        return "conv wgrad (cuDNN)"
+    if "bn_" in low or "batch_norm" in low or "batchnorm" in low:
+        return "BatchNorm"
+    if "foreach" in low or "multi_tensor" in low:
+        return "optimizer (foreach)"
+    if any(t in low for t in ("nchwtonhwc", "nhwctonchw", "nchw2nhwc",
+                              "nhwc2nchw")):
+        return "layout transforms (NCHW <-> NHWC)"
+    if any(t in low for t in ("xmma", "cutlass", "gemm", "conv", "nvjet",
+                              "implicit", "cudnn")):
+        return "conv other / matmul (cuDNN, cuBLAS)"
+    if any(t in low for t in ("logsumexp", "log_softmax", "softmax",
+                              "nll", "gather")):
+        return "loss"
+    return "other elementwise (casts, relu, adds, pools)"
+
+
+def _resnet50_model(torch, seed, lr=0.1, o2=True):
+    """ResNet-50 from ``seed`` on the card with bench.py's setup (with
+    ``o2=False``: fp32, no AMP)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision.models import resnet50
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    net = resnet50(num_classes=RESNET_CLASSES, device="cuda", generator=gen)
+    opt = paddle.optimizer.Momentum(lr, 0.9, parameters=net.parameters(),
+                                    multi_precision=o2)
+    amp = {"level": "O2", "dtype": "bfloat16"} if o2 else None
+    if o2:
+        paddle.amp.decorate(net, opt, **amp)
+    model = paddle.Model(net, device="cuda")
+    model.prepare(opt, paddle.nn.CrossEntropyLoss(), amp_configs=amp)
+    return net, model
+
+
+def _resnet50_witness(torch, seed, batch, lr, o2):
+    """RESNET_STEPS eager steps of :func:`_resnet50_model` on ``batch``:
+    the losses."""
+    import gc
+    net, model = _resnet50_model(torch, seed, lr, o2)
+    losses = [float(model.train_batch([batch[0]], [batch[1]])[0][0])
+              for _ in range(RESNET_STEPS)]
+    del net, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses
+
+
+def _step_clock(torch):
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class StepClock(Callback):
+        """Waits for the device at each step end and stamps it (the
+        measurement's sync); keeps the losses."""
+
+        def __init__(self):
+            super().__init__()
+            self.stamps, self.losses = [], []
+
+        def on_train_begin(self, logs=None):
+            torch.cuda.synchronize()
+            self.stamps.append(time.monotonic())
+
+        def on_train_batch_end(self, step, logs=None):
+            torch.cuda.synchronize()
+            self.stamps.append(time.monotonic())
+            self.losses.append(float(logs["loss"][0]))
+
+    return StepClock()
+
+
+def _clocked_fit(torch, model, batch, steps, fold):
+    """``fit`` of ``steps`` steps on one batch with a per-step clock:
+    (losses, median step ms over steps 3+, first step ms)."""
+    clock = _step_clock(torch)
+    model.fit([batch] * steps, epochs=1, verbose=0, callbacks=[clock],
+              steps_per_dispatch=fold)
+    ms = np.diff(clock.stamps) * 1e3
+    return clock.losses, float(np.median(ms[2:])), float(ms[0])
+
+
+def _timed_fit(torch, model, batch, steps, fold):
+    """``fit`` of ``steps`` steps synchronised only at its ends: ms a
+    step."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    model.fit([batch] * steps, epochs=1, verbose=0,
+              steps_per_dispatch=fold)
+    torch.cuda.synchronize()
+    return (time.monotonic() - t0) * 1e3 / steps
+
+
+def train_resnet50_phase(torch, seed):
+    """``[train resnet50]`` (module docstring, 15c)."""
+    import gc
+    tag = "train resnet50"
+    gc.collect()
+    torch.cuda.empty_cache()
+    net, model = _resnet50_model(torch, seed)
+    rng = np.random.default_rng(seed + 5)
+    x = rng.random((RESNET_B, 3, RESNET_SIZE, RESNET_SIZE),
+                   dtype=np.float32)
+    y = rng.integers(0, RESNET_CLASSES, (RESNET_B,)).astype(np.int64)
+    batch = (torch.from_numpy(x).pin_memory(),
+             torch.from_numpy(y).pin_memory())
+    check(float(net.bn1._mean.abs().max()) == 0.0
+          and float((net.bn1._variance - 1).abs().max()) == 0.0,
+          f"[{tag}] BN running statistics do not start at 0 / 1")
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, first_ms = _clocked_fit(torch, model, batch,
+                                             RESNET_STEPS, None)
+    peak = torch.cuda.max_memory_allocated()
+    check(model._fold == 1, f"[{tag}] steps_per_dispatch resolved to "
+          f"{model._fold} under a per-step clock")
+    check(len(losses) == RESNET_STEPS and all(np.isfinite(losses)),
+          f"[{tag}] losses {losses}")
+    # bench.py's lr 0.1 has no warm-up: on one fixed batch the loss falls
+    # over the first steps and then overshoots, in fp32 as in O2 (the
+    # witnesses below), so the gate is the fall over the first three
+    check(losses[0] > losses[1] > losses[2], f"[{tag}] loss not falling "
+          f"over the first three steps on the fixed batch: {losses}")
+    check(float(net.bn1._mean.abs().max()) > 0
+          and float((net.bn1._variance - 1).abs().max()) > 0
+          and float(net.layer4[2].bn3._mean.abs().max()) > 0,
+          f"[{tag}] BN running statistics did not move")
+    dtypes = {p.dtype for p in net.parameters()}
+    check(dtypes == {torch.bfloat16, torch.float32},
+          f"[{tag}] O2 parameter dtypes {dtypes}")
+    check(net.bn1._mean.dtype == torch.float32,
+          f"[{tag}] BN buffers {net.bn1._mean.dtype}")
+    runner = next(iter(model._graphs.values()))
+    pool = pool_reserved(torch, model._graph_pool)
+    ips = RESNET_B / (step_ms * 1e-3)
+    k_ms = _timed_fit(torch, model, batch, RESNET_FOLD_STEPS, 8)
+    auto_ms = _timed_fit(torch, model, batch, RESNET_FOLD_STEPS, None)
+    tuner = model._fold_tuner
+    check(tuner is not None and tuner.decided,
+          f"[{tag}] the auto-K fit decided no K")
+    prof = profile_run(
+        torch, tag, "replayed",
+        lambda: model.fit([batch] * RESNET_PROFILE, epochs=1, verbose=0,
+                          steps_per_dispatch=RESNET_PROFILE),
+        RESNET_PROFILE, _vision_group)
+    graphs = model.compile_stats()
+    check(graphs == {"graphs": 1, "captures": 1},
+          f"[{tag}] {graphs}: a capture after the first")
+    free_model(torch, tag, model)
+    del net, model
+    # the eager route from the same weights: its losses are the replays'
+    net, model = _resnet50_model(torch, seed)
+    torch.cuda.reset_peak_memory_stats()
+    e_losses, eager_ms, _ = _clocked_fit(torch, model, batch, RESNET_STEPS,
+                                         0)
+    eager_peak = torch.cuda.max_memory_allocated()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(e_losses[:3], losses[:3]))
+    check(all(np.isfinite(e_losses)) and rel <= FOLD_EAGER_LOSS_TOL,
+          f"[{tag}] eager losses {e_losses} vs the replays' {losses}")
+    eprof = profile_run(
+        torch, f"{tag} eager", "eager",
+        lambda: [model.train_batch([batch[0]], [batch[1]])
+                 for _ in range(3)], 3, _vision_group)
+    check(model.compile_stats() == {"graphs": 0, "captures": 0},
+          f"[{tag}] the eager route captured: {model.compile_stats()}")
+    free_model(torch, tag, model)
+    del net, model
+    # the witnesses of the overshoot: the same steps in fp32 at lr 0.1,
+    # whose losses O2's follow, and in O2 at RESNET_SLOW_LR, where the
+    # loss falls step after step
+    fp32 = _resnet50_witness(torch, seed, batch, 0.1, False)
+    slow = _resnet50_witness(torch, seed, batch, RESNET_SLOW_LR, True)
+    f_rel = max(abs(a - b) / abs(b) for a, b in zip(losses[:3], fp32[:3]))
+    check(all(np.isfinite(fp32)) and f_rel <= RESNET_FP32_LOSS_TOL,
+          f"[{tag}] O2 losses {losses} vs fp32's {fp32}")
+    check(all(a > b for a, b in zip(slow[:RESNET_SLOW_FALL],
+                                    slow[1:RESNET_SLOW_FALL])),
+          f"[{tag}] O2 at lr {RESNET_SLOW_LR}: loss not falling over the "
+          f"first {RESNET_SLOW_FALL} steps: {slow}")
+    print(f"[{tag}] witnesses, eager from the same weights on the same "
+          f"batch: fp32 at lr 0.1 {[round(v, 5) for v in fp32]} (O2's "
+          f"first three within {f_rel:.3e} relative); O2 at lr "
+          f"{RESNET_SLOW_LR} {[round(v, 5) for v in slow]}", flush=True)
+    tflops = RESNET_FLOPS_IMG * ips / 1e12
+    print(f"[{tag}] ResNet-50 B={RESNET_B} {RESNET_SIZE}x{RESNET_SIZE} "
+          f"{RESNET_CLASSES} classes bf16 O2 Momentum(0.1, 0.9, "
+          f"multi_precision), CrossEntropyLoss: losses K=1 "
+          f"{[round(v, 5) for v in losses]}, eager "
+          f"{[round(v, 5) for v in e_losses]}; K=1 replays: step_ms "
+          f"first={first_ms:.3f} median(steps 3+)={step_ms:.3f} -> "
+          f"{ips:.1f} images/s ({tflops:.1f} TFLOP/s by bench.py's count, "
+          f"{tflops / 989:.4f} of 989); K=8 over {RESNET_FOLD_STEPS}: "
+          f"{k_ms:.3f} ms -> {RESNET_B / (k_ms * 1e-3):.1f} images/s; "
+          f"auto-K: {auto_ms:.3f} ms -> {RESNET_B / (auto_ms * 1e-3):.1f} "
+          f"images/s, decision {tuner.decision}; eager: step_ms "
+          f"{eager_ms:.3f} -> {RESNET_B / (eager_ms * 1e-3):.1f} images/s, "
+          f"first three losses within {rel:.3e} relative of the replays'; "
+          f"peak_mem_gib {peak / 2**30:.3f} replayed, "
+          f"{eager_peak / 2**30:.3f} eager; capture {runner.capture_s:.3f} "
+          f"s, graph pool reserved "
+          + (f"{pool / 2**30:.3f} GiB" if pool is not None else
+             "not measured") + f"; graphs {graphs}", flush=True)
+    return {"step_ms": step_ms, "images_per_s": ips, "k8_ms": k_ms,
+            "fp32_losses": fp32, "slow_losses": slow, "auto_ms": auto_ms, "eager_ms": eager_ms, "peak": peak,
+            "eager_peak": eager_peak, "capture_s": runner.capture_s,
+            "pool": pool, "profile": prof, "eager_profile": eprof}
+
+
+def _resnet_parity_state(model):
+    """Parameters, velocities and BN buffers of a fit model, copied to
+    the CPU, by name."""
+    out = {k: v.detach().float().cpu().clone()
+           for k, v in model.network.state_dict().items()}
+    names = [k for k, _ in model.network.named_parameters()]
+    for i, st in model._optimizer._state.items():
+        out[f"{names[i]}.velocity"] = (st["velocity"].detach().float()
+                                       .cpu().clone())
+    return out
+
+
+def _relu_watch(torch, net):
+    """Forward pre-hooks on every ReLU of ``net`` that keep each call's
+    input on the CPU, a list per forward (the hooks see eager forwards
+    only, not graph replays)."""
+    calls = []
+
+    def keep(mod, args):
+        calls.append(args[0].detach().float().cpu())
+
+    for mod in net.modules():
+        if type(mod).__name__ == "ReLU":
+            mod.register_forward_pre_hook(keep)
+    return calls
+
+
+def _relu_force(net, inputs):
+    """Make every ReLU of ``net`` pass what another run's ReLU passed:
+    its n-th call multiplies its input by ``inputs[n] > 0`` (eager
+    forwards in order), so the gradient takes that run's way through
+    each ReLU whatever the sign of this run's input."""
+    masks = iter([x > 0 for x in inputs])
+
+    def forced(x):
+        return x * next(masks).to(x.device, x.dtype)
+
+    for mod in net.modules():
+        if type(mod).__name__ == "ReLU":
+            mod.forward = forced
+
+
+def _parity_fit(torch, init, batches, device, fold, watch=False,
+                force=None):
+    """Momentum(RESNET_PARITY_LR, 0.9) steps of ResNet-18 from ``init``
+    on ``device`` through ``fit(steps_per_dispatch=fold)``, one per
+    batch: the state after each step as its callback sees it (after its
+    group ran), the graphs, and with ``watch`` every ReLU input of each
+    step; ``force``: another run's ReLU inputs, whose signs this run's
+    ReLUs follow (:func:`_relu_force`)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.vision.models import resnet18
+    net = resnet18(num_classes=10, device=device)
+    net.load_state_dict(init)
+    opt = paddle.optimizer.Momentum(RESNET_PARITY_LR, 0.9,
+                                    parameters=net.parameters())
+    model = paddle.Model(net, device=device)
+    model.prepare(opt, paddle.nn.CrossEntropyLoss())
+    relus = _relu_watch(torch, net) if watch else None
+    if force is not None:
+        _relu_force(net, [x for step in force for x in step])
+    after, seen = [], []
+
+    class Keep(Callback):
+        def on_train_batch_end(self, step, logs=None):
+            after.append(_resnet_parity_state(model))
+            if watch:
+                seen.append(list(relus))
+                relus.clear()
+
+    model.fit(batches, epochs=1, verbose=0, callbacks=[Keep()],
+              steps_per_dispatch=fold)
+    graphs = model.compile_stats()
+    model.release_graphs()
+    return after, graphs, seen
+
+
+def _worst(a, b):
+    """max |a - b| / max(|b|, 1) per entry, the worst first."""
+    return sorted(((float((a[k] - b[k]).abs().max())
+                    / max(float(b[k].abs().max()), 1.0), k) for k in b),
+                  reverse=True)
+
+
+def _relu_flips(card, cpu):
+    """ReLU inputs whose sign differs between two runs, per step: (step,
+    call, elements flipped, the largest |input| among them on the card
+    and on the CPU, the call's largest |input| on the CPU)."""
+    out = []
+    for step, (a_calls, b_calls) in enumerate(zip(card, cpu)):
+        for call, (a, b) in enumerate(zip(a_calls, b_calls)):
+            m = (a > 0) != (b > 0)
+            if bool(m.any()):
+                out.append((step, call, int(m.sum()),
+                            float(a[m].abs().max()),
+                            float(b[m].abs().max()),
+                            float(b.abs().max())))
+    return out
+
+
+def train_resnet_parity_phase(torch, seed):
+    """``[train resnet parity]`` (module docstring, 15d)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision.models import resnet18
+    tag = "train resnet parity"
+    rng = np.random.default_rng(seed + 6)
+    batches = [(torch.from_numpy(rng.standard_normal(
+        (4, 3, 64, 64)).astype(np.float32)),
+        torch.from_numpy(rng.integers(0, 10, (4,)).astype(np.int64)))
+        for _ in range(3)]
+    cpu_net = resnet18(num_classes=10, device="cpu",
+                       generator=torch.Generator().manual_seed(seed))
+    init = {k: v.clone() for k, v in cpu_net.state_dict().items()}
+    names = [k for k, _ in cpu_net.named_parameters()]
+    # one step with cuDNN's convolutions: logits and every gradient
+    card = resnet18(num_classes=10, device="cuda")
+    card.load_state_dict(init)
+    crit = paddle.nn.CrossEntropyLoss()
+    step = {}
+    for net, dev in ((cpu_net, "cpu"), (card, "cuda")):
+        x, y = (t.to(dev) for t in batches[0])
+        out = net(x)
+        crit(out, y).backward()
+        step[dev] = {"logits": out.detach().cpu()}
+        step[dev].update({k: p.grad.cpu() for k, p in
+                          net.named_parameters()})
+    one = _worst(step["cuda"], step["cpu"])
+    print(f"[{tag}] one step with cuDNN: logits and gradients card vs CPU, "
+          "worst " + ", ".join(f"{k} {r:.3e}" for r, k in one[:3]),
+          flush=True)
+    check(one[0][0] <= ZOO_TOL, f"[{tag}] one step with cuDNN: {one[0]}")
+    ref, _, ref_relu = _parity_fit(torch, init, batches, "cpu", 0,
+                                   watch=True)
+    worst = {}
+    # the main path's route, cuDNN's convolutions and BatchNorm, with
+    # its algorithms pinned to the deterministic ones (no atomic adds),
+    # so that a replay can be held against the eager run bit for bit
+    after = {}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        for run, fold in (("K=1", 1), ("K=4", 4), ("eager", 0)):
+            after[run], graphs, seen = _parity_fit(
+                torch, init, batches, "cuda", fold, watch=fold == 0)
+            want = ({"graphs": 0, "captures": 0} if fold == 0 else
+                    {"graphs": 1, "captures": 1})
+            check(graphs == want, f"[{tag}] {run}: {graphs}")
+            check(len(after[run]) == len(batches),
+                  f"[{tag}] {run}: {len(after[run])} steps seen")
+    # a ReLU input within fp32 rounding of 0 may take another sign on
+    # the card than on the CPU and send one element's gradient the other
+    # way: the CPU run that follows the card's ReLU signs is the
+    # reference, step by step; the plain CPU run's departure is printed
+    # and must come with such a flip
+    flips = _relu_flips(seen, ref_relu)
+    forced, _, _ = _parity_fit(torch, init, batches, "cpu", 0, force=seen)
+    per = [_worst(a, b)[0] for a, b in zip(after["eager"], forced)]
+    worst["eager vs cpu (card's ReLU signs), worst step"] = max(per)[0]
+    for i in range(len(batches)):
+        worst[f"K=1 vs eager, step {i}"] = _worst(after["K=1"][i],
+                                                   after["eager"][i])[0][0]
+    worst["K=4 vs eager"] = _worst(after["K=4"][-1],
+                                   after["eager"][-1])[0][0]
+    same = {run: all(torch.equal(after[run][-1][k], after["eager"][-1][k])
+                     for k in ref[-1]) for run in ("K=1", "K=4")}
+    free = _worst(after["eager"][-1], ref[-1])
+    print(f"[{tag}] cuDNN (deterministic) eager vs the CPU run that "
+          "follows its ReLU signs, each step: "
+          + ", ".join(f"step {i} {k} {r:.3e}" for i, (r, k) in
+                      enumerate(per)), flush=True)
+    print(f"[{tag}] three steps with cuDNN running free, eager vs the "
+          "plain CPU run: worst "
+          + ", ".join(f"{k} {r:.3e}" for r, k in free[:3])
+          + f"; ReLU inputs of another sign than the CPU's (step, call, "
+          f"elements, max |card|, max |cpu|, call's max |cpu|): {flips}",
+          flush=True)
+    check(free[0][0] <= ZOO_TOL or flips,
+          f"[{tag}] the free-running cuDNN route departs by "
+          f"{free[0][0]:.3e} with no ReLU sign flip to explain it")
+    for name, ratio in worst.items():
+        check(ratio <= ZOO_TOL, f"[{tag}] {name}: {ratio:.3e} > {ZOO_TOL} "
+              "x max(|ref|, 1)")
+    print(f"[{tag}] ResNet-18 64x64 B=4 fp32 (TF32 off), three "
+          f"Momentum({RESNET_PARITY_LR}, 0.9) steps: max |diff| / max(|ref|,"
+          f" 1) over parameters, velocities and BN buffers "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f" (tol {ZOO_TOL}); cuDNN replays bit-equal to eager: {same}; "
+          f"one step with cuDNN {one[0][0]:.3e}; three running free with "
+          f"cuDNN {free[0][0]:.3e} with {len(flips)} ReLU sign flip(s)",
+          flush=True)
+    return {"worst": worst, "one_step_cudnn": one[0][0],
+            "free_cudnn": free[0][0], "relu_flips": flips}
+
+
+def _zoo_loss(crit, out, y):
+    """CrossEntropyLoss of the logits; GoogLeNet's aux heads weigh 0.3."""
+    if isinstance(out, tuple):
+        return crit(out[0], y) + 0.3 * (crit(out[1], y) + crit(out[2], y))
+    return crit(out, y)
+
+
+def vision_zoo_phase(torch, seed):
+    """``[vision zoo]`` (module docstring, 15e)."""
+    import gc
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision import models as TM
+    tag = "vision zoo"
+    crit = paddle.nn.CrossEntropyLoss()
+    rng = np.random.default_rng(seed + 7)
+    res = {}
+    for name, fsize, tsize, ch in ZOO_FAMILIES:
+        ctor = getattr(TM, name)
+        cpu = ctor(num_classes=10, device="cpu",
+                   generator=torch.Generator().manual_seed(seed)).eval()
+        net = ctor(num_classes=10, device="cuda").eval()
+        net.load_state_dict(cpu.state_dict())
+        x = torch.from_numpy(rng.random((2, ch, fsize, fsize),
+                                        dtype=np.float32))
+        with torch.no_grad():
+            ref, got = cpu(x), net(x.cuda())
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        got = got if isinstance(got, tuple) else (got,)
+        err = max(float((g.cpu() - r).abs().max())
+                  / max(float(r.abs().max()), 1.0)
+                  for g, r in zip(got, ref))
+        check(all(tuple(g.shape) == (2, 10) for g in got),
+              f"[{tag}] {name}: output shapes {[g.shape for g in got]}")
+        check(err <= ZOO_TOL, f"[{tag}] {name}: card vs CPU {err:.3e}")
+        del cpu
+        opt = paddle.optimizer.Momentum(ZOO_LR, 0.9,
+                                        parameters=net.parameters(),
+                                        multi_precision=True)
+        paddle.amp.decorate(net, opt, level="O2", dtype="bfloat16")
+        net.train()
+        xt = torch.from_numpy(rng.random((ZOO_B, ch, tsize, tsize),
+                                         dtype=np.float32)).cuda()
+        yt = torch.from_numpy(rng.integers(0, 10, (ZOO_B,))).cuda()
+        times = []
+        for i in range(4):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            with paddle.amp.auto_cast(level="O2", dtype="bfloat16"):
+                out = net(xt)
+            loss = _zoo_loss(crit, out, yt)
+            loss.backward()
+            if i == 0:
+                first = float(loss.detach())
+                finite = bool(torch.isfinite(loss)) and all(
+                    bool(torch.isfinite(p.grad).all())
+                    for p in net.parameters() if p.grad is not None)
+                check(finite, f"[{tag}] {name}: loss {first} or a "
+                      "gradient not finite")
+                check(all(p.grad is not None for p in net.parameters()),
+                      f"[{tag}] {name}: a parameter got no gradient")
+            opt.step()
+            opt.clear_grad()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        step_ms = float(np.median(times[1:]))
+        res[name] = {"max_abs_err": err, "step_ms": step_ms}
+        print(f"[{tag}] {name}: fp32 forward at {fsize}x{fsize} card vs CPU "
+              f"{err:.3e} x max(|ref|, 1) (tol {ZOO_TOL}); bf16 O2 step at "
+              f"B={ZOO_B} {tsize}x{tsize}: first loss {first:.5f} with "
+              f"finite gradients, fourth {float(loss.detach()):.5f}; "
+              f"{step_ms:.3f} ms a step (eager, median of 3 "
+              f"after the first; first {times[0]:.3f})", flush=True)
+        del net, opt, out, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5341,6 +5944,9 @@ def main(argv=None) -> int:
     bh_parity_phase(torch, args.seed)
     train_fold_phase(torch, args.seed, bh=True)
     fold_parity_phase(torch, args.seed)
+    train_resnet50_phase(torch, args.seed)
+    train_resnet_parity_phase(torch, args.seed)
+    vision_zoo_phase(torch, args.seed)
     ltc = lmce_tc_phase(torch, args.seed,
                         built.get("lmce_sm90", {}).get("log", ""))
     ltf = lmce_tc_fwd_phase(torch, args.seed,

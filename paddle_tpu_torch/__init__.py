@@ -21,6 +21,20 @@ Training (``hapi.Model.fit``)::
     model = paddle.Model(net, device="cuda")
     model.prepare(opt, GPTPretrainingCriterion())
     model.fit(batches, epochs=1, verbose=1)   # batches: [(ids, labels)]
+
+Vision (``vision.models``: ResNet-50 ImageNet training as ``bench.py``
+runs it, bf16 O2 with fp32 masters, Momentum, BatchNorm)::
+
+    from paddle_tpu_torch.vision.models import resnet50
+    net = resnet50(num_classes=1000)                 # on the card
+    opt = paddle.optimizer.Momentum(0.1, 0.9, parameters=net.parameters(),
+                                    multi_precision=True)
+    paddle.amp.decorate(net, opt, level="O2", dtype="bfloat16")
+    model = paddle.Model(net)
+    model.prepare(opt, paddle.nn.CrossEntropyLoss(),
+                  amp_configs={"level": "O2", "dtype": "bfloat16"})
+    model.fit(batches, epochs=1)   # batches: [(images [64, 3, 224, 224],
+                                   #            labels [64])]
 """
 
 from __future__ import annotations
@@ -28,7 +42,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["resolve_device", "Model", "seed", "amp", "optimizer", "nn",
-           "io"]
+           "io", "vision"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -48,6 +62,6 @@ def resolve_device(device=None) -> torch.device:
 
 
 # submodules import resolve_device, so they load after it is defined
-from . import amp, io, nn, optimizer  # noqa: E402
+from . import amp, io, nn, optimizer, vision  # noqa: E402
 from .framework.random import seed  # noqa: E402
 from .hapi import Model  # noqa: E402

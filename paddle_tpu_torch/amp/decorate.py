@@ -3,19 +3,20 @@
 Level O2 casts the model's floating parameters to bf16 (or fp16) in
 place, except those of LayerNorm/BatchNorm layers and of
 ``excluded_layers``, and switches the optimizers to fp32 master
-weights.  Level O1 changes nothing here, as in the JAX package (O1 is
-``auto_cast``'s per-op casting, not ported yet).
+weights; buffers (BatchNorm's running statistics) stay fp32.  Level O1
+changes nothing here, as in the JAX package (O1 is ``auto_cast``'s
+per-op casting).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..nn.norm import LayerNorm
+from ..nn.norm import LayerNorm, _BatchNormBase
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
            torch.bfloat16: torch.bfloat16, torch.float16: torch.float16}
-_KEEP_FP32 = (LayerNorm, torch.nn.LayerNorm,
+_KEEP_FP32 = (LayerNorm, _BatchNormBase, torch.nn.LayerNorm,
               torch.nn.modules.batchnorm._BatchNorm)
 
 

@@ -22,19 +22,25 @@ through :meth:`Model.train_batch`, eagerly, which stays the public
 single-step entry.  :meth:`Model.prepare_serving` hands the network to
 a warmed continuous-batching ``LLMServer``.
 
+``prepare(amp_configs=...)`` ("O1"/"O2", or a dict with ``level`` and
+``dtype``) runs the network's forward inside ``amp.auto_cast``, as the
+JAX ``_forward_with_loss`` does (the loss outside it); the AMP level
+and dtype are part of every graph's key.
+
 Not ported yet, and refused with ``NotImplementedError``: metrics,
-``amp_configs`` (``auto_cast``; use ``amp.decorate(level="O2")``),
 evaluation and checkpoints inside ``fit``, and gradient accumulation.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from ..amp.auto_cast import auto_cast
 from ..framework import env_knobs
 from ..framework.dispatch import (AutoFoldTuner, GroupDispatcher,
                                   build_folded_step)
@@ -84,15 +90,21 @@ class Model:
         self._graph_pool = None
         self._fold = 0
         self._fold_tuner = None
+        self._amp_level, self._amp_dtype = None, "bfloat16"
 
     def prepare(self, optimizer=None, loss=None, metrics=None,
                 amp_configs=None):
         if metrics:
             raise _not_ported("Model.prepare(metrics=)", 9)
-        if amp_configs:
-            raise _not_ported(
-                "Model.prepare(amp_configs=) (auto_cast O1/O2); use "
-                "amp.decorate(model, optimizer, level='O2') instead,", 8)
+        self._amp_level, self._amp_dtype = None, "bfloat16"
+        if isinstance(amp_configs, str):
+            self._amp_level = amp_configs
+        elif isinstance(amp_configs, dict):
+            self._amp_level = amp_configs.get("level", "O1")
+            self._amp_dtype = amp_configs.get("dtype", "bfloat16")
+        elif amp_configs:
+            raise TypeError(f"amp_configs must be a level string or a "
+                            f"dict, got {amp_configs!r}")
         self.release_graphs()
         self._optimizer = optimizer
         self._loss = loss
@@ -125,7 +137,10 @@ class Model:
         return [LazyScalar(loss.detach().float())], []
 
     def _forward_loss(self, ins, lbs):
-        outs = _to_list(self.network(*ins))
+        ctx = (auto_cast(level=self._amp_level, dtype=self._amp_dtype)
+               if self._amp_level else contextlib.nullcontext())
+        with ctx:
+            outs = _to_list(self.network(*ins))
         return self._loss(*(outs + lbs)) if self._loss is not None \
             else outs[0]
 
@@ -174,11 +189,13 @@ class Model:
         return out
 
     def _runner(self, batches, n_in):
-        """The step runner of this batch signature and these step knobs,
-        built (and on the card captured at its first group) once."""
+        """The step runner of this batch signature, these step knobs and
+        this AMP level and dtype, built (and on the card captured at its
+        first group) once."""
         key = ((n_in,) + tuple((tuple(b.shape[1:]), b.dtype)
                                for b in batches)
-               + tuple(env_knobs.get_raw(k) for k in STEP_KNOBS))
+               + tuple(env_knobs.get_raw(k) for k in STEP_KNOBS)
+               + (self._amp_level, self._amp_dtype))
         runner = self._graphs.get(key)
         if runner is None:
             if self.device.type == "cuda" and self._graph_pool is None:

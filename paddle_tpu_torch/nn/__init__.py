@@ -1,9 +1,20 @@
-"""Layers of the port's training slice (counterpart of
-``paddle_tpu/nn``): ``torch.nn.Module``s with Paddle's layouts and
-dtype rules."""
+"""Layers of the port (counterpart of ``paddle_tpu/nn``):
+``torch.nn.Module``s with Paddle's layouts and dtype rules."""
 
-from . import functional
-from .common import Dropout, Embedding, Linear
-from .norm import LayerNorm
+from . import functional, initializer
+from .activation_layers import (Hardsigmoid, Hardswish, ReLU, ReLU6,
+                                Sigmoid, Swish)
+from .common import Dropout, Embedding, Identity, Linear
+from .container import Sequential
+from .conv import Conv2D
+from .loss import CrossEntropyLoss
+from .norm import BatchNorm, BatchNorm1D, BatchNorm2D, LayerNorm
+from .pooling import (AdaptiveAvgPool2D, AdaptiveMaxPool2D, AvgPool2D,
+                      MaxPool2D)
 
-__all__ = ["functional", "Linear", "Embedding", "Dropout", "LayerNorm"]
+__all__ = ["functional", "initializer", "Linear", "Embedding", "Dropout",
+           "Identity", "LayerNorm", "BatchNorm", "BatchNorm1D",
+           "BatchNorm2D", "Conv2D", "MaxPool2D", "AvgPool2D",
+           "AdaptiveAvgPool2D", "AdaptiveMaxPool2D", "ReLU", "ReLU6",
+           "Hardswish", "Hardsigmoid", "Swish", "Sigmoid",
+           "Sequential", "CrossEntropyLoss"]

@@ -1,4 +1,4 @@
-"""Linear, Embedding and Dropout layers (counterpart of
+"""Linear, Embedding, Dropout and Identity layers (counterpart of
 ``paddle_tpu/nn/common.py``).
 
 ``Linear`` keeps Paddle's weight layout ``[in_features, out_features]``
@@ -17,6 +17,8 @@ from torch import nn
 
 from .. import resolve_device
 from ..framework import random as _random
+from ..ops import nn_ops
+from . import initializer as I
 
 
 def _normal(shape, std, device, generator):
@@ -28,19 +30,30 @@ def _normal(shape, std, device, generator):
 
 
 class Linear(nn.Module):
-    """``y = x @ weight + bias`` with ``weight`` ``[in, out]`` drawn from
-    Normal(0, ``init_std``) and the bias starting at 0."""
+    """``y = x @ weight + bias`` with ``weight`` ``[in, out]`` and Paddle's
+    signature: the weight from ``XavierNormal`` and the bias from 0
+    unless ``weight_attr`` / ``bias_attr`` give an initializer;
+    ``bias_attr=False`` leaves the bias out.  The models' own
+    initialisation passes ``init_std``: the weight from Normal(0,
+    ``init_std``) instead."""
 
-    def __init__(self, in_features, out_features, init_std, device=None,
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, name=None, *, init_std=None, device=None,
                  generator=None):
         super().__init__()
         device = resolve_device(device)
-        self.weight = _normal((in_features, out_features), init_std, device,
-                              generator)
-        self.bias = nn.Parameter(torch.zeros(out_features, device=device))
+        if init_std is not None:
+            self.weight = _normal((in_features, out_features), init_std,
+                                  device, generator)
+        else:
+            self.weight = I.make_parameter(
+                (in_features, out_features), weight_attr, I.XavierNormal(),
+                device, generator)
+        self.bias = None if bias_attr is False else I.make_parameter(
+            (out_features,), bias_attr, I.Constant(0.0), device, generator)
 
     def forward(self, x):
-        return torch.matmul(x, self.weight) + self.bias
+        return nn_ops.linear(x, self.weight, self.bias)
 
 
 class Embedding(nn.Module):
@@ -73,3 +86,11 @@ class Dropout(nn.Module):
         gen = _random.default_generator(x.device)
         keep = torch.rand(x.shape, generator=gen, device=x.device) >= self.p
         return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
+
+
+class Identity(nn.Module):
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+
+    def forward(self, x):
+        return x

@@ -1,0 +1,111 @@
+"""Initializers (counterpart of ``paddle_tpu/nn/initializer.py``): the
+ones the port's layers default to.  Each is called with the shape, the
+device and a ``torch.Generator`` (None: the port's generator of the
+device) and returns an fp32 tensor.  Fans follow Paddle's layouts: a
+2-D weight is ``[in, out]``, a conv weight ``[out, in/groups, *k]``.
+The JAX package draws with threefry and the port with Philox, so the
+two give other numbers from one seed (``framework/random.py``)."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..framework import random as _random
+
+
+def _fan_in_out(shape):
+    shape = tuple(shape)
+    if len(shape) == 0:
+        return 1, 1
+    if len(shape) == 1:
+        return shape[0], shape[0]
+    if len(shape) == 2:
+        return shape[0], shape[1]
+    receptive = math.prod(shape[2:])
+    return shape[1] * receptive, shape[0] * receptive
+
+
+def _empty(shape, device):
+    return torch.empty(tuple(shape), dtype=torch.float32, device=device)
+
+
+def _gen(generator, device):
+    return generator if generator is not None else \
+        _random.default_generator(device)
+
+
+class Initializer:
+    def __call__(self, shape, device, generator=None) -> torch.Tensor:
+        raise NotImplementedError
+
+
+class Constant(Initializer):
+    def __init__(self, value: float = 0.0):
+        self.value = float(value)
+
+    def __call__(self, shape, device, generator=None):
+        return torch.full(tuple(shape), self.value, dtype=torch.float32,
+                          device=device)
+
+
+class Normal(Initializer):
+    def __init__(self, mean: float = 0.0, std: float = 1.0):
+        self.mean, self.std = float(mean), float(std)
+
+    def __call__(self, shape, device, generator=None):
+        return _empty(shape, device).normal_(
+            self.mean, self.std, generator=_gen(generator, device))
+
+
+class XavierNormal(Initializer):
+    """Normal(0, gain * sqrt(2 / (fan_in + fan_out)))."""
+
+    def __init__(self, fan_in=None, fan_out=None, gain=1.0):
+        self._fan_in, self._fan_out, self.gain = fan_in, fan_out, gain
+
+    def __call__(self, shape, device, generator=None):
+        fi, fo = _fan_in_out(shape)
+        fi = self._fan_in if self._fan_in is not None else fi
+        fo = self._fan_out if self._fan_out is not None else fo
+        std = self.gain * math.sqrt(2.0 / (fi + fo))
+        return _empty(shape, device).normal_(
+            0.0, std, generator=_gen(generator, device))
+
+
+class KaimingUniform(Initializer):
+    """Uniform(-limit, limit), ``limit = gain * sqrt(3 / fan_in)`` with
+    ``gain = sqrt(2 / (1 + negative_slope^2))`` for relu / leaky_relu,
+    else 1."""
+
+    def __init__(self, fan_in=None, negative_slope=0.0,
+                 nonlinearity="relu"):
+        self._fan_in = fan_in
+        self.negative_slope = negative_slope
+        self.nonlinearity = nonlinearity
+
+    def __call__(self, shape, device, generator=None):
+        fi, _ = _fan_in_out(shape)
+        fi = self._fan_in if self._fan_in is not None else fi
+        gain = (math.sqrt(2.0 / (1 + self.negative_slope ** 2))
+                if self.nonlinearity in ("relu", "leaky_relu") else 1.0)
+        limit = gain * math.sqrt(3.0 / fi)
+        return _empty(shape, device).uniform_(
+            -limit, limit, generator=_gen(generator, device))
+
+
+def make_parameter(shape, attr, default, device, generator=None):
+    """A trainable fp32 parameter of ``shape``: ``attr`` None takes
+    ``default``; an :class:`Initializer` is used as it is.  Paddle's
+    ``ParamAttr`` objects are ROADMAP queue A, item 8."""
+    if attr is None:
+        init = default
+    elif isinstance(attr, Initializer):
+        init = attr
+    else:
+        raise NotImplementedError(
+            f"weight_attr/bias_attr {attr!r}: only None, False (for a "
+            "bias) or an initializer of paddle_tpu_torch.nn.initializer "
+            "are ported (ROADMAP queue A, item 8: param_attr)")
+    return torch.nn.Parameter(init(shape, device, generator))

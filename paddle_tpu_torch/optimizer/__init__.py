@@ -1,5 +1,5 @@
 """Optimizers of the port (counterpart of ``paddle_tpu/optimizer``)."""
 
-from .optimizer import Adam, AdamW, Optimizer
+from .optimizer import Adam, AdamW, Momentum, Optimizer
 
-__all__ = ["Optimizer", "Adam", "AdamW"]
+__all__ = ["Optimizer", "Adam", "AdamW", "Momentum"]

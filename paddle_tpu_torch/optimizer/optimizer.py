@@ -1,6 +1,6 @@
 """Optimizers (counterpart of ``paddle_tpu/optimizer/optimizer.py``):
 the ``Optimizer`` base with fp32 master weights for bf16 parameters,
-and ``Adam``/``AdamW`` with Paddle's exact update.
+``Adam``/``AdamW`` and ``Momentum`` with Paddle's exact updates.
 
 Paddle's Adam step, as the JAX package writes it::
 
@@ -278,3 +278,59 @@ class AdamW(Adam):
                          grad_clip, lazy_mode, multi_precision, name,
                          amsgrad)
         self._decoupled = True
+
+
+class Momentum(Optimizer):
+    """Paddle's momentum step, as the JAX package writes it::
+
+        g = g + decay*w                  (coupled decay)
+        v = momentum*v + g
+        w = w - lr * (g + momentum*v)    (use_nesterov)
+        w = w - lr * v                   (otherwise)
+
+    The velocity is fp32 for a bf16/fp16 value.  With
+    ``multi_precision`` the update runs on the fp32 master; without it
+    a 16-bit value's decay product is rounded in its dtype (the
+    reference's weakly typed ``decay * value``), the step runs on an
+    fp32 copy and is rounded into the value once.  The learning rate
+    is the device scalar the captured step replays (module
+    docstring)."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 multi_precision=False, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+        self._momentum = float(momentum)
+        self._nesterov = bool(use_nesterov)
+
+    def _init_state(self, value):
+        acc = torch.float32 if value.dtype in _LOW else value.dtype
+        return {"velocity": torch.zeros_like(value, dtype=acc)}
+
+    def _update_group(self, works, grads, states, lr):
+        vel = [st["velocity"] for st in states]
+        decay = self._weight_decay
+        low = works[0].dtype in _LOW
+        if decay:
+            # the product rounded, then added, as the reference's
+            # ``grad + decay * value`` (a 16-bit value's in its dtype)
+            factor = float(torch.tensor(decay, dtype=works[0].dtype))
+            grads = torch._foreach_add(grads,
+                                       torch._foreach_mul(works, factor))
+        if low:
+            grads = [g.float() for g in grads]
+            wide = [w.float() for w in works]
+        else:
+            wide = works
+        torch._foreach_mul_(vel, self._momentum)
+        torch._foreach_add_(vel, grads)
+        if self._nesterov:
+            upd = torch._foreach_add(grads, vel, alpha=self._momentum)
+        else:
+            upd = vel
+        # the 0-d learning rate through the Tensor overload by name (see
+        # Adam._update_group)
+        torch._foreach_sub_(wide, _aten._foreach_mul.Tensor(upd, lr))
+        if low:
+            torch._foreach_copy_(works, wide)

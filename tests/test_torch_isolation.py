@@ -30,6 +30,8 @@ def test_import_pulls_in_no_jax():
         "import paddle_tpu_torch.distributed\n"
         "import paddle_tpu_torch.inference.serving.router\n"
         "import paddle_tpu_torch.inference.serving.disagg\n"
+        "import paddle_tpu_torch.vision.models\n"
+        "import paddle_tpu_torch.amp.auto_cast, paddle_tpu_torch.ops.activation\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "'jax.') or m == 'paddle_tpu' or m.startswith('paddle_tpu.')]\n"
         "assert not bad, bad\n")

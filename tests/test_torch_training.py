@@ -236,12 +236,19 @@ def test_fit_on_cpu_makes_no_kernel_launch():
 
 
 def test_fit_refuses_what_is_not_ported():
+    """Metrics and gradient accumulation are refused (ROADMAP item 9);
+    ``amp_configs`` is ported (``amp.auto_cast``) and accepted."""
     net = GPTForCausalLM(gpt_tiny(), device="cpu")
     model = tpaddle.Model(net, device="cpu")
     opt = tpaddle.optimizer.AdamW(parameters=net.parameters())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.prepare(opt, GPTPretrainingCriterion(),
-                      amp_configs={"level": "O1"})
+        model.prepare(opt, GPTPretrainingCriterion(), metrics=["acc"])
+    model.prepare(opt, GPTPretrainingCriterion(),
+                  amp_configs={"level": "O1"})
+    assert (model._amp_level, model._amp_dtype) == ("O1", "bfloat16")
+    x = torch.zeros((2, 16), dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model.fit([(x, x)], accumulate_grad_batches=2)
 
 
 def test_model_and_gpt_without_a_card_raise(monkeypatch):

@@ -1,0 +1,687 @@
+"""The vision zoo's layers in the PyTorch port against the JAX package.
+
+The same numpy inputs (from a seed) go through each JAX function (its
+pure body, ``.raw``, differentiated with ``jax.vjp``) and the port's
+counterpart on the CPU: Conv2D (groups, dilation, asymmetric and "SAME"
+padding; channel-last layouts refused), every pool (``exclusive``, the JAX ``ceil_mode``,
+adaptive over non-divisible sizes), BatchNorm in training and eval with
+the running statistics after three steps, CrossEntropyLoss, the
+activations, Momentum (nesterov, decay, multi_precision; five steps)
+and ``auto_cast`` O1/O2 op by op.
+
+Tolerances (fp32): forward 1e-5 relative (1e-5 x max(|ref|, 1)),
+gradients 1e-4 x max(|ref|, 1): the two compute the same sums in
+another order (XLA vs ATen on the CPU).  bf16 outputs: 1e-2 x
+max(|ref|, 1) (two roundings to bf16's 8 bits).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as jpaddle
+from paddle_tpu import amp as jamp
+from paddle_tpu import nn as jnn
+from paddle_tpu import optimizer as joptimizer
+from paddle_tpu.ops import activation as jact
+from paddle_tpu.ops import manipulation as jmanip
+from paddle_tpu.ops import nn_ops as jops
+from paddle_tpu.tensor import Tensor as JTensor
+
+import paddle_tpu_torch as tpaddle
+from paddle_tpu_torch import amp as tamp
+from paddle_tpu_torch import nn as tnn
+from paddle_tpu_torch.nn import functional as TF
+from paddle_tpu_torch.nn import initializer as tinit
+from paddle_tpu_torch.ops import activation as tact
+from paddle_tpu_torch.ops import manipulation as tmanip
+
+FWD_TOL = 1e-5
+GRAD_TOL = 1e-4
+BF16_TOL = 1e-2
+
+
+def _close(got, ref, tol, what=""):
+    got = np.asarray(got, np.float64)
+    ref = np.asarray(ref, np.float64)
+    assert got.shape == ref.shape, (what, got.shape, ref.shape)
+    finite = np.isfinite(ref)
+    np.testing.assert_array_equal(got[~finite], ref[~finite], err_msg=what)
+    scale = max(float(np.abs(ref[finite]).max(initial=0.0)), 1.0)
+    np.testing.assert_allclose(got[finite], ref[finite], rtol=0,
+                               atol=tol * scale, err_msg=what)
+
+
+def _rand(rng, *shape, scale=1.0):
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def _check_fn(jfn, tfn, inputs, seed=0, fwd_tol=FWD_TOL, grad_tol=GRAD_TOL):
+    """``jfn`` (jnp arrays) and ``tfn`` (torch tensors) on the same
+    float32 ``inputs``: the output, and the gradient of every input for
+    one random cotangent."""
+    jin = [jnp.asarray(a) for a in inputs]
+    jout, vjp = jax.vjp(jfn, *jin)
+    tin = [torch.tensor(a, requires_grad=True) for a in inputs]
+    tout = tfn(*tin)
+    _close(tout.detach().numpy(), np.asarray(jout), fwd_tol, "forward")
+    rng = np.random.default_rng(seed + 100)
+    g = rng.standard_normal(np.shape(jout)).astype(np.float32)
+    g[~np.isfinite(np.asarray(jout))] = 0.0
+    jgrads = vjp(jnp.asarray(g))
+    tout.backward(torch.from_numpy(g))
+    for i, (t, jg) in enumerate(zip(tin, jgrads)):
+        _close(t.grad.numpy(), np.asarray(jg), grad_tol, f"grad {i}")
+
+
+# -- Conv2D ------------------------------------------------------------------
+
+CONV_CASES = {
+    "k3 s1 p1 bias": dict(cin=4, cout=6, k=(3, 3), kw=dict(padding=1)),
+    "groups 2, stride 2, dilation 2, padding [1, 2, 0, 3]": dict(
+        cin=4, cout=6, k=(3, 3), groups=2,
+        kw=dict(stride=2, dilation=2, padding=[1, 2, 0, 3], groups=2)),
+    "depthwise k5 p2": dict(cin=4, cout=4, k=(5, 5), groups=4,
+                            kw=dict(padding=2, groups=4)),
+    "SAME stride 2": dict(cin=4, cout=3, k=(3, 3),
+                          kw=dict(stride=2, padding="SAME")),
+    "(1, 7) padding (0, 3)": dict(cin=4, cout=5, k=(1, 7),
+                                  kw=dict(padding=(0, 3))),
+    "k7 s2 p3 (ResNet's stem)": dict(cin=4, cout=8, k=(7, 7),
+                                     kw=dict(stride=2, padding=3)),
+    "1x1 stride 2 VALID": dict(cin=4, cout=8, k=(1, 1),
+                               kw=dict(stride=2, padding="VALID")),
+}
+
+
+@pytest.mark.parametrize("case", list(CONV_CASES))
+def test_conv2d_matches_jax(case):
+    c = CONV_CASES[case]
+    rng = np.random.default_rng(0)
+    x = _rand(rng, 2, c["cin"], 13, 11)
+    w = _rand(rng, c["cout"], c["cin"] // c.get("groups", 1), *c["k"],
+              scale=0.3)
+    b = _rand(rng, c["cout"])
+    kw = c["kw"]
+    _check_fn(lambda x, w, b: jops.conv2d.raw(x, w, b, **kw),
+              lambda x, w, b: TF.conv2d(x, w, b, **kw), [x, w, b])
+
+
+@pytest.mark.parametrize("op", ["conv2d", "max_pool2d", "avg_pool2d",
+                                "adaptive_avg_pool2d", "batch_norm"])
+def test_channel_last_layouts_are_refused(op):
+    """The vision ops are NCHW only; NHWC is refused by name, not
+    computed in another layout."""
+    x = torch.zeros(2, 5, 5, 4)
+    call = {"conv2d": lambda: TF.conv2d(x, torch.zeros(6, 4, 3, 3),
+                                        data_format="NHWC"),
+            "max_pool2d": lambda: TF.max_pool2d(x, 2, data_format="NHWC"),
+            "avg_pool2d": lambda: TF.avg_pool2d(x, 2, data_format="NHWC"),
+            "adaptive_avg_pool2d": lambda: TF.adaptive_avg_pool2d(
+                x, 1, data_format="NHWC"),
+            "batch_norm": lambda: TF.batch_norm(
+                x, torch.zeros(4), torch.ones(4), data_format="NHWC")}[op]
+    with pytest.raises(NotImplementedError, match="channels_last"):
+        call()
+
+
+def test_conv2d_layer():
+    rng = np.random.default_rng(1)
+    jpaddle.seed(0)
+    jconv = jnn.Conv2D(4, 6, 3, stride=2, padding=1, groups=2)
+    conv = tnn.Conv2D(4, 6, 3, stride=2, padding=1, groups=2, device="cpu")
+    assert tuple(conv.weight.shape) == tuple(jconv.weight.shape) == \
+        (6, 2, 3, 3)
+    conv.weight.data = torch.from_numpy(np.asarray(jconv.weight.numpy()))
+    conv.bias.data = torch.from_numpy(np.asarray(jconv.bias.numpy()))
+    x = _rand(rng, 2, 4, 8, 8)
+    _close(conv(torch.from_numpy(x)).detach().numpy(),
+           np.asarray(jconv(JTensor(x)).numpy()), FWD_TOL)
+    assert tnn.Conv2D(4, 6, 1, bias_attr=False, device="cpu").bias is None
+
+
+def test_conv2d_output_follows_the_activation_dtype():
+    """``nn_ops.py:73-76``: the output is in the activation's dtype.  The
+    JAX convolution takes one dtype (bf16 here); the port also takes an
+    fp32 weight beside bf16 activations (it computes in fp32) and still
+    returns bf16."""
+    rng = np.random.default_rng(2)
+    x = _rand(rng, 1, 4, 6, 6)
+    w = _rand(rng, 3, 4, 3, 3, scale=0.3)
+    jout = jops.conv2d.raw(jnp.asarray(x, jnp.bfloat16),
+                           jnp.asarray(w, jnp.bfloat16), None, 1, 1)
+    xt = torch.from_numpy(x).bfloat16()
+    for wt in (torch.from_numpy(w).bfloat16(), torch.from_numpy(w)):
+        tout = TF.conv2d(xt, wt, None, 1, 1)
+        assert str(tout.dtype) == f"torch.{jout.dtype}" == "torch.bfloat16"
+        _close(tout.float().numpy(), np.asarray(jout.astype(jnp.float32)),
+               BF16_TOL)
+
+
+def test_conv_and_linear_initializers_follow_paddle():
+    """Conv2D: KaimingUniform(fan_in = in/groups * k * k), limit
+    sqrt(6 / fan_in); Linear: XavierNormal, std sqrt(2 / (in + out));
+    biases 0; each drawn from the generator given."""
+    gen = torch.Generator().manual_seed(3)
+    conv = tnn.Conv2D(16, 32, 3, groups=2, device="cpu", generator=gen)
+    limit = np.sqrt(6.0 / (8 * 9))
+    w = conv.weight.detach().numpy()
+    assert np.abs(w).max() <= limit and np.abs(w).max() > 0.95 * limit
+    assert np.all(conv.bias.detach().numpy() == 0)
+    lin = tnn.Linear(300, 500, device="cpu", generator=gen)
+    assert abs(lin.weight.detach().numpy().std() / np.sqrt(2 / 800) - 1) \
+        < 0.02
+    assert np.all(lin.bias.detach().numpy() == 0)
+    assert tnn.Linear(3, 4, bias_attr=False, device="cpu").bias is None
+    again = tnn.Conv2D(16, 32, 3, groups=2, device="cpu",
+                       generator=torch.Generator().manual_seed(3))
+    np.testing.assert_array_equal(again.weight.detach().numpy(), w)
+    const = tnn.Linear(3, 4, weight_attr=tinit.Constant(0.5),
+                       device="cpu")
+    assert np.all(const.weight.detach().numpy() == 0.5)
+    wide = tnn.Linear(300, 500, weight_attr=tinit.Normal(1.0, 2.0),
+                      device="cpu", generator=gen).weight.detach().numpy()
+    assert abs(wide.mean() - 1.0) < 0.02 and abs(wide.std() / 2.0 - 1) < 0.02
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tnn.Linear(3, 4, weight_attr="a ParamAttr", device="cpu")
+
+
+# -- pooling -------------------------------------------------------------------
+
+POOL_CASES = {
+    "max k3 s2 p1 (ResNet)": ("max", dict(kernel_size=3, stride=2,
+                                          padding=1)),
+    "max k3 s2 ceil (GoogLeNet)": ("max", dict(kernel_size=3, stride=2,
+                                               ceil_mode=True)),
+    "max k3 s2 p1 ceil": ("max", dict(kernel_size=3, stride=2, padding=1,
+                                      ceil_mode=True)),
+    "max k2 s3 p1 ceil (a window all padding: -inf)": (
+        "max", dict(kernel_size=2, stride=3, padding=1, ceil_mode=True)),
+    "max k2 (VGG)": ("max", dict(kernel_size=2, stride=2)),
+    "max k3 s1 p1": ("max", dict(kernel_size=3, stride=1, padding=1)),
+    "max SAME s2": ("max", dict(kernel_size=3, stride=2, padding="SAME")),
+    "max padding [0, 1, 1, 0]": ("max", dict(kernel_size=(2, 3), stride=1,
+                                             padding=[0, 1, 1, 0])),
+    "avg k3 s1 p1 exclusive (InceptionV3)": (
+        "avg", dict(kernel_size=3, stride=1, padding=1)),
+    "avg k3 s1 p1 inclusive": ("avg", dict(kernel_size=3, stride=1,
+                                           padding=1, exclusive=False)),
+    "avg k2 s2 (DenseNet)": ("avg", dict(kernel_size=2, stride=2)),
+    "avg k3 s2 p1 ceil exclusive": ("avg", dict(kernel_size=3, stride=2,
+                                                padding=1, ceil_mode=True)),
+    "avg k3 s2 p1 ceil inclusive": ("avg", dict(
+        kernel_size=3, stride=2, padding=1, ceil_mode=True,
+        exclusive=False)),
+    "avg k3 s2 ceil": ("avg", dict(kernel_size=3, stride=2,
+                                   ceil_mode=True)),
+    "avg divisor_override 4, p1": ("avg", dict(kernel_size=3, stride=2,
+                                               padding=1,
+                                               divisor_override=4)),
+    "avg padding [1, 0, 0, 1] exclusive": ("avg", dict(
+        kernel_size=2, stride=1, padding=[1, 0, 0, 1])),
+}
+
+
+@pytest.mark.parametrize("case", list(POOL_CASES))
+def test_pool_matches_jax(case):
+    kind, kw = POOL_CASES[case]
+    x = _rand(np.random.default_rng(4), 2, 3, 9, 10)
+    jfn, tfn = ((jops.max_pool2d.raw, TF.max_pool2d) if kind == "max"
+                else (jops.avg_pool2d.raw, TF.avg_pool2d))
+    _check_fn(lambda x: jfn(x, **kw), lambda x: tfn(x, **kw), [x])
+
+
+@pytest.mark.parametrize("size", [1, 4, (7, 7), (3, 5)])
+@pytest.mark.parametrize("kind", ["avg", "max"])
+def test_adaptive_pool_matches_jax_non_divisible(kind, size):
+    x = _rand(np.random.default_rng(5), 2, 3, 9, 10)
+    jfn, tfn = ((jops.adaptive_avg_pool2d.raw, TF.adaptive_avg_pool2d)
+                if kind == "avg" else
+                (jops.adaptive_max_pool2d.raw, TF.adaptive_max_pool2d))
+    _check_fn(lambda x: jfn(x, size), lambda x: tfn(x, size), [x])
+
+
+def test_pool_layers_match_jax_layers():
+    x = _rand(np.random.default_rng(6), 2, 3, 9, 10)
+    pairs = [
+        (jnn.MaxPool2D(3, stride=2, ceil_mode=True),
+         tnn.MaxPool2D(3, stride=2, ceil_mode=True)),
+        (jnn.AvgPool2D(3, stride=1, padding=1),
+         tnn.AvgPool2D(3, stride=1, padding=1)),
+        (jnn.AdaptiveAvgPool2D(4), tnn.AdaptiveAvgPool2D(4)),
+        (jnn.AdaptiveMaxPool2D((2, 3)), tnn.AdaptiveMaxPool2D((2, 3))),
+    ]
+    for jl, tl in pairs:
+        _close(tl(torch.from_numpy(x)).numpy(),
+               np.asarray(jl(JTensor(x)).numpy()), FWD_TOL, type(tl).__name__)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tnn.MaxPool2D(2, return_mask=True)(torch.from_numpy(x))
+
+
+# -- BatchNorm -----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(4, 3, 5, 6), (6, 3)])
+def test_batch_norm_train_eval_and_running_stats_match_jax(shape):
+    """Three training steps on three batches, then eval: the outputs,
+    the gradients of every step, and the running statistics (Paddle's
+    momentum 0.9, the unbiased variance) after the three steps; the
+    buffers keep their storage (updated in place)."""
+    rng = np.random.default_rng(7)
+    c = shape[1]
+    bn = (tnn.BatchNorm2D if len(shape) == 4 else tnn.BatchNorm1D)(
+        c, device="cpu")
+    w, b = _rand(rng, c), _rand(rng, c)
+    bn.weight.data = torch.from_numpy(w.copy())
+    bn.bias.data = torch.from_numpy(b.copy())
+    ptrs = (bn._mean.data_ptr(), bn._variance.data_ptr())
+    jmean, jvar = jnp.zeros(c), jnp.ones(c)
+    for step in range(3):
+        x = _rand(rng, *shape, scale=2.0) + step
+        jm, jv = jmean, jvar
+
+        def jfn(x, w, b):
+            return jops.batch_norm_train.raw(x, jm, jv, w, b)[0]
+
+        _, jmean, jvar = jops.batch_norm_train.raw(
+            jnp.asarray(x), jmean, jvar, jnp.asarray(w), jnp.asarray(b))
+        jout, vjp = jax.vjp(jfn, *[jnp.asarray(a) for a in (x, w, b)])
+        bn.train()
+        bn.weight.grad = bn.bias.grad = None
+        xt = torch.tensor(x, requires_grad=True)
+        out = bn(xt)
+        _close(out.detach().numpy(), np.asarray(jout), FWD_TOL, "train out")
+        g = rng.standard_normal(shape).astype(np.float32)
+        out.backward(torch.from_numpy(g))
+        for name, got, ref in zip(("x", "w", "b"),
+                                  (xt.grad, bn.weight.grad, bn.bias.grad),
+                                  vjp(jnp.asarray(g))):
+            _close(got.numpy(), np.asarray(ref), GRAD_TOL, f"grad {name}")
+    _close(bn._mean.numpy(), np.asarray(jmean), FWD_TOL, "running mean")
+    _close(bn._variance.numpy(), np.asarray(jvar), FWD_TOL, "running var")
+    assert (bn._mean.data_ptr(), bn._variance.data_ptr()) == ptrs
+    assert not np.allclose(bn._mean.numpy(), 0)
+    bn.eval()
+    x = _rand(rng, *shape)
+    jout = jops.batch_norm_eval.raw(jnp.asarray(x), jmean, jvar,
+                                    jnp.asarray(w), jnp.asarray(b))
+    _close(bn(torch.from_numpy(x)).detach().numpy(), np.asarray(jout),
+           FWD_TOL, "eval out")
+
+
+def test_batch_norm_layer_names_dtypes_and_the_legacy_act():
+    jpaddle.seed(0)
+    jbn = jnn.BatchNorm2D(5)
+    bn = tnn.BatchNorm2D(5, device="cpu")
+    assert set(bn.state_dict()) == set(jbn.state_dict()) == \
+        {"weight", "bias", "_mean", "_variance"}
+    x = _rand(np.random.default_rng(8), 2, 5, 3, 3)
+    # bf16 in: fp32 statistics, bf16 out (``nn_ops.py:443-452``)
+    jout = jops.batch_norm_train.raw(
+        jnp.asarray(x, jnp.bfloat16), jnp.zeros(5), jnp.ones(5),
+        jnp.ones(5), jnp.zeros(5))[0]
+    out = bn(torch.from_numpy(x).bfloat16())
+    assert out.dtype == torch.bfloat16 and str(jout.dtype) == "bfloat16"
+    assert bn._mean.dtype == torch.float32
+    _close(out.float().detach().numpy(),
+           np.asarray(jout.astype(jnp.float32)), BF16_TOL)
+    legacy = tnn.BatchNorm(5, act="relu", device="cpu")
+    assert (legacy(torch.from_numpy(x)) >= 0).all()
+    frozen = tnn.BatchNorm2D(5, use_global_stats=True, device="cpu")
+    frozen(torch.from_numpy(x))
+    assert np.all(frozen._mean.numpy() == 0)
+    assert tnn.BatchNorm2D(5, weight_attr=False, bias_attr=False,
+                           device="cpu").weight is None
+
+
+def test_decorate_keeps_batch_norm_fp32_and_its_buffers():
+    net = tnn.Sequential(tnn.Conv2D(3, 4, 3, device="cpu"),
+                         tnn.BatchNorm2D(4, device="cpu"),
+                         tnn.Linear(4, 2, device="cpu"))
+    tamp.decorate(net, level="O2", dtype="bfloat16")
+    assert net[0].weight.dtype == net[2].weight.dtype == torch.bfloat16
+    assert net[1].weight.dtype == net[1]._mean.dtype == torch.float32
+
+
+# -- CrossEntropyLoss ----------------------------------------------------------
+
+
+@pytest.mark.parametrize("reduction", ["mean", "sum", "none"])
+@pytest.mark.parametrize("labels", ["[N]", "[N, 1]", "ignored"])
+def test_cross_entropy_loss_matches_jax(reduction, labels):
+    rng = np.random.default_rng(9)
+    logits = _rand(rng, 6, 10, scale=3.0)
+    y = rng.integers(0, 10, 6).astype(np.int64)
+    ignore = -100
+    if labels == "ignored":
+        y[[1, 4]] = ignore = 3 if reduction == "sum" else -100
+    if labels == "[N, 1]":
+        y = y[:, None]
+    crit = tnn.CrossEntropyLoss(ignore_index=ignore, reduction=reduction)
+
+    def jfn(lg):
+        return jops.cross_entropy.raw(lg, jnp.asarray(y),
+                                      ignore_index=ignore,
+                                      reduction=reduction)
+
+    _check_fn(jfn, lambda lg: crit(lg, torch.from_numpy(y)), [logits])
+
+
+def test_cross_entropy_loss_is_fp32_for_bf16_logits_and_refuses_the_rest():
+    rng = np.random.default_rng(10)
+    logits = torch.from_numpy(_rand(rng, 4, 7)).bfloat16()
+    y = torch.from_numpy(rng.integers(0, 7, 4))
+    loss = tnn.CrossEntropyLoss()(logits, y)
+    assert loss.dtype == torch.float32
+    jloss = jops.cross_entropy.raw(jnp.asarray(logits.float().numpy(),
+                                               jnp.bfloat16),
+                                   jnp.asarray(y.numpy()))
+    _close(loss.item(), float(jloss), FWD_TOL)
+    for kw in (dict(soft_label=True), dict(label_smoothing=0.1),
+               dict(weight=torch.ones(7)), dict(axis=0)):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            tnn.CrossEntropyLoss(**kw)
+
+
+# -- activations ---------------------------------------------------------------
+
+ACTS = {
+    "relu": (jact.relu.raw, tact.relu, tnn.ReLU),
+    "relu6": (jact.relu6.raw, tact.relu6, tnn.ReLU6),
+    "hardswish": (jact.hardswish.raw, tact.hardswish, tnn.Hardswish),
+    "hardsigmoid": (jact.hardsigmoid.raw, tact.hardsigmoid,
+                    tnn.Hardsigmoid),
+    "swish": (jact.swish.raw, tact.swish, tnn.Swish),
+    "sigmoid": (jact.sigmoid.raw, tact.sigmoid, tnn.Sigmoid),
+}
+
+
+@pytest.mark.parametrize("name", list(ACTS))
+def test_activation_matches_jax(name):
+    jfn, tfn, layer = ACTS[name]
+    x = _rand(np.random.default_rng(11), 4, 50, scale=4.0)
+    _check_fn(jfn, tfn, [x])
+    _close(layer()(torch.from_numpy(x)).numpy(), np.asarray(jfn(x)),
+           FWD_TOL)
+
+
+def test_hardsigmoid_keeps_paddles_slope_and_offset():
+    x = torch.tensor([-4.0, -1.0, 0.0, 1.0, 2.5, 4.0])
+    want = torch.clamp(x * 0.1666667 + 0.5, 0.0, 1.0)
+    assert torch.equal(tact.hardsigmoid(x), want)
+    assert torch.equal(tnn.Hardsigmoid(0.2, 0.5)(x),
+                       torch.clamp(x * 0.2 + 0.5, 0.0, 1.0))
+
+
+# -- containers and shape ops ----------------------------------------------------
+
+
+def test_sequential_forms_and_shape_ops():
+    from collections import OrderedDict
+    a, b = tnn.ReLU(), tnn.Identity()
+    assert list(dict(tnn.Sequential(a, b).named_children())) == ["0", "1"]
+    for seq in (tnn.Sequential(OrderedDict([("f", a), ("g", b)])),
+                tnn.Sequential(("f", a), ("g", b))):
+        assert list(dict(seq.named_children())) == ["f", "g"]
+        assert seq[1] is b and len(seq) == 2
+    x = _rand(np.random.default_rng(12), 2, 8, 3, 3)
+    _close(tmanip.flatten(torch.from_numpy(x), 1).numpy(),
+           np.asarray(jmanip.flatten.raw(x, 1)), 0)
+    _close(TF.channel_shuffle(torch.from_numpy(x), 2).numpy(),
+           np.asarray(jops.channel_shuffle.raw(x, 2)), 0)
+    parts = tmanip.split(torch.from_numpy(x), [3, -1], axis=1)
+    jparts = jmanip.split_p.raw(x, [3, -1], 1)
+    for p, jp in zip(parts, jparts):
+        _close(p.numpy(), np.asarray(jp), 0)
+
+
+# -- Momentum ------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kw", [{}, {"use_nesterov": True},
+                                {"weight_decay": 0.01},
+                                {"use_nesterov": True,
+                                 "weight_decay": 0.05}],
+                         ids=["plain", "nesterov", "decay",
+                              "nesterov+decay"])
+def test_momentum_matches_jax_over_five_steps(kw):
+    rng = np.random.default_rng(13)
+    w0 = [_rand(rng, 5, 7), _rand(rng, 7)]
+    from paddle_tpu.tensor import Parameter as JParameter
+    jps = [JParameter(w.copy()) for w in w0]
+    jopt = joptimizer.Momentum(0.1, 0.9, parameters=jps, **kw)
+    tps = [torch.nn.Parameter(torch.from_numpy(w.copy())) for w in w0]
+    topt = tpaddle.optimizer.Momentum(0.1, 0.9, parameters=tps, **kw)
+    for _ in range(5):
+        for jp, tp, w in zip(jps, tps, w0):
+            g = _rand(rng, *w.shape)
+            jp.grad = jpaddle.to_tensor(g)
+            tp.grad = torch.from_numpy(g)
+        jopt.step()
+        topt.step()
+    for i, (jp, tp) in enumerate(zip(jps, tps)):
+        np.testing.assert_allclose(tp.detach().numpy(),
+                                   np.asarray(jp.numpy()), rtol=1e-6,
+                                   atol=1e-6, err_msg=str(i))
+        jst = jopt._state[jp.name]
+        np.testing.assert_allclose(topt._state[i]["velocity"].numpy(),
+                                   np.asarray(jst["velocity"]), rtol=1e-6,
+                                   atol=1e-6)
+    assert topt._global_step == 5
+
+
+def test_momentum_multi_precision_keeps_fp32_masters_and_velocity():
+    """bf16 values with fp32 masters (``multi_precision``): the masters
+    and the fp32 velocity as the JAX package's, and every bf16 value the
+    master rounded."""
+    from paddle_tpu.tensor import Parameter as JParameter
+    rng = np.random.default_rng(14)
+    w0 = _rand(rng, 32, 16)
+    jw = JParameter(w0.copy())
+    jw._value = jw._value.astype("bfloat16")
+    jopt = joptimizer.Momentum(0.05, 0.9, parameters=[jw],
+                               use_nesterov=True, weight_decay=0.01,
+                               multi_precision=True)
+    tw = torch.nn.Parameter(torch.from_numpy(w0).bfloat16())
+    topt = tpaddle.optimizer.Momentum(0.05, 0.9, parameters=[tw],
+                                      use_nesterov=True, weight_decay=0.01,
+                                      multi_precision=True)
+    for _ in range(5):
+        g = _rand(rng, 32, 16)
+        jw.grad = jpaddle.to_tensor(g).astype("bfloat16")
+        jopt.step()
+        tw.grad = torch.from_numpy(g).bfloat16()
+        topt.step()
+    st, jst = topt._state[0], next(iter(jopt._state.values()))
+    assert st["velocity"].dtype == st["master_weight"].dtype == torch.float32
+    np.testing.assert_allclose(st["master_weight"].numpy(),
+                               np.asarray(jst["master_weight"]), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(st["velocity"].numpy(),
+                               np.asarray(jst["velocity"]), rtol=1e-6,
+                               atol=1e-6)
+    assert tw.dtype == torch.bfloat16
+    assert torch.equal(tw.detach(), st["master_weight"].bfloat16())
+    same = np.mean(tw.detach().float().numpy() ==
+                   np.asarray(jw.numpy().astype("float32")))
+    assert same >= 0.99, same
+
+
+def test_momentum_bf16_without_master_rounds_once_a_step():
+    """No master: the velocity is fp32 and the step runs on an fp32 copy
+    rounded into the bf16 value; the JAX package keeps the stepped value
+    in fp32, so the two part by bf16 roundings (one ulp a step)."""
+    from paddle_tpu.tensor import Parameter as JParameter
+    rng = np.random.default_rng(15)
+    w0 = _rand(rng, 16, 16)
+    jw = JParameter(w0.copy())
+    jw._value = jw._value.astype("bfloat16")
+    jopt = joptimizer.Momentum(0.05, 0.9, parameters=[jw])
+    tw = torch.nn.Parameter(torch.from_numpy(w0).bfloat16())
+    topt = tpaddle.optimizer.Momentum(0.05, 0.9, parameters=[tw])
+    for _ in range(5):
+        g = _rand(rng, 16, 16)
+        jw.grad = jpaddle.to_tensor(g).astype("bfloat16")
+        jopt.step()
+        tw.grad = torch.from_numpy(g).bfloat16()
+        topt.step()
+    assert tw.dtype == torch.bfloat16
+    assert topt._state[0]["velocity"].dtype == torch.float32
+    ref = np.asarray(jw.numpy()).astype(np.float32)
+    _close(tw.detach().float().numpy(), ref, 5 * 2.0 ** -8)
+
+
+# -- auto_cast ------------------------------------------------------------------
+
+
+def _op_table():
+    """(name, JAX call on Tensors, port call on tensors) for every op the
+    port casts, on fp32 inputs."""
+    rng = np.random.default_rng(16)
+    x = _rand(rng, 2, 4, 6, 6)
+    w = _rand(rng, 3, 4, 3, 3)
+    b = _rand(rng, 3)
+    m = _rand(rng, 5, 3)
+    v = _rand(rng, 4)
+    J, T = JTensor, torch.from_numpy
+    return [
+        ("conv2d", lambda: jops.conv2d(J(x), J(w), J(b), 1, 1),
+         lambda: TF.conv2d(T(x), T(w), T(b), 1, 1)),
+        ("linear", lambda: jops.linear(J(m), J(w[:, 0, 0, :]), J(b)),
+         lambda: TF.linear(T(m), T(w[:, 0, 0, :].copy()), T(b))),
+        ("batch_norm_train",
+         lambda: jops.batch_norm_train(J(x), J(np.zeros(4, np.float32)),
+                                       J(np.ones(4, np.float32)), J(v),
+                                       J(v))[0],
+         lambda: TF.batch_norm(T(x), torch.zeros(4), torch.ones(4), T(v),
+                               T(v), training=True)),
+        ("max_pool2d", lambda: jops.max_pool2d(J(x), 3, 2, 1),
+         lambda: TF.max_pool2d(T(x), 3, 2, 1)),
+        ("avg_pool2d", lambda: jops.avg_pool2d(J(x), 3, 1, 1),
+         lambda: TF.avg_pool2d(T(x), 3, 1, 1)),
+        ("adaptive_avg_pool2d", lambda: jops.adaptive_avg_pool2d(J(x), 1),
+         lambda: TF.adaptive_avg_pool2d(T(x), 1)),
+        ("relu", lambda: jact.relu(J(x)), lambda: tact.relu(T(x))),
+        ("hardswish", lambda: jact.hardswish(J(x)),
+         lambda: tact.hardswish(T(x))),
+        ("hardsigmoid", lambda: jact.hardsigmoid(J(x)),
+         lambda: tact.hardsigmoid(T(x))),
+        ("sigmoid", lambda: jact.sigmoid(J(x)), lambda: tact.sigmoid(T(x))),
+        ("flatten", lambda: jmanip.flatten(J(x), 1),
+         lambda: tmanip.flatten(T(x), 1)),
+        ("channel_shuffle", lambda: jops.channel_shuffle(J(x), 2),
+         lambda: TF.channel_shuffle(T(x), 2)),
+        ("layer_norm", lambda: jops.layer_norm(J(m), 3),
+         lambda: tnn.LayerNorm(3, device="cpu")(T(m))),
+    ]
+
+
+@pytest.mark.parametrize("level", ["O1", "O2"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_auto_cast_gives_every_op_the_jax_dtype(level, dtype):
+    """Under ``auto_cast`` each op's output dtype is the JAX op's (O2:
+    every op low but the black list's fp32; O1: the white list low, the
+    black list fp32, the rest as given), and its values within bf16 /
+    fp16 rounding of the JAX op's."""
+    table = _op_table()
+    for name, jcall, tcall in table:
+        with jamp.auto_cast(level=level, dtype=dtype):
+            jout = jcall()
+        with tamp.auto_cast(level=level, dtype=dtype):
+            tout = tcall()
+        jval = jout._value
+        assert str(tout.dtype) == f"torch.{jval.dtype}", (name, level)
+        _close(tout.detach().float().numpy(),
+               np.asarray(jval.astype(jnp.float32)), BF16_TOL, name)
+    # and nothing is cast outside the block
+    for name, _, tcall in table:
+        assert tcall().dtype == torch.float32, name
+
+
+def test_auto_cast_custom_lists_and_state_restore():
+    x = torch.randn(2, 3)
+    with tamp.auto_cast(level="O1", dtype="bfloat16",
+                        custom_black_list={"linear"}):
+        assert TF.linear(x, torch.randn(3, 4)).dtype == torch.float32
+        assert tact.relu(x).dtype == torch.float32
+    with tamp.auto_cast(level="O2", dtype="bfloat16",
+                        custom_white_list={"layer_norm"}):
+        assert tnn.LayerNorm(3, device="cpu")(x).dtype == torch.bfloat16
+        with tamp.auto_cast(enable=False):
+            assert tact.relu(x).dtype == torch.bfloat16
+    with pytest.raises(RuntimeError):
+        with tamp.auto_cast(level="O2", dtype="bfloat16"):
+            raise RuntimeError("inside")
+    assert not tamp.amp_state()["enabled"]
+    with pytest.raises(ValueError):
+        with tamp.auto_cast(level="O3"):
+            pass
+
+
+# -- the device rule ------------------------------------------------------------
+
+LAYERS = {
+    "Conv2D": lambda **kw: tnn.Conv2D(3, 4, 3, **kw),
+    "BatchNorm2D": lambda **kw: tnn.BatchNorm2D(4, **kw),
+    "Linear (Paddle's signature)": lambda **kw: tnn.Linear(4, 3, **kw),
+}
+
+
+@pytest.mark.parametrize("name", list(LAYERS))
+def test_layer_without_a_device_means_the_card(name, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LAYERS[name]()
+    layer = LAYERS[name](device="cpu")
+    assert {t.device.type for t in layer.state_dict().values()} == {"cpu"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["conv", "pools", "batch_norm"])
+def test_cuda_layers_match_the_cpu(case):
+    """The same ops on the card (cuDNN, TF32 off) and on the CPU, fp32:
+    outputs and gradients within the CPU tests' tolerances; BatchNorm's
+    buffers updated in place there too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: cuDNN's convolutions have no CPU "
+                    "mode")
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(17)
+    x = _rand(rng, 2, 4, 13, 11)
+    if case == "conv":
+        w = _rand(rng, 6, 2, 3, 3, scale=0.3)
+
+        def fn(x, w):
+            return TF.conv2d(x, w, None, 2, [1, 2, 0, 3], 2, 2)
+
+        inputs = [x, w]
+    elif case == "pools":
+        def fn(x):
+            return (TF.max_pool2d(x, 3, 2, 1, ceil_mode=True)
+                    + TF.avg_pool2d(x, 3, 2, 1, ceil_mode=True)
+                    + TF.adaptive_avg_pool2d(x, (6, 5))[..., :7, :6].sum())
+
+        inputs = [x]
+    else:
+        stats = {d: (torch.zeros(4, device=d), torch.ones(4, device=d))
+                 for d in ("cpu", "cuda")}
+
+        def fn(x):
+            m, v = stats[x.device.type]
+            return TF.batch_norm(x, m, v, None, None, training=True)
+
+        inputs = [x]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        tin = [torch.tensor(a, device=dev, requires_grad=True)
+               for a in inputs]
+        out = fn(*tin)
+        out.backward(torch.ones_like(out))
+        outs[dev] = [out.detach().cpu()] + [t.grad.cpu() for t in tin]
+    for got, ref in zip(outs["cuda"], outs["cpu"]):
+        _close(got.numpy(), ref.numpy(), GRAD_TOL)
+    if case == "batch_norm":
+        for got, ref in zip(stats["cuda"], stats["cpu"]):
+            _close(got.cpu().numpy(), ref.numpy(), FWD_TOL)
