@@ -348,7 +348,40 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
     O2 ``Momentum(ZOO_LR, 0.9)`` training steps at the published input
     size (224; 299 for InceptionV3) and B=8, the first of whose loss and
     every gradient are finite; prints the ms a step (median of the last
-    three) per family;
+    three) per family; then ViT (``img_size=32, patch_size=8``, 2
+    blocks, at 32, 24 and 48: the resized position table) and
+    ``ppyoloe_tiny`` (eval scores and boxes at 64) card vs CPU, fp32;
+15f. ``[train vit]`` trains ViT-B/16 as ``bench.py:427-500`` does: B=32,
+    1000 classes, buckets 224 and 192 alternating (the position table
+    resized in the 192 graph), AdamW(1e-3, multi_precision), bf16 O2,
+    ``prepare(amp_configs=O2)``, through ``Model.fit``, cuDNN on its
+    deterministic algorithms (the patch convolution): one graph per
+    bucket (``compile_stats`` 2 / 2 after the first step of each and
+    unchanged over the timed and profiled replays), ``VIT_STEPS`` losses
+    bit-equal to ``fit(steps_per_dispatch=0)`` from the same weights;
+    prints ms a step per bucket replayed and eager, images/s, the
+    profile by kernel group, the composed attention's device ms alone,
+    peak memory and the graph pool.  bench's rate has no warm-up, so
+    the gates on the loss are witnesses: fp32 at 1e-3 (O2's first three
+    losses within ``VIT_FP32_LOSS_TOL``) and O2 at ``VIT_SLOW_LR``
+    (falling over each bucket's first three steps);
+15g. ``[train vit-l]``: ViT-L/16 at B=32, 224 only, a captured step and
+    ``VIT_L_STEPS`` replays: finite losses, ms a step, peak memory;
+15h. ``[train ppyoloe]`` trains ``ppyoloe_crn_s(num_classes=80)`` as
+    ``bench.py:352-425`` does (B=8, buckets 640 and 512 alternating,
+    Adam(1e-3), fp32, 8 padded boxes an image with a mask), the step
+    captured per bucket by the fold engine (``build_folded_step``, the
+    loss dict's ``loss`` backpropagated): finite terms, no capture after
+    the first step of each bucket, ms a step and images/s, the profile,
+    the assignment and losses alone (device ms); then, cuDNN
+    deterministic, ``DET_STEPS`` replayed steps bit-equal (all four
+    terms) to eager ones from the same weights; the witness of the loss
+    is Adam at ``DET_SLOW_LR``, falling over each bucket's first three;
+15i. ``[detect eval]``: the trained detector in eval at 640, B=8, then
+    ``postprocess`` (multiclass NMS on the card) at the score that keeps
+    the top ``DET_EVAL_SHARE`` of the class scores: the rows equal the
+    CPU's on the card's outputs (labels and boxes exactly, scores within
+    ``NMS_SCORE_TOL``); prints the forward's and the NMS's ms;
 16. ``[lmce tc]`` holds the tensor-core LMCE backward
     (``csrc/lmce_sm90.cu``, ``wgmma`` fed by TMA) against its plain
     versions (dL rounded to the operand dtype; each element within
@@ -409,6 +442,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -686,27 +720,50 @@ def l2_flush(torch):
 
 
 PROFILE_TRIES = 3                # windows tried before "no device time" fails
+PROFILE_PRIMERS = 1024           # empty kernels that open a profiled window
+SPIN_KEY = "spin_kernel"         # torch.cuda._sleep's kernel: the primers,
+                                 # never counted
+
+
+@contextlib.contextmanager
+def profile_window(torch, cpu=False):
+    """``torch.profiler`` with CUDA activity (and the CPU's if ``cpu``),
+    the card drained before it and the window opened by
+    ``PROFILE_PRIMERS`` empty kernels (``torch.cuda._sleep(0)``) and a
+    synchronize.  The profiler loses the first kernel records of some
+    windows, the more the longer since the process's first profiled
+    window (``chip_profiler_lag.py``; on the H100 a window late in this
+    script once recorded none of three 22 ms kernels): the primers take
+    that loss.  Count a kernel's time with :func:`kernel_us`."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        for _ in range(PROFILE_PRIMERS):
+            torch.cuda._sleep(0)
+        torch.cuda.synchronize()
+        yield prof
+
+
+def kernel_us(e):
+    """A profile entry's own device microseconds; 0 for the primers."""
+    if SPIN_KEY in e.key:
+        return 0.0
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
 
 
 def profiled(torch, body, cpu=False):
-    """``torch.profiler`` (CUDA activity, and the CPU's if ``cpu``) over
-    ``body()`` and a synchronize: the profile.  The profiler now and then
-    records no device time at all for a window in which kernels ran (on
-    the H100 one to four windows in a whole run of this script, each the
-    first profiled window of its phase and each recorded at the second
-    try); such a window is run again, up to ``PROFILE_TRIES`` times, and
-    fails if none records a kernel.  ``body`` must be repeatable."""
+    """:func:`profile_window` over ``body()`` and a synchronize: the
+    profile.  A window that records no device time is run again, up to
+    ``PROFILE_TRIES`` times, and then fails.  ``body`` must be
+    repeatable."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
     for attempt in range(1, PROFILE_TRIES + 1):
-        torch.cuda.synchronize()
-        with profile(activities=acts) as prof:
+        with profile_window(torch, cpu) as prof:
             body()
             torch.cuda.synchronize()
-        if any(e.device_type == DeviceType.CUDA and
-               getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0)) > 0
+        if any(e.device_type == DeviceType.CUDA and kernel_us(e) > 0
                for e in prof.key_averages()):
             return prof
         print(f"[profile] window {attempt} of {PROFILE_TRIES}: "
@@ -737,9 +794,7 @@ def k1_device_ms(torch, fn, iters, groups, flush):
             continue
         # the profiler may drop some kernel records: a kernel's time a
         # call is its mean per launch times its launches a call
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0)) / e.count * \
-            max(1, round(e.count / iters))
+        us = kernel_us(e) / e.count * max(1, round(e.count / iters))
         for g, subs in groups.items():
             if any(x in e.key for x in subs) if subs else \
                     e.key not in flush_keys:
@@ -1224,7 +1279,6 @@ def profile_dispatches(torch, eng, prompts, L):
     time over the dispatches) and K1's device ms a call, split by rows
     (speculative: the draft's ``[B]`` calls and the verify's
     ``[B*(k+1)]``)."""
-    from torch.profiler import ProfilerActivity, profile
     k = eng.spec_k
     reqs = [eng.submit(p, max_tokens=PROFILE_MAX)
             for p in prompts[:PROFILE_REQS]]
@@ -1233,13 +1287,11 @@ def profile_dispatches(torch, eng, prompts, L):
           "profiled window: every request seated in one step")
     torch.cuda.synchronize()
     d0 = eng.stats()["dispatches"]
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile_window(torch) as prof:
         eng.run_until_idle()
         torch.cuda.synchronize()
     n = eng.stats()["dispatches"] - d0
-    busy_us = sum(getattr(e, "self_device_time_total",
-                          getattr(e, "self_cuda_time_total", 0.0))
-                  for e in prof.key_averages())
+    busy_us = sum(kernel_us(e) for e in prof.key_averages())
     per = kernel_calls(prof, L * (k + 1))
     # the host's cost of one replay alone (cudaGraphLaunch), each on an
     # idle device and an all-inactive batch (one dispatch stages the
@@ -1660,7 +1712,6 @@ def serve_long_phase(torch, seed):
     time per launch.  Then ``[serve long fp32]``: a 4032-token prompt
     through ``prefill_chunk=512`` against the same engine unchunked and
     ``reference_decode`` (greedy tokens equal)."""
-    from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.inference.serving import DecodeEngine
     from paddle_tpu_torch.inference.serving import paged_attention_kernel as pak
     cfg = _long_cfg()
@@ -1719,14 +1770,12 @@ def serve_long_phase(torch, seed):
         req = eng.submit(prompt, max_tokens=17)
         _drive(torch, eng, req)
         d1 = eng.stats()["dispatches"]
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile_window(torch) as prof:
             eng.run_until_idle()
             torch.cuda.synchronize()
         n_prof = eng.stats()["dispatches"] - d1
-        allev = sorted(((getattr(e, "self_device_time_total",
-                                 getattr(e, "self_cuda_time_total", 0)),
-                         e.key) for e in prof.key_averages()),
-                       reverse=True)
+        allev = sorted(((kernel_us(e), e.key)
+                        for e in prof.key_averages()), reverse=True)
         busy_us = sum(us for us, _ in allev)
         print(f"[serve long] profiled decode: {n_prof} dispatches, device "
               f"busy {busy_us / 1e3 / n_prof:.4f} ms a dispatch; top "
@@ -1736,9 +1785,7 @@ def serve_long_phase(torch, seed):
         ev = [e for e in prof.key_averages()
               if any(n in e.key for n in ("paged_split", "paged_combine",
                                           "paged_attn"))]
-        k1_us = sum(getattr(e, "self_device_time_total",
-                            getattr(e, "self_cuda_time_total", 0)) / e.count
-                    for e in ev)
+        k1_us = sum(kernel_us(e) / e.count for e in ev)
         kept = min((e.count for e in ev), default=0)
         check(kept >= 8 * L, f"[serve long] the profiler kept {kept} K1 "
               "launches")
@@ -1867,7 +1914,6 @@ def chunk_gap_phase(torch, seed):
     run, profiled, reads the device-busy ms of the steps that admit the
     prompt against their wall time (how far the admission is the
     host's)."""
-    from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.inference.serving import DecodeEngine
     cfg = _long_cfg()
     params = _long_params(torch, seed, torch.bfloat16)
@@ -1906,12 +1952,10 @@ def chunk_gap_phase(torch, seed):
                 eng.step()
             torch.cuda.synchronize()
             req = eng.submit(long_prompt, max_tokens=2)
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with profile_window(torch) as prof:
                 steps = _drive(torch, eng, req)
             eng.run_until_idle()
-            busy = sum(getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0))
-                       for e in prof.key_averages()) / 1e3
+            busy = sum(kernel_us(e) for e in prof.key_averages()) / 1e3
             res[key].update({"admit_steps": len(steps),
                              "admit_wall_ms": sum(steps) * 1e3,
                              "admit_step_p50_s": float(np.median(steps)),
@@ -1940,7 +1984,6 @@ PREFILL_TIMED = 5                # runs timed a program, replay and eager
 def _program_times(torch, eng, fn):
     """Host ms (median enqueue) and device-busy ms (``torch.profiler``)
     a call of ``fn`` on ``eng``'s stream, over ``PREFILL_TIMED`` calls."""
-    from torch.profiler import ProfilerActivity, profile
     host = []
     with torch.no_grad(), eng._on_stream():
         fn()
@@ -1950,13 +1993,11 @@ def _program_times(torch, eng, fn):
             fn()
             host.append(time.perf_counter() - t)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile_window(torch) as prof:
             for _ in range(PREFILL_TIMED):
                 fn()
             torch.cuda.synchronize()
-    busy_us = sum(getattr(e, "self_device_time_total",
-                          getattr(e, "self_cuda_time_total", 0.0))
-                  for e in prof.key_averages())
+    busy_us = sum(kernel_us(e) for e in prof.key_averages())
     return float(np.median(host)) * 1e3, busy_us / 1e3 / PREFILL_TIMED
 
 
@@ -2253,9 +2294,8 @@ def migration_device_ms(torch, router, prompts):
     (``index_copy`` kernels), None where the trace holds no such
     kernel."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile_window(torch) as prof:
         for f in [router.submit(p, max_tokens=DISAGG_PROFILE_MAX)
                   for p in prompts]:
             f.result(timeout=600)
@@ -3137,8 +3177,7 @@ def device_ms(torch, fn, iters, groups):
     prof = profiled(torch, window)
     out = dict.fromkeys(groups, 0.0)
     for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
+        us = kernel_us(e)
         for g, subs in groups.items():
             if not subs or any(x in e.key for x in subs):
                 out[g] += us
@@ -5153,11 +5192,10 @@ def profile_run(torch, tag, label, run, steps, group=_kernel_group):
     wall_us = wall[-1]
     kernels = {}
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                SPIN_KEY in e.key:
             continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        kernels[e.key] = kernels.get(e.key, 0.0) + us
+        kernels[e.key] = kernels.get(e.key, 0.0) + kernel_us(e)
     busy = sum(kernels.values())
     groups = {}
     for name, us in kernels.items():
@@ -5869,7 +5907,568 @@ def vision_zoo_phase(torch, seed):
         del net, opt, out, loss
         gc.collect()
         torch.cuda.empty_cache()
+    # the transformer (at its build grid, a smaller and a larger one) and
+    # the detector (eval scores and boxes): fp32 forwards, card vs CPU
+    for name, ctor, kw, sizes in (
+            ("vit tiny", TM.VisionTransformer, VIT_TINY, (32, 24, 48)),
+            ("ppyoloe_tiny", TM.ppyoloe_tiny, {"num_classes": 4}, (64,))):
+        cpu = ctor(**kw, device="cpu",
+                   generator=torch.Generator().manual_seed(seed)).eval()
+        net = ctor(**kw, device="cuda").eval()
+        net.load_state_dict(cpu.state_dict())
+        errs = []
+        for size in sizes:
+            x = torch.from_numpy(rng.random((2, 3, size, size),
+                                            dtype=np.float32))
+            with torch.no_grad():
+                ref, got = cpu(x), net(x.cuda())
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            got = got if isinstance(got, tuple) else (got,)
+            check(all(g.shape == r.shape for g, r in zip(got, ref)),
+                  f"[{tag}] {name} at {size}: shapes")
+            errs.append(max(float((g.cpu() - r).abs().max())
+                            / max(float(r.abs().max()), 1.0)
+                            for g, r in zip(got, ref)))
+        check(max(errs) <= ZOO_TOL, f"[{tag}] {name}: card vs CPU {errs}")
+        res[name] = {"max_abs_err": max(errs)}
+        print(f"[{tag}] {name}: fp32 eval forward card vs CPU at "
+              + ", ".join(f"{s}x{s} {e:.3e}" for s, e in zip(sizes, errs))
+              + f" x max(|ref|, 1) (tol {ZOO_TOL})", flush=True)
+        del cpu, net
     return res
+
+
+# ---------------------------------------------------------------------------
+# ViT and PP-YOLOE: the vision zoo's transformer and detector
+# ---------------------------------------------------------------------------
+VIT_B, VIT_CLASSES, VIT_LR = 32, 1000, 1e-3    # bench.py:427-500 (bench_vit)
+VIT_SIZES = (224, 192)           # the resolution buckets, alternating
+VIT_STEPS = 8                    # [train vit]: steps held bit for bit against
+                                 # eager (the first of each bucket warms up
+                                 # and captures, the rest replay)
+VIT_PROFILE = 4                  # replays in the profiled window
+VIT_L_STEPS = 3                  # [train vit-l]: replays after the capture
+VIT_FALL = 3                     # steps of each bucket a witness's loss falls over
+VIT_SLOW_LR = 1e-4               # the witnesses: O2 at a tenth of the rate,
+DET_SLOW_LR = 1e-4               # whose loss falls step after step, and
+VIT_FP32_LOSS_TOL = 5e-2         # fp32 at bench's rate, whose first three
+                                 # losses O2's follow (relative)
+DET_B, DET_CLASSES, DET_LR = 8, 80, 1e-3       # bench.py:352-425
+DET_SIZES = (640, 512)           # (bench_detector); its data: 8 boxes an
+DET_GMAX = 8                     # image, labels 0-3, the first box real
+DET_STEPS = 8                    # [train ppyoloe]: as VIT_STEPS
+DET_PROFILE = 4
+NMS_SCORE_TOL = 1e-6             # [detect eval]: card rows vs the CPU's
+DET_EVAL_SHARE = 0.01            # [detect eval]: class scores NMS considers
+VIT_TINY = dict(img_size=32, patch_size=8, embed_dim=64, depth=2,
+                num_heads=4, num_classes=4)    # [vision zoo]'s ViT
+
+
+def _vit_model(torch, seed, ctor="vit_b_16", lr=VIT_LR, o2=True):
+    """``ctor`` from ``seed`` on the card with ``bench_vit``'s setup:
+    AdamW(1e-3, multi_precision), ``amp.decorate`` O2 bf16,
+    ``prepare(amp_configs=O2)``, CrossEntropyLoss (with ``o2=False``:
+    fp32, no AMP)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision import models as TM
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    net = getattr(TM, ctor)(num_classes=VIT_CLASSES, device="cuda",
+                            generator=gen)
+    opt = paddle.optimizer.AdamW(learning_rate=lr,
+                                 parameters=net.parameters(),
+                                 multi_precision=o2)
+    amp = {"level": "O2", "dtype": "bfloat16"} if o2 else None
+    if o2:
+        paddle.amp.decorate(net, opt, **amp)
+    model = paddle.Model(net, device="cuda")
+    model.prepare(opt, paddle.nn.CrossEntropyLoss(), amp_configs=amp)
+    return net, model
+
+
+def _vit_witness(torch, seed, seq, lr, o2):
+    """Eager steps of :func:`_vit_model` over ``seq``: the losses."""
+    import gc
+    net, model = _vit_model(torch, seed, lr=lr, o2=o2)
+    losses, _ = _fit_clocked(torch, model, seq, 0)
+    del net, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses
+
+
+def _vit_batches(torch, seed, sizes):
+    """``bench_vit``'s data: one batch per bucket, drawn in bucket order
+    from ``np.random.RandomState(seed)``, in pinned memory."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for s in sizes:
+        x = rng.rand(VIT_B, 3, s, s).astype(np.float32)
+        y = rng.randint(0, VIT_CLASSES, (VIT_B,)).astype(np.int64)
+        out[s] = (torch.from_numpy(x).pin_memory(),
+                  torch.from_numpy(y).pin_memory())
+    return out
+
+
+def _fit_clocked(torch, model, batches, fold):
+    """``fit`` over ``batches`` with a per-step clock: (losses, ms of
+    each step)."""
+    clock = _step_clock(torch)
+    model.fit(batches, epochs=1, verbose=0, callbacks=[clock],
+              steps_per_dispatch=fold)
+    return clock.losses, [float(v) for v in np.diff(clock.stamps) * 1e3]
+
+
+def _per_bucket(sizes, values):
+    """``values`` of an alternating bucket sequence, per bucket."""
+    return {s: values[i::len(sizes)] for i, s in enumerate(sizes)}
+
+
+def _falls(losses, sizes, n):
+    """Each bucket's loss falls over its first ``n`` steps."""
+    return all(all(a > b for a, b in zip(v[:n], v[1:n]))
+               for v in _per_bucket(sizes, losses).values())
+
+
+def _vit_group(name):
+    """The ``[train vit]`` profile's kernel groups, by kernel name."""
+    low = name.lower()
+    if "foreach" in low or "multi_tensor" in low:
+        return "optimizer (foreach)"
+    if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
+        return "matmul (cuBLAS)"
+    if "softmax" in low:
+        return "softmax (attention, loss)"
+    if "layer_norm" in low or "layernorm" in low:
+        return "LayerNorm"
+    if "gelu" in low:
+        return "GELU"
+    if any(t in low for t in ("fprop", "dgrad", "wgrad", "cudnn", "conv")):
+        return "patch conv (cuDNN)"
+    if "copy" in low or "cast" in low:
+        return "casts and copies"
+    return "other elementwise (adds, reductions, loss, resize)"
+
+
+def _attention_ms(torch, b, n, heads, dh):
+    """Device ms of one composed attention forward and backward
+    (``nn_ops.scaled_dot_product_attention``, fp32 inside) on bf16
+    ``[b, n, heads, dh]`` inputs: ViT's attention at one layer."""
+    from paddle_tpu_torch.ops import nn_ops
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(b, n, heads, dh, device="cuda", generator=gen)
+               .bfloat16().requires_grad_() for _ in range(3))
+    g = torch.randn(b, n, heads, dh, device="cuda",
+                    generator=gen).bfloat16()
+
+    def fn():
+        nn_ops.scaled_dot_product_attention(q, k, v).backward(g)
+
+    return device_ms(torch, fn, 5, {"all": ()})["all"]
+
+
+def train_vit_phase(torch, seed):
+    """``[train vit]`` (module docstring, 15f)."""
+    import gc
+    tag = "train vit"
+    gc.collect()
+    torch.cuda.empty_cache()
+    data = _vit_batches(torch, seed, VIT_SIZES)
+    seq = [data[VIT_SIZES[i % 2]] for i in range(VIT_STEPS)]
+    # the patch embedding's convolution on cuDNN's deterministic
+    # algorithms (no atomic adds), so that a replay can be held against
+    # the eager run bit for bit; every other op is deterministic anyway
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        net, model = _vit_model(torch, seed)
+        dtypes = {n: p.dtype for n, p in net.named_parameters()}
+        check(dtypes["pos_embed"] == dtypes["cls_token"] == torch.bfloat16
+              and dtypes["norm.weight"] == torch.float32,
+              f"[{tag}] O2 parameter dtypes {set(dtypes.values())}")
+        torch.cuda.reset_peak_memory_stats()
+        warm, warm_ms = _fit_clocked(torch, model, seq[:2], None)
+        graphs = model.compile_stats()
+        check(model._fold == 1 and graphs == {"graphs": 2, "captures": 2},
+              f"[{tag}] after one step per bucket: {graphs}, K="
+              f"{model._fold}: want one graph per bucket")
+        timed, ms = _fit_clocked(torch, model, seq[2:], None)
+        peak = torch.cuda.max_memory_allocated()
+        check(model.compile_stats() == graphs,
+              f"[{tag}] a capture in the timed window: "
+              f"{model.compile_stats()}")
+        losses = warm + timed
+        pool = pool_reserved(torch, model._graph_pool)
+        capture_s = {s: r.capture_s for s, r in
+                     zip(VIT_SIZES, model._graphs.values())}
+        prof = profile_run(
+            torch, tag, "replayed",
+            lambda: model.fit(seq[:VIT_PROFILE], epochs=1, verbose=0,
+                              steps_per_dispatch=VIT_PROFILE),
+            VIT_PROFILE, _vit_group)
+        check(model.compile_stats() == graphs,
+              f"[{tag}] a capture in the profiled window")
+        free_model(torch, tag, model)
+        del net, model
+        net, model = _vit_model(torch, seed)
+        torch.cuda.reset_peak_memory_stats()
+        eager, eager_ms = _fit_clocked(torch, model, seq, 0)
+        eager_peak = torch.cuda.max_memory_allocated()
+        check(model.compile_stats() == {"graphs": 0, "captures": 0},
+              f"[{tag}] the eager route captured: {model.compile_stats()}")
+        free_model(torch, tag, model)
+        del net, model
+    same = losses == eager
+    # bench's lr 1e-3 has no warm-up: on the fixed batches the loss of a
+    # bucket can rise at its second step; the witnesses, eager from the
+    # same weights over the same steps: fp32 at 1e-3, whose first three
+    # losses O2's follow, and O2 at VIT_SLOW_LR, falling in each bucket
+    wseq = seq[:2 * VIT_FALL]
+    fp32 = _vit_witness(torch, seed, wseq, VIT_LR, False)
+    slow = _vit_witness(torch, seed, wseq, VIT_SLOW_LR, True)
+    f_rel = max(abs(a - b) / abs(b) for a, b in zip(losses[:3], fp32[:3]))
+    attn = {s: _attention_ms(torch, VIT_B, (s // 16) ** 2 + 1, 12, 64)
+            for s in VIT_SIZES}
+    steps_ms = _per_bucket(VIT_SIZES, [None, None] + ms)
+    eager_b = _per_bucket(VIT_SIZES, eager_ms)
+    res = {"step_ms": {}, "eager_ms": {}, "images_per_s": {}}
+    for s in VIT_SIZES:
+        rep = [v for v in steps_ms[s] if v is not None]
+        res["step_ms"][s] = float(np.median(rep))
+        res["eager_ms"][s] = float(np.median(eager_b[s][1:]))
+        res["images_per_s"][s] = VIT_B / (res["step_ms"][s] * 1e-3)
+    busy = prof["busy_ms"]
+    print(f"[{tag}] ViT-B/16 B={VIT_B} buckets {VIT_SIZES} alternating, "
+          f"bf16 O2 AdamW({VIT_LR}, multi_precision), CrossEntropyLoss, "
+          f"cuDNN deterministic (the patch conv): losses "
+          f"{[round(v, 5) for v in losses]} replayed, bit-equal to eager: "
+          f"{same}; graphs {graphs}, capture "
+          + ", ".join(f"{s}: {c:.3f} s" for s, c in capture_s.items())
+          + "; replayed ms a step "
+          + ", ".join(f"{s}: {res['step_ms'][s]:.3f} ({res['images_per_s'][s]:.1f}"
+                      f" images/s)" for s in VIT_SIZES)
+          + "; eager ms a step "
+          + ", ".join(f"{s}: {res['eager_ms'][s]:.3f}" for s in VIT_SIZES)
+          + f"; first steps (warm-up + capture) {[round(v, 3) for v in warm_ms]}"
+          f" ms; peak_mem_gib {peak / 2**30:.3f} replayed, "
+          f"{eager_peak / 2**30:.3f} eager; graph pool reserved "
+          + (f"{pool / 2**30:.3f} GiB" if pool is not None else
+             "not measured"), flush=True)
+    print(f"[{tag}] composed attention alone (fp32 inside, forward + "
+          f"backward, one layer, device time): "
+          + ", ".join(f"{s}: {v:.3f} ms x 12 layers = {12 * v:.3f} ms"
+                      for s, v in attn.items())
+          + f"; the profiled window's device-busy {busy:.3f} ms a step "
+          f"(both buckets), idle share {prof['idle']:.4f}", flush=True)
+    print(f"[{tag}] witnesses, eager over the first {len(wseq)} steps: "
+          f"fp32 at lr {VIT_LR} {[round(v, 5) for v in fp32]} (O2's first "
+          f"three within {f_rel:.3e} relative); O2 at lr {VIT_SLOW_LR} "
+          f"{[round(v, 5) for v in slow]}", flush=True)
+    check(all(np.isfinite(losses)), f"[{tag}] losses {losses}")
+    check(same, f"[{tag}] replayed losses {losses} are not bit-equal to "
+          f"the eager run's {eager}")
+    check(all(np.isfinite(fp32)) and f_rel <= VIT_FP32_LOSS_TOL,
+          f"[{tag}] O2 losses {losses[:3]} vs fp32's {fp32[:3]}")
+    check(_falls(slow, VIT_SIZES, VIT_FALL),
+          f"[{tag}] O2 at lr {VIT_SLOW_LR}: loss not falling over each "
+          f"bucket's first {VIT_FALL} steps: {_per_bucket(VIT_SIZES, slow)}")
+    res.update({"fp32_losses": fp32, "slow_losses": slow})
+    res.update({"losses": losses, "eager_losses": eager, "peak": peak,
+                "eager_peak": eager_peak, "pool": pool, "profile": prof,
+                "attention_ms": attn, "capture_s": capture_s})
+    return res
+
+
+def train_vit_l_phase(torch, seed):
+    """``[train vit-l]`` (module docstring, 15g)."""
+    import gc
+    tag = "train vit-l"
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = _vit_batches(torch, seed, VIT_SIZES[:1])[VIT_SIZES[0]]
+    net, model = _vit_model(torch, seed, "vit_l_16")
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = _fit_clocked(torch, model, [batch] * (VIT_L_STEPS + 1),
+                              None)
+    peak = torch.cuda.max_memory_allocated()
+    graphs = model.compile_stats()
+    check(graphs == {"graphs": 1, "captures": 1}, f"[{tag}] {graphs}")
+    check(all(np.isfinite(losses)), f"[{tag}] losses {losses}")
+    step_ms = float(np.median(ms[1:]))
+    print(f"[{tag}] ViT-L/16 B={VIT_B} {VIT_SIZES[0]}x{VIT_SIZES[0]} bf16 O2 "
+          f"AdamW: losses {[round(v, 5) for v in losses]}; first step "
+          f"(warm-up + capture) {ms[0]:.3f} ms, replayed {step_ms:.3f} ms a "
+          f"step ({VIT_B / (step_ms * 1e-3):.1f} images/s); peak_mem_gib "
+          f"{peak / 2**30:.3f}", flush=True)
+    free_model(torch, tag, model)
+    del net, model
+    return {"step_ms": step_ms, "peak": peak, "losses": losses}
+
+
+def _det_batches(torch, seed):
+    """``bench_detector``'s data from ``np.random.RandomState(seed)``, one
+    batch per bucket in bucket order, on the card: images, padded boxes
+    ``[B, 8, 4]`` (x1 <= x2 - 4), labels 0-3 and the mask (the first box
+    always real)."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for size in DET_SIZES:
+        imgs = rng.rand(DET_B, 3, size, size).astype(np.float32)
+        boxes = rng.rand(DET_B, DET_GMAX, 4).astype(np.float32) * size
+        boxes = np.concatenate([np.minimum(boxes[..., :2], boxes[..., 2:]),
+                                np.maximum(boxes[..., :2], boxes[..., 2:])
+                                + 4], -1)
+        labels = rng.randint(0, 4, (DET_B, DET_GMAX)).astype(np.int64)
+        mask = (rng.rand(DET_B, DET_GMAX) < 0.5).astype(np.float32)
+        mask[:, 0] = 1.0
+        out[size] = tuple(torch.from_numpy(v).cuda()
+                          for v in (imgs, boxes, labels, mask))
+    return out
+
+
+class _DetTrainer:
+    """PP-YOLOE's training step through the fold engine as ``Model``
+    builds it: ``build_folded_step`` per batch signature (image-size
+    bucket) in one graph pool, with the launch-count and optimizer
+    ledgers; the dict's ``loss`` is backpropagated and every term is
+    copied out of each step.  ``step(batch, captured=False)`` runs the
+    same body eagerly."""
+
+    def __init__(self, torch, net, opt):
+        from paddle_tpu_torch.ops import counts
+        self.torch, self.net, self.opt = torch, net, opt
+        self.device = torch.device("cuda", torch.cuda.current_device())
+        self.pool = torch.cuda.graph_pool_handle()
+        self.runners = {}
+        self.ledgers = ((counts.read, counts.write),
+                        (opt._bookkeeping, opt._set_bookkeeping))
+        self.terms = torch.zeros(3, device=self.device)
+
+    def _per_step(self, values):
+        imgs, boxes, labels, mask = values
+        out = self.net(imgs, gt_boxes=boxes, gt_labels=labels, gt_mask=mask)
+        out["loss"].backward()
+        self.opt._step()
+        self.opt.clear_grad()
+        self.terms.copy_(self.torch.stack(
+            [out[k].detach() for k in ("loss_cls", "loss_iou", "loss_dfl")]))
+        return out["loss"].detach().float()
+
+    def step(self, batch, captured=True):
+        """One step: ``[loss, loss_cls, loss_iou, loss_dfl]`` on the card,
+        not waited for."""
+        from paddle_tpu_torch.framework.dispatch import build_folded_step
+        torch = self.torch
+        self.net.train()
+        self.opt.refresh_lr()
+        if not captured:
+            loss = self._per_step(list(batch))
+            return torch.cat([loss[None], self.terms])
+        key = tuple(tuple(b.shape) for b in batch)
+        runner = self.runners.get(key)
+        if runner is None:
+            runner = self.runners[key] = build_folded_step(
+                self._per_step, self.device, self.pool, self.ledgers)
+        losses = torch.empty(1, device=self.device)
+        runner.run([b[None] for b in batch], losses)
+        return torch.cat([losses, self.terms])
+
+    def captures(self):
+        return sum(r.captures for r in self.runners.values())
+
+    def close(self):
+        for r in self.runners.values():
+            r.close()
+        self.runners = {}
+        self.pool = None
+
+
+def _det_model(torch, seed, lr=DET_LR):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision.models import ppyoloe_crn_s
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    net = ppyoloe_crn_s(num_classes=DET_CLASSES, device="cuda",
+                        generator=gen)
+    opt = paddle.optimizer.Adam(learning_rate=lr,
+                                parameters=net.parameters())
+    return net, _DetTrainer(torch, net, opt)
+
+
+def _det_run(torch, tr, seq, captured):
+    """``seq``'s steps with a clock: ([steps, 4] numpy terms, ms each)."""
+    out, ms = [], []
+    for batch in seq:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out.append(tr.step(batch, captured))
+        torch.cuda.synchronize()
+        ms.append((time.monotonic() - t0) * 1e3)
+    return torch.stack(out).cpu().numpy(), ms
+
+
+def _det_loss_ms(torch, net, batch):
+    """Device ms of the assignment and the four losses alone, forward
+    and backward, on the head's maps for ``batch`` (the head's convs
+    are run once before and left out)."""
+    head = net.head
+    imgs, boxes, labels, mask = batch
+    with torch.no_grad():
+        cls, reg, shapes = head._raw(net.neck(net.backbone(imgs)))
+    cls, reg = cls.clone().requires_grad_(), reg.clone().requires_grad_()
+    head._raw = lambda feats: (cls, reg, shapes)
+    try:
+        return device_ms(
+            torch,
+            lambda: head.loss(None, boxes, labels, mask)["loss"].backward(),
+            5, {"all": ()})["all"]
+    finally:
+        del head._raw
+
+
+def train_ppyoloe_phase(torch, seed):
+    """``[train ppyoloe]`` (module docstring, 15h).  Returns the trained
+    detector for ``[detect eval]``."""
+    import gc
+    tag = "train ppyoloe"
+    gc.collect()
+    torch.cuda.empty_cache()
+    data = _det_batches(torch, seed)
+    seq = [data[DET_SIZES[i % 2]] for i in range(DET_STEPS)]
+    net, tr = _det_model(torch, seed)
+    torch.cuda.reset_peak_memory_stats()
+    warm, warm_ms = _det_run(torch, tr, seq[:2], True)
+    check(tr.captures() == 2 and len(tr.runners) == 2,
+          f"[{tag}] {tr.captures()} captures after one step per bucket")
+    timed, ms = _det_run(torch, tr, seq[2:], True)
+    peak = torch.cuda.max_memory_allocated()
+    check(tr.captures() == 2, f"[{tag}] a capture in the timed window")
+    terms = np.concatenate([warm, timed])
+    pool = pool_reserved(torch, tr.pool)
+    check(np.isfinite(terms).all(), f"[{tag}] loss terms {terms}")
+    prof = profile_run(
+        torch, tag, "replayed",
+        lambda: [tr.step(b) for b in seq[:DET_PROFILE]], DET_PROFILE,
+        _vision_group)
+    check(tr.captures() == 2, f"[{tag}] a capture in the profiled window")
+    loss_ms = {s: _det_loss_ms(torch, net, data[s]) for s in DET_SIZES}
+    tr.close()
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    # replayed against eager from the same start, cuDNN's algorithms
+    # pinned to the deterministic ones (no atomic adds)
+    runs = {}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        for name, captured in (("replayed", True), ("eager", False)):
+            dnet, dtr = _det_model(torch, seed)
+            runs[name] = _det_run(torch, dtr, seq, captured)
+            dtr.close()
+            del dnet, dtr
+            gc.collect()
+            torch.cuda.empty_cache()
+    same = np.array_equal(runs["replayed"][0], runs["eager"][0])
+    # at bench's lr 1e-3 a bucket's loss can stall a step on the fixed
+    # batches; the witness, eager from the same weights over the same
+    # steps at DET_SLOW_LR, falls in each bucket
+    wnet, wtr = _det_model(torch, seed, DET_SLOW_LR)
+    slow = list(_det_run(torch, wtr, seq[:6], False)[0][:, 0])
+    wtr.close()
+    del wnet, wtr
+    step = _per_bucket(DET_SIZES, [None, None] + ms)
+    res = {"step_ms": {}, "images_per_s": {}, "det_step_ms": {},
+           "eager_ms": {}}
+    for s in DET_SIZES:
+        res["step_ms"][s] = float(np.median([v for v in step[s]
+                                             if v is not None]))
+        res["images_per_s"][s] = DET_B / (res["step_ms"][s] * 1e-3)
+        res["det_step_ms"][s] = float(np.median(
+            _per_bucket(DET_SIZES, runs["replayed"][1])[s][1:]))
+        res["eager_ms"][s] = float(np.median(
+            _per_bucket(DET_SIZES, runs["eager"][1])[s][1:]))
+    busy = prof["busy_ms"]
+    print(f"[{tag}] ppyoloe_crn_s {DET_CLASSES} classes B={DET_B} buckets "
+          f"{DET_SIZES} alternating, fp32, Adam({DET_LR}): [loss, cls, iou,"
+          f" dfl] per step {np.round(terms, 5).tolist()}; replayed ms a step "
+          + ", ".join(f"{s}: {res['step_ms'][s]:.3f} "
+                      f"({res['images_per_s'][s]:.1f} images/s)"
+                      for s in DET_SIZES)
+          + f"; first steps (warm-up + capture) "
+          f"{[round(v, 3) for v in warm_ms]} ms; peak_mem_gib "
+          f"{peak / 2**30:.3f}; graph pool reserved "
+          + (f"{pool / 2**30:.3f} GiB" if pool is not None else
+             "not measured"), flush=True)
+    print(f"[{tag}] cuDNN deterministic: replayed ms a step "
+          + ", ".join(f"{s}: {res['det_step_ms'][s]:.3f}" for s in DET_SIZES)
+          + ", eager " + ", ".join(f"{s}: {res['eager_ms'][s]:.3f}"
+                                   for s in DET_SIZES)
+          + f"; {DET_STEPS} steps bit-equal (all four terms): {same}; the "
+          f"assignment and losses alone (forward + backward, device time): "
+          + ", ".join(f"{s}: {v:.3f} ms" for s, v in loss_ms.items())
+          + f" against the profiled window's device-busy {busy:.3f} ms a "
+          f"step (both buckets), idle share {prof['idle']:.4f}", flush=True)
+    print(f"[{tag}] witness, eager over the first 6 steps at lr "
+          f"{DET_SLOW_LR}: {[round(float(v), 5) for v in slow]}", flush=True)
+    check(same, f"[{tag}] deterministic replays {runs['replayed'][0]} are "
+          f"not bit-equal to eager {runs['eager'][0]}")
+    check(_falls(slow, DET_SIZES, 3),
+          f"[{tag}] at lr {DET_SLOW_LR}: loss not falling over each "
+          f"bucket's first 3 steps: {_per_bucket(DET_SIZES, slow)}")
+    res.update({"slow_losses": slow})
+    res.update({"terms": terms, "peak": peak, "pool": pool, "profile": prof,
+                "loss_ms": loss_ms})
+    return res, net, data
+
+
+def detect_eval_phase(torch, seed, net, data):
+    """``[detect eval]`` (module docstring, 15i)."""
+    tag = "detect eval"
+    size = DET_SIZES[0]
+    imgs = data[size][0]
+    net.eval()
+    with torch.no_grad():
+        fwd_ms = time_cuda(torch, lambda: net(imgs), 5, warmup=2)
+        scores, boxes = net(imgs)
+    check(tuple(scores.shape) == (DET_B, boxes.shape[1], DET_CLASSES)
+          and tuple(boxes.shape) == (DET_B, scores.shape[1], 4)
+          and bool(torch.isfinite(scores).all())
+          and bool(torch.isfinite(boxes).all()),
+          f"[{tag}] outputs {scores.shape} {boxes.shape}")
+    # after a few steps on random boxes no class score reaches
+    # postprocess's default 0.05, so the threshold keeps this run's best
+    # DET_EVAL_SHARE of them: an NMS with work to do
+    thr = float(torch.quantile(scores.flatten(), 1 - DET_EVAL_SHARE))
+    net.postprocess(scores, boxes, score_threshold=thr)       # warm-up
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    rows = net.postprocess(scores, boxes, score_threshold=thr)
+    torch.cuda.synchronize()
+    nms_ms = (time.monotonic() - t0) * 1e3
+    cpu = net.postprocess(scores.cpu(), boxes.cpu(), score_threshold=thr)
+    kept = [int(r.shape[0]) for r in rows]
+    worst = 0.0
+    for i, (got, ref) in enumerate(zip(rows, cpu)):
+        got = got.cpu()
+        check(got.shape == ref.shape and torch.equal(got[:, 0], ref[:, 0])
+              and torch.equal(got[:, 2:], ref[:, 2:]),
+              f"[{tag}] image {i}: card rows {got.shape} differ from the "
+              f"CPU's {ref.shape} in labels or boxes")
+        if len(ref):
+            worst = max(worst, float((got[:, 1] - ref[:, 1]).abs().max()))
+    check(worst <= NMS_SCORE_TOL, f"[{tag}] scores off by {worst:.3e}")
+    check(sum(kept) > 0, f"[{tag}] no detection kept: {kept}")
+    above = int((scores > thr).sum())
+    print(f"[{tag}] ppyoloe_crn_s eval at {size}x{size} B={DET_B} "
+          f"({scores.shape[1]} anchors; the largest score "
+          f"{float(scores.max()):.5f}, {above} class scores above the "
+          f"threshold {thr:.6f}): forward {fwd_ms:.3f} ms (events, median "
+          f"of 5); postprocess (multiclass NMS per image on the card, IoU "
+          f"0.6, at most 400 a class, keep 100) {nms_ms:.3f} ms (host "
+          f"clock, synchronised); rows kept "
+          f"{kept}, equal to the CPU run on the card's outputs (labels and "
+          f"boxes exactly, scores within {worst:.3e})", flush=True)
+    return {"forward_ms": fwd_ms, "nms_ms": nms_ms, "kept": kept,
+            "threshold": thr}
 
 
 def main(argv=None) -> int:
@@ -5939,6 +6538,12 @@ def main(argv=None) -> int:
                              built.get("flash_bwd_sm90", {}).get("log", ""))
     tcf = flash_tc_fused_phase(torch, args.seed,
                                built.get("flash_bwd_sm90", {}).get("log", ""))
+    ltc = lmce_tc_phase(torch, args.seed,
+                        built.get("lmce_sm90", {}).get("log", ""))
+    ltf = lmce_tc_fwd_phase(torch, args.seed,
+                            built.get("lmce_fwd_sm90", {}).get("log", ""))
+    f16 = fp16_phase(torch, args.seed)
+    hd = headdim_phase(torch, args.seed)
     bh_train = bh_train_phase(torch, args.seed, tres)
     ernie_train = ernie_train_phase(torch, args.seed)
     bh_parity_phase(torch, args.seed)
@@ -5947,12 +6552,11 @@ def main(argv=None) -> int:
     train_resnet50_phase(torch, args.seed)
     train_resnet_parity_phase(torch, args.seed)
     vision_zoo_phase(torch, args.seed)
-    ltc = lmce_tc_phase(torch, args.seed,
-                        built.get("lmce_sm90", {}).get("log", ""))
-    ltf = lmce_tc_fwd_phase(torch, args.seed,
-                            built.get("lmce_fwd_sm90", {}).get("log", ""))
-    f16 = fp16_phase(torch, args.seed)
-    hd = headdim_phase(torch, args.seed)
+    train_vit_phase(torch, args.seed)
+    train_vit_l_phase(torch, args.seed)
+    _, det_net, det_data = train_ppyoloe_phase(torch, args.seed)
+    detect_eval_phase(torch, args.seed, det_net, det_data)
+    del det_net, det_data
 
     k32, k16 = kres["fp32"], kres["bf16"]
     kernels = [{

@@ -14,7 +14,9 @@ module-level state :func:`auto_cast` sets.  The rule is the JAX one:
 
 Ops that call :func:`cast_inputs` in the port: ``conv2d``, ``linear``,
 ``batch_norm_train`` / ``batch_norm_eval``, ``layer_norm``, the pools,
-the activations, ``flatten``, ``split``, ``channel_shuffle``.  Python
+the activations (``gelu`` and ``silu`` among them), ``flatten``,
+``split``, ``reshape``, ``transpose``, ``expand``, ``channel_shuffle``,
+``interpolate``, ``box_iou``.  Python
 operators in model code (``out + identity``) are torch's own and
 promote instead (``ROADMAP.md``, non-comparable by design).
 """

@@ -2,10 +2,10 @@
 ``torch.nn.Module``s with Paddle's layouts and dtype rules."""
 
 from . import functional, initializer
-from .activation_layers import (Hardsigmoid, Hardswish, ReLU, ReLU6,
-                                Sigmoid, Swish)
+from .activation_layers import (GELU, Hardsigmoid, Hardswish, ReLU, ReLU6,
+                                Sigmoid, Silu, Swish)
 from .common import Dropout, Embedding, Identity, Linear
-from .container import Sequential
+from .container import LayerList, Sequential
 from .conv import Conv2D
 from .loss import CrossEntropyLoss
 from .norm import BatchNorm, BatchNorm1D, BatchNorm2D, LayerNorm
@@ -16,5 +16,5 @@ __all__ = ["functional", "initializer", "Linear", "Embedding", "Dropout",
            "Identity", "LayerNorm", "BatchNorm", "BatchNorm1D",
            "BatchNorm2D", "Conv2D", "MaxPool2D", "AvgPool2D",
            "AdaptiveAvgPool2D", "AdaptiveMaxPool2D", "ReLU", "ReLU6",
-           "Hardswish", "Hardsigmoid", "Swish", "Sigmoid",
-           "Sequential", "CrossEntropyLoss"]
+           "Hardswish", "Hardsigmoid", "Swish", "Sigmoid", "GELU", "Silu",
+           "Sequential", "LayerList", "CrossEntropyLoss"]

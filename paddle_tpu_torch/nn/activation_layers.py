@@ -29,3 +29,5 @@ Hardswish = _make("Hardswish", A.hardswish)
 Hardsigmoid = _make("Hardsigmoid", A.hardsigmoid)
 Swish = _make("Swish", A.swish)
 Sigmoid = _make("Sigmoid", A.sigmoid)
+GELU = _make("GELU", A.gelu)
+Silu = _make("Silu", A.silu)

@@ -19,3 +19,13 @@ class Sequential(nn.Sequential):
             super().__init__(OrderedDict(layers))
         else:
             super().__init__(*layers)
+
+
+class LayerList(nn.ModuleList):
+    """Layers held in a list, named "0", "1", ... as the JAX layer names
+    them (state-dict keys ``blocks.0.…``): indexing (negative too),
+    slicing (a new ``LayerList``), iteration, ``len``, ``append``,
+    ``insert`` and ``extend``."""
+
+    def __init__(self, sublayers=None):
+        super().__init__(sublayers)

@@ -59,6 +59,22 @@ class Normal(Initializer):
             self.mean, self.std, generator=_gen(generator, device))
 
 
+class TruncatedNormal(Initializer):
+    """Normal(``mean``, ``std``) cut at ``a`` and ``b`` standard
+    deviations from the mean (the JAX initializer draws a standard
+    normal cut at ``[a, b]``, then scales and shifts it)."""
+
+    def __init__(self, mean: float = 0.0, std: float = 1.0, a=-2.0, b=2.0):
+        self.mean, self.std = float(mean), float(std)
+        self.a, self.b = float(a), float(b)
+
+    def __call__(self, shape, device, generator=None):
+        return torch.nn.init.trunc_normal_(
+            _empty(shape, device), self.mean, self.std,
+            self.mean + self.a * self.std, self.mean + self.b * self.std,
+            generator=_gen(generator, device))
+
+
 class XavierNormal(Initializer):
     """Normal(0, gain * sqrt(2 / (fan_in + fan_out)))."""
 
@@ -109,3 +125,13 @@ def make_parameter(shape, attr, default, device, generator=None):
             "bias) or an initializer of paddle_tpu_torch.nn.initializer "
             "are ported (ROADMAP queue A, item 8: param_attr)")
     return torch.nn.Parameter(init(shape, device, generator))
+
+
+def create_parameter(shape, attr=None, is_bias=False,
+                     default_initializer=None, *, device, generator=None):
+    """``Layer.create_parameter``: a trainable fp32 parameter of
+    ``shape`` from ``attr``'s initializer, else ``default_initializer``,
+    else 0 for a bias and ``XavierNormal`` otherwise."""
+    default = default_initializer if default_initializer is not None else (
+        Constant(0.0) if is_bias else XavierNormal())
+    return make_parameter(shape, attr, default, device, generator)

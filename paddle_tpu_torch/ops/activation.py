@@ -42,3 +42,17 @@ def swish(x):
 def sigmoid(x):
     (x,) = cast_inputs("sigmoid", x)
     return torch.sigmoid(x)
+
+
+def gelu(x, approximate=False):
+    """``x * Phi(x)``: the exact erf form by default, the tanh form with
+    ``approximate=True`` (``jax.nn.gelu(x, approximate)``)."""
+    (x,) = cast_inputs("gelu", x)
+    return torch.nn.functional.gelu(x, approximate="tanh" if approximate
+                                    else "none")
+
+
+def silu(x):
+    """``x * sigmoid(x)``."""
+    (x,) = cast_inputs("silu", x)
+    return torch.nn.functional.silu(x)

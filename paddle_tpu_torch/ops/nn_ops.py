@@ -1,9 +1,9 @@
 """Composed operators of the port (counterpart of
 ``paddle_tpu/ops/nn_ops.py``): the masked attention, and the vision
-zoo's convolution, pooling, BatchNorm, linear and channel shuffle.
-None of them was a Pallas kernel in the JAX package (XLA's convolutions
-and reduce-windows, composed jnp); on the card the convolutions are
-cuDNN's through ``F.conv2d``."""
+zoo's convolution, pooling, BatchNorm, linear, channel shuffle and
+resize (``interpolate``).  None of them was a Pallas kernel in the JAX
+package (XLA's convolutions and reduce-windows, composed jnp); on the
+card the convolutions are cuDNN's through ``F.conv2d``."""
 
 from __future__ import annotations
 
@@ -277,3 +277,100 @@ def channel_shuffle(x, groups, data_format="NCHW"):
     n, c, h, w = x.shape
     out = x.reshape(n, groups, c // groups, h, w).transpose(1, 2)
     return out.reshape(n, c, h, w)
+
+
+# ---------------------------------------------------------------------------
+# Resize (``interpolate``): ``jax.image.resize`` in torch.  Linear and
+# cubic modes contract each resized axis with a weight matrix built as
+# ``jax.image.compute_weight_mat`` builds it (float64, half-pixel
+# centres, the kernel widened by the scale when shrinking: anti-aliased),
+# then cast to the input's dtype; nearest gathers ``floor((i + 0.5) * in
+# / out)``.  Every step is a device op (no host copy), so a captured
+# graph holds its resize.  The linear and cubic backward is two matmuls
+# (no atomic adds); nearest's is an ``index_add`` whose atomics sum two
+# terms an element at a factor of 2 (CSPPAN's), which no order changes.
+# ---------------------------------------------------------------------------
+def _triangle(x):
+    return torch.clamp(1.0 - x.abs(), min=0.0)
+
+
+def _keys_cubic(x):
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+_RESIZE_KERNELS = {"linear": _triangle, "bilinear": _triangle,
+                   "trilinear": _triangle, "triangle": _triangle,
+                   "area": _triangle, "cubic": _keys_cubic,
+                   "bicubic": _keys_cubic, "tricubic": _keys_cubic}
+
+
+def _resize_weights(m, n, kernel, device):
+    """The ``[m, n]`` weights that take ``m`` input samples to ``n``
+    output samples (``jax.image.compute_weight_mat`` with antialias)."""
+    f64 = torch.float64
+    inv_scale = 1.0 / (n / m)
+    sample = (torch.arange(n, dtype=f64, device=device) + 0.5) \
+        * inv_scale - 0.5
+    x = (sample[None, :] - torch.arange(m, dtype=f64, device=device)[:, None]
+         ).abs() / max(inv_scale, 1.0)
+    w = kernel(x)
+    total = w.sum(0, keepdim=True)
+    eps = 1000.0 * float(torch.finfo(torch.float32).eps)
+    w = torch.where(total.abs() > eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= m - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def _nearest_index(m, n, device):
+    pos = (torch.arange(n, dtype=torch.float32, device=device) + 0.5) * m / n
+    return torch.floor(pos).long().clamp_max(m - 1)
+
+
+def interpolate(x, size=None, scale_factor=None, mode="nearest",
+                align_corners=False, align_mode=0, data_format="NCHW"):
+    """Resize the two spatial axes of ``x`` (NCHW or NHWC) to ``size``,
+    or to ``int(side * scale_factor)``, computing what the JAX function
+    computes: ``jax.image.resize`` with ``mode`` "nearest", "bilinear"
+    (also "linear", "area") or "bicubic", half-pixel centres, and
+    anti-aliasing when an axis shrinks (the kernel widened by the
+    scale; ``F.interpolate(antialias=False)`` differs there).  Like the
+    JAX function it ignores ``align_corners`` and ``align_mode``.  An
+    axis whose size does not change is left as it is; the output has
+    ``x``'s dtype (the weights are cast to it first, as JAX casts
+    them)."""
+    if data_format not in ("NCHW", "NHWC"):
+        raise ValueError(f"interpolate: data_format {data_format!r}")
+    (x,) = cast_inputs("interpolate", x)
+    xc = x if data_format == "NCHW" else x.permute(0, 3, 1, 2)
+    h, w = xc.shape[2:]
+    if size is None:
+        sf = (scale_factor if isinstance(scale_factor, (list, tuple))
+              else (scale_factor, scale_factor))
+        size = (int(h * sf[0]), int(w * sf[1]))
+    size = tuple(int(s) for s in size)
+    if mode != "nearest" and mode not in _RESIZE_KERNELS:
+        raise NotImplementedError(
+            f"interpolate(mode={mode!r}) is not ported: nearest, "
+            f"{', '.join(sorted(_RESIZE_KERNELS))}")
+    out = xc
+    for axis, (m, n) in zip((2, 3), zip((h, w), size)):
+        if m == n:
+            continue
+        if mode == "nearest":
+            out = out.index_select(axis, _nearest_index(m, n, x.device))
+            continue
+        wm = _resize_weights(m, n, _RESIZE_KERNELS[mode], x.device).to(
+            x.dtype)
+        out = torch.matmul(out, wm) if axis == 3 else \
+            torch.matmul(wm.t(), out)
+    return out if data_format == "NCHW" else out.permute(0, 2, 3, 1)
+
+
+def upsample(x, size=None, scale_factor=None, mode="nearest",
+             align_corners=False, data_format="NCHW"):
+    return interpolate(x, size=size, scale_factor=scale_factor, mode=mode,
+                       align_corners=align_corners, data_format=data_format)

@@ -1,6 +1,6 @@
 """Vision of the port (counterpart of ``paddle_tpu/vision``): the model
-zoo's CNN families (``vision.models``)."""
+zoo (``vision.models``) and the detection operators (``vision.ops``)."""
 
-from . import models
+from . import models, ops
 
-__all__ = ["models"]
+__all__ = ["models", "ops"]

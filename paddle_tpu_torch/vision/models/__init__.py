@@ -3,8 +3,10 @@ every CNN family of the JAX package's zoo, with the same constructors,
 layer names and weight layouts, so :func:`vision_state_dict_from_jax`
 carries a JAX model's weights across.  Every constructor takes
 ``device=`` (None: the card; ``"cpu"`` for the CPU) and ``generator=``
-(the ``torch.Generator`` the initializers draw from).  ViT and
-PP-YOLOE are ROADMAP queue A, item 5's rest."""
+(the ``torch.Generator`` the initializers draw from).  Besides the CNN
+families: ViT (``vit_b_16``, ``vit_l_16``; multi-resolution through a
+resized position table) and the PP-YOLOE detector (``ppyoloe_crn_s``,
+``ppyoloe_tiny``; its NMS is ``vision.ops``)."""
 
 from ._convert import vision_state_dict_from_jax
 from ._utils import ConvNormAct, make_divisible
@@ -28,7 +30,10 @@ from .shufflenetv2 import (ShuffleNetV2, shufflenet_v2_swish,
                            shufflenet_v2_x0_33, shufflenet_v2_x1_0,
                            shufflenet_v2_x1_5, shufflenet_v2_x2_0)
 from .squeezenet import SqueezeNet, squeezenet1_0, squeezenet1_1
+from .ppyoloe import (CSPPAN, PPYOLOE, CSPResNet, PPYOLOEHead,
+                      ppyoloe_crn_s, ppyoloe_tiny)
 from .vgg import VGG, vgg11, vgg13, vgg16, vgg19
+from .vision_transformer import VisionTransformer, vit_b_16, vit_l_16
 
 __all__ = [
     "vision_state_dict_from_jax", "ConvNormAct", "make_divisible",
@@ -45,4 +50,6 @@ __all__ = [
     "shufflenet_v2_swish", "SqueezeNet", "squeezenet1_0", "squeezenet1_1",
     "DenseNet", "densenet121", "densenet161", "densenet169", "densenet201",
     "densenet264", "GoogLeNet", "googlenet", "InceptionV3", "inception_v3",
-    "AlexNet", "alexnet"]
+    "AlexNet", "alexnet", "VisionTransformer", "vit_b_16", "vit_l_16",
+    "PPYOLOE", "CSPResNet", "CSPPAN", "PPYOLOEHead", "ppyoloe_crn_s",
+    "ppyoloe_tiny"]

@@ -31,6 +31,9 @@ def test_import_pulls_in_no_jax():
         "import paddle_tpu_torch.inference.serving.router\n"
         "import paddle_tpu_torch.inference.serving.disagg\n"
         "import paddle_tpu_torch.vision.models\n"
+        "import paddle_tpu_torch.vision.models.vision_transformer\n"
+        "import paddle_tpu_torch.vision.models.ppyoloe\n"
+        "import paddle_tpu_torch.vision.ops\n"
         "import paddle_tpu_torch.amp.auto_cast, paddle_tpu_torch.ops.activation\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "'jax.') or m == 'paddle_tpu' or m.startswith('paddle_tpu.')]\n"
@@ -50,7 +53,7 @@ def _port_sources():
             if f.endswith((".py", ".cu", ".cuh")):
                 yield os.path.join(root, f)
     for script in ("chip_smoke.py", "chip_ab.py", "chip_lmce_ablation.py",
-                   "chip_fused_variants.py"):
+                   "chip_fused_variants.py", "chip_profiler_lag.py"):
         yield os.path.join(REPO, script)
 
 

@@ -88,13 +88,9 @@ def test_refusals_and_every_constructor():
             ctor(pretrained=True, device="cpu")
     with pytest.raises(NotImplementedError, match="scale"):
         TM.ShuffleNetV2(scale=0.7, device="cpu")
-    # every CNN constructor of the JAX zoo is here (ViT and PP-YOLOE are
-    # the next vision slice's)
-    later = {"VisionTransformer", "vit_b_16", "vit_l_16", "PPYOLOE",
-             "CSPResNet", "CSPPAN", "PPYOLOEHead", "ppyoloe_crn_s",
-             "ppyoloe_tiny"}
+    # every public constructor of the JAX zoo is here
     jax_names = {n for n in dir(JM) if not n.startswith("_")
-                 and callable(getattr(JM, n))} - later
+                 and callable(getattr(JM, n))}
     assert jax_names <= set(TM.__all__), sorted(jax_names - set(TM.__all__))
     assert callable(TM.resnext152_64x4d)
 
