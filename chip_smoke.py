@@ -382,6 +382,38 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
     the top ``DET_EVAL_SHARE`` of the class scores: the rows equal the
     CPU's on the card's outputs (labels and boxes exactly, scores within
     ``NMS_SCORE_TOL``); prints the forward's and the NMS's ms;
+15j. ``[train lenet]``: ``BASELINE.json:7``'s configuration as
+    ``tests/test_lenet_e2e.py`` writes it, on the port: ``MNIST`` (the
+    synthetic fallback, 60000 / 10000 images) in a ``DataLoader`` at
+    B=64, shuffled from a seeded generator, ``drop_last``; ``LeNet`` with
+    ``Adam(1e-3)``, ``CrossEntropyLoss`` and ``Accuracy()``.  One epoch
+    of ``fit`` under auto-K, ``evaluate`` on the test set (one captured
+    eval graph per batch shape), ``save``, ``load`` into a second model
+    whose evaluation must be bit-equal, ``predict`` on 256 test images
+    (equal across the two models); the accuracy must beat the JAX
+    test's 0.2.  Gates, with cuDNN's deterministic algorithms: a fit at
+    K=8 and one on the eager route from one start and one batch order
+    end bit-equal (parameters, moments, beta powers, step counts and
+    the Accuracy sums); K=1 fits with the device prefetcher (each batch
+    staged on a copy stream) at 4 workers and at 0 end bit-equal; no
+    capture in a timed window.  Prints ms a step at K=1, K=8, auto-K
+    (with its K) and eager, images/s and the idle share (device busy
+    from a profiled window against the unprofiled wall), evaluation's
+    images/s captured and eager, the loader's host ms a batch at 0 and 4
+    workers, the checkpoint's sizes and seconds and peak memory;
+15k. ``[train resnet50 fit]``: ResNet-50 as ``[train resnet50]`` with
+    what the user's script adds: ``Accuracy(topk=(1, 5))`` in the
+    graph, its counts held against a host recount of the same steps'
+    logits (rows whose logits tie at the k-th place may go either way),
+    ms a step with and without it; ``evaluate`` on 4 batches captured
+    and eager; ``accumulate_grad_batches=4`` at B=16 bit-equal to the
+    fit at B=64 on the concatenated batches; a save after 3 steps, two
+    steps that move every state, a ``load`` into the same captured
+    model and 3 more replays bit-equal to 6 uninterrupted steps with no
+    new capture (both with cuDNN's deterministic algorithms), with the
+    files' sizes and the seconds; a ``DataLoader`` over
+    ``SyntheticImages(3, 224, 224)`` at 0 and 4 workers: images/s and
+    the idle share;
 16. ``[lmce tc]`` holds the tensor-core LMCE backward
     (``csrc/lmce_sm90.cu``, ``wgmma`` fed by TMA) against its plain
     versions (dL rounded to the operand dtype; each element within
@@ -444,6 +476,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import importlib.util
 import json
 import os
 import subprocess
@@ -5446,9 +5479,9 @@ def _vision_group(name):
     return "other elementwise (casts, relu, adds, pools)"
 
 
-def _resnet50_model(torch, seed, lr=0.1, o2=True):
+def _resnet50_model(torch, seed, lr=0.1, o2=True, metrics=None):
     """ResNet-50 from ``seed`` on the card with bench.py's setup (with
-    ``o2=False``: fp32, no AMP)."""
+    ``o2=False``: fp32, no AMP), and ``metrics``."""
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch.vision.models import resnet50
     gen = torch.Generator(device="cuda")
@@ -5460,7 +5493,8 @@ def _resnet50_model(torch, seed, lr=0.1, o2=True):
     if o2:
         paddle.amp.decorate(net, opt, **amp)
     model = paddle.Model(net, device="cuda")
-    model.prepare(opt, paddle.nn.CrossEntropyLoss(), amp_configs=amp)
+    model.prepare(opt, paddle.nn.CrossEntropyLoss(), metrics,
+                  amp_configs=amp)
     return net, model
 
 
@@ -6471,6 +6505,557 @@ def detect_eval_phase(torch, seed, net, data):
             "threshold": thr}
 
 
+LENET_B = 64                     # [train lenet]: tests/test_lenet_e2e.py:22
+LENET_LR = 1e-3                  # Adam's rate there
+LENET_MIN_ACC = 0.2              # the accuracy it must beat there (:53)
+LENET_PARITY = 64                # steps the K=8 and eager fits are held over
+LENET_TIMED = 256                # steps of each timed fit (host-bound)
+LENET_PROFILE = 64               # steps of each profiled window
+LENET_EVAL_TIMED = 64            # test batches of each timed evaluation
+LENET_LOADER = 300               # batches each loader is timed over
+LENET_PREFETCH = 96              # steps of the prefetcher's fits
+LENET_PREDICT = 256              # test images predicted
+RESNET_FIT_STEPS = 8             # [train resnet50 fit]: the metric's fits
+RESNET_EVAL = 4                  # batches evaluated
+RESNET_MICRO = 16                # accumulate_grad_batches=4 at this batch
+RESNET_CKPT = 3                  # steps before the save and after the load
+RESNET_LOADER_STEPS = 12         # steps over the SyntheticImages loader
+
+
+def _lenet_model(torch, seed, metric=True):
+    """LeNet from ``seed`` on the card with ``tests/test_lenet_e2e.py``'s
+    setup: Adam(1e-3), CrossEntropyLoss, Accuracy()."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.vision.models import LeNet
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    net = LeNet(generator=gen)
+    model = paddle.Model(net)
+    model.prepare(paddle.optimizer.Adam(LENET_LR,
+                                        parameters=net.parameters()),
+                  paddle.nn.CrossEntropyLoss(),
+                  Accuracy() if metric else None)
+    return model
+
+
+def _lenet_loader(torch, ds, seed, workers=0):
+    from paddle_tpu_torch.io import DataLoader
+    return DataLoader(ds, batch_size=LENET_B, shuffle=True, drop_last=True,
+                      num_workers=workers,
+                      generator=torch.Generator().manual_seed(seed))
+
+
+def _host_batches(loader, n):
+    """The first ``n`` batches of ``loader``, kept on the host (pinned)."""
+    out = []
+    for i, batch in enumerate(loader):
+        if i >= n:
+            break
+        out.append(tuple(batch))
+    return out
+
+
+def _fit_state(torch, model):
+    """Parameters, buffers, every optimizer slot, the step counts and
+    each metric's device sums, on the host."""
+    out = {f"param/{n}": p.detach().cpu()
+           for n, p in model.network.named_parameters()}
+    out.update({f"buffer/{n}": b.detach().cpu()
+                for n, b in model.network.named_buffers()})
+    for i, st in model._optimizer._state.items():
+        for k, v in st.items():
+            out[f"{i}/{k}"] = v if k == "steps" else v.detach().cpu()
+    out["global_step"] = model._optimizer._global_step
+    for j, m in enumerate(model._metrics):
+        s = m._device_stat_sum()
+        out[f"metric{j}"] = None if s is None else torch.from_numpy(s)
+    return out
+
+
+def _unequal(torch, a, b):
+    """The keys on which two :func:`_fit_state` s differ, bit for bit."""
+    bad = set(a) ^ set(b)
+    for k in set(a) & set(b):
+        x, y = a[k], b[k]
+        if isinstance(x, torch.Tensor):
+            if not (isinstance(y, torch.Tensor) and x.dtype == y.dtype
+                    and x.shape == y.shape and torch.equal(x, y)):
+                bad.add(k)
+        elif x != y:
+            bad.add(k)
+    return sorted(bad)
+
+
+def _fit_ms(torch, model, batches, fold):
+    """``fit`` over ``batches`` synchronised only at its ends: (ms a
+    step, whether it captured a graph)."""
+    before = model.compile_stats()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    model.fit(batches, epochs=1, verbose=0, steps_per_dispatch=fold)
+    torch.cuda.synchronize()
+    ms = (time.monotonic() - t0) * 1e3 / len(batches)
+    return ms, model.compile_stats() != before
+
+
+def _eval_ips(torch, model, batches):
+    """Images/s of ``evaluate`` over ``batches``, synchronised at its
+    ends, and its result."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    res = model.evaluate(batches, verbose=0)
+    torch.cuda.synchronize()
+    n = sum(b[0].shape[0] for b in batches)
+    return n / (time.monotonic() - t0), res
+
+
+@contextlib.contextmanager
+def cudnn_deterministic(torch):
+    """cuDNN's deterministic algorithms (a weight gradient summed with
+    atomics differs from run to run): for the bit-for-bit gates."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def train_lenet_phase(torch, seed):
+    """``[train lenet]`` (module docstring, 15j)."""
+    import gc
+    import tempfile
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.io import DataLoader, Subset
+    from paddle_tpu_torch.vision.datasets import MNIST
+    tag = "train lenet"
+    train_ds, test_ds = MNIST(mode="train"), MNIST(mode="test")
+    check(len(train_ds) == 60000 and len(test_ds) == 10000,
+          f"[{tag}] MNIST sizes {len(train_ds)} / {len(test_ds)}")
+    # the main path: one epoch under auto-K, evaluate, save, load, predict
+    model = _lenet_model(torch, seed)
+    loader = _lenet_loader(torch, train_ds, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    model.fit(loader, epochs=1, verbose=0)
+    torch.cuda.synchronize()
+    epoch_s = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    tuner = model._fold_tuner
+    check(tuner is not None and tuner.decided,
+          f"[{tag}] the auto-K fit decided no K")
+    check(model._optimizer._global_step == len(loader) == 937,
+          f"[{tag}] {model._optimizer._global_step} steps, "
+          f"{len(loader)} batches")
+    train_acc = model._metrics[0].accumulate()
+    res = model.evaluate(test_ds, batch_size=LENET_B, verbose=0)
+    stats = model.compile_stats()
+    check(stats == {"graphs": 1, "captures": 1, "eval_graphs": 2,
+                    "eval_captures": 2},
+          f"[{tag}] graphs {stats} (one train graph, eval at 64 and 16)")
+    check(res["acc"] > LENET_MIN_ACC and np.isfinite(float(res["loss"][0])),
+          f"[{tag}] evaluate {res}")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "lenet")
+        t0 = time.monotonic()
+        model.save(path)
+        save_s = time.monotonic() - t0
+        sizes = [os.path.getsize(path + s) for s in (".pdparams", ".pdopt")]
+        model2 = _lenet_model(torch, seed + 1)
+        t0 = time.monotonic()
+        model2.load(path)
+        load_s = time.monotonic() - t0
+    res2 = model2.evaluate(test_ds, batch_size=LENET_B, verbose=0)
+    check(float(res2["loss"][0]) == float(res["loss"][0])
+          and res2["acc"] == res["acc"],
+          f"[{tag}] the loaded model evaluates {res2}, the first {res}")
+    sub = Subset(test_ds, range(LENET_PREDICT))
+    out = model.predict(sub, batch_size=LENET_B, stack_outputs=True)[0]
+    out2 = model2.predict(sub, batch_size=LENET_B, stack_outputs=True)[0]
+    check(out.shape == (LENET_PREDICT, 10) and np.isfinite(out).all()
+          and np.array_equal(out, out2),
+          f"[{tag}] predict {out.shape}, equal {np.array_equal(out, out2)}")
+    pred_acc = float((out.argmax(1) == test_ds.labels[:LENET_PREDICT]).mean())
+    del model2
+    # K=8 against the eager route, from one start and one batch order
+    batches = _host_batches(_lenet_loader(torch, train_ds, seed + 2),
+                            LENET_PARITY)
+    states = {}
+    with cudnn_deterministic(torch):
+        for fold in (8, 0):
+            m = _lenet_model(torch, seed)
+            m.fit(batches, epochs=1, verbose=0, steps_per_dispatch=fold)
+            states[fold] = _fit_state(torch, m)
+    bad = _unequal(torch, states[8], states[0])
+    check(not bad and states[0]["global_step"] == LENET_PARITY,
+          f"[{tag}] K=8 and eager differ in {bad[:8]}")
+    # timed fits: K=1, K=8, auto-K replays of one graph, and eager
+    timed = _host_batches(_lenet_loader(torch, train_ds, seed + 3),
+                          LENET_TIMED)
+    m = _lenet_model(torch, seed)
+    m.fit(timed[:8], epochs=1, verbose=0, steps_per_dispatch=1)
+    k1_ms, c1 = _fit_ms(torch, m, timed, 1)
+    k8_ms, c8 = _fit_ms(torch, m, timed, 8)
+    auto_ms, ca = _fit_ms(torch, m, timed, None)
+    auto_k = m._fold
+    check(not (c1 or c8 or ca), f"[{tag}] a capture in a timed window: "
+          f"K=1 {c1}, K=8 {c8}, auto {ca}")
+    prof = {k: profile_run(
+        torch, tag, f"K={k}",
+        lambda k=k: m.fit(timed[:LENET_PROFILE], epochs=1, verbose=0,
+                          steps_per_dispatch=k),
+        LENET_PROFILE, _vision_group) for k in sorted({1, auto_k})}
+    idle = {k: 1 - p["busy_ms"] / (k1_ms if k == 1 else auto_ms)
+            for k, p in prof.items()}
+    e = _lenet_model(torch, seed)
+    eager_ms, _ = _fit_ms(torch, e, timed, 0)
+    eprof = profile_run(
+        torch, f"{tag} eager", "eager",
+        lambda: e.fit(timed[:LENET_PROFILE], epochs=1, verbose=0,
+                      steps_per_dispatch=0), LENET_PROFILE, _vision_group)
+    # evaluation: the captured eval step against the eager one
+    ev = _host_batches(DataLoader(test_ds, batch_size=LENET_B,
+                                  drop_last=True), LENET_EVAL_TIMED)
+    m.evaluate(ev[:2], verbose=0)
+    before = m.compile_stats()
+    ev_ips, ev_res = _eval_ips(torch, m, ev)
+    check(m.compile_stats() == before,
+          f"[{tag}] evaluation captured in its timed window")
+    m.prepare(m._optimizer, m._loss, m._metrics, jit=False)
+    ev_eager_ips, ev_eager = _eval_ips(torch, m, ev)
+    check(m.compile_stats() == {"graphs": 0, "captures": 0},
+          f"[{tag}] the eager evaluation captured")
+    del m, e
+    # the loader's host time a batch
+    loader_ms = {}
+    for w in (0, 4):
+        it = iter(_lenet_loader(torch, train_ds, seed, workers=w))
+        next(it)
+        t0 = time.monotonic()
+        for _ in range(LENET_LOADER):
+            next(it)
+        loader_ms[w] = (time.monotonic() - t0) * 1e3 / LENET_LOADER
+        del it
+    # the prefetcher (K=1 stages onto the card): workers 4 against 0
+
+    class Staged(Callback):
+        def on_epoch_begin(self, epoch, logs=None):
+            self.staged = (self.loader._stage_device is not None
+                           and self.loader._fold_hint == 1)
+
+    pre = {}
+    with cudnn_deterministic(torch):
+        for w in (4, 0):
+            pm = _lenet_model(torch, seed)
+            cb = Staged()
+            cb.loader = _lenet_loader(torch, train_ds, seed + 4, workers=w)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            pm.fit(cb.loader, epochs=1, verbose=0, callbacks=[cb],
+                   num_iters=LENET_PREFETCH, steps_per_dispatch=1)
+            torch.cuda.synchronize()
+            ips = LENET_PREFETCH * LENET_B / (time.monotonic() - t0)
+            check(cb.staged, f"[{tag}] the prefetcher was off (workers {w})")
+            pre[w] = (_fit_state(torch, pm), ips)
+    bad = _unequal(torch, pre[4][0], pre[0][0])
+    check(not bad, f"[{tag}] prefetched run with 4 workers differs from "
+          f"0 workers in {bad[:8]}")
+    ips = {k: LENET_B / (v * 1e-3) for k, v in
+           (("1", k1_ms), ("8", k8_ms), ("auto", auto_ms), ("eager",
+                                                            eager_ms))}
+    print(f"[{tag}] LeNet B={LENET_B} Adam({LENET_LR}) CrossEntropyLoss "
+          f"Accuracy() on MNIST (synthetic fallback, 60000 / 10000): one "
+          f"epoch under auto-K {epoch_s:.3f} s ({937 * LENET_B / epoch_s:.1f}"
+          f" images/s, loader in the loop), decision {tuner.decision}, "
+          f"train acc {train_acc:.5f}; evaluate loss "
+          f"{float(res['loss'][0]):.6f} acc {res['acc']:.5f} (> "
+          f"{LENET_MIN_ACC}); the loaded model's equal; predict "
+          f"{LENET_PREDICT} images acc {pred_acc:.5f}; .pdparams "
+          f"{sizes[0]} B, .pdopt {sizes[1]} B, save {save_s:.4f} s, load "
+          f"{load_s:.4f} s; peak_mem_gib {peak / 2**30:.4f}", flush=True)
+    print(f"[{tag}] K=8 and eager bit-equal over {LENET_PARITY} steps "
+          f"(parameters, moments, beta powers, step counts, the Accuracy "
+          f"sums); ms a step over {LENET_TIMED}: K=1 {k1_ms:.4f} "
+          f"({ips['1']:.1f} images/s, idle {idle[1]:.4f}), K=8 "
+          f"{k8_ms:.4f} ({ips['8']:.1f}), auto-K (K={auto_k}) "
+          f"{auto_ms:.4f} ({ips['auto']:.1f}, idle {idle[auto_k]:.4f}), "
+          f"eager {eager_ms:.4f} ({ips['eager']:.1f}, idle "
+          f"{1 - eprof['busy_ms'] / eager_ms:.4f}); device busy "
+          f"{prof[1]['busy_ms']:.4f} ms a step; no capture in the timed "
+          f"windows", flush=True)
+    print(f"[{tag}] evaluate {LENET_EVAL_TIMED} x {LENET_B}: captured "
+          f"{ev_ips:.1f} images/s (loss {float(ev_res['loss'][0]):.6f}), "
+          f"eager {ev_eager_ips:.1f} (loss "
+          f"{float(ev_eager['loss'][0]):.6f}); loader host ms a batch "
+          f"workers 0 {loader_ms[0]:.4f}, 4 {loader_ms[4]:.4f}; K=1 with "
+          f"the prefetcher over {LENET_PREFETCH} steps: workers 4 "
+          f"{pre[4][1]:.1f} images/s, 0 {pre[0][1]:.1f}, end states "
+          f"bit-equal", flush=True)
+    return {"epoch_s": epoch_s, "k1_ms": k1_ms, "k8_ms": k8_ms,
+            "auto_ms": auto_ms, "auto_k": auto_k, "eager_ms": eager_ms,
+            "idle": idle, "eval_ips": ev_ips, "eval_eager_ips": ev_eager_ips,
+            "loader_ms": loader_ms, "acc": res["acc"], "peak": peak}
+
+
+def _resnet_fit_batches(torch, seed, n, b=RESNET_B):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        x = rng.random((b, 3, RESNET_SIZE, RESNET_SIZE), dtype=np.float32)
+        y = rng.integers(0, RESNET_CLASSES, (b,)).astype(np.int64)
+        out.append((torch.from_numpy(x).pin_memory(),
+                    torch.from_numpy(y).pin_memory()))
+    return out
+
+
+def _logits_recorder(torch, n):
+    """A device metric whose stat is the step's logits (fp32, flat), so a
+    captured step hands each step's logits to the callbacks."""
+    from paddle_tpu_torch.metric import Metric
+
+    class Logits(Metric):
+        supports_device_update = True
+
+        def __init__(self):
+            self.reset()
+
+        def device_batch_stats(self):
+            return lambda pred, label: pred.detach().float().reshape(-1)
+
+        def device_acc_init(self, device="cpu"):
+            return torch.zeros(n, device=device)
+
+        def _stat_result(self, stat):
+            return stat
+
+        def reset(self):
+            self._reset_device_state()
+
+        def accumulate(self):
+            return 0.0
+
+        def name(self):
+            return "logits"
+
+    return Logits()
+
+
+def _topk_recount(logits, labels, k):
+    """Rows whose label is among the ``k`` largest logits: (certain,
+    ambiguous), ambiguous where logits equal to the label's straddle the
+    k-th place, so that the ranking's tie order decides."""
+    lab = logits[np.arange(len(labels)), labels]
+    greater = (logits > lab[:, None]).sum(1)
+    equal = (logits == lab[:, None]).sum(1) - 1
+    certain = int((greater + equal < k).sum())
+    ambiguous = int(((greater < k) & (greater + equal >= k)).sum())
+    return certain, ambiguous
+
+
+def train_resnet50_fit_phase(torch, seed):
+    """``[train resnet50 fit]`` (module docstring, 15k)."""
+    import gc
+    import tempfile
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.vision.datasets import SyntheticImages
+    tag = "train resnet50 fit"
+    batches = _resnet_fit_batches(torch, seed + 7, RESNET_FIT_STEPS)
+    # half of each batch's labels are the starting network's top-1 (train
+    # mode, O2), so that the counts below are not near 0 as with random
+    # labels over 1000 classes
+    import paddle_tpu_torch as paddle
+    net, model = _resnet50_model(torch, seed)
+    with torch.no_grad(), paddle.amp.auto_cast(level="O2",
+                                               dtype="bfloat16"):
+        for x, y in batches:
+            top = net(x.cuda()).float().argmax(1).cpu()
+            y[:RESNET_B // 2] = top[:RESNET_B // 2]
+    del net, model
+
+    def free(model):
+        model.release_graphs()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # Accuracy(topk=(1, 5)) in the graph, against a host recount of the
+    # same steps' logits (handed out by a recorder metric)
+    rec = _logits_recorder(torch, RESNET_B * RESNET_CLASSES)
+    net, model = _resnet50_model(torch, seed,
+                                 metrics=[Accuracy(topk=(1, 5)), rec])
+
+    class Keep(Callback):
+        def __init__(self):
+            super().__init__()
+            self.rows = []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.rows.append(np.asarray(logs["logits"]).reshape(
+                RESNET_B, RESNET_CLASSES))
+
+    keep = Keep()
+    model.fit(batches, epochs=1, verbose=0, callbacks=[keep],
+              steps_per_dispatch=4)
+    dev = model._metrics[0]._device_stat_sum()
+    labels = [b[1].numpy() for b in batches]
+    amb = {}
+    for j, k in enumerate((1, 5)):
+        parts = [_topk_recount(lg, lb, k) for lg, lb in zip(keep.rows,
+                                                             labels)]
+        certain = sum(p[0] for p in parts)
+        amb[k] = sum(p[1] for p in parts)
+        check(certain <= dev[j] <= certain + amb[k],
+              f"[{tag}] top-{k} count {dev[j]} outside the host recount "
+              f"[{certain}, {certain + amb[k]}]")
+    check(dev[-1] == RESNET_FIT_STEPS * RESNET_B and len(keep.rows) ==
+          RESNET_FIT_STEPS, f"[{tag}] rows {dev[-1]}, steps "
+          f"{len(keep.rows)}")
+    free(model)
+    del net, model
+    # the metric's cost: ms a step with and without it (K=8 replays)
+    ms, busy_ms = {}, {}
+    for name, metrics in (("with Accuracy", [Accuracy(topk=(1, 5))]),
+                          ("without", None)):
+        net, model = _resnet50_model(torch, seed, metrics=metrics)
+        model.fit(batches, epochs=1, verbose=0, steps_per_dispatch=8)
+        ms[name], cap = _fit_ms(torch, model, batches * 2, 8)
+        check(not cap, f"[{tag}] a capture in the timed window")
+        busy_ms[name] = profile_run(
+            torch, f"{tag} {name}", "replayed",
+            lambda: model.fit(batches, epochs=1, verbose=0,
+                              steps_per_dispatch=8),
+            RESNET_FIT_STEPS, _vision_group)["busy_ms"]
+        if metrics:
+            acc_model = (net, model)
+        else:
+            free(model)
+        del net, model
+    busy = busy_ms["without"]
+    # evaluation: captured against eager
+    net, model = acc_model
+    evb = batches[:RESNET_EVAL]
+    model.evaluate(evb, verbose=0)
+    before = model.compile_stats()
+    ev_ips, ev_res = _eval_ips(torch, model, evb)
+    check(model.compile_stats() == before and before["eval_graphs"] == 1,
+          f"[{tag}] evaluation graphs {before} -> {model.compile_stats()}")
+    model.prepare(model._optimizer, model._loss, model._metrics,
+                  amp_configs={"level": "O2", "dtype": "bfloat16"},
+                  jit=False)
+    ev_eager_ips, ev_eager = _eval_ips(torch, model, evb)
+    free(model)
+    del net, model
+    del acc_model
+    with cudnn_deterministic(torch):
+        # accumulate_grad_batches=4 at B=16 against B=64 on the concatenation
+        full = batches[:RESNET_CKPT]
+        micro = [(x[i:i + RESNET_MICRO], y[i:i + RESNET_MICRO])
+                 for x, y in full for i in range(0, RESNET_B, RESNET_MICRO)]
+        states = {}
+        for name, data, k in (("accumulate", micro, 4), ("full", full, 1)):
+            net, model = _resnet50_model(torch, seed)
+            model.fit(data, epochs=1, verbose=0, accumulate_grad_batches=k,
+                      steps_per_dispatch=1)
+            states[name] = _fit_state(torch, model)
+            free(model)
+            del net, model
+        bad = _unequal(torch, states["accumulate"], states["full"])
+        check(not bad and states["full"]["global_step"] == RESNET_CKPT,
+              f"[{tag}] accumulate_grad_batches=4 at B={RESNET_MICRO} "
+              f"differs from B={RESNET_B} in {bad[:8]}")
+        del states
+        # save after 3 steps, 2 steps that move everything, load into the
+        # same captured model, 3 more replays; against 6 uninterrupted
+        net, model = _resnet50_model(torch, seed)
+        first, later = batches[:RESNET_CKPT], batches[RESNET_CKPT:
+                                                      2 * RESNET_CKPT]
+        model.fit(first, epochs=1, verbose=0, steps_per_dispatch=1)
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "resnet50")
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            model.save(path)
+            save_s = time.monotonic() - t0
+            sizes = [os.path.getsize(path + s)
+                     for s in (".pdparams", ".pdopt")]
+            model.fit(batches[-2:], epochs=1, verbose=0,
+                      steps_per_dispatch=1)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            model.load(path)
+            torch.cuda.synchronize()
+            load_s = time.monotonic() - t0
+        model.fit(later, epochs=1, verbose=0, steps_per_dispatch=1)
+        resumed = _fit_state(torch, model)
+        graphs = model.compile_stats()
+        free(model)
+        del net, model
+        net, model = _resnet50_model(torch, seed)
+        model.fit(first + later, epochs=1, verbose=0, steps_per_dispatch=1)
+        straight = _fit_state(torch, model)
+        free(model)
+        del net, model
+    bad = _unequal(torch, resumed, straight)
+    check(not bad and graphs == {"graphs": 1, "captures": 1},
+          f"[{tag}] resumed run differs in {bad[:8]}; graphs {graphs}")
+    del resumed, straight
+    # the host loader over SyntheticImages at workers 0 and 4 (K=1, the
+    # prefetcher staging onto the card)
+    ds = SyntheticImages(num_samples=RESNET_LOADER_STEPS * RESNET_B,
+                         image_shape=(3, RESNET_SIZE, RESNET_SIZE),
+                         num_classes=RESNET_CLASSES, seed=seed)
+    net, model = _resnet50_model(torch, seed)
+    # the loader's labels are [B, 1]: capture that signature first
+    model.fit(DataLoader(ds, batch_size=RESNET_B), epochs=1, verbose=0,
+              num_iters=2, steps_per_dispatch=1)
+    loader_ips = {}
+    for w in (0, 4):
+        loader = DataLoader(ds, batch_size=RESNET_B, num_workers=w)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        model.fit(loader, epochs=1, verbose=0, steps_per_dispatch=1)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3 / RESNET_LOADER_STEPS
+        loader_ips[w] = (RESNET_B / (wall_ms * 1e-3), 1 - busy / wall_ms)
+    graphs = model.compile_stats()
+    check(graphs == {"graphs": 1, "captures": 1},
+          f"[{tag}] loader fits captured again: {graphs}")
+    free(model)
+    del net, model
+    print(f"[{tag}] ResNet-50 B={RESNET_B} {RESNET_SIZE}x{RESNET_SIZE} bf16 "
+          f"O2 Momentum(0.1, 0.9, multi_precision): Accuracy(topk=(1, 5)) "
+          f"in the graph over {RESNET_FIT_STEPS} steps counts top-1 "
+          f"{dev[0]:.0f}, top-5 {dev[1]:.0f} of {dev[2]:.0f} rows, within "
+          f"the host recount (rows with ties at the k-th place: top-1 "
+          f"{amb[1]}, top-5 {amb[5]}); K=8 ms a step with it "
+          f"{ms['with Accuracy']:.4f}, without {ms['without']:.4f}; device "
+          f"busy with it {busy_ms['with Accuracy']:.4f}, without "
+          f"{busy:.4f} (the metric "
+          f"{busy_ms['with Accuracy'] - busy:.4f} ms); evaluate "
+          f"{RESNET_EVAL} batches captured {ev_ips:.1f} images/s, eager "
+          f"{ev_eager_ips:.1f}", flush=True)
+    print(f"[{tag}] accumulate_grad_batches=4 at B={RESNET_MICRO} "
+          f"bit-equal to B={RESNET_B} over {RESNET_CKPT} steps; save after "
+          f"{RESNET_CKPT}, 2 steps, load into the captured model, "
+          f"{RESNET_CKPT} replays bit-equal to {2 * RESNET_CKPT} straight "
+          f"(cuDNN deterministic), no new capture; .pdparams {sizes[0]} B, "
+          f".pdopt {sizes[1]} B, save {save_s:.3f} s, load {load_s:.3f} s; "
+          f"SyntheticImages loader, K=1, {RESNET_LOADER_STEPS} steps: "
+          f"workers 0 {loader_ips[0][0]:.1f} images/s (idle "
+          f"{loader_ips[0][1]:.4f}), workers 4 {loader_ips[4][0]:.1f} "
+          f"(idle {loader_ips[4][1]:.4f}) against a replayed device busy "
+          f"of {busy:.3f} ms a step", flush=True)
+    return {"ms": ms, "busy_ms": busy_ms, "eval_ips": ev_ips,
+            "eval_eager_ips": ev_eager_ips,
+            "sizes": sizes, "save_s": save_s, "load_s": load_s,
+            "loader": loader_ips}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6498,7 +7083,10 @@ def main(argv=None) -> int:
     build_s = time.monotonic() - t0
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}; kernels built in "
-          f"{build_s:.2f} s: {sorted(built)}", flush=True)
+          f"{build_s:.2f} s: {sorted(built)}; ml_dtypes (reads the JAX "
+          f"package's bf16 checkpoints) "
+          f"{'present' if importlib.util.find_spec('ml_dtypes') else 'absent'}",
+          flush=True)
     for name, info in built.items():
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
@@ -6557,6 +7145,8 @@ def main(argv=None) -> int:
     _, det_net, det_data = train_ppyoloe_phase(torch, args.seed)
     detect_eval_phase(torch, args.seed, det_net, det_data)
     del det_net, det_data
+    train_lenet_phase(torch, args.seed)
+    train_resnet50_fit_phase(torch, args.seed)
 
     k32, k16 = kres["fp32"], kres["bf16"]
     kernels = [{

@@ -35,6 +35,23 @@ runs it, bf16 O2 with fp32 masters, Momentum, BatchNorm)::
                   amp_configs={"level": "O2", "dtype": "bfloat16"})
     model.fit(batches, epochs=1)   # batches: [(images [64, 3, 224, 224],
                                    #            labels [64])]
+
+LeNet on MNIST with metrics, evaluation and checkpoints
+(``BASELINE.json:7``; the datasets fall back to synthetic digits)::
+
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.vision.datasets import MNIST
+    from paddle_tpu_torch.vision.models import LeNet
+    loader = DataLoader(MNIST(mode="train"), batch_size=64, shuffle=True,
+                        drop_last=True, num_workers=4)
+    model = paddle.Model(LeNet())
+    model.prepare(paddle.optimizer.Adam(1e-3,
+                                        parameters=model.parameters()),
+                  paddle.nn.CrossEntropyLoss(), Accuracy())
+    model.fit(loader, epochs=1, verbose=0)
+    print(model.evaluate(MNIST(mode="test"), batch_size=64, verbose=0))
+    model.save("ckpt/lenet")          # lenet.pdparams, lenet.pdopt
 """
 
 from __future__ import annotations
@@ -42,7 +59,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["resolve_device", "Model", "seed", "amp", "optimizer", "nn",
-           "io", "vision"]
+           "io", "vision", "metric", "callbacks", "save", "load",
+           "summary", "flops"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -62,6 +80,8 @@ def resolve_device(device=None) -> torch.device:
 
 
 # submodules import resolve_device, so they load after it is defined
-from . import amp, io, nn, optimizer, vision  # noqa: E402
+from . import amp, io, metric, nn, optimizer, vision  # noqa: E402
+from .framework.io import load, save  # noqa: E402
 from .framework.random import seed  # noqa: E402
-from .hapi import Model  # noqa: E402
+from .hapi import Model, callbacks  # noqa: E402
+from .hapi.summary import flops, summary  # noqa: E402

@@ -57,12 +57,29 @@ The contract of a captured step:
   engine never carries on eagerly.  ``fit(steps_per_dispatch=0)`` is
   the one eager route.
 
+- **Metrics.** A step body may return ``(loss, stats)``: one fp32 stat
+  tensor per metric (``paddle_tpu_torch/metric``), computed in the step
+  and so inside its graph.  The runner copies each step's stats into
+  slot *i* of the group's ``[K, ...]`` stat stacks, as it does the loss;
+  the body itself adds them into the model's accumulators, static
+  buffers that the graph writes in place and that the model zeroes
+  outside the graph at each epoch's start.
+
 Knobs (``framework/env_knobs.py``): ``PADDLE_TORCH_FOLD_MAX`` (auto-K's
 bound, 32), ``PADDLE_TORCH_FOLD_OVERHEAD_TARGET`` (host time a step may
 take as a share of its device time, 0.05) and
 ``PADDLE_TORCH_FOLD_CALIB_GROUPS`` (groups measured at K=1 after the
-first, 3).  The JAX engine's observability registry calls wait for the
-port of ``observability/``.
+first, 3).
+
+Registry (``observability/metrics.py``), as the JAX engine writes it:
+every group counts into ``dispatch_groups_total`` and
+``dispatch_steps_total`` and its host wall time into the
+``dispatch_wall_s`` histogram (host floats only, no device value); the
+tuner's decision sets the ``dispatch_auto_fold``,
+``dispatch_host_ms_per_step`` and ``dispatch_device_ms_per_step``
+gauges.  Each group runs inside a ``dispatch.group`` span.  The JAX
+engine's retrace counter goes with its retrace sentinel (ROADMAP queue
+A, item 14).
 """
 
 from __future__ import annotations
@@ -77,8 +94,32 @@ import torch
 from . import env_knobs
 from . import random as _random
 from .lazy import LazyStack
+from ..observability import metrics as _obs_metrics
+from ..observability import trace as _obs_trace
 
 logger = logging.getLogger("paddle_tpu_torch.dispatch")
+
+
+def _observe_dispatch(n_steps: int, wall_s: float):
+    """Count one group and its host wall time into the registry (host
+    floats only, so the loop never waits for the device).  The
+    instruments are fetched per call, so a ``registry().reset()`` cannot
+    orphan them."""
+    reg = _obs_metrics.registry()
+    reg.counter("dispatch_groups_total",
+                "dispatch groups issued").inc()
+    reg.counter("dispatch_steps_total",
+                "logical train steps dispatched").inc(n_steps)
+    reg.histogram("dispatch_wall_s",
+                  "host wall time per dispatch group (enqueue + callback "
+                  "replay; device work is async)").observe(wall_s)
+
+
+def _split(out):
+    """A step body's result as ``(loss, stats)``."""
+    if isinstance(out, tuple):
+        return out[0], tuple(out[1])
+    return out, ()
 
 #: ``(read, write)`` of host counters a step moves: ``read()`` returns a
 #: ``{key: int}`` table, ``write(table)`` sets the keys it names
@@ -95,12 +136,16 @@ class EagerStep:
     def __init__(self, per_step: Callable):
         self._step = per_step
 
-    def run(self, batches: Sequence[torch.Tensor],
-            losses: torch.Tensor) -> None:
+    def run(self, batches: Sequence[torch.Tensor], losses: torch.Tensor,
+            mstacks: Sequence[torch.Tensor] = ()) -> None:
         """Run one step per slot of ``losses`` on ``[b[i] for b in
-        batches]`` and write each step's loss into its slot."""
+        batches]`` and write each step's loss, and each of its metric
+        stats, into its slot."""
         for i in range(losses.shape[0]):
-            losses[i].copy_(self._step([b[i] for b in batches]))
+            loss, stats = _split(self._step([b[i] for b in batches]))
+            losses[i].copy_(loss)
+            for stack, stat in zip(mstacks, stats):
+                stack[i].copy_(stat)
 
     def close(self) -> None:
         pass
@@ -193,7 +238,11 @@ class CapturedStep(CapturedCall):
 
     def __init__(self, per_step: Callable, device: torch.device, pool,
                  ledgers: Sequence[Ledger] = ()):
-        super().__init__(device, pool, ledgers)
+        # thread-local: a DataLoader's worker threads pin host memory
+        # (cudaHostAlloc) while the step captures, which a global capture
+        # would count as an error of its own
+        super().__init__(device, pool, ledgers,
+                         capture_error_mode="thread_local")
         self._step = per_step
         # the graph's static inputs and output: their addresses are baked
         # into the graph (with the tensor maps the tensor-core kernels
@@ -202,21 +251,31 @@ class CapturedStep(CapturedCall):
         # replaced while the graph lives
         self._inputs: Optional[List[torch.Tensor]] = None
         self.loss: Optional[torch.Tensor] = None
+        self.stats: Tuple[torch.Tensor, ...] = ()
 
-    def run(self, batches: Sequence[torch.Tensor],
-            losses: torch.Tensor) -> None:
+    def run(self, batches: Sequence[torch.Tensor], losses: torch.Tensor,
+            mstacks: Sequence[torch.Tensor] = ()) -> None:
         """As :meth:`EagerStep.run`; everything is enqueued on the
         current stream and nothing waits for the device."""
         first = 0
         if self.graph is None:
             self._stage(batches, 0)
-            self.warm_up(lambda: losses[0].copy_(self._step(self._inputs)))
-            self.loss = self.capture(lambda: self._step(self._inputs))
+
+            def warm():
+                loss, stats = _split(self._step(self._inputs))
+                losses[0].copy_(loss)
+                for stack, stat in zip(mstacks, stats):
+                    stack[0].copy_(stat)
+
+            self.warm_up(warm)
+            self.loss, self.stats = _split(
+                self.capture(lambda: self._step(self._inputs)))
             first = 1
         for i in range(first, losses.shape[0]):
             self._stage(batches, i)
             self.replay()
             self._take_loss(losses, i)
+            self._take_stats(mstacks, i)
 
     def _stage(self, batches, i):
         if self._inputs is None:
@@ -227,16 +286,22 @@ class CapturedStep(CapturedCall):
     def _take_loss(self, losses, i):
         losses[i].copy_(self.loss)
 
+    def _take_stats(self, mstacks, i):
+        for stack, stat in zip(mstacks, self.stats):
+            stack[i].copy_(stat)
+
     def close(self) -> None:
         super().close()
         self._inputs = self.loss = None
+        self.stats = ()
 
 
 def build_folded_step(per_step: Callable, device: torch.device, pool=None,
                       ledgers: Sequence[Ledger] = ()):
     """The per-step runner of one batch signature.  ``per_step(values)``
     takes the step's device tensors (inputs, then labels) and returns
-    its loss as a 0-d fp32 tensor; on a CUDA device the runner captures
+    its loss as a 0-d fp32 tensor, or ``(loss, stats)`` with one fp32
+    metric stat per metric; on a CUDA device the runner captures
     it into a graph in ``pool`` (``torch.cuda.graph_pool_handle()``,
     shared by a model's graphs) and keeps ``ledgers`` moving per replay;
     on the CPU it runs it eagerly."""
@@ -326,6 +391,15 @@ class AutoFoldTuner:
                     "-> steps_per_dispatch=%d (target %.0f%%, max %d)",
                     host * 1e3, step * 1e3, self.fold,
                     self.target * 100, self.max_fold)
+        reg = _obs_metrics.registry()
+        reg.gauge("dispatch_auto_fold",
+                  "auto-tuned steps_per_dispatch K").set(self.fold)
+        reg.gauge("dispatch_host_ms_per_step",
+                  "measured host overhead per step (calibration)"
+                  ).set(round(host * 1e3, 4))
+        reg.gauge("dispatch_device_ms_per_step",
+                  "measured device time per step (calibration)"
+                  ).set(round(step * 1e3, 4))
 
 
 # -- host-side grouping ---------------------------------------------------
@@ -338,9 +412,11 @@ class GroupDispatcher:
 
     ``run_group(groups)`` receives ``[(inputs, labels), ...]`` and
     returns ``(losses, mstacks)``: a :class:`LazyStack` of the group's
-    losses and the metric stacks (empty: metrics are not ported).
+    losses and one of each metric's ``[K, ...]`` stat stack.
     ``emit_group(entries, losses, mstacks)`` replays the buffered
-    per-step callbacks in order.
+    per-step callbacks in order; an entry whose inputs are ``None`` is
+    an accumulate intermediate (:meth:`feed_marker`), which carries no
+    compute.
 
     A batch-shape change (an uneven last batch, a bucketed loader)
     closes the open group, which runs as a shorter group of the same
@@ -373,13 +449,20 @@ class GroupDispatcher:
 
     def feed(self, step: int, inputs, labels):
         sig = self._group_sig(inputs, labels)
+        n_logical = sum(1 for _, i, _l in self._group if i is not None)
         if self._group and sig != self._sig:
             self.flush()          # shape change: run the prefix now
+            n_logical = 0
         if not self._group:
             self._sig = sig
         self._group.append((step, inputs, labels))
-        if len(self._group) >= self.fold:
+        if n_logical + 1 >= self.fold:
             self.flush()
+
+    def feed_marker(self, step: int):
+        """Buffer an accumulate intermediate between logical steps, so
+        that its callbacks replay in step order at the next flush."""
+        self._group.append((step, None, None))
 
     def flush(self):
         """Run the buffered group, then replay its per-step callbacks
@@ -387,20 +470,32 @@ class GroupDispatcher:
         if not self._group:
             return
         entries, self._group = self._group, []
-        logical = [(i, l) for _, i, l in entries]
-        tuner = self.tuner
-        if tuner is not None and not tuner.decided:
-            t0 = time.perf_counter()
-            losses, mstacks = self._run(logical)
-            t1 = time.perf_counter()
-            self._calibration_block(losses)
-            t2 = time.perf_counter()
-            self._emit(entries, losses, mstacks)
-            t3 = time.perf_counter()
-            tuner.observe(len(logical), (t1 - t0) + (t3 - t2), t2 - t1)
+        logical = [(i, l) for _, i, l in entries if i is not None]
+        if not logical:
+            self._emit(entries, None, [])
             return
-        losses, mstacks = self._run(logical)
-        self._emit(entries, losses, mstacks)
+        tuner = self.tuner
+        sp = _obs_trace.span(
+            "dispatch.group",
+            args=({"steps": len(logical), "fold": self.fold}
+                  if _obs_trace.enabled() else None))
+        if tuner is not None and not tuner.decided:
+            with sp:
+                t0 = time.perf_counter()
+                losses, mstacks = self._run(logical)
+                t1 = time.perf_counter()
+                self._calibration_block(losses)
+                t2 = time.perf_counter()
+                self._emit(entries, losses, mstacks)
+                t3 = time.perf_counter()
+            tuner.observe(len(logical), (t1 - t0) + (t3 - t2), t2 - t1)
+            _observe_dispatch(len(logical), t3 - t0)
+            return
+        t0 = time.perf_counter()
+        with sp:
+            losses, mstacks = self._run(logical)
+            self._emit(entries, losses, mstacks)
+        _observe_dispatch(len(logical), time.perf_counter() - t0)
 
     @staticmethod
     def _calibration_block(losses: LazyStack):

@@ -60,6 +60,12 @@ _k("PADDLE_TORCH_FOLD_CALIB_GROUPS", "3", "int",
    "Groups the auto-tuner measures at K=1, after the first, before it "
    "decides (PADDLE_TPU_FOLD_CALIB_GROUPS).")
 
+# -- datasets (vision/datasets/) ---------------------------------------------
+_k("PADDLE_TORCH_SYNTH_N", "unset", "int",
+   "Rows of the synthetic fallback of MNIST, FashionMNIST and Cifar when "
+   "no data files are found; unset keeps the real split's size "
+   "(PADDLE_TPU_SYNTH_N).")
+
 # -- serving (inference/serving/engine.py) -----------------------------------
 _k("PADDLE_TORCH_PREFILL_CHUNK", "unset", "int",
    "DecodeEngine's default prefill_chunk: admit prompts longer than this "

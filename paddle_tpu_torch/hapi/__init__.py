@@ -3,5 +3,6 @@
 
 from . import callbacks
 from .model import Model
+from .summary import flops, summary
 
-__all__ = ["Model", "callbacks"]
+__all__ = ["Model", "callbacks", "summary", "flops"]

@@ -32,12 +32,26 @@ into the parameter once (``Adam._moments_low``).
 
 from __future__ import annotations
 
+import math
+import re
+import warnings
 from typing import Dict, List
 
+import numpy as np
 import torch
 
 _LOW = (torch.bfloat16, torch.float16)
 _aten = torch.ops.aten
+
+
+def _as_tensor(v) -> torch.Tensor:
+    """A checkpoint value (tensor, numpy array or number) as a tensor."""
+    if isinstance(v, torch.Tensor):
+        return v.detach()
+    if isinstance(v, np.ndarray):
+        from ..framework.io import array_to_tensor
+        return array_to_tensor(v)
+    return torch.as_tensor(np.asarray(v))
 
 
 class Optimizer:
@@ -69,6 +83,7 @@ class Optimizer:
         self._weight_decay = float(weight_decay or 0.0)
         self._multi_precision = bool(multi_precision)
         self._state: Dict[int, dict] = {}   # by position in the list
+        self._param_names = None            # set_param_names
         self._global_step = 0
         self._lr_dev: Dict[torch.device, torch.Tensor] = {}
         self._lr_held: Dict[torch.device, float] = {}
@@ -162,6 +177,172 @@ class Optimizer:
     def clear_grad(self) -> None:
         for p in self._parameter_list:
             p.grad = None
+
+    # -- checkpoint ---------------------------------------------------------
+    def _param_name(self, i: int) -> str:
+        names = self._param_names
+        return names[i] if names is not None else f"param_{i}"
+
+    def set_param_names(self, names) -> None:
+        """Name the parameters for :meth:`state_dict` (``Model`` hands
+        over the network's ``named_parameters()`` names); unnamed, a
+        parameter is ``param_<position>``, as the JAX package's auto
+        names are."""
+        names = list(names)
+        if len(names) != len(self._parameter_list):
+            raise ValueError(f"{len(names)} names for "
+                             f"{len(self._parameter_list)} parameters")
+        self._param_names = names
+
+    def state_dict(self) -> Dict[str, object]:
+        """``<param name>.<slot>`` for every slot of every state (the
+        moments, the beta powers, ``master_weight``), as CPU copies, and
+        ``global_step``: the JAX package's keys and only those.  The host
+        step counts are not written; :meth:`set_state_dict` rebuilds
+        them."""
+        out: Dict[str, object] = {}
+        for i in sorted(self._state):
+            name = self._param_name(i)
+            for k, v in self._state[i].items():
+                if k != "steps":
+                    out[f"{name}.{k}"] = v.detach().cpu().clone()
+        out["global_step"] = self._global_step
+        return out
+
+    # upstream .pdopt accumulator keys: "<param>_<slot>_<ordinal>"
+    # (e.g. "linear_0.w_0_moment1_0"); the map translates the slot
+    # vocabulary into the JAX package's
+    _UPSTREAM_SLOT_MAP = {
+        "moment1": "moment1", "moment2": "moment2",
+        "moment2_max": "moment2_max",
+        "beta1_pow_acc": "beta1_pow", "beta2_pow_acc": "beta2_pow",
+        "velocity": "velocity", "mean_square": "mean_square",
+        "mean_grad": "mean_grad", "momentum": "momentum_acc",
+        "moment": "moment",
+    }
+    _UPSTREAM_KEY = re.compile(
+        r"^(?P<p>.+)_(?P<slot>moment1|moment2|moment2_max|"
+        r"beta1_pow_acc|beta2_pow_acc|velocity|mean_square|"
+        r"mean_grad|momentum|moment)_(?P<i>\d+)$")
+
+    def _maybe_import_upstream(self, sd: Dict[str, object]):
+        """An upstream Paddle ``.pdopt`` (keys in the accumulator grammar
+        above) translated into the JAX package's keys, its slot groups
+        mapped onto the parameters by position (their first appearance
+        is creation order), as ``paddle_tpu/optimizer/optimizer.py::
+        _maybe_import_upstream`` does.  Any other dict is returned as it
+        is."""
+        pat = self._UPSTREAM_KEY
+        if not any(isinstance(k, str) and pat.match(k) for k in sd):
+            return sd
+        groups: Dict[str, dict] = {}
+        for k, v in sd.items():
+            m = pat.match(k) if isinstance(k, str) else None
+            if m is None:
+                continue
+            slot = self._UPSTREAM_SLOT_MAP[m.group("slot")]
+            t = _as_tensor(v)
+            if slot.endswith("_pow") and t.numel() == 1:
+                t = t.reshape(())
+            groups.setdefault(m.group("p"), {})[slot] = t
+        if len(groups) != len(self._parameter_list):
+            warnings.warn(
+                "optimizer.set_state_dict: upstream checkpoint has "
+                f"{len(groups)} slot groups, this optimizer has "
+                f"{len(self._parameter_list)} parameters; importing the "
+                "common prefix by position")
+        out: Dict[str, object] = {}
+        mw = sd.get("master_weights")
+        for i, (upname, slots) in enumerate(
+                list(groups.items())[:len(self._parameter_list)]):
+            name = self._param_name(i)
+            for slot, t in slots.items():
+                out[f"{name}.{slot}"] = t
+            if isinstance(mw, dict) and upname in mw:
+                out[f"{name}.master_weight"] = _as_tensor(mw[upname])
+        if "global_step" in sd:
+            out["global_step"] = sd["global_step"]
+        return out
+
+    @torch.no_grad()
+    def set_state_dict(self, state_dict: Dict[str, object]) -> None:
+        """Restore :meth:`state_dict`'s (or the JAX package's, or an
+        upstream ``.pdopt``'s) slots, matched by name and shape, else,
+        when no group matches by name and the counts agree, by position
+        (``paddle_tpu/optimizer/optimizer.py::set_state_dict``).
+
+        Every slot is **copied into** the existing state tensor, never
+        rebound: a captured training step (``framework/dispatch.py``)
+        reads the moments, the beta powers and ``master_weight`` at fixed
+        addresses.  A state that does not exist yet is created as the
+        first step would create it, then filled; an fp32 master that the
+        file lacks is refreshed from the parameter.  Each state's host
+        step count is rebuilt from its beta powers (from ``global_step``
+        where it has none)."""
+        sd = self._maybe_import_upstream(state_dict)
+        self._global_step = int(sd.get("global_step", 0))
+        groups: Dict[str, dict] = {}
+        for key, v in sd.items():
+            if key in ("LR_Scheduler", "global_step") or \
+                    not isinstance(key, str):
+                continue
+            name, _, slot = key.rpartition(".")
+            if name:
+                groups.setdefault(name, {})[slot] = _as_tensor(v)
+        params = self._parameter_list
+        index = {self._param_name(i): i for i in range(len(params))}
+
+        def fits(i, st):
+            return all(t.ndim == 0 or tuple(t.shape) == tuple(params[i].shape)
+                       for t in st.values())
+
+        matched = {index[n]: st for n, st in groups.items()
+                   if n in index and fits(index[n], st)}
+        if groups and not matched and len(groups) == len(params):
+            warnings.warn(
+                "optimizer.set_state_dict: no saved slot group matches "
+                "this optimizer's parameters by name+shape; remapping "
+                "all groups by position (cross-process checkpoint).")
+
+            def ordinal(n):
+                tail = n.rsplit("_", 1)[-1]
+                return (0, int(tail)) if tail.isdigit() else (1, n)
+
+            remapped = dict(enumerate(groups[k] for k in sorted(
+                groups, key=ordinal)))
+            matched = {i: st for i, st in remapped.items() if fits(i, st)}
+            if len(matched) != len(remapped):
+                warnings.warn(
+                    "optimizer.set_state_dict: positional remap dropped "
+                    f"{len(remapped) - len(matched)} slot group(s) whose "
+                    "shapes do not fit the target parameters.")
+        else:
+            dropped = sorted(n for n in groups
+                             if n not in index or index[n] not in matched)
+            if dropped:
+                warnings.warn(
+                    "optimizer.set_state_dict: ignoring slot groups "
+                    "that match no current parameter by name+shape: "
+                    f"{dropped}")
+        for i, saved in matched.items():
+            p = params[i]
+            st = self._ensure_state(i, p)
+            for slot, t in saved.items():
+                if slot in st:
+                    st[slot].copy_(t.reshape(st[slot].shape))
+            if "master_weight" in st and "master_weight" not in saved:
+                st["master_weight"].copy_(p)
+            st["steps"] = self._steps_of(st)
+
+    def _steps_of(self, st) -> int:
+        """A state's step count: the ``t`` of its ``beta1^t`` while that
+        power is a normal fp32 value, else ``global_step``."""
+        b1 = getattr(self, "_beta1", None)
+        if "beta1_pow" in st and b1 is not None and 0.0 < b1 < 1.0:
+            pw = float(st["beta1_pow"])
+            if 1e-30 <= pw <= 1.0:      # a normal fp32, log exact enough
+                return int(round(math.log(pw) / math.log(b1)))
+        return self._global_step
 
 
 class Adam(Optimizer):

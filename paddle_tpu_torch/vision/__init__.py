@@ -1,6 +1,7 @@
 """Vision of the port (counterpart of ``paddle_tpu/vision``): the model
-zoo (``vision.models``) and the detection operators (``vision.ops``)."""
+zoo (``vision.models``), the datasets (``vision.datasets``) and the
+detection operators (``vision.ops``)."""
 
-from . import models, ops
+from . import datasets, models, ops
 
-__all__ = ["models", "ops"]
+__all__ = ["datasets", "models", "ops"]

@@ -315,7 +315,8 @@ def test_registry_refuses_unknown_names_and_parses_strictly():
                                     "PADDLE_TORCH_TRACE",
                                     "PADDLE_TORCH_TRACE_CAPACITY",
                                     "PADDLE_TORCH_EVENTS_CAPACITY",
-                                    "PADDLE_TORCH_FAULT_PLAN"}
+                                    "PADDLE_TORCH_FAULT_PLAN",
+                                    "PADDLE_TORCH_SYNTH_N"}
     target = "PADDLE_TORCH_FOLD_OVERHEAD_TARGET"
     assert env_knobs.get_float(target, 0.05, env={target: "0.2"}) == 0.2
     assert env_knobs.get_float(target, 0.05, env={target: "x"}) == 0.05

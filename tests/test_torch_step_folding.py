@@ -11,10 +11,21 @@ beta powers and step counts.  On the card each logical step of a
 group is a replay of one captured CUDA graph; the ``cuda``-marked tests
 at the end hold the replays to the same contract and skip here.
 
-Not mirrored, because the port refuses what they need (ROADMAP queue
-A): metric accumulators carried through the fold
-(``prepare(metrics=)``), ``accumulate_grad_batches`` markers, by-step LR
-schedulers, the mesh runner and the retrace sentinel.
+The fold tests that need metric accumulators carried through the fold
+and ``accumulate_grad_batches`` markers are mirrored in
+``tests/test_torch_hapi.py``: ``test_lenet_fold_bit_identical_to_fold1``,
+``test_callbacks_fire_per_logical_step_with_metric_logs``,
+``test_early_stopping_reads_evaluation``,
+``test_host_only_metric_turns_folding_off_with_a_warning``,
+``test_fold_composes_with_accumulate_grad_batches``,
+``test_threshold_metrics_fold_matches_host_path``,
+``test_accuracy_carry_agrees_with_the_pending_path``,
+``test_fold_through_dataloader``,
+``test_uneven_trailing_batch_splits_the_group`` and
+``test_fold_accumulate_callbacks_stay_in_step_order``.  Still not
+mirrored (ROADMAP queue A): by-step LR schedulers wait for item A8
+(``optimizer/lr.py``), the mesh runner for A10 and the retrace sentinel
+for A14.
 
 Across packages the tolerances are those of ``tests/test_torch_
 training.py::test_three_adamw_fit_steps_match_jax`` (fp32): losses 2e-5

@@ -236,19 +236,26 @@ def test_fit_on_cpu_makes_no_kernel_launch():
 
 
 def test_fit_refuses_what_is_not_ported():
-    """Metrics and gradient accumulation are refused (ROADMAP item 9);
-    ``amp_configs`` is ported (``amp.auto_cast``) and accepted."""
+    """``save(training=False)`` (``jit.save``) and learning-rate
+    schedulers are refused (ROADMAP items 12 and 8); metrics must be
+    ``Metric`` instances; ``amp_configs`` (``amp.auto_cast``) and
+    gradient accumulation are ported and accepted."""
     net = GPTForCausalLM(gpt_tiny(), device="cpu")
     model = tpaddle.Model(net, device="cpu")
     opt = tpaddle.optimizer.AdamW(parameters=net.parameters())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="Metric"):
         model.prepare(opt, GPTPretrainingCriterion(), metrics=["acc"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpaddle.optimizer.AdamW(learning_rate=object(),
+                                parameters=net.parameters())
     model.prepare(opt, GPTPretrainingCriterion(),
                   amp_configs={"level": "O1"})
     assert (model._amp_level, model._amp_dtype) == ("O1", "bfloat16")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        model.save("unused", training=False)
     x = torch.zeros((2, 16), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.fit([(x, x)], accumulate_grad_batches=2)
+    model.fit([(x, x)] * 2, accumulate_grad_batches=2, verbose=0)
+    assert opt._global_step == 1
 
 
 def test_model_and_gpt_without_a_card_raise(monkeypatch):
