@@ -414,6 +414,58 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
     files' sizes and the seconds; a ``DataLoader`` over
     ``SyntheticImages(3, 224, 224)`` at 0 and 4 workers: images/s and
     the idle share;
+15l. ``[train ernie sched]``: ERNIE-3.0-base MLM pretraining (12 layers,
+    hidden 768, 12 heads, vocab 40000, B=16, S=512, 15% of positions
+    labelled, dropout 0, bf16 O2, the default flash path: K5's
+    tensor-core forward and K6's split backward, non-causal) as
+    PaddleNLP's script sets it up: ``AdamW(0.9, 0.999, 1e-8,
+    weight_decay=0.01, apply_decay_param_fun=<p.name off biases and
+    norms>, grad_clip=ClipGradByGlobalNorm(1.0), multi_precision)``
+    under ``LinearWarmup(PolynomialDecay(1e-4, 16, end_lr=1e-5), 4, 0,
+    1e-4)`` (the schedule cut to the phase's 20 steps, so that it
+    crosses the warmup into the decay; the widths are not cut), through
+    ``Model.fit`` with ``LRSchedulerCallback(by_step=True,
+    by_epoch=False)``: K=1, a replay of the captured step a step with
+    the rate refreshed before it.  On that run (the main path, PyTorch's
+    default mode): each step's rate equal to the schedule's (printed),
+    step 1's global norm within 1e-5 relative of a float64 recompute of
+    the same bf16 gradients, K5/K6 launched 12 + 12 + 12 a step, all
+    tensor-core, nothing plain; ms a step beside ``[train ernie bh]``,
+    peak memory, the clip alone (device time) and a profile of two
+    replays with the clip's norms and the optimizer's foreach kernels
+    as groups.  Then, under ``torch.use_deterministic_algorithms`` (the
+    CUDA embedding backward sums the all-zero token-type ids in an order
+    that changes from run to run, and the clip spreads that last bit to
+    every update): the end state (parameters, masters, moments, beta
+    powers, step counts, the scheduler's epochs) and the losses
+    bit-equal to the eager route's (``steps_per_dispatch=0``) from the
+    same weights and batches; a save after step 10 loaded into a fresh
+    captured model and run 10 more steps bit-equal to the straight run;
+    two controls patched in (the rate never refreshed, the clip left
+    out) must fail the eager gate;
+15m. ``[train ernie fp16 scaler]``: the same model and optimizer in
+    fp16 O2 through PaddleNLP's custom loop, eagerly: ``auto_cast(O2,
+    float16)`` forward, ``scaler.scale(loss).backward();
+    scaler.step(opt); scaler.update(); opt.clear_grad()``, 20 steps from
+    ``GradScaler(init_loss_scaling=32768)``, then from 2**24 and 2**32
+    (the last must overflow).  Every skipped step leaves every
+    parameter, master, moment, beta power and step count bit-unchanged
+    and halves the scale; the losses are finite, the first within
+    ``FP16_FIRST_LOSS_TOL`` of ``[train ernie sched]``'s (same weights
+    and batch); K5/K6 launched 12 + 12 + 12 a step in fp16, all
+    tensor-core (an inf in the backward's operands neither traps nor
+    hangs them); prints the skips and the scale a step, then times the
+    loop alone from 32768 (the scaler's read the one sync a step);
+15n. ``[optimizers]``: SGD, Momentum (Nesterov), Adam (amsgrad), AdamW
+    (a decay function, the global-norm clip), Adagrad, RMSProp (plain
+    and centered with momentum), Lamb (an exclude function), Adadelta
+    and Adamax, three steps each on the card and on the CPU from the
+    same fp32 weights and gradients (within ``OPT_TOL`` x max(|ref|,
+    1)), and LBFGS with the strong-Wolfe line search on the extended
+    Rosenbrock function of 64 values; then each but LBFGS in
+    ``Model.fit`` of a small MLP with ``StepDecay`` stepped by step: K=1
+    replays bit-equal to the eager route (a scalar the capture froze
+    would show);
 16. ``[lmce tc]`` holds the tensor-core LMCE backward
     (``csrc/lmce_sm90.cu``, ``wgmma`` fed by TMA) against its plain
     versions (dL rounded to the operand dtype; each element within
@@ -5151,7 +5203,7 @@ def fold_parity_phase(torch, seed):
               f"{_state_diff(torch, drop[0]['state'], drop[4]['state']):.3e}",
               flush=True)
 
-    def host_scalars(self, states, lr):
+    def host_scalars(self, states, lr, decay):
         """Control 1: the scalars as host floats of the host step count
         (the optimizer before device scalars); a capture freezes them."""
         f = np.float32
@@ -5160,7 +5212,7 @@ def fold_parity_phase(torch, seed):
         lr32 = f(self.get_lr())
         root = np.sqrt(f(1) - b2p, dtype=f)
         vals = (f(lr32 * root / (f(1) - b1p)), f(f(self._epsilon) * root),
-                f(lr32 * f(self._weight_decay)))
+                f(lr32 * f(decay)))
         return tuple(torch.full((), float(v), dtype=torch.float32,
                                 device=lr.device) for v in vals)
 
@@ -7056,6 +7108,599 @@ def train_resnet50_fit_phase(torch, seed):
             "loader": loader_ips}
 
 
+# -- ERNIE pretraining as PaddleNLP sets it up (slice 18) ------------------
+
+ERNIE_SCHED_STEPS = 20           # [train ernie sched] / [... fp16 scaler]
+ERNIE_SAVE_AT = 10               # [train ernie sched]: the checkpoint's step
+ERNIE_WARMUP, ERNIE_DECAY = 4, 16    # the schedule cut to the 20 steps:
+ERNIE_PEAK_LR, ERNIE_END_LR = 1e-4, 1e-5  # warmup, then the linear decay
+ERNIE_NO_DECAY = ("bias", "norm", "ln")   # PaddleNLP's "bias"/"norm", and
+                                 # this BERT's LayerNorm names ln1/ln2/_ln
+ERNIE_NORM_RTOL = 1e-5           # the clip's global norm vs float64
+SCALER_TIMED = 12                # [train ernie fp16 scaler]: the timed loop
+SCALER_INITS = (32768.0, 2.0 ** 24, 2.0 ** 32)   # [train ernie fp16
+                                 # scaler]: PaddleNLP's, then two that
+                                 # overflow (the last must)
+OPT_STEPS, OPT_FIT_STEPS = 3, 6  # [optimizers]: card vs CPU, fit K=1/eager
+OPT_TOL = 1e-6                   # x max(|ref|, 1), fp32, card vs CPU
+
+
+def _ernie_pretrain_model(torch, seed, dtype="bfloat16", device="cuda"):
+    """ERNIE-3.0-base MLM from ``seed`` (dropout 0), O2 in ``dtype``, and
+    PaddleNLP's pretraining optimizer: AdamW(0.9, 0.999, 1e-8, decay
+    0.01 on the parameters whose structured name holds none of
+    ERNIE_NO_DECAY, by ``p.name``), ClipGradByGlobalNorm(1.0),
+    multi_precision, LinearWarmup(PolynomialDecay) cut to the phase."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import BertForPretraining, ernie_3_base
+    cfg = ernie_3_base(hidden_dropout_prob=0.0,
+                       attention_probs_dropout_prob=0.0)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    net = BertForPretraining(cfg, device=device, generator=gen)
+    decay = {p.name for n, p in net.named_parameters()
+             if not any(nd in n for nd in ERNIE_NO_DECAY)}
+    lr = paddle.optimizer.lr
+    sched = lr.LinearWarmup(
+        lr.PolynomialDecay(ERNIE_PEAK_LR, ERNIE_DECAY, end_lr=ERNIE_END_LR,
+                           power=1.0), ERNIE_WARMUP, 0.0, ERNIE_PEAK_LR)
+    opt = paddle.optimizer.AdamW(
+        learning_rate=sched, beta1=0.9, beta2=0.999, epsilon=1e-8,
+        parameters=net.parameters(), weight_decay=0.01,
+        apply_decay_param_fun=lambda name: name in decay,
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0), multi_precision=True)
+    paddle.amp.decorate(net, opt, level="O2", dtype=dtype)
+    return cfg, net, opt, sched
+
+
+def _ernie_batches(torch, vocab, seed):
+    return [tuple(t.pin_memory() for t in
+                  _mlm_batch(torch, vocab, ERNIE_B, ERNIE_S, seed + 40 + i))
+            for i in range(ERNIE_SCHED_STEPS)]
+
+
+def _pretrain_state(torch, opt, net):
+    """Parameters, every optimizer slot (masters, moments, beta powers),
+    the step counts and the scheduler's epochs (the inner scheduler's
+    too), cloned on the card."""
+    out = {f"param {n}": p.detach().clone()
+           for n, p in net.named_parameters()}
+    for i, st in opt._state.items():
+        for k, v in st.items():
+            out[f"{i} {k}"] = (v.detach().clone()
+                               if isinstance(v, torch.Tensor) else v)
+    out["global_step"] = opt._global_step
+    sched = opt._learning_rate
+    out["last_epoch"] = (getattr(sched, "last_epoch", None), getattr(
+        getattr(sched, "lr_after", None), "last_epoch", None))
+    return out
+
+
+CLIP_NORM_KERNELS = ("NormTwo", "LpNorm")   # the clip's norms: per-tensor
+                                 # reductions, or the foreach kernel where
+                                 # a list is of one dtype
+
+
+def _pretrain_group(name):
+    """Profile groups of the pretraining step: the global-norm clip's
+    norms apart from the optimizer's foreach kernels (its fp32 widening
+    and rounding copies stay among the elementwise kernels)."""
+    if any(k in name for k in CLIP_NORM_KERNELS):
+        return "clip norms"
+    return _kernel_group(name)
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(torch):
+    """``torch.use_deterministic_algorithms(True, warn_only=True)`` for
+    the block, then the previous setting; yields the warnings the block
+    raised.  ``warn_only``: PyTorch decides once per process whether
+    ``CUBLAS_WORKSPACE_CONFIG`` is deterministic, at the first cuBLAS
+    call, before this script's later phases could set it."""
+    import warnings
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            yield caught
+        finally:
+            torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+
+
+def _grad_norm_check(torch, tag, cfg, net, opt, batch):
+    """The clip's global norm over the bf16 gradients of step 1 (the
+    start's weights, batch 0) against a float64 recompute of the same
+    gradients, and the clip alone timed by events; the gradients are
+    dropped after."""
+    from paddle_tpu_torch.models import BertPretrainingCriterion
+    x, labels = (t.cuda() for t in batch)
+    BertPretrainingCriterion(cfg.vocab_size)(*net(x), labels).backward()
+    grads = [p.grad for p in net.parameters() if p.grad is not None]
+    clip = opt._grad_clip
+    norm = clip.global_norm(grads).item()
+    ref = float(np.sqrt(sum(g.double().square().sum().item()
+                            for g in grads)))
+    rel = abs(norm - ref) / ref
+    check(rel <= ERNIE_NORM_RTOL, f"[{tag}] global norm {norm} vs float64 "
+          f"{ref} (relative {rel:.3e} > {ERNIE_NORM_RTOL})")
+    clip_ms = device_ms(torch, lambda: clip.pure_clip(grads), 10,
+                        {"clip": (), "norms": CLIP_NORM_KERNELS})
+    dtypes = sorted({str(g.dtype) for g in grads})
+    n_el = sum(g.numel() for g in grads)
+    for p in net.parameters():
+        p.grad = None
+    return {"norm": norm, "ref": ref, "rel": rel, "clip_ms": clip_ms,
+            "tensors": len(grads), "elements": n_el, "dtypes": dtypes}
+
+
+def ernie_sched_phase(torch, seed, base):
+    """``[train ernie sched]`` (module docstring, 15l).  ``base`` is
+    ``[train ernie bh]``'s result, whose step ms is printed beside."""
+    import gc
+    import tempfile
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.hapi.callbacks import Callback, LRSchedulerCallback
+    from paddle_tpu_torch.models import BertPretrainingCriterion
+    from paddle_tpu_torch.ops import flash_attention_kernel as fk
+    from paddle_tpu_torch.ops import lmce_kernel as lk
+    tag = "train ernie sched"
+    vocab = 40000
+    batches = _ernie_batches(torch, vocab, seed)
+
+    class Rates(Callback):
+        """The rate each step ran at (before the scheduler steps)."""
+
+        def __init__(self, opt):
+            super().__init__()
+            self.opt, self.rates = opt, []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.rates.append(self.opt.get_lr())
+
+    class Saver(Callback):
+        """``model.save`` after the ``at``-th step (after the scheduler
+        stepped, as PaddleNLP saves)."""
+
+        def __init__(self, at, path):
+            super().__init__()
+            self.at, self.path = at, path
+
+        def on_train_batch_end(self, step, logs=None):
+            if self.path is not None and step + 1 == self.at:
+                self.model.save(self.path)
+
+    def run(fold, data, save=None, load=None, patch=None, norm=False):
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg, net, opt, sched = _ernie_pretrain_model(torch, seed)
+        model = paddle.Model(net, device="cuda")
+        model.prepare(opt, BertPretrainingCriterion(cfg.vocab_size))
+        extra = {}
+        if norm:
+            extra["norm"] = _grad_norm_check(torch, tag, cfg, net, opt,
+                                             data[0])
+        if load is not None:
+            model.load(load)
+        if patch is not None:
+            patch(opt)
+        clock, rates = _step_clock(torch), Rates(opt)
+        torch.cuda.reset_peak_memory_stats()
+        fk.reset_counts()
+        lk.reset_counts()
+        model.fit(data, epochs=1, verbose=0, steps_per_dispatch=fold,
+                  callbacks=[clock, rates,
+                             LRSchedulerCallback(by_step=True, by_epoch=False),
+                             Saver(ERNIE_SAVE_AT, save)])
+        torch.cuda.synchronize()
+        extra.update(launches=launch_table(fk, lk), plain={
+            f.__name__: f.plain_calls for f in fk.ALL_WRAPPERS + lk.WRAPPERS},
+            peak=torch.cuda.max_memory_allocated(),
+            graphs=model.compile_stats(), fold=model._fold)
+        steps_ms = np.diff(clock.stamps) * 1e3
+        return dict(model=model, net=net, opt=opt, sched=sched,
+                    state=_pretrain_state(torch, opt, net),
+                    losses=clock.losses, rates=rates.rates,
+                    step_ms=float(np.median(steps_ms[2:])), **extra)
+
+    # the main path as a user runs it: Model.fit at K=1 (a by-step
+    # scheduler), a replay of the captured step a step with the rate
+    # refreshed before it; timed, counted and profiled
+    t = run(None, batches, norm=True)
+    want = _want_launches(ERNIE_SCHED_STEPS * 12)
+    check(t["launches"] == want, f"[{tag}] launches {t['launches']}, "
+          f"expected {want}")
+    check(not any(t["plain"].values()), f"[{tag}] plain {t['plain']}")
+    check(t["fold"] == 1 and t["graphs"] == {"graphs": 1, "captures": 1},
+          f"[{tag}] fold {t['fold']} graphs {t['graphs']}")
+    check(all(np.isfinite(t["losses"])), f"[{tag}] losses {t['losses']}")
+    sched_rates = [0.0] + [ERNIE_PEAK_LR * k / ERNIE_WARMUP
+                           for k in range(1, ERNIE_WARMUP)]
+    sched_rates += [(ERNIE_PEAK_LR - ERNIE_END_LR) *
+                    (1 - min(k, ERNIE_DECAY) / ERNIE_DECAY) + ERNIE_END_LR
+                    for k in range(ERNIE_SCHED_STEPS - ERNIE_WARMUP)]
+    check(np.allclose(t["rates"], sched_rates, rtol=1e-12, atol=0),
+          f"[{tag}] rates {t['rates']} vs {sched_rates}")
+    lr_dev = [v.item() for v in t["opt"]._lr_dev.values()]
+    check(lr_dev == [np.float32(t["rates"][-1])],
+          f"[{tag}] the device rate {lr_dev} vs the last step's "
+          f"{t['rates'][-1]}")
+    prof = profile_run(
+        torch, tag, "replayed", lambda: t["model"].fit(
+            [batches[0]] * 2, epochs=1, verbose=0, steps_per_dispatch=2),
+        2, group=_pretrain_group)
+    free_model(torch, tag, t.pop("model"))
+    del t["net"], t["opt"], t["state"]
+    # the gates, under torch.use_deterministic_algorithms: PyTorch's CUDA
+    # embedding backward sums the token-type table (every id 0) in an
+    # order that changes from run to run, and the global-norm clip
+    # carries that last bit into every parameter's update, so two eager
+    # runs part within a few steps; its deterministic form makes runs
+    # repeatable (the flash kernels and cuBLAS are in either mode)
+    with deterministic_algorithms(torch) as warned, \
+            tempfile.TemporaryDirectory() as d:
+        ckpt = os.path.join(d, "ernie")
+        a = run(None, batches, save=ckpt)
+        free_model(torch, tag, a.pop("model"))
+        del a["net"], a["opt"]
+        b = run(0, batches)
+        free_model(torch, tag, b.pop("model"))
+        del b["net"], b["opt"]
+        same = _states_equal(torch, a["state"], b["state"])
+        diff = _state_diff(torch, b["state"], a["state"])
+        check(same and a["losses"] == b["losses"],
+              f"[{tag}] replays vs eager: largest |diff|/max(|ref|,1) "
+              f"{diff:.3e}, losses {a['losses']} vs {b['losses']}")
+        # resumed from the step-10 checkpoint into a fresh captured model
+        c = run(None, batches[ERNIE_SAVE_AT:], load=ckpt)
+        free_model(torch, tag, c.pop("model"))
+        del c["net"], c["opt"]
+        check(_states_equal(torch, a["state"], c["state"]) and
+              c["losses"] == a["losses"][ERNIE_SAVE_AT:] and
+              c["rates"] == a["rates"][ERNIE_SAVE_AT:],
+              f"[{tag}] resumed run vs straight: largest diff "
+              f"{_state_diff(torch, a['state'], c['state']):.3e}")
+        ckpt_sizes = [os.path.getsize(ckpt + s)
+                      for s in (".pdparams", ".pdopt")]
+        del c
+
+        # two controls, patched in here, must fail the gate
+
+        def frozen_rate(opt):
+            opt.refresh_lr = lambda: None
+
+        def no_clip(opt):
+            opt._grad_clip = None
+
+        controls = {}
+        for name, patch in (("refresh_lr writes nothing", frozen_rate),
+                            ("the clip left out", no_clip)):
+            r = run(None, batches, patch=patch)
+            free_model(torch, tag, r.pop("model"))
+            check(not _states_equal(torch, b["state"], r["state"]),
+                  f"[{tag}] control '{name}' passed the gate")
+            controls[name] = _state_diff(torch, b["state"], r["state"])
+            del r
+    warned = sorted({str(w.message)[:120] for w in warned})
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(t["losses"],
+                                                        a["losses"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = t["norm"]
+    print(f"[{tag}] ERNIE-3.0-base L=12 D=768 H=12 V=40000 B={ERNIE_B} "
+          f"S={ERNIE_S} bf16 O2, MLM 15%, PaddleNLP's setting: AdamW(0.9, "
+          f"0.999, 1e-8, decay 0.01 off biases and norms), "
+          f"ClipGradByGlobalNorm(1.0), LinearWarmup(PolynomialDecay("
+          f"{ERNIE_PEAK_LR}, {ERNIE_DECAY}, end_lr={ERNIE_END_LR}), "
+          f"{ERNIE_WARMUP}, 0, {ERNIE_PEAK_LR}) (the schedule cut to the "
+          f"phase's {ERNIE_SCHED_STEPS} steps; widths not cut), "
+          f"LRSchedulerCallback(by_step=True): {ERNIE_SCHED_STEPS} steps at "
+          f"steps_per_dispatch={t['fold']} ({t['graphs']})", flush=True)
+    print(f"[{tag}] rate a step: "
+          + ", ".join(f"{r:.4g}" for r in t["rates"]), flush=True)
+    print(f"[{tag}] losses: " + ", ".join(f"{v:.6f}" for v in t["losses"]),
+          flush=True)
+    print(f"[{tag}] step 1's global norm {n['norm']:.9g} vs float64 "
+          f"{n['ref']:.9g} over the {n['tensors']} gradients "
+          f"({n['elements']} elements, {n['dtypes']}): relative "
+          f"{n['rel']:.3e} (tol {ERNIE_NORM_RTOL}); the clip alone "
+          f"{n['clip_ms']['clip']:.4f} ms of device time, its norms "
+          f"{n['clip_ms']['norms']:.4f} (torch.profiler)", flush=True)
+    print(f"[{tag}] under torch.use_deterministic_algorithms (warnings "
+          f"{warned}): replays vs the eager route: end states (parameters, "
+          f"masters, moments, beta powers, step counts, scheduler epochs) "
+          f"and losses bit-equal; resumed from the step-{ERNIE_SAVE_AT} "
+          f"checkpoint (.pdparams {ckpt_sizes[0]} B, .pdopt {ckpt_sizes[1]} "
+          f"B) into a fresh captured model, "
+          f"{ERNIE_SCHED_STEPS - ERNIE_SAVE_AT} steps bit-equal to the straight run; its losses vs the default "
+          f"mode's: largest relative diff {loss_rel:.3e}", flush=True)
+    print(f"[{tag}] controls fail the gates (largest |diff|/max(|ref|,1) "
+          f"from the eager route): " + "; ".join(
+              f"{k}: {v:.3e}" for k, v in controls.items()), flush=True)
+    tok_s = ERNIE_B * ERNIE_S / (t["step_ms"] * 1e-3)
+    print(f"[{tag}] step_ms median(steps 3+) replayed {t['step_ms']:.3f} "
+          f"vs [train ernie bh] {base['step_ms']:.3f} ({tok_s:.1f} "
+          f"tokens/s); deterministic mode: "
+          f"replayed {a['step_ms']:.3f}, eager {b['step_ms']:.3f}; "
+          f"peak_mem_gib {t['peak'] / 2**30:.3f}; launches "
+          f"{t['launches']}", flush=True)
+    return {"launches": t["launches"], "losses": t["losses"],
+            "step_ms": t["step_ms"], "det_ms": a["step_ms"],
+            "eager_ms": b["step_ms"], "peak": t["peak"], "norm": n,
+            "profile": prof, "controls": controls}
+
+
+def ernie_scaler_phase(torch, seed, base):
+    """``[train ernie fp16 scaler]`` (module docstring, 15m).  ``base``
+    is ``[train ernie sched]``'s result (bf16, same weights and first
+    batch)."""
+    import gc
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import BertPretrainingCriterion
+    from paddle_tpu_torch.ops import flash_attention_kernel as fk
+    from paddle_tpu_torch.ops import lmce_kernel as lk
+    tag = "train ernie fp16 scaler"
+    vocab = 40000
+    batches = _ernie_batches(torch, vocab, seed)
+    base_first = base["losses"][0]
+    out = {}
+    for init in SCALER_INITS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg, net, opt, sched = _ernie_pretrain_model(torch, seed,
+                                                     dtype="float16")
+        crit = BertPretrainingCriterion(cfg.vocab_size)
+        scaler = paddle.amp.GradScaler(init_loss_scaling=init)
+        losses, skipped, scales = [], [], []
+        fk.reset_counts()
+        lk.reset_counts()
+        for step, (x, labels) in enumerate(batches):
+            before = _pretrain_state(torch, opt, net) if step else None
+            scale, taken = scaler._scale, opt._global_step
+            x, labels = x.cuda(non_blocking=True), labels.cuda(
+                non_blocking=True)
+            with paddle.amp.auto_cast(level="O2", dtype="float16"):
+                outs = net(x)
+            loss = crit(*outs, labels)
+            scaler.scale(loss).backward()
+            scaler.step(opt)
+            scaler.update()
+            opt.clear_grad()
+            sched.step()
+            losses.append(float(loss.detach()))
+            skipped.append(opt._global_step == taken)   # step() not called
+            scales.append(scaler._scale)
+            if skipped[-1]:
+                check(scaler._scale == max(scale * 0.5, 1.0),
+                      f"[{tag}] step {step}: scale {scale} -> "
+                      f"{scaler._scale} on a skip")
+                if before is not None:
+                    after = _pretrain_state(torch, opt, net)
+                    del after["last_epoch"], before["last_epoch"]
+                    check(_states_equal(torch, before, after),
+                          f"[{tag}] step {step} skipped but the state moved")
+                else:
+                    check(not opt._state and opt._global_step == 0,
+                          f"[{tag}] a skipped first step made state")
+            del before
+        launches = launch_table(fk, lk)
+        plain = {f.__name__: f.plain_calls
+                 for f in fk.ALL_WRAPPERS + lk.WRAPPERS}
+        want = _want_launches(ERNIE_SCHED_STEPS * 12)
+        check(launches == want, f"[{tag}] init {init}: launches {launches},"
+              f" expected {want}")
+        check(not any(plain.values()), f"[{tag}] plain calls {plain}")
+        check(all(np.isfinite(losses)), f"[{tag}] losses {losses}")
+        taken = skipped.count(False)
+        check(taken > 0 and opt._global_step == taken,
+              f"[{tag}] init {init}: {taken} steps taken, global_step "
+              f"{opt._global_step}")
+        dtypes = {p.dtype for p in net.parameters()}
+        check(dtypes == {torch.float16, torch.float32},
+              f"[{tag}] O2 parameter dtypes {dtypes}")
+        rel = abs(losses[0] - base_first) / abs(base_first)
+        check(rel <= FP16_FIRST_LOSS_TOL,
+              f"[{tag}] first loss {losses[0]} vs bf16 {base_first} "
+              f"(relative {rel:.3e} > {FP16_FIRST_LOSS_TOL})")
+        out[init] = {"losses": losses, "skipped": skipped, "scales": scales,
+                     "launches": launches, "rel": rel}
+        print(f"[{tag}] init_loss_scaling={init:g}: {ERNIE_SCHED_STEPS} "
+              f"eager steps (auto_cast O2 fp16, scaler.scale(loss)."
+              f"backward(); scaler.step(opt); scaler.update(); "
+              f"opt.clear_grad()); skipped steps "
+              f"{[i for i, s in enumerate(skipped) if s]}, each leaving "
+              f"every parameter, master, moment, beta power and step count "
+              f"bit-unchanged and halving the scale; scale after each step "
+              f"{[f'{s:g}' for s in scales]}", flush=True)
+        print(f"[{tag}] init_loss_scaling={init:g}: losses "
+              + ", ".join(f"{v:.6f}" for v in losses)
+              + f"; first loss vs bf16 {base_first:.6f}: relative "
+              f"{rel:.3e} (tol {FP16_FIRST_LOSS_TOL}); fp16 launches "
+              f"{launches}", flush=True)
+        del net, opt, sched, scaler
+    check(any(out[SCALER_INITS[-1]]["skipped"]),
+          f"[{tag}] no step overflowed from {SCALER_INITS[-1]:g}")
+    # the loop timed alone from PaddleNLP's scale: no snapshot and no
+    # loss read, so the scaler's found_inf is the one host read a step
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, net, opt, sched = _ernie_pretrain_model(torch, seed, dtype="float16")
+    scaler = paddle.amp.GradScaler(init_loss_scaling=SCALER_INITS[0])
+    torch.cuda.reset_peak_memory_stats()
+    for step, (x, labels) in enumerate(batches[:SCALER_TIMED]):
+        if step == 2:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+        x, labels = x.cuda(non_blocking=True), labels.cuda(non_blocking=True)
+        with paddle.amp.auto_cast(level="O2", dtype="float16"):
+            outs = net(x)
+        scaler.scale(crit(*outs, labels)).backward()
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        sched.step()
+    torch.cuda.synchronize()
+    step_ms = (time.monotonic() - t0) * 1e3 / (SCALER_TIMED - 2)
+    peak = torch.cuda.max_memory_allocated()
+    del net, opt, sched, scaler
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[{tag}] timed alone from {SCALER_INITS[0]:g}: {step_ms:.3f} ms "
+          f"a step over steps 3-{SCALER_TIMED} (one host read a step, the "
+          f"scaler's), against bf16 [train ernie sched] replayed "
+          f"{base['step_ms']:.3f} and eager {base['eager_ms']:.3f} "
+          f"(deterministic mode); peak_mem_gib {peak / 2**30:.3f}",
+          flush=True)
+    out["step_ms"], out["peak"] = step_ms, peak
+    return out
+
+
+def _opt_cases(paddle):
+    """[optimizers]: each update rule with its settings (the rate a
+    StepDecay under fit), the lambdas building a fresh one."""
+    lr = paddle.optimizer.lr
+    o = paddle.optimizer
+    clip = paddle.nn.ClipGradByGlobalNorm
+
+    def sched(v):
+        return lr.StepDecay(v, step_size=2, gamma=0.5)
+
+    return {
+        "SGD": lambda ps, f: o.SGD(f(0.1), parameters=ps, weight_decay=0.01),
+        "Momentum nesterov": lambda ps, f: o.Momentum(
+            f(0.1), 0.8, parameters=ps, use_nesterov=True,
+            weight_decay=0.01),
+        "Adam amsgrad": lambda ps, f: o.Adam(f(0.01), parameters=ps,
+                                             amsgrad=True),
+        "AdamW decay fn, clip": lambda ps, f: o.AdamW(
+            f(0.01), parameters=ps, weight_decay=0.1,
+            apply_decay_param_fun=lambda n: n != ps[1].name,
+            grad_clip=clip(1.0)),
+        "Adagrad": lambda ps, f: o.Adagrad(f(0.1), parameters=ps,
+                                           weight_decay=0.01,
+                                           initial_accumulator_value=0.1),
+        "RMSProp": lambda ps, f: o.RMSProp(f(0.01), parameters=ps,
+                                           weight_decay=0.01),
+        "RMSProp centered": lambda ps, f: o.RMSProp(
+            f(0.01), parameters=ps, centered=True, momentum=0.9),
+        "Lamb": lambda ps, f: o.Lamb(f(0.01), lamb_weight_decay=0.1,
+                                     parameters=ps,
+                                     exclude_from_weight_decay_fn=(
+                                         lambda n: n == ps[1].name)),
+        "Adadelta": lambda ps, f: o.Adadelta(f(1.0), parameters=ps,
+                                             weight_decay=0.01),
+        "Adamax": lambda ps, f: o.Adamax(f(0.01), parameters=ps,
+                                         weight_decay=0.01),
+    }, sched
+
+
+def optimizers_phase(torch, seed):
+    """``[optimizers]`` (module docstring, 15n)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.hapi.callbacks import LRSchedulerCallback
+    tag = "optimizers"
+    rng = np.random.default_rng(seed + 60)
+    shapes = [(256, 512), (512,), (512, 64), (64,)]
+    w0 = [(rng.standard_normal(s) * 0.1).astype(np.float32) for s in shapes]
+    grads = [[(rng.standard_normal(s) * sc).astype(np.float32)
+              for s in shapes] for sc in (1.0, 1e-3, 0.3)]
+    cases, sched = _opt_cases(paddle)
+    errs = {}
+    for name, make in cases.items():
+        ends = {}
+        for dev in ("cuda", "cpu"):
+            ps = [nn.Parameter(torch.from_numpy(w).to(dev), name=f"w{i}")
+                  for i, w in enumerate(w0)]
+            opt = make(ps, lambda v: v)
+            for k in range(OPT_STEPS):
+                for p, g in zip(ps, grads[k]):
+                    p.grad = torch.from_numpy(g).to(dev)
+                opt.step()
+            ends[dev] = [p.detach().cpu() for p in ps]
+        errs[name] = max(((c - r).abs().max() / max(r.abs().max(), 1.0)).item()
+                         for c, r in zip(ends["cuda"], ends["cpu"]))
+        check(errs[name] <= OPT_TOL, f"[{tag}] {name}: card vs CPU "
+              f"{errs[name]:.3e} > {OPT_TOL}")
+
+    # LBFGS (eager only): the extended Rosenbrock function of 64 values
+    def lbfgs_end(dev):
+        w = nn.Parameter(torch.from_numpy(
+            np.linspace(-1.2, 1.0, 64).astype(np.float32)).to(dev), name="w")
+        opt = paddle.optimizer.LBFGS(learning_rate=1.0, max_iter=4,
+                                     line_search_fn="strong_wolfe",
+                                     parameters=[w])
+
+        def closure():
+            opt.clear_grad()
+            a, b = w[:-1], w[1:]
+            loss = (100.0 * (b - a * a) * (b - a * a)
+                    + (1.0 - a) * (1.0 - a)).sum()
+            loss.backward()
+            return loss
+
+        losses = [float(opt.step(closure)) for _ in range(OPT_STEPS)]
+        return w.detach().cpu(), losses
+
+    (wc, lc), (wr, lr_) = lbfgs_end("cuda"), lbfgs_end("cpu")
+    errs["LBFGS strong_wolfe"] = ((wc - wr).abs().max() /
+                                  max(wr.abs().max(), 1.0)).item()
+    check(errs["LBFGS strong_wolfe"] <= OPT_TOL and lc[-1] < lc[0],
+          f"[{tag}] LBFGS: card vs CPU {errs['LBFGS strong_wolfe']:.3e}, "
+          f"losses {lc} / {lr_}")
+
+    # each rule but LBFGS in Model.fit at K=1 (replays) against the
+    # eager route, bit-equal: a scalar the capture froze shows here
+    data_rng = np.random.default_rng(seed + 61)
+    data = [(torch.from_numpy(data_rng.standard_normal((32, 256)).astype(
+        np.float32)), torch.from_numpy(data_rng.integers(0, 64, (32,))))
+        for _ in range(OPT_FIT_STEPS)]
+
+    def fit_end(make, fold):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        net = nn.Sequential(nn.Linear(256, 512, device="cuda", generator=gen),
+                            nn.ReLU(),
+                            nn.Linear(512, 64, device="cuda", generator=gen))
+        opt = make(list(net.parameters()), sched)
+        model = paddle.Model(net, device="cuda")
+        model.prepare(opt, nn.CrossEntropyLoss())
+        keep = _loss_keeper()
+        model.fit(data, epochs=1, verbose=0, steps_per_dispatch=fold,
+                  callbacks=[keep, LRSchedulerCallback(by_step=True,
+                                                       by_epoch=False)])
+        torch.cuda.synchronize()
+        state = _pretrain_state(torch, opt, net)
+        graphs = model.compile_stats()
+        model.release_graphs()
+        return state, keep.losses, graphs
+
+    fits = {}
+    for name, make in cases.items():
+        s1, l1, g1 = fit_end(make, 1)
+        s0, l0, g0 = fit_end(make, 0)
+        check(g1 == {"graphs": 1, "captures": 1} and
+              g0 == {"graphs": 0, "captures": 0},
+              f"[{tag}] {name}: graphs {g1} / {g0}")
+        check(_states_equal(torch, s1, s0) and l1 == l0,
+              f"[{tag}] {name}: K=1 replays vs eager route, largest diff "
+              f"{_state_diff(torch, s0, s1):.3e}, losses {l1} vs {l0}")
+        fits[name] = l1[-1] < l1[0]
+    print(f"[{tag}] {OPT_STEPS} steps on the card and on the CPU from the "
+          f"same fp32 weights and gradients, largest |diff|/max(|ref|,1) "
+          f"(tol {OPT_TOL}): " + ", ".join(f"{k} {v:.3e}"
+                                           for k, v in errs.items()),
+          flush=True)
+    print(f"[{tag}] Model.fit of an MLP (256-512-64) over {OPT_FIT_STEPS} "
+          f"batches with StepDecay(step_size=2) by step: K=1 replays "
+          f"bit-equal to the eager route for every rule ({len(fits)}); loss "
+          f"fell for {sum(fits.values())}", flush=True)
+    return errs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7147,6 +7792,9 @@ def main(argv=None) -> int:
     del det_net, det_data
     train_lenet_phase(torch, args.seed)
     train_resnet50_fit_phase(torch, args.seed)
+    esched = ernie_sched_phase(torch, args.seed, ernie_train)
+    escaler = ernie_scaler_phase(torch, args.seed, esched)
+    optimizers_phase(torch, args.seed)
 
     k32, k16 = kres["fp32"], kres["bf16"]
     kernels = [{
@@ -7412,6 +8060,12 @@ def main(argv=None) -> int:
             entry["fp16_launches"] = fp16_train["launches"][name]
             entry["fp16_tc_launches"] = fp16_train["launches"][f"{name}.tc"]
             entry["fused_lmce_launches"] = lmce_train["launches"][name]
+            entry["ernie_sched_launches"] = esched["launches"][name]
+            entry["ernie_sched_tc_launches"] = \
+                esched["launches"][f"{name}.tc"]
+            fp16 = escaler[SCALER_INITS[0]]["launches"]
+            entry["ernie_fp16_scaler_launches"] = fp16[name]
+            entry["ernie_fp16_scaler_tc_launches"] = fp16[f"{name}.tc"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -58,7 +58,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "Model", "seed", "amp", "optimizer", "nn",
+__all__ = ["resolve_device", "Model", "seed", "amp", "optimizer",
+           "regularizer", "nn",
            "io", "vision", "metric", "callbacks", "save", "load",
            "summary", "flops"]
 
@@ -80,7 +81,7 @@ def resolve_device(device=None) -> torch.device:
 
 
 # submodules import resolve_device, so they load after it is defined
-from . import amp, io, metric, nn, optimizer, vision  # noqa: E402
+from . import amp, io, metric, nn, optimizer, regularizer, vision  # noqa: E402
 from .framework.io import load, save  # noqa: E402
 from .framework.random import seed  # noqa: E402
 from .hapi import Model, callbacks  # noqa: E402

@@ -225,13 +225,14 @@ class LRSchedulerCallback(Callback):
         self.by_epoch = by_epoch
 
     def _sched(self):
-        """The optimizer's scheduler.  The port's optimizers take a float
-        rate until ``optimizer/lr.py`` is ported (ROADMAP queue A, item
-        8), so there is none yet and the callback does nothing; ``fit``
-        reads ``by_step`` all the same."""
+        """The optimizer's :class:`~paddle_tpu_torch.optimizer.lr.
+        LRScheduler`, or None under a float rate.  A by-step scheduler
+        makes ``fit`` run one step a group (``Model._resolve_fold``),
+        whose learning-rate scalar is refreshed before each replay."""
+        from ..optimizer.lr import LRScheduler
         opt = getattr(self.model, "_optimizer", None)
         lr = getattr(opt, "_learning_rate", None)
-        return lr if hasattr(lr, "step") else None
+        return lr if isinstance(lr, LRScheduler) else None
 
     def on_epoch_end(self, epoch, logs=None):
         s = self._sched()

@@ -39,10 +39,18 @@ prepared level, with the metric stats in the graph; on the CPU the
 same body runs eagerly.  :meth:`predict_batch` and :meth:`predict`
 return numpy arrays (a bf16 output as fp32).
 
+Learning-rate schedules: the update reads the optimizer's learning
+rate from a 0-d device tensor that ``refresh_lr`` fills outside the
+graph before every group; a by-step ``LRSchedulerCallback`` steps the
+scheduler after each step and makes every group one step long, so each
+replay runs at its step's rate (a folded group would hold one rate for
+all its steps).
+
 Checkpoints: :meth:`save` writes ``.pdparams`` and ``.pdopt`` in the
-JAX package's format (``framework/io.py``), and :meth:`load` copies
-them into the live parameters, buffers and optimizer states in place,
-so every captured graph of the model stays valid.
+JAX package's format (``framework/io.py``; the scheduler's state rides
+the ``.pdopt`` under ``LR_Scheduler``), and :meth:`load` copies them
+into the live parameters, buffers and optimizer states in place, so
+every captured graph of the model stays valid.
 ``accumulate_grad_batches=k`` concatenates k batches on the host and
 runs one step on the result, as the JAX loop does on one device.
 

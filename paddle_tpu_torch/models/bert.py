@@ -30,8 +30,10 @@ import torch
 from torch import nn as tnn
 
 from .. import nn, resolve_device
+from ..amp.auto_cast import cast_inputs
 from ..framework import random as _random
 from ..nn.functional import cross_entropy, flash_attention
+from ..nn.param_attr import Parameter
 from ..ops.nn_ops import scaled_dot_product_attention
 
 
@@ -225,8 +227,8 @@ class BertForPretraining(tnn.Module):
         self.transform = _xavier_linear(h, h, device, generator)
         self.transform_ln = nn.LayerNorm(h, epsilon=config.layer_norm_eps,
                                          device=device)
-        self.mlm_bias = tnn.Parameter(torch.zeros(config.vocab_size,
-                                                  device=device))
+        self.mlm_bias = Parameter(torch.zeros(config.vocab_size,
+                                              device=device))
         self.nsp = _xavier_linear(h, 2, device, generator)
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None,
@@ -234,8 +236,13 @@ class BertForPretraining(tnn.Module):
         seq, pooled = self.bert(input_ids, token_type_ids, position_ids,
                                 attention_mask)
         h = self.transform_ln(torch.nn.functional.gelu(self.transform(seq)))
-        w = self.bert.embeddings.word_embeddings.weight
-        mlm_logits = torch.matmul(h, w.t()) + self.mlm_bias
+        # the tied head as the JAX package's matmul and add take their
+        # inputs under auto_cast (no change outside it)
+        h, w = cast_inputs("matmul", h,
+                           self.bert.embeddings.word_embeddings.weight)
+        mlm_logits, bias = cast_inputs("add", torch.matmul(h, w.t()),
+                                       self.mlm_bias)
+        mlm_logits = mlm_logits + bias
         return mlm_logits, self.nsp(pooled)
 
 

@@ -19,6 +19,7 @@ from .. import resolve_device
 from ..framework import random as _random
 from ..ops import nn_ops
 from . import initializer as I
+from .param_attr import Parameter
 
 
 def _normal(shape, std, device, generator):
@@ -26,7 +27,7 @@ def _normal(shape, std, device, generator):
         _random.default_generator(device)
     w = torch.empty(shape, device=device, dtype=torch.float32)
     w.normal_(0.0, std, generator=gen)
-    return nn.Parameter(w)
+    return Parameter(w)
 
 
 class Linear(nn.Module):

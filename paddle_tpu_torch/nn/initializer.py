@@ -13,6 +13,7 @@ import math
 import torch
 
 from ..framework import random as _random
+from .param_attr import Parameter, ParamAttr
 
 
 def _fan_in_out(shape):
@@ -112,26 +113,26 @@ class KaimingUniform(Initializer):
 
 
 def make_parameter(shape, attr, default, device, generator=None):
-    """A trainable fp32 parameter of ``shape``: ``attr`` None takes
-    ``default``; an :class:`Initializer` is used as it is.  Paddle's
-    ``ParamAttr`` objects are ROADMAP queue A, item 8."""
-    if attr is None:
-        init = default
-    elif isinstance(attr, Initializer):
-        init = attr
-    else:
-        raise NotImplementedError(
-            f"weight_attr/bias_attr {attr!r}: only None, False (for a "
-            "bias) or an initializer of paddle_tpu_torch.nn.initializer "
-            "are ported (ROADMAP queue A, item 8: param_attr)")
-    return torch.nn.Parameter(init(shape, device, generator))
+    """A :class:`~paddle_tpu_torch.nn.param_attr.Parameter` of ``shape``
+    (fp32) from ``attr`` (``ParamAttr._to_attr``: None, a name, an
+    initializer or a ``ParamAttr``): drawn by its initializer, else by
+    ``default``; named, scaled and regularized as it says, as
+    ``paddle_tpu/nn/layer.py::create_parameter`` does."""
+    attr = ParamAttr._to_attr(attr)
+    init = attr.initializer if attr.initializer is not None else default
+    p = Parameter(init(shape, device, generator),
+                  requires_grad=bool(attr.trainable), name=attr.name)
+    p.optimize_attr["learning_rate"] = attr.learning_rate
+    p.regularizer = attr.regularizer
+    return p
 
 
 def create_parameter(shape, attr=None, is_bias=False,
                      default_initializer=None, *, device, generator=None):
-    """``Layer.create_parameter``: a trainable fp32 parameter of
-    ``shape`` from ``attr``'s initializer, else ``default_initializer``,
-    else 0 for a bias and ``XavierNormal`` otherwise."""
+    """``Layer.create_parameter``: an fp32 parameter of ``shape`` from
+    ``attr`` (:func:`make_parameter`), drawn by its initializer, else by
+    ``default_initializer``, else 0 for a bias and ``XavierNormal``
+    otherwise."""
     default = default_initializer if default_initializer is not None else (
         Constant(0.0) if is_bias else XavierNormal())
     return make_parameter(shape, attr, default, device, generator)

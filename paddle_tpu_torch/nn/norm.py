@@ -11,6 +11,7 @@ from ..amp.auto_cast import cast_inputs
 from ..ops import activation as _act
 from ..ops import nn_ops
 from . import initializer as I
+from .param_attr import Parameter
 
 
 class LayerNorm(nn.Module):
@@ -29,10 +30,10 @@ class LayerNorm(nn.Module):
             normalized_shape = (normalized_shape,)
         self.normalized_shape = tuple(normalized_shape)
         self.epsilon = epsilon
-        self.weight = nn.Parameter(torch.ones(self.normalized_shape,
-                                              device=device))
-        self.bias = nn.Parameter(torch.zeros(self.normalized_shape,
-                                             device=device))
+        self.weight = Parameter(torch.ones(self.normalized_shape,
+                                           device=device))
+        self.bias = Parameter(torch.zeros(self.normalized_shape,
+                                          device=device))
 
     def forward(self, x):
         (x,) = cast_inputs("layer_norm", x)

@@ -9,9 +9,10 @@ take it).  :func:`nms` and :func:`multiclass_nms` trim to the dynamic
 result as the JAX functions' ``np.asarray`` does, which waits for the
 device.  The candidates' order is a stable descending sort of the
 scores, as ``jnp.argsort(-scores)`` is; :func:`multiclass_nms` takes
-each class's ``nms_top_k`` best by ``torch.topk`` where the JAX function
-uses numpy's (unstable) sort, so the two agree where scores are
-distinct.
+each class's ``nms_top_k`` best by that stable sort too (tied scores in
+index order, the same on the CPU and the card), where the JAX function
+uses numpy's (unstable) sort once a class has more than ``nms_top_k``
+candidates, so there the two agree where scores are distinct.
 """
 
 from __future__ import annotations
@@ -120,7 +121,10 @@ def multiclass_nms(bboxes, scores, score_threshold: float = 0.05,
         k = min(k, nms_top_k)
     if k == 0:
         return torch.zeros((0, 6), dtype=torch.float32, device=bboxes.device)
-    top_s, top_i = torch.topk(scores, k, dim=1)               # [C, k]
+    # a stable sort, not topk: topk orders tied scores differently on
+    # the CPU and the card, and the order decides which box survives
+    top_s, top_i = torch.sort(scores, dim=1, descending=True, stable=True)
+    top_s, top_i = top_s[:, :k], top_i[:, :k]                 # [C, k]
     cand = top_s > score_threshold
     cand_boxes = bboxes[top_i]                                # [C, k, 4]
     keep, _, _ = _nms_mask(cand_boxes, top_s, nms_threshold)

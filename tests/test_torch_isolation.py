@@ -39,6 +39,10 @@ def test_import_pulls_in_no_jax():
         "import paddle_tpu_torch.hapi.summary, paddle_tpu_torch.hapi.callbacks\n"
         "import paddle_tpu_torch.io.sampler, paddle_tpu_torch.io.staging\n"
         "import paddle_tpu_torch.vision.datasets\n"
+        "import paddle_tpu_torch.optimizer.lr, paddle_tpu_torch.regularizer\n"
+        "import paddle_tpu_torch.nn.clip_grad, paddle_tpu_torch.nn.param_attr\n"
+        "import paddle_tpu_torch.nn.utils, paddle_tpu_torch.amp.grad_scaler\n"
+        "import paddle_tpu_torch.amp.debugging, paddle_tpu_torch.optimizer.lbfgs\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "'jax.') or m == 'paddle_tpu' or m.startswith('paddle_tpu.')]\n"
         "assert not bad, bad\n")
@@ -57,7 +61,8 @@ def _port_sources():
             if f.endswith((".py", ".cu", ".cuh")):
                 yield os.path.join(root, f)
     for script in ("chip_smoke.py", "chip_ab.py", "chip_lmce_ablation.py",
-                   "chip_fused_variants.py", "chip_profiler_lag.py"):
+                   "chip_fused_variants.py", "chip_profiler_lag.py",
+                   "chip_nms_ties.py"):
         yield os.path.join(REPO, script)
 
 
@@ -68,7 +73,11 @@ def test_no_source_names_jax_or_the_jax_package():
     assert len(sources) > 10
     for mod in ("framework/env_knobs.py", "models/bert.py", "ops/nn_ops.py",
                 "metric/__init__.py", "framework/io.py", "hapi/summary.py",
-                "io/sampler.py", "io/staging.py", "vision/datasets/mnist.py"):
+                "io/sampler.py", "io/staging.py", "vision/datasets/mnist.py",
+                "optimizer/lr.py", "regularizer/__init__.py",
+                "nn/clip_grad.py", "nn/param_attr.py", "nn/utils/utils.py",
+                "amp/grad_scaler.py", "amp/debugging.py",
+                "optimizer/lbfgs.py"):
         assert os.path.join(PORT, mod) in sources, mod
     for path in sources:
         with open(path, encoding="utf-8") as fh:

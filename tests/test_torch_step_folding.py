@@ -23,9 +23,8 @@ and ``accumulate_grad_batches`` markers are mirrored in
 ``test_fold_through_dataloader``,
 ``test_uneven_trailing_batch_splits_the_group`` and
 ``test_fold_accumulate_callbacks_stay_in_step_order``.  Still not
-mirrored (ROADMAP queue A): by-step LR schedulers wait for item A8
-(``optimizer/lr.py``), the mesh runner for A10 and the retrace sentinel
-for A14.
+mirrored (ROADMAP queue A): the mesh runner waits for A10 and the
+retrace sentinel for A14.
 
 Across packages the tolerances are those of ``tests/test_torch_
 training.py::test_three_adamw_fit_steps_match_jax`` (fp32): losses 2e-5
@@ -493,6 +492,34 @@ def cuda_device():
         pytest.skip("needs a CUDA card: a CUDA graph has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+def test_by_step_lr_scheduler_forces_fold1():
+    """A by-step LR scheduler needs a fresh rate every step, and a
+    folded group holds one: ``steps_per_dispatch>1`` warns and runs 1,
+    and the end state is bit-identical to the eager route driven by the
+    same scheduler (the rate moved during the fit)."""
+    from paddle_tpu_torch.hapi.callbacks import LRSchedulerCallback
+    from paddle_tpu_torch.optimizer import lr as lr_mod
+
+    def run(fold):
+        model = _model()
+        sched = lr_mod.StepDecay(learning_rate=0.05, step_size=2, gamma=0.5)
+        model.prepare(tpaddle.optimizer.SGD(
+            sched, parameters=model.network.parameters()),
+            GPTPretrainingCriterion())
+        cb = LRSchedulerCallback(by_step=True, by_epoch=False)
+        model.fit(_batches(8), epochs=1, verbose=0, callbacks=[cb],
+                  steps_per_dispatch=fold)
+        return model, sched
+
+    with pytest.warns(UserWarning, match="by-step LR scheduler"):
+        folded, sched = run(8)
+    assert folded._fold == 1 and sched.last_epoch == 8
+    eager, _ = run(0)
+    _assert_bit_identical(eager, folded)
+    lr = folded._optimizer._lr_scalar(torch.device("cpu"))
+    assert lr.item() == np.float32(0.05 * 0.5 ** 3)
 
 
 @pytest.mark.cuda

@@ -236,18 +236,29 @@ def test_fit_on_cpu_makes_no_kernel_launch():
 
 
 def test_fit_refuses_what_is_not_ported():
-    """``save(training=False)`` (``jit.save``) and learning-rate
-    schedulers are refused (ROADMAP items 12 and 8); metrics must be
-    ``Metric`` instances; ``amp_configs`` (``amp.auto_cast``) and
-    gradient accumulation are ported and accepted."""
+    """``save(training=False)`` (``jit.save``, ROADMAP item 12),
+    ``Adam(lazy_mode=True)`` (sparse gradients, item 8's nn half) and
+    ``AdamW(lr_ratio=)`` (which the JAX package applies nowhere) are
+    refused; a learning rate that is neither a float nor a scheduler is
+    a TypeError; metrics must be ``Metric`` instances; ``amp_configs``
+    (``amp.auto_cast``), schedulers and gradient accumulation are
+    ported and accepted."""
     net = GPTForCausalLM(gpt_tiny(), device="cpu")
     model = tpaddle.Model(net, device="cpu")
     opt = tpaddle.optimizer.AdamW(parameters=net.parameters())
     with pytest.raises(TypeError, match="Metric"):
         model.prepare(opt, GPTPretrainingCriterion(), metrics=["acc"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="LRScheduler"):
         tpaddle.optimizer.AdamW(learning_rate=object(),
                                 parameters=net.parameters())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpaddle.optimizer.Adam(lazy_mode=True, parameters=net.parameters())
+    with pytest.raises(NotImplementedError, match="applies it nowhere"):
+        tpaddle.optimizer.AdamW(lr_ratio=lambda p: 1.0,
+                                parameters=net.parameters())
+    tpaddle.optimizer.AdamW(
+        learning_rate=tpaddle.optimizer.lr.StepDecay(1e-3, 2),
+        parameters=net.parameters())
     model.prepare(opt, GPTPretrainingCriterion(),
                   amp_configs={"level": "O1"})
     assert (model._amp_level, model._amp_dtype) == ("O1", "bfloat16")

@@ -184,8 +184,10 @@ def test_conv_and_linear_initializers_follow_paddle():
     wide = tnn.Linear(300, 500, weight_attr=tinit.Normal(1.0, 2.0),
                       device="cpu", generator=gen).weight.detach().numpy()
     assert abs(wide.mean() - 1.0) < 0.02 and abs(wide.std() / 2.0 - 1) < 0.02
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tnn.Linear(3, 4, weight_attr="a ParamAttr", device="cpu")
+    named = tnn.Linear(3, 4, weight_attr="fc_w", device="cpu")
+    assert named.weight.name == "fc_w" and named.bias.name.startswith("param_")
+    with pytest.raises(TypeError, match="ParamAttr"):
+        tnn.Linear(3, 4, weight_attr=3, device="cpu")
 
 
 # -- pooling -------------------------------------------------------------------

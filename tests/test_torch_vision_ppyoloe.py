@@ -269,6 +269,37 @@ def test_multiclass_nms_and_postprocess_match_jax(nms_top_k, keep_top_k):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r.numpy()))
 
 
+@pytest.mark.parametrize("nms_top_k,keep_top_k", [(400, 100), (7, 100),
+                                                  (400, 9)])
+def test_multiclass_nms_breaks_ties_by_index(nms_top_k, keep_top_k):
+    """Scores on a grid of eighths, so most of them tie: each class's
+    candidates, its ``nms_top_k`` cut and the final rows are in
+    descending score and then ascending index order, as a stable sort
+    gives on any device (``torch.topk`` orders ties by its own rule,
+    which differs between the CPU and the card).  Exact."""
+    rng = np.random.default_rng(8)
+    n, c, thr = 60, 4, 0.3
+    boxes = _boxes(rng, n)
+    scores = (np.floor(rng.random((c, n)) * 8) / 8).astype(np.float32)
+    rows = []
+    for k in range(c):
+        idx = np.flatnonzero(scores[k] > thr)
+        idx = idx[np.argsort(-scores[k][idx], kind="stable")]
+        if nms_top_k > 0:
+            idx = idx[:nms_top_k]
+        kept = TOPS.nms(torch.from_numpy(boxes[idx]), 0.45,
+                        torch.from_numpy(scores[k][idx])).numpy()
+        rows += [[k, scores[k][idx[i]], *boxes[idx[i]]] for i in kept]
+    ref = np.asarray(rows, np.float32)
+    ref = ref[np.argsort(-ref[:, 1], kind="stable")][:keep_top_k]
+    got = TOPS.multiclass_nms(
+        torch.from_numpy(boxes), torch.from_numpy(scores),
+        score_threshold=thr, nms_threshold=0.45, keep_top_k=keep_top_k,
+        nms_top_k=nms_top_k)
+    assert len(ref) > 0
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
 def test_constructors_and_refusals():
     net = TM.ppyoloe_crn_s(num_classes=10, device="cpu")
     assert len(list(net.parameters())) > 50
