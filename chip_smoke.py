@@ -466,6 +466,58 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
     ``Model.fit`` of a small MLP with ``StepDecay`` stepped by step: K=1
     replays bit-equal to the eager route (a scalar the capture froze
     would show);
+15o. ``[train transformer]``: PaddleNLP's Transformer-base for WMT14
+    en-de (Vaswani et al. Table 3 "base": 6 + 6 pre-LN layers, d_model
+    512, 8 heads, FFN 2048; the shared BPE vocabulary of 33708 padded
+    to 33712; ``transformer.base.yaml``) written with the port's
+    ``nn.Layer``, ``nn.Embedding(padding_idx=0)``, ``nn.Transformer`` and
+    the soft-label cross-entropy (:func:`slice19_models`; random
+    sentence pairs from ``--seed``), bf16 O2, ``Adam(0.9, 0.997, 1e-9)``
+    with fp32 masters under ``NoamDecay(512, 4000, 2.0)`` stepped by
+    ``LRSchedulerCallback(by_step=True)`` (so ``fit`` runs K=1), label
+    smoothing 0.1, in three ~4096-token buckets (B, S) = (128, 32), (64,
+    64), (32, 128), a captured graph each: at dropout 0 and under the
+    deterministic algorithms, four steps a bucket replayed bit-equal to
+    the eager route (parameters, masters, moments, beta powers, step
+    counts, the scheduler's ``last_epoch``); at dropout 0.1 the timed
+    run: ms a step and target tokens/s a bucket, capture seconds, reserved
+    memory after each bucket's capture, peak, a ``torch.profiler``
+    split (cuBLAS, the composed attention's softmax, the soft-label
+    cross-entropy's softmax, LayerNorm, Adam, the rest) and the
+    composed attention alone;
+15p. ``[train transformer parity]``: the same model at its widths with
+    2 + 2 layers in fp32, three ``SGD(0.1)`` steps of B=8 S=32 on the card
+    (K=1 replays) and on the CPU from the same weights: parameters within
+    ``CARD_CPU_TOL`` x max(|ref|, 1), losses within ``PARITY_TOL``; the
+    run without ``memory_mask`` must fail that gate;
+15q. ``[translate greedy]``: the 6 + 6 model in fp32 from the weights
+    ``[train transformer]`` starts from decodes 32 sources of 64 tokens
+    greedily for 64 steps, the decoder re-run on the prefix each step:
+    ms a step and a token; the CPU, teacher-forced on the card's tokens,
+    must give each of them as its argmax unless the two best logits lie
+    within ``NMT_GAP`` (such steps printed and counted);
+    ``MultiHeadAttention`` fed one position at a time with its cache
+    equals the full causal call within ``MHA_CACHE_TOL``;
+15r. ``[train crnn]``: CRNN (arXiv:1507.05717 Table 1's VGG, PaddleOCR's
+    ``EncoderWithRNN`` ``LSTM(512, 256, bidirectional, 2 layers)`` and
+    ``CTCHead`` ``Linear(512, 37)``, ``CTCLoss(blank=0)``) on 1x32x100
+    text-line images whose stripes follow the labels, label lengths 3-12
+    changing every batch, B=256, ``Adam(5e-4)``, fp32: under the
+    deterministic algorithms 20 K=1 replays bit-equal to the eager route
+    (BatchNorm statistics included), a control whose label lengths stay
+    those of the first batch must differ, the loss falls; timed in the
+    default mode (ms a step, images/s, peak, a profile split and the
+    LSTM and CTC alone); card vs CPU at B=8 under the deterministic
+    algorithms: step 1's gradients within ``CRNN_GRAD_TOL`` of each
+    leaf's largest, the loss at "mean" and "sum" on the same weights,
+    and three ``SGD(0.002)`` steps (K=1 replays) within ``CARD_CPU_TOL``,
+    each step's worst leaves printed; a control whose card loss is
+    scaled by 0.99 must fail both gates;
+15s. ``[rnn]``: ``SimpleRNN``, ``LSTM`` and ``GRU``, 2 layers,
+    bidirectional, with ragged ``sequence_length`` and initial states,
+    card vs CPU in fp32 within ``RNN_TOL`` x max(|ref|, 1): outputs and
+    every gradient, eager and as a captured graph replayed on other
+    lengths;
 16. ``[lmce tc]`` holds the tensor-core LMCE backward
     (``csrc/lmce_sm90.cu``, ``wgmma`` fed by TMA) against its plain
     versions (dL rounded to the operand dtype; each element within
@@ -7701,6 +7753,949 @@ def optimizers_phase(torch, seed):
     return errs
 
 
+# ---------------------------------------------------------------------------
+# Slice 19: Transformer-base translation and the CRNN text recognizer
+# (module docstring, 15o-15s), on the port's nn.Layer, nn.Transformer,
+# nn.LSTM and the losses of nn/loss.py.  No kernel of the port runs here:
+# the attention is the composed form, the LSTM and CTC the recurrences
+# of ops/rnn_ops.py and ops/nn_ops.py, the matmuls cuBLAS and the
+# convolutions cuDNN.
+# ---------------------------------------------------------------------------
+NMT_VOCAB = 33712        # WMT14 en-de's 33708 shared BPE tokens, padded
+                         # to a multiple of 8 as PaddleNLP's reader pads
+NMT_D, NMT_HEADS, NMT_LAYERS, NMT_FFN = 512, 8, 6, 2048   # Table 3 "base"
+NMT_MAX_LEN = 256        # the position table's rows (transformer.base.yaml)
+NMT_PAD = 0              # PaddleNLP: bos = pad = 0, eos = 1
+NMT_EOS = 1
+NMT_SMOOTH = 0.1         # label_smooth_eps
+NMT_BUCKETS = ((128, 32), (64, 64), (32, 128))   # (B, S): ~4096 tokens
+NMT_GATE_STEPS = 4       # [train transformer]: steps a bucket, the gates
+NMT_TIMED_STEPS = 6      # steps a bucket timed (after the capture step)
+NMT_PARITY = dict(layers=2, b=8, s=32, steps=3, lr=0.1)
+NMT_GREEDY_B, NMT_GREEDY_S = 32, 64
+NMT_GAP = 1e-5           # [translate greedy]: a step whose two best logits
+                         # lie closer is printed and counted, not failed
+CARD_CPU_TOL = 1e-4      # x max(|ref|, 1), fp32 parameters card vs CPU
+MHA_CACHE_TOL = 1e-5     # x max(|ref|, 1), cached vs full causal call
+CRNN_CLASSES = 37        # 36 alphanumerics and the blank
+CRNN_H, CRNN_W = 32, 100
+CRNN_B, CRNN_LR = 256, 5e-4
+CRNN_STEPS = 20
+CRNN_LABELS = (3, 12)    # label lengths drawn from [3, 12]
+CRNN_PARITY = dict(b=8, steps=3, lr=0.002)   # at 0.05 three steps turn
+                         # the card's and the CPU's rounding into 2.7e-4
+                         # of a BatchNorm mean ([train crnn] prints each
+                         # step's worst leaves)
+CRNN_GRAD_TOL = 1e-4     # step 1's gradients card vs CPU, per leaf:
+                         # max |diff| / the leaf's largest |CPU gradient|
+CRNN_GRAD_CONTROL = 0.99  # the control scales the card's loss by this
+RNN_TOL = 1e-5           # [rnn]: x max(|ref|, 1), card vs CPU, fp32
+
+
+def sinusoid_table(n_pos, d):
+    """PaddleNLP's ``position_encoding_init``: sines on the first half of
+    the channels, cosines on the second, timescales from 1 to 1e4."""
+    half = d // 2
+    inc = np.log(1e4) / max(half - 1, 1)
+    inv = np.exp(np.arange(half) * -inc)
+    t = np.arange(n_pos)[:, None] * inv[None, :]
+    table = np.concatenate([np.sin(t), np.cos(t)], axis=1)
+    return np.pad(table, [[0, 0], [0, d % 2]]).astype(np.float32)
+
+
+_SLICE19 = {}
+
+
+def slice19_models():
+    """The two user models of slice 19, written with the port's layers as
+    a user writes them (the CPU tests hold them against the same models
+    on the JAX package): PaddleNLP's ``TransformerModel`` with its
+    ``CrossEntropyCriterion``, and CRNN with PaddleOCR's BiLSTM neck,
+    CTC head and CTC loss."""
+    if _SLICE19:
+        return _SLICE19
+    import torch
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+
+    class TransformerModel(nn.Layer):
+        """``examples/machine_translation/transformer`` of PaddleNLP: one
+        word table (``padding_idx`` 0, Normal(0, d**-0.5)) scaled by
+        sqrt(d) for source and target, a fixed sinusoidal position table
+        read at ``(id != pad) * position``, dropout on both inputs,
+        ``nn.Transformer(normalize_before=True)`` with the source
+        padding bias (-1e9 at pads, ``[B, 1, 1, S]``) as ``src_mask`` and
+        ``memory_mask`` and the causal mask as ``tgt_mask``, and the
+        output projection tied to the word table."""
+
+        def __init__(self, vocab=NMT_VOCAB, d_model=NMT_D, n_head=NMT_HEADS,
+                     num_layers=NMT_LAYERS, d_inner=NMT_FFN, dropout=0.1,
+                     max_length=NMT_MAX_LEN, pad_id=NMT_PAD, *, device=None,
+                     generator=None):
+            super().__init__()
+            self.vocab, self.d_model, self.pad_id = vocab, d_model, pad_id
+            self.dropout = dropout
+            kw = dict(device=device, generator=generator)
+            self.word_embedding = nn.Embedding(
+                vocab, d_model, padding_idx=pad_id,
+                weight_attr=nn.initializer.Normal(0.0, d_model ** -0.5), **kw)
+            dev = self.word_embedding.weight.device
+            self.register_buffer(
+                "pos_table", torch.tensor(sinusoid_table(max_length, d_model),
+                                          device=dev), persistable=False)
+            self.transformer = nn.Transformer(
+                d_model, n_head, num_layers, num_layers, d_inner, dropout,
+                "relu", normalize_before=True, **kw)
+
+        def embed(self, ids):
+            pos = (ids != self.pad_id).long() * torch.arange(
+                ids.shape[1], device=ids.device)
+            emb = self.word_embedding(ids) * self.d_model ** 0.5
+            out = emb + self.pos_table[pos].to(emb.dtype)
+            return F.dropout(out, self.dropout, training=self.training)
+
+        def src_bias(self, src):
+            return ((src == self.pad_id).float() * -1e9)[:, None, None, :]
+
+        def logits(self, dec):
+            return F.linear(dec, self.word_embedding.weight.t())
+
+        def forward(self, src, tgt, memory_mask=True):
+            bias = self.src_bias(src)
+            causal = nn.Transformer.generate_square_subsequent_mask(
+                tgt.shape[1], device=tgt.device)
+            dec = self.transformer(self.embed(src), self.embed(tgt),
+                                   src_mask=bias, tgt_mask=causal,
+                                   memory_mask=bias if memory_mask else None)
+            return self.logits(dec)
+
+        @torch.no_grad()
+        def greedy(self, src, max_len):
+            """Greedy decoding from bos (= pad, PaddleNLP's) for ``max_len``
+            steps, the decoder re-run on the prefix at each step (the
+            decoder takes ``cache=`` and ignores it, as the JAX one
+            does); a sentence that emitted eos emits pad after it.
+            Returns the tokens ``[B, max_len]`` and each step's last
+            logits ``[B, max_len, V]``."""
+            bias = self.src_bias(src)
+            memory = self.transformer.encoder(self.embed(src), src_mask=bias)
+            b = src.shape[0]
+            seq = torch.full((b, 1), self.pad_id, dtype=torch.long,
+                             device=src.device)
+            done = torch.zeros(b, dtype=torch.bool, device=src.device)
+            steps = []
+            for _ in range(max_len):
+                causal = nn.Transformer.generate_square_subsequent_mask(
+                    seq.shape[1], device=src.device)
+                dec = self.transformer.decoder(self.embed(seq), memory,
+                                               tgt_mask=causal,
+                                               memory_mask=bias)
+                last = self.logits(dec[:, -1]).float()
+                nxt = torch.where(done, torch.full_like(done, self.pad_id,
+                                                        dtype=torch.long),
+                                  last.argmax(-1))
+                done = done | (nxt == NMT_EOS)
+                seq = torch.cat([seq, nxt[:, None]], dim=1)
+                steps.append(last)
+            return seq[:, 1:], torch.stack(steps, 1)
+
+    class TransformerCriterion(nn.Layer):
+        """PaddleNLP's ``CrossEntropyCriterion``: the label smoothed to
+        ``one_hot * (1 - eps) + eps / V``, soft-label cross-entropy a
+        position, weighted by the non-pad positions and divided by their
+        count."""
+
+        def __init__(self, vocab=NMT_VOCAB, eps=NMT_SMOOTH, pad_id=NMT_PAD):
+            super().__init__()
+            self.vocab, self.eps, self.pad_id = vocab, eps, pad_id
+
+        def forward(self, logits, label):
+            soft = torch.zeros(label.shape + (self.vocab,),
+                               device=logits.device)
+            soft.scatter_(-1, label.unsqueeze(-1), 1.0)
+            soft = soft * (1 - self.eps) + self.eps / self.vocab
+            cost = F.cross_entropy(logits, soft, soft_label=True,
+                                   reduction="none")
+            w = (label != self.pad_id).float()
+            return (cost * w).sum() / w.sum()
+
+    def conv(cin, cout, k=3, p=1, bn=False, **kw):
+        layers = [nn.Conv2D(cin, cout, k, 1, p, bias_attr=False if bn
+                            else None, **kw)]
+        if bn:
+            layers.append(nn.BatchNorm2D(cout, **kw))
+        return layers + [nn.ReLU()]
+
+    class CRNN(nn.Layer):
+        """Shi, Bai and Yao's CRNN (arXiv:1507.05717, Table 1) as its
+        common PyTorch implementation lays out the VGG (BatchNorm after
+        the two 512 convolutions, whose bias goes with it as in
+        PaddleOCR's ConvBNLayer), PaddleOCR's ``EncoderWithRNN`` neck
+        (``LSTM(512, 256, direction="bidirectional", num_layers=2)``)
+        and ``CTCHead`` (``Linear(512, classes)``): a ``[B, 1, 32, 100]``
+        image to ``[B, 26, classes]`` logits."""
+
+        def __init__(self, classes=CRNN_CLASSES, hidden=256, *, device=None,
+                     generator=None):
+            super().__init__()
+            kw = dict(device=device, generator=generator)
+            pool_w = dict(kernel_size=2, stride=(2, 1), padding=(0, 1))
+            self.backbone = nn.Sequential(
+                *conv(1, 64, **kw), nn.MaxPool2D(2, 2),
+                *conv(64, 128, **kw), nn.MaxPool2D(2, 2),
+                *conv(128, 256, **kw), *conv(256, 256, **kw),
+                nn.MaxPool2D(**pool_w),
+                *conv(256, 512, bn=True, **kw),
+                *conv(512, 512, bn=True, **kw), nn.MaxPool2D(**pool_w),
+                *conv(512, 512, k=2, p=0, **kw))
+            self.neck = nn.LSTM(512, hidden, num_layers=2,
+                                direction="bidirectional", **kw)
+            self.head = nn.Linear(2 * hidden, classes, **kw)
+
+        def forward(self, x):
+            f = self.backbone(x)                     # [B, 512, 1, 26]
+            seq = f.squeeze(2).transpose(1, 2)       # [B, 26, 512]
+            seq, _ = self.neck(seq)
+            return self.head(seq)
+
+    class CTCCriterion(nn.Layer):
+        """PaddleOCR's CTC loss on the head's logits: time-major, every
+        input length the full 26 steps, the labels' own lengths (a
+        device tensor, the second label)."""
+
+        def __init__(self, reduction="mean"):
+            super().__init__()
+            self.ctc = nn.CTCLoss(blank=0, reduction=reduction)
+
+        def forward(self, logits, labels, label_lengths):
+            lp = logits.transpose(0, 1)
+            t, b = lp.shape[0], lp.shape[1]
+            lens = torch.full((b,), t, dtype=torch.long, device=lp.device)
+            return self.ctc(lp, labels, lens, label_lengths)
+
+    _SLICE19.update(TransformerModel=TransformerModel,
+                    TransformerCriterion=TransformerCriterion, CRNN=CRNN,
+                    CTCCriterion=CTCCriterion)
+    return _SLICE19
+
+
+def nmt_batch(b, s, seed, vocab=NMT_VOCAB):
+    """Random sentence pairs of ``b`` rows, ``s`` positions: each source
+    and target of a length drawn from [s/2, s] and padded with 0 after
+    it; the decoder's input is bos (0) and the target shifted right,
+    the label the target.  numpy int64 ``(src, tgt_in, label)``."""
+    rng = np.random.RandomState(seed)
+
+    def sents():
+        ids = rng.randint(2, vocab, (b, s))
+        lens = rng.randint(s // 2, s + 1, b)
+        ids[np.arange(s)[None, :] >= lens[:, None]] = NMT_PAD
+        return ids.astype(np.int64)
+
+    src, tgt = sents(), sents()
+    tgt_in = np.concatenate([np.zeros((b, 1), np.int64), tgt[:, :-1]], 1)
+    return src, tgt_in, tgt
+
+
+def ocr_batch(b, seed, classes=CRNN_CLASSES):
+    """Text-line images ``[b, 1, 32, 100]`` whose stripes follow the
+    labels (``tests/test_crnn_e2e.py``'s images at CRNN's size: a
+    6-pixel stripe a character at x = 2 + 8 i, of value k / classes,
+    plus noise), labels ``[b, 12]`` padded with 0 past each length, and
+    the lengths, drawn from ``CRNN_LABELS``."""
+    rng = np.random.RandomState(seed)
+    lo, hi = CRNN_LABELS
+    lens = rng.randint(lo, hi + 1, b)
+    labels = rng.randint(1, classes, (b, hi))
+    labels[np.arange(hi)[None, :] >= lens[:, None]] = 0
+    imgs = np.zeros((b, 1, CRNN_H, CRNN_W), np.float32)
+    for i in range(b):
+        for j in range(lens[i]):
+            x0 = 2 + j * 8
+            imgs[i, 0, :, x0:x0 + 6] = labels[i, j] / classes
+    imgs += rng.randn(*imgs.shape).astype(np.float32) * 0.01
+    return imgs, labels.astype(np.int64), lens.astype(np.int64)
+
+
+def _nmt_model(torch, seed, dropout, layers=NMT_LAYERS, device="cuda",
+               o2=True, sgd_lr=None):
+    """PaddleNLP's Transformer-base from ``seed`` (the table's and the
+    first layers' draws from a seeded generator, the clones' from the
+    port's generator of the device, reseeded), its criterion, and its
+    optimizer: ``Adam(0.9, 0.997, 1e-9)`` under ``NoamDecay(512, 4000,
+    2.0)`` (or ``SGD(sgd_lr)``), bf16 O2 with fp32 masters if ``o2``."""
+    import paddle_tpu_torch as paddle
+    m = slice19_models()
+    paddle.seed(seed)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    net = m["TransformerModel"](num_layers=layers, dropout=dropout,
+                                device=device, generator=gen)
+    if sgd_lr is not None:
+        sched = None
+        opt = paddle.optimizer.SGD(sgd_lr, parameters=net.parameters())
+    else:
+        sched = paddle.optimizer.lr.NoamDecay(NMT_D, 4000, learning_rate=2.0)
+        opt = paddle.optimizer.Adam(
+            learning_rate=sched, beta1=0.9, beta2=0.997, epsilon=1e-9,
+            parameters=net.parameters(), multi_precision=o2)
+    amp = None
+    if o2:
+        paddle.amp.decorate(net, opt, level="O2", dtype="bfloat16")
+        amp = {"level": "O2", "dtype": "bfloat16"}
+    model = paddle.Model(net, device=device)
+    model.prepare(opt, m["TransformerCriterion"](), amp_configs=amp)
+    return net, opt, sched, model
+
+
+def _nmt_data(torch, seed, steps):
+    """``steps`` batches a bucket, interleaved bucket by bucket, pinned."""
+    out = []
+    for j in range(steps):
+        for i, (b, s) in enumerate(NMT_BUCKETS):
+            out.append(tuple(torch.from_numpy(a).pin_memory() for a in
+                             nmt_batch(b, s, seed + 1000 * i + j)))
+    return out
+
+
+def _nmt_group(name):
+    """Profile groups of the translation step."""
+    low = name.lower()
+    if "softmax_warp" in low:
+        return "composed attention softmax"
+    if "cunn_softmax" in low:
+        return "softmax cross-entropy"
+    if "layer_norm" in low or "gammabeta" in low:
+        return "LayerNorm"
+    g = _kernel_group(name)
+    return "Adam (foreach)" if g.startswith("optimizer") else g
+
+
+def _masked_attention_ms(torch, b, s, causal):
+    """Device ms of one composed attention forward and backward on bf16
+    ``[b, s, 8, 64]`` with the ``[b, 1, 1, s]`` padding bias (and the
+    causal mask): one of the 18 a Transformer-base step runs."""
+    from paddle_tpu_torch.nn import Transformer
+    from paddle_tpu_torch.ops import nn_ops
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(b, s, NMT_HEADS, NMT_D // NMT_HEADS,
+                           device="cuda", generator=gen)
+               .bfloat16().requires_grad_() for _ in range(3))
+    g = torch.randn(q.shape, device="cuda", generator=gen).bfloat16()
+    bias = torch.zeros(b, 1, 1, s, device="cuda")
+    bias[:, :, :, s - s // 4:] = -1e9
+    mask = bias + Transformer.generate_square_subsequent_mask(s) \
+        if causal else bias
+
+    def fn():
+        nn_ops.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                            dropout_p=0.1).backward(g)
+
+    return device_ms(torch, fn, 5, {"all": ()})["all"]
+
+
+def _layer_state(torch, opt, net):
+    """:func:`_pretrain_state` and the network's buffers."""
+    out = _pretrain_state(torch, opt, net)
+    out.update({f"buffer {n}": b.detach().clone()
+                for n, b in net.named_buffers()})
+    return out
+
+
+def train_transformer_phase(torch, seed):
+    """``[train transformer]`` (module docstring, 15o)."""
+    import gc
+    from paddle_tpu_torch.hapi.callbacks import Callback, LRSchedulerCallback
+    tag = "train transformer"
+    gc.collect()
+    torch.cuda.empty_cache()
+    gate_data = _nmt_data(torch, seed, NMT_GATE_STEPS)
+
+    def run(fold, data, dropout, clock=None, extra=()):
+        net, opt, sched, model = _nmt_model(torch, seed, dropout)
+        cbs = [LRSchedulerCallback(by_step=True, by_epoch=False)]
+        cbs += [clock] if clock is not None else []
+        model.fit(data, epochs=1, verbose=0, steps_per_dispatch=fold,
+                  callbacks=cbs + list(extra))
+        torch.cuda.synchronize()
+        return net, opt, sched, model
+
+    # the gates at dropout 0, under the deterministic algorithms (the
+    # word table's backward, an index-add of 4096 ids, sums in another
+    # order each run otherwise): K=1 replays against the eager route
+    with deterministic_algorithms(torch) as warned:
+        runs = {}
+        for fold in (None, 0):
+            clock = _step_clock(torch)
+            net, opt, sched, model = run(fold, gate_data, 0.0, clock)
+            runs[fold] = dict(state=_layer_state(torch, opt, net),
+                              losses=clock.losses, fold=model._fold,
+                              graphs=model.compile_stats())
+            free_model(torch, tag, model)
+            del net, opt, sched, model
+    rep, eag = runs[None], runs[0]
+    warned = sorted({str(w.message)[:100] for w in warned})
+    check(rep["fold"] == 1 and rep["graphs"] == {
+        "graphs": len(NMT_BUCKETS), "captures": len(NMT_BUCKETS)},
+        f"[{tag}] K {rep['fold']}, graphs {rep['graphs']}: want K=1 and a "
+        "graph a bucket")
+    check(eag["graphs"] == {"graphs": 0, "captures": 0},
+          f"[{tag}] the eager route captured: {eag['graphs']}")
+    same = _states_equal(torch, rep["state"], eag["state"]) and \
+        rep["losses"] == eag["losses"]
+    diff = _state_diff(torch, eag["state"], rep["state"])
+    check(same, f"[{tag}] replays vs eager at dropout 0: largest |diff|/"
+          f"max(|ref|,1) {diff:.3e}; losses {rep['losses']} vs "
+          f"{eag['losses']}")
+    check(all(np.isfinite(rep["losses"])), f"[{tag}] {rep['losses']}")
+    # the timed run at dropout 0.1 in the default mode: one capture step
+    # a bucket (reserved memory printed after each), then the clock
+    reserved = []
+
+    class Reserved(Callback):
+        def on_train_batch_end(self, step, logs=None):
+            torch.cuda.synchronize()
+            reserved.append(torch.cuda.memory_reserved())
+
+    torch.cuda.reset_peak_memory_stats()
+    warm = _nmt_data(torch, seed + 1, 1)
+    clock = _step_clock(torch)
+    net, opt, sched, model = run(None, warm, 0.1, clock, [Reserved()])
+    first_ms = [float(v) for v in np.diff(clock.stamps) * 1e3]
+    graphs = model.compile_stats()
+    capture_s = [r.capture_s for r in model._graphs.values()]
+    timed = _nmt_data(torch, seed + 2, NMT_TIMED_STEPS)
+    clock = _step_clock(torch)
+    model.fit(timed, epochs=1, verbose=0, callbacks=[
+        clock, LRSchedulerCallback(by_step=True, by_epoch=False)])
+    torch.cuda.synchronize()
+    check(model.compile_stats() == graphs,
+          f"[{tag}] a capture in the timed window: {model.compile_stats()}")
+    peak = torch.cuda.max_memory_allocated()
+    pool = pool_reserved(torch, model._graph_pool)
+    ms = np.diff(clock.stamps) * 1e3
+    nb = len(NMT_BUCKETS)
+    res = {"step_ms": {}, "tokens_per_s": {}, "first_ms": first_ms,
+           "capture_s": capture_s, "reserved": reserved, "peak": peak,
+           "pool": pool, "gate_losses": rep["losses"],
+           "timed_losses": clock.losses}
+    for i, (b, s) in enumerate(NMT_BUCKETS):
+        step = float(np.median(ms[i::nb]))
+        res["step_ms"][f"{b}x{s}"] = step
+        res["tokens_per_s"][f"{b}x{s}"] = b * s / (step * 1e-3)
+    prof = profile_run(
+        torch, tag, "replayed", lambda: model.fit(
+            timed[:nb], epochs=1, verbose=0, steps_per_dispatch=1),
+        nb, group=_nmt_group)
+    check(model.compile_stats() == graphs,
+          f"[{tag}] a capture in the profiled window")
+    free_model(torch, tag, model)
+    del net, opt, sched, model
+    attn = {f"{b}x{s}": 6 * (2 * _masked_attention_ms(torch, b, s, False)
+                             + _masked_attention_ms(torch, b, s, True))
+            for b, s in NMT_BUCKETS}
+    res.update(profile=prof, attention_ms=attn)
+    print(f"[{tag}] Transformer-base (Vaswani et al. Table 3 'base': 6 + 6 "
+          f"layers, d_model {NMT_D}, {NMT_HEADS} heads, FFN {NMT_FFN}, "
+          f"shared vocabulary {NMT_VOCAB}, pre-LN as PaddleNLP's "
+          f"transformer.base.yaml), bf16 O2, Adam(0.9, 0.997, 1e-9) with "
+          f"fp32 masters under NoamDecay(512, 4000, 2.0) stepped by step, "
+          f"label smoothing {NMT_SMOOTH}; buckets (B, S) {NMT_BUCKETS}, a "
+          f"graph each ({graphs})", flush=True)
+    print(f"[{tag}] gates (dropout 0, deterministic algorithms; warnings "
+          f"{warned}): {NMT_GATE_STEPS} steps a bucket replayed at K=1 "
+          f"bit-equal to the eager route (parameters, fp32 masters, moments, "
+          f"beta powers, step counts, the scheduler's last_epoch): {same}; "
+          f"losses {[round(v, 5) for v in rep['losses']]}", flush=True)
+    print(f"[{tag}] dropout 0.1: first step a bucket (warm-up + capture) "
+          f"{[round(v, 3) for v in first_ms]} ms, capture "
+          f"{[round(v, 3) for v in capture_s]} s, reserved after each "
+          f"bucket's capture {[round(r / 2**30, 3) for r in reserved]} GiB; "
+          f"graph pool " + (f"{pool / 2**30:.3f} GiB" if pool is not None
+                            else "not measured")
+          + f"; peak_mem_gib {peak / 2**30:.3f}", flush=True)
+    print(f"[{tag}] replayed ms a step (median of {NMT_TIMED_STEPS}): "
+          + ", ".join(f"{k}: {res['step_ms'][k]:.3f} "
+                      f"({res['tokens_per_s'][k]:.1f} target tokens/s)"
+                      for k in res["step_ms"])
+          + "; the composed attention alone (18 a step, forward + "
+          "backward, device ms): "
+          + ", ".join(f"{k}: {v:.3f}" for k, v in attn.items()), flush=True)
+    return res
+
+
+def train_transformer_parity_phase(torch, seed):
+    """``[train transformer parity]`` (module docstring, 15p)."""
+    tag = "train transformer parity"
+    p = NMT_PARITY
+    data = [nmt_batch(p["b"], p["s"], seed + 50 + i)
+            for i in range(p["steps"])]
+
+    def run(device, init, drop_memory_mask=False):
+        net, _, _, model = _nmt_model(torch, seed, 0.0, p["layers"], device,
+                                      o2=False, sgd_lr=p["lr"])
+        net.set_state_dict(init)
+        if drop_memory_mask:
+            dec = net.transformer.decoder
+            full = dec.forward
+            dec.forward = lambda tgt, memory, tgt_mask=None, \
+                memory_mask=None, cache=None: full(tgt, memory, tgt_mask)
+        clock = _loss_keeper()
+        fold = 1 if device == "cuda" else 0
+        model.fit([tuple(torch.from_numpy(a) for a in b) for b in data],
+                  epochs=1, verbose=0, steps_per_dispatch=fold,
+                  callbacks=[clock])
+        state = {k: v.detach().cpu().clone() for k, v in
+                 net.state_dict().items()}
+        if device == "cuda":
+            free_model(torch, tag, model)
+        return state, clock.losses
+
+    net, *_ = _nmt_model(torch, seed, 0.0, p["layers"], "cuda", o2=False,
+                         sgd_lr=p["lr"])
+    init = {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+    del net
+    card, card_losses = run("cuda", init)
+    cpu, cpu_losses = run("cpu", init)
+    ctl, ctl_losses = run("cuda", init, drop_memory_mask=True)
+
+    def gate(state, losses):
+        err, worst = max(((state[k] - v).abs().max().item() /
+                          max(v.abs().max().item(), 1.0), k)
+                         for k, v in cpu.items())
+        moved = max((cpu[k] - init[k]).abs().max().item() for k in cpu)
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                            cpu_losses))
+        return err, loss_rel, moved, worst
+
+    err, loss_rel, moved, worst = gate(card, card_losses)
+    c_err, c_loss, _, _ = gate(ctl, ctl_losses)
+    print(f"[{tag}] Transformer-base widths, {p['layers']} + {p['layers']} "
+          f"layers, fp32 (TF32 off), SGD({p['lr']}) (linear in the "
+          f"gradient; Adam turns rounding noise into whole steps), "
+          f"{p['steps']} steps of B={p['b']} S={p['s']}: card (K=1 replays) "
+          f"vs CPU: parameters largest |diff|/max(|ref|,1) {err:.3e} "
+          f"({worst}; tol {CARD_CPU_TOL}; the largest move {moved:.3e}), "
+          f"losses "
+          f"{[round(v, 6) for v in card_losses]} vs "
+          f"{[round(v, 6) for v in cpu_losses]} (relative {loss_rel:.3e}); "
+          f"control without memory_mask: {c_err:.3e}, losses relative "
+          f"{c_loss:.3e}", flush=True)
+    check(err <= CARD_CPU_TOL and loss_rel <= PARITY_TOL,
+          f"[{tag}] card vs CPU {err:.3e}, losses {loss_rel:.3e}")
+    check(c_err > CARD_CPU_TOL or c_loss > PARITY_TOL,
+          f"[{tag}] the control without memory_mask passed the gate")
+    return {"err": err, "loss_rel": loss_rel, "control": (c_err, c_loss)}
+
+
+def translate_greedy_phase(torch, seed):
+    """``[translate greedy]`` (module docstring, 15q)."""
+    import paddle_tpu_torch as paddle
+    tag = "translate greedy"
+    m = slice19_models()
+    net, *_ = _nmt_model(torch, seed, 0.0, o2=False, sgd_lr=0.0)
+    net.eval()
+    src_np = nmt_batch(NMT_GREEDY_B, NMT_GREEDY_S, seed + 77)[0]
+    src = torch.from_numpy(src_np).cuda()
+    net.greedy(src, 2)                       # warm-up
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    tokens, logits = net.greedy(src, NMT_GREEDY_S)
+    torch.cuda.synchronize()
+    total_ms = (time.monotonic() - t0) * 1e3
+    tokens = tokens.cpu()
+    # the CPU, teacher-forced on the card's tokens: at every step before
+    # a sentence's eos the card's token must be the CPU logits' argmax
+    cpu = m["TransformerModel"](num_layers=NMT_LAYERS, dropout=0.0,
+                                device="cpu")
+    cpu.set_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+    cpu.eval()
+    tgt_in = torch.cat([torch.zeros(NMT_GREEDY_B, 1, dtype=torch.long),
+                        tokens[:, :-1]], 1)
+    with torch.no_grad():
+        ref = cpu(torch.from_numpy(src_np), tgt_in)
+    live = torch.ones(NMT_GREEDY_B, dtype=torch.bool)
+    ties, checked = [], 0
+    for t in range(NMT_GREEDY_S):
+        top = ref[:, t].topk(2, dim=-1)
+        for i in torch.nonzero(live).flatten().tolist():
+            checked += 1
+            tok = int(tokens[i, t])
+            if tok != int(top.indices[i, 0]):
+                gap = float(top.values[i, 0] - ref[i, t, tok])
+                ties.append((i, t, tok, int(top.indices[i, 0]), gap))
+        live &= tokens[:, t] != NMT_EOS
+    logit_err = (logits.cpu() - ref).abs().max().item() / max(
+        ref.abs().max().item(), 1.0)
+    # MultiHeadAttention's cache: one position at a time equals the full
+    # causal call
+    paddle.seed(seed)
+    mha = paddle.nn.MultiHeadAttention(NMT_D, NMT_HEADS, device="cuda")
+    mha.eval()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(NMT_GREEDY_B, NMT_GREEDY_S, NMT_D, device="cuda",
+                    generator=gen)
+    with torch.no_grad():
+        full = mha(x, attn_mask=paddle.nn.Transformer
+                   .generate_square_subsequent_mask(NMT_GREEDY_S))
+        cache, outs = mha.gen_cache(x), []
+        for t in range(NMT_GREEDY_S):
+            o, cache = mha(x[:, t:t + 1], cache=cache)
+            outs.append(o)
+    inc = torch.cat(outs, 1)
+    cache_err = (inc - full).abs().max().item() / max(
+        full.abs().max().item(), 1.0)
+    print(f"[{tag}] Transformer-base (6 + 6 layers, fp32, the weights "
+          f"[train transformer] starts from), {NMT_GREEDY_B} sources of "
+          f"{NMT_GREEDY_S} tokens, greedy for {NMT_GREEDY_S} steps, the "
+          f"decoder re-run on the prefix each step: {total_ms:.1f} ms, "
+          f"{total_ms / NMT_GREEDY_S:.3f} ms a step, "
+          f"{total_ms / NMT_GREEDY_S / NMT_GREEDY_B:.4f} ms a generated "
+          f"token; card tokens vs the CPU's argmax (teacher-forced) at "
+          f"{checked} steps: {len(ties)} apart, each within {NMT_GAP} "
+          f"{ties[:8]}; last logits vs the CPU's {logit_err:.3e}; "
+          f"MultiHeadAttention with the cache vs the full causal call "
+          f"{cache_err:.3e} (tol {MHA_CACHE_TOL})", flush=True)
+    check(all(g <= NMT_GAP for *_, g in ties),
+          f"[{tag}] card tokens depart from the CPU's beyond {NMT_GAP}: "
+          f"{ties[:8]}")
+    check(cache_err <= MHA_CACHE_TOL, f"[{tag}] cache {cache_err:.3e}")
+    return {"ms": total_ms, "ties": len(ties), "checked": checked,
+            "cache_err": cache_err}
+
+
+def _crnn_model(torch, seed, device="cuda", criterion=None, sgd_lr=None):
+    """CRNN from ``seed``, ``Adam(CRNN_LR)`` (or ``SGD(sgd_lr)``), fp32,
+    in a ``Model`` whose labels are the label ids and their lengths."""
+    import paddle_tpu_torch as paddle
+    m = slice19_models()
+    paddle.seed(seed)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    net = m["CRNN"](device=device, generator=gen)
+    opt = (paddle.optimizer.SGD(sgd_lr, parameters=net.parameters())
+           if sgd_lr is not None else
+           paddle.optimizer.Adam(CRNN_LR, parameters=net.parameters()))
+    model = paddle.Model(net, labels=["label", "length"], device=device)
+    model.prepare(opt, criterion or m["CTCCriterion"]())
+    return net, opt, model
+
+
+def _crnn_group(name):
+    """Profile groups of the CRNN step, by kernel name."""
+    low = name.lower()
+    if "batch_norm" in low or "bn_" in low:
+        return "BatchNorm"
+    if any(k in low for k in ("conv", "fprop", "dgrad", "wgrad", "cudnn",
+                              "implicit_convolve", "xmma")):
+        return "cuDNN convolutions"
+    if "logaddexp" in low:
+        return "CTC (logaddexp)"
+    if any(k in low for k in ("sigmoid", "tanh")):
+        return "LSTM gates (sigmoid, tanh)"
+    g = _kernel_group(name)
+    return "Adam (foreach)" if g.startswith("optimizer") else g
+
+
+def crnn_grad_gate(a, b):
+    """max |a - b| / max |b| per gradient leaf (1 for an all-zero leaf),
+    the worst first: each leaf against its own scale, so a leaf of small
+    gradients is held as closely as a large one."""
+    return sorted(((float((a[k] - b[k]).abs().max())
+                    / (float(b[k].abs().max()) or 1.0), k) for k in b),
+                  reverse=True)
+
+
+def crnn_parity(torch, seed, tag, card="cuda"):
+    """``[train crnn]``'s card-vs-CPU gates, CRNN at B=8 from the same
+    weights under the deterministic algorithms: step 1's gradients per
+    leaf within ``CRNN_GRAD_TOL`` (a control whose card loss is scaled
+    by ``CRNN_GRAD_CONTROL`` must fail), the loss at "mean" and "sum",
+    then three SGD steps (K=1 replays on ``card``) within
+    ``CARD_CPU_TOL`` (the control must fail that gate too), each step's
+    worst leaves printed.  ``card="cpu"`` runs the same on the CPU twice
+    (no graphs)."""
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    m = slice19_models()
+    p = CRNN_PARITY
+    small = [ocr_batch(p["b"], seed + 400 + i) for i in range(p["steps"])]
+    net, _, _ = _crnn_model(torch, seed, card, sgd_lr=p["lr"])
+    init = {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+    del net
+
+    class Scaled(m["CTCCriterion"]):
+        """The control: every gradient CRNN_GRAD_CONTROL of its value."""
+
+        def forward(self, *args):
+            return CRNN_GRAD_CONTROL * super().forward(*args)
+
+    class Keep(Callback):
+        """Each step's loss and the state after it."""
+
+        def __init__(self, net):
+            super().__init__()
+            self.net, self.losses, self.states = net, [], []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(float(logs["loss"][0]))
+            self.states.append({k: v.detach().cpu().clone() for k, v in
+                                self.net.state_dict().items()})
+
+    grads, red, ends = {}, {}, {}
+    runs = (("card", card, m["CTCCriterion"]()), ("cpu", "cpu",
+            m["CTCCriterion"]()), ("control", card, Scaled()))
+    with deterministic_algorithms(torch):
+        for run, dev, criterion in runs:
+            # the gradients on a model of their own: the fit's capture
+            # must not meet the autograd nodes of an eager backward run
+            # on the default stream
+            net, _, _ = _crnn_model(torch, seed, dev, sgd_lr=p["lr"])
+            net.set_state_dict(init)
+            x0, lab0, len0 = (torch.from_numpy(a).to(dev) for a in small[0])
+            logits = net(x0)
+            criterion(logits, lab0, len0).backward()
+            grads[run] = {k: q.grad.detach().cpu().clone() for k, q in
+                          net.named_parameters()}
+            logits = logits.detach()
+            red[run] = [float(m["CTCCriterion"](r)(logits, lab0, len0))
+                        for r in ("mean", "sum")]
+            del net, logits
+            net, _, model = _crnn_model(torch, seed, dev, criterion,
+                                        sgd_lr=p["lr"])
+            net.set_state_dict(init)
+            keep = Keep(net)
+            model.fit([tuple(torch.from_numpy(a) for a in b) for b in small],
+                      epochs=1, verbose=0, callbacks=[keep],
+                      steps_per_dispatch=1 if run != "cpu" else 0)
+            ends[run] = (keep.states, keep.losses)
+            if dev != "cpu":
+                free_model(torch, tag, model)
+            del net, model
+    g_err, g_leaf = crnn_grad_gate(grads["card"], grads["cpu"])[0]
+    gc_err, gc_leaf = crnn_grad_gate(grads["control"], grads["cpu"])[0]
+    (on_card, card_l), (on_cpu, cpu_l) = ends["card"], ends["cpu"]
+    per_step = [_worst(a, b)[:3] for a, b in zip(on_card, on_cpu)]
+    err, worst = per_step[-1][0]
+    c_err, c_leaf = _worst(ends["control"][0][-1], on_cpu[-1])[0]
+    red_rel = max(abs(a - b) / abs(b) for a, b in zip(red["card"],
+                                                      red["cpu"]))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l))
+    print(f"[{tag}] card vs CPU under the deterministic algorithms at "
+          f"B={p['b']}, step 1's gradients per leaf, |diff| / the leaf's "
+          f"largest |CPU gradient|: {g_err:.3e} ({g_leaf}; tol "
+          f"{CRNN_GRAD_TOL}); the control (card loss x{CRNN_GRAD_CONTROL}) "
+          f"{gc_err:.3e} ({gc_leaf}; must fail); the loss on the same "
+          f"weights, 'mean' and 'sum': card {red['card']} vs CPU "
+          f"{red['cpu']} (relative {red_rel:.3e})", flush=True)
+    for step, leaves in enumerate(per_step):
+        print(f"[{tag}] SGD({p['lr']}) step {step + 1} (K=1 replays) vs "
+              f"CPU, parameters and BatchNorm statistics |diff|/max(|ref|,1)"
+              f", the worst: " + ", ".join(f"{k} {e:.3e}" for e, k in
+                                           leaves), flush=True)
+    print(f"[{tag}] after {p['steps']} steps {err:.3e} ({worst}; tol "
+          f"{CARD_CPU_TOL}); losses relative {loss_rel:.3e}; the control "
+          f"after {p['steps']} steps {c_err:.3e} ({c_leaf}; must fail)",
+          flush=True)
+    check(g_err <= CRNN_GRAD_TOL and err <= CARD_CPU_TOL and
+          loss_rel <= PARITY_TOL and red_rel <= PARITY_TOL,
+          f"[{tag}] card vs CPU: gradients {g_err:.3e}, parameters "
+          f"{err:.3e}, losses {loss_rel:.3e}, reductions {red_rel:.3e}")
+    check(gc_err > CRNN_GRAD_TOL and c_err > CARD_CPU_TOL,
+          f"[{tag}] the control (loss x{CRNN_GRAD_CONTROL}) passed a gate: "
+          f"gradients {gc_err:.3e}, after {p['steps']} steps {c_err:.3e}")
+    return {"err": err, "grad_err": g_err, "grad_control": gc_err,
+            "control_steps": c_err}
+
+
+def train_crnn_phase(torch, seed):
+    """``[train crnn]`` (module docstring, 15r)."""
+    import gc
+    tag = "train crnn"
+    m = slice19_models()
+    gc.collect()
+    torch.cuda.empty_cache()
+    data = [tuple(torch.from_numpy(a).pin_memory() for a in
+                  ocr_batch(CRNN_B, seed + 300 + i))
+            for i in range(CRNN_STEPS)]
+    lens = [int(b[2].sum()) for b in data]
+
+    class FrozenLengths(m["CTCCriterion"]):
+        """The control: the first batch's label lengths kept and read at
+        every later step, as a capture that read them on the host
+        would have frozen them."""
+
+        def forward(self, logits, labels, label_lengths):
+            if not hasattr(self, "first"):
+                self.first = label_lengths.clone()
+            return super().forward(logits, labels, self.first)
+
+    def run(fold, criterion=None):
+        net, opt, model = _crnn_model(torch, seed, criterion=criterion)
+        clock = _step_clock(torch)
+        torch.cuda.reset_peak_memory_stats()
+        model.fit(data, epochs=1, verbose=0, steps_per_dispatch=fold,
+                  callbacks=[clock])
+        torch.cuda.synchronize()
+        out = dict(state=_layer_state(torch, opt, net), losses=clock.losses,
+                   ms=list(np.diff(clock.stamps) * 1e3),
+                   peak=torch.cuda.max_memory_allocated(),
+                   graphs=model.compile_stats(), model=model)
+        return out
+
+    with deterministic_algorithms(torch) as warned:
+        rep = run(1)
+        free_model(torch, tag, rep.pop("model"))
+        eag = run(0)
+        free_model(torch, tag, eag.pop("model"))
+        ctl = run(1, FrozenLengths())
+        free_model(torch, tag, ctl.pop("model"))
+    warned = sorted({str(w.message)[:100] for w in warned})
+    same = _states_equal(torch, rep["state"], eag["state"]) and \
+        rep["losses"] == eag["losses"]
+    diff = _state_diff(torch, eag["state"], rep["state"])
+    ctl_same = _states_equal(torch, ctl["state"], eag["state"])
+    ctl_diff = _state_diff(torch, eag["state"], ctl["state"])
+    check(rep["graphs"] == {"graphs": 1, "captures": 1},
+          f"[{tag}] graphs {rep['graphs']}")
+    check(same, f"[{tag}] replays vs eager: largest |diff|/max(|ref|,1) "
+          f"{diff:.3e}; losses {rep['losses']} vs {eag['losses']}")
+    check(not ctl_same, f"[{tag}] the frozen-lengths control passed the "
+          "replay-vs-eager gate")
+    check(rep["losses"][-1] < rep["losses"][0],
+          f"[{tag}] the loss did not fall: {rep['losses']}")
+    # timed in the default mode (cuDNN's fastest algorithms)
+    t = run(1)
+    model = t.pop("model")
+    step_ms = float(np.median(t["ms"][2:]))
+    prof = profile_run(
+        torch, tag, "replayed", lambda: model.fit(
+            data[:4], epochs=1, verbose=0, steps_per_dispatch=1), 4,
+        group=_crnn_group)
+    free_model(torch, tag, model)
+    # the LSTM neck and the CTC loss alone, forward + backward
+    net, _, model = _crnn_model(torch, seed)
+    x = torch.randn(CRNN_B, 26, 512, device="cuda", requires_grad=True)
+    lp = torch.randn(26, CRNN_B, CRNN_CLASSES, device="cuda",
+                     requires_grad=True)
+    labels, llen = (b.cuda() for b in data[0][1:])
+    tlen = torch.full((CRNN_B,), 26, dtype=torch.long, device="cuda")
+    ctc = m["CTCCriterion"]().ctc
+    lstm_ms = device_ms(torch, lambda: net.neck(x)[0].sum().backward(), 5,
+                        {"all": ()})["all"]
+    ctc_ms = device_ms(torch, lambda: ctc(lp, labels, tlen, llen).backward(),
+                       5, {"all": ()})["all"]
+    free_model(torch, tag, model)
+    del net, model
+    print(f"[{tag}] CRNN (VGG of Table 1, LSTM(512, 256, bidirectional, 2 "
+          f"layers), Linear(512, {CRNN_CLASSES}), CTCLoss(blank=0)), fp32, "
+          f"Adam({CRNN_LR}), B={CRNN_B} 1x{CRNN_H}x{CRNN_W}, label lengths "
+          f"{CRNN_LABELS} (label tokens a batch {lens[:6]}...): "
+          f"{CRNN_STEPS} steps", flush=True)
+    print(f"[{tag}] under the deterministic algorithms (warnings {warned}): "
+          f"K=1 replays vs eager bit-equal {same}; the frozen-lengths "
+          f"control {ctl_diff:.3e} from eager (must differ); losses "
+          f"{[round(v, 4) for v in rep['losses']]}", flush=True)
+    print(f"[{tag}] default mode: replayed {step_ms:.3f} ms a step "
+          f"({CRNN_B / (step_ms * 1e-3):.1f} images/s), first step (warm-up "
+          f"+ capture) {t['ms'][0]:.3f} ms; peak_mem_gib "
+          f"{t['peak'] / 2**30:.3f}; alone (device ms, forward + backward): "
+          f"the LSTM neck {lstm_ms:.3f}, CTC {ctc_ms:.3f}", flush=True)
+    par = crnn_parity(torch, seed, tag)
+    return {"step_ms": step_ms, "images_per_s": CRNN_B / (step_ms * 1e-3),
+            "peak": t["peak"], "profile": prof, "lstm_ms": lstm_ms,
+            "ctc_ms": ctc_ms, "losses": rep["losses"], "control": ctl_diff,
+            **par}
+
+
+def rnn_phase(torch, seed):
+    """``[rnn]`` (module docstring, 15s)."""
+    import paddle_tpu_torch as paddle
+    tag = "rnn"
+    B, T, I, H, L = 16, 20, 64, 128, 2
+    rng = np.random.RandomState(seed + 500)
+
+    def inputs(k):
+        r = np.random.RandomState(seed + 600 + k)
+        lens = r.randint(1, T + 1, B)
+        lens[0] = T
+        return (r.randn(B, T, I).astype(np.float32), lens.astype(np.int64),
+                r.randn(2 * L, B, H).astype(np.float32),
+                r.randn(2 * L, B, H).astype(np.float32))
+
+    cot = [rng.randn(B, T, 2 * H).astype(np.float32),
+           rng.randn(2 * L, B, H).astype(np.float32)]
+    cot = {dev: [torch.from_numpy(c).to(dev) for c in cot]
+           for dev in ("cpu", "cuda")}
+
+    def grads(net, x, lens, h0, c0, lstm):
+        init = (h0, c0) if lstm else h0
+        out, st = net(x, init, lens)
+        h = st[0] if lstm else st
+        g_out, g_h = cot[x.device.type]
+        loss = (out * g_out).sum() + (h * g_h).sum()
+        wrt = [x, h0] + ([c0] if lstm else []) + list(net.parameters())
+        return [out] + list(torch.autograd.grad(loss, wrt))
+
+    def err(got, ref):
+        return max((a.detach().cpu() - b.detach()).abs().max().item() /
+                   max(b.abs().max().item(), 1.0) for a, b in zip(got, ref))
+
+    out = {}
+    for cls in ("SimpleRNN", "LSTM", "GRU"):
+        lstm = cls == "LSTM"
+        paddle.seed(seed)
+        cpu = getattr(paddle.nn, cls)(I, H, num_layers=L,
+                                      direction="bidirectional",
+                                      device="cpu")
+        card = getattr(paddle.nn, cls)(I, H, num_layers=L,
+                                       direction="bidirectional",
+                                       device="cuda")
+        card.set_state_dict(cpu.state_dict())
+
+        def on(dev, arrays):
+            x, lens, h0, c0 = arrays
+            return (torch.from_numpy(x).to(dev).requires_grad_(),
+                    torch.from_numpy(lens).to(dev),
+                    torch.from_numpy(h0).to(dev).requires_grad_(),
+                    torch.from_numpy(c0).to(dev).requires_grad_())
+
+        a = inputs(0)
+        ref = grads(cpu, *on("cpu", a), lstm)
+        eager = err(grads(card, *on("cuda", a), lstm), ref)
+        # captured: forward and backward in one graph on static inputs,
+        # then replayed on another batch (other lengths) copied in
+        static = on("cuda", a)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                grads(card, *static, lstm)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            static_out = grads(card, *static, lstm)
+        b = inputs(1)
+        with torch.no_grad():
+            for dst, src in zip(static, on("cuda", b)):
+                dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        captured = err(static_out, grads(cpu, *on("cpu", b), lstm))
+        out[cls] = (eager, captured)
+        check(eager <= RNN_TOL and captured <= RNN_TOL,
+              f"[{tag}] {cls}: card vs CPU eager {eager:.3e}, captured "
+              f"{captured:.3e} (tol {RNN_TOL})")
+        del graph, static, static_out
+    print(f"[{tag}] SimpleRNN, LSTM, GRU: {L} layers, bidirectional, I={I} "
+          f"H={H} B={B} T={T}, ragged sequence_length and initial states, "
+          f"fp32: card vs CPU largest |diff|/max(|ref|,1) over the outputs "
+          f"and the gradients of the input, the initial states and every "
+          f"weight (eager, captured and replayed on other lengths): "
+          + ", ".join(f"{k} {e:.3e} / {c:.3e}" for k, (e, c) in out.items())
+          + f" (tol {RNN_TOL})", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7795,6 +8790,11 @@ def main(argv=None) -> int:
     esched = ernie_sched_phase(torch, args.seed, ernie_train)
     escaler = ernie_scaler_phase(torch, args.seed, esched)
     optimizers_phase(torch, args.seed)
+    train_transformer_phase(torch, args.seed)
+    train_transformer_parity_phase(torch, args.seed)
+    translate_greedy_phase(torch, args.seed)
+    train_crnn_phase(torch, args.seed)
+    rnn_phase(torch, args.seed)
 
     k32, k16 = kres["fp32"], kres["bf16"]
     kernels = [{

@@ -58,7 +58,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "Model", "seed", "amp", "optimizer",
+__all__ = ["resolve_device", "Model", "seed", "LazyGuard", "amp",
+           "optimizer",
            "regularizer", "nn",
            "io", "vision", "metric", "callbacks", "save", "load",
            "summary", "flops"]
@@ -86,3 +87,4 @@ from .framework.io import load, save  # noqa: E402
 from .framework.random import seed  # noqa: E402
 from .hapi import Model, callbacks  # noqa: E402
 from .hapi.summary import flops, summary  # noqa: E402
+from .nn.layer import LazyGuard  # noqa: E402

@@ -91,6 +91,7 @@ from ..framework.lazy import LazyScalar, LazyStack
 from ..io import DataLoader, Dataset
 from ..io.staging import as_tensor, stack_to_device, to_device_values
 from ..metric import Metric
+from ..nn import layer as _layer
 from ..observability import metrics as _obs_metrics
 from ..observability import trace as _obs_trace
 from ..ops import counts as _counts
@@ -135,6 +136,8 @@ class Model:
                  device=None):
         self.device = resolve_device(device)
         self.network = network.to(self.device)
+        self._structure_version = _layer.structure_version()
+        self._tree_ids = {id(m) for m in network.modules()}
         self._inputs = inputs
         self._labels = labels
         self._optimizer = None
@@ -240,6 +243,7 @@ class Model:
         metric's value of this batch.  ``update=False`` leaves the
         parameters and the gradients as they were, as the JAX package's
         discarded step does."""
+        self._check_structure()
         self.network.train()
         ins = to_device_values(_to_list(inputs), self.device)
         lbs = to_device_values(_to_list(labels), self.device)
@@ -290,6 +294,7 @@ class Model:
         without gradients.  On the card (with a loss and device
         metrics) one captured graph per batch signature computes them;
         otherwise the body runs eagerly."""
+        self._check_structure()
         self.network.eval()
         ins = to_device_values(_to_list(inputs), self.device)
         lbs = to_device_values(_to_list(labels), self.device)
@@ -326,6 +331,29 @@ class Model:
         with torch.no_grad(), self._amp():
             outs = _to_list(self.network(*ins))
         return [_host_array(o) for o in outs]
+
+    def _check_structure(self):
+        """Before a step: if a parameter or sub-layer of the network was
+        added, removed or replaced since the last look (the structure
+        version of ``nn/layer.py`` moved and the log names a layer of
+        this tree), drop every captured graph (each reads the storage of
+        the parameters it was captured with) and the zero gradients, and
+        hand each replaced parameter to the optimizer under its name,
+        with fresh state, as the JAX ``TrainState`` re-reads the tree.
+        Otherwise one integer compare."""
+        ver = _layer.structure_version()
+        if ver == self._structure_version:
+            return
+        touched = _layer.mutations_since(self._structure_version)
+        self._structure_version = ver
+        if touched is not None and not self._tree_ids.intersection(touched):
+            return
+        self._tree_ids = {id(m) for m in self.network.modules()}
+        self.release_graphs()
+        self._zero_grads = {}
+        if self._optimizer is not None:
+            self._optimizer._adopt_parameters(
+                dict(self.network.named_parameters()))
 
     # -- the fold engine ---------------------------------------------------
     def _key(self, batches, n_in):
@@ -379,6 +407,7 @@ class Model:
         graph replay per step.  Returns the losses and each metric's
         stats as :class:`LazyStack` s of the group's ``[K, ...]``
         buffers, fetched once when a callback formats one of them."""
+        self._check_structure()
         self.network.train()
         batches = stack_to_device(
             [list(ins) + list(lbs) for ins, lbs in groups], self.device)

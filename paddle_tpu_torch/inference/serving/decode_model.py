@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...nn.layer import Layer
 from .kv_cache import (SCRATCH_BLOCK, gather_pages, paged_append,
                        write_prompt_pages)
 from .ragged_attention import (causal_prefill_attention,
@@ -72,7 +73,7 @@ _LAYER_KEYS = ("ln1_w", "ln1_b", "wqkv", "bqkv", "wo", "bo", "ln2_w",
                "ln2_b", "w1", "b1", "w2", "b2")
 
 
-class GPTDecodeLayerWeights(nn.Module):
+class GPTDecodeLayerWeights(Layer):
     """One decoder layer's weights, JAX ``[in, out]`` orientation."""
 
     def __init__(self, arrays: dict, *, device, dtype):
@@ -81,7 +82,7 @@ class GPTDecodeLayerWeights(nn.Module):
             setattr(self, key, _param(arrays[key], device, dtype))
 
 
-class GPTDecodeWeights(nn.Module):
+class GPTDecodeWeights(Layer):
     """Serving weights: ``wte [V, D]``, ``wpe [P, D]``, final LayerNorm
     and ``layers``.  Inference only (``requires_grad=False``)."""
 

@@ -33,6 +33,7 @@ from .. import nn, resolve_device
 from ..amp.auto_cast import cast_inputs
 from ..framework import random as _random
 from ..nn.functional import cross_entropy, flash_attention
+from ..nn.layer import Layer
 from ..nn.param_attr import Parameter
 from ..ops.nn_ops import scaled_dot_product_attention
 
@@ -95,7 +96,7 @@ def _xavier_linear(n_in, n_out, device, generator):
                      device=device, generator=generator)
 
 
-class BertEmbeddings(tnn.Module):
+class BertEmbeddings(Layer):
     def __init__(self, config: BertConfig, device=None, generator=None):
         super().__init__()
         device = resolve_device(device)
@@ -123,7 +124,7 @@ class BertEmbeddings(tnn.Module):
         return self.dropout(self.layer_norm(emb))
 
 
-class BertSelfAttention(tnn.Module):
+class BertSelfAttention(Layer):
     """Fused qkv projection; q, k and v are strided ``[B, S, H, D]``
     views of it.  No mask: the flash kernels, non-causal.  A mask: the
     composed masked attention."""
@@ -155,7 +156,7 @@ class BertSelfAttention(tnn.Module):
         return self.out(out.reshape(b, s, h))
 
 
-class BertLayer(tnn.Module):
+class BertLayer(Layer):
     def __init__(self, config: BertConfig, device=None, generator=None):
         super().__init__()
         device = resolve_device(device)
@@ -176,7 +177,7 @@ class BertLayer(tnn.Module):
         return self.ln2(x + self.dropout2(self.fc2(self.act(self.fc1(x)))))
 
 
-class BertPooler(tnn.Module):
+class BertPooler(Layer):
     def __init__(self, config: BertConfig, device=None, generator=None):
         super().__init__()
         device = resolve_device(device)
@@ -187,7 +188,7 @@ class BertPooler(tnn.Module):
         return torch.tanh(self.dense(hidden[:, 0]))
 
 
-class BertModel(tnn.Module):
+class BertModel(Layer):
     """Embeddings, the encoder and the pooler; returns ``(sequence
     output, pooled)``.  A 2-D ``attention_mask`` (1 = token, 0 =
     padding) becomes the additive ``[B, 1, 1, S]`` mask of -1e4.
@@ -214,7 +215,7 @@ class BertModel(tnn.Module):
         return x, self.pooler(x)
 
 
-class BertForPretraining(tnn.Module):
+class BertForPretraining(Layer):
     """MLM over the tied word embedding plus ``mlm_bias``, and NSP.
     Returns ``(mlm_logits [B, S, V], nsp_logits [B, 2])``."""
 
@@ -246,7 +247,7 @@ class BertForPretraining(tnn.Module):
         return mlm_logits, self.nsp(pooled)
 
 
-class BertPretrainingCriterion(tnn.Module):
+class BertPretrainingCriterion(Layer):
     """Mean MLM cross-entropy over the positions whose label is not
     -100, plus the mean NSP cross-entropy when NSP labels are given
     (both fp32)."""
@@ -267,7 +268,7 @@ class BertPretrainingCriterion(tnn.Module):
         return loss
 
 
-class BertForSequenceClassification(tnn.Module):
+class BertForSequenceClassification(Layer):
     """Pooled-output classification head (the fine-tuning surface of
     the BERT/ERNIE family)."""
 

@@ -25,6 +25,7 @@ from .. import resolve_device
 from .. import nn
 from ..framework import random as _random
 from ..nn.functional import cross_entropy, flash_attention
+from ..nn.layer import Layer
 from ..ops.flash_attention_kernel import flash_attention_reference
 from ..ops.lmce_kernel import fused_linear_cross_entropy
 
@@ -110,7 +111,7 @@ def _layer_kw(config, device, generator):
                 generator=generator)
 
 
-class GPTEmbeddings(tnn.Module):
+class GPTEmbeddings(Layer):
     def __init__(self, config: GPTConfig, device=None, generator=None):
         super().__init__()
         device = resolve_device(device)
@@ -131,7 +132,7 @@ class GPTEmbeddings(tnn.Module):
         return self.dropout(emb)
 
 
-class GPTAttention(tnn.Module):
+class GPTAttention(Layer):
     """Causal self-attention.  q, k and v are strided ``[B, S, H, D]``
     views of the fused qkv projection (no transpose copy); the flash
     kernels read them in place."""
@@ -166,7 +167,7 @@ class GPTAttention(tnn.Module):
         return self.out_proj(out.reshape(b, s, h))
 
 
-class GPTMLP(tnn.Module):
+class GPTMLP(Layer):
     def __init__(self, config: GPTConfig, device=None, generator=None):
         super().__init__()
         device = resolve_device(device)
@@ -181,7 +182,7 @@ class GPTMLP(tnn.Module):
                                                  approximate="tanh"))
 
 
-class GPTDecoderLayer(tnn.Module):
+class GPTDecoderLayer(Layer):
     def __init__(self, config: GPTConfig, device=None, generator=None):
         super().__init__()
         device = resolve_device(device)
@@ -205,7 +206,7 @@ class GPTDecoderLayer(tnn.Module):
         return x
 
 
-class GPTModel(tnn.Module):
+class GPTModel(Layer):
     """``device=None`` means the card, as for :class:`GPTForCausalLM`."""
 
     def __init__(self, config: GPTConfig, device=None, generator=None):
@@ -227,7 +228,7 @@ class GPTModel(tnn.Module):
         return self.final_norm(x)
 
 
-class GPTForCausalLM(tnn.Module):
+class GPTForCausalLM(Layer):
     """GPT with the lm head tied to the word embedding: the logits are
     ``hidden @ word_embeddings.weight^T``, one ``Parameter`` whose
     gradient sums both uses.  ``device=None`` means the card and raises
@@ -256,7 +257,7 @@ class GPTForCausalLM(tnn.Module):
         return torch.matmul(hidden, self.lm_weight().t())
 
 
-class GPTPretrainingCriterion(tnn.Module):
+class GPTPretrainingCriterion(Layer):
     """Causal LM loss: per-token cross-entropy (fp32, ``ignore_index``
     -100) averaged over all tokens, or over ``loss_mask`` when given.
     Labels come already shifted by one.

@@ -4,13 +4,12 @@ over ``ops/activation.py``."""
 
 from __future__ import annotations
 
-from torch import nn
-
 from ..ops import activation as A
+from .layer import Layer
 
 
 def _make(name, fn):
-    class _Act(nn.Module):
+    class _Act(Layer):
         def __init__(self, *args, name=None, **kwargs):
             super().__init__()
             # positional args map onto the op's extra params in order

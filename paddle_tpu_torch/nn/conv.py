@@ -8,15 +8,14 @@ from __future__ import annotations
 
 import math
 
-from torch import nn
-
 from .. import resolve_device
 from ..ops import nn_ops
 from ..ops.nn_ops import _pair
 from . import initializer as I
+from .layer import Layer
 
 
-class Conv2D(nn.Module):
+class Conv2D(Layer):
     """``groups`` (depthwise when it equals the channels), ``dilation``,
     ``padding`` an int, a pair, a ``[top, bottom, left, right]`` list or
     "SAME"/"VALID"; the weight from ``KaimingUniform(fan_in)`` with

@@ -15,6 +15,9 @@ import torch
 from ..framework import random as _random
 from .param_attr import Parameter, ParamAttr
 
+#: on inside ``nn.LazyGuard``: parameters start as zeros placeholders
+_LAZY_INIT = {"on": False}
+
 
 def _fan_in_out(shape):
     shape = tuple(shape)
@@ -58,6 +61,15 @@ class Normal(Initializer):
     def __call__(self, shape, device, generator=None):
         return _empty(shape, device).normal_(
             self.mean, self.std, generator=_gen(generator, device))
+
+
+class Uniform(Initializer):
+    def __init__(self, low: float = -1.0, high: float = 1.0):
+        self.low, self.high = float(low), float(high)
+
+    def __call__(self, shape, device, generator=None):
+        return _empty(shape, device).uniform_(
+            self.low, self.high, generator=_gen(generator, device))
 
 
 class TruncatedNormal(Initializer):
@@ -117,11 +129,18 @@ def make_parameter(shape, attr, default, device, generator=None):
     (fp32) from ``attr`` (``ParamAttr._to_attr``: None, a name, an
     initializer or a ``ParamAttr``): drawn by its initializer, else by
     ``default``; named, scaled and regularized as it says, as
-    ``paddle_tpu/nn/layer.py::create_parameter`` does."""
+    ``paddle_tpu/nn/layer.py::create_parameter`` does.  Under
+    ``nn.LazyGuard`` the value is zeros and the initializer waits
+    for ``Layer.apply_deferred_init``."""
     attr = ParamAttr._to_attr(attr)
     init = attr.initializer if attr.initializer is not None else default
-    p = Parameter(init(shape, device, generator),
-                  requires_grad=bool(attr.trainable), name=attr.name)
+    lazy = _LAZY_INIT["on"]
+    value = (torch.zeros(tuple(shape), dtype=torch.float32, device=device)
+             if lazy else init(shape, device, generator))
+    p = Parameter(value, requires_grad=bool(attr.trainable), name=attr.name)
+    if lazy:
+        # nn.LazyGuard: drawn later by Layer.apply_deferred_init
+        p._deferred_init = (init, generator)
     p.optimize_attr["learning_rate"] = attr.learning_rate
     p.regularizer = attr.regularizer
     return p

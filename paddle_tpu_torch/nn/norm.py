@@ -11,10 +11,11 @@ from ..amp.auto_cast import cast_inputs
 from ..ops import activation as _act
 from ..ops import nn_ops
 from . import initializer as I
+from .layer import Layer
 from .param_attr import Parameter
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(Layer):
     """Normalisation over the trailing ``normalized_shape`` dims with the
     JAX package's mixed-precision contract: statistics and the affine
     step in fp32, the output in the input's dtype.  Under AMP O2 the
@@ -43,7 +44,7 @@ class LayerNorm(nn.Module):
         return out.to(x.dtype)
 
 
-class _BatchNormBase(nn.Module):
+class _BatchNormBase(Layer):
     """BatchNorm over the channel axis, 1 (channel-first layouts only)
     with the JAX layer's contract (``ops/nn_ops.py::batch_norm``):
     fp32 statistics, the output in the input's dtype, Paddle's momentum

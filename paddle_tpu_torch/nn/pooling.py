@@ -4,12 +4,11 @@ arithmetic is ``ops/nn_ops.py``'s (Paddle's ``exclusive`` and the JAX
 
 from __future__ import annotations
 
-from torch import nn
-
 from ..ops import nn_ops
+from .layer import Layer
 
 
-class MaxPool2D(nn.Module):
+class MaxPool2D(Layer):
     def __init__(self, kernel_size, stride=None, padding=0,
                  return_mask=False, ceil_mode=False, data_format="NCHW",
                  name=None):
@@ -25,7 +24,7 @@ class MaxPool2D(nn.Module):
                                  self.return_mask, self.data_format)
 
 
-class AvgPool2D(nn.Module):
+class AvgPool2D(Layer):
     """``exclusive=True`` (the default) divides by the count of real
     elements in a padded window (torch's ``count_include_pad=False``)."""
 
@@ -45,7 +44,7 @@ class AvgPool2D(nn.Module):
                                  self.data_format)
 
 
-class AdaptiveAvgPool2D(nn.Module):
+class AdaptiveAvgPool2D(Layer):
     def __init__(self, output_size, data_format="NCHW", name=None):
         super().__init__()
         self.output_size = output_size
@@ -56,7 +55,7 @@ class AdaptiveAvgPool2D(nn.Module):
                                           self.data_format)
 
 
-class AdaptiveMaxPool2D(nn.Module):
+class AdaptiveMaxPool2D(Layer):
     def __init__(self, output_size, return_mask=False, name=None):
         super().__init__()
         self.output_size = output_size

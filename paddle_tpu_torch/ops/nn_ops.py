@@ -12,6 +12,7 @@ import math
 import torch
 
 from ..amp.auto_cast import cast_inputs
+from ..framework import random as _random
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
@@ -259,6 +260,31 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     return out.to(orig)
 
 
+def dropout_refusals(axis, mode):
+    """Refuse what the port's dropout does not do yet: a mask shared
+    along axes and ``downscale_in_infer``."""
+    if axis is not None or mode != "upscale_in_train":
+        raise NotImplementedError(
+            f"dropout(axis={axis!r}, mode={mode!r}) is not ported yet "
+            "(ROADMAP queue A, item 8: the rest of nn/functional)")
+
+
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
+            name=None):
+    """Paddle's ``upscale_in_train`` dropout: while ``training``, zero
+    each element with probability ``p`` and scale the rest by ``1 / (1
+    - p)``; ``x`` itself otherwise or at ``p == 0``.  The mask comes from
+    the port's generator of ``x``'s device (which a captured step
+    registers).  ``axis`` and ``mode`` take Paddle's defaults only
+    (``dropout_refusals``)."""
+    dropout_refusals(axis, mode)
+    if not training or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=_random.default_generator(x.device),
+                      device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
 def linear(x, weight, bias=None):
     """``x @ weight + bias`` with ``weight`` ``[in, out]`` (counterpart of
     ``nn_ops.linear``); operands of two dtypes meet in the wider one."""
@@ -374,3 +400,391 @@ def upsample(x, size=None, scale_factor=None, mode="nearest",
              align_corners=False, data_format="NCHW"):
     return interpolate(x, size=size, scale_factor=scale_factor, mode=mode,
                        align_corners=align_corners, data_format=data_format)
+
+
+# ---------------------------------------------------------------------------
+# Losses (counterparts of the JAX ``nn_ops`` loss functions).  Each casts
+# its floating inputs by the AMP rule, as the JAX primitives are cast,
+# and computes what the JAX function computes.
+# ---------------------------------------------------------------------------
+def _reduce_loss(loss, reduction):
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    return loss
+
+
+def _class_weights(weight, lbl, n, device):
+    w = torch.as_tensor(weight, device=device)
+    return w[lbl.clamp(0, n - 1)]
+
+
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True, label_smoothing=0.0):
+    """Paddle's ``F.cross_entropy``.  Soft labels (``soft_label``, or a
+    floating ``label`` shaped as ``input``): ``-sum(label * log_softmax
+    (input))`` over ``axis``, the label smoothed to ``label * (1 - ls) +
+    ls / C`` first.  Hard labels (``[N]`` or ``[N, 1]`` along ``axis``):
+    ``lse - input[label]``, with ``label_smoothing`` the mix ``(1 - ls)
+    * that + ls * (lse - mean(input))``; ``use_softmax=False`` reads
+    ``input`` as probabilities (``log(max(p, 1e-30))``).  A hard label's
+    loss is scaled by ``weight[label]`` and 0 where the label is
+    ``ignore_index``; "mean" divides by the sum of those weights (the
+    count of kept labels without ``weight``).  The arithmetic is fp32
+    whatever ``input``'s dtype (the JAX soft-label branch runs in the
+    input's); the gradient reaches ``input`` in its own dtype."""
+    (input,) = cast_inputs("cross_entropy", input)
+    logits = input
+    ax = axis % logits.ndim
+    n = logits.shape[ax]
+    hard = not (soft_label or (
+        label.ndim == logits.ndim and label.shape[ax] == n
+        and label.is_floating_point()))
+    lf = logits.float()
+    if not hard:
+        logp = (torch.log_softmax(lf, dim=ax) if use_softmax
+                else torch.log(lf.clamp_min(1e-30)))
+        soft = label.to(device=logits.device, dtype=torch.float32)
+        if label_smoothing > 0:
+            soft = soft * (1 - label_smoothing) + label_smoothing / n
+        return _reduce_loss(-(soft * logp).sum(ax), reduction)
+    lbl = label.to(device=logits.device, dtype=torch.int64)
+    if lbl.ndim == logits.ndim and lbl.shape[ax] == 1:
+        lbl = lbl.squeeze(ax)
+    safe = lbl.clamp(0, n - 1).unsqueeze(ax)
+    if use_softmax:
+        lse = torch.logsumexp(lf, dim=ax)
+        loss = lse - torch.gather(lf, ax, safe).squeeze(ax)
+        if label_smoothing > 0:
+            loss = (1 - label_smoothing) * loss + label_smoothing * (
+                lse - lf.mean(ax))
+    else:
+        logp = torch.log(lf.clamp_min(1e-30))
+        loss = -torch.gather(logp, ax, safe).squeeze(ax)
+        if label_smoothing > 0:
+            loss = (1 - label_smoothing) * loss + label_smoothing * (
+                -logp.mean(ax))
+    eff = None
+    if weight is not None:
+        eff = _class_weights(weight, lbl, n, logits.device).float()
+    if ignore_index is not None:
+        valid = (lbl != ignore_index).to(torch.float32)
+        eff = valid if eff is None else eff * valid
+    if eff is not None:
+        loss = loss * eff
+        if reduction == "mean":
+            return loss.sum() / eff.sum().clamp_min(1e-12)
+    return _reduce_loss(loss, reduction)
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False, axis=-1):
+    """:func:`cross_entropy` per sample (hard labels keep ``axis`` as a
+    dim of 1), with the softmax beside it if ``return_softmax``."""
+    loss = cross_entropy(logits, label, soft_label=soft_label,
+                         ignore_index=ignore_index, reduction="none",
+                         axis=axis)
+    if not soft_label:
+        loss = loss.unsqueeze(axis)
+    if return_softmax:
+        return loss, torch.softmax(logits, dim=axis)
+    return loss
+
+
+def nll_loss(input, label, weight=None, ignore_index=-100, reduction="mean"):
+    """``-input[label]`` (log-probabilities in), weighted and ignored as
+    :func:`cross_entropy`'s hard labels are; the class axis is the
+    last when ``input`` has one dim more than ``label``, else axis 1."""
+    (input,) = cast_inputs("nll_loss", input)
+    lbl = label.to(device=input.device, dtype=torch.int64)
+    last = input.ndim == lbl.ndim + 1
+    n = input.shape[-1] if last else input.shape[1]
+    safe = lbl.clamp(0, n - 1)
+    if last:
+        loss = -torch.gather(input, -1, safe.unsqueeze(-1))[..., 0]
+    else:
+        loss = -torch.gather(input, 1, safe[:, None])[:, 0]
+    eff = None
+    if weight is not None:
+        eff = _class_weights(weight, lbl, n, input.device).to(loss.dtype)
+    if ignore_index is not None:
+        valid = (lbl != ignore_index).to(loss.dtype)
+        eff = valid if eff is None else eff * valid
+    if eff is not None:
+        loss = loss * eff
+        if reduction == "mean":
+            return loss.sum() / eff.sum().clamp_min(1e-12)
+    return _reduce_loss(loss, reduction)
+
+
+def binary_cross_entropy(input, label, weight=None, reduction="mean"):
+    """``-(y log p + (1 - y) log(1 - p))``, each log's argument clamped
+    at 1e-12."""
+    input, label, weight = cast_inputs("binary_cross_entropy", input, label,
+                                       weight)
+    loss = -(label * torch.log(input.clamp_min(1e-12))
+             + (1 - label) * torch.log((1 - input).clamp_min(1e-12)))
+    if weight is not None:
+        loss = loss * weight
+    return _reduce_loss(loss, reduction)
+
+
+def binary_cross_entropy_with_logits(logit, label, weight=None,
+                                     reduction="mean", pos_weight=None):
+    """The sigmoid cross-entropy in its stable form, ``pos_weight``
+    scaling the positive term."""
+    logit, label, weight, pos_weight = cast_inputs(
+        "binary_cross_entropy_with_logits", logit, label, weight,
+        pos_weight)
+    softplus_term = torch.log1p(torch.exp(-logit.abs()))
+    if pos_weight is not None:
+        log_w = (pos_weight - 1.0) * label + 1.0
+        loss = (1.0 - label) * logit + log_w * (
+            softplus_term + (-logit).clamp_min(0.0))
+    else:
+        loss = logit.clamp_min(0.0) - logit * label + softplus_term
+    if weight is not None:
+        loss = loss * weight
+    return _reduce_loss(loss, reduction)
+
+
+def mse_loss(input, label, reduction="mean"):
+    input, label = cast_inputs("mse_loss", input, label)
+    return _reduce_loss(torch.square(input - label), reduction)
+
+
+def square_error_cost(input, label):
+    input, label = cast_inputs("square_error_cost", input, label)
+    return torch.square(input - label)
+
+
+def l1_loss(input, label, reduction="mean"):
+    input, label = cast_inputs("l1_loss", input, label)
+    return _reduce_loss((input - label).abs(), reduction)
+
+
+def smooth_l1_loss(input, label, reduction="mean", delta=1.0):
+    """Paddle's: ``0.5 d^2 / delta`` below ``delta``, ``d - delta / 2``
+    above, times ``delta``."""
+    input, label = cast_inputs("smooth_l1_loss", input, label)
+    d = (input - label).abs()
+    loss = torch.where(d < delta, 0.5 * d * d / delta, d - 0.5 * delta)
+    return _reduce_loss(loss * delta, reduction)
+
+
+def huber_loss(input, label, delta=1.0, reduction="mean"):
+    input, label = cast_inputs("huber_loss", input, label)
+    r = (input - label).abs()
+    loss = torch.where(r <= delta, 0.5 * torch.square(r),
+                       delta * (r - 0.5 * delta))
+    return _reduce_loss(loss, reduction)
+
+
+def kl_div(input, label, reduction="mean"):
+    """``label * (log label - input)`` (``input`` log-probabilities);
+    "batchmean" divides the sum by the batch size."""
+    input, label = cast_inputs("kl_div", input, label)
+    loss = label * (torch.log(label.clamp_min(1e-12)) - input)
+    if reduction == "batchmean":
+        return loss.sum() / input.shape[0]
+    return _reduce_loss(loss, reduction)
+
+
+def margin_ranking_loss(input, other, label, margin=0.0, reduction="mean"):
+    input, other, label = cast_inputs("margin_ranking_loss", input, other,
+                                      label)
+    loss = (-label * (input - other) + margin).clamp_min(0.0)
+    return _reduce_loss(loss, reduction)
+
+
+def hinge_embedding_loss(input, label, margin=1.0, reduction="mean"):
+    input, label = cast_inputs("hinge_embedding_loss", input, label)
+    loss = torch.where(label == 1.0, input, (margin - input).clamp_min(0.0))
+    return _reduce_loss(loss, reduction)
+
+
+def cosine_similarity(x1, x2, axis=1, eps=1e-8):
+    x1, x2 = cast_inputs("cosine_similarity", x1, x2)
+    dot = (x1 * x2).sum(axis)
+    n1 = torch.sqrt(torch.square(x1).sum(axis))
+    n2 = torch.sqrt(torch.square(x2).sum(axis))
+    return dot / (n1 * n2).clamp_min(eps)
+
+
+def cosine_embedding_loss(input1, input2, label, margin=0.0,
+                          reduction="mean"):
+    """``1 - cos`` for a label of 1, ``max(cos - margin, 0)`` else, the
+    cosine over the last axis."""
+    sim = cosine_similarity(input1, input2, axis=-1)
+    loss = torch.where(label.to(sim.device) == 1, 1.0 - sim,
+                       (sim - margin).clamp_min(0.0))
+    return _reduce_loss(loss, reduction)
+
+
+def _minkowski(d, p, keepdim=False):
+    """``|d|_p`` over the last axis; p = inf the largest, p = 0 the count
+    of non-zeros."""
+    a = d.abs()
+    if math.isinf(p):
+        return a.amax(-1, keepdim=keepdim)
+    if p == 0:
+        return (a != 0).to(d.dtype).sum(-1, keepdim=keepdim)
+    return torch.pow(torch.pow(a, p).sum(-1, keepdim=keepdim), 1.0 / p)
+
+
+def pairwise_distance(x, y, p=2.0, epsilon=1e-6, keepdim=False):
+    """``|x - y + epsilon|_p`` over the last axis."""
+    x, y = cast_inputs("pairwise_distance", x, y)
+    return _minkowski(x - y + epsilon, p, keepdim=keepdim)
+
+
+def soft_margin_loss(input, label, reduction="mean"):
+    """``softplus(-y x)`` as ``logaddexp(-y x, 0)``."""
+    input, label = cast_inputs("soft_margin_loss", input, label)
+    z = -label * input
+    return _reduce_loss(torch.logaddexp(z, torch.zeros_like(z)), reduction)
+
+
+def poisson_nll_loss(input, label, log_input=True, full=False,
+                     epsilon=1e-8, reduction="mean"):
+    """``exp(x) - y x`` (``log_input``) or ``x - y log(x + epsilon)``, with
+    ``full`` Stirling's term where ``y > 1``."""
+    input, label = cast_inputs("poisson_nll_loss", input, label)
+    if log_input:
+        loss = torch.exp(input) - label * input
+    else:
+        loss = input - label * torch.log(input + epsilon)
+    if full:
+        safe = torch.where(label > 1.0, label, torch.ones_like(label))
+        stirling = (safe * torch.log(safe) - safe
+                    + 0.5 * torch.log(2.0 * math.pi * safe))
+        loss = loss + torch.where(label > 1.0, stirling,
+                                  torch.zeros_like(stirling))
+    return _reduce_loss(loss, reduction)
+
+
+def gaussian_nll_loss(input, label, variance, full=False, epsilon=1e-6,
+                      reduction="mean"):
+    input, label, variance = cast_inputs("gaussian_nll_loss", input, label,
+                                         variance)
+    var = variance.clamp_min(epsilon)
+    loss = 0.5 * (torch.log(var) + torch.square(input - label) / var)
+    if full:
+        loss = loss + 0.5 * math.log(2.0 * math.pi)
+    return _reduce_loss(loss, reduction)
+
+
+def triplet_margin_loss(input, positive, negative, margin=1.0, p=2.0,
+                        epsilon=1e-6, swap=False, reduction="mean"):
+    input, positive, negative = cast_inputs(
+        "triplet_margin_loss", input, positive, negative)
+    dp = _minkowski(input - positive + epsilon, p)
+    dn = _minkowski(input - negative + epsilon, p)
+    if swap:
+        dn = torch.minimum(dn, _minkowski(positive - negative + epsilon, p))
+    return _reduce_loss((dp - dn + margin).clamp_min(0.0), reduction)
+
+
+def triplet_margin_with_distance_loss(input, positive, negative,
+                                      distance_function=None, margin=1.0,
+                                      swap=False, reduction="mean",
+                                      name=None):
+    """The triplet loss under ``distance_function`` (by default
+    ``sqrt(sum((a - b + 1e-6)^2))`` over the last axis)."""
+    if distance_function is None:
+        def distance_function(a, b):
+            d = (a - b) + 1e-6
+            return (d * d).sum(-1).sqrt()
+    dp = distance_function(input, positive)
+    dn = distance_function(input, negative)
+    if swap:
+        dn = torch.minimum(dn, distance_function(positive, negative))
+    return _reduce_loss((dp - dn + margin).clamp_min(0.0), reduction)
+
+
+def multi_margin_loss(input, label, p=1, margin=1.0, weight=None,
+                      reduction="mean"):
+    """``sum_{j != y} max(0, margin - x[y] + x[j])^p / C`` a row."""
+    (input,) = cast_inputs("multi_margin_loss", input)
+    c = input.shape[1]
+    lbl = label.to(device=input.device, dtype=torch.int64)
+    x_y = torch.gather(input, 1, lbl[:, None])
+    loss = (margin - x_y + input).clamp_min(0.0) ** p
+    if weight is not None:
+        w = torch.as_tensor(weight, device=input.device)
+        loss = loss * w[lbl][:, None]
+    own = torch.gather(loss, 1, lbl[:, None])
+    loss = (loss.sum(1, keepdim=True) - own) / c
+    return _reduce_loss(loss[:, 0], reduction)
+
+
+def multi_label_soft_margin_loss(input, label, weight=None,
+                                 reduction="mean"):
+    input, label, weight = cast_inputs("multi_label_soft_margin_loss",
+                                       input, label, weight)
+    F = torch.nn.functional
+    loss = -(label * F.logsigmoid(input) + (1.0 - label) * F.logsigmoid(
+        -input))
+    if weight is not None:
+        loss = loss * weight
+    return _reduce_loss(loss.mean(-1), reduction)
+
+
+_CTC_NEG_INF = -1e30
+
+
+def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
+             reduction="mean", norm_by_times=False):
+    """CTC loss with Paddle's signature (``log_probs`` ``[T, B, C]``
+    unscaled logits, time-major; ``labels`` ``[B, L]``), as the JAX
+    function computes it: log-softmax in fp32, then the log-domain alpha
+    recursion over the blank-extended labels, one step a frame, each
+    sample's alphas frozen past its input length.  The lengths stay
+    device tensors, so a captured step reads each batch's own; the
+    backward is autograd's through the recursion, whose gathers
+    scatter-add their gradients (atomics on the card: a fixed order
+    only under ``torch.use_deterministic_algorithms``).
+    ``norm_by_times`` divides each loss by its input length; "mean"
+    divides each by its label length before the batch mean (warpctc's
+    rule), "sum" and "none" do not."""
+    T, B, _ = log_probs.shape
+    dev = log_probs.device
+    lp = torch.log_softmax(log_probs.float(), dim=-1)
+    labels = torch.as_tensor(labels, device=dev).long()
+    L = labels.shape[1]
+    S = 2 * L + 1
+    in_len = torch.as_tensor(input_lengths, device=dev).long()
+    lb_len = torch.as_tensor(label_lengths, device=dev).long()
+    ext = torch.full((B, S), blank, dtype=torch.long, device=dev)
+    ext[:, 1::2] = labels
+    skip_ok = torch.cat([torch.zeros((B, 2), dtype=torch.bool, device=dev),
+                         (ext[:, 2:] != blank) & (ext[:, 2:] != ext[:, :-2])],
+                        dim=1)
+    neg = torch.full((B, 2), _CTC_NEG_INF, device=dev)
+    emit0 = torch.gather(lp[0], 1, ext)
+    alpha = torch.cat([emit0[:, :1],
+                       torch.where(lb_len > 0, emit0[:, 1],
+                                   neg[:, 0])[:, None],
+                       torch.full((B, S - 2), _CTC_NEG_INF, device=dev)],
+                      dim=1)
+    for t in range(1, T):
+        prev1 = torch.cat([neg[:, :1], alpha[:, :-1]], dim=1)
+        prev2 = torch.cat([neg, alpha[:, :-2]], dim=1)
+        prev2 = torch.where(skip_ok, prev2, neg[:, :1])
+        merged = torch.logaddexp(torch.logaddexp(alpha, prev1), prev2)
+        new = merged + torch.gather(lp[t], 1, ext)
+        alpha = torch.where((t < in_len)[:, None], new, alpha)
+    idx_last = (2 * lb_len - 1).clamp(0, S - 1)
+    idx_blank = (2 * lb_len).clamp(0, S - 1)
+    a_last = torch.gather(alpha, 1, idx_last[:, None])[:, 0]
+    a_blank = torch.gather(alpha, 1, idx_blank[:, None])[:, 0]
+    a_last = torch.where(lb_len > 0, a_last, neg[:, 0])
+    nll = -torch.logaddexp(a_last, a_blank)
+    if norm_by_times:
+        nll = nll / in_len.float().clamp_min(1.0)
+    if reduction == "mean":
+        return (nll / lb_len.float().clamp_min(1.0)).mean()
+    return _reduce_loss(nll, reduction)

@@ -312,6 +312,20 @@ class Optimizer:
                              f"{len(self._parameter_list)} parameters")
         self._param_names = names
 
+    def _adopt_parameters(self, named) -> None:
+        """Take ``named[name]`` (name -> parameter, the network's) in place
+        of each parameter of this optimizer whose name (
+        :meth:`set_param_names`) now holds another object, with fresh
+        state: a replaced parameter must not train on its predecessor's
+        moments."""
+        if self._param_names is None:
+            return
+        for i, name in enumerate(self._param_names):
+            new = named.get(name)
+            if new is not None and new is not self._parameter_list[i]:
+                self._parameter_list[i] = new
+                self._state.pop(i, None)
+
     def state_dict(self) -> Dict[str, object]:
         """``<param name>.<slot>`` for every slot of every state (the
         moments, the beta powers, ``master_weight``), as CPU copies,

@@ -4,9 +4,8 @@ every zoo layer takes."""
 
 from __future__ import annotations
 
-from torch import nn as tnn
-
 from ... import nn, resolve_device
+from ...nn.layer import Layer
 
 
 def layer_kw(device, generator):
@@ -41,7 +40,7 @@ _ACTS = {
 }
 
 
-class ConvNormAct(tnn.Module):
+class ConvNormAct(Layer):
     """Conv2D + BatchNorm + activation."""
 
     def __init__(self, in_c, out_c, k, stride=1, padding=None, groups=1,

@@ -3,14 +3,13 @@
 
 from __future__ import annotations
 
-from torch import nn as tnn
-
 from ... import nn
+from ...nn.layer import Layer
 from ...ops import manipulation
 from ._utils import layer_kw, refuse_pretrained
 
 
-class AlexNet(tnn.Module):
+class AlexNet(Layer):
     def __init__(self, num_classes=1000, *, device=None, generator=None):
         super().__init__()
         kw = layer_kw(device, generator)

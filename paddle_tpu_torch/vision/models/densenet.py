@@ -5,9 +5,9 @@ layers."""
 from __future__ import annotations
 
 import torch
-from torch import nn as tnn
 
 from ... import nn
+from ...nn.layer import Layer
 from ...ops import manipulation
 from ._utils import layer_kw, refuse_pretrained
 
@@ -16,7 +16,7 @@ _CFG = {121: (6, 12, 24, 16), 161: (6, 12, 36, 24),
         264: (6, 12, 64, 48)}
 
 
-class DenseLayer(tnn.Module):
+class DenseLayer(Layer):
     def __init__(self, in_c, growth, bn_size, dropout, **kw):
         super().__init__()
         self.bn1 = nn.BatchNorm2D(in_c, **kw)
@@ -36,7 +36,7 @@ class DenseLayer(tnn.Module):
         return torch.cat([x, out], 1)
 
 
-class Transition(tnn.Module):
+class Transition(Layer):
     def __init__(self, in_c, out_c, **kw):
         super().__init__()
         self.bn = nn.BatchNorm2D(in_c, **kw)
@@ -48,7 +48,7 @@ class Transition(tnn.Module):
         return self.pool(self.conv(self.relu(self.bn(x))))
 
 
-class DenseNet(tnn.Module):
+class DenseNet(Layer):
     def __init__(self, layers=121, growth_rate=None, bn_size=4,
                  dropout=0.0, num_classes=1000, with_pool=True, *,
                  device=None, generator=None):

@@ -5,14 +5,14 @@ aux2)`` in train and eval alike, as upstream does."""
 from __future__ import annotations
 
 import torch
-from torch import nn as tnn
 
 from ... import nn
+from ...nn.layer import Layer
 from ...ops import manipulation
 from ._utils import layer_kw, refuse_pretrained
 
 
-class Inception(tnn.Module):
+class Inception(Layer):
     def __init__(self, in_c, c1, c3r, c3, c5r, c5, proj, **kw):
         super().__init__()
         self.b1 = nn.Sequential(nn.Conv2D(in_c, c1, 1, **kw), nn.ReLU())
@@ -30,7 +30,7 @@ class Inception(tnn.Module):
                          1)
 
 
-class AuxHead(tnn.Module):
+class AuxHead(Layer):
     def __init__(self, in_c, num_classes, **kw):
         super().__init__()
         self.pool = nn.AdaptiveAvgPool2D(4)
@@ -46,7 +46,7 @@ class AuxHead(tnn.Module):
         return self.fc2(self.dropout(x))
 
 
-class GoogLeNet(tnn.Module):
+class GoogLeNet(Layer):
     def __init__(self, num_classes=1000, with_pool=True, *, device=None,
                  generator=None):
         super().__init__()

@@ -5,9 +5,9 @@ input; any size of 75 or more works (adaptive pooling)."""
 from __future__ import annotations
 
 import torch
-from torch import nn as tnn
 
 from ... import nn
+from ...nn.layer import Layer
 from ...ops import manipulation
 from ._utils import ConvNormAct, layer_kw, refuse_pretrained
 
@@ -22,7 +22,7 @@ def _cat(xs):
     return torch.cat(xs, 1)
 
 
-class InceptionA(tnn.Module):
+class InceptionA(Layer):
     def __init__(self, in_c, pool_c, **kw):
         super().__init__()
         self.b1 = ConvBN(in_c, 64, 1, **kw)
@@ -38,7 +38,7 @@ class InceptionA(tnn.Module):
         return _cat([self.b1(x), self.b5(x), self.b3(x), self.bp(x)])
 
 
-class InceptionB(tnn.Module):
+class InceptionB(Layer):
     def __init__(self, in_c, **kw):
         super().__init__()
         self.b3 = ConvBN(in_c, 384, 3, stride=2, **kw)
@@ -51,7 +51,7 @@ class InceptionB(tnn.Module):
         return _cat([self.b3(x), self.b3d(x), self.pool(x)])
 
 
-class InceptionC(tnn.Module):
+class InceptionC(Layer):
     def __init__(self, in_c, c7, **kw):
         super().__init__()
         self.b1 = ConvBN(in_c, 192, 1, **kw)
@@ -72,7 +72,7 @@ class InceptionC(tnn.Module):
         return _cat([self.b1(x), self.b7(x), self.b7d(x), self.bp(x)])
 
 
-class InceptionD(tnn.Module):
+class InceptionD(Layer):
     def __init__(self, in_c, **kw):
         super().__init__()
         self.b3 = nn.Sequential(ConvBN(in_c, 192, 1, **kw),
@@ -88,7 +88,7 @@ class InceptionD(tnn.Module):
         return _cat([self.b3(x), self.b7(x), self.pool(x)])
 
 
-class InceptionE(tnn.Module):
+class InceptionE(Layer):
     def __init__(self, in_c, **kw):
         super().__init__()
         self.b1 = ConvBN(in_c, 320, 1, **kw)
@@ -111,7 +111,7 @@ class InceptionE(tnn.Module):
                      self.bp(x)])
 
 
-class InceptionV3(tnn.Module):
+class InceptionV3(Layer):
     def __init__(self, num_classes=1000, with_pool=True, *, device=None,
                  generator=None):
         super().__init__()

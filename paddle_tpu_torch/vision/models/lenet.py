@@ -3,14 +3,13 @@
 
 from __future__ import annotations
 
-from torch import nn as tnn
-
 from ... import nn
+from ...nn.layer import Layer
 from ...ops import manipulation
 from ._utils import layer_kw
 
 
-class LeNet(tnn.Module):
+class LeNet(Layer):
     def __init__(self, num_classes: int = 10, *, device=None,
                  generator=None):
         super().__init__()

@@ -4,9 +4,8 @@ conv stack (grouped convolutions with groups = channels)."""
 
 from __future__ import annotations
 
-from torch import nn as tnn
-
 from ... import nn
+from ...nn.layer import Layer
 from ...ops import manipulation
 from ._utils import ConvNormAct, layer_kw, refuse_pretrained
 
@@ -18,7 +17,7 @@ class ConvBNLayer(ConvNormAct):
                          padding=padding, groups=groups, act="relu", **kw)
 
 
-class DepthwiseSeparable(tnn.Module):
+class DepthwiseSeparable(Layer):
     def __init__(self, in_c, mid_c, out_c, stride, scale, **kw):
         super().__init__()
         self.dw = ConvBNLayer(int(in_c * scale), int(mid_c * scale), 3,
@@ -31,7 +30,7 @@ class DepthwiseSeparable(tnn.Module):
         return self.pw(self.dw(x))
 
 
-class MobileNetV1(tnn.Module):
+class MobileNetV1(Layer):
     def __init__(self, scale=1.0, num_classes=1000, with_pool=True, *,
                  device=None, generator=None):
         super().__init__()

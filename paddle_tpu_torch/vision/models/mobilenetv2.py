@@ -3,9 +3,8 @@
 
 from __future__ import annotations
 
-from torch import nn as tnn
-
 from ... import nn
+from ...nn.layer import Layer
 from ...ops import manipulation
 from ._utils import layer_kw, refuse_pretrained
 from ._utils import make_divisible as _make_divisible
@@ -21,7 +20,7 @@ class ConvBNReLU(nn.Sequential):
             nn.ReLU6())
 
 
-class InvertedResidual(tnn.Module):
+class InvertedResidual(Layer):
     def __init__(self, inp, oup, stride, expand_ratio, **kw):
         super().__init__()
         self.stride = stride
@@ -40,7 +39,7 @@ class InvertedResidual(tnn.Module):
         return x + self.conv(x) if self.use_res else self.conv(x)
 
 
-class MobileNetV2(tnn.Module):
+class MobileNetV2(Layer):
     def __init__(self, scale=1.0, num_classes=1000, with_pool=True, *,
                  device=None, generator=None):
         super().__init__()

@@ -4,16 +4,15 @@ squeeze-excite and hardswish."""
 
 from __future__ import annotations
 
-from torch import nn as tnn
-
 from ... import nn
+from ...nn.layer import Layer
 from ...ops import manipulation
 from ._utils import ConvNormAct as ConvBNAct
 from ._utils import layer_kw, refuse_pretrained
 from ._utils import make_divisible as _make_divisible
 
 
-class SqueezeExcite(tnn.Module):
+class SqueezeExcite(Layer):
     def __init__(self, channels, reduction=4, **kw):
         super().__init__()
         mid = _make_divisible(channels // reduction)
@@ -28,7 +27,7 @@ class SqueezeExcite(tnn.Module):
         return x * s
 
 
-class InvertedResidual(tnn.Module):
+class InvertedResidual(Layer):
     def __init__(self, in_c, mid_c, out_c, k, stride, use_se, act, **kw):
         super().__init__()
         self.use_res = stride == 1 and in_c == out_c
@@ -73,7 +72,7 @@ _SMALL = [
     (5, 576, 96, True, "hardswish", 1)]
 
 
-class MobileNetV3(tnn.Module):
+class MobileNetV3(Layer):
     def __init__(self, config, last_channel, scale=1.0,
                  num_classes=1000, with_pool=True, *, device=None,
                  generator=None):

@@ -18,9 +18,9 @@ import math
 from typing import Sequence
 
 import torch
-from torch import nn as tnn
 
 from ... import nn
+from ...nn.layer import Layer
 from ...ops import activation as A
 from ...ops import manipulation as M
 from ...ops import nn_ops
@@ -28,7 +28,7 @@ from .. import ops as vops
 from ._utils import layer_kw
 
 
-class ConvBNAct(tnn.Module):
+class ConvBNAct(Layer):
     def __init__(self, cin, cout, k=3, stride=1, groups=1, act=True, **kw):
         super().__init__()
         self.conv = nn.Conv2D(cin, cout, k, stride=stride,
@@ -42,7 +42,7 @@ class ConvBNAct(tnn.Module):
         return A.silu(x) if self.act else x
 
 
-class ESEAttn(tnn.Module):
+class ESEAttn(Layer):
     """Effective squeeze-excitation (PaddleDetection's
     EffectiveSELayer)."""
 
@@ -56,7 +56,7 @@ class ESEAttn(tnn.Module):
         return feat * A.sigmoid(self.fc(avg_feat))
 
 
-class BasicBlock(tnn.Module):
+class BasicBlock(Layer):
     def __init__(self, ch, shortcut=True, **kw):
         super().__init__()
         self.conv1 = ConvBNAct(ch, ch, 3, **kw)
@@ -68,7 +68,7 @@ class BasicBlock(tnn.Module):
         return x + y if self.shortcut else y
 
 
-class CSPResStage(tnn.Module):
+class CSPResStage(Layer):
     """CSP stage: downsample, split 1x1, residual tower, fuse."""
 
     def __init__(self, cin, cout, n, **kw):
@@ -88,7 +88,7 @@ class CSPResStage(tnn.Module):
         return self.conv3(self.attn(y))
 
 
-class CSPResNet(tnn.Module):
+class CSPResNet(Layer):
     """The backbone, lite: a stem and three CSP stages giving (C3, C4,
     C5) at strides 8, 16, 32."""
 
@@ -113,7 +113,7 @@ class CSPResNet(tnn.Module):
         return outs
 
 
-class CSPPAN(tnn.Module):
+class CSPPAN(Layer):
     """Top-down FPN and bottom-up PAN with CSP fuse blocks over 1x1
     laterals of one width."""
 
@@ -257,7 +257,7 @@ def task_aligned_assign(scores, pred_boxes, points, gt_boxes, gt_labels,
     return pos_mask, assigned_gt, assigned_score, chosen_iou
 
 
-class PPYOLOEHead(tnn.Module):
+class PPYOLOEHead(Layer):
     """Decoupled anchor-free head with DFL regression: per level an ESE
     stem and a 3x3 prediction conv for classes and for ``4 * (reg_max +
     1)`` distance bins; the class bias starts at -log(99) (prior 0.01)."""
@@ -369,7 +369,7 @@ class PPYOLOEHead(tnn.Module):
                 "loss_dfl": dfl_loss}
 
 
-class PPYOLOE(tnn.Module):
+class PPYOLOE(Layer):
     """CSPResNet + CSPPAN + PPYOLOEHead.
 
     Train: ``model(images, gt_boxes=, gt_labels=, gt_mask=)`` -> the

@@ -4,14 +4,13 @@ convolutions are cuDNN's on the card."""
 
 from __future__ import annotations
 
-from torch import nn as tnn
-
 from ... import nn
+from ...nn.layer import Layer
 from ...ops import manipulation
 from ._utils import layer_kw, refuse_pretrained
 
 
-class BasicBlock(tnn.Module):
+class BasicBlock(Layer):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
@@ -44,7 +43,7 @@ class BasicBlock(tnn.Module):
         return self.relu(out + identity)
 
 
-class BottleneckBlock(tnn.Module):
+class BottleneckBlock(Layer):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
@@ -76,7 +75,7 @@ class BottleneckBlock(tnn.Module):
         return self.relu(out + identity)
 
 
-class ResNet(tnn.Module):
+class ResNet(Layer):
     def __init__(self, block, depth=50, width=64, num_classes=1000,
                  with_pool=True, groups=1, *, device=None, generator=None):
         super().__init__()

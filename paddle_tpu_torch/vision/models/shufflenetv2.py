@@ -5,15 +5,15 @@ the channel shuffle (``ops.nn_ops.channel_shuffle``)."""
 from __future__ import annotations
 
 import torch
-from torch import nn as tnn
 
 from ... import nn
+from ...nn.layer import Layer
 from ...ops import manipulation, nn_ops
 from ._utils import ConvNormAct as ConvBN
 from ._utils import layer_kw, refuse_pretrained
 
 
-class InvertedResidual(tnn.Module):
+class InvertedResidual(Layer):
     def __init__(self, in_c, out_c, stride, act="relu", **kw):
         super().__init__()
         self.stride = stride
@@ -52,7 +52,7 @@ _STAGE_OUT = {
 _REPEATS = (4, 8, 4)
 
 
-class ShuffleNetV2(tnn.Module):
+class ShuffleNetV2(Layer):
     def __init__(self, scale=1.0, act="relu", num_classes=1000,
                  with_pool=True, *, device=None, generator=None):
         super().__init__()

@@ -5,14 +5,14 @@ then expand 1x1 and 3x3)."""
 from __future__ import annotations
 
 import torch
-from torch import nn as tnn
 
 from ... import nn
+from ...nn.layer import Layer
 from ...ops import manipulation
 from ._utils import layer_kw, refuse_pretrained
 
 
-class Fire(tnn.Module):
+class Fire(Layer):
     def __init__(self, in_c, squeeze, e1, e3, **kw):
         super().__init__()
         self.squeeze = nn.Conv2D(in_c, squeeze, 1, **kw)
@@ -26,7 +26,7 @@ class Fire(tnn.Module):
                           self.relu(self.expand3(s))], 1)
 
 
-class SqueezeNet(tnn.Module):
+class SqueezeNet(Layer):
     def __init__(self, version="1.0", num_classes=1000, with_pool=True, *,
                  device=None, generator=None):
         super().__init__()

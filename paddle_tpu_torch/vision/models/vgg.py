@@ -2,9 +2,8 @@
 
 from __future__ import annotations
 
-from torch import nn as tnn
-
 from ... import nn
+from ...nn.layer import Layer
 from ...ops import manipulation
 from ._utils import layer_kw, refuse_pretrained
 
@@ -36,7 +35,7 @@ def _make_features(cfg, batch_norm=False, device=None, generator=None):
     return nn.Sequential(*layers)
 
 
-class VGG(tnn.Module):
+class VGG(Layer):
     def __init__(self, features, num_classes=1000, with_pool=True, *,
                  device=None, generator=None):
         super().__init__()

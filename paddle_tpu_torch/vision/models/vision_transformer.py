@@ -13,15 +13,14 @@ own resize, as each JAX bucket compiles its own.
 
 from __future__ import annotations
 
-from torch import nn as tnn
-
 from ... import nn
+from ...nn.layer import Layer
 from ...ops import manipulation as M
 from ...ops import nn_ops
 from ._utils import layer_kw, refuse_pretrained
 
 
-class PatchEmbed(tnn.Module):
+class PatchEmbed(Layer):
     def __init__(self, img_size=224, patch_size=16, in_chans=3,
                  embed_dim=768, **kw):
         super().__init__()
@@ -34,7 +33,7 @@ class PatchEmbed(tnn.Module):
         return M.transpose(x, [0, 2, 1])        # B, N, E
 
 
-class MLP(tnn.Module):
+class MLP(Layer):
     def __init__(self, dim, hidden, drop=0.0, **kw):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden, **kw)
@@ -46,7 +45,7 @@ class MLP(tnn.Module):
         return self.drop(self.fc2(self.drop(self.act(self.fc1(x)))))
 
 
-class Attention(tnn.Module):
+class Attention(Layer):
     def __init__(self, dim, num_heads, qkv_bias=True, attn_drop=0.0,
                  proj_drop=0.0, **kw):
         super().__init__()
@@ -66,7 +65,7 @@ class Attention(tnn.Module):
         return self.proj_drop(self.proj(M.reshape(out, [b, n, c])))
 
 
-class Block(tnn.Module):
+class Block(Layer):
     def __init__(self, dim, num_heads, mlp_ratio=4.0, qkv_bias=True,
                  drop=0.0, attn_drop=0.0, epsilon=1e-6, **kw):
         super().__init__()
@@ -82,7 +81,7 @@ class Block(tnn.Module):
         return x + self.mlp(self.norm2(x))
 
 
-class VisionTransformer(tnn.Module):
+class VisionTransformer(Layer):
     """``cls_token`` and ``pos_embed`` start from TruncatedNormal(0,
     0.02); ``amp.decorate`` O2 casts them with the other non-norm
     parameters, as the JAX ``decorate`` does."""

@@ -43,6 +43,9 @@ def test_import_pulls_in_no_jax():
         "import paddle_tpu_torch.nn.clip_grad, paddle_tpu_torch.nn.param_attr\n"
         "import paddle_tpu_torch.nn.utils, paddle_tpu_torch.amp.grad_scaler\n"
         "import paddle_tpu_torch.amp.debugging, paddle_tpu_torch.optimizer.lbfgs\n"
+        "import paddle_tpu_torch.nn.layer, paddle_tpu_torch.nn.rnn\n"
+        "import paddle_tpu_torch.nn.transformer, paddle_tpu_torch.nn.loss\n"
+        "import paddle_tpu_torch.nn.functional_call, paddle_tpu_torch.ops.rnn_ops\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "'jax.') or m == 'paddle_tpu' or m.startswith('paddle_tpu.')]\n"
         "assert not bad, bad\n")

@@ -381,10 +381,24 @@ def test_cross_entropy_loss_is_fp32_for_bf16_logits_and_refuses_the_rest():
                                                jnp.bfloat16),
                                    jnp.asarray(y.numpy()))
     _close(loss.item(), float(jloss), FWD_TOL)
-    for kw in (dict(soft_label=True), dict(label_smoothing=0.1),
-               dict(weight=torch.ones(7)), dict(axis=0)):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            tnn.CrossEntropyLoss(**kw)
+    # the options refused here until the loss layers were ported (queue
+    # item A8) now give the JAX function's loss, in fp32 for bf16 logits
+    # (the JAX soft-label branch runs in bf16: bf16's tolerance there)
+    jlogits = jnp.asarray(logits.float().numpy(), jnp.bfloat16)
+    soft = rng.random((4, 7)).astype(np.float32)
+    soft /= soft.sum(-1, keepdims=True)
+    weight = rng.random(7).astype(np.float32)
+    y0 = rng.integers(0, 4, 7)
+    for kw, lab, tol in ((dict(soft_label=True), soft, BF16_TOL),
+                         (dict(label_smoothing=0.1), y.numpy(), FWD_TOL),
+                         (dict(weight=weight), y.numpy(), FWD_TOL),
+                         (dict(axis=0), y0, FWD_TOL)):
+        got = tnn.CrossEntropyLoss(**kw)(logits, torch.from_numpy(lab))
+        assert got.dtype == torch.float32, kw
+        jkw = {k: (jnp.asarray(v) if k == "weight" else v)
+               for k, v in kw.items()}
+        want = jops.cross_entropy.raw(jlogits, jnp.asarray(lab), **jkw)
+        _close(got.item(), float(want), tol, str(kw))
 
 
 # -- activations ---------------------------------------------------------------
