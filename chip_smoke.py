@@ -518,6 +518,67 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
     card vs CPU in fp32 within ``RNN_TOL`` x max(|ref|, 1): outputs and
     every gradient, eager and as a captured graph replayed on other
     lengths;
+15t. ``[nn layers]``: every layer class and function of slice 20 (the 1-D,
+    3-D and transposed convolutions; the 1-D and 3-D pools, adaptive
+    pools, masks and unpools; instance, group, RMS, layer, local
+    response, 3-D batch and spectral norms; every activation; the pads,
+    shape, upsampling, fold and misc functions; the dropouts' plain
+    functions of a given mask) forward and backward on the card against
+    the CPU port in fp32 within ``NN_TOL`` x max(|ref|, 1) (outputs and
+    the gradients of the inputs and parameters), the convolution, pool,
+    norm and pad cases also in bf16 under O2 within ``NN_BF16_TOL``; per
+    family a control with one argument changed on the card must fail;
+    the dropouts', ``RReLU``'s and ``gumbel_softmax``'s own draws on the
+    card by distribution; ``weight_norm`` and ``spectral_norm`` in a
+    network trained by ``Model.fit`` (K=1 replays: the hooks run inside
+    the captured step) against the CPU fit, with a ``spectral_norm(dim=1)``
+    control;
+15u. ``[train cyclegan]``: CycleGAN as PaddleGAN's
+    ``configs/cyclegan_cityscapes.yaml`` sets it up (two ResNet
+    generators with 9 blocks, two 70x70 PatchGANs, InstanceNorm without
+    affine, reflection pads, LSGAN, cycle L1 x10, identity x0.5, image
+    pools of 50, ``Adam(2e-4, beta1=0.5)``), 256x256, B=1, fp32, through
+    PaddleGAN's eager loop (the G step with the discriminators'
+    ``trainable`` off, then the D step on pooled, detached fakes):
+    ``GAN_STEPS`` steps on one image pair, losses finite and the cycle
+    and identity terms falling; ms a step, image pairs/s, peak and a
+    profile split (cuDNN's FFT convolutions, forward, dgrad, wgrad;
+    InstanceNorm; pads; Adam; the rest);
+15v. ``[train cyclegan parity]``: the route ``[train cyclegan]`` times
+    (cuDNN's convolutions, its default algorithm choice, fp32, TF32
+    off), the kinks of the reference run following the card's (the
+    ReLUs' and LeakyReLUs' signs and the L1 losses' signs).  At 64x64
+    card vs CPU from the same weights: step 1's gradients per leaf
+    within ``NN_TOL`` of the leaf's largest (the conv biases that feed
+    an InstanceNorm, whose gradients are rounding noise, of the largest
+    of all), and after three G+D steps at Adam's 2e-4 at least
+    ``GAN_SHARE_MIN`` of the parameters within ``GAN_SHARE_LR`` x lr of
+    the CPU's and all within a few lr (Adam turns a noise gradient into
+    a step of ~lr).  At the timed 256x256, where cuDNN takes other
+    algorithms (an FFT weight gradient for the residual blocks), step
+    1's gradients per leaf within ``NN_TOL`` of a float64 run of the
+    same model on the card by ATen's convolutions (cuDNN off).  The
+    model with zero padding in place of reflection on the card must
+    fail every gate;
+15w. ``[train r2plus1d]``: R(2+1)D-18 (torchvision's ``r2plus1d_18``,
+    31.5 M parameters, 400 classes), B=32 clips of 3x16x112x112, bf16 O2
+    with fp32 masters, ``Momentum(0.01, 0.9, L2Decay(1e-4))``, through
+    ``Model.fit``: K=1 replays (ms a step, clips/s, TFLOP/s by the
+    convolutions' count, peak, capture seconds, the graph pool, a
+    profile split: Conv3D forward / dgrad / wgrad, BatchNorm3D, layout
+    transforms, casts, the rest), the eager route, and under the
+    deterministic algorithms three K=1 replays bit-equal to eager;
+15x. ``[train r2plus1d parity]``: R(2+1)D-18 in fp32 at B=2 clips of
+    3x8x56x56, card vs CPU from the same weights, cuDNN deterministic:
+    step 1's gradients per leaf within ``CRNN_GRAD_TOL`` of the leaf's
+    largest, three ``Momentum(1e-3)`` steps (K=1 replays) within
+    ``CARD_CPU_TOL`` (the CPU's ReLUs following the card's signs, as
+    ``[train resnet parity]``'s), K=1 replays bit-equal to the eager
+    run, a control whose card clips run backwards in time must fail
+    both; the bf16 O2 forward card vs CPU within ``NN_BF16_TOL`` x
+    max(|ref|, 1) on two draws of weights and clips, and the card's with
+    its convolutions left in fp32 (the custom black list) must fail it
+    on both;
 16. ``[lmce tc]`` holds the tensor-core LMCE backward
     (``csrc/lmce_sm90.cu``, ``wgmma`` fed by TMA) against its plain
     versions (dL rounded to the operand dtype; each element within
@@ -5785,34 +5846,59 @@ def _resnet_parity_state(model):
     return out
 
 
+_RELUS = ("ReLU", "LeakyReLU", "L1Loss")
+
+
 def _relu_watch(torch, net):
-    """Forward pre-hooks on every ReLU of ``net`` that keep each call's
-    input on the CPU, a list per forward (the hooks see eager forwards
-    only, not graph replays)."""
+    """Forward pre-hooks on every ReLU (and LeakyReLU) of ``net`` that
+    keep each call's input on the CPU, a list per forward (the hooks see
+    eager forwards only, not graph replays); on every ``L1Loss``, the
+    other kink, they keep ``input - label``."""
     calls = []
 
     def keep(mod, args):
-        calls.append(args[0].detach().float().cpu())
+        x = args[0] - args[1] if type(mod).__name__ == "L1Loss" else args[0]
+        calls.append(x.detach().float().cpu())
 
     for mod in net.modules():
-        if type(mod).__name__ == "ReLU":
+        if type(mod).__name__ in _RELUS:
             mod.register_forward_pre_hook(keep)
     return calls
 
 
 def _relu_force(net, inputs):
-    """Make every ReLU of ``net`` pass what another run's ReLU passed:
-    its n-th call multiplies its input by ``inputs[n] > 0`` (eager
-    forwards in order), so the gradient takes that run's way through
-    each ReLU whatever the sign of this run's input."""
+    """Make every ReLU (and LeakyReLU) of ``net`` pass what another run's
+    passed: its n-th call takes its input where ``inputs[n] > 0`` and 0
+    (the leaky slope times it) elsewhere (eager forwards in order), so
+    the gradient takes that run's way through each one whatever the
+    sign of this run's input; an ``L1Loss`` takes ``|input - label|``
+    with the other run's signs."""
     masks = iter([x > 0 for x in inputs])
 
-    def forced(x):
+    def relu(x):
         return x * next(masks).to(x.device, x.dtype)
+
+    def leaky(slope):
+        def forced(x):
+            return x.where(next(masks).to(x.device), x * slope)
+        return forced
+
+    def l1(reduction):
+        def forced(x, y):
+            d = x - y
+            out = d.where(next(masks).to(x.device), -d)
+            return {"mean": out.mean, "sum": out.sum}.get(
+                reduction, lambda: out)()
+        return forced
 
     for mod in net.modules():
         if type(mod).__name__ == "ReLU":
-            mod.forward = forced
+            mod.forward = relu
+        elif type(mod).__name__ == "LeakyReLU":
+            mod.forward = leaky(mod._args[0] if mod._args else
+                                mod._kwargs.get("negative_slope", 0.01))
+        elif type(mod).__name__ == "L1Loss":
+            mod.forward = l1(mod.reduction)
 
 
 def _parity_fit(torch, init, batches, device, fold, watch=False,
@@ -8696,6 +8782,1280 @@ def rnn_phase(torch, seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 20: the rest of the nn layer families, with CycleGAN and
+# R(2+1)D-18 (module docstring, 15t-15x).  No kernel of the port runs
+# here: the convolutions (2-D, transposed, 3-D) are cuDNN's, the pads,
+# norms and pools ATen's.
+# ---------------------------------------------------------------------------
+GAN_SIZE = 256            # cyclegan_cityscapes.yaml: load 286, crop 256
+GAN_B = 1                 # batch_size 1, as the paper trains it
+GAN_LR = 2e-4             # Adam(2e-4, beta1 0.5): paper section 4
+GAN_POOL = 50             # the image pool of the paper's section 4
+GAN_STEPS = 12            # [train cyclegan]: G+D steps timed
+GAN_PARITY = dict(size=64, steps=3)   # [train cyclegan parity]: full widths
+GAN_SHARE_MIN = 0.99      # parity gate 2: the share of parameters within
+GAN_SHARE_LR = 0.1        # GAN_SHARE_LR x lr of the CPU's after the steps
+VIDEO_CLASSES = 400       # Kinetics-400, torchvision's r2plus1d_18 head
+VIDEO_B, VIDEO_T, VIDEO_SIZE = 32, 16, 112   # torchvision's video
+                          # classification reference: 16 frames, 112 crop
+VIDEO_LR, VIDEO_DECAY = 0.01, 1e-4
+VIDEO_STEPS = 8           # [train r2plus1d]: K=1 replays (and eager)
+VIDEO_PARITY = dict(b=2, t=8, size=56, steps=3, lr=1e-3)   # [train
+                          # r2plus1d parity]: at 4x16x16 and lr 0.01 the
+                          # small model's bf16 O2 losses parted by 17% in
+                          # three steps on the CPU (tests/test_torch_r2plus1d)
+
+_SLICE20 = {}
+
+
+def slice20_models(nn):
+    """The two user models of slice 20 on the layers of ``nn``: the
+    port's ``paddle_tpu_torch.nn`` on the card, and in the CPU tests also
+    the JAX package's ``paddle_tpu.nn``, which takes the same
+    constructors and calls (each constructor passes ``kw``, the port's
+    ``device`` / ``generator``, on to every layer; the JAX layers take
+    none).  CycleGAN as PaddleGAN's ``configs/cyclegan_cityscapes.yaml``
+    sets it up (Zhu et al. 2017, arXiv:1703.10593, section 4 and
+    appendix 7.2) with its eager training loop, and R(2+1)D-18 as
+    torchvision's ``r2plus1d_18`` builds it (Tran et al. 2018,
+    arXiv:1711.11248, Table 1 and eq. 1)."""
+    if nn.__name__ in _SLICE20:
+        return _SLICE20[nn.__name__]
+
+    def norm(c, kw):
+        # PaddleGAN's "instance" norm: no affine, no running statistics
+        return nn.InstanceNorm2D(c, weight_attr=False, bias_attr=False, **kw)
+
+    class ResnetBlock(nn.Layer):
+        """``R256``: two 3x3 convolutions on reflection pads, each with
+        InstanceNorm, a ReLU between, and the input added."""
+
+        def __init__(self, dim, pad_mode, kw):
+            super().__init__()
+            self.conv_block = nn.Sequential(
+                nn.Pad2D([1, 1, 1, 1], mode=pad_mode),
+                nn.Conv2D(dim, dim, 3, **kw), norm(dim, kw), nn.ReLU(),
+                nn.Pad2D([1, 1, 1, 1], mode=pad_mode),
+                nn.Conv2D(dim, dim, 3, **kw), norm(dim, kw))
+
+        def forward(self, x):
+            return x + self.conv_block(x)
+
+    class ResnetGenerator(nn.Layer):
+        """PaddleGAN's ``ResnetGenerator``: ``c7s1-ngf, d2ngf, d4ngf,
+        R4ngf x n_blocks, u2ngf, ungf, c7s1-3`` (appendix 7.2), the
+        convolutions with biases (PaddleGAN's ``use_bias`` under
+        InstanceNorm), ``Conv2DTranspose(stride 2, padding 1,
+        output_padding 1)`` to upsample, ``Tanh`` out.  ``pad_mode``
+        "constant" is the parity phases' control (zero padding)."""
+
+        def __init__(self, ngf=64, n_blocks=9, pad_mode="reflect", kw=None):
+            super().__init__()
+            kw = kw or {}
+            layers = [nn.Pad2D([3, 3, 3, 3], mode=pad_mode),
+                      nn.Conv2D(3, ngf, 7, **kw), norm(ngf, kw), nn.ReLU()]
+            for i in range(2):
+                m = 2 ** i
+                layers += [nn.Conv2D(ngf * m, ngf * m * 2, 3, stride=2,
+                                     padding=1, **kw),
+                           norm(ngf * m * 2, kw), nn.ReLU()]
+            layers += [ResnetBlock(ngf * 4, pad_mode, kw)
+                       for _ in range(n_blocks)]
+            for i in range(2):
+                m = 2 ** (2 - i)
+                layers += [nn.Conv2DTranspose(ngf * m, ngf * m // 2, 3,
+                                              stride=2, padding=1,
+                                              output_padding=1, **kw),
+                           norm(ngf * m // 2, kw), nn.ReLU()]
+            layers += [nn.Pad2D([3, 3, 3, 3], mode=pad_mode),
+                       nn.Conv2D(ngf, 3, 7, **kw), nn.Tanh()]
+            self.model = nn.Sequential(*layers)
+
+        def forward(self, x):
+            return self.model(x)
+
+    class NLayerDiscriminator(nn.Layer):
+        """The 70x70 PatchGAN ``C64-C128-C256-C512`` (appendix 7.2):
+        4x4 convolutions, LeakyReLU(0.2), InstanceNorm on all but the
+        first block, then a 1-channel 4x4 convolution (30x30 patches
+        at 256)."""
+
+        def __init__(self, ndf=64, n_layers=3, kw=None):
+            super().__init__()
+            kw = kw or {}
+            layers = [nn.Conv2D(3, ndf, 4, stride=2, padding=1, **kw),
+                      nn.LeakyReLU(0.2)]
+            mult = 1
+            for n in range(1, n_layers + 1):
+                prev, mult = mult, min(2 ** n, 8)
+                layers += [nn.Conv2D(ndf * prev, ndf * mult, 4,
+                                     stride=2 if n < n_layers else 1,
+                                     padding=1, **kw),
+                           norm(ndf * mult, kw), nn.LeakyReLU(0.2)]
+            layers.append(nn.Conv2D(ndf * mult, 1, 4, stride=1, padding=1,
+                                    **kw))
+            self.model = nn.Sequential(*layers)
+
+        def forward(self, x):
+            return self.model(x)
+
+    class ImagePool:
+        """The paper's history of generated images (section 4), at
+        batch 1: until ``size`` images are held each new one is kept
+        and returned; after that, with probability 1/2 a held image is
+        returned and the new one takes its place.  The draws come from
+        ``rng`` (numpy), so both packages take the same ones."""
+
+        def __init__(self, size, rng):
+            self.size, self.rng, self.images = size, rng, []
+
+        def query(self, image):
+            if self.size == 0:
+                return image
+            if len(self.images) < self.size:
+                self.images.append(image.detach())
+                return image
+            if self.rng.uniform(0, 1) > 0.5:
+                i = int(self.rng.integers(0, self.size))
+                held, self.images[i] = self.images[i], image.detach()
+                return held
+            return image
+
+    class CycleGAN(nn.Layer):
+        """PaddleGAN's ``CycleGANModel`` and its ``train_iter``: two
+        generators, two discriminators, ``Adam(lr, beta1=0.5)`` for the
+        generators together and for the discriminators together, LSGAN
+        (``MSELoss`` against 1 and 0), cycle L1 x ``lambda_cycle`` and
+        identity L1 x ``lambda_cycle * lambda_idt``, image pools of
+        ``pool_size``.  :meth:`train_step` is one G step with the
+        discriminators' ``trainable`` off, then one D step on the pooled,
+        detached fakes, each ``clear_grad``, ``backward``, ``step``."""
+
+        def __init__(self, optimizer, ngf=64, n_blocks=9, ndf=64, lr=GAN_LR,
+                     pool_size=GAN_POOL, lambda_cycle=10.0, lambda_idt=0.5,
+                     pad_mode="reflect", seed=0, kw=None):
+            super().__init__()
+            self.netG_A = ResnetGenerator(ngf, n_blocks, pad_mode, kw)
+            self.netG_B = ResnetGenerator(ngf, n_blocks, pad_mode, kw)
+            self.netD_A = NLayerDiscriminator(ndf, kw=kw)
+            self.netD_B = NLayerDiscriminator(ndf, kw=kw)
+            self.optG = optimizer.Adam(
+                lr, beta1=0.5, beta2=0.999, parameters=list(
+                    self.netG_A.parameters()) + list(
+                    self.netG_B.parameters()))
+            self.optD = optimizer.Adam(
+                lr, beta1=0.5, beta2=0.999, parameters=list(
+                    self.netD_A.parameters()) + list(
+                    self.netD_B.parameters()))
+            self.l1, self.mse = nn.L1Loss(), nn.MSELoss()
+            self.lam, self.idt = lambda_cycle, lambda_idt
+            rng = np.random.default_rng(seed)
+            self.pool_A = ImagePool(pool_size, rng)
+            self.pool_B = ImagePool(pool_size, rng)
+
+        def gan_loss(self, pred, real):
+            target = pred.detach() * 0.0 + (1.0 if real else 0.0)
+            return self.mse(pred, target)
+
+        @staticmethod
+        def set_requires_grad(nets, flag):
+            for net in nets:
+                for p in net.parameters():
+                    p.trainable = flag
+
+        def g_loss(self, real_A, real_B):
+            """The generators' loss and the fakes (PaddleGAN's
+            ``forward`` and ``backward_G``)."""
+            fake_B = self.netG_A(real_A)
+            rec_A = self.netG_B(fake_B)
+            fake_A = self.netG_B(real_B)
+            rec_B = self.netG_A(fake_A)
+            idt_w = self.lam * self.idt
+            losses = {
+                "idt_A": self.l1(self.netG_A(real_B), real_B) * idt_w,
+                "idt_B": self.l1(self.netG_B(real_A), real_A) * idt_w,
+                "G_A": self.gan_loss(self.netD_A(fake_B), True),
+                "G_B": self.gan_loss(self.netD_B(fake_A), True),
+                "cycle_A": self.l1(rec_A, real_A) * self.lam,
+                "cycle_B": self.l1(rec_B, real_B) * self.lam}
+            total = losses["idt_A"] + losses["idt_B"] + losses["G_A"] + \
+                losses["G_B"] + losses["cycle_A"] + losses["cycle_B"]
+            return total, losses, fake_A, fake_B
+
+        def d_loss(self, net, real, fake):
+            loss_real = self.gan_loss(net(real), True)
+            loss_fake = self.gan_loss(net(fake.detach()), False)
+            return (loss_real + loss_fake) * 0.5
+
+        def train_step(self, real_A, real_B):
+            """One G step and one D step; the losses (tensors)."""
+            self.set_requires_grad([self.netD_A, self.netD_B], False)
+            self.optG.clear_grad()
+            total, losses, fake_A, fake_B = self.g_loss(real_A, real_B)
+            total.backward()
+            self.optG.step()
+            self.set_requires_grad([self.netD_A, self.netD_B], True)
+            self.optD.clear_grad()
+            losses["D_A"] = self.d_loss(self.netD_A, real_B,
+                                        self.pool_B.query(fake_B))
+            losses["D_A"].backward()
+            losses["D_B"] = self.d_loss(self.netD_B, real_A,
+                                        self.pool_A.query(fake_A))
+            losses["D_B"].backward()
+            self.optD.step()
+            losses["G"] = total
+            return {k: v.detach() for k, v in losses.items()}
+
+    def conv2plus1d(cin, cout, mid, stride, kw):
+        """Eq. 1's factored 3x3x3: a (1, 3, 3) spatial convolution to
+        ``mid`` channels, BatchNorm, ReLU, a (3, 1, 1) temporal one."""
+        return [nn.Conv3D(cin, mid, (1, 3, 3), stride=(1, stride, stride),
+                          padding=(0, 1, 1), bias_attr=False, **kw),
+                nn.BatchNorm3D(mid, **kw), nn.ReLU(),
+                nn.Conv3D(mid, cout, (3, 1, 1), stride=(stride, 1, 1),
+                          padding=(1, 0, 0), bias_attr=False, **kw)]
+
+    class BasicBlock(nn.Layer):
+        """torchvision's ``BasicBlock`` with ``Conv2Plus1D``: ``mid =
+        (in * planes * 27) // (in * 9 + 3 * planes)`` channels between the
+        factored convolutions (eq. 1's parameter match), a 1x1x1
+        projection with BatchNorm where the shape changes."""
+
+        def __init__(self, inplanes, planes, stride, kw):
+            super().__init__()
+            mid = (inplanes * planes * 27) // (inplanes * 9 + 3 * planes)
+            self.conv1 = nn.Sequential(
+                *conv2plus1d(inplanes, planes, mid, stride, kw),
+                nn.BatchNorm3D(planes, **kw), nn.ReLU())
+            self.conv2 = nn.Sequential(
+                *conv2plus1d(planes, planes, mid, 1, kw),
+                nn.BatchNorm3D(planes, **kw))
+            self.downsample = None
+            if stride != 1 or inplanes != planes:
+                self.downsample = nn.Sequential(
+                    nn.Conv3D(inplanes, planes, 1, stride=stride,
+                              bias_attr=False, **kw),
+                    nn.BatchNorm3D(planes, **kw))
+            self.relu = nn.ReLU()
+
+        def forward(self, x):
+            res = x if self.downsample is None else self.downsample(x)
+            return self.relu(self.conv2(self.conv1(x)) + res)
+
+    class R2Plus1D(nn.Layer):
+        """R(2+1)D-18 (Table 1; torchvision's ``VideoResNet`` with
+        ``R2Plus1dStem``: (1, 7, 7) stride (1, 2, 2) to 45 channels,
+        (3, 1, 1) to 64), four stages of ``layers`` blocks at ``widths``,
+        ``AdaptiveAvgPool3D(1)`` and ``Linear(widths[-1], classes)``;
+        ``[N, 3, T, H, W]`` clips in.  Paddle's default initializers
+        (KaimingUniform convolutions) where torchvision's are Kaiming
+        normal: the weights are random from a seed either way."""
+
+        def __init__(self, num_classes=VIDEO_CLASSES, layers=(2, 2, 2, 2),
+                     widths=(64, 128, 256, 512), stem_mid=45, kw=None):
+            super().__init__()
+            kw = kw or {}
+            self.stem = nn.Sequential(
+                nn.Conv3D(3, stem_mid, (1, 7, 7), stride=(1, 2, 2),
+                          padding=(0, 3, 3), bias_attr=False, **kw),
+                nn.BatchNorm3D(stem_mid, **kw), nn.ReLU(),
+                nn.Conv3D(stem_mid, widths[0], (3, 1, 1), stride=1,
+                          padding=(1, 0, 0), bias_attr=False, **kw),
+                nn.BatchNorm3D(widths[0], **kw), nn.ReLU())
+            inplanes, stages = widths[0], []
+            for i, (n, planes) in enumerate(zip(layers, widths)):
+                blocks = []
+                for j in range(n):
+                    stride = 2 if i > 0 and j == 0 else 1
+                    blocks.append(BasicBlock(inplanes, planes, stride, kw))
+                    inplanes = planes
+                stages.append(nn.Sequential(*blocks))
+            self.layer1, self.layer2, self.layer3, self.layer4 = stages
+            self.avgpool = nn.AdaptiveAvgPool3D(1)
+            self.flatten = nn.Flatten()
+            self.fc = nn.Linear(widths[-1], num_classes, **kw)
+
+        def forward(self, x):
+            x = self.stem(x)
+            for stage in (self.layer1, self.layer2, self.layer3,
+                          self.layer4):
+                x = stage(x)
+            return self.fc(self.flatten(self.avgpool(x)))
+
+    out = dict(ResnetGenerator=ResnetGenerator,
+               NLayerDiscriminator=NLayerDiscriminator, CycleGAN=CycleGAN,
+               ImagePool=ImagePool, R2Plus1D=R2Plus1D)
+    _SLICE20[nn.__name__] = out
+    return out
+
+
+def in_noise_leaves(net, nn):
+    """The names of ``net``'s parameters whose gradient is rounding noise:
+    the bias of a convolution whose output goes straight into an
+    InstanceNorm without affine (which removes any per-channel shift),
+    PaddleGAN's ``use_bias`` under InstanceNorm."""
+    names = {id(p): n for n, p in net.named_parameters()}
+    out = []
+    for _, seq in net.named_sublayers():
+        if not isinstance(seq, nn.Sequential):
+            continue
+        layers = list(seq.children())
+        for conv, nxt in zip(layers, layers[1:]):
+            if isinstance(conv, (nn.Conv2D, nn.Conv2DTranspose)) and \
+                    isinstance(nxt, nn.InstanceNorm2D) and \
+                    conv.bias is not None:
+                out.append(names[id(conv.bias)])
+    return sorted(out)
+
+
+
+NN_TOL = 1e-4             # [nn layers]: fp32 card vs CPU, x max(|ref|, 1)
+NN_BF16_TOL = 5e-2        # [nn layers]: bf16 O2 card vs CPU
+
+
+def _nn_cases(torch):
+    """``[nn layers]``' cases by family: ``(name, make, shapes, o2)`` where
+    ``make()`` builds the function on the CPU (a layer's parameters drawn
+    there, the card's copy made by :func:`_on`) and ``shapes`` are its
+    float inputs' shapes; ``o2`` marks the cases also run in bf16 under
+    O2.  Every layer class and function of slice 20 is a case; a
+    family's first case has a control (``controls``)."""
+    import inspect
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import activation as A
+    from paddle_tpu_torch.ops import nn_ops as O
+
+    def layer(ctor, *args, **kw):
+        takes = inspect.signature(ctor).parameters
+
+        def make():
+            gen = torch.Generator().manual_seed(7)
+            extra = {k: v for k, v in (("device", "cpu"), ("generator", gen))
+                     if k in takes}
+            return ctor(*args, **kw, **extra)
+        return make
+
+    def fn(f, *args, **kw):
+        return lambda: (lambda *xs: f(*xs, *args, **kw))
+
+    x3, x4, x5 = (2, 6, 20), (2, 6, 12, 10), (2, 4, 6, 10, 8)
+    conv = [
+        ("conv1d", fn(F.conv1d, None, 2, [1, 2], 2, 2), [x3, (4, 3, 3)],
+         True),
+        ("conv3d", fn(F.conv3d, None, (1, 2, 2), (0, 1, 1)),
+         [x5, (8, 4, 1, 3, 3)], True),
+        ("conv2d_transpose", fn(F.conv2d_transpose, None, 2, 1, 1),
+         [x4, (6, 3, 3, 3)], True),
+        ("conv1d_transpose", fn(F.conv1d_transpose, None, 2, 1, 1, 1, 2),
+         [x3, (6, 2, 3)], True),
+        ("conv3d_transpose", fn(F.conv3d_transpose, None, 2, 1, 1),
+         [x5, (4, 3, 3, 3, 3)], True),
+        ("Conv1D", layer(nn.Conv1D, 6, 8, 3, 1, 1), [x3], True),
+        ("Conv3D", layer(nn.Conv3D, 4, 8, (3, 1, 1), 1, (1, 0, 0)), [x5],
+         True),
+        ("Conv1DTranspose", layer(nn.Conv1DTranspose, 6, 4, 3, 2, 1, 1),
+         [x3], True),
+        ("Conv2DTranspose", layer(nn.Conv2DTranspose, 6, 4, 3, 2, 1, 1),
+         [x4], True),
+        ("Conv3DTranspose", layer(nn.Conv3DTranspose, 4, 2, 3, 2, 1, 1),
+         [x5], True)]
+    pool = [
+        ("max_pool1d", fn(F.max_pool1d, 3, 2, 1), [x3], True),
+        ("avg_pool1d", fn(F.avg_pool1d, 3, 2, 1), [x3], True),
+        ("max_pool3d", fn(F.max_pool3d, 3, 2, 1), [x5], True),
+        ("avg_pool3d", fn(F.avg_pool3d, 3, 2, 1, True), [x5], True),
+        ("adaptive_avg_pool1d", fn(F.adaptive_avg_pool1d, 7), [x3], True),
+        ("adaptive_max_pool1d", fn(F.adaptive_max_pool1d, 7), [x3], True),
+        ("adaptive_avg_pool3d", fn(F.adaptive_avg_pool3d, (2, 3, 3)), [x5],
+         True),
+        ("adaptive_max_pool3d", fn(F.adaptive_max_pool3d, 2), [x5], True),
+        ("max_unpool1d", fn(lambda x: F.max_unpool1d(
+            *F.max_pool1d(x, 2, return_mask=True), 2)), [x3], False),
+        ("max_unpool2d", fn(lambda x: F.max_unpool2d(
+            *F.max_pool2d(x, 2, return_mask=True), 2)), [x4], False),
+        ("max_unpool3d", fn(lambda x: F.max_unpool3d(
+            *F.max_pool3d(x, 2, return_mask=True), 2)), [x5], False),
+        ("MaxPool1D", layer(nn.MaxPool1D, 3, 2), [x3], True),
+        ("AvgPool1D", layer(nn.AvgPool1D, 3, 2, 1, False), [x3], True),
+        ("MaxPool3D", layer(nn.MaxPool3D, (1, 2, 2)), [x5], True),
+        ("AvgPool3D", layer(nn.AvgPool3D, 2, 1, 1), [x5], True),
+        ("AdaptiveAvgPool1D", layer(nn.AdaptiveAvgPool1D, 3), [x3], True),
+        ("AdaptiveMaxPool1D", layer(nn.AdaptiveMaxPool1D, 3), [x3], True),
+        ("AdaptiveAvgPool3D", layer(nn.AdaptiveAvgPool3D, 1), [x5], True),
+        ("AdaptiveMaxPool3D", layer(nn.AdaptiveMaxPool3D, 2), [x5], True),
+        ("MaxUnPool1D", fn(lambda x: nn.MaxUnPool1D(2)(
+            *F.max_pool1d(x, 2, return_mask=True))), [x3], False),
+        ("MaxUnPool2D", fn(lambda x: nn.MaxUnPool2D(2)(
+            *F.max_pool2d(x, 2, return_mask=True))), [x4], False),
+        ("MaxUnPool3D", fn(lambda x: nn.MaxUnPool3D(2)(
+            *F.max_pool3d(x, 2, return_mask=True))), [x5], False)]
+    c6 = (6,)
+    norm = [
+        ("instance_norm", fn(F.instance_norm), [x4, c6, c6], True),
+        ("group_norm", fn(lambda x, w, b: F.group_norm(x, 3, w, b)),
+         [x4, c6, c6], True),
+        ("rms_norm", fn(F.rms_norm), [x4, (10,), (10,)], True),
+        ("layer_norm", fn(lambda x, w: F.layer_norm(x, 10, w)),
+         [x4, (10,)], True),
+        ("local_response_norm", fn(F.local_response_norm, 3), [x4], True),
+        ("batch_norm 3-D", fn(lambda x: F.batch_norm(
+            x, torch.zeros(4, device=x.device),
+            torch.ones(4, device=x.device), training=True,
+            data_format="NCDHW")), [x5], True),
+        ("InstanceNorm1D", layer(nn.InstanceNorm1D, 6), [x3], True),
+        ("InstanceNorm2D (no affine)", layer(
+            nn.InstanceNorm2D, 6, weight_attr=False, bias_attr=False), [x4],
+         True),
+        ("InstanceNorm3D", layer(nn.InstanceNorm3D, 4), [x5], True),
+        ("GroupNorm", layer(nn.GroupNorm, 2, 6), [x4], True),
+        ("RMSNorm", layer(nn.RMSNorm, 10), [x4], True),
+        ("LayerNorm (no bias)", layer(nn.LayerNorm, 10, 1e-5, None, False),
+         [x4], True),
+        ("LocalResponseNorm", layer(nn.LocalResponseNorm, 5), [x4], True),
+        ("BatchNorm3D", layer(nn.BatchNorm3D, 4), [x5], True),
+        ("SyncBatchNorm", layer(nn.SyncBatchNorm, 6), [x4], True),
+        ("SpectralNorm", layer(nn.SpectralNorm, (6, 4, 3), 1, 2),
+         [(6, 4, 3)], False)]
+    act = [(n, fn(getattr(A, n), *a), [x4], False) for n, a in (
+        ("leaky_relu", (0.2,)), ("elu", (0.7,)), ("selu", ()),
+        ("celu", (1.5,)), ("log_sigmoid", ()), ("hardtanh", (-1.5, 2.0)),
+        ("tanhshrink", ()), ("softplus", (2.0, 5.0)), ("softsign", ()),
+        ("softshrink", (0.3,)), ("hardshrink", (0.4,)), ("mish", ()),
+        ("tanh", ()), ("thresholded_relu", (0.5, -0.25)),
+        ("rrelu", (0.1, 0.3)), ("softmax", (1,)), ("log_softmax", (3,)),
+        ("glu", (1,)), ("maxout", (2, 1)))]
+    act += [("prelu", fn(A.prelu), [x4, c6], False),
+            ("rrelu_apply", fn(A.rrelu_apply), [x4, x4], False),
+            ("gumbel_softmax_apply", fn(A.gumbel_softmax_apply, 0.5, True),
+             [x4, x4], False)]
+    act += [(n, layer(getattr(nn, n), *a), [x4], False) for n, a in (
+        ("LeakyReLU", (0.2,)), ("ELU", ()), ("SELU", ()), ("CELU", ()),
+        ("LogSigmoid", ()), ("Hardtanh", ()), ("Tanh", ()),
+        ("Tanhshrink", ()), ("Softplus", ()), ("Softsign", ()),
+        ("Softshrink", ()), ("Hardshrink", ()), ("Mish", ()),
+        ("ThresholdedReLU", ()), ("Maxout", (3,)), ("GLU", (1,)),
+        ("Softmax", (1,)), ("LogSoftmax", ()), ("Softmax2D", ()),
+        ("PReLU", (6, 0.1)))]
+
+    def rrelu_eval():
+        m = nn.RReLU(0.1, 0.3)
+        m.eval()
+        return m
+
+    act.append(("RReLU (eval)", rrelu_eval, [x4], False))
+    grid = (2, 5, 4, 2)
+    misc = [
+        ("pad reflect", fn(F.pad, [3, 3, 3, 3], "reflect"), [x4], True),
+        ("pad replicate 3-D", fn(F.pad, [1, 2, 0, 1, 2, 0], "replicate",
+                                 0.0, "NCDHW"), [x5], True),
+        ("pad circular", fn(F.pad, [2, 1], "circular", 0.0, "NCL"), [x3],
+         True),
+        ("pad constant NHWC", fn(F.pad, [1, 2, 3, 4], "constant", 0.5,
+                                 "NHWC"), [x4], True),
+        ("Pad1D", layer(nn.Pad1D, [2, 1], "reflect"), [x3], True),
+        ("Pad2D", layer(nn.Pad2D, 1, "replicate"), [x4], True),
+        ("Pad3D", layer(nn.Pad3D, [1, 1, 0, 1, 1, 0]), [x5], True),
+        ("ZeroPad2D", layer(nn.ZeroPad2D, [1, 0, 2, 1]), [x4], True),
+        ("Flatten", layer(nn.Flatten, 1, 2), [x4], False),
+        ("Unflatten", layer(nn.Unflatten, 1, [2, 3]), [x4], False),
+        ("Upsample", layer(nn.Upsample, None, 2, "nearest"), [x4], False),
+        ("UpsamplingBilinear2D", layer(nn.UpsamplingBilinear2D, (16, 13)),
+         [x4], False),
+        ("UpsamplingNearest2D", layer(nn.UpsamplingNearest2D, None, 2),
+         [x4], False),
+        ("PixelShuffle", layer(nn.PixelShuffle, 2), [(2, 8, 5, 6)], False),
+        ("PixelUnshuffle", layer(nn.PixelUnshuffle, 2), [x4], False),
+        ("ChannelShuffle", layer(nn.ChannelShuffle, 3), [x4], False),
+        ("Unfold", layer(nn.Unfold, [2, 3], 1, 1), [x4], False),
+        ("Fold", layer(nn.Fold, [6, 7], 2), [(2, 12, 30)], False),
+        ("unfold", fn(F.unfold, 3, 2, 1), [x4], False),
+        ("fold", fn(F.fold, [6, 7], 2, 1, [1, 0, 0, 1]), [(2, 12, 42)],
+         False),
+        ("CosineSimilarity", layer(nn.CosineSimilarity, 1), [x4, x4], False),
+        ("Bilinear", layer(nn.Bilinear, 5, 4, 3), [(6, 5), (6, 4)], False),
+        ("bilinear", fn(F.bilinear), [(6, 5), (6, 4), (3, 5, 4), (3,)],
+         False),
+        ("temporal_shift", fn(F.temporal_shift, 2, 0.25), [x4], False),
+        ("affine_grid", fn(F.affine_grid, [2, 1, 5, 4], False), [(2, 2, 3)],
+         False),
+        ("grid_sample bilinear reflection", fn(
+            F.grid_sample, "bilinear", "reflection", False), [x4, grid],
+         False),
+        ("grid_sample nearest zeros", fn(F.grid_sample, "nearest", "zeros"),
+         [x4, grid], False),
+        ("normalize", fn(F.normalize, 3, 1), [x4], False),
+        ("embedding", fn(lambda w: F.embedding(
+            torch.arange(12, device=w.device).reshape(3, 4) % 7, w, 2)),
+         [(7, 5)], False),
+        ("dropout_apply", fn(lambda x, k: O.dropout_apply(x, k > 0, 0.3)),
+         [x4, x4], False),
+        ("alpha_dropout_apply", fn(lambda x, k: O.alpha_dropout_apply(
+            x, k > 0, 0.3)), [x4, x4], False)]
+    controls = {
+        "conv": lambda x, w: F.conv1d(x, w.flip(-1), None, 2, [1, 2], 2, 2),
+        "pool": lambda x: F.avg_pool1d(x, 3, 2, 1),
+        "norm": lambda x, w, b: F.instance_norm(x, w, b, 1e-2),
+        "act": lambda x: A.leaky_relu(x, 0.21),
+        "misc": lambda x: F.pad(x, [3, 3, 3, 3], "replicate")}
+    return {"conv": conv, "pool": pool, "norm": norm, "act": act,
+            "misc": misc}, controls
+
+
+def _nn_run(torch, f, inputs, g_seed):
+    """``f`` on ``inputs`` (float ones requiring grad) and the gradients
+    of the inputs and of ``f``'s parameters (when it is a layer) for one
+    random cotangent: a list of tensors on the CPU (fp32)."""
+    out = f(*inputs)
+    outs = [out] if isinstance(out, torch.Tensor) else list(out)
+    dense = [o for o in outs if o.is_floating_point()]
+    gen = torch.Generator().manual_seed(g_seed)
+    cots = [torch.randn(o.shape, generator=gen).to(o.device, o.dtype)
+            for o in dense]
+    wrt = [t for t in inputs if t.requires_grad]
+    if isinstance(f, torch.nn.Module):
+        wrt += [p for p in f.parameters() if p.requires_grad]
+    grads = []
+    if wrt and any(o.requires_grad for o in dense):
+        loss = sum((o.float() * c.float()).sum() for o, c in zip(dense, cots)
+                   if o.requires_grad)
+        grads = torch.autograd.grad(loss, wrt, allow_unused=True)
+    res = outs + [g for g in grads if g is not None]
+    return [r.detach().float().cpu() if r.is_floating_point() else
+            r.detach().cpu() for r in res]
+
+
+def _nn_err(torch, got, ref):
+    """max |a - b| / max(|b|, 1) over the results; integer results (the
+    pools' masks) must be equal (inf otherwise)."""
+    worst = 0.0
+    for a, b in zip(got, ref):
+        if not b.is_floating_point():
+            worst = max(worst, 0.0 if torch.equal(a, b) else float("inf"))
+            continue
+        worst = max(worst, float((a - b).abs().max()) / max(
+            float(b.abs().max()), 1.0))
+    return worst
+
+
+def _nn_inputs(torch, shapes, seed, dev):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(s, generator=gen).to(dev).requires_grad_()
+            for s in shapes]
+
+
+def _on(torch, f, dev):
+    """A copy of the CPU-built ``f`` on ``dev`` (a layer's state moved as
+    it is; a function stays itself)."""
+    import copy
+    return copy.deepcopy(f).to(dev) if isinstance(f, torch.nn.Module) \
+        else f
+
+
+def nn_layers_phase(torch, seed):
+    """``[nn layers]`` (module docstring, 15t)."""
+    import paddle_tpu_torch as paddle
+    tag = "nn layers"
+    families, controls = _nn_cases(torch)
+    worst, o2_worst, counted = {}, {}, 0
+    for fam, cases in families.items():
+        for i, (name, make, shapes, o2) in enumerate(cases):
+            f = make()
+            card = _on(torch, f, "cuda")     # before f's buffers move
+            ref = _nn_run(torch, f, _nn_inputs(torch, shapes, seed + i,
+                                               "cpu"), seed)
+            got = _nn_run(torch, card, _nn_inputs(torch, shapes, seed + i,
+                                                  "cuda"), seed)
+            err = _nn_err(torch, got, ref)
+            check(err <= NN_TOL, f"[{tag}] {fam} {name}: card vs CPU "
+                  f"{err:.3e} (tol {NN_TOL})")
+            worst[fam] = max(worst.get(fam, (0.0, "")), (err, name))
+            counted += 1
+            if o2:
+                with paddle.amp.auto_cast(level="O2", dtype="bfloat16"):
+                    ref = _nn_run(torch, make(), _nn_inputs(
+                        torch, shapes, seed + i, "cpu"), seed)
+                    got = _nn_run(torch, _on(torch, make(), "cuda"),
+                                  _nn_inputs(torch, shapes, seed + i,
+                                             "cuda"), seed)
+                err = _nn_err(torch, got, ref)
+                check(err <= NN_BF16_TOL, f"[{tag}] {fam} {name} bf16 O2: "
+                      f"card vs CPU {err:.3e} (tol {NN_BF16_TOL})")
+                o2_worst[fam] = max(o2_worst.get(fam, (0.0, "")),
+                                    (err, name))
+        # the control: the family's first case with one argument changed
+        # on the card must fail the same gate
+        name, make, shapes, _ = cases[0]
+        ref = _nn_run(torch, make(), _nn_inputs(torch, shapes, seed, "cpu"),
+                      seed)
+        got = _nn_run(torch, controls[fam], _nn_inputs(
+            torch, shapes, seed, "cuda"), seed)
+        c_err = _nn_err(torch, got, ref) if [g.shape for g in got] == \
+            [r.shape for r in ref] else float("inf")
+        check(c_err > NN_TOL, f"[{tag}] {fam}: the control passed the gate "
+              f"({c_err:.3e})")
+        print(f"[{tag}] {fam}: {len(cases)} cases, largest card vs CPU "
+              f"|diff|/max(|ref|,1) over the outputs and the gradients of "
+              f"the inputs and parameters, fp32: {worst[fam][0]:.3e} "
+              f"({worst[fam][1]}; tol {NN_TOL})" + (
+                  f"; bf16 O2: {o2_worst[fam][0]:.3e} ({o2_worst[fam][1]}; "
+                  f"tol {NN_BF16_TOL})" if fam in o2_worst else "") +
+              f"; the control ({name} changed) {c_err:.3e} (must fail)",
+              flush=True)
+    reparam = _nn_reparam(torch, seed, tag)
+    drops = _nn_dropouts(torch, tag)
+    return {"worst": worst, "o2_worst": o2_worst, "cases": counted,
+            "reparam": reparam, "dropouts": drops}
+
+
+def _nn_dropouts(torch, tag):
+    """The dropouts' own draws on the card: about ``p`` of the elements
+    (of the channels, for the 2-D / 3-D ones) dropped, the kept ones as
+    the formulas give them, one draw shared along the dims ``axis``
+    leaves out; ``RReLU``'s slopes in [lower, upper]; the Gumbel
+    softmax's argmax shares following the softmax."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import nn_ops as O
+    x = torch.rand(64, 32, 8, 8, 8, device="cuda") + 1.0
+    out = {}
+    for name, layer, shared in (
+            ("Dropout(axis=[0, 1])", nn.Dropout(0.3, [0, 1]), (2, 3, 4)),
+            ("Dropout3D", nn.Dropout3D(0.3), (2, 3, 4)),
+            ("Dropout2D", nn.Dropout2D(0.3), (2, 3)),
+            ("Dropout(downscale_in_infer)",
+             nn.Dropout(0.3, mode="downscale_in_infer"), ())):
+        xin = x if name != "Dropout2D" else x[..., 0]
+        y = layer(xin)
+        keep = y != 0
+        want = O.dropout_apply(xin, keep, 0.3, layer.mode if hasattr(
+            layer, "mode") else "upscale_in_train")
+        check(torch.equal(y, want), f"[{tag}] {name}: kept values")
+        for d in shared:
+            check(bool((keep == keep.narrow(d, 0, 1)).all()),
+                  f"[{tag}] {name}: the mask is not shared along dim {d}")
+        out[name] = float(keep.float().mean())
+        check(abs(out[name] - 0.7) < 0.02, f"[{tag}] {name}: kept share "
+              f"{out[name]:.4f}")
+    y = nn.AlphaDropout(0.3)(x)
+    alpha_p = -1.6732632423543772 * 1.0507009873554805
+    a = (0.7 * (1 + 0.3 * alpha_p ** 2)) ** -0.5
+    kept = (y - (a * alpha_p - a * alpha_p * 0.3)).abs() > 1e-5
+    out["AlphaDropout"] = float(kept.float().mean())
+    check(abs(out["AlphaDropout"] - 0.7) < 0.02 and torch.allclose(
+        y[kept], a * x[kept] - a * alpha_p * 0.3, rtol=1e-5),
+          f"[{tag}] AlphaDropout")
+    xs = torch.randn(256, 4096, device="cuda")
+    slope = nn.RReLU(0.1, 0.3)(xs)[xs < 0] / xs[xs < 0]
+    out["RReLU slope range"] = (float(slope.min()), float(slope.max()),
+                                float(slope.mean()))
+    check(float(slope.min()) >= 0.1 - 1e-6 and float(slope.max()) <= 0.3 +
+          1e-6 and abs(float(slope.mean()) - 0.2) < 0.005,
+          f"[{tag}] RReLU slopes {out['RReLU slope range']}")
+    logits = torch.tensor([1.0, 0.0, -1.0], device="cuda").repeat(20000, 1)
+    share = F.gumbel_softmax(logits, 1.0, True).mean(0)
+    out["gumbel argmax share"] = [round(float(v), 4) for v in share]
+    check(float((share - logits[0].softmax(0)).abs().max()) < 0.02,
+          f"[{tag}] gumbel_softmax shares {out['gumbel argmax share']}")
+    print(f"[{tag}] the card's own draws: kept shares (p = 0.3) "
+          + ", ".join(f"{k} {v:.4f}" for k, v in out.items()
+                      if isinstance(v, float))
+          + f"; RReLU(0.1, 0.3) slopes min/max/mean "
+          f"{out['RReLU slope range']}; gumbel_softmax(hard) argmax shares "
+          f"{out['gumbel argmax share']} (softmax "
+          f"{[round(float(v), 4) for v in logits[0].softmax(0)]})",
+          flush=True)
+    return out
+
+
+def _nn_reparam(torch, seed, tag):
+    """``weight_norm`` and ``spectral_norm`` in a network trained by
+    ``Model.fit`` on the card (K=1: every step a replay of the captured
+    step, so the hooks run inside the graph) against the same fit on
+    the CPU, three SGD steps: the parameters, the power iteration's
+    buffers and the losses; a control whose card network normalises the
+    spectral norm's weight over dim 1 must fail."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import utils
+
+    def build(dev, sn_dim=0):
+        paddle.seed(seed)
+        gen = torch.Generator().manual_seed(seed)
+        net = nn.Sequential(
+            nn.Conv2D(3, 8, 3, padding=1, device="cpu", generator=gen),
+            nn.ReLU(), nn.Conv2D(8, 8, 3, stride=2, device="cpu",
+                                 generator=gen),
+            nn.Flatten(), nn.Linear(8 * 7 * 7, 5, device="cpu",
+                                    generator=gen))
+        utils.weight_norm(net[0])
+        utils.spectral_norm(net[2], dim=sn_dim, generator=gen)
+        utils.weight_norm(net[4], dim=None)
+        net.to(dev)
+        opt = paddle.optimizer.SGD(0.05, parameters=net.parameters())
+        model = paddle.Model(net, device=dev)
+        model.prepare(opt, nn.CrossEntropyLoss())
+        return net, model
+
+    rng = np.random.default_rng(seed + 900)
+    batches = [(torch.from_numpy(rng.standard_normal((4, 3, 16, 16)).astype(
+        np.float32)), torch.from_numpy(rng.integers(0, 5, (4,))))
+        for _ in range(3)]
+    ends = {}
+    for run, dev, sn_dim in (("cpu", "cpu", 0), ("card", "cuda", 0),
+                             ("control", "cuda", 1)):
+        net, model = build(dev, sn_dim)
+        keep = _loss_keeper()
+        model.fit(batches, epochs=1, verbose=0, callbacks=[keep],
+                  steps_per_dispatch=1 if dev == "cuda" else 0)
+        graphs = model.compile_stats()
+        ends[run] = ({k: v.detach().float().cpu() for k, v in
+                      net.state_dict().items()}, keep.losses, graphs)
+        if dev == "cuda":
+            free_model(torch, tag, model)
+    err, leaf = _worst(ends["card"][0], ends["cpu"][0])[0]
+    c_err, c_leaf = _worst(ends["control"][0], ends["cpu"][0])[0]
+    names = sorted(ends["cpu"][0])
+    check("0.weight_g" in names and "2.weight_orig" in names and
+          "2.weight_u" in names and "4.weight_v" in names,
+          f"[{tag}] reparametrised names {names}")
+    check(ends["card"][2] == {"graphs": 1, "captures": 1},
+          f"[{tag}] weight-norm fit graphs {ends['card'][2]}")
+    check(err <= NN_TOL, f"[{tag}] weight_norm / spectral_norm fit, card "
+          f"vs CPU {err:.3e} ({leaf})")
+    check(c_err > NN_TOL, f"[{tag}] the spectral_norm(dim=1) control "
+          f"passed ({c_err:.3e})")
+    print(f"[{tag}] weight_norm (conv, dim 0; linear, dim None) and "
+          f"spectral_norm (conv) through Model.fit, 3 SGD(0.05) steps, K=1 "
+          f"replays ({ends['card'][2]}) vs the CPU: parameters and the "
+          f"u / v buffers {err:.3e} ({leaf}; tol {NN_TOL}); losses card "
+          f"{[round(v, 6) for v in ends['card'][1]]} CPU "
+          f"{[round(v, 6) for v in ends['cpu'][1]]}; the control "
+          f"(spectral_norm over dim 1) {c_err:.3e} ({c_leaf}; must fail)",
+          flush=True)
+    return {"err": err, "control": c_err}
+
+
+def _gan_group(name):
+    """``[train cyclegan]``'s profile groups, by kernel name."""
+    low = name.lower()
+    if "fft" in low or "gemv" in low:
+        return "cuDNN FFT convolutions (fft2d r2c / c2r, complex gemv)"
+    if "dgrad" in low or "wgrad" in low or "fprop" in low or any(
+            t in low for t in ("xmma", "cutlass", "implicit", "cudnn",
+                               "conv", "gemm", "nvjet")):
+        if "dgrad" in low:
+            return "cuDNN conv dgrad (and transposed conv forward)"
+        if "wgrad" in low:
+            return "cuDNN conv wgrad"
+        return "cuDNN conv forward (and transposed conv dgrad), other gemm"
+    if "batch_norm" in low or "bn_" in low:
+        return "InstanceNorm (batch_norm kernels)"
+    if "reflection_pad" in low or "replication_pad" in low or "pad" in low:
+        return "pads (reflection)"
+    if "foreach" in low or "multi_tensor" in low or "adam" in low:
+        return "Adam (foreach)"
+    if any(t in low for t in ("nchwtonhwc", "nhwctonchw", "nchw2nhwc",
+                              "nhwc2nchw")):
+        return "layout transforms (NCHW <-> NHWC)"
+    return "other elementwise (losses, LeakyReLU, tanh, adds, copies)"
+
+
+def _video_group(name):
+    """``[train r2plus1d]``'s profile groups, by kernel name."""
+    low = name.lower()
+    if "fft" in low or "gemv" in low:
+        return "Conv3D by cuDNN's FFT (fft r2c / c2r, complex gemv)"
+    if "dgrad" in low:
+        return "Conv3D dgrad (cuDNN)"
+    if "wgrad" in low:
+        return "Conv3D wgrad (cuDNN)"
+    if "fprop" in low or any(t in low for t in ("xmma", "cutlass",
+                                                "implicit", "conv")):
+        return "Conv3D forward (cuDNN)"
+    if "batch_norm" in low or "bn_" in low or "batchnorm" in low:
+        return "BatchNorm3D"
+    if any(t in low for t in ("nchwtonhwc", "nhwctonchw", "nchw2nhwc",
+                              "nhwc2nchw", "transpose")):
+        return "layout transforms (NCDHW <-> NDHWC)"
+    if "foreach" in low or "multi_tensor" in low:
+        return "optimizer (foreach)"
+    if "copy" in low or "cast" in low:
+        return "O2 casts and copies"
+    if any(t in low for t in ("gemm", "nvjet", "cublas")):
+        return "matmul (cuBLAS: the head)"
+    return "other elementwise (ReLU, adds, pools, loss)"
+
+
+def _gan(torch, seed, dev, pad_mode="reflect"):
+    """CycleGAN at its published widths on ``dev``, from ``seed``: the
+    parameters drawn on the CPU and copied into a model built on
+    ``dev`` (whose optimizers hold its own parameters), so the card's
+    and the CPU's start alike; the image pools' draws from ``seed``."""
+    import paddle_tpu_torch as paddle
+    m = slice20_models(paddle.nn)
+    gen = torch.Generator().manual_seed(seed)
+    gan = m["CycleGAN"](paddle.optimizer, pad_mode=pad_mode, seed=seed,
+                        kw=dict(device="cpu", generator=gen))
+    if dev == "cpu":
+        return gan
+    out = m["CycleGAN"](paddle.optimizer, pad_mode=pad_mode, seed=seed,
+                        kw=dict(device=dev))
+    out.set_state_dict(gan.state_dict())
+    return out
+
+
+def _gan_images(torch, seed, n, size, dev):
+    rng = np.random.default_rng(seed)
+    return [tuple(torch.from_numpy(np.tanh(rng.standard_normal(
+        (GAN_B, 3, size, size))).astype(np.float32)).to(dev)
+        for _ in range(2)) for _ in range(n)]
+
+
+def train_cyclegan_phase(torch, seed):
+    """``[train cyclegan]`` (module docstring, 15u)."""
+    import gc
+    tag = "train cyclegan"
+    gc.collect()
+    torch.cuda.empty_cache()
+    gan = _gan(torch, seed, "cuda")
+    n_params = sum(p.numel() for p in gan.parameters())
+    (a, b), = _gan_images(torch, seed + 1000, 1, GAN_SIZE, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(GAN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = gan.train_step(a, b)
+        torch.cuda.synchronize()
+        ms.append((time.monotonic() - t0) * 1e3)
+        losses.append({k: float(v) for k, v in out.items()})
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(v) for step in losses for v in step.values()),
+          f"[{tag}] a loss is not finite: {losses}")
+    # the reconstruction terms fall on the fixed pair; the adversarial
+    # terms rise while the discriminators learn
+    first, last = losses[0], losses[-1]
+    check(all(last[k] < first[k] for k in ("cycle_A", "cycle_B", "idt_A",
+                                            "idt_B")),
+          f"[{tag}] the cycle and identity losses did not fall: first "
+          f"{first}, last {last}")
+    step_ms = float(np.median(ms[2:]))
+    prof = profile_run(torch, tag, "eager G+D",
+                       lambda: [gan.train_step(a, b) for _ in range(3)], 3,
+                       group=_gan_group)
+    del gan
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same steps on ATen's own convolutions (cuDNN off), a reading
+    aten_ms = []
+    saved = torch.backends.cudnn.enabled
+    try:
+        torch.backends.cudnn.enabled = False
+        gan = _gan(torch, seed, "cuda")
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            gan.train_step(a, b)
+            torch.cuda.synchronize()
+            aten_ms.append((time.monotonic() - t0) * 1e3)
+    finally:
+        torch.backends.cudnn.enabled = saved
+    del gan
+    gc.collect()
+    torch.cuda.empty_cache()
+    aten_step = float(np.median(aten_ms[2:]))
+    print(f"[{tag}] CycleGAN (cyclegan_cityscapes.yaml: two ResNet "
+          f"generators c7s1-64,d128,d256,R256x9,u128,u64,c7s1-3 and two "
+          f"70x70 PatchGANs, InstanceNorm without affine, reflection pads; "
+          f"{n_params} parameters), fp32 eager, Adam({GAN_LR}, beta1 0.5), "
+          f"LSGAN + cycle L1 x10 + identity x0.5, image pools of "
+          f"{GAN_POOL}, {GAN_SIZE}x{GAN_SIZE} B={GAN_B}, one fixed image "
+          f"pair, {GAN_STEPS} G+D steps: step_ms first={ms[0]:.3f} "
+          f"median(steps 3+)={step_ms:.3f} -> "
+          f"{GAN_B / (step_ms * 1e-3):.3f} image pairs/s; peak_mem_gib "
+          f"{peak / 2**30:.3f}; losses first "
+          f"{ {k: round(v, 4) for k, v in first.items()} } last "
+          f"{ {k: round(v, 4) for k, v in last.items()} }; with cuDNN off "
+          f"(ATen's convolutions) {aten_step:.3f} ms a step", flush=True)
+    return {"step_ms": step_ms, "images_per_s": GAN_B / (step_ms * 1e-3),
+            "first_ms": ms[0], "peak": peak, "profile": prof,
+            "losses": losses, "aten_step_ms": aten_step}
+
+
+def _gan_grad_errors(grads, ref, noise):
+    """Each leaf's max |diff| over its own largest |CPU gradient|; the
+    noise leaves' (rounding noise, :func:`in_noise_leaves`) over the
+    largest gradient of all.  Returns ``{leaf: error}``."""
+    top = max(float(v.abs().max()) for v in ref.values())
+    return {k: float((grads[k] - v).abs().max()) / (
+        top if k in noise else (float(v.abs().max()) or 1.0))
+        for k, v in ref.items()}
+
+
+def _gan_run(torch, seed, dev, data, pad="reflect", watch=False, force=None,
+             dtype=None):
+    """Train steps of :func:`_gan` on ``dev``, one per image pair of
+    ``data``: step 1's gradients, the state after the last step and the
+    losses; ``watch`` keeps every ReLU / LeakyReLU input (eager, in
+    order) and ``force`` makes them follow another run's
+    (:func:`_relu_force`); ``dtype`` float64 runs the model in it."""
+    gan = _gan(torch, seed, dev, pad_mode=pad)
+    if dtype is not None:
+        gan = gan.to(dtype=dtype)
+    seen = _relu_watch(torch, gan) if watch else None
+    if force is not None:
+        _relu_force(gan, force)
+    losses, grads = [], None
+    for a, b in data:
+        out = gan.train_step(a.to(dev, dtype or a.dtype),
+                             b.to(dev, dtype or b.dtype))
+        losses.append({k: float(v) for k, v in out.items()})
+        if grads is None:
+            grads = {k: q.grad.detach().double().cpu().clone() for k, q in
+                     gan.named_parameters()}
+    state = {k: v.detach().double().cpu().clone() for k, v in
+             gan.state_dict().items()}
+    return dict(grads=grads, losses=losses, state=state, seen=seen)
+
+
+def train_cyclegan_parity_phase(torch, seed):
+    """``[train cyclegan parity]`` (module docstring, 15v)."""
+    import paddle_tpu_torch as paddle
+    tag = "train cyclegan parity"
+    p = GAN_PARITY
+    data = _gan_images(torch, seed + 1100, p["steps"], p["size"], "cpu")
+    big = _gan_images(torch, seed + 1150, 1, GAN_SIZE, "cpu")
+    noise = set()
+    probe = _gan(torch, seed, "cpu")
+    for name in ("netG_A", "netG_B", "netD_A", "netD_B"):
+        noise |= {f"{name}.{k}" for k in in_noise_leaves(
+            getattr(probe, name), paddle.nn)}
+    init = {k: v.double() for k, v in probe.state_dict().items()}
+    del probe
+    # the main path's route, as [train cyclegan] runs it
+    check(torch.backends.cudnn.enabled and not
+          torch.backends.cudnn.deterministic and not
+          torch.backends.cudnn.benchmark and not
+          torch.backends.cudnn.allow_tf32,
+          f"[{tag}] not the main path's cuDNN settings")
+    card = _gan_run(torch, seed, "cuda", data, watch=True)
+    ctl = _gan_run(torch, seed, "cuda", data, pad="constant")
+    card_big = _gan_run(torch, seed, "cuda", big, watch=True)
+    ctl_big = _gan_run(torch, seed, "cuda", big, pad="constant")
+    with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
+        ref_big = _gan_run(torch, seed, "cuda", big, force=card_big["seen"],
+                           dtype=torch.float64)
+    cpu = _gan_run(torch, seed, "cpu", data, force=card["seen"])
+    lr = GAN_LR
+
+    def gates(run):
+        errs = _gan_grad_errors(run["grads"], cpu["grads"], noise)
+        leaf = max(errs, key=errs.get)
+        diffs = torch.cat([(run["state"][k] - v).abs().reshape(-1)
+                           for k, v in cpu["state"].items()])
+        share = float((diffs <= GAN_SHARE_LR * lr).float().mean())
+        return errs[leaf], leaf, share, float(diffs.max())
+
+    def big_gate(run):
+        errs = _gan_grad_errors(run["grads"], ref_big["grads"], noise)
+        leaf = max(errs, key=errs.get)
+        return errs[leaf], leaf
+
+    g_err, g_leaf, share, d_max = gates(card)
+    c_err, c_leaf, c_share, c_max = gates(ctl)
+    b_err, b_leaf = big_gate(card_big)
+    cb_err, cb_leaf = big_gate(ctl_big)
+    moved = float(torch.cat([(cpu["state"][k] - v).abs().reshape(-1)
+                             for k, v in init.items()]).max())
+    # step 1's losses come from the same weights; the later steps' from
+    # weights that Adam's steps on noise gradients moved apart by ~lr
+    rel = [max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for k in b)
+           for a, b in zip(card["losses"], cpu["losses"])]
+    loss_rel = rel[0]
+    few = 2 * p["steps"] * lr
+    print(f"[{tag}] CycleGAN at its widths, fp32, TF32 off, the card on "
+          f"cuDNN's default algorithms (the timed route), the reference "
+          f"run's ReLUs, LeakyReLUs and L1 losses following the card's "
+          f"signs; {p['size']}x{p['size']}, card vs CPU from the same "
+          f"weights: gate 1, step 1's gradients per leaf / the leaf's "
+          f"largest ({len(noise)} conv biases before InstanceNorm, whose "
+          f"gradients are rounding noise, / the largest of all): "
+          f"{g_err:.3e} ({g_leaf}; tol {NN_TOL}); gate 2, after "
+          f"{p['steps']} G+D steps of Adam({lr}): {share:.5f} of the "
+          f"parameters within {GAN_SHARE_LR} x lr of the CPU's (min "
+          f"{GAN_SHARE_MIN}), all within {d_max:.3e} (few lr: {few:.1e}; "
+          f"the CPU moved them up to {moved:.3e}); step 1's losses "
+          f"relative {loss_rel:.3e} (tol {PARITY_TOL}; the steps after: "
+          f"{', '.join(f'{v:.3e}' for v in rel[1:])}); {GAN_SIZE}x"
+          f"{GAN_SIZE}, gate 3, step 1's gradients per leaf against float64 "
+          f"on the card by ATen's convolutions: {b_err:.3e} ({b_leaf}; tol "
+          f"{NN_TOL}); the control (zero padding in place of reflection) "
+          f"{c_err:.3e} ({c_leaf}), share {c_share:.5f} and at "
+          f"{GAN_SIZE} {cb_err:.3e} ({cb_leaf}) (must fail all three)",
+          flush=True)
+    check(g_err <= NN_TOL and share >= GAN_SHARE_MIN and d_max <= few and
+          loss_rel <= PARITY_TOL and b_err <= NN_TOL,
+          f"[{tag}] card vs CPU: gradients {g_err:.3e}, share {share:.5f}, "
+          f"largest {d_max:.3e}, losses {loss_rel:.3e}; at {GAN_SIZE} vs "
+          f"float64: {b_err:.3e}")
+    check(c_err > NN_TOL and c_share < GAN_SHARE_MIN and cb_err > NN_TOL,
+          f"[{tag}] the zero-padding control passed a gate: gradients "
+          f"{c_err:.3e}, share {c_share:.5f}, at {GAN_SIZE} {cb_err:.3e}")
+    return {"grad_err": g_err, "share": share, "control_grad": c_err,
+            "control_share": c_share, "grad_err_256": b_err,
+            "control_grad_256": cb_err}
+
+
+def _video_model(torch, seed, dev="cuda", o2=True, lr=VIDEO_LR,
+                 criterion=None):
+    """R(2+1)D-18 from ``seed`` (drawn on the CPU), Momentum(lr, 0.9,
+    L2Decay(VIDEO_DECAY)), bf16 O2 with fp32 masters when ``o2``, in a
+    ``Model`` on ``dev``."""
+    import paddle_tpu_torch as paddle
+    m = slice20_models(paddle.nn)
+    gen = torch.Generator().manual_seed(seed)
+    net = m["R2Plus1D"](kw=dict(device="cpu", generator=gen)).to(dev)
+    opt = paddle.optimizer.Momentum(
+        lr, 0.9, parameters=net.parameters(),
+        weight_decay=paddle.regularizer.L2Decay(VIDEO_DECAY),
+        multi_precision=o2)
+    amp = {"level": "O2", "dtype": "bfloat16"} if o2 else None
+    if o2:
+        paddle.amp.decorate(net, opt, **amp)
+    model = paddle.Model(net, device=dev)
+    model.prepare(opt, criterion or paddle.nn.CrossEntropyLoss(),
+                  amp_configs=amp)
+    return net, model
+
+
+def _video_batch(torch, seed, b, t, size, pinned=True):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, 3, t, size, size)).astype(
+        np.float32))
+    y = torch.from_numpy(rng.integers(0, VIDEO_CLASSES, (b,)))
+    return (x.pin_memory(), y.pin_memory()) if pinned else (x, y)
+
+
+def video_flops(torch, net, clip):
+    """Forward FLOPs of ``net``'s convolutions and head on one ``clip``
+    (2 x multiply-adds), counted from the shapes each layer sees in one
+    forward in eval mode."""
+    import paddle_tpu_torch as paddle
+    flops = [0]
+
+    def hook(layer, args, out):
+        k = int(np.prod(layer.weight.shape[1:])) if isinstance(
+            layer, paddle.nn.Conv3D) else layer.weight.shape[0]
+        flops[0] += 2 * out.numel() * k
+
+    hooks = [m.register_forward_post_hook(hook) for m in net.sublayers()
+             if isinstance(m, (paddle.nn.Conv3D, paddle.nn.Linear))]
+    training = net.training
+    net.eval()
+    with torch.no_grad():
+        net(clip)
+    net.train(training)
+    for h in hooks:
+        h.remove()
+    return flops[0]
+
+
+def train_r2plus1d_phase(torch, seed):
+    """``[train r2plus1d]`` (module docstring, 15w)."""
+    import gc
+    tag = "train r2plus1d"
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = _video_batch(torch, seed + 1200, VIDEO_B, VIDEO_T, VIDEO_SIZE)
+    net, model = _video_model(torch, seed)
+    n_params = sum(p.numel() for p in net.parameters())
+    fwd_flops = video_flops(torch, net, batch[0][:1].cuda())
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, first_ms = _clocked_fit(torch, model, batch,
+                                             VIDEO_STEPS, None)
+    peak = torch.cuda.max_memory_allocated()
+    check(model._fold == 1, f"[{tag}] steps_per_dispatch resolved to "
+          f"{model._fold} under a per-step clock")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"[{tag}] losses {losses}")
+    runner = next(iter(model._graphs.values()))
+    pool = pool_reserved(torch, model._graph_pool)
+    prof = profile_run(
+        torch, tag, "replayed",
+        lambda: model.fit([batch] * 3, epochs=1, verbose=0,
+                          steps_per_dispatch=3), 3, _video_group)
+    graphs = model.compile_stats()
+    check(graphs == {"graphs": 1, "captures": 1},
+          f"[{tag}] {graphs}: a capture after the first")
+    free_model(torch, tag, model)
+    del net, model
+    net, model = _video_model(torch, seed)
+    torch.cuda.reset_peak_memory_stats()
+    e_losses, eager_ms, _ = _clocked_fit(torch, model, batch, 4, 0)
+    eager_peak = torch.cuda.max_memory_allocated()
+    free_model(torch, tag, model)
+    del net, model
+    # replays bit-equal to eager under the deterministic algorithms
+    ends = {}
+    with cudnn_deterministic(torch), deterministic_algorithms(torch) as w:
+        for fold in (1, 0):
+            net, model = _video_model(torch, seed)
+            model.fit([batch] * 3, epochs=1, verbose=0,
+                      steps_per_dispatch=fold)
+            ends[fold] = _fit_state(torch, model)
+            free_model(torch, tag, model)
+            del net, model
+    warned = sorted({str(x.message)[:80] for x in w})
+    same = _states_equal(torch, ends[1], ends[0])
+    check(same, f"[{tag}] K=1 replays vs eager under the deterministic "
+          f"algorithms: {_state_diff(torch, ends[0], ends[1]):.3e}")
+    ips = VIDEO_B / (step_ms * 1e-3)
+    tflops = 3 * fwd_flops * ips / 1e12
+    print(f"[{tag}] R(2+1)D-18 ({n_params} parameters, {VIDEO_CLASSES} "
+          f"classes), bf16 O2 with fp32 masters, Momentum({VIDEO_LR}, 0.9, "
+          f"L2Decay({VIDEO_DECAY})), CrossEntropyLoss, B={VIDEO_B} clips of "
+          f"3x{VIDEO_T}x{VIDEO_SIZE}x{VIDEO_SIZE}, one fixed batch: losses "
+          f"K=1 {[round(v, 4) for v in losses]}, eager "
+          f"{[round(v, 4) for v in e_losses]}; K=1 replays: step_ms "
+          f"first={first_ms:.3f} median(steps 3+)={step_ms:.3f} -> "
+          f"{ips:.2f} clips/s ({tflops:.1f} TFLOP/s by the convolutions' "
+          f"and the head's count, {fwd_flops / 1e9:.2f} GFLOP a clip "
+          f"forward, x3 for a step; {tflops / 989:.4f} of 989); eager: "
+          f"step_ms {eager_ms:.3f} -> "
+          f"{VIDEO_B / (eager_ms * 1e-3):.2f} clips/s; peak_mem_gib "
+          f"{peak / 2**30:.3f} replayed, {eager_peak / 2**30:.3f} eager; "
+          f"capture {runner.capture_s:.3f} s, graph pool reserved "
+          + (f"{pool / 2**30:.3f} GiB" if pool is not None else
+             "not measured") + f"; graphs {graphs}; under the deterministic "
+          f"algorithms 3 K=1 replays bit-equal to eager: {same} (warnings "
+          f"{warned})", flush=True)
+    return {"step_ms": step_ms, "clips_per_s": ips, "eager_ms": eager_ms,
+            "gflop_clip_fwd": fwd_flops / 1e9, "tflops": tflops,
+            "peak": peak, "eager_peak": eager_peak,
+            "capture_s": runner.capture_s, "pool": pool, "profile": prof,
+            "losses": losses}
+
+
+def _video_parity_run(torch, seed, dev, batches, fold, watch=False,
+                      force=None):
+    """R(2+1)D-18 in fp32 on ``dev``: step 1's gradients of the first
+    batch (a forward and backward of their own), then ``fit`` of one
+    Momentum step a batch (``steps_per_dispatch=fold``): the gradients,
+    the state after the fit, the losses, and with ``watch`` the ReLU
+    inputs of the gradient run and of the fit (eager only) in order;
+    ``force``: another run's, whose signs this run's ReLUs follow."""
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    import paddle_tpu_torch as paddle
+    p = VIDEO_PARITY
+    net, model = _video_model(torch, seed, dev, o2=False, lr=p["lr"])
+    seen = _relu_watch(torch, net) if watch else None
+    if force is not None:
+        _relu_force(net, force)
+    x0, y0 = (t.to(dev) for t in batches[0])
+    paddle.nn.CrossEntropyLoss()(net(x0), y0).backward()
+    grads = {k: q.grad.detach().cpu().clone() for k, q in
+             net.named_parameters()}
+    net.clear_gradients()
+    losses = []
+
+    class Keep(Callback):
+        def on_train_batch_end(self, step, logs=None):
+            losses.append(float(logs["loss"][0]))
+
+    model.fit(batches, epochs=1, verbose=0, callbacks=[Keep()],
+              steps_per_dispatch=fold)
+    state = {k: v.detach().float().cpu().clone() for k, v in
+             net.state_dict().items()}
+    if dev != "cpu":
+        free_model(torch, "train r2plus1d parity", model)
+    return dict(grads=grads, state=state, losses=losses, seen=seen)
+
+
+def train_r2plus1d_parity_phase(torch, seed):
+    """``[train r2plus1d parity]`` (module docstring, 15x)."""
+    import paddle_tpu_torch as paddle
+    tag = "train r2plus1d parity"
+    p = VIDEO_PARITY
+    batches = [_video_batch(torch, seed + 1300 + i, p["b"], p["t"],
+                            p["size"], pinned=False)
+               for i in range(p["steps"])]
+    reversed_ = [(x.flip(2), y) for x, y in batches]
+    with cudnn_deterministic(torch):
+        card = _video_parity_run(torch, seed, "cuda", batches, 0, watch=True)
+        replay = _video_parity_run(torch, seed, "cuda", batches, 1)
+        ctl = _video_parity_run(torch, seed, "cuda", reversed_, 0)
+        # the bf16 O2 forward, two draws of weights and clips: the card's
+        # against the CPU's in bf16 (the gate) and in fp32, and the card's
+        # with the convolutions left in fp32 (the control)
+        outs = {}
+        runs = (("bf16", "cuda", True, None), ("bf16", "cpu", True, None),
+                ("fp32", "cpu", False, None),
+                ("control", "cuda", True, ["conv3d"]))
+        for i in range(2):
+            for name, dev, o2, black in runs:
+                net, _ = _video_model(torch, seed + i, dev, o2=o2)
+                with paddle.amp.auto_cast(
+                        enable=o2, level="O2", dtype="bfloat16",
+                        custom_black_list=black), torch.no_grad():
+                    outs[i, name, dev] = net(
+                        batches[i][0].to(dev)).float().cpu()
+                del net
+    cpu = _video_parity_run(torch, seed, "cpu", batches, 0,
+                            force=card["seen"])
+    g_err, g_leaf = crnn_grad_gate(card["grads"], cpu["grads"])[0]
+    c_gerr, c_gleaf = crnn_grad_gate(ctl["grads"], cpu["grads"])[0]
+    err, leaf = _worst(card["state"], cpu["state"])[0]
+    c_err, c_leaf = _worst(ctl["state"], cpu["state"])[0]
+    same = _states_equal(torch, replay["state"], card["state"]) and \
+        replay["losses"] == card["losses"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"],
+                                                       cpu["losses"]))
+
+    def o2_err(got, ref):
+        return float((got - ref).abs().max()) / max(float(ref.abs().max()),
+                                                     1.0)
+
+    o2_bf16 = [o2_err(outs[i, "bf16", "cuda"], outs[i, "bf16", "cpu"])
+               for i in range(2)]
+    o2_fp32 = [o2_err(outs[i, "bf16", "cuda"], outs[i, "fp32", "cpu"])
+               for i in range(2)]
+    o2_ctl = [o2_err(outs[i, "control", "cuda"], outs[i, "bf16", "cpu"])
+              for i in range(2)]
+    print(f"[{tag}] R(2+1)D-18 fp32, B={p['b']} clips of 3x{p['t']}x"
+          f"{p['size']}x{p['size']}, cuDNN deterministic, TF32 off, card vs "
+          f"CPU from the same weights, the CPU's ReLUs following the card's "
+          f"signs: step 1's gradients per leaf / the leaf's largest "
+          f"{g_err:.3e} ({g_leaf}; tol {CRNN_GRAD_TOL}); after {p['steps']} "
+          f"Momentum({p['lr']}, 0.9, L2Decay) steps (eager; K=1 replays "
+          f"bit-equal to it: {same}) parameters and BatchNorm statistics "
+          f"{err:.3e} ({leaf}; tol {CARD_CPU_TOL}); losses relative "
+          f"{loss_rel:.3e}; the control (clips reversed in time on the card) "
+          f"{c_gerr:.3e} ({c_gleaf}) and {c_err:.3e} ({c_leaf}) (must fail "
+          f"both); the bf16 O2 forward on the card against the CPU's bf16 "
+          f"O2 forward, weights and clips of seeds {seed} and {seed + 1}: "
+          f"{', '.join(f'{v:.3e}' for v in o2_bf16)} (tol {NN_BF16_TOL}; "
+          f"against the CPU's fp32 forward "
+          f"{', '.join(f'{v:.3e}' for v in o2_fp32)}, bf16's own error); "
+          f"the control (the card's convolutions left in fp32 by the custom "
+          f"black list) {', '.join(f'{v:.3e}' for v in o2_ctl)} (must "
+          f"fail)", flush=True)
+    check(g_err <= CRNN_GRAD_TOL and err <= CARD_CPU_TOL and same and
+          loss_rel <= PARITY_TOL and max(o2_bf16) <= NN_BF16_TOL,
+          f"[{tag}] card vs CPU: gradients {g_err:.3e}, parameters "
+          f"{err:.3e}, replays bit-equal {same}, losses {loss_rel:.3e}, bf16 "
+          f"O2 forward {o2_bf16}")
+    check(c_gerr > CRNN_GRAD_TOL and c_err > CARD_CPU_TOL,
+          f"[{tag}] the time-reversed control passed a gate: gradients "
+          f"{c_gerr:.3e}, parameters {c_err:.3e}")
+    check(min(o2_ctl) > NN_BF16_TOL, f"[{tag}] the fp32-convolution control "
+          f"passed the bf16 O2 gate: {o2_ctl}")
+    return {"grad_err": g_err, "err": err, "o2_err": o2_bf16,
+            "o2_fp32_err": o2_fp32, "o2_control": o2_ctl,
+            "control_grad": c_gerr, "control": c_err}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8795,6 +10155,11 @@ def main(argv=None) -> int:
     translate_greedy_phase(torch, args.seed)
     train_crnn_phase(torch, args.seed)
     rnn_phase(torch, args.seed)
+    nn_layers_phase(torch, args.seed)
+    train_cyclegan_phase(torch, args.seed)
+    train_cyclegan_parity_phase(torch, args.seed)
+    train_r2plus1d_phase(torch, args.seed)
+    train_r2plus1d_parity_phase(torch, args.seed)
 
     k32, k16 = kres["fp32"], kres["bf16"]
     kernels = [{

@@ -12,11 +12,12 @@ module-level state :func:`auto_cast` sets.  The rule is the JAX one:
   black) gets them in the target dtype, one on the black list (or
   custom black) in fp32; the rest are left as they are.
 
-Ops that call :func:`cast_inputs` in the port: ``conv2d``, ``linear``,
-``batch_norm_train`` / ``batch_norm_eval``, ``layer_norm``, the pools,
-the activations (``gelu`` and ``silu`` among them), ``flatten``,
-``split``, ``reshape``, ``transpose``, ``expand``, ``channel_shuffle``,
-``interpolate``, ``box_iou``.  Python
+Ops that call :func:`cast_inputs` in the port: the convolutions (the
+1-D and 3-D transposes by their own names, which the white list lacks,
+as in the JAX package), ``linear``, ``bilinear``, the norms, the pools,
+the activations, ``flatten``, ``split``, ``reshape``, ``transpose``,
+``expand``, ``pad``, ``unfold``, ``fold``, the rearranging and sampling
+functions, ``interpolate``, ``box_iou``.  Python
 operators in model code (``out + identity``) are torch's own and
 promote instead (``ROADMAP.md``, non-comparable by design).
 """

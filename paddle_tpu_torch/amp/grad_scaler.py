@@ -23,7 +23,7 @@ step count or ``_global_step`` moves.  ``update`` then halves the scale
 bad steps, and doubles it (``incr_ratio``) after
 ``incr_every_n_steps`` good ones.  Dense gradients only: sparse ones
 (``SelectedRows``) go with ``Embedding(sparse=True)``, ROADMAP queue
-A, item 8 (the nn half).
+A, item 8 (third part: sparse gradients).
 """
 
 from __future__ import annotations

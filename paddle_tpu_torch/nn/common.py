@@ -1,5 +1,7 @@
-"""Linear, Embedding, Dropout and Identity layers (counterpart of
-``paddle_tpu/nn/common.py``).
+"""Common layers (counterpart of ``paddle_tpu/nn/common.py``): Linear,
+Embedding, the dropouts, Identity, Flatten / Unflatten, the pads, the
+upsampling and rearranging layers, Fold / Unfold, CosineSimilarity and
+Bilinear.
 
 ``Linear`` keeps Paddle's weight layout ``[in_features, out_features]``
 and computes ``x @ W + b``, so a weight carries over from the JAX
@@ -16,6 +18,7 @@ import torch
 
 from .. import resolve_device
 from ..framework import random as _random
+from ..ops import manipulation as M
 from ..ops import nn_ops
 from . import initializer as I
 from .layer import Layer
@@ -74,7 +77,8 @@ class Embedding(Layer):
         if sparse:
             raise NotImplementedError(
                 "Embedding(sparse=True) (SelectedRows gradients) is not "
-                "ported yet (ROADMAP queue A, item 8: the rest of nn)")
+                "ported yet (ROADMAP queue A, item 8, third part: sparse "
+                "gradients)")
         device = resolve_device(device)
         if padding_idx is not None and padding_idx < 0:
             padding_idx += num_embeddings
@@ -104,19 +108,55 @@ class Embedding(Layer):
 
 
 class Dropout(Layer):
-    """Paddle's ``upscale_in_train`` dropout: while training, zero each
-    element with probability ``p`` and scale the rest by
-    ``1 / (1 - p)``; identity in eval mode or at ``p == 0``.  The mask
-    comes from the port's generator of the tensor's device.  ``axis``
-    and ``downscale_in_infer`` are refused (``nn_ops.dropout_refusals``)."""
+    """Paddle's dropout (``ops/nn_ops.py::dropout``): while training,
+    zero each element with probability ``p`` (one draw shared along the
+    dims not in ``axis`` when it is given) and scale the rest by ``1 /
+    (1 - p)`` (``upscale_in_train``), or leave them and scale by ``1 -
+    p`` in eval mode (``downscale_in_infer``).  The mask comes from the
+    port's generator of the tensor's device."""
 
     def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None):
         super().__init__()
-        nn_ops.dropout_refusals(axis, mode)
-        self.p = float(p)
+        self.p, self.axis, self.mode = float(p), axis, mode
 
     def forward(self, x):
-        return nn_ops.dropout(x, self.p, training=self.training)
+        return nn_ops.dropout(x, self.p, self.axis, self.training, self.mode)
+
+    def extra_repr(self):
+        return f"p={self.p}"
+
+
+class Dropout2D(Layer):
+    """Whole channels of ``[N, C, H, W]`` dropped while training."""
+
+    def __init__(self, p=0.5, data_format="NCHW", name=None):
+        super().__init__()
+        self.p, self.data_format = p, data_format
+
+    def forward(self, x):
+        return nn_ops.dropout2d(x, self.p, self.training, self.data_format)
+
+
+class Dropout3D(Layer):
+    """Whole channels of ``[N, C, D, H, W]`` dropped while training."""
+
+    def __init__(self, p=0.5, data_format="NCDHW", name=None):
+        super().__init__()
+        self.p, self.data_format = p, data_format
+
+    def forward(self, x):
+        return nn_ops.dropout3d(x, self.p, self.training, self.data_format)
+
+
+class AlphaDropout(Layer):
+    """SELU's dropout (``ops/nn_ops.py::alpha_dropout``) while training."""
+
+    def __init__(self, p=0.5, name=None):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        return nn_ops.alpha_dropout(x, self.p, self.training)
 
 
 class Identity(Layer):
@@ -125,3 +165,194 @@ class Identity(Layer):
 
     def forward(self, x):
         return x
+
+
+class Flatten(Layer):
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis, self.stop_axis = start_axis, stop_axis
+
+    def forward(self, x):
+        return M.flatten(x, self.start_axis, self.stop_axis)
+
+
+class Unflatten(Layer):
+    """Dim ``axis`` of the input split into ``shape``."""
+
+    def __init__(self, axis, shape, name=None):
+        super().__init__()
+        self.axis, self.shape = axis, list(shape)
+
+    def forward(self, x):
+        full = list(x.shape)
+        ax = self.axis % len(full)
+        return M.reshape(x, full[:ax] + self.shape + full[ax + 1:])
+
+
+class _Pad(Layer):
+    """``ops/manipulation.py::pad`` with a fixed ``padding`` (Paddle's
+    last-dims-first list, or an int for every side), ``mode`` and
+    ``value``."""
+
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCHW", name=None):
+        super().__init__()
+        self.padding, self.mode, self.value = padding, mode, value
+        self.data_format = data_format
+
+    def forward(self, x):
+        return M.pad(x, self.padding, self.mode, self.value,
+                     self.data_format)
+
+
+class Pad1D(_Pad):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCL", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad2D(_Pad):
+    """CycleGAN's ``Pad2D(3, mode="reflect")`` before its 7x7
+    convolutions."""
+
+
+class Pad3D(_Pad):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCDHW", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class ZeroPad2D(_Pad):
+    def __init__(self, padding, data_format="NCHW", name=None):
+        super().__init__(padding, "constant", 0.0, data_format)
+
+
+class Upsample(Layer):
+    """``ops/nn_ops.py::interpolate`` with fixed arguments (it ignores
+    ``align_corners`` and ``align_mode``, as the JAX function does)."""
+
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, align_mode=0, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self.size, self.scale_factor = size, scale_factor
+        self.mode, self.align_corners = mode, align_corners
+        self.data_format = data_format
+
+    def forward(self, x):
+        return nn_ops.interpolate(x, self.size, self.scale_factor,
+                                  self.mode, self.align_corners,
+                                  data_format=self.data_format)
+
+
+class _Upsampling2D(Layer):
+    _mode = None
+
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        _nchw_layer(self, data_format)
+        self.size, self.scale_factor = size, scale_factor
+
+    def forward(self, x):
+        return nn_ops.interpolate(x, self.size, self.scale_factor,
+                                  self._mode)
+
+
+class UpsamplingBilinear2D(_Upsampling2D):
+    _mode = "bilinear"
+
+
+class UpsamplingNearest2D(_Upsampling2D):
+    _mode = "nearest"
+
+
+def _nchw_layer(layer, data_format):
+    """The JAX rearranging layers drop ``data_format`` and compute NCHW:
+    a channel-last one is refused."""
+    if data_format != "NCHW":
+        nn_ops.ignored_by_reference(
+            f"{type(layer).__name__}(data_format={data_format!r})")
+
+
+class PixelShuffle(Layer):
+    def __init__(self, upscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        _nchw_layer(self, data_format)
+        self.upscale_factor = upscale_factor
+
+    def forward(self, x):
+        return nn_ops.pixel_shuffle(x, self.upscale_factor)
+
+
+class PixelUnshuffle(Layer):
+    def __init__(self, downscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        _nchw_layer(self, data_format)
+        self.downscale_factor = downscale_factor
+
+    def forward(self, x):
+        return nn_ops.pixel_unshuffle(x, self.downscale_factor)
+
+
+class ChannelShuffle(Layer):
+    def __init__(self, groups, data_format="NCHW", name=None):
+        super().__init__()
+        _nchw_layer(self, data_format)
+        self.groups = groups
+
+    def forward(self, x):
+        return nn_ops.channel_shuffle(x, self.groups)
+
+
+class Unfold(Layer):
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1,
+                 name=None):
+        super().__init__()
+        self._cfg = dict(kernel_sizes=kernel_sizes, strides=strides,
+                         paddings=paddings, dilations=dilations)
+
+    def forward(self, x):
+        return M.unfold(x, **self._cfg)
+
+
+class Fold(Layer):
+    def __init__(self, output_sizes, kernel_sizes, strides=1,
+                 paddings=0, dilations=1, name=None):
+        super().__init__()
+        self._cfg = dict(output_sizes=output_sizes,
+                         kernel_sizes=kernel_sizes, strides=strides,
+                         paddings=paddings, dilations=dilations)
+
+    def forward(self, x):
+        return nn_ops.fold(x, **self._cfg)
+
+
+class CosineSimilarity(Layer):
+    def __init__(self, axis=1, eps=1e-8):
+        super().__init__()
+        self.axis, self.eps = axis, eps
+
+    def forward(self, x1, x2):
+        return nn_ops.cosine_similarity(x1, x2, self.axis, self.eps)
+
+
+class Bilinear(Layer):
+    """``out[b, o] = x1[b]^T W[o] x2[b] + bias``: the weight ``[out, in1,
+    in2]`` from ``XavierNormal`` over those dims and the bias ``[1,
+    out]`` from 0, as the JAX layer makes them."""
+
+    def __init__(self, in1_features, in2_features, out_features,
+                 weight_attr=None, bias_attr=None, name=None, *, device=None,
+                 generator=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.weight = I.make_parameter(
+            (out_features, in1_features, in2_features), weight_attr,
+            I.XavierNormal(), device, generator)
+        self.bias = None if bias_attr is False else I.make_parameter(
+            (1, out_features), bias_attr, I.Constant(0.0), device,
+            generator)
+
+    def forward(self, x1, x2):
+        return nn_ops.bilinear(x1, x2, self.weight, self.bias)

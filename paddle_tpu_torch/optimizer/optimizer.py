@@ -520,7 +520,7 @@ class Adam(Optimizer):
     ``moment2_max = max(moment2_max, moment2)`` and divides by its root.
     ``lazy_mode`` (row-wise updates of a sparse gradient) goes with
     ``Embedding(sparse=True)``, ROADMAP queue A, item 8 (the ``nn``
-    half)."""
+    half's third part: sparse gradients)."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
@@ -535,7 +535,8 @@ class Adam(Optimizer):
             raise NotImplementedError(
                 "Adam lazy_mode updates the rows of a sparse gradient; "
                 "sparse gradients (Embedding(sparse=True), SelectedRows) "
-                "are not ported yet (ROADMAP queue A, item 8, the nn half)")
+                "are not ported yet (ROADMAP queue A, item 8, third part: "
+                "sparse gradients)")
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
         self._amsgrad = bool(amsgrad)
 

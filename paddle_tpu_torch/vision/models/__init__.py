@@ -8,7 +8,7 @@ families: ViT (``vit_b_16``, ``vit_l_16``; multi-resolution through a
 resized position table) and the PP-YOLOE detector (``ppyoloe_crn_s``,
 ``ppyoloe_tiny``; its NMS is ``vision.ops``)."""
 
-from ._convert import vision_state_dict_from_jax
+from ._convert import state_dict_from_jax, vision_state_dict_from_jax
 from ._utils import ConvNormAct, make_divisible
 from .alexnet import AlexNet, alexnet
 from .densenet import (DenseNet, densenet121, densenet161, densenet169,
@@ -36,7 +36,8 @@ from .vgg import VGG, vgg11, vgg13, vgg16, vgg19
 from .vision_transformer import VisionTransformer, vit_b_16, vit_l_16
 
 __all__ = [
-    "vision_state_dict_from_jax", "ConvNormAct", "make_divisible",
+    "state_dict_from_jax", "vision_state_dict_from_jax", "ConvNormAct",
+    "make_divisible",
     "LeNet", "ResNet", "BasicBlock", "BottleneckBlock", "resnet18",
     "resnet34", "resnet50", "resnet101", "resnet152", "resnext50_32x4d",
     "resnext50_64x4d", "resnext101_32x4d", "resnext101_32x8d",

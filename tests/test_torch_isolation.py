@@ -65,7 +65,7 @@ def _port_sources():
                 yield os.path.join(root, f)
     for script in ("chip_smoke.py", "chip_ab.py", "chip_lmce_ablation.py",
                    "chip_fused_variants.py", "chip_profiler_lag.py",
-                   "chip_nms_ties.py"):
+                   "chip_nms_ties.py", "chip_conv_routes.py"):
         yield os.path.join(REPO, script)
 
 

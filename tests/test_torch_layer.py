@@ -273,7 +273,8 @@ def test_dropout_signature_matches_jax():
     """``F.dropout(x, p, axis, training, mode)`` positionally, as Paddle
     code calls it: both packages zero about ``p`` of the elements and
     scale the rest by ``1 / (1 - p)`` while training, pass ``x`` through
-    otherwise; the port refuses an ``axis`` or another ``mode``."""
+    otherwise; ``axis`` shares one draw along the other dims and
+    ``downscale_in_infer`` scales by ``1 - p`` outside training."""
     from paddle_tpu.nn import functional as JF
     from paddle_tpu_torch.nn import functional as TF
     x = np.random.default_rng(3).uniform(1.0, 2.0, (64, 64)).astype(
@@ -292,11 +293,25 @@ def test_dropout_signature_matches_jax():
             TF.dropout(torch.from_numpy(x), p, None, training).numpy(),
             np.asarray(JF.dropout(jpaddle.to_tensor(x), p, None,
                                   training).numpy()))
+    # axis: one draw along the dims not in axis; downscale_in_infer keeps
+    # the kept elements as they are and scales by 1 - p outside training
     for kw in (dict(axis=0), dict(mode="downscale_in_infer")):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            TF.dropout(torch.from_numpy(x), 0.5, **kw)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            tnn.Dropout(0.5, **kw)
+        jpaddle.seed(1)
+        outs = (np.asarray(JF.dropout(jpaddle.to_tensor(x), 0.25,
+                                      **kw).numpy()),
+                TF.dropout(torch.from_numpy(x), 0.25, **kw).numpy())
+        for out in outs:
+            kept = out != 0
+            scale = 1.0 if kw.get("mode") else 1 / 0.75
+            np.testing.assert_allclose(out[kept], x[kept] * scale,
+                                       rtol=1e-6)
+            if "axis" in kw:
+                assert (kept == kept[:, :1]).all()
+        layer = tnn.Dropout(0.25, **kw)
+        layer.eval()
+        want = x * 0.75 if kw.get("mode") else x
+        np.testing.assert_allclose(layer(torch.from_numpy(x)).numpy(),
+                                   want, rtol=1e-6)
     drop = tnn.Dropout(0.25, None, "upscale_in_train", "drop")
     drop.eval()
     assert torch.equal(drop(torch.from_numpy(x)), torch.from_numpy(x))
