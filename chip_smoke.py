@@ -579,6 +579,38 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
     max(|ref|, 1) on two draws of weights and clips, and the card's with
     its convolutions left in fp32 (the custom black list) must fail it
     on both;
+15y. ``[train widedeep]``: PaddleRec's Wide&Deep as
+    ``models/rank/wide_deep/config_bigdata.yaml`` sets it up
+    (:data:`WD_SOURCE`, :func:`slice21_models`): one
+    ``Embedding(1000001, 9, sparse=True)`` looked up once per slot in 26
+    slots, the wide ``Linear(13, 1)``, the deep MLP 247-512-256-128-32-1
+    with ReLU, sigmoid and ``binary_cross_entropy``, batch 512, Adam at
+    lr 0.001, on synthetic Criteo-shaped data from ``--seed``
+    (:func:`widedeep_data`), 50 steps each way: PaddleRec's eager loop
+    (``backward`` / ``step`` / ``clear_grad``) with ``Adam(lazy_mode=
+    True)`` and with ``lazy_mode=False`` (the sparse gradient densified),
+    ``Model.fit`` with ``prepare(jit=False)`` and ``Auc`` (its losses
+    equal to the lazy loop's) and captured (the lookup dense; its first
+    loss equal to the loop's).  Gates: finite, falling losses, every row
+    no step looked up bit-equal to its start, the two loops' second
+    losses equal.  Prints ms a step, the optimizer's ms, merges and
+    synchronising operations a step (``Tensor.coalesce`` counted, torch's
+    sync debug mode), the optimizer's least bytes (lazy against dense),
+    peak memory and each way's idle share over a profiled window;
+15z. ``[train widedeep parity]``: the full table in fp32, card against
+    the port on the CPU under the deterministic algorithms, three lazy
+    Adam steps with ``ClipGradByGlobalNorm``: every row never looked up
+    bit-equal to its start with moments exactly 0 (a planted control, one
+    such row moved by lr, must fail it), each leaf after step 1 within
+    ``WD_TIGHT`` x its scale on ``WD_SHARE`` of the elements and within
+    2 lr on all (Adam's first step is lr x sign(g)), each step's loss
+    within ``WD_LOSS_RTOL`` relative;
+15za. ``[train gpt o1]``: GPT-2-small (B=8, S=1024) with fp32 weights
+    through ``Model.fit`` with ``amp_configs`` O1 bfloat16, K=1 replays
+    (the tensor-core flash kernels, 12 launches a step each), then three
+    eager steps under ``custom_black_list={"flash_attention"}``: q, k, v
+    reach the flash kernels in fp32, so the CUDA-core bodies launch (no
+    ``.tc`` launch) and no plain version runs;
 16. ``[lmce tc]`` holds the tensor-core LMCE backward
     (``csrc/lmce_sm90.cu``, ``wgmma`` fed by TMA) against its plain
     versions (dL rounded to the operand dtype; each element within
@@ -643,6 +675,7 @@ import contextlib
 import dataclasses
 import importlib.util
 import json
+import math
 import os
 import subprocess
 import sys
@@ -10056,6 +10089,519 @@ def train_r2plus1d_parity_phase(torch, seed):
             "control_grad": c_gerr, "control": c_err}
 
 
+# ---------------------------------------------------------------------------
+# Slice 21: sparse-embedding training (PaddleRec Wide&Deep, lazy Adam) and
+# GPT-2-small under O1 with the custom lists
+# ---------------------------------------------------------------------------
+#: PaddleRec ``models/rank/wide_deep/config_bigdata.yaml`` (Cheng et al.
+#: 2016, arXiv:1606.07792): the Criteo shape at its published widths
+WD_SOURCE = ("PaddleRec models/rank/wide_deep/config_bigdata.yaml + net.py "
+             "(Cheng et al. 2016, arXiv:1606.07792): Criteo, 26 sparse "
+             "slots, 13 dense, Adam lr 0.001")
+WD = dict(sparse_feature_number=1000001, sparse_feature_dim=9,
+          dense_feature_dim=13, num_field=26, layer_sizes=(512, 256, 128, 32))
+WD_B, WD_LR, WD_STEPS, WD_CTR = 512, 0.001, 50, 0.25
+# [train widedeep parity]: the global-norm clip, and the step-1 gate on
+# each leaf (a share of elements within a tight bound of the leaf's scale)
+# and on each step's loss
+WD_CLIP, WD_TIGHT, WD_SHARE, WD_LOSS_RTOL = 0.1, 1e-6, 0.9999, 2e-5
+_SLICE21 = {}
+
+
+def slice21_models(nn, concat):
+    """PaddleRec's Wide&Deep (``models/rank/wide_deep/net.py``,
+    ``WideDeepLayer``) on the layers of ``nn`` (the port's on the card,
+    and in the CPU tests also the JAX package's, as
+    :func:`slice20_models` builds CycleGAN) with ``concat`` the
+    package's ``concat(tensors, axis)``: one ``Embedding(sparse=True)``
+    table looked up once per slot, the wide ``Linear(dense, 1)``, the
+    deep MLP (Linear and ReLU per ``layer_sizes``, then Linear to 1) on
+    the slots' embeddings and the dense features, and the sigmoid of
+    their sum.  The table draws from ``Uniform(-1, 1)``, the wide part
+    from ``TruncatedNormal(0, 1/sqrt(dense))``, each MLP layer from
+    ``Normal(0, 1/sqrt(fan_in))``, as ``net.py`` does, through
+    ``ParamAttr``.  ``padding_idx`` (not in PaddleRec) lets the tests
+    put a padding row in the table."""
+    if nn.__name__ in _SLICE21:
+        return _SLICE21[nn.__name__]
+    init = nn.initializer
+
+    class WideDeep(nn.Layer):
+        def __init__(self, sparse_feature_number, sparse_feature_dim,
+                     dense_feature_dim, num_field, layer_sizes,
+                     padding_idx=None, sparse=True, **kw):
+            super().__init__()
+            self.num_field = num_field
+            self.wide_part = nn.Linear(
+                dense_feature_dim, 1, weight_attr=nn.ParamAttr(
+                    initializer=init.TruncatedNormal(
+                        0.0, 1.0 / math.sqrt(dense_feature_dim))), **kw)
+            self.embedding = nn.Embedding(
+                sparse_feature_number, sparse_feature_dim, padding_idx,
+                sparse, weight_attr=nn.ParamAttr(
+                    name="SparseFeatFactors", initializer=init.Uniform()),
+                **kw)
+            sizes = ([sparse_feature_dim * num_field + dense_feature_dim]
+                     + list(layer_sizes) + [1])
+            layers = []
+            for i in range(len(sizes) - 1):
+                layers.append(nn.Linear(
+                    sizes[i], sizes[i + 1], weight_attr=nn.ParamAttr(
+                        initializer=init.Normal(
+                            0.0, 1.0 / math.sqrt(sizes[i]))), **kw))
+                if i < len(sizes) - 2:
+                    layers.append(nn.ReLU())
+            self.mlp = nn.Sequential(*layers)
+
+        def forward(self, sparse_ids, dense):
+            """``sparse_ids`` ``[B, num_field]`` int64, ``dense`` ``[B,
+            dense]``: the click probability ``[B, 1]``."""
+            embs = [self.embedding(sparse_ids[:, k])
+                    for k in range(self.num_field)]
+            deep = self.mlp(concat(embs + [dense], 1))
+            return nn.functional.sigmoid(self.wide_part(dense) + deep)
+
+    out = dict(WideDeep=WideDeep)
+    _SLICE21[nn.__name__] = out
+    return out
+
+
+def widedeep_data(seed, steps, b=WD_B, rows=WD["sparse_feature_number"],
+                  fields=WD["num_field"], dense=WD["dense_feature_dim"],
+                  ctr=WD_CTR):
+    """``steps`` batches of synthetic Criteo-shaped data from ``seed``, as
+    numpy arrays: ids from a Zipf-like draw over the ``rows`` hash
+    buckets (rank ``floor(rows ** u)`` for uniform ``u``, a
+    power law; each slot its own offset into the shared table), dense
+    features in [0, 1) and Bernoulli(``ctr``) labels ``[b, 1]``
+    (fp32), about Criteo's click rate."""
+    rng = np.random.default_rng(seed)
+    offs = rng.integers(0, rows, (1, fields))
+    out = []
+    for _ in range(steps):
+        rank = np.floor(rows ** rng.random((b, fields))).astype(np.int64)
+        ids = (rank - 1 + offs) % rows
+        out.append((ids, rng.random((b, dense), dtype=np.float32),
+                    (rng.random((b, 1)) < ctr).astype(np.float32)))
+    return out
+
+
+def _wd_model(torch, seed, dev, sparse=True):
+    """Wide&Deep (:data:`WD`) on ``dev`` from ``seed``."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.ops import manipulation as M
+    paddle.seed(seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return slice21_models(nn, M.concat)["WideDeep"](
+        sparse=sparse, device=dev, generator=gen, **WD)
+
+
+def _wd_batches(torch, data, dev):
+    """The numpy batches as ``dev`` tensors, staged once (set-up)."""
+    return [tuple(torch.from_numpy(a).to(dev) for a in b) for b in data]
+
+
+def _wd_group(name):
+    low = name.lower()
+    if "embedding" in low or "indexselect" in low or "index_select" in low:
+        return "embedding lookup"
+    if any(t in low for t in ("sort", "unique", "coalesce", "scan",
+                              "radix", "segment", "reduce_by_key")):
+        return "sparse merge (sort, unique, sum)"
+    if "index" in low or "scatter" in low or "gather" in low:
+        return "row updates (index ops)"
+    return _kernel_group(name)
+
+
+@contextlib.contextmanager
+def _wd_counters(torch):
+    """Counts ``Tensor.coalesce`` calls (each reads a row count on the
+    host) and the synchronising operations torch's sync debug mode
+    reports, while the block runs."""
+    import warnings
+    counts = {"coalesce": 0, "sync_warnings": 0, "sync_ops": set()}
+    real = torch.Tensor.coalesce
+
+    def coalesce(self):
+        counts["coalesce"] += 1
+        return real(self)
+
+    torch.Tensor.coalesce = coalesce
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield counts
+        syncs = [str(w.message) for w in caught
+                 if "synchroniz" in str(w.message)]
+        counts["sync_warnings"] = len(syncs)
+        counts["sync_ops"] = {m.split("\n")[0][:120] for m in syncs}
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        torch.Tensor.coalesce = real
+
+
+def _wd_eager(torch, net, opt, batches):
+    """PaddleRec's dygraph loop (``backward`` / ``step`` /
+    ``clear_grad``) over ``batches``: (losses, step ms, optimizer ms);
+    the losses are read once at the end."""
+    from paddle_tpu_torch.nn import functional as F
+    losses, ms, opt_ms = [], [], []
+    for ids, dense, y in batches:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        loss = F.binary_cross_entropy(net(ids, dense), y)
+        loss.backward()
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        t2 = time.monotonic()
+        ms.append((t2 - t0) * 1e3)
+        opt_ms.append((t2 - t1) * 1e3)
+        losses.append(loss.detach())
+    return ([float(v) for v in torch.stack(losses).cpu()], ms, opt_ms)
+
+
+def train_widedeep_phase(torch, seed):
+    """``[train widedeep]`` (module docstring, 15y)."""
+    import gc
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.metric import Auc
+    tag = "train widedeep"
+    card = card_line()
+    gc.collect()
+    torch.cuda.empty_cache()
+    data = widedeep_data(seed + 2100, WD_STEPS)
+    batches = _wd_batches(torch, data, "cuda")
+    rows = WD["sparse_feature_number"]
+    dim = WD["sparse_feature_dim"]
+    touched = [len(np.unique(b[0])) for b in data]
+    seen = np.unique(np.concatenate([b[0].ravel() for b in data]))
+    print(f"[{tag}] {WD_SOURCE}: sparse_feature_number {rows}, "
+          f"sparse_feature_dim {dim}, {WD['num_field']} slots, "
+          f"dense_input_dim {WD['dense_feature_dim']}, fc_sizes "
+          f"{list(WD['layer_sizes'])}, batch {WD_B}, Adam lr {WD_LR}; "
+          f"loss sigmoid + binary_cross_entropy (PaddleRec's log_loss is "
+          f"not in the JAX package); synthetic data from --seed: ids a "
+          f"Zipf-like draw over the buckets, dense in [0, 1), labels "
+          f"Bernoulli({WD_CTR}); {WD_STEPS} steps a way; distinct rows "
+          f"touched a step: median {int(np.median(touched))} of "
+          f"{WD_B * WD['num_field']} lookups, {len(seen)} over the run",
+          flush=True)
+    out = {"touched": float(np.median(touched)), "ways": {}}
+    untouched = torch.ones(rows, dtype=torch.bool, device="cuda")
+    untouched[torch.from_numpy(seen).cuda()] = False
+    for lazy in (True, False):
+        way = "eager lazy Adam" if lazy else "eager dense Adam"
+        net = _wd_model(torch, seed, "cuda")
+        w0 = net.embedding.weight.detach().clone()
+        opt = paddle.optimizer.Adam(WD_LR, parameters=net.parameters(),
+                                    lazy_mode=lazy)
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms, opt_ms = _wd_eager(torch, net, opt, batches)
+        peak = torch.cuda.max_memory_allocated()
+        check(all(np.isfinite(losses)), f"[{tag}] {way}: a loss is not "
+              f"finite: {losses}")
+        check(np.mean(losses[-10:]) < np.mean(losses[:5]),
+              f"[{tag}] {way}: the loss did not fall: {losses}")
+        w = net.embedding.weight.detach()
+        check(torch.equal(w[untouched], w0[untouched]),
+              f"[{tag}] {way}: a row no step looked up moved")
+        with _wd_counters(torch) as counts:
+            _wd_eager(torch, net, opt, batches[:5])
+        prof = profile_run(torch, tag, way,
+                           lambda: _wd_eager(torch, net, opt, batches[:5]),
+                           5, group=_wd_group)
+        step_ms = float(np.median(ms[2:]))
+        res = {"losses": losses, "step_ms": step_ms,
+               "opt_ms": float(np.median(opt_ms[2:])), "peak": peak,
+               "coalesce_a_step": counts["coalesce"] / 5,
+               "syncs_a_step": counts["sync_warnings"] / 5,
+               "sync_ops": sorted(counts["sync_ops"]),
+               "idle": prof["idle"], "busy_ms": prof["busy_ms"],
+               "groups_ms": prof["groups_ms"]}
+        out["ways"][way] = res
+        print(f"[{tag}] {way}: step_ms first={ms[0]:.3f} median(steps 3+)="
+              f"{step_ms:.3f} -> {WD_B / (step_ms * 1e-3):.1f} samples/s; "
+              f"optimizer step + clear_grad {res['opt_ms']:.3f} ms; merges "
+              f"(coalesce) a step {res['coalesce_a_step']}, synchronising "
+              f"ops a step (sync debug mode, a prototype that reports "
+              f"what it detects) {res['syncs_a_step']} {res['sync_ops']}; "
+              f"peak_mem_gib {peak / 2**30:.3f}; losses first "
+              f"{losses[0]:.6f} last {losses[-1]:.6f}; card {card}",
+              flush=True)
+        del net, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    lazy, dense = (out["ways"][w] for w in ("eager lazy Adam",
+                                           "eager dense Adam"))
+    # step 1 of lazy and dense Adam moves the same rows by the same rule
+    # (every moment starts at 0): the second losses agree
+    check(abs(lazy["losses"][1] - dense["losses"][1])
+          <= 1e-6 * abs(dense["losses"][1]),
+          f"[{tag}] step 2 losses lazy {lazy['losses'][1]} vs dense "
+          f"{dense['losses'][1]}")
+    # the optimizer's least bytes a step: read w, m1, m2 and the gradient,
+    # write w, m1, m2, over the touched rows (lazy) or the table (dense)
+    out["lazy_opt_bytes"] = 7 * 4 * dim * out["touched"]
+    out["dense_opt_bytes"] = 7 * 4 * dim * rows
+    # Model.fit, eager (jit=False: sparse, lazy) with Auc, and captured
+    for jit in (False, True):
+        way = "fit captured" if jit else "fit jit=False"
+        net = _wd_model(torch, seed, "cuda")
+        opt = paddle.optimizer.Adam(WD_LR, parameters=net.parameters(),
+                                    lazy_mode=True)
+        model = paddle.Model(net, device="cuda")
+        auc = Auc()
+        model.prepare(opt, nn.BCELoss(), auc, jit=jit)
+        clock = _step_clock(torch)
+        torch.cuda.reset_peak_memory_stats()
+        model.fit(batches, epochs=1, verbose=0, callbacks=[clock])
+        peak = torch.cuda.max_memory_allocated()
+        losses = clock.losses
+        check(len(losses) == WD_STEPS and all(np.isfinite(losses)),
+              f"[{tag}] {way}: losses {losses}")
+        value = float(auc.accumulate())
+        check(0.0 <= value <= 1.0, f"[{tag}] {way}: Auc {value}")
+        if jit:
+            check(model.compile_stats()["captures"] == 1,
+                  f"[{tag}] {way}: {model.compile_stats()}")
+            check(abs(losses[0] - lazy["losses"][0])
+                  <= 1e-6 * abs(lazy["losses"][0]),
+                  f"[{tag}] {way}: first loss {losses[0]} vs the eager "
+                  f"loop's {lazy['losses'][0]}")
+        else:
+            check(np.allclose(losses, lazy["losses"], rtol=1e-6, atol=0),
+                  f"[{tag}] {way}: losses {losses} vs the eager lazy "
+                  f"loop's {lazy['losses']}")
+        step_ms = float(np.median(np.diff(clock.stamps)[2:] * 1e3))
+        steps = 5
+        prof = profile_run(
+            torch, tag, way, lambda: model.fit(
+                batches[:steps], epochs=1, verbose=0), steps,
+            group=_wd_group)
+        out["ways"][way] = {"losses": losses, "step_ms": step_ms,
+                            "peak": peak, "auc": value,
+                            "idle": prof["idle"], "busy_ms": prof["busy_ms"],
+                            "groups_ms": prof["groups_ms"]}
+        print(f"[{tag}] {way}: step_ms median(steps 3+)={step_ms:.3f} -> "
+              f"{WD_B / (step_ms * 1e-3):.1f} samples/s; Auc {value:.4f}; "
+              f"peak_mem_gib {peak / 2**30:.3f}; losses first "
+              f"{losses[0]:.6f} last {losses[-1]:.6f}; card {card}",
+              flush=True)
+        model.release_graphs()
+        del model, net, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[{tag}] optimizer least bytes a step (the table): lazy "
+          f"{out['lazy_opt_bytes'] / 2**20:.3f} MiB, dense "
+          f"{out['dense_opt_bytes'] / 2**20:.3f} MiB; card {card}",
+          flush=True)
+    return out
+
+
+def _wd_untouched_gate(torch, w, w0, st, untouched):
+    """Every untouched row bit-equal to its initial value and its
+    moments exactly 0: the list of failures."""
+    bad = []
+    if not torch.equal(w[untouched], w0[untouched]):
+        bad.append("an untouched row moved")
+    for k in ("moment1", "moment2"):
+        if bool(st[k][untouched].any()):
+            bad.append(f"an untouched row's {k} is not 0")
+    return bad
+
+
+def train_widedeep_parity_phase(torch, seed):
+    """``[train widedeep parity]`` (module docstring, 15z)."""
+    import gc
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+    tag = "train widedeep parity"
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps = 3
+    data = widedeep_data(seed + 2200, steps)
+    runs = {}
+    with deterministic_algorithms(torch) as caught:
+        for dev in ("cuda", "cpu"):
+            net = _wd_model(torch, seed, "cuda")
+            if dev == "cpu":
+                net = net.to("cpu")
+            w0 = net.embedding.weight.detach().clone()
+            opt = paddle.optimizer.Adam(
+                WD_LR, parameters=net.parameters(), lazy_mode=True,
+                grad_clip=nn.ClipGradByGlobalNorm(WD_CLIP))
+            losses, states = [], []
+            for ids, dense, y in _wd_batches(torch, data, dev):
+                loss = F.binary_cross_entropy(net(ids, dense), y)
+                loss.backward()
+                if not states:
+                    norm = float(nn.ClipGradByGlobalNorm(1.0).global_norm(
+                        [p.grad.coalesce().values() if p.grad.is_sparse
+                         else p.grad for p in net.parameters()]))
+                opt.step()
+                opt.clear_grad()
+                losses.append(float(loss))
+                states.append({k: v.detach().cpu().clone() for k, v in
+                               net.state_dict().items()})
+            st = opt._state[[id(p) for p in opt.parameters()].index(
+                id(net.embedding.weight))]
+            runs[dev] = {"losses": losses, "states": states, "w0": w0.cpu(),
+                         "st": {k: st[k].cpu() for k in ("moment1",
+                                                         "moment2")},
+                         "norm": norm}
+            del net, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    card, cpu = runs["cuda"], runs["cpu"]
+    seen = np.unique(np.concatenate([b[0].ravel() for b in data]))
+    untouched = torch.ones(WD["sparse_feature_number"], dtype=torch.bool)
+    untouched[torch.from_numpy(seen)] = False
+    w_end = card["states"][-1]["embedding.weight"]
+    bad = _wd_untouched_gate(torch, w_end, card["w0"], card["st"], untouched)
+    check(not bad, f"[{tag}] {bad}")
+    check(torch.equal(card["w0"], cpu["w0"]), f"[{tag}] the initial tables "
+          "differ")
+    # the planted control: one untouched row moved by a lazy step's size
+    row = int(torch.nonzero(untouched)[7])
+    planted = w_end.clone()
+    planted[row] -= WD_LR
+    check(_wd_untouched_gate(torch, planted, card["w0"], card["st"],
+                             untouched),
+          f"[{tag}] the control (row {row} moved by lr) passed the gate")
+    # step 1, every leaf: nearly every element within WD_TIGHT of the
+    # leaf's scale, all within 2 lr (Adam's first step is lr x sign(g):
+    # a gradient at rounding level may take the other sign)
+    worst = {}
+    for k, ref in cpu["states"][0].items():
+        got = card["states"][0][k]
+        if k == "embedding.weight":
+            sel = ~untouched
+            got, ref = got[sel], ref[sel]
+        diff = (got.double() - ref.double()).abs()
+        scale = max(float(ref.abs().max()), 1.0)
+        share = float((diff <= WD_TIGHT * scale).double().mean())
+        worst[k] = (float(diff.max()), share)
+        check(float(diff.max()) <= 2 * WD_LR + WD_TIGHT * scale
+              and share >= WD_SHARE,
+              f"[{tag}] step 1 {k}: max |card - cpu| {float(diff.max())}, "
+              f"share within {WD_TIGHT} x scale {share}")
+    for i, (a, b) in enumerate(zip(card["losses"], cpu["losses"])):
+        check(abs(a - b) <= WD_LOSS_RTOL * abs(b),
+              f"[{tag}] step {i + 1} loss card {a} vs cpu {b}")
+    w = max(worst, key=lambda k: worst[k][0])
+    print(f"[{tag}] fp32, the full table ({WD['sparse_feature_number']} x "
+          f"{WD['sparse_feature_dim']}), card vs the port on the CPU under "
+          f"the deterministic algorithms ({len(caught)} warnings), {steps} "
+          f"lazy Adam steps with ClipGradByGlobalNorm({WD_CLIP}) (step-1 "
+          f"global norm card {card['norm']:.6f} cpu {cpu['norm']:.6f}): "
+          f"{int(untouched.sum())} untouched rows bit-equal with moments "
+          f"0; step-1 leaves: largest |diff| {worst[w][0]:.3e} ({w}), "
+          f"smallest share within {WD_TIGHT} "
+          f"{min(v[1] for v in worst.values()):.6f}; losses card "
+          f"{card['losses']} cpu {cpu['losses']}; the planted control "
+          f"(row {row} moved) fails the untouched gate", flush=True)
+    return {"losses": card["losses"], "cpu_losses": cpu["losses"],
+            "worst": worst}
+
+
+def train_gpt_o1_phase(torch, seed):
+    """``[train gpt o1]`` (module docstring, 15za)."""
+    import gc
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import GPTPretrainingCriterion, gpt2_small
+    from paddle_tpu_torch.ops import flash_attention_kernel as fk
+    from paddle_tpu_torch.ops import lmce_kernel as lk
+    tag = "train gpt o1"
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = gpt2_small(hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0)
+    net, opt = _train_model(torch, cfg, "cuda", seed, o2=False)
+    crit = GPTPretrainingCriterion()
+    model = paddle.Model(net, device="cuda")
+    model.prepare(opt, crit, amp_configs={"level": "O1",
+                                          "dtype": "bfloat16"})
+    rng = np.random.default_rng(seed + 2300)
+    x = rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S)).astype(np.int64)
+    batch = (torch.from_numpy(x).cuda(),
+             torch.from_numpy(np.roll(x, -1, axis=1)).cuda())
+    L = cfg.num_hidden_layers
+    clock = _step_clock(torch)
+    torch.cuda.reset_peak_memory_stats()
+    fk.reset_counts()
+    lk.reset_counts()
+    model.fit([batch] * TRAIN_STEPS, epochs=1, verbose=0, callbacks=[clock])
+    launches = launch_table(fk, lk)
+    plain = {f.__name__: f.plain_calls for f in fk.ALL_WRAPPERS + lk.WRAPPERS}
+    peak = torch.cuda.max_memory_allocated()
+    losses = clock.losses
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"[{tag}] losses {losses}")
+    want = _want_launches(TRAIN_STEPS * L)
+    check(launches == want, f"[{tag}] launches {launches}, expected {want}")
+    check(not any(plain.values()), f"[{tag}] plain calls {plain}")
+    check({p.dtype for p in net.parameters()} == {torch.float32},
+          f"[{tag}] the weights are not fp32")
+    check(model.compile_stats() == {"graphs": 1, "captures": 1},
+          f"[{tag}] {model.compile_stats()}")
+    step_ms = float(np.median(np.diff(clock.stamps)[2:] * 1e3))
+    model.release_graphs()
+    # the user's eager step with flash attention on the custom black
+    # list: fp32 q, k, v, so the CUDA-core kernels
+    black_ms, black_losses = [], []
+    fk.reset_counts()
+    lk.reset_counts()
+    n_black = 3
+    for _ in range(n_black):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        with paddle.amp.auto_cast(level="O1", dtype="bfloat16",
+                                  custom_black_list={"flash_attention"}):
+            logits = net(batch[0])
+        loss = crit(logits, batch[1])
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        black_ms.append((time.monotonic() - t0) * 1e3)
+        black_losses.append(float(loss))
+    black = launch_table(fk, lk)
+    plain = {f.__name__: f.plain_calls for f in fk.ALL_WRAPPERS + lk.WRAPPERS}
+    check(all(np.isfinite(black_losses)), f"[{tag}] black list losses "
+          f"{black_losses}")
+    want = _want_launches(n_black * L)
+    want.update({f"{f.__name__}.tc": 0 for f in fk.TC_WRAPPERS})
+    check(black == want, f"[{tag}] black list launches {black}, expected "
+          f"{want}")
+    check(not any(plain.values()), f"[{tag}] plain calls {plain}")
+    print(f"[{tag}] GPT-2-small L=12 D=768 H=12 V=50304 B={TRAIN_B} "
+          f"S={TRAIN_S}, fp32 weights, Model.fit with amp_configs O1 "
+          f"bfloat16, AdamW: {TRAIN_STEPS} steps (K=1 replays), losses "
+          f"{[round(v, 6) for v in losses]}; step_ms median(steps 3+)="
+          f"{step_ms:.3f} -> {TRAIN_B * TRAIN_S / (step_ms * 1e-3):.1f} "
+          f"tokens/s; peak_mem_gib {peak / 2**30:.3f}; launches {launches}; "
+          f"then {n_black} eager steps under custom_black_list="
+          f"{{'flash_attention'}}: step_ms {[round(v, 3) for v in black_ms]},"
+          f" losses {[round(v, 6) for v in black_losses]}, launches "
+          f"{black}; card {card_line()}", flush=True)
+    del model, net, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "black_launches": black,
+            "step_ms": step_ms, "black_ms": black_ms, "peak": peak}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -10160,6 +10706,9 @@ def main(argv=None) -> int:
     train_cyclegan_parity_phase(torch, args.seed)
     train_r2plus1d_phase(torch, args.seed)
     train_r2plus1d_parity_phase(torch, args.seed)
+    train_widedeep_phase(torch, args.seed)
+    train_widedeep_parity_phase(torch, args.seed)
+    o1 = train_gpt_o1_phase(torch, args.seed)
 
     k32, k16 = kres["fp32"], kres["bf16"]
     kernels = [{
@@ -10431,6 +10980,10 @@ def main(argv=None) -> int:
             fp16 = escaler[SCALER_INITS[0]]["launches"]
             entry["ernie_fp16_scaler_launches"] = fp16[name]
             entry["ernie_fp16_scaler_tc_launches"] = fp16[f"{name}.tc"]
+            entry["gpt_o1_launches"] = o1["launches"][name]
+            entry["gpt_o1_tc_launches"] = o1["launches"][f"{name}.tc"]
+            entry["gpt_o1_black_list_cuda_core_launches"] = \
+                o1["black_launches"][name]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -62,7 +62,7 @@ __all__ = ["resolve_device", "Model", "seed", "LazyGuard", "amp",
            "optimizer",
            "regularizer", "nn",
            "io", "vision", "metric", "callbacks", "save", "load",
-           "summary", "flops"]
+           "summary", "flops", "SelectedRows"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -82,9 +82,11 @@ def resolve_device(device=None) -> torch.device:
 
 
 # submodules import resolve_device, so they load after it is defined
-from . import amp, io, metric, nn, optimizer, regularizer, vision  # noqa: E402
+from . import (amp, callbacks, io, metric, nn, optimizer,  # noqa: E402
+               regularizer, vision)
 from .framework.io import load, save  # noqa: E402
 from .framework.random import seed  # noqa: E402
-from .hapi import Model, callbacks  # noqa: E402
+from .framework.selected_rows import SelectedRows  # noqa: E402
+from .hapi import Model  # noqa: E402
 from .hapi.summary import flops, summary  # noqa: E402
 from .nn.layer import LazyGuard  # noqa: E402

@@ -4,9 +4,11 @@
 ``debugging``."""
 
 from . import debugging
-from .auto_cast import amp_state, auto_cast, black_list, white_list
-from .decorate import decorate
+from .auto_cast import (amp_guard, amp_state, auto_cast, autocast,
+                        black_list, white_list)
+from .decorate import amp_decorate, decorate
 from .grad_scaler import AmpScaler, GradScaler
 
-__all__ = ["auto_cast", "amp_state", "decorate", "white_list",
-           "black_list", "GradScaler", "AmpScaler", "debugging"]
+__all__ = ["auto_cast", "autocast", "amp_guard", "amp_state", "decorate",
+           "amp_decorate", "white_list", "black_list", "GradScaler",
+           "AmpScaler", "debugging"]

@@ -115,3 +115,8 @@ def auto_cast(enable: bool = True, custom_white_list=None,
     finally:
         _amp_state.clear()
         _amp_state.update(prev)
+
+
+# Paddle's other names of the context
+autocast = auto_cast
+amp_guard = auto_cast

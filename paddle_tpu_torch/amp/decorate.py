@@ -57,3 +57,5 @@ def decorate(models, optimizers=None, level="O1", dtype="float16",
         return models if single_model else model_list
     return (models if single_model else model_list), optimizers
 
+
+amp_decorate = decorate

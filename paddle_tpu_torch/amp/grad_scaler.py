@@ -21,9 +21,10 @@ does not call ``optimizer.step()`` at all: no moment, beta power, master,
 step count or ``_global_step`` moves.  ``update`` then halves the scale
 (``decr_ratio``, at most down to 1) after ``decr_every_n_nan_or_inf``
 bad steps, and doubles it (``incr_ratio``) after
-``incr_every_n_steps`` good ones.  Dense gradients only: sparse ones
-(``SelectedRows``) go with ``Embedding(sparse=True)``, ROADMAP queue
-A, item 8 (third part: sparse gradients).
+``incr_every_n_steps`` good ones.  A sparse row gradient
+(``Embedding(sparse=True)``) is unscaled and checked in its values, as
+the JAX scaler's ``SelectedRows`` branch does; a skipped step moves no
+row and no moment.
 """
 
 from __future__ import annotations
@@ -74,8 +75,11 @@ class GradScaler:
         self._unscaled = True
         by_device: Dict[torch.device, list] = {}
         for p in optimizer._parameter_list:
-            if p.grad is not None:
-                by_device.setdefault(p.grad.device, []).append(p.grad)
+            g = p.grad
+            if g is not None:
+                # a sparse gradient's values, in place (an alias)
+                by_device.setdefault(g.device, []).append(
+                    g._values() if g.is_sparse else g)
         found = []
         for device, grads in by_device.items():
             flag = torch.zeros(1, dtype=torch.float32, device=device)

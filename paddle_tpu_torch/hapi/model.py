@@ -88,6 +88,7 @@ from ..framework.dispatch import (AutoFoldTuner, GroupDispatcher,
                                   build_folded_step)
 from ..framework.io import load as _load, save as _save
 from ..framework.lazy import LazyScalar, LazyStack
+from ..framework.selected_rows import dense_lookups
 from ..io import DataLoader, Dataset
 from ..io.staging import as_tensor, stack_to_device, to_device_values
 from ..metric import Metric
@@ -265,8 +266,12 @@ class Model:
         engine captures: forward, loss, the metric stats, backward, the
         zero gradients, the update (reading the optimizer's
         learning-rate scalar as it stands) and ``clear_grad``.  Returns
-        the loss (fp32, 0-d) and the stats (and the outputs)."""
-        loss, outs = self._forward_loss(ins, lbs)
+        the loss (fp32, 0-d) and the stats (and the outputs).  Under
+        ``prepare(jit=True)`` (the JAX package compiles that step) a
+        ``sparse=True`` lookup gives a dense gradient, as under the JAX
+        trace; with ``jit=False`` it gives the sparse one."""
+        with dense_lookups() if self._use_jit else contextlib.nullcontext():
+            loss, outs = self._forward_loss(ins, lbs)
         stats = self._batch_stats(outs, lbs)
         loss.backward()
         self._zero_missing_grads()

@@ -35,6 +35,7 @@ from ..framework import random as _random
 from ..nn.functional import cross_entropy, flash_attention
 from ..nn.layer import Layer
 from ..nn.param_attr import Parameter
+from ..ops import activation as _activation
 from ..ops.nn_ops import scaled_dot_product_attention
 
 
@@ -73,9 +74,10 @@ def ernie_3_base(**kw):
     return BertConfig(**{"vocab_size": 40000, **kw})
 
 
-_ACTS = {"gelu": torch.nn.functional.gelu,      # exact erf, as ops.gelu
-         "relu": torch.nn.functional.relu,
-         "tanh": torch.tanh}
+# the port's rule-reading activations, as the JAX layer takes
+# ``getattr(ops, hidden_act)`` (gelu: the exact erf form)
+_ACTS = {"gelu": _activation.gelu, "relu": _activation.relu,
+         "tanh": _activation.tanh}
 
 
 def _act(name):
@@ -236,7 +238,7 @@ class BertForPretraining(Layer):
                 attention_mask=None):
         seq, pooled = self.bert(input_ids, token_type_ids, position_ids,
                                 attention_mask)
-        h = self.transform_ln(torch.nn.functional.gelu(self.transform(seq)))
+        h = self.transform_ln(_activation.gelu(self.transform(seq)))
         # the tied head as the JAX package's matmul and add take their
         # inputs under auto_cast (no change outside it)
         h, w = cast_inputs("matmul", h,

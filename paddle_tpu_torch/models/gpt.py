@@ -23,9 +23,11 @@ from torch import nn as tnn
 
 from .. import resolve_device
 from .. import nn
+from ..amp.auto_cast import cast_inputs
 from ..framework import random as _random
 from ..nn.functional import cross_entropy, flash_attention
 from ..nn.layer import Layer
+from ..ops import activation as _activation
 from ..ops.flash_attention_kernel import flash_attention_reference
 from ..ops.lmce_kernel import fused_linear_cross_entropy
 
@@ -178,8 +180,7 @@ class GPTMLP(Layer):
                              **kw)
 
     def forward(self, x):
-        return self.fc2(torch.nn.functional.gelu(self.fc1(x),
-                                                 approximate="tanh"))
+        return self.fc2(_activation.gelu(self.fc1(x), approximate=True))
 
 
 class GPTDecoderLayer(Layer):
@@ -254,7 +255,9 @@ class GPTForCausalLM(Layer):
         hidden = self.gpt(input_ids, position_ids)
         if self.skip_lm_head:
             return hidden
-        return torch.matmul(hidden, self.lm_weight().t())
+        # the JAX head is ``ops.matmul``, which auto_cast casts
+        hidden, w = cast_inputs("matmul", hidden, self.lm_weight())
+        return torch.matmul(hidden, w.t())
 
 
 class GPTPretrainingCriterion(Layer):

@@ -12,6 +12,12 @@ Each clip has two forms, as in the JAX package:
   is device ops only, with every scalar a 0-d tensor on the gradients'
   device, so it reads nothing on the host and a CUDA graph replays it.
 
+A sparse row gradient (``Embedding(sparse=True)``) is merged first in
+every clip, and the clip acts on its values: ``ClipGradByGlobalNorm``
+and ``ClipGradByNorm`` take the norms of the merged values (duplicate
+rows summed before they are squared), as the JAX clips do; the dense
+gradients' clip is unchanged (``_on_values``).
+
 ``ClipGradByGlobalNorm`` sums every gradient's fp32 squares
 (``torch._foreach_norm`` in fp32, then the norm of the norms), scales
 by ``clip_norm / max(norm, clip_norm)`` and multiplies each gradient
@@ -25,6 +31,8 @@ from typing import List
 
 import torch
 
+from ..framework.selected_rows import merge_rows
+
 _aten = torch.ops.aten
 
 
@@ -33,8 +41,24 @@ def _map(grads, fn):
     structure."""
     if isinstance(grads, dict):
         names = list(grads)
-        return dict(zip(names, fn([grads[n] for n in names])))
-    return fn(list(grads))
+        return dict(zip(names, _on_values(fn, [grads[n] for n in names])))
+    return _on_values(fn, list(grads))
+
+
+def _on_values(fn, grads):
+    """``fn`` over ``grads`` with each sparse row gradient merged first
+    (duplicate rows summed: ``framework/selected_rows.py``) and given as
+    its values, then rebuilt around the clipped values, as the JAX clips
+    take a ``SelectedRows``: the norms are the merged values' norms.
+    Without a sparse gradient, ``fn(grads)`` itself."""
+    if not any(g.is_sparse for g in grads):
+        return fn(grads)
+    merged = [merge_rows(g) if g.is_sparse else None for g in grads]
+    out = fn([g if m is None else m.values()
+              for g, m in zip(grads, merged)])
+    return [o if m is None else torch.sparse_coo_tensor(
+        m.indices(), o, m.shape, check_invariants=False, is_coalesced=True)
+        for o, m in zip(out, merged)]
 
 
 def _scale_in_fp32(grads: List[torch.Tensor], scale) -> List[torch.Tensor]:

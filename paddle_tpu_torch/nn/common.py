@@ -54,7 +54,8 @@ class Linear(Layer):
                 (in_features, out_features), weight_attr, I.XavierNormal(),
                 device, generator)
         self.bias = None if bias_attr is False else I.make_parameter(
-            (out_features,), bias_attr, I.Constant(0.0), device, generator)
+            (out_features,), bias_attr, I.Constant(0.0), device, generator,
+            is_bias=True)
 
     def forward(self, x):
         return nn_ops.linear(x, self.weight, self.bias)
@@ -65,21 +66,19 @@ class Embedding(Layer):
     embedding_dim, padding_idx=None, sparse=False, weight_attr=None``):
     the table from Normal(0, 1), or ``weight_attr``'s initializer; a
     negative ``padding_idx`` counts from the end; that row starts at 0
-    and the output is 0 wherever the id is ``padding_idx``, so the row
-    gets no gradient, as the JAX layer's lookup does.  The models' own
-    initialisation passes ``init_std``: the table from Normal(0,
-    ``init_std``) instead."""
+    and the output is 0 wherever the id is ``padding_idx``, so the row's
+    gradient is 0, as the JAX layer's lookup does.  ``sparse=True``
+    gives the table a sparse row gradient, eagerly and in a ``Model``
+    prepared with ``jit=False`` (``ops/nn_ops.py::embedding``).  The
+    models' own initialisation passes ``init_std``: the table from
+    Normal(0, ``init_std``) instead."""
 
     def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
                  sparse=False, weight_attr=None, name=None, *, init_std=None,
                  device=None, generator=None):
         super().__init__()
-        if sparse:
-            raise NotImplementedError(
-                "Embedding(sparse=True) (SelectedRows gradients) is not "
-                "ported yet (ROADMAP queue A, item 8, third part: sparse "
-                "gradients)")
         device = resolve_device(device)
+        self._sparse = bool(sparse)
         if padding_idx is not None and padding_idx < 0:
             padding_idx += num_embeddings
         self._num_embeddings = num_embeddings
@@ -97,11 +96,8 @@ class Embedding(Layer):
                 self.weight[padding_idx] = 0.0
 
     def forward(self, ids):
-        out = torch.nn.functional.embedding(ids, self.weight)
-        if self._padding_idx is not None:
-            out = out.masked_fill((ids == self._padding_idx).unsqueeze(-1),
-                                  0.0)
-        return out
+        return nn_ops.embedding(ids, self.weight, self._padding_idx,
+                                self._sparse)
 
     def extra_repr(self):
         return f"{self._num_embeddings}, {self._embedding_dim}"
@@ -228,13 +224,16 @@ class ZeroPad2D(_Pad):
 
 
 class Upsample(Layer):
-    """``ops/nn_ops.py::interpolate`` with fixed arguments (it ignores
-    ``align_corners`` and ``align_mode``, as the JAX function does)."""
+    """``ops/nn_ops.py::interpolate`` with fixed arguments;
+    ``align_corners=True`` and a linear mode's ``align_mode=1`` are
+    refused, as the function refuses them (the JAX resize reads
+    neither)."""
 
     def __init__(self, size=None, scale_factor=None, mode="nearest",
                  align_corners=False, align_mode=0, data_format="NCHW",
                  name=None):
         super().__init__()
+        nn_ops.check_alignment(mode, align_corners, align_mode)
         self.size, self.scale_factor = size, scale_factor
         self.mode, self.align_corners = mode, align_corners
         self.data_format = data_format
@@ -260,6 +259,11 @@ class _Upsampling2D(Layer):
 
 
 class UpsamplingBilinear2D(_Upsampling2D):
+    """Half-pixel bilinear resize, which is what the JAX layer computes:
+    it passes ``align_corners=True`` to an ``interpolate`` that ignores
+    it, so neither package gives Paddle's corner-aligned resize here
+    (ROADMAP C, the reference behaviours)."""
+
     _mode = "bilinear"
 
 
@@ -352,7 +356,7 @@ class Bilinear(Layer):
             I.XavierNormal(), device, generator)
         self.bias = None if bias_attr is False else I.make_parameter(
             (1, out_features), bias_attr, I.Constant(0.0), device,
-            generator)
+            generator, is_bias=True)
 
     def forward(self, x1, x2):
         return nn_ops.bilinear(x1, x2, self.weight, self.bias)

@@ -55,7 +55,8 @@ class _ConvNd(Layer):
             I.KaimingUniform(fan_in=fan_in), device, generator)
         if bias_attr is not False:
             self.bias = I.make_parameter((out_channels,), bias_attr,
-                                         I.Constant(0.0), device, generator)
+                                         I.Constant(0.0), device, generator,
+                                         is_bias=True)
         else:
             self.bias = None
 

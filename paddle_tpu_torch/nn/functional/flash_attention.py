@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from ...amp.auto_cast import cast_inputs
 from ...framework import env_knobs
 from ...framework import random as _random
 from ...ops.flash_attention_kernel import (FlashAttnFunc,
@@ -82,6 +83,9 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
     used for both sides.  ``causal`` needs ``Sq == Sk``.  ``generator``
     (default: the port's generator for the device) draws the dropout
     mask."""
+    # the JAX function is the primitive "flash_attention", which
+    # auto_cast casts (on the white list: O1 runs it in the low dtype)
+    query, key, value = cast_inputs("flash_attention", query, key, value)
     b, sq, hq, d = query.shape
     sk, hkv = key.shape[1], key.shape[2]
     if causal and sq != sk:

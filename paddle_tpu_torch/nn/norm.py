@@ -24,7 +24,7 @@ def _affine_params(shape, weight_attr, bias_attr, device, generator):
     weight = None if weight_attr is False else I.make_parameter(
         shape, weight_attr, I.Constant(1.0), device, generator)
     bias = None if bias_attr is False else I.make_parameter(
-        shape, bias_attr, I.Constant(0.0), device, generator)
+        shape, bias_attr, I.Constant(0.0), device, generator, is_bias=True)
     return weight, bias
 
 

@@ -12,8 +12,11 @@ registers, so each replay draws fresh bits.
 
 What the JAX layers take and leave is kept: the decoder layer's
 attentions and linears get no ``weight_attr``/``bias_attr``;
-``Transformer`` passes none to its layers; ``need_weights`` is stored
-and ignored; the decoder layer and stack take ``cache=`` and ignore it.
+``Transformer`` passes none to its layers.  What the JAX layers take
+and never read is refused (``nn_ops.ignored_by_reference``):
+``MultiHeadAttention(need_weights=True)``, and a ``cache=`` other than
+None on the encoder and decoder layers and stacks
+(``MultiHeadAttention``'s own ``cache=`` is read, in both packages).
 The stacks' cloned layers are redrawn from Normal(0, sqrt(2 / (fan_in
 + fan_out))) on every parameter of two dims or more (``_clone_layer``),
 from the port's generator, so they differ from the JAX package's draws;
@@ -43,6 +46,11 @@ from .norm import LayerNorm
 from .param_attr import auto_name
 
 
+def _no_cache(layer, cache):
+    if cache is not None:
+        nn_ops.ignored_by_reference(f"{type(layer).__name__}(cache=...)")
+
+
 class MultiHeadAttention(Layer):
     """Attention over ``[B, S, embed_dim]`` with ``num_heads`` heads:
     q/k/v/out projections (``kdim``/``vdim`` the key's and value's
@@ -67,6 +75,9 @@ class MultiHeadAttention(Layer):
         if self.head_dim * num_heads != embed_dim:
             raise ValueError(f"embed_dim {embed_dim} is not a multiple of "
                              f"num_heads {num_heads}")
+        if need_weights:
+            nn_ops.ignored_by_reference(
+                "MultiHeadAttention(need_weights=True)")
         self.dropout = dropout
         self.need_weights = need_weights
         kw = dict(device=device, generator=generator)
@@ -146,6 +157,7 @@ class TransformerEncoderLayer(Layer):
         self.activation = getattr(_act, activation)
 
     def forward(self, src, src_mask=None, cache=None):
+        _no_cache(self, cache)
         residual = src
         if self.normalize_before:
             src = self.norm1(src)
@@ -176,6 +188,7 @@ class TransformerEncoder(Layer):
         self.norm = norm
 
     def forward(self, src, src_mask=None, cache=None):
+        _no_cache(self, cache)
         out = src
         for layer in self.layers:
             out = layer(out, src_mask=src_mask)
@@ -220,6 +233,7 @@ class TransformerDecoderLayer(Layer):
 
     def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
                 cache=None):
+        _no_cache(self, cache)
         residual = tgt
         if self.normalize_before:
             tgt = self.norm1(tgt)
@@ -258,6 +272,7 @@ class TransformerDecoder(Layer):
 
     def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
                 cache=None):
+        _no_cache(self, cache)
         out = tgt
         for layer in self.layers:
             out = layer(out, memory, tgt_mask=tgt_mask,

@@ -15,6 +15,7 @@ import torch
 
 from ..amp.auto_cast import cast_inputs
 from ..framework import random as _random
+from ..framework import selected_rows as _sr
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
@@ -790,14 +791,19 @@ def alpha_dropout(x, p=0.5, training=True, name=None):
 def embedding(x, weight, padding_idx=None, sparse=False):
     """Rows of ``weight`` at the ids ``x`` (counterpart of
     ``nn_ops.embedding``); 0 where the id is ``padding_idx``, so that
-    row gets no gradient.  ``sparse=True`` (SelectedRows gradients) is
-    A8's third part."""
-    if sparse:
-        raise NotImplementedError(
-            "embedding(sparse=True) (SelectedRows gradients) is not ported "
-            "yet (ROADMAP queue A, item 8, third part: sparse gradients)")
+    row's gradient is 0.
+
+    ``sparse=True`` makes the weight's gradient a sparse COO row
+    gradient (``framework/selected_rows.py``) outside a captured step,
+    as the JAX ``ops.embedding_sparse`` makes a ``SelectedRows``: every
+    looked-up id is a row, the padding id's included with zero values
+    (so lazy Adam still counts it as touched); torch's own
+    ``padding_idx=``, which drops those rows, is not used.  Inside a
+    ``Model`` step under ``prepare(jit=True)`` the gradient is dense, as
+    the JAX lookup's is under a trace."""
     (weight,) = cast_inputs("embedding", weight)
-    out = torch.nn.functional.embedding(x, weight)
+    out = torch.nn.functional.embedding(
+        x, weight, sparse=bool(sparse) and _sr.sparse_lookup_allowed())
     if padding_idx is not None:
         out = out.masked_fill((x == padding_idx).unsqueeze(-1), 0.0)
     return out
@@ -966,6 +972,17 @@ def _nearest_index(m, n, device):
     return torch.floor(pos).long().clamp_max(m - 1)
 
 
+def check_alignment(mode, align_corners, align_mode=0):
+    """Refuse ``align_corners=True``, and ``align_mode=1`` in a linear
+    mode: the JAX resize reads neither and always computes half-pixel
+    centres, so the port has no behaviour to give them."""
+    if align_corners:
+        ignored_by_reference("interpolate(align_corners=True)")
+    if align_mode != 0 and mode in ("linear", "bilinear", "trilinear"):
+        ignored_by_reference(f"interpolate(mode={mode!r}, "
+                             f"align_mode={align_mode!r})")
+
+
 def interpolate(x, size=None, scale_factor=None, mode="nearest",
                 align_corners=False, align_mode=0, data_format="NCHW"):
     """Resize the two spatial axes of ``x`` (NCHW or NHWC) to ``size``,
@@ -973,11 +990,13 @@ def interpolate(x, size=None, scale_factor=None, mode="nearest",
     computes: ``jax.image.resize`` with ``mode`` "nearest", "bilinear"
     (also "linear", "area") or "bicubic", half-pixel centres, and
     anti-aliasing when an axis shrinks (the kernel widened by the
-    scale; ``F.interpolate(antialias=False)`` differs there).  Like the
-    JAX function it ignores ``align_corners`` and ``align_mode``.  An
-    axis whose size does not change is left as it is; the output has
-    ``x``'s dtype (the weights are cast to it first, as JAX casts
-    them)."""
+    scale; ``F.interpolate(antialias=False)`` differs there).  The JAX
+    function ignores ``align_corners`` and ``align_mode``; the port
+    refuses the values that would ask for something else
+    (:func:`check_alignment`).  An axis whose size does not change is
+    left as it is; the output has ``x``'s dtype (the weights are cast
+    to it first, as JAX casts them)."""
+    check_alignment(mode, align_corners, align_mode)
     if data_format not in ("NCHW", "NHWC"):
         raise ValueError(f"interpolate: data_format {data_format!r}")
     (x,) = cast_inputs("interpolate", x)

@@ -36,6 +36,14 @@ receives its rounding.  Without one, ``Adam``/``AdamW`` still keep its
 moments in fp32, as the JAX package does: the update (decoupled decay
 included) runs on an fp32 copy of the value, which is rounded back
 into the parameter once (``Adam._moments_low``).
+
+A sparse row gradient (``Embedding(sparse=True)``, eager steps only;
+``framework/selected_rows.py``) is merged and taken out before the
+foreach groups, which stay as they are: ``SGD`` and ``Adam``/``AdamW``
+with ``lazy_mode`` update its rows by index ops, every other rule (and
+any parameter under an L1 decay) gets it dense, as the JAX package's
+``_sparse_step`` does.  Merging reads the row count on the host, one
+sync per sparse table per step.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from ..framework.selected_rows import merge_rows
 from ..regularizer import L1Decay, L2Decay
 from .lr import LRScheduler
 
@@ -140,6 +149,12 @@ class Optimizer:
             t = torch.full((), lr, dtype=torch.float32, device=device)
             self._lr_dev[device], self._lr_held[device] = t, lr
         return t
+
+    def _scaled_lr(self, device, scale: float) -> torch.Tensor:
+        """The rate of a parameter whose learning-rate scale is
+        ``scale``: the device scalar, times ``scale`` unless it is 1."""
+        lr = self._lr_scalar(device)
+        return lr if scale == 1.0 else lr * scale
 
     def refresh_lr(self) -> None:
         """Write ``get_lr()`` into each device's learning-rate scalar
@@ -250,6 +265,10 @@ class Optimizer:
         groups: Dict[tuple, list] = {}
         for (i, p), g in zip(items, grads):
             st = self._ensure_state(i, p)
+            if g.is_sparse:
+                g = self._sparse_step(i, p, st, g)
+                if g is None:
+                    continue
             work = st.get("master_weight", p)
             key = (work.device, work.dtype, st["steps"],
                    self._param_decay(i, p), self._param_l1(i, p),
@@ -266,9 +285,7 @@ class Optimizer:
                 grads = torch._foreach_add(
                     grads, [t.to(g.dtype) for t, g in zip(term, grads)])
             grads = [g.to(w.dtype) for g, w in zip(grads, works)]
-            lr = self._lr_scalar(device)
-            if scale != 1.0:
-                lr = lr * scale
+            lr = self._scaled_lr(device, scale)
             states = [st for _, st, _ in members]
             self._update_group(works, grads, states, lr, decay)
             for p, st, _ in members:
@@ -280,6 +297,37 @@ class Optimizer:
         """Update ``works`` (the values, or their fp32 masters) in place
         from ``grads`` (in their dtype) with the group's rate ``lr`` (a
         0-d fp32 device tensor) and L2 coefficient ``decay``."""
+        raise NotImplementedError
+
+    # -- sparse row gradients (framework/selected_rows.py) -----------------
+    def _rowwise(self) -> bool:
+        """Whether this optimizer updates a sparse gradient's rows only
+        (:meth:`_update_rows`); the base densifies it."""
+        return False
+
+    def _sparse_step(self, i, p, st, grad):
+        """A sparse row gradient of parameter ``i``, merged first (its
+        duplicate rows summed, ``paddle_tpu/optimizer/optimizer.py::
+        step``): applied to its rows by :meth:`_update_rows` (returns
+        None), or returned dense for the dense update: by the base rule
+        (``_sparse_step`` densifies), and under an L1 decay, which moves
+        every weight."""
+        grad = merge_rows(grad)
+        if not self._rowwise() or self._param_l1(i, p):
+            return grad.to_dense()
+        work = st.get("master_weight", p)
+        rows = grad.indices()[0]
+        self._update_rows(work, rows, grad.values(), st,
+                          self._scaled_lr(work.device, self._lr_scale(p)),
+                          self._param_decay(i, p))
+        st["steps"] += 1
+        if "master_weight" in st:
+            p.index_copy_(0, rows, work.index_select(0, rows).to(p.dtype))
+        return None
+
+    def _update_rows(self, work, rows, values, state, lr, decay):
+        """Update rows ``rows`` (unique) of ``work`` from their gradient
+        ``values``; the optimizers with a row rule give it."""
         raise NotImplementedError
 
     def clear_grad(self, set_to_zero: bool = False) -> None:
@@ -518,9 +566,11 @@ def _one(value):
 class Adam(Optimizer):
     """Adam as the module docstring writes it; ``amsgrad`` keeps
     ``moment2_max = max(moment2_max, moment2)`` and divides by its root.
-    ``lazy_mode`` (row-wise updates of a sparse gradient) goes with
-    ``Embedding(sparse=True)``, ROADMAP queue A, item 8 (the ``nn``
-    half's third part: sparse gradients)."""
+    ``lazy_mode`` updates only the rows of a sparse gradient
+    (``Embedding(sparse=True)``): their moments and weights, while the
+    beta powers advance as in every step (``_update_rows``, the JAX
+    ``Adam._sparse_step``); on a dense gradient, or with ``amsgrad``,
+    it is plain Adam."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
@@ -531,14 +581,36 @@ class Adam(Optimizer):
         self._adam_init(beta1, beta2, epsilon, lazy_mode, amsgrad)
 
     def _adam_init(self, beta1, beta2, epsilon, lazy_mode, amsgrad):
-        if lazy_mode:
-            raise NotImplementedError(
-                "Adam lazy_mode updates the rows of a sparse gradient; "
-                "sparse gradients (Embedding(sparse=True), SelectedRows) "
-                "are not ported yet (ROADMAP queue A, item 8, third part: "
-                "sparse gradients)")
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
         self._amsgrad = bool(amsgrad)
+        self._lazy_mode = bool(lazy_mode)
+
+    def _rowwise(self):
+        return self._lazy_mode and not self._amsgrad
+
+    def _update_rows(self, work, rows, values, state, lr, decay):
+        """Lazy Adam on the rows ``rows``, in the JAX package's order and
+        dtypes: the gradient in fp32 (plus the coupled L2 term), the
+        gathered moments updated and written back, the value's rows
+        less the rounded step (and AdamW's ``lr*decay*value`` of the
+        pre-step rows)."""
+        b1, b2 = self._beta1, self._beta2
+        vr = work.index_select(0, rows)
+        g = values.float()
+        if decay and not self._decoupled:
+            g = g + decay * vr.float()
+        lr_t, eps_t, lr_decay = self._scalars([state], lr, decay)
+        m1 = state["moment1"].index_select(0, rows)
+        m2 = state["moment2"].index_select(0, rows)
+        m1.mul_(b1).add_(g, alpha=1 - b1)
+        m2.mul_(b2).addcmul_(g, g, value=1 - b2)
+        upd = m1 / (m2.sqrt() + eps_t) * lr_t
+        new = vr - upd.to(vr.dtype)
+        if decay and self._decoupled:
+            new = new - vr * lr_decay.to(vr.dtype)
+        work.index_copy_(0, rows, new)
+        state["moment1"].index_copy_(0, rows, m1)
+        state["moment2"].index_copy_(0, rows, m2)
 
     def _init_state(self, value):
         st = {"moment1": _fp32_like(value), "moment2": _fp32_like(value),
@@ -630,7 +702,10 @@ class AdamW(Adam):
     (``weight_decay`` default 0.01), on the parameters for whose
     ``name`` ``apply_decay_param_fun`` is true (all without one).
     ``lr_ratio`` is refused: the JAX package accepts it and applies it
-    nowhere, so the port has no reference for it."""
+    nowhere, so the port has no reference for it.  ``lazy_mode`` is
+    Adam's, the decay on the updated rows only (the JAX ``AdamW`` never
+    stores it, so its ``Adam._sparse_step`` fails on a sparse gradient;
+    ROADMAP C)."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
@@ -710,13 +785,23 @@ class Momentum(Optimizer):
 
 
 class SGD(Optimizer):
-    """``w = w - lr * (g + decay*w)``."""
+    """``w = w - lr * (g + decay*w)``; a sparse gradient updates its
+    rows only."""
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None,
                  multi_precision=False):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name, multi_precision)
+
+    def _rowwise(self):
+        return True
+
+    def _update_rows(self, work, rows, values, state, lr, decay):
+        vals = values.to(work.dtype)
+        if decay:
+            vals = vals + decay * work.index_select(0, rows)
+        work.index_add_(0, rows, vals * lr, alpha=-1)
 
     def _update_group(self, works, grads, states, lr, decay):
         wide, grads, low = _widen(works, grads)

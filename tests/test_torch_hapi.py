@@ -432,6 +432,17 @@ def test_fold_accumulate_callbacks_stay_in_step_order():
     assert order == list(range(8))
 
 
+def test_top_level_callbacks_alias_the_hapi_family():
+    import paddle_tpu.callbacks as jcallbacks
+    from paddle_tpu_torch.hapi import callbacks as hcallbacks
+    assert tpaddle.callbacks.__name__ == "paddle_tpu_torch.callbacks"
+    jnames = {n for n in jcallbacks.__all__ if hasattr(jcallbacks, n)
+              and isinstance(getattr(jcallbacks, n), type)}
+    assert jnames <= set(tpaddle.callbacks.__all__)
+    for n in tpaddle.callbacks.__all__:
+        assert getattr(tpaddle.callbacks, n) is getattr(hcallbacks, n), n
+
+
 def test_visualdl_and_progbar_log_train_and_eval(tmp_path, capsys):
     """``VisualDL`` writes JSON lines with the JAX package's tags;
     ``ProgBarLogger`` prints the metric and the evaluation."""

@@ -46,6 +46,7 @@ def test_import_pulls_in_no_jax():
         "import paddle_tpu_torch.nn.layer, paddle_tpu_torch.nn.rnn\n"
         "import paddle_tpu_torch.nn.transformer, paddle_tpu_torch.nn.loss\n"
         "import paddle_tpu_torch.nn.functional_call, paddle_tpu_torch.ops.rnn_ops\n"
+        "import paddle_tpu_torch.framework.selected_rows, paddle_tpu_torch.callbacks\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "'jax.') or m == 'paddle_tpu' or m.startswith('paddle_tpu.')]\n"
         "assert not bad, bad\n")
@@ -80,7 +81,8 @@ def test_no_source_names_jax_or_the_jax_package():
                 "optimizer/lr.py", "regularizer/__init__.py",
                 "nn/clip_grad.py", "nn/param_attr.py", "nn/utils/utils.py",
                 "amp/grad_scaler.py", "amp/debugging.py",
-                "optimizer/lbfgs.py"):
+                "optimizer/lbfgs.py", "framework/selected_rows.py",
+                "callbacks/__init__.py"):
         assert os.path.join(PORT, mod) in sources, mod
     for path in sources:
         with open(path, encoding="utf-8") as fh:

@@ -260,8 +260,7 @@ def test_embedding_padding_idx_matches_jax(padding_idx):
 def test_embedding_signature():
     emb = tnn.Embedding(10, 4, 0, device=CPU)
     assert emb._padding_idx == 0 and not emb.weight.detach()[0].any()
-    with pytest.raises(NotImplementedError, match="sparse"):
-        tnn.Embedding(10, 4, sparse=True, device=CPU)
+    assert tnn.Embedding(10, 4, sparse=True, device=CPU)._sparse
     init = tnn.initializer.Constant(0.5)
     emb = tnn.Embedding(10, 4, weight_attr=init, device=CPU)
     assert float(emb.weight.detach().sum()) == 20.0

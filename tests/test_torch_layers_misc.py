@@ -333,8 +333,14 @@ def test_index_functions_match_jax():
     w = rand(np.random.default_rng(16), 8, 3)
     check_fn(lambda w: jops.embedding.raw(jnp.asarray(ids), w, 3),
              lambda w: TF.embedding(torch.from_numpy(ids), w, 3), [w])
-    with pytest.raises(NotImplementedError, match="third part"):
-        TF.embedding(torch.from_numpy(ids), torch.from_numpy(w), None, True)
+    # sparse=True: the same gradient, as a sparse row gradient
+    tw = torch.tensor(w, requires_grad=True)
+    TF.embedding(torch.from_numpy(ids), tw, None, True).sum().backward()
+    assert tw.grad.is_sparse
+    np.testing.assert_array_equal(
+        tw.grad.to_dense().numpy(),
+        np.asarray(jax.grad(lambda w: jops.embedding.raw(
+            jnp.asarray(ids), w).sum())(jnp.asarray(w))))
 
 
 def test_arguments_the_reference_ignores_are_refused():
@@ -346,6 +352,56 @@ def test_arguments_the_reference_ignores_are_refused():
                                           "NHWC")):
         with pytest.raises(NotImplementedError, match="ignores it"):
             make()
+
+
+def test_alignment_need_weights_and_cache_the_reference_ignores_are_refused():
+    """C9: ``align_corners=True`` and a linear mode's ``align_mode=1``
+    (the JAX resize reads neither), ``MultiHeadAttention(need_weights=
+    True)`` and a ``cache=`` on the encoder and decoder layers and stacks
+    are refused; their defaults run."""
+    x = torch.zeros(1, 1, 4, 4)
+    for make in (
+            lambda: TF.interpolate(x, (7, 7), mode="bilinear",
+                                   align_corners=True),
+            lambda: TF.interpolate(x, (7, 7), mode="linear", align_mode=1),
+            lambda: TF.upsample(x, (7, 7), mode="bilinear",
+                                align_corners=True),
+            lambda: tnn.Upsample((7, 7), None, "bilinear", True),
+            lambda: tnn.Upsample((7, 7), None, "bilinear", align_mode=1),
+            lambda: tnn.MultiHeadAttention(8, 2, need_weights=True,
+                                           device=CPU)):
+        with pytest.raises(NotImplementedError, match="ignores it"):
+            make()
+    assert TF.interpolate(x, (7, 7), mode="nearest",
+                          align_mode=1).shape == (1, 1, 7, 7)
+    assert tnn.Upsample((7, 7), None, "bilinear", False, 0)(x).shape == \
+        (1, 1, 7, 7)
+    src = torch.zeros(2, 3, 8)
+    enc = tnn.TransformerEncoderLayer(8, 2, 16, 0.0, device=CPU)
+    dec = tnn.TransformerDecoderLayer(8, 2, 16, 0.0, device=CPU)
+    stacks = (enc, tnn.TransformerEncoder(enc, 2), dec,
+              tnn.TransformerDecoder(dec, 2))
+    cache = tnn.MultiHeadAttention(8, 2, device=CPU).gen_cache(src)
+    for layer in stacks:
+        args = (src,) if layer in stacks[:2] else (src, src)
+        assert layer(*args, cache=None).shape == (2, 3, 8)
+        with pytest.raises(NotImplementedError, match="ignores it"):
+            layer(*args, cache=cache)
+
+
+@pytest.mark.parametrize("size,out", [((4, 6), (7, 9)), ((6, 8), (3, 5))])
+def test_upsampling_bilinear_is_the_jax_half_pixel_resize(size, out):
+    """``UpsamplingBilinear2D`` computes what the JAX layer computes: a
+    half-pixel bilinear resize (anti-aliased when it shrinks), although
+    the JAX layer passes ``align_corners=True``, which its
+    ``interpolate`` ignores; not Paddle's corner-aligned resize."""
+    x = rand(np.random.default_rng(18), 1, 2, *size)
+    check_layer(jnn.UpsamplingBilinear2D(out), tnn.UpsamplingBilinear2D(out),
+                [x])
+    corner = torch.nn.functional.interpolate(
+        torch.from_numpy(x), out, mode="bilinear", align_corners=True)
+    got = tnn.UpsamplingBilinear2D(out)(torch.from_numpy(x))
+    assert float((got - corner).abs().max()) > 0.05
 
 
 @pytest.mark.parametrize("op", ["leaky_relu", "tanh", "pad", "elu"])
