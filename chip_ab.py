@@ -31,6 +31,9 @@ sweep and dq cast; 20 calls at GPT-2-small's ``[96, 1024, 64]`` causal
 and ERNIE-3.0-base's ``[192, 512, 64]`` non-causal ``[B*H, S, D]``
 shapes); ``lmce fwd bf16``: the fused lm-head cross-entropy forward's
 device time per ``lmce_fwd`` call (10 calls at N=8192 V=50304 D=768).
+``train eager`` (``[train eager]``: the ``[train]`` run through the
+eager route, one ``Model.train_batch`` a step, after ``[train]``; its
+profiled idle share too).
 ``serve long`` (``[serve long]``: a 32512-token prompt through chunked
 prefill in bf16, its TTFT, then decode at a 32k context;
 ``[serve long fp32]``'s checks run too), ``serve prefix`` (``[serve
@@ -78,7 +81,7 @@ K1 = ("k1 fp32", "k1 bf16", "k1 long fp32", "k1 long bf16")
 K1_HOST = ("k1 host fp32", "k1 host bf16")
 BWD = ("bwd bf16", "bwd fp16", "bwd fused bf16", "bwd fused ernie bf16",
        "lmce fwd bf16")
-UNITS = {**{p: "step_ms" for p in PHASES},
+UNITS = {**{p: "step_ms" for p in PHASES}, "train eager": "step_ms",
          **{p: "tokens_per_s" for p in SERVING},
          "serve long": "ttft_s", "serve prefix": "ttft_hit_p50_s",
          "serve chunk gap": "admit_wall_ms",
@@ -372,8 +375,11 @@ if "serve disagg gap" in want:
                                "whole_p99_s": r["whole"]["p99_s"],
                                "max_s": r["chunk 512"]["max_s"]}}
 res = {{}}
-if set(want) & {{"train", "train fp16", "train fused lmce", "train bh"}}:
+if set(want) & {{"train", "train fp16", "train fused lmce", "train bh",
+                "train eager"}}:
     t = res["train"] = c.train_phase(torch, seed)
+    if "train eager" in want:
+        res["train eager"] = c.train_eager_phase(torch, seed, t)
     if "train fp16" in want:
         res["train fp16"] = c.fp16_train_phase(torch, seed, t)
     if "train fused lmce" in want:
@@ -383,7 +389,8 @@ if set(want) & {{"train", "train fp16", "train fused lmce", "train bh"}}:
 if "train ernie bh" in want:
     res["train ernie bh"] = c.ernie_train_phase(torch, seed)
 out.update({{k: {{"step_ms": r["step_ms"], "first_loss": r["losses"][0],
-                 "peak_gib": r["peak"] / 2**30}}
+                 "peak_gib": r["peak"] / 2**30,
+                 "idle_share": r.get("profile", {{}}).get("idle")}}
             for k, r in res.items() if k in want}})
 print("AB " + json.dumps(out), flush=True)
 """

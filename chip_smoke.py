@@ -611,6 +611,35 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
     eager steps under ``custom_black_list={"flash_attention"}``: q, k, v
     reach the flash kernels in fp32, so the CUDA-core bodies launch (no
     ``.tc`` launch) and no plain version runs;
+15zb. ``[tensor ops]`` runs every spec of the op catalogue
+    (``paddle_tpu_torch/ops/op_spec.py``, the port's copy of the JAX
+    table) on Paddle ``Tensor`` s on the card against the same op on
+    the CPU in the port, TF32 off: fp32 and bf16 where the spec lists
+    it at the spec's forward bounds (dtype and shape equal, integers and
+    booleans exact), and where ``check_grad`` is set the gradient of
+    ``sum(op(x)[0])`` by ``backward()`` at the spec's gradient bounds;
+    prints the specs and runs made, the ops ``OP_TABLE`` holds (all and
+    those of the port's six op modules, counted in this run) and the
+    largest errors, and fails on any mismatch (all are listed first);
+15zc. ``[tensor flash]``: ``paddle.nn.functional.flash_attention`` on
+    ``Tensor`` s at ``[8, 1024, 12, 64]`` bf16, causal,
+    ``stop_gradient=False``, then ``paddle.grad`` over q, k and v: the
+    output and the three gradients within ``FLASH_BF16_TOL`` x max(|ref|,
+    1) of the plain versions on the same values; the profiler counts one
+    tensor-core forward (K5) and one tensor-core dq + dkv pair (K6) and
+    no CUDA-core flash kernel;
+15zd. ``[train gpt dygraph]``: GPT-2-small (12 layers, 768 wide, vocab
+    50304, B=8, S=1024), bf16 O2 (``amp.decorate`` and ``auto_cast``),
+    AdamW, five steps of the classic dygraph loop (``paddle.to_tensor``
+    inputs, ``loss.backward()``, ``opt.step()``, ``opt.clear_grad()``,
+    ``float(loss)``), and beside it the same loop on raw torch tensors
+    (same seed, net, optimizer and batches), both under
+    ``torch.use_deterministic_algorithms``: losses and final leaves
+    bit-equal; K5 and K6 12 + 12 a step, all tensor-core, no plain call;
+    then both loops again for ``DYGRAPH_TIMED_STEPS`` steps in PyTorch's
+    default mode, as ``[train eager]`` runs; prints each way's median
+    step time, profiled idle share and peak memory (both modes) beside
+    ``[train eager]``'s step;
 16. ``[lmce tc]`` holds the tensor-core LMCE backward
     (``csrc/lmce_sm90.cu``, ``wgmma`` fed by TMA) against its plain
     versions (dL rounded to the operand dtype; each element within
@@ -10602,6 +10631,340 @@ def train_gpt_o1_phase(torch, seed):
             "step_ms": step_ms, "black_ms": black_ms, "peak": peak}
 
 
+# ---------------------------------------------------------------------------
+# the Paddle Tensor, the op catalogue and dygraph autograd
+# ---------------------------------------------------------------------------
+OP_MODULES = ("creation", "math", "manipulation", "logic", "linalg",
+              "array_ops")       # the port's six op modules
+DYGRAPH_STEPS = 5                 # [train gpt dygraph]: gate steps each way
+DYGRAPH_TIMED_STEPS = 10          # and timed steps each way, default mode
+
+
+def _spec_inputs(paddle, spec, dtype):
+    """The spec's numpy inputs (its seed 0) as Tensors on the current
+    place, floating ones in ``dtype`` (cast on the device: the card's
+    machine has no ml_dtypes)."""
+    rng = np.random.RandomState(0)
+    out = []
+    for gen in spec.inputs:
+        a = gen(rng)
+        t = paddle.to_tensor(a)
+        if np.issubdtype(a.dtype, np.floating):
+            t = t.astype(dtype)
+        out.append(t)
+    return out
+
+
+def _spec_run(paddle, spec, dtype, place, grad):
+    """``spec`` with the current place ``place`` ("cpu" or "gpu:0"): the
+    outputs as CPU torch tensors, or with ``grad`` the gradients of
+    ``sum(out[0])`` by ``backward()``."""
+    paddle.set_device(place)
+    try:
+        args = _spec_inputs(paddle, spec, dtype)
+        gidx = spec.grad_inputs
+        if gidx is None:
+            gidx = [i for i, a in enumerate(args)
+                    if a.dtype.is_floating_point]
+        if grad:
+            for i in gidx:
+                args[i].stop_gradient = False
+        out = spec.fn(*args, **spec.kwargs)
+        outs = list(out) if isinstance(out, (tuple, list)) else [out]
+        want = paddle.CPUPlace() if place == "cpu" else paddle.CUDAPlace(0)
+        for o in outs:
+            check(isinstance(o, paddle.Tensor) and o.place == want,
+                  f"[tensor ops] {spec.name}: {type(o)} on "
+                  f"{getattr(o, 'place', None)}, not a Tensor on {want}")
+        if not grad:
+            return [o.value.detach().cpu() for o in outs]
+        outs[0].sum().backward()
+        return [args[i].grad.value.cpu() for i in gidx]
+    finally:
+        paddle.set_device("gpu:0")
+
+
+def _spec_diff(torch, got, ref, rtol, atol):
+    """The largest excess of ``|got - ref|`` over ``atol + rtol |ref|``
+    (numpy's ``allclose``; <= 0 passes) and the max abs error; integers
+    and booleans must be equal."""
+    if not (ref.is_floating_point() or ref.is_complex()):
+        same = bool(torch.equal(got, ref))
+        return (0.0 if same else 1.0), (0.0 if same else float("inf"))
+    if got.numel() == 0:
+        return 0.0, 0.0
+    g = got.to(torch.complex128 if ref.is_complex() else torch.float64)
+    r = ref.to(g.dtype)
+    d = (g - r).abs()
+    agree = (torch.isnan(g) & torch.isnan(r)) | ((g == r) & ~torch.isfinite(
+        r))
+    d = d.masked_fill(agree, 0.0)
+    excess = (d - (atol + rtol * r.abs())).max()
+    return float(excess), float(d.max())
+
+
+def tensor_ops_phase(torch, seed):
+    """``[tensor ops]`` (module docstring, 15zb)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import op_spec
+    tag = "tensor ops"
+    specs = op_spec.build_specs()
+    t0 = time.monotonic()
+    bad, worst = [], {"fp32": 0.0, "bf16": 0.0, "grad": 0.0}
+    runs = 0
+    for spec in specs:
+        todo = [("fp32", "float32", False)]
+        if "bfloat16" in spec.dtypes:
+            todo.append(("bf16", "bfloat16", False))
+        if spec.check_grad:
+            todo.append(("grad", "float32", True))
+        for key, dtype, grad in todo:
+            runs += 1
+            try:
+                cpu = _spec_run(paddle, spec, dtype, "cpu", grad)
+                gpu = _spec_run(paddle, spec, dtype, "gpu:0", grad)
+            except Exception as exc:    # listed with the rest, then fails
+                bad.append(f"{spec.name} {key}: {type(exc).__name__}: "
+                           f"{str(exc)[:200]}")
+                continue
+            rtol = spec.grad_rtol if grad else spec.fw_rtol[dtype]
+            atol = spec.grad_atol if grad else spec.fw_atol[dtype]
+            for k, (g, r) in enumerate(zip(gpu, cpu)):
+                if g.dtype != r.dtype or g.shape != r.shape:
+                    bad.append(f"{spec.name} {key}[{k}]: {g.dtype}"
+                               f"{tuple(g.shape)} vs CPU {r.dtype}"
+                               f"{tuple(r.shape)}")
+                    continue
+                excess, err = _spec_diff(torch, g, r, rtol, atol)
+                worst[key] = max(worst[key], err)
+                if excess > 0:
+                    bad.append(f"{spec.name} {key}[{k}]: max abs err "
+                               f"{err:.3e} over rtol {rtol} atol {atol}")
+    for line in bad:
+        print(f"[{tag}] MISMATCH {line}", flush=True)
+    six = sum(getattr(op.raw, "__module__", "").rsplit(".", 1)[-1]
+              in OP_MODULES for op in paddle.OP_TABLE.values())
+    print(f"[{tag}] {len(specs)} specs ({runs} runs: fp32, bf16 where "
+          f"listed, gradients where check_grad) on Tensors on the card "
+          f"against the port on the CPU, TF32 off; OP_TABLE holds "
+          f"{len(paddle.OP_TABLE)} ops, {six} of them from the port's "
+          f"op modules {', '.join(OP_MODULES)}; max abs err fp32 "
+          f"{worst['fp32']:.3e} bf16 {worst['bf16']:.3e} grad "
+          f"{worst['grad']:.3e}; mismatches {len(bad)}; "
+          f"{time.monotonic() - t0:.1f} s; card {card_line()}", flush=True)
+    check(not bad, f"[{tag}] {len(bad)} mismatches: {bad[:5]}")
+    return {"specs": len(specs), "runs": runs, "max_abs_err": worst}
+
+
+def tensor_flash_phase(torch, seed):
+    """``[tensor flash]`` (module docstring, 15zc)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import flash_attention_kernel as fk
+    tag = "tensor flash"
+    B, S, H, D = TRAIN_B, TRAIN_S, 12, 64
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 2400)
+
+    def rnd(scale):
+        return (torch.randn(B, S, H, D, device="cuda", generator=gen)
+                * scale).to(torch.bfloat16)
+
+    qv, kv, vv, gv = rnd(0.5), rnd(0.5), rnd(0.5), rnd(1.0)
+    paddle.set_device("gpu:0")
+    result = {}
+
+    def body():
+        q, k, v = (paddle.to_tensor(t, stop_gradient=False)
+                   for t in (qv, kv, vv))
+        out, _ = paddle.nn.functional.flash_attention(q, k, v, causal=True)
+        grads = paddle.grad([out], [q, k, v],
+                            grad_outputs=[paddle.to_tensor(gv)])
+        result["v"] = (out, grads)
+
+    body()                                # warm-up (first launches)
+    torch.cuda.synchronize()
+    fk.reset_counts()
+    prof = profiled(torch, body)
+    launches = {f.__name__: f.launches for f in fk.ALL_WRAPPERS}
+    launches.update({f"{f.__name__}.tc": f.tc_launches
+                     for f in fk.TC_WRAPPERS})
+    plain = {f.__name__: f.plain_calls for f in fk.ALL_WRAPPERS}
+    names = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            names[e.key] = names.get(e.key, 0) + e.count
+    k5 = sum(c for n, c in names.items() if "flash_fwd_tc_kernel" in n)
+    k6 = sum(c for n, c in names.items() if "flash_bwd_tc_kernel" in n)
+    core = sum(c for n, c in names.items() if any(
+        k in n for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                         "flash_bwd_dkv_kernel", "flash_bwd_fused")))
+    out, (dq, dk, dv) = result["v"]
+    check(isinstance(out, paddle.Tensor) and not out.stop_gradient,
+          f"[{tag}] the output is not a Tensor with a gradient")
+    rout, rlse = fk.flash_fwd_tc_reference(qv, kv, vv, True)
+    rdq, rdelta = fk.flash_bwd_dq_reference(qv, kv, vv, rout, rlse, gv, True)
+    rdk, rdv = fk.flash_bwd_dkv_reference(qv, kv, vv, gv, rlse, rdelta, True)
+    errs = hold(torch, tag, f"B={B} S={S} H={H} D={D} bf16 causal through "
+                "the Tensor API", FLASH_BF16_TOL,
+                [("out", out.value, rout), ("dq", dq.value, rdq),
+                 ("dk", dk.value, rdk), ("dv", dv.value, rdv)])
+    check(k5 == 1 and k6 == 2 and core == 0,
+          f"[{tag}] profiler: flash_fwd_tc_kernel x{k5} (want 1), "
+          f"flash_bwd_tc_kernel x{k6} (want 2: dq + dkv), CUDA-core flash "
+          f"kernels x{core} (want 0)")
+    for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(launches[n] == 1 and launches[f"{n}.tc"] == 1,
+              f"[{tag}] {n} launches {launches[n]} (tensor-core "
+              f"{launches[f'{n}.tc']}), want 1 and 1")
+    check(not any(plain.values()), f"[{tag}] plain calls {plain}")
+    print(f"[{tag}] profiler: flash_fwd_tc_kernel x{k5} (K5), "
+          f"flash_bwd_tc_kernel x{k6} (K6, dq + dkv), CUDA-core flash x"
+          f"{core}; wrapper counts {launches}; card {card_line()}",
+          flush=True)
+    return {"launches": launches, "max_abs_err": errs}
+
+
+def _dygraph_run(torch, paddle, cfg, seed, batch, wrap, tag, steps):
+    """One way of ``[train gpt dygraph]``: a net and AdamW from ``seed``,
+    ``steps`` steps of the loop on Tensors (``wrap``) or on raw torch
+    tensors, each step synchronised and clocked; then two profiled
+    steps.  Returns the losses, the leaves after the clocked steps, the
+    step times (median of steps 3+), their launches, the peak memory and
+    the profile."""
+    import gc
+    from paddle_tpu_torch.models import GPTPretrainingCriterion
+    from paddle_tpu_torch.ops import flash_attention_kernel as fk
+    from paddle_tpu_torch.ops import lmce_kernel as lk
+    gc.collect()
+    torch.cuda.empty_cache()
+    net, opt = _train_model(torch, cfg, "cuda", seed, o2=True)
+    crit = GPTPretrainingCriterion()
+    xn, yn = batch
+    x, y = (torch.from_numpy(a).pin_memory() for a in (xn, yn))
+
+    def step():
+        if wrap:               # numpy in, as a Paddle user's loop has it
+            xs, ys = paddle.to_tensor(xn), paddle.to_tensor(yn)
+        else:
+            xs, ys = x.cuda(non_blocking=True), y.cuda(non_blocking=True)
+        with paddle.amp.auto_cast(level="O2", dtype="bfloat16"):
+            logits = net(xs)
+        loss = crit(logits, ys)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fk.reset_counts()
+    lk.reset_counts()
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.monotonic()
+        loss = step()
+        losses.append(float(loss) if wrap else loss.item())
+        torch.cuda.synchronize()
+        ms.append((time.monotonic() - t0) * 1e3)
+    launches = launch_table(fk, lk)
+    plain = {f.__name__: f.plain_calls for f in fk.ALL_WRAPPERS + lk.WRAPPERS}
+    peak = torch.cuda.max_memory_allocated()
+    check(isinstance(loss, paddle.Tensor) == wrap,
+          f"[{tag}] the loss is a {type(loss)}")
+    leaves = [p.detach().clone() for p in net.parameters()]
+    mode = "deterministic" if torch.are_deterministic_algorithms_enabled() \
+        else "default-mode"
+    prof = profile_run(torch, tag, f"{mode} {'Tensor' if wrap else 'raw'}"
+                       "-loop", lambda: [step() for _ in range(2)], 2)
+    del net, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "leaves": leaves, "ms": ms,
+            "step_ms": float(np.median(ms[2:])), "launches": launches,
+            "plain": plain, "peak": peak, "profile": prof}
+
+
+def train_gpt_dygraph_phase(torch, seed, eager):
+    """``[train gpt dygraph]`` (module docstring, 15zd); ``eager`` is
+    ``[train eager]``'s result, printed beside for comparison only."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import gpt2_small
+    tag = "train gpt dygraph"
+    cfg = gpt2_small(hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0)
+    rng = np.random.default_rng(seed + 2500)
+    x = rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S)).astype(np.int64)
+    batch = (x, np.roll(x, -1, axis=1))
+    paddle.set_device("gpu:0")
+    prev_cfg = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        res = {wrap: _dygraph_run(torch, paddle, cfg, seed, batch, wrap, tag,
+                                  DYGRAPH_STEPS)
+               for wrap in (True, False)}
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if prev_cfg is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prev_cfg
+    # the same two loops timed in PyTorch's default mode, as [train eager]
+    # runs (the deterministic mode NaN-fills every new allocation)
+    fast = {wrap: _dygraph_run(torch, paddle, cfg, seed, batch, wrap, tag,
+                               DYGRAPH_TIMED_STEPS)
+            for wrap in (True, False)}
+    t, r = res[True], res[False]
+    ft, fr = fast[True], fast[False]
+    for way, run in (("Tensor", t), ("raw", r), ("timed Tensor", ft),
+                     ("timed raw", fr)):
+        want = _want_launches(len(run["losses"]) * cfg.num_hidden_layers)
+        check(all(np.isfinite(run["losses"])), f"[{tag}] {way} losses "
+              f"{run['losses']}")
+        check(run["launches"] == want, f"[{tag}] {way} launches "
+              f"{run['launches']}, expected {want}")
+        check(not any(run["plain"].values()), f"[{tag}] {way} plain calls "
+              f"{run['plain']}")
+    check(t["losses"][-1] < t["losses"][0], f"[{tag}] loss did not fall: "
+          f"{t['losses']}")
+    check(t["losses"] == r["losses"], f"[{tag}] losses Tensor "
+          f"{t['losses']} vs raw {r['losses']}: not bit-equal")
+    same = [bool(torch.equal(a, b)) for a, b in zip(t["leaves"],
+                                                    r["leaves"])]
+    check(all(same), f"[{tag}] {same.count(False)} of {len(same)} leaves "
+          "differ between the Tensor and the raw loop")
+    per_step = {k: v // DYGRAPH_STEPS for k, v in t["launches"].items() if v}
+    print(f"[{tag}] GPT-2-small L=12 D=768 H=12 V=50304 B={TRAIN_B} "
+          f"S={TRAIN_S} bf16 O2 (amp.decorate + auto_cast) AdamW, "
+          f"{DYGRAPH_STEPS} dygraph steps each way under "
+          f"use_deterministic_algorithms: losses {t['losses']} (Tensor) "
+          f"== {r['losses']} (raw), {len(same)} leaves bit-equal; step_ms "
+          f"{[round(v, 3) for v in t['ms']]} (Tensor) / "
+          f"{[round(v, 3) for v in r['ms']]} (raw), profiled idle share "
+          f"{t['profile']['idle']:.4f} / {r['profile']['idle']:.4f}, device "
+          f"busy ms/step {t['profile']['busy_ms']:.3f} / "
+          f"{r['profile']['busy_ms']:.3f}, peak_mem_gib "
+          f"{t['peak'] / 2**30:.3f} / {r['peak'] / 2**30:.3f}; default mode, "
+          f"{DYGRAPH_TIMED_STEPS} steps each: step_ms median(steps 3+) "
+          f"Tensor {ft['step_ms']:.3f} raw {fr['step_ms']:.3f} (Tensor - raw "
+          f"{ft['step_ms'] - fr['step_ms']:.3f} ms) vs [train eager] "
+          f"(Model.train_batch) {eager['step_ms']:.3f}; profiled idle share "
+          f"Tensor {ft['profile']['idle']:.4f} raw "
+          f"{fr['profile']['idle']:.4f} [train eager] "
+          f"{eager['profile']['idle']:.4f}; device busy ms/step Tensor "
+          f"{ft['profile']['busy_ms']:.3f} raw {fr['profile']['busy_ms']:.3f}"
+          f" [train eager] {eager['profile']['busy_ms']:.3f}; peak_mem_gib "
+          f"Tensor {ft['peak'] / 2**30:.3f} raw {fr['peak'] / 2**30:.3f} "
+          f"[train eager] {eager['peak'] / 2**30:.3f}; losses Tensor == raw "
+          f"{ft['losses'] == fr['losses']}; launches a step {per_step}; card "
+          f"{card_line()}", flush=True)
+    return {"launches": t["launches"], "raw_launches": r["launches"],
+            "step_ms": ft["step_ms"], "raw_step_ms": fr["step_ms"],
+            "det_step_ms": t["step_ms"], "det_raw_step_ms": r["step_ms"],
+            "idle": ft["profile"]["idle"], "raw_idle": fr["profile"]["idle"],
+            "peak": ft["peak"], "raw_peak": fr["peak"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -10660,7 +11023,7 @@ def main(argv=None) -> int:
     disagg_gap_phase(torch, args.seed, cgap)
     serve_router_phase(torch, args.seed, s32)
     tres = train_phase(torch, args.seed)
-    train_eager_phase(torch, args.seed, tres)
+    eager = train_eager_phase(torch, args.seed, tres)
     train_fold_phase(torch, args.seed)
     lmce_train = fused_train_phase(torch, args.seed, tres)
     fp16_train = fp16_train_phase(torch, args.seed, tres)
@@ -10709,6 +11072,9 @@ def main(argv=None) -> int:
     train_widedeep_phase(torch, args.seed)
     train_widedeep_parity_phase(torch, args.seed)
     o1 = train_gpt_o1_phase(torch, args.seed)
+    tensor_ops_phase(torch, args.seed)
+    tensor_flash_phase(torch, args.seed)
+    dyg = train_gpt_dygraph_phase(torch, args.seed, eager)
 
     k32, k16 = kres["fp32"], kres["bf16"]
     kernels = [{
@@ -10984,6 +11350,8 @@ def main(argv=None) -> int:
             entry["gpt_o1_tc_launches"] = o1["launches"][f"{name}.tc"]
             entry["gpt_o1_black_list_cuda_core_launches"] = \
                 o1["black_launches"][name]
+            entry["dygraph_launches"] = dyg["launches"][name]
+            entry["dygraph_tc_launches"] = dyg["launches"][f"{name}.tc"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -66,10 +66,15 @@ __all__ = ["resolve_device", "Model", "seed", "LazyGuard", "amp",
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means ``"cuda"``.  A CUDA device without a card raises:
-    the port never carries on on the CPU unless ``device="cpu"`` was
-    asked for explicitly."""
-    dev = torch.device("cuda" if device is None else device)
+    """``None`` means the current place (``set_device``): ``"cuda"``
+    unless ``set_device("cpu")`` asked for the CPU.  A CUDA device
+    without a card raises: the port never carries on on the CPU unless
+    the CPU was asked for explicitly."""
+    if device is None:
+        from .places import _expected_place
+        device = ("cpu" if _expected_place().is_cpu_place()
+                  else f"cuda:{_expected_place().get_device_id()}")
+    dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(dev)!r} requested but torch.cuda.is_available() "
@@ -90,3 +95,86 @@ from .framework.selected_rows import SelectedRows  # noqa: E402
 from .hapi import Model  # noqa: E402
 from .hapi.summary import flops, summary  # noqa: E402
 from .nn.layer import LazyGuard  # noqa: E402
+
+# -- the Paddle Tensor, the op catalogue and dygraph autograd ----------------
+from . import autograd, device, linalg, ops  # noqa: E402
+from .autograd import (PyLayer, enable_grad, grad,  # noqa: E402
+                       is_grad_enabled, no_grad, set_grad_enabled)
+from .framework.dtype import (DType, finfo, get_default_dtype,  # noqa: E402
+                              iinfo, set_default_dtype)
+from .framework.dtype import bool_ as bool  # noqa: E402,A001
+from .framework.dtype import (bfloat16, complex64, complex128,  # noqa: E402
+                              float8_e4m3fn, float8_e5m2, float16, float32,
+                              float64, int8, int16, int32, int64, uint8)
+from .nn.param_attr import ParamAttr  # noqa: E402
+from .ops._primitive import OP_TABLE, get_flags, set_flags  # noqa: E402
+from .ops.array_ops import (TensorArray, array_length,  # noqa: E402
+                            array_read, array_write, create_array)
+from .places import (CPUPlace, CUDAPinnedPlace, CUDAPlace,  # noqa: E402
+                     CustomPlace, TPUPlace, XPUPlace, device_count,
+                     get_device, is_compiled_with_cuda,
+                     is_compiled_with_rocm, is_compiled_with_tpu,
+                     is_compiled_with_xpu, set_device)
+from .tensor import Parameter, Tensor, is_tensor, to_tensor  # noqa: E402
+
+# every op of the catalogue is also a paddle.* function
+globals().update(OP_TABLE)
+broadcast_shape = ops.broadcast_shape
+tolist = ops.tolist
+
+
+from .framework.random import (get_cuda_rng_state,  # noqa: E402
+                               get_rng_state, set_cuda_rng_state,
+                               set_rng_state)
+from .ops._primitive import apply_closure, primitive, unwrap  # noqa: E402
+
+
+def in_dynamic_mode() -> bool:
+    """The port has the dygraph mode only (static graphs: ROADMAP A12)."""
+    return True
+
+
+def is_compiled_with_cinn() -> bool:
+    return False
+
+
+def is_compiled_with_distribute() -> bool:
+    return True
+
+
+def disable_signal_handler():
+    """Paddle detaches its C++ signal handlers; the port installs none."""
+
+
+def batch(reader, batch_size, drop_last=False):
+    """The legacy ``paddle.batch`` reader decorator: a sample reader
+    grouped into batches of ``batch_size``."""
+    if int(batch_size) <= 0:
+        raise ValueError(
+            f"batch_size should be a positive integer, got {batch_size}")
+
+    def batched():
+        buf = []
+        for sample in reader():
+            buf.append(sample)
+            if len(buf) == batch_size:
+                yield buf
+                buf = []
+        if buf and not drop_last:
+            yield buf
+    return batched
+
+
+__all__ += ["Tensor", "Parameter", "to_tensor", "is_tensor", "autograd",
+            "device", "linalg", "ops", "no_grad", "enable_grad", "grad",
+            "is_grad_enabled", "set_grad_enabled", "PyLayer", "DType",
+            "set_default_dtype", "get_default_dtype", "finfo", "iinfo",
+            "CPUPlace", "CUDAPlace", "CUDAPinnedPlace", "TPUPlace",
+            "XPUPlace", "CustomPlace", "set_device", "get_device",
+            "device_count", "is_compiled_with_cuda", "set_flags",
+            "get_flags", "OP_TABLE", "TensorArray", "ParamAttr",
+            "in_dynamic_mode", "is_compiled_with_cinn",
+            "is_compiled_with_distribute", "disable_signal_handler",
+            "batch", "get_rng_state", "set_rng_state",
+            "get_cuda_rng_state", "set_cuda_rng_state", "primitive",
+            "apply_closure", "unwrap"] + sorted(OP_TABLE)

@@ -12,6 +12,8 @@ module-level state :func:`auto_cast` sets.  The rule is the JAX one:
   black) gets them in the target dtype, one on the black list (or
   custom black) in fp32; the rest are left as they are.
 
+The ``Tensor``-level forms of the catalogue (``ops/_primitive.py``)
+cast once, by their ``OP_TABLE`` name, with the casts below off inside.
 Ops that call :func:`cast_inputs` in the port: the convolutions (the
 1-D and 3-D transposes by their own names, which the white list lacks,
 as in the JAX package), ``linear``, ``bilinear``, the norms, the pools,

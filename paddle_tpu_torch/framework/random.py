@@ -81,3 +81,22 @@ def register_with_graph(graph, device) -> torch.Generator:
     gen = default_generator(device)
     register(gen)
     return gen
+
+
+def get_rng_state(device=None):
+    """The state of the default generator of ``device`` (the current
+    place's by default), as a one-element list as Paddle returns it."""
+    from ..places import expected_device
+    dev = expected_device() if device is None else device
+    return [default_generator(dev).get_state()]
+
+
+def set_rng_state(state, device=None):
+    from ..places import expected_device
+    dev = expected_device() if device is None else device
+    default_generator(dev).set_state(
+        state[0] if isinstance(state, (list, tuple)) else state)
+
+
+get_cuda_rng_state = get_rng_state
+set_cuda_rng_state = set_rng_state

@@ -1,5 +1,6 @@
 """Functional surface of the port's ``nn`` (counterpart of
-``paddle_tpu/nn/functional``): re-exports of the port's ops.
+``paddle_tpu/nn/functional``): re-exports of the port's ops, which take
+torch tensors or Paddle ``Tensor`` s and give back the same kind.
 ``ring_flash_attention`` and ``ulysses_attention`` (context-parallel
 attention over a mesh axis) come with the distributed slice (ROADMAP
 A10)."""
@@ -81,3 +82,9 @@ __all__ = [
     "gaussian_nll_loss", "triplet_margin_loss",
     "triplet_margin_with_distance_loss", "multi_margin_loss",
     "multi_label_soft_margin_loss", "ctc_loss"]
+
+# Paddle Tensors in, Paddle Tensors out; torch tensors in, torch tensors
+# out (ops/_primitive.py::boundary)
+from ...ops._primitive import boundary as _boundary  # noqa: E402
+
+globals().update({_n: _boundary(globals()[_n]) for _n in __all__})

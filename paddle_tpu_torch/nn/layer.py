@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..ops._primitive import has_tensor, unwrap_args, wrap_out
 from . import initializer as I
 
 #: Paddle's dtype names and their torch dtypes
@@ -125,6 +126,15 @@ class Layer(torch.nn.Module):
         super().__init__()
         self._dtype = to_torch_dtype(dtype)
         self._name_scope = name_scope or type(self).__name__.lower()
+
+    def __call__(self, *args, **kwargs):
+        """torch's call; given a Paddle ``Tensor`` among the inputs, the
+        forward sees its torch tensor and the tensor results come back
+        as ``Tensor`` s (``tensor.py``, the boundary)."""
+        if has_tensor(args, kwargs):
+            args, kwargs = unwrap_args(args, kwargs)
+            return wrap_out(super().__call__(*args, **kwargs))
+        return super().__call__(*args, **kwargs)
 
     # -- structure ----------------------------------------------------------
     def __setattr__(self, name, value):

@@ -224,3 +224,13 @@ def maxout(x, groups, axis=1):
 def thresholded_relu(x, threshold=1.0, value=0.0):
     (x,) = cast_inputs("thresholded_relu", x)
     return torch.where(x > threshold, x, torch.full_like(x, value))
+
+
+#: the JAX module's functions, which the JAX package exports at its top
+#: level; ``ops/__init__.py`` registers their ``Tensor``-level forms
+TOP_LEVEL = ("relu", "relu6", "leaky_relu", "prelu", "rrelu", "elu", "selu",
+             "celu", "gelu", "silu", "swish", "hardswish", "sigmoid",
+             "log_sigmoid", "hardsigmoid", "hardtanh", "tanhshrink",
+             "softplus", "softsign", "softshrink", "hardshrink", "mish",
+             "tanh", "softmax", "log_softmax", "gumbel_softmax", "glu",
+             "maxout", "thresholded_relu")

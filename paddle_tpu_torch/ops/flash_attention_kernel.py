@@ -862,7 +862,10 @@ class FlashAttnFunc(torch.autograd.Function):
         return out
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
+        # the kernels have no double backward: a second-order gradient
+        # through this Function raises instead of reading as zero
         q, k, v, out, lse = ctx.saved_tensors
         q_seg, k_seg = ctx.segs
         if ctx.fused_bwd:

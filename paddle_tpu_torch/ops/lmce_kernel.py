@@ -478,7 +478,9 @@ class FusedLinearCrossEntropy(torch.autograd.Function):
         return loss
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, g):
+        # no double backward: a second-order gradient raises
         h, w, labels, lse = ctx.saved_tensors
         g = g.float()
         dh = lmce_bwd_dh(h, w, labels, lse, g)

@@ -1154,6 +1154,9 @@ def binary_cross_entropy(input, label, weight=None, reduction="mean"):
     at 1e-12."""
     input, label, weight = cast_inputs("binary_cross_entropy", input, label,
                                        weight)
+    if label.dtype == torch.bool:
+        # numpy arithmetic on a bool label, as jnp does it
+        label = label.to(input.dtype)
     loss = -(label * torch.log(input.clamp_min(1e-12))
              + (1 - label) * torch.log((1 - input).clamp_min(1e-12)))
     if weight is not None:

@@ -101,7 +101,9 @@ class Optimizer:
         if not isinstance(learning_rate, (int, float, LRScheduler)):
             raise TypeError(f"learning_rate must be a float or an "
                             f"LRScheduler, got {type(learning_rate)}")
-        self._parameter_list = list(parameters)
+        # the handles as given: a Paddle Tensor leaf swaps its torch
+        # tensor on an in-place write (tensor.py), so it is read at use
+        self._params = list(parameters)
         self._learning_rate = (learning_rate
                                if isinstance(learning_rate, LRScheduler)
                                else float(learning_rate))
@@ -216,8 +218,14 @@ class Optimizer:
             else:
                 self._state[i]["steps"] = n
 
+    @property
+    def _parameter_list(self) -> List[torch.Tensor]:
+        """The parameters as torch tensors, read now: a Paddle Tensor
+        leaf by its current ``_value``."""
+        return [getattr(p, "_value", p) for p in self._params]
+
     def parameters(self) -> List[torch.nn.Parameter]:
-        return list(self._parameter_list)
+        return self._parameter_list
 
     def _init_state(self, value: torch.Tensor) -> dict:
         return {}
@@ -368,10 +376,11 @@ class Optimizer:
         moments."""
         if self._param_names is None:
             return
+        current = self._parameter_list
         for i, name in enumerate(self._param_names):
             new = named.get(name)
-            if new is not None and new is not self._parameter_list[i]:
-                self._parameter_list[i] = new
+            if new is not None and new is not current[i]:
+                self._params[i] = new
                 self._state.pop(i, None)
 
     def state_dict(self) -> Dict[str, object]:

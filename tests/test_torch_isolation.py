@@ -47,6 +47,19 @@ def test_import_pulls_in_no_jax():
         "import paddle_tpu_torch.nn.transformer, paddle_tpu_torch.nn.loss\n"
         "import paddle_tpu_torch.nn.functional_call, paddle_tpu_torch.ops.rnn_ops\n"
         "import paddle_tpu_torch.framework.selected_rows, paddle_tpu_torch.callbacks\n"
+        "import paddle_tpu_torch.tensor, paddle_tpu_torch.places\n"
+        "import paddle_tpu_torch.device, paddle_tpu_torch.framework.dtype\n"
+        "import paddle_tpu_torch.autograd, paddle_tpu_torch.linalg\n"
+        "import paddle_tpu_torch.autograd.tape, paddle_tpu_torch.autograd.py_layer\n"
+        "import paddle_tpu_torch.autograd.functional\n"
+        "import paddle_tpu_torch.ops._primitive, paddle_tpu_torch.ops.creation\n"
+        "import paddle_tpu_torch.ops.math, paddle_tpu_torch.ops.manipulation\n"
+        "import paddle_tpu_torch.ops.logic, paddle_tpu_torch.ops.linalg\n"
+        "import paddle_tpu_torch.ops.array_ops\n"
+        "paddle_tpu_torch.set_device('cpu')\n"
+        "x = paddle_tpu_torch.to_tensor([1.0, 2.0], stop_gradient=False)\n"
+        "(x * x).sum().backward()\n"
+        "assert x.grad.numpy().tolist() == [2.0, 4.0]\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "'jax.') or m == 'paddle_tpu' or m.startswith('paddle_tpu.')]\n"
         "assert not bad, bad\n")
@@ -82,13 +95,47 @@ def test_no_source_names_jax_or_the_jax_package():
                 "nn/clip_grad.py", "nn/param_attr.py", "nn/utils/utils.py",
                 "amp/grad_scaler.py", "amp/debugging.py",
                 "optimizer/lbfgs.py", "framework/selected_rows.py",
-                "callbacks/__init__.py"):
+                "callbacks/__init__.py", "tensor.py", "places.py",
+                "device/__init__.py", "framework/dtype.py", "linalg.py",
+                "autograd/__init__.py", "autograd/tape.py",
+                "autograd/py_layer.py", "autograd/functional.py",
+                "ops/_primitive.py", "ops/creation.py", "ops/math.py",
+                "ops/manipulation.py", "ops/logic.py", "ops/linalg.py",
+                "ops/array_ops.py", "ops/activation.py", "ops/__init__.py"):
         assert os.path.join(PORT, mod) in sources, mod
     for path in sources:
         with open(path, encoding="utf-8") as fh:
             text = fh.read()
         assert not pattern.search(text), path
         assert "import_module(\"jax" not in text, path
+
+
+def test_to_tensor_refuses_without_a_card_unless_asked_for_the_cpu():
+    """A Paddle Tensor goes to the card by default: without one,
+    ``to_tensor``, the creation ops and a layer refuse, until
+    ``place=CPUPlace()`` or ``set_device("cpu")`` asks for the CPU (in
+    a fresh process, so no other test's place is in the way)."""
+    code = (
+        "import torch, pytest\n"
+        "torch.cuda.is_available = lambda: False\n"
+        "import paddle_tpu_torch as paddle\n"
+        "assert paddle.get_device() == 'gpu:0'\n"
+        "for make in (lambda: paddle.to_tensor([1.0]),\n"
+        "             lambda: paddle.zeros([2]), lambda: paddle.arange(3),\n"
+        "             lambda: paddle.nn.Linear(2, 2)):\n"
+        "    with pytest.raises(RuntimeError, match='is_available'):\n"
+        "        make()\n"
+        "t = paddle.to_tensor([1.0], place=paddle.CPUPlace())\n"
+        "assert t.place == paddle.CPUPlace()\n"
+        "paddle.set_device('cpu')\n"
+        "assert paddle.zeros([2]).place.is_cpu_place()\n"
+        "assert paddle.nn.Linear(2, 2).weight.device.type == 'cpu'\n"
+        "assert paddle.get_device() == 'cpu'\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_engine_without_device_refuses_cpu_fallback(monkeypatch):
