@@ -640,6 +640,42 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
     default mode, as ``[train eager]`` runs; prints each way's median
     step time, profiled idle share and peak memory (both modes) beside
     ``[train eager]``'s step;
+15ze. ``[dist nccl world1]``: one rank started by
+    ``paddle_tpu_torch.distributed.spawn`` with
+    ``PADDLE_DISTRI_BACKEND=nccl`` (the one NCCL world a single card
+    allows): every collective of ``distributed.communication`` through
+    NCCL on CUDA tensors (send/recv, which need a peer, aside), the
+    object collectives and ``stream.all_reduce``, each exact;
+15zf. ``[dist gloo cuda]``: four ranks on the one card, gloo over CUDA
+    tensors (the backend ``init_parallel_env`` picks when ranks share a
+    card): every collective on each rank against what the rank computes
+    for itself, bf16 all-reduce, two subgroups of ``new_group`` and the
+    dp2 x mp2 hybrid groups (the CPU tests' exercise,
+    ``tests/torch_dist_workers.py``); prints which collectives gloo composed
+    (``communication.GLOO_CUDA_COMPOSED``) and how often;
+15zg. ``[train gpt hybrid]``: the same four ranks train GPT-2-small
+    (12 layers, 768 wide, vocab 50304, S=1024, global B=8) dp2 x mp2
+    through ``fleet.init`` -> ``fleet.distributed_model`` ->
+    ``fleet.distributed_optimizer``, bf16 O2, AdamW with the hybrid
+    global-norm clip, ``recompute=True``, ``HYBRID_STEPS`` steps of the
+    dygraph loop on Tensors (each rank its dp rows): the loss falls on
+    every rank; every rank's attention runs 6 heads and K5 / K6 launch
+    as tensor-core kernels only (the forward twice a layer: recompute
+    replays it); after the last update every leaf (bf16 parameter and
+    fp32 master) is bit-equal over the dp group, and the leaves not
+    split over mp over the mp group; prints the losses, ms a step, each rank's peak
+    allocated and reserved memory, each collective's calls, bytes and
+    host ms a step, and one profiled step's device busy time by rank;
+15zh. ``[train gpt hybrid parity]``: GPT-2-small in fp32 from numpy
+    weights, sharding2 x mp2 through ``DistributedRunner(
+    sharding_stage=2)`` against the single-process raw loop on the card
+    (rank 0), same weights and batch, SGD: step 1's gradient of every
+    leaf (the shards joined on rank 0) within ``PARITY_GRAD_TOL`` of the
+    leaf's largest, and the ``PARITY_STEPS`` losses within
+    ``PARITY_LOSS_TOL`` relative; mp rank 1's shard of one leaf scaled
+    by ``PARITY_CONTROL`` must fail; K5 / K6 at the hybrid shape (q, k,
+    v ``[4, 1024, 6, 64]`` strided in a packed qkv, row stride 1152)
+    held against their plain versions;
 16. ``[lmce tc]`` holds the tensor-core LMCE backward
     (``csrc/lmce_sm90.cu``, ``wgmma`` fed by TMA) against its plain
     versions (dL rounded to the operand dtype; each element within
@@ -10965,6 +11001,535 @@ def train_gpt_dygraph_phase(torch, seed, eager):
             "peak": ft["peak"], "raw_peak": fr["peak"]}
 
 
+# ---------------------------------------------------------------------------
+# the distributed slice (A10, first half): collectives on NCCL (a world of
+# one rank) and on gloo over CUDA tensors (four ranks on the one card), and
+# GPT-2-small trained dp2 x mp2 by four ranks
+# ---------------------------------------------------------------------------
+HYBRID_B, HYBRID_S = 8, 1024     # [train gpt hybrid]: the global batch
+HYBRID_STEPS = 5                 # dygraph steps, timed
+HYBRID_LR = 1e-4                 # AdamW's rate (multi_precision, bf16 O2)
+HYBRID_CLIP = 1.0                # the hybrid global-norm clip
+PARITY_STEPS = 3                 # [train gpt hybrid parity]: SGD steps
+PARITY_LR = 0.01                 # SGD's rate: it moves each weight by its
+                                 # gradient (Adam would turn a gradient of
+                                 # rounding noise into a whole step)
+PARITY_GRAD_TOL = 1e-4           # x the leaf's largest |gradient|, step 1
+PARITY_LOSS_TOL = 1e-4           # relative, each of the steps' losses
+PARITY_CONTROL = 1.01            # the planted control's factor on one
+                                 # rank's shard of one leaf's gradient
+WORLD_TIMEOUT_S = 480            # a world that runs longer fails the phase
+
+
+def gpt_numpy_state(cfg, seed):
+    """A GPT state dict (numpy, the JAX package's names and layouts) from
+    ``numpy.random.default_rng(seed)``: Normal(0, ``initializer_range``)
+    matrices and embeddings, zero biases, unit norm scales."""
+    from paddle_tpu_torch.models.gpt import _expected_shapes
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, shape in _expected_shapes(cfg).items():
+        if name.endswith(".bias"):
+            out[name] = np.zeros(shape, np.float32)
+        elif name.endswith(("ln1.weight", "ln2.weight",
+                            "final_norm.weight")):
+            out[name] = np.ones(shape, np.float32)
+        else:
+            out[name] = (rng.standard_normal(shape, dtype=np.float32)
+                         * np.float32(cfg.initializer_range))
+    return out
+
+
+def _run_world(fn, nprocs, env, *args):
+    """``fn(workdir, stacks_after, *args)`` on ``nprocs`` ranks started by
+    ``paddle_tpu_torch.distributed.spawn`` (the env contract, ``env``
+    beside it); each rank pickles its result into ``workdir``.  A rank
+    that fails, or a world that outlives ``WORLD_TIMEOUT_S``, ends the
+    world and raises; a rank still running ``stacks_after`` seconds in
+    prints its threads' stacks first (``faulthandler``), so a hung
+    collective shows where it waits."""
+    import pickle
+    import tempfile
+
+    from paddle_tpu_torch.distributed.spawn import spawn
+    workdir = tempfile.mkdtemp(prefix="chip_world_")
+    ctx = spawn(fn, args=(workdir, WORLD_TIMEOUT_S - 30) + args,
+                nprocs=nprocs, join=False, env=env)
+    if not ctx.join(WORLD_TIMEOUT_S):
+        ctx.terminate()
+        raise RuntimeError(f"{fn.__name__}: the world ran past "
+                           f"{WORLD_TIMEOUT_S} s")
+    out = []
+    for r in range(nprocs):
+        with open(os.path.join(workdir, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def _rank_setup(stacks_after):
+    """A rank's start: its stacks printed if it still runs after
+    ``stacks_after`` seconds, TF32 off (the fp32 comparisons), the card."""
+    import faulthandler
+    faulthandler.dump_traceback_later(stacks_after)
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import paddle_tpu_torch as paddle
+    paddle.set_device("gpu:0")
+    return torch, paddle
+
+
+def _rank_done(workdir, res):
+    import pickle
+    import paddle_tpu_torch as paddle
+    rank = paddle.distributed.get_rank()
+    tmp = os.path.join(workdir, f"rank{rank}.tmp")
+    with open(tmp, "wb") as f:
+        pickle.dump(res, f)
+    os.replace(tmp, os.path.join(workdir, f"rank{rank}.pkl"))
+    paddle.distributed.destroy_process_group()
+
+
+def _dist_exercise():
+    """The rank-side exercises the CPU tests run too
+    (``tests/torch_dist_workers.py``, torch and numpy only)."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_dist_workers
+    return torch_dist_workers
+
+
+def _collective_checks(torch, paddle, tag):
+    """Every collective of ``distributed.communication`` on CUDA tensors
+    of this rank, the object collectives and the ``stream`` namespace
+    (``torch_dist_workers.exercise_collectives``, the CPU tests'
+    exercise), each result held exactly against what this rank computes
+    for itself (``expected_collectives``: every rank's input is
+    ``arange(6) + 10 r + 1``, so the results are moves and
+    integer-valued sums).  Returns the names checked."""
+    w = _dist_exercise()
+    dist = paddle.distributed
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    got = w.exercise_collectives(paddle, dev)
+    want = w.expected_collectives(rank, world)
+    bad = w.mismatches(got, want)
+    check(not bad, f"[{tag}] rank {rank}: " + "; ".join(
+        f"{k} {got.get(k)} != {want[k]}" for k in bad))
+    return sorted(want)
+
+
+def _nccl_world1_rank(workdir, stacks_after):
+    torch, paddle = _rank_setup(stacks_after)
+    dist = paddle.distributed
+    dist.init_parallel_env()
+    check(dist.get_backend() == "nccl",
+          f"[dist nccl world1] backend {dist.get_backend()}")
+    checked = _collective_checks(torch, paddle, "dist nccl world1")
+    _rank_done(workdir, {"checked": checked,
+                         "composed": dist.communication.composed_counts(),
+                         "stats": dist.communication.comm_stats()})
+
+
+def dist_nccl_phase(torch, seed):
+    """``[dist nccl world1]``: one rank on NCCL (the one NCCL world a
+    single card allows): every collective through NCCL on CUDA tensors
+    (send/recv need a peer and are left out), the object collectives."""
+    t0 = time.monotonic()
+    res = _run_world(_nccl_world1_rank, 1,
+                     {"PADDLE_DISTRI_BACKEND": "nccl"})[0]
+    check(res["composed"] == {}, f"[dist nccl world1] composed "
+          f"{res['composed']}")
+    print(f"[dist nccl world1] 1 rank, NCCL, CUDA tensors: "
+          f"{len(res['checked'])} checks passed "
+          f"({', '.join(res['checked'])}); calls through the backend "
+          f"{ {k: v['calls'] for k, v in res['stats'].items()} }; "
+          f"{time.monotonic() - t0:.1f} s with the rank's start; card "
+          f"{card_line()}", flush=True)
+
+
+def _gloo_cuda(torch, paddle):
+    """[dist gloo cuda] on this rank: the collectives, two subgroups from
+    ``new_group`` and the dp2 x mp2 hybrid groups."""
+    dist = paddle.distributed
+    comm = dist.communication
+    comm.reset_counts()
+    rank = dist.get_rank()
+    checked = _collective_checks(torch, paddle, "dist gloo cuda")
+    w = _dist_exercise()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    got = w.exercise_groups(paddle, dev)
+    want = w.expected_groups(rank)
+    bad = w.mismatches(got, want)
+    check(not bad, f"[dist gloo cuda] rank {rank}: " + "; ".join(
+        f"{k} {got.get(k)} != {want[k]}" for k in bad))
+    checked += sorted(want)
+    return {"checked": checked, "composed": comm.composed_counts(),
+            "backend": dist.get_backend(),
+            "groups": {k: got["hybrid_ranks"][k] for k in ("dp", "mp")}}
+
+
+def _peaks(torch):
+    return (torch.cuda.max_memory_allocated(),
+            torch.cuda.max_memory_reserved())
+
+
+def _hybrid_train(torch, paddle, seed):
+    """[train gpt hybrid] on this rank (``hybrid_world_phase``)."""
+    from paddle_tpu_torch.models import (GPTAttention,
+                                         GPTPretrainingCriterion, gpt2_small)
+    from paddle_tpu_torch.models import GPTForCausalLM
+    from paddle_tpu_torch.ops import flash_attention_kernel as fk
+    dist = paddle.distributed
+    fleet, comm = dist.fleet, dist.communication
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": 2, "mp_degree": 2}
+    s.recompute = True
+    fleet.init(is_collective=True, strategy=s)
+    hcg = fleet.get_hybrid_communicate_group()
+    cfg = gpt2_small(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                     recompute=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 2600 + hcg.get_model_parallel_rank())
+    net = GPTForCausalLM(cfg, device="cuda", generator=gen)
+    opt = paddle.optimizer.AdamW(
+        learning_rate=HYBRID_LR, parameters=net.parameters(),
+        multi_precision=True,
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(HYBRID_CLIP))
+    paddle.amp.decorate(net, opt, level="O2", dtype="bfloat16")
+    model = fleet.distributed_model(net)
+    opt = fleet.distributed_optimizer(opt)
+    crit = GPTPretrainingCriterion()
+    rng = np.random.default_rng(seed + 2601)
+    x = rng.integers(0, cfg.vocab_size, (HYBRID_B, HYBRID_S)).astype(np.int64)
+    n, r = hcg._get_data_group().nranks, hcg._data_rank()
+    k = HYBRID_B // n
+    xs = paddle.to_tensor(x[r * k:(r + 1) * k])
+    ys = paddle.to_tensor(np.roll(x, -1, 1)[r * k:(r + 1) * k])
+    heads = sorted({m.num_heads for m in net.modules()
+                    if isinstance(m, GPTAttention)})
+
+    def step():
+        with paddle.amp.auto_cast(level="O2", dtype="bfloat16"):
+            logits = model(xs)
+        loss = crit(logits, ys)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fk.reset_counts()
+    comm.reset_counts()
+    losses, ms = [], []
+    for _ in range(HYBRID_STEPS):
+        t0 = time.monotonic()
+        loss = step()
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        ms.append((time.monotonic() - t0) * 1e3)
+    launches = {f.__name__: f.launches for f in fk.WRAPPERS}
+    launches.update({f"{f.__name__}.tc": f.tc_launches for f in fk.WRAPPERS})
+    launches["plain"] = sum(f.plain_calls for f in fk.ALL_WRAPPERS)
+    stats = comm.comm_stats()
+    composed = comm.composed_counts()
+    peak = _peaks(torch)
+    wall = []
+    with profile_window(torch) as prof:
+        t0 = time.monotonic()
+        step()
+        torch.cuda.synchronize()
+        wall.append((time.monotonic() - t0) * 1e3)
+    busy = sum(kernel_us(e) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    # after the 6 updates: every leaf (bf16 parameter and fp32 master)
+    # bit-equal over the dp group, the ones not split over mp (norms,
+    # position embedding, row-parallel biases) over the mp group too
+    replicas = _dist_exercise().hybrid_replicas(hcg, opt)
+    del model, opt, net
+    torch.cuda.empty_cache()
+    return {"losses": losses, "ms": ms, "launches": launches,
+            "stats": stats, "composed": composed, "peak": peak,
+            "heads": heads, "profile_wall_ms": wall[0], "busy_ms": busy,
+            "replicas": replicas,
+            "rows": [r * k, (r + 1) * k],
+            "coords": (hcg.get_data_parallel_rank(),
+                       hcg.get_model_parallel_rank())}
+
+
+def _grad_gate(got, ref):
+    """Per leaf, max |got - ref| / max |ref| (the leaf's largest)."""
+    return {n: float(np.abs(got[n] - ref[n]).max()
+                     / max(float(np.abs(ref[n]).max()), 1e-30))
+            for n in ref}
+
+
+def _hybrid_parity(torch, paddle, seed):
+    """[train gpt hybrid parity] on this rank (``hybrid_world_phase``):
+    the fp32 GPT-2-small at sharding2 x mp2 through ``DistributedRunner(
+    sharding_stage=2)``, then on rank 0 alone the single-process raw loop
+    on the same weights and batch, the comparison, the control and the
+    K5/K6 hold at this rank's H = 6 shape."""
+    from paddle_tpu_torch.distributed import DistributedRunner
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion, gpt2_small,
+                                         state_dict_from_jax)
+    dist = paddle.distributed
+    fleet = dist.fleet
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"sharding_degree": 2, "mp_degree": 2}
+    fleet.init(is_collective=True, strategy=s)
+    hcg = fleet.get_hybrid_communicate_group()
+    rank = dist.get_rank()
+    cfg = gpt2_small(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    state = gpt_numpy_state(cfg, seed + 2700)
+    rng = np.random.default_rng(seed + 2701)
+    x = rng.integers(0, cfg.vocab_size, (HYBRID_B, HYBRID_S)).astype(np.int64)
+    y = np.roll(x, -1, 1)
+    net = GPTForCausalLM(cfg, device="cuda")
+    net.load_state_dict(state_dict_from_jax(
+        state, cfg, hcg.get_model_parallel_rank(), 2))
+    opt = paddle.optimizer.SGD(learning_rate=PARITY_LR,
+                               parameters=net.parameters())
+    crit = GPTPretrainingCriterion()
+    runner = DistributedRunner(net, opt, crit, sharding_stage=2)
+    # step 1's gradient, reduced as train_step reduces it
+    _, _, mb, r, n = runner._split([x], [y])
+    dev = runner._device()
+    rows = slice(r * (mb // n), (r + 1) * (mb // n))
+    runner._forward_loss(*(
+        [torch.from_numpy(a[rows]).to(dev)] for a in (x, y))).backward()
+    runner._update.reduce()
+    grads = {k: v.float().cpu().numpy() for k, v in
+             runner._update.sharded.gather_grads().items()}
+    for _, p in runner._update.named:
+        p.grad = None
+    runner._update.sharded.clear_shard_grads()
+    mp_grads = []
+    dist.all_gather_object(mp_grads, grads,
+                           group=hcg.get_model_parallel_group())
+    del grads
+    losses = [runner.train_step([x], [y]) for _ in range(PARITY_STEPS)]
+    peak = _peaks(torch)
+    del runner, opt, net
+    torch.cuda.empty_cache()
+    res = {"losses": losses, "peak": peak}
+    if rank == 0:
+        res.update(_parity_reference(torch, paddle, cfg, state, x, y,
+                                     mp_grads))
+        res["kernels"] = _h6_hold(torch, seed)
+    dist.barrier()
+    return res
+
+
+def _parity_reference(torch, paddle, cfg, state, x, y, mp_grads):
+    """The single-process raw loop on the card (rank 0, the other ranks
+    idle): step 1's gradients and ``PARITY_STEPS`` SGD losses; the
+    per-leaf gate of the joined distributed gradients, and of the planted
+    control (mp rank 1's shard of one leaf scaled by ``PARITY_CONTROL``),
+    which must fail."""
+    import gc
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion,
+                                         state_dict_from_jax)
+    from paddle_tpu_torch.models.gpt import merge_mp_states
+    hcg = collective.get_mesh()
+    collective.set_mesh(None)       # the reference is the whole model
+    try:
+        net = GPTForCausalLM(cfg, device="cuda")
+        crit = GPTPretrainingCriterion()
+    finally:
+        collective.set_mesh(hcg)
+    net.load_state_dict(state_dict_from_jax(state, cfg))
+    opt = paddle.optimizer.SGD(learning_rate=PARITY_LR,
+                               parameters=net.parameters())
+    xt, yt = (torch.from_numpy(a).cuda() for a in (x, y))
+    losses, ref = [], None
+    for i in range(PARITY_STEPS):
+        loss = crit(net(xt), yt)
+        loss.backward()
+        if i == 0:
+            ref = {n: p.grad.float().cpu().numpy()
+                   for n, p in net.named_parameters()}
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+    del net, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    got = merge_mp_states(mp_grads, cfg)
+    ratios = _grad_gate(got, ref)
+    leaf = f"gpt.layers.{cfg.num_hidden_layers // 2}.mlp.fc1.weight"
+    bad = [dict(g) for g in mp_grads]
+    bad[1][leaf] = bad[1][leaf] * PARITY_CONTROL
+    control = _grad_gate(merge_mp_states(bad, cfg), ref)[leaf]
+    return {"serial_losses": losses, "ratios": ratios, "control": control,
+            "control_leaf": leaf}
+
+
+def _h6_hold(torch, seed):
+    """K5 / K6 at the hybrid path's per-rank shape: q, k, v strided views
+    ``[4, 1024, 6, 64]`` of a packed qkv ``[4, 1024, 3, 6, 64]`` (row
+    stride 1152 elements), bf16, against their plain versions
+    (``tc_compare`` / ``tc_bwd_compare``)."""
+    from paddle_tpu_torch.ops import flash_attention_kernel as fk
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 2702)
+    b, s = HYBRID_B // 2, HYBRID_S
+    qkv = torch.randn(b, s, 3, 6, 64, device="cuda", generator=gen,
+                      dtype=torch.float32).to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    g = torch.randn(b, s, 6, 64, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    _, _, ferr = tc_compare(torch, fk, "hybrid H=6 [4, 1024, 6, 64] row "
+                            "stride 1152", q, k, v, True)
+    bres, _ = tc_bwd_compare(torch, fk, "hybrid H=6 [4, 1024, 6, 64] row "
+                             "stride 1152", q, k, v, g, True)
+    return {"fwd_err": ferr, "bwd_errs": bres["errs"],
+            "bwd_ratios": bres["ratios"]}
+
+
+def _hybrid_rank(workdir, stacks_after, seed):
+    torch, paddle = _rank_setup(stacks_after)
+    paddle.distributed.init_parallel_env()
+    res = {"gloo": _gloo_cuda(torch, paddle)}
+    res["train"] = _hybrid_train(torch, paddle, seed)
+    res["parity"] = _hybrid_parity(torch, paddle, seed)
+    _rank_done(workdir, res)
+
+
+def _gib(b):
+    return b / 2 ** 30
+
+
+def hybrid_world_phase(torch, seed):
+    """``[dist gloo cuda]``, ``[train gpt hybrid]`` and ``[train gpt hybrid
+    parity]``: four ranks on the one card (gloo over CUDA tensors),
+    started once by ``distributed.spawn``; each rank runs the three in
+    turn and this process prints and gates what they return.  Returns
+    the hybrid training's launches summed over the ranks."""
+    from paddle_tpu_torch.distributed import communication as comm
+    t0 = time.monotonic()
+    ranks = _run_world(_hybrid_rank, 4, {}, seed)
+    world_s = time.monotonic() - t0
+    card = card_line()
+    g = [r["gloo"] for r in ranks]
+    composed = {}
+    for res in g:
+        for k, v in res["composed"].items():
+            composed[k] = composed.get(k, 0) + v
+        check(res["backend"] == "gloo", f"[dist gloo cuda] backend "
+              f"{res['backend']}")
+    print(f"[dist gloo cuda] 4 ranks on one card, gloo over CUDA tensors: "
+          f"{len(g[0]['checked'])} checks passed on every rank "
+          f"({', '.join(g[0]['checked'])}); hybrid groups rank 0 "
+          f"{g[0]['groups']}; composed on gloo (all ranks, uses): "
+          f"{composed} (GLOO_CUDA_COMPOSED "
+          f"{sorted(comm.GLOO_CUDA_COMPOSED)}); card {card}", flush=True)
+    check(set(composed) <= set(comm.GLOO_CUDA_COMPOSED) and composed,
+          f"[dist gloo cuda] composed {composed}")
+
+    tag = "train gpt hybrid"
+    tr = [r["train"] for r in ranks]
+    L = 12
+    per_rank_fwd = 2 * L * HYBRID_STEPS      # forward + recompute's replay
+    per_rank_bwd = L * HYBRID_STEPS
+    for i, res in enumerate(tr):
+        la = res["launches"]
+        check(res["heads"] == [6], f"[{tag}] rank {i} heads {res['heads']}")
+        check(la["flash_fwd"] == la["flash_fwd.tc"] == per_rank_fwd
+              and la["flash_bwd_dq"] == la["flash_bwd_dq.tc"] == per_rank_bwd
+              and la["flash_bwd_dkv"] == la["flash_bwd_dkv.tc"]
+              == per_rank_bwd and la["plain"] == 0,
+              f"[{tag}] rank {i} launches {la}")
+        check(all(np.isfinite(res["losses"])), f"[{tag}] rank {i} losses "
+              f"{res['losses']}")
+        check(res["losses"][-1] < res["losses"][0],
+              f"[{tag}] rank {i}: loss did not fall: {res['losses']}")
+        rep = res["replicas"]
+        check(rep["dp"][0] > 0 and rep["mp"][0] > 0
+              and rep["dp"][1] == rep["mp"][1] == 0,
+              f"[{tag}] rank {i}: replicas differ (elements compared, "
+              f"differing): {rep}")
+    print(f"[{tag}] replicas after {HYBRID_STEPS + 1} updates, bit-equal "
+          "on every rank (elements compared, differing): every leaf over "
+          "dp, the leaves not split over mp over mp: " + "; ".join(
+              f"rank {i} dp {r['replicas']['dp']} mp {r['replicas']['mp']}"
+              for i, r in enumerate(tr)), flush=True)
+    step_ms = float(np.median([np.median(r["ms"][2:]) for r in tr]))
+    per_step = {k: {"calls": v["calls"] / HYBRID_STEPS,
+                    "bytes": v["bytes"] / HYBRID_STEPS,
+                    "ms": v["seconds"] * 1e3 / HYBRID_STEPS}
+                for k, v in tr[0]["stats"].items()}
+    busy = [r["busy_ms"] for r in tr]
+    wall = max(r["profile_wall_ms"] for r in tr)
+    print(f"[{tag}] GPT-2-small L=12 D=768 H=12 V=50304 global B={HYBRID_B} "
+          f"S={HYBRID_S}, dp2 x mp2 on 4 ranks of one card (spawn, "
+          "fleet.init -> distributed_model -> distributed_optimizer), bf16 "
+          f"O2 AdamW lr {HYBRID_LR}, global-norm clip {HYBRID_CLIP}, "
+          f"recompute=True, dygraph loop on Tensors, {HYBRID_STEPS} steps: "
+          + "; ".join(f"rank {i} (dp {r['coords'][0]}, mp {r['coords'][1]},"
+                      f" rows {r['rows']}) losses "
+                      f"{[round(v, 5) for v in r['losses']]}, step_ms "
+                      f"{[round(v, 1) for v in r['ms']]}, peak allocated "
+                      f"{_gib(r['peak'][0]):.3f} GiB reserved "
+                      f"{_gib(r['peak'][1]):.3f} GiB"
+                      for i, r in enumerate(tr)), flush=True)
+    print(f"[{tag}] step_ms median(steps 3+, median over ranks) "
+          f"{step_ms:.1f}; collectives a step on rank 0 (calls, bytes in, "
+          f"host ms): " + ", ".join(
+              f"{k} {v['calls']:.0f} / {v['bytes'] / 2**20:.1f} MiB / "
+              f"{v['ms']:.1f} ms" for k, v in sorted(per_step.items()))
+          + f"; composed uses {tr[0]['composed']}; one profiled step: wall "
+          f"{wall:.1f} ms, device busy by rank "
+          f"{[round(b, 1) for b in busy]} ms (sum {sum(busy):.1f}), card "
+          f"idle share {max(0.0, 1 - sum(busy) / wall):.4f} (four "
+          f"processes' kernels summed, no overlap assumed); K5/K6 launches a "
+          f"rank: flash_fwd {tr[0]['launches']['flash_fwd']} (tc "
+          f"{tr[0]['launches']['flash_fwd.tc']}), flash_bwd_dq "
+          f"{tr[0]['launches']['flash_bwd_dq']}, flash_bwd_dkv "
+          f"{tr[0]['launches']['flash_bwd_dkv']}, at H=6; card {card}; "
+          f"world {world_s:.1f} s", flush=True)
+
+    tag = "train gpt hybrid parity"
+    p0 = ranks[0]["parity"]
+    for i, r in enumerate(ranks):
+        check(r["parity"]["losses"] == p0["losses"],
+              f"[{tag}] rank {i} losses {r['parity']['losses']}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(p0["losses"],
+                                               p0["serial_losses"])]
+    worst = max(p0["ratios"], key=p0["ratios"].get)
+    print(f"[{tag}] GPT-2-small fp32, global B={HYBRID_B} S={HYBRID_S}, "
+          "sharding2 x mp2 through DistributedRunner(sharding_stage=2) on 4 "
+          "ranks vs the single-process raw loop on the card, same numpy "
+          f"weights and batch, SGD lr {PARITY_LR}: losses "
+          f"{[round(v, 6) for v in p0['losses']]} vs "
+          f"{[round(v, 6) for v in p0['serial_losses']]} (relative "
+          f"{[f'{v:.2e}' for v in rel]}, tol {PARITY_LOSS_TOL}); step 1 "
+          f"gradients of {len(p0['ratios'])} leaves, worst "
+          f"{p0['ratios'][worst]:.3e} of the leaf's largest ({worst}; tol "
+          f"{PARITY_GRAD_TOL}); control (mp rank 1's shard of "
+          f"{p0['control_leaf']} x{PARITY_CONTROL}) {p0['control']:.3e} "
+          f"(must fail); K5/K6 at H=6 row stride 1152: forward errs "
+          f"{ {k: f'{v:.3e}' for k, v in p0['kernels']['fwd_err'].items()} }"
+          f", backward gate ratios "
+          f"{ {k: f'{v:.3e}' for k, v in p0['kernels']['bwd_ratios'].items()} }"
+          f"; peak allocated by rank "
+          f"{[round(_gib(r['parity']['peak'][0]), 3) for r in ranks]} GiB; "
+          f"card {card}", flush=True)
+    check(max(rel) <= PARITY_LOSS_TOL, f"[{tag}] losses part by {rel}")
+    check(p0["ratios"][worst] <= PARITY_GRAD_TOL,
+          f"[{tag}] {worst} gradient {p0['ratios'][worst]:.3e}")
+    check(p0["control"] > PARITY_GRAD_TOL,
+          f"[{tag}] the control passes ({p0['control']:.3e})")
+    return {k: sum(r["train"]["launches"][k] for r in ranks)
+            for k in tr[0]["launches"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -11075,6 +11640,8 @@ def main(argv=None) -> int:
     tensor_ops_phase(torch, args.seed)
     tensor_flash_phase(torch, args.seed)
     dyg = train_gpt_dygraph_phase(torch, args.seed, eager)
+    dist_nccl_phase(torch, args.seed)
+    hyb = hybrid_world_phase(torch, args.seed)
 
     k32, k16 = kres["fp32"], kres["bf16"]
     kernels = [{
@@ -11352,6 +11919,8 @@ def main(argv=None) -> int:
                 o1["black_launches"][name]
             entry["dygraph_launches"] = dyg["launches"][name]
             entry["dygraph_tc_launches"] = dyg["launches"][f"{name}.tc"]
+            entry["hybrid_launches"] = hyb[name]
+            entry["hybrid_tc_launches"] = hyb[f"{name}.tc"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -117,6 +117,10 @@ from .places import (CPUPlace, CUDAPinnedPlace, CUDAPlace,  # noqa: E402
                      is_compiled_with_xpu, set_device)
 from .tensor import Parameter, Tensor, is_tensor, to_tensor  # noqa: E402
 
+# -- the process world, collectives and Fleet (distributed/) -------------------
+from . import distributed  # noqa: E402
+from .distributed import DataParallel  # noqa: E402
+
 # every op of the catalogue is also a paddle.* function
 globals().update(OP_TABLE)
 broadcast_shape = ops.broadcast_shape
@@ -177,4 +181,5 @@ __all__ += ["Tensor", "Parameter", "to_tensor", "is_tensor", "autograd",
             "is_compiled_with_distribute", "disable_signal_handler",
             "batch", "get_rng_state", "set_rng_state",
             "get_cuda_rng_state", "set_cuda_rng_state", "primitive",
-            "apply_closure", "unwrap"] + sorted(OP_TABLE)
+            "apply_closure", "unwrap", "distributed",
+            "DataParallel"] + sorted(OP_TABLE)

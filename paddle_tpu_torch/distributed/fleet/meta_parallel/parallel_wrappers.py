@@ -1,0 +1,62 @@
+"""Model wrappers that ``fleet.distributed_model`` picks (counterpart of
+``paddle_tpu/distributed/fleet/meta_parallel/parallel_wrappers.py``;
+upstream ``meta_parallel/tensor_parallel.py``,
+``sharding_parallel.py``, ``pipeline_parallel.py``).
+
+``TensorParallel`` starts every rank from its group's first rank: the
+parameters that are not split over mp from the mp group's first rank,
+then every parameter from the dp group's and the sharding group's first
+rank (upstream's ``broadcast_*_parameters``).  The gradients are
+reduced by the hybrid optimizer (``fleet.distributed_optimizer``).
+``PipelineParallelWrapper`` waits for the pipeline slice.
+"""
+
+from __future__ import annotations
+
+from ...parallel import LayerWrapper
+from ..utils.hybrid_parallel_util import (broadcast_dp_parameters,
+                                          broadcast_mp_parameters,
+                                          broadcast_sharding_parameters)
+from .sharding_parallel import materialize_params
+
+PIPELINE_REFUSAL = (
+    "pipeline parallel (pp_degree > 1, PipelineLayer, PipelinedRunner) is "
+    "not ported yet: it comes with the next A10 slice (ROADMAP queue A, "
+    "item A10: pipeline_parallel.py and pp_layers)")
+
+
+class MetaParallelBase(LayerWrapper):
+    def __init__(self, layers, hcg, strategy):
+        super().__init__()
+        self._layers = layers
+        self._hcg = hcg
+        self._strategy = strategy
+
+    def forward(self, *inputs, **kwargs):
+        materialize_params(self._layers)
+        return self._layers(*inputs, **kwargs)
+
+
+class TensorParallel(MetaParallelBase):
+    """mp (with dp / sharding beside it)."""
+
+    def __init__(self, layers, hcg, strategy):
+        super().__init__(layers, hcg, strategy)
+        broadcast_mp_parameters(layers, hcg)
+        broadcast_dp_parameters(layers, hcg)
+        broadcast_sharding_parameters(layers, hcg)
+
+
+class ShardingParallel(MetaParallelBase):
+    """The sharding axis without mp: every rank from the sharding and dp
+    groups' first ranks."""
+
+    def __init__(self, layers, hcg, strategy):
+        super().__init__(layers, hcg, strategy)
+        broadcast_sharding_parameters(layers, hcg)
+        broadcast_dp_parameters(layers, hcg)
+
+
+class PipelineParallelWrapper(MetaParallelBase):
+    def __init__(self, layers, hcg, strategy):
+        raise NotImplementedError(PIPELINE_REFUSAL)

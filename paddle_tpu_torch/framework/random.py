@@ -18,6 +18,7 @@ step takes (the JAX engine's ``gen._counter += fold``).
 
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
@@ -100,3 +101,76 @@ def set_rng_state(state, device=None):
 
 get_cuda_rng_state = get_rng_state
 set_cuda_rng_state = set_rng_state
+
+
+class RNGStatesTracker:
+    """The model-parallel RNG tracker (``get_rng_state_tracker``; the
+    JAX package's ``RNGStatesTracker``): named seeds, ``global_seed``
+    shared by the ranks of an mp group and ``local_seed`` distinct per mp
+    rank.  ``rng_state(name)`` makes the named state the default
+    generator of ``device`` inside the context (one ``torch.Generator``
+    per name and device, seeded with the name's seed)."""
+
+    def __init__(self):
+        self.seeds_ = {}
+        self._gens = {}
+
+    def reset(self):
+        self.seeds_ = {}
+        self._gens = {}
+
+    def add(self, name: str, seed: int):
+        if seed in self.seeds_.values():
+            raise ValueError(f"seed {seed} already exists")
+        if name in self.seeds_:
+            raise ValueError(f"state {name} already exists")
+        self.seeds_[name] = int(seed)
+
+    def _generator(self, name, device) -> torch.Generator:
+        dev = torch.device(device)
+        gen = self._gens.get((name, dev))
+        if gen is None:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(self.seeds_[name])
+            self._gens[(name, dev)] = gen
+        return gen
+
+    def get_states_tracker(self):
+        return {key: g.get_state() for key, g in self._gens.items()}
+
+    def set_states_tracker(self, states):
+        for (name, dev), s in states.items():
+            self._generator(name, dev).set_state(s)
+
+    @contextlib.contextmanager
+    def rng_state(self, name: str = "global_seed", device="cpu"):
+        if name not in self.seeds_:
+            raise ValueError(f"state {name} does not exist")
+        dev = torch.device(device)
+        gen = self._generator(name, dev)
+        with _registry._lock:
+            orig = _registry._gens.get(dev)
+            _registry._gens[dev] = gen
+        try:
+            yield
+        finally:
+            with _registry._lock:
+                if orig is None:
+                    _registry._gens.pop(dev, None)
+                else:
+                    _registry._gens[dev] = orig
+
+
+_tracker = RNGStatesTracker()
+
+
+def get_rng_state_tracker() -> RNGStatesTracker:
+    return _tracker
+
+
+def model_parallel_random_seed(seed_: int, mp_rank: int = 0):
+    """Seed the tracker as fleet does: a shared global seed and a local
+    seed offset by the mp rank (the JAX package's offsets)."""
+    _tracker.reset()
+    _tracker.add("global_seed", seed_ + 100003)
+    _tracker.add("local_seed", seed_ + 2048 + mp_rank * 1024)

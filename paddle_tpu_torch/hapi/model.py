@@ -65,10 +65,11 @@ and optimizer state into each step, which the Layer tree re-syncs from
 at boundaries.  The port's parameters and optimizer states are live
 tensors updated in place, so there is nothing to sync.
 
-Not ported yet: training on a device mesh (``_mesh_runner``, ROADMAP
-queue A, item 10); the fit watchdog and the elastic and ``train.step``
-fault-site hooks (item 11); ``save(training=False)``, which is
-``jit.save`` (item 12).
+Not ported yet: training on a device mesh (``_mesh_runner``, the mesh
+branch of ROADMAP queue A, item A10; ``distributed.DistributedRunner``
+trains over ranks meanwhile); the fit watchdog and the elastic and
+``train.step`` fault-site hooks (item 11); ``save(training=False)``,
+which is ``jit.save`` (item 12).
 """
 
 from __future__ import annotations

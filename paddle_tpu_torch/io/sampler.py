@@ -7,8 +7,8 @@ between the packages from one seed; sequential orders are the same.
 
 ``DistributedBatchSampler`` keeps the upstream contract: pad to a
 multiple of the replicas, shard by rank, ``set_epoch`` reshuffles.  Its
-``rank`` and ``num_replicas`` are given explicitly until the port has a
-world to read them from (ROADMAP queue A, item 10).
+``rank`` and ``num_replicas`` default to the world's
+(``paddle_tpu_torch.distributed``).
 """
 
 from __future__ import annotations
@@ -120,7 +120,10 @@ class BatchSampler(Sampler):
 
 
 class DistributedBatchSampler(BatchSampler):
-    """Batches of this rank's share of the dataset: the indices (a
+    """Batches of this rank's share of the dataset (``rank`` and
+    ``num_replicas`` default to the world's: ``distributed.get_rank()`` /
+    ``get_world_size()``, from the env contract before a world starts):
+    the indices (a
     permutation drawn from a generator seeded with the epoch when
     ``shuffle``, so every rank draws the same one) padded to
     a multiple of ``num_replicas`` by repeating their head, then every
@@ -129,10 +132,10 @@ class DistributedBatchSampler(BatchSampler):
     def __init__(self, dataset, batch_size, num_replicas=None, rank=None,
                  shuffle=False, drop_last=False):
         if num_replicas is None or rank is None:
-            raise NotImplementedError(
-                "DistributedBatchSampler needs rank= and num_replicas= "
-                "until the port's distributed world is ported (ROADMAP "
-                "queue A, item 10)")
+            from ..distributed.parallel import get_rank, get_world_size
+            num_replicas = get_world_size() if num_replicas is None \
+                else num_replicas
+            rank = get_rank() if rank is None else rank
         if not 0 <= rank < num_replicas:
             raise ValueError(f"rank {rank} not in [0, {num_replicas})")
         self.dataset = dataset

@@ -7,6 +7,19 @@ keep Paddle's layout (``Linear`` weights ``[in, out]``) and Paddle's
 parameter names, so :func:`state_dict_from_jax` carries a JAX
 ``GPTForCausalLM.state_dict()`` over key for key.
 
+The layers are the tensor-parallel ones, as in the JAX model
+(``VocabParallelEmbedding``, ``ColumnParallelLinear`` /
+``RowParallelLinear``, ``ParallelCrossEntropy``).  Built after
+``fleet.init`` with ``mp_degree`` > 1, each rank holds its shard: its
+``num_attention_heads / mp`` heads (q, k and v of those heads in the
+qkv projection), its slice of the MLP and of the vocabulary, and the lm
+head computes that slice of the logits.  At mp 1 they are the plain
+layers, with the same names, layouts and initial draws.
+:func:`state_dict_from_jax` cuts a JAX state dict into a rank's shard,
+:func:`merge_mp_states` joins the shards again.
+``GPTConfig(recompute=True)`` recomputes each decoder layer in backward
+while training (``distributed.fleet.recompute``).
+
 The serving path consumes weights as a plain numpy tree (the layout of
 ``paddle_tpu``'s ``extract_decode_params``), loaded through
 ``inference.serving.decode_model.params_from_numpy``.
@@ -24,8 +37,15 @@ from torch import nn as tnn
 from .. import resolve_device
 from .. import nn
 from ..amp.auto_cast import cast_inputs
+from ..distributed import collective as _coll
+from ..distributed.fleet.meta_parallel import (ColumnParallelLinear,
+                                               ParallelCrossEntropy,
+                                               RowParallelLinear,
+                                               VocabParallelEmbedding)
+from ..distributed.fleet.meta_parallel.mp_ops import c_identity
+from ..distributed.fleet.recompute import recompute
 from ..framework import random as _random
-from ..nn.functional import cross_entropy, flash_attention
+from ..nn.functional import flash_attention
 from ..nn.layer import Layer
 from ..ops import activation as _activation
 from ..ops.flash_attention_kernel import flash_attention_reference
@@ -118,8 +138,8 @@ class GPTEmbeddings(Layer):
         super().__init__()
         device = resolve_device(device)
         kw = _layer_kw(config, device, generator)
-        self.word_embeddings = nn.Embedding(config.vocab_size,
-                                            config.hidden_size, **kw)
+        self.word_embeddings = VocabParallelEmbedding(
+            config.vocab_size, config.hidden_size, **kw)
         self.position_embeddings = nn.Embedding(
             config.max_position_embeddings, config.hidden_size, **kw)
         self.dropout = nn.Dropout(config.hidden_dropout_prob)
@@ -137,24 +157,31 @@ class GPTEmbeddings(Layer):
 class GPTAttention(Layer):
     """Causal self-attention.  q, k and v are strided ``[B, S, H, D]``
     views of the fused qkv projection (no transpose copy); the flash
-    kernels read them in place."""
+    kernels read them in place.  Under mp, ``H`` is this rank's heads."""
 
     def __init__(self, config: GPTConfig, device=None, generator=None):
         super().__init__()
         device = resolve_device(device)
-        self.num_heads = config.num_attention_heads
+        mp = _coll.model_parallel_degree()
+        if config.num_attention_heads % mp:
+            raise ValueError(f"{config.num_attention_heads} heads do not "
+                             f"split over mp degree {mp}")
+        self.num_heads = config.num_attention_heads // mp
         self.head_dim = config.hidden_size // config.num_attention_heads
-        self.hidden_size = config.hidden_size
+        self.hidden_size = self.num_heads * self.head_dim
         self.use_flash = config.use_flash_attention
         self.attn_drop = config.attention_probs_dropout_prob
         kw = _layer_kw(config, device, generator)
-        self.qkv_proj = nn.Linear(config.hidden_size,
-                                  3 * config.hidden_size, **kw)
-        self.out_proj = nn.Linear(config.hidden_size, config.hidden_size,
-                                  **kw)
+        self.qkv_proj = ColumnParallelLinear(
+            config.hidden_size, 3 * config.hidden_size, gather_output=False,
+            **kw)
+        self.out_proj = RowParallelLinear(
+            config.hidden_size, config.hidden_size, input_is_parallel=True,
+            **kw)
 
     def forward(self, x):
-        b, s, h = x.shape
+        b, s, _ = x.shape
+        h = self.hidden_size
         qkv = self.qkv_proj(x).view(b, s, 3, self.num_heads, self.head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         if self.use_flash:
@@ -174,10 +201,12 @@ class GPTMLP(Layer):
         super().__init__()
         device = resolve_device(device)
         kw = _layer_kw(config, device, generator)
-        self.fc1 = nn.Linear(config.hidden_size, config.intermediate_size,
-                             **kw)
-        self.fc2 = nn.Linear(config.intermediate_size, config.hidden_size,
-                             **kw)
+        self.fc1 = ColumnParallelLinear(
+            config.hidden_size, config.intermediate_size,
+            gather_output=False, **kw)
+        self.fc2 = RowParallelLinear(
+            config.intermediate_size, config.hidden_size,
+            input_is_parallel=True, **kw)
 
     def forward(self, x):
         return self.fc2(_activation.gelu(self.fc1(x), approximate=True))
@@ -187,10 +216,7 @@ class GPTDecoderLayer(Layer):
     def __init__(self, config: GPTConfig, device=None, generator=None):
         super().__init__()
         device = resolve_device(device)
-        if config.recompute:
-            raise NotImplementedError(
-                "GPTConfig(recompute=True) needs fleet recompute, not "
-                "ported yet (ROADMAP queue A, item 10)")
+        self._recompute = config.recompute
         eps = config.layer_norm_epsilon
         self.ln1 = nn.LayerNorm(config.hidden_size, epsilon=eps,
                                 device=device)
@@ -201,10 +227,15 @@ class GPTDecoderLayer(Layer):
         self.dropout1 = nn.Dropout(config.hidden_dropout_prob)
         self.dropout2 = nn.Dropout(config.hidden_dropout_prob)
 
-    def forward(self, x):
+    def _block(self, x):
         x = x + self.dropout1(self.attn(self.ln1(x)))
         x = x + self.dropout2(self.mlp(self.ln2(x)))
         return x
+
+    def forward(self, x):
+        if self._recompute and self.training:
+            return recompute(self._block, x)
+        return self._block(x)
 
 
 class GPTModel(Layer):
@@ -255,6 +286,10 @@ class GPTForCausalLM(Layer):
         hidden = self.gpt(input_ids, position_ids)
         if self.skip_lm_head:
             return hidden
+        emb = self.gpt.embeddings.word_embeddings
+        if emb._group is not None:
+            # this rank's vocabulary slice of the logits
+            hidden = c_identity(hidden, emb._group)
         # the JAX head is ``ops.matmul``, which auto_cast casts
         hidden, w = cast_inputs("matmul", hidden, self.lm_weight())
         return torch.matmul(hidden, w.t())
@@ -276,14 +311,14 @@ class GPTPretrainingCriterion(Layer):
     def __init__(self, config: Optional[GPTConfig] = None,
                  lm_weight_fn=None):
         super().__init__()
+        self.loss_fn = ParallelCrossEntropy()
         self._lm_weight_fn = lm_weight_fn
 
     def forward(self, logits, labels, loss_mask=None):
         if self._lm_weight_fn is not None:
             loss = self._fused_loss(logits, labels)
         else:
-            loss = cross_entropy(logits, labels, ignore_index=-100,
-                                 reduction="none")
+            loss = self.loss_fn(logits, labels)
         if loss_mask is not None:
             loss_mask = loss_mask.to(loss.dtype)
             return (loss * loss_mask).sum() / loss_mask.sum().clamp_min(1e-9)
@@ -302,19 +337,97 @@ def enable_fused_lmce(model: GPTForCausalLM,
     """Switch the (model, criterion) pair to the fused lm-head
     cross-entropy path (the JAX package's ``PADDLE_TPU_FUSED_LMCE``
     configuration).  The kernel's ``dw`` reaches the tied embedding
-    ``Parameter`` through autograd, beside the lookup's gradient."""
+    ``Parameter`` through autograd, beside the lookup's gradient.  Under
+    mp > 1 it refuses: the vocab-parallel fused loss comes with the next
+    A10 slice."""
+    if model.gpt.embeddings.word_embeddings._group is not None:
+        raise NotImplementedError(
+            "enable_fused_lmce at mp > 1: the fused lm-head cross-entropy "
+            "over a vocabulary split across ranks is not ported yet; it "
+            "comes with the next A10 slice (ROADMAP queue A, item A10)")
     model.skip_lm_head = True
     criterion._lm_weight_fn = model.lm_weight
     return model, criterion
 
 
-def state_dict_from_jax(numpy_state, cfg: GPTConfig) -> dict:
+def _mp_kind(name: str):
+    """How the tensor ``name`` splits over mp: ``"vocab"`` / ``"row"``
+    on dim 0, ``"col"`` on its last dim, ``"qkv"`` on the heads of each
+    of q, k and v, None when replicated."""
+    if name.endswith("word_embeddings.weight"):
+        return "vocab"
+    if ".attn.qkv_proj." in name:
+        return "qkv"
+    if name.endswith(".mlp.fc1.weight") or name.endswith(".mlp.fc1.bias"):
+        return "col"
+    if name.endswith(".attn.out_proj.weight") or \
+            name.endswith(".mlp.fc2.weight"):
+        return "row"
+    return None
+
+
+def _mp_slice(name, arr, rank, degree, heads):
+    kind = _mp_kind(name)
+    if kind is None or degree == 1:
+        return arr
+    if kind in ("vocab", "row"):
+        n = arr.shape[0] // degree
+        return arr[rank * n:(rank + 1) * n]
+    if kind == "col":
+        n = arr.shape[-1] // degree
+        return arr[..., rank * n:(rank + 1) * n]
+    lead = arr.shape[:-1]
+    hd = arr.shape[-1] // (3 * heads)
+    per = heads // degree
+    view = arr.reshape(lead + (3, heads, hd))
+    return view[..., rank * per:(rank + 1) * per, :].reshape(
+        lead + (3 * per * hd,))
+
+
+def merge_mp_states(states, cfg: GPTConfig) -> dict:
+    """One state (numpy arrays, or torch tensors) from the shards of the
+    mp ranks ``states[0..mp-1]`` (the reverse of
+    :func:`state_dict_from_jax`'s cut); replicated entries are rank 0's.
+    The gradients of the shards join the same way."""
+    degree = len(states)
+    heads = cfg.num_attention_heads
+    out = {}
+    for name in states[0]:
+        parts = [np.asarray(st[name].detach().float().cpu().numpy()
+                            if isinstance(st[name], torch.Tensor)
+                            else st[name]) for st in states]
+        kind = _mp_kind(name)
+        if kind is None or degree == 1:
+            out[name] = parts[0]
+        elif kind in ("vocab", "row"):
+            out[name] = np.concatenate(parts, axis=0)
+        elif kind == "col":
+            out[name] = np.concatenate(parts, axis=-1)
+        else:
+            lead = parts[0].shape[:-1]
+            per = heads // degree
+            hd = parts[0].shape[-1] // (3 * per)
+            out[name] = np.concatenate(
+                [p.reshape(lead + (3, per, hd)) for p in parts],
+                axis=-2).reshape(lead + (3 * heads * hd,))
+    return out
+
+
+def state_dict_from_jax(numpy_state, cfg: GPTConfig, mp_rank: int = 0,
+                        mp_degree: int = 1) -> dict:
     """The port's ``GPTForCausalLM`` state dict from the JAX package's
     ``GPTForCausalLM.state_dict()`` with each value as a numpy array.
     Names and layouts are the same in both packages: ``Linear`` weights
     stay ``[in, out]``, embeddings ``[num, dim]``, norms and biases
     ``[dim]``.  The lm head is the word embedding in both, so there is
     no separate head entry and the tie survives ``load_state_dict``.
+
+    With ``mp_degree`` > 1 the JAX package's full arrays are cut into
+    rank ``mp_rank``'s shard: the word embedding on its vocabulary rows,
+    the column-parallel weights and biases (``qkv_proj`` by heads: the
+    rank's heads of q, of k and of v; ``fc1``) on their output columns,
+    the row-parallel weights (``out_proj``, ``fc2``) on their input
+    rows; everything else whole.  At mp 1 it is the whole state.
     Raises on a missing, extra or misshapen entry; ``load_state_dict``
     then copies each value to the model's device."""
     expected = _expected_shapes(cfg)
@@ -328,7 +441,9 @@ def state_dict_from_jax(numpy_state, cfg: GPTConfig) -> dict:
         arr = np.asarray(numpy_state[name])
         if tuple(arr.shape) != shape:
             raise ValueError(f"{name}: shape {tuple(arr.shape)} != {shape}")
-        out[name] = torch.as_tensor(arr)
+        part = _mp_slice(name, arr, mp_rank, mp_degree,
+                         cfg.num_attention_heads)
+        out[name] = torch.as_tensor(np.ascontiguousarray(part))
     return out
 
 

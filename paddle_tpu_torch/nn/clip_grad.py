@@ -116,9 +116,10 @@ class ClipGradByNorm(ClipGradBase):
 
 class ClipGradByGlobalNorm(ClipGradBase):
     """Every gradient scaled by ``clip_norm / max(global_norm,
-    clip_norm)``.  ``_comm_hook`` (None here) would sum the squares
-    across a mesh's groups first, as the JAX package's hybrid-parallel
-    optimizer does; the mesh runner is ROADMAP queue A, item 10."""
+    clip_norm)``.  ``_comm_hook``, when set, sums the squares across
+    ranks first; under hybrid parallel the fleet optimizer clips by the
+    whole model's norm itself (``distributed/fleet/meta_optimizers/
+    dygraph_optimizer.py::HybridUpdate``)."""
 
     def __init__(self, clip_norm, group_name="default_group",
                  auto_skip_clip=False):

@@ -2,8 +2,8 @@
 ``paddle_tpu/nn/functional``): re-exports of the port's ops, which take
 torch tensors or Paddle ``Tensor`` s and give back the same kind.
 ``ring_flash_attention`` and ``ulysses_attention`` (context-parallel
-attention over a mesh axis) come with the distributed slice (ROADMAP
-A10)."""
+attention over the sep axis) come with the context-parallel slice of
+ROADMAP A10."""
 
 import torch
 

@@ -134,9 +134,8 @@ class BatchNorm3D(_BatchNormBase):
 
 class SyncBatchNorm(_BatchNormBase):
     """The JAX package's alias of BatchNorm: the statistics are the local
-    batch's, and ``convert_sync_batchnorm`` returns the layer as it is.
-    Statistics across processes come with the distributed slice (ROADMAP
-    A10)."""
+    batch's (on every rank of a world too, as the JAX alias keeps them),
+    and ``convert_sync_batchnorm`` returns the layer as it is."""
 
     @classmethod
     def convert_sync_batchnorm(cls, layer):

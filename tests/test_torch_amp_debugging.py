@@ -25,6 +25,7 @@ from paddle_tpu.tensor import Tensor as JTensor
 from paddle_tpu_torch import amp as tamp
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch.amp import debugging as TD
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 
 def _x():

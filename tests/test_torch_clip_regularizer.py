@@ -30,6 +30,7 @@ import paddle_tpu_torch as tpaddle
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch import regularizer as treg
 from paddle_tpu_torch.nn import utils as tutils
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 RTOL, ATOL = 1e-6, 1e-7
 SHAPES = [(4, 3), (3,), (2, 5, 2)]

@@ -19,6 +19,7 @@ from paddle_tpu.tensor import Tensor as JTensor
 import chip_smoke
 import paddle_tpu_torch as tpaddle
 from paddle_tpu_torch import nn as tnn
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 CPU = "cpu"
 B, H, W, L, CLASSES, HIDDEN = 4, 16, 32, 5, 11, 32

@@ -34,6 +34,7 @@ from paddle_tpu_torch import _build
 from paddle_tpu_torch.inference.serving import paged_attention_kernel as pak
 from paddle_tpu_torch.ops import flash_attention_kernel as fk
 from paddle_tpu_torch.ops import lmce_kernel as lk
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "cuda_emu"))
 import emulate  # noqa: E402

@@ -39,6 +39,7 @@ import paddle_tpu_torch as tpaddle
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch.hapi.callbacks import Callback as TCallback
 from paddle_tpu_torch.models import bert as tbert
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 TOL = 2e-5
 PARAM_TOL = 2e-6

@@ -38,6 +38,7 @@ from paddle_tpu_torch.models import (GPTForCausalLM, GPTPretrainingCriterion,
                                      gpt_tiny, state_dict_from_jax)
 from paddle_tpu_torch.nn.functional import flash_attention
 from paddle_tpu_torch.ops import flash_attention_kernel as fk
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 OUT_TOL = dict(rtol=2e-4, atol=2e-5)
 GRAD_TOL = dict(rtol=5e-4, atol=5e-5)

@@ -40,6 +40,7 @@ import jax.numpy as jnp
 from paddle_tpu.ops import pallas_ops
 
 from paddle_tpu_torch.ops import flash_attention_kernel as fk
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 SAME_MIN = 0.98
 DTYPES = {"bf16": (torch.bfloat16, jnp.bfloat16),

@@ -35,6 +35,7 @@ import jax.numpy as jnp
 from paddle_tpu.ops import pallas_ops
 
 from paddle_tpu_torch.ops import flash_attention_kernel as fk
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 MAX_TOL = 5e-3      # x max(|ref|, 1), one bf16 ulp of the output
 MEAN_TOL = 1e-4

@@ -40,6 +40,7 @@ from paddle_tpu.ops import pallas_lmce as L
 
 from paddle_tpu_torch.ops import flash_attention_kernel as fk
 from paddle_tpu_torch.ops import lmce_kernel as lk
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:

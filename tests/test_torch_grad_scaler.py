@@ -25,6 +25,7 @@ from paddle_tpu.tensor import Tensor as JTensor
 import paddle_tpu_torch as tpaddle
 from paddle_tpu_torch import amp as tamp
 from paddle_tpu_torch import nn as tnn
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 
 def _fc_pair(n=4, seed=0):

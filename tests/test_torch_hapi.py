@@ -41,6 +41,7 @@ from paddle_tpu_torch.hapi.callbacks import Callback, EarlyStopping
 from paddle_tpu_torch.io import DataLoader, TensorDataset
 from paddle_tpu_torch.vision.models import LeNet, resnet18
 from paddle_tpu_torch.vision.models import vision_state_dict_from_jax
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 TOL = 2e-5
 PARAM_TOL = 2e-6

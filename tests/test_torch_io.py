@@ -25,6 +25,7 @@ import paddle_tpu_torch as tpaddle
 from paddle_tpu_torch import io as tio
 from paddle_tpu_torch.io import staging
 from paddle_tpu_torch.vision import datasets as tdatasets
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 SYNTH_N = 48
 
@@ -115,8 +116,11 @@ def test_distributed_batch_sampler_orders_equal_jax(drop_last):
         j = jio.DistributedBatchSampler(ds, 2, num_replicas=3, rank=rank,
                                         drop_last=drop_last)
         assert list(t) == list(j) and len(t) == len(j)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tio.DistributedBatchSampler(ds, 2)
+    # rank and num_replicas default to the world's (one process: 0 of 1)
+    t = tio.DistributedBatchSampler(ds, 2, drop_last=drop_last)
+    j = jio.DistributedBatchSampler(ds, 2, drop_last=drop_last)
+    assert (t.nranks, t.local_rank) == (1, 0)
+    assert list(t) == list(j) and len(t) == len(j)
 
 
 def test_shuffled_orders_are_permutations_and_seeded():

@@ -8,6 +8,7 @@ import sys
 
 import pytest
 import torch
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "paddle_tpu_torch")
@@ -56,6 +57,15 @@ def test_import_pulls_in_no_jax():
         "import paddle_tpu_torch.ops.math, paddle_tpu_torch.ops.manipulation\n"
         "import paddle_tpu_torch.ops.logic, paddle_tpu_torch.ops.linalg\n"
         "import paddle_tpu_torch.ops.array_ops\n"
+        "import paddle_tpu_torch.distributed.fleet\n"
+        "import paddle_tpu_torch.distributed.fleet.meta_parallel.mp_ops\n"
+        "import paddle_tpu_torch.distributed.fleet.meta_optimizers\n"
+        "import paddle_tpu_torch.distributed.fleet.recompute\n"
+        "import paddle_tpu_torch.distributed.fleet.utils\n"
+        "import paddle_tpu_torch.distributed.sharding\n"
+        "import paddle_tpu_torch.distributed.runner\n"
+        "import paddle_tpu_torch.distributed.spawn\n"
+        "import paddle_tpu_torch.distributed.stream\n"
         "paddle_tpu_torch.set_device('cpu')\n"
         "x = paddle_tpu_torch.to_tensor([1.0, 2.0], stop_gradient=False)\n"
         "(x * x).sum().backward()\n"
@@ -70,6 +80,16 @@ def test_import_pulls_in_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_spawned_ranks_import_no_jax(tmp_path_factory):
+    """The ranks ``distributed.spawn`` starts (the collectives world of
+    ``tests/test_torch_dist_collectives.py``) load neither JAX nor the
+    JAX package."""
+    from torch_dist_workers import shared_world
+    ranks = shared_world(tmp_path_factory, "collectives",
+                         "collectives_world", 4, dict, timeout=240)
+    assert [r["foreign_modules"] for r in ranks] == [[]] * 4
+
+
 def _port_sources():
     for root, _, files in os.walk(PORT):
         if "_build" in root.split(os.sep):
@@ -79,7 +99,8 @@ def _port_sources():
                 yield os.path.join(root, f)
     for script in ("chip_smoke.py", "chip_ab.py", "chip_lmce_ablation.py",
                    "chip_fused_variants.py", "chip_profiler_lag.py",
-                   "chip_nms_ties.py", "chip_conv_routes.py"):
+                   "chip_nms_ties.py", "chip_conv_routes.py",
+                   "tests/torch_dist_workers.py"):
         yield os.path.join(REPO, script)
 
 
@@ -101,7 +122,21 @@ def test_no_source_names_jax_or_the_jax_package():
                 "autograd/py_layer.py", "autograd/functional.py",
                 "ops/_primitive.py", "ops/creation.py", "ops/math.py",
                 "ops/manipulation.py", "ops/logic.py", "ops/linalg.py",
-                "ops/array_ops.py", "ops/activation.py", "ops/__init__.py"):
+                "ops/array_ops.py", "ops/activation.py", "ops/__init__.py",
+                "distributed/parallel.py", "distributed/communication.py",
+                "distributed/stream.py", "distributed/collective.py",
+                "distributed/spawn.py", "distributed/runner.py",
+                "distributed/sharding/__init__.py",
+                "distributed/fleet/fleet.py",
+                "distributed/fleet/base/topology.py",
+                "distributed/fleet/base/distributed_strategy.py",
+                "distributed/fleet/meta_parallel/mp_layers.py",
+                "distributed/fleet/meta_parallel/mp_ops.py",
+                "distributed/fleet/meta_parallel/parallel_wrappers.py",
+                "distributed/fleet/meta_parallel/sharding_parallel.py",
+                "distributed/fleet/meta_optimizers/dygraph_optimizer.py",
+                "distributed/fleet/recompute/__init__.py",
+                "distributed/fleet/utils/hybrid_parallel_util.py"):
         assert os.path.join(PORT, mod) in sources, mod
     for path in sources:
         with open(path, encoding="utf-8") as fh:

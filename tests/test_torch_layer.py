@@ -26,6 +26,7 @@ import paddle_tpu_torch as tpaddle
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch.nn import functional_call as tfc
 from paddle_tpu_torch.nn.layer import Layer, structure_version
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 CPU = "cpu"
 

@@ -10,6 +10,7 @@ import torch
 
 import paddle_tpu_torch as paddle
 from paddle_tpu_torch import nn
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 
 @pytest.fixture

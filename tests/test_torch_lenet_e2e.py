@@ -14,6 +14,7 @@ from paddle_tpu_torch import nn, optimizer
 from paddle_tpu_torch.io import DataLoader
 from paddle_tpu_torch.vision.datasets import MNIST
 from paddle_tpu_torch.vision.models import LeNet
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 pytestmark = pytest.mark.slow
 

@@ -40,6 +40,7 @@ from paddle_tpu_torch.models import (GPTForCausalLM, GPTPretrainingCriterion,
                                      state_dict_from_jax)
 from paddle_tpu_torch.ops import flash_attention_kernel as fk
 from paddle_tpu_torch.ops import lmce_kernel as lk
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 LOSS_TOL = dict(rtol=2e-5, atol=2e-5)
 GRAD_TOL = dict(rtol=2e-4, atol=2e-4)

@@ -38,6 +38,7 @@ import jax.numpy as jnp
 from paddle_tpu.ops import pallas_lmce as L
 
 from paddle_tpu_torch.ops import lmce_kernel as lk
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:

@@ -22,6 +22,7 @@ from paddle_tpu import nn as jnn
 
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch.nn import functional as TF
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 TOL = 1e-5
 

@@ -21,6 +21,7 @@ from paddle_tpu.optimizer import lr as jlr
 
 import paddle_tpu_torch as tpaddle
 from paddle_tpu_torch.optimizer import lr as tlr
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 STEPS = 50
 

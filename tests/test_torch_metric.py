@@ -18,6 +18,7 @@ from paddle_tpu import metric as jmetric
 from paddle_tpu.tensor import Tensor as JTensor
 
 from paddle_tpu_torch import metric as tmetric
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 TOL = 1e-7
 B, C, BATCHES = 32, 10, 3

@@ -6,6 +6,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch import nn
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 LAYERS = {
     "Linear": lambda **kw: nn.Linear(4, 3, init_std=0.02, **kw),

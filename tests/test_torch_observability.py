@@ -38,6 +38,7 @@ from paddle_tpu_torch.observability import export as texport
 from paddle_tpu_torch.observability import http as thttp
 from paddle_tpu_torch.observability import metrics as tmetrics
 from paddle_tpu_torch.observability import trace as ttrace
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

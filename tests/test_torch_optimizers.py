@@ -27,6 +27,7 @@ from paddle_tpu.tensor import Parameter as JParameter
 
 import paddle_tpu_torch as tpaddle
 from paddle_tpu_torch import nn as tnn
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 TOL = 1e-6
 SHAPES = [(4, 3), (3,), (2, 5, 2)]

@@ -21,6 +21,7 @@ from paddle_tpu.inference.serving.paged_attention_kernel import (
 
 from paddle_tpu_torch.inference.serving import paged_attention_kernel as pak
 from paddle_tpu_torch.inference.serving import paged_decode_attention
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 TOL = 2e-6
 

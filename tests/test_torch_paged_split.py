@@ -28,6 +28,7 @@ from paddle_tpu.inference.serving.paged_attention_kernel import (
     paged_ragged_attention as jax_paged_ragged_attention)
 
 from paddle_tpu_torch.inference.serving import paged_attention_kernel as pak
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 TOL = 2e-6
 H, Dh, MAXNB = 2, 8, 8

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch import io as tio
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 
 def _loader(workers=0):

@@ -19,6 +19,7 @@ from paddle_tpu.tensor import Tensor as JTensor
 
 import paddle_tpu_torch as tpaddle
 from paddle_tpu_torch import nn as tnn
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 CPU = "cpu"
 FWD, GRAD = 1e-5, 1e-4

@@ -35,6 +35,7 @@ from paddle_tpu_torch.inference.serving.router import (_delta_quantile,
                                                        _window_cum)
 from paddle_tpu_torch.observability import events as obs_events
 from paddle_tpu_torch.observability import metrics as obs_metrics
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -32,6 +32,7 @@ from paddle_tpu_torch.inference.serving import (
     gather_pages, paged_append, params_from_numpy, prefill_group_forward,
     ragged_decode_attention, reference_decode, write_prompt_pages_group)
 from paddle_tpu_torch.models import gpt_tiny as torch_gpt_tiny
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 ATTN_TOL = 2e-6
 LOGIT_TOL = 1e-5

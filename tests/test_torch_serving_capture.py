@@ -29,6 +29,7 @@ from paddle_tpu_torch.inference.serving import (
     params_from_numpy, reference_decode, sample_tokens)
 from paddle_tpu_torch.inference.serving import paged_attention_kernel as pak
 from paddle_tpu_torch.inference.serving.sampling import noise_bits
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -35,6 +35,7 @@ from paddle_tpu_torch.inference.serving import (
     ServingRouter, gather_request_pages, params_from_numpy,
     scatter_request_pages)
 from paddle_tpu_torch.observability import metrics as tmetrics
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

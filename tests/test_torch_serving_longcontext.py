@@ -36,6 +36,7 @@ from paddle_tpu_torch.inference.serving import (
     BlockAllocator, DecodeEngine, OutOfBlocks, PrefixCache, SCRATCH_BLOCK,
     ServingModelConfig, chunk_prefill_forward, chunked_prefill_attention,
     params_from_numpy, reference_decode)
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 ATTN_TOL = 2e-6
 LOGIT_TOL = 1e-5

@@ -38,6 +38,7 @@ from paddle_tpu_torch.inference.serving import (
 from paddle_tpu_torch.inference.serving import paged_attention_kernel as pak
 from paddle_tpu_torch.models import GPTForCausalLM, state_dict_from_jax
 from paddle_tpu_torch.models import gpt_tiny as torch_gpt_tiny
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 LOGIT_TOL = 1e-5          # 2-layer fp32 forward, two libraries' sum orders
 K = 4

@@ -38,6 +38,7 @@ from paddle_tpu_torch.hapi.callbacks import Callback as TCallback
 from paddle_tpu_torch.models import (GPTForCausalLM, GPTPretrainingCriterion,
                                      gpt_tiny, state_dict_from_jax)
 from paddle_tpu_torch.ops import flash_attention_kernel as fk
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 TOL = 2e-5
 PARAM_TOL = 2e-6

@@ -37,6 +37,7 @@ from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch.hapi.callbacks import LRSchedulerCallback
 from paddle_tpu_torch.nn.transformer import _clone_layer
 from paddle_tpu_torch.ops import nn_ops as tops
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 CPU = "cpu"
 FWD, GRAD, BF16, PARAM = 1e-5, 1e-4, 5e-2, 1e-4

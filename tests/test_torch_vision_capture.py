@@ -17,6 +17,7 @@ from paddle_tpu_torch.hapi.callbacks import Callback
 from paddle_tpu_torch.ops import nn_ops
 from paddle_tpu_torch.vision import models as TM
 from paddle_tpu_torch.vision import ops as vops
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 VIT = dict(img_size=32, patch_size=8, embed_dim=64, depth=2, num_heads=4,
            num_classes=4)

@@ -37,6 +37,7 @@ from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.nn import initializer as tinit
 from paddle_tpu_torch.ops import activation as tact
 from paddle_tpu_torch.ops import manipulation as tmanip
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 FWD_TOL = 1e-5
 GRAD_TOL = 1e-4

@@ -36,6 +36,7 @@ from paddle_tpu.vision.models import ppyoloe as JP
 from paddle_tpu_torch.vision import models as TM
 from paddle_tpu_torch.vision import ops as TOPS
 from paddle_tpu_torch.vision.models import ppyoloe as TP
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 FWD_TOL = 1e-5
 GRAD_TOL = 1e-4

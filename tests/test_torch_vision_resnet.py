@@ -41,6 +41,8 @@ from paddle_tpu.vision import models as JM
 
 import paddle_tpu_torch as tpaddle
 from paddle_tpu_torch.vision import models as TM
+from torch_parity_helpers import session_shared
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 FWD_TOL = 1e-5
 TOL = 1e-4
@@ -198,10 +200,20 @@ def _states(jnet, net):
 
 
 @pytest.fixture(scope="module")
-def o2_pair(built):
+def o2_pair(built, tmp_path_factory):
+    """:func:`_o2_run` once a session for the model, whichever workers run
+    the three tests that read it (``session_shared``)."""
+    return session_shared(tmp_path_factory, f"o2_pair-{built[0]}",
+                          lambda: _o2_run(built))
+
+
+def _o2_run(built):
     """A fresh JAX model (O2 changes its dtypes for good) and the port's
     through three bf16 O2 fit steps, as one fit of one step and one of
-    two: the states after the first step and after the third."""
+    two: the states after the first step and after the third, each
+    parameter's move, and what the O2 setup left on the port's model
+    (its dtypes, the optimizer's masters, the graph key, the amp state),
+    all as plain values."""
     name, _, state = built
     jpaddle.seed(0)
     jnet = getattr(JM, name)(num_classes=CLASSES)
@@ -230,9 +242,15 @@ def o2_pair(built):
     jlosses += _jax_fit(jmodel, batches[1:])
     losses += _fit(model, batches[1:])
     hook.remove()
-    return dict(net=net, model=model, losses=(losses, jlosses),
-                first=first, third=_states(jnet, net),
-                moved=_moved(state, jnet, jopt, net, opt), fc_in=fc_in)
+    masters = [(st["master_weight"].dtype, st["velocity"].dtype)
+               for st in model._optimizer._state.values()
+               if "master_weight" in st]
+    return dict(losses=(losses, jlosses), first=first,
+                third=_states(jnet, net),
+                moved=_moved(state, jnet, jopt, net, opt), fc_in=fc_in,
+                dtypes={k: v.dtype for k, v in net.state_dict().items()},
+                masters=masters, graph_keys=list(model._graphs),
+                amp_enabled=tpaddle.amp.amp_state()["enabled"])
 
 
 def _moved(init, jnet, jopt, net, opt):
@@ -311,21 +329,18 @@ def test_bf16_o2_fit_moves_every_parameter_as_jax_does(o2_pair):
 
 
 def test_bf16_o2_keeps_fp32_masters_norms_and_the_amp_key(o2_pair):
-    net, model = o2_pair["net"], o2_pair["model"]
-    assert net.conv1.weight.dtype == net.fc.weight.dtype == torch.bfloat16
-    assert net.bn1.weight.dtype == net.bn1._mean.dtype == torch.float32
-    opt = model._optimizer
-    masters = [st for st in opt._state.values() if "master_weight" in st]
-    assert masters and all(st["master_weight"].dtype == torch.float32
-                           and st["velocity"].dtype == torch.float32
-                           for st in masters)
-    (key,) = model._graphs
+    dtypes = o2_pair["dtypes"]
+    assert dtypes["conv1.weight"] == dtypes["fc.weight"] == torch.bfloat16
+    assert dtypes["bn1.weight"] == dtypes["bn1._mean"] == torch.float32
+    masters = o2_pair["masters"]
+    assert masters and all(m == v == torch.float32 for m, v in masters)
+    (key,) = o2_pair["graph_keys"]
     assert key[-2:] == ("O2", "bfloat16")
     # the forward ran under auto_cast (without it the fp32 images meet
     # the bf16 stem and every activation after it is fp32) and left no
     # state behind
     assert o2_pair["fc_in"] == {torch.bfloat16}
-    assert not tpaddle.amp.amp_state()["enabled"]
+    assert not o2_pair["amp_enabled"]
 
 
 @pytest.fixture

@@ -47,6 +47,7 @@ from paddle_tpu_torch.ops import activation as TA
 from paddle_tpu_torch.ops import manipulation as TMAN
 from paddle_tpu_torch.ops import nn_ops as TN
 from paddle_tpu_torch.vision import models as TM
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 FWD_TOL = 1e-5
 GRAD_TOL = 5e-4

@@ -20,6 +20,7 @@ from paddle_tpu.tensor import Tensor as JTensor
 from paddle_tpu.vision import models as JM
 
 from paddle_tpu_torch.vision import models as TM
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 FWD_TOL = 1e-5
 

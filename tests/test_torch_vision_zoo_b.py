@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 
 from test_torch_vision_zoo_a import _forward_both, check_family
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("name,size", [

@@ -9,6 +9,7 @@ import torch
 
 from paddle_tpu_torch.vision import models as TM
 from test_torch_vision_zoo_a import _close, _forward_both, check_family
+from torch_parity_helpers import torch_one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("name,size,channels", [

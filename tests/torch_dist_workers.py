@@ -1,0 +1,635 @@
+"""The rank side of the port's multi-rank tests (not a test module).
+
+Spawned ranks import this module, torch and ``paddle_tpu_torch`` only,
+never JAX or the JAX package: the tests that hold them against the JAX
+package run that side in the test process.  Each rank runs torch on one
+thread.
+
+``shared_world`` runs one gloo world of CPU processes for a test file
+and hands its results (numpy, by rank) to every test of the file: the
+first xdist worker that needs it spawns the world under a file lock in
+the session's shared temporary directory, the others read what it
+wrote, so a file's world runs once whichever workers its tests land on.
+Every world has its own timeout: a hung world fails its tests and ends
+its processes.
+"""
+
+import os
+import pickle
+import sys
+import time
+
+import numpy as np
+
+THREADS_ENV = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
+CONTRACT = ("PADDLE_TRAINER_ID", "PADDLE_TRAINERS_NUM",
+            "PADDLE_TRAINER_ENDPOINTS", "PADDLE_CURRENT_ENDPOINT",
+            "PADDLE_MASTER")
+
+
+def _one_thread():
+    import torch
+    torch.set_num_threads(1)
+    torch.set_num_interop_threads(1)
+
+
+def _foreign_modules():
+    return sorted(m for m in sys.modules if m in ("jax", "paddle_tpu")
+                  or m.startswith(("jax.", "paddle_tpu.")))
+
+
+def _entry(fn_name, indir, outdir):
+    """A rank: one thread, the CPU place, ``fn_name(paddle, inputs)``;
+    its result (with the env it saw and the JAX modules loaded, which
+    must be none) pickled to ``outdir/rank<r>.pkl``."""
+    _one_thread()
+    env = {k: os.environ.get(k) for k in CONTRACT}
+    import paddle_tpu_torch as paddle
+    paddle.set_device("cpu")
+    with open(os.path.join(indir, "inputs.pkl"), "rb") as f:
+        inputs = pickle.load(f)
+    res = globals()[fn_name](paddle, inputs)
+    res["env"] = env
+    res["foreign_modules"] = _foreign_modules()
+    rank = int(env["PADDLE_TRAINER_ID"])
+    tmp = os.path.join(outdir, f"rank{rank}.tmp")
+    with open(tmp, "wb") as f:
+        pickle.dump(res, f)
+    os.replace(tmp, os.path.join(outdir, f"rank{rank}.pkl"))
+    paddle.distributed.destroy_process_group()
+
+
+def start_world(fn_name, nprocs, inputs, workdir):
+    """Spawn ``nprocs`` ranks of ``fn_name``; returns the
+    ``ProcessContext``."""
+    from paddle_tpu_torch.distributed.spawn import spawn
+    os.makedirs(workdir, exist_ok=True)
+    with open(os.path.join(workdir, "inputs.pkl"), "wb") as f:
+        pickle.dump(inputs, f)
+    return spawn(_entry, args=(fn_name, workdir, workdir), nprocs=nprocs,
+                 join=False, env=THREADS_ENV)
+
+
+def run_world(fn_name, nprocs, inputs, workdir, timeout):
+    """Spawn ``nprocs`` ranks of ``fn_name`` and return their results in
+    rank order; raises when a rank fails or the world outlives
+    ``timeout`` seconds."""
+    ctx = start_world(fn_name, nprocs, inputs, workdir)
+    if not ctx.join(timeout):
+        ctx.terminate()
+        raise TimeoutError(f"world {fn_name} ran past {timeout} s")
+    out = []
+    for r in range(nprocs):
+        with open(os.path.join(workdir, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def shared_world(tmp_path_factory, key, fn_name, nprocs, make_inputs,
+                 timeout):
+    """:func:`run_world` once per test session for ``key`` (module
+    docstring); ``make_inputs()`` builds the world's inputs."""
+    from torch_parity_helpers import session_shared
+    workdir = os.path.join(str(tmp_path_factory.mktemp(f"world-{key}")))
+    return session_shared(
+        tmp_path_factory, f"world-{key}",
+        lambda: run_world(fn_name, nprocs, make_inputs(), workdir, timeout))
+
+
+# -- every collective: the exercise, here and on the card ---------------------
+def base_value(rank):
+    return (np.arange(6, dtype=np.float32).reshape(2, 3) + 10 * rank + 1)
+
+
+def exercise_collectives(paddle, device):
+    """Every collective of ``distributed.communication`` on this rank's
+    tensors on ``device``, the object collectives and the ``stream``
+    namespace; returns ``{name: result}`` (numpy, or the objects).  Each
+    rank's input is ``base_value(rank)``: the results are moves and
+    small-integer sums, exact in fp32 and bf16.  ``chip_smoke.py`` runs
+    it on CUDA tensors and holds it against
+    :func:`expected_collectives`."""
+    import torch
+    dist = paddle.distributed
+    rank, world = dist.get_rank(), dist.get_world_size()
+    res = {}
+
+    def t(a, dtype=torch.float32):
+        return torch.tensor(np.asarray(a), device=device, dtype=dtype)
+
+    def host(v):
+        v = getattr(v, "_value", v)
+        return v.float().cpu().numpy()
+
+    x = base_value(rank)
+    ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+           "min": dist.ReduceOp.MIN, "prod": dist.ReduceOp.PROD,
+           "avg": dist.ReduceOp.AVG}
+    for name, op in ops.items():
+        v = t(x)
+        dist.all_reduce(v, op=op)
+        res[f"all_reduce_{name}"] = host(v)
+    v = t(x, torch.bfloat16)
+    dist.all_reduce(v)
+    res["all_reduce_bf16"] = host(v)
+    v = paddle.to_tensor(x)
+    dist.all_reduce(v)
+    res["all_reduce_tensor"] = host(v)
+    v = t(x)
+    task = dist.all_reduce(v, sync_op=False)
+    task.wait()
+    res["all_reduce_async"] = host(v)
+    v = t(x)
+    dist.stream.all_reduce(v, use_calc_stream=True)
+    res["stream_all_reduce"] = host(v)
+
+    got = []
+    dist.all_gather(got, t(x))
+    res["all_gather"] = np.stack([host(g) for g in got])
+    v = t(x)
+    dist.broadcast(v, src=world - 1)
+    res["broadcast"] = host(v)
+    v = t(x)
+    dist.reduce(v, dst=0)
+    res["reduce"] = host(v)
+    out = t(np.zeros((2, 3)))
+    dist.reduce_scatter(out, [t(x + i) for i in range(world)])
+    res["reduce_scatter"] = host(out)
+    v = paddle.to_tensor(np.concatenate([x + i for i in range(world)]))
+    dist.reduce_scatter(v)
+    res["reduce_scatter_tensor"] = host(v)
+    outs = []
+    dist.alltoall(outs, [t(np.full((2, 3), 100 * rank + j))
+                         for j in range(world)])
+    res["alltoall"] = np.stack([host(o) for o in outs])
+    src = t(np.arange(2 * world) + 100 * rank)
+    out = t(np.zeros(2 * world))
+    dist.alltoall_single(out, src)
+    res["alltoall_single"] = host(out)
+    sizes = [j + 1 for j in range(world)]
+    src = t(np.arange(sum(sizes)) + 100 * rank)
+    out = t(np.zeros(world * (rank + 1)))
+    dist.alltoall_single(out, src, sizes, [rank + 1] * world)
+    res["alltoall_single_uneven"] = host(out)
+    v = t(np.zeros((2, 3)))
+    dist.scatter(v, [t(np.full((2, 3), 7 * j)) for j in range(world)]
+                 if rank == 0 else None, src=0)
+    res["scatter"] = host(v)
+    got = []
+    dist.gather(t(x), got if rank == world - 1 else None, dst=world - 1)
+    res["gather"] = np.stack([host(g) for g in got]) if got else None
+    if world > 1:
+        send = dist.isend(t(x), dst=(rank + 1) % world)
+        v = t(np.zeros((2, 3)))
+        recv = dist.irecv(v, src=(rank - 1) % world)
+        send.wait()
+        recv.wait()
+        res["send_recv"] = host(v)
+    dist.barrier()
+
+    objs = []
+    dist.all_gather_object(objs, {"rank": rank, "sq": rank * rank})
+    res["all_gather_object"] = objs
+    lst = [f"from {rank}", rank] if rank == world - 1 else [None, None]
+    dist.broadcast_object_list(lst, src=world - 1)
+    res["broadcast_object_list"] = lst
+    got = []
+    dist.scatter_object_list(got, [{"to": j} for j in range(world)]
+                             if rank == 0 else None, src=0)
+    res["scatter_object_list"] = got
+    return res
+
+
+def expected_collectives(rank, world):
+    """What :func:`exercise_collectives` gives ``rank`` of ``world``
+    (the names a rank gets a result for)."""
+    xs = [base_value(r) for r in range(world)]
+    total = np.sum(xs, 0)
+    want = {"all_reduce_sum": total, "all_reduce_max": np.max(xs, 0),
+            "all_reduce_min": np.min(xs, 0),
+            "all_reduce_prod": np.prod(xs, 0),
+            "all_reduce_avg": total / world, "all_reduce_bf16": total,
+            "all_reduce_tensor": total, "all_reduce_async": total,
+            "stream_all_reduce": total, "all_gather": np.stack(xs),
+            "broadcast": xs[world - 1],
+            "reduce_scatter": sum(x + rank for x in xs),
+            "reduce_scatter_tensor": sum(x + rank for x in xs),
+            "alltoall": np.stack([np.full((2, 3), 100 * s + rank)
+                                  for s in range(world)]),
+            "alltoall_single": np.concatenate(
+                [np.arange(2 * rank, 2 * rank + 2) + 100 * s
+                 for s in range(world)]),
+            "scatter": np.full((2, 3), 7 * rank),
+            "gather": np.stack(xs) if rank == world - 1 else None,
+            "all_gather_object": [{"rank": s, "sq": s * s}
+                                  for s in range(world)],
+            "broadcast_object_list": [f"from {world - 1}", world - 1],
+            "scatter_object_list": [{"to": rank}]}
+    start = sum(j + 1 for j in range(rank))
+    want["alltoall_single_uneven"] = np.concatenate(
+        [np.arange(start, start + rank + 1) + 100 * s for s in range(world)])
+    if rank == 0:
+        want["reduce"] = total
+    if world > 1:
+        want["send_recv"] = xs[(rank - 1) % world]
+    return want
+
+
+def exercise_groups(paddle, device):
+    """At world 4: the subgroups ``new_group([0, 2])`` / ``([1, 3])`` and
+    the dp2 x mp2 hybrid groups of ``fleet.init``, each summing this
+    rank's value (bf16 on the hybrid groups, the gradients' wire type
+    under O2); returns what :func:`expected_groups` names."""
+    import torch
+    dist = paddle.distributed
+    rank = dist.get_rank()
+    res = {}
+    g02, g13 = dist.new_group([0, 2]), dist.new_group([1, 3])
+    mine = g02 if rank in (0, 2) else g13
+    v = torch.tensor(base_value(rank), device=device)
+    dist.all_reduce(v, group=mine)
+    res["subgroup"] = (mine.ranks, mine.rank, v.cpu().numpy())
+
+    strategy = dist.fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 2, "mp_degree": 2}
+    dist.fleet.init(is_collective=True, strategy=strategy)
+    hcg = dist.fleet.get_hybrid_communicate_group()
+    groups = {"dp": hcg.get_data_parallel_group(),
+              "mp": hcg.get_model_parallel_group(),
+              "pp": hcg.get_pipe_parallel_group(),
+              "sharding": hcg.get_sharding_parallel_group(),
+              "check": hcg.get_check_parallel_group()}
+    res["hybrid_ranks"] = {k: g.ranks for k, g in groups.items()}
+    for k in ("dp", "mp"):
+        v = torch.full((2,), float(rank), device=device, dtype=torch.bfloat16)
+        dist.all_reduce(v, group=groups[k])
+        res[f"hybrid_sum_{k}"] = v.float().cpu().tolist()
+    res["hybrid_coords"] = (hcg.get_data_parallel_rank(),
+                            hcg.get_model_parallel_rank())
+    return res
+
+
+def expected_groups(rank):
+    """What :func:`exercise_groups` gives ``rank``: the mp groups are
+    consecutive ranks (the model axis is innermost), the dp groups
+    stride by 2."""
+    members = [0, 2] if rank in (0, 2) else [1, 3]
+    mp = [rank - rank % 2, rank - rank % 2 + 1]
+    dp = [rank % 2, rank % 2 + 2]
+    return {"subgroup": (members, members.index(rank),
+                         sum(base_value(m) for m in members)),
+            "hybrid_ranks": {"dp": dp, "mp": mp, "pp": [rank],
+                             "sharding": [rank], "check": mp},
+            "hybrid_sum_dp": [float(sum(dp))] * 2,
+            "hybrid_sum_mp": [float(sum(mp))] * 2,
+            "hybrid_coords": (rank // 2, rank % 2)}
+
+
+def replica_diffs(tensors, group):
+    """``[elements compared, elements whose bits differ from the group's
+    first rank]`` for ``tensors`` gathered over ``group`` (one
+    all-gather per dtype)."""
+    import torch
+    from paddle_tpu_torch.distributed import all_gather
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+            torch.float16: torch.int16, torch.float64: torch.int64}
+    by = {}
+    for t in tensors:
+        by.setdefault(t.dtype, []).append(t.detach().reshape(-1))
+    n = bad = 0
+    for dtype, ts in by.items():
+        rows = []
+        all_gather(rows, torch.cat(ts), group=group)
+        ref = rows[0].view(bits[dtype])
+        n += ref.numel()
+        bad += sum(int((row.view(bits[dtype]) != ref).sum())
+                   for row in rows[1:])
+    return [n, bad]
+
+
+def optimizer_leaves(optimizer):
+    """``[(tensor, split over mp)]``: every parameter of ``optimizer``
+    (the one ``fleet.distributed_optimizer`` wraps) and its fp32 master
+    where it keeps one."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import is_mp_split
+    inner = getattr(optimizer, "_inner_opt", optimizer)
+    leaves = []
+    for i, p in enumerate(inner._parameter_list):
+        split = is_mp_split(p)
+        leaves.append((p, split))
+        st = inner._state.get(i, {})
+        if "master_weight" in st:
+            leaves.append((st["master_weight"], split))
+    return leaves
+
+
+def hybrid_replicas(hcg, optimizer):
+    """After updates: every leaf bit-equal over the dp group, and the
+    leaves not split over mp over the mp group (:func:`replica_diffs`
+    of each)."""
+    leaves = optimizer_leaves(optimizer)
+    return {"dp": replica_diffs([t for t, _ in leaves],
+                                hcg.get_data_parallel_group()),
+            "mp": replica_diffs([t for t, sp in leaves if not sp],
+                                hcg.get_model_parallel_group())}
+
+
+def _equal(got, want):
+    if isinstance(want, np.ndarray) or isinstance(got, np.ndarray):
+        return (isinstance(got, np.ndarray) and isinstance(want, np.ndarray)
+                and got.shape == want.shape
+                and np.array_equal(got.astype(np.float32),
+                                   want.astype(np.float32)))
+    if isinstance(want, (tuple, list)) and isinstance(got, (tuple, list)):
+        return len(got) == len(want) and all(
+            _equal(g, w) for g, w in zip(got, want))
+    return got == want
+
+
+def mismatches(got, want):
+    """The names of ``want`` whose value in ``got`` differs (arrays
+    compared exactly as fp32)."""
+    return [k for k, w in want.items() if k not in got
+            or not _equal(got[k], w)]
+
+
+# -- world: every collective ---------------------------------------------------
+def collectives_world(paddle, inputs):
+    import torch
+    dist = paddle.distributed
+    dist.init_parallel_env()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    cpu = torch.device("cpu")
+    res = {"rank": rank, "world": world, "backend": dist.get_backend()}
+    res.update(exercise_collectives(paddle, cpu))
+    comm = dist.communication
+    public = comm.composed_counts()
+
+    def t(a):
+        return torch.tensor(np.asarray(a))
+
+    x = base_value(rank)
+    # the compositions gloo needs on CUDA tensors, run here on CPU ones
+    comm.reset_counts()
+    g = comm.get_group()
+    res["composed_alltoall"] = np.stack([o.numpy() for o in
+                                         comm._composed_alltoall(
+                                             [t(x * 0 + 100 * rank + j)
+                                              for j in range(world)], g)])
+    work, _ = comm._host_send(t(x), (rank + 1) % world, g)
+    v = t(np.zeros((2, 3), np.float32))
+    rwork, host = comm._host_recv(v, (rank - 1) % world, g)
+    work.wait()
+    rwork.wait()
+    res["host_send_recv"] = host.numpy()
+    res["composed_counts"] = comm.composed_counts()
+    comm.reset_counts()
+
+    res.update(exercise_groups(paddle, cpu))
+    sampler = paddle.io.DistributedBatchSampler(list(range(10)),
+                                                batch_size=2)
+    res["sampler"] = (sampler.nranks, sampler.local_rank, list(sampler))
+    later = comm.composed_counts()
+    res["composed"] = {k: public.get(k, 0) + later.get(k, 0)
+                       for k in {**public, **later}}
+    return res
+
+
+def crash_world(paddle, inputs):
+    """Rank 1 fails at once; the others would wait for it forever."""
+    if int(os.environ["PADDLE_TRAINER_ID"]) == 1:
+        raise RuntimeError("rank 1 fails on purpose")
+    time.sleep(300)
+    return {}
+
+
+# -- world: the mp layers, DistributedRunner and the dygraph hybrid loop -------
+def _fleet(paddle, hybrid):
+    dist = paddle.distributed
+    strategy = dist.fleet.DistributedStrategy()
+    strategy.hybrid_configs = hybrid
+    dist.fleet.init(is_collective=True, strategy=strategy)
+    return dist.fleet.get_hybrid_communicate_group()
+
+
+def _gathered(group, value):
+    """``value`` (a dict of numpy arrays) of every rank of ``group``."""
+    from paddle_tpu_torch.distributed import all_gather_object
+    out = []
+    all_gather_object(out, value, group=group)
+    return out
+
+
+def mp_layer_cases(case, hcg):
+    """One mp layer from the full numpy weights in ``case`` (its rank's
+    shard), run on the case's input and cotangent; returns the output,
+    the input's gradient and each weight's gradient, each joined over
+    the mp group on the layer's split dims (so every rank returns the
+    whole arrays)."""
+    import torch
+    from paddle_tpu_torch.distributed.fleet import meta_parallel as mpl
+    g = hcg.get_model_parallel_group()
+    r, n = g.rank, g.nranks
+    kind = case["kind"]
+
+    def cols(a):
+        k = a.shape[-1] // n
+        return a[..., r * k:(r + 1) * k]
+
+    def rows(a):
+        k = a.shape[0] // n
+        return a[r * k:(r + 1) * k]
+
+    if kind == "pce":
+        logits = torch.tensor(cols(case["logits"]), requires_grad=True)
+        layer = mpl.ParallelCrossEntropy(ignore_index=case["ignore"])
+        out = layer(logits, torch.tensor(case["label"]))
+        out.backward(torch.tensor(case["g"]))
+        parts = _gathered(g, logits.grad.numpy())
+        return {"out": out.detach().numpy(),
+                "dx": np.concatenate(parts, axis=-1)}
+    if kind == "vocab":
+        layer = mpl.VocabParallelEmbedding(*case["w"].shape, device="cpu")
+        with torch.no_grad():
+            layer.weight.copy_(torch.tensor(rows(case["w"])))
+        out = layer(torch.tensor(case["x"]))
+        out.backward(torch.tensor(case["g"]))
+        parts = _gathered(g, layer.weight.grad.numpy())
+        return {"out": out.detach().numpy(),
+                "weight": np.concatenate(parts, axis=0)}
+    col = kind.startswith("col")
+    w = case["w"]
+    if col:
+        layer = mpl.ColumnParallelLinear(
+            *w.shape, gather_output=kind == "col_gather", device="cpu")
+        wl, bl = cols(w), cols(case["b"])
+    else:
+        layer = mpl.RowParallelLinear(
+            *w.shape, input_is_parallel=kind == "row_parallel",
+            device="cpu")
+        wl, bl = rows(w), case["b"]
+    with torch.no_grad():
+        layer.weight.copy_(torch.tensor(wl))
+        layer.bias.copy_(torch.tensor(bl))
+    x_full = case["x"]
+    x = torch.tensor(cols(x_full) if kind == "row_parallel" else x_full,
+                     requires_grad=True)
+    out = layer(x)
+    gy = case["g"] if kind != "col_local" else cols(case["g"])
+    out.backward(torch.tensor(gy))
+    res = {}
+    join_out = kind == "col_local"
+    res["out"] = np.concatenate(_gathered(g, out.detach().numpy()), -1) \
+        if join_out else out.detach().numpy()
+    res["dx"] = np.concatenate(_gathered(g, x.grad.numpy()), -1) \
+        if kind == "row_parallel" else x.grad.numpy()
+    gw = _gathered(g, layer.weight.grad.numpy())
+    res["weight"] = np.concatenate(gw, axis=-1 if col else 0)
+    gb = _gathered(g, layer.bias.grad.numpy())
+    res["bias"] = np.concatenate(gb, -1) if col else gb[0]
+    return res
+
+
+def _gpt(inputs, hcg):
+    from paddle_tpu_torch.models import (GPTForCausalLM, gpt_tiny,
+                                         state_dict_from_jax)
+    cfg = gpt_tiny(**inputs["cfg"])
+    net = GPTForCausalLM(cfg, device="cpu")
+    net.load_state_dict(state_dict_from_jax(
+        inputs["state"], cfg, hcg.get_model_parallel_rank(),
+        hcg.get_model_parallel_world_size()))
+    return cfg, net
+
+
+def _optimizer(paddle, inputs, net, kind):
+    clip = paddle.nn.ClipGradByGlobalNorm(inputs["clip"])
+    if kind == "adamw":
+        return paddle.optimizer.AdamW(learning_rate=inputs["adam_lr"],
+                                      parameters=net.parameters(),
+                                      weight_decay=0.01, grad_clip=clip)
+    return paddle.optimizer.SGD(learning_rate=inputs["lr"],
+                                parameters=net.parameters(), grad_clip=clip)
+
+
+def _full_state(cfg, net, hcg):
+    from paddle_tpu_torch.models.gpt import merge_mp_states
+    mine = {k: v.detach().numpy().copy() for k, v in net.state_dict().items()}
+    return merge_mp_states(_gathered(hcg.get_model_parallel_group(), mine),
+                           cfg)
+
+
+def hybrid_world(paddle, inputs):
+    from paddle_tpu_torch.distributed import DistributedRunner
+    from paddle_tpu_torch.models import GPTPretrainingCriterion
+    dist = paddle.distributed
+    dist.init_parallel_env()
+    res = {"layers": {}, "runs": {}}
+    hcg = _fleet(paddle, {"dp_degree": 2, "mp_degree": 2})
+    for name, case in inputs["layers"].items():
+        res["layers"][name] = mp_layer_cases(case, hcg)
+    for name, run in inputs["runs"].items():
+        hcg = _fleet(paddle, run["hybrid"])
+        cfg, net = _gpt(inputs, hcg)
+        opt = _optimizer(paddle, inputs, net, run.get("opt", "sgd"))
+        crit = GPTPretrainingCriterion()
+        if run.get("dygraph"):
+            losses = _dygraph_loop(paddle, inputs, hcg, net, opt, crit,
+                                   run["dygraph"])
+        else:
+            runner = DistributedRunner(net, opt, crit, **run["kw"])
+            losses = [runner.train_step([x], [y])
+                      for x, y in inputs["batches"]]
+            runner.sync_to_layers()
+        res["runs"][name] = {"losses": losses,
+                             "state": _full_state(cfg, net, hcg)}
+    res["random_init"] = _random_init_run(paddle, inputs)
+    return res
+
+
+def _random_init_run(paddle, inputs):
+    """dp2 x mp2 from each mp rank's own random weights (a generator
+    seeded by the mp rank, as a user's ``fleet.init`` program builds
+    them): ``fleet.distributed_model`` starts the replicated weights
+    from the mp group's first rank.  Two AdamW steps with the hybrid
+    clip; at the second, the clip's square-sum against the whole
+    gradient joined from every rank's shards; then the replicas."""
+    import torch
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion, gpt_tiny)
+    from paddle_tpu_torch.models.gpt import merge_mp_states
+    fleet = paddle.distributed.fleet
+    hcg = _fleet(paddle, {"dp_degree": 2, "mp_degree": 2})
+    cfg = gpt_tiny(**inputs["cfg"])
+    gen = torch.Generator().manual_seed(
+        900 + hcg.get_model_parallel_rank())
+    net = GPTForCausalLM(cfg, device="cpu", generator=gen)
+    model = fleet.distributed_model(net)
+    opt = fleet.distributed_optimizer(
+        _optimizer(paddle, inputs, net, "adamw"))
+    crit = GPTPretrainingCriterion()
+    r, n = hcg._data_rank(), hcg._get_data_group().nranks
+    out = {}
+    for step, (x, y) in enumerate(inputs["batches"][:2]):
+        k = x.shape[0] // n
+        loss = crit(model(paddle.to_tensor(x[r * k:(r + 1) * k])),
+                    paddle.to_tensor(y[r * k:(r + 1) * k]))
+        loss.backward()
+        if step == 1:
+            update = opt._hybrid_update()
+            update.reduce()
+            out["clip_sq_sum"] = float(update.sq_sum(update._targets()))
+            grads = {name: p.grad.detach().numpy().copy()
+                     for name, p in net.named_parameters()}
+            full = merge_mp_states(
+                _gathered(hcg.get_model_parallel_group(), grads), cfg)
+            out["joined_sq_sum"] = float(sum(
+                np.square(g.astype(np.float64)).sum()
+                for g in full.values()))
+            update.step(reduce=False)
+        else:
+            opt.step()
+        opt.clear_grad()
+    out["replicas"] = hybrid_replicas(hcg, opt)
+    out["replicated_numel"] = sum(
+        p.numel() for p, split in optimizer_leaves(opt) if not split)
+    return out
+
+
+def _dygraph_loop(paddle, inputs, hcg, net, opt, crit, how):
+    """The user's loop: each rank feeds its data rows of the global batch
+    as Paddle Tensors; the loss reported is the global batch's mean.
+    ``how``: ``"fleet"`` (``fleet.distributed_model`` /
+    ``distributed_optimizer``), ``"scaler"`` (the same with
+    ``fleet.distributed_scaler`` around a ``GradScaler`` at 2**10) or
+    ``"os_g"`` (``sharding.group_sharded_parallel``)."""
+    import torch
+    fleet = paddle.distributed.fleet
+    scaler = None
+    if how == "os_g":
+        model, opt, _ = paddle.distributed.sharding.group_sharded_parallel(
+            net, opt, level="os_g")
+    else:
+        model = fleet.distributed_model(net)
+        opt = fleet.distributed_optimizer(opt)
+        if how == "scaler":
+            scaler = fleet.distributed_scaler(
+                paddle.amp.GradScaler(init_loss_scaling=1024.0))
+    r, n = hcg._data_rank(), hcg._get_data_group().nranks
+    losses = []
+    for x, y in inputs["batches"]:
+        k = x.shape[0] // n
+        xs = paddle.to_tensor(x[r * k:(r + 1) * k])
+        ys = paddle.to_tensor(y[r * k:(r + 1) * k])
+        loss = crit(model(xs), ys)
+        if scaler is None:
+            loss.backward()
+            opt.step()
+        else:
+            scaler.scale(loss).backward()
+            scaler.step(opt)
+            scaler.update()
+        opt.clear_grad()
+        v = torch.tensor(float(loss))
+        paddle.distributed.all_reduce(v, group=hcg._get_data_group())
+        losses.append(float(v) / n)
+    return losses

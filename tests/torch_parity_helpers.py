@@ -8,8 +8,6 @@ max(|ref|, 1): the two packages compute the same sums in another order
 ``tests/test_torch_vision_resnet.py`` holds a bf16 forward.
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -20,8 +18,16 @@ BF16_TOL = 5e-2
 CPU = "cpu"
 
 
+# torch's inter-op pool is sized once per process, before its first use:
+# one thread, set when the first module that imports this one loads
+try:
+    torch.set_num_interop_threads(1)
+except RuntimeError:
+    pass
+
+
 @pytest.fixture(autouse=True, scope="module")
-def torch_one_thread():
+def torch_one_thread(request):
     """The port's CPU ops on one thread while a module that imports this
     fixture runs: the suite runs several test processes at once, each of
     which would start a thread per core, and the oversubscribed cores
@@ -31,6 +37,40 @@ def torch_one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+def session_shared(tmp_path_factory, key, compute):
+    """``compute()`` once per test session for ``key``, whichever xdist
+    workers ask: the first computes it under a file lock in the
+    session's shared temporary directory and pickles it, the others
+    wait and read it (a module fixture alone runs once per worker that
+    runs one of its tests).  An exception is kept and raised to every
+    asker."""
+    import fcntl
+    import os
+    import pickle
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent
+    path = os.path.join(str(base), f"shared-{key}")
+    with open(path + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not os.path.exists(path + ".pkl"):
+                try:
+                    out = compute()
+                except Exception as e:  # noqa: BLE001
+                    out = e
+                with open(path + ".tmp", "wb") as f:
+                    pickle.dump(out, f)
+                os.replace(path + ".tmp", path + ".pkl")
+            with open(path + ".pkl", "rb") as f:
+                out = pickle.load(f)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    if isinstance(out, Exception):
+        raise out
+    return out
 
 
 def close(got, ref, tol, what=""):
@@ -60,6 +100,8 @@ def check_fn(jfn, tfn, inputs, seed=0, fwd_tol=FWD_TOL, grad_tol=GRAD_TOL,
     """``jfn`` (jnp arrays) and ``tfn`` (torch tensors) on the same fp32
     ``inputs``: the output, and the gradient of every input for one
     random cotangent.  Returns the port's output."""
+    import jax
+    import jax.numpy as jnp
     jin = [jnp.asarray(a) for a in inputs]
     # one compiled program a case (the forward and its vjp), not one
     # per primitive as eager dispatch compiles them
@@ -96,6 +138,8 @@ def check_layer(jlayer, tlayer, inputs, fwd_tol=FWD_TOL, grad_tol=GRAD_TOL,
     every parameter for one random cotangent.  The JAX layer runs as
     one compiled program (its parameters bound by ``functional_call.
     bind``) under ``jax.vjp``."""
+    import jax
+    import jax.numpy as jnp
     from paddle_tpu.nn.functional_call import bind
     from paddle_tpu.tensor import Tensor as JTensor
     copy_weights(jlayer, tlayer)
@@ -155,6 +199,8 @@ def jit_forward(jlayer, *inputs):
     """The JAX layer's output on ``inputs`` as one compiled program, its
     parameters and buffers passed in (``functional_call.bind``) rather
     than baked into the program as constants."""
+    import jax
+    import jax.numpy as jnp
     from paddle_tpu.nn.functional_call import bind, buffer_dict
     from paddle_tpu.tensor import Tensor as JTensor
     params = {n: p._value for n, p in jlayer.named_parameters()}
