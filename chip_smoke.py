@@ -676,6 +676,54 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
     by ``PARITY_CONTROL`` must fail; K5 / K6 at the hybrid shape (q, k,
     v ``[4, 1024, 6, 64]`` strided in a packed qkv, row stride 1152)
     held against their plain versions;
+15zi. ``[train ernie sharding]``: four ranks on the one card (one world
+    for 15zi-15zl) train ERNIE-3.0-base MLM (global B=16, S=512,
+    ``SHARD_MASKED`` positions a row) at sharding 4 through
+    ``group_sharded_parallel(level="os_g")``, bf16 O2, AdamW with the
+    global-norm clip, ``SHARD_STEPS`` dygraph steps: the loss falls, K5 /
+    K6 launch as tensor-core kernels only at ``[4, 512, 12, 64]``, and
+    after the last step every parameter is bit-equal over the four
+    ranks; prints losses, ms a step, each rank's optimizer-state bytes
+    and peak memory, the collectives a step and a profiled step's busy
+    time by rank;
+15zj. ``[train ernie sharding parity]``: the same in fp32 with SGD and
+    the clip against the single-process loop on the card (this process,
+    after the world): step 1's gradient of every leaf within
+    ``PARITY_GRAD_TOL`` of the leaf's largest, ``PARITY_STEPS`` losses
+    within ``PARITY_LOSS_TOL``; rank 1's chunk of one leaf scaled by
+    ``PARITY_CONTROL`` must fail;
+15zk. ``[train gpt cp]``: GPT-2-small (global B=8, S=1024) at sep2 x mp2
+    through ``DistributedRunner``, ``context_parallel`` "ring" and then
+    "ulysses", bf16 O2, AdamW with the clip, ``CP_STEPS`` steps each:
+    the loss falls; every leaf bit-equal over sep, the leaves not split
+    over mp over mp; prints the sep p2p and all-to-all bytes and the
+    compositions gloo needed;
+15zl. ``[train gpt cp parity]``: both kinds in fp32 from numpy weights
+    against the single-process raw loop (rank 0), the gates of 15zh;
+    ``ring_flash_attention(balanced=True)`` on zigzag slices of q, k, v
+    ``[8, 1024, 6, 64]`` fp32, merged, and the gradients of the whole
+    inputs against the plain attention (``FLASH_OUT_TOL`` /
+    ``FLASH_GRAD_TOL``);
+15zm. ``[train gpt3 pipe]``: eight ranks on the one card (one world for
+    15zm-15zn) train GPT-3 1.3B (24 layers, 2048 wide, 16 heads, FFN
+    8192, vocab 50304, S=2048) dp1 x mp2 x pp4 through ``fleet.init`` ->
+    ``GPTForCausalLMPipe(num_stages=4)`` (each rank builds its stage) ->
+    ``fleet.distributed_model`` -> ``train_batch``, ``PIPE_M``
+    micro-batches of 1 (1F1B), remat_stage, fp32 AdamW with the clip,
+    one warm step and ``PIPE_STEPS`` timed (the last profiled): the loss
+    falls and is the same on every rank; K5 / K6 launch on every rank
+    as the CUDA-core kernels only (the forward twice: remat replays it);
+    the tied embedding's two copies and the leaves not split over mp are
+    bit-equal after the last update; prints ms a step, the bubble, each
+    rank's collectives by axis, peak memory and busy time; then (this
+    process) K5 / K6 at ``[1, 2048, 8, 128]`` fp32, row stride 3072,
+    against their plain versions and timed;
+15zn. ``[train gpt pipe parity]``: GPT-2-small fp32 from numpy weights
+    at dp2 x mp2 x pp2 through ``PipelinedRunner`` (``PP_PARITY_M``
+    micro-batches), SGD with the clip, against the single-process raw
+    loop (this process, after the world): the gates of 15zh on the
+    stages' gradients joined over mp and stages, mp rank 1's shard of
+    one stage-0 leaf scaled by ``PARITY_CONTROL`` must fail;
 16. ``[lmce tc]`` holds the tensor-core LMCE backward
     (``csrc/lmce_sm90.cu``, ``wgmma`` fed by TMA) against its plain
     versions (dL rounded to the operand dtype; each element within
@@ -11049,6 +11097,7 @@ def _run_world(fn, nprocs, env, *args):
     prints its threads' stacks first (``faulthandler``), so a hung
     collective shows where it waits."""
     import pickle
+    import shutil
     import tempfile
 
     from paddle_tpu_torch.distributed.spawn import spawn
@@ -11063,6 +11112,7 @@ def _run_world(fn, nprocs, env, *args):
     for r in range(nprocs):
         with open(os.path.join(workdir, f"rank{r}.pkl"), "rb") as f:
             out.append(pickle.load(f))
+    shutil.rmtree(workdir)
     return out
 
 
@@ -11530,6 +11580,910 @@ def hybrid_world_phase(torch, seed):
             for k in tr[0]["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# ERNIE under sharding stage 2 and context parallel (one world of four
+# ranks), pipeline parallel (one world of eight): 15zi-15zn
+# ---------------------------------------------------------------------------
+SHARD_STEPS = 5                  # [train ernie sharding]: dygraph steps
+SHARD_LR = 1e-4                  # AdamW's rate (multi_precision, bf16 O2)
+SHARD_MASKED = 77                # MLM positions in every row (15% of 512):
+                                 # each rank's mean over its rows is then
+                                 # its share of the global batch's mean
+CP_STEPS = 3                     # [train gpt cp]: steps of each kind
+PIPE_M, PIPE_S = 8, 2048         # [train gpt3 pipe]: micro-batches of 1
+PIPE_STEPS = 3                   # timed steps, after one warm step
+PIPE_LR = 1e-4                   # AdamW's rate (fp32, as the JAX engine)
+PIPE_CLIP = 1.0                  # the hybrid global-norm clip
+PIPE_GIB = 6.1                   # a rank's reckoned peak at dp1 x mp2 x pp4
+                                 # (GPT3_MEMFIT.json, PERF.md section 5)
+PP_PARITY_M = 4                  # [train gpt pipe parity]: micro-batches
+PIPE_FLASH = (1, PIPE_S, 8, 128)  # one rank's K5/K6 shape at 1.3B, mp2
+FLASH_OUT_TOL = (2e-4, 2e-5)     # (rtol, atol) of the outputs and of the
+FLASH_GRAD_TOL = (5e-4, 5e-5)    # gradients: ROADMAP C's flash bounds
+
+
+def _fleet_init(paddle, hybrid, pipeline=None):
+    s = paddle.distributed.fleet.DistributedStrategy()
+    s.hybrid_configs = hybrid
+    if pipeline is not None:
+        s.pipeline_configs = pipeline
+    paddle.distributed.fleet.init(is_collective=True, strategy=s)
+    return paddle.distributed.fleet.get_hybrid_communicate_group()
+
+
+def _launches(fk):
+    out = {f.__name__: f.launches for f in fk.ALL_WRAPPERS}
+    out.update({f"{f.__name__}.tc": f.tc_launches for f in fk.TC_WRAPPERS})
+    out["plain"] = sum(f.plain_calls for f in fk.ALL_WRAPPERS)
+    return out
+
+
+def _per_step(stats, steps):
+    return {k: {"calls": v["calls"] / steps, "bytes": v["bytes"] / steps,
+                "ms": v["seconds"] * 1e3 / steps} for k, v in stats.items()}
+
+
+def _stats_line(per_step):
+    return ", ".join(f"{k} {v['calls']:.0f} / {v['bytes'] / 2**20:.1f} MiB "
+                     f"/ {v['ms']:.1f} ms"
+                     for k, v in sorted(per_step.items()))
+
+
+def _profiled_busy(torch, step):
+    """One profiled ``step()``: (wall ms, this rank's device busy ms)."""
+    with profile_window(torch) as prof:
+        t0 = time.monotonic()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.monotonic() - t0) * 1e3
+    busy = sum(kernel_us(e) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return wall, busy
+
+
+def _mlm_even(vocab, b, s, k, seed):
+    """Tokens and MLM labels on exactly ``k`` positions of every row (-100
+    elsewhere), from ``seed``."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, vocab, (b, s)).astype(np.int64)
+    y = np.full_like(x, -100)
+    for i in range(b):
+        at = rng.choice(s, k, replace=False)
+        y[i, at] = x[i, at]
+    return x, y
+
+
+def _ernie_shard_model(torch, paddle, seed, o2):
+    """ERNIE-3.0-base MLM from a card generator seeded ``seed`` (the same
+    draws in every process), dropout 0: bf16 O2 with AdamW (PaddleNLP's
+    decay set) when ``o2``, else fp32 with SGD; both with the global-norm
+    clip."""
+    from paddle_tpu_torch.models import BertForPretraining, ernie_3_base
+    cfg = ernie_3_base(hidden_dropout_prob=0.0,
+                       attention_probs_dropout_prob=0.0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    net = BertForPretraining(cfg, device="cuda", generator=gen)
+    clip = paddle.nn.ClipGradByGlobalNorm(1.0)
+    if not o2:
+        return cfg, net, paddle.optimizer.SGD(
+            learning_rate=PARITY_LR, parameters=net.parameters(),
+            grad_clip=clip)
+    decay = {p.name for n, p in net.named_parameters()
+             if not any(nd in n for nd in ERNIE_NO_DECAY)}
+    opt = paddle.optimizer.AdamW(
+        learning_rate=SHARD_LR, parameters=net.parameters(),
+        weight_decay=0.01, apply_decay_param_fun=lambda name: name in decay,
+        grad_clip=clip, multi_precision=True)
+    paddle.amp.decorate(net, opt, level="O2", dtype="bfloat16")
+    return cfg, net, opt
+
+
+def _data_rows(hcg, b):
+    n, r = hcg._get_data_group().nranks, hcg._data_rank()
+    k = b // n
+    return slice(r * k, (r + 1) * k), n
+
+
+def _ernie_sharding(torch, paddle, seed):
+    """[train ernie sharding] on this rank (``world4_phase``)."""
+    from paddle_tpu_torch.models import BertPretrainingCriterion
+    from paddle_tpu_torch.ops import flash_attention_kernel as fk
+    dist = paddle.distributed
+    comm = dist.communication
+    hcg = _fleet_init(paddle, {"sharding_degree": 4})
+    cfg, net, opt = _ernie_shard_model(torch, paddle, seed + 2800, True)
+    model, opt, _ = dist.sharding.group_sharded_parallel(net, opt,
+                                                          level="os_g")
+    crit = BertPretrainingCriterion(cfg.vocab_size)
+    x, y = _mlm_even(cfg.vocab_size, ERNIE_B, ERNIE_S, SHARD_MASKED,
+                     seed + 2801)
+    rows, n = _data_rows(hcg, ERNIE_B)
+    xs, ys = (torch.from_numpy(a[rows]).cuda() for a in (x, y))
+
+    def step():
+        with paddle.amp.auto_cast(level="O2", dtype="bfloat16"):
+            mlm, nsp = model(xs)
+        loss = crit(mlm, nsp, ys)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fk.reset_counts()
+    comm.reset_counts()
+    losses, ms = [], []
+    for _ in range(SHARD_STEPS):
+        t0 = time.monotonic()
+        v = step().detach().float().reshape(1)
+        comm.all_reduce(v, group=hcg._get_data_group())
+        losses.append(float(v) / n)
+        torch.cuda.synchronize()
+        ms.append((time.monotonic() - t0) * 1e3)
+    launches = _launches(fk)
+    stats = comm.comm_stats(by_axis=True)
+    peak = _peaks(torch)
+    wall, busy = _profiled_busy(torch, step)
+    inner = opt._optim
+    state_bytes = sum(v.numel() * v.element_size()
+                      for st in inner._state.values() for v in st.values()
+                      if isinstance(v, torch.Tensor))
+    w = _dist_exercise()
+    replicas = w.replica_diffs(list(net.parameters()),
+                               hcg.get_sharding_parallel_group())
+    res = {"losses": losses, "ms": ms, "launches": launches, "stats": stats,
+           "peak": peak, "wall_ms": wall, "busy_ms": busy,
+           "state_bytes": state_bytes, "replicas": replicas,
+           "params": sum(p.numel() for p in net.parameters()),
+           "rows": [rows.start, rows.stop]}
+    del model, opt, net
+    torch.cuda.empty_cache()
+    return res
+
+
+def _ernie_sharding_parity(torch, paddle, seed):
+    """[train ernie sharding parity] on this rank: fp32 ERNIE-3.0-base at
+    stage 2 over four ranks, SGD with the global-norm clip; step 1's
+    whole reduced gradients (rank 0 keeps them) and the
+    ``PARITY_STEPS`` losses.  The single-process loop runs after the
+    world (:func:`_ernie_reference`)."""
+    from paddle_tpu_torch.models import BertPretrainingCriterion
+    dist = paddle.distributed
+    hcg = _fleet_init(paddle, {"sharding_degree": 4})
+    cfg, net, opt = _ernie_shard_model(torch, paddle, seed + 2810, False)
+    model, opt, _ = dist.sharding.group_sharded_parallel(net, opt,
+                                                          level="os_g")
+    crit = BertPretrainingCriterion(cfg.vocab_size)
+    x, y = _mlm_even(cfg.vocab_size, ERNIE_B, ERNIE_S, SHARD_MASKED,
+                     seed + 2811)
+    rows, n = _data_rows(hcg, ERNIE_B)
+    xs, ys = (torch.from_numpy(a[rows]).cuda() for a in (x, y))
+    crit(*model(xs), ys).backward()
+    update = opt._hybrid_update()
+    update.reduce()
+    grads = {k: v.float().cpu().numpy()
+             for k, v in update.sharded.gather_grads().items()}
+    for _, p in update.named:
+        p.grad = None
+    update.sharded.clear_shard_grads()
+    losses = []
+    for _ in range(PARITY_STEPS):
+        loss = crit(*model(xs), ys)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        v = loss.detach().float().reshape(1)
+        dist.all_reduce(v, group=hcg._get_data_group())
+        losses.append(float(v) / n)
+    del model, opt, net
+    torch.cuda.empty_cache()
+    return {"losses": losses,
+            "grads": grads if dist.get_rank() == 0 else None}
+
+
+def _ernie_reference(torch, paddle, seed, grads):
+    """The single-process fp32 loop on the card on
+    :func:`_ernie_sharding_parity`'s weights and whole batch: its losses
+    and the per-leaf gate of the stage-2 gradients, and of a planted
+    control (rank 1's chunk of one leaf's gradient scaled by
+    ``PARITY_CONTROL``), which must fail."""
+    from paddle_tpu_torch.models import BertPretrainingCriterion
+    cfg, net, opt = _ernie_shard_model(torch, paddle, seed + 2810, False)
+    crit = BertPretrainingCriterion(cfg.vocab_size)
+    x, y = (torch.from_numpy(a).cuda() for a in _mlm_even(
+        cfg.vocab_size, ERNIE_B, ERNIE_S, SHARD_MASKED, seed + 2811))
+    losses, ref = [], None
+    for i in range(PARITY_STEPS):
+        loss = crit(*net(x), y)
+        loss.backward()
+        if i == 0:              # the NSP head takes no gradient: zeros,
+            ref = {k: (p.grad.float().cpu().numpy()    # as the chunks hold
+                       if p.grad is not None else np.zeros(p.shape,
+                                                           np.float32))
+                   for k, p in net.named_parameters()}
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+    del net, opt
+    torch.cuda.empty_cache()
+    ratios = _grad_gate(grads, ref)
+    leaf = max((k for k in ref if ".encoder." in k and k.endswith("weight")),
+               key=lambda k: ref[k].size)
+    bad = grads[leaf].copy().reshape(-1)
+    chunk = -(-bad.size // 4)
+    bad[chunk:2 * chunk] *= PARITY_CONTROL
+    control = _grad_gate({leaf: bad.reshape(ref[leaf].shape)},
+                         {leaf: ref[leaf]})[leaf]
+    return {"serial_losses": losses, "ratios": ratios, "control": control,
+            "control_leaf": leaf}
+
+
+def _cp_train(torch, paddle, seed, kind):
+    """[train gpt cp] on this rank: GPT-2-small at sep2 x mp2 through
+    ``DistributedRunner``, ``context_parallel=kind``, bf16 O2, AdamW with
+    the global-norm clip, ``CP_STEPS`` steps of the global batch."""
+    from paddle_tpu_torch.distributed import DistributedRunner
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion, gpt2_small)
+    from paddle_tpu_torch.ops import flash_attention_kernel as fk
+    comm = paddle.distributed.communication
+    hcg = _fleet_init(paddle, {"sep_degree": 2, "mp_degree": 2})
+    cfg = gpt2_small(hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0, context_parallel=kind)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 2900 + hcg.get_model_parallel_rank())
+    net = GPTForCausalLM(cfg, device="cuda", generator=gen)
+    opt = paddle.optimizer.AdamW(
+        learning_rate=HYBRID_LR, parameters=net.parameters(),
+        multi_precision=True,
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(HYBRID_CLIP))
+    paddle.amp.decorate(net, opt, level="O2", dtype="bfloat16")
+    runner = DistributedRunner(net, opt, GPTPretrainingCriterion(),
+                               amp_level="O2", amp_dtype="bfloat16")
+    rng = np.random.default_rng(seed + 2901)
+    x = rng.integers(0, cfg.vocab_size, (HYBRID_B, HYBRID_S)).astype(np.int64)
+    y = np.roll(x, -1, 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fk.reset_counts()
+    comm.reset_counts()
+    losses, ms = [], []
+    for _ in range(CP_STEPS):
+        t0 = time.monotonic()
+        losses.append(runner.train_step([x], [y]))
+        torch.cuda.synchronize()
+        ms.append((time.monotonic() - t0) * 1e3)
+    res = {"losses": losses, "ms": ms, "launches": _launches(fk),
+           "stats": comm.comm_stats(by_axis=True),
+           "composed": comm.composed_counts(), "peak": _peaks(torch)}
+    res["wall_ms"], res["busy_ms"] = _profiled_busy(
+        torch, lambda: runner.train_step([x], [y]))
+    w = _dist_exercise()
+    leaves = w.optimizer_leaves(opt)
+    res["replicas"] = {
+        "sep": w.replica_diffs([t for t, _ in leaves],
+                               hcg.get_sep_parallel_group()),
+        "mp": w.replica_diffs([t for t, sp in leaves if not sp],
+                              hcg.get_model_parallel_group())}
+    del runner, opt, net
+    torch.cuda.empty_cache()
+    return res
+
+
+def _cp_parity(torch, paddle, seed, kind, state):
+    """[train gpt cp parity] on this rank: the fp32 GPT-2-small from numpy
+    weights at sep2 x mp2 (``context_parallel=kind``) through
+    ``DistributedRunner``, SGD; rank 0 then runs the single-process raw
+    loop on the same weights and batch (:func:`_parity_reference`)."""
+    from paddle_tpu_torch.distributed import DistributedRunner
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion, gpt2_small,
+                                         state_dict_from_jax)
+    dist = paddle.distributed
+    hcg = _fleet_init(paddle, {"sep_degree": 2, "mp_degree": 2})
+    cfg = gpt2_small(hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0, context_parallel=kind)
+    rng = np.random.default_rng(seed + 2951)
+    x = rng.integers(0, cfg.vocab_size, (HYBRID_B, HYBRID_S)).astype(np.int64)
+    y = np.roll(x, -1, 1)
+    net = GPTForCausalLM(cfg, device="cuda")
+    net.load_state_dict(state_dict_from_jax(
+        state, cfg, hcg.get_model_parallel_rank(), 2))
+    opt = paddle.optimizer.SGD(learning_rate=PARITY_LR,
+                               parameters=net.parameters())
+    runner = DistributedRunner(net, opt, GPTPretrainingCriterion())
+    dev = runner._device()
+    runner._forward_loss(runner._rows([x], 0, HYBRID_B, dev),
+                         runner._rows([y], 0, HYBRID_B, dev)).backward()
+    runner._update.reduce()
+    grads = {k: p.grad.float().cpu().numpy() for k, p in runner._update.named}
+    for _, p in runner._update.named:
+        p.grad = None
+    mp_grads = []
+    dist.all_gather_object(mp_grads, grads,
+                           group=hcg.get_model_parallel_group())
+    del grads
+    losses = [runner.train_step([x], [y]) for _ in range(PARITY_STEPS)]
+    del runner, opt, net
+    torch.cuda.empty_cache()
+    res = {"losses": losses}
+    if dist.get_rank() == 0:
+        res.update(_parity_reference(torch, paddle, cfg, state, x, y,
+                                     mp_grads))
+    dist.barrier()
+    return res
+
+
+def _close(got, ref, tol):
+    """max |got - ref| - rtol |ref| over the elements, beside max |got -
+    ref| (the allclose test: the first at most ``atol``)."""
+    d = (got.float() - ref.float()).abs()
+    return (float((d - tol[0] * ref.float().abs()).max()),
+            float(d.max()))
+
+
+def _zigzag_hold(torch, paddle, seed):
+    """``ring_flash_attention(balanced=True)`` on zigzag-ordered slices of
+    the global q, k, v ``[8, 1024, 6, 64]`` fp32 (one rank's GPT-2 heads
+    at mp2) over the sep group, the output merged and the gradients of
+    the global inputs, against the plain attention on the whole."""
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        context_parallel as cp
+    from paddle_tpu_torch.ops import flash_attention_kernel as fk
+    group = collective.get_mesh().get_sep_parallel_group()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 2990)
+    q, k, v, w = (torch.randn(HYBRID_B, HYBRID_S, 6, 64, device="cuda",
+                              generator=gen) for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    parts = [cp.zigzag_split_sequence(t, group=group) for t in leaves]
+    out = cp.zigzag_merge_sequence(cp.ring_flash_attention(
+        *parts, causal=True, balanced=True, group=group), group=group)
+    (out * w).sum().backward()
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref, _ = fk.flash_attention_reference(*ref_leaves, True)
+    (ref * w).sum().backward()
+    errs = {"out": _close(out.detach(), ref.detach(), FLASH_OUT_TOL)}
+    for name, a, b in zip(("dq", "dk", "dv"), leaves, ref_leaves):
+        errs[name] = _close(a.grad, b.grad, FLASH_GRAD_TOL)
+    return errs
+
+
+def _world4_rank(workdir, stacks_after, seed):
+    torch, paddle = _rank_setup(stacks_after)
+    paddle.distributed.init_parallel_env()
+    res, secs = {}, {}
+    t0 = time.monotonic()
+    res["ernie"] = _ernie_sharding(torch, paddle, seed)
+    res["ernie_parity"] = _ernie_sharding_parity(torch, paddle, seed)
+    secs["ernie"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    res["cp"] = {kind: _cp_train(torch, paddle, seed, kind)
+                 for kind in ("ring", "ulysses")}
+    from paddle_tpu_torch.models import gpt2_small
+    state = gpt_numpy_state(gpt2_small(), seed + 2950)
+    res["cp_parity"] = {kind: _cp_parity(torch, paddle, seed, kind, state)
+                        for kind in ("ring", "ulysses")}
+    res["zigzag"] = _zigzag_hold(torch, paddle, seed)
+    secs["cp"] = time.monotonic() - t0
+    res["secs"] = secs
+    _rank_done(workdir, res)
+
+
+def world4_phase(torch, seed):
+    """``[train ernie sharding]``, its parity, ``[train gpt cp]`` and its
+    parity: four ranks on the one card (gloo over CUDA tensors), started
+    once; this process runs the ERNIE single-process reference after the
+    world, prints and gates.  Returns the ERNIE training's launches
+    summed over the ranks."""
+    import paddle_tpu_torch as paddle
+    t0 = time.monotonic()
+    ranks = _run_world(_world4_rank, 4, {}, seed)
+    world_s = time.monotonic() - t0
+    card = card_line()
+
+    tag = "train ernie sharding"
+    tr = [r["ernie"] for r in ranks]
+    for i, res in enumerate(tr):
+        la = res["launches"]
+        check(all(np.isfinite(res["losses"])) and res["losses"] == tr[0][
+            "losses"], f"[{tag}] rank {i} losses {res['losses']}")
+        check(res["losses"][-1] < res["losses"][0],
+              f"[{tag}] rank {i}: loss did not fall: {res['losses']}")
+        check(la["flash_fwd"] == la["flash_fwd.tc"] > 0
+              and la["flash_bwd_dq"] == la["flash_bwd_dq.tc"] > 0
+              and la["flash_bwd_dkv"] == la["flash_bwd_dkv.tc"] > 0
+              and la["plain"] == 0, f"[{tag}] rank {i} launches {la}")
+        rep = res["replicas"]
+        check(rep[0] > 0 and rep[1] == 0, f"[{tag}] rank {i}: parameters "
+              f"differ over the sharding group (compared, differing) {rep}")
+    total_state = sum(r["state_bytes"] for r in tr)
+    per_step = _per_step(tr[0]["stats"], SHARD_STEPS)
+    busy = [r["busy_ms"] for r in tr]
+    wall = max(r["wall_ms"] for r in tr)
+    print(f"[{tag}] ERNIE-3.0-base MLM L=12 D=768 H=12 V=40000 global "
+          f"B={ERNIE_B} S={ERNIE_S} ({SHARD_MASKED} masked a row), sharding "
+          "4 on 4 ranks of one card (spawn, fleet.init, group_sharded_"
+          "parallel(level='os_g')), bf16 O2 (amp.decorate + auto_cast) "
+          f"AdamW lr {SHARD_LR} with the global-norm clip, {SHARD_STEPS} "
+          f"dygraph steps: losses {[round(v, 5) for v in tr[0]['losses']]}"
+          "; " + "; ".join(
+              f"rank {i} rows {r['rows']} step_ms "
+              f"{[round(v, 1) for v in r['ms']]} optimizer state "
+              f"{r['state_bytes'] / 2**20:.1f} MiB peak allocated "
+              f"{_gib(r['peak'][0]):.3f} GiB reserved "
+              f"{_gib(r['peak'][1]):.3f} GiB" for i, r in enumerate(tr))
+          + f"; the ranks' optimizer state together {total_state / 2**20:.1f}"
+          f" MiB (one process would hold it all: each rank "
+          f"{[round(r['state_bytes'] / total_state, 4) for r in tr]} of "
+          f"it); parameters bit-equal over the 4 ranks after the last step "
+          f"({tr[0]['replicas'][0]} elements); card {card}", flush=True)
+    la = tr[0]["launches"]
+    print(f"[{tag}] step_ms median(steps 3+, median over ranks) "
+          f"{np.median([np.median(r['ms'][2:]) for r in tr]):.1f}; "
+          f"collectives a step on rank 0 (calls, bytes in, host ms): "
+          f"{_stats_line(per_step)}; one profiled step: wall {wall:.1f} ms, "
+          f"device busy by rank {[round(b, 1) for b in busy]} ms, card idle "
+          f"share {max(0.0, 1 - sum(busy) / wall):.4f}; K5/K6 a rank at "
+          f"[{ERNIE_B // 4}, {ERNIE_S}, 12, 64] bf16 non-causal: flash_fwd "
+          f"{la['flash_fwd']} (tc {la['flash_fwd.tc']}), flash_bwd_dq "
+          f"{la['flash_bwd_dq']} (tc {la['flash_bwd_dq.tc']}), "
+          f"flash_bwd_dkv {la['flash_bwd_dkv']} (tc "
+          f"{la['flash_bwd_dkv.tc']}), plain {la['plain']}", flush=True)
+
+    tag = "train ernie sharding parity"
+    t1 = time.monotonic()
+    p = [r["ernie_parity"] for r in ranks]
+    for i, r in enumerate(p):
+        check(r["losses"] == p[0]["losses"],
+              f"[{tag}] rank {i} losses {r['losses']}")
+    ref = _ernie_reference(torch, paddle, seed, p[0]["grads"])
+    _parity_gates(tag, "ERNIE-3.0-base fp32, global B=16 S=512, sharding 4 "
+                  "(group_sharded_parallel level 'os_g') on 4 ranks vs the "
+                  "single-process loop on the card, same weights and "
+                  f"batch, SGD lr {PARITY_LR} with the global-norm clip",
+                  p[0]["losses"], ref, "rank 1's chunk of", card,
+                  time.monotonic() - t1)
+
+    tag = "train gpt cp"
+    for kind in ("ring", "ulysses"):
+        c = [r["cp"][kind] for r in ranks]
+        for i, res in enumerate(c):
+            check(all(np.isfinite(res["losses"])) and res["losses"] ==
+                  c[0]["losses"], f"[{tag}] {kind} rank {i} losses "
+                  f"{res['losses']}")
+            check(res["losses"][-1] < res["losses"][0],
+                  f"[{tag}] {kind} rank {i}: loss did not fall: "
+                  f"{res['losses']}")
+            rep = res["replicas"]
+            check(rep["sep"][0] > 0 and rep["mp"][0] > 0 and
+                  rep["sep"][1] == rep["mp"][1] == 0,
+                  f"[{tag}] {kind} rank {i}: replicas differ {rep}")
+        per_step = _per_step(c[0]["stats"], CP_STEPS)
+        busy = [r["busy_ms"] for r in c]
+        wall = max(r["wall_ms"] for r in c)
+        print(f"[{tag}] {kind}: GPT-2-small L=12 D=768 H=12 V=50304 global "
+              f"B={HYBRID_B} S={HYBRID_S}, sep2 x mp2 on 4 ranks of one card "
+              "(each rank 512 positions, 6 heads) through DistributedRunner, "
+              f"bf16 O2 AdamW lr {HYBRID_LR}, global-norm clip, {CP_STEPS} "
+              f"steps: losses {[round(v, 5) for v in c[0]['losses']]}, "
+              f"step_ms by rank {[[round(v, 1) for v in r['ms']] for r in c]}"
+              f", peak allocated by rank "
+              f"{[round(_gib(r['peak'][0]), 3) for r in c]} GiB reserved "
+              f"{[round(_gib(r['peak'][1]), 3) for r in c]} GiB; replicas "
+              f"bit-equal over sep (every leaf) and mp (leaves not split) "
+              f"{c[0]['replicas']}; collectives a step on rank 0 (calls, "
+              f"bytes in, host ms): {_stats_line(per_step)}; composed on "
+              f"gloo {c[0]['composed']}; one profiled step: wall "
+              f"{wall:.1f} ms, device busy by rank "
+              f"{[round(b, 1) for b in busy]} ms, card idle share "
+              f"{max(0.0, 1 - sum(busy) / wall):.4f}; flash launches "
+              f"{c[0]['launches']['flash_fwd']} (the sep attention is "
+              f"composed from torch operations); card {card}", flush=True)
+
+    tag = "train gpt cp parity"
+    for kind in ("ring", "ulysses"):
+        p0 = ranks[0]["cp_parity"][kind]
+        for i, r in enumerate(ranks):
+            check(r["cp_parity"][kind]["losses"] == p0["losses"],
+                  f"[{tag}] {kind} rank {i} losses "
+                  f"{r['cp_parity'][kind]['losses']}")
+        _parity_gates(f"{tag}] [{kind}", "GPT-2-small fp32, global B="
+                      f"{HYBRID_B} S={HYBRID_S}, sep2 x mp2 through "
+                      f"DistributedRunner (context_parallel={kind!r}) on 4 "
+                      "ranks vs the single-process raw loop on the card, "
+                      f"same numpy weights and batch, SGD lr {PARITY_LR}",
+                      p0["losses"], p0, "mp rank 1's shard of", card, None)
+    z = ranks[0]["zigzag"]
+    for i, r in enumerate(ranks):
+        for name, (over, worst) in r["zigzag"].items():
+            atol = (FLASH_OUT_TOL if name == "out" else FLASH_GRAD_TOL)[1]
+            check(over <= atol, f"[{tag}] zigzag rank {i} {name}: |d| - "
+                  f"rtol |ref| reaches {over:.3e} > {atol}")
+    print(f"[{tag}] ring_flash_attention(balanced=True) on zigzag slices "
+          f"of q, k, v [{HYBRID_B}, {HYBRID_S}, 6, 64] fp32 over sep 2, "
+          "causal, merged, vs the plain attention on the whole: max |d| "
+          + ", ".join(f"{k} {v[1]:.3e}" for k, v in z.items())
+          + f" (allclose at {FLASH_OUT_TOL} out, {FLASH_GRAD_TOL} gradients);"
+          f" seconds in the world: ERNIE {ranks[0]['secs']['ernie']:.1f}, "
+          f"cp {ranks[0]['secs']['cp']:.1f}; world {world_s:.1f} s",
+          flush=True)
+    return {k: sum(r["ernie"]["launches"][k] for r in ranks)
+            for k in tr[0]["launches"]}
+
+
+def _parity_gates(tag, desc, losses, ref, control_what, card, ref_s):
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref["serial_losses"])]
+    worst = max(ref["ratios"], key=ref["ratios"].get)
+    print(f"[{tag}] {desc}: losses {[round(v, 6) for v in losses]} vs "
+          f"{[round(v, 6) for v in ref['serial_losses']]} (relative "
+          f"{[f'{v:.2e}' for v in rel]}, tol {PARITY_LOSS_TOL}); step 1 "
+          f"gradients of {len(ref['ratios'])} leaves, worst "
+          f"{ref['ratios'][worst]:.3e} of the leaf's largest ({worst}; tol "
+          f"{PARITY_GRAD_TOL}); control ({control_what} "
+          f"{ref['control_leaf']} x{PARITY_CONTROL}) {ref['control']:.3e} "
+          "(must fail)" + ("" if ref_s is None else
+                           f"; reference {ref_s:.1f} s") + f"; card {card}",
+          flush=True)
+    check(max(rel) <= PARITY_LOSS_TOL, f"[{tag}] losses part by {rel}")
+    check(ref["ratios"][worst] <= PARITY_GRAD_TOL,
+          f"[{tag}] {worst} gradient {ref['ratios'][worst]:.3e}")
+    check(ref["control"] > PARITY_GRAD_TOL,
+          f"[{tag}] the control passes ({ref['control']:.3e})")
+
+
+def _gpt3_pipe(torch, paddle, seed):
+    """[train gpt3 pipe] on this rank (``pipe_world_phase``)."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import is_mp_split
+    from paddle_tpu_torch.models import GPTForCausalLMPipe, gpt3_1p3b
+    from paddle_tpu_torch.ops import flash_attention_kernel as fk
+    dist = paddle.distributed
+    comm = dist.communication
+    hcg = _fleet_init(paddle, {"mp_degree": 2, "pp_degree": 4},
+                      {"accumulate_steps": PIPE_M, "micro_batch_size": 1})
+    stage, mp = hcg.get_stage_id(), hcg.get_model_parallel_rank()
+    cfg = gpt3_1p3b(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 3000 + 10 * stage + mp)
+    t0 = time.monotonic()
+    net = GPTForCausalLMPipe(cfg, num_stages=4, device="cuda", generator=gen)
+    opt = paddle.optimizer.AdamW(
+        learning_rate=PIPE_LR, parameters=net.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(PIPE_CLIP))
+    model = dist.fleet.distributed_model(net)
+    build_s = time.monotonic() - t0
+    rng = np.random.default_rng(seed + 3001)
+    x = rng.integers(0, cfg.vocab_size, (PIPE_M, PIPE_S)).astype(np.int64)
+    y = np.roll(x, -1, 1)
+
+    def step():
+        return float(model.train_batch((x, y), opt))
+
+    t0 = time.monotonic()
+    losses = [step()]
+    torch.cuda.synchronize()
+    warm_ms = (time.monotonic() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    fk.reset_counts()
+    comm.reset_counts()
+    ms = []
+    for _ in range(PIPE_STEPS - 1):
+        t0 = time.monotonic()
+        losses.append(step())
+        torch.cuda.synchronize()
+        ms.append((time.monotonic() - t0) * 1e3)
+    wall, busy = _profiled_busy(torch, lambda: losses.append(step()))
+    ms.append(wall)                     # the last step, under the profiler
+    launches = _launches(fk)
+    stats = comm.comm_stats(by_axis=True)
+    peak = _peaks(torch)
+    w = _dist_exercise()
+    ties = [w.replica_diffs([p], g) for p, g, _ in model._engine._ties]
+    mp_rep = w.replica_diffs([p for p in net.parameters()
+                              if not is_mp_split(p)],
+                             hcg.get_model_parallel_group())
+    layers = sum(1 for l in net.run_function
+                 if type(l).__name__ == "GPTDecoderLayer")
+    res = {"losses": losses, "warm_ms": warm_ms, "ms": ms,
+           "launches": launches, "stats": stats, "peak": peak,
+           "wall_ms": wall, "busy_ms": busy, "ties": ties, "mp_rep": mp_rep,
+           "coords": (stage, mp), "layers": layers, "build_s": build_s,
+           "params": sum(p.numel() for p in net.parameters())}
+    del model, opt, net
+    torch.cuda.empty_cache()
+    return res
+
+
+def _pipe_parity(torch, paddle, seed):
+    """[train gpt pipe parity] on this rank: the fp32 GPT-2-small pipe
+    model from numpy weights at dp2 x mp2 x pp2 through
+    ``PipelinedRunner``, SGD with the global-norm clip: step 1's reduced
+    gradients of this rank's stage shard (the dp-rank-0 ranks keep
+    them) and the ``PARITY_STEPS`` losses.  The single-process loop runs
+    after the world (:func:`_pipe_reference`)."""
+    from paddle_tpu_torch.distributed import PipelinedRunner
+    from paddle_tpu_torch.models import GPTForCausalLMPipe, gpt2_small
+    from paddle_tpu_torch.models.gpt import (pipe_state_from_causal,
+                                             state_dict_from_jax)
+    hcg = _fleet_init(paddle, {"dp_degree": 2, "mp_degree": 2,
+                               "pp_degree": 2})
+    cfg = gpt2_small(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    state = pipe_state_from_causal(gpt_numpy_state(cfg, seed + 3100), cfg)
+    stage, mp = hcg.get_stage_id(), hcg.get_model_parallel_rank()
+    net = GPTForCausalLMPipe(cfg, num_stages=2, device="cuda")
+    net.load_state_dict(state_dict_from_jax(state, cfg, mp, 2, stage, 2))
+    del state
+    opt = paddle.optimizer.SGD(
+        learning_rate=PARITY_LR, parameters=net.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(PIPE_CLIP))
+    runner = PipelinedRunner(net, opt, accumulate_steps=PP_PARITY_M)
+    x, y = _pipe_parity_batch(cfg, seed)
+    eng = runner._engine
+    update = eng._hybrid_update(opt)
+    eng._layers.train()
+    eng._schedule(torch.from_numpy(x), torch.from_numpy(y), True)
+    update.reduce()
+    grads = {k: p.grad.float().cpu().numpy()
+             for k, p in net.named_parameters()}
+    for _, p in update.named:
+        p.grad = None
+    losses = [runner.train_step([x], [y])[0] for _ in range(PARITY_STEPS)]
+    del runner, opt, net
+    torch.cuda.empty_cache()
+    return {"losses": losses, "coords": (hcg.get_data_parallel_rank(),
+                                         stage, mp),
+            "grads": grads if hcg.get_data_parallel_rank() == 0 else None}
+
+
+def _pipe_parity_batch(cfg, seed):
+    rng = np.random.default_rng(seed + 3101)
+    x = rng.integers(0, cfg.vocab_size, (HYBRID_B, HYBRID_S)).astype(np.int64)
+    return x, np.roll(x, -1, 1)
+
+
+def _pipe_reference(torch, paddle, seed, ranks):
+    """The single-process raw loop on the card (GPT-2-small fp32, the
+    numpy weights of :func:`_pipe_parity`, SGD with the global-norm clip):
+    its losses and the per-leaf gate of the pipe ranks' gradients joined
+    over mp and the stages, and of a planted control (mp rank 1's shard
+    of one leaf of stage 0 scaled by ``PARITY_CONTROL``), which must
+    fail."""
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion, gpt2_small,
+                                         state_dict_from_jax)
+    from paddle_tpu_torch.models.gpt import (causal_state_from_pipe,
+                                             merge_mp_states)
+    cfg = gpt2_small(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    net = GPTForCausalLM(cfg, device="cuda")
+    net.load_state_dict(state_dict_from_jax(gpt_numpy_state(
+        cfg, seed + 3100), cfg))
+    opt = paddle.optimizer.SGD(
+        learning_rate=PARITY_LR, parameters=net.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(PIPE_CLIP))
+    crit = GPTPretrainingCriterion()
+    x, y = (torch.from_numpy(a).cuda() for a in _pipe_parity_batch(cfg, seed))
+    losses, ref = [], None
+    for i in range(PARITY_STEPS):
+        loss = crit(net(x), y)
+        loss.backward()
+        if i == 0:
+            ref = {k: p.grad.float().cpu().numpy()
+                   for k, p in net.named_parameters()}
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+    del net, opt
+    torch.cuda.empty_cache()
+    mine = sorted((r["parity"] for r in ranks
+                   if r["parity"]["coords"][0] == 0),
+                  key=lambda r: r["coords"][1:])
+    states = [r["grads"] for r in mine]
+    got = causal_state_from_pipe(merge_mp_states(states, cfg, 2), cfg)
+    ratios = _grad_gate(got, ref)
+    li = cfg.num_hidden_layers // 4                  # a layer of stage 0
+    leaf = f"gpt.layers.{li}.mlp.fc1.weight"
+    pipe_leaf = f"_layers_list.{li + 1}.mlp.fc1.weight"
+    bad = [dict(s) for s in states]
+    bad[1][pipe_leaf] = bad[1][pipe_leaf] * PARITY_CONTROL
+    control = _grad_gate(causal_state_from_pipe(
+        merge_mp_states(bad, cfg, 2), cfg), ref)[leaf]
+    return {"serial_losses": losses, "ratios": ratios, "control": control,
+            "control_leaf": leaf}
+
+
+def _pipe_rank(workdir, stacks_after, seed):
+    torch, paddle = _rank_setup(stacks_after)
+    paddle.distributed.init_parallel_env()
+    res = {}
+    t0 = time.monotonic()
+    res["pipe"] = _gpt3_pipe(torch, paddle, seed)
+    t1 = time.monotonic()
+    res["parity"] = _pipe_parity(torch, paddle, seed)
+    res["secs"] = {"pipe": t1 - t0, "parity": time.monotonic() - t1}
+    _rank_done(workdir, res)
+
+
+def _pipe_flash_hold(torch, seed):
+    """K5 / K6 at the 1.3B pipeline's per-rank shape: q, k, v strided
+    views ``[1, 2048, 8, 128]`` of a packed qkv (row stride 3072
+    elements), fp32 (the CUDA-core kernels), causal, against their plain
+    versions at ROADMAP C's flash bounds; then each kernel's time (CUDA
+    events and device time), the plain version's, the bound at the fp32
+    CUDA-core rate and SDPA's forward in fp32 as the library yardstick."""
+    from paddle_tpu_torch.ops import flash_attention_kernel as fk
+    B, S, H, D = PIPE_FLASH
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 3200)
+    qkv = torch.randn(B, S, 3, H, D, device="cuda", generator=gen)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    g = torch.randn(B, S, H, D, device="cuda", generator=gen)
+    fk.reset_counts()
+    got = flash_run(fk, q, k, v, g, True)
+    la = _launches(fk)
+    check(la["flash_fwd"] == la["flash_bwd_dq"] == la["flash_bwd_dkv"] == 1
+          and la["flash_fwd.tc"] == la["flash_bwd_dq.tc"] ==
+          la["flash_bwd_dkv.tc"] == la["plain"] == 0,
+          f"[train gpt3 pipe] fp32 D=128: not the CUDA-core kernels {la}")
+    ref = flash_plain(torch, fk, q, k, v, g, True)
+    torch.cuda.synchronize()
+    errs = {}
+    for name in ("out", "lse", "dq", "dk", "dv"):
+        tol = FLASH_OUT_TOL if name in ("out", "lse") else FLASH_GRAD_TOL
+        check(bool(torch.isfinite(got[name]).all()),
+              f"[train gpt3 pipe] fp32 D=128 {name} not finite")
+        over, worst = _close(got[name], ref[name], tol)
+        check(over <= tol[1], f"[train gpt3 pipe] fp32 D=128 {name}: "
+              f"|d| - rtol |ref| reaches {over:.3e} > {tol[1]}")
+        errs[name] = worst
+    out, lse = got["out"], got["lse"]
+    dq_res = fk.flash_bwd_dq(q, k, v, out, lse, g, True)
+    calls = {
+        "flash_fwd": (lambda: fk.flash_fwd(q, k, v, True),
+                      lambda: fk.flash_attention_reference(q, k, v, True)),
+        "flash_bwd_dq": (
+            lambda: fk.flash_bwd_dq(q, k, v, out, lse, g, True),
+            lambda: fk.flash_bwd_dq_reference(q, k, v, out, lse, g, True)),
+        "flash_bwd_dkv": (
+            lambda: fk.flash_bwd_dkv(q, k, v, g, lse, dq_res[1], True),
+            lambda: fk.flash_bwd_dkv_reference(q, k, v, g, lse, dq_res[1],
+                                               True)),
+    }
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    with torch.no_grad():
+        sdpa_ms = time_cuda(torch, lambda: torch.nn.functional.
+                            scaled_dot_product_attention(qt, kt, vt,
+                                                         is_causal=True),
+                            10)
+    res = {"errs": errs}
+    for name, (kern, plain) in calls.items():
+        with torch.no_grad():
+            ms = time_cuda(torch, kern, 10)
+            dev_ms = device_ms(torch, kern, 5, {"all": ()})["all"]
+            plain_ms = time_cuda(torch, plain, 3, warmup=1)
+        flops, nbytes = fk.kernel_work(name, B, H, S, S, D, True, 4)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOPS_PER_S * 1e3
+        res[name] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations",
+                     "library_ms": sdpa_ms if name == "flash_fwd" else None,
+                     "tflops": flops / (ms * 1e-3) / 1e12}
+    return res
+
+
+def pipe_world_phase(torch, seed):
+    """``[train gpt3 pipe]`` and ``[train gpt pipe parity]``: eight ranks
+    on the one card, started once; this process then runs the GPT-2
+    single-process reference and holds K5/K6 at the 1.3B rank shape.
+    Returns the 1.3B training's launches summed over the ranks, and the
+    K5/K6 hold."""
+    import paddle_tpu_torch as paddle
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    t0 = time.monotonic()
+    ranks = _run_world(_pipe_rank, 8, {}, seed)
+    world_s = time.monotonic() - t0
+    card = card_line()
+    tag = "train gpt3 pipe"
+    tr = [r["pipe"] for r in ranks]
+    per_layer = 24 // 4
+    want_fwd = 2 * per_layer * PIPE_M * PIPE_STEPS   # forward + the replay
+    want_bwd = per_layer * PIPE_M * PIPE_STEPS
+    for i, res in enumerate(tr):
+        la = res["launches"]
+        check(res["layers"] == per_layer, f"[{tag}] rank {i} built "
+              f"{res['layers']} decoder layers")
+        check(la["flash_fwd"] == want_fwd and la["flash_bwd_dq"] == want_bwd
+              and la["flash_bwd_dkv"] == want_bwd and la["flash_fwd.tc"] ==
+              la["flash_bwd_dq.tc"] == la["flash_bwd_dkv.tc"] == 0
+              and la["plain"] == 0, f"[{tag}] rank {i} launches {la}")
+        check(all(np.isfinite(res["losses"])) and res["losses"] ==
+              tr[0]["losses"], f"[{tag}] rank {i} losses {res['losses']}")
+        check(res["losses"][-1] < res["losses"][0],
+              f"[{tag}] rank {i}: loss did not fall: {res['losses']}")
+        check(all(n > 0 and bad == 0 for n, bad in res["ties"]),
+              f"[{tag}] rank {i}: the tied embedding's copies differ "
+              f"{res['ties']}")
+        check(res["mp_rep"][0] > 0 and res["mp_rep"][1] == 0,
+              f"[{tag}] rank {i}: leaves not split over mp differ over mp "
+              f"{res['mp_rep']}")
+    step_ms = float(np.median([np.median(r["ms"]) for r in tr]))
+    busy = [r["busy_ms"] for r in tr]
+    wall = max(r["wall_ms"] for r in tr)
+    print(f"[{tag}] GPT-3 1.3B L=24 D=2048 H=16 F=8192 V=50304 S={PIPE_S}, "
+          "dp1 x mp2 x pp4 on 8 ranks of one card (spawn, fleet.init -> "
+          "GPTForCausalLMPipe(num_stages=4) -> fleet.distributed_model -> "
+          f"train_batch), {PIPE_M} micro-batches of 1 a step (1F1B), "
+          f"remat_stage, fp32 AdamW lr {PIPE_LR}, global-norm clip "
+          f"{PIPE_CLIP}: losses {[round(v, 5) for v in tr[0]['losses']]} "
+          f"(the first the warm step); bubble (P-1)/(M+P-1) = 3/11 = "
+          f"{3 / 11:.4f}; " + "; ".join(
+              f"rank {i} (stage {r['coords'][0]}, mp {r['coords'][1]}, "
+              f"{r['params'] / 1e6:.1f}M parameters, built in "
+              f"{r['build_s']:.1f} s) warm {r['warm_ms']:.0f} ms, step_ms "
+              f"{[round(v, 1) for v in r['ms']]}, peak allocated "
+              f"{_gib(r['peak'][0]):.3f} GiB reserved "
+              f"{_gib(r['peak'][1]):.3f} GiB" for i, r in enumerate(tr))
+          + f" (reckoned ~{PIPE_GIB} GiB a rank); this process held "
+          f"{_gib(held):.3f} GiB; card {card}", flush=True)
+    for i, r in enumerate(tr):
+        print(f"[{tag}] rank {i} (stage {r['coords'][0]}, mp "
+              f"{r['coords'][1]}) collectives a step (calls, bytes in, host "
+              f"ms): {_stats_line(_per_step(r['stats'], PIPE_STEPS))}",
+              flush=True)
+    la = tr[0]["launches"]
+    print(f"[{tag}] step_ms median(median over ranks) {step_ms:.1f}; "
+          f"tokens/s {PIPE_M * PIPE_S / step_ms * 1e3:.1f}; the last "
+          f"step profiled: wall {wall:.1f} ms, device busy by rank "
+          f"{[round(b, 1) for b in busy]} ms (sum {sum(busy):.1f}), card "
+          f"idle share {max(0.0, 1 - sum(busy) / wall):.4f}; the tied "
+          "embedding's copies bit-equal after the last update (elements, "
+          f"differing) {[r['ties'] for r in tr]}; leaves not split over "
+          f"mp bit-equal over mp {tr[0]['mp_rep']}; K5/K6 launches a rank "
+          f"(fp32: the CUDA-core kernels at [1, {PIPE_S}, 8, 128], row "
+          f"stride 3072): flash_fwd {la['flash_fwd']} (tc "
+          f"{la['flash_fwd.tc']}), flash_bwd_dq {la['flash_bwd_dq']}, "
+          f"flash_bwd_dkv {la['flash_bwd_dkv']}, plain {la['plain']}; "
+          f"seconds in the world: pipe {ranks[0]['secs']['pipe']:.1f}, "
+          f"parity {ranks[0]['secs']['parity']:.1f}; world {world_s:.1f} s",
+          flush=True)
+    hold = _pipe_flash_hold(torch, seed)
+    print(f"[{tag}] K5/K6 fp32 CUDA-core at [1, {PIPE_S}, 8, 128] row "
+          "stride 3072, causal, vs the plain versions: max |d| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in hold["errs"].items())
+          + f" (allclose at {FLASH_OUT_TOL} out, {FLASH_GRAD_TOL} "
+          "gradients); " + "; ".join(
+              f"{n} {r['ms']:.4f} ms (device {r['device_ms']:.4f}, "
+              f"{r['tflops']:.2f} TFLOP/s) plain {r['plain_ms']:.3f} bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']})"
+              for n, r in hold.items() if n != "errs")
+          + f"; SDPA fp32 forward {hold['flash_fwd']['library_ms']:.4f} ms; "
+          f"card {card}", flush=True)
+
+    tag = "train gpt pipe parity"
+    t1 = time.monotonic()
+    p = [r["parity"] for r in ranks]
+    for i, r in enumerate(p):
+        check(r["losses"] == p[0]["losses"],
+              f"[{tag}] rank {i} losses {r['losses']}")
+    ref = _pipe_reference(torch, paddle, seed, ranks)
+    _parity_gates(tag, f"GPT-2-small fp32, global B={HYBRID_B} S={HYBRID_S}"
+                  f", dp2 x mp2 x pp2 through PipelinedRunner ({PP_PARITY_M} "
+                  "micro-batches, remat_stage) on 8 ranks vs the "
+                  "single-process raw loop on the card, same numpy weights "
+                  f"and batch, SGD lr {PARITY_LR} with the global-norm clip "
+                  f"{PIPE_CLIP}", p[0]["losses"], ref,
+                  "stage 0 mp rank 1's shard of", card,
+                  time.monotonic() - t1)
+    launches = {k: sum(r["pipe"]["launches"][k] for r in ranks)
+                for k in tr[0]["launches"]}
+    return launches, hold
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -11642,6 +12596,13 @@ def main(argv=None) -> int:
     dyg = train_gpt_dygraph_phase(torch, args.seed, eager)
     dist_nccl_phase(torch, args.seed)
     hyb = hybrid_world_phase(torch, args.seed)
+    t0 = time.monotonic()
+    shard = world4_phase(torch, args.seed)
+    t1 = time.monotonic()
+    pipe, pipe_hold = pipe_world_phase(torch, args.seed)
+    print(f"[dist worlds] seconds: ERNIE sharding + cp world {t1 - t0:.1f}, "
+          f"pipeline world with its reference and hold "
+          f"{time.monotonic() - t1:.1f}", flush=True)
 
     k32, k16 = kres["fp32"], kres["bf16"]
     kernels = [{
@@ -11921,6 +12882,19 @@ def main(argv=None) -> int:
             entry["dygraph_tc_launches"] = dyg["launches"][f"{name}.tc"]
             entry["hybrid_launches"] = hyb[name]
             entry["hybrid_tc_launches"] = hyb[f"{name}.tc"]
+            entry["ernie_sharding_launches"] = shard[name]
+            entry["ernie_sharding_tc_launches"] = shard[f"{name}.tc"]
+            entry["pipe_1p3b_launches"] = pipe[name]
+            entry["pipe_1p3b_tc_launches"] = pipe[f"{name}.tc"]
+            h = pipe_hold[name]
+            entry["pipe_1p3b_fp32_d128"] = {
+                "shape": list(PIPE_FLASH), "ms": h["ms"],
+                "device_ms": h["device_ms"], "plain_ms": h["plain_ms"],
+                "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
+                "library_ms": h["library_ms"],
+                "max_abs_err": max(pipe_hold["errs"][k] for k in (
+                    ("out", "lse") if name == "flash_fwd" else
+                    ("dq",) if name == "flash_bwd_dq" else ("dk", "dv")))}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,10 +3,13 @@
 (``init_parallel_env``, ``spawn``), the collectives on
 ``torch.distributed`` (``communication``, ``stream``), Fleet's hybrid
 topology with data, tensor (mp) and sharding parallelism and
-recompute (``fleet``, ``sharding``), ``DistributedRunner``, and fault
-injection (``resilience.faults``).  Pipeline and context parallel, the
-compressed dp path, checkpoints, auto-parallel and MoE come with the
-next A10 slices; the launcher and the rest of ``resilience/`` with A11.
+recompute (``fleet``, ``sharding``), pipeline parallel
+(``fleet.meta_parallel.PipelineLayer``, ``PipelineParallel``,
+``PipelinedRunner``) and context parallel (ring and Ulysses attention
+over the sep group), ``DistributedRunner``, and fault injection
+(``resilience.faults``).  The compressed dp path, checkpoints,
+auto-parallel and MoE come with the next A10 slices; the launcher and
+the rest of ``resilience/`` with A11.
 """
 
 from . import resilience  # noqa: F401
@@ -22,7 +25,7 @@ from . import stream  # noqa: F401
 from . import fleet  # noqa: F401
 from . import sharding  # noqa: F401
 from .collective import get_mesh, set_mesh, split  # noqa: F401
-from .runner import DistributedRunner  # noqa: F401
+from .runner import DistributedRunner, PipelinedRunner  # noqa: F401
 from .spawn import spawn  # noqa: F401
 from .fleet.recompute import recompute  # noqa: F401
 
@@ -35,4 +38,5 @@ __all__ = ["resilience", "DataParallel", "ParallelEnv", "get_backend",
            "get_group", "irecv", "isend", "new_group", "recv", "reduce",
            "reduce_scatter", "scatter", "scatter_object_list", "send",
            "wait", "stream", "fleet", "sharding", "get_mesh", "set_mesh",
-           "split", "DistributedRunner", "spawn", "recompute"]
+           "split", "DistributedRunner", "PipelinedRunner", "spawn",
+           "recompute"]

@@ -27,7 +27,8 @@ The rest (``reduce_scatter``, ``alltoall_single``, ``gather``,
 
 Every call also adds to :func:`comm_stats` (calls, bytes this rank
 passes in, host seconds until done), which the training phases read as
-the collective traffic a step.
+the collective traffic a step; ``comm_stats(by_axis=True)`` keys them
+by the group's topology axis too (``all_reduce@mp``, ``send@pp``).
 
 Object collectives are ``torch.distributed``'s (pickles moved as byte
 tensors, on the current card under NCCL).
@@ -107,11 +108,20 @@ def composed_counts() -> dict:
     return dict(_composed)
 
 
-def comm_stats() -> dict:
+def comm_stats(by_axis: bool = False) -> dict:
     """``{collective: {"calls", "bytes", "seconds"}}`` since the last
     :func:`reset_counts`: bytes are this rank's input bytes, seconds the
-    host time until each call was done (its ``wait`` included)."""
-    return {k: dict(v) for k, v in _stats.items()}
+    host time until each call was done (its ``wait`` included).  With
+    ``by_axis`` the keys are ``collective@axis``, the axis of the
+    group's topology (``dp``, ``mp``, ``pp``, ``sep``, ...; ``world``
+    for a group without one)."""
+    out = {}
+    for (name, axis), v in _stats.items():
+        s = out.setdefault(f"{name}@{axis}" if by_axis else name,
+                           {"calls": 0, "bytes": 0, "seconds": 0.0})
+        for k in s:
+            s[k] += v[k]
+    return out
 
 
 def reset_counts() -> None:
@@ -119,8 +129,13 @@ def reset_counts() -> None:
     _stats.clear()
 
 
-def _count(name: str, nbytes: int, seconds: float) -> None:
-    s = _stats.setdefault(name, {"calls": 0, "bytes": 0, "seconds": 0.0})
+def _count(name: str, nbytes: int, seconds: float, axis=None) -> None:
+    if axis is None:
+        axis = "world"
+    elif not isinstance(axis, str):
+        axis = "+".join(axis)
+    s = _stats.setdefault((name, axis),
+                          {"calls": 0, "bytes": 0, "seconds": 0.0})
     s["calls"] += 1
     s["bytes"] += int(nbytes)
     s["seconds"] += seconds
@@ -189,8 +204,9 @@ class _Task:
     """The task an async collective returns: ``wait()`` finishes it
     (and adds its host time to :func:`comm_stats`)."""
 
-    def __init__(self, name, nbytes, works=(), after=None, t0=None):
-        self._name, self._nbytes = name, nbytes
+    def __init__(self, name, nbytes, works=(), after=None, t0=None,
+                 axis=None):
+        self._name, self._nbytes, self._axis = name, nbytes, axis
         self._works = [w for w in works if w is not None]
         self._after = after
         self._t0 = time.perf_counter() if t0 is None else t0
@@ -204,7 +220,8 @@ class _Task:
         if self._after is not None:
             self._after()
         self._done = True
-        _count(self._name, self._nbytes, time.perf_counter() - self._t0)
+        _count(self._name, self._nbytes, time.perf_counter() - self._t0,
+               self._axis)
         return True
 
     def is_completed(self):
@@ -235,7 +252,7 @@ def all_reduce(tensor, op=ReduceOp.SUM, group: Optional[Group] = None,
                            async_op=True)
     after = (lambda: v.div_(g.nranks)) if op == ReduceOp.AVG else None
     return _finish(_Task("all_reduce", v.numel() * v.element_size(), [work],
-                         after, t0), sync_op)
+                         after, t0, axis=g.axis_name), sync_op)
 
 
 def all_gather(tensor_list, tensor, group: Optional[Group] = None,
@@ -253,7 +270,7 @@ def all_gather(tensor_list, tensor, group: Optional[Group] = None,
     wrap = _wrapper_like(tensor)
     tensor_list.extend(wrap(o) for o in outs)
     return _finish(_Task("all_gather", v.numel() * v.element_size(), [work],
-                         None, t0), sync_op)
+                         None, t0, axis=g.axis_name), sync_op)
 
 
 def _wrapper_like(tensor):
@@ -273,7 +290,7 @@ def broadcast(tensor, src: int = 0, group: Optional[Group] = None,
     t0 = time.perf_counter()
     work = dist.broadcast(v, src=src, group=g.pg, async_op=True)
     return _finish(_Task("broadcast", v.numel() * v.element_size(), [work],
-                         None, t0), sync_op)
+                         None, t0, axis=g.axis_name), sync_op)
 
 
 def reduce(tensor, dst: int = 0, op=ReduceOp.SUM, group=None,
@@ -292,7 +309,7 @@ def reduce(tensor, dst: int = 0, op=ReduceOp.SUM, group=None,
     after = (lambda: v.div_(g.nranks)) \
         if op == ReduceOp.AVG and g.ranks[rank] == dst else None
     return _finish(_Task("reduce", v.numel() * v.element_size(), [work],
-                         after, t0), sync_op)
+                         after, t0, axis=g.axis_name), sync_op)
 
 
 def reduce_scatter(tensor, tensor_list=None, op=ReduceOp.SUM, group=None,
@@ -327,7 +344,8 @@ def reduce_scatter(tensor, tensor_list=None, op=ReduceOp.SUM, group=None,
         out.copy_(res)
     else:
         _set_value(tensor, res)
-    return _finish(_Task("reduce_scatter", nbytes, (), None, t0), sync_op)
+    return _finish(_Task("reduce_scatter", nbytes, (), None, t0,
+                         axis=g.axis_name), sync_op)
 
 
 def _set_value(tensor, value):
@@ -355,7 +373,8 @@ def alltoall(out_tensor_list, in_tensor_list, group=None,
         dist.all_to_all(outs, ins, group=g.pg)
     wrap = _wrapper_like(in_tensor_list[0])
     out_tensor_list.extend(wrap(o) for o in outs)
-    return _finish(_Task("alltoall", nbytes, (), None, t0), sync_op)
+    return _finish(_Task("alltoall", nbytes, (), None, t0,
+                         axis=g.axis_name), sync_op)
 
 
 all_to_all = alltoall
@@ -389,7 +408,8 @@ def alltoall_single(out_tensor, in_tensor, in_split_sizes=None,
     dist.all_to_all_single(out, src.contiguous(),
                            output_split_sizes=out_split_sizes,
                            input_split_sizes=in_split_sizes, group=g.pg)
-    return _finish(_Task("alltoall_single", nbytes, (), None, t0), sync_op)
+    return _finish(_Task("alltoall_single", nbytes, (), None, t0,
+                         axis=g.axis_name), sync_op)
 
 
 def send(tensor, dst: int = 0, group=None, sync_op: bool = True):
@@ -401,10 +421,12 @@ def send(tensor, dst: int = 0, group=None, sync_op: bool = True):
     nbytes = v.numel() * v.element_size()
     if _gloo_cuda(g, v):
         work, keep = _host_send(v, dst, g)
-        return _finish(_Task("send", nbytes, [work], keep.clear, t0),
+        return _finish(_Task("send", nbytes, [work], keep.clear, t0,
+                             axis=g.axis_name),
                        sync_op)
     work = dist.isend(v.contiguous(), dst=dst, group=g.pg)
-    return _finish(_Task("send", nbytes, [work], None, t0), sync_op)
+    return _finish(_Task("send", nbytes, [work], None, t0,
+                         axis=g.axis_name), sync_op)
 
 
 def _host_send(v, dst, g):
@@ -425,9 +447,11 @@ def recv(tensor, src: int = 0, group=None, sync_op: bool = True):
     if _gloo_cuda(g, v):
         work, host = _host_recv(v, src, g)
         return _finish(_Task("recv", nbytes, [work],
-                             lambda: v.copy_(host), t0), sync_op)
+                             lambda: v.copy_(host), t0,
+                             axis=g.axis_name), sync_op)
     work = dist.irecv(v, src=src, group=g.pg)
-    return _finish(_Task("recv", nbytes, [work], None, t0), sync_op)
+    return _finish(_Task("recv", nbytes, [work], None, t0,
+                         axis=g.axis_name), sync_op)
 
 
 def _host_recv(v, src, g):
@@ -461,7 +485,7 @@ def scatter(tensor, tensor_list=None, src: int = 0, group=None,
     ins = [_value(t).contiguous() for t in tensor_list] if is_src else None
     work = dist.scatter(v, ins, src=src, group=g.pg, async_op=True)
     return _finish(_Task("scatter", v.numel() * v.element_size(), [work],
-                         None, t0), sync_op)
+                         None, t0, axis=g.axis_name), sync_op)
 
 
 def gather(tensor, gather_list=None, dst: int = 0, group=None,
@@ -483,7 +507,7 @@ def gather(tensor, gather_list=None, dst: int = 0, group=None,
         wrap = _wrapper_like(tensor)
         gather_list.extend(wrap(o) for o in outs)
     return _finish(_Task("gather", v.numel() * v.element_size(), [work],
-                         None, t0), sync_op)
+                         None, t0, axis=g.axis_name), sync_op)
 
 
 def barrier(group=None):

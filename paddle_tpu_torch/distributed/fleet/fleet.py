@@ -8,11 +8,14 @@ mp RNG tracker as the JAX fleet does: a shared global seed and a local
 seed per mp rank, from ``tensor_parallel_configs["tensor_init_seed"]``
 (42 when unset).
 
-What waits, each refused with the ROADMAP item that brings it:
-pipeline parallel (``pp_degree > 1``) and context parallel
-(``sep_degree > 1``), the next A10 slices; the compressed dp knobs
-(``quantized_allreduce``, ``sharded_weight_update``), A10's
-``compressed.py``; ``enable_resilience``, A11.
+``distributed_model`` gives a ``PipelineLayer`` (or any model at pp >
+1) the pipeline engine's wrapper; models built under ``sep_degree > 1``
+run their attention over the sep group themselves (the GPT attention's
+ring or Ulysses branch).
+
+What waits, each refused with the ROADMAP item that brings it: the
+compressed dp knobs (``quantized_allreduce``, ``sharded_weight_update``),
+A10's ``compressed.py``; ``enable_resilience``, A11.
 """
 
 from __future__ import annotations
@@ -25,9 +28,6 @@ from .base.topology import (CommunicateTopology, HybridCommunicateGroup,
                             _set_hybrid_parallel_group)
 from ..parallel import ParallelEnv, init_parallel_env
 
-SEP_REFUSAL = ("context parallel (sep_degree > 1, ring_flash_attention, "
-               "ulysses_attention) is not ported yet: it comes with the "
-               "A10 slice of context_parallel.py (ROADMAP queue A, item A10)")
 COMPRESS_REFUSAL = ("the compressed dp gradient path (quantized_allreduce / "
                     "dp_compress_bits, sharded_weight_update / "
                     "dp_shard_update) is not ported yet: it comes with the "
@@ -118,17 +118,18 @@ class Fleet:
         barrier()
 
     def distributed_model(self, model):
-        """The wrapper for the topology: ``TensorParallel`` at mp > 1,
+        """The wrapper for the topology: ``PipelineParallelWrapper`` for a
+        ``PipelineLayer`` or at pp > 1, ``TensorParallel`` at mp > 1,
         ``ShardingParallel`` at sharding > 1, ``DataParallel`` over the dp
         group at dp > 1, else the model."""
         hcg = self.get_hybrid_communicate_group()
         from .meta_parallel.parallel_wrappers import (
-            PIPELINE_REFUSAL, ShardingParallel, TensorParallel)
+            PipelineParallelWrapper, ShardingParallel, TensorParallel)
+        from .meta_parallel.pp_layers import PipelineLayer
         from ..parallel import DataParallel
-        if hcg.get_pipe_parallel_world_size() > 1:
-            raise NotImplementedError(PIPELINE_REFUSAL)
-        if hcg.get_sep_parallel_world_size() > 1:
-            raise NotImplementedError(SEP_REFUSAL)
+        if hcg.get_pipe_parallel_world_size() > 1 or isinstance(
+                model, PipelineLayer):
+            return PipelineParallelWrapper(model, hcg, self._strategy)
         if hcg.get_model_parallel_world_size() > 1:
             return TensorParallel(model, hcg, self._strategy)
         if hcg.get_sharding_parallel_world_size() > 1:
@@ -157,9 +158,13 @@ class Fleet:
                            input_specs=None):
         """The per-rank train-step engine with the strategy's knobs:
         sharding -> ZeRO stage, gradient_merge -> accumulate_steps
-        (``k_steps``), amp -> O1/O2 and its dtype, recompute -> remat.
-        Refuses the knobs of ``_REFUSED_STRATEGY_KNOBS`` when set."""
-        from ..runner import DistributedRunner
+        (``k_steps``), amp -> O1/O2 and its dtype, recompute -> remat;
+        at pp > 1 with a ``PipelineLayer``, ``PipelinedRunner`` (the
+        pipeline engine; a sharding stage or ``input_specs`` refused
+        there, as in the JAX fleet).  Refuses the knobs of
+        ``_REFUSED_STRATEGY_KNOBS`` when set."""
+        from ..runner import DistributedRunner, PipelinedRunner
+        from .meta_parallel.pp_layers import PipelineLayer
         s = self._strategy or DistributedStrategy()
         current = s.to_dict()
         defaults = DistributedStrategy().to_dict()
@@ -184,6 +189,26 @@ class Fleet:
             amp_level = "O2" if cfg.get("use_pure_fp16") else "O1"
             amp_dtype = "bfloat16" if cfg.get("use_bf16", True) \
                 else "float16"
+        hcg = self.get_hybrid_communicate_group()
+        if hcg.get_pipe_parallel_world_size() > 1 and isinstance(
+                model, PipelineLayer):
+            unsupported = {}
+            if stage:
+                unsupported["sharding stage"] = stage
+            if input_specs:
+                unsupported["input_specs"] = input_specs
+            if unsupported:
+                raise ValueError(
+                    "pipeline meshes run the pipeline-schedule engine, "
+                    "which does not support these strategy knobs yet: "
+                    f"{unsupported}.  Drop them or use pp 1.")
+            return PipelinedRunner(
+                model, optimizer, loss_fn, mesh=hcg,
+                accumulate_steps=max(acc, 1), amp_level=amp_level,
+                amp_dtype=amp_dtype,
+                pipeline_configs=s.pipeline_configs if s.pipeline
+                else None,
+                remat=True if s.recompute else None)
         return DistributedRunner(
             model, optimizer, loss_fn,
             mesh=self.get_hybrid_communicate_group(), sharding_stage=stage,

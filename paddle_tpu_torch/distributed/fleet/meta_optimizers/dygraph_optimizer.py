@@ -8,14 +8,19 @@ One update serves the dygraph loop and ``DistributedRunner``:
 
 1. the gradients averaged over the data group (dp, and sharding when
    its stage is 0), or reduced into this rank's chunks by the sharded
-   update (``sharding_parallel.ShardedUpdate``, stages 1-3);
+   update (``sharding_parallel.ShardedUpdate``, stages 1-3); under
+   context parallel first averaged over the sep group (each sep rank
+   saw its slice of the sequence); then the copies of a weight that
+   pipeline stages share summed over each copy's group (``tied``);
 2. the global-norm clip, with the norm of the whole model: the squares
    of the gradients split over mp (``is_distributed``) summed over the
-   mp group, those of replicated parameters counted once, and under
+   mp group, those of replicated parameters counted once, under
    sharding the total summed over the sharding group (each rank holds
-   other chunks) -- the JAX ``_sq_sum_comm`` over ``mp``, ``pp`` and
-   ``sharding``.  Gradients scale in fp32 and round back to their
-   dtype, as ``ClipGradByGlobalNorm.pure_clip`` does;
+   other chunks), and under pp over the pipe group, with a shared
+   weight's second copies left out (``norm_skip``) -- the JAX
+   ``_sq_sum_comm`` over ``mp``, ``pp`` and ``sharding``.  Gradients
+   scale in fp32 and round back to their dtype, as
+   ``ClipGradByGlobalNorm.pure_clip`` does;
 3. the wrapped optimizer's update (its own clip off for the call);
 4. under sharding, the updated chunks all-gathered into the parameters
    (stage 3: the parameters released, gathered again before the next
@@ -45,11 +50,16 @@ class HybridUpdate:
     sharding rank)."""
 
     def __init__(self, named_params, optimizer, data_group, mp_group=None,
-                 sharding_group=None, dp_group=None, stage=0):
+                 sharding_group=None, dp_group=None, stage=0, pp_group=None,
+                 sep_group=None, tied=(), norm_skip=()):
         self.optimizer = optimizer
         self.named = [(n, p) for n, p in named_params]
         self.data_group = data_group
         self.mp_group = mp_group
+        self.pp_group = pp_group
+        self.sep_group = sep_group
+        self.tied = list(tied)
+        self.norm_skip = {id(p) for p in norm_skip}
         self.sharded = None
         if stage >= 1 and sharding_group is not None and \
                 sharding_group.nranks > 1:
@@ -65,12 +75,22 @@ class HybridUpdate:
 
     @classmethod
     def from_hcg(cls, named_params, optimizer, hcg, stage=0):
+        sep = hcg.get_sep_parallel_group() \
+            if hcg.get_sep_parallel_world_size() > 1 else None
         return cls(named_params, optimizer, hcg._get_data_group(),
                    hcg.get_model_parallel_group(),
                    hcg.get_sharding_parallel_group(),
-                   hcg.get_data_parallel_group(), stage)
+                   hcg.get_data_parallel_group(), stage, sep_group=sep)
 
     def reduce(self):
+        if self.sep_group is not None and self.sep_group.nranks > 1:
+            allreduce_mean([p for _, p in self.named], self.sep_group)
+        self._reduce_data()
+        for p, group in self.tied:
+            if p.grad is not None:
+                all_reduce(p.grad, group=group)
+
+    def _reduce_data(self):
         if self.sharded is not None:
             self.sharded.reduce_grads(self.data_group,
                                       self.data_group.nranks)
@@ -85,8 +105,9 @@ class HybridUpdate:
 
     def sq_sum(self, params) -> torch.Tensor:
         """The square-sum of the whole model's gradients (step 2)."""
-        dist_g = [p.grad for p in params if is_mp_split(p)]
-        rep_g = [p.grad for p in params if not is_mp_split(p)]
+        counted = [p for p in params if id(p) not in self.norm_skip]
+        dist_g = [p.grad for p in counted if is_mp_split(p)]
+        rep_g = [p.grad for p in counted if not is_mp_split(p)]
         device = params[0].grad.device
 
         def sq(grads):
@@ -101,6 +122,8 @@ class HybridUpdate:
         total = sq_d + sq_r
         if self.sharded is not None:
             all_reduce(total, group=self.sharded.group)
+        if self.pp_group is not None and self.pp_group.nranks > 1:
+            all_reduce(total, group=self.pp_group)
         return total
 
     @torch.no_grad()

@@ -8,7 +8,9 @@ parameters that are not split over mp from the mp group's first rank,
 then every parameter from the dp group's and the sharding group's first
 rank (upstream's ``broadcast_*_parameters``).  The gradients are
 reduced by the hybrid optimizer (``fleet.distributed_optimizer``).
-``PipelineParallelWrapper`` waits for the pipeline slice.
+``PipelineParallelWrapper`` gives a ``PipelineLayer`` the pipeline
+engine's ``train_batch`` / ``eval_batch``
+(``pipeline_parallel.PipelineParallel``).
 """
 
 from __future__ import annotations
@@ -18,12 +20,6 @@ from ..utils.hybrid_parallel_util import (broadcast_dp_parameters,
                                           broadcast_mp_parameters,
                                           broadcast_sharding_parameters)
 from .sharding_parallel import materialize_params
-
-PIPELINE_REFUSAL = (
-    "pipeline parallel (pp_degree > 1, PipelineLayer, PipelinedRunner) is "
-    "not ported yet: it comes with the next A10 slice (ROADMAP queue A, "
-    "item A10: pipeline_parallel.py and pp_layers)")
-
 
 class MetaParallelBase(LayerWrapper):
     def __init__(self, layers, hcg, strategy):
@@ -58,5 +54,18 @@ class ShardingParallel(MetaParallelBase):
 
 
 class PipelineParallelWrapper(MetaParallelBase):
+    """pp: the engine's ``train_batch`` / ``eval_batch`` (upstream's
+    ``PipelineParallel`` API)."""
+
     def __init__(self, layers, hcg, strategy):
-        raise NotImplementedError(PIPELINE_REFUSAL)
+        super().__init__(layers, hcg, strategy)
+        from .pipeline_parallel import PipelineParallel
+        self._engine = PipelineParallel(layers, hcg, strategy)
+        self.accumulate_steps = self._engine.accumulate_steps
+
+    def train_batch(self, data, optimizer, lr_scheduler=None, scaler=None):
+        return self._engine.train_batch(data, optimizer, lr_scheduler,
+                                        scaler)
+
+    def eval_batch(self, data, compute_loss=True):
+        return self._engine.eval_batch(data, compute_loss)

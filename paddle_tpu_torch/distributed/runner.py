@@ -18,13 +18,24 @@ batch:
   into chunks at ``sharding_stage`` 1-3), the hybrid global-norm clip,
   the optimizer, the chunks gathered;
 - the loss returned is the global batch's mean (all-reduced over the
-  data group), the same float on every rank.
+  data group), the same float on every rank;
+- at sep > 1 (context parallel, the JAX ``_data_pspecs``): each rank
+  takes its contiguous slice of the sequence (dim 1) of its rows, of
+  every input and label whose dim 1 divides by sep; the model built
+  under the topology attends over the sep group with global positions
+  (``models/gpt.py``); the gradients are averaged over the sep group
+  before the data group (each rank's loss is the mean over its slice,
+  so the sum over sep of the slices' gradients over sep is the
+  gradient of the global token mean), and the loss is averaged over
+  both.
 
 Every rank starts from the same weights: the parameters not split over
 mp from the mp group's first rank, then all from the data group's first
-rank.  Refused, each with the ROADMAP item that brings it: pp > 1 and
-sep > 1 (``PipelinedRunner`` too), and the compressed dp knobs
-(``dp_compress_bits``, ``dp_shard_update`` and their env overrides).
+rank.  At pp > 1 the model is a ``PipelineLayer`` trained by
+``PipelinedRunner`` (the pipeline engine's runner duck-type, below).
+Refused, each with the ROADMAP item that brings it: the compressed dp
+knobs (``dp_compress_bits``, ``dp_shard_update`` and their env
+overrides) and ``PipelinedRunner.train_steps_folded``.
 """
 
 from __future__ import annotations
@@ -39,15 +50,18 @@ import torch
 from . import collective as coll
 from .communication import all_reduce
 from .fleet.base.topology import CommunicateTopology, HybridCommunicateGroup
-from .fleet.fleet import COMPRESS_REFUSAL, SEP_REFUSAL
+from .fleet.fleet import COMPRESS_REFUSAL
 from .fleet.meta_optimizers.dygraph_optimizer import HybridUpdate
-from .fleet.meta_parallel.parallel_wrappers import PIPELINE_REFUSAL
 from .fleet.meta_parallel.sharding_parallel import materialize_params
 from .fleet.utils.hybrid_parallel_util import broadcast_mp_parameters
 from .parallel import get_rank, get_world_size, sync_params_buffers
 
 _DP_COMPRESS_ENV = "PADDLE_TPU_DP_COMPRESS"
 _DP_SHARD_ENV = "PADDLE_TPU_DP_SHARD_UPDATE"
+FOLD_REFUSAL = (
+    "PipelinedRunner.train_steps_folded: the port has no fold engine on a "
+    "distributed topology yet; it waits in ROADMAP queue A, item A10 (the "
+    "mesh branch of the fold engine with Model.fit's mesh runner)")
 
 
 def _refuse_compressed(dp_compress_bits, dp_shard_update):
@@ -76,9 +90,10 @@ class DistributedRunner:
         if hcg is None:
             hcg = _default_hcg()
         if hcg.get_pipe_parallel_world_size() > 1:
-            raise NotImplementedError(PIPELINE_REFUSAL)
-        if hcg.get_sep_parallel_world_size() > 1:
-            raise NotImplementedError(SEP_REFUSAL)
+            raise ValueError(
+                "DistributedRunner runs pp 1; at pp > 1 train a "
+                "PipelineLayer through PipelinedRunner (or "
+                "fleet.distributed_model(...).train_batch)")
         _refuse_compressed(dp_compress_bits, dp_shard_update)
         if input_specs:
             raise NotImplementedError(
@@ -98,6 +113,10 @@ class DistributedRunner:
         broadcast_mp_parameters(network, hcg)
         data = hcg._get_data_group()
         sync_params_buffers(network, data, data.ranks[0])
+        self._sep = hcg.get_sep_parallel_group() \
+            if hcg.get_sep_parallel_world_size() > 1 else None
+        if self._sep is not None:
+            sync_params_buffers(network, self._sep, self._sep.ranks[0])
         self._update = HybridUpdate.from_hcg(
             list(network.named_parameters()), optimizer, hcg,
             self.sharding_stage)
@@ -108,11 +127,20 @@ class DistributedRunner:
         return next(iter(self.network.parameters())).device
 
     def _rows(self, arrays, lo, hi, device):
+        """Rows ``lo:hi`` of each array; at sep > 1 this rank's slice of
+        dim 1 where it divides by sep."""
         out = []
         for a in arrays:
-            t = a if isinstance(a, torch.Tensor) else torch.as_tensor(
-                np.asarray(a))
-            out.append(t[lo:hi].to(device))
+            t = getattr(a, "_value", a)
+            t = t if isinstance(t, torch.Tensor) else torch.as_tensor(
+                np.asarray(t))
+            t = t[lo:hi]
+            sep = self._sep
+            if sep is not None and t.dim() >= 2 and \
+                    t.shape[1] % sep.nranks == 0:
+                k = t.shape[1] // sep.nranks
+                t = t[:, sep.rank * k:(sep.rank + 1) * k]
+            out.append(t.to(device))
         return out
 
     def _forward_loss(self, xs, ys):
@@ -164,6 +192,9 @@ class DistributedRunner:
         for _, p in self._update.named:
             p.grad = None
         all_reduce(total, group=self._data)
+        if self._sep is not None:
+            all_reduce(total, group=self._sep)
+            n *= self._sep.nranks
         return float(total) / (self.accumulate_steps * n)
 
     def sync_to_layers(self):
@@ -172,6 +203,72 @@ class DistributedRunner:
         materialize_params(self.network)
 
 
+class _PipeStrategy:
+    """The strategy a runner-built pipeline engine reads."""
+
+    def __init__(self, pipeline_configs):
+        self.pipeline_configs = pipeline_configs
+
+
 class PipelinedRunner:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(PIPELINE_REFUSAL)
+    """The runner duck-type over the pipeline engine
+    (``fleet.meta_parallel.pipeline_parallel.PipelineParallel``), the JAX
+    ``PipelinedRunner``'s: ``train_step`` / ``eval_step`` /
+    ``sync_to_layers`` / ``compile_stats``.  ``accumulate_steps`` is the
+    schedule's micro-batch count; ``pipeline_configs`` pass through
+    (``remat_stage`` from ``remat`` where the caller left it unset).
+    ``amp_level`` warns and trains in the parameters' dtype, as the JAX
+    runner does: the engine has no AMP.  ``train_steps_folded`` refuses
+    (:data:`FOLD_REFUSAL`)."""
+
+    def __init__(self, network, optimizer, loss_fn=None, mesh=None,
+                 accumulate_steps: int = 1, amp_level: Optional[str] = None,
+                 amp_dtype: str = "bfloat16", remat: Optional[bool] = None,
+                 pipeline_configs: Optional[dict] = None):
+        from .fleet.meta_parallel.pipeline_parallel import PipelineParallel
+        from .fleet.meta_parallel.pp_layers import PipelineLayer
+        if not isinstance(network, PipelineLayer):
+            raise TypeError("PipelinedRunner trains a PipelineLayer (e.g. "
+                            "GPTForCausalLMPipe), got "
+                            f"{type(network).__name__}")
+        self.network = network
+        self.optimizer = optimizer
+        self.mesh = mesh if mesh is not None else coll.get_mesh()
+        if self.mesh is None:
+            self.mesh = _default_hcg()
+        self.accumulate_steps = max(int(accumulate_steps), 1)
+        if amp_level:
+            import warnings
+            warnings.warn(
+                "PipelinedRunner: amp_level is not supported by the "
+                "pipeline-schedule engine yet; training runs full "
+                "precision")
+        cfg = dict(pipeline_configs or {})
+        cfg["accumulate_steps"] = self.accumulate_steps
+        if remat is not None and "remat_stage" not in cfg:
+            cfg["remat_stage"] = bool(remat)
+        self._engine = PipelineParallel(
+            network, self.mesh, _PipeStrategy(cfg), optimizer=optimizer,
+            loss_fn=loss_fn)
+
+    def train_step(self, inputs, labels):
+        """One train batch through the schedule; returns ``(loss,
+        out_vals)``, the last stage's outputs (an empty list on the other
+        stages), as the JAX runner's captured step does."""
+        return self._engine.train_step(inputs, labels)
+
+    def train_steps_folded(self, groups, metric_fns=(), metric_acc=None):
+        raise NotImplementedError(FOLD_REFUSAL)
+
+    def eval_step(self, inputs, labels):
+        """The batch's forward and loss; returns ``(loss, out_vals)``."""
+        ins = inputs[0] if isinstance(inputs, (list, tuple)) else inputs
+        lbs = labels[0] if isinstance(labels, (list, tuple)) else labels
+        loss = self._engine.eval_batch((ins, lbs), compute_loss=True)
+        return float(loss), []
+
+    def sync_to_layers(self):
+        self._engine.sync_to_layers()
+
+    def compile_stats(self):
+        return self._engine.compile_stats()

@@ -18,7 +18,16 @@ layers, with the same names, layouts and initial draws.
 :func:`state_dict_from_jax` cuts a JAX state dict into a rank's shard,
 :func:`merge_mp_states` joins the shards again.
 ``GPTConfig(recompute=True)`` recomputes each decoder layer in backward
-while training (``distributed.fleet.recompute``).
+while training (``distributed.fleet.recompute``).  Built under a
+topology with sep > 1, the attention is the ring or the Ulysses
+attention over the sep group and the embedding's positions are global.
+
+``GPTForCausalLMPipe`` is the model as pipeline items (the JAX
+``GPTForCausalLMPipe``); a rank under pp > 1 builds its stage only.
+``state_dict_from_jax`` cuts a JAX pipe state into a rank's stage and
+mp shard too, and ``merge_mp_states`` joins the stages again;
+:func:`pipe_state_from_causal` / :func:`causal_state_from_pipe` rename
+between the two models' states.
 
 The serving path consumes weights as a plain numpy tree (the layout of
 ``paddle_tpu``'s ``extract_decode_params``), loaded through
@@ -42,7 +51,11 @@ from ..distributed.fleet.meta_parallel import (ColumnParallelLinear,
                                                ParallelCrossEntropy,
                                                RowParallelLinear,
                                                VocabParallelEmbedding)
+from ..distributed.fleet.meta_parallel.context_parallel import (
+    ring_flash_attention, ulysses_attention)
 from ..distributed.fleet.meta_parallel.mp_ops import c_identity
+from ..distributed.fleet.meta_parallel.pp_layers import (LayerDesc,
+                                                         PipelineLayer)
 from ..distributed.fleet.recompute import recompute
 from ..framework import random as _random
 from ..nn.functional import flash_attention
@@ -128,6 +141,14 @@ def init_decode_weights_numpy(cfg: GPTConfig, seed: int = 0,
 # ---------------------------------------------------------------------------
 # training model
 # ---------------------------------------------------------------------------
+def _sep_group():
+    """The registered topology's sep group when its degree is above 1."""
+    hcg = _coll.get_mesh()
+    if hcg is None or hcg.get_sep_parallel_world_size() <= 1:
+        return None
+    return hcg.get_sep_parallel_group()
+
+
 def _layer_kw(config, device, generator):
     return dict(init_std=config.initializer_range, device=device,
                 generator=generator)
@@ -143,12 +164,18 @@ class GPTEmbeddings(Layer):
         self.position_embeddings = nn.Embedding(
             config.max_position_embeddings, config.hidden_size, **kw)
         self.dropout = nn.Dropout(config.hidden_dropout_prob)
+        # under sep > 1 a rank holds rows sep_rank * S/sep .. of the
+        # sequence: its positions are global
+        sep = _sep_group()
+        self._pos_offset_rank = sep.rank if sep is not None else 0
 
     def forward(self, input_ids, position_ids=None):
         if position_ids is None:
             b, s = input_ids.shape
+            start = self._pos_offset_rank * s
             position_ids = torch.arange(
-                s, device=input_ids.device).unsqueeze(0).expand(b, s)
+                start, start + s,
+                device=input_ids.device).unsqueeze(0).expand(b, s)
         emb = self.word_embeddings(input_ids) + \
             self.position_embeddings(position_ids)
         return self.dropout(emb)
@@ -157,7 +184,12 @@ class GPTEmbeddings(Layer):
 class GPTAttention(Layer):
     """Causal self-attention.  q, k and v are strided ``[B, S, H, D]``
     views of the fused qkv projection (no transpose copy); the flash
-    kernels read them in place.  Under mp, ``H`` is this rank's heads."""
+    kernels read them in place.  Under mp, ``H`` is this rank's heads.
+    Built under sep > 1 (the registered topology's sep group), ``S`` is
+    this rank's slice of the sequence and the attention is the ring or
+    the Ulysses attention over the sep group, by
+    ``config.context_parallel``; attention dropout is refused there, as
+    in the JAX model."""
 
     def __init__(self, config: GPTConfig, device=None, generator=None):
         super().__init__()
@@ -171,6 +203,8 @@ class GPTAttention(Layer):
         self.hidden_size = self.num_heads * self.head_dim
         self.use_flash = config.use_flash_attention
         self.attn_drop = config.attention_probs_dropout_prob
+        self.context_parallel = config.context_parallel
+        self._sep_group = _sep_group()
         kw = _layer_kw(config, device, generator)
         self.qkv_proj = ColumnParallelLinear(
             config.hidden_size, 3 * config.hidden_size, gather_output=False,
@@ -184,7 +218,16 @@ class GPTAttention(Layer):
         h = self.hidden_size
         qkv = self.qkv_proj(x).view(b, s, 3, self.num_heads, self.head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        if self.use_flash:
+        if self._sep_group is not None:
+            if self.attn_drop > 0.0 and self.training:
+                raise ValueError(
+                    "context-parallel attention does not support "
+                    "attention dropout; set "
+                    "attention_probs_dropout_prob=0.0 when sep_degree>1")
+            cp = (ulysses_attention if self.context_parallel == "ulysses"
+                  else ring_flash_attention)
+            out = cp.raw(q, k, v, causal=True, group=self._sep_group)
+        elif self.use_flash:
             out, _ = flash_attention(q, k, v, causal=True,
                                      dropout=self.attn_drop,
                                      training=self.training)
@@ -332,29 +375,145 @@ class GPTPretrainingCriterion(Layer):
         return per_tok.reshape(b, s)
 
 
+FUSED_LMCE_MP_REFUSAL = (
+    "enable_fused_lmce at mp > 1: the fused lm-head cross-entropy over a "
+    "vocabulary split across ranks is not ported yet; it waits in ROADMAP "
+    "queue A, item A10 (enable_fused_lmce at mp > 1)")
+
+
 def enable_fused_lmce(model: GPTForCausalLM,
                       criterion: GPTPretrainingCriterion):
     """Switch the (model, criterion) pair to the fused lm-head
     cross-entropy path (the JAX package's ``PADDLE_TPU_FUSED_LMCE``
     configuration).  The kernel's ``dw`` reaches the tied embedding
     ``Parameter`` through autograd, beside the lookup's gradient.  Under
-    mp > 1 it refuses: the vocab-parallel fused loss comes with the next
-    A10 slice."""
+    mp > 1 it refuses (:data:`FUSED_LMCE_MP_REFUSAL`)."""
     if model.gpt.embeddings.word_embeddings._group is not None:
-        raise NotImplementedError(
-            "enable_fused_lmce at mp > 1: the fused lm-head cross-entropy "
-            "over a vocabulary split across ranks is not ported yet; it "
-            "comes with the next A10 slice (ROADMAP queue A, item A10)")
+        raise NotImplementedError(FUSED_LMCE_MP_REFUSAL)
     model.skip_lm_head = True
     criterion._lm_weight_fn = model.lm_weight
     return model, criterion
+
+
+# ---------------------------------------------------------------------------
+# the pipeline model
+# ---------------------------------------------------------------------------
+class _EmbeddingPipe(GPTEmbeddings):
+    """The embedding as the first pipeline item (the JAX name)."""
+
+
+class _NormLogitsPipe(Layer):
+    """Final norm + the tied-weight logits, the last pipeline item.
+    ``lm_weight`` is bound by :class:`GPTForCausalLMPipe`: the word
+    embedding itself where one rank holds both, else this stage's copy
+    of the same vocabulary shard."""
+
+    def __init__(self, config: GPTConfig, device=None, generator=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.final_norm = nn.LayerNorm(config.hidden_size,
+                                       epsilon=config.layer_norm_epsilon,
+                                       device=device)
+        self.lm_weight = None
+        group = _coll.get_mesh()
+        self._group = group.get_model_parallel_group() \
+            if group is not None and \
+            group.get_model_parallel_world_size() > 1 else None
+
+    def forward(self, x):
+        x = self.final_norm(x)
+        if self._group is not None:
+            x = c_identity(x, self._group)
+        x, w = cast_inputs("matmul", x, self.lm_weight)
+        return torch.matmul(x, w.t())
+
+
+class GPTForCausalLMPipe(PipelineLayer):
+    """GPT as pipeline items (the JAX ``GPTForCausalLMPipe``): the
+    embedding, the decoder layers, the final norm with the tied head,
+    segmented ``layer:GPTDecoderLayer`` and trained with
+    ``GPTPretrainingCriterion``.  Under a topology with pp ``num_stages``
+    a rank builds its stage only; the head on the last stage then holds a
+    copy of the first stage's vocabulary shard, which the pipeline engine
+    starts from the embedding and keeps equal to it (the tie
+    ``"word_embeddings"``)."""
+
+    def __init__(self, config: GPTConfig, num_stages=1, topology=None,
+                 recompute_interval=0, device=None, generator=None):
+        self.config = config
+        kw = dict(device=device, generator=generator)
+        descs = [LayerDesc(_EmbeddingPipe, config, **kw)]
+        for _ in range(config.num_hidden_layers):
+            descs.append(LayerDesc(GPTDecoderLayer, config, **kw))
+        descs.append(LayerDesc(_NormLogitsPipe, config, **kw))
+        super().__init__(descs, num_stages=num_stages, topology=topology,
+                         loss_fn=GPTPretrainingCriterion(config),
+                         seg_method="layer:GPTDecoderLayer",
+                         recompute_interval=recompute_interval)
+        emb, head = self.run_function[0], self.run_function[-1]
+        if emb is not None and head is not None:
+            head.lm_weight = emb.word_embeddings.weight
+            return
+        if head is not None:
+            w = head.final_norm.weight
+            rows = config.vocab_size // _coll.model_parallel_degree()
+            head.lm_weight = torch.nn.Parameter(torch.zeros(
+                rows, config.hidden_size, device=w.device, dtype=w.dtype))
+            head.lm_weight.is_distributed = head._group is not None
+        mine = emb.word_embeddings.weight if emb is not None else \
+            (head.lm_weight if head is not None else None)
+        self._register_tie("word_embeddings", [0, self._num_stages - 1],
+                           mine)
+
+
+def pipe_names(cfg: GPTConfig) -> dict:
+    """``{GPTForCausalLM name: GPTForCausalLMPipe name}``; the head's
+    ``_layers_list.{L+1}.lm_weight`` is the word embedding's twin."""
+    L = cfg.num_hidden_layers
+    out = {}
+    for name in _expected_shapes(cfg):
+        if name.startswith("gpt.embeddings."):
+            out[name] = "_layers_list.0." + name[len("gpt.embeddings."):]
+        elif name.startswith("gpt.layers."):
+            i, rest = name[len("gpt.layers."):].split(".", 1)
+            out[name] = f"_layers_list.{int(i) + 1}.{rest}"
+        else:
+            out[name] = f"_layers_list.{L + 1}." + name[len("gpt."):]
+    return out
+
+
+def pipe_state_from_causal(state: dict, cfg: GPTConfig) -> dict:
+    """A ``GPTForCausalLM`` state under ``GPTForCausalLMPipe``'s names
+    (the JAX pipe model's state dict: the head's ``lm_weight`` entry is
+    the word embedding)."""
+    names = pipe_names(cfg)
+    out = {names[k]: v for k, v in state.items()}
+    out[f"_layers_list.{cfg.num_hidden_layers + 1}.lm_weight"] = \
+        state["gpt.embeddings.word_embeddings.weight"]
+    return out
+
+
+def causal_state_from_pipe(state: dict, cfg: GPTConfig) -> dict:
+    """The reverse of :func:`pipe_state_from_causal`."""
+    return {k: state[v] for k, v in pipe_names(cfg).items()}
+
+
+def _pipe_stage_of(name: str, cfg: GPTConfig, pp_degree: int) -> int:
+    """The stage that holds pipe entry ``name`` (the segmentation of
+    ``GPTForCausalLMPipe``)."""
+    from ..distributed.fleet.meta_parallel.pp_layers import segment_bounds
+    L = cfg.num_hidden_layers
+    names = ["_EmbeddingPipe"] + ["GPTDecoderLayer"] * L + ["_NormLogitsPipe"]
+    bounds = segment_bounds(names, pp_degree, "layer:GPTDecoderLayer")
+    i = int(name.split(".")[1])
+    return max(s for s in range(pp_degree) if bounds[s] <= i)
 
 
 def _mp_kind(name: str):
     """How the tensor ``name`` splits over mp: ``"vocab"`` / ``"row"``
     on dim 0, ``"col"`` on its last dim, ``"qkv"`` on the heads of each
     of q, k and v, None when replicated."""
-    if name.endswith("word_embeddings.weight"):
+    if name.endswith(("word_embeddings.weight", ".lm_weight")):
         return "vocab"
     if ".attn.qkv_proj." in name:
         return "qkv"
@@ -384,11 +543,21 @@ def _mp_slice(name, arr, rank, degree, heads):
         lead + (3 * per * hd,))
 
 
-def merge_mp_states(states, cfg: GPTConfig) -> dict:
+def merge_mp_states(states, cfg: GPTConfig, pp_degree: int = 1) -> dict:
     """One state (numpy arrays, or torch tensors) from the shards of the
     mp ranks ``states[0..mp-1]`` (the reverse of
     :func:`state_dict_from_jax`'s cut); replicated entries are rank 0's.
-    The gradients of the shards join the same way."""
+    The gradients of the shards join the same way.  With ``pp_degree``
+    above 1, ``states`` are the pipe model's stages' shards in rank
+    order (stage-major: stage ``s``, mp rank ``r`` at ``s * mp + r``);
+    the stages' joined states are united (the head's copy of the
+    embedding from the last stage)."""
+    if pp_degree > 1:
+        mp = len(states) // pp_degree
+        out = {}
+        for s in range(pp_degree):
+            out.update(merge_mp_states(states[s * mp:(s + 1) * mp], cfg))
+        return out
     degree = len(states)
     heads = cfg.num_attention_heads
     out = {}
@@ -414,7 +583,8 @@ def merge_mp_states(states, cfg: GPTConfig) -> dict:
 
 
 def state_dict_from_jax(numpy_state, cfg: GPTConfig, mp_rank: int = 0,
-                        mp_degree: int = 1) -> dict:
+                        mp_degree: int = 1, pp_rank: int = 0,
+                        pp_degree: int = 1) -> dict:
     """The port's ``GPTForCausalLM`` state dict from the JAX package's
     ``GPTForCausalLM.state_dict()`` with each value as a numpy array.
     Names and layouts are the same in both packages: ``Linear`` weights
@@ -428,9 +598,25 @@ def state_dict_from_jax(numpy_state, cfg: GPTConfig, mp_rank: int = 0,
     rank's heads of q, of k and of v; ``fc1``) on their output columns,
     the row-parallel weights (``out_proj``, ``fc2``) on their input
     rows; everything else whole.  At mp 1 it is the whole state.
+
+    A JAX ``GPTForCausalLMPipe`` state (names ``_layers_list.<i>.``) gives
+    ``GPTForCausalLMPipe``'s: the entries of stage ``pp_rank`` of
+    ``pp_degree`` (the model's segmentation), each cut for ``mp_rank``;
+    the head's ``lm_weight`` takes the embedding's vocabulary shard.  At
+    pp 1 that is the whole pipe state.
     Raises on a missing, extra or misshapen entry; ``load_state_dict``
     then copies each value to the model's device."""
-    expected = _expected_shapes(cfg)
+    pipe = any(k.startswith("_layers_list.") for k in numpy_state)
+    expected = _expected_shapes(cfg, pipe)
+    if not pipe and pp_degree != 1:
+        raise ValueError("a pipe stage comes from a GPTForCausalLMPipe "
+                         "state (names _layers_list.<i>.)")
+    if pipe:
+        expected = {k: v for k, v in expected.items()
+                    if _pipe_stage_of(k, cfg, pp_degree) == pp_rank}
+        numpy_state = {k: v for k, v in numpy_state.items()
+                       if not k.startswith("_layers_list.")
+                       or _pipe_stage_of(k, cfg, pp_degree) == pp_rank}
     got = set(numpy_state)
     if got != set(expected):
         raise KeyError(f"state mismatch: missing "
@@ -447,7 +633,13 @@ def state_dict_from_jax(numpy_state, cfg: GPTConfig, mp_rank: int = 0,
     return out
 
 
-def _expected_shapes(cfg: GPTConfig) -> dict:
+def _expected_shapes(cfg: GPTConfig, pipe: bool = False) -> dict:
+    if pipe:
+        names = pipe_names(cfg)
+        out = {names[k]: v for k, v in _expected_shapes(cfg).items()}
+        out[f"_layers_list.{cfg.num_hidden_layers + 1}.lm_weight"] = \
+            (cfg.vocab_size, cfg.hidden_size)
+        return out
     D, F = cfg.hidden_size, cfg.intermediate_size
     shapes = {
         "gpt.embeddings.word_embeddings.weight": (cfg.vocab_size, D),

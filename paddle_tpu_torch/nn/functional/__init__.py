@@ -1,9 +1,9 @@
 """Functional surface of the port's ``nn`` (counterpart of
 ``paddle_tpu/nn/functional``): re-exports of the port's ops, which take
 torch tensors or Paddle ``Tensor`` s and give back the same kind.
-``ring_flash_attention`` and ``ulysses_attention`` (context-parallel
-attention over the sep axis) come with the context-parallel slice of
-ROADMAP A10."""
+``ring_flash_attention`` and ``ulysses_attention`` are the
+context-parallel attention over the sep group
+(``distributed/fleet/meta_parallel/context_parallel.py``)."""
 
 import torch
 
@@ -41,6 +41,24 @@ def normalize(x, p=2, axis=1, epsilon=1e-12, name=None):
     return x / torch.clamp(norm, min=epsilon)
 
 
+def ring_flash_attention(query, key, value, causal=False, seq_axis="sep",
+                         mesh=None, balanced=False):
+    """Ring attention over the sep group on this rank's sequence slices;
+    plain attention at sep 1."""
+    from ...distributed.fleet.meta_parallel import context_parallel as cp
+    return cp.ring_flash_attention.raw(query, key, value, causal, seq_axis,
+                                       mesh, balanced)
+
+
+def ulysses_attention(query, key, value, causal=False, seq_axis="sep",
+                      mesh=None):
+    """Ulysses (sequence-to-head all-to-all) attention over the sep
+    group; plain attention at sep 1."""
+    from ...distributed.fleet.meta_parallel import context_parallel as cp
+    return cp.ulysses_attention.raw(query, key, value, causal, seq_axis,
+                                    mesh)
+
+
 def sequence_mask(x, maxlen=None, dtype="int64"):
     """``[..., maxlen]`` of ``position < length`` for the lengths ``x``;
     ``maxlen`` None reads the longest on the host."""
@@ -52,7 +70,8 @@ def sequence_mask(x, maxlen=None, dtype="int64"):
 
 
 __all__ = [
-    "flash_attention", "normalize", "sequence_mask",
+    "flash_attention", "ring_flash_attention", "ulysses_attention",
+    "normalize", "sequence_mask",
     # activations
     "relu", "relu6", "leaky_relu", "prelu", "rrelu", "elu", "selu", "celu",
     "gelu", "silu", "swish", "hardswish", "sigmoid", "log_sigmoid",

@@ -225,17 +225,46 @@ def _tiny(**kw):
 
 @pytest.mark.parametrize("axis", ["pp_degree", "sep_degree"])
 def test_pipeline_and_context_parallel_refuse(axis, clean_registry):
+    """What pipeline and context parallel still refuse: at pp 2 a model
+    that is not a ``PipelineLayer`` (``DistributedRunner`` runs pp 1,
+    ``PipelinedRunner`` trains pipeline items); at sep 2 attention
+    dropout while training (the JAX model's refusal), and pp beside sep
+    in the pipeline engine (its ROADMAP item)."""
     from paddle_tpu_torch.distributed import DistributedRunner
     from paddle_tpu_torch.distributed.runner import PipelinedRunner
-    _init(clean_registry, **{axis: 2})
-    net, opt = _tiny()
-    what = "pipeline" if axis == "pp_degree" else "context parallel"
-    with pytest.raises(NotImplementedError, match=f"{what}.*A10"):
-        tfleet.distributed_model(net)
-    with pytest.raises(NotImplementedError, match=f"{what}.*A10"):
-        DistributedRunner(net, opt)
-    with pytest.raises(NotImplementedError, match="pipeline.*A10"):
-        PipelinedRunner(net, opt)
+    if axis == "pp_degree":
+        _init(clean_registry, pp_degree=2)
+        net, opt = _tiny()
+        with pytest.raises(ValueError, match="PipelinedRunner"):
+            DistributedRunner(net, opt)
+        with pytest.raises(TypeError, match="PipelineLayer"):
+            PipelinedRunner(net, opt)
+        return
+    _init(clean_registry, sep_degree=2)
+    net, _ = _tiny(attention_probs_dropout_prob=0.1)
+    with pytest.raises(ValueError, match="attention dropout"):
+        net(torch.zeros(2, 16, dtype=torch.int64))
+    _init(clean_registry, sep_degree=2, pp_degree=2)
+    from paddle_tpu_torch.models import GPTForCausalLMPipe, gpt_tiny
+    pipe = GPTForCausalLMPipe(gpt_tiny(max_position_embeddings=64,
+                                       num_hidden_layers=4),
+                              num_stages=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="context parallel.*A10"):
+        tfleet.distributed_model(pipe)
+
+
+def test_pipelined_runner_refuses_the_folded_entry(clean_registry):
+    """``train_steps_folded`` waits for the fold engine's mesh branch."""
+    from paddle_tpu_torch.distributed.runner import PipelinedRunner
+    from paddle_tpu_torch.models import GPTForCausalLMPipe, gpt_tiny
+    _init(clean_registry)
+    net = GPTForCausalLMPipe(gpt_tiny(max_position_embeddings=64),
+                             device="cpu")
+    opt = tpaddle.optimizer.SGD(learning_rate=0.1,
+                                parameters=net.parameters())
+    runner = PipelinedRunner(net, opt)
+    with pytest.raises(NotImplementedError, match="A10 \\(the mesh branch"):
+        runner.train_steps_folded([])
 
 
 @pytest.mark.parametrize("knob", ["bits", "shard", "env", "strategy"])

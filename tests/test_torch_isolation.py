@@ -66,6 +66,13 @@ def test_import_pulls_in_no_jax():
         "import paddle_tpu_torch.distributed.runner\n"
         "import paddle_tpu_torch.distributed.spawn\n"
         "import paddle_tpu_torch.distributed.stream\n"
+        "import paddle_tpu_torch.distributed.fleet.meta_parallel.pp_layers\n"
+        "import paddle_tpu_torch.distributed.fleet.meta_parallel."
+        "pipeline_parallel\n"
+        "import paddle_tpu_torch.distributed.fleet.meta_parallel."
+        "context_parallel\n"
+        "import paddle_tpu_torch.distributed.fleet.utils."
+        "sequence_parallel_utils\n"
         "paddle_tpu_torch.set_device('cpu')\n"
         "x = paddle_tpu_torch.to_tensor([1.0, 2.0], stop_gradient=False)\n"
         "(x * x).sum().backward()\n"
@@ -87,6 +94,17 @@ def test_spawned_ranks_import_no_jax(tmp_path_factory):
     from torch_dist_workers import shared_world
     ranks = shared_world(tmp_path_factory, "collectives",
                          "collectives_world", 4, dict, timeout=240)
+    assert [r["foreign_modules"] for r in ranks] == [[]] * 4
+
+
+def test_pipeline_ranks_import_no_jax(tmp_path_factory):
+    """The pipeline ranks (``tests/test_torch_dist_pipeline.py``'s world:
+    every stage, the engine, the tied weights, the functional forms)
+    load neither JAX nor the JAX package."""
+    from test_torch_dist_pipeline import _inputs
+    from torch_dist_workers import shared_world
+    ranks = shared_world(tmp_path_factory, "pipeline", "pipeline_world", 4,
+                         _inputs, timeout=300)
     assert [r["foreign_modules"] for r in ranks] == [[]] * 4
 
 
@@ -133,6 +151,10 @@ def test_no_source_names_jax_or_the_jax_package():
                 "distributed/fleet/meta_parallel/mp_layers.py",
                 "distributed/fleet/meta_parallel/mp_ops.py",
                 "distributed/fleet/meta_parallel/parallel_wrappers.py",
+                "distributed/fleet/meta_parallel/pp_layers.py",
+                "distributed/fleet/meta_parallel/pipeline_parallel.py",
+                "distributed/fleet/meta_parallel/context_parallel.py",
+                "distributed/fleet/utils/sequence_parallel_utils.py",
                 "distributed/fleet/meta_parallel/sharding_parallel.py",
                 "distributed/fleet/meta_optimizers/dygraph_optimizer.py",
                 "distributed/fleet/recompute/__init__.py",

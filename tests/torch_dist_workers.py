@@ -633,3 +633,272 @@ def _dygraph_loop(paddle, inputs, hcg, net, opt, crit, how):
         paddle.distributed.all_reduce(v, group=hcg._get_data_group())
         losses.append(float(v) / n)
     return losses
+
+
+# -- world: pipeline parallel --------------------------------------------------
+def _pipe_strategy(paddle, hybrid, acc):
+    dist = paddle.distributed
+    strategy = dist.fleet.DistributedStrategy()
+    strategy.hybrid_configs = hybrid
+    strategy.pipeline_configs = {"accumulate_steps": acc,
+                                 "micro_batch_size": 2}
+    dist.fleet.init(is_collective=True, strategy=strategy)
+    return dist.fleet.get_hybrid_communicate_group()
+
+
+def _pipe_gpt(inputs, hcg):
+    """``GPTForCausalLMPipe`` of this rank's stage, from the JAX pipe
+    model's numpy state cut into this rank's stage and mp shard."""
+    from paddle_tpu_torch.models import GPTForCausalLMPipe, gpt_tiny
+    from paddle_tpu_torch.models.gpt import state_dict_from_jax
+    cfg = gpt_tiny(**inputs["cfg"])
+    pp = hcg.get_pipe_parallel_world_size()
+    net = GPTForCausalLMPipe(cfg, num_stages=pp, device="cpu")
+    net.load_state_dict(state_dict_from_jax(
+        inputs["state"], cfg, hcg.get_model_parallel_rank(),
+        hcg.get_model_parallel_world_size(), hcg.get_stage_id(), pp))
+    return cfg, net
+
+
+def _stage_state(net):
+    return {k: v.detach().numpy().copy() for k, v in net.state_dict().items()}
+
+
+def _pipe_run(paddle, inputs, run):
+    """One layout: 3 steps of ``inputs["batches"]`` through
+    ``fleet.distributed_model(...).train_batch`` (or ``PipelinedRunner``),
+    SGD with the global-norm clip; this rank's losses and stage state."""
+    import warnings
+    from paddle_tpu_torch.distributed import PipelinedRunner
+    hcg = _pipe_strategy(paddle, run["hybrid"], inputs["acc"])
+    cfg, net = _pipe_gpt(inputs, hcg)
+    opt = paddle.optimizer.SGD(
+        learning_rate=inputs["lr"], parameters=net.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(inputs["clip"]))
+    out = {"coord": (hcg.get_data_parallel_rank(), hcg.get_stage_id(),
+                     hcg.get_model_parallel_rank())}
+    if run["route"] == "runner":
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            runner = PipelinedRunner(net, opt, accumulate_steps=inputs["acc"],
+                                     amp_level="O2")
+        out["warnings"] = [str(w.message) for w in caught]
+        out["losses"] = [runner.train_step([x], [y])[0]
+                         for x, y in inputs["batches"]]
+        x, y = inputs["batches"][0]
+        out["eval"] = runner.eval_step([x], [y])[0]
+        out["stats"] = runner.compile_stats()
+        try:
+            runner.train_steps_folded([([x], [y])])
+        except NotImplementedError as e:
+            out["folded"] = str(e)
+    else:
+        model = paddle.distributed.fleet.distributed_model(net)
+        out["wrapper"] = type(model).__name__
+        if run["route"] == "untied":
+            model._engine._hybrid_update(opt).tied = []
+        losses = []
+        for x, y in inputs["batches"]:
+            loss = model.train_batch((x, y), opt)
+            losses.append((type(loss).__name__, float(loss)))
+        out["loss_types"] = sorted({t for t, _ in losses})
+        out["losses"] = [v for _, v in losses]
+    out["state"] = _stage_state(net)
+    return out
+
+
+def _spmd_cases(paddle, inputs):
+    """``pipeline_spmd`` over the pp4 group and
+    ``pipeline_spmd_interleaved`` (4 x 2 chunks): each rank's outputs and
+    its stage's gradient of ``sum(out ** 2)``."""
+    import torch
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        pipeline_spmd, pipeline_spmd_interleaved)
+    hcg = _pipe_strategy(paddle, {"pp_degree": 4}, 1)
+    d = hcg.get_stage_id()
+    res = {}
+    for name, case in inputs["spmd"].items():
+        xs = torch.tensor(case["xs"])
+        if name == "interleaved":
+            ws = [torch.tensor(case["ws"][v * 4 + d], requires_grad=True)
+                  for v in range(2)]
+            out = pipeline_spmd_interleaved(
+                lambda w, x: torch.tanh(x @ w), ws, xs, 4, 2)
+        else:
+            ws = [torch.tensor(case["ws"][d], requires_grad=True)]
+            out = pipeline_spmd(lambda w, x: torch.tanh(x @ w), ws[0], xs, 4,
+                                remat_stage=case["remat"])
+        (out ** 2).sum().backward()
+        res[name] = {"out": out.detach().numpy(),
+                     "grads": [w.grad.numpy() for w in ws]}
+    return res
+
+
+def pipeline_world(paddle, inputs):
+    dist = paddle.distributed
+    dist.init_parallel_env()
+    res = {"runs": {}}
+    for name, run in inputs["runs"].items():
+        res["runs"][name] = _pipe_run(paddle, inputs, run)
+    res["spmd"] = _spmd_cases(paddle, inputs)
+    return res
+
+
+# -- world: context parallel, sequence parallel and ERNIE at stage 2 ----------
+def _attention_cases(paddle, inputs):
+    """Ring (contiguous and zigzag) and Ulysses attention at sep 4 on the
+    global q, k, v of each case, cut into this rank's slices; the joined
+    output and the gradients of the (replicated) global q, k, v."""
+    import torch
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        context_parallel as cp
+    hcg = _fleet(paddle, {"sep_degree": 4})
+    group = hcg.get_sep_parallel_group()
+    res = {}
+    for name, case in inputs["attention"].items():
+        q, k, v = (torch.tensor(case[n], requires_grad=True)
+                   for n in ("q", "k", "v"))
+        balanced = case["kind"] == "zigzag"
+        split = cp.zigzag_split_sequence if balanced else cp.split_sequence
+        ql, kl, vl = (split(t) for t in (q, k, v))
+        if case["kind"] == "ulysses":
+            ol = cp.ulysses_attention(ql, kl, vl, causal=case["causal"])
+        else:
+            ol = cp.ring_flash_attention(ql, kl, vl, causal=case["causal"],
+                                         balanced=balanced)
+        out = cp.zigzag_merge_sequence(ol) if balanced else \
+            cp._gather_sequence(ol, group)
+        (out * torch.tensor(case["w"])).sum().backward()
+        res[name] = {"out": out.detach().numpy(), "dq": q.grad.numpy(),
+                     "dk": k.grad.numpy(), "dv": v.grad.numpy()}
+    return res
+
+
+def _sep_runs(paddle, inputs):
+    """``DistributedRunner`` on ``gpt_tiny`` at each sep layout: losses
+    and the whole state joined over mp."""
+    from paddle_tpu_torch.distributed import DistributedRunner
+    from paddle_tpu_torch.models import GPTPretrainingCriterion
+    out = {}
+    for name, run in inputs["sep_runs"].items():
+        hcg = _fleet(paddle, run["hybrid"])
+        cfg, net = _gpt(dict(inputs, cfg=dict(inputs["cfg"],
+                                              context_parallel=run["cp"])),
+                        hcg)
+        opt = _optimizer(paddle, inputs, net, "sgd")
+        runner = DistributedRunner(net, opt, GPTPretrainingCriterion())
+        losses = [runner.train_step([x], [y]) for x, y in inputs["batches"]]
+        out[name] = {"losses": losses, "state": _full_state(cfg, net, hcg)}
+    return out
+
+
+def _sp_cases(paddle, inputs):
+    """The sequence-parallel operators and linears at dp2 x mp2: each
+    case's output and gradients, joined over the mp group."""
+    import torch
+    from paddle_tpu_torch.distributed.fleet.utils import \
+        sequence_parallel_utils as sp
+    hcg = _fleet(paddle, {"dp_degree": 2, "mp_degree": 2})
+    g = hcg.get_model_parallel_group()
+    r, n = g.rank, g.nranks
+
+    def seq(a):
+        k = a.shape[1] // n
+        return a[:, r * k:(r + 1) * k]
+
+    def join(a, axis=1):
+        return np.concatenate(_gathered(g, a), axis=axis)
+
+    res = {}
+    for name, case in inputs["sp"].items():
+        x, gy = case["x"], case["g"]
+        if name in ("scatter", "gather", "allgather", "reducescatter"):
+            share = (r + 1) / sum(range(1, n + 1))
+            src = {"scatter": x, "gather": seq(x), "allgather": seq(x),
+                   "reducescatter": x * share}[name]
+            cot = {"scatter": seq(gy), "gather": gy,
+                   "allgather": gy * share, "reducescatter": seq(gy)}[name]
+            op = {"scatter": sp.ScatterOp, "gather": sp.GatherOp,
+                  "allgather": sp.AllGatherOp,
+                  "reducescatter": sp.ReduceScatterOp}[name]
+            t = torch.tensor(np.ascontiguousarray(src), requires_grad=True)
+            out = op.apply(t)
+            out.backward(torch.tensor(np.ascontiguousarray(cot)))
+            o, dx = out.detach().numpy(), t.grad.numpy()
+            res[name] = {
+                "out": join(o) if name in ("scatter", "reducescatter")
+                else o,
+                "dx": join(dx) if name in ("gather", "allgather") else dx}
+            continue
+        w, b = case["w"], case["b"]
+        if name == "column":
+            layer = sp.ColumnSequenceParallelLinear(*w.shape, device="cpu")
+            k = w.shape[1] // n
+            wl, bl = w[:, r * k:(r + 1) * k], b[r * k:(r + 1) * k]
+            xin, cot = seq(x), gy
+        else:
+            layer = sp.RowSequenceParallelLinear(*w.shape, device="cpu")
+            k = w.shape[0] // n
+            wl, bl = w[r * k:(r + 1) * k], b
+            xin, cot = x, seq(gy)
+        with torch.no_grad():
+            layer.weight.copy_(torch.tensor(np.ascontiguousarray(wl)))
+            layer.bias.copy_(torch.tensor(np.ascontiguousarray(bl)))
+        t = torch.tensor(np.ascontiguousarray(xin), requires_grad=True)
+        out = layer(t)
+        out.backward(torch.tensor(np.ascontiguousarray(cot)))
+        gw = _gathered(g, layer.weight.grad.numpy())
+        gb = _gathered(g, layer.bias.grad.numpy())
+        if name == "column":
+            res[name] = {"out": out.detach().numpy(), "dx": join(t.grad.numpy()),
+                         "weight": np.concatenate(gw, -1),
+                         "bias": np.concatenate(gb, -1)}
+        else:
+            res[name] = {"out": join(out.detach().numpy()),
+                         "dx": t.grad.numpy(),
+                         "weight": np.concatenate(gw, 0),
+                         "bias": np.sum(gb, 0),
+                         "bias_marked": bool(getattr(
+                             layer.bias, "sequence_parallel", False))}
+    return res
+
+
+def _ernie_stage2(paddle, inputs):
+    """ERNIE (``bert_tiny``) MLM under ``group_sharded_parallel(level=
+    "os_g")`` at sharding 4: each rank's rows of the global batch, SGD
+    with the global-norm clip; the losses (the ranks' mean) and the whole
+    state."""
+    import torch
+    from paddle_tpu_torch.models import (BertForPretraining,
+                                         BertPretrainingCriterion, bert_tiny,
+                                         bert_state_dict_from_jax)
+    hcg = _fleet(paddle, {"sharding_degree": 4})
+    net = BertForPretraining(bert_tiny(), device="cpu")
+    net.load_state_dict(bert_state_dict_from_jax(inputs["ernie_state"], net))
+    opt = _optimizer(paddle, inputs, net, "sgd")
+    model, opt, _ = paddle.distributed.sharding.group_sharded_parallel(
+        net, opt, level="os_g")
+    crit = BertPretrainingCriterion(bert_tiny().vocab_size)
+    r, n = hcg._data_rank(), hcg._get_data_group().nranks
+    losses = []
+    for x, y in inputs["ernie_batches"]:
+        k = x.shape[0] // n
+        mlm, nsp = model(paddle.to_tensor(x[r * k:(r + 1) * k]))
+        loss = crit(mlm, nsp, paddle.to_tensor(y[r * k:(r + 1) * k]))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        v = torch.tensor(float(loss))
+        paddle.distributed.all_reduce(v, group=hcg._get_data_group())
+        losses.append(float(v) / n)
+    return {"losses": losses, "state": _stage_state(net)}
+
+
+def context_world(paddle, inputs):
+    dist = paddle.distributed
+    dist.init_parallel_env()
+    res = {"attention": _attention_cases(paddle, inputs)}
+    res["sep_runs"] = _sep_runs(paddle, inputs)
+    res["sp"] = _sp_cases(paddle, inputs)
+    res["ernie"] = _ernie_stage2(paddle, inputs)
+    return res
