@@ -724,6 +724,56 @@ builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` with
     loop (this process, after the world): the gates of 15zh on the
     stages' gradients joined over mp and stages, mp rank 1's shard of
     one stage-0 leaf scaled by ``PARITY_CONTROL`` must fail;
+15zo. ``[train gpt compressed]``: four ranks on the one card (one world
+    for 15zo-15zs, one of two ranks for 15zp's dp2 runs) train
+    GPT-2-small (global B=8, S=1024) dp4 through ``fleet.init``
+    (``quantized_allreduce=8``, ``sharded_weight_update=True``, amp O2
+    bf16, recompute) -> ``fleet.distributed_runner``: the int8 ring
+    reduce-scatters the gradients (one flat buffer), each rank updates
+    its flat quarter of
+    the weights and AdamW state, the chunks are all-gathered exactly;
+    one warm step and ``COMP_STEPS`` timed: the loss falls, the weights
+    are bit-equal over the four ranks (a rank's weight one ulp off, the
+    control, fails that gate), each rank's optimizer state is at most
+    ``COMP_STATE_SHARE`` of the unsharded state; prints the dp bytes a
+    rank a step counted by ``comm_stats`` beside the byte model and a
+    plain dp4 step's, ``dp_compress_ratio``, peaks and K5 / K6 launches;
+15zp. ``[train gpt compressed parity]``, fp32: dp2 bits 16 bit-identical
+    to the plain dp2 path in losses and every weight over
+    ``COMP_PARITY_STEPS`` steps (rank 1's step-1 gradient one ulp off,
+    the control, must part them), dp2 bits 16 with the sharded update
+    within rtol 2e-5 / atol 1e-6 of it; dp4 bits 8: step 1's loss
+    equal to the exact run's and every loss within ``COMP_BITS8_TOL``
+    of it (``tests/test_dp_compressed.py``'s bound), and step 1's
+    gradient of every leaf after the int8 ring within the ring's bound
+    of the exact dp mean, W quantizations of at most ``W |g|max / 127``
+    each (``tests/test_compressed_collectives.py``'s ``4 step``; the
+    control, the ring's mean with this rank's gradient left out, must
+    fail it); and one int8 all-reduce of a ``BIG_LEAF`` gradient against
+    the exact sum at the bounds of ``tests/test_compressed_collectives.py``;
+15zq. ``[train gpt lmce mp]``: dp2 x mp2, bf16 O2, the non-fused steps and
+    then ``enable_fused_lmce`` from the same weights (K7 / K8 on each
+    rank's [25152, 768] vocab shard, tensor-core): the fused loss falls,
+    step 1 within ``LMCE_MP_BF16_TOL`` of the non-fused, rank 0's K7 and
+    K8 calls at the path's shape held against their plain versions with
+    ``[lmce tc]``'s gates; ms a step and peaks beside the non-fused;
+15zr. ``[train gpt lmce mp parity]``: fp32 dp1 x mp4 (a 12576-row vocab
+    shard a rank, the CUDA-core K7 / K8) against the single-process fused
+    loop on rank 0: the gates of 15zh;
+15zs. ``[train gpt ckpt]``: fp32 dp2 x mp2 for ``CKPT_STEPS`` steps,
+    ``save_runner_state`` after step 2 and ``CheckpointManager`` every
+    second step (two kept); fresh runners from other weights: (a) the
+    same layout resumes steps 3-4 bit-identically (the one-ulp control
+    fails), (b) dp4 and (c) this process load the moments of fc1, the
+    fused qkv and the word embedding bit-equal to the source's joined
+    over mp (``merge_mp_states``; the qkv joined as a plain column
+    split, the control, differs) and resume steps 3-4 within
+    ``CKPT_TOL`` (step 4 reads the resharded moments), (d) a dp4 sharded-update run (exact ring) resumes
+    bit-identically and loads into an unsharded dp4 runner, (e) step 4
+    with one rank's file truncated fails ``verify_step`` and
+    ``restore()`` returns step 2; under
+    ``torch.use_deterministic_algorithms``; prints bytes, seconds and
+    the index's leaf count, and deletes the directories;
 16. ``[lmce tc]`` holds the tensor-core LMCE backward
     (``csrc/lmce_sm90.cu``, ``wgmma`` fed by TMA) against its plain
     versions (dL rounded to the operand dtype; each element within
@@ -12484,6 +12534,1054 @@ def pipe_world_phase(torch, seed):
     return launches, hold
 
 
+# ---------------------------------------------------------------------------
+# compressed dp, the distributed checkpoint and the fused LMCE over a split
+# vocabulary (a world of four ranks and one of two): 15zo-15zs
+# ---------------------------------------------------------------------------
+COMP_STEPS = 5                   # [train gpt compressed]: timed steps
+COMP_LR = 1e-4                   # AdamW's rate in the new GPT phases
+COMP_CLIP = 1.0                  # the global-norm clip
+COMP_PARITY_STEPS = 3            # steps of each compressed parity run
+COMP_BITS8_TOL = 0.05            # bits 8 vs exact, the losses (the bound
+                                 # of tests/test_dp_compressed.py:130)
+COMP_SHARD_RTOL, COMP_SHARD_ATOL = 2e-5, 1e-6   # sharded vs unsharded
+                                 # (tests/test_dp_compressed.py:188-205)
+COMP_STATE_SHARE = 0.27          # a dp4 rank's optimizer state / unsharded
+BIG_LEAF = (50304, 768)          # the word embedding's gradient
+LMCE_MP_STEPS = 5                # [train gpt lmce mp]: fused steps, timed
+LMCE_MP_PLAIN_STEPS = 3          # the non-fused steps beside them
+LMCE_MP_BF16_TOL = 1e-4          # relative: fused vs non-fused step-1 loss,
+                                 # bf16 O2 (the logits' rounding, ~2e-6)
+CKPT_STEPS = 4                   # [train gpt ckpt]: the first run's steps
+CKPT_TOL = 1e-4                  # relative: steps 3-4 resumed in another layout
+CKPT_MOMENT_LEAVES = ("gpt.layers.1.mlp.fc1.weight",      # column split
+                      "gpt.layers.1.attn.qkv_proj.weight",  # (3, heads, hd)
+                      "gpt.embeddings.word_embeddings.weight")  # vocab rows
+CONTROL_LEAF = "gpt.layers.1.mlp.fc1.weight"   # the one-ulp controls' leaf
+
+
+def _gpt2_runner_parts(torch, paddle, cfg, state, hcg, kind="adamw",
+                       fused=False, o2=False):
+    """GPT-2-small on the card from numpy ``state`` (this rank's mp
+    shard), its optimizer and criterion."""
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion,
+                                         enable_fused_lmce,
+                                         state_dict_from_jax)
+    net = GPTForCausalLM(cfg, device="cuda")
+    net.load_state_dict(state_dict_from_jax(
+        state, cfg, hcg.get_model_parallel_rank(),
+        hcg.get_model_parallel_world_size()))
+    clip = paddle.nn.ClipGradByGlobalNorm(COMP_CLIP)
+    if kind == "adamw":
+        opt = paddle.optimizer.AdamW(learning_rate=COMP_LR,
+                                     parameters=net.parameters(),
+                                     multi_precision=o2, grad_clip=clip)
+    else:
+        opt = paddle.optimizer.SGD(learning_rate=PARITY_LR,
+                                   parameters=net.parameters(),
+                                   grad_clip=clip)
+    if o2:
+        paddle.amp.decorate(net, opt, level="O2", dtype="bfloat16")
+    crit = GPTPretrainingCriterion()
+    if fused:
+        enable_fused_lmce(net, crit)
+    return net, opt, crit
+
+
+def _batch(cfg, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, cfg.vocab_size, (HYBRID_B, HYBRID_S)).astype(np.int64)
+    return x, np.roll(x, -1, 1)
+
+
+def _timed_steps(torch, runner, x, y, n):
+    losses, ms = [], []
+    for _ in range(n):
+        t0 = time.monotonic()
+        losses.append(runner.train_step([x], [y]))
+        torch.cuda.synchronize()
+        ms.append((time.monotonic() - t0) * 1e3)
+    return losses, ms
+
+
+def _params_of(net):
+    return {n: p.detach().clone() for n, p in net.named_parameters()}
+
+
+def _same(a, b):
+    """Elements compared and differing between two weight snapshots."""
+    n = bad = 0
+    for k, v in a.items():
+        n += v.numel()
+        bad += int((v != b[k]).sum().item())
+    return [n, bad]
+
+
+def _ulp_hook(torch, p):
+    """A one-shot gradient hook moving each element of ``p``'s gradient
+    one ulp up (the planted control of a bit-equal gate: one element's
+    ulp can vanish in the dp sum's rounding, and Adam's first update is
+    the gradient's sign, so the control perturbs the whole leaf and the
+    gate reads after a later update)."""
+    state = {"armed": True}
+
+    def hook(g):
+        if not state["armed"]:
+            return g
+        state["armed"] = False
+        return torch.nextafter(g, torch.full_like(g, float("inf")))
+    return p.register_hook(hook)
+
+
+def _compressed_train(torch, paddle, seed):
+    """[train gpt compressed] on this rank: dp4 through the strategy, the
+    int8 ring and the sharded update, bf16 O2."""
+    from paddle_tpu_torch.distributed import communication as comm
+    from paddle_tpu_torch.models import gpt2_small
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.ops import flash_attention_kernel as fk
+    fleet = paddle.distributed.fleet
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": 4}
+    s.quantized_allreduce = 8
+    s.sharded_weight_update = True
+    s.recompute = True
+    s.amp = True
+    s.amp_configs = {"use_pure_fp16": True, "use_bf16": True}
+    fleet.init(is_collective=True, strategy=s)
+    hcg = fleet.get_hybrid_communicate_group()
+    cfg = gpt2_small(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                     recompute=True)
+    state = gpt_numpy_state(cfg, seed + 3100)
+    net, opt, crit = _gpt2_runner_parts(torch, paddle, cfg, state, hcg,
+                                        o2=True)
+    runner = fleet.distributed_runner(net, opt, crit)
+    check(runner._dp_explicit and runner._update.sharded is not None,
+          "[train gpt compressed] the strategy did not reach the runner")
+    x, y = _batch(cfg, seed + 3101)
+    runner.train_step([x], [y])                 # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fk.reset_counts()
+    comm.reset_counts()
+    reg = metrics.registry()
+    before = reg.counter("dp_allreduce_bytes_total").collect()
+    losses, ms = _timed_steps(torch, runner, x, y, COMP_STEPS)
+    launches = _launches(fk)
+    stats = comm.comm_stats()
+    counted = reg.counter("dp_allreduce_bytes_total").collect() - before
+    ratio = reg.gauge("dp_compress_ratio").collect()
+    peak = _peaks(torch)
+    state_bytes = runner.optimizer_state_bytes()
+    replicas = _dist_exercise().replica_diffs(
+        [p for _, p in net.named_parameters()],
+        hcg.get_data_parallel_group())
+    # the replica gate's control: one rank's copy of one weight one ulp off
+    leaf = dict(net.named_parameters())[CONTROL_LEAF]
+    if hcg.get_data_parallel_rank() == 1:
+        with torch.no_grad():
+            flat = leaf.view(-1)
+            flat[0] = torch.nextafter(flat[0], torch.tensor(
+                float("inf"), device=leaf.device, dtype=leaf.dtype))
+    control = _dist_exercise().replica_diffs([leaf],
+                                             hcg.get_data_parallel_group())
+    info = dict(runner._dp_comm_info)
+    del runner, opt, net
+    torch.cuda.empty_cache()
+    # the plain dp4 step's bytes on the same world, fp32 gradients
+    plain = _plain_dp4_bytes(torch, paddle, cfg, state, hcg, x, y)
+    return {"losses": losses, "ms": ms, "launches": launches,
+            "stats": stats, "counted": counted, "info": info, "peak": peak,
+            "state_bytes": state_bytes, "replicas": replicas,
+            "control": control, "plain": plain, "ratio": ratio}
+
+
+def _plain_dp4_bytes(torch, paddle, cfg, state, hcg, x, y):
+    """One plain dp4 step (bf16 O2, the implicit path): its collective
+    bytes a rank and the unsharded optimizer state's bytes."""
+    from paddle_tpu_torch.distributed import DistributedRunner
+    from paddle_tpu_torch.distributed import communication as comm
+    net, opt, crit = _gpt2_runner_parts(torch, paddle, cfg, state, hcg,
+                                        o2=True)
+    runner = DistributedRunner(net, opt, crit, amp_level="O2")
+    runner.train_step([x], [y])
+    comm.reset_counts()
+    t0 = time.monotonic()
+    runner.train_step([x], [y])
+    torch.cuda.synchronize()
+    ms = (time.monotonic() - t0) * 1e3
+    out = {"stats": comm.comm_stats(), "ms": ms,
+           "state_bytes": runner.optimizer_state_bytes()}
+    del runner, opt, net
+    torch.cuda.empty_cache()
+    return out
+
+
+def _compressed_parity4(torch, paddle, seed):
+    """[train gpt compressed parity] at dp4 on this rank: fp32, bits 8 vs
+    the exact plain run; then one int8 all-reduce of a word-embedding
+    gradient against the exact sum."""
+    from paddle_tpu_torch.distributed import DistributedRunner
+    from paddle_tpu_torch.distributed import compressed as C
+    from paddle_tpu_torch.distributed.communication import all_reduce
+    from paddle_tpu_torch.models import gpt2_small
+    hcg = _fleet_init(paddle, {"dp_degree": 4})
+    cfg = gpt2_small(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                     recompute=True)
+    state = gpt_numpy_state(cfg, seed + 3200)
+    x, y = _batch(cfg, seed + 3201)
+    out = {}
+    for bits in (0, 8):
+        net, opt, crit = _gpt2_runner_parts(torch, paddle, cfg, state, hcg)
+        runner = DistributedRunner(net, opt, crit, dp_compress_bits=bits)
+        seen = _spy_ring(runner) if bits else None
+        out[f"losses{bits}"] = [runner.train_step([x], [y])
+                                for _ in range(COMP_PARITY_STEPS)]
+        if seen:
+            out["grads"] = _ring_gate(torch, paddle, hcg, seen)
+        del runner, opt, net, seen
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 3202 + 7 * hcg.get_data_parallel_rank())
+    g = torch.randn(BIG_LEAF, device="cuda", generator=gen)
+    exact = g.clone()
+    all_reduce(exact, group=hcg.get_data_parallel_group())
+    qgen = torch.Generator(device="cuda")
+    qgen.manual_seed(seed + 3203 + hcg.get_data_parallel_rank())
+    t0 = time.monotonic()
+    got = C.quantized_all_reduce(g, hcg.get_data_parallel_group(), bits=8,
+                                 generator=qgen)
+    torch.cuda.synchronize()
+    ring_ms = (time.monotonic() - t0) * 1e3
+    err = got - exact
+    q, sc = C._block_quant(exact.reshape(-1), 256, 8, generator=qgen)
+    floor = (C._block_dequant(q, sc) - exact.reshape(-1)).abs().mean()
+    absmax = g.abs().max()
+    all_reduce(absmax, op=paddle.distributed.ReduceOp.MAX,
+               group=hcg.get_data_parallel_group())
+    step = float(absmax) * 4 / 127
+    out["big"] = {"err_mean": float(err.mean()),
+                  "err_abs_mean": float(err.abs().mean()),
+                  "err_max": float(err.abs().max()), "floor": float(floor),
+                  "step": step, "rel": float(err.norm() / exact.norm()),
+                  "ms": ring_ms}
+    del g, exact, got, err, q, sc
+    torch.cuda.empty_cache()
+    return out
+
+
+def _spy_ring(runner):
+    """Step 1's gradients of ``runner`` (bits 8, no sharded update) as
+    this rank computed them (``local``) and after the int8 ring's dp mean
+    (``reduced``), taken around its own update calls."""
+    seen = {}
+    explicit, step = runner._explicit_update, runner._update.step
+
+    def grads():
+        return {n: p.grad.detach().clone() for n, p in runner._update.named
+                if p.grad is not None}
+
+    def spy_explicit():
+        if "local" not in seen:
+            seen["local"] = grads()
+        explicit()
+
+    def spy_step(reduce=True):
+        if "reduced" not in seen:
+            seen["reduced"] = grads()
+        step(reduce)
+
+    runner._explicit_update = spy_explicit
+    runner._update.step = spy_step
+    return seen
+
+
+def _ring_gate(torch, paddle, hcg, seen):
+    """Step 1's int8-ring dp mean of every leaf against the exact one
+    (the plain all-reduce of the same local gradients over W): the
+    largest error over ``W |g|max / 127`` (W quantizations of at most
+    ``W |g|max / 127`` each, over W; ``|g|max`` over every rank), the
+    worst leaf; the control leaves this rank's gradient out of the
+    ring's mean, which the gate must refuse."""
+    from paddle_tpu_torch.distributed.communication import all_reduce
+    dp = hcg.get_data_parallel_group()
+    w = dp.nranks
+    worst, worst_leaf, control, rel = 0.0, None, 0.0, 0.0
+    for name, local in seen["local"].items():
+        exact = local.clone()
+        all_reduce(exact, group=dp)
+        exact /= w
+        gmax = local.abs().max()
+        all_reduce(gmax, op=paddle.distributed.ReduceOp.MAX, group=dp)
+        bound = w * float(gmax) / 127
+        got = seen["reduced"][name]
+        ratio = float((got - exact).abs().max()) / bound if bound else 0.0
+        if ratio >= worst:
+            worst, worst_leaf = ratio, name
+        rel = max(rel, float((got - exact).norm() / exact.norm())
+                  if float(exact.norm()) else 0.0)
+        if bound:
+            control = max(control, float((got - local / w - exact).abs()
+                                         .max()) / bound)
+    return {"worst": worst, "leaf": worst_leaf, "control": control,
+            "rel": rel, "leaves": len(seen["local"])}
+
+
+def _comp2_rank(workdir, stacks_after, seed):
+    """[train gpt compressed parity] at dp2 (a two-rank world): bits 16
+    against the plain dp2 path bit for bit, with its one-ulp control; the
+    sharded update against the unsharded run."""
+    torch, paddle = _rank_setup(stacks_after)
+    paddle.distributed.init_parallel_env()
+    from paddle_tpu_torch.distributed import DistributedRunner
+    from paddle_tpu_torch.models import gpt2_small
+    hcg = _fleet_init(paddle, {"dp_degree": 2})
+    cfg = gpt2_small(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                     recompute=True)
+    state = gpt_numpy_state(cfg, seed + 3300)
+    x, y = _batch(cfg, seed + 3301)
+    runs, snaps = {}, {}
+    leaf = CONTROL_LEAF
+    for name, bits, shard, steps, ulp in (
+            ("plain", 0, False, COMP_PARITY_STEPS, False),
+            ("bits16", 16, False, COMP_PARITY_STEPS, False),
+            ("bits16 control", 16, False, 2, True),
+            ("bits16 shard", 16, True, COMP_PARITY_STEPS, False)):
+        net, opt, crit = _gpt2_runner_parts(torch, paddle, cfg, state, hcg)
+        runner = DistributedRunner(net, opt, crit, dp_compress_bits=bits,
+                                   dp_shard_update=shard)
+        hook = None
+        if ulp and hcg.get_data_parallel_rank() == 1:
+            hook = _ulp_hook(torch, dict(net.named_parameters())[leaf])
+        losses = []
+        for i in range(steps):
+            losses.append(runner.train_step([x], [y]))
+            if name == "plain" and i == 1:
+                snaps["plain step 2"] = _params_of(net)
+        if hook is not None:
+            hook.remove()
+        snaps[name] = _params_of(net)
+        runs[name] = {"losses": losses}
+        del runner, opt, net
+        torch.cuda.empty_cache()
+    res = {"losses": {k: v["losses"] for k, v in runs.items()},
+           "bits16": _same(snaps["plain"], snaps["bits16"]),
+           "control": _same(snaps["plain step 2"], snaps["bits16 control"]),
+           "shard": max(float(((snaps["bits16 shard"][k] - v).abs()
+                               - COMP_SHARD_RTOL * v.abs()).max())
+                        for k, v in snaps["plain"].items())}
+    _rank_done(workdir, res)
+
+
+def _lmce_mp_train(torch, paddle, seed):
+    """[train gpt lmce mp] on this rank: dp2 x mp2, bf16 O2, the non-fused
+    steps then the fused ones from the same weights; rank 0 holds its K7 /
+    K8 calls at the path's shape against their plain versions."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import mp_ops
+    from paddle_tpu_torch.models import gpt2_small
+    from paddle_tpu_torch.ops import flash_attention_kernel as fk
+    from paddle_tpu_torch.ops import lmce_kernel as lk
+    dist = paddle.distributed
+    fleet = dist.fleet
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": 2, "mp_degree": 2}
+    s.recompute = True
+    fleet.init(is_collective=True, strategy=s)
+    hcg = fleet.get_hybrid_communicate_group()
+    cfg = gpt2_small(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                     recompute=True)
+    state = gpt_numpy_state(cfg, seed + 3400)
+    x, y = _batch(cfg, seed + 3401)
+    n, r = hcg._get_data_group().nranks, hcg._data_rank()
+    k = HYBRID_B // n
+    xs = paddle.to_tensor(x[r * k:(r + 1) * k])
+    ys = paddle.to_tensor(y[r * k:(r + 1) * k])
+    out = {}
+    for fused, steps in ((False, LMCE_MP_PLAIN_STEPS), (True, LMCE_MP_STEPS)):
+        net, opt, crit = _gpt2_runner_parts(torch, paddle, cfg, state, hcg,
+                                            fused=fused, o2=True)
+        model = fleet.distributed_model(net)
+        opt = fleet.distributed_optimizer(opt)
+
+        def step():
+            with paddle.amp.auto_cast(level="O2", dtype="bfloat16"):
+                outs = model(xs)
+            loss = crit(outs, ys)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fk.reset_counts()
+        lk.reset_counts()
+        losses, ms = [], []
+        for _ in range(steps):
+            t0 = time.monotonic()
+            losses.append(float(step()))
+            torch.cuda.synchronize()
+            ms.append((time.monotonic() - t0) * 1e3)
+        res = {"losses": losses, "ms": ms, "peak": _peaks(torch),
+               "flash": _launches(fk),
+               "lmce": {f.__name__: f.launches for f in lk.WRAPPERS},
+               "lmce_tc": {f.__name__: f.tc_launches
+                           for f in lk.TC_WRAPPERS},
+               "lmce_plain": sum(f.plain_calls for f in lk.WRAPPERS)}
+        if fused:
+            # every rank runs the forward (its mp collectives); rank 0
+            # holds its K7 / K8 calls
+            with torch.no_grad(), paddle.amp.auto_cast(level="O2",
+                                                       dtype="bfloat16"):
+                hidden = model(xs)
+        if fused and dist.get_rank() == 0:
+            w = net.lm_weight().detach()
+            hidden = getattr(hidden, "_value", hidden)
+            h = hidden.detach().reshape(-1, hidden.shape[-1]).to(w.dtype)
+            start = hcg.get_model_parallel_rank() * w.shape[0]
+            _, _, lab_fwd, lab_bwd = mp_ops._vocab_labels(
+                ys._value.reshape(-1).to(h.device), start, w.shape[0])
+            tag = (f"lmce mp] [rank 0 h {list(h.shape)} W shard "
+                   f"{list(w.shape)} bf16")
+            ferrs, fratio = lmce_tc_fwd_compare(torch, lk, tag, h, w,
+                                                lab_fwd)
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(seed + 3402)
+            g = torch.rand((h.shape[0],), generator=gen, device="cuda")
+            berrs, bratios = lmce_tc_compare(torch, lk, tag, h, w, lab_bwd, g,
+                                             control=True)
+            res["hold"] = {"fwd_errs": ferrs, "fwd_ratio": fratio,
+                           "bwd_errs": berrs, "bwd_ratios": bratios,
+                           "h": list(h.shape), "w": list(w.shape)}
+            del hidden, h, w, g
+        out["fused" if fused else "plain"] = res
+        del model, opt, net
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _lmce_mp_parity(torch, paddle, seed):
+    """[train gpt lmce mp parity] on this rank: fp32 dp1 x mp4 (a 12576-row
+    vocab shard a rank) with the fused route; rank 0 then runs the
+    single-process fused loop on the same weights and batch."""
+    from paddle_tpu_torch.distributed import DistributedRunner
+    from paddle_tpu_torch.models import gpt2_small
+    from paddle_tpu_torch.ops import lmce_kernel as lk
+    dist = paddle.distributed
+    hcg = _fleet_init(paddle, {"mp_degree": 4})
+    cfg = gpt2_small(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    state = gpt_numpy_state(cfg, seed + 3500)
+    x, y = _batch(cfg, seed + 3501)
+    y[:, ::11] = -100
+    net, opt, crit = _gpt2_runner_parts(torch, paddle, cfg, state, hcg,
+                                        kind="sgd", fused=True)
+    runner = DistributedRunner(net, opt, crit)
+    dev = runner._device()
+    lk.reset_counts()
+    runner._forward_loss(*([torch.from_numpy(a).to(dev)] for a in (x, y))
+                         ).backward()
+    runner._update.reduce()
+    grads = {k: p.grad.float().cpu().numpy()
+             for k, p in net.named_parameters()}
+    for p in net.parameters():
+        p.grad = None
+    mp_grads = []
+    dist.all_gather_object(mp_grads, grads,
+                           group=hcg.get_model_parallel_group())
+    del grads
+    losses = [runner.train_step([x], [y]) for _ in range(PARITY_STEPS)]
+    launches = {f.__name__: f.launches for f in lk.WRAPPERS}
+    launches["tc"] = sum(f.tc_launches for f in lk.TC_WRAPPERS)
+    launches["plain"] = sum(f.plain_calls for f in lk.WRAPPERS)
+    shard = list(net.lm_weight().shape)
+    del runner, opt, net
+    torch.cuda.empty_cache()
+    res = {"losses": losses, "launches": launches, "shard": shard}
+    if dist.get_rank() == 0:
+        res.update(_fused_reference(torch, paddle, cfg, state, x, y,
+                                    mp_grads))
+    dist.barrier()
+    return res
+
+
+def _fused_reference(torch, paddle, cfg, state, x, y, mp_grads):
+    """The single-process fused loop on the card (the whole model, the
+    fp32 CUDA-core K7 / K8): step 1's gradients and ``PARITY_STEPS`` SGD
+    losses with the clip; the per-leaf gate of the joined gradients and
+    of the planted control (mp rank 1's shard of one leaf scaled by
+    ``PARITY_CONTROL``)."""
+    import gc
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion,
+                                         enable_fused_lmce,
+                                         state_dict_from_jax)
+    from paddle_tpu_torch.models.gpt import merge_mp_states
+    hcg = collective.get_mesh()
+    collective.set_mesh(None)
+    try:
+        net = GPTForCausalLM(cfg, device="cuda")
+        crit = GPTPretrainingCriterion()
+    finally:
+        collective.set_mesh(hcg)
+    net.load_state_dict(state_dict_from_jax(state, cfg))
+    enable_fused_lmce(net, crit)
+    opt = paddle.optimizer.SGD(
+        learning_rate=PARITY_LR, parameters=net.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(COMP_CLIP))
+    xt, yt = (torch.from_numpy(a).cuda() for a in (x, y))
+    losses, ref = [], None
+    for i in range(PARITY_STEPS):
+        loss = crit(net(xt), yt)
+        loss.backward()
+        if i == 0:
+            ref = {n: p.grad.float().cpu().numpy()
+                   for n, p in net.named_parameters()}
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+    del net, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    got = merge_mp_states(mp_grads, cfg)
+    ratios = _grad_gate(got, ref)
+    leaf = "gpt.embeddings.word_embeddings.weight"
+    bad = [dict(g) for g in mp_grads]
+    bad[1][leaf] = bad[1][leaf] * PARITY_CONTROL
+    control = _grad_gate(merge_mp_states(bad, cfg), ref)[leaf]
+    return {"serial_losses": losses, "ratios": ratios, "control": control,
+            "control_leaf": leaf}
+
+
+def _joined_moments(paddle, opt, hcg, cfg):
+    """``{"<leaf>.<moment>": numpy}``: AdamW's moments of
+    ``CKPT_MOMENT_LEAVES`` joined over the mp group by the model's own
+    ``merge_mp_states`` (not the checkpoint's layouts), and under
+    ``"control"`` the qkv's moment1 joined as a plain column split."""
+    from paddle_tpu_torch.models.gpt import merge_mp_states
+    mine = {k: v.cpu().numpy() for k, v in _moments_of(opt).items()}
+    parts = []
+    paddle.distributed.all_gather_object(
+        parts, mine, group=hcg.get_model_parallel_group())
+    out = {}
+    for k in mine:
+        leaf = k.rsplit(".", 1)[0]
+        out[k] = merge_mp_states([{leaf: p[k]} for p in parts], cfg)[leaf]
+    qkv = f"{CKPT_MOMENT_LEAVES[1]}.moment1"
+    out["control"] = np.concatenate([p[qkv] for p in parts], axis=-1)
+    return out
+
+
+def _moments_of(opt):
+    st = opt._state
+    return {f"{leaf}.{slot}": st[opt._param_names.index(leaf)][slot]
+            .detach() for leaf in CKPT_MOMENT_LEAVES
+            for slot in ("moment1", "moment2")}
+
+
+def _moment_diffs(torch, opt, src):
+    """``[compared, differing, control differing]``: this optimizer's
+    whole moments against the source's joined ones (``src``)."""
+    got = _moments_of(opt)
+    n = bad = 0
+    for k, v in got.items():
+        n += v.numel()
+        bad += int((v.cpu() != torch.from_numpy(src[k])).sum())
+    qkv = got[f"{CKPT_MOMENT_LEAVES[1]}.moment1"].cpu()
+    control = int((qkv != torch.from_numpy(src["control"])).sum())
+    return [n, bad, control]
+
+
+def _ckpt_train(torch, paddle, seed, root):
+    """[train gpt ckpt] on this rank (a)-(e); returns what this process
+    prints and gates, and leaves the step-2 runner state at
+    ``root/src`` for (c)."""
+    from paddle_tpu_torch.distributed import DistributedRunner
+    from paddle_tpu_torch.distributed.checkpoint import (
+        CheckpointManager, load_runner_state, save_runner_state)
+    from paddle_tpu_torch.distributed.checkpoint.reshard import read_index
+    from paddle_tpu_torch.models import gpt2_small
+    import warnings
+    dist = paddle.distributed
+    cfg = gpt2_small(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                     recompute=True)
+    state = gpt_numpy_state(cfg, seed + 3600)
+    other = gpt_numpy_state(cfg, seed + 3601)
+    x, y = _batch(cfg, seed + 3602)
+    out = {}
+    leaf = CONTROL_LEAF
+    with deterministic_algorithms(torch):
+        hcg = _fleet_init(paddle, {"dp_degree": 2, "mp_degree": 2})
+        net, opt, crit = _gpt2_runner_parts(torch, paddle, cfg, state, hcg)
+        runner = DistributedRunner(net, opt, crit)
+        mgr = CheckpointManager(os.path.join(root, "mgr"),
+                                save_interval_steps=2, max_to_keep=2,
+                                async_save=False)
+        losses, save_s = [], {}
+        for step in range(1, CKPT_STEPS + 1):
+            losses.append(runner.train_step([x], [y]))
+            if step == 2:
+                t0 = time.monotonic()
+                save_runner_state(runner, os.path.join(root, "src"))
+                save_s["runner"] = time.monotonic() - t0
+                src_m = _joined_moments(paddle, opt, hcg, cfg)
+                if dist.get_rank() == 0:
+                    np.savez(os.path.join(root, "moments.npz"), **src_m)
+            t0 = time.monotonic()
+            if mgr.save(step, net, opt):
+                save_s[f"manager step {step}"] = time.monotonic() - t0
+        ref = _params_of(net)
+        del runner, opt, net
+        torch.cuda.empty_cache()
+        out.update(losses=losses, save_s=save_s,
+                   mgr_steps=mgr.all_steps(),
+                   files=sorted(os.listdir(os.path.join(root, "mgr", "4"))))
+        src = os.path.join(root, "src")
+        out["bytes"] = os.path.getsize(os.path.join(
+            src, f"rank{dist.get_rank()}.pt"))
+        out["leaves"] = len(read_index(src)["leaves"])
+        # (a) the same layout from other weights: steps 3-4 bit-equal, and
+        # the control: one rank's step-3 gradient one ulp off
+        for name, ulp in (("same", False), ("same control", True)):
+            net, opt, crit = _gpt2_runner_parts(torch, paddle, cfg, other,
+                                                hcg)
+            runner = DistributedRunner(net, opt, crit)
+            t0 = time.monotonic()
+            load_runner_state(runner, src)
+            out.setdefault("load_s", {})[name] = time.monotonic() - t0
+            hook = None
+            if ulp and dist.get_rank() == 1:
+                hook = _ulp_hook(torch, dict(net.named_parameters())[leaf])
+            out[name] = [runner.train_step([x], [y])
+                         for _ in range(CKPT_STEPS - 2)]
+            if hook is not None:
+                hook.remove()
+            out[f"{name} weights"] = _same(ref, _params_of(net))
+            del runner, opt, net
+            torch.cuda.empty_cache()
+        del ref
+        # (e) the manager: step 4 torn on rank 2's file, restore() -> 2
+        dist.barrier()
+        if dist.get_rank() == 2:
+            victim = os.path.join(root, "mgr", "4", "rank2.pt")
+            with open(victim, "r+b") as f:
+                f.truncate(os.path.getsize(victim) // 2)
+        dist.barrier()
+        net, opt, crit = _gpt2_runner_parts(torch, paddle, cfg, other, hcg)
+        mgr = CheckpointManager(os.path.join(root, "mgr"), async_save=False)
+        out["torn_verified"] = mgr.verify_step(4)
+        with warnings.catch_warnings(record=True):
+            warnings.simplefilter("always")
+            out["restored"] = mgr.restore(net, opt)
+        runner = DistributedRunner(net, opt, crit)
+        out["after_restore"] = runner.train_step([x], [y])
+        del runner, opt, net
+        torch.cuda.empty_cache()
+        # (b) dp4
+        hcg = _fleet_init(paddle, {"dp_degree": 4})
+        net, opt, crit = _gpt2_runner_parts(torch, paddle, cfg, other, hcg)
+        runner = DistributedRunner(net, opt, crit)
+        t0 = time.monotonic()
+        load_runner_state(runner, src)
+        out["load_s"]["dp4"] = time.monotonic() - t0
+        out["dp4 moments"] = _moment_diffs(torch, opt, src_m)
+        del src_m
+        out["dp4"] = [runner.train_step([x], [y]) for _ in range(2)]
+        del runner, opt, net
+        torch.cuda.empty_cache()
+        # (d) dp4 sharded update (exact ring): saved after step 2, resumed
+        # bit-identically from other weights; the control one ulp off;
+        # then into an unsharded dp4 runner
+        shup = os.path.join(root, "shup")
+        net, opt, crit = _gpt2_runner_parts(torch, paddle, cfg, state, hcg)
+        runner = DistributedRunner(net, opt, crit, dp_compress_bits=16,
+                                   dp_shard_update=True)
+        out["shard_losses"] = [runner.train_step([x], [y]) for _ in range(2)]
+        save_runner_state(runner, shup)
+        slices = {k: v for k, v in opt.state_dict().items()
+                  if k == f"{leaf}.moment1"}
+        out["shard_losses"].append(runner.train_step([x], [y]))
+        ref = _params_of(net)
+        out["shard_state_bytes"] = runner.optimizer_state_bytes()
+        del runner, opt, net
+        torch.cuda.empty_cache()
+        for name, ulp in (("shard", False), ("shard control", True)):
+            net, opt, crit = _gpt2_runner_parts(torch, paddle, cfg, other,
+                                                hcg)
+            runner = DistributedRunner(net, opt, crit, dp_compress_bits=16,
+                                       dp_shard_update=True)
+            load_runner_state(runner, shup)
+            hook = None
+            if ulp and dist.get_rank() == 1:
+                hook = _ulp_hook(torch, dict(net.named_parameters())[leaf])
+            out[f"{name} resumed"] = runner.train_step([x], [y])
+            if hook is not None:
+                hook.remove()
+            out[f"{name} weights"] = _same(ref, _params_of(net))
+            del runner, opt, net
+            torch.cuda.empty_cache()
+        del ref
+        net, opt, crit = _gpt2_runner_parts(torch, paddle, cfg, other, hcg)
+        runner = DistributedRunner(net, opt, crit)
+        load_runner_state(runner, shup)
+        whole = opt.state_dict()[f"{leaf}.moment1"].reshape(-1)
+        local = slices[f"{leaf}.moment1"].local
+        mine, span = hcg.get_data_parallel_rank(), local.numel()
+        out["unsharded_slice_equal"] = bool(torch.equal(
+            whole[mine * span:(mine + 1) * span], local))
+        out["unsharded_state_bytes"] = runner.optimizer_state_bytes()
+        del runner, opt, net
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _comp_rank(workdir, stacks_after, seed, root):
+    torch, paddle = _rank_setup(stacks_after)
+    paddle.distributed.init_parallel_env()
+    res, secs = {}, {}
+    for name, fn in (("compressed", _compressed_train),
+                     ("compressed_parity", _compressed_parity4),
+                     ("lmce_mp", _lmce_mp_train),
+                     ("lmce_mp_parity", _lmce_mp_parity)):
+        t0 = time.monotonic()
+        res[name] = fn(torch, paddle, seed)
+        secs[name] = time.monotonic() - t0
+    t0 = time.monotonic()
+    res["ckpt"] = _ckpt_train(torch, paddle, seed, root)
+    secs["ckpt"] = time.monotonic() - t0
+    res["secs"] = secs
+    _rank_done(workdir, res)
+
+
+def _ckpt_one_process(torch, paddle, seed, root):
+    """(c): this process (no world) loads the dp2 x mp2 runner state,
+    holds its moments against the source's joined ones and runs steps 3
+    and 4."""
+    from paddle_tpu_torch.distributed import DistributedRunner
+    from paddle_tpu_torch.distributed.checkpoint import load_runner_state
+    from paddle_tpu_torch.distributed.fleet.base import topology as ttopo
+    from paddle_tpu_torch.models import gpt2_small
+    cfg = gpt2_small(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                     recompute=True)
+    hcg = ttopo.HybridCommunicateGroup(ttopo.CommunicateTopology(
+        dims=[1, 1, 1, 1, 1]), 0)
+    with deterministic_algorithms(torch):
+        net, opt, crit = _gpt2_runner_parts(
+            torch, paddle, cfg, gpt_numpy_state(cfg, seed + 3601), hcg)
+        runner = DistributedRunner(net, opt, crit, mesh=hcg)
+        t0 = time.monotonic()
+        load_runner_state(runner, os.path.join(root, "src"))
+        load_s = time.monotonic() - t0
+        with np.load(os.path.join(root, "moments.npz")) as f:
+            moments = _moment_diffs(torch, opt, dict(f))
+        x, y = _batch(cfg, seed + 3602)
+        losses = [runner.train_step([x], [y]) for _ in range(2)]
+        step = opt._global_step
+    del runner, opt, net
+    torch.cuda.empty_cache()
+    return {"losses": losses, "load_s": load_s, "step": step,
+            "moments": moments}
+
+
+def compressed_world_phase(torch, seed):
+    """``[train gpt compressed]``, its parity, ``[train gpt lmce mp]``, its
+    parity and ``[train gpt ckpt]`` (module docstring, 15zo-15zs): a world
+    of four ranks on the one card for all but the dp2 parity, which runs
+    in a world of two; then (c) in this process.  Returns the launches
+    for the kernels line."""
+    import shutil
+    import tempfile
+    import paddle_tpu_torch as paddle
+    root = tempfile.mkdtemp(prefix="chip_ckpt_")
+    env = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    t0 = time.monotonic()
+    ranks = _run_world(_comp_rank, 4, env, seed, root)
+    world_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    pair = _run_world(_comp2_rank, 2, env, seed)
+    pair_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    one = _ckpt_one_process(torch, paddle, seed, root)
+    one_s = time.monotonic() - t0
+    shutil.rmtree(root)
+    card = card_line()
+    secs = ranks[0]["secs"]
+
+    tag = "train gpt compressed"
+    tr = [r["compressed"] for r in ranks]
+    for i, res in enumerate(tr):
+        la = res["launches"]
+        check(all(np.isfinite(res["losses"])) and res["losses"] ==
+              tr[0]["losses"], f"[{tag}] rank {i} losses {res['losses']}")
+        check(res["losses"][-1] < res["losses"][0],
+              f"[{tag}] rank {i}: loss did not fall: {res['losses']}")
+        check(res["replicas"][0] > 0 and res["replicas"][1] == 0,
+              f"[{tag}] rank {i}: weights differ over the four ranks "
+              f"(compared, differing) {res['replicas']}")
+        check(res["control"][1] > 0, f"[{tag}] rank {i}: the replica gate "
+              f"misses one rank's weight one ulp off {res['control']}")
+        check(la["flash_fwd"] == la["flash_fwd.tc"] > 0
+              and la["flash_bwd_dq"] == la["flash_bwd_dq.tc"] > 0
+              and la["flash_bwd_dkv"] == la["flash_bwd_dkv.tc"] > 0
+              and la["plain"] == 0, f"[{tag}] rank {i} launches {la}")
+        share = res["state_bytes"] / res["plain"]["state_bytes"]
+        check(share <= COMP_STATE_SHARE, f"[{tag}] rank {i}: optimizer "
+              f"state {share:.4f} of the unsharded state")
+    r0 = tr[0]
+    per = _per_step(r0["stats"], COMP_STEPS)
+    sent = per.get("send", {}).get("bytes", 0.0)
+    gathered = per.get("all_gather", {}).get("bytes", 0.0) * 3
+    plain = _per_step(r0["plain"]["stats"], 1)
+    plain_bytes = sum(v["bytes"] for v in plain.values())
+    print(f"[{tag}] GPT-2-small L=12 D=768 H=12 V=50304 global B={HYBRID_B} "
+          f"S={HYBRID_S}, dp4 on 4 ranks of one card through fleet.init "
+          "(quantized_allreduce=8, sharded_weight_update=True, amp O2 bf16, "
+          f"recompute) -> fleet.distributed_runner, AdamW lr {COMP_LR} with "
+          f"the global-norm clip {COMP_CLIP}, one warm step and "
+          f"{COMP_STEPS} timed: losses "
+          f"{[round(v, 5) for v in r0['losses']]}; " + "; ".join(
+              f"rank {i} step_ms {[round(v, 1) for v in r['ms']]} optimizer "
+              f"state {r['state_bytes'] / 2**20:.1f} MiB "
+              f"({r['state_bytes'] / r['plain']['state_bytes']:.4f} of the "
+              f"unsharded {r['plain']['state_bytes'] / 2**20:.1f} MiB) peak "
+              f"allocated {_gib(r['peak'][0]):.3f} GiB reserved "
+              f"{_gib(r['peak'][1]):.3f} GiB" for i, r in enumerate(tr))
+          + f"; weights bit-equal over the four ranks after the last step "
+          f"({r0['replicas'][0]} elements), the control (one rank's copy of "
+          f"one weight one ulp off) differs in {r0['control'][1]}; card "
+          f"{card}", flush=True)
+    print(f"[{tag}] step_ms median(steps 3+, median over ranks) "
+          f"{np.median([np.median(r['ms'][2:]) for r in tr]):.1f} (the plain "
+          f"dp4 step on the same world {r0['plain']['ms']:.1f} ms); dp bytes "
+          f"a rank a step, measured by comm_stats: the int8 ring's sends "
+          f"{sent:.0f} + the exact all-gather's ring-equivalent sends "
+          f"{gathered:.0f} = {sent + gathered:.0f} bytes (its bf16 "
+          "parameters) beside the byte model's dp_comm_bytes_per_step "
+          f"{r0['info']['bytes_per_step']} (32-bit gather) and "
+          f"dp_allreduce_bytes_total's {r0['counted'] / COMP_STEPS:.0f} a "
+          f"step; the plain dp4 step's collectives {plain_bytes:.0f} bytes "
+          f"in ({_stats_line(plain)}); dp_compress_ratio {r0['ratio']:.4f};"
+          f" collectives a step on rank 0 (calls, bytes in, host ms): "
+          f"{_stats_line(per)}; K5/K6 a rank at [2, 1024, 12, 64] bf16: "
+          f"flash_fwd {r0['launches']['flash_fwd']} (tc "
+          f"{r0['launches']['flash_fwd.tc']}), flash_bwd_dq "
+          f"{r0['launches']['flash_bwd_dq']}, flash_bwd_dkv "
+          f"{r0['launches']['flash_bwd_dkv']}; seconds "
+          f"{secs['compressed']:.1f}", flush=True)
+
+    tag = "train gpt compressed parity"
+    p = [r["compressed_parity"] for r in ranks]
+    for i, r in enumerate(p):
+        check(r["losses8"] == p[0]["losses8"] and r["losses0"] ==
+              p[0]["losses0"], f"[{tag}] rank {i} losses differ")
+        big = r["big"]
+        check(big["err_abs_mean"] < 3 * big["floor"] and big["err_max"] <
+              4 * big["step"] and abs(big["err_mean"]) < 0.05 * big["step"],
+              f"[{tag}] rank {i}: the int8 all-reduce of {BIG_LEAF} {big}")
+    l8, l0 = p[0]["losses8"], p[0]["losses0"]
+    check(l8[0] == l0[0] and all(abs(a - b) < COMP_BITS8_TOL
+                                 for a, b in zip(l8, l0)),
+          f"[{tag}] dp4 bits 8 losses {l8} vs the exact run's {l0}")
+    for i, r in enumerate(p):
+        gr = r["grads"]
+        check(gr["leaves"] > 0 and gr["worst"] <= 1.0, f"[{tag}] rank {i}: "
+              f"the int8 ring's step-1 gradient of {gr['leaf']} parts from "
+              f"the exact dp mean by {gr['worst']:.3f} of its bound")
+        check(gr["control"] > 1.0, f"[{tag}] rank {i}: the control (this "
+              f"rank's gradient left out) passes the ring gate {gr}")
+    q = [r for r in pair]
+    for i, r in enumerate(q):
+        n, bad = r["bits16"]
+        check(n > 0 and bad == 0 and r["losses"]["bits16"] ==
+              r["losses"]["plain"], f"[{tag}] dp2 rank {i}: bits 16 is not "
+              f"the plain path: {r['bits16']} {r['losses']}")
+        check(r["control"][1] > 0, f"[{tag}] dp2 rank {i}: the one-ulp "
+              f"control passes {r['control']}")
+        check(r["shard"] <= COMP_SHARD_ATOL, f"[{tag}] dp2 rank {i}: the "
+              f"sharded update parts from the unsharded by {r['shard']}")
+    big = p[0]["big"]
+    print(f"[{tag}] GPT-2-small fp32, global B={HYBRID_B} S={HYBRID_S}, "
+          f"AdamW lr {COMP_LR} with the clip, {COMP_PARITY_STEPS} steps: "
+          f"dp2 (a two-rank world) bits 16 losses "
+          f"{[round(v, 6) for v in q[0]['losses']['bits16']]} equal to the "
+          f"plain dp2 path's, every weight bit-equal "
+          f"({q[0]['bits16'][0]} elements, differing {q[0]['bits16'][1]}); "
+          f"control (rank 1's step-1 gradient of one leaf one ulp up, read "
+          f"after step 2) differs in {q[0]['control'][1]}; dp2 bits 16 with the sharded "
+          f"update within rtol {COMP_SHARD_RTOL} + atol "
+          f"(|d| - rtol |ref| reaches {q[0]['shard']:.3e} <= "
+          f"{COMP_SHARD_ATOL}); dp4 bits 8 losses {p[0]['losses8']} vs "
+          f"exact {p[0]['losses0']} (step 1 equal, each within "
+          f"{COMP_BITS8_TOL}); step 1's gradients after the int8 ring vs "
+          f"the exact dp mean, {p[0]['grads']['leaves']} leaves: worst "
+          f"{max(r['grads']['worst'] for r in p):.4f} of the ring's bound "
+          f"W |g|max / 127, W = 4 ({p[0]['grads']['leaf']} on rank 0), largest "
+          f"relative norm {max(r['grads']['rel'] for r in p):.3e}; the "
+          f"control (a rank's own gradient left out of the mean) reaches "
+          f"{min(r['grads']['control'] for r in p):.3f} of the bound (the "
+          f"least over ranks, > 1 fails); one int8 all-reduce of a {BIG_LEAF} fp32 "
+          f"leaf over dp4: mean error {big['err_mean']:.3e} (|.| < 0.05 "
+          f"step = {0.05 * big['step']:.3e}), mean |error| "
+          f"{big['err_abs_mean']:.3e} (< 3 x the one-quantization floor "
+          f"{big['floor']:.3e}), max |error| {big['err_max']:.3e} (< 4 step "
+          f"= {4 * big['step']:.3e}), relative norm {big['rel']:.3e}, "
+          f"{big['ms']:.1f} ms; seconds {secs['compressed_parity']:.1f} + "
+          f"the dp2 world {pair_s:.1f}; card {card}", flush=True)
+
+    tag = "train gpt lmce mp"
+    lm = [r["lmce_mp"] for r in ranks]
+    for i, r in enumerate(lm):
+        f, pl = r["fused"], r["plain"]
+        want = {k: LMCE_MP_STEPS for k in ("lmce_fwd", "lmce_bwd_dh",
+                                           "lmce_bwd_dw")}
+        check(f["lmce"] == want and f["lmce_tc"] == want and
+              f["lmce_plain"] == 0, f"[{tag}] rank {i}: K7/K8 launches "
+              f"{f['lmce']} tc {f['lmce_tc']} plain {f['lmce_plain']}")
+        check(pl["lmce"] == {k: 0 for k in want},
+              f"[{tag}] rank {i}: the non-fused run launched K7/K8")
+        check(f["losses"][-1] < f["losses"][0],
+              f"[{tag}] rank {i}: loss did not fall {f['losses']}")
+        rel = abs(f["losses"][0] - pl["losses"][0]) / abs(pl["losses"][0])
+        check(rel <= LMCE_MP_BF16_TOL, f"[{tag}] rank {i}: step 1 fused "
+              f"{f['losses'][0]} vs non-fused {pl['losses'][0]}")
+    hold = lm[0]["fused"]["hold"]
+    f0, p0 = lm[0]["fused"], lm[0]["plain"]
+    print(f"[{tag}] GPT-2-small, dp2 x mp2 on 4 ranks (fleet.init -> "
+          "distributed_model -> distributed_optimizer, bf16 O2, recompute), "
+          f"enable_fused_lmce, AdamW lr {COMP_LR} with the clip, "
+          f"{LMCE_MP_STEPS} steps: losses {[round(v, 5) for v in f0['losses']]}"
+          f" (step 1 vs the non-fused step on the same weights and batch "
+          f"{p0['losses'][0]:.5f}: relative "
+          f"{abs(f0['losses'][0] - p0['losses'][0]) / p0['losses'][0]:.3e}, "
+          f"tol {LMCE_MP_BF16_TOL}); step_ms fused by rank "
+          f"{[[round(v, 1) for v in r['fused']['ms']] for r in lm]} vs "
+          f"non-fused {[[round(v, 1) for v in r['plain']['ms']] for r in lm]}"
+          f"; peak allocated fused "
+          f"{[round(_gib(r['fused']['peak'][0]), 3) for r in lm]} GiB vs "
+          f"non-fused {[round(_gib(r['plain']['peak'][0]), 3) for r in lm]} "
+          f"GiB; K7/K8 a rank {f0['lmce']} (tensor-core {f0['lmce_tc']}) "
+          f"on h [4096, 768] x W [25152, 768]; rank 0's calls held at "
+          f"h {hold['h']} W {hold['w']} bf16 against their plain versions: "
+          f"forward gate ratio {hold['fwd_ratio']:.3e}, errors "
+          f"{ {k: f'{v:.3e}' for k, v in hold['fwd_errs'].items()} }, "
+          f"backward gate ratios "
+          f"{ {k: f'{v:.3e}' for k, v in hold['bwd_ratios'].items()} } "
+          f"(<= 1, the S-free control fails); seconds {secs['lmce_mp']:.1f};"
+          f" card {card}", flush=True)
+
+    tag = "train gpt lmce mp parity"
+    mp = [r["lmce_mp_parity"] for r in ranks]
+    for i, r in enumerate(mp):
+        check(r["losses"] == mp[0]["losses"], f"[{tag}] rank {i} losses")
+        la = r["launches"]
+        check(la["lmce_fwd"] == la["lmce_bwd_dh"] == la["lmce_bwd_dw"] ==
+              PARITY_STEPS + 1 and la["tc"] == 0 and la["plain"] == 0,
+              f"[{tag}] rank {i} launches {la}")
+        check(r["shard"] == [12576, 768], f"[{tag}] shard {r['shard']}")
+    _parity_gates(tag, "GPT-2-small fp32 with enable_fused_lmce, dp1 x mp4 "
+                  "(a [12576, 768] vocab shard a rank, the CUDA-core K7/K8, "
+                  f"{mp[0]['launches']['lmce_fwd']} forward launches a "
+                  "rank) through DistributedRunner vs the single-process "
+                  "fused loop on the card, same numpy weights and batch "
+                  f"(every 11th label -100), SGD lr {PARITY_LR} with the "
+                  "clip", mp[0]["losses"], mp[0], "mp rank 1's shard of",
+                  card, None)
+
+    tag = "train gpt ckpt"
+    ck = [r["ckpt"] for r in ranks]
+    c0 = ck[0]
+    ref3 = c0["losses"][2]
+    ref34 = c0["losses"][2:]
+
+    def resumed(got):
+        return len(got) == 2 and all(abs(a - b) <= CKPT_TOL * abs(b)
+                                     for a, b in zip(got, ref34))
+
+    def moments_ok(m):
+        return m[0] > 0 and m[1] == 0 and m[2] > 0
+
+    for i, r in enumerate(ck):
+        check(r["losses"] == c0["losses"], f"[{tag}] rank {i} losses")
+        check(r["same"] == r["losses"][2:] and r["same weights"][1] == 0
+              and r["same weights"][0] > 0, f"[{tag}] rank {i} (a): "
+              f"{r['same']} vs {r['losses'][2:]}, weights {r['same weights']}")
+        check(r["same control weights"][1] > 0, f"[{tag}] rank {i} (a): the "
+              f"one-ulp control passes {r['same control weights']}")
+        check(resumed(r["dp4"]), f"[{tag}] rank {i} (b): dp4 steps 3-4 "
+              f"{r['dp4']} vs {ref34}")
+        check(moments_ok(r["dp4 moments"]), f"[{tag}] rank {i} (b): the "
+              "moments (compared, differing, control differing) "
+              f"{r['dp4 moments']}")
+        check(r["shard resumed"] == r["shard_losses"][2] and
+              r["shard weights"][1] == 0, f"[{tag}] rank {i} (d): "
+              f"{r['shard resumed']} vs {r['shard_losses'][2]}, weights "
+              f"{r['shard weights']}")
+        check(r["shard control weights"][1] > 0, f"[{tag}] rank {i} (d): "
+              f"the one-ulp control passes {r['shard control weights']}")
+        check(r["unsharded_slice_equal"], f"[{tag}] rank {i} (d): the "
+              "unsharded runner's moment is not the chunks joined")
+        check(not r["torn_verified"] and r["restored"] == 2 and
+              r["after_restore"] == ref3, f"[{tag}] rank {i} (e): verified "
+              f"{r['torn_verified']}, restored {r['restored']}, step 3 "
+              f"{r['after_restore']}")
+        check(r["mgr_steps"] == [2, 4], f"[{tag}] manager steps "
+              f"{r['mgr_steps']}")
+    check(resumed(one["losses"]) and one["step"] == 4 and
+          moments_ok(one["moments"]), f"[{tag}] (c): one process's steps "
+          f"3-4 {one['losses']} vs {ref34}, moments {one['moments']}")
+    print(f"[{tag}] GPT-2-small fp32, global B={HYBRID_B} S={HYBRID_S}, "
+          f"dp2 x mp2 AdamW lr {COMP_LR} with the clip, {CKPT_STEPS} steps "
+          f"(losses {[round(v, 6) for v in c0['losses']]}), "
+          "save_runner_state after step 2, CheckpointManager(save_interval_"
+          "steps=2, max_to_keep=2) at every step (kept "
+          f"{c0['mgr_steps']}; step 4's files {c0['files']}), under "
+          "torch.use_deterministic_algorithms: (a) dp2 x mp2 from other "
+          f"weights loads step 2, steps 3-4 {c0['same']} bit-equal, every "
+          f"weight ({c0['same weights'][0]} elements) bit-equal, the one-ulp "
+          f"control differs in {c0['same control weights'][1]}; the moments "
+          f"of {list(CKPT_MOMENT_LEAVES)} loaded at dp4 and in one process "
+          f"against the source's joined over mp by merge_mp_states (compared,"
+          f" differing, the control's differing) {c0['dp4 moments']} and "
+          f"{one['moments']}; steps 3-4 (b) dp4 {c0['dp4']}, (c) one "
+          f"process {one['losses']} (vs {ref34}, tol {CKPT_TOL} relative); "
+          "(d) dp4 sharded update "
+          f"(exact ring) saved after step 2 resumes step 3 "
+          f"{c0['shard resumed']:.6f} = {c0['shard_losses'][2]:.6f}, every "
+          "weight bit-equal, the control differs in "
+          f"{c0['shard control weights'][1]}, optimizer state "
+          f"{c0['shard_state_bytes'] / 2**20:.1f} MiB a rank, loaded into an "
+          f"unsharded dp4 runner ({c0['unsharded_state_bytes'] / 2**20:.1f} "
+          "MiB) whose moments are the chunks joined; (e) step 4 with rank "
+          f"2's file truncated: verify_step {c0['torn_verified']}, restore() "
+          f"-> {c0['restored']}, step 3 {c0['after_restore']:.6f}; runner "
+          f"state: bytes written by rank "
+          f"{[r['bytes'] for r in ck]}, index {c0['leaves']} leaves, save "
+          f"seconds {c0['save_s']}, load seconds by rank 0 "
+          f"{ {k: round(v, 2) for k, v in c0['load_s'].items()} } and in "
+          f"one process {one['load_s']:.2f}; seconds {secs['ckpt']:.1f} + "
+          f"(c) {one_s:.1f}; card {card}", flush=True)
+    print(f"[dist worlds] compressed / lmce mp / ckpt world {world_s:.1f} s "
+          f"(by phase {', '.join(f'{k} {v:.1f}' for k, v in secs.items())}), "
+          f"dp2 world {pair_s:.1f} s", flush=True)
+    return {"compressed": {k: sum(r["compressed"]["launches"][k]
+                                  for r in ranks)
+                           for k in r0["launches"]},
+            "lmce_mp": {"flash": {k: sum(r["lmce_mp"]["fused"]["flash"][k]
+                                         for r in ranks)
+                                  for k in f0["flash"]},
+                        "lmce": {k: sum(r["lmce_mp"]["fused"]["lmce"][k]
+                                        for r in ranks)
+                                 for k in f0["lmce"]},
+                        "hold": hold},
+            "lmce_mp_fp32": {k: sum(r["lmce_mp_parity"]["launches"][k]
+                                    for r in ranks)
+                             for k in ("lmce_fwd", "lmce_bwd_dh",
+                                       "lmce_bwd_dw")}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -12603,6 +13701,7 @@ def main(argv=None) -> int:
     print(f"[dist worlds] seconds: ERNIE sharding + cp world {t1 - t0:.1f}, "
           f"pipeline world with its reference and hold "
           f"{time.monotonic() - t1:.1f}", flush=True)
+    comp = compressed_world_phase(torch, args.seed)
 
     k32, k16 = kres["fp32"], kres["bf16"]
     kernels = [{
@@ -12886,6 +13985,12 @@ def main(argv=None) -> int:
             entry["ernie_sharding_tc_launches"] = shard[f"{name}.tc"]
             entry["pipe_1p3b_launches"] = pipe[name]
             entry["pipe_1p3b_tc_launches"] = pipe[f"{name}.tc"]
+            entry["compressed_dp4_launches"] = comp["compressed"][name]
+            entry["compressed_dp4_tc_launches"] = \
+                comp["compressed"][f"{name}.tc"]
+            entry["lmce_mp_launches"] = comp["lmce_mp"]["flash"][name]
+            entry["lmce_mp_tc_launches"] = \
+                comp["lmce_mp"]["flash"][f"{name}.tc"]
             h = pipe_hold[name]
             entry["pipe_1p3b_fp32_d128"] = {
                 "shape": list(PIPE_FLASH), "ms": h["ms"],
@@ -12895,6 +14000,25 @@ def main(argv=None) -> int:
                 "max_abs_err": max(pipe_hold["errs"][k] for k in (
                     ("out", "lse") if name == "flash_fwd" else
                     ("dq",) if name == "flash_bwd_dq" else ("dk", "dv")))}
+    # the fused LMCE over a split vocabulary ([train gpt lmce mp], bf16 on
+    # the tensor cores; its parity, fp32 on the CUDA cores)
+    hold = comp["lmce_mp"]["hold"]
+    for entry in kernels:
+        name = entry["name"]
+        if name in ("lmce_fwd", "lmce_bwd_dh_tc", "lmce_bwd_dw_tc"):
+            key = name.replace("_tc", "")
+            entry["lmce_mp_launches"] = comp["lmce_mp"]["lmce"][key]
+            entry["lmce_mp_hold"] = {
+                "shape": {"h": hold["h"], "w": hold["w"]},
+                "gate_ratio": (hold["fwd_ratio"] if key == "lmce_fwd" else
+                               hold["bwd_ratios"][key[-2:]]),
+                "max_abs_err": (max(hold["fwd_errs"].values())
+                                if key == "lmce_fwd" else
+                                hold["bwd_errs"][key[-2:]])}
+        if name in ("lmce_bwd_dh", "lmce_bwd_dw"):
+            entry["lmce_mp_fp32_launches"] = comp["lmce_mp_fp32"][name]
+        if name == "lmce_fwd":
+            entry["lmce_mp_fp32_launches"] = comp["lmce_mp_fp32"][name]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,10 +6,13 @@ topology with data, tensor (mp) and sharding parallelism and
 recompute (``fleet``, ``sharding``), pipeline parallel
 (``fleet.meta_parallel.PipelineLayer``, ``PipelineParallel``,
 ``PipelinedRunner``) and context parallel (ring and Ulysses attention
-over the sep group), ``DistributedRunner``, and fault injection
-(``resilience.faults``).  The compressed dp path, checkpoints,
-auto-parallel and MoE come with the next A10 slices; the launcher and
-the rest of ``resilience/`` with A11.
+over the sep group), ``DistributedRunner`` with the compressed dp path
+(``compressed``: the int8 and exact rings, the sharded weight update),
+the distributed checkpoint with reshard-on-load and its manager
+(``checkpoint``), fault injection and the retry policy
+(``resilience.faults``, ``resilience.retry``).  Auto-parallel and MoE
+come with the next A10 slices; the launcher and the rest of
+``resilience/`` with A11.
 """
 
 from . import resilience  # noqa: F401
@@ -26,6 +29,7 @@ from . import fleet  # noqa: F401
 from . import sharding  # noqa: F401
 from .collective import get_mesh, set_mesh, split  # noqa: F401
 from .runner import DistributedRunner, PipelinedRunner  # noqa: F401
+from . import checkpoint, compressed  # noqa: F401
 from .spawn import spawn  # noqa: F401
 from .fleet.recompute import recompute  # noqa: F401
 
@@ -39,4 +43,4 @@ __all__ = ["resilience", "DataParallel", "ParallelEnv", "get_backend",
            "reduce_scatter", "scatter", "scatter_object_list", "send",
            "wait", "stream", "fleet", "sharding", "get_mesh", "set_mesh",
            "split", "DistributedRunner", "PipelinedRunner", "spawn",
-           "recompute"]
+           "recompute", "checkpoint", "compressed"]

@@ -81,9 +81,9 @@ class DistributedStrategy:
         self.lamb = False
         self.lamb_configs = {"lamb_weight_decay": 0.01,
                              "exclude_from_weight_decay": []}
-        # the compressed dp gradient path (distributed/compressed.py in
-        # the JAX package): the port refuses both until that slice
-        # (ROADMAP queue A, item A10)
+        # the compressed dp gradient path (distributed/compressed.py):
+        # the wire width of the explicit dp reduction (0, 8 or 16) and
+        # the sharded weight update, handed to DistributedRunner
         self.quantized_allreduce = 0
         self.sharded_weight_update = False
         self.localsgd = False

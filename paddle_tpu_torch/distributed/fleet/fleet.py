@@ -13,9 +13,10 @@ seed per mp rank, from ``tensor_parallel_configs["tensor_init_seed"]``
 run their attention over the sep group themselves (the GPT attention's
 ring or Ulysses branch).
 
-What waits, each refused with the ROADMAP item that brings it: the
-compressed dp knobs (``quantized_allreduce``, ``sharded_weight_update``),
-A10's ``compressed.py``; ``enable_resilience``, A11.
+``distributed_runner`` hands ``quantized_allreduce`` (0, 8 or 16) and
+``sharded_weight_update`` to ``DistributedRunner``'s explicit dp path.
+What waits is refused with the ROADMAP item that brings it:
+``enable_resilience``, A11.
 """
 
 from __future__ import annotations
@@ -28,10 +29,6 @@ from .base.topology import (CommunicateTopology, HybridCommunicateGroup,
                             _set_hybrid_parallel_group)
 from ..parallel import ParallelEnv, init_parallel_env
 
-COMPRESS_REFUSAL = ("the compressed dp gradient path (quantized_allreduce / "
-                    "dp_compress_bits, sharded_weight_update / "
-                    "dp_shard_update) is not ported yet: it comes with the "
-                    "A10 slice of compressed.py (ROADMAP queue A, item A10)")
 RESILIENCE_REFUSAL = ("fleet.enable_resilience (the hang watchdog, the fault "
                       "plan and the rank-elastic beacon) is not ported yet: "
                       "it comes with ROADMAP queue A, item A11 (resilience/ "
@@ -59,8 +56,6 @@ _REFUSED_STRATEGY_KNOBS = {
                          "recompute covers the whole forward",
     "tensor_parallel": "mp is selected by hybrid_configs['mp_degree']",
     "without_graph_optimization": "the port has no graph mode",
-    "quantized_allreduce": COMPRESS_REFUSAL,
-    "sharded_weight_update": COMPRESS_REFUSAL,
 }
 
 
@@ -158,7 +153,9 @@ class Fleet:
                            input_specs=None):
         """The per-rank train-step engine with the strategy's knobs:
         sharding -> ZeRO stage, gradient_merge -> accumulate_steps
-        (``k_steps``), amp -> O1/O2 and its dtype, recompute -> remat;
+        (``k_steps``), amp -> O1/O2 and its dtype, recompute -> remat,
+        quantized_allreduce / sharded_weight_update -> the explicit dp
+        path;
         at pp > 1 with a ``PipelineLayer``, ``PipelinedRunner`` (the
         pipeline engine; a sharding stage or ``input_specs`` refused
         there, as in the JAX fleet).  Refuses the knobs of
@@ -195,6 +192,10 @@ class Fleet:
             unsupported = {}
             if stage:
                 unsupported["sharding stage"] = stage
+            if getattr(s, "quantized_allreduce", 0):
+                unsupported["quantized_allreduce"] = s.quantized_allreduce
+            if getattr(s, "sharded_weight_update", False):
+                unsupported["sharded_weight_update"] = True
             if input_specs:
                 unsupported["input_specs"] = input_specs
             if unsupported:
@@ -214,7 +215,9 @@ class Fleet:
             mesh=self.get_hybrid_communicate_group(), sharding_stage=stage,
             accumulate_steps=max(acc, 1), input_specs=input_specs,
             amp_level=amp_level, amp_dtype=amp_dtype,
-            remat=bool(s.recompute))
+            remat=bool(s.recompute),
+            dp_compress_bits=getattr(s, "quantized_allreduce", 0),
+            dp_shard_update=getattr(s, "sharded_weight_update", False))
 
     def enable_resilience(self, hang_timeout=None, on_hang=None,
                           dump_path=None):

@@ -51,7 +51,8 @@ class HybridUpdate:
 
     def __init__(self, named_params, optimizer, data_group, mp_group=None,
                  sharding_group=None, dp_group=None, stage=0, pp_group=None,
-                 sep_group=None, tied=(), norm_skip=()):
+                 sep_group=None, tied=(), norm_skip=(), wire_bits=0,
+                 generator=None):
         self.optimizer = optimizer
         self.named = [(n, p) for n, p in named_params]
         self.data_group = data_group
@@ -64,7 +65,8 @@ class HybridUpdate:
         if stage >= 1 and sharding_group is not None and \
                 sharding_group.nranks > 1:
             self.sharded = ShardedUpdate(self.named, optimizer,
-                                         sharding_group, dp_group, stage)
+                                         sharding_group, dp_group, stage,
+                                         wire_bits, generator)
         split = self.sharded is not None or (
             mp_group is not None and mp_group.nranks > 1)
         if split and isinstance(optimizer._grad_clip, ClipGradByNorm):

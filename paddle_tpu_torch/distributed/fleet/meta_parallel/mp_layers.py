@@ -25,7 +25,9 @@ The mp group is the registered topology's (``fleet.init``) unless
 and initial draws, so a model built of them keeps its single-card
 numbers.  The split weights carry ``is_distributed = True`` (the hybrid
 clip sums their squares over the mp group); :func:`is_mp_split` reads
-the mark.
+the mark.  Each split weight also carries its ``split_axis`` and
+``_mp_coords`` (mp rank, degree), from which the distributed checkpoint
+places its shard in the whole tensor.
 """
 
 from __future__ import annotations
@@ -56,6 +58,14 @@ def _degree(group) -> int:
     return 1 if group is None else group.nranks
 
 
+def _mark(p, axis, group, n):
+    """The split's geometry on ``p`` (the checkpoint's layout reads it):
+    ``split_axis`` (upstream's attribute) and ``_mp_coords`` ``(rank,
+    degree)``."""
+    p.split_axis = axis
+    p._mp_coords = (group.rank, n) if n > 1 else (0, 1)
+
+
 def _split(n, parts, what):
     if n % parts:
         raise ValueError(f"{what} {n} does not divide by mp degree {parts}")
@@ -82,8 +92,10 @@ class ColumnParallelLinear(Linear):
         self.is_mp = n > 1
         self._group = group if n > 1 else None
         self.weight.is_distributed = n > 1
+        _mark(self.weight, 1, group, n)
         if self.bias is not None:
             self.bias.is_distributed = n > 1
+            _mark(self.bias, 0, group, n)
 
     def forward(self, x):
         if self._group is None:
@@ -112,6 +124,7 @@ class RowParallelLinear(Linear):
         self.is_mp = n > 1
         self._group = group if n > 1 else None
         self.weight.is_distributed = n > 1
+        _mark(self.weight, 0, group, n)
         if self.bias is not None:
             self.bias.is_distributed = False
 
@@ -140,6 +153,7 @@ class VocabParallelEmbedding(Embedding):
         self._group = group if n > 1 else None
         self._start = group.rank * per if n > 1 else 0
         self.weight.is_distributed = n > 1
+        _mark(self.weight, 0, group, n)
 
     def forward(self, ids):
         if self._group is None:

@@ -16,13 +16,19 @@ then the updated chunks are all-gathered into the parameters.
   group; each rank takes its chunks of them;
 - stage 2 (``os_g``): the gradients are reduce-scattered over the
   sharding group (one flat buffer per dtype), all-reduced over the dp
-  group, then divided by the data group's rank count;
+  group, then divided by the data group's rank count; at a wire width
+  (``wire_bits`` 8 or 16) the reduce-scatter is the encoded ring of
+  ``distributed/compressed.py`` (``DistributedRunner``'s sharded weight
+  update runs stage 2 over the dp group so);
 - stage 3 (``p_g_os``): stage 2, and between steps each rank keeps only
   its chunks: ``release()`` empties the parameters after the update and
   ``materialize()`` gathers them before the next forward.
 
 Padding is zero and stays zero (a zero gradient moves no moment), so it
-adds nothing to a norm.
+adds nothing to a norm.  Each chunk carries its place in the whole
+parameter (``_global_layout``, a flat range of the parameter's layout),
+so the optimizer's ``state_dict()`` and the distributed checkpoint
+present its moments as slices of the whole-shape tensors.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import torch
 
 from ....nn.param_attr import Parameter
 from ...parallel import LayerWrapper
+from ...checkpoint.layout import param_layout
 from .mp_layers import is_mp_split
 
 
@@ -40,11 +47,14 @@ class ShardedUpdate:
     """Chunks of ``named_params`` (trainable ones) owned by this rank of
     ``group``; ``optimizer`` is rebound to them (module docstring)."""
 
-    def __init__(self, named_params, optimizer, group, dp_group, stage):
+    def __init__(self, named_params, optimizer, group, dp_group, stage,
+                 wire_bits=0, generator=None):
         from ...communication import get_group
         self.group = get_group(group)
         self.dp_group = dp_group
         self.stage = int(stage)
+        self.wire_bits = int(wire_bits)
+        self.generator = generator
         n = self.group.nranks
         r = max(self.group.rank, 0)
         self.entries = []
@@ -63,6 +73,8 @@ class ShardedUpdate:
                                        or {"learning_rate": 1.0})
             shard.regularizer = getattr(p, "regularizer", None)
             shard.is_distributed = is_mp_split(p)
+            shard._global_layout = param_layout(p).flat_range(
+                r * chunk, min(numel, (r + 1) * chunk), local_len=chunk)
             self.entries.append((name, p, numel, chunk, shard,
                                  tuple(p.shape)))
             p._sharded_owner = self
@@ -89,6 +101,7 @@ class ShardedUpdate:
         """Each shard's ``grad``: this rank's chunk of the gradient
         averaged over ``data_group`` (``data_ranks`` ranks)."""
         from ...communication import all_reduce, reduce_scatter
+        from ...compressed import ring_reduce_scatter
         n = self.group.nranks
         r = max(self.group.rank, 0)
         for dtype, ents in self._buckets().items():
@@ -102,6 +115,12 @@ class ShardedUpdate:
             if self.stage == 1:
                 all_reduce(full, group=data_group)
                 mine = full[r]
+            elif self.wire_bits:
+                # the encoded ring: this rank's row of the sum
+                mine = ring_reduce_scatter(
+                    full, self.group, 0, bits=self.wire_bits,
+                    generator=self.generator).reshape(-1)
+                all_reduce(mine, group=self.dp_group)
             else:
                 # the JAX form: ``full`` (one row a rank) becomes its row
                 reduce_scatter(full, group=self.group)
@@ -147,6 +166,17 @@ class ShardedUpdate:
         every rank's chunk gradients (after :meth:`reduce_grads`)."""
         return {e[0]: value.view(e[5]).clone() for e, value in self._gather(
             lambda e: e[4].grad)}
+
+    @torch.no_grad()
+    def refresh_shards(self):
+        """Each chunk from its (whole) parameter, after the parameters
+        were written from outside (a checkpoint load)."""
+        r = max(self.group.rank, 0)
+        for _, p, numel, chunk, shard, _ in self.entries:
+            flat = p.detach().reshape(-1)
+            lo, hi = min(r * chunk, numel), min((r + 1) * chunk, numel)
+            shard.zero_()
+            shard[:hi - lo].copy_(flat[lo:hi])
 
     def release(self):
         """Stage 3: drop the gathered parameters until

@@ -6,7 +6,10 @@ injection *site*.  Sites are wired into the code as
 ``fault_point(site, **ctx)`` or ``should_drop(site, **ctx)`` calls;
 with no plan installed they do nothing.  The port wires the serving
 router's two (:data:`KNOWN_SITES`): ``replica.spawn`` before a replica
-is built and ``router.shed`` before an admission is shed.
+is built and ``router.shed`` before an admission is shed; and the
+checkpoint manager's three: ``checkpoint.save`` before a step's files
+are written, ``checkpoint.commit`` before its manifest and
+``checkpoint.restore`` before a step is read.
 
 Rules match by **call count** at the site (``at``/``count``: "calls
 N..N+count-1") or by **context** (``match``: "fire when ctx['n'] ==
@@ -44,6 +47,9 @@ FAULT_PLAN_ENV = "PADDLE_TORCH_FAULT_PLAN"
 KNOWN_SITES = frozenset({
     "router.shed",         # droppable: serving router sheds an admission
     "replica.spawn",       # serving router spawns a new replica
+    "checkpoint.save",     # a checkpoint step's write
+    "checkpoint.commit",   # its manifest, strictly after the data
+    "checkpoint.restore",  # a checkpoint step's read
 })
 
 

@@ -53,7 +53,8 @@ from ..distributed.fleet.meta_parallel import (ColumnParallelLinear,
                                                VocabParallelEmbedding)
 from ..distributed.fleet.meta_parallel.context_parallel import (
     ring_flash_attention, ulysses_attention)
-from ..distributed.fleet.meta_parallel.mp_ops import c_identity
+from ..distributed.fleet.meta_parallel.mp_ops import (c_identity,
+                                                      vocab_parallel_lmce)
 from ..distributed.fleet.meta_parallel.pp_layers import (LayerDesc,
                                                          PipelineLayer)
 from ..distributed.fleet.recompute import recompute
@@ -209,6 +210,11 @@ class GPTAttention(Layer):
         self.qkv_proj = ColumnParallelLinear(
             config.hidden_size, 3 * config.hidden_size, gather_output=False,
             **kw)
+        # a rank's columns are its heads of q, of k and of v: the whole
+        # tensor's last dim, viewed (3, heads, head_dim), splits on heads
+        for p in (self.qkv_proj.weight, self.qkv_proj.bias):
+            p.split_view = (3, config.num_attention_heads, self.head_dim)
+            p.split_view_axis = 1
         self.out_proj = RowParallelLinear(
             config.hidden_size, config.hidden_size, input_is_parallel=True,
             **kw)
@@ -369,16 +375,20 @@ class GPTPretrainingCriterion(Layer):
 
     def _fused_loss(self, hidden, labels):
         b, s, d = hidden.shape
-        per_tok = fused_linear_cross_entropy(
-            hidden.reshape(b * s, d), self._lm_weight_fn(),
-            labels.reshape(b * s))
+        w = self._lm_weight_fn()
+        if hidden.dtype != w.dtype:
+            # the head's matmul operands, as auto_cast would cast them
+            # (O2's final LayerNorm hands fp32 states to a bf16 weight)
+            hidden = hidden.to(w.dtype)
+        group = getattr(self, "_vocab_group", None)
+        if group is not None:
+            per_tok = vocab_parallel_lmce(
+                c_identity(hidden, group).reshape(b * s, d), w,
+                labels.reshape(b * s), group)
+        else:
+            per_tok = fused_linear_cross_entropy(
+                hidden.reshape(b * s, d), w, labels.reshape(b * s))
         return per_tok.reshape(b, s)
-
-
-FUSED_LMCE_MP_REFUSAL = (
-    "enable_fused_lmce at mp > 1: the fused lm-head cross-entropy over a "
-    "vocabulary split across ranks is not ported yet; it waits in ROADMAP "
-    "queue A, item A10 (enable_fused_lmce at mp > 1)")
 
 
 def enable_fused_lmce(model: GPTForCausalLM,
@@ -387,11 +397,14 @@ def enable_fused_lmce(model: GPTForCausalLM,
     cross-entropy path (the JAX package's ``PADDLE_TPU_FUSED_LMCE``
     configuration).  The kernel's ``dw`` reaches the tied embedding
     ``Parameter`` through autograd, beside the lookup's gradient.  Under
-    mp > 1 it refuses (:data:`FUSED_LMCE_MP_REFUSAL`)."""
-    if model.gpt.embeddings.word_embeddings._group is not None:
-        raise NotImplementedError(FUSED_LMCE_MP_REFUSAL)
+    mp > 1 each rank runs the kernels on its vocabulary shard of the
+    tied weight (``mp_ops.vocab_parallel_lmce``), the hidden states
+    entering through ``c_identity`` as the unfused head takes them: the
+    loss is the one over the whole vocabulary, and no rank gathers the
+    weight."""
     model.skip_lm_head = True
     criterion._lm_weight_fn = model.lm_weight
+    criterion._vocab_group = model.gpt.embeddings.word_embeddings._group
     return model, criterion
 
 

@@ -383,19 +383,39 @@ class Optimizer:
                 self._params[i] = new
                 self._state.pop(i, None)
 
-    def state_dict(self) -> Dict[str, object]:
-        """``<param name>.<slot>`` for every slot of every state (the
-        moments, the beta powers, ``master_weight``), as CPU copies,
-        ``LR_Scheduler`` (the scheduler's ``state_dict``, Python
-        scalars) under a scheduler, and ``global_step``: the JAX
-        package's keys and only those.  The host step counts are not
-        written; :meth:`set_state_dict` rebuilds them."""
+    def slots(self, layout_of, copy: bool = True) -> Dict[str, object]:
+        """``<param name>.<slot>`` for every slot of every state but the
+        host step count, as CPU copies when ``copy`` (else the live
+        tensors); a slot of its parameter's shape is presented as a
+        ``ShardedTensor`` of ``layout_of(param)`` where that is a
+        layout (not None)."""
         out: Dict[str, object] = {}
+        params = self._parameter_list
         for i in sorted(self._state):
             name = self._param_name(i)
+            layout = layout_of(params[i])
             for k, v in self._state[i].items():
-                if k != "steps":
-                    out[f"{name}.{k}"] = v.detach().cpu().clone()
+                if k == "steps":
+                    continue
+                if copy:
+                    v = v.detach().cpu().clone()
+                if layout is not None and v.dim() and \
+                        tuple(v.shape) == tuple(params[i].shape):
+                    v = layout.wrap(v)
+                out[f"{name}.{k}"] = v
+        return out
+
+    def state_dict(self) -> Dict[str, object]:
+        """:meth:`slots` (the moments, the beta powers,
+        ``master_weight``), ``LR_Scheduler`` (the scheduler's
+        ``state_dict``, Python scalars) under a scheduler, and
+        ``global_step``: the JAX package's keys and only those.  The
+        host step counts are not written; :meth:`set_state_dict`
+        rebuilds them.  A parameter that is a chunk of a whole one (a
+        sharding stage's or the sharded weight update's: its
+        ``_global_layout``) presents its slots as ``ShardedTensor`` s:
+        the chunk and its place in the whole-shape tensor."""
+        out = self.slots(lambda p: getattr(p, "_global_layout", None))
         if isinstance(self._learning_rate, LRScheduler):
             out["LR_Scheduler"] = self._learning_rate.state_dict()
         out["global_step"] = self._global_step
@@ -478,16 +498,32 @@ class Optimizer:
         if "LR_Scheduler" in sd and isinstance(self._learning_rate,
                                                LRScheduler):
             self._learning_rate.set_state_dict(sd["LR_Scheduler"])
+        params = self._parameter_list
+        index = {self._param_name(i): i for i in range(len(params))}
         groups: Dict[str, dict] = {}
         for key, v in sd.items():
             if key in ("LR_Scheduler", "global_step") or \
                     not isinstance(key, str):
                 continue
             name, _, slot = key.rpartition(".")
+            if getattr(v, "is_sharded_tensor", False):
+                # a slice of a whole-shape slot, as this optimizer's piece
+                i = index.get(name)
+                p = params[i] if i is not None else None
+                v = v.local_for(getattr(p, "_global_layout", None),
+                                tuple(p.shape)) if p is not None \
+                    else v.local
+            elif isinstance(v, (torch.Tensor, np.ndarray)) and name in index:
+                # a whole-shape slot into a piece of it
+                p = params[index[name]]
+                layout = getattr(p, "_global_layout", None)
+                t = _as_tensor(v)
+                if layout is not None and t.dim() and \
+                        tuple(t.shape) != tuple(p.shape) and \
+                        t.numel() == math.prod(layout.global_shape):
+                    v = layout.take(t.reshape(layout.global_shape))
             if name:
                 groups.setdefault(name, {})[slot] = _as_tensor(v)
-        params = self._parameter_list
-        index = {self._param_name(i): i for i in range(len(params))}
 
         def fits(i, st):
             return all(t.ndim == 0 or tuple(t.shape) == tuple(params[i].shape)

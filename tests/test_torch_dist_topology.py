@@ -267,31 +267,60 @@ def test_pipelined_runner_refuses_the_folded_entry(clean_registry):
         runner.train_steps_folded([])
 
 
-@pytest.mark.parametrize("knob", ["bits", "shard", "env", "strategy"])
+@pytest.mark.parametrize("knob", ["bits4", "env_x", "mp2", "clip_by_norm"])
 def test_compressed_dp_knobs_refuse(knob, monkeypatch, clean_registry):
+    """What the JAX package's compressed dp path refuses, with its
+    messages: 4 bits, an env value that is no width, compression beside
+    mp 2, and a clip by norm under the sharded update."""
     from paddle_tpu_torch.distributed import DistributedRunner
-    net, opt = _tiny()
-    if knob == "strategy":
-        s = _init(clean_registry)
+    if knob == "mp2":
+        s = _init(clean_registry, dp_degree=2, mp_degree=2)
         s.quantized_allreduce = 8
-        with pytest.raises(ValueError, match="compressed.py.*A10"):
-            tfleet.distributed_runner(net, opt)
+        with pytest.raises(ValueError, match="other mesh axis.*'mp': 2"):
+            tfleet.distributed_runner(*_tiny())
         return
-    kw = {"bits": dict(dp_compress_bits=8),
-          "shard": dict(dp_shard_update=True), "env": {}}[knob]
-    if knob == "env":
-        monkeypatch.setenv("PADDLE_TPU_DP_COMPRESS", "16")
-    with pytest.raises(NotImplementedError, match="compressed.py.*A10"):
-        DistributedRunner(net, opt, **kw)
+    _init(clean_registry, dp_degree=2)
+    net, opt = _tiny()
+    if knob == "bits4":
+        with pytest.raises(ValueError, match="must be 0 .off., 8 .int8 "
+                           "ring. or 16"):
+            DistributedRunner(net, opt, dp_compress_bits=4)
+    elif knob == "env_x":
+        monkeypatch.setenv("PADDLE_TPU_DP_COMPRESS", "x")
+        with pytest.raises(ValueError, match="PADDLE_TPU_DP_COMPRESS='x': "
+                           "expected 0, 8 or 16"):
+            DistributedRunner(net, opt)
+    else:
+        opt._grad_clip = tpaddle.nn.ClipGradByNorm(1.0)
+        with pytest.raises(ValueError, match="sharded_weight_update "
+                           "supports ClipGradByGlobalNorm"):
+            DistributedRunner(net, opt, dp_shard_update=True)
 
 
 def test_fused_lmce_at_mp2_refuses(clean_registry):
-    from paddle_tpu_torch.models import (GPTPretrainingCriterion,
-                                         enable_fused_lmce)
+    """At mp 2 ``enable_fused_lmce`` takes the vocab-parallel route (it
+    refused before this route came); what stays refused beside the mp
+    runs is a ``PipelinedRunner``'s runner checkpoint: the JAX runner
+    tree needs ``place()``, which the JAX ``PipelinedRunner`` lacks."""
+    from paddle_tpu_torch.distributed.checkpoint import save_runner_state
+    from paddle_tpu_torch.distributed.runner import PipelinedRunner
+    from paddle_tpu_torch.models import (GPTForCausalLMPipe,
+                                         GPTPretrainingCriterion,
+                                         enable_fused_lmce, gpt_tiny)
     _init(clean_registry, mp_degree=2)
     net, _ = _tiny()
-    with pytest.raises(NotImplementedError, match="enable_fused_lmce.*A10"):
-        enable_fused_lmce(net, GPTPretrainingCriterion())
+    crit = GPTPretrainingCriterion()
+    enable_fused_lmce(net, crit)
+    assert net.skip_lm_head and crit._vocab_group is not None
+    tfleet._fleet._hcg = None
+    from paddle_tpu_torch.distributed import collective
+    collective.set_mesh(None)
+    pipe = GPTForCausalLMPipe(gpt_tiny(max_position_embeddings=64),
+                              device="cpu")
+    runner = PipelinedRunner(pipe, tpaddle.optimizer.SGD(
+        learning_rate=0.1, parameters=pipe.parameters()))
+    with pytest.raises(NotImplementedError, match="PipelinedRunner.*place"):
+        save_runner_state(runner, "unused")
 
 
 def test_enable_resilience_refuses():

@@ -108,6 +108,16 @@ def test_pipeline_ranks_import_no_jax(tmp_path_factory):
     assert [r["foreign_modules"] for r in ranks] == [[]] * 4
 
 
+def test_checkpoint_ranks_import_no_jax(tmp_path_factory):
+    """The ranks of ``tests/test_torch_dist_checkpoint.py``'s world (the
+    checkpoint's save, reshard and manager, the compressed ring, the
+    fused LMCE over a split vocabulary) load neither JAX nor the JAX
+    package."""
+    from test_torch_dist_checkpoint import checkpoint_ranks
+    res, _ = checkpoint_ranks(tmp_path_factory)
+    assert [r["foreign_modules"] for r in res] == [[]] * 4
+
+
 def _port_sources():
     for root, _, files in os.walk(PORT):
         if "_build" in root.split(os.sep):
@@ -158,7 +168,13 @@ def test_no_source_names_jax_or_the_jax_package():
                 "distributed/fleet/meta_parallel/sharding_parallel.py",
                 "distributed/fleet/meta_optimizers/dygraph_optimizer.py",
                 "distributed/fleet/recompute/__init__.py",
-                "distributed/fleet/utils/hybrid_parallel_util.py"):
+                "distributed/fleet/utils/hybrid_parallel_util.py",
+                "distributed/compressed.py",
+                "distributed/resilience/retry.py",
+                "distributed/checkpoint/__init__.py",
+                "distributed/checkpoint/layout.py",
+                "distributed/checkpoint/reshard.py",
+                "distributed/checkpoint/manager.py"):
         assert os.path.join(PORT, mod) in sources, mod
     for path in sources:
         with open(path, encoding="utf-8") as fh:

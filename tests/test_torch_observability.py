@@ -291,8 +291,9 @@ def test_every_fault_site_in_the_port_is_known():
             if f.endswith(".py"):
                 with open(os.path.join(root, f), encoding="utf-8") as fh:
                     sites |= set(pat.findall(fh.read()))
-    assert sites == set(tfaults.KNOWN_SITES) == {"router.shed",
-                                                 "replica.spawn"}
+    assert sites == set(tfaults.KNOWN_SITES) == {
+        "router.shed", "replica.spawn", "checkpoint.save",
+        "checkpoint.commit", "checkpoint.restore"}
     assert tfaults.KNOWN_SITES <= jfaults.KNOWN_SITES
 
 

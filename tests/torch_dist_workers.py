@@ -14,10 +14,12 @@ Every world has its own timeout: a hung world fails its tests and ends
 its processes.
 """
 
+import json
 import os
 import pickle
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -901,4 +903,390 @@ def context_world(paddle, inputs):
     res["sep_runs"] = _sep_runs(paddle, inputs)
     res["sp"] = _sp_cases(paddle, inputs)
     res["ernie"] = _ernie_stage2(paddle, inputs)
+    return res
+
+
+# -- world: the compressed dp path (tests/test_torch_dist_compressed.py) -----
+def toy_data(step):
+    """The JAX ``_toy`` test's batch of a step (``tests/
+    test_dp_compressed.py::_data``)."""
+    rng = np.random.RandomState(100 + step)
+    return (rng.rand(8, 8).astype(np.float32),
+            rng.rand(8, 4).astype(np.float32))
+
+
+def toy_run(paddle, state, bits, shard, clip=None, acc=1, steps=3,
+            runner_kw=None):
+    """The JAX ``_toy`` model (``Linear(8, 16)``, ReLU, ``Linear(16, 4)``,
+    Adam 1e-2, MSE) from ``state`` through ``DistributedRunner`` on the
+    registered topology: losses, weights, optimizer bytes, byte model."""
+    from paddle_tpu_torch.distributed import DistributedRunner
+    nn = paddle.nn
+    net = nn.Sequential(nn.Linear(8, 16), nn.ReLU(), nn.Linear(16, 4))
+    net.set_state_dict(state)
+    opt = paddle.optimizer.Adam(
+        learning_rate=1e-2, parameters=net.parameters(),
+        grad_clip=nn.ClipGradByGlobalNorm(clip) if clip else None)
+    runner = DistributedRunner(net, opt, nn.MSELoss(), accumulate_steps=acc,
+                               dp_compress_bits=bits, dp_shard_update=shard,
+                               **(runner_kw or {}))
+    losses = [runner.train_step([x], [y])
+              for x, y in (toy_data(s) for s in range(steps))]
+    return {"losses": losses,
+            "params": {n: p.detach().numpy().copy()
+                       for n, p in net.named_parameters()},
+            "state_bytes": runner.optimizer_state_bytes(),
+            "info": runner._dp_comm_info, "runner": runner, "net": net,
+            "opt": opt}
+
+
+TOY_RUNS = {"ref": (0, False), "b16": (16, False), "sh": (0, True),
+            "sh16": (16, True), "b8": (8, False)}
+
+
+def compressed_world2(paddle, inputs):
+    """dp2: the JAX ``tests/test_dp_compressed.py`` runs of the toy."""
+    from paddle_tpu_torch.observability import metrics
+    paddle.distributed.init_parallel_env()
+    _fleet(paddle, {"dp_degree": 2})
+    state = inputs["toy_state"]
+    res = {}
+
+    def keep(run):
+        return {k: run[k] for k in ("losses", "params", "state_bytes",
+                                    "info")}
+
+    for name, (bits, shard) in TOY_RUNS.items():
+        res[name] = keep(toy_run(paddle, state, bits, shard))
+    res["refc"] = keep(toy_run(paddle, state, 0, False, clip=0.5))
+    res["sh16c"] = keep(toy_run(paddle, state, 16, True, clip=0.5))
+    res["refa"] = keep(toy_run(paddle, state, 0, False, acc=2))
+    res["sh16a"] = keep(toy_run(paddle, state, 16, True, acc=2))
+    reg = metrics.registry()
+    before = reg.counter("dp_allreduce_bytes_total").collect()
+    run = toy_run(paddle, state, 8, True, steps=2)
+    res["registry"] = {
+        "bytes": reg.counter("dp_allreduce_bytes_total").collect() - before,
+        "ratio": reg.gauge("dp_compress_ratio").collect(),
+        "info": run["info"]}
+    # the optimizer's state_dict presents the slices whole-shape
+    sd = run["opt"].state_dict()
+    res["state_dict"] = {k: (tuple(v.shape), getattr(v, "is_sharded_tensor",
+                                                     False))
+                         for k, v in sd.items() if k.endswith(".moment1")}
+    return res
+
+
+def _ring_results(paddle, inputs):
+    import torch
+    from paddle_tpu_torch.distributed import compressed as C
+    dist = paddle.distributed
+    r = dist.get_rank()
+    halves = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+    pair = halves[r // 2]
+    out = {}
+    x = torch.tensor(inputs["ar"][r])
+    out["ar16"] = C.quantized_all_reduce(x, bits=16).numpy()
+    out["ar8"] = C.quantized_all_reduce(x, bits=8).numpy()
+    out["trials"] = []
+    for t in range(5):
+        gen = torch.Generator().manual_seed(100 + t + 1000 * r)
+        out["trials"].append(C.quantized_all_reduce(
+            torch.tensor(inputs["trial"][r]), bits=8,
+            generator=gen).numpy())
+    rs = torch.tensor(inputs["rs"][r])
+    out["rs16"] = C.ring_reduce_scatter(rs, shard_axis=0, bits=16).numpy()
+    out["rs8"] = C.ring_reduce_scatter(rs, shard_axis=0, bits=8).numpy()
+    out["rs16_axis1"] = C.ring_reduce_scatter(
+        torch.tensor(inputs["rs1"][r]), shard_axis=1, bits=16).numpy()
+    out["rs16_w2"] = C.ring_reduce_scatter(
+        torch.tensor(inputs["rs2"][r]), group=pair, shard_axis=0,
+        bits=16).numpy()
+    out["bf16"] = C.bf16_all_reduce(torch.tensor(inputs["bf"][r])).numpy()
+    out["tree"] = {}
+    for mode in ("none", "bf16", "int8", "exact16"):
+        tree = C.compressed_psum_tree(
+            {"a": torch.tensor(inputs["g1"][r]),
+             "b": torch.tensor(inputs["g2"][r])}, mode=mode)
+        out["tree"][mode] = {k: v.numpy() for k, v in tree.items()}
+    x = torch.tensor(inputs["ar"][r][:256 * 4 * 3])
+    q, s = C._block_quant(x, 256, 8, noise=torch.zeros(12, 256))
+    out["payload_dtypes"] = (str(q.dtype), str(s.dtype))
+    return out
+
+
+def compressed_world(paddle, inputs):
+    """dp4: the rings over the world and a pair of two-rank groups, and the
+    toy at dp4 (plain, int8 ring, exact ring with the sharded update)."""
+    from paddle_tpu_torch.distributed import communication as comm
+    paddle.distributed.init_parallel_env()
+    res = {"rings": _ring_results(paddle, inputs)}
+    _fleet(paddle, {"dp_degree": 4})
+    state = inputs["toy_state"]
+    for name, (bits, shard) in (("ref", (0, False)), ("b8", (8, False)),
+                                ("sh16", (16, True)), ("sh8", (8, True))):
+        comm.reset_counts()
+        run = toy_run(paddle, state, bits, shard)
+        res[name] = {"losses": run["losses"], "params": run["params"],
+                     "state_bytes": run["state_bytes"], "info": run["info"],
+                     "stats": comm.comm_stats()}
+    return res
+
+
+# -- world: the distributed checkpoint and the fused LMCE at mp > 1
+#    (tests/test_torch_dist_checkpoint.py) ---------------------------------------
+def _ckpt_gpt(paddle, inputs, hcg, kind="adamw", fused=False, state=None):
+    """gpt_tiny from the JAX weights (this rank's mp shard), its optimizer
+    (AdamW 1e-3 as the JAX checkpoint test, or SGD at ``inputs["lmce_lr"]``
+    for the LMCE runs) and criterion."""
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion, gpt_tiny,
+                                         state_dict_from_jax,
+                                         enable_fused_lmce)
+    cfg = gpt_tiny(**inputs["cfg"])
+    net = GPTForCausalLM(cfg, device="cpu")
+    net.load_state_dict(state_dict_from_jax(
+        inputs["state"] if state is None else state, cfg,
+        hcg.get_model_parallel_rank(), hcg.get_model_parallel_world_size()))
+    if kind == "adamw":
+        opt = paddle.optimizer.AdamW(learning_rate=1e-3,
+                                     parameters=net.parameters())
+    else:
+        opt = paddle.optimizer.SGD(learning_rate=inputs["lmce_lr"],
+                                   parameters=net.parameters())
+    crit = GPTPretrainingCriterion()
+    if fused:
+        enable_fused_lmce(net, crit)
+    return cfg, net, opt, crit
+
+
+def _moments(opt, hcg, cfg, leaves):
+    """``{"<leaf>.<moment>": whole moment}`` of AdamW's two moments of
+    each of ``leaves``, joined over mp (numpy)."""
+    from paddle_tpu_torch.models.gpt import merge_mp_states
+    inner = getattr(opt, "_inner_opt", opt)
+    mine = {}
+    for leaf in leaves:
+        st = inner._state[inner._param_names.index(leaf)]
+        for slot in ("moment1", "moment2"):
+            mine[f"{leaf}.{slot}"] = {leaf: st[slot].detach().numpy().copy()}
+    parts = _gathered(hcg.get_model_parallel_group(), mine)
+    return {k: merge_mp_states([p[k] for p in parts], cfg)[k.rsplit(
+        ".", 1)[0]] for k in mine}
+
+
+def _ckpt_layouts(paddle, inputs):
+    """Save at dp2 x mp2 (runner state and the manager), resume in the
+    same layout, at dp4, under stage 2 and back."""
+    from paddle_tpu_torch.distributed import DistributedRunner
+    from paddle_tpu_torch.distributed.checkpoint import (
+        CheckpointManager, load_runner_state, save_runner_state)
+    import torch
+    dist = paddle.distributed
+    root = inputs["dir"]
+    x, y = inputs["batch"]
+    out = {}
+    hcg = _fleet(paddle, {"dp_degree": 2, "mp_degree": 2})
+    cfg, net, opt, crit = _ckpt_gpt(paddle, inputs, hcg)
+    runner = DistributedRunner(net, opt, crit)
+    mgr = CheckpointManager(os.path.join(root, "mgr"), save_interval_steps=2,
+                            max_to_keep=2, async_save=False)
+    losses = []
+    for step in (1, 2, 3, 4):
+        losses.append(runner.train_step([x], [y]))
+        if step == 2:
+            save_runner_state(runner, os.path.join(root, "src"))
+            out["moment_src"] = _moments(opt, hcg, cfg, inputs["leaves"])
+        mgr.save(step, net, opt)
+    out["losses"] = losses
+    out["state4"] = _full_state(cfg, net, hcg)
+    out["mgr_steps"] = mgr.all_steps()
+    out["mgr_files"] = sorted(json.load(open(os.path.join(
+        root, "mgr", "4", "RESILIENCE_MANIFEST.json")))["files"])
+    out["mgr_verified"] = [mgr.verify_step(s) for s in mgr.all_steps()]
+    # (a) the same layout, fresh runner, from the step-2 runner state
+    cfg, net, opt, crit = _ckpt_gpt(paddle, inputs, hcg,
+                                    state=inputs["other_state"])
+    runner = DistributedRunner(net, opt, crit)
+    load_runner_state(runner, os.path.join(root, "src"))
+    out["same"] = [runner.train_step([x], [y]) for _ in range(2)]
+    out["same_state"] = _full_state(cfg, net, hcg)
+    # the manager: step 4 torn on rank 2's file, restore() returns 2
+    dist.barrier()
+    if dist.get_rank() == 2:
+        victim = os.path.join(root, "mgr", "4", "rank2.pt")
+        with open(victim, "r+b") as f:
+            f.truncate(os.path.getsize(victim) // 2)
+    dist.barrier()
+    cfg, net, opt, crit = _ckpt_gpt(paddle, inputs, hcg,
+                                    state=inputs["other_state"])
+    mgr = CheckpointManager(os.path.join(root, "mgr"), async_save=False)
+    out["torn_verified"] = mgr.verify_step(4)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out["restored"] = mgr.restore(net, opt)
+    out["restore_warnings"] = [str(w.message) for w in caught]
+    runner = DistributedRunner(net, opt, crit)
+    out["after_restore"] = [runner.train_step([x], [y]) for _ in range(2)]
+    # (b) dp4
+    hcg = _fleet(paddle, {"dp_degree": 4})
+    cfg, net, opt, crit = _ckpt_gpt(paddle, inputs, hcg,
+                                    state=inputs["other_state"])
+    runner = DistributedRunner(net, opt, crit)
+    load_runner_state(runner, os.path.join(root, "src"))
+    out["dp4_moments"] = _moments(opt, hcg, cfg, inputs["leaves"])
+    # steps 3 and 4: step 4's loss and the weights after it read the
+    # resharded moments
+    out["dp4"] = [runner.train_step([x], [y]) for _ in range(2)]
+    out["dp4_step"] = opt._global_step
+    out["dp4_state"] = _full_state(cfg, net, hcg)
+    # stage 2 over four ranks: each chunk the new layout's
+    hcg = _fleet(paddle, {"sharding_degree": 4})
+    cfg, net, opt, crit = _ckpt_gpt(paddle, inputs, hcg,
+                                    state=inputs["other_state"])
+    runner = DistributedRunner(net, opt, crit, sharding_stage=2)
+    load_runner_state(runner, os.path.join(root, "src"))
+    sharded = runner._update.sharded
+    i = [e[0] for e in sharded.entries].index(inputs["leaf"])
+    out["stage2_chunk"] = sharded.optimizer._state[i]["moment1"].numpy(
+        ).copy()
+    out["stage2_chunk_len"] = sharded.entries[i][3]
+    out["stage2"] = [runner.train_step([x], [y])]
+    save_runner_state(runner, os.path.join(root, "st2"))
+    out["stage2"].append(runner.train_step([x], [y]))
+    out["stage2_state"] = _full_state(cfg, net, hcg)
+    # ... and back into dp2 x mp2
+    hcg = _fleet(paddle, {"dp_degree": 2, "mp_degree": 2})
+    cfg, net, opt, crit = _ckpt_gpt(paddle, inputs, hcg)
+    runner = DistributedRunner(net, opt, crit)
+    load_runner_state(runner, os.path.join(root, "st2"))
+    out["from_stage2"] = runner.train_step([x], [y])
+    return out
+
+
+def _ckpt_plain_tree(paddle, inputs):
+    """A row-split tree saved over four ranks, loaded column-split."""
+    import torch
+    from paddle_tpu_torch.distributed.checkpoint import (
+        Layout, ShardedTensor, load_state_dict, save_state_dict)
+    r = paddle.distributed.get_rank()
+    w = np.arange(32, dtype=np.float32).reshape(8, 4)
+    rows = Layout((8, 4), [((2 * r, 0), (2, 4), 0)], (2, 4))
+    path = os.path.join(inputs["dir"], "tree")
+    save_state_dict({"w": ShardedTensor(torch.tensor(w[2 * r:2 * r + 2]),
+                                        rows),
+                     "b": torch.ones(4), "step": 7}, path)
+    col = Layout((8, 4), [((0, r), (8, 1), 0)], (8, 1))
+    tgt = {"w": ShardedTensor(torch.zeros(8, 1), col),
+           "b": torch.zeros(4), "step": 0}
+    load_state_dict(tgt, path)
+    return {"w": tgt["w"].local.numpy(), "b": tgt["b"].numpy(),
+            "step": tgt["step"]}
+
+
+def _ckpt_sharded_update(paddle, inputs):
+    """The dp4 sharded update (exact ring) saved by the manager and
+    resumed bit-identically in a fresh runner from other weights; the
+    same checkpoint into an unsharded runner holds the whole moments."""
+    from paddle_tpu_torch.distributed.checkpoint import CheckpointManager
+    _fleet(paddle, {"dp_degree": 4})
+    state, other = inputs["toy_state"], inputs["toy_other"]
+    path = os.path.join(inputs["dir"], "shup")
+    ref = toy_run(paddle, state, 16, True, steps=6)
+    first = toy_run(paddle, state, 16, True, steps=0)
+    with CheckpointManager(path, async_save=True) as mgr:
+        for s in range(3):
+            first["runner"].train_step(*map(lambda a: [a], toy_data(s)))
+            # async: the next step updates the weights while the files
+            # are written; the save holds the host copy taken here
+            mgr.save(s + 1, first["net"], first["opt"], force=True)
+    moments = {k: v for k, v in first["opt"].state_dict().items()
+               if k.endswith(".moment1")}
+    again = toy_run(paddle, other, 16, True, steps=0)
+    mgr = CheckpointManager(path, async_save=False)
+    step = mgr.restore(again["net"], again["opt"])
+    for s in range(3, 6):
+        again["runner"].train_step(*map(lambda a: [a], toy_data(s)))
+    plain = toy_run(paddle, other, 0, False, steps=0)
+    mgr.restore(plain["net"], plain["opt"], step=3)
+    whole = {k: v for k, v in plain["opt"].state_dict().items()
+             if k.endswith(".moment1")}
+    return {"step": step,
+            "ref": ref["params"],
+            "resumed": {n: p.detach().numpy().copy()
+                        for n, p in again["net"].named_parameters()},
+            "slices": {k: (v.local.numpy(), v.layout.segments)
+                       for k, v in moments.items()},
+            "whole": {k: v.numpy() for k, v in whole.items()}}
+
+
+def _lmce_runs(paddle, inputs):
+    """``enable_fused_lmce`` at mp2 (dp2 x mp2) and mp4: three SGD steps
+    through ``DistributedRunner`` (the whole weights after each), and
+    the composition's plain version against ``lmce_reference`` on the
+    whole vocabulary."""
+    import torch
+    from paddle_tpu_torch.distributed import DistributedRunner
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.mp_ops import (
+        vocab_parallel_lmce, vocab_parallel_lmce_reference)
+    from paddle_tpu_torch.ops import lmce_kernel as lk
+    out = {}
+    x, y = inputs["lmce_batch"]
+    for name, hybrid in (("mp2", {"dp_degree": 2, "mp_degree": 2}),
+                         ("mp4", {"mp_degree": 4})):
+        hcg = _fleet(paddle, hybrid)
+        cfg, net, opt, crit = _ckpt_gpt(paddle, inputs, hcg, kind="sgd",
+                                        fused=True)
+        runner = DistributedRunner(net, opt, crit)
+        lk.reset_counts()
+        losses, states = [], []
+        for _ in range(3):
+            losses.append(runner.train_step([x], [y]))
+            states.append(_full_state(cfg, net, hcg))
+        out[name] = {"losses": losses, "states": states,
+                     "plain_calls": {f.__name__: f.plain_calls
+                                     for f in lk.WRAPPERS}}
+        # the composition and its plain version on the whole vocabulary
+        g = hcg.get_model_parallel_group()
+        rng = np.random.default_rng(5)
+        h = rng.standard_normal((24, 16)).astype(np.float32)
+        w = rng.standard_normal((64, 16)).astype(np.float32)
+        lab = rng.integers(0, 64, 24)
+        lab[[2, 9]] = -100
+        lab[5] = -1
+        n, rk = g.nranks, g.rank
+        per = 64 // n
+        res = {}
+        for kind, fn in (("kernel", vocab_parallel_lmce),
+                         ("plain", vocab_parallel_lmce_reference)):
+            ht = torch.tensor(h, requires_grad=True)
+            wt = torch.tensor(w[rk * per:(rk + 1) * per], requires_grad=True)
+            loss = fn(ht, wt, torch.tensor(lab), g)
+            (loss * torch.arange(24.0)).sum().backward()
+            dw = _gathered(g, {"dw": wt.grad.numpy()})
+            res[kind] = {"loss": loss.detach().numpy(),
+                         "dh": ht.grad.numpy(),   # this rank's share
+                         "dw": np.concatenate([d["dw"] for d in dw])}
+        ht = torch.tensor(h, requires_grad=True)
+        wt = torch.tensor(w, requires_grad=True)
+        loss, _ = lk.lmce_reference(ht, wt, torch.tensor(lab))
+        (loss * torch.arange(24.0)).sum().backward()
+        res["whole"] = {"loss": loss.detach().numpy(), "dh": ht.grad.numpy(),
+                        "dw": wt.grad.numpy()}
+        dh = _gathered(g, {"dh": res["kernel"]["dh"]})
+        res["kernel"]["dh"] = sum(d["dh"] for d in dh)
+        dh = _gathered(g, {"dh": res["plain"]["dh"]})
+        res["plain"]["dh"] = sum(d["dh"] for d in dh)
+        out[name]["composition"] = res
+    return out
+
+
+def checkpoint_world(paddle, inputs):
+    import torch
+    paddle.distributed.init_parallel_env()
+    torch.manual_seed(0)
+    res = {"layouts": _ckpt_layouts(paddle, inputs),
+           "tree": _ckpt_plain_tree(paddle, inputs),
+           "shup": _ckpt_sharded_update(paddle, inputs),
+           "lmce": _lmce_runs(paddle, inputs)}
     return res
